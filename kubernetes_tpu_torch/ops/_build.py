@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` (plus the shared `csrc/common.cuh`) compiles on its
+own with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+into `build/kernels/` at the repository root (listed in .gitignore), at
+first use. The file name carries a hash of the sources, so an edited
+kernel rebuilds and a stale library is never loaded. Each source exposes a
+plain C function `<name>_launch(...)` that launches on the stream it is
+given and returns `cudaGetLastError()`; the library is loaded with ctypes.
+
+`build_all()` starts one nvcc per source at once and waits for all of
+them: the whole build costs about one compile, not four.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NAMES = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+#: argument types of each library's `<name>_launch` (ctypes passes an
+#: untyped python int as a 32-bit int, which would cut a pointer)
+SIGNATURES = {
+    "local_total": [_I, _P, _P, _L, _L, _P, _P, _I, _P, _P, _P],
+    "schedule_cycle": [_I, _I, _L, _I, _L, _L, _L, _I, _I, _I, _I,
+                       ctypes.POINTER(_P), _P, _P, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "uniform_burst": [_I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "scatter_rows": [_I, _I, _L, _P, _P, _P],
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cand = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for home in cand:
+        p = Path(home) / "bin" / "nvcc"
+        if home and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for p in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _command(name: str, out: Path) -> list[str]:
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names=NAMES, verbose: bool = False) -> dict[str, float]:
+    """Compile every missing library, one nvcc per source, all started
+    together. Returns {name: seconds} for the libraries it built."""
+    import time
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        procs[name] = (subprocess.Popen(
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    took = {}
+    try:
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            if verbose:
+                print(f"[build] {name}: {log.strip()}")
+            os.replace(tmp, out)
+            took[name] = time.perf_counter() - t0
+    finally:
+        # a failed build leaves no compiler running behind it
+        for proc, _tmp, _out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,274 @@
+"""Encode-at-admission pod-row cache — the window prologue's gather source.
+
+PROFILE round-16's serve phase split puts the host prologue (per-pod
+feature extraction + class-signature tuples, re-run on EVERY window that
+drains a pod) second only to the pipelined-away device fetch. The numbers
+a window needs about a pod are pure functions of the pod's SPEC, which is
+immutable between resourceVersions — so this cache computes each pod's
+feature row ONCE, at informer delivery, and window planning gathers
+prebuilt rows (one `np.take` per field) instead of re-running the per-pod
+encode loop at line rate.
+
+Rows are keyed by (uid, resourceVersion): an update-in-place (same uid,
+new rv) re-encodes on the spot, a delete frees the slot, and a stale or
+missing row falls back to a fresh encode (counted, never wrong). The
+bit-identity contract — a cached row equals a fresh `encode_row` for
+every pod, field for field — is what keeps burst decisions oracle-parity
+by construction; tests/test_pod_rows.py fuzz-pins it, and the serve
+parity sweep drives it with mid-window pod updates.
+
+Class signatures are INTERNED: equal signatures share one tuple object,
+so the window's uniformity test degenerates to pointer compares and the
+per-sig feature/array memos in the burst drivers hit by identity.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from kubernetes_tpu_torch import obs
+from kubernetes_tpu_torch.api.types import (
+    Pod, get_container_ports, get_pod_nonzero_requests, get_resource_request,
+    has_pod_affinity_terms,
+)
+
+def pod_class_signature(pod: Pod) -> tuple:
+    """Spec fields that determine a pod's device features against a fixed
+    snapshot — equal signatures imply identical encoder output. THE
+    canonical definition (TPUScheduler._class_signature and the native
+    commitcore.class_signatures batch are its twins; the commit-core
+    parity tests pin all three element-for-element)."""
+    return (pod.namespace, tuple(sorted(pod.labels.items())),
+            tuple(sorted(pod.node_selector.items())), pod.affinity,
+            pod.tolerations, pod.node_name, pod.containers,
+            pod.init_containers)
+
+
+#: columnar int64 fields, in row order (gather() does one np.take each);
+#: profile_id (round 19) is the pod's scheduling-profile index — filled at
+#: admission like every other flag, gathered per window so mixed-tenant
+#: windows select their weight-tensor rows without touching the pod specs
+_I64_FIELDS = ("req_cpu", "req_mem", "req_eph", "nz_cpu", "nz_mem",
+               "upd_cpu", "upd_mem", "upd_eph", "priority", "profile_id")
+#: columnar bool fields
+_BOOL_FIELDS = ("has_request", "has_scalar", "has_aff_terms", "has_ports",
+                "has_volumes")
+
+
+def encode_row(pod: Pod, profile_fn=None) -> dict:
+    """THE per-pod feature row: every spec-derived scalar the window
+    prologue reads, in one place — insert() stores exactly this, the
+    lookup fallback recomputes exactly this, and the bit-identity fuzz
+    compares the two. Scalar (extended-resource) requests are kept as
+    sorted name->quantity items, NOT vocab-aligned arrays: the scalar
+    vocab belongs to the node snapshot, so alignment happens at the
+    window (cheap — scalar pods are rare) while the row stays
+    snapshot-independent. `profile_fn(scheduler_name) -> Optional[int]`
+    maps the pod to its scheduling-profile index (profiles.ProfileSet
+    .index_of); None/unset resolves to 0 — the default profile row."""
+    from kubernetes_tpu_torch.cache.node_info import calculate_resource
+    req = get_resource_request(pod)
+    upd = calculate_resource(pod)
+    nz_cpu, nz_mem = get_pod_nonzero_requests(pod)
+    pid = profile_fn(pod.scheduler_name) if profile_fn is not None else 0
+    return {
+        "req_cpu": req.milli_cpu, "req_mem": req.memory,
+        "req_eph": req.ephemeral_storage,
+        "nz_cpu": nz_cpu, "nz_mem": nz_mem,
+        "upd_cpu": upd.milli_cpu, "upd_mem": upd.memory,
+        "upd_eph": upd.ephemeral_storage,
+        "priority": pod.priority,
+        "profile_id": 0 if pid is None else int(pid),
+        "has_request": bool(req.milli_cpu or req.memory
+                            or req.ephemeral_storage or req.scalar),
+        "has_scalar": bool(req.scalar or upd.scalar),
+        "has_aff_terms": has_pod_affinity_terms(pod),
+        "has_ports": bool(get_container_ports(pod)),
+        "has_volumes": bool(pod.volumes),
+        "req_scalar_items": tuple(sorted(req.scalar.items())),
+        "upd_scalar_items": tuple(sorted(upd.scalar.items())),
+        "signature": pod_class_signature(pod),
+    }
+
+
+class PodRowCache:
+    """Columnar cache of pod feature rows keyed by (uid, resourceVersion).
+
+    Filled at informer delivery (insert/insert_many on the pending-pod
+    handlers), re-encoded on update (same uid, new rv), freed on delete.
+    `lookup_rows`/`signatures`/`gather` serve the window prologue; a miss
+    or stale row falls back to `encode_row` — identical values by the
+    bit-identity contract, so the cache can only be fast, never wrong.
+
+    Capacity-bounded: past `capacity` live rows, the oldest insertion is
+    evicted (the window falls back to fresh encodes for it — the same
+    degradation as a miss)."""
+
+    def __init__(self, capacity: int = 1 << 17, profile_fn=None):
+        self.capacity = int(capacity)
+        #: scheduling-profile resolver (profiles.ProfileSet.index_of);
+        #: applied at insert AND at the lookup fallback so the
+        #: bit-identity contract holds column-for-column
+        self.profile_fn = profile_fn
+        cap0 = 1024
+        self._cap = cap0
+        for f in _I64_FIELDS:
+            setattr(self, "_" + f, np.zeros(cap0, dtype=np.int64))
+        for f in _BOOL_FIELDS:
+            setattr(self, "_" + f, np.zeros(cap0, dtype=bool))
+        self._sig_id = np.full(cap0, -1, dtype=np.int32)
+        # signature interning: equal sigs share ONE tuple object, so the
+        # window's uniformity check is a pointer compare
+        self._sig_of: dict = {}          # sig tuple -> id
+        self._sigs: list = []            # id -> interned sig tuple
+        # sparse side table: slot -> (req_scalar_items, upd_scalar_items);
+        # only pods with extended-resource requests have an entry
+        self._scalars: dict[int, tuple] = {}
+        # slot map: uid -> (slot, rv); insertion-ordered for the capacity
+        # eviction (dict preserves insertion order)
+        self._slot_of: dict[str, tuple[int, int]] = {}
+        self._free: list[int] = list(range(cap0 - 1, -1, -1))
+
+    def __len__(self) -> int:
+        return len(self._slot_of)
+
+    # -- maintenance (informer delivery) -------------------------------------
+    def _grow(self) -> None:
+        new_cap = self._cap * 2
+        for f in _I64_FIELDS + _BOOL_FIELDS:
+            arr = getattr(self, "_" + f)
+            grown = np.zeros(new_cap, dtype=arr.dtype)
+            grown[: self._cap] = arr
+            setattr(self, "_" + f, grown)
+        sid = np.full(new_cap, -1, dtype=np.int32)
+        sid[: self._cap] = self._sig_id
+        self._sig_id = sid
+        self._free.extend(range(new_cap - 1, self._cap - 1, -1))
+        self._cap = new_cap
+
+    def _intern_sig(self, sig: tuple) -> int:
+        sid = self._sig_of.get(sig)
+        if sid is None:
+            sid = self._sig_of[sig] = len(self._sigs)
+            self._sigs.append(sig)
+        return sid
+
+    def insert(self, pod: Pod) -> None:
+        """Encode `pod`'s row at its current (uid, resourceVersion) —
+        called at informer delivery (add and update both land here; an
+        existing row for the uid is overwritten in place)."""
+        uid = pod.uid
+        existing = self._slot_of.pop(uid, None)
+        if existing is not None:
+            slot = existing[0]
+        else:
+            if len(self._slot_of) >= self.capacity:
+                # bound the table: evict the oldest insertion (it decays
+                # to the miss path, never to a wrong row)
+                self.invalidate_uid(next(iter(self._slot_of)))
+            if not self._free:
+                self._grow()
+            slot = self._free.pop()
+        self._write(slot, encode_row(pod, self.profile_fn))
+        # (re-)append so eviction order stays oldest-write-first
+        self._slot_of[uid] = (slot, pod.resource_version)
+
+    def _write(self, slot: int, row: dict) -> None:
+        for f in _I64_FIELDS + _BOOL_FIELDS:
+            getattr(self, "_" + f)[slot] = row[f]
+        self._sig_id[slot] = self._intern_sig(row["signature"])
+        if row["req_scalar_items"] or row["upd_scalar_items"]:
+            self._scalars[slot] = (row["req_scalar_items"],
+                                   row["upd_scalar_items"])
+        else:
+            self._scalars.pop(slot, None)
+
+    def insert_many(self, pods: list) -> None:
+        for pod in pods:
+            self.insert(pod)
+
+    def invalidate_uid(self, uid: str) -> None:
+        got = self._slot_of.pop(uid, None)
+        if got is not None:
+            slot = got[0]
+            self._sig_id[slot] = -1
+            self._scalars.pop(slot, None)
+            self._free.append(slot)
+
+    def invalidate(self, pod: Pod) -> None:
+        """Delete-side invalidation (the informer's on_delete)."""
+        self.invalidate_uid(pod.uid)
+
+    def invalidate_many(self, pods: list) -> None:
+        """Batched delete-side invalidation (round 23): one call per
+        informer delete run — the freed slots land in one pass."""
+        for pod in pods:
+            self.invalidate_uid(pod.uid)
+
+    # -- window-prologue reads ------------------------------------------------
+    def _slot(self, pod: Pod) -> int:
+        """Row slot for `pod` at its exact resourceVersion, or -1 (miss /
+        stale). Books the outcome counter."""
+        got = self._slot_of.get(pod.uid)
+        if got is None:
+            obs.inc("pod_rows.miss")
+            return -1
+        slot, rv = got
+        if rv != pod.resource_version:
+            obs.inc("pod_rows.stale")
+            return -1
+        obs.inc("pod_rows.hit")
+        return slot
+
+    def signatures(self, pods: list) -> list:
+        """Per-pod class signatures, interned: cache hits gather the
+        shared tuple by id (equal sigs are the SAME object — the window's
+        uniformity check becomes identity); misses encode fresh through
+        the canonical function and intern the result, so the returned
+        list is bit-identical to a per-pod `pod_class_signature` pass."""
+        sigs = self._sigs
+        out = []
+        for pod in pods:
+            slot = self._slot(pod)
+            if slot >= 0:
+                out.append(sigs[self._sig_id[slot]])
+            else:
+                out.append(sigs[self._intern_sig(pod_class_signature(pod))])
+        return out
+
+    def lookup_row(self, pod: Pod) -> dict:
+        """One pod's row — cached when live at the pod's rv, else a fresh
+        `encode_row` (identical values; the fallback is the contract)."""
+        slot = self._slot(pod)
+        if slot < 0:
+            return encode_row(pod, self.profile_fn)
+        row = {f: getattr(self, "_" + f)[slot].item()
+               for f in _I64_FIELDS}
+        for f in _BOOL_FIELDS:
+            row[f] = bool(getattr(self, "_" + f)[slot])
+        req_s, upd_s = self._scalars.get(slot, ((), ()))
+        row["req_scalar_items"] = req_s
+        row["upd_scalar_items"] = upd_s
+        row["signature"] = self._sigs[self._sig_id[slot]]
+        return row
+
+    def gather(self, pods: list, fields: tuple = _BOOL_FIELDS) -> Optional[dict]:
+        """Columnar gather for a window's pods: ONE np.take per requested
+        field. Returns None when any pod misses (the caller falls back to
+        its per-pod path — correctness never depends on the cache)."""
+        slots = np.empty(len(pods), dtype=np.int64)
+        slot_of = self._slot_of
+        for i, pod in enumerate(pods):
+            got = slot_of.get(pod.uid)
+            if got is None or got[1] != pod.resource_version:
+                obs.inc("pod_rows." + ("miss" if got is None else "stale"))
+                return None
+            slots[i] = got[0]
+        obs.inc("pod_rows.hit", len(pods))
+        return {f: np.take(getattr(self, "_" + f), slots) for f in fields}
+
+    def debug_state(self) -> dict:
+        return {"rows": len(self._slot_of), "capacity": self.capacity,
+                "signatures_interned": len(self._sigs),
+                "scalar_rows": len(self._scalars)}
