@@ -1,12 +1,14 @@
 """Carry a JAX scheduler's device state into the port.
 
 This system's "weights" are its resident state: the node matrix a
-`kubernetes_tpu` TPUScheduler keeps on its device (`_dev_nodes`, folded by
-its bursts), its two walk counters (last_index, last_node_index) and its
-[profiles x priorities] weight table. `state_from_jax` takes them as plain
-numpy (the caller reads them off the JAX scheduler with `np.asarray`) and
-returns tensors a TorchScheduler adopts with `load_state`, so a burst begun
-on JAX can be finished on the port.
+`kubernetes_tpu` TPUScheduler keeps on its device (`_dev_nodes`, with the
+folds of its uniform, scan and fused windows), its two walk counters
+(last_index, last_node_index), its [profiles x priorities] weight table
+and the profile set that maps a pod's schedulerName to a row.
+`state_from_jax` takes them as plain numpy and dicts (the caller reads them
+off the JAX scheduler with `np.asarray` and `profile_dicts`) and returns
+tensors a TorchScheduler adopts with `load_state`, so a window begun on
+JAX can be finished on the port.
 """
 from __future__ import annotations
 
@@ -28,12 +30,21 @@ NODE_DTYPES = {
 }
 
 
+def profile_dicts(profiles) -> list[dict]:
+    """A profile set (either package's ProfileSet) as the dicts
+    `ProfileSet.from_dict` reads back."""
+    return [{"schedulerName": p.name, "priorities": dict(p.weights),
+             "rankAwareGang": bool(p.rank_aware),
+             "gangWeight": int(p.gang_weight)} for p in profiles]
+
+
 def state_from_jax(arrays: dict[str, np.ndarray], last_index: int,
                    last_node_index: int, ptab: Optional[np.ndarray] = None,
-                   device=None) -> dict:
+                   device=None, profiles: Optional[list] = None) -> dict:
     """The port's form of a JAX scheduler's resident state: every node
     field as a tensor on `device` (cuda by default) with the port's dtype,
-    the walk counters as ints, and the weight table (or None)."""
+    the walk counters as ints, the weight table (or None) and the profile
+    set as `profile_dicts` (or None)."""
     dev = resolve_device(device)
     missing = set(NODE_DTYPES) - set(arrays)
     if missing:
@@ -49,4 +60,5 @@ def state_from_jax(arrays: dict[str, np.ndarray], last_index: int,
     if ptab is not None:
         tab = torch.as_tensor(np.asarray(ptab, dtype=np.int64)).to(dev)
     return {"nodes": nodes, "last_index": int(last_index),
-            "last_node_index": int(last_node_index), "ptab": tab}
+            "last_node_index": int(last_node_index), "ptab": tab,
+            "profiles": None if profiles is None else list(profiles)}

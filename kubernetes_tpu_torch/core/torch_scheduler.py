@@ -1,19 +1,25 @@
 """TorchScheduler — the port's counterpart of `kubernetes_tpu.core.
 tpu_scheduler.TPUScheduler` on PyTorch and CUDA.
 
-Same contract as the JAX driver for the paths this slice carries:
+Same contract as the JAX package's TPUScheduler for the paths the port
+carries:
 
 - schedule(): one pod per launch (K2 `schedule_cycle`), with the same
   ScheduleResult/FitError, feasible sets, evaluated counts and scores;
-- schedule_burst(): spec-identical windows through the uniform K-batch
-  kernel (K3 `uniform_burst`), one launch and one packed device-to-host
-  copy per chunk, folds kept on the device.
+- schedule_burst(): spec-identical, single-profile windows in the
+  full-scan regime through the uniform K-batch kernel (K3
+  `uniform_burst`), one launch and one packed device-to-host copy per
+  chunk; every other window through the generic scan (K5
+  `schedule_batch`), one launch and one packed copy per window;
+- schedule_burst_fused(): a drain window of singleton runs and
+  all-or-nothing gangs through the segment kernel (K6
+  `schedule_segments`), gang rewinds inside the kernel.
 
-The node matrix is uploaded whole once and then kept current by the
-dirty-row scatter (K4 `scatter_rows`). Every entry point runs on `cuda`
-unless `device="cpu"` is passed; a CUDA error propagates (no host twin,
-no silent degrade). A burst window that is not uniform is refused whole
-(None), counted under `refusal.<reason>`: the generic scan is later work.
+Folds stay on the device. The node matrix is uploaded whole once and then
+kept current by the dirty-row scatter (K4 `scatter_rows`). Every entry
+point runs on `cuda` unless `device="cpu"` is passed; a CUDA error
+propagates (no host twin, no silent degrade). A window the JAX package
+also refuses is refused whole (None), counted under `refusal.<reason>`.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ import numpy as np
 import torch
 
 from kubernetes_tpu_torch import obs
-from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.api.types import (
+    Pod, get_container_ports, has_pod_affinity_terms)
 from kubernetes_tpu_torch.cache.node_info import NodeInfo, calculate_resource
 from kubernetes_tpu_torch.oracle import predicates as P
 from kubernetes_tpu_torch.oracle.generic_scheduler import (
@@ -87,12 +94,15 @@ class TorchScheduler:
         self.check_resources = True   # PodFitsResources enabled
         self.weights = None           # None -> kernels.DEFAULT_WEIGHTS
         self.enabled_predicates = None  # None -> all
-        # weight-tensor mode (a [profiles x priorities] table carried in
-        # with load_state): every pod scores with row 0 until the profile
-        # set (scheduler name -> row) is ported with the shell
+        # scheduling profiles (set_profiles): in weight-table mode every
+        # pod scores with the [profiles x priorities] row of its
+        # schedulerName's profile, and the static weights become the
+        # cross-profile union gate
+        self.profiles = None
         self._ptab: Optional[np.ndarray] = None
         self._wtab_dev: Optional[torch.Tensor] = None
         self._union_weights: Optional[dict] = None
+        self._gang_score = False      # any profile rank-aware
         # NodeTree handle: burst decisions replay the per-cycle
         # zone-interleaved enumeration rotation; None = fixed name order
         self.node_tree = node_tree
@@ -122,6 +132,39 @@ class TorchScheduler:
         # host seconds of the last burst, by phase (encode, of which
         # mirror; dispatch; fetch)
         self.last_burst_phases: Optional[dict] = None
+
+    # -- scheduling profiles -----------------------------------------------------
+    def set_profiles(self, profiles) -> None:
+        """Attach a profiles.ProfileSet. In tensor mode (several profiles,
+        a non-default vector, or a rank-aware profile) every path scores
+        each pod with its profile's weight-table row, and the segment
+        kernel carries the gang zone counts when a profile is rank-aware.
+        A degenerate default set keeps the static-weight programs."""
+        self.profiles = profiles
+        self._gang_score = False
+        if profiles is not None and profiles.tensor_mode():
+            self._set_weight_table(profiles.weight_table())
+            self._gang_score = any(p.rank_aware for p in profiles)
+        else:
+            self._set_weight_table(None)
+
+    def _profile_id(self, pod: Pod) -> int:
+        if self.profiles is None:
+            return 0
+        pid = self.profiles.index_of(pod.scheduler_name)
+        return 0 if pid is None else pid
+
+    def _profile_ids(self, pods: list):
+        """Per-pod profile-id vector of a window (None off the weight-table
+        path), gathered from the pod-row cache when every row is live."""
+        if self._ptab is None:
+            return None
+        rc = self.pod_rows
+        if rc is not None:
+            g = rc.gather(pods, ("profile_id",))
+            if g is not None:
+                return g["profile_id"].astype(np.int64)
+        return np.asarray([self._profile_id(p) for p in pods], np.int64)
 
     # -- weight tensor ---------------------------------------------------------
     def _set_weight_table(self, ptab: Optional[np.ndarray]) -> None:
@@ -171,11 +214,14 @@ class TorchScheduler:
             b.dirty_rows = []
         return self._dev_nodes
 
-    def _pod_arrays(self, f: PodFeatures) -> dict:
+    def _pod_arrays(self, f: PodFeatures, upd_fields: bool = False,
+                    pod: Optional[Pod] = None) -> dict:
         """Host inputs for one pod; feature fields the pod does not
-        exercise stay shape [1]."""
+        exercise stay shape [1]. `upd_fields` adds the node-state delta a
+        placement folds in (regular containers only, calculate_resource),
+        which the burst scans need."""
         d = self._defaults
-        return {
+        out = {
             "req_cpu": np.int64(f.req_cpu),
             "req_mem": np.int64(f.req_mem),
             "req_eph": np.int64(f.req_eph),
@@ -204,6 +250,17 @@ class TorchScheduler:
             "image_sums": f.image_sums if f.image_sums is not None else d["zeros_i64"],
             "prefer_avoid": f.prefer_avoid if f.prefer_avoid is not None else d["tens_i64"],
         }
+        if upd_fields:
+            upd = calculate_resource(pod)
+            upd_scalar = np.zeros_like(f.req_scalar)
+            vocab = list(self.encoder._scalar_vocab)
+            for name, q in upd.scalar.items():
+                upd_scalar[vocab.index(name)] = q
+            out.update({"upd_cpu": np.int64(upd.milli_cpu),
+                        "upd_mem": np.int64(upd.memory),
+                        "upd_eph": np.int64(upd.ephemeral_storage),
+                        "upd_scalar": upd_scalar})
+        return out
 
     # -- reason decoding -------------------------------------------------------
     def _decode_reasons(self, b: NodeBatch, f: PodFeatures, idx: int,
@@ -280,7 +337,7 @@ class TorchScheduler:
         wtab = None
         weights = self.weights
         if self._ptab is not None:
-            pod_in["profile_id"] = np.int64(0)
+            pod_in["profile_id"] = np.int64(self._profile_id(pod))
             wtab = self._wtab()
             weights = self._union_weights
         n = b.n_real
@@ -450,13 +507,16 @@ class TorchScheduler:
             return all_node_names, None   # membership moved: rebuild
         return b.names, rr
 
-    def _rot_cached(self, b: NodeBatch, rr: int, identity: np.ndarray):
-        """Padded axis-index row (scratch n_pad) of the enumeration
-        starting at zone index `rr`, or None when it is the identity."""
+    def _rot_cached(self, b: NodeBatch, rr: int, identity: np.ndarray,
+                    kind: str):
+        """Padded axis-index row of the enumeration starting at zone index
+        `rr`, or None when it is the identity. `kind` "u" pads with the
+        n_pad scratch column (K3), "g" with the invalid-row tail (K5/K6)."""
         if self._rot_rows_b != id(b):
             self._rot_rows = {}
             self._rot_rows_b = id(b)
-        got = self._rot_rows.get(rr, _ROT_MISS)
+        key = (kind, rr)
+        got = self._rot_rows.get(key, _ROT_MISS)
         if got is not _ROT_MISS:
             return got
         names = self.node_tree.order_for_start(rr)
@@ -464,23 +524,32 @@ class TorchScheduler:
                           len(names))
         if np.array_equal(raw, identity[: len(raw)]):
             row = None
-        else:
+        elif kind == "u":
             row = np.concatenate([
                 raw, np.full(b.n_pad + 1 - len(raw), b.n_pad,
                              dtype=np.int32)])
-        self._rot_rows[rr] = row
+        else:
+            row = np.concatenate([
+                raw, np.arange(b.n_real, b.n_pad, dtype=np.int32)])
+        self._rot_rows[key] = row
         return row
 
-    def _rot_identity(self, b: NodeBatch) -> np.ndarray:
-        """The axis-order (identity) permutation row, scratch-padded."""
+    def _rot_identity(self, b: NodeBatch, kind: str) -> np.ndarray:
+        """The axis-order (identity) permutation row of pad layout `kind`."""
         if self._rot_rows_b != id(b):
             self._rot_rows = {}
             self._rot_rows_b = id(b)
-        row = self._rot_rows.get("id")
+        key = ("id", kind)
+        row = self._rot_rows.get(key)
         if row is None:
-            row = self._rot_rows["id"] = np.concatenate([
-                np.arange(b.n_real, dtype=np.int32),
-                np.full(b.n_pad + 1 - b.n_real, b.n_pad, dtype=np.int32)])
+            if kind == "u":
+                row = np.concatenate([
+                    np.arange(b.n_real, dtype=np.int32),
+                    np.full(b.n_pad + 1 - b.n_real, b.n_pad,
+                            dtype=np.int32)])
+            else:
+                row = np.arange(b.n_pad, dtype=np.int32)
+            self._rot_rows[key] = row
         return row
 
     def _burst_rotation(self, b: NodeBatch, n_pods: int,
@@ -495,14 +564,14 @@ class TorchScheduler:
         nxt = tree.rotation_map()
         r = tree.zone_index
         length = n_pods + K.K_BATCH
-        identity = self._rot_identity(b)
+        identity = self._rot_identity(b, "u")
         perm_rows = [identity]
         id_of_r: dict[int, int] = {}
 
         def order_id(rr: int) -> int:
             iid = id_of_r.get(rr)
             if iid is None:
-                row = self._rot_cached(b, rr, identity)
+                row = self._rot_cached(b, rr, identity, "u")
                 if row is None:
                     iid = 0
                 else:
@@ -527,6 +596,54 @@ class TorchScheduler:
                 [perms, np.repeat(perms[:1], l_pad - len(perm_rows), axis=0)])
         return perms, seq
 
+    def _generic_rotation(self, b: NodeBatch, bucket: int,
+                          start0: Optional[int] = None):
+        """(perms[L, n_pad], inv_perms, oid_seq[bucket]) for the scans: each
+        in-burst cycle's enumeration order as axis indices (invalid rows
+        tail every permutation, so the walk masks them out). oid_seq[0] is
+        the axis itself, the enumeration the shell consumed for pod 0."""
+        tree = self.node_tree
+        if tree is None:
+            return None
+        nxt = tree.rotation_map()
+        r = tree.zone_index
+        n_pad = b.n_pad
+        identity = self._rot_identity(b, "g")
+        perm_rows = [identity]
+        id_of_r: dict[int, int] = {}
+
+        def order_id(rr: int) -> int:
+            iid = id_of_r.get(rr)
+            if iid is None:
+                row = self._rot_cached(b, rr, identity, "g")
+                if row is None:
+                    iid = 0
+                else:
+                    perm_rows.append(row)
+                    iid = len(perm_rows) - 1
+                id_of_r[rr] = iid
+            return iid
+
+        seq = np.zeros(bucket, dtype=np.int32)
+        if start0 is not None:
+            seq[0] = order_id(start0)   # stale-axis mode (_axis_order)
+        for t in range(1, bucket):
+            seq[t] = order_id(r)
+            r = nxt[r]
+        l_pad = _pad_pow2(len(perm_rows), 4)
+        while len(perm_rows) < l_pad:
+            perm_rows.append(perm_rows[0])
+        skey = ("stack-g", tuple(map(id, perm_rows)))
+        got = self._rot_rows.get(skey)
+        if got is None:
+            perms = np.stack(perm_rows)
+            inv = np.empty_like(perms)
+            for k in range(perms.shape[0]):
+                inv[k, perms[k]] = np.arange(n_pad, dtype=np.int32)
+            got = self._rot_rows[skey] = (perms, inv)
+        perms, inv = got
+        return perms, inv, seq
+
     def _refuse(self, reason: str) -> None:
         obs.inc("refusal." + reason)
         return None
@@ -537,9 +654,14 @@ class TorchScheduler:
                        ) -> Optional[list[Optional[str]]]:
         """Schedule `pods` against one snapshot; returns per-pod host (or
         None when unschedulable), serially equivalent to schedule() per pod
-        with cache assumes in between. Returns None — a whole-burst
-        refusal, counted under `refusal.<reason>` — when the window is not
-        one the uniform kernel takes (the shell then runs it serially).
+        with cache assumes in between. Spec-identical, single-profile
+        windows in the full-scan regime (num_to_find >= n, last_index 0)
+        go to the uniform kernel K3, every other window to the generic
+        scan K5. Returns None — a whole-burst refusal, counted under
+        `refusal.<reason>` — for the windows the JAX package refuses too:
+        pods whose masks depend on in-burst placements (affinity, host
+        ports) outside the uniform class, and selector spread over mixed
+        specs. The shell then runs those pods serially.
 
         The folds stay on the device: the caller MUST apply the returned
         placements to its cache (assume + note_burst_assumed_many) before
@@ -555,40 +677,173 @@ class TorchScheduler:
         num_to_find = num_feasible_nodes_to_find(
             n, self.percentage_of_nodes_to_score)
         bucket = _pad_pow2(bucket if bucket else len(pods), 16)
+        enc = self._pod_encoder(node_infos, b)
         sigs = self._signatures(pods)
         s0 = sigs[0]
-        if not all(s is s0 or s == s0 for s in sigs):
-            return self._refuse("burst-mixed-spec")
-        if num_to_find < n or self.last_index != 0:
-            return self._refuse("burst-partial-scan")
-        f0 = self._pod_encoder(node_infos, b).encode(pods[0])
-        uniform = self._uniform_class(pods[0], f0, b, node_infos)
-        if uniform is None:
-            return self._refuse("burst-class-ineligible")
-        cls, extra_ok, ban = uniform
-        rotation = self._burst_rotation(b, len(pods), start0)
+        uniform_spec = all(s is s0 or s == s0 for s in sigs)
+        # a uniform window must be single-profile too: other weight rows
+        # change the tie structure the K-batch modes rely on
+        pids = self._profile_ids(pods)
+        pid0 = 0 if pids is None else int(pids[0])
+        uniform_profile = pids is None or int(pids.min()) == int(pids.max())
+        uniform = f0 = None
+        if num_to_find >= n and self.last_index == 0 and uniform_profile \
+                and uniform_spec:
+            f0 = enc.encode(pods[0])
+            uniform = self._uniform_class(pods[0], f0, b, node_infos)
         # encode = the whole host prologue; mirror = its node-mirror
         # encode and upload part
-        phases = {"encode": time.perf_counter() - t0, "mirror": t_mirror,
-                  "dispatch": 0.0, "fetch": 0.0}
+        phases = {"encode": 0.0, "mirror": t_mirror, "dispatch": 0.0,
+                  "fetch": 0.0}
+        if uniform is not None:
+            cls, extra_ok, ban = uniform
+            rotation = self._burst_rotation(b, len(pods), start0)
+            phases["encode"] = time.perf_counter() - t0
+            self.last_burst_phases = phases
+            sel = self._uniform_waves(pods, cls, extra_ok, ban, rotation, n,
+                                      bucket, phases, pid0)
+            return [b.names[s] for s in sel] \
+                + [None] * (len(pods) - len(sel))
+        if any(has_pod_affinity_terms(p) or get_container_ports(p)
+               for p in pods):
+            # the scan encodes per-node masks once per window; masks that
+            # depend on in-burst placements are exact only on the uniform
+            # path above
+            return self._refuse("burst-affinity-mixed")
+        # one encode per signature: equal signatures give identical
+        # encoder output against one snapshot
+        row_of_sig: dict = {}
+        feats, spec_pods, rows = [], [], []
+        for p, sig in zip(pods, sigs):
+            r = row_of_sig.get(sig)
+            if r is None:
+                r = row_of_sig[sig] = len(feats)
+                feats.append(f0 if (r == 0 and f0 is not None)
+                             else enc.encode(p))
+                spec_pods.append(p)
+            rows.append(r)
+        # selector-spread counts change with every in-burst placement; the
+        # scan carries them only for spec-identical pods (one selector set)
+        carry_spread = any(f.spread_counts is not None for f in feats)
+        if carry_spread and not uniform_spec:
+            return self._refuse("burst-spread-mixed")
+        spread0 = feats[0].spread_counts if carry_spread else None
+        if carry_spread and spread0.shape[-1] != b.n_pad:
+            return self._refuse("burst-spread-shape")
+        specs = [self._pod_arrays(f, upd_fields=True, pod=p)
+                 for f, p in zip(feats, spec_pods)]
+        if carry_spread:
+            # the scan carries ONE [n_pad] vector; the field stays inert
+            for spec in specs:
+                spec["spread_counts"] = self._defaults["zeros_i64"]
+        rotation = rotation_pos = None
+        if self._tree_rotates():
+            rot = self._generic_rotation(b, bucket, start0)
+            if num_to_find >= n:
+                rotation_pos = (rot[1], rot[2])   # inv_perms ARE positions
+            else:
+                rotation = rot
+        z_pad = _pad_pow2(len(b.zone_names), 4)
+        phases["encode"] = time.perf_counter() - t0
         self.last_burst_phases = phases
-        sel = self._uniform_waves(pods, cls, extra_ok, ban, rotation, n,
-                                  bucket, phases)
-        return [b.names[s] for s in sel] + [None] * (len(pods) - len(sel))
+        return self._scan_waves(pods, b, specs, rows, pids, spread0,
+                                rotation, rotation_pos, num_to_find, n,
+                                z_pad, bucket, phases)
 
-    def _fetch_buffer(self, cap: int, slot: int) -> torch.Tensor:
-        """Host buffer for one packed block: pinned when the block comes
-        from a card, so its copy runs asynchronously on the stream."""
-        key = (cap, slot)
+    def _window_stack(self, specs: list, rows: list, pids, bucket: int,
+                      last_pid: int) -> K.PodStack:
+        """The window as a K.PodStack: one table row per distinct spec,
+        plus a skip row that pads the window to `bucket` pods (the last
+        pod's spec with skip set)."""
+        n_pods = len(rows)
+        specs = list(specs)
+        row = np.empty(bucket, dtype=np.int64)
+        row[:n_pods] = rows
+        if n_pods < bucket:
+            specs.append(dict(specs[rows[-1]], skip=np.bool_(True)))
+            row[n_pods:] = len(specs) - 1
+        prof = None
+        if pids is not None:
+            prof = np.full(bucket, last_pid, dtype=np.int64)
+            prof[:n_pods] = pids
+        return K.PodStack.from_specs(specs, row, prof, self.device)
+
+    def _fetch_buffer(self, size: int, slot) -> torch.Tensor:
+        """Host buffer for one packed block of `size` int32: pinned when
+        the block comes from a card, so its copy runs asynchronously."""
+        key = (size, slot)
         buf = self._pinned.get(key)
         if buf is None:
-            buf = torch.empty(cap + 1, dtype=torch.int32,
+            buf = torch.empty(size, dtype=torch.int32,
                               pin_memory=self.device.type == "cuda")
             self._pinned[key] = buf
         return buf
 
+    def _fetch(self, packed: torch.Tensor, slot) -> np.ndarray:
+        """ONE device-to-host copy of a packed decision block."""
+        host = self._fetch_buffer(int(packed.shape[0]), slot)
+        host.copy_(packed, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream().synchronize()
+        return host.numpy()
+
+    def _scan_waves(self, pods: list[Pod], b: NodeBatch, specs: list,
+                    rows: list, pids, spread0, rotation, rotation_pos,
+                    num_to_find: int, n: int, z_pad: int, bucket: int,
+                    phases: dict) -> list:
+        """The generic scan's launch and fetch: the whole window is
+        ONE K5 launch (scan length = the bucket) and ONE fetch of the
+        packed [3B] block of selections and per-pod walk counters.
+
+        Rewind contract, from slices of that one block: the scan keeps
+        deciding after a failed pod, so everything from the first failure
+        on is undecided; the walk counters are read at the last decided
+        pod, and the folds are dropped (the host mirror is authoritative
+        again). A window that decides every pod persists its folds."""
+        B = bucket
+        n_pods = len(pods)
+        t = time.perf_counter()
+        stack = self._window_stack(specs, rows, pids, B,
+                                   0 if pids is None else int(pids[-1]))
+        rot = rotp = None
+        if rotation is not None:
+            perms, inv_perms, seq = rotation
+            rot = (perms, inv_perms, np.asarray(seq[:B], dtype=np.int32))
+        elif rotation_pos is not None:
+            rotp = (rotation_pos[0],
+                    np.asarray(rotation_pos[1][:B], dtype=np.int32))
+        tensor = self._ptab is not None
+        state, _li, _lni, _spread, outs = K.schedule_batch(
+            self._dev_nodes, stack, self.last_index, self.last_node_index,
+            num_to_find, n, z_pad,
+            weights=self._union_weights if tensor else self.weights,
+            rotation=rot, spread0=spread0, rotation_pos=rotp,
+            wtab=self._wtab() if tensor else None)
+        obs.inc("dispatch.burst_scan")
+        t2 = time.perf_counter()
+        phases["dispatch"] += t2 - t
+        h = self._fetch(outs["packed"], "scan")
+        obs.inc("fetch.burst_scan")
+        phases["fetch"] += time.perf_counter() - t2
+        sel_arr = h[:n_pods]
+        li_after = h[B:2 * B]
+        lni_delta = h[2 * B:3 * B]
+        neg = sel_arr < 0
+        bad = int(np.argmax(neg)) if neg.any() else n_pods
+        if bad > 0:
+            self.last_index = int(li_after[bad - 1])
+            self.last_node_index += int(lni_delta[bad - 1])
+        if bad < n_pods:
+            # post-failure folds never became decisions
+            self.discard_burst_folds()
+        else:
+            self._dev_nodes = {**self._dev_nodes, **state}
+        return [b.names[s] for s in sel_arr[:bad].tolist()] \
+            + [None] * (n_pods - bad)
+
     def _uniform_waves(self, pods: list[Pod], cls, extra_ok, ban: bool,
-                       rotation, n: int, bucket: int, phases: dict) -> list:
+                       rotation, n: int, bucket: int, phases: dict,
+                       pid: int = 0) -> list:
         """Launch driver of the uniform kernel: each chunk (up to B_CAP
         pods) is ONE K3 launch plus ONE packed [cap+1] device-to-host copy,
         started at dispatch; up to `launch_depth` chunks are in flight
@@ -628,11 +883,11 @@ class TorchScheduler:
             rows, packed, lni_out = K.schedule_batch_uniform(
                 self._dev_nodes, dict(cls), chunk, lni_dev, n,
                 self.check_resources, weights=weights, rotation=rot,
-                extra_ok=extra_dev, ban=ban, cap=cap, wtab=wtab)
+                extra_ok=extra_dev, ban=ban, cap=cap, wtab=wtab, pid=pid)
             lni_dev = lni_out
             self._dev_nodes = {**self._dev_nodes, **rows}
             obs.inc("dispatch.burst_uniform")
-            host = self._fetch_buffer(cap, ci % depth)
+            host = self._fetch_buffer(cap + 1, ci % depth)
             host.copy_(packed, non_blocking=True)
             event = None
             if dev.type == "cuda":
@@ -664,6 +919,202 @@ class TorchScheduler:
                 inflight.clear()
                 break
         return sel
+
+    # -- fused segmented burst: one launch per drain window --------------------
+    def schedule_burst_fused(self, segments, node_infos: dict[str, NodeInfo],
+                             all_node_names: list[str],
+                             bucket: Optional[int] = None):
+        """Schedule a drain window of `segments` = [(pods, is_gang), ...] in
+        ONE K6 launch and ONE packed fetch. A gang member that finds no
+        node rewinds the carry (rows, li, lni, rotation cursor) to its
+        segment's checkpoint inside the kernel, the rest of the gang is
+        skipped, and the window goes on against the rewound state.
+
+        Returns None when the window is not expressible on this path
+        (counted under `refusal.<reason>`), else {"segments": [...],
+        "consumed": n_enumerations} with one record per segment:
+          {"status": "decided",  "hosts": [...], "li", "lni", "t"}
+          {"status": "rejected", "placed": k,    "li", "lni", "t"}  (gang)
+          {"status": "failed",   "hosts": [decided prefix], "li","lni","t"}
+          {"status": "undecided"}   (at/after a singleton failure)
+        li/lni/t are the carry at the segment's end (the caller's
+        fused_rewind target). On return the walk counters stand at the end
+        of the decided prefix, and the folds persist unless a singleton
+        failure polluted them."""
+        n_total = sum(len(p) for p, _g in segments)
+        if not all_node_names or n_total == 0:
+            return None
+        flat = [p for seg_pods, _g in segments for p in seg_pods]
+        if any(has_pod_affinity_terms(p) or get_container_ports(p)
+               or p.volumes for p in flat):
+            # masks that depend on in-burst placements (and volume
+            # reservations) have no segment-rewind story on the device
+            return self._refuse("fused-pod-features")
+        t0 = time.perf_counter()
+        axis_order, start0 = self._axis_order(all_node_names)
+        b = self.encoder.encode(node_infos, axis_order)
+        self._node_arrays(b)
+        t_mirror = time.perf_counter() - t0
+        enc = self._pod_encoder(node_infos, b)
+        row_of_sig: dict = {}
+        specs, rows = [], []
+        for p, sig in zip(flat, self._signatures(flat)):
+            r = row_of_sig.get(sig)
+            if r is None:
+                f = enc.encode(p)
+                if f.spread_counts is not None:
+                    # spread counts would need a checkpointed vector the
+                    # shell's plain-class gate already excludes
+                    return self._refuse("fused-spread-selectors")
+                r = row_of_sig[sig] = len(specs)
+                specs.append(self._pod_arrays(f, upd_fields=True, pod=p))
+            rows.append(r)
+        pids = self._profile_ids(flat)
+        n = b.n_real
+        num_to_find = num_feasible_nodes_to_find(
+            n, self.percentage_of_nodes_to_score)
+        B = _pad_pow2(max(bucket or 16, n_total), 16)
+        rotation = rotation_pos = None
+        if self._tree_rotates():
+            # one window-wide walk indexed by enumerations CONSUMED in the
+            # kernel: a rejected gang rewinds the cursor
+            rot = self._generic_rotation(b, B, start0)
+            if num_to_find >= n:
+                rotation_pos = (rot[1], rot[2])
+            else:
+                rotation = rot
+        seg_start = np.zeros(B, dtype=bool)
+        gang = np.zeros(B, dtype=bool)
+        idx = 0
+        for seg_pods, is_gang in segments:
+            seg_start[idx] = True
+            if is_gang:
+                gang[idx: idx + len(seg_pods)] = True
+            idx += len(seg_pods)
+        if idx < B:
+            seg_start[idx] = True   # padding: its own inert segment
+        stack = self._window_stack(specs, rows, pids, B,
+                                   0 if pids is None else int(pids[-1]))
+        z_pad = _pad_pow2(len(b.zone_names), 4)
+        t1 = time.perf_counter()
+        tensor = self._ptab is not None
+        state, _li, _lni, _spread, packed = K.schedule_batch_segments(
+            self._dev_nodes, stack, seg_start, gang, n_total,
+            self.last_index, self.last_node_index, num_to_find, n, z_pad,
+            weights=self._union_weights if tensor else self.weights,
+            rotation=rotation, rotation_pos=rotation_pos,
+            wtab=self._wtab() if tensor else None,
+            gang_score=self._gang_score)
+        obs.inc("dispatch.burst_fused")
+        t2 = time.perf_counter()
+        h = self._fetch(packed, "fused")
+        obs.inc("fetch.burst_fused")
+        self.last_burst_phases = {"encode": t1 - t0, "mirror": t_mirror,
+                                  "dispatch": t2 - t1,
+                                  "fetch": time.perf_counter() - t2}
+        sel = h[:B]
+        li_after = h[B:2 * B]
+        lni_delta = h[2 * B:3 * B]
+        t_after = h[3 * B:4 * B]
+        li0, lni0 = self.last_index, self.last_node_index
+
+        def boundary(j: int) -> tuple[int, int, int]:
+            if j < 0:
+                return li0, lni0, 0
+            return (int(li_after[j]), lni0 + int(lni_delta[j]),
+                    int(t_after[j]))
+
+        results = []
+        fail_at = None   # first SINGLETON failure: all after is undecided
+        idx = 0
+        for seg_pods, is_gang in segments:
+            L = len(seg_pods)
+            if fail_at is not None:
+                results.append({"status": "undecided"})
+                idx += L
+                continue
+            ss = sel[idx: idx + L]
+            end_li, end_lni, end_t = boundary(idx + L - 1)
+
+            def seqs(k: int, lo=idx) -> dict:
+                # per-member walk counters (rewind targets of a short
+                # commit inside a singleton run)
+                return {"li_seq": li_after[lo: lo + k],
+                        "lni_seq": lni0 + lni_delta[lo: lo + k],
+                        "t_seq": t_after[lo: lo + k]}
+
+            if is_gang:
+                if (ss < 0).any():
+                    # the kernel already rewound the carry; a placed
+                    # member's selection is still in the block
+                    results.append({"status": "rejected",
+                                    "placed": int((ss >= 0).sum()),
+                                    "li": end_li, "lni": end_lni,
+                                    "t": end_t})
+                else:
+                    results.append({"status": "decided",
+                                    "hosts": [b.names[s]
+                                              for s in ss.tolist()],
+                                    "li": end_li, "lni": end_lni,
+                                    "t": end_t, **seqs(L)})
+            elif (ss < 0).any():
+                k = int(np.argmax(ss < 0))
+                fail_at = idx + k
+                end_li, end_lni, end_t = boundary(idx + k - 1)
+                results.append({"status": "failed",
+                                "hosts": [b.names[s]
+                                          for s in ss[:k].tolist()],
+                                "li": end_li, "lni": end_lni, "t": end_t,
+                                **seqs(k)})
+            else:
+                results.append({"status": "decided",
+                                "hosts": [b.names[s] for s in ss.tolist()],
+                                "li": end_li, "lni": end_lni, "t": end_t,
+                                **seqs(L)})
+            idx += L
+        if fail_at is not None:
+            li_f, lni_f, consumed = boundary(fail_at - 1)
+            # post-failure folds never became decisions: drop the matrix
+            self.discard_burst_folds()
+        else:
+            li_f, lni_f, consumed = boundary(n_total - 1)
+            self._dev_nodes = {**self._dev_nodes, **state}
+        self.last_index, self.last_node_index = li_f, lni_f
+        return {"segments": results, "consumed": consumed}
+
+    def fused_rewind(self, li: int, lni: int) -> None:
+        """Abort handler of a fused window: a short segment commit makes
+        the caller stop consuming the block; the walk counters rewind to
+        the segment boundary it got from schedule_burst_fused and the
+        resident folds drop (the host mirror is authoritative again)."""
+        self.last_index = int(li)
+        self.last_node_index = int(lni)
+        self.discard_burst_folds()
+
+    def gang_checkpoint(self) -> dict:
+        """Snapshot the walk counters and the resident matrix at a group
+        boundary. The port folds bursts into fresh tensors, so the pinned
+        dict stays the pre-gang matrix until an upload or scatter (the
+        epoch) writes into it."""
+        return {"li": self.last_index, "lni": self.last_node_index,
+                "dev": None if self._dev_nodes is None
+                else dict(self._dev_nodes),
+                "key": self._dev_key, "epoch": self._dev_epoch}
+
+    def gang_rewind(self, chk: dict) -> None:
+        """Discard everything since `chk`: the walk counters rewind, and
+        the pinned pre-gang matrix is restored when no host upload or
+        scatter happened since (same epoch); otherwise the matrix drops
+        and re-uploads from the host mirror, which never saw the trial."""
+        self.last_index = chk["li"]
+        self.last_node_index = chk["lni"]
+        if self._dev_nodes is not None:
+            obs.inc("gang_rewind_folds")
+        if chk["dev"] is not None and self._dev_epoch == chk["epoch"]:
+            self._dev_nodes = chk["dev"]
+            self._dev_key = chk["key"]
+        else:
+            self.discard_burst_folds()
 
     # -- resident-state bookkeeping ------------------------------------------------
     def discard_burst_folds(self) -> None:
@@ -708,8 +1159,9 @@ class TorchScheduler:
                    all_node_names: list[str]) -> None:
         """Adopt carried device state (carry.state_from_jax): encode the
         host mirror for `node_infos`, then make the carried node matrix
-        the resident one and take over the walk counters and the weight
-        table. The carried matrix must describe the same snapshot."""
+        (with any burst folds) the resident one and take over the walk
+        counters and the profile set, or else the bare weight table. The
+        carried matrix must describe the same snapshot."""
         b = self.encoder.encode(node_infos, all_node_names)
         nodes = {k: v.to(self.device) for k, v in state["nodes"].items()}
         for k in self._NODE_FIELDS:
@@ -723,12 +1175,25 @@ class TorchScheduler:
         b.dirty_rows = []
         self.last_index = int(state["last_index"])
         self.last_node_index = int(state["last_node_index"])
-        ptab = state.get("ptab")
-        self._set_weight_table(None if ptab is None
-                               else ptab.cpu().numpy())
+        if state.get("profiles") is not None:
+            from kubernetes_tpu_torch.profiles import ProfileSet
+            self.set_profiles(ProfileSet.from_dict(
+                {"profiles": state["profiles"]}))
+            ptab = state.get("ptab")
+            if ptab is not None and not np.array_equal(
+                    ptab.cpu().numpy(), self._ptab):
+                raise ValueError("carried weight table differs from the "
+                                 "carried profile set's")
+        else:
+            self.profiles = None
+            self._gang_score = False
+            ptab = state.get("ptab")
+            self._set_weight_table(None if ptab is None
+                                   else ptab.cpu().numpy())
 
     def debug_state(self) -> dict:
-        """Mirror shape and epoch, walk counters, device, counters."""
+        """Mirror shape and epoch, walk counters, device, profiles, the
+        launch count of every kernel (K1-K6) and the refusals."""
         dev = self._dev_nodes
         mirror = None
         if dev is not None:
@@ -740,6 +1205,10 @@ class TorchScheduler:
             "last_index": self.last_index,
             "last_node_index": self.last_node_index,
             "device": str(self.device),
+            "profiles": None if self.profiles is None
+            else [p.name for p in self.profiles],
+            "weight_table": self._ptab is not None,
+            "gang_score": self._gang_score,
             "launches": K.launches(),
             "refusals": obs.family("refusal"),
         }

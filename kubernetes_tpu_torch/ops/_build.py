@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` (plus the shared `csrc/common.cuh`) compiles on its
-own with
+Each `csrc/<name>.cu` (plus the shared headers `csrc/*.cuh`) compiles on
+its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
@@ -13,7 +13,7 @@ plain C function `<name>_launch(...)` that launches on the stream it is
 given and returns `cudaGetLastError()`; the library is loaded with ctypes.
 
 `build_all()` starts one nvcc per source at once and waits for all of
-them: the whole build costs about one compile, not four.
+them: the whole build costs about one compile, not six.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NAMES = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows")
+NAMES = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
+         "schedule_batch", "schedule_segments")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,9 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "scatter_rows": [_I, _I, _L, _P, _P, _P],
+    # the scan kernels take host arrays of scalars and of pointers
+    "schedule_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "schedule_segments": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -62,7 +66,7 @@ def nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for p in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 

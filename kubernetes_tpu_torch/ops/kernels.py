@@ -1,8 +1,8 @@
 """Filter/score/select kernels of the port: plain PyTorch versions and the
 wrappers of their hand-written CUDA kernels (`ops/csrc/`).
 
-Each JAX device program of `kubernetes_tpu/ops/kernels.py` that the uniform
-burst path runs has three things here:
+Each JAX device program of `kubernetes_tpu/ops/kernels.py` that the burst
+paths run has three things here:
 
 - a plain PyTorch version (`*_plain`): the readable spec, a line-for-line
   mirror of the JAX function, and what runs for tensors on the CPU;
@@ -21,6 +21,10 @@ and nowhere else.
 | uniform_burst  | `_uniform_core` :1097 -> `schedule_batch_uniform`  |
 |                | :1364                                              |
 | scatter_rows   | `core/tpu_scheduler.py` `_scatter_rows` :158       |
+| schedule_batch | `_fold_state` :549 + `_batch_core` :569 ->         |
+|                | `schedule_batch` :668                              |
+| schedule_segments | `_segments_core` :785 ->                        |
+|                | `schedule_batch_segments` :949                     |
 
 Numeric contract: int64 resource math and scores, float64 exactly where
 JAX uses it, floor division as JAX `//` (torch `//` on integer tensors
@@ -55,7 +59,8 @@ I64_MAX = 2 ** 63 - 1
 I32_MIN = -2 ** 31
 
 #: the kernels' names, in port order (obs books `launch.<name>`)
-KERNELS = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows")
+KERNELS = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
+           "schedule_batch", "schedule_segments")
 
 
 def launches() -> dict[str, int]:
@@ -77,14 +82,14 @@ def _inert(arr) -> bool:
     return arr.ndim >= 1 and arr.shape[-1] == 1
 
 
-def _wtab_row(wtab: torch.Tensor, pid) -> torch.Tensor:
-    """`wtab[pid]` with JAX's index rules: negative ids wrap once, then the
-    gather clamps into range."""
-    p = int(_host(pid))
-    n = wtab.shape[0]
+def _row_at(tab: torch.Tensor, idx) -> torch.Tensor:
+    """`tab[idx]` with JAX's index rules: a negative index wraps once, then
+    the gather clamps into range (weight-table rows, rotation orders)."""
+    p = int(_host(idx))
+    n = tab.shape[0]
     if p < 0:
         p += n
-    return wtab[min(max(p, 0), n - 1)]
+    return tab[min(max(p, 0), n - 1)]
 
 
 def _wrap32(x: int) -> int:
@@ -231,9 +236,12 @@ def local_total(weights, req_cpu, req_mem, alloc_cpu, alloc_mem, wrow=None):
 # ---------------------------------------------------------------------------
 # K2 schedule_cycle — feasibility, rotation walk, scores, k-th tie select
 # ---------------------------------------------------------------------------
-def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None):
+def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None,
+                      gang=None):
     """Enabled priorities, masked-normalized over `kept` (`_fit_scores`,
-    kernels.py:157). Returns total[N] int64."""
+    kernels.py:157). Returns total[N] int64. `gang` = (gz[z_pad], member)
+    is the rank-aware gang input: a member scores each node by
+    min(members already placed in its zone, 10) times the gang weight."""
     alloc_cpu, alloc_mem = nodes["alloc_cpu"], nodes["alloc_mem"]
     req_cpu = pod["nz_cpu"] + nodes["nz_cpu"]
     req_mem = pod["nz_mem"] + nodes["nz_mem"]
@@ -242,6 +250,16 @@ def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None):
     total = torch.zeros(nodes["valid"].shape, dtype=I64,
                         device=alloc_cpu.device) + local_total_plain(
         weights, req_cpu, req_mem, alloc_cpu, alloc_mem, wrow=wrow)
+
+    if gang is not None and weights.get("gang_locality"):
+        gz, gmember = gang
+        zone_id = nodes["zone_id"]
+        gw = _wsel(weights, wrow, "gang_locality")
+        zh = zone_id[:, None] == torch.arange(
+            z_pad, dtype=zone_id.dtype, device=zone_id.device)[None, :]
+        glc = torch.sum(torch.where(zh, gz[None, :], 0), dim=1)
+        gl = torch.clamp(glc, max=MAX_PRIORITY)
+        total = total + torch.where(gmember & (zone_id > 0), gw * gl, 0)
 
     if weights["node_affinity"]:
         na = pod["node_aff_counts"]
@@ -397,7 +415,7 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 
 def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
                       n_real, weights, z_pad, perm=None, inv_perm=None,
-                      pos=None, wtab=None):
+                      pos=None, wtab=None, gang=None):
     """One fused cycle (`_cycle_core`, kernels.py:359): identity walk, the
     `perm`/`inv_perm` rotated walk, or the gather-free `pos` mode."""
     dev = nodes["valid"].device
@@ -437,8 +455,9 @@ def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
 
     wrow = None
     if wtab is not None:
-        wrow = _wtab_row(wtab, pod["profile_id"])
-    total = _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=wrow)
+        wrow = _row_at(wtab, pod["profile_id"])
+    total = _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=wrow,
+                              gang=gang)
 
     tmask = torch.where(kept, total, I64_MIN)
     max_score = int(torch.max(tmask))
@@ -558,7 +577,7 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
             tracked = tr_b
     if wtab is not None:
         wtab = _t(wtab, dev, I64)
-        wrow = _wtab_row(wtab, pid)
+        wrow = _row_at(wtab, pid)
     else:
         wrow = None
     w = _weight_row(weights, wrow, dev)
@@ -857,7 +876,7 @@ def _uniform_args(nodes, cls, n_pods, cap, rotation, extra_ok, wtab, pid,
     wrow = None
     if wtab is not None:
         wtab = _t(wtab, dev, I64)
-        wrow = _wtab_row(wtab, pid)
+        wrow = _row_at(wtab, pid)
     if rotation is None:
         perm = oid_seq = None
     else:
@@ -1055,3 +1074,504 @@ def scatter_rows(dev: dict, rows, upd: dict) -> dict:
     if not next(iter(dev.values())).is_cuda:
         return scatter_rows_plain(dev, rows, upd)
     return _scatter_launch(dev, rows, upd)
+
+
+# ---------------------------------------------------------------------------
+# K5 schedule_batch / K6 schedule_segments — the generic burst scans
+# ---------------------------------------------------------------------------
+#: node-state rows a placement folds into (`_MUTABLE`, kernels.py:531)
+_MUTABLE = ("req_cpu", "req_mem", "req_eph", "req_scalar",
+            "nz_cpu", "nz_mem", "pod_count")
+#: per-row scalar slots of the scan kernels' [U, 13] pod table: K2's
+#: scalars (slot 9, K2's profile id, unused: ids are per pod) plus the
+#: fold deltas
+_SCAN_SCALARS = _CYCLE_SCALARS + ("upd_cpu", "upd_mem", "upd_eph")
+_NODE_STATIC = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
+                "allowed_pods", "alloc_scalar", "zone_id")
+
+
+class PodStack:
+    """A window of B pods for the scan kernels, stored as the host builds
+    it: `table[k]` holds one row per distinct pod spec (`[U]` scalars,
+    `[U, S]` scalar vectors, `[U, W]` per-node fields), `row[b]` (host
+    int64) is pod b's table row and `profile_id[b]` its weight-table row
+    (None off the weight-table path).
+
+    A per-node field has W = n_pad when any spec of the window has it
+    dense and W = 1 when every spec leaves it inert: inertness is decided
+    per field per window, exactly as the JAX package's [B, ...] stack
+    decides it (`_stack_pods`), while memory and upload stay O(U x n_pad)
+    instead of O(B x n_pad)."""
+
+    def __init__(self, table: dict, row, profile_id=None):
+        self.table = table
+        self.row = np.asarray(row, dtype=np.int64)
+        self.profile_id = None if profile_id is None \
+            else np.asarray(profile_id, dtype=np.int64)
+
+    @classmethod
+    def from_dense(cls, pods: dict, device) -> "PodStack":
+        """The JAX layout (a dict of [B, ...] arrays, `profile_id` [B]
+        optional) as a stack with one table row per pod."""
+        pods = dict(pods)
+        prof = pods.pop("profile_id", None)
+        table = {k: _t(v, device) for k, v in pods.items()}
+        b = int(table["skip"].shape[0])
+        return cls(table, np.arange(b),
+                   None if prof is None else np.asarray(_host(prof)))
+
+    @classmethod
+    def from_specs(cls, specs: list, row, profile_id, device) -> "PodStack":
+        """One host dict per distinct spec (the `_pod_arrays` output) and
+        each pod's spec row. A field that is [1] for some specs and
+        [n_pad] for others is broadcast up, as `_stack_pods` does."""
+        table = {}
+        for k in specs[0]:
+            vals = [np.asarray(d[k]) for d in specs]
+            shapes = {v.shape for v in vals}
+            if len(shapes) > 1:
+                target = max(shapes)
+                vals = [np.broadcast_to(v, target) for v in vals]
+            table[k] = torch.as_tensor(np.stack(vals)).to(device)
+        return cls(table, row, profile_id)
+
+    def __len__(self) -> int:
+        return len(self.row)
+
+    def pod(self, b: int) -> dict:
+        """Pod b's fields (the JAX scan's per-step slice)."""
+        r = int(self.row[b])
+        p = {k: v[r] for k, v in self.table.items()}
+        if self.profile_id is not None:
+            p["profile_id"] = np.int64(self.profile_id[b])
+        return p
+
+
+def _fold_state_plain(state: dict, pod: dict, sel: int) -> None:
+    """Fold one placement's delta into the mutable rows, in place
+    (`_fold_state`, kernels.py:549). JAX adds a zero at row max(sel, 0)
+    on a miss; the callers fold only hits."""
+    state["req_cpu"][sel] += pod["upd_cpu"]
+    state["req_mem"][sel] += pod["upd_mem"]
+    state["req_eph"][sel] += pod["upd_eph"]
+    state["req_scalar"][sel] += pod["upd_scalar"]
+    state["nz_cpu"][sel] += pod["nz_cpu"]
+    state["nz_mem"][sel] += pod["nz_mem"]
+    state["pod_count"][sel] += 1
+
+
+def _scan_setup(nodes, pods, rotation, rotation_pos, spread0, carry_in,
+                wtab):
+    """Inputs shared by K5/K6 and their plain versions: the pod stack, the
+    rotation mode (0 axis order, 1 perm/inv_perm, 2 positions), the
+    carried rows and spread vector, the weight table."""
+    dev = nodes["valid"].device
+    stack = pods if isinstance(pods, PodStack) \
+        else PodStack.from_dense(pods, dev)
+    perms = inv_perms = oid_seq = None
+    mode = 0
+    if rotation_pos is not None:
+        if rotation is not None:
+            raise ValueError("rotation and rotation_pos are exclusive")
+        mode = 2
+        perms = _t(rotation_pos[0], dev, I32).contiguous()
+        oid_seq = np.asarray(_host(rotation_pos[1]), dtype=np.int64)
+    elif rotation is not None:
+        mode = 1
+        perms = _t(rotation[0], dev, I32).contiguous()
+        inv_perms = _t(rotation[1], dev, I32).contiguous()
+        oid_seq = np.asarray(_host(rotation[2]), dtype=np.int64)
+    carry_spread = spread0 is not None or (
+        carry_in is not None and carry_in[1] is not None)
+    if carry_in is not None:
+        mut0, s0 = carry_in
+    else:
+        mut0, s0 = {k: nodes[k] for k in _MUTABLE}, spread0
+    s0 = _t(s0, dev, I64) if carry_spread else None
+    if wtab is not None:
+        wtab = _t(wtab, dev, I64)
+    return stack, mode, perms, inv_perms, oid_seq, carry_spread, mut0, s0, \
+        wtab
+
+
+def _rotation_at(mode, perms, inv_perms, oid_seq, k):
+    """(perm, inv_perm, pos) of the k-th consumed enumeration."""
+    if mode == 0:
+        return None, None, None
+    oid = oid_seq[min(max(k, 0), len(oid_seq) - 1)]
+    if mode == 2:
+        return None, None, _row_at(perms, oid)
+    return _row_at(perms, oid), _row_at(inv_perms, oid), None
+
+
+def _skip_cycle(li: int, lni: int, n_real: int) -> dict:
+    """The cycle of a pod that consumes nothing (bucket padding, a member
+    behind its gang's failure): no node is feasible, so JAX's cycle gives
+    sel -1, found/evaluated/max_score 0, li reduced mod n, lni unchanged.
+    The scans take this without running the O(N) cycle."""
+    return {"selected": -1, "found": 0, "evaluated": 0, "max_score": 0,
+            "next_last_index": li % max(n_real, 1),
+            "next_last_node_index": lni}
+
+
+def _batch_core_plain(nodes, stack, mut0, s0, last_index, last_node_index,
+                      num_to_find, n_real, mode, perms, inv_perms, oid_seq,
+                      carry_spread, z_pad, weights, wtab):
+    """`_batch_core` (kernels.py:569): the scan over the window's pods, one
+    K2 cycle each, each hit folded before the next pod's cycle."""
+    dev = nodes["valid"].device
+    static = {k: v for k, v in nodes.items() if k not in _MUTABLE}
+    state = {k: mut0[k].clone() for k in _MUTABLE}
+    spread = s0.clone() if carry_spread else None
+    li, lni = int(last_index), int(last_node_index)
+    lni0 = lni
+    B = len(stack)
+    cols = {k: [] for k in ("selected", "found", "evaluated", "max_score",
+                            "li_after", "lni_after")}
+    for b in range(B):
+        pod = stack.pod(b)
+        perm, inv_perm, pos = _rotation_at(mode, perms, inv_perms, oid_seq,
+                                           b)
+        if carry_spread:
+            pod["spread_counts"] = spread
+        if bool(pod["skip"]):
+            out = _skip_cycle(li, lni, n_real)
+        else:
+            out = _cycle_core_plain({**static, **state}, pod, li, lni,
+                                    num_to_find, n_real, weights, z_pad,
+                                    perm=perm, inv_perm=inv_perm, pos=pos,
+                                    wtab=wtab)
+        sel, found = int(out["selected"]), int(out["found"])
+        if found > 0:
+            _fold_state_plain(state, pod, sel)
+            if carry_spread and not bool(pod["skip"]):
+                spread[sel] += 1
+        li = int(out["next_last_index"])
+        lni = int(out["next_last_node_index"])
+        cols["selected"].append(sel)
+        cols["found"].append(found)
+        cols["evaluated"].append(int(out["evaluated"]))
+        cols["max_score"].append(int(out["max_score"]))
+        cols["li_after"].append(li)
+        cols["lni_after"].append(lni)
+    outs = {k: torch.tensor(v, dtype=I32 if k == "li_after" else I64,
+                            device=dev) for k, v in cols.items()}
+    outs["packed"] = torch.tensor(
+        cols["selected"] + cols["li_after"]
+        + [_wrap32(x - lni0) for x in cols["lni_after"]],
+        dtype=I32, device=dev)
+    spread_out = spread if carry_spread else torch.zeros((), dtype=I64,
+                                                         device=dev)
+    return (state, torch.tensor(li, dtype=I64, device=dev),
+            torch.tensor(lni, dtype=I64, device=dev), spread_out, outs)
+
+
+def schedule_batch_plain(nodes, pods, last_index, last_node_index,
+                         num_to_find, n_real, z_pad, weights=None,
+                         rotation=None, spread0=None, rotation_pos=None,
+                         carry_in=None, wtab=None):
+    """Plain version of K5, the JAX `schedule_batch` entry point (kernels.py
+    :668, `mesh=` left out): (state, li, lni, spread, outs) with
+    outs["packed"] the [3B] int32 block selected | li after each pod |
+    lni delta after each pod."""
+    stack, mode, perms, inv_perms, oid_seq, carry_spread, mut0, s0, wtab = \
+        _scan_setup(nodes, pods, rotation, rotation_pos, spread0, carry_in,
+                    wtab)
+    return _batch_core_plain(
+        nodes, stack, mut0, s0, _host(last_index), _host(last_node_index),
+        int(num_to_find), int(n_real), mode, perms, inv_perms, oid_seq,
+        carry_spread, z_pad, weights or DEFAULT_WEIGHTS, wtab)
+
+
+def _segments_core_plain(nodes, stack, seg_start, gang, n_pods, s0,
+                         last_index, last_node_index, num_to_find, n_real,
+                         mode, perms, inv_perms, oid_seq, carry_spread,
+                         z_pad, weights, wtab, gang_score):
+    """`_segments_core` (kernels.py:785): the K5 step over the first
+    `n_pods` pods, with a checkpoint of the live carry at every segment
+    start and an in-scan rewind when a gang member finds no node."""
+    dev = nodes["valid"].device
+    static = {k: v for k, v in nodes.items() if k not in _MUTABLE}
+    zone_id = static["zone_id"]
+    B = len(stack)
+
+    def snapshot(c):
+        return {"state": {k: v.clone() for k, v in c["state"].items()},
+                "li": c["li"], "lni": c["lni"],
+                "spread": None if c["spread"] is None
+                else c["spread"].clone(),
+                "gz": None if c["gz"] is None else c["gz"].clone()}
+
+    cur = {"state": {k: nodes[k] for k in _MUTABLE},
+           "li": int(last_index), "lni": int(last_node_index),
+           "spread": s0 if carry_spread else None,
+           "gz": torch.zeros(z_pad, dtype=I64, device=dev)
+           if gang_score else None}
+    cur = snapshot(cur)
+    chk = snapshot(cur)
+    lni0 = cur["lni"]
+    t = chk_t = 0
+    failed = False
+    out = torch.full((4, B), -1, dtype=I32, device=dev)
+    for i in range(int(n_pods)):
+        pod = stack.pod(i)
+        sflag, gflag = bool(seg_start[i]), bool(gang[i])
+        if gang_score and sflag:
+            # the gang zone counts reset BEFORE the checkpoint is taken
+            cur["gz"] = torch.zeros(z_pad, dtype=I64, device=dev)
+        if sflag:
+            chk = snapshot(cur)
+            chk_t = t
+            failed = False
+        eskip = bool(pod["skip"]) or (gflag and failed)
+        perm, inv_perm, pos = _rotation_at(mode, perms, inv_perms, oid_seq,
+                                           t)
+        if carry_spread:
+            pod["spread_counts"] = cur["spread"]
+        if eskip:
+            out_c = _skip_cycle(cur["li"], cur["lni"], n_real)
+        else:
+            out_c = _cycle_core_plain(
+                {**static, **cur["state"]}, pod, cur["li"], cur["lni"],
+                num_to_find, n_real, weights, z_pad, perm=perm,
+                inv_perm=inv_perm, pos=pos, wtab=wtab,
+                gang=(cur["gz"], torch.tensor(gflag, device=dev))
+                if gang_score else None)
+        sel, hit = int(out_c["selected"]), int(out_c["found"]) > 0
+        if hit:
+            _fold_state_plain(cur["state"], pod, sel)
+            if carry_spread and not eskip:
+                cur["spread"][sel] += 1
+            if gang_score and not eskip and gflag:
+                z = int(zone_id[sel])
+                if 0 < z < z_pad:
+                    cur["gz"][z] += 1
+        cur["li"] = int(out_c["next_last_index"])
+        cur["lni"] = int(out_c["next_last_node_index"])
+        t = t + (0 if eskip else 1)
+        fail_now = gflag and not hit and not eskip
+        if fail_now:
+            # the in-scan gang_rewind: back to the segment checkpoint
+            cur = snapshot(chk)
+            t = chk_t
+        failed = failed or fail_now
+        out[:, i] = torch.tensor(
+            [sel if (hit and not eskip) else -1, cur["li"],
+             _wrap32(cur["lni"] - lni0), t], dtype=I32)
+    spread_out = cur["spread"] if carry_spread \
+        else torch.zeros((), dtype=I64, device=dev)
+    return (cur["state"], torch.tensor(cur["li"], dtype=I64, device=dev),
+            torch.tensor(cur["lni"], dtype=I64, device=dev), spread_out,
+            out.reshape(4 * B))
+
+
+def schedule_batch_segments_plain(nodes, pods, seg_start, gang, n_pods,
+                                  last_index, last_node_index, num_to_find,
+                                  n_real, z_pad, weights=None, rotation=None,
+                                  rotation_pos=None, spread0=None, wtab=None,
+                                  gang_score=False):
+    """Plain version of K6, the JAX `schedule_batch_segments` entry point
+    (kernels.py:949, `mesh=` left out): (state, li, lni, spread, packed)
+    with packed the [4B] int32 block selected | li_after | lni delta |
+    consumed enumerations t, -1 past `n_pods`. The rotation order of a
+    cycle is `oid_seq[t]`, t the enumerations consumed so far."""
+    stack, mode, perms, inv_perms, oid_seq, carry_spread, _mut0, s0, wtab = \
+        _scan_setup(nodes, pods, rotation, rotation_pos, spread0, None, wtab)
+    if int(n_pods) > len(stack):
+        raise ValueError("n_pods exceeds the stacked window")
+    return _segments_core_plain(
+        nodes, stack, np.asarray(_host(seg_start), bool),
+        np.asarray(_host(gang), bool), int(n_pods), s0,
+        _host(last_index), _host(last_node_index), int(num_to_find),
+        int(n_real), mode, perms, inv_perms, oid_seq, carry_spread, z_pad,
+        weights or DEFAULT_WEIGHTS, wtab, bool(gang_score))
+
+
+# scalar and pointer slots of the scan kernels' launch (csrc/cycle.cuh
+# `ScanArgs`): both lists are copied into the kernel's argument struct
+_SCAN_INTS = ("n_pad", "S", "n_real", "z_pad", "B", "num_to_find",
+              "last_index", "lni0", "mode", "L", "n_oid", "carry_spread",
+              "gate", "P", "ipa_on", "ic_inert", "tr_inert", "n_pods",
+              "gang_score", "U")
+_SCAN_PTRS = (_NODE_STATIC + _MUTABLE
+              + ("scal", "req_scalar_p", "upd_scalar_p") + _CYCLE_MASKS
+              + ("interpod_code",) + _CYCLE_COUNTS
+              + ("interpod_tracked", "row", "profile_id", "w", "wtab",
+                 "perms", "inv_perms", "oid_seq", "spread",
+                 "total", "kept", "flags", "zs", "stats", "packed",
+                 "carry_out", "seg_start", "gang", "gz", "log_node",
+                 "log_row"))
+
+
+def _scan_launch(name, nodes, stack, last_index, last_node_index,
+                 num_to_find, n_real, z_pad, weights, mode, perms, inv_perms,
+                 oid_seq, carry_spread, mut0, s0, wtab, n_steps,
+                 segments=None, gang_score=False):
+    """Launch K5 (`schedule_batch`) or K6 (`schedule_segments`). Returns
+    (state, li, lni, spread, stats[5, B] int64, packed int32)."""
+    dev = nodes["valid"].device
+    n_pad = int(nodes["valid"].shape[0])
+    s_count = int(nodes["alloc_scalar"].shape[1])
+    B = len(stack)
+    tab = stack.table
+    static = [nodes[k] for k in _NODE_STATIC]
+    _require_cuda(name, *static)
+    if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype != torch.bool:
+        raise ValueError(f"{name}: zone_id must be int32, valid bool")
+    # the folds land in fresh rows: the resident matrix stays as it was
+    state = {k: mut0[k].to(I64).clone().contiguous() for k in _MUTABLE}
+    spread = s0.clone().contiguous() if carry_spread else None
+    U = int(tab["skip"].shape[0])
+    scal = torch.stack(
+        [tab[k].reshape(U).to(I64) if k != "profile_id"
+         else torch.zeros(U, dtype=I64, device=dev)
+         for k in _SCAN_SCALARS], dim=1).contiguous()
+    req_scalar = tab["req_scalar"].to(I64).reshape(U, s_count).contiguous()
+    upd_scalar = tab["upd_scalar"].to(I64).reshape(U, s_count).contiguous()
+
+    def dense(key, dtype):
+        v = tab.get(key)
+        if v is None or _inert(v):
+            return None
+        v = v.to(dtype).contiguous()
+        if v.shape != (U, n_pad):
+            raise ValueError(f"{name}: {key} is not [U, n_pad]")
+        return v
+    masks = [dense(k, torch.bool) for k in _CYCLE_MASKS]
+    code = dense("interpod_code", torch.int8)
+    counts = [dense(k, I64) for k in _CYCLE_COUNTS]
+    tracked = dense("interpod_tracked", torch.bool)
+    ic_inert, tr_inert = counts[3] is None, tracked is None
+    ipa_on = not (ic_inert and tr_inert)
+    if ipa_on and ic_inert:
+        counts[3] = tab["interpod_counts"].to(I64).reshape(U, 1).contiguous()
+    if ipa_on and tr_inert:
+        tracked = tab["interpod_tracked"].to(torch.bool).reshape(
+            U, 1).contiguous()
+    if carry_spread:
+        counts[2] = None     # the carried vector replaces the field
+    row = torch.as_tensor(stack.row.astype(np.int32)).to(dev)
+    prof = None
+    if wtab is not None:
+        pid = stack.profile_id if stack.profile_id is not None \
+            else np.zeros(B, np.int64)
+        prof = torch.as_tensor(pid).to(dev)
+    w = _weight_row(weights, None, dev)
+    oid = None if oid_seq is None \
+        else torch.as_tensor(oid_seq.astype(np.int32)).to(dev)
+    total = torch.empty(n_pad, dtype=I64, device=dev)
+    kept = torch.empty(n_pad, dtype=torch.uint8, device=dev)
+    flags = torch.empty(2 * n_pad, dtype=I32, device=dev)
+    zs = torch.empty(2 * int(z_pad), dtype=I64, device=dev)
+    stats = torch.empty((5, B), dtype=I64, device=dev)
+    packed = torch.empty((4 if segments else 3) * B, dtype=I32, device=dev)
+    carry_out = torch.empty(2, dtype=I64, device=dev)
+    seg = {}
+    if segments is not None:
+        seg = {"seg_start": _t(segments[0], dev, torch.bool).contiguous(),
+               "gang": _t(segments[1], dev, torch.bool).contiguous(),
+               "gz": torch.empty(int(z_pad), dtype=I64, device=dev),
+               "log_node": torch.empty(B, dtype=I32, device=dev),
+               "log_row": torch.empty(B, dtype=I32, device=dev)}
+        if seg["seg_start"].shape[0] != B or seg["gang"].shape[0] != B:
+            raise ValueError(f"{name}: seg_start/gang are not [B]")
+    ptrs = dict(zip(_NODE_STATIC, static))
+    ptrs.update(state)
+    ptrs.update({"scal": scal, "req_scalar_p": req_scalar,
+                 "upd_scalar_p": upd_scalar, "interpod_code": code,
+                 "interpod_tracked": tracked, "row": row,
+                 "profile_id": prof, "w": w, "wtab": wtab, "perms": perms,
+                 "inv_perms": inv_perms, "oid_seq": oid, "spread": spread,
+                 "total": total, "kept": kept, "flags": flags, "zs": zs,
+                 "stats": stats, "packed": packed, "carry_out": carry_out})
+    ptrs.update(zip(_CYCLE_MASKS, masks))
+    ptrs.update(zip(_CYCLE_COUNTS, counts))
+    ptrs.update(seg)
+    _require_cuda(name, *[v for v in ptrs.values() if v is not None])
+    ints = {"n_pad": n_pad, "S": s_count, "n_real": int(n_real),
+            "z_pad": int(z_pad), "B": B, "num_to_find": int(num_to_find),
+            "last_index": int(np.asarray(_host(last_index))),
+            "lni0": int(np.asarray(_host(last_node_index))), "mode": mode,
+            "L": 0 if perms is None else int(perms.shape[0]),
+            "n_oid": 0 if oid_seq is None else len(oid_seq),
+            "carry_spread": int(carry_spread), "gate": _gate(weights),
+            "P": 0 if wtab is None else int(wtab.shape[0]),
+            "ipa_on": int(ipa_on), "ic_inert": int(ic_inert),
+            "tr_inert": int(tr_inert), "n_pods": int(n_steps),
+            "gang_score": int(bool(gang_score)), "U": U}
+    if perms is not None and perms.shape[1] != n_pad:
+        raise ValueError(f"{name}: rotation rows must be n_pad wide")
+    iargs = (ctypes.c_longlong * len(_SCAN_INTS))(
+        *[ints[k] for k in _SCAN_INTS])
+    parr = (ctypes.c_void_p * len(_SCAN_PTRS))(
+        *[_ptr(ptrs.get(k)) for k in _SCAN_PTRS])
+    lib = _build.load(name)
+    obs.inc("launch." + name)
+    _check(getattr(lib, name + "_launch")(iargs, parr, _stream()), name)
+    spread_out = spread if carry_spread \
+        else torch.zeros((), dtype=I64, device=dev)
+    return state, carry_out[0], carry_out[1], spread_out, stats, packed
+
+
+def schedule_batch(nodes, pods, last_index, last_node_index, num_to_find,
+                   n_real, z_pad, weights=None, rotation=None, spread0=None,
+                   rotation_pos=None, carry_in=None, wtab=None):
+    """K5: the generic burst scan — one K2 cycle per pod, in order, each
+    hit folded into the carried rows before the next pod. `pods` is a
+    `PodStack` or the JAX [B, ...] dict; `rotation` = (perms[L, n_pad],
+    inv_perms, oid_seq[B]) and `rotation_pos` = (pos[L, n_pad],
+    oid_seq[B]) give each cycle's enumeration; `spread0` [n_pad] carries
+    selector-spread counts; `carry_in` = (state, spread) chains a previous
+    window's device carry; `wtab` [P, K] with the stack's profile ids
+    scores each pod with its own row. Returns (state, li, lni, spread,
+    outs) as the JAX entry point; outs["packed"] is the [3B] int32 block
+    selected | li after each pod | lni delta after each pod."""
+    weights = weights or DEFAULT_WEIGHTS
+    if not nodes["valid"].is_cuda:
+        return schedule_batch_plain(
+            nodes, pods, last_index, last_node_index, num_to_find, n_real,
+            z_pad, weights=weights, rotation=rotation, spread0=spread0,
+            rotation_pos=rotation_pos, carry_in=carry_in, wtab=wtab)
+    stack, mode, perms, inv_perms, oid_seq, carry_spread, mut0, s0, wtab = \
+        _scan_setup(nodes, pods, rotation, rotation_pos, spread0, carry_in,
+                    wtab)
+    state, li, lni, spread, stats, packed = _scan_launch(
+        "schedule_batch", nodes, stack, last_index, last_node_index,
+        num_to_find, n_real, z_pad, weights, mode, perms, inv_perms,
+        oid_seq, carry_spread, mut0, s0, wtab, len(stack))
+    B = len(stack)
+    outs = {"selected": stats[0], "found": stats[1], "evaluated": stats[2],
+            "max_score": stats[3], "li_after": packed[B: 2 * B],
+            "lni_after": stats[4], "packed": packed}
+    return state, li, lni, spread, outs
+
+
+def schedule_batch_segments(nodes, pods, seg_start, gang, n_pods,
+                            last_index, last_node_index, num_to_find,
+                            n_real, z_pad, weights=None, rotation=None,
+                            rotation_pos=None, spread0=None, wtab=None,
+                            gang_score=False):
+    """K6: the fused drain window — K5's step over the first `n_pods` pods
+    with a checkpoint of the live carry at each `seg_start` and an
+    in-kernel rewind when a `gang` member finds no node (the rest of its
+    segment is skipped). `gang_score` carries the rank-aware zone counts
+    of the current gang. Returns (state, li, lni, spread, packed[4B]) as
+    the JAX entry point: selected | li_after | lni delta | consumed
+    enumerations t, -1 past n_pods."""
+    weights = weights or DEFAULT_WEIGHTS
+    if not nodes["valid"].is_cuda:
+        return schedule_batch_segments_plain(
+            nodes, pods, seg_start, gang, n_pods, last_index,
+            last_node_index, num_to_find, n_real, z_pad, weights=weights,
+            rotation=rotation, rotation_pos=rotation_pos, spread0=spread0,
+            wtab=wtab, gang_score=gang_score)
+    stack, mode, perms, inv_perms, oid_seq, carry_spread, mut0, s0, wtab = \
+        _scan_setup(nodes, pods, rotation, rotation_pos, spread0, None, wtab)
+    if int(n_pods) > len(stack):
+        raise ValueError("n_pods exceeds the stacked window")
+    state, li, lni, spread, _stats, packed = _scan_launch(
+        "schedule_segments", nodes, stack, last_index, last_node_index,
+        num_to_find, n_real, z_pad, weights, mode, perms, inv_perms,
+        oid_seq, carry_spread, mut0, s0, wtab, int(n_pods),
+        segments=(seg_start, gang), gang_score=gang_score)
+    return state, li, lni, spread, packed

@@ -27,6 +27,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules()
     assert "kubernetes_tpu_torch.core.torch_scheduler" in mods
     assert "kubernetes_tpu_torch.carry" in mods
+    assert "kubernetes_tpu_torch.profiles" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -57,6 +58,11 @@ def test_kernel_sources_exist_for_every_kernel():
     assert tuple(PK.KERNELS) == tuple(_build.NAMES)
     for name in _build.NAMES:
         assert (_build.CSRC / f"{name}.cu").exists(), name
+        # every kernel source includes only the package's own headers
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for line in src.splitlines():
+            if line.startswith('#include "'):
+                assert (_build.CSRC / line.split('"')[1]).exists(), line
         assert name in _build.SIGNATURES
     assert json.dumps(sorted(_build.SIGNATURES)) == json.dumps(
         sorted(_build.NAMES))

@@ -352,3 +352,241 @@ def test_scatter_rows_matches():
     got = PK.scatter_rows(pn, rows, upd)
     for k in NODE_FIELDS:
         assert_same(got[k], want[k], k)
+
+
+# ---------------------------------------------------------------------------
+# K5 schedule_batch / K6 schedule_batch_segments
+# ---------------------------------------------------------------------------
+SCAN_B = 32          # one JAX compile per mode: every case stacks 32 pods
+
+
+def _scan_inputs(seed, n=37, zones=3, kinds=(0, 1, 2), n_pods=24,
+                 spread=False):
+    """A partly filled world and a window of `n_pods` pods of mixed kinds
+    (dense and inert per-node fields side by side), padded to SCAN_B with
+    skip pods, in the JAX [B, ...] layout."""
+    from kubernetes_tpu.ops.node_state import PodEncoder as JPE
+    from kubernetes_tpu.api.types import Service
+    rng = random.Random(seed)
+    w = make_world(seed, n, zones=zones, taint_frac=0.3, labeled_frac=0.5,
+                   images=True)
+    names = w.names()
+    for j in range(n // 3):
+        w.assume(make_pod(rng, 100 + j), names[rng.randrange(n)])
+    for j in range(4):
+        w.assume(uniform_pods(1, prefix=f"old{j}")[0], names[3 * j])
+    jsched = TPUScheduler()
+    jb = jsched.encoder.encode(w.j_infos, names)
+    svc = [Service(name="s", namespace="default", selector={"app": "web"}),
+           Service(name="b", namespace="default", selector={"app": "burst"})]
+    enc = JPE(w.j_infos, jb, svc, [])
+    if spread:
+        pods = uniform_pods(n_pods, cpu=300)
+    else:
+        pods = [make_pod(rng, j, **POD_KINDS[kinds[j % len(kinds)]])
+                for j in range(n_pods)]
+    per_pod = [jsched._pod_arrays(enc.encode(p), jb.n_pad, upd_fields=True,
+                                  pod=p) for p in pods]
+    spread0 = None
+    if spread:
+        spread0 = np.asarray(enc.encode(pods[0]).spread_counts)
+        for pp in per_pod:
+            pp["spread_counts"] = np.zeros(1, np.int64)
+    pad = dict(per_pod[-1], skip=np.bool_(True))
+    per_pod += [pad] * (SCAN_B - n_pods)
+    stacked = {k: np.ascontiguousarray(v)
+               for k, v in TPUScheduler._stack_pods(per_pod).items()}
+    jn, pn = node_dicts(jb)
+    z_pad = 4
+    while z_pad < len(jb.zone_names):
+        z_pad *= 2
+    return jn, pn, stacked, spread0, jb.n_real, jb.n_pad, z_pad
+
+
+def _rotation_tables(rng, n, n_pad, orders=3):
+    perms = [np.arange(n_pad)]
+    for _ in range(orders):
+        perms.append(np.concatenate([rng.permutation(n),
+                                     np.arange(n, n_pad)]))
+    perms = np.stack(perms).astype(np.int32)
+    inv = np.empty_like(perms)
+    for l in range(len(perms)):
+        inv[l, perms[l]] = np.arange(n_pad, dtype=np.int32)
+    return perms, inv
+
+
+def _tensors(kw):
+    """The port's form of a JAX call's keyword arguments."""
+    out = {}
+    for k, v in kw.items():
+        if v is None or isinstance(v, (dict, bool, int)):
+            out[k] = v
+        elif isinstance(v, tuple):
+            out[k] = tuple(torch.as_tensor(np.asarray(x)) for x in v)
+        else:
+            out[k] = torch.as_tensor(np.asarray(v))
+    return out
+
+
+def _check_scan(got, want, packed_only=False):
+    (ps, pli, plni, psp, pouts), (js, jli, jlni, jsp, jouts) = got, want
+    for k in js:
+        assert_same(ps[k], js[k], k)
+    assert int(pli) == int(jli) and int(plni) == int(jlni)
+    assert_same(psp, jsp, "spread")
+    for k in jouts:
+        assert_same(pouts[k], jouts[k], k)
+
+
+SCAN_CASES = ["identity", "partial", "perm", "pos", "spread", "wtab"]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_schedule_batch_matches(case):
+    jn, pn, stacked, spread0, n, n_pad, z_pad = _scan_inputs(
+        40 + SCAN_CASES.index(case), spread=case == "spread")
+    rng = np.random.default_rng(7)
+    ntf = n if case in ("identity", "pos", "wtab", "spread") else 11
+    kw = {}
+    if case == "perm":
+        perms, inv = _rotation_tables(rng, n, n_pad)
+        kw["rotation"] = (perms, inv,
+                          rng.integers(0, 4, SCAN_B).astype(np.int32))
+    if case == "pos":
+        perms, inv = _rotation_tables(rng, n, n_pad)
+        kw["rotation_pos"] = (inv, rng.integers(0, 4, SCAN_B).astype(
+            np.int32))
+    if case == "spread":
+        kw["spread0"] = spread0
+    if case == "wtab":
+        wtab = rng.integers(0, 4, (3, len(JK.PRIORITY_AXIS))).astype(np.int64)
+        kw["wtab"] = wtab
+        kw["weights"] = {k: int(wtab[:, i].max())
+                         for i, k in enumerate(JK.PRIORITY_AXIS)}
+        stacked = dict(stacked, profile_id=rng.integers(
+            -1, 4, SCAN_B).astype(np.int64))
+    li, lni = (5, 2 ** 31 + 3) if case != "identity" else (0, 0)
+    want = JK.schedule_batch(jn, {k: jnp.asarray(v) for k, v in
+                                  stacked.items()},
+                             li, lni, ntf, n, z_pad, **kw)
+    got = PK.schedule_batch(pn, stacked, li, lni, ntf, n, z_pad,
+                            **_tensors(kw))
+    _check_scan(got, want)
+    packed = np.asarray(want[4]["packed"])
+    assert (packed[:24] >= 0).any()
+
+
+def test_schedule_batch_carry_in_chains():
+    """Two windows chained on the device carry equal the JAX chain."""
+    jn, pn, stacked, spread0, n, n_pad, z_pad = _scan_inputs(
+        61, spread=True)
+    j1 = JK.schedule_batch(jn, {k: jnp.asarray(v) for k, v in
+                                stacked.items()}, 0, 3, n, n, z_pad,
+                           spread0=spread0)
+    p1 = PK.schedule_batch(pn, stacked, 0, 3, n, n, z_pad,
+                           spread0=torch.as_tensor(spread0))
+    _check_scan(p1, j1)
+    j2 = JK.schedule_batch(jn, {k: jnp.asarray(v) for k, v in
+                                stacked.items()}, j1[1], j1[2], n, n, z_pad,
+                           carry_in=(j1[0], j1[3]))
+    p2 = PK.schedule_batch(pn, stacked, p1[1], p1[2], n, n, z_pad,
+                           carry_in=(p1[0], p1[3]))
+    _check_scan(p2, j2)
+
+
+def _segments(B, layout):
+    """seg_start / gang flags for [(length, is_gang), ...]."""
+    seg = np.zeros(B, bool)
+    gang = np.zeros(B, bool)
+    i = 0
+    for length, g in layout:
+        seg[i] = True
+        gang[i: i + length] = g
+        i += length
+    if i < B:
+        seg[i] = True
+    return seg, gang, i
+
+
+SEG_CASES = ["axis", "perm", "pos", "gang_score", "spread", "short"]
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_schedule_batch_segments_matches(case):
+    """Singleton runs and gangs; the 14-member gang cannot all fit (its
+    pods ask for 3 CPU of 13 nodes' 4) so it rewinds mid-window; a singleton failure
+    follows; n_pods < B leaves -1 filler."""
+    from kubernetes_tpu.api.types import Node, LABEL_HOSTNAME
+    from kubernetes_tpu.ops.node_state import PodEncoder as JPE
+    from tests.test_torch_encoders import World
+    n = 13
+    nodes = [Node(name=f"n{i}", labels={
+        "failure-domain.beta.kubernetes.io/zone": f"z{i % 4}",
+        LABEL_HOSTNAME: f"n{i}"},
+        allocatable={"cpu": 4000, "memory": 32 * 1024 ** 3, "pods": 110})
+        for i in range(n)]
+    w = World(nodes)
+    names = w.names()
+    jsched = TPUScheduler()
+    jb = jsched.encoder.encode(w.j_infos, names)
+    enc = JPE(w.j_infos, jb, [], [])
+    small = uniform_pods(6, cpu=500, prefix="s")
+    wide = uniform_pods(14, cpu=3000, prefix="g")
+    mid = uniform_pods(5, cpu=700, prefix="m")
+    huge = uniform_pods(2, cpu=9000, prefix="h")
+    layout = [(small[:3], False), (mid, True), (wide, True),
+              (small[3:], False), (huge, False), (small[:2], False)]
+    if case == "short":
+        layout = layout[:3]
+    flat = [p for seg, _g in layout for p in seg]
+    per_pod = [jsched._pod_arrays(enc.encode(p), jb.n_pad, upd_fields=True,
+                                  pod=p) for p in flat]
+    seg, gang, n_pods = _segments(SCAN_B, [(len(s), g) for s, g in layout])
+    pad = dict(per_pod[-1], skip=np.bool_(True))
+    per_pod += [pad] * (SCAN_B - n_pods)
+    stacked = {k: np.ascontiguousarray(v)
+               for k, v in TPUScheduler._stack_pods(per_pod).items()}
+    rng = np.random.default_rng(3)
+    jn, pn = node_dicts(jb)
+    z_pad = 8
+    kw = {}
+    ntf = n if case != "perm" else 6
+    if case in ("perm", "pos"):
+        perms, inv = _rotation_tables(rng, n, jb.n_pad)
+        oid = rng.integers(0, 4, SCAN_B).astype(np.int32)
+        kw["rotation" if case == "perm" else "rotation_pos"] = \
+            (perms, inv, oid) if case == "perm" else (inv, oid)
+    if case == "gang_score":
+        wtab = np.array([[1, 1, 1, 0, 0, 1, 10000, 1, 1, 1, 0],
+                         [1, 1, 0, 2, 0, 1, 10000, 1, 1, 1, 7]], np.int64)
+        kw.update(wtab=wtab, gang_score=True, weights={
+            k: int(wtab[:, i].max()) for i, k in enumerate(JK.PRIORITY_AXIS)})
+        stacked = dict(stacked, profile_id=(np.arange(SCAN_B) % 2).astype(
+            np.int64))
+    if case == "spread":
+        # a carried spread vector rewinds with the gang
+        kw["spread0"] = rng.integers(0, 5, jb.n_pad).astype(np.int64)
+    if case == "short":
+        n_pods = 10
+    want = JK.schedule_batch_segments(
+        jn, {k: jnp.asarray(v) for k, v in stacked.items()}, seg, gang,
+        n_pods, 3, 5, ntf, n, z_pad, **kw)
+    got = PK.schedule_batch_segments(pn, stacked, seg, gang, n_pods, 3, 5,
+                                     ntf, n, z_pad, **_tensors(kw))
+    (js, jli, jlni, jsp, jpk), (ps, pli, plni, psp, ppk) = want, got
+    for k in js:
+        assert_same(ps[k], js[k], k)
+    assert int(pli) == int(jli) and int(plni) == int(jlni)
+    assert_same(psp, jsp, "spread")
+    assert_same(ppk, jpk, "packed")
+    packed = np.asarray(jpk)
+    sel = packed[:SCAN_B]
+    assert (sel[n_pods:] == -1).all()
+    if case != "short":
+        # the wide gang placed some members, then rewound: its selections
+        # stay in the block and the carry after it equals the one before
+        g0 = 3 + 5
+        assert (sel[g0: g0 + 14] >= 0).any() \
+            and (sel[g0: g0 + 14] < 0).any()
+        t_after = packed[3 * SCAN_B: 4 * SCAN_B]
+        assert t_after[g0 + 13] == t_after[g0 - 1]
