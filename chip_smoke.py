@@ -4,10 +4,13 @@
 
 1. Builds the port's CUDA kernels (one nvcc per source, all at once).
 2. Holds each kernel (K1 local_total, K2 schedule_cycle, K3 uniform_burst,
-   K4 scatter_rows, K5 schedule_batch, K6 schedule_segments) equal to its
-   plain PyTorch version on the card, at the main paths' shapes (n_pad
-   16,384; K5 and K6 on whole 10,000-pod windows), times both, and holds
-   every kernel mode against the plain version on random inputs.
+   K4 scatter_rows, K5 schedule_batch, K6 schedule_segments, K7
+   preempt_scan, K8 pressure_batch) equal to its plain PyTorch version on
+   the card, at the main paths' shapes (n_pad 16,384; K5 and K6 on whole
+   10,000-pod windows, K8 on a 128-pod chunk of preempt-wave, K7 on a
+   preempt-single round), times both, and holds every kernel mode against
+   the plain version on random inputs (K7/K8 at P 16 and 128, K4 on the
+   victim planes).
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
@@ -21,12 +24,22 @@
      selector-spread vector);
    - fused-gang (K6): one drain window of 100 gangs of 64 and singleton
      runs, under a rank-aware profile, with one gang that cannot all fit
-     and rewinds mid-window.
+     and rewinds mid-window;
+   - preempt-wave (K8): 10 victims of 400m on each of 15,000 nodes (9 on
+     every 50th), a PDB over a quarter of them, and 1,024 preemptors
+     (512 at priority 100, 384 at 50, 128 at 1) in 8 chunks and one
+     fetch: bound, nominated and failed outcomes;
+   - preempt-baseline (K8): BASELINE.json configs[3], 1,000 nodes x
+     10,000 victims and 128 preemptors, after prewarm_preempt;
+   - preempt-single (K7, with K2 and K4): 32 rounds of schedule ->
+     FitError -> preempt on the preempt-wave world, the shell's evictions
+     in between; rounds 2-32 scatter the victim planes' dirty rows.
    Launch counts are zeroed just before each path and read just after;
    each path's kernels must have run and no window may be refused.
    Decisions, walk counters and folded rows must equal the plain path on
    the card (whole window for the uniform burst, the first >= 1,024 pods
-   of the scan and fused windows).
+   of the scan and fused windows, whole waves with their ghost load for
+   the pressure paths, every K7 block of preempt-single).
 4. Checks the burst against the serial cycle on a small world: a burst
    must decide exactly what one schedule() per pod decides.
 
@@ -71,6 +84,10 @@ SOURCES = {
     "schedule_segments": (
         "kubernetes_tpu_torch/ops/csrc/schedule_segments.cu",
         "kubernetes_tpu/ops/kernels.py:785"),
+    "preempt_scan": ("kubernetes_tpu_torch/ops/csrc/preempt_scan.cu",
+                     "kubernetes_tpu/ops/kernels.py:1598"),
+    "pressure_batch": ("kubernetes_tpu_torch/ops/csrc/pressure_batch.cu",
+                       "kubernetes_tpu/ops/kernels.py:1690"),
 }
 
 
@@ -117,13 +134,16 @@ def plain_versions():
     from kubernetes_tpu_torch.ops import kernels as K
     saved = {k: getattr(K, k) for k in (
         "local_total", "schedule_cycle", "schedule_batch_uniform",
-        "scatter_rows", "schedule_batch", "schedule_batch_segments")}
+        "scatter_rows", "schedule_batch", "schedule_batch_segments",
+        "preemption_scan", "pressure_batch")}
     K.local_total = K.local_total_plain
     K.schedule_cycle = K.schedule_cycle_plain
     K.schedule_batch_uniform = K.schedule_batch_uniform_plain
     K.scatter_rows = K.scatter_rows_plain
     K.schedule_batch = K.schedule_batch_plain
     K.schedule_batch_segments = K.schedule_batch_segments_plain
+    K.preemption_scan = K.preemption_scan_plain
+    K.pressure_batch = K.pressure_batch_plain
     try:
         yield
     finally:
@@ -894,11 +914,11 @@ def same_rows(name, a, b):
 class capture:
     """Record the inputs of the first call of a kernel entry point (node
     tensors cloned), so the kernel check runs on the main path's own
-    inputs."""
+    inputs, and the result of its last call."""
 
     def __init__(self, fn_name):
         self.fn_name = fn_name
-        self.call = None
+        self.call = self.last = None
 
     def __enter__(self):
         from kubernetes_tpu_torch.ops import kernels as K
@@ -907,8 +927,9 @@ class capture:
         def rec(nodes, *args, **kw):
             if self.call is None:
                 self.call = ({k: v.clone() for k, v in nodes.items()},
-                             args, kw)
-            return real(nodes, *args, **kw)
+                             args, dict(kw))
+            self.last = real(nodes, *args, **kw)
+            return self.last
         setattr(K, self.fn_name, rec)
         return self
 
@@ -931,10 +952,10 @@ def scan_bound(nodes, stack, n_cycles, n_real, out_bytes):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def scan_kernel_entry(report, name, fn, plain, call, n_cycles, n_pods,
-                      out_bytes, sync):
-    """Hold a scan kernel against its plain version on one captured window
-    of the main path, time both, and file its report entry."""
+def call_entry(report, name, fn, plain, call, bound, sync, reps, label):
+    """Hold a kernel against its plain version on one captured call of its
+    main path, time both (the plain version once), file its report entry;
+    returns the kernel's ms."""
     import torch
     nodes, args, kw = call
     got = fn(nodes, *args, **kw)
@@ -948,18 +969,27 @@ def scan_kernel_entry(report, name, fn, plain, call, n_cycles, n_pods,
     if err != 0:
         raise SystemExit(f"{name}: kernel disagrees with plain (max_abs_err "
                          f"{err}; first difference {first_diff(got, want)})")
-    ms = cuda_time(lambda: fn(nodes, *args, **kw), sync, 3)
-    bound_ms, bound_by = scan_bound(nodes, args[0], n_cycles,
-                                    int(nodes["valid"].sum()), out_bytes)
+    ms = cuda_time(lambda: fn(nodes, *args, **kw), sync, reps)
     report[name] = {"name": name, "route": "cuda",
                     "source": SOURCES[name][0], "replaces": SOURCES[name][1],
                     "launches": 0, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None}
-    print(f"[kernel] {name}: equal to plain over the whole {n_pods}-pod "
-          f"window (max_abs_err 0), kernel_ms {ms:.4f} "
-          f"({ms / n_pods * 1e3:.2f} us/pod) plain_ms {plain_ms:.4f} "
-          f"bound_ms {bound_ms:.6f} ({bound_by})")
+                    "plain_ms": plain_ms, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": None}
+    print(f"[kernel] {name}: equal to plain on {label} (max_abs_err 0), "
+          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound[0]:.6f} ({bound[1]})")
+    return ms
+
+
+def scan_kernel_entry(report, name, fn, plain, call, n_cycles, n_pods,
+                      out_bytes, sync):
+    """call_entry for a scan kernel on one whole window of its path."""
+    nodes, args, _kw = call
+    bound = scan_bound(nodes, args[0], n_cycles, int(nodes["valid"].sum()),
+                       out_bytes)
+    ms = call_entry(report, name, fn, plain, call, bound, sync, 3,
+                    f"the whole {n_pods}-pod window")
+    print(f"[kernel] {name}: {ms / n_pods * 1e3:.2f} us/pod")
 
 
 def path_report(name, n_nodes, n_pods, run, counts, extra=""):
@@ -1167,6 +1197,466 @@ def main_path(name, n_nodes, device, sync, report):
     add_launches(report, counts)
 
 
+# ---------------------------------------------------------------------------
+# Device preemption: K7 preempt_scan, K8 pressure_batch
+# ---------------------------------------------------------------------------
+# integer operations per slot step of the victim scan, a floor: pass 1
+# (mask compare, three adds, count) 5; pass 2 (three adds, count, the fit's
+# four compares and three adds, keep, three selects, the aggregates) 15
+OPS_PER_SLOT = 20
+# the preempt worlds: 10 victims of 400m per node (9 on every 50th node),
+# priorities 1-5 by slot and node, a quarter of them PDB-guarded
+VICTIMS_PER_NODE, VICTIM_CPU = 10, 400
+N_SINGLE = 32                    # preempt-single rounds
+
+
+def preempt_world(n_nodes):
+    """bench.py's cluster with VICTIMS_PER_NODE lower-priority pods on every
+    node (one fewer on every 50th node: 400m free there), priorities 1-5
+    cycling by slot and node, distinct start times, a PDB with no
+    disruptions left over `app=guarded` (every fourth victim), and the
+    label pool=preempt on zones 0 and 1."""
+    from kubernetes_tpu_torch.api.types import (
+        Pod, Container, LabelSelector, PodDisruptionBudget)
+    infos, tree = cluster(n_nodes, lambda i: {"pool": "preempt"}
+                          if i % 3 != 2 else {})
+    uid = 0
+    for i in range(n_nodes):
+        name = f"node-{i}"
+        k = VICTIMS_PER_NODE - (1 if i % 50 == 0 else 0)
+        for s in range(k):
+            uid += 1
+            infos[name].add_pod(Pod(
+                name=f"victim-{uid}", node_name=name,
+                priority=1 + (s + i) % 5, start_time=float(uid),
+                labels={"app": "guarded" if uid % 4 == 0 else "batch"},
+                containers=(Container.make(
+                    name="c", requests={"cpu": VICTIM_CPU}),)))
+    pdbs = [PodDisruptionBudget(
+        name="guard", disruptions_allowed=0,
+        selector=LabelSelector(match_labels=(("app", "guarded"),)))]
+    return infos, tree, pdbs
+
+
+def wave_pods():
+    """The preempt-wave queue, priorities non-increasing: 512 pods at 100
+    (400m), 384 at 50 (800m), 128 at 1 (400m)."""
+    return (pods(512, prefix="urgent", cpu=400, priority=100)
+            + pods(384, prefix="mid", cpu=800, priority=50)
+            + pods(128, prefix="low", cpu=400, priority=1))
+
+
+def outcome_names(out):
+    return [(o[0], o[1], [v.name for v in o[2]]) if o[0] == "nominated"
+            else o for o in out]
+
+
+def victim_bound(nodes, vic, n_real, extra_bytes, extra_ops):
+    """(bound_ms, bound_by) of a victim scan: node rows and the seven
+    victim planes read once plus `extra_bytes`, against OPS_PER_SLOT per
+    slot step of every real node plus `extra_ops`."""
+    P = int(vic["prio"].shape[1])
+    nbytes = sum(v.numel() * v.element_size() for v in vic.values())
+    nbytes += 8 * 8 * nodes["valid"].shape[0] + extra_bytes
+    ops = n_real * P * OPS_PER_SLOT + extra_ops
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def _rand_victims(rng, n_pad, P, device, fill=0.6):
+    """Random victim planes in the host table's slot order per node
+    (PDB-violating first, then priority descending, start ascending; empty
+    slots last), some starts +inf."""
+    import numpy as np
+    import torch
+    valid = rng.random((n_pad, P)) < fill
+    prio = np.where(valid, rng.integers(0, 8, (n_pad, P)), 0)
+    start = np.where(valid & (rng.random((n_pad, P)) < 0.8),
+                     rng.integers(1, 500, (n_pad, P)).astype(float), np.inf)
+    viol = valid & (rng.random((n_pad, P)) < 0.25)
+    cpu = np.where(valid, rng.choice([100, 200, 400, 800], (n_pad, P)), 0)
+    mem = np.where(valid, rng.integers(0, 4, (n_pad, P)) * GI // 4, 0)
+    eph = np.where(valid, rng.integers(0, 2, (n_pad, P)) * GI, 0)
+    order = np.lexsort((start, -prio, ~viol, ~valid), axis=1)
+    take = lambda a: np.take_along_axis(a, order, axis=1)
+    host = {"cpu": take(cpu).astype(np.int64),
+            "mem": take(mem).astype(np.int64),
+            "eph": take(eph).astype(np.int64),
+            "prio": take(prio).astype(np.int64), "start": take(start),
+            "valid": take(valid), "violating": take(viol)}
+    return {k: torch.as_tensor(v).to(device) for k, v in host.items()}
+
+
+def _victim_nodes(rng, vic, n_pad, n_real, device):
+    """Node rows around the victim planes: the victims' load plus some,
+    so that nodes fit 0 to several more pods after evictions."""
+    import numpy as np
+    import torch
+    h = {k: v.cpu().numpy() for k, v in vic.items()}
+    alloc_cpu = rng.choice([2000, 4000, 8000], n_pad).astype(np.int64)
+    used = (h["cpu"] * h["valid"]).sum(1)
+    host = {
+        "valid": np.arange(n_pad) < n_real,
+        "alloc_cpu": np.maximum(alloc_cpu, used),
+        "alloc_mem": np.full(n_pad, 32 * GI, np.int64),
+        "alloc_eph": np.full(n_pad, 50 * GI, np.int64),
+        "allowed_pods": rng.choice([8, 110, 128], n_pad).astype(np.int64),
+        "req_cpu": used + rng.integers(0, 800, n_pad),
+        "req_mem": (h["mem"] * h["valid"]).sum(1) + rng.integers(
+            0, 8, n_pad) * GI,
+        "req_eph": (h["eph"] * h["valid"]).sum(1),
+        "nz_cpu": used, "nz_mem": rng.integers(0, 8, n_pad) * GI,
+        "pod_count": h["valid"].sum(1).astype(np.int64),
+        "alloc_scalar": np.zeros((n_pad, 1), np.int64),
+        "req_scalar": np.zeros((n_pad, 1), np.int64),
+        "zone_id": rng.integers(0, 4, n_pad).astype(np.int32)}
+    return {k: torch.as_tensor(v).to(device) for k, v in host.items()}
+
+
+def preempt_variant_checks(device, sync, n_pad=16384, n_real=16000):
+    """K7 and K8 against their plain versions on random inputs at n_pad
+    16,384 with P 16 and 128: ghosts on and off, check_resources /
+    has_request false, no candidate, a zero-victim win, ties down to
+    order_rank, +inf starts, PDB-violating slots, skip padding and an
+    init-container request (the filter's request above the fold's); K4
+    on the seven victim planes; K2/K5/K6 ran above with no ghost."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(20261019)
+    checked = 0
+
+    def same(name, got, want):
+        nonlocal checked
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise SystemExit(f"variant {name}: kernel disagrees with plain "
+                             f"(max_abs_err {err}; first difference "
+                             f"{first_diff(got, want)})")
+        checked += 1
+
+    for P in (16, 128):
+        vic = _rand_victims(rng, n_pad, P, device)
+        nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
+        feas = torch.as_tensor(rng.random(n_pad) < 0.9).to(device)
+        rank = torch.as_tensor(rng.permutation(n_pad)).to(device)
+        pod = {"req_cpu": np.int64(1500), "req_mem": np.int64(2 * GI),
+               "req_eph": np.int64(GI)}
+        args = (nodes, vic, pod, feas, rank, n_real, True, True, 6)
+        want = K.preemption_scan_plain(*args)
+        same(f"preempt_scan/P{P}/default", K.preemption_scan(*args), want)
+        # every node a copy of the default winner's row and slots: the
+        # pick ties through all five criteria and falls to order_rank
+        w = max(int(want[0]), 0)
+        tie_vic = {k: v[w:w + 1].expand_as(v).contiguous()
+                   for k, v in vic.items()}
+        tie_nodes = {k: (v[w:w + 1].expand_as(v).contiguous()
+                         if k != "valid" else v) for k, v in nodes.items()}
+        roomy = {**nodes, "req_cpu": nodes["req_cpu"] // 4}
+        cases = [
+            ("check_resources false", nodes, vic, pod, feas, False, False,
+             6),
+            ("has_request false", nodes, vic, pod, feas, True, False, 6),
+            ("no candidate", nodes, vic, pod,
+             torch.zeros_like(feas), True, True, 6),
+            ("zero-victim win", roomy, vic, pod, feas, True, True, 6),
+            ("ties to order_rank", tie_nodes, tie_vic, pod, feas, True,
+             True, 6),
+            ("no lower priority", nodes, vic, pod, feas, True, True, 0),
+        ]
+        for name, nd, vc, pd, fs, cr, hr, mp in cases:
+            args = (nd, vc, pd, fs, rank, n_real, cr, hr, mp)
+            same(f"preempt_scan/P{P}/{name}", K.preemption_scan(*args),
+                 K.preemption_scan_plain(*args))
+        # K8: a chunk of 32 pods over the same planes, on a cluster with
+        # room on six nodes only: pods bind, then preempt, then fail
+        room = torch.zeros(n_pad, dtype=torch.bool)
+        room[rng.choice(n_real, 6, replace=False)] = True
+        full = {**nodes, "req_cpu": torch.where(
+            room.to(device), nodes["req_cpu"], nodes["alloc_cpu"])}
+        specs = []
+        for j, (cpu, upd, prio) in enumerate(
+                [(400, 400, 9), (1200, 800, 7), (2000, 2000, 5),
+                 (9000, 9000, 3)]):
+            d = _spec(cpu, j == 1, rng, n_pad, 1)
+            d.update(req_mem=np.int64(GI), req_eph=np.int64(0),
+                     upd_cpu=np.int64(upd), upd_mem=np.int64(GI),
+                     upd_scalar=np.zeros(1, np.int64),
+                     req_scalar=np.zeros(1, np.int64),
+                     check_resources=np.bool_(j != 2),
+                     has_request=np.bool_(True),
+                     pprio=np.int64(prio))
+            specs.append(d)
+        specs.append(dict(specs[3], skip=np.bool_(True)))
+        row = np.concatenate([np.repeat([0, 1, 2, 3], 7), [4] * 4])
+        stack = K.PodStack.from_specs(specs, row, None, device)
+        mut0 = {k: full[k] for k in K._MUTABLE}
+        zero = {k: torch.zeros(n_pad, dtype=torch.int64, device=device)
+                for k in K.GHOST_FIELDS}
+        busy = {k: torch.as_tensor(rng.integers(0, hi, n_pad)).to(device)
+                for k, hi in (("cpu", 600), ("mem", GI), ("eph", 2),
+                              ("cnt", 3))}
+        for gname, g0 in (("ghost off", zero), ("ghost on", busy)):
+            args = (full, mut0, g0, stack, vic, 37, 5, 9000, n_real, 4)
+            got = K.pressure_batch(*args)
+            want = K.pressure_batch_plain(*args)
+            same(f"pressure_batch/P{P}/{gname}", got, want)
+            kinds = set(want[4]["winner"].cpu().tolist())
+            if P == 16 and gname == "ghost off" and not (
+                    {-2, -1} <= kinds and max(kinds) >= 0):
+                raise SystemExit(f"variant pressure_batch/P{P}: the chunk "
+                                 f"lacks bound, failed or nominated pods "
+                                 f"({sorted(kinds)})")
+        # K4 on the seven victim planes: duplicates and an out-of-range row
+        rws = np.concatenate([rng.choice(n_pad - 8, 24, replace=False),
+                              [n_pad + 3]]).astype(np.int32)
+        rws = np.concatenate([rws, np.full(7, rws[0], np.int32)])
+        fresh = _rand_victims(rng, n_pad, P, device)
+        upd = {k: v.cpu().numpy()[np.clip(rws, 0, n_pad - 1)]
+               for k, v in fresh.items()}
+        for v in upd.values():
+            v[25:] = v[0]
+        dev_a = {k: v.clone() for k, v in vic.items()}
+        dev_b = {k: v.clone() for k, v in vic.items()}
+        same(f"scatter_rows/victim planes P{P}",
+             K.scatter_rows(dev_a, rws, upd),
+             K.scatter_rows_plain(dev_b, rws, upd))
+    sync()
+    print(f"[variants] {checked} preemption kernel calls equal to their "
+          f"plain versions (K7 at P 16 and 128: default, check_resources "
+          f"and has_request false, no candidate, zero-victim win, ties to "
+          f"order_rank, no lower priority; K8 32-pod chunks with ghosts "
+          f"off and on, skip padding, an init-container request; K4 on "
+          f"the seven victim planes)")
+
+
+def run_wave(infos, tree, pdbs, wave, device, sync, pct=None):
+    """prewarm_preempt, then one pressure wave; returns its outcomes,
+    scheduler, prewarm and wave seconds."""
+    sched = make_sched(tree, device, 50 if pct is None else pct) \
+        if tree is not None else None
+    if sched is None:
+        from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+        sched = TorchScheduler(percentage_of_nodes_to_score=pct,
+                               device=device)
+        names = sorted(infos, key=lambda s: int(s.split("-")[1]))
+    else:
+        names = tree.list_names()
+    t0 = time.perf_counter()
+    sched.prewarm_preempt(infos, names, pdbs)
+    sync()
+    t1 = time.perf_counter()
+    out = sched.preempt_pressure_burst(wave, infos, names, pdbs)
+    sync()
+    return {"out": out, "sched": sched, "t_prewarm": t1 - t0,
+            "t_wave": time.perf_counter() - t1,
+            "rows": mutable_rows(sched),
+            "counters": (sched.last_index, sched.last_node_index),
+            "phases": dict(sched.last_preempt_phases or {})}
+
+
+def wave_path(name, infos, tree, pdbs, wave, device, sync, report,
+              pct=None, check=True):
+    """One pressure-wave path: launches counted on the kernel run, then
+    the same wave on the plain versions; outcomes, counters, the last
+    chunk's ghost vector and the folded rows must agree."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    obs.reset()
+    with capture("pressure_batch") as rec:
+        run = run_wave(infos, tree, pdbs, wave, device, sync, pct)
+    counts = K.launches()
+    refusals = obs.family("refusal")
+    fetches = obs.get("fetch.pressure_batch")
+    if refusals or run["out"] is None:
+        raise SystemExit(f"{name}: refused ({refusals})")
+    n_chunks = -(-len(wave) // 128)
+    if counts["pressure_batch"] != n_chunks or fetches != 1:
+        raise SystemExit(f"{name}: {counts['pressure_batch']} K8 launches "
+                         f"and {fetches} fetches for {n_chunks} chunks")
+    with plain_versions(), capture("pressure_batch") as rec_p:
+        ref = run_wave(infos, tree, pdbs, wave, device, sync, pct)
+    if outcome_names(run["out"]) != outcome_names(ref["out"]) \
+            or run["counters"] != ref["counters"]:
+        raise SystemExit(f"{name}: outcomes or counters differ from the "
+                         f"plain path")
+    same_rows(name, run["rows"], ref["rows"])
+    if max_abs_err(rec.last[1], rec_p.last[1]) != 0:
+        raise SystemExit(f"{name}: ghost vectors differ from the plain "
+                         f"path ({first_diff(rec.last[1], rec_p.last[1])})")
+    kinds = {}
+    for o in run["out"]:
+        key = o[0] if o[0] != "failed" else f"failed(any_cand={o[1]})"
+        kinds[key] = kinds.get(key, 0) + 1
+    if check:
+        b = run["sched"].encoder._batch
+        nodes, args, kw = rec.call
+        # the check writes its own block, not the wave's fetch buffer
+        call = (nodes, args, {k: v for k, v in kw.items() if k != "out"})
+        n_pods = len(args[2])
+        width = len(K.PRESSURE_HEAD) + int(args[3]["prio"].shape[1])
+        bound = victim_bound(
+            nodes, args[3], b.n_real,
+            sum(v.numel() * v.element_size()
+                for v in args[2].table.values()) + n_pods * 4 * width,
+            n_pods * b.n_real * OPS_PER_NODE_CYCLE
+            + (n_pods - 1) * b.n_real * int(args[3]["prio"].shape[1])
+            * OPS_PER_SLOT)
+        ms = call_entry(report, "pressure_batch", K.pressure_batch,
+                        K.pressure_batch_plain, call, bound, sync, 3,
+                        f"the first {n_pods}-pod chunk of {name}")
+        print(f"[kernel] pressure_batch: {ms / n_pods * 1e3:.2f} us/pod")
+    add_launches(report, counts)
+    ph = run["phases"]
+    print(f"[path] {name}: {len(infos)} nodes, "
+          f"{sum(len(ni.pods) for ni in infos.values())} pods on them, "
+          f"{len(wave)} preemptors in {n_chunks} chunks and 1 fetch, "
+          f"{len(wave) / run['t_wave']:.1f} preemptors/s "
+          f"({run['t_wave'] * 1e3:.2f} ms: encode {ph['encode'] * 1e3:.2f} "
+          f"scan {ph['scan'] * 1e3:.2f} of which fetch "
+          f"{ph['fetch'] * 1e3:.2f}); prewarm "
+          f"{run['t_prewarm'] * 1e3:.1f} ms; outcomes {kinds}; launches "
+          f"{counts}; plain path wave {ref['t_wave'] * 1e3:.1f} ms; "
+          f"outcomes, counters, ghost and rows equal to the plain path")
+    return run, kinds
+
+
+def baseline_world():
+    """BASELINE.json configs[3] as perf/harness.py:203-245 builds it: 1,000
+    nodes (4 CPU, 32 Gi, 110 pods, no labels), 10 victims of 400m at
+    priority 1 on each, 128 preemptors of 400m at priority 10."""
+    from kubernetes_tpu_torch.api.types import Node, Pod, Container
+    from kubernetes_tpu_torch.cache.node_info import NodeInfo
+    infos = {}
+    uid = 0
+    for i in range(1000):
+        node = Node(name=f"node-{i}", allocatable={
+            "cpu": 4000, "memory": 32 * GI, "pods": 110})
+        ni = NodeInfo(node)
+        for _ in range(10):
+            uid += 1
+            ni.add_pod(Pod(name=f"victim-{uid}", priority=1,
+                           node_name=node.name, containers=(Container.make(
+                               name="c", requests={"cpu": 400}),)))
+        infos[node.name] = ni
+    wave = [Pod(name=f"hi-{k}", priority=10, containers=(Container.make(
+        name="c", requests={"cpu": 400}),)) for k in range(128)]
+    return infos, wave
+
+
+def single_path(infos, tree, pdbs, device, sync, report):
+    """preempt-single: N_SINGLE rounds of schedule (K2 raises FitError),
+    preempt (K7), then the shell's work: the victims leave their
+    NodeInfos, the pod joins the chosen node. Every K7 block is held
+    against preemption_scan_plain; rounds 2.. must scatter the victim
+    planes' dirty rows (K4), not upload them whole."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.api.types import Pod, Container
+    from kubernetes_tpu_torch.oracle.generic_scheduler import FitError
+    from kubernetes_tpu_torch.ops import kernels as K
+    sched = make_sched(tree, device, 50)
+    real = K.preemption_scan
+    held = []
+
+    def checked(nodes, *args):
+        out = real(nodes, *args)
+        want = K.preemption_scan_plain(nodes, *args)
+        if max_abs_err(out, want) != 0:
+            raise SystemExit(f"preempt-single: K7 block differs from plain "
+                             f"({first_diff(out, want)})")
+        if not held:
+            # the resident planes change in place later: keep copies
+            held.append(({k: v.clone() for k, v in nodes.items()},
+                         ({k: v.clone() for k, v in args[0].items()},)
+                         + args[1:], {}))
+        return out
+    names = tree.list_names()
+    sched.prewarm_preempt(infos, names, pdbs)
+    sync()
+    obs.reset()
+    uploads = []
+    evicted = 0
+    t_sched = t_pre = 0.0
+    phases = {"encode": 0.0, "scan": 0.0, "fetch": 0.0}
+    K.preemption_scan = checked
+    try:
+        for r in range(N_SINGLE):
+            pod = Pod(name=f"single-{r}", priority=100,
+                      node_selector={"pool": "preempt"},
+                      containers=(Container.make(
+                          name="c", requests={"cpu": 1000}),))
+            t0 = time.perf_counter()
+            try:
+                sched.schedule(pod, infos, tree.list_names())
+                raise SystemExit("preempt-single: the pod was scheduled")
+            except FitError as e:
+                err = e
+            t1 = time.perf_counter()
+            res = sched.preempt(pod, infos, names, err, pdbs)
+            sync()
+            t_pre += time.perf_counter() - t1
+            t_sched += t1 - t0
+            if res is None or res.node is None or not res.victims:
+                raise SystemExit(f"preempt-single round {r}: {res}")
+            for k in phases:
+                phases[k] += sched.last_preempt_phases[k]
+            uploads.append((obs.get("dispatch.vic_upload"),
+                            obs.get("dispatch.vic_scatter")))
+            for v in res.victims:
+                infos[v.node_name].remove_pod(v)
+            evicted += len(res.victims)
+            assume(infos, pod, res.node.name)
+    finally:
+        K.preemption_scan = real
+    counts = K.launches()
+    refusals = obs.family("refusal")
+    if refusals:
+        raise SystemExit(f"preempt-single: refusals {refusals}")
+    if counts["preempt_scan"] != N_SINGLE:
+        raise SystemExit(f"preempt-single: {counts['preempt_scan']} K7 "
+                         f"launches for {N_SINGLE} rounds")
+    if any(u != (0, r) for r, u in enumerate(uploads)):
+        raise SystemExit(f"preempt-single: victim planes (uploads, "
+                         f"scatters) per round {uploads}")
+    b = sched.encoder._batch
+    nodes, args, _kw = held[0]
+    bound = victim_bound(nodes, args[0], b.n_real, b.n_pad * 9 + 4 * 19, 0)
+    call_entry(report, "preempt_scan", K.preemption_scan,
+               K.preemption_scan_plain, held[0], bound, sync, 20,
+               "the first preempt-single round")
+    add_launches(report, counts)
+    print(f"[path] preempt-single: {len(infos)} nodes, {N_SINGLE} rounds "
+          f"of schedule (FitError) + preempt, {N_SINGLE / t_pre:.1f} "
+          f"preemptions/s (preempt {t_pre * 1e3:.1f} ms in all: encode "
+          f"{phases['encode'] * 1e3:.2f} scan {phases['scan'] * 1e3:.2f} "
+          f"of which fetch {phases['fetch'] * 1e3:.2f}; schedule "
+          f"{t_sched * 1e3:.1f} ms in all); {evicted} victims evicted; "
+          f"victim planes uploaded once (prewarm), scattered in rounds "
+          f"2-{N_SINGLE}; launches {counts}; every K7 block equal to "
+          f"preemption_scan_plain")
+
+
+def preempt_paths(device, sync, report):
+    """The three preemption paths: preempt-wave (15,000 nodes, 150,000
+    victims, 1,024 preemptors), preempt-baseline (BASELINE configs[3]),
+    preempt-single (32 serial preemptions on the preempt-wave world)."""
+    t = time.perf_counter()
+    infos, tree, pdbs = preempt_world(N_NODES)
+    print(f"[world] preempt: {N_NODES} nodes, "
+          f"{sum(len(ni.pods) for ni in infos.values())} victims built in "
+          f"{time.perf_counter() - t:.1f} s")
+    _run, kinds = wave_path("preempt-wave", infos, tree, pdbs, wave_pods(),
+                            device, sync, report)
+    for want in ("bound", "nominated", "failed(any_cand=True)"):
+        if not kinds.get(want):
+            raise SystemExit(f"preempt-wave: no {want} outcome ({kinds})")
+    b_infos, b_wave = baseline_world()
+    wave_path("preempt-baseline", b_infos, None, [], b_wave, device, sync,
+              report, pct=100, check=False)
+    single_path(infos, tree, pdbs, device, sync, report)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1184,18 +1674,20 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}")
     print("kernels: K1 local_total, K2 schedule_cycle, K3 uniform_burst, "
-          "K4 scatter_rows, K5 schedule_batch, K6 schedule_segments "
-          "(CUDA C++, sm_90a)")
+          "K4 scatter_rows, K5 schedule_batch, K6 schedule_segments, "
+          "K7 preempt_scan, K8 pressure_batch (CUDA C++, sm_90a)")
     t = time.perf_counter()
     built = _build.build_all(verbose=True)
     print(f"[build] {sorted(built)} in {time.perf_counter() - t:.1f} s")
     report = kernel_checks(device, sync)
     variant_checks(device, sync)
     scan_variant_checks(device, sync)
+    preempt_variant_checks(device, sync)
     small_world_check(device, sync)
     main_path("even zones", N_NODES, device, sync, report)
     main_path("uneven zones (rotate)", N_NODES + 1, device, sync, report)
     scan_paths(device, sync, report)
+    preempt_paths(device, sync, report)
     print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,12 @@
 
 This system's "weights" are its resident state: the node matrix a
 `kubernetes_tpu` TPUScheduler keeps on its device (`_dev_nodes`, with the
-folds of its uniform, scan and fused windows), its two walk counters
-(last_index, last_node_index), its [profiles x priorities] weight table
-and the profile set that maps a pod's schedulerName to a row.
+folds of its uniform, scan and fused windows and of its pressure waves),
+its two walk counters (last_index, last_node_index, which a pressure wave
+moves too), its [profiles x priorities] weight table and the profile set
+that maps a pod's schedulerName to a row. The victim table is not
+carried: the port rebuilds it from the host snapshot at its first
+preemption.
 `state_from_jax` takes them as plain numpy and dicts (the caller reads them
 off the JAX scheduler with `np.asarray` and `profile_dicts`) and returns
 tensors a TorchScheduler adopts with `load_state`, so a window begun on

@@ -13,12 +13,18 @@ carries:
   `schedule_batch`), one launch and one packed copy per window;
 - schedule_burst_fused(): a drain window of singleton runs and
   all-or-nothing gangs through the segment kernel (K6
-  `schedule_segments`), gang rewinds inside the kernel.
+  `schedule_segments`), gang rewinds inside the kernel;
+- preempt(): one failed pod's victim scan over every candidate node (K7
+  `preempt_scan`), with the oracle Preemptor's PreemptionResult;
+- preempt_pressure_burst(): a failed burst tail scheduled-else-preempted
+  in one K8 `pressure_batch` launch per 128-pod chunk and ONE fetch for
+  the wave, with the serial loop's outcomes.
 
-Folds stay on the device. The node matrix is uploaded whole once and then
-kept current by the dirty-row scatter (K4 `scatter_rows`). Every entry
-point runs on `cuda` unless `device="cpu"` is passed; a CUDA error
-propagates (no host twin, no silent degrade). A window the JAX package
+Folds stay on the device. The node matrix and the victim table's planes
+are uploaded whole once and then kept current by the dirty-row scatter
+(K4 `scatter_rows`). Every entry point runs on `cuda` unless
+`device="cpu"` is passed; a CUDA error propagates (no host twin, no
+silent degrade). A window the JAX package
 also refuses is refused whole (None), counted under `refusal.<reason>`.
 """
 from __future__ import annotations
@@ -83,6 +89,7 @@ class TorchScheduler:
                  services_fn=lambda: [],
                  replicasets_fn=lambda: [],
                  collect_host_priority: bool = True,
+                 nominated=None,
                  node_tree=None,
                  device=None):
         self.device = resolve_device(device)
@@ -103,6 +110,10 @@ class TorchScheduler:
         self._wtab_dev: Optional[torch.Tensor] = None
         self._union_weights: Optional[dict] = None
         self._gang_score = False      # any profile rank-aware
+        # nominated-pod map handle (any object with has_any()): while
+        # preemption has nominated pods, the device paths that do not model
+        # them refuse (preempt, the pressure wave, the fused window)
+        self.nominated = nominated
         # NodeTree handle: burst decisions replay the per-cycle
         # zone-interleaved enumeration rotation; None = fixed name order
         self.node_tree = node_tree
@@ -132,6 +143,14 @@ class TorchScheduler:
         # host seconds of the last burst, by phase (encode, of which
         # mirror; dispatch; fetch)
         self.last_burst_phases: Optional[dict] = None
+        # resident victim planes (K7/K8 input): full upload on a table
+        # rebuild or permute, dirty-row scatter otherwise
+        self._dev_vic: Optional[dict] = None
+        self._dev_vic_key = None
+        # host seconds of the last device preemption (a preempt() scan or
+        # a pressure wave): encode, scan (dispatch and fetch) and the
+        # fetch part of the scan
+        self.last_preempt_phases: Optional[dict] = None
 
     # -- scheduling profiles -----------------------------------------------------
     def set_profiles(self, profiles) -> None:
@@ -944,6 +963,9 @@ class TorchScheduler:
         n_total = sum(len(p) for p, _g in segments)
         if not all_node_names or n_total == 0:
             return None
+        if self.nominated is not None and self.nominated.has_any():
+            # the segment kernel has no nominated-ghost input
+            return self._refuse("fused-nominated-ghosts")
         flat = [p for seg_pods, _g in segments for p in seg_pods]
         if any(has_pod_affinity_terms(p) or get_container_ports(p)
                or p.volumes for p in flat):
@@ -1091,6 +1113,341 @@ class TorchScheduler:
         self.last_node_index = int(lni)
         self.discard_burst_folds()
 
+    # -- device preemption -------------------------------------------------------
+    def preempt(self, pod: Pod, node_infos: dict[str, NodeInfo],
+                all_node_names: list[str], fit_error, pdbs: list):
+        """Device victim scan (K7 `preempt_scan`): one launch over every
+        candidate node replaces the reference's fan-out over candidates
+        (generic_scheduler.go:966). Returns a PreemptionResult with the
+        oracle Preemptor's decisions, or None (counted under
+        `refusal.<reason>`) when this preemption is not expressible as
+        resources plus static masks, as TPUScheduler.preempt refuses it.
+
+        Eligible when no pod is nominated, the incoming pod has no volumes
+        and no extended-resource requests, and every potential victim
+        (lower priority, on a candidate node) is mask-inert: no
+        (anti-)affinity terms, no host ports when the incoming pod wants
+        one, no scalar requests, no match with the incoming pod's required
+        terms. Bystanders (priority >= the preemptor's) are never removed,
+        so the pod's masks hold under victim removal and fold into the
+        static feasibility vector."""
+        from kubernetes_tpu_torch.api.types import get_resource_request
+        from kubernetes_tpu_torch.oracle.preemption import (
+            pod_eligible_to_preempt_others, nodes_where_preemption_might_help,
+            PreemptionResult, no_possible_victims)
+        if not all_node_names:
+            return None
+        t0 = time.perf_counter()
+        if self.nominated is not None and self.nominated.has_any():
+            return self._refuse("preempt-nominated-ghosts")
+        if pod.volumes:
+            return self._refuse("preempt-pod-volumes")
+        req = get_resource_request(pod)
+        if req.scalar:
+            return self._refuse("preempt-scalar-request")
+        pod_ports = bool(get_container_ports(pod))
+        a = pod.affinity
+        pod_terms = []
+        if a is not None:
+            for grp in (a.pod_affinity, a.pod_anti_affinity):
+                if grp is not None and grp.required:
+                    pod_terms.extend(grp.required)
+        if not pod_eligible_to_preempt_others(pod, node_infos):
+            return PreemptionResult(None, [], [])
+        candidates = nodes_where_preemption_might_help(
+            node_infos, all_node_names, fit_error.failed_predicates)
+        if not candidates:
+            # preemption can't help anywhere: clear the pod's own stale
+            # nomination (generic_scheduler.go:330-333)
+            return PreemptionResult(None, [], [pod])
+        if no_possible_victims(pod, node_infos, candidates):
+            return PreemptionResult(None, [], [])
+        b = self.encoder.encode(node_infos, all_node_names)
+        nodes = self._node_arrays(b)
+        vic, slots, gate = self._victim_inputs(
+            node_infos, b, candidates, pod.priority, pdbs, pod=pod,
+            pod_ports=pod_ports, pod_terms=pod_terms)
+        if vic is None:
+            return self._refuse(f"preempt-victims-{gate}")
+        # no scalar request (refused above): no unknown scalar either
+        f = self._pod_encoder(node_infos, b).encode(pod)
+        feas = np.zeros(b.n_pad, bool)
+        order_rank = np.full(b.n_pad, 1 << 30, np.int64)
+        for order, name in enumerate(candidates):
+            i = b.index[name]
+            feas[i] = True
+            order_rank[i] = order
+        for mask in (f.sel_ok, f.taints_ok, f.unsched_ok, f.host_ok,
+                     f.ports_ok):
+            if mask is not None:
+                feas &= np.asarray(mask, bool)
+        if f.interpod_code is not None:
+            # static under victim removal: no victim carries terms or
+            # matches the pod's (gated above)
+            feas &= np.asarray(f.interpod_code) == 0
+        pod_in = {"req_cpu": np.int64(req.milli_cpu),
+                  "req_mem": np.int64(req.memory),
+                  "req_eph": np.int64(req.ephemeral_storage)}
+        t_enc = time.perf_counter()
+        out = K.preemption_scan(nodes, vic, pod_in, feas, order_rank,
+                                b.n_real, self.check_resources,
+                                f.has_request, pod.priority)
+        obs.inc("dispatch.preempt_scan")
+        t_fetch = time.perf_counter()
+        out = self._fetch(out, "preempt")
+        obs.inc("fetch.preempt_scan")
+        t_end = time.perf_counter()
+        self.last_preempt_phases = {"encode": t_enc - t0,
+                                    "scan": t_end - t_enc,
+                                    "fetch": t_end - t_fetch}
+        winner = int(out[0])
+        if winner < 0:
+            return PreemptionResult(None, [], [])
+        name = b.names[winner]
+        flags = out[3:].astype(bool)
+        # a zero-victim winner has no slots entry
+        victims = [p for j, p in enumerate(slots.get(name, ())) if flags[j]]
+        return PreemptionResult(node_infos[name].node, victims, [])
+
+    # victim-table planes the kernels read, device key <- host field
+    _VIC_FIELDS = (("cpu", "cpu"), ("mem", "mem"), ("eph", "eph"),
+                   ("prio", "prio"), ("start", "start"),
+                   ("valid", "valid"), ("violating", "viol"))
+
+    def _victim_inputs(self, node_infos: dict[str, NodeInfo], b: NodeBatch,
+                       names, max_prio: int, pdbs: list,
+                       pod: Optional[Pod] = None, pod_ports: bool = False,
+                       pod_terms=()):
+        """The resident [N, P] victim planes and the slots map for a scan.
+        The table is persistent (encoder.victim_table: cached per node
+        generation, re-sorted only for dirty rows, permuted on a NodeTree
+        rotation) and stays on the device. Over the candidate set, a
+        potential victim (priority < max_prio) with affinity terms,
+        conflicting ports, scalar requests or a match with the incoming
+        pod's required terms, or a node the slot cap cannot hold, refuses:
+        returns (None, None, gate), gate one of overflow, affinity-terms,
+        ports, scalar, term-match. Else (vic, slots, None)."""
+        vt = self.encoder.victim_table(node_infos, b, pdbs,
+                                       cap=K.PREEMPT_P)
+        if len(names) == b.n_real and (names is b.names or
+                                       list(names) == b.names):
+            cand = np.arange(b.n_real, dtype=np.int64)
+        else:
+            cand = np.fromiter((b.index[nm] for nm in names), np.int64,
+                               len(names))
+        # a dropped slot could be anyone's victim: refuse outright
+        if bool(vt.overflow[cand].any()):
+            return None, None, "overflow"
+        pot = vt.valid[cand] & (vt.prio[cand] < max_prio)
+        if bool((pot & vt.aff[cand]).any()):
+            return None, None, "affinity-terms"
+        if pod_ports and bool((pot & vt.ports[cand]).any()):
+            return None, None, "ports"
+        if bool((pot & vt.scalar[cand]).any()):
+            return None, None, "scalar"
+        if pod_terms:
+            t = vt.table
+            is_cand = np.zeros(b.n_pad, bool)
+            is_cand[cand] = True
+            hr = t.holder_row
+            on_cand = (hr >= 0) & is_cand[np.where(hr >= 0, hr, 0)]
+            pot_rows = on_cand & (t.prio < max_prio)
+            if bool(pot_rows.any()) and bool(
+                    (P.pod_matches_any_term_mask(pod, pod_terms, t)
+                     & pot_rows).any()):
+                return None, None, "term-match"
+        return self._upload_victims(vt), vt.slots, None
+
+    def _upload_victims(self, vt) -> dict:
+        """Sync the resident victim planes from the host table: a full
+        upload on a rebuild or permute (dirty_rows None), one K4 scatter of
+        the dirty rows otherwise, nothing in the steady state."""
+        key = (vt.P, vt.valid.shape[0])
+        if (self._dev_vic is None or self._dev_vic_key != key
+                or vt.dirty_rows is None):
+            self._dev_vic = {
+                k: torch.as_tensor(np.asarray(getattr(vt, f))).to(
+                    self.device, copy=True)
+                for k, f in self._VIC_FIELDS}
+            self._dev_vic_key = key
+            obs.inc("dispatch.vic_upload")
+            vt.dirty_rows = []
+            return self._dev_vic
+        if vt.dirty_rows:
+            rows = np.asarray(sorted(set(vt.dirty_rows)), dtype=np.int32)
+            bucket = _pad_pow2(len(rows), 16)
+            rows = np.concatenate(
+                [rows, np.full(bucket - len(rows), rows[0], dtype=np.int32)])
+            upd = {k: getattr(vt, f)[rows] for k, f in self._VIC_FIELDS}
+            K.scatter_rows(self._dev_vic, rows, upd)
+            obs.inc("dispatch.vic_scatter")
+            vt.dirty_rows = []
+        return self._dev_vic
+
+    def prewarm_preempt(self, node_infos: dict[str, NodeInfo],
+                        all_node_names: list[str], pdbs: list) -> None:
+        """Build and upload the node matrix and the persistent victim table
+        outside any timed window (the steady state, where the table is
+        kept incrementally across cycles). Consumes no rotation state and
+        folds nothing."""
+        b = self.encoder.encode(node_infos, all_node_names)
+        self._node_arrays(b)
+        self._upload_victims(
+            self.encoder.victim_table(node_infos, b, pdbs, cap=K.PREEMPT_P))
+
+    # pods per K8 launch: bounds the per-chunk pod table
+    PRESSURE_B_CAP = 128
+
+    def preempt_pressure_burst(self, pods: list[Pod],
+                               node_infos: dict[str, NodeInfo],
+                               all_node_names: list[str], pdbs: list):
+        """Schedule-else-preempt a failed burst tail on the device: one K8
+        launch per chunk of up to PRESSURE_B_CAP pods, the carries (rows,
+        ghost load, li, lni) chained on the card, ONE fetch for the wave.
+        Replays the serial loop exactly: per pod in queue order, a
+        ghost-aware schedule attempt (podFitsOnNode's two passes,
+        generic_scheduler.go:598,627), else the victim scan and the
+        five-criteria pick (:966,1054,837), the nomination becoming ghost
+        load for the pods behind it.
+
+        Refused (None, counted under `refusal.<reason>`), as
+        TPUScheduler.preempt_pressure_burst refuses: pods already
+        nominated (nominated-ghosts), a rotating NodeTree
+        (tree-rotation), priorities that rise (priority-order), pods with
+        volumes, a stale nomination, affinity terms, host ports or scalar
+        requests (pod-features), selector spread (spread-selectors),
+        several profiles (profile-mixed), a victim gate
+        (pressure-victims-<gate>). Else one outcome per pod:
+          ("bound", host)                 scheduled, delta folded on device
+          ("nominated", node, victims)    preemption chose `node`
+          ("failed", any_candidates)      no fit and no preemption; False
+            when no node is a candidate (the oracle then clears the pod's
+            own stale nomination, :330-333)."""
+        from kubernetes_tpu_torch.api.types import get_resource_request
+        if not pods or not all_node_names:
+            return None
+        t0 = time.perf_counter()
+        if self.nominated is not None and self.nominated.has_any():
+            return self._refuse("nominated-ghosts")
+        if self._tree_rotates():
+            return self._refuse("tree-rotation")
+        prios = [p.priority for p in pods]
+        if any(a < bb for a, bb in zip(prios, prios[1:])):
+            return self._refuse("priority-order")
+        for p in pods:
+            if p.volumes or p.nominated_node_name \
+                    or has_pod_affinity_terms(p) or get_container_ports(p) \
+                    or get_resource_request(p).scalar:
+                return self._refuse("pod-features")
+        axis_order, _start0 = self._axis_order(all_node_names)
+        b = self.encoder.encode(node_infos, axis_order)
+        self._node_arrays(b)
+        enc = self._pod_encoder(node_infos, b)
+        # one encode per signature, one table row per (signature, priority)
+        feat_by_sig: dict = {}
+        row_of: dict = {}
+        specs, rows = [], []
+        for p, sig in zip(pods, self._signatures(pods)):
+            f = feat_by_sig.get(sig)
+            if f is None:
+                f = feat_by_sig[sig] = enc.encode(p)
+                if f.spread_counts is not None:
+                    # spread scores depend on in-wave placements, which the
+                    # pressure scan does not carry
+                    return self._refuse("spread-selectors")
+            key = (sig, p.priority)
+            r = row_of.get(key)
+            if r is None:
+                r = row_of[key] = len(specs)
+                d = self._pod_arrays(f, upd_fields=True, pod=p)
+                d["pprio"] = np.int64(p.priority)
+                specs.append(d)
+            rows.append(r)
+        weights = self.weights
+        if self._ptab is not None:
+            # one static weight row for the wave: the kernel has no
+            # per-pod row gather
+            pids = self._profile_ids(pods)
+            if int(pids.min()) != int(pids.max()):
+                return self._refuse("profile-mixed")
+            weights = {name: int(self._ptab[int(pids[0]), i])
+                       for i, name in enumerate(PRIORITY_AXIS)}
+        vic, slots, gate = self._victim_inputs(node_infos, b, all_node_names,
+                                               prios[0], pdbs)
+        if vic is None:
+            return self._refuse(f"pressure-victims-{gate}")
+        n = b.n_real
+        num_to_find = num_feasible_nodes_to_find(
+            n, self.percentage_of_nodes_to_score)
+        z_pad = _pad_pow2(len(b.zone_names), 4)
+        cap = self.PRESSURE_B_CAP
+        chunks = []
+        for lo in range(0, len(pods), cap):
+            k = min(cap, len(pods) - lo)
+            chunks.append((lo, k, _pad_pow2(k, 8)))
+        if any(k < bucket for _lo, k, bucket in chunks):
+            # skip padding: the last pod's spec, consuming nothing
+            specs.append(dict(specs[rows[-1]], skip=np.bool_(True)))
+        stack = K.PodStack.from_specs(specs, np.zeros(0, np.int64), None,
+                                      self.device)
+        width = len(K.PRESSURE_HEAD) + int(vic["prio"].shape[1])
+        total = sum(bucket for _lo, _k, bucket in chunks)
+        packed = torch.empty((total, width), dtype=torch.int32,
+                             device=self.device)
+        rows_arr = np.asarray(rows, np.int64)
+        mut = {k: self._dev_nodes[k] for k in K._MUTABLE}
+        ghost = {k: torch.zeros(b.n_pad, dtype=torch.int64,
+                                device=self.device) for k in K.GHOST_FIELDS}
+        li, lni = self.last_index, self.last_node_index
+        t_enc = time.perf_counter()
+        off = 0
+        for lo, k, bucket in chunks:
+            row = np.full(bucket, len(specs) - 1, np.int64)
+            row[:k] = rows_arr[lo: lo + k]
+            mut, ghost, li, lni, _outs = K.pressure_batch(
+                self._dev_nodes, mut, ghost,
+                K.PodStack(stack.table, row), vic, li, lni, num_to_find, n,
+                z_pad, weights=weights, out=packed[off: off + bucket])
+            obs.inc("dispatch.pressure_batch")
+            off += bucket
+        t_fetch = time.perf_counter()
+        # ONE device-to-host copy for every chunk of the wave
+        h = self._fetch(packed.reshape(-1), "pressure").reshape(total, width)
+        obs.inc("fetch.pressure_batch")
+        t_end = time.perf_counter()
+        self.last_preempt_phases = {"encode": t_enc - t0,
+                                    "scan": t_end - t_enc,
+                                    "fetch": t_end - t_fetch}
+        outcomes = []
+        lni_sum = 0
+        off = 0
+        li_end = self.last_index
+        for lo, k, bucket in chunks:
+            blk = h[off: off + bucket]
+            for j in range(k):
+                sel, win = int(blk[j, 0]), int(blk[j, 1])
+                if sel >= 0:
+                    outcomes.append(("bound", b.names[sel]))
+                elif win >= 0:
+                    name = b.names[win]
+                    flags = blk[j, len(K.PRESSURE_HEAD):].astype(bool)
+                    victims = [p for s, p in enumerate(slots.get(name, []))
+                               if flags[s]]
+                    outcomes.append(("nominated", name, victims))
+                else:
+                    outcomes.append(("failed", bool(blk[j, 2])))
+            # the skip padding consumes nothing: the counters stand at the
+            # chunk's last pod, and padding leaves li reduced mod n
+            lni_sum += int(blk[:bucket, 4].astype(np.int64).sum())
+            li_end = int(blk[bucket - 1, 3])
+            off += bucket
+        # persist: the folded rows are now the resident ones; the shell
+        # syncs the host mirror per bound pod (note_burst_assumed)
+        self._dev_nodes = {**self._dev_nodes, **mut}
+        self.last_index = li_end
+        self.last_node_index += lni_sum
+        return outcomes
+
     def gang_checkpoint(self) -> dict:
         """Snapshot the walk counters and the resident matrix at a group
         boundary. The port folds bursts into fresh tensors, so the pinned
@@ -1126,10 +1483,13 @@ class TorchScheduler:
         self._dev_nodes = None
 
     def invalidate_node(self, host: str) -> None:
-        """A node died mid-burst: drop the resident matrix and the
-        encoder's generation entry for `host`."""
+        """A node died mid-burst: drop the resident matrix and victim
+        planes, and the encoder's generation entries for `host`."""
         self.discard_burst_folds()
+        self._dev_vic = None
+        self._dev_vic_key = None
         self.encoder._generations.pop(host, None)
+        self.encoder._vt_gens.pop(host, None)
 
     def note_burst_assumed(self, pod: Pod, host: str, generation: int) -> None:
         """Fold one placed pod into the host mirror (the device already
@@ -1193,17 +1553,30 @@ class TorchScheduler:
 
     def debug_state(self) -> dict:
         """Mirror shape and epoch, walk counters, device, profiles, the
-        launch count of every kernel (K1-K6) and the refusals."""
+        victim table (slots, rows, generations, dirty rows, residency, and
+        the encoder's rebuild and row re-sort counts), the launch count of
+        every kernel (K1-K8) and the refusals."""
         dev = self._dev_nodes
         mirror = None
         if dev is not None:
             mirror = {"fields": len(dev),
                       "n_pad": int(dev["valid"].shape[-1])}
+        vt = self.encoder._vt
+        vic = None
+        if vt is not None:
+            vic = {"P": int(vt.P), "rows": int(vt.valid.shape[0]),
+                   "generations": len(self.encoder._vt_gens),
+                   "dirty_rows": (None if vt.dirty_rows is None
+                                  else len(vt.dirty_rows)),
+                   "resident": self._dev_vic is not None,
+                   "rebuilds": obs.get("encoder.victim_rebuilds"),
+                   "row_resorts": obs.get("encoder.victim_row_resorts")}
         return {
             "mirror": mirror,
             "dev_epoch": self._dev_epoch,
             "last_index": self.last_index,
             "last_node_index": self.last_node_index,
+            "victim_table": vic,
             "device": str(self.device),
             "profiles": None if self.profiles is None
             else [p.name for p in self.profiles],

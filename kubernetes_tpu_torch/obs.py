@@ -2,12 +2,14 @@
 
 One flat table of named counts. Names are dotted by family:
   dispatch.<op>   device program dispatches (upload, scatter, cycle,
-                  burst_uniform)
+                  burst_uniform, burst_scan, burst_fused, vic_upload,
+                  vic_scatter, preempt_scan, pressure_batch)
   fetch.<op>      device-to-host copies (one per launch, never per pod)
   launch.<kernel> hand-kernel launches, booked by each kernel's wrapper at
                   the launch and nowhere else
   refusal.<reason> whole-burst refusals (the shell runs those pods serially)
-  encoder.*, pod_rows.*  host mirror and row-cache maintenance
+  encoder.*, pod_rows.*  host mirror, victim table and row-cache
+                  maintenance
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ plain C function `<name>_launch(...)` that launches on the stream it is
 given and returns `cudaGetLastError()`; the library is loaded with ctypes.
 
 `build_all()` starts one nvcc per source at once and waits for all of
-them: the whole build costs about one compile, not six.
+them: the whole build costs about one compile, not eight.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NAMES = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
-         "schedule_batch", "schedule_segments")
+         "schedule_batch", "schedule_segments", "preempt_scan",
+         "pressure_batch")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +47,8 @@ SIGNATURES = {
     # the scan kernels take host arrays of scalars and of pointers
     "schedule_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "schedule_segments": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "preempt_scan": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "pressure_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

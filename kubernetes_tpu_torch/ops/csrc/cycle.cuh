@@ -8,7 +8,10 @@
 // `pos` modes); every weighted priority normalised over the kept set (node
 // affinity, taint toleration, one-hot zone selector spread, inter-pod
 // min-max, image locality, prefer-avoid, the K1 resource families and the
-// rank-aware gang locality); and the round-robin k-th tie select.
+// rank-aware gang locality); and the round-robin k-th tie select. The
+// pressure scan (K8) adds its carried nominated-ghost load to the rows the
+// filter reads (`_cycle_core`'s `ghost`, kernels.py:402-413) and asks
+// whether any in-range node is a preemption candidate.
 //
 // Layout: ONE block of NTHREADS threads, each owning a contiguous slice of
 // the node axis, so a reduction or scan is a block barrier; scratch and the
@@ -63,6 +66,16 @@ struct CycleScratch {
 
 struct CycleResult {
   i64 sel, found, evaluated, max_score, next_li, next_lni;
+  // with a ghost: some in-range node's first failure is resolvable by
+  // preemption (`_resolvable_candidates`, kernels.py:1675); else false
+  bool any_resolvable;
+};
+
+// The nominated pods' load ([n_pad] each), added to req_* / pod_count in
+// the filter only: the scores read the raw rows, as PrioritizeNodes never
+// adds nominated pods.
+struct CycleGhost {
+  const i64 *cpu, *mem, *eph, *cnt;
 };
 
 enum { FL_FEAS = 1, FL_KEPTP = 2, FL_TIE = 4 };
@@ -82,10 +95,11 @@ __device__ __forceinline__ double ratio10(i64 num, i64 den) {
 // caller computed them (K2); NULL computes them inline (K5/K6, where the
 // rows change between pods). `gz` (NULL = off) is the current gang's
 // per-zone member count and `gmember` whether this pod is a member.
+// `ghost` (NULL = off: K2, K5, K6) is K8's carried nominated load.
 __device__ __forceinline__ CycleResult cycle_run(
     const CycleNodes& nd, const CyclePod& pd, bool skip, const CycleWalk& wk,
     int gate, const i64* w, const i64* base, const i64* gz, bool gmember,
-    const CycleScratch& cs) {
+    const CycleScratch& cs, const CycleGhost* ghost = nullptr) {
   __shared__ i64 sh64[NWARPS];
   __shared__ int sh32[NWARPS];
   const int n = nd.n_pad, tid = threadIdx.x;
@@ -105,15 +119,21 @@ __device__ __forceinline__ CycleResult cycle_run(
   const bool unknown = pd.scal[7] != 0;
 
   // ---- feasibility -------------------------------------------------------
+  int l_res = 0;
   for (int j = lo; j < hi; ++j) {
     i64 bits = 0;
-    if (check_res && nd.pod_count[j] + 1 > nd.allowed[j]) bits |= 1LL << 0;
-    if (has_req && nd.alloc_cpu[j] < p_req_cpu + nd.req_cpu[j])
-      bits |= 1LL << 1;
-    if (has_req && nd.alloc_mem[j] < p_req_mem + nd.req_mem[j])
-      bits |= 1LL << 2;
-    if (has_req && nd.alloc_eph[j] < p_req_eph + nd.req_eph[j])
-      bits |= 1LL << 3;
+    i64 rcpu = nd.req_cpu[j], rmem = nd.req_mem[j], reph = nd.req_eph[j];
+    i64 pcnt = nd.pod_count[j];
+    if (ghost) {
+      rcpu += ghost->cpu[j];
+      rmem += ghost->mem[j];
+      reph += ghost->eph[j];
+      pcnt += ghost->cnt[j];
+    }
+    if (check_res && pcnt + 1 > nd.allowed[j]) bits |= 1LL << 0;
+    if (has_req && nd.alloc_cpu[j] < p_req_cpu + rcpu) bits |= 1LL << 1;
+    if (has_req && nd.alloc_mem[j] < p_req_mem + rmem) bits |= 1LL << 2;
+    if (has_req && nd.alloc_eph[j] < p_req_eph + reph) bits |= 1LL << 3;
     i64 sbits = 0;
     for (int s = 0; s < nd.S; ++s) {
       i64 want = pd.req_scalar_p[s];
@@ -139,11 +159,19 @@ __device__ __forceinline__ CycleResult cycle_run(
     if (bits != 0) ff = 2;
     if (pd.unsched_ok && !pd.unsched_ok[j]) ff = 1;
     bool feasible = nd.valid[j] && ff == 0 && !skip;
+    if (ghost && (i64)j < nr) {
+      // unresolvable first failures: unschedulable, taints, volume zone,
+      // volume binding, and GENERAL with the host-name or selector bit
+      bool unres = ff == 1 || ff == 4 || ff == 7 || ff == 6
+                   || (ff == 2 && (((bits >> 60) & 1) || ((bits >> 62) & 1)));
+      if (!unres) l_res = 1;
+    }
     if (cs.general_bits) cs.general_bits[j] = bits;
     if (cs.fail_first) cs.fail_first[j] = (signed char)ff;
     if (cs.feasible) cs.feasible[j] = feasible;
     FL[j] = (feasible && (i64)j < nr) ? FL_FEAS : 0;
   }
+  const bool any_res = ghost ? block_sum64(l_res, sh64) > 0 : false;
   __syncthreads();
 
   // ---- rotation walk -----------------------------------------------------
@@ -365,6 +393,7 @@ __device__ __forceinline__ CycleResult cycle_run(
   r.max_score = found > 0 ? max_score : 0;
   r.next_li = floormod(wk.last_index + evaluated, n_safe);
   r.next_lni = wk.lni + (found > 1 ? 1 : 0);
+  r.any_resolvable = any_res;
   return r;
 }
 
@@ -375,7 +404,7 @@ __device__ __forceinline__ CycleResult cycle_run(
 enum {
   I_N_PAD, I_S, I_N_REAL, I_Z_PAD, I_B, I_NTF, I_LAST_INDEX, I_LNI0, I_MODE,
   I_L, I_N_OID, I_CARRY_SPREAD, I_GATE, I_P, I_IPA_ON, I_IC_INERT,
-  I_TR_INERT, I_N_PODS, I_GANG_SCORE, I_U, I_COUNT
+  I_TR_INERT, I_N_PODS, I_GANG_SCORE, I_U, I_VIC_P, I_COUNT
 };
 enum {
   P_VALID, P_ALLOC_CPU, P_ALLOC_MEM, P_ALLOC_EPH, P_ALLOWED, P_ALLOC_SCALAR,
@@ -386,6 +415,10 @@ enum {
   P_PA, P_TRACKED, P_ROW, P_PROFILE_ID, P_W, P_WTAB, P_PERMS, P_INV_PERMS,
   P_OID_SEQ, P_SPREAD, P_TOTAL, P_KEPT, P_FLAGS, P_ZS, P_STATS, P_PACKED,
   P_CARRY_OUT, P_SEG_START, P_GANG, P_GZ, P_LOG_NODE, P_LOG_ROW,
+  // the pressure scan (K8) only; NULL for K5 and K6
+  P_GHOST_CPU, P_GHOST_MEM, P_GHOST_EPH, P_GHOST_CNT, P_VIC_CPU, P_VIC_MEM,
+  P_VIC_EPH, P_VIC_PRIO, P_VIC_START, P_VIC_VALID, P_VIC_VIOL, P_PPRIO,
+  P_CARRY_IN, P_AGG_I64, P_AGG_F64, P_AGG_U8,
   P_COUNT
 };
 // slots of a pod-spec row of the [U, NSCAL] scalar table

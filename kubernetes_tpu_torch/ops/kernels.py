@@ -25,6 +25,11 @@ and nowhere else.
 |                | `schedule_batch` :668                              |
 | schedule_segments | `_segments_core` :785 ->                        |
 |                | `schedule_batch_segments` :949                     |
+| preempt_scan   | `_victim_select` :1494, `_pick_one_node` :1570,    |
+|                | `_preempt_scan_core` :1598 -> `preemption_scan`    |
+|                | :1627                                              |
+| pressure_batch | `_resolvable_candidates` :1675 + `_pressure_core`  |
+|                | :1690 -> `pressure_batch` :1768                    |
 
 Numeric contract: int64 resource math and scores, float64 exactly where
 JAX uses it, floor division as JAX `//` (torch `//` on integer tensors
@@ -60,7 +65,8 @@ I32_MIN = -2 ** 31
 
 #: the kernels' names, in port order (obs books `launch.<name>`)
 KERNELS = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
-           "schedule_batch", "schedule_segments")
+           "schedule_batch", "schedule_segments", "preempt_scan",
+           "pressure_batch")
 
 
 def launches() -> dict[str, int]:
@@ -124,13 +130,23 @@ def _gate(weights) -> int:
     return g
 
 
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`. To a card the copy goes through pinned
+    memory and does not wait: a blocking copy from pageable memory would
+    first wait for every kernel already queued on the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _weight_row(weights, wrow, device) -> torch.Tensor:
     """The [K] int64 weight row the CUDA kernels read: the pod's gathered
     table row in tensor mode, else the static weights in axis order."""
     if wrow is not None:
         return _t(wrow, device, I64).contiguous()
-    return torch.tensor([int(weights.get(n, 0)) for n in PRIORITY_AXIS],
-                        dtype=I64).to(device)
+    return _upload(np.asarray([int(weights.get(n, 0)) for n in PRIORITY_AXIS],
+                              dtype=np.int64), device)
 
 
 def _check(rc: int, name: str) -> None:
@@ -351,9 +367,17 @@ def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None,
     return total + const
 
 
-def _feasibility_plain(nodes, pod):
+def _feasibility_plain(nodes, pod, ghost=None):
     """(feasible[N], fail_first[N] int8, general_bits[N] int64) —
-    `_feasibility`, kernels.py:296."""
+    `_feasibility`, kernels.py:296. `ghost` ({cpu, mem, eph, cnt} [N] or
+    None) adds the nominated pods' load to the rows the filter reads, as
+    `_cycle_core` does before it calls `_feasibility` (kernels.py:402-413)."""
+    if ghost is not None:
+        nodes = {**nodes,
+                 "req_cpu": nodes["req_cpu"] + ghost["cpu"],
+                 "req_mem": nodes["req_mem"] + ghost["mem"],
+                 "req_eph": nodes["req_eph"] + ghost["eph"],
+                 "pod_count": nodes["pod_count"] + ghost["cnt"]}
     valid = nodes["valid"]
     dev = valid.device
     bits = torch.zeros(valid.shape, dtype=I64, device=dev)
@@ -415,9 +439,11 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 
 def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
                       n_real, weights, z_pad, perm=None, inv_perm=None,
-                      pos=None, wtab=None, gang=None):
+                      pos=None, wtab=None, gang=None, ghost=None):
     """One fused cycle (`_cycle_core`, kernels.py:359): identity walk, the
-    `perm`/`inv_perm` rotated walk, or the gather-free `pos` mode."""
+    `perm`/`inv_perm` rotated walk, or the gather-free `pos` mode. `ghost`
+    (the pressure scan's carried nominated load) enters the filter only;
+    the scores read the raw rows."""
     dev = nodes["valid"].device
     n_pad = nodes["valid"].shape[0]
     i = torch.arange(n_pad, dtype=I64, device=dev)
@@ -428,7 +454,8 @@ def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
     lni = int(last_node_index)
     in_range = i < nr
 
-    feasible, fail_first, general_bits = _feasibility_plain(nodes, pod)
+    feasible, fail_first, general_bits = _feasibility_plain(nodes, pod,
+                                                            ghost=ghost)
     feas = feasible & in_range
     skip = bool(pod["skip"])
 
@@ -1388,11 +1415,13 @@ def schedule_batch_segments_plain(nodes, pods, seg_start, gang, n_pods,
 
 
 # scalar and pointer slots of the scan kernels' launch (csrc/cycle.cuh
-# `ScanArgs`): both lists are copied into the kernel's argument struct
+# `ScanArgs`): both lists are copied into the kernel's argument struct.
+# The slots after `log_row` serve the pressure scan (K8) only; K5 and K6
+# leave them 0 / NULL.
 _SCAN_INTS = ("n_pad", "S", "n_real", "z_pad", "B", "num_to_find",
               "last_index", "lni0", "mode", "L", "n_oid", "carry_spread",
               "gate", "P", "ipa_on", "ic_inert", "tr_inert", "n_pods",
-              "gang_score", "U")
+              "gang_score", "U", "vic_P")
 _SCAN_PTRS = (_NODE_STATIC + _MUTABLE
               + ("scal", "req_scalar_p", "upd_scalar_p") + _CYCLE_MASKS
               + ("interpod_code",) + _CYCLE_COUNTS
@@ -1400,15 +1429,20 @@ _SCAN_PTRS = (_NODE_STATIC + _MUTABLE
                  "perms", "inv_perms", "oid_seq", "spread",
                  "total", "kept", "flags", "zs", "stats", "packed",
                  "carry_out", "seg_start", "gang", "gz", "log_node",
-                 "log_row"))
+                 "log_row", "ghost_cpu", "ghost_mem", "ghost_eph",
+                 "ghost_cnt", "vic_cpu", "vic_mem", "vic_eph", "vic_prio",
+                 "vic_start", "vic_valid", "vic_violating", "pprio",
+                 "carry_in", "agg_i64", "agg_f64", "agg_u8"))
 
 
 def _scan_launch(name, nodes, stack, last_index, last_node_index,
                  num_to_find, n_real, z_pad, weights, mode, perms, inv_perms,
                  oid_seq, carry_spread, mut0, s0, wtab, n_steps,
-                 segments=None, gang_score=False):
-    """Launch K5 (`schedule_batch`) or K6 (`schedule_segments`). Returns
-    (state, li, lni, spread, stats[5, B] int64, packed int32)."""
+                 segments=None, gang_score=False, pressure=None):
+    """Launch K5 (`schedule_batch`), K6 (`schedule_segments`) or K8
+    (`pressure_batch`, whose extra pointers and packed output come in
+    `pressure`). Returns (state, li, lni, spread, stats[5, B] int64,
+    packed int32)."""
     dev = nodes["valid"].device
     n_pad = int(nodes["valid"].shape[0])
     s_count = int(nodes["alloc_scalar"].shape[1])
@@ -1450,21 +1484,25 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
             U, 1).contiguous()
     if carry_spread:
         counts[2] = None     # the carried vector replaces the field
-    row = torch.as_tensor(stack.row.astype(np.int32)).to(dev)
+    row = _upload(stack.row.astype(np.int32), dev)
     prof = None
     if wtab is not None:
         pid = stack.profile_id if stack.profile_id is not None \
             else np.zeros(B, np.int64)
-        prof = torch.as_tensor(pid).to(dev)
+        prof = _upload(np.asarray(pid, np.int64), dev)
     w = _weight_row(weights, None, dev)
     oid = None if oid_seq is None \
-        else torch.as_tensor(oid_seq.astype(np.int32)).to(dev)
+        else _upload(oid_seq.astype(np.int32), dev)
     total = torch.empty(n_pad, dtype=I64, device=dev)
     kept = torch.empty(n_pad, dtype=torch.uint8, device=dev)
     flags = torch.empty(2 * n_pad, dtype=I32, device=dev)
     zs = torch.empty(2 * int(z_pad), dtype=I64, device=dev)
     stats = torch.empty((5, B), dtype=I64, device=dev)
-    packed = torch.empty((4 if segments else 3) * B, dtype=I32, device=dev)
+    if pressure is not None:
+        packed = pressure["packed"]
+    else:
+        packed = torch.empty((4 if segments else 3) * B, dtype=I32,
+                             device=dev)
     carry_out = torch.empty(2, dtype=I64, device=dev)
     seg = {}
     if segments is not None:
@@ -1487,6 +1525,8 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
     ptrs.update(zip(_CYCLE_MASKS, masks))
     ptrs.update(zip(_CYCLE_COUNTS, counts))
     ptrs.update(seg)
+    if pressure is not None:
+        ptrs.update({k: v for k, v in pressure.items() if k != "vic_P"})
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
     ints = {"n_pad": n_pad, "S": s_count, "n_real": int(n_real),
             "z_pad": int(z_pad), "B": B, "num_to_find": int(num_to_find),
@@ -1498,11 +1538,15 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
             "P": 0 if wtab is None else int(wtab.shape[0]),
             "ipa_on": int(ipa_on), "ic_inert": int(ic_inert),
             "tr_inert": int(tr_inert), "n_pods": int(n_steps),
-            "gang_score": int(bool(gang_score)), "U": U}
+            "gang_score": int(bool(gang_score)), "U": U,
+            "vic_P": 0 if pressure is None else int(pressure["vic_P"])}
     if perms is not None and perms.shape[1] != n_pad:
         raise ValueError(f"{name}: rotation rows must be n_pad wide")
     iargs = (ctypes.c_longlong * len(_SCAN_INTS))(
         *[ints[k] for k in _SCAN_INTS])
+    unknown = set(ptrs) - set(_SCAN_PTRS)
+    if unknown:
+        raise ValueError(f"{name}: unknown pointer slots {sorted(unknown)}")
     parr = (ctypes.c_void_p * len(_SCAN_PTRS))(
         *[_ptr(ptrs.get(k)) for k in _SCAN_PTRS])
     lib = _build.load(name)
@@ -1575,3 +1619,404 @@ def schedule_batch_segments(nodes, pods, seg_start, gang, n_pods,
         oid_seq, carry_spread, mut0, s0, wtab, int(n_pods),
         segments=(seg_start, gang), gang_score=gang_score)
     return state, li, lni, spread, packed
+
+
+# ---------------------------------------------------------------------------
+# K7 preempt_scan — victim selection on every node at once + the node pick
+# ---------------------------------------------------------------------------
+#: victim slots per node (>= the AllowedPodNumber cap of 110)
+PREEMPT_P = 128
+#: the pick's mask fill: larger than any order rank
+_BIGR = 1 << 60
+#: the victim planes, in the order the kernels take them
+VICTIM_PLANES = ("cpu", "mem", "eph", "prio", "start", "valid", "violating")
+
+
+def _victim_select_plain(nodes, vic, valid_v, req_cpu, req_mem, req_eph,
+                         ghost, feas_static, check_res, has_req):
+    """selectVictimsOnNode over every node at once (`_victim_select`,
+    kernels.py:1494): remove every masked victim (`valid_v` [N, P]), check
+    the fit, then re-add the slots in order and keep each one that still
+    fits (the reprieve loop). `ghost` ({cpu, mem, eph, cnt} [N] or None)
+    adds nominated load that no removal frees. Returns (feas0[N],
+    victims[N, P], aggregates for the pick)."""
+    cr = bool(_host(check_res))
+    hr = bool(_host(has_req)) and cr
+    req_cpu, req_mem, req_eph = (int(np.asarray(_host(v)))
+                                 for v in (req_cpu, req_mem, req_eph))
+    nvic_all = torch.sum(valid_v.to(I64), dim=1)
+    base_cpu = nodes["req_cpu"] - torch.sum(
+        torch.where(valid_v, vic["cpu"], 0), dim=1)
+    base_mem = nodes["req_mem"] - torch.sum(
+        torch.where(valid_v, vic["mem"], 0), dim=1)
+    base_eph = nodes["req_eph"] - torch.sum(
+        torch.where(valid_v, vic["eph"], 0), dim=1)
+    base_cnt = nodes["pod_count"] - nvic_all
+    if ghost is not None:
+        base_cpu = base_cpu + ghost["cpu"]
+        base_mem = base_mem + ghost["mem"]
+        base_eph = base_eph + ghost["eph"]
+        base_cnt = base_cnt + ghost["cnt"]
+
+    def fits(rc, rm, re, pc):
+        f = torch.ones(rc.shape, dtype=torch.bool, device=rc.device)
+        if cr:
+            f &= pc + 1 <= nodes["allowed_pods"]
+        if hr:
+            f &= ((nodes["alloc_cpu"] >= req_cpu + rc)
+                  & (nodes["alloc_mem"] >= req_mem + rm)
+                  & (nodes["alloc_eph"] >= req_eph + re))
+        return f
+
+    feas0 = feas_static & fits(base_cpu, base_mem, base_eph, base_cnt)
+    rc, rm, re, pc = base_cpu, base_mem, base_eph, base_cnt
+    cols = []
+    for s in range(valid_v.shape[1]):
+        vval = valid_v[:, s]
+        nrc, nrm, nre = (rc + vic["cpu"][:, s], rm + vic["mem"][:, s],
+                         re + vic["eph"][:, s])
+        npc = pc + vval.to(I64)
+        keep = fits(nrc, nrm, nre, npc) & vval & feas0
+        rc, rm, re, pc = (torch.where(keep, nrc, rc),
+                          torch.where(keep, nrm, rm),
+                          torch.where(keep, nre, re),
+                          torch.where(keep, npc, pc))
+        cols.append(vval & ~keep)
+    victims = torch.stack(cols, dim=1) & feas0[:, None]
+    prio = vic["prio"]
+    nv = torch.sum(victims.to(I64), dim=1)
+    viol_ct = torch.sum((victims & vic["violating"]).to(I64), dim=1)
+    first_idx = torch.argmax(victims.to(torch.uint8), dim=1)
+    first_prio = torch.gather(prio, 1, first_idx[:, None])[:, 0]
+    sum_prio = torch.sum(torch.where(victims, prio + (1 << 31), 0), dim=1)
+    high = torch.amax(torch.where(victims, prio, I64_MIN), dim=1)
+    earliest_high = torch.amin(
+        torch.where(victims & (prio == high[:, None]), vic["start"],
+                    float("inf")), dim=1)
+    return feas0, victims, {"nv": nv, "viol_ct": viol_ct,
+                            "first_prio": first_prio, "sum_prio": sum_prio,
+                            "earliest_high": earliest_high}
+
+
+def _pick_one_node_plain(feas0, agg, order_rank) -> int:
+    """pickOneNodeForPreemption (`_pick_one_node`, kernels.py:1570): a
+    zero-victim candidate wins at once; else the staged minimum of PDB
+    violations, first victim's priority, sum of (priority + 2**31),
+    victim count and -(earliest start among the highest-priority
+    victims), each compared in float64 as JAX does; ties go to the lowest
+    `order_rank`. -1 when no node is a candidate."""
+    inf = float("inf")
+    rank = order_rank.to(I64)
+
+    def argmin_rank(mask):
+        return int(torch.argmin(torch.where(mask, rank, _BIGR)))
+
+    zerov = feas0 & (agg["nv"] == 0)
+    m = feas0.clone()
+    for crit in (agg["viol_ct"].double(), agg["first_prio"].double(),
+                 agg["sum_prio"].double(), agg["nv"].double(),
+                 -agg["earliest_high"]):
+        c = torch.where(m, crit, inf)
+        m &= c == torch.min(c)
+    winner = argmin_rank(zerov) if bool(zerov.any()) else argmin_rank(m)
+    return winner if bool(feas0.any()) else -1
+
+
+def _preempt_scan_core_plain(nodes, vic, pod, feas_static, order_rank,
+                             n_real, max_prio, check_res, has_req):
+    """`_preempt_scan_core` (kernels.py:1598): this preemptor's victim mask
+    (slot priority < max_prio), the scan, the pick, and the packed [3+P]
+    int32 block: winner, its victim count, its PDB-violation count, its
+    slot flags."""
+    dev = vic["prio"].device
+    n_pad = vic["prio"].shape[0]
+    in_range = torch.arange(n_pad, device=dev) < int(n_real)
+    valid_v = vic["valid"] & (vic["prio"] < int(max_prio))
+    feas0, victims, agg = _victim_select_plain(
+        nodes, vic, valid_v, pod["req_cpu"], pod["req_mem"],
+        pod["req_eph"], None, feas_static & in_range, check_res, has_req)
+    winner = _pick_one_node_plain(feas0, agg, order_rank)
+    w = max(winner, 0)
+    head = torch.tensor([winner, _wrap32(int(agg["nv"][w])),
+                         _wrap32(int(agg["viol_ct"][w]))], dtype=I32,
+                        device=dev)
+    return torch.cat([head, victims[w].to(I32)])
+
+
+def _vic_tensors(vic, device) -> dict:
+    """The seven victim planes as contiguous tensors on `device`, in the
+    kernels' dtypes (int64, start float64, valid/violating bool)."""
+    dt = {"start": torch.float64, "valid": torch.bool,
+          "violating": torch.bool}
+    return {k: _t(vic[k], device, dt.get(k, I64)).contiguous()
+            for k in VICTIM_PLANES}
+
+
+def preemption_scan_plain(nodes, vic, pod, feas_static, order_rank, n_real,
+                          check_resources, has_request, max_prio):
+    """Plain version of K7, the JAX `preemption_scan` entry point
+    (kernels.py:1627, `mesh=` left out): the packed [3+P] int32 block."""
+    dev = nodes["alloc_cpu"].device
+    vic = _vic_tensors(vic, dev)
+    return _preempt_scan_core_plain(
+        nodes, vic, pod, _t(feas_static, dev, torch.bool),
+        _t(order_rank, dev, I64), n_real, max_prio, check_resources,
+        has_request)
+
+
+# pointer slots of K7's launch (csrc/preempt_scan.cu `PreemptArgs`)
+_PREEMPT_PTRS = ("alloc_cpu", "alloc_mem", "alloc_eph", "allowed_pods",
+                 "req_cpu", "req_mem", "req_eph", "pod_count") + tuple(
+    "vic_" + k for k in VICTIM_PLANES) + (
+    "feas", "rank", "agg_i64", "agg_f64", "agg_u8", "out")
+
+
+def _preempt_launch(nodes, vic, pod, feas_static, order_rank, n_real,
+                    check_resources, has_request, max_prio):
+    dev = nodes["alloc_cpu"].device
+    vic = _vic_tensors(vic, dev)
+    n_pad, P = (int(x) for x in vic["prio"].shape)
+    rows = {k: nodes[k] for k in _PREEMPT_PTRS[:8]}
+    _require_cuda("preempt_scan", *rows.values(), *vic.values())
+    if any(v.shape[0] != n_pad for v in rows.values()):
+        raise ValueError("preempt_scan: node rows and victim planes differ "
+                         "in n_pad")
+    ptrs = dict(rows)
+    ptrs.update({"vic_" + k: v for k, v in vic.items()})
+    ptrs["feas"] = _t(feas_static, dev, torch.bool).contiguous()
+    ptrs["rank"] = _t(order_rank, dev, I64).contiguous()
+    ptrs["agg_i64"] = torch.empty((4, n_pad), dtype=I64, device=dev)
+    ptrs["agg_f64"] = torch.empty(n_pad, dtype=torch.float64, device=dev)
+    ptrs["agg_u8"] = torch.empty((2, n_pad), dtype=torch.uint8, device=dev)
+    out = ptrs["out"] = torch.empty(3 + P, dtype=I32, device=dev)
+    if ptrs["feas"].shape[0] != n_pad or ptrs["rank"].shape[0] != n_pad:
+        raise ValueError("preempt_scan: feas_static/order_rank not [n_pad]")
+    ints = [n_pad, P, int(n_real), int(max_prio),
+            int(bool(_host(check_resources))),
+            int(bool(_host(has_request)))] + [
+        int(np.asarray(_host(pod[k])))
+        for k in ("req_cpu", "req_mem", "req_eph")]
+    iargs = (ctypes.c_longlong * len(ints))(*ints)
+    parr = (ctypes.c_void_p * len(_PREEMPT_PTRS))(
+        *[_ptr(ptrs[k]) for k in _PREEMPT_PTRS])
+    lib = _build.load("preempt_scan")
+    obs.inc("launch.preempt_scan")
+    _check(lib.preempt_scan_launch(iargs, parr, _stream()), "preempt_scan")
+    return out
+
+
+def preemption_scan(nodes, vic, pod, feas_static, order_rank, n_real,
+                    check_resources, has_request, max_prio):
+    """K7: one preemptor's victim scan over every node at once. `vic` holds
+    the [N, P] slot planes of the persistent victim table (every snapshot
+    pod in reprieve order; slots of priority >= `max_prio` are masked out
+    on the device); `feas_static` [N] the candidate nodes that pass the
+    pod's non-resource predicates; `order_rank` [N] the candidate order
+    (ties of the pick go to the lowest). Returns the packed [3+P] int32
+    block: winner row (-1 = no candidate), its victim count and
+    PDB-violation count, its per-slot victim flags."""
+    if not nodes["alloc_cpu"].is_cuda:
+        return preemption_scan_plain(nodes, vic, pod, feas_static,
+                                     order_rank, n_real, check_resources,
+                                     has_request, max_prio)
+    return _preempt_launch(nodes, vic, pod, feas_static, order_rank, n_real,
+                           check_resources, has_request, max_prio)
+
+
+# ---------------------------------------------------------------------------
+# K8 pressure_batch — schedule-else-preempt over a failed burst tail
+# ---------------------------------------------------------------------------
+#: the nine per-node masks a preemption winner must pass outright
+_PRESSURE_MASKS = ("sel_ok", "taints_ok", "unsched_ok", "host_ok",
+                   "ports_ok", "disk_ok", "maxvol_ok", "volbind_ok",
+                   "volzone_ok")
+#: the nominated-ghost load the pressure scan carries
+GHOST_FIELDS = ("cpu", "mem", "eph", "cnt")
+#: head columns of a pod's row of the packed [B, 5+P] int32 block; the
+#: winner's P slot flags follow
+PRESSURE_HEAD = ("selected", "winner", "any_cand", "li_after", "lni_delta")
+
+
+def _resolvable_candidates_plain(fail_first, general_bits):
+    """nodesWherePreemptionMightHelp from the cycle's fail codes
+    (`_resolvable_candidates`, kernels.py:1675): a node is no candidate
+    when its FIRST failing predicate is unresolvable; GENERAL counts as
+    unresolvable when it carries the host-name or selector bit."""
+    ff = fail_first.to(I64)
+    gb = general_bits.to(I64)
+    unresolv = ((ff == FAIL_UNSCHEDULABLE) | (ff == FAIL_TAINTS)
+                | (ff == FAIL_VOLZONE) | (ff == FAIL_VOLBIND)
+                | ((ff == FAIL_GENERAL)
+                   & ((((gb >> BIT_HOST) & 1) | ((gb >> BIT_SELECTOR) & 1))
+                      != 0)))
+    return ~unresolv
+
+
+def _pressure_core_plain(nodes, stack, mut0, ghost0, vic, last_index,
+                         last_node_index, num_to_find, n_real, z_pad,
+                         weights):
+    """`_pressure_core` (kernels.py:1690), identity walk: per pod, the K2
+    cycle with the carried ghost in the filter; the fold of a hit; the
+    victim scan of every node on the rows BEFORE this pod's fold, with
+    this pod's mask (slot priority < pprio), the ghost and the pod's
+    static masks; the pick by axis index; the ghost fold of a
+    preemption. Every pod, bound and skip ones too, emits the victim
+    flags of row max(winner_raw, 0), as JAX does."""
+    dev = nodes["valid"].device
+    static = {k: v for k, v in nodes.items() if k not in _MUTABLE}
+    mut = {k: mut0[k].clone() for k in _MUTABLE}
+    ghost = {k: _t(ghost0[k], dev, I64).clone() for k in GHOST_FIELDS}
+    n_pad = static["valid"].shape[0]
+    in_range = torch.arange(n_pad, device=dev) < int(n_real)
+    axis_rank = torch.arange(n_pad, dtype=I64, device=dev)
+    li, lni = int(last_index), int(last_node_index)
+    B = len(stack)
+    P = int(vic["prio"].shape[1])
+    packed = torch.zeros((B, len(PRESSURE_HEAD) + P), dtype=I32,
+                         device=dev)
+    for b in range(B):
+        pod = stack.pod(b)
+        skip = bool(pod["skip"])
+        full = {**static, **mut}
+        if skip:
+            out = _skip_cycle(li, lni, n_real)
+            resolvable = False
+        else:
+            out = _cycle_core_plain(full, pod, li, lni, num_to_find, n_real,
+                                    weights, z_pad, ghost=ghost)
+            resolvable = bool((in_range & _resolvable_candidates_plain(
+                out["fail_first"], out["general_bits"])).any())
+        sel, hit = int(out["selected"]), int(out["found"]) > 0
+        feas_stat = in_range & static["valid"]
+        for key in _PRESSURE_MASKS:
+            feas_stat = feas_stat & pod[key].to(torch.bool)
+        feas_stat = feas_stat & (pod["interpod_code"] == 0)
+        valid_k = vic["valid"] & (vic["prio"] < int(pod["pprio"]))
+        feas0, victims, agg = _victim_select_plain(
+            full, vic, valid_k, pod["req_cpu"], pod["req_mem"],
+            pod["req_eph"], ghost, feas_stat, pod["check_resources"],
+            pod["has_request"])
+        winner_raw = _pick_one_node_plain(feas0, agg, axis_rank)
+        any_cand = resolvable and not hit and not skip
+        preempted = not hit and not skip and winner_raw >= 0
+        winner = -2 if hit else (-1 if skip else winner_raw)
+        w = max(winner_raw, 0)
+        if hit:
+            _fold_state_plain(mut, pod, sel)
+        if preempted:
+            ghost["cpu"][w] += pod["upd_cpu"]
+            ghost["mem"][w] += pod["upd_mem"]
+            ghost["eph"][w] += pod["upd_eph"]
+            ghost["cnt"][w] += 1
+        nli, nlni = int(out["next_last_index"]), \
+            int(out["next_last_node_index"])
+        packed[b, :len(PRESSURE_HEAD)] = torch.tensor(
+            [sel if hit else -1, winner, int(any_cand), _wrap32(nli),
+             _wrap32(nlni - lni)], dtype=I32)
+        packed[b, len(PRESSURE_HEAD):] = victims[w].to(I32)
+        li, lni = nli, nlni
+    return (mut, ghost, torch.tensor(li, dtype=I64, device=dev),
+            torch.tensor(lni, dtype=I64, device=dev), _pressure_outs(packed))
+
+
+def _pressure_outs(packed: torch.Tensor) -> dict:
+    """The JAX entry point's per-pod outputs, in its dtypes, read off the
+    packed [B, 5+P] block (which they keep as "packed")."""
+    return {"selected": packed[:, 0].to(I64), "winner": packed[:, 1],
+            "any_cand": packed[:, 2].to(torch.bool),
+            "victims": packed[:, len(PRESSURE_HEAD):].to(torch.int8),
+            "packed": packed}
+
+
+def pressure_batch_plain(nodes, mut0, ghost0, pods, vic, last_index,
+                         last_node_index, num_to_find, n_real, z_pad,
+                         weights=None, out=None):
+    """Plain version of K8, the JAX `pressure_batch` entry point
+    (kernels.py:1768, `mesh=` left out): (mut, ghost, li, lni, outs) with
+    outs per pod: selected (>= 0 bound row, -1 not bound), winner (-2
+    bound, -1 no preemption, >= 0 nominated row), any_cand, victims [P]
+    int8, and "packed", the [B, 5+P] int32 block of the same (see
+    PRESSURE_HEAD). `pods` is a `PodStack` or the JAX [B, ...] dict, with
+    `pprio` the preemptor priorities; `out`, a [B, 5+P] int32 tensor,
+    receives the packed block."""
+    dev = nodes["valid"].device
+    stack = pods if isinstance(pods, PodStack) \
+        else PodStack.from_dense(pods, dev)
+    res = _pressure_core_plain(
+        nodes, stack, mut0, ghost0, _vic_tensors(vic, dev),
+        int(np.asarray(_host(last_index))),
+        int(np.asarray(_host(last_node_index))), int(num_to_find),
+        int(n_real), z_pad, weights or DEFAULT_WEIGHTS)
+    if out is not None:
+        out.copy_(res[4]["packed"])
+        res = res[:4] + (_pressure_outs(out),)
+    return res
+
+
+def _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
+                     last_node_index, num_to_find, n_real, z_pad, weights,
+                     out):
+    dev = nodes["valid"].device
+    vic = _vic_tensors(vic, dev)
+    n_pad, P = (int(x) for x in vic["prio"].shape)
+    B = len(stack)
+    if out is None:
+        out = torch.empty((B, len(PRESSURE_HEAD) + P), dtype=I32,
+                          device=dev)
+    if tuple(out.shape) != (B, len(PRESSURE_HEAD) + P) \
+            or out.dtype != I32 or not out.is_contiguous():
+        raise ValueError("pressure_batch: out must be a contiguous "
+                         f"[{B}, {len(PRESSURE_HEAD) + P}] int32 tensor")
+    if "pprio" not in stack.table:
+        raise ValueError("pressure_batch: the pods carry no pprio")
+    if isinstance(last_index, torch.Tensor) \
+            and isinstance(last_node_index, torch.Tensor):
+        carry_in = torch.stack([last_index.to(I64).reshape(()),
+                                last_node_index.to(I64).reshape(())])
+    else:
+        carry_in = _upload(np.asarray(
+            [int(np.asarray(_host(last_index))),
+             int(np.asarray(_host(last_node_index)))], np.int64), dev)
+    # the ghost folds land in fresh vectors, as the rows do
+    ghost = {k: _t(ghost0[k], dev, I64).clone().contiguous()
+             for k in GHOST_FIELDS}
+    U = int(stack.table["skip"].shape[0])
+    extra = {"ghost_" + k: v for k, v in ghost.items()}
+    extra.update({"vic_" + k: v for k, v in vic.items()})
+    extra.update({
+        "pprio": stack.table["pprio"].to(I64).reshape(U).contiguous(),
+        "carry_in": carry_in,
+        "agg_i64": torch.empty((4, n_pad), dtype=I64, device=dev),
+        "agg_f64": torch.empty(n_pad, dtype=torch.float64, device=dev),
+        "agg_u8": torch.empty((2, n_pad), dtype=torch.uint8, device=dev),
+        "packed": out, "vic_P": P})
+    state, li, lni, _spread, _stats, _packed = _scan_launch(
+        "pressure_batch", nodes, stack, 0, 0, num_to_find, n_real, z_pad,
+        weights, 0, None, None, None, False, mut0, None, None, B,
+        pressure=extra)
+    return state, ghost, li, lni, _pressure_outs(out)
+
+
+def pressure_batch(nodes, mut0, ghost0, pods, vic, last_index,
+                   last_node_index, num_to_find, n_real, z_pad,
+                   weights=None, out=None):
+    """K8: schedule-else-preempt a failed burst tail in one launch. `nodes`
+    is the resident matrix, `mut0` the carried mutable rows, `ghost0` the
+    carried nominated load ({cpu, mem, eph, cnt} [n_pad]), `pods` a
+    `PodStack` or the JAX [B, ...] dict (with `pprio` and the fold
+    deltas), `vic` the victim planes. last_index / last_node_index may be
+    ints or the previous chunk's device scalars, so chunks chain on the
+    card without a host round trip. Returns (mut, ghost, li, lni, outs) as
+    the plain version; `out` receives the packed [B, 5+P] block."""
+    weights = weights or DEFAULT_WEIGHTS
+    dev = nodes["valid"].device
+    stack = pods if isinstance(pods, PodStack) \
+        else PodStack.from_dense(pods, dev)
+    if not nodes["valid"].is_cuda:
+        return pressure_batch_plain(nodes, mut0, ghost0, stack, vic,
+                                    last_index, last_node_index,
+                                    num_to_find, n_real, z_pad,
+                                    weights=weights, out=out)
+    return _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
+                            last_node_index, num_to_find, n_real, z_pad,
+                            weights, out)

@@ -110,6 +110,11 @@ class NodeStateEncoder:
         # assumes (which sync generations without _write_row), so the
         # generation-gated maintenance is exact.
         self._spec_flags: Optional[dict] = None
+        # persistent [N, P] victim table (victim_table): re-sorted per node
+        # generation, permuted with the mirror rows, reset on a rebuild
+        self._vt: Optional["VictimStack"] = None
+        self._vt_gens: dict[str, int] = {}
+        self._vt_pdb_key: Optional[tuple] = None
 
     def encode(self, node_infos: dict[str, NodeInfo],
                node_order: list[str]) -> NodeBatch:
@@ -160,13 +165,17 @@ class NodeStateEncoder:
                 # same nodes, new enumeration order (uneven-zone clusters
                 # rotate between bursts): permute the mirror rows instead
                 # of re-extracting every NodeInfo through _write_row —
-                # generations are name-keyed, so they stay valid.
+                # generations are name-keyed, so they stay valid. The
+                # victim table's row planes ride the same permutation.
+                self._vt_permute(b, node_order, n_real)
                 self._flags_permute(b, node_order, n_real)
                 b = self._permuted(b, node_order, n_real)
                 obs.inc("encoder.mirror_permutes")
             else:
                 b = self._fresh(node_order, n_real, n_pad, s)
                 self._generations = {}
+                self._vt = None           # rows realign on next victim scan
+                self._vt_gens = {}
                 self._spec_flags = {
                     k: np.zeros(n_pad, dtype=bool)
                     for k in ("taints", "unsched", "avoid", "images")}
@@ -491,6 +500,138 @@ class NodeStateEncoder:
         self._pt_built_key = key
         return out
 
+    # -- persistent victim table --------------------------------------------
+    def victim_table(self, node_infos: dict[str, NodeInfo], b: NodeBatch,
+                     pdbs: list, cap: int = 128) -> "VictimStack":
+        """Build/refresh the persistent [N, P] victim table against `b`.
+
+        Incremental like encode(): only nodes whose NodeInfo generation
+        moved since the last call re-sort their slots, in one vectorized
+        np.lexsort over the dirty nodes' pod-table rows. A PDB-set change
+        (object identity or disruptionsAllowed) dirties every node, since
+        the violating flags feed the sort key. The NodeTree rotation case
+        never lands here: encode()'s permute branch reorders the victim
+        rows with the mirror rows.
+
+        Assumed pods arrive through the cache's generation bump (the
+        note_assumed hooks do NOT sync `_vt_gens`: the victim table needs
+        the new pod's row, so the next call re-extracts exactly the
+        bound-to nodes)."""
+        t = self.pod_table(node_infos, b)
+        pdb_key = tuple(sorted(
+            (id(p), p.namespace, int(p.disruptions_allowed),
+             p.selector is None) for p in pdbs))
+        n_pad = b.n_pad
+        hr = t.holder_row
+        on_axis = hr >= 0
+        counts = np.bincount(hr[on_axis], minlength=n_pad).astype(np.int64)
+        maxp = int(counts.max()) if counts.size else 0
+        P = min(_pad_capacity(max(maxp, 1), 8), cap)
+        vt = self._vt
+        if vt is not None and vt.valid.shape[0] == n_pad:
+            P = max(P, vt.P)   # never shrink: avoids rebuild thrash
+        if vt is None or vt.P != P or vt.valid.shape[0] != n_pad:
+            zeros2 = lambda dt: np.zeros((n_pad, P), dtype=dt)
+            vt = VictimStack(
+                P=P, cpu=zeros2(np.int64), mem=zeros2(np.int64),
+                eph=zeros2(np.int64), prio=zeros2(np.int64),
+                start=np.full((n_pad, P), np.inf, np.float64),
+                valid=zeros2(bool), viol=zeros2(bool), aff=zeros2(bool),
+                ports=zeros2(bool), scalar=zeros2(bool),
+                count=np.zeros(n_pad, np.int64),
+                overflow=np.zeros(n_pad, bool),
+                slots={}, table=t, dirty_rows=None)
+            self._vt = vt
+            self._vt_gens = {}
+            self._vt_pdb_key = None
+            obs.inc("encoder.victim_rebuilds")
+        vt.table = t
+        if pdb_key != self._vt_pdb_key:
+            # the violating flags are part of the sort key: re-sort all
+            self._vt_gens = {}
+            self._vt_pdb_key = pdb_key
+        gens = self._vt_gens
+        dirty = []
+        for i, name in enumerate(b.names):
+            g = node_infos[name].generation
+            if gens.get(name) != g:
+                gens[name] = g
+                dirty.append(i)
+        if not dirty:
+            return vt
+        obs.inc("encoder.victim_row_resorts", len(dirty))
+        d = np.asarray(dirty, np.int64)
+        # reset the dirty rows, then scatter the re-sorted slots
+        for f in ("cpu", "mem", "eph", "prio"):
+            getattr(vt, f)[d] = 0
+        vt.start[d] = np.inf
+        for f in ("valid", "viol", "aff", "ports", "scalar"):
+            getattr(vt, f)[d] = False
+        vt.count[d] = counts[d]
+        vt.overflow[d] = counts[d] > P
+        for i in dirty:
+            vt.slots[b.names[i]] = []
+        is_dirty = np.zeros(n_pad, bool)
+        is_dirty[d] = True
+        rows = np.flatnonzero(on_axis & is_dirty[np.where(on_axis, hr, 0)])
+        if rows.size:
+            from kubernetes_tpu_torch.oracle.preemption import \
+                pods_violating_pdbs_mask
+            viol = pods_violating_pdbs_mask(t, pdbs)[rows] if pdbs \
+                else np.zeros(rows.size, bool)
+            holder = hr[rows].astype(np.int64)
+            # reprieve processing order per node in ONE stable lexsort
+            # (last key is primary): group by node row, violating first,
+            # then descending importance = priority desc, start asc; the
+            # sort is stable, so ties keep ni.pods order
+            order = np.lexsort((t.start[rows], -t.prio[rows],
+                                (~viol).astype(np.int8), holder))
+            sr = rows[order]
+            h = holder[order]
+            viol_s = viol[order]
+            newgrp = np.r_[True, h[1:] != h[:-1]]
+            gstart = np.flatnonzero(newgrp)
+            slot = np.arange(len(h)) - gstart[np.cumsum(newgrp) - 1]
+            keep = slot < P
+            hs, ss = h[keep], slot[keep]
+            ks = sr[keep]
+            vt.cpu[hs, ss] = t.res_cpu[ks]
+            vt.mem[hs, ss] = t.res_mem[ks]
+            vt.eph[hs, ss] = t.res_eph[ks]
+            vt.prio[hs, ss] = t.prio[ks]
+            vt.start[hs, ss] = t.start[ks]
+            vt.valid[hs, ss] = True
+            vt.viol[hs, ss] = viol_s[keep]
+            vt.aff[hs, ss] = t.has_aff_terms[ks]
+            vt.ports[hs, ss] = t.has_ports[ks]
+            vt.scalar[hs, ss] = t.has_scalar[ks]
+            pods_list = t.pods
+            names_list = b.names
+            slots = vt.slots
+            for r, hi in zip(ks.tolist(), hs.tolist()):
+                slots[names_list[hi]].append(pods_list[r])
+        if vt.dirty_rows is not None:
+            vt.dirty_rows.extend(dirty)
+        return vt
+
+    def _vt_permute(self, b_old: NodeBatch, node_order: list[str],
+                    n_real: int) -> None:
+        """Reorder the victim table to a rotated enumeration of the same
+        node set, one gather per plane, mirroring _permuted. Row positions
+        moved, so the device copy needs a full re-upload (dirty_rows None);
+        slot content and the name-keyed slots/generation maps stay valid."""
+        vt = self._vt
+        if vt is None:
+            return
+        perm = np.fromiter((b_old.index[nm] for nm in node_order), np.int64,
+                           n_real)
+        for f in VictimStack._ROW_FIELDS:
+            arr = getattr(vt, f)
+            out = arr.copy()
+            out[:n_real] = arr[perm]
+            setattr(vt, f, out)
+        vt.dirty_rows = None
+
     def note_assumed(self, b: NodeBatch, node_name: str, pod: Pod,
                      generation: Optional[int] = None,
                      mark_dirty: bool = True) -> None:
@@ -612,6 +753,43 @@ class PodTable:
     has_scalar: np.ndarray = None    # [P] bool — extended resources requested
     has_aff_terms: np.ndarray = None  # [P] bool — any pod (anti-)affinity term
     has_ports: np.ndarray = None     # [P] bool — declares container ports
+
+
+@dataclass
+class VictimStack:
+    """Persistent [N, P] victim table: every snapshot pod in its node's
+    reprieve processing order (PDB-violating first, each group by
+    descending importance), maintained incrementally beside the node
+    mirror.
+
+    Slots hold ALL pods, not just one preemptor's potential victims: the
+    sort key (violating, -priority, start) is priority-monotone, so the
+    device's mask `prio < max_prio` keeps the per-preemptor reprieve order,
+    and one table serves every preemptor priority. The flag planes
+    (aff/ports/scalar) make the eligibility gates mask reads, and
+    `dirty_rows` feeds the device copy's sparse re-upload as NodeBatch
+    does."""
+    P: int                      # slot bucket (power of two, <= kernel cap)
+    cpu: np.ndarray             # [N, P] i64 calculate_resource milli-CPU
+    mem: np.ndarray             # [N, P] i64
+    eph: np.ndarray             # [N, P] i64
+    prio: np.ndarray            # [N, P] i64
+    start: np.ndarray           # [N, P] f64 (+inf padding)
+    valid: np.ndarray           # [N, P] bool
+    viol: np.ndarray            # [N, P] bool — PDB-violating
+    aff: np.ndarray             # [N, P] bool — pod carries affinity terms
+    ports: np.ndarray           # [N, P] bool — pod declares container ports
+    scalar: np.ndarray          # [N, P] bool — pod requests scalar resources
+    count: np.ndarray           # [N] i64 total pods on the node
+    overflow: np.ndarray        # [N] bool — count exceeded the slot cap
+    slots: dict                 # node name -> ordered slot Pod list
+    table: PodTable             # the pod table the rows were built from
+    # rows rewritten since the device copy last consumed the list;
+    # None = full re-upload required (rebuild or permute)
+    dirty_rows: Optional[list] = None
+
+    _ROW_FIELDS = ("cpu", "mem", "eph", "prio", "start", "valid", "viol",
+                   "aff", "ports", "scalar", "count", "overflow")
 
 
 def build_pod_table(node_infos: dict[str, NodeInfo], b: NodeBatch) -> PodTable:

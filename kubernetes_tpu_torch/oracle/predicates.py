@@ -1,7 +1,8 @@
 """Host predicates the encoder reaches, copied from the oracle.
 
 Only the pieces the port's node/pod encoders and FitError reason decoding
-need: failure-reason strings, node-selector/affinity matching, and the
+need: failure-reason strings (and the set preemption cannot resolve),
+node-selector/affinity matching, and the
 inter-pod affinity metadata with its vectorized selector masks over the
 columnar pod table (reference: pkg/scheduler/algorithm/predicates).
 """
@@ -35,6 +36,28 @@ ERR_POD_ANTI_AFFINITY_RULES_NOT_MATCH = "PodAntiAffinityRulesNotMatch"
 ERR_EXISTING_PODS_ANTI_AFFINITY_RULES_NOT_MATCH = "ExistingPodsAntiAffinityRulesNotMatch"
 ERR_NODE_LABEL_PRESENCE_VIOLATED = "NodeLabelPresenceViolated"
 ERR_SERVICE_AFFINITY_VIOLATED = "CheckServiceAffinity"
+
+# Failure reasons that preemption cannot resolve (reference:
+# generic_scheduler.go:65-84)
+UNRESOLVABLE_FAILURES = {
+    ERR_NODE_SELECTOR_NOT_MATCH,
+    ERR_POD_AFFINITY_RULES_NOT_MATCH,
+    ERR_POD_NOT_MATCH_HOST_NAME,
+    ERR_TAINTS_TOLERATIONS_NOT_MATCH,
+    "NodeLabelPresenceViolated",
+    ERR_NODE_NOT_READY,
+    ERR_NODE_NETWORK_UNAVAILABLE,
+    ERR_NODE_UNSCHEDULABLE,
+    ERR_NODE_UNKNOWN_CONDITION,
+    ERR_NODE_UNDER_MEMORY_PRESSURE,
+    ERR_NODE_UNDER_DISK_PRESSURE,
+    ERR_NODE_UNDER_PID_PRESSURE,
+    # volume placement can't be fixed by evicting pods
+    # (generic_scheduler.go:81-83)
+    "NoVolumeZoneConflict",
+    "VolumeNodeAffinityConflict",
+    "VolumeBindingNoMatch",
+}
 
 
 def insufficient_resource(resource: str) -> str:

@@ -28,6 +28,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kubernetes_tpu_torch.core.torch_scheduler" in mods
     assert "kubernetes_tpu_torch.carry" in mods
     assert "kubernetes_tpu_torch.profiles" in mods
+    assert "kubernetes_tpu_torch.oracle.preemption" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -66,3 +67,45 @@ def test_kernel_sources_exist_for_every_kernel():
         assert name in _build.SIGNATURES
     assert json.dumps(sorted(_build.SIGNATURES)) == json.dumps(
         sorted(_build.NAMES))
+
+
+def test_preempt_constants_equal_the_jax_package():
+    from kubernetes_tpu.core.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu.oracle import predicates as jpreds
+    from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+    from kubernetes_tpu_torch.oracle import predicates as ppreds
+    assert PK.PREEMPT_P == JK.PREEMPT_P
+    assert TorchScheduler.PRESSURE_B_CAP == TPUScheduler.PRESSURE_B_CAP
+    assert ppreds.UNRESOLVABLE_FAILURES == jpreds.UNRESOLVABLE_FAILURES
+
+
+def _enum_slots(src: str, end: str) -> list:
+    """The names of the C enum that ends in `end`, before `end`."""
+    import re
+    m = re.search(r"enum\s*\{([^}]*\b" + end + r"\b[^}]*)\}", src)
+    body = re.sub(r"//[^\n]*", "", m.group(1))
+    names = [x.strip() for x in body.split(",") if x.strip()]
+    return names[: names.index(end)]
+
+
+def test_launch_slot_tables_match_the_kernel_enums():
+    """The host's scalar and pointer tables and the kernels' argument
+    enums have one slot each, in one order: a slot missing on either side
+    would shift every pointer after it."""
+    from kubernetes_tpu_torch.ops import _build
+    cycle = (_build.CSRC / "cycle.cuh").read_text()
+    pointers = _enum_slots(cycle, "P_COUNT")
+    assert len(pointers) == len(PK._SCAN_PTRS)
+    assert len(_enum_slots(cycle, "I_COUNT")) == len(PK._SCAN_INTS)
+    for name, slot in zip(PK._SCAN_PTRS, pointers):
+        # the enum spells the host name in capitals, short forms aside
+        short = {"allowed_pods": "ALLOWED", "req_scalar_p": "REQ_SCALAR_P",
+                 "interpod_code": "IPA_CODE", "node_aff_counts": "NA",
+                 "taint_counts": "TT", "spread_counts": "SC",
+                 "interpod_counts": "IC", "image_sums": "IMG",
+                 "prefer_avoid": "PA", "interpod_tracked": "TRACKED",
+                 "vic_violating": "VIC_VIOL", "req_scalar": "REQ_SCALAR"}
+        assert slot == "P_" + short.get(name, name.upper()), (name, slot)
+    preempt = (_build.CSRC / "preempt_scan.cu").read_text()
+    assert len(_enum_slots(preempt, "PP_COUNT")) == len(PK._PREEMPT_PTRS)
+    assert len(_enum_slots(preempt, "PI_COUNT")) == 9
