@@ -1,16 +1,21 @@
 """Chip smoke test of the PyTorch/CUDA port (kubernetes_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card: every kernel and path
+    python3 chip_smoke.py --cards    # a host's cards: the mesh phase only,
+                                     # one shard per card
 
 1. Builds the port's CUDA kernels (one nvcc per source, all at once).
 2. Holds each kernel (K1 local_total, K2 schedule_cycle, K3 uniform_burst,
    K4 scatter_rows, K5 schedule_batch, K6 schedule_segments, K7
-   preempt_scan, K8 pressure_batch) equal to its plain PyTorch version on
-   the card, at the main paths' shapes (n_pad 16,384; K5 and K6 on whole
+   preempt_scan, K8 pressure_batch, and the mesh kernels K9a
+   shard_cycle_local, K9b shard_cycle_select, K9c shard_uniform_sweep,
+   K9d shard_uniform_select) equal to its plain PyTorch version on the
+   card, at the main paths' shapes (n_pad 16,384; K5 and K6 on whole
    10,000-pod windows, K8 on a 128-pod chunk of preempt-wave, K7 on a
-   preempt-single round), times both, and holds every kernel mode against
-   the plain version on random inputs (K7/K8 at P 16 and 128, K4 on the
-   victim planes).
+   preempt-single round, K9a-d on their first call of the mesh path),
+   times both, and holds every kernel mode against the plain version on
+   random inputs (K7/K8 at P 16 and 128, K4 on the victim planes, K9a-d
+   on 1, 2 and 4 shards with every cycle mode and every K3 case).
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
@@ -33,7 +38,13 @@
      10,000 victims and 128 preemptors, after prewarm_preempt;
    - preempt-single (K7, with K2 and K4): 32 rounds of schedule ->
      FitError -> preempt on the preempt-wave world, the shell's evictions
-     in between; rounds 2-32 scatter the victim planes' dirty rows.
+     in between; rounds 2-32 scatter the victim planes' dirty rows;
+   - mesh-uniform (K9a-d, with K1 and K4 per shard): the uniform burst
+     and four serial cycles through TorchScheduler(mesh=Mesh(["cuda"] *
+     4)), four shards on the one card, on 15,000 and 15,001 nodes, held
+     against the single-device K3/K2 run of the same world: decisions,
+     the packed block, lni, the folded rows gathered back and the
+     resident matrix.
    Launch counts are zeroed just before each path and read just after;
    each path's kernels must have run and no window may be refused.
    Decisions, walk counters and folded rows must equal the plain path on
@@ -42,6 +53,13 @@
    the pressure paths, every K7 block of preempt-single).
 4. Checks the burst against the serial cycle on a small world: a burst
    must decide exactly what one schedule() per pod decides.
+
+With `--cards` (a host of several cards) it builds the kernels and runs
+only the mesh phase, one shard per card, so the all-gather's copies are
+peer copies between the cards: K9a-d against their plain versions on
+meshes of all the cards and of the first two, and mesh-uniform at 15,000
+and 15,001 nodes held against the single-device run on the first card;
+its kernels line holds K9a-d only.
 
 Any mismatch or exception exits non-zero. Without a CUDA device it exits
 non-zero before printing any result. The last stdout line is
@@ -127,23 +145,29 @@ def assume(infos, pod, host):
     return infos[host].generation
 
 
+#: the outputs of a scheduling cycle (K2 and the sharded K9a/K9b)
+CYCLE_KEYS = ("selected", "found", "evaluated", "max_score", "total",
+              "kept", "feasible", "fail_first", "general_bits",
+              "next_last_index", "next_last_node_index")
+#: the kernel entry points `plain_versions` swaps by default
+KERNEL_ENTRIES = ("local_total", "schedule_cycle", "schedule_batch_uniform",
+                  "scatter_rows", "schedule_batch", "schedule_batch_segments",
+                  "preemption_scan", "pressure_batch")
+#: the mesh kernels K9a-d, and the single-device kernels a mesh path also
+#: launches per shard (K1, K4)
+MESH_KERNELS = ("shard_cycle_local", "shard_cycle_select",
+                "shard_uniform_sweep", "shard_uniform_select")
+MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
+
+
 @contextlib.contextmanager
-def plain_versions():
-    """Route the port's kernel entry points to their plain versions (the
-    reference run of the same path on the card)."""
+def plain_versions(names=KERNEL_ENTRIES):
+    """Route the port's kernel entry points `names` to their plain
+    versions (the reference run of the same path on the card)."""
     from kubernetes_tpu_torch.ops import kernels as K
-    saved = {k: getattr(K, k) for k in (
-        "local_total", "schedule_cycle", "schedule_batch_uniform",
-        "scatter_rows", "schedule_batch", "schedule_batch_segments",
-        "preemption_scan", "pressure_batch")}
-    K.local_total = K.local_total_plain
-    K.schedule_cycle = K.schedule_cycle_plain
-    K.schedule_batch_uniform = K.schedule_batch_uniform_plain
-    K.scatter_rows = K.scatter_rows_plain
-    K.schedule_batch = K.schedule_batch_plain
-    K.schedule_batch_segments = K.schedule_batch_segments_plain
-    K.preemption_scan = K.preemption_scan_plain
-    K.pressure_batch = K.pressure_batch_plain
+    saved = {k: getattr(K, k) for k in names}
+    for k in names:
+        setattr(K, k, getattr(K, k + "_plain"))
     try:
         yield
     finally:
@@ -151,14 +175,15 @@ def plain_versions():
             setattr(K, k, v)
 
 
-def run_path(n_nodes, n_pods, n_serial, device, sync):
-    """The main path once: burst, assume loop, serial cycles. Returns the
-    decisions, the scheduler, and host seconds by phase."""
+def run_path(n_nodes, n_pods, n_serial, device, sync, mesh=None):
+    """The main path once: burst, assume loop, serial cycles (the node
+    axis split over `mesh` when given). Returns the decisions, the
+    scheduler, and host seconds by phase."""
     from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
     infos, tree = cluster(n_nodes)
     burst = pods(n_pods)
     sched = TorchScheduler(percentage_of_nodes_to_score=100,
-                           node_tree=tree, device=device)
+                           node_tree=tree, device=device, mesh=mesh)
     t0 = time.perf_counter()
     names = tree.list_names()
     hosts = sched.schedule_burst(burst, infos, names)
@@ -302,9 +327,7 @@ def kernel_checks(device, sync):
     feats = PodEncoder(infos, b, state_encoder=sched.encoder).encode(probe)
     pod_in = sched._pod_arrays(feats)
     cargs = (nodes, pod_in, 123, 45, b.n_real, b.n_real, 4)
-    keys = ("selected", "found", "evaluated", "max_score", "total", "kept",
-            "feasible", "fail_first", "general_bits", "next_last_index",
-            "next_last_node_index")
+    keys = CYCLE_KEYS
 
     def pick(o):
         return {k: o[k] for k in keys}
@@ -428,6 +451,56 @@ def _rand_pod(rng, n_pad, s_count, dense):
     return pod
 
 
+def uniform_cases(rng, nodes, n_pad, n_real, s_count, wtab, union, device):
+    """K3's random-input cases: a fresh, roomy copy of `nodes` and
+    (name, class, pods, lni, kwargs) for the plain, lni, rotate, ban +
+    extra_ok, carried rows, weight table and saturated cases, and the
+    packed block's cap."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    fresh = {k: v.clone() for k, v in nodes.items()}
+    for k in ("req_cpu", "req_mem", "req_eph", "nz_cpu", "nz_mem",
+              "pod_count", "req_scalar"):
+        fresh[k].zero_()
+    fresh["alloc_cpu"].fill_(4000)
+    fresh["alloc_mem"].fill_(32 * GI)
+    fresh["allowed_pods"].fill_(110)
+    fresh["alloc_scalar"].fill_(40)
+    base = {"req_cpu": 100, "req_mem": 500 * MI, "req_eph": 0,
+            "req_scalar": np.zeros(s_count, np.int64), "nz_cpu": 100,
+            "nz_mem": 500 * MI, "upd_cpu": 100, "upd_mem": 500 * MI,
+            "upd_eph": 0, "upd_scalar": np.zeros(s_count, np.int64),
+            "has_request": True}
+    carried = dict(base, req_eph=GI, upd_eph=GI,
+                   req_scalar=np.array([1, 2], np.int64),
+                   upd_scalar=np.array([1, 0], np.int64))
+    rows = [np.concatenate([np.arange(n_real), np.full(n_pad + 1 - n_real,
+                                                       n_pad)])]
+    for _ in range(3):
+        rows.append(np.concatenate([rng.permutation(n_real),
+                                    np.full(n_pad + 1 - n_real, n_pad)]))
+    perms = torch.as_tensor(np.stack(rows).astype(np.int32)).to(device)
+    cap = 4096
+    seq = np.zeros(cap + K.K_BATCH, np.int32)
+    seq[1:700] = 2
+    seq[700:] = rng.integers(0, 4, len(seq) - 700)
+    seq_t = torch.as_tensor(seq).to(device)
+    extra = torch.as_tensor(rng.random(n_pad) < 0.8).to(device)
+    cases = [
+        ("plain", base, 3000, 0, {}),
+        ("lni", base, 3000, 2 ** 31 - 9, {}),
+        ("rotate", base, 3000, 5, dict(rotation=(perms, seq_t))),
+        ("ban+extra_ok", base, 3000, 1, dict(ban=True, extra_ok=extra)),
+        ("carried rows", carried, 3000, 3, {}),
+        ("weight table", base, 3000, 2, dict(weights=union, wtab=wtab,
+                                             pid=1)),
+        ("saturated", dict(base, req_cpu=3000, upd_cpu=3000, nz_cpu=3000),
+         4096, 4, {}),
+    ]
+    return fresh, cases, cap
+
+
 def variant_checks(device, sync):
     """Every mode and score family of the kernels against the plain
     versions on random inputs (the main path exercises only the plain
@@ -476,9 +549,7 @@ def variant_checks(device, sync):
     inv[perm] = np.arange(n_pad, dtype=np.int32)
     perm_t = torch.as_tensor(perm).to(device)
     inv_t = torch.as_tensor(inv).to(device)
-    keys = ("selected", "found", "evaluated", "max_score", "total", "kept",
-            "feasible", "fail_first", "general_bits", "next_last_index",
-            "next_last_node_index")
+    keys = CYCLE_KEYS
     for dense in (False, True):
         pod = _rand_pod(rng, n_pad, s_count, dense)
         for w in weight_cases:
@@ -505,45 +576,8 @@ def variant_checks(device, sync):
             same("schedule_cycle/wtab", {k: got[k] for k in keys},
                  {k: want[k] for k in keys})
     # K3: a fresh, roomy cluster and a class with every carried row kind
-    fresh = {k: v.clone() for k, v in nodes.items()}
-    for k in ("req_cpu", "req_mem", "req_eph", "nz_cpu", "nz_mem",
-              "pod_count", "req_scalar"):
-        fresh[k].zero_()
-    fresh["alloc_cpu"].fill_(4000)
-    fresh["alloc_mem"].fill_(32 * GI)
-    fresh["allowed_pods"].fill_(110)
-    fresh["alloc_scalar"].fill_(40)
-    base = {"req_cpu": 100, "req_mem": 500 * MI, "req_eph": 0,
-            "req_scalar": np.zeros(s_count, np.int64), "nz_cpu": 100,
-            "nz_mem": 500 * MI, "upd_cpu": 100, "upd_mem": 500 * MI,
-            "upd_eph": 0, "upd_scalar": np.zeros(s_count, np.int64),
-            "has_request": True}
-    carried = dict(base, req_eph=GI, upd_eph=GI,
-                   req_scalar=np.array([1, 2], np.int64),
-                   upd_scalar=np.array([1, 0], np.int64))
-    rows = [np.concatenate([np.arange(n_real), np.full(n_pad + 1 - n_real,
-                                                       n_pad)])]
-    for _ in range(3):
-        rows.append(np.concatenate([rng.permutation(n_real),
-                                    np.full(n_pad + 1 - n_real, n_pad)]))
-    perms = torch.as_tensor(np.stack(rows).astype(np.int32)).to(device)
-    cap = 4096
-    seq = np.zeros(cap + K.K_BATCH, np.int32)
-    seq[1:700] = 2
-    seq[700:] = rng.integers(0, 4, len(seq) - 700)
-    seq_t = torch.as_tensor(seq).to(device)
-    extra = torch.as_tensor(rng.random(n_pad) < 0.8).to(device)
-    cases = [
-        ("plain", base, 3000, 0, {}),
-        ("lni", base, 3000, 2 ** 31 - 9, {}),
-        ("rotate", base, 3000, 5, dict(rotation=(perms, seq_t))),
-        ("ban+extra_ok", base, 3000, 1, dict(ban=True, extra_ok=extra)),
-        ("carried rows", carried, 3000, 3, {}),
-        ("weight table", base, 3000, 2, dict(weights=union, wtab=wtab,
-                                             pid=1)),
-        ("saturated", dict(base, req_cpu=3000, upd_cpu=3000, nz_cpu=3000),
-         4096, 4, {}),
-    ]
+    fresh, cases, cap = uniform_cases(rng, nodes, n_pad, n_real, s_count,
+                                      wtab, union, device)
     for name, cls, n_pods, lni, kw in cases:
         args = (fresh, cls, n_pods, lni, n_real, True)
         got = K.schedule_batch_uniform(*args, cap=cap, **kw)
@@ -734,6 +768,117 @@ def scan_variant_checks(device, sync):
           f"singleton failure)")
 
 
+MESH_SHARDS = (1, 2, 4)        # shards of one card in the mesh checks
+
+
+def cat_rows(rows):
+    """Per-shard rows as whole [n_pad] vectors on the first shard's
+    device."""
+    import torch
+    return {k: torch.cat([r[k].to(rows[0][k].device) for r in rows])
+            for k in rows[0]}
+
+
+def mesh_variant_checks(device, sync, meshes=None):
+    """The mesh kernels K9a-d against their plain versions on random
+    inputs, and the sharded programs against the single-device plain K2
+    and K3, on one card split into 1, 2 and 4 shards (`[device] * D`):
+    every K2 family dense and inert, identity, perm and pos walks and a
+    weight table for the cycle; K3's plain, lni, rotate, ban + extra_ok,
+    carried rows, weight table and saturated cases for the burst; n_real
+    (3,999) a multiple of no shard count. `meshes` (lists of devices)
+    replaces the shards of one card, e.g. by the cards of a host."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    rng = np.random.default_rng(20261019)
+    n_pad, n_real, s_count, zones = 4096, 3999, 2, 6
+    checked = 0
+
+    def same(name, got, want):
+        nonlocal checked
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise SystemExit(f"mesh variant {name}: disagrees (max_abs_err "
+                             f"{err}; first difference "
+                             f"{first_diff(got, want)})")
+        checked += 1
+
+    keys = CYCLE_KEYS
+    nodes = _rand_nodes(rng, n_pad, n_real, s_count, zones, device)
+    perm = np.concatenate([rng.permutation(n_real),
+                           np.arange(n_real, n_pad)]).astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n_pad, dtype=np.int32)
+    perm_t = torch.as_tensor(perm).to(device)
+    inv_t = torch.as_tensor(inv).to(device)
+    wtab = torch.as_tensor(rng.integers(0, 4, (3, len(K.PRIORITY_AXIS)))
+                           ).to(device)
+    union = {k: int(wtab[:, i].max()) for i, k in enumerate(K.PRIORITY_AXIS)}
+    weight_cases = [dict(K.DEFAULT_WEIGHTS),
+                    {**K.DEFAULT_WEIGHTS, "least_requested": 0,
+                     "most_requested": 2}]
+    fresh, ucases, cap = uniform_cases(rng, nodes, n_pad, n_real, s_count,
+                                       wtab, union, device)
+    pods = [_rand_pod(rng, n_pad, s_count, dense) for dense in (False, True)]
+    for devs in meshes or [[device] * D for D in MESH_SHARDS]:
+        mesh = S.Mesh(devs)
+        D = mesh.size
+        shards = S.shard_node_arrays(mesh, nodes)
+        for pod in pods:
+            for w in weight_cases:
+                for mode in ("identity", "perm", "pos"):
+                    li, lni, ntf = 37, 11, 900
+                    kw = {}
+                    if mode == "perm":
+                        kw = dict(perm=perm_t, inv_perm=inv_t)
+                    elif mode == "pos":
+                        kw = dict(pos=inv_t)
+                        ntf = n_real
+                    args = (pod, li, lni, ntf, n_real, 8)
+                    got = K.schedule_cycle(shards, *args, weights=w,
+                                           mesh=mesh, **kw)
+                    with plain_versions(MESH_ENTRIES):
+                        ref = K.schedule_cycle(shards, *args, weights=w,
+                                               mesh=mesh, **kw)
+                    want = K.schedule_cycle_plain(nodes, *args, weights=w,
+                                                  **kw)
+                    for name, other in (("plain", ref), ("K2 plain", want)):
+                        same(f"{D} shards/cycle/{mode} vs {name}",
+                             {k: got[k] for k in keys},
+                             {k: other[k] for k in keys})
+            p = dict(pod, profile_id=np.int64(2))
+            args = (p, 5, 3, n_real, n_real, 8)
+            got = K.schedule_cycle(shards, *args, weights=union, wtab=wtab,
+                                   mesh=mesh)
+            want = K.schedule_cycle_plain(nodes, *args, weights=union,
+                                          wtab=wtab)
+            same(f"{D} shards/cycle/wtab", {k: got[k] for k in keys},
+                 {k: want[k] for k in keys})
+        fshards = S.shard_node_arrays(mesh, fresh)
+        for name, cls, n_pods, lni, kw in ucases:
+            args = (cls, n_pods, lni, n_real, True)
+            got = K.schedule_batch_uniform(fshards, *args, cap=cap,
+                                           mesh=mesh, **kw)
+            with plain_versions(MESH_ENTRIES):
+                ref = K.schedule_batch_uniform(fshards, *args, cap=cap,
+                                               mesh=mesh, **kw)
+            want = K.schedule_batch_uniform_plain(fresh, *args, cap=cap,
+                                                  **kw)
+            for other, label in ((ref, "plain"), (want, "K3 plain")):
+                same(f"{D} shards/uniform/{name} vs {label}",
+                     (cat_rows(got[0]), got[1], got[2]),
+                     (cat_rows(other[0]) if isinstance(other[0], list)
+                      else other[0], other[1], other[2]))
+    sync()
+    print(f"[variants] {checked} mesh comparisons equal (K9a-d against "
+          f"their plain versions and the sharded programs against the "
+          f"single-device plain K2/K3, on meshes of "
+          f"{[len(m) for m in meshes] if meshes else list(MESH_SHARDS)} "
+          f"shards, n_real {n_real})")
+
+
 MIXED_PROFILES = [
     {"schedulerName": "default-scheduler"},
     # MostRequested in place of LeastRequested (the ClusterAutoscaler
@@ -912,9 +1057,10 @@ def same_rows(name, a, b):
 
 
 class capture:
-    """Record the inputs of the first call of a kernel entry point (node
-    tensors cloned), so the kernel check runs on the main path's own
-    inputs, and the result of its last call."""
+    """Record the inputs of the first call of a kernel entry point (its
+    tensors cloned, so later calls cannot change them), so the kernel
+    check runs on the main path's own inputs, and the result of its last
+    call."""
 
     def __init__(self, fn_name):
         self.fn_name = fn_name
@@ -926,8 +1072,7 @@ class capture:
 
         def rec(nodes, *args, **kw):
             if self.call is None:
-                self.call = ({k: v.clone() for k, v in nodes.items()},
-                             args, dict(kw))
+                self.call = (_clone(nodes), _clone(args), _clone(kw))
             self.last = real(nodes, *args, **kw)
             return self.last
         setattr(K, self.fn_name, rec)
@@ -936,6 +1081,26 @@ class capture:
     def __exit__(self, *exc):
         from kubernetes_tpu_torch.ops import kernels as K
         setattr(K, self.fn_name, self.real)
+
+
+def _clone(x):
+    """A copy of a kernel call's arguments that later calls cannot
+    change: tensors cloned, containers and the uniform shard state copied
+    through."""
+    import copy
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, K.UniformShard):
+        y = copy.copy(x)
+        y.__dict__ = _clone(x.__dict__)
+        return y
+    return x
 
 
 def scan_bound(nodes, stack, n_cycles, n_real, out_bytes):
@@ -1194,6 +1359,202 @@ def main_path(name, n_nodes, device, sync, report):
           f"cycles {run['t_serial'] * 1e3:.1f} ms; launches {counts}; "
           f"fetches {fetches}; plain path burst "
           f"{ref['t_burst'] * 1e3:.1f} ms; decisions equal")
+    add_launches(report, counts)
+
+
+# ---------------------------------------------------------------------------
+# Node-axis sharding: K9a-d on a mesh of four shards of the one card
+# ---------------------------------------------------------------------------
+MESH_D = 4            # shards of the card in the mesh paths
+SOURCES.update({
+    "shard_cycle_local": ("kubernetes_tpu_torch/ops/csrc/shard_cycle_local.cu",
+                          "kubernetes_tpu/parallel/sharding.py:115"),
+    "shard_cycle_select": (
+        "kubernetes_tpu_torch/ops/csrc/shard_cycle_select.cu",
+        "kubernetes_tpu/parallel/sharding.py:115"),
+    "shard_uniform_sweep": (
+        "kubernetes_tpu_torch/ops/csrc/shard_uniform_sweep.cu",
+        "kubernetes_tpu/parallel/sharding.py:151"),
+    "shard_uniform_select": (
+        "kubernetes_tpu_torch/ops/csrc/shard_uniform_select.cu",
+        "kubernetes_tpu/parallel/sharding.py:151"),
+})
+
+
+def nbytes(*xs):
+    """Bytes of every tensor in `xs` (nested in dicts, lists, shards)."""
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (list, tuple)):
+            total += nbytes(*x)
+        elif isinstance(x, K.UniformShard):
+            total += nbytes(*x.tensors())
+    return total
+
+
+def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
+                      reps, label, note=""):
+    """Hold K9 kernel `name` against its plain version on one captured
+    call of the mesh path (each run on its own copy of the arguments,
+    `reset(copy, base)` restoring what a call changes before each timed
+    run), time both, file its report entry. `outputs(copy, result)` is
+    what the two must agree on; the bound is `io_bytes` (each input read
+    once, each output written once) over the memory rate."""
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    args, kw = _full(call)
+    fn, plain = getattr(K, name), getattr(K, name + "_plain")
+    a_k, a_p = _clone(args), _clone(args)
+    got = outputs(a_k, fn(*a_k, **kw))
+    want = outputs(a_p, plain(*a_p, **kw))
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise SystemExit(f"{name}: kernel disagrees with plain (max_abs_err "
+                         f"{err}; first difference {first_diff(got, want)})")
+    base = _clone(args)
+
+    def timed(f):
+        a = _clone(base)
+
+        def one():
+            reset(a, base)
+            f(*a, **kw)
+        return one
+    ms = cuda_time(timed(fn), sync, reps)
+    plain_ms = cuda_time(timed(plain), sync, 2)
+    bound = io_bytes / H100_BYTES_PER_S * 1e3
+    report[name] = {"name": name, "route": "cuda",
+                    "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": None}
+    print(f"[kernel] {name}: equal to plain on {label} (max_abs_err 0), "
+          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+          f"{bound:.6f} (bytes){note}")
+
+
+def _full(call):
+    """A captured call as (all positional arguments, keywords)."""
+    first, args, kw = call
+    return (first,) + tuple(args), kw
+
+
+def mesh_kernel_checks(calls, report, sync):
+    """K9a-d, each on its first call of the 15,000-node mesh path."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    def no_reset(a, base):
+        pass
+
+    def reset_state(a, base):
+        # K9d advances the pass state and writes the decisions: restore
+        # them (device copies of 4 KB and 64 KB) before each timed call
+        for i in (3, 4, 5):
+            a[i].copy_(base[i])
+
+    def result(a, r):
+        return r
+
+    args, kw = _full(calls["shard_cycle_local"])
+    out = K.shard_cycle_local_plain(*_clone(args), **kw)
+    mesh_kernel_entry(report, "shard_cycle_local", calls["shard_cycle_local"],
+                      no_reset, result, nbytes(args[0], args[1], out), sync,
+                      50, "shard 0's rows of the first serial cycle")
+    args, kw = _full(calls["shard_cycle_select"])
+    n_pad = args[0].shape[0] * args[2]
+    mesh_kernel_entry(report, "shard_cycle_select",
+                      calls["shard_cycle_select"], no_reset, result,
+                      nbytes(args[0]) + n_pad * (8 + 1) + 6 * 8, sync, 50,
+                      "the gathered records of the first serial cycle")
+    args, kw = _full(calls["shard_uniform_sweep"])
+    sh = args[0]
+    mesh_kernel_entry(report, "shard_uniform_sweep",
+                      calls["shard_uniform_sweep"], no_reset,
+                      lambda a, r: (a[0].rec, a[0].tot, a[0].flags[:2]),
+                      nbytes(sh, args[1], args[2], sh.rec, sh.tot,
+                             sh.flags), sync, 50,
+                      "shard 0's first pass of the burst")
+    args, kw = _full(calls["shard_uniform_select"])
+    mesh_kernel_entry(report, "shard_uniform_select",
+                      calls["shard_uniform_select"], reset_state,
+                      lambda a, r: (a[3], a[4], a[5]),
+                      nbytes(args[0], args[3], args[3], kw.get("perm"),
+                             kw.get("oid_seq")) + 4 * K.K_BATCH, sync, 50,
+                      "the first pass's gathered records",
+                      "; both times include the copies that restore the "
+                      "pass state and the decisions before each call")
+
+
+def mesh_path(name, n_nodes, device, sync, report, check_kernels,
+              mesh=None):
+    """The uniform burst and the serial cycles through
+    TorchScheduler(mesh=Mesh([device] * MESH_D)), launches counted, held
+    against the single-device K3/K2 run of the same world (which
+    main_path holds against the plain path): decisions, serial results,
+    lastNodeIndex, the packed block, the lni tensor, the folded rows
+    gathered back and the resident matrix after the serial cycles. `mesh`
+    replaces the shards of one card, e.g. by the cards of a host."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = mesh or S.Mesh([device] * MESH_D)
+    with capture("schedule_batch_uniform") as one:
+        single = run_path(n_nodes, N_PODS, N_SERIAL, device, sync)
+    caps = [capture(k) for k in MESH_KERNELS] if check_kernels else []
+    obs.reset()
+    with contextlib.ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        with capture("schedule_batch_uniform") as sharded:
+            run = run_path(n_nodes, N_PODS, N_SERIAL, device, sync,
+                           mesh=mesh)
+    counts = K.launches()
+    refusals = obs.family("refusal")
+    if refusals:
+        raise SystemExit(f"{name}: refusals {refusals}")
+    missing = [k for k in MESH_KERNELS + ("local_total", "scatter_rows")
+               if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{name}: kernels not launched on the path: "
+                         f"{missing}")
+    if run["hosts"] != single["hosts"] or run["serial"] != single["serial"]:
+        raise SystemExit(f"{name}: decisions differ from the single-device "
+                         f"path")
+    if sum(h is not None for h in run["hosts"]) != N_PODS:
+        raise SystemExit(f"{name}: not every pod was placed")
+    sched, ref = run["sched"], single["sched"]
+    if (sched.last_node_index, sched.last_index) != (ref.last_node_index,
+                                                     ref.last_index):
+        raise SystemExit(f"{name}: walk counters differ")
+    rows, packed, lni = sharded.last
+    srows, spacked, slni = one.last
+    same_rows(f"{name} packed block", packed, spacked)
+    same_rows(f"{name} lni", lni.reshape(1), slni.reshape(1))
+    same_rows(f"{name} folded rows", cat_rows(rows), srows)
+    same_rows(f"{name} resident matrix", cat_rows(sched._dev_nodes),
+              ref._dev_nodes)
+    ph = run["phases"]
+    print(f"[path] mesh-uniform {name}: {n_nodes} nodes on {mesh.size} "
+          f"shards ({len(mesh.distinct)} distinct devices), {N_PODS} pods "
+          f"placed, "
+          f"{N_PODS / run['t_burst']:.1f} pods/s burst "
+          f"({run['t_burst'] * 1e3:.2f} ms: encode {ph['encode'] * 1e3:.2f} "
+          f"(node mirror {ph['mirror'] * 1e3:.2f}) dispatch "
+          f"{ph['dispatch'] * 1e3:.2f} fetch {ph['fetch'] * 1e3:.2f}); "
+          f"gather_bytes {ph['gather_bytes']} passes {ph['passes']} host "
+          f"reads of the pass counter {ph['syncs']}; {N_SERIAL} serial "
+          f"cycles {run['t_serial'] * 1e3:.1f} ms (gather.cycle "
+          f"{obs.get('gather.cycle')} bytes); launches {counts}; "
+          f"single-device burst {single['t_burst'] * 1e3:.2f} ms; "
+          f"decisions, packed block, lni, folded rows and matrix equal")
+    if check_kernels:
+        mesh_kernel_checks({c.fn_name: c.call for c in caps}, report, sync)
     add_launches(report, counts)
 
 
@@ -1657,6 +2018,31 @@ def preempt_paths(device, sync, report):
     single_path(infos, tree, pdbs, device, sync, report)
 
 
+def cards_phase(report):
+    """`--cards`: the mesh phase over every card of the host, one shard
+    per card (the all-gather's copies are then peer copies between the
+    cards): K9a-d against their plain versions on meshes of all the
+    cards and of the first two, then mesh-uniform at 15,000 and 15,001
+    nodes held against the single-device K3/K2 run on the first card."""
+    import torch
+    from kubernetes_tpu_torch.parallel import sharding as S
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit("--cards needs a host with several cards")
+
+    def sync():
+        for i in range(n):
+            torch.cuda.synchronize(i)
+    mesh = S.make_mesh()
+    device = mesh.devices[0]
+    mesh_variant_checks(device, sync, meshes=[list(mesh.devices),
+                                              list(mesh.devices[:2])])
+    for name, nn in (("even zones", N_NODES),
+                     ("uneven zones (rotate)", N_NODES + 1)):
+        mesh_path(f"{name}, {n} cards", nn, device, sync, report,
+                  nn == N_NODES, mesh=mesh)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1665,30 +2051,48 @@ def main() -> int:
         return 2
     from kubernetes_tpu_torch.ops import _build
     from kubernetes_tpu_torch.ops import kernels as K
+    cards = sys.argv[1:] == ["--cards"]
+    if sys.argv[1:] and not cards:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or "
+              f"--cards)", file=sys.stderr)
+        return 2
     device = torch.device("cuda")
     sync = torch.cuda.synchronize
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+    lines = smi.stdout.strip().splitlines()
+    print("\n".join(lines if cards else lines[:1]) if lines
           else f"nvidia-smi: {smi.stderr.strip()}")
     print("kernels: K1 local_total, K2 schedule_cycle, K3 uniform_burst, "
           "K4 scatter_rows, K5 schedule_batch, K6 schedule_segments, "
-          "K7 preempt_scan, K8 pressure_batch (CUDA C++, sm_90a)")
+          "K7 preempt_scan, K8 pressure_batch, K9a shard_cycle_local, "
+          "K9b shard_cycle_select, K9c shard_uniform_sweep, K9d "
+          "shard_uniform_select (CUDA C++, sm_90a)")
     t = time.perf_counter()
     built = _build.build_all(verbose=True)
     print(f"[build] {sorted(built)} in {time.perf_counter() - t:.1f} s")
-    report = kernel_checks(device, sync)
-    variant_checks(device, sync)
-    scan_variant_checks(device, sync)
-    preempt_variant_checks(device, sync)
-    small_world_check(device, sync)
-    main_path("even zones", N_NODES, device, sync, report)
-    main_path("uneven zones (rotate)", N_NODES + 1, device, sync, report)
-    scan_paths(device, sync, report)
-    preempt_paths(device, sync, report)
-    print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
+    if cards:
+        report = {k: {"launches": 0} for k in K.KERNELS}
+        cards_phase(report)
+        print(json.dumps({"kernels": [report[k] for k in MESH_KERNELS]}))
+    else:
+        report = kernel_checks(device, sync)
+        variant_checks(device, sync)
+        scan_variant_checks(device, sync)
+        preempt_variant_checks(device, sync)
+        small_world_check(device, sync)
+        main_path("even zones", N_NODES, device, sync, report)
+        main_path("uneven zones (rotate)", N_NODES + 1, device, sync,
+                  report)
+        mesh_variant_checks(device, sync)
+        mesh_path("even zones", N_NODES, device, sync, report, True)
+        mesh_path("uneven zones (rotate)", N_NODES + 1, device, sync,
+                  report, False)
+        scan_paths(device, sync, report)
+        preempt_paths(device, sync, report)
+        print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,7 @@ Layout (mirrors `kubernetes_tpu`):
   oracle/  the host predicates/priorities the encoders reach
   ops/     node/pod encoders, kernels and their plain versions
   core/    TorchScheduler, the burst and serial driver
+  parallel/ node-axis sharding over a mesh of devices (K9a-d)
   carry.py loads a JAX scheduler's resident state into a TorchScheduler
   obs.py   plain integer counters
 """

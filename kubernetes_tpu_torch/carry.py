@@ -11,7 +11,9 @@ preemption.
 `state_from_jax` takes them as plain numpy and dicts (the caller reads them
 off the JAX scheduler with `np.asarray` and `profile_dicts`) and returns
 tensors a TorchScheduler adopts with `load_state`, so a window begun on
-JAX can be finished on the port.
+JAX can be finished on the port. A scheduler in mesh mode re-shards the
+carried matrix over its devices as it adopts it (a JAX scheduler's
+sharded matrix reads back whole through `np.asarray`).
 """
 from __future__ import annotations
 

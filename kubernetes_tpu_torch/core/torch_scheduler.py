@@ -20,6 +20,12 @@ carries:
   in one K8 `pressure_batch` launch per 128-pod chunk and ONE fetch for
   the wave, with the serial loop's outcomes.
 
+`mesh=` (a `parallel.sharding.Mesh`, or "auto") splits the resident node
+matrix over several devices: schedule() runs the sharded cycle (K9a/K9b)
+and the uniform burst the sharded K-batch passes (K9c/K9d). The generic
+scan, the fused window and device preemption are not sharded yet and
+raise NotImplementedError in mesh mode (ROADMAP B9).
+
 Folds stay on the device. The node matrix and the victim table's planes
 are uploaded whole once and then kept current by the dirty-row scatter
 (K4 `scatter_rows`). Every entry point runs on `cuda` unless
@@ -91,8 +97,20 @@ class TorchScheduler:
                  collect_host_priority: bool = True,
                  nominated=None,
                  node_tree=None,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None,
+                 mesh=None):
+        # multi-device mode: the node axis split over a Mesh of torch
+        # devices (parallel/sharding.py); "auto" builds one over every
+        # visible card when there are several, as TPUScheduler's
+        # mesh="auto" does over its devices
+        if mesh == "auto":
+            mesh = None
+            if torch.cuda.device_count() > 1:
+                from kubernetes_tpu_torch.parallel import sharding as S
+                mesh = S.make_mesh()
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices[0]
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
         self.hard_pod_affinity_weight = hard_pod_affinity_weight
         self.services_fn = services_fn
@@ -121,8 +139,8 @@ class TorchScheduler:
         self.last_node_index = 0
         self.encoder = NodeStateEncoder()
         # resident node matrix: full upload on rebuild, dirty-row scatter
-        # otherwise
-        self._dev_nodes: Optional[dict] = None
+        # otherwise; in mesh mode one dict per shard
+        self._dev_nodes = None
         self._dev_key = None
         self._dev_epoch = 0
         # inert per-pod fields are shape [1]; the kernels skip or
@@ -204,16 +222,21 @@ class TorchScheduler:
         return self._wtab_dev
 
     # -- device input assembly -------------------------------------------------
-    def _node_arrays(self, b: NodeBatch) -> dict:
+    def _node_arrays(self, b: NodeBatch):
         """The resident node matrix; only rows the encoder marked
-        generation-dirty are re-uploaded (one K4 launch for all fields)."""
+        generation-dirty are re-uploaded (one K4 launch for all fields, on
+        each shard that owns one in mesh mode)."""
         key = (b.n_pad, len(b.scalar_names), id(b))
         if self._dev_nodes is None or self._dev_key != key \
                 or b.dirty_rows is None:
-            self._dev_nodes = {
-                k: torch.as_tensor(np.asarray(getattr(b, k))).to(self.device,
-                                                            copy=True)
-                for k in self._NODE_FIELDS}
+            host = {k: np.asarray(getattr(b, k)) for k in self._NODE_FIELDS}
+            if self.mesh is not None:
+                from kubernetes_tpu_torch.parallel import sharding as S
+                self._dev_nodes = S.shard_node_arrays(self.mesh, host)
+            else:
+                self._dev_nodes = {
+                    k: torch.as_tensor(v).to(self.device, copy=True)
+                    for k, v in host.items()}
             obs.inc("dispatch.upload")
             self._dev_epoch += 1
             self._dev_key = key
@@ -223,15 +246,31 @@ class TorchScheduler:
             # dedupe, then pad the row list to a power-of-two bucket by
             # repeating row 0 (duplicate writes carry identical values)
             rows = np.asarray(sorted(set(b.dirty_rows)), dtype=np.int32)
-            bucket = _pad_pow2(len(rows), 16)
-            rows = np.concatenate(
-                [rows, np.full(bucket - len(rows), rows[0], dtype=np.int32)])
-            upd = {k: getattr(b, k)[rows] for k in self._NODE_FIELDS}
-            K.scatter_rows(self._dev_nodes, rows, upd)
+            if self.mesh is None:
+                self._scatter(self._dev_nodes, rows, 0, b)
+            else:
+                per = self.mesh.rows(b.n_pad)
+                for s, shard in enumerate(self._dev_nodes):
+                    mine = rows[(rows >= s * per) & (rows < (s + 1) * per)]
+                    if len(mine):
+                        with K._on(self.mesh.devices[s]):
+                            self._scatter(shard, mine, s * per, b)
             obs.inc("dispatch.scatter")
             self._dev_epoch += 1
             b.dirty_rows = []
         return self._dev_nodes
+
+    def _scatter(self, dev: dict, rows: np.ndarray, offset: int,
+                 b: NodeBatch) -> None:
+        """One K4 launch writing matrix rows `rows` into `dev`, whose first
+        row is matrix row `offset`: the row list pads to a power-of-two
+        bucket by repeating its first row (duplicate writes carry
+        identical values)."""
+        bucket = _pad_pow2(len(rows), 16)
+        rows = np.concatenate(
+            [rows, np.full(bucket - len(rows), rows[0], dtype=np.int32)])
+        upd = {k: getattr(b, k)[rows] for k in self._NODE_FIELDS}
+        K.scatter_rows(dev, rows - offset, upd)
 
     def _pod_arrays(self, f: PodFeatures, upd_fields: bool = False,
                     pod: Optional[Pod] = None) -> dict:
@@ -365,7 +404,7 @@ class TorchScheduler:
         z_pad = _pad_pow2(len(b.zone_names), 4)
         out = K.schedule_cycle(nodes, pod_in, self.last_index,
                                self.last_node_index, num_to_find, n, z_pad,
-                               weights=weights, wtab=wtab)
+                               weights=weights, wtab=wtab, **self._mesh_kw())
         obs.inc("dispatch.cycle")
         keys = ["selected", "found", "evaluated", "next_last_index",
                 "next_last_node_index", "kept", "total", "fail_first",
@@ -667,6 +706,20 @@ class TorchScheduler:
         obs.inc("refusal." + reason)
         return None
 
+    def _mesh_kw(self) -> dict:
+        """The `mesh=` argument of the kernel entry points, in mesh mode
+        only (the single-device calls keep the single-device signature)."""
+        return {} if self.mesh is None else {"mesh": self.mesh}
+
+    def _single_device(self, what: str) -> None:
+        """Mesh mode runs only the sharded cycle and the uniform burst:
+        every other device path raises here instead of running its
+        single-device kernel on one shard."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} is not sharded over a mesh yet (ROADMAP B9); "
+                f"mesh mode runs schedule() and the uniform burst")
+
     def schedule_burst(self, pods: list[Pod], node_infos: dict[str, NodeInfo],
                        all_node_names: list[str],
                        bucket: Optional[int] = None
@@ -763,6 +816,7 @@ class TorchScheduler:
             else:
                 rotation = rot
         z_pad = _pad_pow2(len(b.zone_names), 4)
+        self._single_device("the generic burst scan (K5)")
         phases["encode"] = time.perf_counter() - t0
         self.last_burst_phases = phases
         return self._scan_waves(pods, b, specs, rows, pids, spread0,
@@ -887,6 +941,10 @@ class TorchScheduler:
             else torch.as_tensor(rotation[0]).to(dev)
         sel: list[int] = []
         inflight: list[tuple] = []
+        # mesh mode: the all-gather's bytes and the passes, from the
+        # counters the sharded program books
+        g0 = {k: obs.get(k + ".burst_uniform")
+              for k in ("gather", "passes", "syncs")}
 
         def dispatch(ci: int) -> None:
             nonlocal lni_dev
@@ -902,16 +960,21 @@ class TorchScheduler:
             rows, packed, lni_out = K.schedule_batch_uniform(
                 self._dev_nodes, dict(cls), chunk, lni_dev, n,
                 self.check_resources, weights=weights, rotation=rot,
-                extra_ok=extra_dev, ban=ban, cap=cap, wtab=wtab, pid=pid)
+                extra_ok=extra_dev, ban=ban, cap=cap, wtab=wtab, pid=pid,
+                **self._mesh_kw())
             lni_dev = lni_out
-            self._dev_nodes = {**self._dev_nodes, **rows}
+            if self.mesh is None:
+                self._dev_nodes = {**self._dev_nodes, **rows}
+            else:
+                self._dev_nodes = [{**d, **r}
+                                   for d, r in zip(self._dev_nodes, rows)]
             obs.inc("dispatch.burst_uniform")
             host = self._fetch_buffer(cap + 1, ci % depth)
             host.copy_(packed, non_blocking=True)
             event = None
             if dev.type == "cuda":
                 event = torch.cuda.Event()
-                event.record()
+                event.record(torch.cuda.current_stream(dev))
             inflight.append((chunk, host, event))
             phases["dispatch"] += time.perf_counter() - t
 
@@ -937,6 +1000,12 @@ class TorchScheduler:
                 # once no node fits): drop them unfetched
                 inflight.clear()
                 break
+        if self.mesh is not None:
+            phases["gather_bytes"] = obs.get("gather.burst_uniform") \
+                - g0["gather"]
+            phases["passes"] = obs.get("passes.burst_uniform") \
+                - g0["passes"]
+            phases["syncs"] = obs.get("syncs.burst_uniform") - g0["syncs"]
         return sel
 
     # -- fused segmented burst: one launch per drain window --------------------
@@ -963,6 +1032,7 @@ class TorchScheduler:
         n_total = sum(len(p) for p, _g in segments)
         if not all_node_names or n_total == 0:
             return None
+        self._single_device("schedule_burst_fused (K6)")
         if self.nominated is not None and self.nominated.has_any():
             # the segment kernel has no nominated-ghost input
             return self._refuse("fused-nominated-ghosts")
@@ -1137,6 +1207,7 @@ class TorchScheduler:
             PreemptionResult, no_possible_victims)
         if not all_node_names:
             return None
+        self._single_device("preempt (K7)")
         t0 = time.perf_counter()
         if self.nominated is not None and self.nominated.has_any():
             return self._refuse("preempt-nominated-ghosts")
@@ -1290,6 +1361,7 @@ class TorchScheduler:
         outside any timed window (the steady state, where the table is
         kept incrementally across cycles). Consumes no rotation state and
         folds nothing."""
+        self._single_device("prewarm_preempt (the victim table)")
         b = self.encoder.encode(node_infos, all_node_names)
         self._node_arrays(b)
         self._upload_victims(
@@ -1326,6 +1398,7 @@ class TorchScheduler:
         from kubernetes_tpu_torch.api.types import get_resource_request
         if not pods or not all_node_names:
             return None
+        self._single_device("preempt_pressure_burst (K8)")
         t0 = time.perf_counter()
         if self.nominated is not None and self.nominated.has_any():
             return self._refuse("nominated-ghosts")
@@ -1453,9 +1526,12 @@ class TorchScheduler:
         boundary. The port folds bursts into fresh tensors, so the pinned
         dict stays the pre-gang matrix until an upload or scatter (the
         epoch) writes into it."""
+        dev = self._dev_nodes
+        if dev is not None:
+            dev = dict(dev) if isinstance(dev, dict) \
+                else [dict(d) for d in dev]
         return {"li": self.last_index, "lni": self.last_node_index,
-                "dev": None if self._dev_nodes is None
-                else dict(self._dev_nodes),
+                "dev": dev,
                 "key": self._dev_key, "epoch": self._dev_epoch}
 
     def gang_rewind(self, chk: dict) -> None:
@@ -1529,6 +1605,10 @@ class TorchScheduler:
             if tuple(nodes[k].shape) != want:
                 raise ValueError(f"carried {k} has shape "
                                  f"{tuple(nodes[k].shape)}, mirror {want}")
+        if self.mesh is not None:
+            # re-shard the carried rows, folds included
+            from kubernetes_tpu_torch.parallel import sharding as S
+            nodes = S.shard_node_arrays(self.mesh, nodes)
         self._dev_nodes = nodes
         self._dev_key = (b.n_pad, len(b.scalar_names), id(b))
         self._dev_epoch += 1
@@ -1554,13 +1634,18 @@ class TorchScheduler:
     def debug_state(self) -> dict:
         """Mirror shape and epoch, walk counters, device, profiles, the
         victim table (slots, rows, generations, dirty rows, residency, and
-        the encoder's rebuild and row re-sort counts), the launch count of
-        every kernel (K1-K8) and the refusals."""
+        the encoder's rebuild and row re-sort counts), the mesh and its
+        device count, the launch count of every kernel (K1-K9) and the
+        refusals."""
         dev = self._dev_nodes
         mirror = None
-        if dev is not None:
+        if isinstance(dev, dict):
             mirror = {"fields": len(dev),
                       "n_pad": int(dev["valid"].shape[-1])}
+        elif dev is not None:
+            mirror = {"fields": len(dev[0]),
+                      "n_pad": sum(int(d["valid"].shape[-1]) for d in dev),
+                      "shards": len(dev)}
         vt = self.encoder._vt
         vic = None
         if vt is not None:
@@ -1578,6 +1663,8 @@ class TorchScheduler:
             "last_node_index": self.last_node_index,
             "victim_table": vic,
             "device": str(self.device),
+            "mesh": self.mesh is not None,
+            "devices": 1 if self.mesh is None else self.mesh.size,
             "profiles": None if self.profiles is None
             else [p.name for p in self.profiles],
             "weight_table": self._ptab is not None,

@@ -13,7 +13,7 @@ plain C function `<name>_launch(...)` that launches on the stream it is
 given and returns `cudaGetLastError()`; the library is loaded with ctypes.
 
 `build_all()` starts one nvcc per source at once and waits for all of
-them: the whole build costs about one compile, not eight.
+them: the whole build costs about one compile, not twelve.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NAMES = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
          "schedule_batch", "schedule_segments", "preempt_scan",
-         "pressure_batch")
+         "pressure_batch", "shard_cycle_local", "shard_cycle_select",
+         "shard_uniform_sweep", "shard_uniform_select")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,10 @@ SIGNATURES = {
     "schedule_segments": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "preempt_scan": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "pressure_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_cycle_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_uniform_sweep": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

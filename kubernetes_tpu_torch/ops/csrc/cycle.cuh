@@ -11,7 +11,9 @@
 // rank-aware gang locality); and the round-robin k-th tie select. The
 // pressure scan (K8) adds its carried nominated-ghost load to the rows the
 // filter reads (`_cycle_core`'s `ghost`, kernels.py:402-413) and asks
-// whether any in-range node is a preemption candidate.
+// whether any in-range node is a preemption candidate. The sharded cycle
+// splits it in two: K9a runs `cycle_filter_row` and `cycle_row_local` on
+// each shard's rows, K9b `cycle_select` on the gathered records.
 //
 // Layout: ONE block of NTHREADS threads, each owning a contiguous slice of
 // the node axis, so a reduction or scan is a block barrier; scratch and the
@@ -45,6 +47,9 @@ struct CyclePod {
   const i64 *na, *tt, *sc, *ic, *img, *pa;
   const unsigned char* tracked;
   int ipa_on, ic_inert, tr_inert;
+  // 1 when `base` already holds the row-local families (K1, image
+  // locality, prefer-avoid): K9b's gathered records; 0 everywhere else
+  int local_in_base;
 };
 
 struct CycleWalk {
@@ -90,16 +95,86 @@ __device__ __forceinline__ double ratio10(i64 num, i64 den) {
   return __dmul_rn(10.0, __ddiv_rn((double)num, (double)imax64(den, 1)));
 }
 
-// `w` is the pod's weight row (static weights or its wtab row), `gate` the
-// families the static weights turn on. `base` holds the K1 totals when the
-// caller computed them (K2); NULL computes them inline (K5/K6, where the
-// rows change between pods). `gz` (NULL = off) is the current gang's
+// The filter of node j (`_feasibility`, kernels.py:296): its general
+// predicate bits, its first failing predicate in PREDICATE_ORDERING, and
+// whether it is feasible. `ghost` (NULL = off) adds K8's carried
+// nominated load to the rows the filter reads.
+__device__ __forceinline__ bool cycle_filter_row(
+    const CycleNodes& nd, const CyclePod& pd, bool skip, int j,
+    const CycleGhost* ghost, i64* bits_out, int* ff_out) {
+  const i64 p_req_cpu = pd.scal[0], p_req_mem = pd.scal[1],
+            p_req_eph = pd.scal[2];
+  const bool check_res = pd.scal[6] != 0;
+  const bool has_req = pd.scal[5] != 0 && check_res;
+  const bool unknown = pd.scal[7] != 0;
+  i64 bits = 0;
+  i64 rcpu = nd.req_cpu[j], rmem = nd.req_mem[j], reph = nd.req_eph[j];
+  i64 pcnt = nd.pod_count[j];
+  if (ghost) {
+    rcpu += ghost->cpu[j];
+    rmem += ghost->mem[j];
+    reph += ghost->eph[j];
+    pcnt += ghost->cnt[j];
+  }
+  if (check_res && pcnt + 1 > nd.allowed[j]) bits |= 1LL << 0;
+  if (has_req && nd.alloc_cpu[j] < p_req_cpu + rcpu) bits |= 1LL << 1;
+  if (has_req && nd.alloc_mem[j] < p_req_mem + rmem) bits |= 1LL << 2;
+  if (has_req && nd.alloc_eph[j] < p_req_eph + reph) bits |= 1LL << 3;
+  i64 sbits = 0;
+  for (int s = 0; s < nd.S; ++s) {
+    i64 want = pd.req_scalar_p[s];
+    if (has_req && want > 0
+        && nd.alloc_scalar[(size_t)j * nd.S + s]
+               < want + nd.req_scalar_n[(size_t)j * nd.S + s]
+        && 4 + s < 64)
+      sbits += 1LL << (4 + s);
+  }
+  bits |= sbits;
+  if (check_res && unknown) bits |= 1LL << 59;
+  if (pd.host_ok && !pd.host_ok[j]) bits |= 1LL << 60;
+  if (pd.ports_ok && !pd.ports_ok[j]) bits |= 1LL << 61;
+  if (pd.sel_ok && !pd.sel_ok[j]) bits |= 1LL << 62;
+  // first failing predicate in PREDICATE_ORDERING (later overwrites win)
+  int ff = 0;
+  if (pd.ipa_code && pd.ipa_code[j] > 0) ff = 8;
+  if (pd.volzone_ok && !pd.volzone_ok[j]) ff = 7;
+  if (pd.volbind_ok && !pd.volbind_ok[j]) ff = 6;
+  if (pd.maxvol_ok && !pd.maxvol_ok[j]) ff = 5;
+  if (pd.taints_ok && !pd.taints_ok[j]) ff = 4;
+  if (pd.disk_ok && !pd.disk_ok[j]) ff = 3;
+  if (bits != 0) ff = 2;
+  if (pd.unsched_ok && !pd.unsched_ok[j]) ff = 1;
+  *bits_out = bits;
+  *ff_out = ff;
+  return nd.valid[j] && ff == 0 && !skip;
+}
+
+// The priorities of node j that read no other node besides K1's: image
+// locality and prefer-avoid (its constant when the field is inert).
+__device__ __forceinline__ i64 cycle_row_local(const CyclePod& pd, int gate,
+                                               const i64* w, int j) {
+  i64 t = 0;
+  if (ON(gate, W_IMAGE) && pd.img) {
+    i64 s = imin64(imax64(pd.img[j], IMAGE_MIN), IMAGE_MAX);
+    t += w[W_IMAGE] * floordiv(MAX_PRIORITY * (s - IMAGE_MIN),
+                               IMAGE_MAX - IMAGE_MIN);
+  }
+  if (ON(gate, W_AVOID)) t += w[W_AVOID] * (pd.pa ? pd.pa[j] : MAX_PRIORITY);
+  return t;
+}
+
+// The walk, the scores and the select of one cycle over nodes whose
+// in-range feasible bit (FL_FEAS) is already in FL = cs.scratch + n_pad,
+// behind a barrier. `w` is the pod's weight row (static weights or its
+// wtab row), `gate` the families the static weights turn on. `base` holds
+// the K1 totals when the caller computed them (K2), or the whole row-local
+// part when `pd.local_in_base` (K9b); NULL computes K1 inline (K5/K6, where
+// the rows change between pods). `gz` (NULL = off) is the current gang's
 // per-zone member count and `gmember` whether this pod is a member.
-// `ghost` (NULL = off: K2, K5, K6) is K8's carried nominated load.
-__device__ __forceinline__ CycleResult cycle_run(
+__device__ __forceinline__ CycleResult cycle_select(
     const CycleNodes& nd, const CyclePod& pd, bool skip, const CycleWalk& wk,
     int gate, const i64* w, const i64* base, const i64* gz, bool gmember,
-    const CycleScratch& cs, const CycleGhost* ghost = nullptr) {
+    const CycleScratch& cs) {
   __shared__ i64 sh64[NWARPS];
   __shared__ int sh32[NWARPS];
   const int n = nd.n_pad, tid = threadIdx.x;
@@ -111,69 +186,7 @@ __device__ __forceinline__ CycleResult cycle_run(
   const i64 n_safe = imax64(nr, 1);
   const i64 li = floormod(wk.last_index, n_safe);
   const i64 ntf = wk.num_to_find;
-  const i64 p_req_cpu = pd.scal[0], p_req_mem = pd.scal[1],
-            p_req_eph = pd.scal[2], p_nz_cpu = pd.scal[3],
-            p_nz_mem = pd.scal[4];
-  const bool check_res = pd.scal[6] != 0;
-  const bool has_req = pd.scal[5] != 0 && check_res;
-  const bool unknown = pd.scal[7] != 0;
-
-  // ---- feasibility -------------------------------------------------------
-  int l_res = 0;
-  for (int j = lo; j < hi; ++j) {
-    i64 bits = 0;
-    i64 rcpu = nd.req_cpu[j], rmem = nd.req_mem[j], reph = nd.req_eph[j];
-    i64 pcnt = nd.pod_count[j];
-    if (ghost) {
-      rcpu += ghost->cpu[j];
-      rmem += ghost->mem[j];
-      reph += ghost->eph[j];
-      pcnt += ghost->cnt[j];
-    }
-    if (check_res && pcnt + 1 > nd.allowed[j]) bits |= 1LL << 0;
-    if (has_req && nd.alloc_cpu[j] < p_req_cpu + rcpu) bits |= 1LL << 1;
-    if (has_req && nd.alloc_mem[j] < p_req_mem + rmem) bits |= 1LL << 2;
-    if (has_req && nd.alloc_eph[j] < p_req_eph + reph) bits |= 1LL << 3;
-    i64 sbits = 0;
-    for (int s = 0; s < nd.S; ++s) {
-      i64 want = pd.req_scalar_p[s];
-      if (has_req && want > 0
-          && nd.alloc_scalar[(size_t)j * nd.S + s]
-                 < want + nd.req_scalar_n[(size_t)j * nd.S + s]
-          && 4 + s < 64)
-        sbits += 1LL << (4 + s);
-    }
-    bits |= sbits;
-    if (check_res && unknown) bits |= 1LL << 59;
-    if (pd.host_ok && !pd.host_ok[j]) bits |= 1LL << 60;
-    if (pd.ports_ok && !pd.ports_ok[j]) bits |= 1LL << 61;
-    if (pd.sel_ok && !pd.sel_ok[j]) bits |= 1LL << 62;
-    // first failing predicate in PREDICATE_ORDERING (later overwrites win)
-    int ff = 0;
-    if (pd.ipa_code && pd.ipa_code[j] > 0) ff = 8;
-    if (pd.volzone_ok && !pd.volzone_ok[j]) ff = 7;
-    if (pd.volbind_ok && !pd.volbind_ok[j]) ff = 6;
-    if (pd.maxvol_ok && !pd.maxvol_ok[j]) ff = 5;
-    if (pd.taints_ok && !pd.taints_ok[j]) ff = 4;
-    if (pd.disk_ok && !pd.disk_ok[j]) ff = 3;
-    if (bits != 0) ff = 2;
-    if (pd.unsched_ok && !pd.unsched_ok[j]) ff = 1;
-    bool feasible = nd.valid[j] && ff == 0 && !skip;
-    if (ghost && (i64)j < nr) {
-      // unresolvable first failures: unschedulable, taints, volume zone,
-      // volume binding, and GENERAL with the host-name or selector bit
-      bool unres = ff == 1 || ff == 4 || ff == 7 || ff == 6
-                   || (ff == 2 && (((bits >> 60) & 1) || ((bits >> 62) & 1)));
-      if (!unres) l_res = 1;
-    }
-    if (cs.general_bits) cs.general_bits[j] = bits;
-    if (cs.fail_first) cs.fail_first[j] = (signed char)ff;
-    if (cs.feasible) cs.feasible[j] = feasible;
-    FL[j] = (feasible && (i64)j < nr) ? FL_FEAS : 0;
-  }
-  const bool any_res = ghost ? block_sum64(l_res, sh64) > 0 : false;
-  __syncthreads();
-
+  const i64 p_nz_cpu = pd.scal[3], p_nz_mem = pd.scal[4];
   // ---- rotation walk -----------------------------------------------------
   i64 found, evaluated;
   if (wk.mode == 2) {
@@ -270,7 +283,6 @@ __device__ __forceinline__ CycleResult cycle_run(
   i64 cst = 0;
   if (ON(gate, W_TAINT) && !pd.tt) cst += w[W_TAINT] * MAX_PRIORITY;
   if (ON(gate, W_SPREAD) && !pd.sc) cst += w[W_SPREAD] * MAX_PRIORITY;
-  if (ON(gate, W_AVOID) && !pd.pa) cst += w[W_AVOID] * MAX_PRIORITY;
 
   i64 l_max = LLONG_MIN;
   for (int j = lo; j < hi; ++j) {
@@ -309,12 +321,7 @@ __device__ __forceinline__ CycleResult cycle_run(
       t += w[W_INTERPOD] * ((diff > 0 && tr)
                             ? (i64)ratio10(icv - ic_min, diff) : 0);
     }
-    if (ON(gate, W_IMAGE) && pd.img) {
-      i64 s = imin64(imax64(pd.img[j], IMAGE_MIN), IMAGE_MAX);
-      t += w[W_IMAGE] * floordiv(MAX_PRIORITY * (s - IMAGE_MIN),
-                                 IMAGE_MAX - IMAGE_MIN);
-    }
-    if (ON(gate, W_AVOID) && pd.pa) t += w[W_AVOID] * pd.pa[j];
+    if (!pd.local_in_base) t += cycle_row_local(pd, gate, w, j);
     t += cst;
     cs.total[j] = t;
     if (cs.kept[j]) l_max = imax64(l_max, t);
@@ -393,6 +400,45 @@ __device__ __forceinline__ CycleResult cycle_run(
   r.max_score = found > 0 ? max_score : 0;
   r.next_li = floormod(wk.last_index + evaluated, n_safe);
   r.next_lni = wk.lni + (found > 1 ? 1 : 0);
+  r.any_resolvable = false;
+  return r;
+}
+
+// One whole cycle: the filter of every node, then `cycle_select`. `ghost`
+// (NULL = off: K2, K5, K6) is K8's carried nominated load; with it the
+// result also says whether some in-range node is a preemption candidate.
+__device__ __forceinline__ CycleResult cycle_run(
+    const CycleNodes& nd, const CyclePod& pd, bool skip, const CycleWalk& wk,
+    int gate, const i64* w, const i64* base, const i64* gz, bool gmember,
+    const CycleScratch& cs, const CycleGhost* ghost = nullptr) {
+  __shared__ i64 sh64[NWARPS];
+  const int n = nd.n_pad;
+  int lo, hi;
+  my_range(n, &lo, &hi);
+  int* FL = cs.scratch + n;
+  const i64 nr = nd.n_real;
+  int l_res = 0;
+  for (int j = lo; j < hi; ++j) {
+    i64 bits;
+    int ff;
+    const bool feasible = cycle_filter_row(nd, pd, skip, j, ghost, &bits,
+                                           &ff);
+    if (ghost && (i64)j < nr) {
+      // unresolvable first failures: unschedulable, taints, volume zone,
+      // volume binding, and GENERAL with the host-name or selector bit
+      bool unres = ff == 1 || ff == 4 || ff == 7 || ff == 6
+                   || (ff == 2 && (((bits >> 60) & 1) || ((bits >> 62) & 1)));
+      if (!unres) l_res = 1;
+    }
+    if (cs.general_bits) cs.general_bits[j] = bits;
+    if (cs.fail_first) cs.fail_first[j] = (signed char)ff;
+    if (cs.feasible) cs.feasible[j] = feasible;
+    FL[j] = (feasible && (i64)j < nr) ? FL_FEAS : 0;
+  }
+  const bool any_res = ghost ? block_sum64(l_res, sh64) > 0 : false;
+  __syncthreads();
+  CycleResult r = cycle_select(nd, pd, skip, wk, gate, w, base, gz, gmember,
+                               cs);
   r.any_resolvable = any_res;
   return r;
 }
@@ -492,6 +538,7 @@ __device__ __forceinline__ CyclePod scan_pod(const ScanArgs& a, int r) {
   pd.tr_inert = (int)a.v[I_TR_INERT];
   pd.ic = ROW(i64, P_IC, pd.ic_inert ? 1 : n);
   pd.tracked = ROW(unsigned char, P_TRACKED, pd.tr_inert ? 1 : n);
+  pd.local_in_base = 0;
 #undef ROW
   return pd;
 }

@@ -33,7 +33,7 @@
 // column n_pad+1, clamped to the scratch column; the probe only decides
 // the mode when T >= 2, so here it runs only then and never reads past the
 // tie list.
-#include "common.cuh"
+#include "uniform.cuh"
 
 #include <climits>
 
@@ -60,43 +60,6 @@ struct UArgs {
   unsigned char* flags;     // [3, n_pad]: ok, banned, feasible
   int* ties;                // [max(L,1), n_pad] tie lists
   int* owner;               // [n_pad+1] scatter-min scratch
-};
-
-// what the per-node fit and score read, held by value (a reference to the
-// kernel's parameter struct would force a local-memory copy of it)
-struct Ctx {
-  int n, R, check_res, has_req, gate;
-  const unsigned char* ok;
-  const i64 *st, *allowed, *alloc_cpu, *alloc_mem, *xalloc, *ws;
-  i64 req_cpu, req_mem, nz_cpu, nz_mem;
-  const i64 *delta, *xreq;
-
-  __device__ i64 row(int r, int j) const { return st[(size_t)r * n + j]; }
-  // PodFitsResources of the incoming pod on node j (plus=1: after one
-  // more fold of the class delta), including the static mask
-  __device__ bool fit(int j, int plus) const {
-    if (!ok[j]) return false;
-    if (check_res) {
-      if (!(row(4, j) + plus * delta[4] + 1 <= allowed[j])) return false;
-      if (has_req) {
-        if (!(alloc_cpu[j] >= req_cpu + (row(0, j) + plus * delta[0])))
-          return false;
-        if (!(alloc_mem[j] >= req_mem + (row(1, j) + plus * delta[1])))
-          return false;
-        for (int r = 5; r < R; ++r)
-          if (!(xalloc[(size_t)(r - 5) * n + j]
-                >= xreq[r - 5] + (row(r, j) + plus * delta[r])))
-            return false;
-      }
-    }
-    return true;
-  }
-  __device__ int score(int j, int plus) const {
-    return (int)local_total_one(gate, ws,
-                                nz_cpu + (row(2, j) + plus * delta[2]),
-                                nz_mem + (row(3, j) + plus * delta[3]),
-                                alloc_cpu[j], alloc_mem[j]);
-  }
 };
 
 __global__ void __launch_bounds__(NTHREADS) uniform_burst_kernel(UArgs a) {

@@ -30,6 +30,10 @@ and nowhere else.
 |                | :1627                                              |
 | pressure_batch | `_resolvable_candidates` :1675 + `_pressure_core`  |
 |                | :1690 -> `pressure_batch` :1768                    |
+| shard_cycle_local, shard_cycle_select (K9a, K9b)                    |
+|                | `parallel/sharding.py` `sharded_cycle_fn` :115     |
+| shard_uniform_sweep, shard_uniform_select (K9c, K9d)                |
+|                | `parallel/sharding.py` `sharded_uniform_fn` :151   |
 
 Numeric contract: int64 resource math and scores, float64 exactly where
 JAX uses it, floor division as JAX `//` (torch `//` on integer tensors
@@ -66,7 +70,8 @@ I32_MIN = -2 ** 31
 #: the kernels' names, in port order (obs books `launch.<name>`)
 KERNELS = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
            "schedule_batch", "schedule_segments", "preempt_scan",
-           "pressure_batch")
+           "pressure_batch", "shard_cycle_local", "shard_cycle_select",
+           "shard_uniform_sweep", "shard_uniform_select")
 
 
 def launches() -> dict[str, int]:
@@ -162,6 +167,23 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _launch_arrays(ints: dict, int_slots, ptrs: dict, ptr_slots, name):
+    unknown = (set(ints) - set(int_slots)) | (set(ptrs) - set(ptr_slots))
+    if unknown:
+        raise ValueError(f"{name}: unknown launch slots {sorted(unknown)}")
+    iargs = (ctypes.c_longlong * len(int_slots))(
+        *[int(ints.get(k, 0)) for k in int_slots])
+    parr = (ctypes.c_void_p * len(ptr_slots))(
+        *[_ptr(ptrs.get(k)) for k in ptr_slots])
+    return iargs, parr
+
+
+def _launch(name: str, iargs, parr) -> None:
+    lib = _build.load(name)
+    obs.inc("launch." + name)
+    _check(getattr(lib, name + "_launch")(iargs, parr, _stream()), name)
+
+
 def _require_cuda(name: str, *tensors) -> None:
     for t in tensors:
         if t is not None and not t.is_cuda:
@@ -174,11 +196,12 @@ def _require_cuda(name: str, *tensors) -> None:
 # K1 local_total — LeastRequested, MostRequested, RTCR, BalancedAllocation
 # ---------------------------------------------------------------------------
 def local_total_plain(weights, req_cpu, req_mem, alloc_cpu, alloc_mem,
-                      wrow=None):
+                      wrow=None, add_cpu: int = 0, add_mem: int = 0):
     """The four row-local resource priorities, exact integer/float formulas
-    (`_local_total`, kernels.py:110). Elementwise on [N] tensors or scalars."""
-    req_cpu = torch.as_tensor(req_cpu)
-    req_mem = torch.as_tensor(req_mem)
+    (`_local_total`, kernels.py:110), of `req + add` against `alloc`.
+    Elementwise on [N] tensors or scalars."""
+    req_cpu = torch.as_tensor(req_cpu) + add_cpu
+    req_mem = torch.as_tensor(req_mem) + add_mem
     alloc_cpu = torch.as_tensor(alloc_cpu)
     alloc_mem = torch.as_tensor(alloc_mem)
     total = torch.zeros_like(alloc_cpu)
@@ -239,37 +262,63 @@ def _local_total_launch(weights, req_cpu, req_mem, alloc_cpu, alloc_mem,
     return out
 
 
-def local_total(weights, req_cpu, req_mem, alloc_cpu, alloc_mem, wrow=None):
-    """K1. CPU tensors -> `local_total_plain`; CUDA [N] tensors -> the
-    kernel (`csrc/local_total.cu`)."""
+def local_total(weights, req_cpu, req_mem, alloc_cpu, alloc_mem, wrow=None,
+                add_cpu: int = 0, add_mem: int = 0):
+    """K1 of `req + add` against `alloc`. CPU tensors ->
+    `local_total_plain`; CUDA [N] tensors -> the kernel
+    (`csrc/local_total.cu`), which adds the two scalars itself."""
     if not (isinstance(alloc_cpu, torch.Tensor) and alloc_cpu.is_cuda):
         return local_total_plain(weights, req_cpu, req_mem, alloc_cpu,
-                                 alloc_mem, wrow=wrow)
+                                 alloc_mem, wrow=wrow, add_cpu=add_cpu,
+                                 add_mem=add_mem)
     return _local_total_launch(weights, req_cpu, req_mem, alloc_cpu,
-                               alloc_mem, wrow)
+                               alloc_mem, wrow, add_cpu=add_cpu,
+                               add_mem=add_mem)
 
 
 # ---------------------------------------------------------------------------
 # K2 schedule_cycle — feasibility, rotation walk, scores, k-th tie select
 # ---------------------------------------------------------------------------
-def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None,
-                      gang=None):
-    """Enabled priorities, masked-normalized over `kept` (`_fit_scores`,
-    kernels.py:157). Returns total[N] int64. `gang` = (gz[z_pad], member)
-    is the rank-aware gang input: a member scores each node by
-    min(members already placed in its zone, 10) times the gang weight."""
+def _local_scores_plain(nodes, pod, weights, wrow=None):
+    """The row-local part of `_fit_scores` (kernels.py:157): the K1
+    resource families, image locality and prefer-avoid (its constant when
+    inert). No family here reads another node, so a shard computes it over
+    its own rows (K9a)."""
     alloc_cpu, alloc_mem = nodes["alloc_cpu"], nodes["alloc_mem"]
     req_cpu = pod["nz_cpu"] + nodes["nz_cpu"]
     req_mem = pod["nz_mem"] + nodes["nz_mem"]
-
-    const = 0
     total = torch.zeros(nodes["valid"].shape, dtype=I64,
                         device=alloc_cpu.device) + local_total_plain(
         weights, req_cpu, req_mem, alloc_cpu, alloc_mem, wrow=wrow)
 
+    if weights["image_locality"]:
+        s = pod["image_sums"]
+        if not _inert(s):
+            scl = torch.clamp(s, IMAGE_MIN, IMAGE_MAX)
+            total = total + _wsel(weights, wrow, "image_locality") * (
+                MAX_PRIORITY * (scl - IMAGE_MIN) // (IMAGE_MAX - IMAGE_MIN))
+
+    if weights["prefer_avoid"]:
+        pa = pod["prefer_avoid"]
+        if _inert(pa):
+            total = total + _wsel(weights, wrow, "prefer_avoid") \
+                * MAX_PRIORITY
+        else:
+            total = total + _wsel(weights, wrow, "prefer_avoid") * pa
+    return total
+
+
+def _kept_scores_plain(pod, kept, zone_id, weights, z_pad, wrow=None,
+                       gang=None):
+    """The part of `_fit_scores` normalized over the kept set: gang
+    locality, node affinity, taint toleration, selector spread and
+    inter-pod affinity (taint and spread constants when inert). It needs
+    every kept node, so under a mesh it runs after the gather (K9b)."""
+    const = 0
+    total = torch.zeros(kept.shape, dtype=I64, device=kept.device)
+
     if gang is not None and weights.get("gang_locality"):
         gz, gmember = gang
-        zone_id = nodes["zone_id"]
         gw = _wsel(weights, wrow, "gang_locality")
         zh = zone_id[:, None] == torch.arange(
             z_pad, dtype=zone_id.dtype, device=zone_id.device)[None, :]
@@ -303,7 +352,6 @@ def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None,
             const = const + _wsel(weights, wrow, "selector_spread") \
                 * MAX_PRIORITY
         else:
-            zone_id = nodes["zone_id"]
             max_by_node = torch.max(torch.where(kept, sc, 0))
             f = torch.where(
                 max_by_node > 0,
@@ -348,23 +396,20 @@ def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None,
                                         / torch.clamp(diff, min=1).double())
                  ).to(I64),
                 0)
-
-    if weights["image_locality"]:
-        s = pod["image_sums"]
-        if not _inert(s):
-            scl = torch.clamp(s, IMAGE_MIN, IMAGE_MAX)
-            total = total + _wsel(weights, wrow, "image_locality") * (
-                MAX_PRIORITY * (scl - IMAGE_MIN) // (IMAGE_MAX - IMAGE_MIN))
-
-    if weights["prefer_avoid"]:
-        pa = pod["prefer_avoid"]
-        if _inert(pa):
-            const = const + _wsel(weights, wrow, "prefer_avoid") \
-                * MAX_PRIORITY
-        else:
-            total = total + _wsel(weights, wrow, "prefer_avoid") * pa
-
     return total + const
+
+
+def _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=None,
+                      gang=None):
+    """Enabled priorities, masked-normalized over `kept` (`_fit_scores`,
+    kernels.py:157). Returns total[N] int64. `gang` = (gz[z_pad], member)
+    is the rank-aware gang input: a member scores each node by
+    min(members already placed in its zone, 10) times the gang weight.
+    The sum of the row-local and the kept-normalized parts; integer
+    addition is exact in any order."""
+    return _local_scores_plain(nodes, pod, weights, wrow=wrow) \
+        + _kept_scores_plain(pod, kept, nodes["zone_id"], weights, z_pad,
+                             wrow=wrow, gang=gang)
 
 
 def _feasibility_plain(nodes, pod, ghost=None):
@@ -437,55 +482,42 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8))
 
 
-def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
-                      n_real, weights, z_pad, perm=None, inv_perm=None,
-                      pos=None, wtab=None, gang=None, ghost=None):
-    """One fused cycle (`_cycle_core`, kernels.py:359): identity walk, the
-    `perm`/`inv_perm` rotated walk, or the gather-free `pos` mode. `ghost`
-    (the pressure scan's carried nominated load) enters the filter only;
-    the scores read the raw rows."""
-    dev = nodes["valid"].device
-    n_pad = nodes["valid"].shape[0]
-    i = torch.arange(n_pad, dtype=I64, device=dev)
+def _walk_plain(feas, skip, last_index, num_to_find, n_real, perm=None,
+                inv_perm=None, pos=None):
+    """The rotation walk of `_cycle_core` (kernels.py:359) over the
+    in-range feasible mask `feas`: (kept, found, evaluated)."""
+    n_pad = feas.shape[0]
+    i = torch.arange(n_pad, dtype=I64, device=feas.device)
+    nr = int(n_real)
+    li = int(last_index) % max(nr, 1)
+    ntf = int(num_to_find)
+    if pos is not None:
+        F = int(torch.sum(feas.to(I64)))
+        return feas, min(F, ntf), 0 if skip else nr
+    feas_p = feas if perm is None else feas[perm.long()]
+    S = torch.cumsum(feas_p.to(I64), 0)
+    F = int(S[-1])
+    pre = int(S[max(li - 1, 0)]) if li > 0 else 0
+    rank_p = torch.where(i >= li, S - pre, F - pre + S)
+    kept_p = feas_p & (rank_p <= ntf)
+    kept = kept_p if perm is None else kept_p[inv_perm.long()]
+    pstar = int(_first_true(kept_p & (rank_p == ntf)))
+    stop_pos = pstar - li if pstar >= li else nr - li + pstar
+    evaluated = stop_pos + 1 if F >= ntf else nr
+    return kept, min(F, ntf), 0 if skip else evaluated
+
+
+def _select_plain(kept, total, found, evaluated, last_index, last_node_index,
+                  n_real, perm=None, pos=None) -> dict:
+    """The round-robin k-th tie select of `_cycle_core` and its scalar
+    outputs (selected, found, evaluated, max_score, next_last_index,
+    next_last_node_index) as int64 device scalars."""
+    dev = kept.device
+    n_pad = kept.shape[0]
     nr = int(n_real)
     n_safe = max(nr, 1)
     li = int(last_index) % n_safe
-    ntf = int(num_to_find)
     lni = int(last_node_index)
-    in_range = i < nr
-
-    feasible, fail_first, general_bits = _feasibility_plain(nodes, pod,
-                                                            ghost=ghost)
-    feas = feasible & in_range
-    skip = bool(pod["skip"])
-
-    if pos is not None:
-        F = int(torch.sum(feas.to(I64)))
-        kept = feas
-        found = min(F, ntf)
-        evaluated = 0 if skip else nr
-    else:
-        feas_p = feas if perm is None else feas[perm.long()]
-        S = torch.cumsum(feas_p.to(I64), 0)
-        F = int(S[-1])
-        pre = int(S[max(li - 1, 0)]) if li > 0 else 0
-        after = i >= li
-        rank_p = torch.where(after, S - pre, F - pre + S)
-        kept_p = feas_p & (rank_p <= ntf)
-        kept = kept_p if perm is None else kept_p[inv_perm.long()]
-        found = min(F, ntf)
-        reached = F >= ntf
-        pstar = int(_first_true(kept_p & (rank_p == ntf)))
-        stop_pos = pstar - li if pstar >= li else nr - li + pstar
-        evaluated = stop_pos + 1 if reached else nr
-        evaluated = 0 if skip else evaluated
-
-    wrow = None
-    if wtab is not None:
-        wrow = _row_at(wtab, pod["profile_id"])
-    total = _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=wrow,
-                              gang=gang)
-
     tmask = torch.where(kept, total, I64_MIN)
     max_score = int(torch.max(tmask))
     is_tie = kept & (tmask == max_score)
@@ -501,27 +533,48 @@ def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
         tie_p = is_tie if perm is None else is_tie[perm.long()]
         T = torch.cumsum(tie_p.to(I64), 0)
         preT = int(T[max(li - 1, 0)]) if li > 0 else 0
+        after = torch.arange(n_pad, dtype=I64, device=dev) >= li
         trank = torch.where(after, T - preT, T[-1] - preT + T)
         sel = int(_first_true(tie_p & (trank == k + 1)))
         if perm is not None:
             sel = int(perm[sel])
-    selected = sel if found > 0 else -1
 
     def s64(v):
         return torch.tensor(v, dtype=I64, device=dev)
     return {
-        "selected": s64(selected),
+        "selected": s64(sel if found > 0 else -1),
         "found": s64(found),
         "evaluated": s64(evaluated),
         "max_score": s64(max_score if found > 0 else 0),
-        "total": total,
-        "kept": kept,
-        "feasible": feasible,
-        "fail_first": fail_first,
-        "general_bits": general_bits,
         "next_last_index": s64((int(last_index) + evaluated) % n_safe),
         "next_last_node_index": s64(lni + (1 if found > 1 else 0)),
     }
+
+
+def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
+                      n_real, weights, z_pad, perm=None, inv_perm=None,
+                      pos=None, wtab=None, gang=None, ghost=None):
+    """One fused cycle (`_cycle_core`, kernels.py:359): identity walk, the
+    `perm`/`inv_perm` rotated walk, or the gather-free `pos` mode. `ghost`
+    (the pressure scan's carried nominated load) enters the filter only;
+    the scores read the raw rows."""
+    n_pad = nodes["valid"].shape[0]
+    in_range = torch.arange(n_pad, device=nodes["valid"].device) \
+        < int(n_real)
+    feasible, fail_first, general_bits = _feasibility_plain(nodes, pod,
+                                                            ghost=ghost)
+    kept, found, evaluated = _walk_plain(
+        feasible & in_range, bool(pod["skip"]), last_index, num_to_find,
+        n_real, perm=perm, inv_perm=inv_perm, pos=pos)
+    wrow = None
+    if wtab is not None:
+        wrow = _row_at(wtab, pod["profile_id"])
+    total = _fit_scores_plain(nodes, pod, kept, weights, z_pad, wrow=wrow,
+                              gang=gang)
+    return {**_select_plain(kept, total, found, evaluated, last_index,
+                            last_node_index, n_real, perm=perm, pos=pos),
+            "total": total, "kept": kept, "feasible": feasible,
+            "fail_first": fail_first, "general_bits": general_bits}
 
 
 def schedule_cycle_plain(nodes, pod, last_index, last_node_index,
@@ -653,13 +706,23 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
 
 def schedule_cycle(nodes, pod, last_index, last_node_index, num_to_find,
                    n_real, z_pad, weights=None, wtab=None, perm=None,
-                   inv_perm=None, pos=None):
+                   inv_perm=None, pos=None, mesh=None):
     """K2: one scheduling cycle. `nodes` is the dict of node tensors, `pod`
     the dict of pod fields (inert per-node fields are shape [1]); the
     output dict has the JAX entry point's keys. `perm`/`inv_perm` select
     the rotated walk and `pos` the gather-free full-scan mode. `wtab` is
-    the [P, K] weight table, `pod["profile_id"]` picks its row."""
+    the [P, K] weight table, `pod["profile_id"]` picks its row. With a
+    `mesh` (parallel.sharding.Mesh) the node axis is split over its
+    devices (`nodes`: the per-shard dicts of `shard_node_arrays`, or one
+    whole dict) and the cycle runs as K9a on every shard, an all-gather
+    and K9b on every device (`parallel.sharding.sharded_cycle`)."""
     weights = weights or DEFAULT_WEIGHTS
+    if mesh is not None:
+        from kubernetes_tpu_torch.parallel import sharding as S
+        return S.sharded_cycle(mesh, nodes, pod, last_index,
+                               last_node_index, num_to_find, n_real, z_pad,
+                               weights=weights, wtab=wtab, perm=perm,
+                               inv_perm=inv_perm, pos=pos)
     if not nodes["valid"].is_cuda:
         return schedule_cycle_plain(nodes, pod, last_index, last_node_index,
                                     num_to_find, n_real, z_pad,
@@ -931,56 +994,99 @@ def schedule_batch_uniform_plain(nodes, cls, n_pods, last_node_index, n_real,
         bool(ban), extra is not None, wrow=wrow)
 
 
+def _uniform_rows(nodes, flags):
+    """The node rows of a uniform burst: the carried fold rows (the five
+    fixed ones, then ephemeral storage and the carried scalars), the
+    allocatable of each carried row past the fifth, and the (allocatable,
+    used) rows of the resource families that cannot change in-burst."""
+    check_res, has_req, carry_eph, static_eph, carried_s, static_s = flags
+    rows = [nodes["req_cpu"], nodes["req_mem"], nodes["nz_cpu"],
+            nodes["nz_mem"], nodes["pod_count"]]
+    xalloc, salloc, sused = [], [], []
+    if carry_eph:
+        rows.append(nodes["req_eph"])
+        xalloc.append(nodes["alloc_eph"])
+    for s in carried_s:
+        rows.append(nodes["req_scalar"][:, s])
+        xalloc.append(nodes["alloc_scalar"][:, s])
+    if check_res and has_req:
+        if static_eph:
+            salloc.append(nodes["alloc_eph"])
+            sused.append(nodes["req_eph"])
+        for s in static_s:
+            salloc.append(nodes["alloc_scalar"][:, s])
+            sused.append(nodes["req_scalar"][:, s])
+    return rows, xalloc, salloc, sused
+
+
+def _uniform_out_rows(st, nodes, flags) -> dict:
+    """The folded node rows of a uniform burst from its carried rows `st`
+    [R, n] (`_uniform_rows` order): views of `st`, and a copy of the
+    node's scalar matrix with the carried columns replaced."""
+    carry_eph, carried_s = flags[2], flags[4]
+    out = {"req_cpu": st[0], "req_mem": st[1], "nz_cpu": st[2],
+           "nz_mem": st[3], "pod_count": st[4]}
+    r = 5
+    if carry_eph:
+        out["req_eph"] = st[r]
+        r += 1
+    if carried_s:
+        rs = nodes["req_scalar"].clone()
+        for jj, s in enumerate(carried_s):
+            rs[:, s] = st[r + jj]
+        out["req_scalar"] = rs
+    return out
+
+
+def _uniform_cls_vec(cls, flags) -> list:
+    """The uniform kernels' class vector: req_cpu, req_mem, nz_cpu,
+    nz_mem, delta[R], xreq[R-5], sreq[NS], in `_uniform_rows`' order."""
+    check_res, has_req, carry_eph, static_eph, carried_s, static_s = flags
+    req_scalar = np.asarray(cls["req_scalar"]).reshape(-1)
+    upd_scalar = np.asarray(cls["upd_scalar"]).reshape(-1)
+    delta = [int(cls["upd_cpu"]), int(cls["upd_mem"]), int(cls["nz_cpu"]),
+             int(cls["nz_mem"]), 1]
+    xreq = []
+    if carry_eph:
+        delta.append(int(cls["upd_eph"]))
+        xreq.append(int(cls["req_eph"]))
+    for s in carried_s:
+        delta.append(int(upd_scalar[s]))
+        xreq.append(int(req_scalar[s]))
+    sreq = []
+    if check_res and has_req:
+        if static_eph:
+            sreq.append(int(cls["req_eph"]))
+        for s in static_s:
+            sreq.append(int(req_scalar[s]))
+    return [int(cls["req_cpu"]), int(cls["req_mem"]), int(cls["nz_cpu"]),
+            int(cls["nz_mem"])] + delta + xreq + sreq
+
+
 def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
                     check_resources, weights, rotation, extra_ok, ban, cap,
                     wtab, pid):
     cap, flags, wrow, perm, oid_seq, extra = _uniform_args(
         nodes, cls, n_pods, cap, rotation, extra_ok, wtab, pid,
         check_resources)
-    check_res, has_req, carry_eph, static_eph, carried_s, static_s = flags
+    check_res, has_req = flags[:2]
     dev = nodes["valid"].device
     n_pad = int(nodes["valid"].shape[0])
     _require_cuda("uniform_burst", nodes["valid"], nodes["alloc_cpu"],
                   nodes["alloc_mem"], nodes["allowed_pods"], perm, oid_seq,
                   extra)
     # the carried fold rows, stacked [R, n_pad] (a fresh copy: the kernel
-    # folds into it, the resident matrix stays as it was)
-    rows = [nodes["req_cpu"], nodes["req_mem"], nodes["nz_cpu"],
-            nodes["nz_mem"], nodes["pod_count"]]
-    xalloc, xreq, delta = [], [], [int(cls["upd_cpu"]), int(cls["upd_mem"]),
-                                   int(cls["nz_cpu"]), int(cls["nz_mem"]), 1]
-    if carry_eph:
-        rows.append(nodes["req_eph"])
-        xalloc.append(nodes["alloc_eph"])
-        xreq.append(int(cls["req_eph"]))
-        delta.append(int(cls["upd_eph"]))
-    req_scalar = np.asarray(cls["req_scalar"]).reshape(-1)
-    upd_scalar = np.asarray(cls["upd_scalar"]).reshape(-1)
-    for s in carried_s:
-        rows.append(nodes["req_scalar"][:, s])
-        xalloc.append(nodes["alloc_scalar"][:, s])
-        xreq.append(int(req_scalar[s]))
-        delta.append(int(upd_scalar[s]))
+    # folds into it, the resident matrix stays as it was), their
+    # allocatable rows, and the static (alloc, used) rows of the resource
+    # families that cannot change in-burst, merged into the feasibility
+    # mask at kernel start
+    rows, xalloc, salloc, sused = _uniform_rows(nodes, flags)
     st = torch.stack(rows).contiguous()
     R = st.shape[0]
     xa = torch.stack(xalloc).contiguous() if xalloc else None
-    # resource families that cannot change in-burst: static (alloc, used,
-    # request) rows merged into the feasibility mask at kernel start
-    salloc, sused, sreq = [], [], []
-    if check_res and has_req:
-        if static_eph:
-            salloc.append(nodes["alloc_eph"])
-            sused.append(nodes["req_eph"])
-            sreq.append(int(cls["req_eph"]))
-        for s in static_s:
-            salloc.append(nodes["alloc_scalar"][:, s])
-            sused.append(nodes["req_scalar"][:, s])
-            sreq.append(int(req_scalar[s]))
     sa = torch.stack(salloc).contiguous() if salloc else None
     su = torch.stack(sused).contiguous() if sused else None
-    clsv = torch.tensor(
-        [int(cls["req_cpu"]), int(cls["req_mem"]), int(cls["nz_cpu"]),
-         int(cls["nz_mem"])] + delta + xreq + sreq, dtype=I64).to(dev)
+    clsv = torch.tensor(_uniform_cls_vec(cls, flags), dtype=I64).to(dev)
     L = 0 if perm is None else int(perm.shape[0])
     if perm is not None and perm.shape[1] != n_pad + 1:
         raise ValueError("uniform_burst: perm rows must be n_pad+1 wide")
@@ -1013,24 +1119,13 @@ def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
         _ptr(sa), _ptr(su), _ptr(clsv), _ptr(st), _ptr(tot0), _ptr(perm),
         _ptr(oid_seq), _ptr(lni_in), _ptr(out), _ptr(lni_out), _ptr(tot),
         _ptr(flags_b), _ptr(ties), _ptr(owner), _stream()), "uniform_burst")
-    out_rows = {"req_cpu": st[0], "req_mem": st[1], "nz_cpu": st[2],
-                "nz_mem": st[3], "pod_count": st[4]}
-    r = 5
-    if carry_eph:
-        out_rows["req_eph"] = st[r]
-        r += 1
-    if carried_s:
-        rs = nodes["req_scalar"].clone()
-        for jj, s in enumerate(carried_s):
-            rs[:, s] = st[r + jj]
-        out_rows["req_scalar"] = rs
-    return out_rows, out[: cap + 1], lni_out[0]
+    return _uniform_out_rows(st, nodes, flags), out[: cap + 1], lni_out[0]
 
 
 def schedule_batch_uniform(nodes, cls, n_pods, last_node_index, n_real,
                            check_resources, weights=None, rotation=None,
-                           extra_ok=None, ban=False, cap=None, wtab=None,
-                           pid=0):
+                           extra_ok=None, ban=False, mesh=None, cap=None,
+                           wtab=None, pid=0):
     """K3: the uniform-class burst. `cls` holds the shared per-pod scalars
     (req_cpu/req_mem/req_eph, req_scalar[S], nz_cpu/nz_mem, upd_cpu/
     upd_mem/upd_eph, upd_scalar[S], has_request). Returns (folded_state_
@@ -1039,8 +1134,18 @@ def schedule_batch_uniform(nodes, cls, n_pods, last_node_index, n_real,
     array, one device-to-host copy. `rotation` = (perm[L, n_pad+1] int32,
     oid_seq[cap + K_BATCH] int32) when per-cycle enumerations rotate;
     `extra_ok` [n_pad] bool merges burst-static masks; `ban` makes each
-    placement ban its own node."""
+    placement ban its own node. With a `mesh` the node-axis state is
+    split over its devices (`nodes`: per-shard dicts, or one whole dict):
+    every pass runs K9c on each shard, an all-gather and K9d on every
+    device (`parallel.sharding.sharded_uniform`); the folded rows come
+    back as one dict per shard."""
     weights = weights or DEFAULT_WEIGHTS
+    if mesh is not None:
+        from kubernetes_tpu_torch.parallel import sharding as S
+        return S.sharded_uniform(mesh, nodes, cls, n_pods, last_node_index,
+                                 n_real, check_resources, weights=weights,
+                                 rotation=rotation, extra_ok=extra_ok,
+                                 ban=ban, cap=cap, wtab=wtab, pid=pid)
     if not nodes["valid"].is_cuda:
         return schedule_batch_uniform_plain(
             nodes, cls, n_pods, last_node_index, n_real, check_resources,
@@ -1542,16 +1647,7 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
             "vic_P": 0 if pressure is None else int(pressure["vic_P"])}
     if perms is not None and perms.shape[1] != n_pad:
         raise ValueError(f"{name}: rotation rows must be n_pad wide")
-    iargs = (ctypes.c_longlong * len(_SCAN_INTS))(
-        *[ints[k] for k in _SCAN_INTS])
-    unknown = set(ptrs) - set(_SCAN_PTRS)
-    if unknown:
-        raise ValueError(f"{name}: unknown pointer slots {sorted(unknown)}")
-    parr = (ctypes.c_void_p * len(_SCAN_PTRS))(
-        *[_ptr(ptrs.get(k)) for k in _SCAN_PTRS])
-    lib = _build.load(name)
-    obs.inc("launch." + name)
-    _check(getattr(lib, name + "_launch")(iargs, parr, _stream()), name)
+    _launch(name, *_launch_arrays(ints, _SCAN_INTS, ptrs, _SCAN_PTRS, name))
     spread_out = spread if carry_spread \
         else torch.zeros((), dtype=I64, device=dev)
     return state, carry_out[0], carry_out[1], spread_out, stats, packed
@@ -2020,3 +2116,683 @@ def pressure_batch(nodes, mut0, ghost0, pods, vic, last_index,
     return _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
                             last_node_index, num_to_find, n_real, z_pad,
                             weights, out)
+
+
+# ---------------------------------------------------------------------------
+# K9 node-axis sharding: shard-local passes and replicated selects
+# ---------------------------------------------------------------------------
+# `parallel/sharding.py` drives these: each shard runs K9a (cycle) or K9c
+# (uniform pass) on the rows it owns, on its own device; the small
+# per-row records ride an all-gather; every device runs K9b or K9d on the
+# gathered records, so all of them reach the same decision.
+
+#: planes of K9a's per-row record, in layout order: the row-local score and
+#: the raw inputs the kept-set normalizations need (a plane is present only
+#: when its family runs dense), the in-range feasible bit, the tracked bit
+_REC_PLANES = (("local", I64), ("na", I64), ("tt", I64), ("sc", I64),
+               ("ic", I64), ("zone", I32), ("feas", torch.uint8),
+               ("tracked", torch.uint8))
+#: pod field of each raw-input plane
+_REC_FIELD = {"na": "node_aff_counts", "tt": "taint_counts",
+              "sc": "spread_counts", "ic": "interpod_counts",
+              "tracked": "interpod_tracked"}
+# slots of the uniform pass state each device keeps (K9d writes it, the
+# shards on that device read it): done, lni, pass, lanes to fold, lni0,
+# then the K lanes' nodes
+ST_DONE, ST_LNI, ST_PASS, ST_VFOLD, ST_LNI0, ST_LANES = range(6)
+
+
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def cycle_record_planes(pod, weights) -> tuple:
+    """The planes of the cycle record for `pod` (the whole, unsharded
+    host dict: a shard's slice of a dense field can look inert)."""
+    on = {"na": weights["node_affinity"], "tt": weights["taint_toleration"],
+          "sc": weights["selector_spread"]}
+    dense = {k: not _inert(pod[f] if hasattr(pod[f], "ndim")
+                           else np.asarray(pod[f]))
+             for k, f in _REC_FIELD.items()}
+    ipa_on = bool(weights["interpod"]) and cycle_ipa_on(pod)
+    planes = ["local"] + [k for k in ("na", "tt", "sc") if on[k] and dense[k]]
+    if ipa_on and dense["ic"]:
+        planes.append("ic")
+    if on["sc"] and dense["sc"]:
+        planes.append("zone")
+    planes.append("feas")
+    if ipa_on and dense["tracked"]:
+        planes.append("tracked")
+    return tuple(planes)
+
+
+def cycle_ipa_on(pod) -> bool:
+    """Whether the inter-pod family's fields are not both inert (the
+    family then runs, an inert side broadcasting its one element)."""
+    return any(not _inert(pod[f] if hasattr(pod[f], "ndim")
+                          else np.asarray(pod[f]))
+               for f in ("interpod_counts", "interpod_tracked"))
+
+
+def record_layout(planes, rows: int):
+    """({plane: byte offset in a shard's record}, record bytes) for `rows`
+    rows; i64 planes first, so every plane is aligned."""
+    off, o = {}, 0
+    for name, dt in _REC_PLANES:
+        if name in planes:
+            off[name] = o
+            o += rows * torch.empty((), dtype=dt).element_size()
+    return off, _round8(o)
+
+
+def _pack_record(vals: dict, planes, rows: int, dev) -> torch.Tensor:
+    off, nbytes = record_layout(planes, rows)
+    rec = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+    dts = dict(_REC_PLANES)
+    for name, o in off.items():
+        v = vals[name].to(dts[name]).reshape(rows).contiguous()
+        b = v.view(torch.uint8)
+        rec[o: o + b.numel()] = b
+    return rec
+
+
+def unpack_records(gathered: torch.Tensor, planes, rows: int) -> dict:
+    """The flat [D * rows] tensor of every plane of a gathered [D, bytes]
+    record buffer."""
+    off, _ = record_layout(planes, rows)
+    dts = dict(_REC_PLANES)
+    out = {}
+    for name, o in off.items():
+        size = torch.empty((), dtype=dts[name]).element_size()
+        b = gathered[:, o: o + rows * size].contiguous()
+        out[name] = b.view(dts[name]).reshape(-1)
+    return out
+
+
+def _require_on(name: str, device, *tensors) -> None:
+    """Every tensor argument of a shard launch lives on the device that
+    launches it: a kernel launched for another card's tensors would read
+    them over NVLink (or fault) instead of running where they live."""
+    device = torch.device(device)
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device != device:
+            raise ValueError(f"{name}: a tensor on {t.device} given to a "
+                             f"launch on {device}")
+
+
+def _on(device):
+    """The device guard of a launch (a no-op off CUDA)."""
+    import contextlib
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+# ---- K9a shard_cycle_local --------------------------------------------------
+def shard_cycle_local_plain(nodes, pod, offset, n_real, weights, planes,
+                            wrow=None):
+    """K9a plain: the shard-local part of `sharded_cycle_fn` (sharding.py
+    :115) over one shard's rows — `_feasibility` (kernels.py:296) and the
+    row-local `_fit_scores` families (:157). Returns (feasible,
+    fail_first, general_bits) of the shard's rows and its record (uint8:
+    the `planes` of `cycle_record_planes`, `record_layout`)."""
+    dev = nodes["valid"].device
+    rows = nodes["valid"].shape[0]
+    pod = {k: _t(v, dev) for k, v in pod.items()}
+    feasible, fail_first, general_bits = _feasibility_plain(nodes, pod)
+    in_range = torch.arange(rows, device=dev) + int(offset) < int(n_real)
+    vals = {"local": _local_scores_plain(nodes, pod, weights, wrow=wrow),
+            "zone": nodes["zone_id"], "feas": feasible & in_range}
+    for k, f in _REC_FIELD.items():
+        if k in planes:
+            vals[k] = pod[f]
+    return feasible, fail_first, general_bits, _pack_record(
+        vals, planes, rows, dev)
+
+
+_SCL_INTS = ("rows", "S", "offset", "n_real", "gate") + tuple(
+    "off_" + n for n, _ in _REC_PLANES)
+_SCL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
+             "allowed_pods", "req_cpu", "req_mem", "req_eph", "nz_cpu",
+             "nz_mem", "pod_count", "alloc_scalar", "req_scalar", "zone_id",
+             "scal", "req_scalar_p") + _CYCLE_MASKS + ("interpod_code",) \
+    + _CYCLE_COUNTS + ("interpod_tracked", "w", "feasible", "fail_first",
+                       "general_bits", "rec")
+
+
+def _shard_cycle_local_launch(nodes, pod, offset, n_real, weights, planes,
+                              wrow):
+    dev = nodes["valid"].device
+    rows = int(nodes["valid"].shape[0])
+    s_count = int(nodes["alloc_scalar"].shape[1])
+    fields = {k: nodes[k] for k in _SCL_PTRS[:14]}
+    _require_cuda("shard_cycle_local", *fields.values())
+    if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype != torch.bool:
+        raise ValueError("shard_cycle_local: zone_id must be int32, "
+                         "valid bool")
+    pid = pod.get("profile_id", 0)
+    scal = _pack_scalars([pod[k] for k in _CYCLE_SCALARS[:-1]] + [pid], dev)
+    req_scalar = _t(pod["req_scalar"], dev, I64).contiguous()
+    if req_scalar.numel() != s_count:
+        raise ValueError("shard_cycle_local: req_scalar width != node "
+                         "scalars")
+
+    def dense(key, dtype):
+        v = pod.get(key)
+        if v is None or _inert(v):
+            return None
+        v = _t(v, dev, dtype).contiguous()
+        if v.shape[-1] != rows:
+            raise ValueError(f"shard_cycle_local: {key} is not the "
+                             f"shard's [{rows}] slice")
+        return v
+    ptrs = dict(fields)
+    ptrs.update({"scal": scal, "req_scalar_p": req_scalar,
+                 "interpod_code": dense("interpod_code", torch.int8),
+                 "interpod_tracked": dense("interpod_tracked", torch.bool),
+                 "w": _weight_row(weights, wrow, dev)})
+    ptrs.update({k: dense(k, torch.bool) for k in _CYCLE_MASKS})
+    ptrs.update({k: dense(k, I64) for k in _CYCLE_COUNTS})
+    for k, f in _REC_FIELD.items():
+        if k in planes and ptrs[f] is None:
+            raise ValueError(f"shard_cycle_local: plane {k} of an inert "
+                             f"field")
+    off, nbytes = record_layout(planes, rows)
+    feasible = ptrs["feasible"] = torch.empty(rows, dtype=torch.bool,
+                                              device=dev)
+    fail_first = ptrs["fail_first"] = torch.empty(rows, dtype=torch.int8,
+                                                  device=dev)
+    general_bits = ptrs["general_bits"] = torch.empty(rows, dtype=I64,
+                                                      device=dev)
+    rec = ptrs["rec"] = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+    _require_on("shard_cycle_local", dev, *ptrs.values())
+    ints = {"rows": rows, "S": s_count, "offset": int(offset),
+            "n_real": int(n_real), "gate": _gate(weights)}
+    ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
+    _launch("shard_cycle_local",
+            *_launch_arrays(ints, _SCL_INTS, ptrs, _SCL_PTRS,
+                            "shard_cycle_local"))
+    return feasible, fail_first, general_bits, rec
+
+
+def shard_cycle_local(nodes, pod, offset, n_real, weights, planes,
+                      wrow=None):
+    """K9a on one shard (`nodes`: its node dict, `pod`: its slice of the
+    pod's per-node fields plus the replicated scalars; `offset`: the
+    global index of its first row). CPU tensors -> the plain version;
+    CUDA tensors -> `csrc/shard_cycle_local.cu` on their device."""
+    dev = nodes["valid"].device
+    _require_on("shard_cycle_local", dev, *nodes.values(),
+                *[v for v in pod.values() if isinstance(v, torch.Tensor)
+                  and v.dim() and v.shape[-1] > 1], wrow)
+    if not nodes["valid"].is_cuda:
+        return shard_cycle_local_plain(nodes, pod, offset, n_real, weights,
+                                       planes, wrow=wrow)
+    with _on(dev):
+        return _shard_cycle_local_launch(nodes, pod, offset, n_real,
+                                         weights, planes, wrow)
+
+
+# ---- K9b shard_cycle_select -------------------------------------------------
+def _select_pod(pod, dev) -> dict:
+    """The replicated pod inputs of K9b: skip and the first element of
+    each inter-pod field (what an inert field broadcasts; a dense one
+    rides the gathered records)."""
+    def first(v, dtype):
+        return _t(np.asarray(_host(v)).reshape(-1)[:1], dev, dtype)
+    return {"skip": bool(np.asarray(_host(pod["skip"]))),
+            "interpod_counts": first(pod["interpod_counts"], I64),
+            "interpod_tracked": first(pod["interpod_tracked"], torch.bool)}
+
+
+def shard_cycle_select_plain(gathered, planes, rows, n_real, pod,
+                             last_index, last_node_index, num_to_find,
+                             weights, z_pad, wrow=None, perm=None,
+                             inv_perm=None, pos=None):
+    """K9b plain: the replicated epilogue of `_cycle_core` (kernels.py
+    :359) over the gathered records of every shard — the rotation walk,
+    the normalizations over the evaluated (kept) set, the first-index
+    argmax and the round-robin tie pick. Returns (out[6] int64: selected,
+    found, evaluated, max_score, next_last_index, next_last_node_index;
+    total[n_pad]; kept[n_pad])."""
+    dev = gathered.device
+    sp = _select_pod(pod, dev)
+    vals = unpack_records(gathered, planes, rows)
+    n_pad = vals["local"].shape[0]
+    kept, found, evaluated = _walk_plain(
+        vals["feas"] != 0, sp["skip"], last_index, num_to_find, n_real,
+        perm=perm, inv_perm=inv_perm, pos=pos)
+    inert = torch.zeros(1, dtype=I64, device=dev)
+    kpod = {f: vals[k] if k in vals else inert
+            for k, f in _REC_FIELD.items()}
+    kpod["interpod_counts"] = vals["ic"] if "ic" in vals \
+        else sp["interpod_counts"]
+    kpod["interpod_tracked"] = vals["tracked"] != 0 if "tracked" in vals \
+        else sp["interpod_tracked"]
+    zone = vals["zone"] if "zone" in vals \
+        else torch.zeros(n_pad, dtype=I32, device=dev)
+    total = vals["local"] + _kept_scores_plain(kpod, kept, zone, weights,
+                                               z_pad, wrow=wrow)
+    r = _select_plain(kept, total, found, evaluated, last_index,
+                      last_node_index, n_real, perm=perm, pos=pos)
+    out = torch.stack([r[k] for k in (
+        "selected", "found", "evaluated", "max_score", "next_last_index",
+        "next_last_node_index")])
+    return out, total, kept
+
+
+_SCS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad",
+             "last_index", "lni", "num_to_find", "mode", "gate", "skip",
+             "ipa_on", "ic_inert", "tr_inert") + tuple(
+    "off_" + n for n, _ in _REC_PLANES)
+_SCS_PTRS = ("gathered", "w", "ic_b", "tr_b", "perm", "inv_perm", "pos",
+             "p64", "zone", "tracked", "total", "kept", "flags", "zs", "out")
+
+
+def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
+                               last_index, last_node_index, num_to_find,
+                               weights, z_pad, wrow, perm, inv_perm, pos):
+    dev = gathered.device
+    D, chunk = (int(x) for x in gathered.shape)
+    n_pad = D * int(rows)
+    off, nbytes = record_layout(planes, rows)
+    if nbytes != chunk:
+        raise ValueError("shard_cycle_select: record size != layout")
+    sp = _select_pod(pod, dev)
+    ipa_on = bool(weights["interpod"]) and cycle_ipa_on(pod)
+    mode = 0
+    ptrs = {"gathered": gathered, "w": _weight_row(weights, wrow, dev)}
+    if pos is not None:
+        mode = 2
+        ptrs["pos"] = _t(pos, dev, I32).contiguous()
+    elif perm is not None:
+        mode = 1
+        ptrs["perm"] = _t(perm, dev, I32).contiguous()
+        ptrs["inv_perm"] = _t(inv_perm, dev, I32).contiguous()
+    if ipa_on and "ic" not in planes:
+        ptrs["ic_b"] = sp["interpod_counts"].reshape(-1)[:1].contiguous()
+    if ipa_on and "tracked" not in planes:
+        ptrs["tr_b"] = sp["interpod_tracked"].reshape(-1)[:1].contiguous()
+    ptrs["p64"] = torch.empty((5, n_pad), dtype=I64, device=dev)
+    ptrs["zone"] = torch.empty(n_pad, dtype=I32, device=dev) \
+        if "zone" in planes else None
+    ptrs["tracked"] = torch.empty(n_pad, dtype=torch.uint8, device=dev) \
+        if "tracked" in planes else None
+    total = ptrs["total"] = torch.empty(n_pad, dtype=I64, device=dev)
+    kept = ptrs["kept"] = torch.empty(n_pad, dtype=torch.bool, device=dev)
+    ptrs["flags"] = torch.empty(2 * n_pad, dtype=I32, device=dev)
+    ptrs["zs"] = torch.empty(2 * int(z_pad), dtype=I64, device=dev)
+    out = ptrs["out"] = torch.empty(6, dtype=I64, device=dev)
+    _require_cuda("shard_cycle_select", gathered)
+    _require_on("shard_cycle_select", dev, *ptrs.values())
+    ints = {"n_pad": n_pad, "rows": int(rows), "D": D, "chunk": chunk,
+            "n_real": int(n_real), "z_pad": int(z_pad),
+            "last_index": int(np.asarray(_host(last_index))),
+            "lni": int(np.asarray(_host(last_node_index))),
+            "num_to_find": int(num_to_find), "mode": mode,
+            "gate": _gate(weights), "skip": int(sp["skip"]),
+            "ipa_on": int(ipa_on), "ic_inert": int("ic" not in planes),
+            "tr_inert": int("tracked" not in planes)}
+    ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
+    _launch("shard_cycle_select",
+            *_launch_arrays(ints, _SCS_INTS, ptrs, _SCS_PTRS,
+                            "shard_cycle_select"))
+    return out, total, kept
+
+
+def shard_cycle_select(gathered, planes, rows, n_real, pod, last_index,
+                       last_node_index, num_to_find, weights, z_pad,
+                       wrow=None, perm=None, inv_perm=None, pos=None):
+    """K9b on one device, over the [D, record bytes] gathered records.
+    CPU -> the plain version; CUDA -> `csrc/shard_cycle_select.cu`."""
+    dev = gathered.device
+    _require_on("shard_cycle_select", dev, wrow, perm, inv_perm, pos)
+    if not gathered.is_cuda:
+        return shard_cycle_select_plain(
+            gathered, planes, rows, n_real, pod, last_index,
+            last_node_index, num_to_find, weights, z_pad, wrow=wrow,
+            perm=perm, inv_perm=inv_perm, pos=pos)
+    with _on(dev):
+        return _shard_cycle_select_launch(
+            gathered, planes, rows, n_real, pod, last_index,
+            last_node_index, num_to_find, weights, z_pad, wrow, perm,
+            inv_perm, pos)
+
+
+# ---- K9c shard_uniform_sweep ------------------------------------------------
+class UniformShard:
+    """One shard's state of a sharded uniform burst: its node slices, the
+    carried fold rows `st` [R, width] (a fresh copy, folded in place),
+    int32 scores `tot`, the ok / banned / feasible bytes `flags` [3,
+    width], the last pass it folded, and its record `rec` (`rows` tie /
+    stay bytes, then the int32 shard max and feasible count at `hoff`).
+    The last shard's width carries the n_pad scratch column, as the JAX
+    program pads it onto the last shard: nothing is ever folded there."""
+
+    def __init__(self, offset, rows, width, nodes, st, xa, sa, su, extra,
+                 tot0):
+        dev = nodes["valid"].device
+        self.offset, self.rows, self.width = int(offset), int(rows), \
+            int(width)
+        self.nodes = nodes
+        self.st, self.xa, self.sa, self.su, self.extra = st, xa, sa, su, \
+            extra
+        self.tot0 = tot0
+        self.tot = torch.zeros(width, dtype=I32, device=dev)
+        self.flags = torch.zeros((3, width), dtype=torch.uint8, device=dev)
+        self.folded = torch.zeros(1, dtype=I64, device=dev)
+        self.hoff = _round8(rows)
+        self.rec = torch.zeros(self.hoff + 8, dtype=torch.uint8, device=dev)
+
+    @property
+    def device(self):
+        return self.st.device
+
+    def tensors(self) -> list:
+        return [self.st, self.xa, self.sa, self.su, self.extra, self.tot0,
+                self.tot, self.flags, self.folded, self.rec] + [
+            self.nodes[k] for k in ("valid", "alloc_cpu", "alloc_mem",
+                                    "allowed_pods")]
+
+
+def shard_uniform_sweep_plain(sh: UniformShard, state, clsv, R, NS,
+                              check_res, has_req, ban, weights, wrow,
+                              n_real, n_pods, init):
+    """K9c plain: one pass of `_uniform_core` (kernels.py:1097-1320) over
+    one shard's rows. First the accepted lanes of the previous pass that
+    land on this shard fold (rows, score, ban), once per pass; then, while
+    the burst is not done, the sweep: the feasible rows, the shard's max
+    score and feasible count, and per row a tie bit (feasible at the shard
+    max) and a stay bit (after one more fold it still fits and keeps that
+    score). A shard whose max is not the global one has no ties; every
+    tie of the global max is a tie of its own shard's max. `init` builds
+    the ok mask and the scores first (the burst's first pass). Updates
+    the shard state in place."""
+    dev = sh.device
+    rows, wd = sh.rows, sh.width
+    cv = [int(x) for x in clsv.tolist()] if isinstance(clsv, torch.Tensor) \
+        else list(clsv)
+    req_cpu, req_mem, nz_cpu, nz_mem = cv[:4]
+    delta = torch.tensor(cv[4: 4 + R], dtype=I64, device=dev)
+    xreq = cv[4 + R: 4 + R + (R - 5)]
+    sreq = cv[4 + R + (R - 5):]
+    nd = sh.nodes
+
+    def pad(v):
+        return torch.cat([v, torch.zeros(wd - rows, dtype=v.dtype,
+                                         device=dev)])
+    a_cpu, a_mem, allowed = pad(nd["alloc_cpu"]), pad(nd["alloc_mem"]), \
+        pad(nd["allowed_pods"])
+    ok, banned, feas = sh.flags[0], sh.flags[1], sh.flags[2]
+    st = sh.st
+
+    def fit(plus, cols=None):
+        rv = st if cols is None else st[:, cols]
+        pick = (lambda v: v) if cols is None else (lambda v: v[cols])
+        f = pick(ok) != 0
+        if check_res:
+            f = f & (rv[4] + plus * delta[4] + 1 <= pick(allowed))
+            if has_req:
+                f = f & (pick(a_cpu) >= req_cpu + rv[0] + plus * delta[0]) \
+                    & (pick(a_mem) >= req_mem + rv[1] + plus * delta[1])
+                for r in range(5, R):
+                    f = f & (pick(sh.xa[r - 5]) >= xreq[r - 5] + rv[r]
+                             + plus * delta[r])
+        return f
+
+    def score(plus, cols=None):
+        rv = st if cols is None else st[:, cols]
+        pick = (lambda v: v) if cols is None else (lambda v: v[cols])
+        return local_total_plain(weights, nz_cpu + rv[2] + plus * delta[2],
+                                 nz_mem + rv[3] + plus * delta[3],
+                                 pick(a_cpu), pick(a_mem),
+                                 wrow=wrow).to(I32)
+
+    if init:
+        o = nd["valid"] & (torch.arange(rows, device=dev) + sh.offset
+                           < int(n_real))
+        if sh.extra is not None:
+            o = o & sh.extra
+        for s in range(NS):
+            o = o & ~(sh.sa[s, :rows] < sreq[s] + sh.su[s, :rows])
+        ok.copy_(pad(o).to(torch.uint8))
+        banned.zero_()
+        sh.tot.copy_(pad(sh.tot0).to(I32))
+    st_h = [int(x) for x in state[:ST_LANES].tolist()]
+    if st_h[ST_PASS] > int(sh.folded[0]):
+        lanes = state[ST_LANES: ST_LANES + st_h[ST_VFOLD]] - sh.offset
+        loc = lanes[(lanes >= 0) & (lanes < rows)]
+        st[:, loc] += delta[:, None]
+        sh.tot[loc] = score(0, loc)
+        if ban:
+            banned[loc] = 1
+        sh.folded[0] = st_h[ST_PASS]
+    if st_h[ST_DONE] >= int(n_pods):
+        return
+    f = fit(0)[:rows]
+    if ban:
+        f = f & (banned[:rows] == 0)
+    feas[:rows] = f.to(torch.uint8)
+    tm = torch.where(f, sh.tot[:rows], I32_MIN)
+    lmax = int(torch.max(tm))
+    tie = f & (sh.tot[:rows] == lmax)
+    stay = tie & (fit(1)[:rows] & (score(1)[:rows] == lmax)) if not ban \
+        else torch.zeros_like(tie)
+    sh.rec[:rows] = (tie.to(torch.uint8) | (stay.to(torch.uint8) << 1))
+    sh.rec[sh.hoff:] = torch.tensor([lmax, int(f.sum())], dtype=I32,
+                                    device=dev).view(torch.uint8)
+
+
+_SUS_INTS = ("width", "rows", "offset", "n_real", "R", "NS", "check_res",
+             "has_req", "ban", "gate", "init", "B", "K", "hoff")
+_SUS_PTRS = ("w", "valid", "extra", "alloc_cpu", "alloc_mem", "allowed",
+             "xalloc", "salloc", "sused", "clsv", "st", "tot0", "tot",
+             "flags", "state", "folded", "rec")
+
+
+def _shard_uniform_sweep_launch(sh, state, clsv, R, NS, check_res, has_req,
+                                ban, weights, wrow, n_real, n_pods, init):
+    dev = sh.device
+    nd = sh.nodes
+    ptrs = {"w": _weight_row(weights, wrow, dev), "valid": nd["valid"],
+            "extra": sh.extra, "alloc_cpu": nd["alloc_cpu"],
+            "alloc_mem": nd["alloc_mem"], "allowed": nd["allowed_pods"],
+            "xalloc": sh.xa, "salloc": sh.sa, "sused": sh.su,
+            "clsv": clsv, "st": sh.st, "tot0": sh.tot0, "tot": sh.tot,
+            "flags": sh.flags, "state": state, "folded": sh.folded,
+            "rec": sh.rec}
+    _require_cuda("shard_uniform_sweep", *ptrs.values())
+    _require_on("shard_uniform_sweep", dev, *ptrs.values())
+    ints = {"width": sh.width, "rows": sh.rows, "offset": sh.offset,
+            "n_real": int(n_real), "R": R, "NS": NS,
+            "check_res": int(check_res), "has_req": int(has_req),
+            "ban": int(bool(ban)), "gate": _gate(weights),
+            "init": int(bool(init)), "B": int(n_pods), "K": K_BATCH,
+            "hoff": sh.hoff}
+    _launch("shard_uniform_sweep",
+            *_launch_arrays(ints, _SUS_INTS, ptrs, _SUS_PTRS,
+                            "shard_uniform_sweep"))
+
+
+def shard_uniform_sweep(sh: UniformShard, state, clsv, R, NS, check_res,
+                        has_req, ban, weights, wrow, n_real, n_pods, init):
+    """K9c: one uniform pass on one shard (`state`: the pass state on the
+    shard's device). CPU -> the plain version; CUDA ->
+    `csrc/shard_uniform_sweep.cu` on the shard's device."""
+    dev = sh.device
+    _require_on("shard_uniform_sweep", dev, *sh.tensors(), state, clsv,
+                wrow)
+    if not sh.st.is_cuda:
+        return shard_uniform_sweep_plain(sh, state, clsv, R, NS, check_res,
+                                         has_req, ban, weights, wrow,
+                                         n_real, n_pods, init)
+    with _on(dev):
+        return _shard_uniform_sweep_launch(sh, state, clsv, R, NS,
+                                           check_res, has_req, ban,
+                                           weights, wrow, n_real, n_pods,
+                                           init)
+
+
+# ---- K9d shard_uniform_select -----------------------------------------------
+def shard_uniform_select_plain(gathered, rows, hoff, state, out, lni_out,
+                               owner, n_pods, cap, ban, perm=None,
+                               oid_seq=None):
+    """K9d plain: the replicated epilogue of one `_uniform_core` pass
+    (kernels.py:1097-1320) over the gathered shard records: the global
+    max (the largest shard max) and feasible count, the tie set (the tie
+    bits of the shards at that max), the tie walk (`searchsorted` /
+    `C_all[oid]` in each rotation order), the lane-0 STAY/ELIM probe, the
+    K lanes' nodes, `first_bad`, the duplicate cut `first_dup` on the
+    whole lane set, the accept cut `v`, and the emitted block. The lanes'
+    fit and score after one more fold are the stay bits of their nodes'
+    shards. Updates `state` (the lanes for the shards to fold), `out`
+    [cap + K] and `lni_out` in place; a no-op once the burst is done.
+    `owner` is the kernel's scatter-min scratch (unused here)."""
+    dev = gathered.device
+    k_batch = K_BATCH
+    st_h = [int(x) for x in state[:ST_LANES].tolist()]
+    done, lni = st_h[ST_DONE], st_h[ST_LNI]
+    B = int(n_pods)
+    if done >= B:
+        return
+    D = gathered.shape[0]
+    n_pad = D * int(rows)
+    n1 = n_pad + 1
+    hdr = gathered[:, hoff: hoff + 8].contiguous().view(I32).reshape(D, 2)
+    mx = int(hdr[:, 0].max())
+    F = int(hdr[:, 1].to(I64).sum())
+    bits = gathered[:, :rows]
+    z1 = torch.zeros(1, dtype=torch.bool, device=dev)
+    tie = torch.cat([(((bits & 1) != 0) & (hdr[:, 0] == mx)[:, None])
+                     .reshape(-1), z1])
+    stay = torch.cat([((bits >> 1) & 1).reshape(-1) != 0, z1])
+    T = int(tie.sum())
+    remaining = B - done
+    kbig = (T >= 2) and (F > 1)
+    jlane = torch.arange(k_batch, dtype=I64, device=dev)
+    rotate = perm is not None
+
+    def clamp_idx(idx):
+        return torch.clamp(idx.long(), 0, n1 - 1)
+
+    if rotate:
+        perm_l = perm.long()
+        start = min(max(done, 0), max(oid_seq.shape[0] - k_batch, 0))
+        oid = oid_seq[start: start + k_batch].long()
+        C_all = torch.cumsum(tie[perm_l].to(I64), 1)
+    else:
+        C = torch.cumsum(tie.to(I64), 0)
+    if ban:
+        elim = kbig
+    else:
+        pos0 = lni % max(T, 1)
+        if rotate:
+            p0 = int(torch.sum((C_all[oid[0]] < pos0 + 1).to(I64)))
+            sel0 = perm_l[oid[0], min(p0, n_pad)]
+        else:
+            sel0 = torch.searchsorted(
+                C, torch.tensor([pos0 + 1], dtype=I64, device=dev))[0]
+        elim = (not bool(stay[clamp_idx(sel0)])) and kbig
+    m_stay = min(remaining, k_batch, T)
+    max_elim = max(_wrap32((T - lni + 1) // 2), 1)
+    m_elim = min(min(remaining, k_batch), min(max_elim, max(F - 1, 1)))
+    if rotate:
+        same = torch.cumprod((oid == oid[0]).to(I64), 0)
+        m_elim = min(m_elim, max(int(torch.sum(same)), 1))
+    if F == 0:
+        m = min(remaining, k_batch)
+    elif elim:
+        m = m_elim
+    elif kbig:
+        m = m_stay
+    else:
+        m = 1
+    active = (jlane < m) & (F > 0)
+    pos_stay = (lni + jlane) % max(T, 1)
+    pos_elim = torch.clamp(lni + 2 * jlane, max=max(T - 1, 0))
+    pos = pos_elim if (elim and m > 1) else pos_stay
+    if not rotate:
+        sel = torch.where(active, torch.searchsorted(C, pos + 1), n_pad)
+    else:
+        posp = torch.sum((C_all[oid] < (pos + 1)[:, None]).to(I64), dim=1)
+        sel = torch.where(active,
+                          perm_l[oid, torch.clamp(posp, max=n_pad)], n_pad)
+    sel = clamp_idx(sel)
+    leaves = torch.ones(k_batch, dtype=torch.bool, device=dev) if ban \
+        else ~stay[sel]
+    fail = (~leaves if elim else leaves) & active
+    first_bad = int(_first_true(fail)) if bool(torch.any(fail)) else k_batch
+    v = m if F == 0 else min(first_bad + 1, m)
+    if rotate:
+        own = torch.full((n1,), k_batch, dtype=I64, device=dev)
+        own.scatter_reduce_(0, sel, torch.where(active, jlane, k_batch),
+                            reduce="amin")
+        dup = active & (own[sel] != jlane)
+        first_dup = int(_first_true(dup)) if bool(torch.any(dup)) \
+            else k_batch
+        v = min(v, first_dup)
+        v = m if F == 0 else max(v, 1)
+    out[done: done + k_batch] = torch.where((jlane < v) & (F > 0), sel,
+                                            -1).to(I32)
+    lni = lni + (v if F > 1 else 0)
+    done = done + v
+    state[ST_DONE] = done
+    state[ST_LNI] = lni
+    state[ST_PASS] = st_h[ST_PASS] + 1
+    state[ST_VFOLD] = v if F > 0 else 0
+    state[ST_LANES: ST_LANES + k_batch] = sel
+    out[cap] = _wrap32(lni - st_h[ST_LNI0])
+    lni_out[0] = lni
+
+
+_SUD_INTS = ("n_pad", "rows", "D", "stride", "hoff", "B", "K", "cap", "L",
+             "n_oid", "ban")
+_SUD_PTRS = ("gathered", "perm", "oid_seq", "state", "out", "lni_out",
+             "flat", "ties", "owner")
+
+
+def _shard_uniform_select_launch(gathered, rows, hoff, state, out, lni_out,
+                                 owner, n_pods, cap, ban, perm, oid_seq):
+    dev = gathered.device
+    D, stride = (int(x) for x in gathered.shape)
+    n_pad = D * int(rows)
+    L = 0 if perm is None else int(perm.shape[0])
+    if perm is not None and perm.shape[1] != n_pad + 1:
+        raise ValueError("shard_uniform_select: perm rows must be n_pad+1 "
+                         "wide")
+    n_oid = 0 if oid_seq is None else int(oid_seq.shape[0])
+    if oid_seq is not None and n_oid < K_BATCH:
+        raise ValueError("shard_uniform_select: oid_seq shorter than "
+                         "K_BATCH")
+    ptrs = {"gathered": gathered, "perm": perm, "oid_seq": oid_seq,
+            "state": state, "out": out, "lni_out": lni_out,
+            "flat": torch.empty((2, n_pad), dtype=torch.uint8, device=dev),
+            "ties": torch.empty(max(L, 1) * n_pad, dtype=I32, device=dev),
+            "owner": owner}
+    _require_cuda("shard_uniform_select", *ptrs.values())
+    _require_on("shard_uniform_select", dev, *ptrs.values())
+    ints = {"n_pad": n_pad, "rows": int(rows), "D": D, "stride": stride,
+            "hoff": int(hoff), "B": int(n_pods), "K": K_BATCH,
+            "cap": int(cap), "L": L, "n_oid": n_oid, "ban": int(bool(ban))}
+    _launch("shard_uniform_select",
+            *_launch_arrays(ints, _SUD_INTS, ptrs, _SUD_PTRS,
+                            "shard_uniform_select"))
+
+
+def shard_uniform_select(gathered, rows, hoff, state, out, lni_out, owner,
+                         n_pods, cap, ban, perm=None, oid_seq=None):
+    """K9d on one device over the [D, record bytes] gathered shard
+    records. CPU -> the plain version; CUDA ->
+    `csrc/shard_uniform_select.cu`."""
+    dev = gathered.device
+    _require_on("shard_uniform_select", dev, state, out, lni_out, owner,
+                perm, oid_seq)
+    if not gathered.is_cuda:
+        return shard_uniform_select_plain(gathered, rows, hoff, state, out,
+                                          lni_out, owner, n_pods, cap, ban,
+                                          perm=perm, oid_seq=oid_seq)
+    with _on(dev):
+        return _shard_uniform_select_launch(gathered, rows, hoff, state,
+                                            out, lni_out, owner, n_pods,
+                                            cap, ban, perm, oid_seq)

@@ -1,0 +1,366 @@
+"""Node-axis sharding of the port: a single-controller mesh over a list of
+torch devices, per-shard slices of the node matrix and the pod inputs,
+the all-gather, and the two sharded programs the scheduler runs, the
+serial cycle and the uniform K-batch burst.
+
+Counterpart of `kubernetes_tpu/parallel/sharding.py`. There GSPMD splits
+one jitted program over a `jax.sharding.Mesh` and inserts the
+collectives; here the split is written out. One process drives every
+device (the JAX mesh is single-controller too):
+
+- shard s owns rows [s * n_pad / D, (s + 1) * n_pad / D) of the node
+  matrix, on `mesh.devices[s]`; devices may repeat (`["cuda:0"] * 4` runs
+  four shards on one card, `["cpu"] * 4` is what the CPU tests use);
+- a shard-local kernel (K9a for the cycle, K9c for a uniform pass) runs
+  on each shard's own device over its rows and writes a small per-row
+  record;
+- `all_gather` copies every shard's record into a replicated [D, bytes]
+  buffer on each distinct device (a peer copy between cards, an on-device
+  copy on one card), each copy ordered after its producer by a CUDA
+  event;
+- a replicated select (K9b, K9d) runs on every distinct device over the
+  gathered records, so every device reaches the same decision.
+
+A field whose node axis does not split (an inert `[1]` pod field, a
+scalar) is replicated, as JAX's `_put_by_keys` does. Decisions, packed
+blocks and folded rows equal the single-device kernels bit for bit
+(tests/test_torch_sharding.py; chip_smoke.py on the card).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kubernetes_tpu_torch import obs
+from kubernetes_tpu_torch.ops import kernels as K
+
+# node-matrix fields split along the node axis (axis 0)
+_SHARDED_1D = (
+    "valid", "alloc_cpu", "alloc_mem", "alloc_eph", "allowed_pods",
+    "req_cpu", "req_mem", "req_eph", "nz_cpu", "nz_mem", "pod_count",
+    "zone_id",
+)
+_SHARDED_2D = ("alloc_scalar", "req_scalar")
+# per-pod [N] fields split the same way (the JAX list plus the volume
+# masks: the shard-local filter reads every per-node field of its rows)
+_POD_SHARDED = (
+    "sel_ok", "taints_ok", "unsched_ok", "ports_ok", "host_ok",
+    "interpod_code", "node_aff_counts", "taint_counts", "spread_counts",
+    "interpod_counts", "interpod_tracked", "image_sums", "prefer_avoid",
+    "disk_ok", "maxvol_ok", "volbind_ok", "volzone_ok",
+)
+#: uniform passes enqueued between two host reads of the pass counter
+PASS_GROUP = 4
+
+
+class Mesh:
+    """An ordered list of torch devices the node axis is split over."""
+
+    def __init__(self, devices):
+        devs = []
+        for d in devices:
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            devs.append(d)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a mesh's devices are of one type: {devs}")
+        self.devices = tuple(devs)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def distinct(self) -> tuple:
+        """The distinct devices, in first-shard order: where the
+        replicated buffers and selects live."""
+        return tuple(dict.fromkeys(self.devices))
+
+    def rows(self, n_pad: int) -> int:
+        """Rows per shard. The node axis must split evenly into shards of
+        at least two rows (n_pad is a power of two >= 8, so any mesh of
+        1, 2 or 4 devices does)."""
+        n_pad = int(n_pad)
+        if n_pad % self.size or n_pad // self.size < 2:
+            raise ValueError(f"n_pad {n_pad} does not split into "
+                             f"{self.size} shards of >= 2 rows")
+        return n_pad // self.size
+
+    def __repr__(self):
+        return f"Mesh({[str(d) for d in self.devices]})"
+
+
+def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
+    """A mesh over `devices`, else over every visible CUDA device; the
+    first `n_devices` of them when given."""
+    if devices is None:
+        count = torch.cuda.device_count()
+        if count == 0:
+            raise RuntimeError("no CUDA device for a mesh; pass devices=")
+        devices = [torch.device("cuda", i) for i in range(count)]
+    devices = list(devices)
+    if n_devices is not None:
+        devices = devices[:n_devices]
+    return Mesh(devices)
+
+
+def _to(v, device) -> torch.Tensor:
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    return t.to(device, copy=True).contiguous()
+
+
+def shard_node_arrays(mesh: Mesh, nodes: dict) -> list:
+    """One dict per shard of the node matrix (numpy or tensors): each
+    sharded field's rows of that shard on its device; a field whose node
+    axis does not split replicates."""
+    n_pad = int(np.shape(nodes["valid"])[0])
+    rows = mesh.rows(n_pad)
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        lo = s * rows
+        shard = {}
+        for k, v in nodes.items():
+            split = k in _SHARDED_1D + _SHARDED_2D \
+                and np.ndim(v) >= 1 and np.shape(v)[0] == n_pad
+            shard[k] = _to(v[lo: lo + rows] if split else v, dev)
+        out.append(shard)
+    return out
+
+
+def _split_pod(mesh: Mesh, pod: dict, axis: int) -> list:
+    out = [dict() for _ in mesh.devices]
+    for k, v in pod.items():
+        need = axis + 1 if axis >= 0 else -axis
+        width = np.shape(v)[axis] if np.ndim(v) >= need else 1
+        split = k in _POD_SHARDED and np.ndim(v) >= 1 and width > 1 \
+            and width % mesh.size == 0
+        rows = width // mesh.size if split else 0
+        for s, dev in enumerate(mesh.devices):
+            if split:
+                sl = [slice(None)] * np.ndim(v)
+                sl[axis] = slice(s * rows, (s + 1) * rows)
+                out[s][k] = _to(v[tuple(sl)], dev)
+            elif isinstance(v, torch.Tensor):
+                out[s][k] = v.to(dev)
+            else:
+                out[s][k] = v
+    return out
+
+
+def shard_pod_arrays(mesh: Mesh, pod: dict) -> list:
+    """One dict per shard of a pod's inputs: a per-node field splits
+    along its node axis; inert [1] fields and scalars replicate (host
+    values stay on the host)."""
+    return _split_pod(mesh, pod, -1)
+
+
+def shard_pod_batch(mesh: Mesh, pods: dict) -> list:
+    """A stacked [B, ...] pod batch per shard: per-node [B, N] fields
+    split along axis 1, per-pod values replicate."""
+    return _split_pod(mesh, pods, 1)
+
+
+def _as_shards(mesh: Mesh, nodes) -> list:
+    if isinstance(nodes, dict):
+        return shard_node_arrays(mesh, nodes)
+    shards = list(nodes)
+    if len(shards) != mesh.size:
+        raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
+    for sh, dev in zip(shards, mesh.devices):
+        K._require_on("shard", dev, *sh.values())
+    return shards
+
+
+def all_gather(mesh: Mesh, parts: list, out: dict | None = None):
+    """Copy shard s's 1-D uint8 record `parts[s]` (on `mesh.devices[s]`)
+    into row s of a [D, bytes] buffer on every distinct device. On CUDA
+    each copy waits on an event recorded after the record's producer on
+    its device's current stream (no device-wide sync). `out` reuses
+    buffers by device. Returns ({device: buffer}, bytes copied)."""
+    events = []
+    for p in parts:
+        ev = None
+        if p.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(p.device))
+        events.append(ev)
+    bufs, nbytes = {}, 0
+    width = int(parts[0].numel())
+    for d in mesh.distinct:
+        buf = out[d] if out is not None else torch.empty(
+            (mesh.size, width), dtype=torch.uint8, device=d)
+        with K._on(d):
+            for s, p in enumerate(parts):
+                if events[s] is not None:
+                    torch.cuda.current_stream(d).wait_event(events[s])
+                buf[s].copy_(p, non_blocking=True)
+                nbytes += p.numel()
+        bufs[d] = buf
+    return bufs, nbytes
+
+
+def _replicas(mesh: Mesh, v, dtype=None) -> dict:
+    """`v` (host array or tensor, or None) on every distinct device."""
+    if v is None:
+        return {d: None for d in mesh.distinct}
+    return {d: K._t(v, d, dtype).contiguous() for d in mesh.distinct}
+
+
+def _weight_rows(mesh: Mesh, weights, wtab, pid) -> dict:
+    """The [K] weight row on every distinct device, made once per call:
+    the `wtab` row of profile `pid`, else the static weights in axis
+    order (the kernels and plain versions read either alike)."""
+    wtabs = _replicas(mesh, wtab, K.I64)
+    return {d: K._weight_row(weights, None if wtabs[d] is None
+                             else K._row_at(wtabs[d], pid), d)
+            for d in mesh.distinct}
+
+
+def sharded_cycle(mesh: Mesh, nodes, pod: dict, last_index, last_node_index,
+                  num_to_find, n_real, z_pad, weights=None, wtab=None,
+                  perm=None, inv_perm=None, pos=None) -> dict:
+    """`sharded_cycle_fn` (sharding.py:115): one scheduling cycle with the
+    node axis split over the mesh. K9a on every shard (filter, row-local
+    scores, the record), the all-gather, K9b on every distinct device
+    (walk, kept-set normalizations, select). Returns the JAX output dict;
+    its per-node tensors are whole [n_pad] vectors on the first device.
+    Books `gather.cycle` (bytes)."""
+    weights = weights or K.DEFAULT_WEIGHTS
+    shards = _as_shards(mesh, nodes)
+    n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
+    rows = mesh.rows(n_pad)
+    planes = K.cycle_record_planes(pod, weights)
+    pods = shard_pod_arrays(mesh, pod)
+    wrow = _weight_rows(mesh, weights, wtab, pod.get("profile_id", 0))
+    local = [K.shard_cycle_local(sh, pd, s * rows, n_real, weights, planes,
+                                 wrow=wrow[dev])
+             for s, (sh, pd, dev) in enumerate(zip(shards, pods,
+                                                   mesh.devices))]
+    gathered, nbytes = all_gather(mesh, [r[3] for r in local])
+    obs.inc("gather.cycle", nbytes)
+    perms, invs, poss = (_replicas(mesh, perm, K.I32),
+                         _replicas(mesh, inv_perm, K.I32),
+                         _replicas(mesh, pos, K.I32))
+    sel = {d: K.shard_cycle_select(
+        gathered[d], planes, rows, n_real, pod, last_index, last_node_index,
+        num_to_find, weights, z_pad, wrow=wrow[d], perm=perms[d],
+        inv_perm=invs[d], pos=poss[d]) for d in mesh.distinct}
+    d0 = mesh.devices[0]
+    out, total, kept = sel[d0]
+
+    def cat(i):
+        return torch.cat([r[i].to(d0) for r in local])
+    return {"selected": out[0], "found": out[1], "evaluated": out[2],
+            "max_score": out[3], "total": total, "kept": kept,
+            "feasible": cat(0), "fail_first": cat(1),
+            "general_bits": cat(2), "next_last_index": out[4],
+            "next_last_node_index": out[5]}
+
+
+def _pad_cols(rows_list: list, width: int) -> torch.Tensor | None:
+    """[len, width] int64 stack of [rows] vectors, zero-padded."""
+    if not rows_list:
+        return None
+    st = torch.stack([r.to(K.I64) for r in rows_list])
+    if st.shape[1] < width:
+        st = torch.cat([st, torch.zeros((st.shape[0], width - st.shape[1]),
+                                        dtype=K.I64, device=st.device)], 1)
+    return st.contiguous()
+
+
+def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
+                    check_resources, weights=None, rotation=None,
+                    extra_ok=None, ban=False, cap=None, wtab=None, pid=0):
+    """`sharded_uniform_fn` (sharding.py:151): the uniform K-batch burst
+    with its node-axis state split over the mesh. Each pass runs K9c on
+    every shard (fold the previous pass's accepted lanes it owns, sweep
+    its rows), the all-gather of the shards' tie / stay bytes and maxima,
+    and K9d on every distinct device (the tie walk and the lanes). The
+    pass loop runs on the host, PASS_GROUP passes between reads of the
+    pass counter; passes past the end are no-ops on the device. Returns
+    (one dict of folded rows per shard, packed[cap+1] int32 and the lni
+    tensor, both on the first device). Books `gather.burst_uniform`
+    (bytes), `passes.burst_uniform` and `syncs.burst_uniform`."""
+    weights = weights or K.DEFAULT_WEIGHTS
+    shards = _as_shards(mesh, nodes)
+    D = mesh.size
+    n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
+    rows = mesh.rows(n_pad)
+    cap = K.B_CAP if cap is None else int(cap)
+    if n_pods > cap:
+        raise ValueError(f"uniform burst of {n_pods} exceeds cap={cap}")
+    flags = K._uniform_flags(cls, check_resources)
+    check_res, has_req = flags[:2]
+    clsv = _replicas(mesh, np.asarray(K._uniform_cls_vec(cls, flags),
+                                      np.int64))
+    wrow = _weight_rows(mesh, weights, wtab, pid)
+    perm = oid = {d: None for d in mesh.distinct}
+    if rotation is not None:
+        perm = _replicas(mesh, rotation[0], K.I32)
+        oid = _replicas(mesh, rotation[1], K.I32)
+    lni0 = last_node_index if isinstance(last_node_index, torch.Tensor) \
+        else torch.tensor(int(np.asarray(last_node_index)), dtype=K.I64)
+    state, out, lni_out, owner = {}, {}, {}, {}
+    for d in mesh.distinct:
+        st = torch.zeros(K.ST_LANES + K.K_BATCH, dtype=K.I64, device=d)
+        st[K.ST_LNI] = lni0.to(d).reshape(())
+        st[K.ST_LNI0] = st[K.ST_LNI]
+        state[d] = st
+        out[d] = torch.full((cap + K.K_BATCH,), -1, dtype=K.I32, device=d)
+        out[d][cap] = 0
+        lni_out[d] = st[K.ST_LNI: K.ST_LNI + 1].clone()
+        owner[d] = torch.full((n_pad + 1,), K.K_BATCH, dtype=K.I32,
+                              device=d)
+    ushards = []
+    for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
+        lo = s * rows
+        width = rows + (1 if s == D - 1 else 0)
+        carried, xalloc, salloc, sused = K._uniform_rows(nd, flags)
+        R, NS = len(carried), len(salloc)
+        extra = None if extra_ok is None \
+            else K._t(extra_ok, dev, torch.bool)[lo: lo + rows].contiguous()
+        with K._on(dev):
+            tot0 = K.local_total(weights, nd["nz_cpu"], nd["nz_mem"],
+                                 nd["alloc_cpu"], nd["alloc_mem"],
+                                 wrow=wrow[dev], add_cpu=int(cls["nz_cpu"]),
+                                 add_mem=int(cls["nz_mem"]))
+        ushards.append(K.UniformShard(
+            lo, rows, width, nd, _pad_cols(carried, width),
+            _pad_cols(xalloc, width), _pad_cols(salloc, width),
+            _pad_cols(sused, width), extra, tot0))
+    gbuf = {d: torch.empty((D, ushards[0].rec.numel()), dtype=torch.uint8,
+                           device=d) for d in mesh.distinct}
+    hoff = ushards[0].hoff
+
+    def sweep(init):
+        for sh, dev in zip(ushards, mesh.devices):
+            K.shard_uniform_sweep(sh, state[dev], clsv[dev], R, NS,
+                                  check_res, has_req, ban, weights,
+                                  wrow[dev], n_real, n_pods, init)
+
+    nbytes = syncs = 0
+    first = True
+    while n_pods > 0:
+        for _ in range(PASS_GROUP):
+            sweep(first)
+            first = False
+            _bufs, nb = all_gather(mesh, [sh.rec for sh in ushards], gbuf)
+            nbytes += nb
+            for d in mesh.distinct:
+                K.shard_uniform_select(gbuf[d], rows, hoff, state[d], out[d],
+                                       lni_out[d], owner[d], n_pods, cap,
+                                       ban, perm=perm[d], oid_seq=oid[d])
+        syncs += 1
+        if int(state[mesh.devices[0]][K.ST_DONE]) >= n_pods:
+            break
+    sweep(first)    # fold the last pass's lanes
+    d0 = mesh.devices[0]
+    obs.inc("gather.burst_uniform", nbytes)
+    obs.inc("passes.burst_uniform", int(state[d0][K.ST_PASS]))
+    obs.inc("syncs.burst_uniform", syncs)
+    return ([K._uniform_out_rows(sh.st[:, :rows], nd, flags)
+             for sh, nd in zip(ushards, shards)],
+            out[d0][: cap + 1], lni_out[d0][0])

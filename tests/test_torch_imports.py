@@ -29,6 +29,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kubernetes_tpu_torch.carry" in mods
     assert "kubernetes_tpu_torch.profiles" in mods
     assert "kubernetes_tpu_torch.oracle.preemption" in mods
+    assert "kubernetes_tpu_torch.parallel.sharding" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -109,3 +110,45 @@ def test_launch_slot_tables_match_the_kernel_enums():
     preempt = (_build.CSRC / "preempt_scan.cu").read_text()
     assert len(_enum_slots(preempt, "PP_COUNT")) == len(PK._PREEMPT_PTRS)
     assert len(_enum_slots(preempt, "PI_COUNT")) == 9
+
+
+# the mesh kernels K9a-d: (source, the C enum's last slot of the scalar
+# table, of the pointer table, the enum prefixes, host tables)
+_MESH_SLOTS = [
+    ("shard_cycle_local", "CL_COUNT", "LP_COUNT", "CL_", "LP_",
+     "_SCL_INTS", "_SCL_PTRS"),
+    ("shard_cycle_select", "CS_COUNT", "SP_COUNT", "CS_", "SP_",
+     "_SCS_INTS", "_SCS_PTRS"),
+    ("shard_uniform_sweep", "US_COUNT", "UP_COUNT", "US_", "UP_",
+     "_SUS_INTS", "_SUS_PTRS"),
+    ("shard_uniform_select", "UD_COUNT", "DP_COUNT", "UD_", "DP_",
+     "_SUD_INTS", "_SUD_PTRS"),
+]
+
+
+def test_mesh_launch_slot_tables_match_the_kernel_enums():
+    """K9a-d: the host's scalar and pointer slot tables name the kernels'
+    C enum slots one to one, in order (the enum spells the host name in
+    capitals after its prefix, short forms aside)."""
+    from kubernetes_tpu_torch.ops import _build
+    short = {"allowed_pods": "ALLOWED", "interpod_code": "IPA_CODE",
+             "node_aff_counts": "NA", "taint_counts": "TT",
+             "spread_counts": "SC", "interpod_counts": "IC",
+             "image_sums": "IMG", "prefer_avoid": "PA",
+             "interpod_tracked": "TRACKED"}
+    for name, iend, pend, ipre, ppre, itab, ptab in _MESH_SLOTS:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for end, pre, table in ((iend, ipre, itab), (pend, ppre, ptab)):
+            slots = _enum_slots(src, end)
+            host = getattr(PK, table)
+            assert len(slots) == len(host), (name, table)
+            for h, c in zip(host, slots):
+                assert c == pre + short.get(h, h.upper()), (name, h, c)
+    # the pass-state slots K9c and K9d share (uniform.cuh's last enum)
+    uniform = (_build.CSRC / "uniform.cuh").read_text()
+    state = [x.strip() for x in uniform.split("enum {")[-1].split("}")[0]
+             .split(",")]
+    assert state == ["ST_DONE", "ST_LNI", "ST_PASS", "ST_VFOLD", "ST_LNI0",
+                     "ST_LANES"]
+    assert [PK.ST_DONE, PK.ST_LNI, PK.ST_PASS, PK.ST_VFOLD, PK.ST_LNI0,
+            PK.ST_LANES] == list(range(6))
