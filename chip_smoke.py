@@ -9,13 +9,18 @@
    K4 scatter_rows, K5 schedule_batch, K6 schedule_segments, K7
    preempt_scan, K8 pressure_batch, and the mesh kernels K9a
    shard_cycle_local, K9b shard_cycle_select, K9c shard_uniform_sweep,
-   K9d shard_uniform_select) equal to its plain PyTorch version on the
+   K9d shard_uniform_select, K10a shard_scan_local, K10b
+   shard_scan_select, K11a shard_segments_local, K11b
+   shard_segments_select) equal to its plain PyTorch version on the
    card, at the main paths' shapes (n_pad 16,384; K5 and K6 on whole
    10,000-pod windows, K8 on a 128-pod chunk of preempt-wave, K7 on a
-   preempt-single round, K9a-d on their first call of the mesh path),
-   times both, and holds every kernel mode against the plain version on
-   random inputs (K7/K8 at P 16 and 128, K4 on the victim planes, K9a-d
-   on 1, 2 and 4 shards with every cycle mode and every K3 case).
+   preempt-single round, K9a-d on their first call of the mesh path,
+   K10a/b and K11a/b on the first step of mesh-scan-default and
+   mesh-fused), times both, and holds every kernel mode against the
+   plain version on random inputs (K7/K8 at P 16 and 128, K4 on the
+   victim planes, K9a-d on 1, 2 and 4 shards with every cycle mode and
+   every K3 case, K10a-K11b on 1, 2 and 4 shards in every scan and
+   segments mode).
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
@@ -44,7 +49,14 @@
      4)), four shards on the one card, on 15,000 and 15,001 nodes, held
      against the single-device K3/K2 run of the same world: decisions,
      the packed block, lni, the folded rows gathered back and the
-     resident matrix.
+     resident matrix;
+   - mesh-scan-default (15,000 and 15,001 nodes), mesh-scan-mixed,
+     mesh-scan-spread (K10a/b, with K9a/b and K4 in the serial tail) and
+     mesh-fused (K11a/b): the scan and fused cells' windows through
+     TorchScheduler(mesh=Mesh(["cuda"] * 4)), one step per pod, each
+     whole window held against the single-device K5/K6 run of the same
+     world in the same call: every decision, the serial tail, the walk
+     counters, the packed block, li, lni and the folded rows.
    Launch counts are zeroed just before each path and read just after;
    each path's kernels must have run and no window may be refused.
    Decisions, walk counters and folded rows must equal the plain path on
@@ -56,10 +68,11 @@
 
 With `--cards` (a host of several cards) it builds the kernels and runs
 only the mesh phase, one shard per card, so the all-gather's copies are
-peer copies between the cards: K9a-d against their plain versions on
-meshes of all the cards and of the first two, and mesh-uniform at 15,000
-and 15,001 nodes held against the single-device run on the first card;
-its kernels line holds K9a-d only.
+peer copies between the cards: K9a-d and K10a-K11b against their plain
+versions on meshes of all the cards and of the first two, mesh-uniform
+at 15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
+mesh-fused, each held against the single-device run on the first card;
+its kernels line holds the mesh kernels K9a-K11b only.
 
 Any mismatch or exception exits non-zero. Without a CUDA device it exits
 non-zero before printing any result. The last stdout line is
@@ -156,8 +169,12 @@ KERNEL_ENTRIES = ("local_total", "schedule_cycle", "schedule_batch_uniform",
 #: the mesh kernels K9a-d, and the single-device kernels a mesh path also
 #: launches per shard (K1, K4)
 MESH_KERNELS = ("shard_cycle_local", "shard_cycle_select",
-                "shard_uniform_sweep", "shard_uniform_select")
+                "shard_uniform_sweep", "shard_uniform_select",
+                "shard_scan_local", "shard_scan_select",
+                "shard_segments_local", "shard_segments_select")
 MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
+#: the kernels of the mesh-uniform path (K9a-d)
+UNIFORM_MESH_KERNELS = MESH_KERNELS[:4]
 
 
 @contextlib.contextmanager
@@ -965,30 +982,37 @@ def prefix_segments(segs, n):
     return out
 
 
-def make_sched(tree, device, pct, services=(), profiles=None):
+def make_sched(tree, device, pct, services=(), profiles=None, mesh=None):
     from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
     from kubernetes_tpu_torch.profiles import ProfileSet
     sched = TorchScheduler(percentage_of_nodes_to_score=pct, node_tree=tree,
                            device=device,
-                           services_fn=lambda: list(services))
+                           services_fn=lambda: list(services), mesh=mesh)
     if profiles is not None:
         sched.set_profiles(ProfileSet.from_dict({"profiles": profiles}))
     return sched
 
 
 def mutable_rows(sched):
+    """The resident matrix's mutable rows on the host (a mesh's shards
+    gathered back into whole vectors)."""
     from kubernetes_tpu_torch.ops.kernels import _MUTABLE
-    if sched._dev_nodes is None:
+    dev = sched._dev_nodes
+    if dev is None:
         return None
-    return {k: sched._dev_nodes[k].cpu() for k in _MUTABLE}
+    if isinstance(dev, list):
+        dev = cat_rows(dev)
+    # a copy: the serial cycles after the window scatter into these rows
+    return {k: dev[k].to("cpu", copy=True) for k in _MUTABLE}
 
 
-def run_scan(cfg, n_nodes, window, n_serial, device, sync):
+def run_scan(cfg, n_nodes, window, n_serial, device, sync, mesh=None):
     """One scan path: the window through schedule_burst, the assume loop,
-    then `n_serial` serial cycles."""
+    then `n_serial` serial cycles (the node axis split over `mesh` when
+    given)."""
     infos, tree = cluster(n_nodes, cfg.get("labels"))
     sched = make_sched(tree, device, cfg["pct"], cfg.get("services", ()),
-                       cfg.get("profiles"))
+                       cfg.get("profiles"), mesh=mesh)
     t0 = time.perf_counter()
     hosts = sched.schedule_burst(window, infos, tree.list_names())
     sync()
@@ -1018,10 +1042,11 @@ def run_scan(cfg, n_nodes, window, n_serial, device, sync):
             "phases": dict(sched.last_burst_phases or {})}
 
 
-def run_fused(cfg, n_nodes, segments, device, sync):
+def run_fused(cfg, n_nodes, segments, device, sync, mesh=None):
     """One fused drain window, committed as the shell commits it."""
     infos, tree = cluster(n_nodes, cfg.get("labels"))
-    sched = make_sched(tree, device, cfg["pct"], (), cfg.get("profiles"))
+    sched = make_sched(tree, device, cfg["pct"], (), cfg.get("profiles"),
+                       mesh=mesh)
     t0 = time.perf_counter()
     res = sched.schedule_burst_fused(segments, infos, tree.list_names())
     sync()
@@ -1096,9 +1121,11 @@ def _clone(x):
         return {k: _clone(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return type(x)(_clone(v) for v in x)
-    if isinstance(x, K.UniformShard):
+    if isinstance(x, (K.UniformShard, K.ScanShard, K.ScanSide)):
         y = copy.copy(x)
         y.__dict__ = _clone(x.__dict__)
+        if hasattr(y, "_args"):
+            y._args = {}     # launch arrays point at the original tensors
         return y
     return x
 
@@ -1171,7 +1198,8 @@ def scan_path(cfg, n_nodes, window_fn, device, sync, report, check):
     """A scan path: the whole window on the kernels (launches counted),
     then the first PREFIX pods on the kernels and on the plain versions,
     which must agree in decisions, walk counters, folded rows and serial
-    cycles, and must be the whole run's first decisions."""
+    cycles, and must be the whole run's first decisions. Returns the
+    whole run and its K5 call's result (the mesh paths' reference)."""
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.ops import kernels as K
     name = cfg["name"]
@@ -1211,13 +1239,15 @@ def scan_path(cfg, n_nodes, window_fn, device, sync, report, check):
                 f"cycles {run['t_serial'] * 1e3:.1f} ms; first {PREFIX} "
                 f"pods, counters, rows and serial cycles equal to the plain "
                 f"path")
+    return run, cap.last
 
 
 def fused_path(cfg, device, sync, report, check):
     """The fused-gang path: the whole window on K6 (launches counted); the
     rack gang is rejected after placing 40 members, and the window without
     it ends in the same rows, counters and consumed enumerations; its
-    first >= PREFIX pods agree with the plain path."""
+    first >= PREFIX pods agree with the plain path. Returns the whole run
+    and its K6 call's result."""
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.ops import kernels as K
     name = cfg["name"]
@@ -1274,6 +1304,7 @@ def fused_path(cfg, device, sync, report, check):
                 f"{run['res']['consumed']} enumerations); first "
                 f"{len(short)} segments ({n_short} pods) equal to the "
                 f"plain path")
+    return run, cap.last
 
 
 def add_launches(report, counts):
@@ -1285,7 +1316,8 @@ def add_launches(report, counts):
 
 def scan_paths(device, sync, report):
     """The K5 and K6 paths, each kernel held against its plain version on
-    its main path's whole window first."""
+    its main path's whole window first. Returns {cell: (run, the kernel
+    call's result)}, the single-device reference of the mesh paths."""
     from kubernetes_tpu_torch.ops import kernels as K
 
     def k5_check(call, run):
@@ -1304,22 +1336,38 @@ def scan_paths(device, sync, report):
                           K.schedule_batch_segments_plain, call, n_cycles,
                           n_pods, len(call[1][0]) * 4 * 4, sync)
 
+    runs = {}
+    for cfg, n_nodes, window_fn in scan_cells():
+        runs[cfg["name"]] = scan_path(
+            cfg, n_nodes, window_fn, device, sync, report,
+            k5_check if cfg["name"] == "scan-default" else None)
+    runs[FUSED_CELL["name"]] = fused_path(FUSED_CELL, device, sync, report,
+                                          k6_check)
+    return runs
+
+
+def scan_cells():
+    """The scan cells (config, nodes, window), run on one device by
+    scan_paths and over a mesh by mesh_scan_paths."""
     default = {"name": "scan-default", "pct": 50, "serial": N_SERIAL,
                "kernels": ("schedule_batch", "local_total",
                            "schedule_cycle", "scatter_rows")}
-    scan_path(default, N_NODES, pods, device, sync, report, k5_check)
-    scan_path(dict(default, name="scan-default (uneven zones, perm walk)"),
-              N_NODES + 1, pods, device, sync, report, None)
-    scan_path({"name": "scan-mixed", "pct": 100, "serial": 0,
-               "labels": mixed_labels, "profiles": MIXED_PROFILES,
-               "kernels": ("schedule_batch",)},
-              N_NODES + 1, mixed_window, device, sync, report, None)
-    scan_path({"name": "scan-spread", "pct": 100, "serial": 0,
-               "services": spread_services(),
-               "kernels": ("schedule_batch",)},
-              N_NODES, spread_window, device, sync, report, None)
-    fused_path({"name": "fused-gang", "pct": 50, "labels": rack_labels,
-                "profiles": FUSED_PROFILES}, device, sync, report, k6_check)
+    return [
+        (default, N_NODES, pods),
+        (dict(default, name="scan-default (uneven zones, perm walk)"),
+         N_NODES + 1, pods),
+        ({"name": "scan-mixed", "pct": 100, "serial": 0,
+          "labels": mixed_labels, "profiles": MIXED_PROFILES,
+          "kernels": ("schedule_batch",)}, N_NODES + 1, mixed_window),
+        ({"name": "scan-spread", "pct": 100, "serial": 0,
+          "services": spread_services(), "kernels": ("schedule_batch",)},
+         N_NODES, spread_window),
+    ]
+
+
+#: the fused cell, likewise
+FUSED_CELL = {"name": "fused-gang", "pct": 50, "labels": rack_labels,
+              "profiles": FUSED_PROFILES}
 
 
 def main_path(name, n_nodes, device, sync, report):
@@ -1378,6 +1426,17 @@ SOURCES.update({
     "shard_uniform_select": (
         "kubernetes_tpu_torch/ops/csrc/shard_uniform_select.cu",
         "kubernetes_tpu/parallel/sharding.py:151"),
+    "shard_scan_local": ("kubernetes_tpu_torch/ops/csrc/shard_scan_local.cu",
+                         "kubernetes_tpu/parallel/sharding.py:233"),
+    "shard_scan_select": (
+        "kubernetes_tpu_torch/ops/csrc/shard_scan_select.cu",
+        "kubernetes_tpu/parallel/sharding.py:233"),
+    "shard_segments_local": (
+        "kubernetes_tpu_torch/ops/csrc/shard_segments_local.cu",
+        "kubernetes_tpu/parallel/sharding.py:279"),
+    "shard_segments_select": (
+        "kubernetes_tpu_torch/ops/csrc/shard_segments_select.cu",
+        "kubernetes_tpu/parallel/sharding.py:279"),
 })
 
 
@@ -1506,7 +1565,8 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
     mesh = mesh or S.Mesh([device] * MESH_D)
     with capture("schedule_batch_uniform") as one:
         single = run_path(n_nodes, N_PODS, N_SERIAL, device, sync)
-    caps = [capture(k) for k in MESH_KERNELS] if check_kernels else []
+    caps = [capture(k) for k in UNIFORM_MESH_KERNELS] if check_kernels \
+        else []
     obs.reset()
     with contextlib.ExitStack() as stack:
         for c in caps:
@@ -1518,8 +1578,8 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
     refusals = obs.family("refusal")
     if refusals:
         raise SystemExit(f"{name}: refusals {refusals}")
-    missing = [k for k in MESH_KERNELS + ("local_total", "scatter_rows")
-               if counts[k] == 0]
+    missing = [k for k in UNIFORM_MESH_KERNELS
+               + ("local_total", "scatter_rows") if counts[k] == 0]
     if missing:
         raise SystemExit(f"{name}: kernels not launched on the path: "
                          f"{missing}")
@@ -1556,6 +1616,384 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
     if check_kernels:
         mesh_kernel_checks({c.fn_name: c.call for c in caps}, report, sync)
     add_launches(report, counts)
+
+
+# ---------------------------------------------------------------------------
+# Node-axis sharding of the scans: K10a/b (the generic scan) and K11a/b
+# (the fused window) on a mesh of four shards of the one card
+# ---------------------------------------------------------------------------
+SCAN_MESH_KERNELS = MESH_KERNELS[4:6]
+SEG_MESH_KERNELS = MESH_KERNELS[6:]
+
+
+def whole_window(r, d0):
+    """A scan or segments result with its per-shard rows and spread
+    slices gathered into whole vectors on `d0`."""
+    import torch
+    state, li, lni, spread, out = r
+    if isinstance(state, list):
+        state = cat_rows(state)
+    if isinstance(spread, list):
+        spread = torch.cat([x.to(d0) for x in spread])
+    return (state, li.reshape(()), lni.reshape(()), spread, out)
+
+
+def mesh_scan_variant_checks(device, sync, meshes=None):
+    """K10a/b and K11a/b against their plain versions on random inputs,
+    and the sharded scan / segments programs against the single-device
+    plain K5 / K6, on one card split into 1, 2 and 4 shards: identity,
+    partial, perm and pos walks, the carried spread and carry_in, a
+    weight table with per-pod profile ids, skip pods mid-window; for K11
+    also a gang whose placed members lie on every shard when it fails
+    (each shard rewinds on the same step), the gang score, a singleton
+    failure and n_pods < B. n_real (3,999) is a multiple of no shard
+    count. Every comparison is exact: packed block, stats, folded rows,
+    spread, li, lni. `meshes` (lists of devices) replaces the shards of
+    one card."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    rng = np.random.default_rng(20261021)
+    n_pad, n_real, s_count, zones = 4096, 3999, 2, 6
+    B, n_live = 64, 48
+    checked = 0
+
+    def same(name, got, want):
+        nonlocal checked
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise SystemExit(f"mesh scan variant {name}: disagrees "
+                             f"(max_abs_err {err}; first difference "
+                             f"{first_diff(got, want)})")
+        checked += 1
+
+    nodes = _rand_nodes(rng, n_pad, n_real, s_count, zones, device)
+    for k in ("req_cpu", "req_mem", "pod_count"):
+        nodes[k] = nodes[k] // 3        # room for the window's pods
+    # 20 rack nodes spread over every shard: 8 CPU, empty, so each takes
+    # one member of the 5-CPU rack gang, whose 21st member then fails
+    rack = np.sort(rng.choice(n_real, 20, replace=False))
+    rk = torch.as_tensor(rack).to(device)
+    for k, v in (("alloc_cpu", 8000), ("alloc_mem", 32 * GI),
+                 ("alloc_eph", 50 * GI), ("allowed_pods", 110),
+                 ("alloc_scalar", 40), ("req_cpu", 0), ("req_mem", 0),
+                 ("req_eph", 0), ("req_scalar", 0), ("pod_count", 0)):
+        nodes[k][rk] = v
+    perms = np.stack([np.arange(n_pad)] + [
+        np.concatenate([rng.permutation(n_real), np.arange(n_real, n_pad)])
+        for _ in range(3)]).astype(np.int32)
+    inv = np.empty_like(perms)
+    for i in range(len(perms)):
+        inv[i, perms[i]] = np.arange(n_pad, dtype=np.int32)
+    perms_t = torch.as_tensor(perms).to(device)
+    inv_t = torch.as_tensor(inv).to(device)
+    wtab = torch.as_tensor(rng.integers(0, 4, (3, len(K.PRIORITY_AXIS)))
+                           ).to(device)
+    wtab[:, K.PRIORITY_AXIS.index("gang_locality")] = torch.tensor(
+        [0, 3, 5], device=device)
+    union = {k: int(wtab[:, i].max()) for i, k in enumerate(K.PRIORITY_AXIS)}
+    specs = [_spec(500, False, rng, n_pad, s_count),
+             _spec(1000, True, rng, n_pad, s_count),
+             _spec(2000, False, rng, n_pad, s_count)]
+    pad = dict(specs[0], skip=np.bool_(True))
+    racked = dict(_spec(5000, False, rng, n_pad, s_count),
+                  sel_ok=np.isin(np.arange(n_pad), rack))
+    big = dict(specs[0], req_cpu=np.int64(9000), nz_cpu=np.int64(9000),
+               upd_cpu=np.int64(9000))
+    table = specs + [pad, racked, big]      # rows 0-2, pad 3, rack 4, big 5
+    oid = rng.integers(0, 4, 128).astype(np.int32)
+    prof = rng.integers(-1, 4, 128)
+    spread0 = torch.as_tensor(rng.integers(0, 5, n_pad)).to(device)
+    # the scan window: live pods of specs 0-2, skip pods mid-window and
+    # padding to B
+    rows = np.concatenate([rng.integers(0, 3, n_live), np.full(B - n_live, 3)])
+    rows[[4, 5, 17]] = 3
+
+    def stack(rws, spread=False, with_prof=False):
+        sp = [dict(d) for d in table]
+        if spread:
+            for d in sp:
+                d["spread_counts"] = np.zeros(1, np.int64)
+        return K.PodStack.from_specs(sp, rws, prof[:len(rws)] if with_prof
+                                     else None, device)
+    scan_cases = [
+        ("partial walk", {}, 900),
+        ("perm", dict(rotation=(perms_t, inv_t, oid[:B])), 700),
+        ("pos", dict(rotation_pos=(inv_t, oid[:B])), n_real),
+        ("spread", dict(spread0=spread0), 900),
+        ("weight table", dict(weights=union, wtab=wtab), n_real),
+    ]
+    # the segments window: a singleton run, the rack gang (20 placed on
+    # every shard, the 21st fails: rewind), a gang that fits, a singleton
+    # run, a failing 9-CPU singleton, padding
+    Bs = 128
+    layout = [(0, 12, False), (4, 21, True), (1, 16, True), (2, 10, False),
+              (5, 1, False), (0, 8, False)]
+    seg = np.zeros(Bs, bool)
+    gang = np.zeros(Bs, bool)
+    srows = np.full(Bs, 3)
+    i = 0
+    for spec, length, g in layout:
+        seg[i] = True
+        gang[i: i + length] = g
+        srows[i: i + length] = spec
+        i += length
+    seg[i] = True
+    n_seg = i
+    seg_t = torch.as_tensor(seg).to(device)
+    gang_t = torch.as_tensor(gang).to(device)
+    seg_cases = [
+        ("axis", {}, 900, n_seg),
+        ("perm", dict(rotation=(perms_t, inv_t, oid)), 700, n_seg),
+        ("pos", dict(rotation_pos=(inv_t, oid)), n_real, n_seg),
+        ("gang score + weight table",
+         dict(weights=union, wtab=wtab, gang_score=True), n_real, n_seg),
+        ("spread carry", dict(spread0=spread0), 900, n_seg),
+        ("n_pods < B, stops mid-gang", {}, 900, 25),
+    ]
+    # the single-device plain K5 / K6 of every case, once
+    want_scan, want_seg = {}, {}
+    for name, kw, ntf in scan_cases:
+        st = stack(rows, spread=name == "spread",
+                   with_prof=name == "weight table")
+        w1 = K.schedule_batch_plain(nodes, st, 37, 11, ntf, n_real, 8, **kw)
+        w2 = None
+        if name == "spread":
+            w2 = K.schedule_batch_plain(nodes, st, w1[1], w1[2], ntf,
+                                        n_real, 8, carry_in=(w1[0], w1[3]))
+        want_scan[name] = (st, w1, w2)
+    for name, kw, ntf, np_ in seg_cases:
+        st = stack(srows, with_prof="wtab" in kw)
+        want = K.schedule_batch_segments_plain(
+            nodes, st, seg_t, gang_t, np_, 5, 9, ntf, n_real, 8, **kw)
+        sel = want[4][:Bs].cpu().numpy()
+        if np_ == n_seg:
+            g = sel[12: 33]
+            if not ((g >= 0).sum() == 20 and g[20] < 0):
+                raise SystemExit(f"mesh scan variant segments/{name}: the "
+                                 f"rack gang did not place 20 and fail")
+        want_seg[name] = (st, want)
+    d0 = torch.device(device)
+    for devs in meshes or [[device] * D for D in MESH_SHARDS]:
+        mesh = S.Mesh(devs)
+        D = mesh.size
+        d0 = mesh.devices[0]
+        shards = S.shard_node_arrays(mesh, nodes)
+        for name, kw, ntf in scan_cases:
+            st, w1, w2 = want_scan[name]
+            args = (st, 37, 11, ntf, n_real, 8)
+            got = K.schedule_batch(shards, *args, mesh=mesh, **kw)
+            with plain_versions(MESH_ENTRIES):
+                ref = K.schedule_batch(shards, *args, mesh=mesh, **kw)
+            same(f"{D} shards/scan/{name} vs plain", whole_window(got, d0),
+                 whole_window(ref, d0))
+            same(f"{D} shards/scan/{name} vs K5 plain",
+                 whole_window(got, d0), whole_window(w1, d0))
+            if w2 is not None:
+                args2 = (st, got[1], got[2], ntf, n_real, 8)
+                got2 = K.schedule_batch(shards, *args2, mesh=mesh,
+                                        carry_in=(got[0], got[3]))
+                same(f"{D} shards/scan/carry_in vs K5 plain",
+                     whole_window(got2, d0), whole_window(w2, d0))
+        for name, kw, ntf, np_ in seg_cases:
+            st, want = want_seg[name]
+            args = (st, seg_t, gang_t, np_, 5, 9, ntf, n_real, 8)
+            got = K.schedule_batch_segments(shards, *args, mesh=mesh, **kw)
+            with plain_versions(MESH_ENTRIES):
+                ref = K.schedule_batch_segments(shards, *args, mesh=mesh,
+                                                **kw)
+            same(f"{D} shards/segments/{name} vs plain",
+                 whole_window(got, d0), whole_window(ref, d0))
+            same(f"{D} shards/segments/{name} vs K6 plain",
+                 whole_window(got, d0), whole_window(want, d0))
+    sync()
+    print(f"[variants] {checked} mesh scan comparisons equal (K10a/b and "
+          f"K11a/b against their plain versions and the sharded scan / "
+          f"segments against the single-device plain K5 / K6: partial, "
+          f"perm and pos walks, spread carry + carry_in, weight table, "
+          f"skip pods mid-window; the rack gang rewound across every "
+          f"shard, gang score, a singleton failure, n_pods < B; on meshes "
+          f"of {[len(m) for m in meshes] if meshes else list(MESH_SHARDS)} "
+          f"shards, n_real {n_real})")
+
+
+def scan_local_bytes(sh, plan):
+    """Bytes one local step moves: the shard's node fields and the pod's
+    row of each dense table read, the record written."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    rows = sh.rows
+    tab = sum(v[0].numel() * v.element_size() for v in sh.tab.values()
+              if v.dim() == 2 and v.shape[1] == rows)
+    return nbytes(sh.nodes) + tab + (nbytes(sh.spread) if plan.carry_spread
+                                     else 0) + sh.rec.numel() \
+        + (2 * 8 * (len(K._MUTABLE) + 1) * rows if sh.chk else 0)
+
+
+def scan_kernel_checks(calls, report, sync, seg):
+    """K10a/b (or K11a/b), each on its first call of the mesh path."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    local, select = SEG_MESH_KERNELS if seg else SCAN_MESH_KERNELS
+
+    def no_reset(a, base):
+        pass
+
+    def reset_side(a, base):
+        # the select advances the step state (and gz): restore it (a
+        # device copy of ~100 B) before each timed call
+        a[0].st.copy_(base[0].st)
+        if a[0].gz is not None:
+            a[0].gz.copy_(base[0].gz)
+
+    args, _kw = _full(calls[local])
+    sh, plan = args[0], args[2]
+    mesh_kernel_entry(report, local, calls[local], no_reset,
+                      lambda a, r: (a[0].rec, {k: a[0].nodes[k]
+                                               for k in K._MUTABLE}),
+                      scan_local_bytes(sh, plan), sync, 50,
+                      "shard 0's rows of the window's first step")
+    args, _kw = _full(calls[select])
+    side, plan = args[0], args[1]
+    walk = plan.n_pad * 4 * (2 if plan.mode == 1 else 1) if plan.mode else 0
+    mesh_kernel_entry(report, select, calls[select], reset_side,
+                      lambda a, r: (a[0].st, a[0].packed,
+                                    a[0].stats if a[0].stats is not None
+                                    else a[0].gz),
+                      nbytes(side.gathered) + walk + plan.n_pad * (8 + 1)
+                      + 8 * K.SS_COUNT + 5 * 8, sync, 50,
+                      "the gathered records of the window's first step",
+                      "; both times include the copy that restores the "
+                      "step state before each call")
+
+
+def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
+                   check_kernels, mesh=None):
+    """A scan cell through TorchScheduler(mesh=Mesh([device] * MESH_D)),
+    launches counted, held against the single-device K5 run of the same
+    world (`ref`, which scan_paths holds against the plain path): every
+    decision, the serial tail, the walk counters, the packed block, the
+    stats, li, lni and the folded rows."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = mesh or S.Mesh([device] * MESH_D)
+    name = "mesh-" + cfg["name"]
+    single, single_out = ref
+    caps = [capture(k) for k in SCAN_MESH_KERNELS] if check_kernels else []
+    obs.reset()
+    with contextlib.ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        with capture("schedule_batch") as sharded:
+            run = run_scan(cfg, n_nodes, window_fn(N_PODS), cfg["serial"],
+                           device, sync, mesh=mesh)
+    counts = K.launches()
+    refusals = obs.family("refusal")
+    if refusals:
+        raise SystemExit(f"{name}: refusals {refusals}")
+    need = SCAN_MESH_KERNELS + (("shard_cycle_local", "shard_cycle_select",
+                                 "scatter_rows") if cfg["serial"] else ())
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{name}: kernels not launched on the path: "
+                         f"{missing}")
+    if run["hosts"] != single["hosts"] or run["serial"] != single["serial"] \
+            or run["counters"] != single["counters"]:
+        raise SystemExit(f"{name}: decisions or walk counters differ from "
+                         f"the single-device path")
+    same_rows(f"{name} folded rows", run["rows"], single["rows"])
+    d0 = mesh.devices[0]
+    got, want = whole_window(sharded.last, d0), whole_window(single_out, d0)
+    same_rows(f"{name} packed block, stats, li, lni",
+              (got[1], got[2], got[4]), (want[1], want[2], want[4]))
+    ph = run["phases"]
+    print(f"[path] {name}: {n_nodes} nodes on {mesh.size} shards "
+          f"({len(mesh.distinct)} distinct devices), {N_PODS} pods, "
+          f"{N_PODS / run['t_burst']:.1f} pods/s "
+          f"({run['t_burst'] * 1e3:.2f} ms: encode {ph['encode'] * 1e3:.2f} "
+          f"(node mirror {ph['mirror'] * 1e3:.2f}) dispatch "
+          f"{ph['dispatch'] * 1e3:.2f} fetch {ph['fetch'] * 1e3:.2f}); "
+          f"steps {ph['steps']} gather_bytes {ph['gather_bytes']}; "
+          f"{cfg['serial']} serial cycles {run['t_serial'] * 1e3:.1f} ms; "
+          f"launches {counts}; single-device window "
+          f"{single['t_burst'] * 1e3:.2f} ms; decisions, serial cycles, "
+          f"counters, packed block, stats, li, lni and folded rows equal")
+    if check_kernels:
+        scan_kernel_checks({c.fn_name: c.call for c in caps}, report, sync,
+                           False)
+    add_launches(report, counts)
+
+
+def mesh_fused_path(device, sync, report, ref, check_kernels, mesh=None):
+    """The fused-gang cell through TorchScheduler(mesh=...), held against
+    the single-device K6 run of the same window: every segment record,
+    the consumed enumerations, the walk counters, the packed block, li,
+    lni and the folded rows; the rack gang rewinds on every shard."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = mesh or S.Mesh([device] * MESH_D)
+    name = "mesh-fused"
+    single, single_out = ref
+    segs = fused_window()
+    n_pods = sum(len(s) for s, _g in segs)
+    caps = [capture(k) for k in SEG_MESH_KERNELS] if check_kernels else []
+    obs.reset()
+    with contextlib.ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        with capture("schedule_batch_segments") as sharded:
+            run = run_fused(FUSED_CELL, N_NODES, segs, device, sync,
+                            mesh=mesh)
+    counts = K.launches()
+    refusals = obs.family("refusal")
+    if refusals:
+        raise SystemExit(f"{name}: refusals {refusals}")
+    missing = [k for k in SEG_MESH_KERNELS if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{name}: kernels not launched on the path: "
+                         f"{missing}")
+    if _records(run["res"]) != _records(single["res"]) \
+            or run["counters"] != single["counters"] \
+            or run["res"]["consumed"] != single["res"]["consumed"]:
+        raise SystemExit(f"{name}: the window differs from the "
+                         f"single-device path")
+    same_rows(f"{name} folded rows", run["rows"], single["rows"])
+    d0 = mesh.devices[0]
+    got, want = whole_window(sharded.last, d0), whole_window(single_out, d0)
+    same_rows(f"{name} packed block, li, lni", (got[1], got[2], got[4]),
+              (want[1], want[2], want[4]))
+    ph = run["phases"]
+    print(f"[path] {name}: {N_NODES} nodes on {mesh.size} shards "
+          f"({len(mesh.distinct)} distinct devices), {n_pods} pods in "
+          f"{len(segs)} segments, {n_pods / run['t_burst']:.1f} pods/s "
+          f"({run['t_burst'] * 1e3:.2f} ms: encode {ph['encode'] * 1e3:.2f} "
+          f"(node mirror {ph['mirror'] * 1e3:.2f}) dispatch "
+          f"{ph['dispatch'] * 1e3:.2f} fetch {ph['fetch'] * 1e3:.2f}); "
+          f"steps {ph['steps']} gather_bytes {ph['gather_bytes']}; "
+          f"launches {counts}; single-device window "
+          f"{single['t_burst'] * 1e3:.2f} ms; segment records, consumed "
+          f"enumerations, counters, packed block, li, lni and folded rows "
+          f"equal (the rack gang rewound on every shard)")
+    if check_kernels:
+        scan_kernel_checks({c.fn_name: c.call for c in caps}, report, sync,
+                           True)
+    add_launches(report, counts)
+
+
+def mesh_scan_paths(device, sync, report, refs, mesh=None, cells=None):
+    """The scan and fused cells over the mesh, each held against its
+    single-device run in `refs` ({cell: (run, kernel result)}); K10a/b are
+    timed on mesh-scan-default (15,000 nodes), K11a/b on mesh-fused.
+    `cells` (names) restricts the scan cells run."""
+    for cfg, n_nodes, window_fn in scan_cells():
+        if cells is not None and cfg["name"] not in cells:
+            continue
+        mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report,
+                       refs[cfg["name"]], cfg["name"] == "scan-default",
+                       mesh=mesh)
+    mesh_fused_path(device, sync, report, refs[FUSED_CELL["name"]], True,
+                    mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -2021,9 +2459,11 @@ def preempt_paths(device, sync, report):
 def cards_phase(report):
     """`--cards`: the mesh phase over every card of the host, one shard
     per card (the all-gather's copies are then peer copies between the
-    cards): K9a-d against their plain versions on meshes of all the
-    cards and of the first two, then mesh-uniform at 15,000 and 15,001
-    nodes held against the single-device K3/K2 run on the first card."""
+    cards): K9a-d and K10a-K11b against their plain versions on meshes
+    of all the cards and of the first two, then mesh-uniform at 15,000
+    and 15,001 nodes held against the single-device K3/K2 run on the
+    first card, and mesh-scan-default (15,000 nodes) and mesh-fused held
+    against the single-device K5 / K6 run on the first card."""
     import torch
     from kubernetes_tpu_torch.parallel import sharding as S
     n = torch.cuda.device_count()
@@ -2035,12 +2475,24 @@ def cards_phase(report):
             torch.cuda.synchronize(i)
     mesh = S.make_mesh()
     device = mesh.devices[0]
-    mesh_variant_checks(device, sync, meshes=[list(mesh.devices),
-                                              list(mesh.devices[:2])])
+    meshes = [list(mesh.devices), list(mesh.devices[:2])]
+    mesh_variant_checks(device, sync, meshes=meshes)
     for name, nn in (("even zones", N_NODES),
                      ("uneven zones (rotate)", N_NODES + 1)):
         mesh_path(f"{name}, {n} cards", nn, device, sync, report,
                   nn == N_NODES, mesh=mesh)
+    mesh_scan_variant_checks(device, sync, meshes=meshes)
+    refs = {}
+    cfg, n_nodes, window_fn = scan_cells()[0]
+    with capture("schedule_batch") as one:
+        run = run_scan(cfg, n_nodes, window_fn(N_PODS), cfg["serial"],
+                       device, sync)
+    refs[cfg["name"]] = (run, one.last)
+    with capture("schedule_batch_segments") as one:
+        run = run_fused(FUSED_CELL, N_NODES, fused_window(), device, sync)
+    refs[FUSED_CELL["name"]] = (run, one.last)
+    mesh_scan_paths(device, sync, report, refs, mesh=mesh,
+                    cells=(cfg["name"],))
 
 
 def main() -> int:
@@ -2063,19 +2515,23 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     lines = smi.stdout.strip().splitlines()
-    print("\n".join(lines if cards else lines[:1]) if lines
-          else f"nvidia-smi: {smi.stderr.strip()}")
+    card = ("\n".join(lines if cards else lines[:1]) if lines
+            else f"nvidia-smi: {smi.stderr.strip()}")
+    print(card)
     print("kernels: K1 local_total, K2 schedule_cycle, K3 uniform_burst, "
           "K4 scatter_rows, K5 schedule_batch, K6 schedule_segments, "
           "K7 preempt_scan, K8 pressure_batch, K9a shard_cycle_local, "
           "K9b shard_cycle_select, K9c shard_uniform_sweep, K9d "
-          "shard_uniform_select (CUDA C++, sm_90a)")
+          "shard_uniform_select, K10a shard_scan_local, K10b "
+          "shard_scan_select, K11a shard_segments_local, K11b "
+          "shard_segments_select (CUDA C++, sm_90a)")
     t = time.perf_counter()
     built = _build.build_all(verbose=True)
     print(f"[build] {sorted(built)} in {time.perf_counter() - t:.1f} s")
     if cards:
         report = {k: {"launches": 0} for k in K.KERNELS}
         cards_phase(report)
+        print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in MESH_KERNELS]}))
     else:
         report = kernel_checks(device, sync)
@@ -2090,8 +2546,11 @@ def main() -> int:
         mesh_path("even zones", N_NODES, device, sync, report, True)
         mesh_path("uneven zones (rotate)", N_NODES + 1, device, sync,
                   report, False)
-        scan_paths(device, sync, report)
+        refs = scan_paths(device, sync, report)
+        mesh_scan_variant_checks(device, sync)
+        mesh_scan_paths(device, sync, report, refs)
         preempt_paths(device, sync, report)
+        print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,10 +21,11 @@ carries:
   the wave, with the serial loop's outcomes.
 
 `mesh=` (a `parallel.sharding.Mesh`, or "auto") splits the resident node
-matrix over several devices: schedule() runs the sharded cycle (K9a/K9b)
-and the uniform burst the sharded K-batch passes (K9c/K9d). The generic
-scan, the fused window and device preemption are not sharded yet and
-raise NotImplementedError in mesh mode (ROADMAP B9).
+matrix over several devices: schedule() runs the sharded cycle (K9a/K9b),
+the uniform burst the sharded K-batch passes (K9c/K9d), the generic scan
+one step of K10a/K10b per live pod and the fused window one step of
+K11a/K11b per pod, each window with one fetch. Device preemption is not
+sharded yet and raises NotImplementedError in mesh mode (ROADMAP B9).
 
 Folds stay on the device. The node matrix and the victim table's planes
 are uploaded whole once and then kept current by the dirty-row scatter
@@ -712,13 +713,38 @@ class TorchScheduler:
         return {} if self.mesh is None else {"mesh": self.mesh}
 
     def _single_device(self, what: str) -> None:
-        """Mesh mode runs only the sharded cycle and the uniform burst:
-        every other device path raises here instead of running its
-        single-device kernel on one shard."""
+        """Mesh mode runs the sharded cycle, the uniform burst, the
+        generic scan and the fused window: device preemption raises here
+        instead of running its single-device kernel on one shard."""
         if self.mesh is not None:
             raise NotImplementedError(
                 f"{what} is not sharded over a mesh yet (ROADMAP B9); "
-                f"mesh mode runs schedule() and the uniform burst")
+                f"mesh mode runs schedule(), schedule_burst() and "
+                f"schedule_burst_fused()")
+
+    def _adopt_folds(self, rows) -> None:
+        """Make a window's folded rows the resident matrix (one dict per
+        shard in mesh mode)."""
+        if self.mesh is None:
+            self._dev_nodes = {**self._dev_nodes, **rows}
+        else:
+            self._dev_nodes = [{**d, **r}
+                               for d, r in zip(self._dev_nodes, rows)]
+
+    def _mesh_phases(self, op: str, phases: dict, before: dict) -> None:
+        """Mesh mode: the bytes the all-gather copied and the steps (or
+        passes) of the last window, from the counters its sharded
+        program books."""
+        if self.mesh is None:
+            return
+        for k, name in (("gather", "gather_bytes"), ("steps", "steps"),
+                        ("passes", "passes"), ("syncs", "syncs")):
+            key = f"{k}.{op}"
+            if key in before:
+                phases[name] = obs.get(key) - before[key]
+
+    def _mesh_counts(self, op: str, *kinds) -> dict:
+        return {f"{k}.{op}": obs.get(f"{k}.{op}") for k in kinds}
 
     def schedule_burst(self, pods: list[Pod], node_infos: dict[str, NodeInfo],
                        all_node_names: list[str],
@@ -816,7 +842,6 @@ class TorchScheduler:
             else:
                 rotation = rot
         z_pad = _pad_pow2(len(b.zone_names), 4)
-        self._single_device("the generic burst scan (K5)")
         phases["encode"] = time.perf_counter() - t0
         self.last_burst_phases = phases
         return self._scan_waves(pods, b, specs, rows, pids, spread0,
@@ -865,8 +890,10 @@ class TorchScheduler:
                     num_to_find: int, n: int, z_pad: int, bucket: int,
                     phases: dict) -> list:
         """The generic scan's launch and fetch: the whole window is
-        ONE K5 launch (scan length = the bucket) and ONE fetch of the
-        packed [3B] block of selections and per-pod walk counters.
+        ONE K5 launch (scan length = the bucket), or in mesh mode one
+        K10a/K10b step per live pod with no host read between them, and
+        ONE fetch of the packed [3B] block of selections and per-pod walk
+        counters.
 
         Rewind contract, from slices of that one block: the scan keeps
         deciding after a failed pod, so everything from the first failure
@@ -886,18 +913,20 @@ class TorchScheduler:
             rotp = (rotation_pos[0],
                     np.asarray(rotation_pos[1][:B], dtype=np.int32))
         tensor = self._ptab is not None
+        before = self._mesh_counts("burst_scan", "gather", "steps")
         state, _li, _lni, _spread, outs = K.schedule_batch(
             self._dev_nodes, stack, self.last_index, self.last_node_index,
             num_to_find, n, z_pad,
             weights=self._union_weights if tensor else self.weights,
             rotation=rot, spread0=spread0, rotation_pos=rotp,
-            wtab=self._wtab() if tensor else None)
+            wtab=self._wtab() if tensor else None, **self._mesh_kw())
         obs.inc("dispatch.burst_scan")
         t2 = time.perf_counter()
         phases["dispatch"] += t2 - t
         h = self._fetch(outs["packed"], "scan")
         obs.inc("fetch.burst_scan")
         phases["fetch"] += time.perf_counter() - t2
+        self._mesh_phases("burst_scan", phases, before)
         sel_arr = h[:n_pods]
         li_after = h[B:2 * B]
         lni_delta = h[2 * B:3 * B]
@@ -910,7 +939,7 @@ class TorchScheduler:
             # post-failure folds never became decisions
             self.discard_burst_folds()
         else:
-            self._dev_nodes = {**self._dev_nodes, **state}
+            self._adopt_folds(state)
         return [b.names[s] for s in sel_arr[:bad].tolist()] \
             + [None] * (n_pods - bad)
 
@@ -941,10 +970,8 @@ class TorchScheduler:
             else torch.as_tensor(rotation[0]).to(dev)
         sel: list[int] = []
         inflight: list[tuple] = []
-        # mesh mode: the all-gather's bytes and the passes, from the
-        # counters the sharded program books
-        g0 = {k: obs.get(k + ".burst_uniform")
-              for k in ("gather", "passes", "syncs")}
+        before = self._mesh_counts("burst_uniform", "gather", "passes",
+                                   "syncs")
 
         def dispatch(ci: int) -> None:
             nonlocal lni_dev
@@ -963,11 +990,7 @@ class TorchScheduler:
                 extra_ok=extra_dev, ban=ban, cap=cap, wtab=wtab, pid=pid,
                 **self._mesh_kw())
             lni_dev = lni_out
-            if self.mesh is None:
-                self._dev_nodes = {**self._dev_nodes, **rows}
-            else:
-                self._dev_nodes = [{**d, **r}
-                                   for d, r in zip(self._dev_nodes, rows)]
+            self._adopt_folds(rows)
             obs.inc("dispatch.burst_uniform")
             host = self._fetch_buffer(cap + 1, ci % depth)
             host.copy_(packed, non_blocking=True)
@@ -1000,12 +1023,7 @@ class TorchScheduler:
                 # once no node fits): drop them unfetched
                 inflight.clear()
                 break
-        if self.mesh is not None:
-            phases["gather_bytes"] = obs.get("gather.burst_uniform") \
-                - g0["gather"]
-            phases["passes"] = obs.get("passes.burst_uniform") \
-                - g0["passes"]
-            phases["syncs"] = obs.get("syncs.burst_uniform") - g0["syncs"]
+        self._mesh_phases("burst_uniform", phases, before)
         return sel
 
     # -- fused segmented burst: one launch per drain window --------------------
@@ -1013,7 +1031,8 @@ class TorchScheduler:
                              all_node_names: list[str],
                              bucket: Optional[int] = None):
         """Schedule a drain window of `segments` = [(pods, is_gang), ...] in
-        ONE K6 launch and ONE packed fetch. A gang member that finds no
+        ONE K6 launch (in mesh mode one K11a/K11b step per pod, no host
+        read between them) and ONE packed fetch. A gang member that finds no
         node rewinds the carry (rows, li, lni, rotation cursor) to its
         segment's checkpoint inside the kernel, the rest of the gang is
         skipped, and the window goes on against the rewound state.
@@ -1032,7 +1051,6 @@ class TorchScheduler:
         n_total = sum(len(p) for p, _g in segments)
         if not all_node_names or n_total == 0:
             return None
-        self._single_device("schedule_burst_fused (K6)")
         if self.nominated is not None and self.nominated.has_any():
             # the segment kernel has no nominated-ghost input
             return self._refuse("fused-nominated-ghosts")
@@ -1090,13 +1108,14 @@ class TorchScheduler:
         z_pad = _pad_pow2(len(b.zone_names), 4)
         t1 = time.perf_counter()
         tensor = self._ptab is not None
+        before = self._mesh_counts("burst_segments", "gather", "steps")
         state, _li, _lni, _spread, packed = K.schedule_batch_segments(
             self._dev_nodes, stack, seg_start, gang, n_total,
             self.last_index, self.last_node_index, num_to_find, n, z_pad,
             weights=self._union_weights if tensor else self.weights,
             rotation=rotation, rotation_pos=rotation_pos,
             wtab=self._wtab() if tensor else None,
-            gang_score=self._gang_score)
+            gang_score=self._gang_score, **self._mesh_kw())
         obs.inc("dispatch.burst_fused")
         t2 = time.perf_counter()
         h = self._fetch(packed, "fused")
@@ -1104,6 +1123,7 @@ class TorchScheduler:
         self.last_burst_phases = {"encode": t1 - t0, "mirror": t_mirror,
                                   "dispatch": t2 - t1,
                                   "fetch": time.perf_counter() - t2}
+        self._mesh_phases("burst_segments", self.last_burst_phases, before)
         sel = h[:B]
         li_after = h[B:2 * B]
         lni_delta = h[2 * B:3 * B]
@@ -1170,7 +1190,7 @@ class TorchScheduler:
             self.discard_burst_folds()
         else:
             li_f, lni_f, consumed = boundary(n_total - 1)
-            self._dev_nodes = {**self._dev_nodes, **state}
+            self._adopt_folds(state)
         self.last_index, self.last_node_index = li_f, lni_f
         return {"segments": results, "consumed": consumed}
 
@@ -1635,7 +1655,7 @@ class TorchScheduler:
         """Mirror shape and epoch, walk counters, device, profiles, the
         victim table (slots, rows, generations, dirty rows, residency, and
         the encoder's rebuild and row re-sort counts), the mesh and its
-        device count, the launch count of every kernel (K1-K9) and the
+        device count, the launch count of every kernel (K1-K11) and the
         refusals."""
         dev = self._dev_nodes
         mirror = None

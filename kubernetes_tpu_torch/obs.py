@@ -9,11 +9,15 @@ One flat table of named counts. Names are dotted by family:
                   the launch and nowhere else
   refusal.<reason> whole-burst refusals (the shell runs those pods serially)
   gather.<op>     mesh mode: bytes the all-gather actually copied (cycle,
-                  burst_uniform), every shard's record to every distinct
-                  device; the counterpart of the JAX package's
+                  burst_uniform, burst_scan, burst_segments), every
+                  shard's record to every distinct device; the
+                  counterpart of the JAX package's
                   tpu_ici_allgather_bytes_total, which books a model
   passes.burst_uniform, syncs.burst_uniform  mesh mode: the sharded
                   burst's passes and its host reads of the pass counter
+  steps.burst_scan, steps.burst_segments  mesh mode: the steps the
+                  sharded scan and fused window enqueued (one per live
+                  pod, one per pod)
   encoder.*, pod_rows.*  host mirror, victim table and row-cache
                   maintenance
 """

@@ -13,7 +13,7 @@ plain C function `<name>_launch(...)` that launches on the stream it is
 given and returns `cudaGetLastError()`; the library is loaded with ctypes.
 
 `build_all()` starts one nvcc per source at once and waits for all of
-them: the whole build costs about one compile, not twelve.
+them: the whole build costs about one compile, not sixteen.
 """
 from __future__ import annotations
 
@@ -29,7 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NAMES = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
          "schedule_batch", "schedule_segments", "preempt_scan",
          "pressure_batch", "shard_cycle_local", "shard_cycle_select",
-         "shard_uniform_sweep", "shard_uniform_select")
+         "shard_uniform_sweep", "shard_uniform_select", "shard_scan_local",
+         "shard_scan_select", "shard_segments_local",
+         "shard_segments_select")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +56,10 @@ SIGNATURES = {
     "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_uniform_sweep": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_scan_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_scan_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_segments_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_segments_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

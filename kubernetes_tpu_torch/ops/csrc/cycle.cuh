@@ -443,6 +443,37 @@ __device__ __forceinline__ CycleResult cycle_run(
   return r;
 }
 
+// ---- the gathered records of the sharded cycle (K9b, K10b, K11b) ----------
+// Byte offsets of the planes in one shard's record (-1 = absent), in the
+// order of `_REC_PLANES` (kubernetes_tpu_torch/ops/kernels.py).
+struct RecLayout {
+  i64 local, na, tt, sc, ic, zone, feas, tracked;
+};
+
+// Unpack the D shard records of `g` ([D, chunk] bytes, `rows` rows each)
+// into flat [n] planes: p64 [5, n] (local, na, tt, sc, ic), zone, the
+// tracked bytes, and the in-range feasible bit into FL = flags + n. Ends
+// with a barrier.
+__device__ __forceinline__ void unpack_records(const unsigned char* g,
+                                               size_t chunk, int n, int rows,
+                                               const RecLayout& o, i64* p64,
+                                               int* zone, unsigned char* trk,
+                                               int* FL) {
+  const i64 offs[5] = {o.local, o.na, o.tt, o.sc, o.ic};
+  // row j of the mesh is row j - s * rows of shard s's record
+  for (int j = threadIdx.x; j < n; j += NTHREADS) {
+    const int s = j / rows, jj = j - s * rows;
+    const unsigned char* c = g + (size_t)s * chunk;
+    for (int q = 0; q < 5; ++q)
+      if (offs[q] >= 0)
+        p64[(size_t)q * n + j] = ((const i64*)(c + offs[q]))[jj];
+    if (o.zone >= 0) zone[j] = ((const int*)(c + o.zone))[jj];
+    if (o.tracked >= 0) trk[j] = c[o.tracked + jj];
+    FL[j] = c[o.feas + jj] ? FL_FEAS : 0;
+  }
+  __syncthreads();
+}
+
 // ---- the scan kernels' (K5, K6) launch arguments ---------------------------
 // Scalars and pointers in the order of `_SCAN_INTS` / `_SCAN_PTRS`
 // (kubernetes_tpu_torch/ops/kernels.py). Pod fields are per-spec tables:

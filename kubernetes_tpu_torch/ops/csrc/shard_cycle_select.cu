@@ -52,22 +52,12 @@ __global__ void __launch_bounds__(NTHREADS)
   int* FL = (int*)a.p[SP_FLAGS] + n;
   if (tid < W_K) ws[tid] = ((const i64*)a.p[SP_W])[tid];
   if (tid < 16) no_scal[tid] = 0;
-  const i64 offs[5] = {a.v[CS_OFF_LOCAL], a.v[CS_OFF_NA], a.v[CS_OFF_TT],
-                       a.v[CS_OFF_SC], a.v[CS_OFF_IC]};
-  const i64 o_zone = a.v[CS_OFF_ZONE], o_feas = a.v[CS_OFF_FEAS],
-            o_tr = a.v[CS_OFF_TRACKED];
-  // unpack: row j of the mesh is row j - s * rows of shard s's record
-  for (int j = tid; j < n; j += NTHREADS) {
-    const int s = j / rows, jj = j - s * rows;
-    const unsigned char* c = g + (size_t)s * chunk;
-    for (int q = 0; q < 5; ++q)
-      if (offs[q] >= 0)
-        p64[(size_t)q * n + j] = ((const i64*)(c + offs[q]))[jj];
-    if (o_zone >= 0) zone[j] = ((const int*)(c + o_zone))[jj];
-    if (o_tr >= 0) trk[j] = c[o_tr + jj];
-    FL[j] = c[o_feas + jj] ? FL_FEAS : 0;
-  }
-  __syncthreads();
+  const RecLayout lay{a.v[CS_OFF_LOCAL], a.v[CS_OFF_NA], a.v[CS_OFF_TT],
+                      a.v[CS_OFF_SC],    a.v[CS_OFF_IC], a.v[CS_OFF_ZONE],
+                      a.v[CS_OFF_FEAS],  a.v[CS_OFF_TRACKED]};
+  const i64 offs[5] = {lay.local, lay.na, lay.tt, lay.sc, lay.ic};
+  const i64 o_zone = lay.zone, o_tr = lay.tracked;
+  unpack_records(g, chunk, n, rows, lay, p64, zone, trk, FL);
   CycleNodes nd{};
   nd.n_pad = n;
   nd.n_real = a.v[CS_N_REAL];

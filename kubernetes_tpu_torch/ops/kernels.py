@@ -34,6 +34,10 @@ and nowhere else.
 |                | `parallel/sharding.py` `sharded_cycle_fn` :115     |
 | shard_uniform_sweep, shard_uniform_select (K9c, K9d)                |
 |                | `parallel/sharding.py` `sharded_uniform_fn` :151   |
+| shard_scan_local, shard_scan_select (K10a, K10b)                    |
+|                | `parallel/sharding.py` `sharded_scan_fn` :233      |
+| shard_segments_local, shard_segments_select (K11a, K11b)            |
+|                | `parallel/sharding.py` `sharded_segments_fn` :279  |
 
 Numeric contract: int64 resource math and scores, float64 exactly where
 JAX uses it, floor division as JAX `//` (torch `//` on integer tensors
@@ -44,6 +48,7 @@ clamping of out-of-range gathers/slices. Python ints stay exact.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -71,7 +76,9 @@ I32_MIN = -2 ** 31
 KERNELS = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
            "schedule_batch", "schedule_segments", "preempt_scan",
            "pressure_batch", "shard_cycle_local", "shard_cycle_select",
-           "shard_uniform_sweep", "shard_uniform_select")
+           "shard_uniform_sweep", "shard_uniform_select", "shard_scan_local",
+           "shard_scan_select", "shard_segments_local",
+           "shard_segments_select")
 
 
 def launches() -> dict[str, int]:
@@ -1235,11 +1242,20 @@ class PodStack:
     decides it (`_stack_pods`), while memory and upload stay O(U x n_pad)
     instead of O(B x n_pad)."""
 
-    def __init__(self, table: dict, row, profile_id=None):
+    def __init__(self, table: dict, row, profile_id=None, skip=None):
         self.table = table
         self.row = np.asarray(row, dtype=np.int64)
         self.profile_id = None if profile_id is None \
             else np.asarray(profile_id, dtype=np.int64)
+        self._skip = None if skip is None else np.asarray(skip, dtype=bool)
+
+    def skip_flags(self) -> np.ndarray:
+        """Each table row's skip flag on the host (read off the table
+        once when the stack was not built from host specs)."""
+        if self._skip is None:
+            self._skip = np.asarray(_host(self.table["skip"]),
+                                    dtype=bool).reshape(-1)
+        return self._skip
 
     @classmethod
     def from_dense(cls, pods: dict, device) -> "PodStack":
@@ -1265,7 +1281,8 @@ class PodStack:
                 target = max(shapes)
                 vals = [np.broadcast_to(v, target) for v in vals]
             table[k] = torch.as_tensor(np.stack(vals)).to(device)
-        return cls(table, row, profile_id)
+        skip = [bool(np.asarray(d["skip"])) for d in specs]
+        return cls(table, row, profile_id, skip=skip)
 
     def __len__(self) -> int:
         return len(self.row)
@@ -1655,7 +1672,7 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
 
 def schedule_batch(nodes, pods, last_index, last_node_index, num_to_find,
                    n_real, z_pad, weights=None, rotation=None, spread0=None,
-                   rotation_pos=None, carry_in=None, wtab=None):
+                   rotation_pos=None, carry_in=None, wtab=None, mesh=None):
     """K5: the generic burst scan — one K2 cycle per pod, in order, each
     hit folded into the carried rows before the next pod. `pods` is a
     `PodStack` or the JAX [B, ...] dict; `rotation` = (perms[L, n_pad],
@@ -1665,8 +1682,20 @@ def schedule_batch(nodes, pods, last_index, last_node_index, num_to_find,
     window's device carry; `wtab` [P, K] with the stack's profile ids
     scores each pod with its own row. Returns (state, li, lni, spread,
     outs) as the JAX entry point; outs["packed"] is the [3B] int32 block
-    selected | li after each pod | lni delta after each pod."""
+    selected | li after each pod | lni delta after each pod. With a
+    `mesh` the node axis is split over its devices (`nodes`: per-shard
+    dicts, or one whole dict): each live pod is a step of K10a on every
+    shard, an all-gather and K10b on every device
+    (`parallel.sharding.sharded_scan`); state and spread come back per
+    shard."""
     weights = weights or DEFAULT_WEIGHTS
+    if mesh is not None:
+        from kubernetes_tpu_torch.parallel import sharding as S
+        return S.sharded_scan(mesh, nodes, pods, last_index,
+                              last_node_index, num_to_find, n_real, z_pad,
+                              weights=weights, rotation=rotation,
+                              spread0=spread0, rotation_pos=rotation_pos,
+                              carry_in=carry_in, wtab=wtab)
     if not nodes["valid"].is_cuda:
         return schedule_batch_plain(
             nodes, pods, last_index, last_node_index, num_to_find, n_real,
@@ -1690,15 +1719,25 @@ def schedule_batch_segments(nodes, pods, seg_start, gang, n_pods,
                             last_index, last_node_index, num_to_find,
                             n_real, z_pad, weights=None, rotation=None,
                             rotation_pos=None, spread0=None, wtab=None,
-                            gang_score=False):
+                            gang_score=False, mesh=None):
     """K6: the fused drain window — K5's step over the first `n_pods` pods
     with a checkpoint of the live carry at each `seg_start` and an
     in-kernel rewind when a `gang` member finds no node (the rest of its
     segment is skipped). `gang_score` carries the rank-aware zone counts
     of the current gang. Returns (state, li, lni, spread, packed[4B]) as
     the JAX entry point: selected | li_after | lni delta | consumed
-    enumerations t, -1 past n_pods."""
+    enumerations t, -1 past n_pods. With a `mesh`: K11a on every shard,
+    an all-gather and K11b on every device per pod
+    (`parallel.sharding.sharded_segments`), the gang checkpoint per
+    shard; state and spread come back per shard."""
     weights = weights or DEFAULT_WEIGHTS
+    if mesh is not None:
+        from kubernetes_tpu_torch.parallel import sharding as S
+        return S.sharded_segments(
+            mesh, nodes, pods, seg_start, gang, n_pods, last_index,
+            last_node_index, num_to_find, n_real, z_pad, weights=weights,
+            rotation=rotation, rotation_pos=rotation_pos, spread0=spread0,
+            wtab=wtab, gang_score=gang_score)
     if not nodes["valid"].is_cuda:
         return schedule_batch_segments_plain(
             nodes, pods, seg_start, gang, n_pods, last_index,
@@ -2349,13 +2388,15 @@ def _select_pod(pod, dev) -> dict:
 def shard_cycle_select_plain(gathered, planes, rows, n_real, pod,
                              last_index, last_node_index, num_to_find,
                              weights, z_pad, wrow=None, perm=None,
-                             inv_perm=None, pos=None):
+                             inv_perm=None, pos=None, gang=None):
     """K9b plain: the replicated epilogue of `_cycle_core` (kernels.py
     :359) over the gathered records of every shard — the rotation walk,
     the normalizations over the evaluated (kept) set, the first-index
-    argmax and the round-robin tie pick. Returns (out[6] int64: selected,
-    found, evaluated, max_score, next_last_index, next_last_node_index;
-    total[n_pad]; kept[n_pad])."""
+    argmax and the round-robin tie pick. `gang` = (gz, member) adds the
+    rank-aware gang scores (the sharded fused window; the zone plane must
+    be gathered). Returns (out[6] int64: selected, found, evaluated,
+    max_score, next_last_index, next_last_node_index; total[n_pad];
+    kept[n_pad])."""
     dev = gathered.device
     sp = _select_pod(pod, dev)
     vals = unpack_records(gathered, planes, rows)
@@ -2373,7 +2414,7 @@ def shard_cycle_select_plain(gathered, planes, rows, n_real, pod,
     zone = vals["zone"] if "zone" in vals \
         else torch.zeros(n_pad, dtype=I32, device=dev)
     total = vals["local"] + _kept_scores_plain(kpod, kept, zone, weights,
-                                               z_pad, wrow=wrow)
+                                               z_pad, wrow=wrow, gang=gang)
     r = _select_plain(kept, total, found, evaluated, last_index,
                       last_node_index, n_real, perm=perm, pos=pos)
     out = torch.stack([r[k] for k in (
@@ -2796,3 +2837,465 @@ def shard_uniform_select(gathered, rows, hoff, state, out, lni_out, owner,
         return _shard_uniform_select_launch(gathered, rows, hoff, state,
                                             out, lni_out, owner, n_pods,
                                             cap, ban, perm, oid_seq)
+
+
+# ---------------------------------------------------------------------------
+# K10a/K10b, K11a/K11b — one step of the sharded generic scan and of the
+# sharded fused window (parallel/sharding.py `sharded_scan`,
+# `sharded_segments`). The host enqueues, per step, the local kernel on
+# every shard, the all-gather and the select on every distinct device,
+# always with the same arguments: the step index, li / lni and the fold
+# the shards owe live in a step state on each device, written by that
+# device's select only.
+# ---------------------------------------------------------------------------
+#: slots of a sharded scan's step state (csrc/shard_scan.cuh)
+(SS_STEP, SS_NEXT, SS_LI, SS_LNI, SS_LNI0, SS_FOLD_SEL, SS_FOLD_ROW,
+ SS_REWIND, SS_T, SS_CHK_T, SS_CHK_LI, SS_CHK_LNI, SS_FAILED,
+ SS_COUNT) = range(14)
+#: the skip flag's slot in a row of the [U, 13] scalar table
+_SC_SKIP = _SCAN_SCALARS.index("skip")
+
+
+def scan_scalars(tab: dict) -> torch.Tensor:
+    """The [U, 13] int64 scalar table of a window's pod tables (K5's
+    layout: K2's scalars, the profile-id slot unused, the fold deltas)."""
+    U = int(tab["skip"].shape[0])
+    dev = tab["skip"].device
+    return torch.stack(
+        [tab[k].reshape(U).to(I64) if k != "profile_id"
+         else torch.zeros(U, dtype=I64, device=dev)
+         for k in _SCAN_SCALARS], dim=1).contiguous()
+
+
+@dataclasses.dataclass
+class ScanPlan:
+    """What every step of one sharded scan or segments window shares: the
+    shapes (n_pad, rows per shard, D shards, S scalars, U specs, B pods,
+    n_steps the window runs), the walk (num_to_find, n_real, rotation
+    mode 0 / 1 / 2 with L orders and n_oid order ids), z_pad, P weight
+    rows, whether the spread vector is carried, the gang score and the
+    inter-pod family are on, the record planes (fixed per window from
+    the whole table, `cycle_record_planes`), and the static weights (the
+    gate)."""
+    n_pad: int
+    rows: int
+    D: int
+    S: int
+    U: int
+    B: int
+    n_steps: int
+    num_to_find: int
+    n_real: int
+    z_pad: int
+    mode: int
+    L: int
+    n_oid: int
+    P: int
+    carry_spread: bool
+    gang_score: bool
+    ipa_on: bool
+    planes: tuple
+    weights: dict
+
+
+class ScanShard:
+    """One shard of a sharded scan or segments window (K10a / K11a): its
+    node fields (the static ones shared with the resident matrix, the
+    seven mutable rows a fresh copy folded in place), its slice of the
+    carried spread, its slices of the window's pod tables (`[U, rows]`
+    when dense, `[U, 1]` inert fields and per-spec scalars replicated),
+    the K11 checkpoint (copies of the live rows and spread slice, or
+    None), and its record."""
+
+    def __init__(self, offset, nodes, spread, tab, chk, record_bytes):
+        dev = nodes["valid"].device
+        self.offset, self.rows = int(offset), int(nodes["valid"].shape[0])
+        self.nodes, self.spread, self.tab, self.chk = nodes, spread, tab, chk
+        self.scal = scan_scalars(tab)
+        self.rec = torch.zeros(record_bytes, dtype=torch.uint8, device=dev)
+        self._args: dict = {}    # launch arrays, built once per window
+
+    @property
+    def device(self):
+        return self.nodes["valid"].device
+
+
+@dataclasses.dataclass
+class ScanSide:
+    """The replicated half of a sharded scan or segments window on one
+    device (K10b / K11b): the step state `st` [SS_COUNT], the pod rows
+    `row` [B] int32, the profile ids `prof` [B] and weight table `wtab`
+    (or None), the static weight row `w`, the [U, 13] scalar table
+    `scal`, the first column of the inter-pod tables `ic_b` / `tr_b` [U,
+    1] (what an inert field broadcasts), the rotation tables and order
+    ids (or None), `seg_start` / `gang` [B] and the gang zone counts `gz`
+    [z_pad] (K11), the gathered records [D, bytes], the packed block and
+    (K10) the stats [5, B], and the select's scratch."""
+    st: torch.Tensor
+    row: torch.Tensor
+    prof: Optional[torch.Tensor]
+    wtab: Optional[torch.Tensor]
+    w: torch.Tensor
+    scal: torch.Tensor
+    ic_b: torch.Tensor
+    tr_b: torch.Tensor
+    perms: Optional[torch.Tensor]
+    inv_perms: Optional[torch.Tensor]
+    oid: Optional[torch.Tensor]
+    seg_start: Optional[torch.Tensor]
+    gang: Optional[torch.Tensor]
+    gz: Optional[torch.Tensor]
+    gathered: torch.Tensor
+    packed: torch.Tensor
+    stats: Optional[torch.Tensor]
+    scratch: dict
+    _args: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def device(self):
+        return self.st.device
+
+
+# ---- K10a / K11a: the local step ---------------------------------------------
+def _scan_local_plain(sh: ScanShard, side: ScanSide, plan: ScanPlan,
+                      segments: bool) -> None:
+    nodes, st, tab = sh.nodes, side.st, sh.tab
+    dev, rows = sh.device, sh.rows
+    t = int(st[SS_NEXT])
+    fold = int(st[SS_FOLD_SEL]) - sh.offset
+    if 0 <= fold < rows:
+        fr = int(st[SS_FOLD_ROW])
+        _fold_state_plain(nodes, {k: tab[k][fr] for k in (
+            "upd_cpu", "upd_mem", "upd_eph", "upd_scalar", "nz_cpu",
+            "nz_mem")}, fold)
+        if sh.spread is not None:
+            sh.spread[fold] += 1
+    live = t < plan.n_steps
+    if segments:
+        live_rows = [(nodes[k], sh.chk[k]) for k in _MUTABLE]
+        if sh.spread is not None:
+            live_rows.append((sh.spread, sh.chk["spread"]))
+        if int(st[SS_REWIND]):
+            for cur, chk in live_rows:
+                cur.copy_(chk)
+        if live and bool(side.seg_start[t]):
+            for cur, chk in live_rows:
+                chk.copy_(cur)
+    if not live:
+        return
+    r = int(side.row[t])
+    if int(sh.scal[r, _SC_SKIP]):
+        return
+    if segments and bool(side.gang[t]) and not bool(side.seg_start[t]) \
+            and int(st[SS_FAILED]):
+        return      # behind its gang's failure: the record is not read
+    pod = {k: v[r] for k, v in tab.items()}
+    if sh.spread is not None:
+        pod["spread_counts"] = sh.spread
+    wrow = None if side.wtab is None else _row_at(side.wtab, side.prof[t])
+    feasible, _ff, _bits = _feasibility_plain(nodes, pod)
+    in_range = torch.arange(rows, device=dev) + sh.offset < plan.n_real
+    vals = {"local": _local_scores_plain(nodes, pod, plan.weights,
+                                         wrow=wrow),
+            "zone": nodes["zone_id"], "feas": feasible & in_range}
+    for k, f in _REC_FIELD.items():
+        if k in plan.planes:
+            vals[k] = pod[f]
+    sh.rec.copy_(_pack_record(vals, plan.planes, rows, dev))
+
+
+def shard_scan_local_plain(sh: ScanShard, side: ScanSide,
+                           plan: ScanPlan) -> None:
+    """K10a plain: the local step of `sharded_scan_fn` (sharding.py:233)
+    on one shard. Folds the winner the step state names into the row the
+    shard owns (`_fold_state`, kernels.py:549, +1 on the carried spread),
+    then, unless the step is past the window or a skip pod, writes K9a's
+    record for pod row[t] over the shard's rows (`_feasibility` :296 and
+    the row-local `_fit_scores` :157, with its wtab row)."""
+    _scan_local_plain(sh, side, plan, False)
+
+
+def shard_segments_local_plain(sh: ScanShard, side: ScanSide,
+                               plan: ScanPlan) -> None:
+    """K11a plain: K10a plus the shard's slice of `_segments_core`'s gang
+    checkpoint (kernels.py:785): after the fold, the live rows and spread
+    slice are restored from the checkpoint when the step state says
+    rewind, and copied into it at a segment start; a member behind its
+    gang's failure writes no record."""
+    _scan_local_plain(sh, side, plan, True)
+
+
+_SSL_INTS = ("rows", "S", "offset", "n_real", "gate", "n_steps", "P",
+             "carry_spread") + tuple("off_" + n for n, _ in _REC_PLANES)
+_SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
+             "allowed_pods", "req_cpu", "req_mem", "req_eph", "nz_cpu",
+             "nz_mem", "pod_count", "alloc_scalar", "req_scalar", "zone_id",
+             "spread") + tuple("chk_" + k for k in _MUTABLE) \
+    + ("chk_spread", "scal", "req_scalar_p", "upd_scalar_p") + _CYCLE_MASKS \
+    + ("interpod_code",) + _CYCLE_COUNTS + (
+        "interpod_tracked", "row", "profile_id", "w", "wtab", "state",
+        "seg_start", "gang", "rec")
+
+
+def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
+    """(pointer tensors, scalar array, pointer array) of one shard's local
+    launches: the same for every step of the window."""
+    dev, tab, U, rows = sh.device, sh.tab, plan.U, sh.rows
+    nodes = sh.nodes
+    if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype != torch.bool:
+        raise ValueError(f"{name}: zone_id must be int32, valid bool")
+
+    def dense(key, dtype):
+        v = tab.get(key)
+        if v is None or _inert(v):
+            return None
+        v = v.to(dtype).contiguous()
+        if tuple(v.shape) != (U, rows):
+            raise ValueError(f"{name}: {key} is not the shard's [U, rows]")
+        return v
+    ptrs = {k: nodes[k] for k in _SSL_PTRS[:14]}
+    ptrs.update({"spread": sh.spread, "scal": sh.scal,
+                 "req_scalar_p": tab["req_scalar"].to(I64).reshape(
+                     U, plan.S).contiguous(),
+                 "upd_scalar_p": tab["upd_scalar"].to(I64).reshape(
+                     U, plan.S).contiguous(),
+                 "interpod_code": dense("interpod_code", torch.int8),
+                 "interpod_tracked": dense("interpod_tracked", torch.bool),
+                 "row": side.row, "profile_id": side.prof, "w": side.w,
+                 "wtab": side.wtab, "state": side.st, "rec": sh.rec})
+    ptrs.update({k: dense(k, torch.bool) for k in _CYCLE_MASKS})
+    ptrs.update({k: dense(k, I64) for k in _CYCLE_COUNTS})
+    if plan.carry_spread:
+        ptrs["spread_counts"] = None     # the carried slice replaces it
+    if sh.chk is not None:
+        ptrs.update({"chk_" + k: sh.chk[k] for k in _MUTABLE})
+        ptrs.update({"chk_spread": sh.chk.get("spread"),
+                     "seg_start": side.seg_start, "gang": side.gang})
+    for k, f in _REC_FIELD.items():
+        if k in plan.planes and ptrs[f] is None and not (
+                k == "sc" and plan.carry_spread):
+            raise ValueError(f"{name}: plane {k} of an inert field")
+    _require_cuda(name, *[v for v in ptrs.values() if v is not None])
+    _require_on(name, dev, *ptrs.values())
+    off, nbytes = record_layout(plan.planes, rows)
+    if nbytes != sh.rec.numel():
+        raise ValueError(f"{name}: record size != layout")
+    ints = {"rows": rows, "S": plan.S, "offset": sh.offset,
+            "n_real": plan.n_real, "gate": _gate(plan.weights),
+            "n_steps": plan.n_steps, "P": plan.P,
+            "carry_spread": int(plan.carry_spread)}
+    ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
+    return (ptrs,) + _launch_arrays(ints, _SSL_INTS, ptrs, _SSL_PTRS, name)
+
+
+def _scan_step_launch(name, obj, build) -> None:
+    """Launch kernel `name` with the argument arrays cached on `obj` (a
+    ScanShard or ScanSide), built by `build()` at its first launch."""
+    args = obj._args.get(name)
+    if args is None:
+        args = obj._args[name] = build()
+    with _on(obj.device):
+        _launch(name, args[1], args[2])
+
+
+def shard_scan_local(sh: ScanShard, side: ScanSide, plan: ScanPlan) -> None:
+    """K10a on one shard, `side` the window's replicated half on the
+    shard's device. CPU tensors -> the plain version; CUDA tensors ->
+    `csrc/shard_scan_local.cu` on that device."""
+    if not sh.nodes["valid"].is_cuda:
+        return shard_scan_local_plain(sh, side, plan)
+    _scan_step_launch("shard_scan_local", sh, lambda: _scan_local_args(
+        "shard_scan_local", sh, side, plan))
+
+
+def shard_segments_local(sh: ScanShard, side: ScanSide,
+                         plan: ScanPlan) -> None:
+    """K11a on one shard. CPU -> the plain version; CUDA ->
+    `csrc/shard_segments_local.cu`."""
+    if not sh.nodes["valid"].is_cuda:
+        return shard_segments_local_plain(sh, side, plan)
+    _scan_step_launch("shard_segments_local", sh, lambda: _scan_local_args(
+        "shard_segments_local", sh, side, plan))
+
+
+# ---- K10b / K11b: the select step ---------------------------------------------
+def _select_cycle_plain(side: ScanSide, plan: ScanPlan, i: int, r: int,
+                        li: int, lni: int, k: int, gang=None) -> dict:
+    """K9b's cycle of live step i (pod-table row r, enumeration k) over
+    the gathered records, as `_cycle_core`'s scalar outputs."""
+    perm = inv_perm = pos = None
+    if plan.mode:
+        oid = int(side.oid[min(max(k, 0), plan.n_oid - 1)])
+        if plan.mode == 2:
+            pos = _row_at(side.perms, oid)
+        else:
+            perm = _row_at(side.perms, oid)
+            inv_perm = _row_at(side.inv_perms, oid)
+    wrow = None if side.wtab is None else _row_at(side.wtab, side.prof[i])
+    pod = {"skip": np.bool_(False), "interpod_counts": side.ic_b[r],
+           "interpod_tracked": side.tr_b[r]}
+    out, _total, _kept = shard_cycle_select_plain(
+        side.gathered, plan.planes, plan.rows, plan.n_real, pod, li, lni,
+        plan.num_to_find, plan.weights, plan.z_pad, wrow=wrow, perm=perm,
+        inv_perm=inv_perm, pos=pos, gang=gang)
+    return dict(zip(("selected", "found", "evaluated", "max_score",
+                     "next_last_index", "next_last_node_index"),
+                    (int(x) for x in out.tolist())))
+
+
+def shard_scan_select_plain(side: ScanSide, plan: ScanPlan) -> None:
+    """K10b plain: the replicated select of `sharded_scan_fn` (sharding.py
+    :233) for one step on one device: the skip pods up to the next live
+    step take `_skip_cycle`'s result, the live step K9b's cycle (walk by
+    its order id oid_seq[b], its wtab row), then the skip pods after it.
+    Writes the packed [3B] block and stats [5, B] of each step it
+    decides, and the step state (li, lni, the fold, the next step)."""
+    st, B, n = side.st, plan.B, plan.n_real
+    i, li, lni = int(st[SS_STEP]), int(st[SS_LI]), int(st[SS_LNI])
+    lni0 = int(st[SS_LNI0])
+
+    def write(b, out):
+        side.packed[b] = _wrap32(out["selected"])
+        side.packed[B + b] = _wrap32(out["next_last_index"])
+        side.packed[2 * B + b] = _wrap32(out["next_last_node_index"] - lni0)
+        side.stats[:, b] = torch.tensor(
+            [out[k] for k in ("selected", "found", "evaluated", "max_score",
+                              "next_last_node_index")], dtype=I64)
+
+    def skip_run(b, li):
+        while b < plan.n_steps and int(side.scal[int(side.row[b]),
+                                                 _SC_SKIP]):
+            out = _skip_cycle(li, lni, n)
+            li = out["next_last_index"]
+            write(b, out)
+            b += 1
+        return b, li
+    i, li = skip_run(i, li)
+    fold, r = -1, 0
+    if i < plan.n_steps:
+        r = int(side.row[i])
+        out = _select_cycle_plain(side, plan, i, r, li, lni, i)
+        write(i, out)
+        fold = out["selected"] if out["found"] > 0 else -1
+        li, lni = out["next_last_index"], out["next_last_node_index"]
+        i, li = skip_run(i + 1, li)
+    st[SS_STEP] = st[SS_NEXT] = i
+    st[SS_LI], st[SS_LNI] = li, lni
+    st[SS_FOLD_SEL], st[SS_FOLD_ROW] = fold, r
+
+
+def shard_segments_select_plain(side: ScanSide, plan: ScanPlan) -> None:
+    """K11b plain: one step of `_segments_core` (kernels.py:785) in the
+    replicated state of `sharded_segments_fn` (sharding.py:279): at a
+    segment start gz resets and li / lni / t are checkpointed; the
+    effective skip `skip | (gang & failed)`; the cycle at enumeration t
+    with the gang zone counts; a placed gang member's zone into gz; a gang
+    member that finds no node rewinds li / lni / t / gz and sets the flag
+    the shards restore their checkpoint by. Writes column i of the packed
+    [4B] block and the step state."""
+    st, B = side.st, plan.B
+    i = int(st[SS_STEP])
+    if i >= plan.n_steps:
+        return
+    li, lni, lni0, t = (int(st[k]) for k in (SS_LI, SS_LNI, SS_LNI0, SS_T))
+    chk_li, chk_lni, chk_t = (int(st[k]) for k in (SS_CHK_LI, SS_CHK_LNI,
+                                                   SS_CHK_T))
+    failed = bool(int(st[SS_FAILED]))
+    r = int(side.row[i])
+    sflag, gflag = bool(side.seg_start[i]), bool(side.gang[i])
+    if sflag:
+        if plan.gang_score:
+            side.gz.zero_()     # BEFORE the checkpoint: a rewind -> zeros
+        chk_li, chk_lni, chk_t, failed = li, lni, t, False
+    eskip = bool(int(side.scal[r, _SC_SKIP])) or (gflag and failed)
+    if eskip:
+        out = _skip_cycle(li, lni, plan.n_real)
+    else:
+        gang = None
+        if plan.gang_score:
+            gang = (side.gz, torch.tensor(gflag, device=side.device))
+        out = _select_cycle_plain(side, plan, i, r, li, lni, t, gang=gang)
+    sel, hit = out["selected"], out["found"] > 0
+    if plan.gang_score and hit and gflag:
+        zone = unpack_records(side.gathered, plan.planes, plan.rows)["zone"]
+        z = int(zone[sel])
+        if 0 < z < plan.z_pad:
+            side.gz[z] += 1
+    fail_now = gflag and not hit and not eskip
+    if fail_now:
+        li, lni, t = chk_li, chk_lni, chk_t
+        if plan.gang_score:
+            side.gz.zero_()
+    else:
+        li, lni = out["next_last_index"], out["next_last_node_index"]
+        t += 0 if eskip else 1
+    failed = failed or fail_now
+    side.packed[i] = sel if hit else -1
+    side.packed[B + i] = _wrap32(li)
+    side.packed[2 * B + i] = _wrap32(lni - lni0)
+    side.packed[3 * B + i] = _wrap32(t)
+    vals = {SS_STEP: i + 1, SS_NEXT: i + 1, SS_LI: li, SS_LNI: lni,
+            SS_FOLD_SEL: sel if hit else -1, SS_FOLD_ROW: r,
+            SS_REWIND: int(fail_now), SS_T: t, SS_CHK_T: chk_t,
+            SS_CHK_LI: chk_li, SS_CHK_LNI: chk_lni, SS_FAILED: int(failed)}
+    for k, v in vals.items():
+        st[k] = v
+
+
+_SSS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad", "B",
+             "n_steps", "num_to_find", "mode", "L", "n_oid", "gate", "P",
+             "ipa_on", "ic_inert", "tr_inert", "gang_score") + tuple(
+    "off_" + n for n, _ in _REC_PLANES)
+_SSS_PTRS = ("gathered", "w", "wtab", "profile_id", "row", "scal", "ic_b",
+             "tr_b", "perms", "inv_perms", "oid_seq", "seg_start", "gang",
+             "gz", "state", "p64", "zone", "tracked", "total", "kept",
+             "flags", "zs", "packed", "stats")
+
+
+def _scan_select_args(name, side: ScanSide, plan: ScanPlan):
+    dev = side.device
+    D, chunk = (int(x) for x in side.gathered.shape)
+    off, nbytes = record_layout(plan.planes, plan.rows)
+    if nbytes != chunk or D * plan.rows != plan.n_pad:
+        raise ValueError(f"{name}: gathered records != layout")
+    if plan.mode and side.perms.shape[1] != plan.n_pad:
+        raise ValueError(f"{name}: rotation rows must be n_pad wide")
+    ptrs = {"gathered": side.gathered, "w": side.w, "wtab": side.wtab,
+            "profile_id": side.prof, "row": side.row, "scal": side.scal,
+            "ic_b": side.ic_b, "tr_b": side.tr_b, "perms": side.perms,
+            "inv_perms": side.inv_perms, "oid_seq": side.oid,
+            "seg_start": side.seg_start, "gang": side.gang, "gz": side.gz,
+            "state": side.st, "packed": side.packed, "stats": side.stats}
+    ptrs.update(side.scratch)
+    _require_cuda(name, *[v for v in ptrs.values() if v is not None])
+    _require_on(name, dev, *ptrs.values())
+    ints = {"n_pad": plan.n_pad, "rows": plan.rows, "D": D, "chunk": chunk,
+            "n_real": plan.n_real, "z_pad": plan.z_pad, "B": plan.B,
+            "n_steps": plan.n_steps, "num_to_find": plan.num_to_find,
+            "mode": plan.mode, "L": plan.L, "n_oid": plan.n_oid,
+            "gate": _gate(plan.weights), "P": plan.P,
+            "ipa_on": int(plan.ipa_on),
+            "ic_inert": int("ic" not in plan.planes),
+            "tr_inert": int("tracked" not in plan.planes),
+            "gang_score": int(plan.gang_score)}
+    ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
+    return (ptrs,) + _launch_arrays(ints, _SSS_INTS, ptrs, _SSS_PTRS, name)
+
+
+def shard_scan_select(side: ScanSide, plan: ScanPlan) -> None:
+    """K10b on one device over its gathered records. CPU -> the plain
+    version; CUDA -> `csrc/shard_scan_select.cu`."""
+    if not side.gathered.is_cuda:
+        return shard_scan_select_plain(side, plan)
+    _scan_step_launch("shard_scan_select", side, lambda: _scan_select_args(
+        "shard_scan_select", side, plan))
+
+
+def shard_segments_select(side: ScanSide, plan: ScanPlan) -> None:
+    """K11b on one device over its gathered records. CPU -> the plain
+    version; CUDA -> `csrc/shard_segments_select.cu`."""
+    if not side.gathered.is_cuda:
+        return shard_segments_select_plain(side, plan)
+    _scan_step_launch("shard_segments_select", side,
+                      lambda: _scan_select_args("shard_segments_select",
+                                                side, plan))

@@ -1,7 +1,8 @@
 """Node-axis sharding of the port: a single-controller mesh over a list of
 torch devices, per-shard slices of the node matrix and the pod inputs,
-the all-gather, and the two sharded programs the scheduler runs, the
-serial cycle and the uniform K-batch burst.
+the all-gather, and the sharded programs the scheduler runs: the serial
+cycle, the uniform K-batch burst, the generic scan and the fused drain
+window.
 
 Counterpart of `kubernetes_tpu/parallel/sharding.py`. There GSPMD splits
 one jitted program over a `jax.sharding.Mesh` and inserts the
@@ -11,15 +12,19 @@ device (the JAX mesh is single-controller too):
 - shard s owns rows [s * n_pad / D, (s + 1) * n_pad / D) of the node
   matrix, on `mesh.devices[s]`; devices may repeat (`["cuda:0"] * 4` runs
   four shards on one card, `["cpu"] * 4` is what the CPU tests use);
-- a shard-local kernel (K9a for the cycle, K9c for a uniform pass) runs
-  on each shard's own device over its rows and writes a small per-row
-  record;
+- a shard-local kernel (K9a for the cycle, K9c for a uniform pass, K10a
+  / K11a for a step of the scan / fused window) runs on each shard's own
+  device over its rows and writes a small per-row record;
 - `all_gather` copies every shard's record into a replicated [D, bytes]
   buffer on each distinct device (a peer copy between cards, an on-device
   copy on one card), each copy ordered after its producer by a CUDA
   event;
-- a replicated select (K9b, K9d) runs on every distinct device over the
-  gathered records, so every device reaches the same decision.
+- a replicated select (K9b, K9d, K10b, K11b) runs on every distinct
+  device over the gathered records, so every device reaches the same
+  decision. The scans keep their step state (step index, li / lni, the
+  fold the shards owe, the gang checkpoint) on each device, so the host
+  enqueues every step with the same arguments and reads nothing until
+  the window's one fetch.
 
 A field whose node axis does not split (an inert `[1]` pod field, a
 scalar) is replicated, as JAX's `_put_by_keys` does. Decisions, packed
@@ -177,13 +182,16 @@ def _as_shards(mesh: Mesh, nodes) -> list:
 def all_gather(mesh: Mesh, parts: list, out: dict | None = None):
     """Copy shard s's 1-D uint8 record `parts[s]` (on `mesh.devices[s]`)
     into row s of a [D, bytes] buffer on every distinct device. On CUDA
-    each copy waits on an event recorded after the record's producer on
-    its device's current stream (no device-wide sync). `out` reuses
-    buffers by device. Returns ({device: buffer}, bytes copied)."""
+    a copy to another card waits on an event recorded after the record's
+    producer on its device's current stream (no device-wide sync); a copy
+    on the record's own card follows its producer on the same stream.
+    `out` reuses buffers by device. Returns ({device: buffer}, bytes
+    copied)."""
+    many = len(mesh.distinct) > 1
     events = []
     for p in parts:
         ev = None
-        if p.is_cuda:
+        if p.is_cuda and many:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(p.device))
         events.append(ev)
@@ -194,7 +202,7 @@ def all_gather(mesh: Mesh, parts: list, out: dict | None = None):
             (mesh.size, width), dtype=torch.uint8, device=d)
         with K._on(d):
             for s, p in enumerate(parts):
-                if events[s] is not None:
+                if events[s] is not None and p.device != d:
                     torch.cuda.current_stream(d).wait_event(events[s])
                 buf[s].copy_(p, non_blocking=True)
                 nbytes += p.numel()
@@ -364,3 +372,272 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
     return ([K._uniform_out_rows(sh.st[:, :rows], nd, flags)
              for sh, nd in zip(ushards, shards)],
             out[d0][: cap + 1], lni_out[d0][0])
+
+
+def shard_pod_stack(mesh: Mesh, stack: K.PodStack):
+    """A window's `K.PodStack` per shard, the counterpart of
+    `shard_pod_batch` for the per-spec tables: each `[U, n_pad]` per-node
+    field becomes the shard's `[U, rows]` slice on its device, `[U, 1]`
+    inert fields and per-spec scalars replicate. Inertness stays the
+    window's (a field dense for one spec is dense for all, as
+    `PodStack.from_specs` decided). Returns (one table dict per shard,
+    {device: row[B] int32}, {device: profile_id[B] int64, or None}), the
+    pod rows and profile ids uploaded once per distinct device."""
+    tables = shard_pod_batch(mesh, stack.table)
+    row = {d: K._upload(stack.row.astype(np.int32), d)
+           for d in mesh.distinct}
+    prof = {d: None for d in mesh.distinct}
+    if stack.profile_id is not None:
+        prof = {d: K._upload(stack.profile_id.astype(np.int64), d)
+                for d in mesh.distinct}
+    return tables, row, prof
+
+
+def _per_shard(mesh: Mesh, v, rows: int) -> list:
+    """A [n_pad] vector as one fresh [rows] slice per shard: `v` whole
+    (host array or tensor) or already one piece per shard."""
+    if isinstance(v, (list, tuple)):
+        return [_to(p, dev).to(K.I64) for p, dev in zip(v, mesh.devices)]
+    return [_to(v[s * rows: (s + 1) * rows], dev).to(K.I64)
+            for s, dev in enumerate(mesh.devices)]
+
+
+def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
+                 num_to_find, n_real, z_pad, weights, rotation, rotation_pos,
+                 spread0, carry_in, wtab, n_steps=None, segments=None,
+                 gang_score=False):
+    """The shards, the per-device replicated halves and the plan of one
+    sharded scan (`segments` None) or segments window (`segments` =
+    (seg_start, gang), `n_steps` = n_pods): every tensor a step reads,
+    uploaded once. Returns (ScanShard list, {device: ScanSide}, ScanPlan,
+    the number of steps the host enqueues)."""
+    shards = _as_shards(mesh, nodes)
+    D = mesh.size
+    n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
+    rows = mesh.rows(n_pad)
+    S = int(shards[0]["alloc_scalar"].shape[1])
+    d0 = mesh.devices[0]
+    stack = pods if isinstance(pods, K.PodStack) \
+        else K.PodStack.from_dense(pods, d0)
+    B = len(stack)
+    n_real, z_pad = int(n_real), int(z_pad)
+    mode, L, n_oid = 0, 0, 0
+    perms = invs = oid = {d: None for d in mesh.distinct}
+    if rotation_pos is not None:
+        if rotation is not None:
+            raise ValueError("rotation and rotation_pos are exclusive")
+        mode, (p, seq) = 2, rotation_pos
+        perms, oid = _replicas(mesh, p, K.I32), _replicas(mesh, seq, K.I32)
+    elif rotation is not None:
+        mode, (p, inv, seq) = 1, rotation
+        perms, invs = _replicas(mesh, p, K.I32), _replicas(mesh, inv, K.I32)
+        oid = _replicas(mesh, seq, K.I32)
+    if mode:
+        L, n_oid = int(np.shape(p)[0]), int(np.shape(seq)[0])
+    carry_spread = spread0 is not None or (
+        carry_in is not None and carry_in[1] is not None)
+    if carry_in is not None:
+        mut0, s0 = carry_in
+    else:
+        mut0, s0 = shards, spread0
+    spreads = _per_shard(mesh, s0, rows) if carry_spread else [None] * D
+    table = stack.table
+    # the window's record planes, from the whole table: the carried
+    # spread vector is dense, whatever the table's inert field says
+    planes = K.cycle_record_planes(
+        dict(table, spread_counts=np.zeros(n_pad, np.int64))
+        if carry_spread else table, weights)
+    if gang_score and "zone" not in planes:
+        planes += ("zone",)     # a placed member's zone feeds gz
+    _off, nbytes = K.record_layout(planes, rows)
+    if wtab is not None and stack.profile_id is None:
+        stack = K.PodStack(table, stack.row, np.zeros(B, np.int64),
+                           skip=stack.skip_flags())
+    plan = K.ScanPlan(
+        n_pad=n_pad, rows=rows, D=D, S=S, U=int(table["skip"].shape[0]),
+        B=B, n_steps=B if n_steps is None else int(n_steps),
+        num_to_find=int(num_to_find), n_real=n_real, z_pad=z_pad,
+        mode=mode, L=L, n_oid=n_oid,
+        P=0 if wtab is None else int(np.shape(wtab)[0]),
+        carry_spread=carry_spread, gang_score=bool(gang_score),
+        ipa_on=bool(weights["interpod"]) and K.cycle_ipa_on(table),
+        planes=planes, weights=weights)
+    tables, row, prof = shard_pod_stack(mesh, stack)
+    scan = []
+    for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
+        mine = {k: v for k, v in nd.items() if k not in K._MUTABLE}
+        mine.update({k: mut0[s][k].to(dev, K.I64).clone().contiguous()
+                     for k in K._MUTABLE})
+        chk = None
+        if segments is not None:
+            chk = {k: mine[k].clone() for k in K._MUTABLE}
+            if carry_spread:
+                chk["spread"] = spreads[s].clone()
+        scan.append(K.ScanShard(s * rows, mine, spreads[s], tables[s], chk,
+                                nbytes))
+    # the step the first local launch computes: the first live pod of a
+    # scan (the select decides the skip pods before it), step 0 of a
+    # segments window
+    live = ~stack.skip_flags()[stack.row]
+    first = 0
+    if segments is None:
+        first = int(np.argmax(live)) if live.any() else B
+    li = int(np.asarray(K._host(last_index)))
+    lni = int(np.asarray(K._host(last_node_index)))
+    st0 = np.zeros(K.SS_COUNT, np.int64)
+    st0[[K.SS_LI, K.SS_CHK_LI]] = li
+    st0[[K.SS_LNI, K.SS_LNI0, K.SS_CHK_LNI]] = lni
+    st0[K.SS_FOLD_SEL] = -1
+    st0[K.SS_NEXT] = first
+    wtabs = _replicas(mesh, wtab, K.I64)
+    seg = gng = {d: None for d in mesh.distinct}
+    if segments is not None:
+        seg = _replicas(mesh, segments[0], torch.bool)
+        gng = _replicas(mesh, segments[1], torch.bool)
+        if any(int(v.shape[0]) != B for v in seg.values()):
+            raise ValueError("seg_start/gang are not [B]")
+    sides = {}
+    for d in mesh.distinct:
+        tab = tables[mesh.devices.index(d)]
+        scratch = {
+            "p64": torch.empty((5, n_pad), dtype=K.I64, device=d),
+            "zone": torch.empty(n_pad, dtype=K.I32, device=d)
+            if "zone" in planes else None,
+            "tracked": torch.empty(n_pad, dtype=torch.uint8, device=d)
+            if "tracked" in planes else None,
+            "total": torch.empty(n_pad, dtype=K.I64, device=d),
+            "kept": torch.empty(n_pad, dtype=torch.uint8, device=d),
+            "flags": torch.empty(2 * n_pad, dtype=K.I32, device=d),
+            "zs": torch.empty(2 * z_pad, dtype=K.I64, device=d)}
+        if segments is None:
+            packed = torch.empty(3 * B, dtype=K.I32, device=d)
+            stats = torch.empty((5, B), dtype=K.I64, device=d)
+        else:
+            packed = torch.full((4 * B,), -1, dtype=K.I32, device=d)
+            stats = None
+        sides[d] = K.ScanSide(
+            st=K._upload(st0, d), row=row[d], prof=prof[d] if wtab
+            is not None else None, wtab=wtabs[d],
+            w=K._weight_row(weights, None, d), scal=K.scan_scalars(tab),
+            ic_b=tab["interpod_counts"].to(K.I64)[:, :1].contiguous(),
+            tr_b=tab["interpod_tracked"].to(torch.bool)[:, :1].contiguous(),
+            perms=perms[d], inv_perms=invs[d], oid=oid[d], seg_start=seg[d],
+            gang=gng[d], gz=torch.zeros(z_pad, dtype=K.I64, device=d)
+            if gang_score else None,
+            gathered=torch.zeros((D, nbytes), dtype=torch.uint8, device=d),
+            packed=packed, stats=stats, scratch=scratch)
+    if segments is not None:
+        steps = plan.n_steps
+    else:
+        steps = max(int(np.count_nonzero(live)), 1) if B else 0
+    return scan, sides, plan, steps
+
+
+def _run_steps(mesh: Mesh, scan: list, sides: dict, plan, steps: int,
+               local, select) -> int:
+    """Enqueue `steps` steps (the local kernel on every shard, the
+    all-gather, the select on every distinct device), then the local
+    kernel once more for the last step's fold. No host read. Returns the
+    bytes gathered."""
+    recs = [sh.rec for sh in scan]
+    bufs = {d: sides[d].gathered for d in mesh.distinct}
+    shard_sides = [sides[dev] for dev in mesh.devices]
+    nbytes = 0
+    for _ in range(steps):
+        for sh, side in zip(scan, shard_sides):
+            local(sh, side, plan)
+        nbytes += all_gather(mesh, recs, bufs)[1]
+        for d in mesh.distinct:
+            select(sides[d], plan)
+    for sh, side in zip(scan, shard_sides):
+        local(sh, side, plan)
+    return nbytes
+
+
+def sharded_scan(mesh: Mesh, nodes, pods, last_index, last_node_index,
+                 num_to_find, n_real, z_pad, weights=None, rotation=None,
+                 spread0=None, rotation_pos=None, carry_in=None, wtab=None):
+    """`sharded_scan_fn` (sharding.py:233): the generic scan (K5) with the
+    node axis split over the mesh. Per live pod: K10a on every shard
+    (fold the previous winner it owns, filter and row-local scores of the
+    pod), the all-gather, K10b on every distinct device (walk, kept-set
+    scores, pick; the skip pods around it); then K10a once more for the
+    last fold. The signature and returns of `K.schedule_batch`: `pods` a
+    `PodStack` or the [B, ...] dict; `carry_in` = (per-shard rows, spread
+    slices) of a previous window. Returns (one dict of folded rows per
+    shard, li, lni, per-shard spread slices (a zero scalar when not
+    carried), outs) with outs["packed"] the [3B] int32 block, all on the
+    first device; the host reads nothing until it fetches that block.
+    Books `gather.burst_scan` (bytes) and `steps.burst_scan`."""
+    weights = weights or K.DEFAULT_WEIGHTS
+    local, select = K.shard_scan_local, K.shard_scan_select
+    scan, sides, plan, steps = _scan_window(
+        mesh, nodes, pods, last_index, last_node_index, num_to_find, n_real,
+        z_pad, weights, rotation, rotation_pos, spread0, carry_in, wtab)
+    nbytes = _run_steps(mesh, scan, sides, plan, steps, local, select)
+    obs.inc("gather.burst_scan", nbytes)
+    obs.inc("steps.burst_scan", steps)
+    d0 = mesh.devices[0]
+    side, B = sides[d0], plan.B
+    stats, packed = side.stats, side.packed
+    outs = {"selected": stats[0], "found": stats[1], "evaluated": stats[2],
+            "max_score": stats[3], "li_after": packed[B: 2 * B],
+            "lni_after": stats[4], "packed": packed}
+    return (_scan_rows(scan), side.st[K.SS_LI].clone(),
+            side.st[K.SS_LNI].clone(), _scan_spread(scan, plan, d0), outs)
+
+
+def _scan_rows(scan: list) -> list:
+    return [{k: sh.nodes[k] for k in K._MUTABLE} for sh in scan]
+
+
+def _scan_spread(scan: list, plan, d0):
+    if plan.carry_spread:
+        return [sh.spread for sh in scan]
+    return torch.zeros((), dtype=K.I64, device=d0)
+
+
+def sharded_segments(mesh: Mesh, nodes, pods, seg_start, gang, n_pods,
+                     last_index, last_node_index, num_to_find, n_real, z_pad,
+                     weights=None, rotation=None, rotation_pos=None,
+                     spread0=None, wtab=None, gang_score=False):
+    """`sharded_segments_fn` (sharding.py:279): the fused drain window
+    (K6) with the node axis split over the mesh, the gang checkpoint per
+    shard. Exactly `n_pods` steps of K11a on every shard, the all-gather
+    and K11b on every distinct device, then K11a once more (the last fold
+    or rewind). The signature and returns of
+    `K.schedule_batch_segments`: (one dict of folded rows per shard, li,
+    lni, per-shard spread slices or a zero scalar, packed[4B]), on the
+    first device. Books `gather.burst_segments` (bytes) and
+    `steps.burst_segments`."""
+    weights = weights or K.DEFAULT_WEIGHTS
+    local, select = K.shard_segments_local, K.shard_segments_select
+    stack = pods if isinstance(pods, K.PodStack) \
+        else K.PodStack.from_dense(pods, mesh.devices[0])
+    if int(n_pods) > len(stack):
+        raise ValueError("n_pods exceeds the stacked window")
+    scan, sides, plan, steps = _scan_window(
+        mesh, nodes, stack, last_index, last_node_index, num_to_find,
+        n_real, z_pad, weights, rotation, rotation_pos, spread0, None, wtab,
+        n_steps=int(n_pods), segments=(seg_start, gang),
+        gang_score=gang_score)
+    nbytes = _run_steps(mesh, scan, sides, plan, steps, local, select)
+    obs.inc("gather.burst_segments", nbytes)
+    obs.inc("steps.burst_segments", steps)
+    d0 = mesh.devices[0]
+    side = sides[d0]
+    return (_scan_rows(scan), side.st[K.SS_LI].clone(),
+            side.st[K.SS_LNI].clone(), _scan_spread(scan, plan, d0),
+            side.packed)
+
+
+def sharded_batch(mesh: Mesh, nodes, pods, last_index, last_node_index,
+                  num_to_find, n_real, z_pad, weights=None):
+    """`sharded_batch_fn` (sharding.py:388): a plain wrapper over
+    `sharded_scan` with no rotation and no spread, the carried rows taken
+    from the node matrix. Returns (per-shard rows, li, lni, outs). No
+    kernel of its own."""
+    state, li, lni, _spread, outs = sharded_scan(
+        mesh, nodes, pods, last_index, last_node_index, num_to_find, n_real,
+        z_pad, weights=weights)
+    return state, li, lni, outs

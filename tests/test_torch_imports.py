@@ -58,6 +58,11 @@ def test_constants_equal_the_jax_module():
 def test_kernel_sources_exist_for_every_kernel():
     from kubernetes_tpu_torch.ops import _build
     assert tuple(PK.KERNELS) == tuple(_build.NAMES)
+    # K9a-d, K10a/b and K11a/b, the mesh kernels, each a source of its own
+    assert set(_build.NAMES) >= {
+        "shard_cycle_local", "shard_cycle_select", "shard_uniform_sweep",
+        "shard_uniform_select", "shard_scan_local", "shard_scan_select",
+        "shard_segments_local", "shard_segments_select"}
     for name in _build.NAMES:
         assert (_build.CSRC / f"{name}.cu").exists(), name
         # every kernel source includes only the package's own headers
@@ -112,24 +117,29 @@ def test_launch_slot_tables_match_the_kernel_enums():
     assert len(_enum_slots(preempt, "PI_COUNT")) == 9
 
 
-# the mesh kernels K9a-d: (source, the C enum's last slot of the scalar
-# table, of the pointer table, the enum prefixes, host tables)
+# the mesh kernels K9a-d, K10a/b and K11a/b: (source holding the enums,
+# the C enum's last slot of the scalar table, of the pointer table, the
+# enum prefixes, host tables); K10 and K11 share `shard_scan.cuh`'s
 _MESH_SLOTS = [
-    ("shard_cycle_local", "CL_COUNT", "LP_COUNT", "CL_", "LP_",
+    ("shard_cycle_local.cu", "CL_COUNT", "LP_COUNT", "CL_", "LP_",
      "_SCL_INTS", "_SCL_PTRS"),
-    ("shard_cycle_select", "CS_COUNT", "SP_COUNT", "CS_", "SP_",
+    ("shard_cycle_select.cu", "CS_COUNT", "SP_COUNT", "CS_", "SP_",
      "_SCS_INTS", "_SCS_PTRS"),
-    ("shard_uniform_sweep", "US_COUNT", "UP_COUNT", "US_", "UP_",
+    ("shard_uniform_sweep.cu", "US_COUNT", "UP_COUNT", "US_", "UP_",
      "_SUS_INTS", "_SUS_PTRS"),
-    ("shard_uniform_select", "UD_COUNT", "DP_COUNT", "UD_", "DP_",
+    ("shard_uniform_select.cu", "UD_COUNT", "DP_COUNT", "UD_", "DP_",
      "_SUD_INTS", "_SUD_PTRS"),
+    ("shard_scan.cuh", "SLI_COUNT", "SLP_COUNT", "SLI_", "SLP_",
+     "_SSL_INTS", "_SSL_PTRS"),
+    ("shard_scan.cuh", "SSI_COUNT", "SSP_COUNT", "SSI_", "SSP_",
+     "_SSS_INTS", "_SSS_PTRS"),
 ]
 
 
 def test_mesh_launch_slot_tables_match_the_kernel_enums():
-    """K9a-d: the host's scalar and pointer slot tables name the kernels'
-    C enum slots one to one, in order (the enum spells the host name in
-    capitals after its prefix, short forms aside)."""
+    """K9a-d, K10a/b, K11a/b: the host's scalar and pointer slot tables
+    name the kernels' C enum slots one to one, in order (the enum spells
+    the host name in capitals after its prefix, short forms aside)."""
     from kubernetes_tpu_torch.ops import _build
     short = {"allowed_pods": "ALLOWED", "interpod_code": "IPA_CODE",
              "node_aff_counts": "NA", "taint_counts": "TT",
@@ -137,7 +147,7 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
              "image_sums": "IMG", "prefer_avoid": "PA",
              "interpod_tracked": "TRACKED"}
     for name, iend, pend, ipre, ppre, itab, ptab in _MESH_SLOTS:
-        src = (_build.CSRC / f"{name}.cu").read_text()
+        src = (_build.CSRC / name).read_text()
         for end, pre, table in ((iend, ipre, itab), (pend, ppre, ptab)):
             slots = _enum_slots(src, end)
             host = getattr(PK, table)
@@ -152,3 +162,15 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
                      "ST_LANES"]
     assert [PK.ST_DONE, PK.ST_LNI, PK.ST_PASS, PK.ST_VFOLD, PK.ST_LNI0,
             PK.ST_LANES] == list(range(6))
+    # the step-state slots of the sharded scans (shard_scan.cuh's first
+    # enum), K10 and K11 alike
+    scan = (_build.CSRC / "shard_scan.cuh").read_text()
+    steps = _enum_slots(scan, "SS_COUNT")
+    assert steps == ["SS_STEP", "SS_NEXT", "SS_LI", "SS_LNI", "SS_LNI0",
+                     "SS_FOLD_SEL", "SS_FOLD_ROW", "SS_REWIND", "SS_T",
+                     "SS_CHK_T", "SS_CHK_LI", "SS_CHK_LNI", "SS_FAILED"]
+    assert [getattr(PK, s) for s in steps] == list(range(len(steps)))
+    assert PK.SS_COUNT == len(steps)
+    # the local kernels' checkpoint slots follow `_MUTABLE`
+    assert [s for s in PK._SSL_PTRS if s.startswith("chk_")] == [
+        "chk_" + k for k in PK._MUTABLE] + ["chk_spread"]

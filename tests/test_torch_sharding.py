@@ -385,12 +385,11 @@ def test_mesh_carry_from_jax():
                                       np.asarray(ref.jax._dev_nodes[k]))
 
 
-@pytest.mark.parametrize("entry", ["scan", "fused", "preempt", "pressure",
-                                   "prewarm"])
+@pytest.mark.parametrize("entry", ["preempt", "pressure", "prewarm"])
 def test_mesh_mode_refuses_unsharded_paths(entry):
-    """The generic scan, the fused window and device preemption are not
-    sharded yet: in mesh mode they raise NotImplementedError naming
-    ROADMAP B9, count no refusal and launch nothing."""
+    """Device preemption is not sharded yet: in mesh mode its entry points
+    raise NotImplementedError naming ROADMAP B9, count no refusal and
+    launch nothing."""
     from kubernetes_tpu_torch.oracle.generic_scheduler import FitError
     t = Trio(burst_nodes(8))
     port = TorchScheduler(node_tree=t.w.p_tree, device="cpu",
@@ -400,9 +399,6 @@ def test_mesh_mode_refuses_unsharded_paths(entry):
         3, cpu=200, prefix="b")]
     refusals, launches = obs.family("refusal"), PK.launches()
     calls = {
-        "scan": lambda: port.schedule_burst(pods, t.w.p_infos, names),
-        "fused": lambda: port.schedule_burst_fused([(pods, False)],
-                                                   t.w.p_infos, names),
         "preempt": lambda: port.preempt(pods[0], t.w.p_infos, names,
                                         FitError(pods[0], 8, {}), []),
         "pressure": lambda: port.preempt_pressure_burst(
