@@ -168,13 +168,15 @@ KERNEL_ENTRIES = ("local_total", "schedule_cycle", "schedule_batch_uniform",
                   "preemption_scan", "pressure_batch")
 #: the mesh kernels K9a-d, and the single-device kernels a mesh path also
 #: launches per shard (K1, K4)
-MESH_KERNELS = ("shard_cycle_local", "shard_cycle_select",
-                "shard_uniform_sweep", "shard_uniform_select",
-                "shard_scan_local", "shard_scan_select",
-                "shard_segments_local", "shard_segments_select")
-MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
 #: the kernels of the mesh-uniform path (K9a-d)
-UNIFORM_MESH_KERNELS = MESH_KERNELS[:4]
+UNIFORM_MESH_KERNELS = ("shard_cycle_local", "shard_cycle_select",
+                        "shard_uniform_sweep", "shard_uniform_select")
+#: the kernels of the mesh scan paths (K10a/b)
+SCAN_MESH_KERNELS = ("shard_scan_local", "shard_scan_select")
+#: the kernels of the mesh fused path (K11a/b)
+SEG_MESH_KERNELS = ("shard_segments_local", "shard_segments_select")
+MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS
+MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
 
 
 @contextlib.contextmanager
@@ -1622,10 +1624,6 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
 # Node-axis sharding of the scans: K10a/b (the generic scan) and K11a/b
 # (the fused window) on a mesh of four shards of the one card
 # ---------------------------------------------------------------------------
-SCAN_MESH_KERNELS = MESH_KERNELS[4:6]
-SEG_MESH_KERNELS = MESH_KERNELS[6:]
-
-
 def whole_window(r, d0):
     """A scan or segments result with its per-shard rows and spread
     slices gathered into whole vectors on `d0`."""
@@ -1818,16 +1816,39 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
           f"shards, n_real {n_real})")
 
 
-def scan_local_bytes(sh, plan):
+def scan_local_bytes(sh, side, plan):
     """Bytes one local step moves: the shard's node fields and the pod's
-    row of each dense table read, the record written."""
+    row of each dense table read, the record written; K11a also writes
+    its checkpoint at a segment start, and on a rewind reads it and
+    writes the live rows back (the live rows' reads are the node fields
+    already counted)."""
     from kubernetes_tpu_torch.ops import kernels as K
     rows = sh.rows
     tab = sum(v[0].numel() * v.element_size() for v in sh.tab.values()
               if v.dim() == 2 and v.shape[1] == rows)
-    return nbytes(sh.nodes) + tab + (nbytes(sh.spread) if plan.carry_spread
-                                     else 0) + sh.rec.numel() \
-        + (2 * 8 * (len(K._MUTABLE) + 1) * rows if sh.chk else 0)
+    total = nbytes(sh.nodes) + tab + sh.rec.numel() + (
+        nbytes(sh.spread) if plan.carry_spread else 0)
+    if sh.chk is not None:
+        t = int(side.st[K.SS_NEXT])
+        if int(side.st[K.SS_REWIND]):
+            total += 2 * nbytes(sh.chk)
+        if t < plan.n_steps and bool(side.seg_start[t]):
+            total += nbytes(sh.chk)
+    return total
+
+
+def scan_select_bytes(side, plan):
+    """Bytes one select step moves: the gathered records, the step's
+    rotation row(s), the gang zone counts when the gang score is on, the
+    step state read and written, and the step's packed (and, K10b,
+    stats) column."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    walk = plan.n_pad * 4 * (2 if plan.mode == 1 else 1) if plan.mode else 0
+    gz = 2 * nbytes(side.gz) if plan.gang_score else 0
+    col = side.packed.numel() // plan.B * side.packed.element_size()
+    if side.stats is not None:
+        col += side.stats.shape[0] * side.stats.element_size()
+    return nbytes(side.gathered) + walk + gz + 2 * nbytes(side.st) + col
 
 
 def scan_kernel_checks(calls, report, sync, seg):
@@ -1846,21 +1867,17 @@ def scan_kernel_checks(calls, report, sync, seg):
             a[0].gz.copy_(base[0].gz)
 
     args, _kw = _full(calls[local])
-    sh, plan = args[0], args[2]
     mesh_kernel_entry(report, local, calls[local], no_reset,
                       lambda a, r: (a[0].rec, {k: a[0].nodes[k]
                                                for k in K._MUTABLE}),
-                      scan_local_bytes(sh, plan), sync, 50,
+                      scan_local_bytes(*args), sync, 50,
                       "shard 0's rows of the window's first step")
     args, _kw = _full(calls[select])
-    side, plan = args[0], args[1]
-    walk = plan.n_pad * 4 * (2 if plan.mode == 1 else 1) if plan.mode else 0
     mesh_kernel_entry(report, select, calls[select], reset_side,
                       lambda a, r: (a[0].st, a[0].packed,
                                     a[0].stats if a[0].stats is not None
                                     else a[0].gz),
-                      nbytes(side.gathered) + walk + plan.n_pad * (8 + 1)
-                      + 8 * K.SS_COUNT + 5 * 8, sync, 50,
+                      scan_select_bytes(*args), sync, 50,
                       "the gathered records of the window's first step",
                       "; both times include the copy that restores the "
                       "step state before each call")

@@ -24,8 +24,13 @@ carries:
 matrix over several devices: schedule() runs the sharded cycle (K9a/K9b),
 the uniform burst the sharded K-batch passes (K9c/K9d), the generic scan
 one step of K10a/K10b per live pod and the fused window one step of
-K11a/K11b per pod, each window with one fetch. Device preemption is not
-sharded yet and raises NotImplementedError in mesh mode (ROADMAP B9).
+K11a/K11b per pod, each window with one fetch. On several cards a scan
+or fused step is bound by the host's enqueue (0.76-0.87 ms a step on 4 x
+NVIDIA H100 80GB HBM3 at 700 W, 3.0-3.2x the single-card window; PERF.md
+section 7) until the step is graph-captured, so mesh="auto" costs these
+windows throughput for now.
+Device preemption is not sharded yet and raises NotImplementedError in
+mesh mode (ROADMAP B9).
 
 Folds stay on the device. The node matrix and the victim table's planes
 are uploaded whole once and then kept current by the dirty-row scatter
