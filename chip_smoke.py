@@ -175,7 +175,11 @@ UNIFORM_MESH_KERNELS = ("shard_cycle_local", "shard_cycle_select",
 SCAN_MESH_KERNELS = ("shard_scan_local", "shard_scan_select")
 #: the kernels of the mesh fused path (K11a/b)
 SEG_MESH_KERNELS = ("shard_segments_local", "shard_segments_select")
-MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS
+#: the kernels of the mesh preemption paths (K14a/b, K13a/b)
+PREEMPT_MESH_KERNELS = ("shard_preempt_local", "shard_preempt_select")
+PRESSURE_MESH_KERNELS = ("shard_pressure_local", "shard_pressure_select")
+MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS \
+    + PREEMPT_MESH_KERNELS + PRESSURE_MESH_KERNELS
 MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
 
 
@@ -1087,11 +1091,13 @@ class capture:
     """Record the inputs of the first call of a kernel entry point (its
     tensors cloned, so later calls cannot change them), so the kernel
     check runs on the main path's own inputs, and the result of its last
-    call."""
+    call (of every call with `keep_all`)."""
 
-    def __init__(self, fn_name):
+    def __init__(self, fn_name, keep_all=False):
         self.fn_name = fn_name
         self.call = self.last = None
+        self.keep_all = keep_all
+        self.all = []       # every call's result, when keep_all
 
     def __enter__(self):
         from kubernetes_tpu_torch.ops import kernels as K
@@ -1101,6 +1107,8 @@ class capture:
             if self.call is None:
                 self.call = (_clone(nodes), _clone(args), _clone(kw))
             self.last = real(nodes, *args, **kw)
+            if self.keep_all:
+                self.all.append(self.last)
             return self.last
         setattr(K, self.fn_name, rec)
         return self
@@ -1175,14 +1183,32 @@ def call_entry(report, name, fn, plain, call, bound, sync, reps, label):
     return ms
 
 
+def prefix_call(call, n, segments=False):
+    """A captured K5 / K6 call cut to the window's first `n` pods: the pod
+    stack's rows (and profile ids), for K6 also seg_start, gang and
+    n_pods. The kernel and its plain version are held and timed on it;
+    the whole window's decisions are held against the plain path's
+    prefix by scan_path / fused_path."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    nodes, args, kw = call
+    st = args[0]
+    pid = None if st.profile_id is None else st.profile_id[:n]
+    stack = K.PodStack(st.table, st.row[:n], pid, skip=st.skip_flags())
+    if not segments:
+        return nodes, (stack,) + tuple(args[1:]), kw
+    return nodes, (stack, args[1][:n], args[2][:n],
+                   min(int(args[3]), n)) + tuple(args[4:]), kw
+
+
 def scan_kernel_entry(report, name, fn, plain, call, n_cycles, n_pods,
                       out_bytes, sync):
-    """call_entry for a scan kernel on one whole window of its path."""
+    """call_entry for a scan kernel on the first `n_pods` pods of its
+    path's window (`call` cut by prefix_call)."""
     nodes, args, _kw = call
     bound = scan_bound(nodes, args[0], n_cycles, int(nodes["valid"].sum()),
                        out_bytes)
     ms = call_entry(report, name, fn, plain, call, bound, sync, 3,
-                    f"the whole {n_pods}-pod window")
+                    f"the window's first {n_pods} pods")
     print(f"[kernel] {name}: {ms / n_pods * 1e3:.2f} us/pod")
 
 
@@ -1323,20 +1349,20 @@ def scan_paths(device, sync, report):
     from kubernetes_tpu_torch.ops import kernels as K
 
     def k5_check(call, run):
-        n_cycles = N_PODS
+        # every pod of the prefix runs a cycle
         scan_kernel_entry(report, "schedule_batch", K.schedule_batch,
-                          K.schedule_batch_plain, call, n_cycles, N_PODS,
-                          len(call[1][0]) * (3 * 4 + 5 * 8), sync)
+                          K.schedule_batch_plain, prefix_call(call, PREFIX),
+                          PREFIX, PREFIX, PREFIX * (3 * 4 + 5 * 8), sync)
 
     def k6_check(call, run, n_pods):
-        rec = run["res"]["segments"]
-        # every placed pod, plus the rack gang's placed members and the
-        # member that failed
-        n_cycles = sum(len(r.get("hosts", ())) for r in rec) + RACK_NODES + 1
+        # every pod of the prefix runs a cycle but the rack gang's members
+        # behind its failing one (the rack gang starts at pod 500)
+        n_cycles = PREFIX - (GANG_SIZE - RACK_NODES - 1)
         scan_kernel_entry(report, "schedule_segments",
                           K.schedule_batch_segments,
-                          K.schedule_batch_segments_plain, call, n_cycles,
-                          n_pods, len(call[1][0]) * 4 * 4, sync)
+                          K.schedule_batch_segments_plain,
+                          prefix_call(call, PREFIX, segments=True),
+                          n_cycles, PREFIX, PREFIX * 4 * 4, sync)
 
     runs = {}
     for cfg, n_nodes, window_fn in scan_cells():
@@ -1460,13 +1486,14 @@ def nbytes(*xs):
 
 
 def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
-                      reps, label, note=""):
-    """Hold K9 kernel `name` against its plain version on one captured
+                      reps, label, note="", ops=0):
+    """Hold mesh kernel `name` against its plain version on one captured
     call of the mesh path (each run on its own copy of the arguments,
     `reset(copy, base)` restoring what a call changes before each timed
     run), time both, file its report entry. `outputs(copy, result)` is
-    what the two must agree on; the bound is `io_bytes` (each input read
-    once, each output written once) over the memory rate."""
+    what the two must agree on; the bound is the larger of `io_bytes`
+    (each input read once, each output written once) over the memory rate
+    and `ops` integer operations over the non-tensor peak."""
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     args, kw = _full(call)
@@ -1489,15 +1516,17 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
         return one
     ms = cuda_time(timed(fn), sync, reps)
     plain_ms = cuda_time(timed(plain), sync, 2)
-    bound = io_bytes / H100_BYTES_PER_S * 1e3
+    bound, by = io_bytes / H100_BYTES_PER_S * 1e3, "bytes"
+    if ops / H100_OPS_PER_S * 1e3 > bound:
+        bound, by = ops / H100_OPS_PER_S * 1e3, "operations"
     report[name] = {"name": name, "route": "cuda",
                     "source": SOURCES[name][0], "replaces": SOURCES[name][1],
                     "launches": 0, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": "bytes", "library_ms": None}
+                    "bound_by": by, "library_ms": None}
     print(f"[kernel] {name}: equal to plain on {label} (max_abs_err 0), "
           f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bound:.6f} (bytes){note}")
+          f"{bound:.6f} ({by}){note}")
 
 
 def _full(call):
@@ -2247,11 +2276,12 @@ def preempt_variant_checks(device, sync, n_pad=16384, n_real=16000):
           f"the seven victim planes)")
 
 
-def run_wave(infos, tree, pdbs, wave, device, sync, pct=None):
-    """prewarm_preempt, then one pressure wave; returns its outcomes,
-    scheduler, prewarm and wave seconds."""
-    sched = make_sched(tree, device, 50 if pct is None else pct) \
-        if tree is not None else None
+def run_wave(infos, tree, pdbs, wave, device, sync, pct=None, mesh=None):
+    """prewarm_preempt, then one pressure wave (the node axis split over
+    `mesh` when given); returns its outcomes, scheduler, prewarm and wave
+    seconds."""
+    sched = make_sched(tree, device, 50 if pct is None else pct,
+                       mesh=mesh) if tree is not None else None
     if sched is None:
         from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
         sched = TorchScheduler(percentage_of_nodes_to_score=pct,
@@ -2280,7 +2310,7 @@ def wave_path(name, infos, tree, pdbs, wave, device, sync, report,
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.ops import kernels as K
     obs.reset()
-    with capture("pressure_batch") as rec:
+    with capture("pressure_batch", keep_all=True) as rec:
         run = run_wave(infos, tree, pdbs, wave, device, sync, pct)
     counts = K.launches()
     refusals = obs.family("refusal")
@@ -2335,7 +2365,7 @@ def wave_path(name, infos, tree, pdbs, wave, device, sync, report,
           f"{run['t_prewarm'] * 1e3:.1f} ms; outcomes {kinds}; launches "
           f"{counts}; plain path wave {ref['t_wave'] * 1e3:.1f} ms; "
           f"outcomes, counters, ghost and rows equal to the plain path")
-    return run, kinds
+    return run, kinds, rec.all
 
 
 def baseline_world():
@@ -2454,33 +2484,582 @@ def single_path(infos, tree, pdbs, device, sync, report):
 
 
 def preempt_paths(device, sync, report):
-    """The three preemption paths: preempt-wave (15,000 nodes, 150,000
-    victims, 1,024 preemptors), preempt-baseline (BASELINE configs[3]),
-    preempt-single (32 serial preemptions on the preempt-wave world)."""
+    """The preemption paths: preempt-wave (15,000 nodes, 150,000 victims,
+    1,024 preemptors), preempt-baseline (BASELINE configs[3]),
+    mesh-preempt-wave (the preempt-wave world on four shards, held against
+    the single-device wave), preempt-single (N_SINGLE serial preemptions
+    on the preempt-wave world), mesh-preempt-single (N_MESH_SINGLE more,
+    on four shards) and mesh-nominated-serial; the mesh kernels K13a-K14b
+    on random inputs first."""
+    mesh_preempt_variant_checks(device, sync)
     t = time.perf_counter()
     infos, tree, pdbs = preempt_world(N_NODES)
     print(f"[world] preempt: {N_NODES} nodes, "
           f"{sum(len(ni.pods) for ni in infos.values())} victims built in "
           f"{time.perf_counter() - t:.1f} s")
-    _run, kinds = wave_path("preempt-wave", infos, tree, pdbs, wave_pods(),
-                            device, sync, report)
+    run, kinds, chunks = wave_path("preempt-wave", infos, tree, pdbs,
+                                   wave_pods(), device, sync, report)
     for want in ("bound", "nominated", "failed(any_cand=True)"):
         if not kinds.get(want):
             raise SystemExit(f"preempt-wave: no {want} outcome ({kinds})")
     b_infos, b_wave = baseline_world()
     wave_path("preempt-baseline", b_infos, None, [], b_wave, device, sync,
               report, pct=100, check=False)
+    mesh_wave_path(infos, tree, pdbs, device, sync, report, (run, chunks))
     single_path(infos, tree, pdbs, device, sync, report)
+    mesh_single_path(infos, tree, pdbs, device, sync, report)
+    mesh_nominated_path(device, sync)
+
+
+# ---------------------------------------------------------------------------
+# Node-axis sharding of device preemption: K14a/b (the victim scan) and
+# K13a/b (the pressure wave), and the serial cycle's nominated ghost (C1)
+# ---------------------------------------------------------------------------
+SOURCES.update({
+    "shard_preempt_local": (
+        "kubernetes_tpu_torch/ops/csrc/shard_preempt_local.cu",
+        "kubernetes_tpu/parallel/sharding.py:354"),
+    "shard_preempt_select": (
+        "kubernetes_tpu_torch/ops/csrc/shard_preempt_select.cu",
+        "kubernetes_tpu/parallel/sharding.py:354"),
+    "shard_pressure_local": (
+        "kubernetes_tpu_torch/ops/csrc/shard_pressure_local.cu",
+        "kubernetes_tpu/parallel/sharding.py:330"),
+    "shard_pressure_select": (
+        "kubernetes_tpu_torch/ops/csrc/shard_pressure_select.cu",
+        "kubernetes_tpu/parallel/sharding.py:330"),
+})
+
+
+def whole_wave(r, d0):
+    """A pressure result with its per-shard rows and ghost gathered into
+    whole vectors on `d0`: (rows, ghost, li, lni, packed)."""
+    mut, ghost, li, lni, outs = r
+    if isinstance(mut, list):
+        mut, ghost = cat_rows(mut), cat_rows(ghost)
+    return (mut, ghost, li.reshape(()).to(d0), lni.reshape(()).to(d0),
+            outs["packed"])
+
+
+def _random_ghost(rng, n_pad, device):
+    import torch
+    return {k: torch.as_tensor(rng.integers(0, hi, n_pad)).to(device)
+            for k, hi in (("cpu", 600), ("mem", GI), ("eph", 2),
+                          ("cnt", 3))}
+
+
+def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
+                                n_real=3999):
+    """K14a/b and K13a/b against their plain versions on random inputs,
+    and the sharded victim scan / pressure wave against the single-device
+    plain K7 / K8, on one card split into 1, 2 and 4 shards, at P 16 and
+    128 (n_real 3,999: a multiple of no shard count): K14 with the K7
+    cases (check_resources / has_request false, no candidate, a
+    zero-victim win, ties through all five criteria across every shard
+    with a candidate order that is not the row order, no lower priority)
+    and each shard's record against the plain record; K13 on a chunk of
+    binds, nominations, failures and skip padding, ghosts off and carried
+    in, an init-container request. Then K2 and the sharded cycle (K9a/b)
+    with a nominated ghost against their plain versions. `meshes` (lists
+    of devices) replaces the shards of one card."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    rng = np.random.default_rng(20261023)
+    checked = 0
+
+    def same(name, got, want):
+        nonlocal checked
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise SystemExit(f"mesh preempt variant {name}: disagrees "
+                             f"(max_abs_err {err}; first difference "
+                             f"{first_diff(got, want)})")
+        checked += 1
+
+    mesh_list = [S.Mesh(devs) for devs in
+                 (meshes or [[device] * D for D in MESH_SHARDS])]
+    for P, B in ((16, 32), (128, 16)):
+        vic = _rand_victims(rng, n_pad, P, device)
+        nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
+        feas = torch.as_tensor(rng.random(n_pad) < 0.9).to(device)
+        rank = torch.as_tensor(rng.permutation(n_pad)).to(device)
+        pod = {"req_cpu": np.int64(1500), "req_mem": np.int64(2 * GI),
+               "req_eph": np.int64(GI)}
+        w = max(int(K.preemption_scan_plain(
+            nodes, vic, pod, feas, rank, n_real, True, True, 6)[0]), 0)
+        tie_vic = {k: v[w:w + 1].expand_as(v).contiguous()
+                   for k, v in vic.items()}
+        tie_nodes = {k: (v[w:w + 1].expand_as(v).contiguous()
+                         if k != "valid" else v) for k, v in nodes.items()}
+        roomy = {**nodes, "req_cpu": nodes["req_cpu"] // 4}
+        k14 = [("default", nodes, vic, feas, True, True, 6),
+               ("check_resources false", nodes, vic, feas, False, False, 6),
+               ("has_request false", nodes, vic, feas, True, False, 6),
+               ("no candidate", nodes, vic, torch.zeros_like(feas), True,
+                True, 6),
+               ("zero-victim win", roomy, vic, feas, True, True, 6),
+               ("ties across shards", tie_nodes, tie_vic, feas, True, True,
+                6),
+               ("no lower priority", nodes, vic, feas, True, True, 0)]
+        want14 = {c[0]: K.preemption_scan_plain(c[1], c[2], pod, c[3], rank,
+                                                n_real, c[4], c[5], c[6])
+                  for c in k14}
+        # K13: a chunk over a cluster with room on six rows only: binds,
+        # then nominations, then failures, then skip padding
+        room = torch.zeros(n_pad, dtype=torch.bool)
+        room[rng.choice(n_real, 6, replace=False)] = True
+        full = {**nodes, "req_cpu": torch.where(
+            room.to(device), nodes["req_cpu"], nodes["alloc_cpu"])}
+        specs = []
+        for j, (cpu, upd, prio) in enumerate(
+                [(400, 400, 9), (1200, 800, 7), (2000, 2000, 5),
+                 (9000, 9000, 3)]):
+            d = _spec(cpu, j == 1, rng, n_pad, 1)
+            d.update(req_mem=np.int64(GI), req_eph=np.int64(0),
+                     upd_cpu=np.int64(upd), upd_mem=np.int64(GI),
+                     upd_scalar=np.zeros(1, np.int64),
+                     req_scalar=np.zeros(1, np.int64),
+                     check_resources=np.bool_(j != 2),
+                     has_request=np.bool_(True), pprio=np.int64(prio))
+            specs.append(d)
+        specs.append(dict(specs[3], skip=np.bool_(True)))
+        q = (B - 4) // 4
+        row = np.concatenate([np.repeat([0, 1, 2, 3], q), [4] * (B - 4 * q)])
+        stack = K.PodStack.from_specs(specs, row, None, device)
+        mut0 = {k: full[k] for k in K._MUTABLE}
+        zero = {k: torch.zeros(n_pad, dtype=torch.int64, device=device)
+                for k in K.GHOST_FIELDS}
+        ghosts = (("ghost off", zero),
+                  ("ghost on", _random_ghost(rng, n_pad, device)))
+        want13 = {}
+        for gname, g0 in ghosts:
+            want13[gname] = whole_wave(K.pressure_batch_plain(
+                full, mut0, g0, stack, vic, 37, 5, 9000, n_real, 4),
+                torch.device(device))
+            kinds = set(want13[gname][4][:, 1].cpu().tolist())
+            if P == 16 and gname == "ghost off" and not (
+                    {-2, -1} <= kinds and max(kinds) >= 0):
+                raise SystemExit(f"mesh preempt variant K13/P{P}: the "
+                                 f"chunk lacks bound, failed or nominated "
+                                 f"pods ({sorted(kinds)})")
+        for mesh in mesh_list:
+            D, d0 = mesh.size, mesh.devices[0]
+            rows = mesh.rows(n_pad)
+            for name, nd, vc, fs, cr, hr, mp in k14:
+                shards = S.shard_node_arrays(mesh, nd)
+                vics = S.shard_victim_planes(mesh, vc)
+                args = (shards, vics, pod, fs, rank, n_real, cr, hr, mp)
+                got = K.preemption_scan(*args, mesh=mesh)
+                with plain_versions(MESH_ENTRIES):
+                    ref = K.preemption_scan(*args, mesh=mesh)
+                same(f"{D} shards/K14/P{P}/{name} vs plain", got, ref)
+                same(f"{D} shards/K14/P{P}/{name} vs K7 plain", got.to(d0),
+                     want14[name].to(d0))
+                if name in ("default", "ties across shards"):
+                    for s_ in range(D):
+                        sl = slice(s_ * rows, (s_ + 1) * rows)
+                        a = (shards[s_], vics[s_], pod,
+                             fs[sl].to(mesh.devices[s_]),
+                             rank[sl].to(mesh.devices[s_]), s_ * rows,
+                             n_real, cr, hr, mp)
+                        same(f"{D} shards/K14a record {s_}/P{P}/{name}",
+                             K.shard_preempt_local(*a),
+                             K.shard_preempt_local_plain(*a))
+            shards = S.shard_node_arrays(mesh, full)
+            vics = S.shard_victim_planes(mesh, vic)
+            for gname, g0 in ghosts:
+                args = (shards, mut0, g0, stack, vics, 37, 5, 9000, n_real,
+                        4)
+                got = whole_wave(K.pressure_batch(*args, mesh=mesh), d0)
+                with plain_versions(MESH_ENTRIES):
+                    ref = whole_wave(K.pressure_batch(*args, mesh=mesh), d0)
+                same(f"{D} shards/K13/P{P}/{gname} vs plain", got, ref)
+                same(f"{D} shards/K13/P{P}/{gname} vs K8 plain", got,
+                     tuple(x.to(d0) if hasattr(x, "to") else
+                           {k: v.to(d0) for k, v in x.items()}
+                           for x in want13[gname]))
+    # C1: K2 and the sharded cycle with a nominated ghost
+    cnodes = _rand_nodes(rng, n_pad, n_real, 2, 5, device)
+    cpod = _rand_pod(rng, n_pad, 2, True)
+    ghost = _random_ghost(rng, n_pad, device)
+    args = (cnodes, cpod, 17, 5, 900, n_real, 8)
+    want = K.schedule_cycle_plain(*args, ghost=ghost)
+    same("K2 with ghost vs plain", {k: want[k] for k in CYCLE_KEYS},
+         {k: K.schedule_cycle(*args, ghost=ghost)[k] for k in CYCLE_KEYS})
+    for mesh in mesh_list:
+        d0 = mesh.devices[0]
+        got = K.schedule_cycle(S.shard_node_arrays(mesh, cnodes), *args[1:],
+                               ghost=ghost, mesh=mesh)
+        same(f"{mesh.size} shards/K9a-b with ghost vs K2 plain",
+             {k: got[k].to(d0) for k in CYCLE_KEYS},
+             {k: want[k].to(d0) for k in CYCLE_KEYS})
+    sync()
+    print(f"[variants] {checked} mesh preemption comparisons equal (K14a/b "
+          f"and K13a/b against their plain versions, the sharded victim "
+          f"scan / pressure wave against the single-device plain K7 / K8, "
+          f"K14a records per shard: default, check_resources and "
+          f"has_request false, no candidate, zero-victim win, ties across "
+          f"every shard, no lower priority; K13 chunks of binds, "
+          f"nominations, failures and skip padding, ghosts off and "
+          f"carried in; K2 and K9a/b with a nominated ghost; P 16 and 128 "
+          f"on meshes of {[m.size for m in mesh_list]} shards, n_real "
+          f"{n_real})")
+
+
+N_MESH_SINGLE = 8               # mesh-preempt-single rounds
+N_NOMINATED = 8                 # mesh-nominated-serial cycles
+
+
+def pressure_kernel_checks(calls, report, sync):
+    """K13a/b, each on its first call of mesh-preempt-wave (step 0 of the
+    first chunk: no fold owed, so repeated calls are idempotent apart from
+    K13b's step state)."""
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    def no_reset(a, base):
+        pass
+
+    def reset_side(a, base):
+        a[0].st.copy_(base[0].st)
+
+    args, _kw = _full(calls["shard_pressure_local"])
+    sh, side, plan = args
+    rows = sh.rows
+    mesh_kernel_entry(
+        report, "shard_pressure_local", calls["shard_pressure_local"],
+        no_reset, lambda a, r: (a[0].rec, a[0].ghost),
+        scan_local_bytes(sh, side, plan) + nbytes(sh.vic, sh.ghost), sync,
+        50, "shard 0's rows of the wave's first step",
+        ops=rows * (plan.vic_P * OPS_PER_SLOT + OPS_PER_NODE_CYCLE))
+    args, _kw = _full(calls["shard_pressure_select"])
+    side, plan = args
+    mesh_kernel_entry(
+        report, "shard_pressure_select", calls["shard_pressure_select"],
+        reset_side, lambda a, r: (a[0].st, a[0].packed),
+        scan_select_bytes(side, plan), sync, 50,
+        "the gathered records of the wave's first step",
+        "; both times include the copy that restores the step state "
+        "before each call", ops=plan.n_real * OPS_PER_NODE_CYCLE)
+
+
+def mesh_wave_path(infos, tree, pdbs, device, sync, report, ref,
+                   check_kernels=True, mesh=None):
+    """mesh-preempt-wave: the preempt-wave world's wave through
+    TorchScheduler(mesh=Mesh([device] * MESH_D)) (one step of K13a/K13b
+    per pod, 8 chunks, one fetch), launches counted, held against the
+    single-device K8 wave of the same call (`ref` = (run, every chunk's
+    K8 result)): outcomes with their victims, walk counters, the folded
+    rows, and per chunk the ghost load, li, lni and the packed block."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = mesh or S.Mesh([device] * MESH_D)
+    name = "mesh-preempt-wave"
+    single, single_chunks = ref
+    wave = wave_pods()
+    caps = [capture(k) for k in PRESSURE_MESH_KERNELS] if check_kernels \
+        else []
+    obs.reset()
+    with contextlib.ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        with capture("pressure_batch", keep_all=True) as rec:
+            run = run_wave(infos, tree, pdbs, wave, device, sync,
+                           mesh=mesh)
+    counts = K.launches()
+    refusals = obs.family("refusal")
+    fetches = obs.get("fetch.pressure_batch")
+    if refusals or run["out"] is None:
+        raise SystemExit(f"{name}: refused ({refusals})")
+    missing = [k for k in PRESSURE_MESH_KERNELS if counts[k] == 0]
+    if missing or fetches != 1:
+        raise SystemExit(f"{name}: kernels not launched {missing}, "
+                         f"{fetches} fetches")
+    if outcome_names(run["out"]) != outcome_names(single["out"]) \
+            or run["counters"] != single["counters"]:
+        raise SystemExit(f"{name}: outcomes or counters differ from the "
+                         f"single-device wave")
+    same_rows(f"{name} folded rows", run["rows"], single["rows"])
+    d0 = mesh.devices[0]
+    if len(rec.all) != len(single_chunks):
+        raise SystemExit(f"{name}: {len(rec.all)} chunks, single-device "
+                         f"{len(single_chunks)}")
+    for i, (got, want) in enumerate(zip(rec.all, single_chunks)):
+        same_rows(f"{name} chunk {i} ghost, li, lni and packed block",
+                  whole_wave(got, d0)[1:], whole_wave(want, d0)[1:])
+    kinds = {}
+    for o in run["out"]:
+        key = o[0] if o[0] != "failed" else f"failed(any_cand={o[1]})"
+        kinds[key] = kinds.get(key, 0) + 1
+    for want in ("bound", "nominated", "failed(any_cand=True)"):
+        if not kinds.get(want):
+            raise SystemExit(f"{name}: no {want} outcome ({kinds})")
+    ph = run["phases"]
+    print(f"[path] {name}: {len(infos)} nodes on {mesh.size} shards "
+          f"({len(mesh.distinct)} distinct devices), {len(wave)} "
+          f"preemptors in {-(-len(wave) // 128)} chunks and 1 fetch, "
+          f"{len(wave) / run['t_wave']:.1f} preemptors/s "
+          f"({run['t_wave'] * 1e3:.2f} ms: encode {ph['encode'] * 1e3:.2f} "
+          f"scan {ph['scan'] * 1e3:.2f} of which fetch "
+          f"{ph['fetch'] * 1e3:.2f}); steps {ph['steps']} gather_bytes "
+          f"{ph['gather_bytes']} ({ph['scan'] * 1e3 / ph['steps']:.4f} ms "
+          f"a step); prewarm {run['t_prewarm'] * 1e3:.1f} ms; outcomes "
+          f"{kinds}; launches {counts}; single-device wave "
+          f"{single['t_wave'] * 1e3:.2f} ms; outcomes, victims, counters, "
+          f"rows and every chunk's ghost, li, lni and packed block equal")
+    if check_kernels:
+        pressure_kernel_checks({c.fn_name: c.call for c in caps}, report,
+                               sync)
+    add_launches(report, counts)
+
+
+def preempt_scan_kernel_checks(calls, report, sync):
+    """K14a/b, each on its first call of mesh-preempt-single."""
+    def no_reset(a, base):
+        pass
+
+    from kubernetes_tpu_torch.ops import kernels as K
+    args, _kw = _full(calls["shard_preempt_local"])
+    rows, P = (int(x) for x in args[1]["prio"].shape)
+    rows_read = {k: args[0][k] for k in K._PREEMPT_PTRS[:8]}
+    mesh_kernel_entry(
+        report, "shard_preempt_local", calls["shard_preempt_local"],
+        no_reset, lambda a, r: r,
+        nbytes(rows_read, args[1], args[3], args[4])
+        + K.cand_record_bytes(P), sync, 50,
+        "shard 0's rows of the first mesh-preempt-single round",
+        ops=rows * P * OPS_PER_SLOT)
+    args, _kw = _full(calls["shard_preempt_select"])
+    mesh_kernel_entry(
+        report, "shard_preempt_select", calls["shard_preempt_select"],
+        no_reset, lambda a, r: r, nbytes(args[0]) + 4 * (3 + P), sync, 50,
+        "the gathered records of the first mesh-preempt-single round")
+
+
+def mesh_single_path(infos, tree, pdbs, device, sync, report,
+                     check_kernels=True, mesh=None, rounds=N_MESH_SINGLE):
+    """mesh-preempt-single: `rounds` more rounds on the world preempt-single
+    left, through TorchScheduler(mesh=Mesh([device] * MESH_D)): schedule
+    raises FitError through K9a/K9b (its reasons held against a
+    single-device schedule of the same state), preempt runs K14a on every
+    shard and K14b; each round's K14 block is held against the
+    single-device K7 block of the same rows and planes (the shards
+    gathered back), then the shell evicts the victims and binds the pod."""
+    import torch
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.api.types import Pod, Container
+    from kubernetes_tpu_torch.oracle.generic_scheduler import FitError
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = mesh or S.Mesh([device] * MESH_D)
+    name = "mesh-preempt-single"
+    sched = make_sched(tree, device, 50, mesh=mesh)
+    ref = make_sched(tree, device, 50)
+    real = K.preemption_scan
+    d0 = mesh.devices[0]
+
+    def checked(nodes, vic, *args, **kw):
+        out = real(nodes, vic, *args, **kw)
+        whole = {k: v.to(d0) for k, v in cat_rows(nodes).items()}
+        planes = {k: v.to(d0) for k, v in cat_rows(vic).items()}
+        want = real(whole, planes, *args)
+        if max_abs_err(out, want) != 0:
+            raise SystemExit(f"{name}: K14 block differs from the "
+                             f"single-device K7 block "
+                             f"({first_diff(out, want)})")
+        return out
+    names = tree.list_names()
+    caps = [capture(k) for k in PREEMPT_MESH_KERNELS] if check_kernels \
+        else []
+    t = time.perf_counter()
+    sched.prewarm_preempt(infos, names, pdbs)
+    sync()
+    t_prewarm = time.perf_counter() - t
+    obs.reset()
+    t_pre = t_sched = 0.0
+    evicted = 0
+    K.preemption_scan = checked
+    try:
+        with contextlib.ExitStack() as stack:
+            for c in caps:
+                stack.enter_context(c)
+            for r in range(rounds):
+                pod = Pod(name=f"mesh-single-{r}", priority=100,
+                          node_selector={"pool": "preempt"},
+                          containers=(Container.make(
+                              name="c", requests={"cpu": 1000}),))
+                errs = []
+                t0 = time.perf_counter()
+                for s in (sched, ref):
+                    try:
+                        s.schedule(pod, infos, tree.list_names())
+                        raise SystemExit(f"{name}: the pod was scheduled")
+                    except FitError as e:
+                        errs.append(e)
+                    if s is sched:
+                        t_sched += time.perf_counter() - t0
+                if errs[0].failed_predicates != errs[1].failed_predicates:
+                    raise SystemExit(f"{name} round {r}: FitError reasons "
+                                     f"differ from the single-device cycle")
+                t1 = time.perf_counter()
+                res = sched.preempt(pod, infos, names, errs[0], pdbs)
+                sync()
+                t_pre += time.perf_counter() - t1
+                if res is None or res.node is None or not res.victims:
+                    raise SystemExit(f"{name} round {r}: {res}")
+                for v in res.victims:
+                    infos[v.node_name].remove_pod(v)
+                evicted += len(res.victims)
+                assume(infos, pod, res.node.name)
+    finally:
+        K.preemption_scan = real
+    counts = K.launches()
+    refusals = obs.family("refusal")
+    if refusals:
+        raise SystemExit(f"{name}: refusals {refusals}")
+    missing = [k for k in PREEMPT_MESH_KERNELS + UNIFORM_MESH_KERNELS[:2]
+               if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{name}: kernels not launched on the path: "
+                         f"{missing}")
+    print(f"[path] {name}: {len(infos)} nodes on {mesh.size} shards "
+          f"({len(mesh.distinct)} distinct devices), {rounds} rounds of "
+          f"schedule (FitError through K9a/b) + preempt (K14a/b), "
+          f"{rounds / t_pre:.1f} preemptions/s (preempt {t_pre * 1e3:.1f} "
+          f"ms in all; schedule {t_sched * 1e3:.1f} ms in all); prewarm "
+          f"{t_prewarm * 1e3:.1f} ms; gather.preempt "
+          f"{obs.get('gather.preempt')} bytes; {evicted} victims evicted; "
+          f"victim planes uploaded {obs.get('dispatch.vic_upload')} and "
+          f"scattered {obs.get('dispatch.vic_scatter')} times; launches "
+          f"{counts}; FitError reasons equal to the single-device cycle "
+          f"and every K14 block equal to the single-device K7 block")
+    if check_kernels:
+        preempt_scan_kernel_checks({c.fn_name: c.call for c in caps},
+                                   report, sync)
+    # the single-device schedule and K7 calls that hold the mesh ones
+    # are comparisons, not the path's launches
+    add_launches(report, {k: counts[k] for k in PREEMPT_MESH_KERNELS
+                          + UNIFORM_MESH_KERNELS[:2]})
+
+
+def nominated_world(n_nodes):
+    """bench.py's cluster with nominees: a 2-CPU pod of priority 100
+    nominated on two nodes of every three, a 1-CPU one of priority 10 on
+    every fifth; returns (infos, tree, the nominated-pod map)."""
+    from kubernetes_tpu_torch.api.types import Pod, Container
+    infos, tree = cluster(n_nodes)
+
+    class Nominated:
+        def __init__(self):
+            self.by_node = {}
+
+        def has_any(self):
+            return bool(self.by_node)
+
+        def pods_for_node(self, name):
+            return list(self.by_node.get(name, ()))
+    nom = Nominated()
+    for i in range(n_nodes):
+        for k, (cpu, prio, every) in enumerate(((2000, 100, 3),
+                                                (1000, 10, 5))):
+            if (k == 0 and i % every != 0) or (k == 1 and i % every == 0):
+                nom.by_node.setdefault(f"node-{i}", []).append(Pod(
+                    name=f"nominee-{k}-{i}", priority=prio,
+                    nominated_node_name=f"node-{i}",
+                    containers=(Container.make(
+                        name="c", requests={"cpu": cpu}),)))
+    return infos, tree, nom
+
+
+def mesh_nominated_path(device, sync, mesh=None):
+    """mesh-nominated-serial (C1): N_NOMINATED serial cycles with nominees
+    present on 15,000 nodes, through TorchScheduler(nominated=...,
+    mesh=Mesh([device] * MESH_D)) (K9a with each shard's slice of the
+    ghost load, K9b), each held against the single-device K2 run with the
+    same ghost (host, evaluated and feasible counts, scores, walk
+    counters); pods of priority 50 (the 2-CPU nominees of priority 100
+    hold two nodes of three), 200 (no nominee counts) and 10; the first
+    K2 call with a ghost held against its plain version."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.api.types import Pod, Container
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = mesh or S.Mesh([device] * MESH_D)
+    name = "mesh-nominated-serial"
+    infos, tree, nom = nominated_world(N_NODES)
+    sched = make_sched(tree, device, 50, mesh=mesh)
+    sched.nominated = nom
+    ref = make_sched(tree, device, 50)
+    ref.nominated = nom
+    obs.reset()
+    t_mesh = t_single = 0.0
+    hosts = []
+    with capture("schedule_cycle") as one:
+        for r in range(N_NOMINATED):
+            prio = (50, 200, 10, 50)[r % 4]
+            pod = Pod(name=f"nominated-serial-{r}", priority=prio,
+                      containers=(Container.make(name="c", requests={
+                          "cpu": 2500}),))
+            names = tree.list_names()
+            t0 = time.perf_counter()
+            want = ref.schedule(pod, infos, names)
+            sync()
+            t1 = time.perf_counter()
+            got = sched.schedule(pod, infos, names)
+            sync()
+            t_mesh += time.perf_counter() - t1
+            t_single += t1 - t0
+            a = (got.suggested_host, got.evaluated_nodes,
+                 got.feasible_nodes, tuple(got.host_priority))
+            b = (want.suggested_host, want.evaluated_nodes,
+                 want.feasible_nodes, tuple(want.host_priority))
+            if a != b or (sched.last_index, sched.last_node_index) != (
+                    ref.last_index, ref.last_node_index):
+                raise SystemExit(f"{name} cycle {r}: differs from the "
+                                 f"single-device K2 run")
+            hosts.append(got.suggested_host)
+            assume(infos, pod, got.suggested_host)
+    counts = K.launches()
+    ghosts = obs.get("dispatch.cycle_ghost")
+    # a pod of priority 200 outranks every nominee: no ghost counts
+    want_ghosts = 2 * sum(1 for r in range(N_NOMINATED)
+                          if (50, 200, 10, 50)[r % 4] <= 100)
+    if ghosts != want_ghosts or counts["shard_cycle_local"] == 0 \
+            or counts["schedule_cycle"] == 0:
+        raise SystemExit(f"{name}: {ghosts} ghost cycles, launches "
+                         f"{counts}")
+    nodes, args, kw = one.call
+    gk = K.schedule_cycle(nodes, *args, **kw)
+    gp = K.schedule_cycle_plain(nodes, *args, **kw)
+    err = max_abs_err({k: gk[k] for k in CYCLE_KEYS},
+                      {k: gp[k] for k in CYCLE_KEYS})
+    if kw.get("ghost") is None or err != 0:
+        raise SystemExit(f"{name}: K2 with a ghost disagrees with plain "
+                         f"(max_abs_err {err})")
+    blocked = sum(1 for h in hosts if int(h.split("-")[1]) % 3 != 0)
+    print(f"[path] {name}: {N_NODES} nodes on {mesh.size} shards, "
+          f"{N_NOMINATED} serial cycles with "
+          f"{sum(len(v) for v in nom.by_node.values())} nominees, mesh "
+          f"{t_mesh * 1e3:.1f} ms and single-device {t_single * 1e3:.1f} "
+          f"ms in all; {blocked} pods bound on nodes a priority-100 "
+          f"nominee holds; launches {counts}; every result and walk "
+          f"counter equal to the single-device K2 run, K2 with the ghost "
+          f"equal to plain (max_abs_err 0)")
 
 
 def cards_phase(report):
     """`--cards`: the mesh phase over every card of the host, one shard
     per card (the all-gather's copies are then peer copies between the
-    cards): K9a-d and K10a-K11b against their plain versions on meshes
-    of all the cards and of the first two, then mesh-uniform at 15,000
-    and 15,001 nodes held against the single-device K3/K2 run on the
-    first card, and mesh-scan-default (15,000 nodes) and mesh-fused held
-    against the single-device K5 / K6 run on the first card."""
+    cards): K13a-K14b against their plain versions on meshes of all the
+    cards and of the first two, mesh-preempt-wave held against the
+    single-device K8 wave on the first card and four mesh-preempt-single
+    rounds held against K7; K9a-d and K10a-K11b against their plain
+    versions, then mesh-uniform at 15,000 and 15,001 nodes held against
+    the single-device K3/K2 run on the first card, and mesh-scan-default
+    (15,000 nodes) and mesh-fused held against the single-device K5 / K6
+    run on the first card."""
     import torch
     from kubernetes_tpu_torch.parallel import sharding as S
     n = torch.cuda.device_count()
@@ -2493,6 +3072,16 @@ def cards_phase(report):
     mesh = S.make_mesh()
     device = mesh.devices[0]
     meshes = [list(mesh.devices), list(mesh.devices[:2])]
+    # the preemption paths first: their world is built once
+    mesh_preempt_variant_checks(device, sync, meshes=meshes)
+    infos, tree, pdbs = preempt_world(N_NODES)
+    with capture("pressure_batch", keep_all=True) as one:
+        single = run_wave(infos, tree, pdbs, wave_pods(), device, sync)
+    mesh_wave_path(infos, tree, pdbs, device, sync, report,
+                   (single, one.all), mesh=mesh)
+    mesh_single_path(infos, tree, pdbs, device, sync, report, mesh=mesh,
+                     rounds=4)
+    del infos, tree, pdbs
     mesh_variant_checks(device, sync, meshes=meshes)
     for name, nn in (("even zones", N_NODES),
                      ("uneven zones (rotate)", N_NODES + 1)):
@@ -2525,6 +3114,7 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or "
               f"--cards)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     sync = torch.cuda.synchronize
     smi = subprocess.run(
@@ -2541,7 +3131,9 @@ def main() -> int:
           "K9b shard_cycle_select, K9c shard_uniform_sweep, K9d "
           "shard_uniform_select, K10a shard_scan_local, K10b "
           "shard_scan_select, K11a shard_segments_local, K11b "
-          "shard_segments_select (CUDA C++, sm_90a)")
+          "shard_segments_select, K13a shard_pressure_local, K13b "
+          "shard_pressure_select, K14a shard_preempt_local, K14b "
+          "shard_preempt_select (CUDA C++, sm_90a)")
     t = time.perf_counter()
     built = _build.build_all(verbose=True)
     print(f"[build] {sorted(built)} in {time.perf_counter() - t:.1f} s")
@@ -2569,6 +3161,7 @@ def main() -> int:
         preempt_paths(device, sync, report)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
+    print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,11 @@ carries:
 
 - schedule(): one pod per launch (K2 `schedule_cycle`), with the same
   ScheduleResult/FitError, feasible sets, evaluated counts and scores;
+  with nominated pods (the `nominated` handle), the load of the nominees
+  of priority >= the pod's enters the filter as a ghost, the two-pass fit
+  of podFitsOnNode; a nominee or pod that is not resource-only (volumes,
+  pod-affinity terms, host ports, scalar requests) raises
+  NotImplementedError;
 - schedule_burst(): spec-identical, single-profile windows in the
   full-scan regime through the uniform K-batch kernel (K3
   `uniform_burst`), one launch and one packed device-to-host copy per
@@ -24,13 +29,18 @@ carries:
 matrix over several devices: schedule() runs the sharded cycle (K9a/K9b),
 the uniform burst the sharded K-batch passes (K9c/K9d), the generic scan
 one step of K10a/K10b per live pod and the fused window one step of
-K11a/K11b per pod, each window with one fetch. On several cards a scan
-or fused step is bound by the host's enqueue (0.76-0.87 ms a step on 4 x
-NVIDIA H100 80GB HBM3 at 700 W, 3.0-3.2x the single-card window; PERF.md
-section 7) until the step is graph-captured, so mesh="auto" costs these
-windows throughput for now.
-Device preemption is not sharded yet and raises NotImplementedError in
-mesh mode (ROADMAP B9).
+K11a/K11b per pod, each window with one fetch; preempt() the sharded
+victim scan (K14a on every shard, reduced to a candidate record per
+shard, K14b's pick over them) and preempt_pressure_burst() one step of
+K13a/K13b per pod of each 128-pod chunk, the rows, ghost load and victim
+planes split per shard, li / lni chained on the device and one fetch a
+wave. On several cards a scan, fused or pressure step is bound by the
+host's enqueue (0.76-0.87 ms a scan step on 4 x NVIDIA H100 80GB HBM3 at
+700 W, 3.0-3.2x the single-card window; PERF.md section 7) until the step
+is graph-captured, so mesh="auto" costs these windows throughput for
+now. The tests run every mesh path on `["cpu"] * D`
+(tests/test_torch_sharding*.py); `chip_smoke.py` drives them on four
+shards of one card, and with `--cards` on a host's cards.
 
 Folds stay on the device. The node matrix and the victim table's planes
 are uploaded whole once and then kept current by the dirty-row scatter
@@ -249,34 +259,37 @@ class TorchScheduler:
             b.dirty_rows = []   # host state fully mirrored; start tracking
             return self._dev_nodes
         if b.dirty_rows:
-            # dedupe, then pad the row list to a power-of-two bucket by
-            # repeating row 0 (duplicate writes carry identical values)
-            rows = np.asarray(sorted(set(b.dirty_rows)), dtype=np.int32)
-            if self.mesh is None:
-                self._scatter(self._dev_nodes, rows, 0, b)
-            else:
-                per = self.mesh.rows(b.n_pad)
-                for s, shard in enumerate(self._dev_nodes):
-                    mine = rows[(rows >= s * per) & (rows < (s + 1) * per)]
-                    if len(mine):
-                        with K._on(self.mesh.devices[s]):
-                            self._scatter(shard, mine, s * per, b)
+            self._scatter_dirty(self._dev_nodes, b.dirty_rows, b.n_pad, b,
+                                [(k, k) for k in self._NODE_FIELDS])
             obs.inc("dispatch.scatter")
             self._dev_epoch += 1
             b.dirty_rows = []
         return self._dev_nodes
 
-    def _scatter(self, dev: dict, rows: np.ndarray, offset: int,
-                 b: NodeBatch) -> None:
-        """One K4 launch writing matrix rows `rows` into `dev`, whose first
-        row is matrix row `offset`: the row list pads to a power-of-two
+    def _scatter_dirty(self, dev, dirty, n_rows: int, src, fields) -> None:
+        """K4 writes of the rows `dirty` of host table `src` (`fields`:
+        (device key, host attribute) pairs) into the resident `dev`: one
+        launch, or in mesh mode one on each shard that owns a dirty row,
+        with its rows only. The deduped row list pads to a power-of-two
         bucket by repeating its first row (duplicate writes carry
         identical values)."""
-        bucket = _pad_pow2(len(rows), 16)
-        rows = np.concatenate(
-            [rows, np.full(bucket - len(rows), rows[0], dtype=np.int32)])
-        upd = {k: getattr(b, k)[rows] for k in self._NODE_FIELDS}
-        K.scatter_rows(dev, rows - offset, upd)
+        rows = np.asarray(sorted(set(dirty)), dtype=np.int32)
+
+        def scatter(d: dict, mine: np.ndarray, offset: int) -> None:
+            bucket = _pad_pow2(len(mine), 16)
+            mine = np.concatenate([mine, np.full(bucket - len(mine), mine[0],
+                                                 dtype=np.int32)])
+            K.scatter_rows(d, mine - offset,
+                           {k: getattr(src, f)[mine] for k, f in fields})
+        if self.mesh is None:
+            scatter(dev, rows, 0)
+            return
+        per = self.mesh.rows(n_rows)
+        for s, shard in enumerate(dev):
+            mine = rows[(rows >= s * per) & (rows < (s + 1) * per)]
+            if len(mine):
+                with K._on(self.mesh.devices[s]):
+                    scatter(shard, mine, s * per)
 
     def _pod_arrays(self, f: PodFeatures, upd_fields: bool = False,
                     pod: Optional[Pod] = None) -> dict:
@@ -410,7 +423,9 @@ class TorchScheduler:
         z_pad = _pad_pow2(len(b.zone_names), 4)
         out = K.schedule_cycle(nodes, pod_in, self.last_index,
                                self.last_node_index, num_to_find, n, z_pad,
-                               weights=weights, wtab=wtab, **self._mesh_kw())
+                               weights=weights, wtab=wtab,
+                               ghost=self._nominated_ghost(pod, b),
+                               **self._mesh_kw())
         obs.inc("dispatch.cycle")
         keys = ["selected", "found", "evaluated", "next_last_index",
                 "next_last_node_index", "kept", "total", "fail_first",
@@ -445,6 +460,64 @@ class TorchScheduler:
                     failed[b.names[idx]] = self._decode_reasons(
                         b, feats, idx, fail_first, general_bits)
         return ScheduleResult(host, evaluated, found, host_priority, failed)
+
+    @staticmethod
+    def _ghost_gate(pod: Pod) -> Optional[str]:
+        """What keeps `pod` out of the device ghost (None: nothing): the
+        pressure wave's pod gates. A nominee with volumes, pod-affinity
+        terms, host ports or scalar requests changes more of the two-pass
+        fit than the resource rows the filter reads."""
+        from kubernetes_tpu_torch.api.types import get_resource_request
+        if pod.volumes:
+            return "volumes"
+        if has_pod_affinity_terms(pod):
+            return "pod-affinity terms"
+        if get_container_ports(pod):
+            return "host ports"
+        if get_resource_request(pod).scalar:
+            return "scalar requests"
+        return None
+
+    def _nominated_ghost(self, pod: Pod, b: NodeBatch) -> Optional[dict]:
+        """The serial cycle's nominated-ghost load ({cpu, mem, eph, cnt}
+        [n_pad] int64, or None when no nominee counts): on each node row,
+        the nominated pods of priority >= the pod's other than the pod
+        itself (`pod_fits_on_node_with_nominated`,
+        kubernetes_tpu/oracle/preemption.py:347-348), each adding the load
+        NodeInfo.add_pod adds
+        (calculate_resource) and one pod. Nominees on nodes outside the
+        snapshot are ignored. With resource-only nominees the filter with
+        the ghost is the two-pass fit (the pass without them is implied);
+        otherwise raises NotImplementedError naming the gate, as the port
+        has no host twin to hand the cycle to."""
+        nom = self.nominated
+        if nom is None or not nom.has_any():
+            return None
+        ghost = {k: np.zeros(b.n_pad, np.int64) for k in K.GHOST_FIELDS}
+        counted = []
+        for i, name in enumerate(b.names):
+            for p in nom.pods_for_node(name):
+                if p.priority < pod.priority or p.uid == pod.uid:
+                    continue
+                r = calculate_resource(p)
+                ghost["cpu"][i] += r.milli_cpu
+                ghost["mem"][i] += r.memory
+                ghost["eph"][i] += r.ephemeral_storage
+                ghost["cnt"][i] += 1
+                counted.append(p)
+        if not counted:
+            return None
+        for p in [pod] + counted:
+            gate = self._ghost_gate(p)
+            if gate is not None:
+                who = "the pod" if p is pod else f"nominee {p.name}"
+                raise NotImplementedError(
+                    f"schedule with nominated pods: {who} has {gate}; the "
+                    f"device ghost fit covers resource-only pods (no "
+                    f"volumes, pod-affinity terms, host ports or scalar "
+                    f"requests)")
+        obs.inc("dispatch.cycle_ghost")
+        return ghost
 
     # -- burst path --------------------------------------------------------------
     def _signatures(self, pods: list) -> list:
@@ -716,16 +789,6 @@ class TorchScheduler:
         """The `mesh=` argument of the kernel entry points, in mesh mode
         only (the single-device calls keep the single-device signature)."""
         return {} if self.mesh is None else {"mesh": self.mesh}
-
-    def _single_device(self, what: str) -> None:
-        """Mesh mode runs the sharded cycle, the uniform burst, the
-        generic scan and the fused window: device preemption raises here
-        instead of running its single-device kernel on one shard."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} is not sharded over a mesh yet (ROADMAP B9); "
-                f"mesh mode runs schedule(), schedule_burst() and "
-                f"schedule_burst_fused()")
 
     def _adopt_folds(self, rows) -> None:
         """Make a window's folded rows the resident matrix (one dict per
@@ -1232,7 +1295,6 @@ class TorchScheduler:
             PreemptionResult, no_possible_victims)
         if not all_node_names:
             return None
-        self._single_device("preempt (K7)")
         t0 = time.perf_counter()
         if self.nominated is not None and self.nominated.has_any():
             return self._refuse("preempt-nominated-ghosts")
@@ -1287,7 +1349,8 @@ class TorchScheduler:
         t_enc = time.perf_counter()
         out = K.preemption_scan(nodes, vic, pod_in, feas, order_rank,
                                 b.n_real, self.check_resources,
-                                f.has_request, pod.priority)
+                                f.has_request, pod.priority,
+                                **self._mesh_kw())
         obs.inc("dispatch.preempt_scan")
         t_fetch = time.perf_counter()
         out = self._fetch(out, "preempt")
@@ -1354,28 +1417,31 @@ class TorchScheduler:
                 return None, None, "term-match"
         return self._upload_victims(vt), vt.slots, None
 
-    def _upload_victims(self, vt) -> dict:
+    def _upload_victims(self, vt):
         """Sync the resident victim planes from the host table: a full
         upload on a rebuild or permute (dirty_rows None), one K4 scatter of
-        the dirty rows otherwise, nothing in the steady state."""
+        the dirty rows otherwise, nothing in the steady state. In mesh mode
+        one dict per shard (`shard_victim_planes`), and the scatter runs
+        on each shard that owns a dirty row, with its rows only."""
         key = (vt.P, vt.valid.shape[0])
         if (self._dev_vic is None or self._dev_vic_key != key
                 or vt.dirty_rows is None):
-            self._dev_vic = {
-                k: torch.as_tensor(np.asarray(getattr(vt, f))).to(
-                    self.device, copy=True)
-                for k, f in self._VIC_FIELDS}
+            host = {k: np.asarray(getattr(vt, f))
+                    for k, f in self._VIC_FIELDS}
+            if self.mesh is not None:
+                from kubernetes_tpu_torch.parallel import sharding as S
+                self._dev_vic = S.shard_victim_planes(self.mesh, host)
+            else:
+                self._dev_vic = {k: torch.as_tensor(v).to(self.device,
+                                                          copy=True)
+                                 for k, v in host.items()}
             self._dev_vic_key = key
             obs.inc("dispatch.vic_upload")
             vt.dirty_rows = []
             return self._dev_vic
         if vt.dirty_rows:
-            rows = np.asarray(sorted(set(vt.dirty_rows)), dtype=np.int32)
-            bucket = _pad_pow2(len(rows), 16)
-            rows = np.concatenate(
-                [rows, np.full(bucket - len(rows), rows[0], dtype=np.int32)])
-            upd = {k: getattr(vt, f)[rows] for k, f in self._VIC_FIELDS}
-            K.scatter_rows(self._dev_vic, rows, upd)
+            self._scatter_dirty(self._dev_vic, vt.dirty_rows,
+                                vt.valid.shape[0], vt, self._VIC_FIELDS)
             obs.inc("dispatch.vic_scatter")
             vt.dirty_rows = []
         return self._dev_vic
@@ -1386,7 +1452,6 @@ class TorchScheduler:
         outside any timed window (the steady state, where the table is
         kept incrementally across cycles). Consumes no rotation state and
         folds nothing."""
-        self._single_device("prewarm_preempt (the victim table)")
         b = self.encoder.encode(node_infos, all_node_names)
         self._node_arrays(b)
         self._upload_victims(
@@ -1423,7 +1488,6 @@ class TorchScheduler:
         from kubernetes_tpu_torch.api.types import get_resource_request
         if not pods or not all_node_names:
             return None
-        self._single_device("preempt_pressure_burst (K8)")
         t0 = time.perf_counter()
         if self.nominated is not None and self.nominated.has_any():
             return self._refuse("nominated-ghosts")
@@ -1488,15 +1552,25 @@ class TorchScheduler:
             specs.append(dict(specs[rows[-1]], skip=np.bool_(True)))
         stack = K.PodStack.from_specs(specs, np.zeros(0, np.int64), None,
                                       self.device)
-        width = len(K.PRESSURE_HEAD) + int(vic["prio"].shape[1])
+        planes = vic if self.mesh is None else vic[0]
+        width = len(K.PRESSURE_HEAD) + int(planes["prio"].shape[1])
         total = sum(bucket for _lo, _k, bucket in chunks)
         packed = torch.empty((total, width), dtype=torch.int32,
                              device=self.device)
         rows_arr = np.asarray(rows, np.int64)
-        mut = {k: self._dev_nodes[k] for k in K._MUTABLE}
-        ghost = {k: torch.zeros(b.n_pad, dtype=torch.int64,
-                                device=self.device) for k in K.GHOST_FIELDS}
         li, lni = self.last_index, self.last_node_index
+        if self.mesh is None:
+            mut = {k: self._dev_nodes[k] for k in K._MUTABLE}
+            ghost = {k: torch.zeros(b.n_pad, dtype=torch.int64,
+                                    device=self.device)
+                     for k in K.GHOST_FIELDS}
+        else:
+            # one ghost vector per shard, zeroed per wave
+            per = self.mesh.rows(b.n_pad)
+            mut = [{k: d[k] for k in K._MUTABLE} for d in self._dev_nodes]
+            ghost = [{k: torch.zeros(per, dtype=torch.int64, device=dev)
+                      for k in K.GHOST_FIELDS} for dev in self.mesh.devices]
+        before = self._mesh_counts("pressure", "gather", "steps")
         t_enc = time.perf_counter()
         off = 0
         for lo, k, bucket in chunks:
@@ -1504,8 +1578,9 @@ class TorchScheduler:
             row[:k] = rows_arr[lo: lo + k]
             mut, ghost, li, lni, _outs = K.pressure_batch(
                 self._dev_nodes, mut, ghost,
-                K.PodStack(stack.table, row), vic, li, lni, num_to_find, n,
-                z_pad, weights=weights, out=packed[off: off + bucket])
+                K.PodStack(stack.table, row, skip=stack.skip_flags()), vic,
+                li, lni, num_to_find, n, z_pad, weights=weights,
+                out=packed[off: off + bucket], **self._mesh_kw())
             obs.inc("dispatch.pressure_batch")
             off += bucket
         t_fetch = time.perf_counter()
@@ -1516,6 +1591,7 @@ class TorchScheduler:
         self.last_preempt_phases = {"encode": t_enc - t0,
                                     "scan": t_end - t_enc,
                                     "fetch": t_end - t_fetch}
+        self._mesh_phases("pressure", self.last_preempt_phases, before)
         outcomes = []
         lni_sum = 0
         off = 0
@@ -1541,7 +1617,7 @@ class TorchScheduler:
             off += bucket
         # persist: the folded rows are now the resident ones; the shell
         # syncs the host mirror per bound pod (note_burst_assumed)
-        self._dev_nodes = {**self._dev_nodes, **mut}
+        self._adopt_folds(mut)
         self.last_index = li_end
         self.last_node_index += lni_sum
         return outcomes

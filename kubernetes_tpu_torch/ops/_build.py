@@ -13,7 +13,7 @@ plain C function `<name>_launch(...)` that launches on the stream it is
 given and returns `cudaGetLastError()`; the library is loaded with ctypes.
 
 `build_all()` starts one nvcc per source at once and waits for all of
-them: the whole build costs about one compile, not sixteen.
+them: the whole build costs about one compile, not twenty.
 """
 from __future__ import annotations
 
@@ -31,7 +31,9 @@ NAMES = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
          "pressure_batch", "shard_cycle_local", "shard_cycle_select",
          "shard_uniform_sweep", "shard_uniform_select", "shard_scan_local",
          "shard_scan_select", "shard_segments_local",
-         "shard_segments_select")
+         "shard_segments_select", "shard_preempt_local",
+         "shard_preempt_select", "shard_pressure_local",
+         "shard_pressure_select")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,7 +44,7 @@ SIGNATURES = {
     "local_total": [_I, _P, _P, _L, _L, _P, _P, _I, _P, _P, _P],
     "schedule_cycle": [_I, _I, _L, _I, _L, _L, _L, _I, _I, _I, _I,
                        ctypes.POINTER(_P), _P, _P, _I, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "uniform_burst": [_I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -60,6 +62,10 @@ SIGNATURES = {
     "shard_scan_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_segments_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_segments_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_preempt_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_preempt_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_pressure_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_pressure_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -27,6 +27,11 @@ __device__ __forceinline__ i64 floormod(i64 a, i64 b) {
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
 }
 
+// int64 -> int32 as JAX's astype(int32): keep the low 32 bits
+__device__ __forceinline__ int wrap32(i64 x) {
+  return (int)(unsigned int)(unsigned long long)x;
+}
+
 __device__ __forceinline__ i64 imax64(i64 a, i64 b) { return a > b ? a : b; }
 __device__ __forceinline__ i64 imin64(i64 a, i64 b) { return a < b ? a : b; }
 

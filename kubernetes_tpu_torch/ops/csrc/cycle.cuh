@@ -149,6 +149,33 @@ __device__ __forceinline__ bool cycle_filter_row(
   return nd.valid[j] && ff == 0 && !skip;
 }
 
+// The static masks a preemption winner must pass, for node j (K8, K13a):
+// in range, valid, and every non-resource mask of the pod
+__device__ __forceinline__ bool pressure_static(const CycleNodes& nd,
+                                                const CyclePod& pd, int j) {
+  bool fs = (i64)j < nd.n_real && nd.valid[j];
+  if (pd.sel_ok) fs = fs && pd.sel_ok[j];
+  if (pd.taints_ok) fs = fs && pd.taints_ok[j];
+  if (pd.unsched_ok) fs = fs && pd.unsched_ok[j];
+  if (pd.host_ok) fs = fs && pd.host_ok[j];
+  if (pd.ports_ok) fs = fs && pd.ports_ok[j];
+  if (pd.disk_ok) fs = fs && pd.disk_ok[j];
+  if (pd.maxvol_ok) fs = fs && pd.maxvol_ok[j];
+  if (pd.volbind_ok) fs = fs && pd.volbind_ok[j];
+  if (pd.volzone_ok) fs = fs && pd.volzone_ok[j];
+  if (pd.ipa_code) fs = fs && pd.ipa_code[j] == 0;
+  return fs;
+}
+
+// Whether node j's first failure is one preemption cannot resolve
+// (`_resolvable_candidates`, kubernetes_tpu/ops/kernels.py:1675):
+// unschedulable, taints, volume zone, volume binding, and GENERAL with the
+// host-name or selector bit.
+__device__ __forceinline__ bool cycle_unresolvable(int ff, i64 bits) {
+  return ff == 1 || ff == 4 || ff == 7 || ff == 6
+         || (ff == 2 && (((bits >> 60) & 1) || ((bits >> 62) & 1)));
+}
+
 // The priorities of node j that read no other node besides K1's: image
 // locality and prefer-avoid (its constant when the field is inert).
 __device__ __forceinline__ i64 cycle_row_local(const CyclePod& pd, int gate,
@@ -423,13 +450,7 @@ __device__ __forceinline__ CycleResult cycle_run(
     int ff;
     const bool feasible = cycle_filter_row(nd, pd, skip, j, ghost, &bits,
                                            &ff);
-    if (ghost && (i64)j < nr) {
-      // unresolvable first failures: unschedulable, taints, volume zone,
-      // volume binding, and GENERAL with the host-name or selector bit
-      bool unres = ff == 1 || ff == 4 || ff == 7 || ff == 6
-                   || (ff == 2 && (((bits >> 60) & 1) || ((bits >> 62) & 1)));
-      if (!unres) l_res = 1;
-    }
+    if (ghost && (i64)j < nr && !cycle_unresolvable(ff, bits)) l_res = 1;
     if (cs.general_bits) cs.general_bits[j] = bits;
     if (cs.fail_first) cs.fail_first[j] = (signed char)ff;
     if (cs.feasible) cs.feasible[j] = feasible;
@@ -647,11 +668,6 @@ __device__ __forceinline__ void scan_fold(const ScanArgs& a, int r, i64 sel,
   mptr<i64>(a, P_NZ_MEM)[sel] += sign * sc[4];
   mptr<i64>(a, P_POD_COUNT)[sel] += sign;
   if (a.v[I_CARRY_SPREAD]) mptr<i64>(a, P_SPREAD)[sel] += sign;
-}
-
-// int64 -> int32 as JAX's astype(int32): keep the low 32 bits
-__device__ __forceinline__ int wrap32(i64 x) {
-  return (int)(unsigned int)(unsigned long long)x;
 }
 
 // Copy the host's argument arrays into the struct the kernel takes.

@@ -48,23 +48,6 @@
 
 namespace cg = cooperative_groups;
 
-// the static masks a preemption winner must pass, for node j
-__device__ __forceinline__ bool pressure_static(const CycleNodes& nd,
-                                                const CyclePod& pd, int j) {
-  bool fs = (i64)j < nd.n_real && nd.valid[j];
-  if (pd.sel_ok) fs = fs && pd.sel_ok[j];
-  if (pd.taints_ok) fs = fs && pd.taints_ok[j];
-  if (pd.unsched_ok) fs = fs && pd.unsched_ok[j];
-  if (pd.host_ok) fs = fs && pd.host_ok[j];
-  if (pd.ports_ok) fs = fs && pd.ports_ok[j];
-  if (pd.disk_ok) fs = fs && pd.disk_ok[j];
-  if (pd.maxvol_ok) fs = fs && pd.maxvol_ok[j];
-  if (pd.volbind_ok) fs = fs && pd.volbind_ok[j];
-  if (pd.volzone_ok) fs = fs && pd.volzone_ok[j];
-  if (pd.ipa_code) fs = fs && pd.ipa_code[j] == 0;
-  return fs;
-}
-
 __global__ void __launch_bounds__(NTHREADS)
     pressure_batch_kernel(ScanArgs a) {
   __shared__ i64 ws[W_K];

@@ -4,7 +4,10 @@
 // `schedule_cycle` (kubernetes_tpu/ops/kernels.py:296, :157, :359, :509).
 // The cycle itself is `cycle_run` (cycle.cuh), shared with the burst scans
 // K5 and K6; this kernel runs it once, on the K1 totals computed by the
-// launch before it, and writes every per-node output.
+// launch before it, and writes every per-node output. The optional
+// nominated-ghost load (four [n_pad] vectors, NULL = none) enters the
+// filter only: the serial cycle's two-pass fit with nominated pods
+// (podFitsOnNode, generic_scheduler.go:598) for resource-only nominees.
 //
 // Bound on the H100: latency. The bytes are ~150 B per node (14 node
 // fields in, five per-node outputs), ~2.5 MB at n_pad 16,384, under 1 us
@@ -19,6 +22,7 @@ struct CArgs {
   CyclePod pd;
   CycleWalk wk;
   CycleScratch cs;
+  CycleGhost ghost;  // all NULL: no nominated load
   int gate;
   const i64* w;
   const i64* base;
@@ -28,7 +32,7 @@ struct CArgs {
 __global__ void __launch_bounds__(NTHREADS) schedule_cycle_kernel(CArgs a) {
   const bool skip = a.pd.scal[8] != 0;
   CycleResult r = cycle_run(a.nd, a.pd, skip, a.wk, a.gate, a.w, a.base,
-                            0, false, a.cs);
+                            0, false, a.cs, a.ghost.cpu ? &a.ghost : nullptr);
   if (threadIdx.x == 0) {
     a.out[0] = r.sel;
     a.out[1] = r.found;
@@ -46,7 +50,8 @@ extern "C" int schedule_cycle_launch(
     const void* w, const void* base, const void* perm, const void* inv_perm,
     const void* pos, void* total, void* kept, void* feasible,
     void* fail_first, void* general_bits, void* scratch, void* zs, void* out,
-    void* stream) {
+    const void* g_cpu, const void* g_mem, const void* g_eph,
+    const void* g_cnt, void* stream) {
   typedef const unsigned char* B;
   typedef const i64* L;
   CArgs a;
@@ -63,6 +68,7 @@ extern "C" int schedule_cycle_launch(
   a.cs = CycleScratch{(i64*)total, (unsigned char*)kept,
                       (unsigned char*)feasible, (signed char*)fail_first,
                       (i64*)general_bits, (int*)scratch, (i64*)zs};
+  a.ghost = CycleGhost{(L)g_cpu, (L)g_mem, (L)g_eph, (L)g_cnt};
   a.gate = gate;
   a.w = (L)w;
   a.base = (L)base;

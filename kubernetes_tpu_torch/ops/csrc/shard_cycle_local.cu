@@ -4,7 +4,9 @@
 // Replaces the per-node phases of `sharded_cycle_fn`
 // (kubernetes_tpu/parallel/sharding.py:115), which GSPMD keeps on each
 // chip's rows: `_feasibility` (kubernetes_tpu/ops/kernels.py:296) and the
-// row-local families of `_fit_scores` (:157). Per row it writes the
+// row-local families of `_fit_scores` (:157), with the shard's slice of the
+// nominated-ghost load in the filter when the serial cycle has one
+// (`_cycle_core`'s ghost, :402-413). Per row it writes the
 // feasible bit, the first failing predicate and the general bits (the
 // host's FitError decode reads them), and a record for the all-gather:
 // the row-local total (K1's four resource families, image locality,
@@ -37,7 +39,8 @@ enum {
   LP_SEL_OK, LP_TAINTS_OK, LP_UNSCHED_OK, LP_PORTS_OK, LP_HOST_OK,
   LP_DISK_OK, LP_MAXVOL_OK, LP_VOLBIND_OK, LP_VOLZONE_OK, LP_IPA_CODE,
   LP_NA, LP_TT, LP_SC, LP_IC, LP_IMG, LP_PA, LP_TRACKED, LP_W, LP_FEASIBLE,
-  LP_FAIL_FIRST, LP_GENERAL_BITS, LP_REC, LP_COUNT
+  LP_FAIL_FIRST, LP_GENERAL_BITS, LP_REC, LP_GHOST_CPU, LP_GHOST_MEM,
+  LP_GHOST_EPH, LP_GHOST_CNT, LP_COUNT
 };
 
 struct LocalArgs {
@@ -72,6 +75,10 @@ __global__ void shard_cycle_local_kernel(LocalArgs a) {
                     (L)a.p[LP_IMG], (L)a.p[LP_PA], (B)a.p[LP_TRACKED], 0, 0, 0,
                     0};
   const bool skip = pd.scal[8] != 0;
+  // the shard's slice of the nominated-ghost load (NULL: none)
+  const CycleGhost ghost{(L)a.p[LP_GHOST_CPU], (L)a.p[LP_GHOST_MEM],
+                         (L)a.p[LP_GHOST_EPH], (L)a.p[LP_GHOST_CNT]};
+  const CycleGhost* gp = ghost.cpu ? &ghost : nullptr;
   const int gate = (int)a.v[CL_GATE];
   unsigned char* rec = (unsigned char*)a.p[LP_REC];
   const i64 o_na = a.v[CL_OFF_NA], o_tt = a.v[CL_OFF_TT],
@@ -81,8 +88,7 @@ __global__ void shard_cycle_local_kernel(LocalArgs a) {
        j += gridDim.x * blockDim.x) {
     i64 bits;
     int ff;
-    const bool feasible = cycle_filter_row(nd, pd, skip, j, nullptr, &bits,
-                                           &ff);
+    const bool feasible = cycle_filter_row(nd, pd, skip, j, gp, &bits, &ff);
     ((i64*)a.p[LP_GENERAL_BITS])[j] = bits;
     ((signed char*)a.p[LP_FAIL_FIRST])[j] = (signed char)ff;
     ((unsigned char*)a.p[LP_FEASIBLE])[j] = feasible;

@@ -2,6 +2,9 @@
 // window (K11), as __device__ code shared by their four kernels:
 //   K10a shard_scan_local, K11a shard_segments_local: the shard-local half;
 //   K10b shard_scan_select, K11b shard_segments_select: the replicated half.
+// The sharded pressure wave (K13a shard_pressure_local, K13b
+// shard_pressure_select) takes the same argument tables (its extra slots
+// NULL / 0 for K10 and K11), the local helpers and `select_cycle`.
 //
 // Replaces `sharded_scan_fn` (:233) and `sharded_segments_fn` (:279) of
 // kubernetes_tpu/parallel/sharding.py, where GSPMD runs `_batch_core`
@@ -46,6 +49,7 @@ enum {
   SS_REWIND,    // K11: restore the segment checkpoint first
   SS_T,         // K11: enumerations consumed
   SS_CHK_T, SS_CHK_LI, SS_CHK_LNI, SS_FAILED,  // K11: the checkpoint
+  SS_GHOST_SEL,  // K13: the node whose ghost load takes the fold (-1: none)
   SS_COUNT
 };
 
@@ -54,7 +58,8 @@ enum {
 enum {
   SLI_ROWS, SLI_S, SLI_OFFSET, SLI_N_REAL, SLI_GATE, SLI_N_STEPS, SLI_P,
   SLI_CARRY_SPREAD, SLI_OFF_LOCAL, SLI_OFF_NA, SLI_OFF_TT, SLI_OFF_SC,
-  SLI_OFF_IC, SLI_OFF_ZONE, SLI_OFF_FEAS, SLI_OFF_TRACKED, SLI_COUNT
+  SLI_OFF_IC, SLI_OFF_ZONE, SLI_OFF_FEAS, SLI_OFF_TRACKED, SLI_VIC_P,
+  SLI_CAND_OFF, SLI_COUNT
 };
 // pointer slots, in the order of `_SSL_PTRS`
 enum {
@@ -67,7 +72,12 @@ enum {
   SLP_UNSCHED_OK, SLP_PORTS_OK, SLP_HOST_OK, SLP_DISK_OK, SLP_MAXVOL_OK,
   SLP_VOLBIND_OK, SLP_VOLZONE_OK, SLP_IPA_CODE, SLP_NA, SLP_TT, SLP_SC,
   SLP_IC, SLP_IMG, SLP_PA, SLP_TRACKED, SLP_ROW, SLP_PROFILE_ID, SLP_W,
-  SLP_WTAB, SLP_STATE, SLP_SEG_START, SLP_GANG, SLP_REC, SLP_COUNT
+  SLP_WTAB, SLP_STATE, SLP_SEG_START, SLP_GANG, SLP_REC,
+  // the pressure wave (K13a) only; NULL for K10a and K11a
+  SLP_GHOST_CPU, SLP_GHOST_MEM, SLP_GHOST_EPH, SLP_GHOST_CNT, SLP_VIC_CPU,
+  SLP_VIC_MEM, SLP_VIC_EPH, SLP_VIC_PRIO, SLP_VIC_START, SLP_VIC_VALID,
+  SLP_VIC_VIOLATING, SLP_PPRIO, SLP_AGG_I64, SLP_AGG_F64, SLP_AGG_U8,
+  SLP_COUNT
 };
 
 struct ScanLocalArgs {
@@ -125,13 +135,94 @@ __device__ __forceinline__ void local_checkpoint(const ScanLocalArgs& a,
   }
 }
 
+// The shard's node rows as the cycle reads them, n_real counted from the
+// shard's first row.
+__device__ __forceinline__ CycleNodes local_nodes(const ScanLocalArgs& a) {
+  typedef const i64* L;
+  return CycleNodes{(int)a.v[SLI_ROWS], (int)a.v[SLI_S],
+                    a.v[SLI_N_REAL] - a.v[SLI_OFFSET], 0,
+                    (const unsigned char*)a.p[SLP_VALID],
+                    (L)a.p[SLP_ALLOC_CPU], (L)a.p[SLP_ALLOC_MEM],
+                    (L)a.p[SLP_ALLOC_EPH], (L)a.p[SLP_ALLOWED],
+                    (L)a.p[SLP_REQ_CPU], (L)a.p[SLP_REQ_MEM],
+                    (L)a.p[SLP_REQ_EPH], (L)a.p[SLP_NZ_CPU],
+                    (L)a.p[SLP_NZ_MEM], (L)a.p[SLP_POD_COUNT],
+                    (L)a.p[SLP_ALLOC_SCALAR], (L)a.p[SLP_REQ_SCALAR],
+                    (const int*)a.p[SLP_ZONE_ID]};
+}
+
+// Row r of the shard's per-spec tables ([U, rows] when dense, NULL when
+// inert in this window), as one pod's inputs.
+__device__ __forceinline__ CyclePod local_pod(const ScanLocalArgs& a, int r) {
+  const size_t off = (size_t)r * (size_t)a.v[SLI_ROWS];
+#define ROW(T, slot) (a.p[slot] ? (const T*)a.p[slot] + off : (const T*)0)
+  return CyclePod{slp<const i64>(a, SLP_SCAL) + (size_t)r * NSCAL,
+                  slp<const i64>(a, SLP_REQ_SCALAR_P) + (size_t)r * a.v[SLI_S],
+                  ROW(unsigned char, SLP_SEL_OK),
+                  ROW(unsigned char, SLP_TAINTS_OK),
+                  ROW(unsigned char, SLP_UNSCHED_OK),
+                  ROW(unsigned char, SLP_PORTS_OK),
+                  ROW(unsigned char, SLP_HOST_OK),
+                  ROW(unsigned char, SLP_DISK_OK),
+                  ROW(unsigned char, SLP_MAXVOL_OK),
+                  ROW(unsigned char, SLP_VOLBIND_OK),
+                  ROW(unsigned char, SLP_VOLZONE_OK),
+                  ROW(signed char, SLP_IPA_CODE), ROW(i64, SLP_NA),
+                  ROW(i64, SLP_TT), ROW(i64, SLP_SC), ROW(i64, SLP_IC),
+                  ROW(i64, SLP_IMG), ROW(i64, SLP_PA),
+                  ROW(unsigned char, SLP_TRACKED), 0, 0, 0, 0};
+#undef ROW
+}
+
+// Stage the weight row of step t's pod into `ws` (its wtab row in tensor
+// mode) when `run`; ends with a barrier.
+__device__ __forceinline__ void local_weights(const ScanLocalArgs& a, i64 t,
+                                              bool run, i64* ws) {
+  if (run && threadIdx.x < W_K) {
+    const i64* w = slp<const i64>(a, SLP_W);
+    if (a.p[SLP_WTAB])
+      w = slp<const i64>(a, SLP_WTAB)
+          + clamp_index(slp<const i64>(a, SLP_PROFILE_ID)[t], a.v[SLI_P])
+                * W_K;
+    ws[threadIdx.x] = w[threadIdx.x];
+  }
+  __syncthreads();
+}
+
+// Row j's part of K9a's record: the row-local total and the raw planes
+// the select normalizes (the `sc` plane is the carried spread when the
+// scan carries one), and the in-range feasible bit.
+__device__ __forceinline__ void local_record(const ScanLocalArgs& a,
+                                             const CycleNodes& nd,
+                                             const CyclePod& pd,
+                                             const i64* ws, int j,
+                                             bool feasible) {
+  const int gate = (int)a.v[SLI_GATE];
+  unsigned char* rec = slp<unsigned char>(a, SLP_REC);
+  const i64* sc_plane = a.v[SLI_CARRY_SPREAD] ? slp<const i64>(a, SLP_SPREAD)
+                                              : pd.sc;
+  const i64 o_na = a.v[SLI_OFF_NA], o_tt = a.v[SLI_OFF_TT],
+            o_sc = a.v[SLI_OFF_SC], o_ic = a.v[SLI_OFF_IC],
+            o_zone = a.v[SLI_OFF_ZONE], o_tr = a.v[SLI_OFF_TRACKED];
+  const i64 local = local_total_one(gate, ws, pd.scal[3] + nd.nz_cpu[j],
+                                    pd.scal[4] + nd.nz_mem[j],
+                                    nd.alloc_cpu[j], nd.alloc_mem[j])
+                    + cycle_row_local(pd, gate, ws, j);
+  ((i64*)(rec + a.v[SLI_OFF_LOCAL]))[j] = local;
+  if (o_na >= 0) ((i64*)(rec + o_na))[j] = pd.na[j];
+  if (o_tt >= 0) ((i64*)(rec + o_tt))[j] = pd.tt[j];
+  if (o_sc >= 0) ((i64*)(rec + o_sc))[j] = sc_plane[j];
+  if (o_ic >= 0) ((i64*)(rec + o_ic))[j] = pd.ic[j];
+  if (o_zone >= 0) ((int*)(rec + o_zone))[j] = nd.zone_id[j];
+  rec[a.v[SLI_OFF_FEAS] + j] = feasible && (i64)j < nd.n_real;
+  if (o_tr >= 0) rec[o_tr + j] = pd.tracked[j];
+}
+
 // The local step. One thread per row; no row reads another, and the fold,
 // the restore and the checkpoint of row j happen in the thread that then
 // filters row j, so the launch needs no barrier past the weight row.
 template <bool SEG>
 __device__ __forceinline__ void scan_local_step(const ScanLocalArgs& a) {
-  typedef const unsigned char* B;
-  typedef const i64* L;
   __shared__ i64 ws[W_K];
   const i64* st = slp<const i64>(a, SLP_STATE);
   const int rows = (int)a.v[SLI_ROWS];
@@ -151,51 +242,9 @@ __device__ __forceinline__ void scan_local_step(const ScanLocalArgs& a) {
   if (SEG && run && slp<const unsigned char>(a, SLP_GANG)[t] != 0 && !save
       && st[SS_FAILED] != 0)
     run = false;
-  if (run && threadIdx.x < W_K) {
-    const i64* w = slp<const i64>(a, SLP_W);
-    if (a.p[SLP_WTAB])
-      w = slp<const i64>(a, SLP_WTAB)
-          + clamp_index(slp<const i64>(a, SLP_PROFILE_ID)[t], a.v[SLI_P])
-                * W_K;
-    ws[threadIdx.x] = w[threadIdx.x];
-  }
-  __syncthreads();
-  // n_real counted from this shard's first row
-  const CycleNodes nd{rows, (int)a.v[SLI_S], a.v[SLI_N_REAL] - a.v[SLI_OFFSET],
-                      0, (B)a.p[SLP_VALID], (L)a.p[SLP_ALLOC_CPU],
-                      (L)a.p[SLP_ALLOC_MEM], (L)a.p[SLP_ALLOC_EPH],
-                      (L)a.p[SLP_ALLOWED], (L)a.p[SLP_REQ_CPU],
-                      (L)a.p[SLP_REQ_MEM], (L)a.p[SLP_REQ_EPH],
-                      (L)a.p[SLP_NZ_CPU], (L)a.p[SLP_NZ_MEM],
-                      (L)a.p[SLP_POD_COUNT], (L)a.p[SLP_ALLOC_SCALAR],
-                      (L)a.p[SLP_REQ_SCALAR], (const int*)a.p[SLP_ZONE_ID]};
-  // row r of the shard's per-spec tables ([U, rows] when dense, NULL when
-  // inert in this window)
-  const size_t off = (size_t)r * rows;
-#define ROW(T, slot) (a.p[slot] ? (const T*)a.p[slot] + off : (const T*)0)
-  const CyclePod pd{scal,
-                    slp<const i64>(a, SLP_REQ_SCALAR_P) + (size_t)r * nd.S,
-                    ROW(unsigned char, SLP_SEL_OK),
-                    ROW(unsigned char, SLP_TAINTS_OK),
-                    ROW(unsigned char, SLP_UNSCHED_OK),
-                    ROW(unsigned char, SLP_PORTS_OK),
-                    ROW(unsigned char, SLP_HOST_OK),
-                    ROW(unsigned char, SLP_DISK_OK),
-                    ROW(unsigned char, SLP_MAXVOL_OK),
-                    ROW(unsigned char, SLP_VOLBIND_OK),
-                    ROW(unsigned char, SLP_VOLZONE_OK),
-                    ROW(signed char, SLP_IPA_CODE), ROW(i64, SLP_NA),
-                    ROW(i64, SLP_TT), ROW(i64, SLP_SC), ROW(i64, SLP_IC),
-                    ROW(i64, SLP_IMG), ROW(i64, SLP_PA),
-                    ROW(unsigned char, SLP_TRACKED), 0, 0, 0, 0};
-#undef ROW
-  const i64* sc_plane = a.v[SLI_CARRY_SPREAD] ? slp<const i64>(a, SLP_SPREAD)
-                                              : pd.sc;
-  const int gate = (int)a.v[SLI_GATE];
-  unsigned char* rec = slp<unsigned char>(a, SLP_REC);
-  const i64 o_na = a.v[SLI_OFF_NA], o_tt = a.v[SLI_OFF_TT],
-            o_sc = a.v[SLI_OFF_SC], o_ic = a.v[SLI_OFF_IC],
-            o_zone = a.v[SLI_OFF_ZONE], o_tr = a.v[SLI_OFF_TRACKED];
+  local_weights(a, t, run, ws);
+  const CycleNodes nd = local_nodes(a);
+  const CyclePod pd = local_pod(a, r);
   for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < rows;
        j += gridDim.x * blockDim.x) {
     if (j == fold) local_fold(a, frow, j);
@@ -206,18 +255,7 @@ __device__ __forceinline__ void scan_local_step(const ScanLocalArgs& a) {
     int ff;
     const bool feasible = cycle_filter_row(nd, pd, false, j, nullptr, &bits,
                                            &ff);
-    const i64 local = local_total_one(gate, ws, pd.scal[3] + nd.nz_cpu[j],
-                                      pd.scal[4] + nd.nz_mem[j],
-                                      nd.alloc_cpu[j], nd.alloc_mem[j])
-                      + cycle_row_local(pd, gate, ws, j);
-    ((i64*)(rec + a.v[SLI_OFF_LOCAL]))[j] = local;
-    if (o_na >= 0) ((i64*)(rec + o_na))[j] = pd.na[j];
-    if (o_tt >= 0) ((i64*)(rec + o_tt))[j] = pd.tt[j];
-    if (o_sc >= 0) ((i64*)(rec + o_sc))[j] = sc_plane[j];
-    if (o_ic >= 0) ((i64*)(rec + o_ic))[j] = pd.ic[j];
-    if (o_zone >= 0) ((int*)(rec + o_zone))[j] = nd.zone_id[j];
-    rec[a.v[SLI_OFF_FEAS] + j] = feasible && (i64)j < nd.n_real;
-    if (o_tr >= 0) rec[o_tr + j] = pd.tracked[j];
+    local_record(a, nd, pd, ws, j, feasible);
   }
 }
 
@@ -244,7 +282,7 @@ enum {
   SSI_N_STEPS, SSI_NUM_TO_FIND, SSI_MODE, SSI_L, SSI_N_OID, SSI_GATE, SSI_P,
   SSI_IPA_ON, SSI_IC_INERT, SSI_TR_INERT, SSI_GANG_SCORE, SSI_OFF_LOCAL,
   SSI_OFF_NA, SSI_OFF_TT, SSI_OFF_SC, SSI_OFF_IC, SSI_OFF_ZONE,
-  SSI_OFF_FEAS, SSI_OFF_TRACKED, SSI_COUNT
+  SSI_OFF_FEAS, SSI_OFF_TRACKED, SSI_VIC_P, SSI_CAND_OFF, SSI_COUNT
 };
 // pointer slots, in the order of `_SSS_PTRS`
 enum {

@@ -181,6 +181,26 @@ __device__ __forceinline__ double pick_crit(const VictimAggPlanes& g, int n,
   return -g.f[j];                              // latest earliest start
 }
 
+// The staged five-criteria filter (`_pick_one_node`'s loop): narrow the
+// mask m[lo, hi) of this thread, criterion by criterion, to the rows tied
+// at the block-wide minimum. Equals the lexicographic minimum of the five
+// criteria over the rows m started with (IEEE `<` and `==`).
+__device__ __forceinline__ void staged_filter(const VictimAggPlanes& g,
+                                              int n, unsigned char* m,
+                                              int lo, int hi, double* shd) {
+  for (int c = 0; c < 5; ++c) {
+    double lmin = dinf();
+    for (int j = lo; j < hi; ++j) {
+      if (!m[j]) continue;
+      const double x = pick_crit(g, n, c, j);
+      lmin = x < lmin ? x : lmin;
+    }
+    const double best = block_min_f64(lmin, shd);
+    for (int j = lo; j < hi; ++j)
+      if (m[j] && !(pick_crit(g, n, c, j) == best)) m[j] = 0;
+  }
+}
+
 // pickOneNodeForPreemption over the n nodes whose aggregates `g` holds,
 // by the whole block (blockDim.x == NTHREADS, every thread gets the
 // result). `rank` (NULL = the axis index) breaks the last tie. Returns
@@ -205,17 +225,7 @@ __device__ __forceinline__ int pick_block(const VictimAggPlanes& g, int n,
   if (any_zero) {
     for (int j = lo; j < hi; ++j) m[j] = g.u[j] && g.i[j] == 0;
   } else {
-    for (int c = 0; c < 5; ++c) {
-      double lmin = dinf();
-      for (int j = lo; j < hi; ++j) {
-        if (!m[j]) continue;
-        const double x = pick_crit(g, n, c, j);
-        lmin = x < lmin ? x : lmin;
-      }
-      const double best = block_min_f64(lmin, shd);
-      for (int j = lo; j < hi; ++j)
-        if (m[j] && !(pick_crit(g, n, c, j) == best)) m[j] = 0;
-    }
+    staged_filter(g, n, m, lo, hi, shd);
   }
   // argmin of where(mask, rank, 2^60), first index on ties
   i64 lk = LLONG_MAX;
@@ -231,4 +241,178 @@ __device__ __forceinline__ int pick_block(const VictimAggPlanes& g, int n,
   }
   const i64 w = block_min64(li, sh64);
   return any_cand ? (int)w : -1;
+}
+
+// ---- the sharded pick (K13a/K14a reduce, K13b/K14b select) ---------------
+// A shard's candidate record: the i64 slots below, the five criteria of
+// its best row as float64, then that row's P slot flags as int32. Every
+// slot is written on every reduction.
+enum {
+  CR_ANY_FEAS,  // some row of the shard is a candidate (feas0)
+  CR_ANY_ZERO,  // some candidate row has no victim
+  CR_ZKEY,      // the lowest key among zero-victim rows (I64 max: none)
+  CR_ZIDX,      // its global row, the lowest on a key tie (-1: none)
+  CR_BKEY,      // the lowest key among the rows tied at the shard's
+  CR_BIDX,      // lexicographic minimum of the five criteria, and its row
+  CR_NV,        // that row's victim count
+  CR_VIOL,      // and PDB-violation count
+  CR_ANY_RES,   // K13: some in-range row's first failure is resolvable
+  CR_I64
+};
+constexpr int CR_CRIT_BYTES = CR_I64 * 8;         // 5 x f64 from here
+constexpr int CR_FLAG_BYTES = CR_CRIT_BYTES + 40;  // P x i32 from here
+// A record is CR_FLAG_BYTES + 4 P bytes (`cand_record_bytes`,
+// kubernetes_tpu_torch/ops/kernels.py); P is even, so every shard's
+// record in a gathered buffer starts 8-byte aligned.
+
+// Reduce the aggregates `g` of one shard's `rows` rows into the head of
+// its candidate record `rec` (slots CR_ANY_FEAS..CR_VIOL and the five
+// criteria; the caller writes CR_ANY_RES and the flags). A row's key is
+// rank[j], or its global row offset + j when `rank` is NULL (the pressure
+// wave's axis order). A lexicographic minimum decomposes over shards, so
+// the D records decide the pick of `_pick_one_node` exactly, provided
+// every candidate's key is below 2^60. By the whole block; returns (to
+// every thread) the local row of the best candidate, -1 when none.
+__device__ __forceinline__ int shard_candidate(const VictimAggPlanes& g,
+                                               int rows, const i64* rank,
+                                               i64 offset,
+                                               unsigned char* rec) {
+  __shared__ i64 sh64[NWARPS];
+  __shared__ double shd[NWARPS];
+  int lo, hi;
+  my_range(rows, &lo, &hi);
+  unsigned char* m = g.u + rows;
+  int l_any = 0, l_zero = 0;
+  i64 lz = LLONG_MAX;
+  for (int j = lo; j < hi; ++j) {
+    const bool f = g.u[j] != 0;
+    const bool z = f && g.i[j] == 0;
+    l_any |= f;
+    l_zero |= z;
+    m[j] = f;
+    if (z) lz = imin64(lz, rank ? rank[j] : offset + j);
+  }
+  const bool any = block_sum64(l_any, sh64) > 0;
+  const bool any_zero = block_sum64(l_zero, sh64) > 0;
+  const i64 zkey = block_min64(lz, sh64);
+  i64 lzi = LLONG_MAX;
+  for (int j = lo; j < hi; ++j)
+    if (g.u[j] && g.i[j] == 0 && (rank ? rank[j] : offset + j) == zkey)
+      lzi = imin64(lzi, j);
+  const i64 zj = block_min64(lzi, sh64);
+  staged_filter(g, rows, m, lo, hi, shd);
+  i64 lb = LLONG_MAX;
+  for (int j = lo; j < hi; ++j)
+    if (m[j]) lb = imin64(lb, rank ? rank[j] : offset + j);
+  const i64 bkey = block_min64(lb, sh64);
+  i64 lbi = LLONG_MAX;
+  for (int j = lo; j < hi; ++j)
+    if (m[j] && (rank ? rank[j] : offset + j) == bkey) lbi = imin64(lbi, j);
+  const i64 bj = block_min64(lbi, sh64);
+  const int best = (any && bj < rows) ? (int)bj : -1;
+  if (threadIdx.x == 0) {
+    i64* h = (i64*)rec;
+    double* c = (double*)(rec + CR_CRIT_BYTES);
+    h[CR_ANY_FEAS] = any;
+    h[CR_ANY_ZERO] = any_zero;
+    h[CR_ZKEY] = any_zero ? zkey : LLONG_MAX;
+    h[CR_ZIDX] = any_zero ? offset + zj : -1;
+    h[CR_BKEY] = best >= 0 ? bkey : LLONG_MAX;
+    h[CR_BIDX] = best >= 0 ? offset + best : -1;
+    h[CR_NV] = best >= 0 ? g.i[best] : 0;
+    h[CR_VIOL] = best >= 0 ? g.i[rows + best] : 0;
+    for (int q = 0; q < 5; ++q)
+      c[q] = best >= 0 ? pick_crit(g, rows, q, best) : 0.0;
+  }
+  return best;
+}
+
+// The candidate record at byte `off` of shard s's gathered record
+__device__ __forceinline__ const unsigned char* cand_at(
+    const unsigned char* gathered, size_t chunk, size_t off, int s) {
+  return gathered + (size_t)s * chunk + off;
+}
+
+// whether candidate record a's five criteria are lexicographically below
+// (-1), equal to (0) or above (1) b's, with IEEE `<` and `==`
+__device__ __forceinline__ int crit_order(const unsigned char* a,
+                                          const unsigned char* b) {
+  const double* x = (const double*)(a + CR_CRIT_BYTES);
+  const double* y = (const double*)(b + CR_CRIT_BYTES);
+  for (int q = 0; q < 5; ++q) {
+    if (x[q] < y[q]) return -1;
+    if (!(x[q] == y[q])) return 1;
+  }
+  return 0;
+}
+
+struct CandPick {
+  i64 winner;  // global row, -1 when no node is a candidate
+  int src;     // the shard whose record holds the winner's flags (-1:
+               // a zero-victim winner or none: every flag 0)
+  i64 nv, viol;
+  bool any_res;  // the OR of the shards' CR_ANY_RES
+};
+
+// pickOneNodeForPreemption over the D shards' candidate records: no
+// candidate anywhere -> -1; a zero-victim row anywhere -> the lowest
+// (key, row) of them; else the shards at the lexicographic minimum of the
+// five criteria, and among them the lowest (key, row). One thread.
+__device__ __forceinline__ CandPick pick_records(const unsigned char* g,
+                                                size_t chunk, size_t off,
+                                                int D) {
+  CandPick p{-1, -1, 0, 0, false};
+  bool any = false, any_zero = false;
+  for (int s = 0; s < D; ++s) {
+    const i64* h = (const i64*)cand_at(g, chunk, off, s);
+    any |= h[CR_ANY_FEAS] != 0;
+    any_zero |= h[CR_ANY_ZERO] != 0;
+    p.any_res |= h[CR_ANY_RES] != 0;
+  }
+  if (!any) return p;
+  int best = -1;
+  for (int s = 0; s < D; ++s) {
+    const unsigned char* r = cand_at(g, chunk, off, s);
+    const i64* h = (const i64*)r;
+    if (any_zero) {
+      if (!h[CR_ANY_ZERO]) continue;
+      const i64* b = best < 0 ? 0 : (const i64*)cand_at(g, chunk, off, best);
+      if (!b || h[CR_ZKEY] < b[CR_ZKEY]
+          || (h[CR_ZKEY] == b[CR_ZKEY] && h[CR_ZIDX] < b[CR_ZIDX]))
+        best = s;
+      continue;
+    }
+    if (!h[CR_ANY_FEAS]) continue;
+    if (best < 0) {
+      best = s;
+      continue;
+    }
+    const unsigned char* br = cand_at(g, chunk, off, best);
+    const i64* b = (const i64*)br;
+    const int o = crit_order(r, br);
+    if (o < 0 || (o == 0 && (h[CR_BKEY] < b[CR_BKEY]
+                             || (h[CR_BKEY] == b[CR_BKEY]
+                                 && h[CR_BIDX] < b[CR_BIDX]))))
+      best = s;
+  }
+  const i64* h = (const i64*)cand_at(g, chunk, off, best);
+  if (any_zero) {
+    p.winner = h[CR_ZIDX];
+  } else {
+    p.winner = h[CR_BIDX];
+    p.src = best;
+    p.nv = h[CR_NV];
+    p.viol = h[CR_VIOL];
+  }
+  return p;
+}
+
+// the P slot flags of a pick: the winning shard's flags, or zeros
+__device__ __forceinline__ void pick_flags(const unsigned char* g,
+                                           size_t chunk, size_t off,
+                                           const CandPick& p, int P,
+                                           int* out) {
+  const int* f = p.src < 0 ? 0
+      : (const int*)(cand_at(g, chunk, off, p.src) + CR_FLAG_BYTES);
+  for (int s = threadIdx.x; s < P; s += blockDim.x) out[s] = f ? f[s] : 0;
 }

@@ -38,6 +38,10 @@ and nowhere else.
 |                | `parallel/sharding.py` `sharded_scan_fn` :233      |
 | shard_segments_local, shard_segments_select (K11a, K11b)            |
 |                | `parallel/sharding.py` `sharded_segments_fn` :279  |
+| shard_preempt_local, shard_preempt_select (K14a, K14b)              |
+|                | `parallel/sharding.py` `sharded_preempt_fn` :354   |
+| shard_pressure_local, shard_pressure_select (K13a, K13b)            |
+|                | `parallel/sharding.py` `sharded_pressure_fn` :330  |
 
 Numeric contract: int64 resource math and scores, float64 exactly where
 JAX uses it, floor division as JAX `//` (torch `//` on integer tensors
@@ -78,7 +82,9 @@ KERNELS = ("local_total", "schedule_cycle", "uniform_burst", "scatter_rows",
            "pressure_batch", "shard_cycle_local", "shard_cycle_select",
            "shard_uniform_sweep", "shard_uniform_select", "shard_scan_local",
            "shard_scan_select", "shard_segments_local",
-           "shard_segments_select")
+           "shard_segments_select", "shard_preempt_local",
+           "shard_preempt_select", "shard_pressure_local",
+           "shard_pressure_select")
 
 
 def launches() -> dict[str, int]:
@@ -584,11 +590,21 @@ def _cycle_core_plain(nodes, pod, last_index, last_node_index, num_to_find,
             "fail_first": fail_first, "general_bits": general_bits}
 
 
+def _ghost_tensors(ghost, device) -> Optional[dict]:
+    """A nominated-ghost load ({cpu, mem, eph, cnt}, numpy or tensors) as
+    int64 tensors on `device`; None stays None."""
+    if ghost is None:
+        return None
+    return {k: _t(ghost[k], device, I64).contiguous() for k in GHOST_FIELDS}
+
+
 def schedule_cycle_plain(nodes, pod, last_index, last_node_index,
                          num_to_find, n_real, z_pad, weights=None, wtab=None,
-                         perm=None, inv_perm=None, pos=None):
+                         perm=None, inv_perm=None, pos=None, ghost=None):
     """Plain version of K2 (the JAX `schedule_cycle` entry point, plus the
-    `perm`/`inv_perm` and `pos` rotation modes its burst scans use)."""
+    `perm`/`inv_perm` and `pos` rotation modes its burst scans use).
+    `ghost` ({cpu, mem, eph, cnt} [n_pad], or None) is the nominated pods'
+    load the filter adds (`_cycle_core`'s ghost, kernels.py:402-413)."""
     dev = nodes["valid"].device
     pod = {k: _t(v, dev) for k, v in pod.items()}
     if wtab is not None:
@@ -596,7 +612,7 @@ def schedule_cycle_plain(nodes, pod, last_index, last_node_index,
     return _cycle_core_plain(nodes, pod, last_index, last_node_index,
                              num_to_find, n_real, weights or DEFAULT_WEIGHTS,
                              z_pad, perm=perm, inv_perm=inv_perm, pos=pos,
-                             wtab=wtab)
+                             wtab=wtab, ghost=_ghost_tensors(ghost, dev))
 
 
 # pod scalar slots of K2's packed int64 input (csrc/schedule_cycle.cu)
@@ -618,7 +634,7 @@ def _pack_scalars(vals: list, dev) -> torch.Tensor:
 
 def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
                            num_to_find, n_real, z_pad, weights, wtab,
-                           perm, inv_perm, pos):
+                           perm, inv_perm, pos, ghost):
     dev = nodes["valid"].device
     n_pad = int(nodes["valid"].shape[0])
     s_count = int(nodes["alloc_scalar"].shape[1])
@@ -689,6 +705,11 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
     scratch = torch.empty(2 * n_pad, dtype=I32, device=dev)
     zscratch = torch.empty(2 * int(z_pad), dtype=I64, device=dev)
     out = torch.empty(6, dtype=I64, device=dev)
+    ghost = _ghost_tensors(ghost, dev)
+    gptrs = [None] * 4 if ghost is None else [ghost[k] for k in GHOST_FIELDS]
+    _require_cuda("schedule_cycle", *gptrs)
+    if ghost is not None and any(g.shape != (n_pad,) for g in gptrs):
+        raise ValueError("schedule_cycle: ghost fields are not [n_pad]")
     lib = _build.load("schedule_cycle")
     tensors = fields + masks + [code] + counts + [tracked]
     ptrs = (ctypes.c_void_p * len(tensors))(*[_ptr(t) for t in tensors])
@@ -701,7 +722,7 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
         _ptr(perm), _ptr(inv_perm), _ptr(pos),
         _ptr(total), _ptr(kept), _ptr(feasible), _ptr(fail_first),
         _ptr(general_bits), _ptr(scratch), _ptr(zscratch), _ptr(out),
-        _stream()), "schedule_cycle")
+        *[_ptr(g) for g in gptrs], _stream()), "schedule_cycle")
     return {
         "selected": out[0], "found": out[1], "evaluated": out[2],
         "max_score": out[3], "total": total, "kept": kept,
@@ -713,13 +734,16 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
 
 def schedule_cycle(nodes, pod, last_index, last_node_index, num_to_find,
                    n_real, z_pad, weights=None, wtab=None, perm=None,
-                   inv_perm=None, pos=None, mesh=None):
+                   inv_perm=None, pos=None, ghost=None, mesh=None):
     """K2: one scheduling cycle. `nodes` is the dict of node tensors, `pod`
     the dict of pod fields (inert per-node fields are shape [1]); the
     output dict has the JAX entry point's keys. `perm`/`inv_perm` select
     the rotated walk and `pos` the gather-free full-scan mode. `wtab` is
-    the [P, K] weight table, `pod["profile_id"]` picks its row. With a
-    `mesh` (parallel.sharding.Mesh) the node axis is split over its
+    the [P, K] weight table, `pod["profile_id"]` picks its row. `ghost`
+    ({cpu, mem, eph, cnt} [n_pad] int64, or None) is the load of the
+    nominated pods the filter counts on each node (the two-pass fit of
+    podFitsOnNode for resource-only nominees); the scores never read it.
+    With a `mesh` (parallel.sharding.Mesh) the node axis is split over its
     devices (`nodes`: the per-shard dicts of `shard_node_arrays`, or one
     whole dict) and the cycle runs as K9a on every shard, an all-gather
     and K9b on every device (`parallel.sharding.sharded_cycle`)."""
@@ -729,15 +753,15 @@ def schedule_cycle(nodes, pod, last_index, last_node_index, num_to_find,
         return S.sharded_cycle(mesh, nodes, pod, last_index,
                                last_node_index, num_to_find, n_real, z_pad,
                                weights=weights, wtab=wtab, perm=perm,
-                               inv_perm=inv_perm, pos=pos)
+                               inv_perm=inv_perm, pos=pos, ghost=ghost)
     if not nodes["valid"].is_cuda:
         return schedule_cycle_plain(nodes, pod, last_index, last_node_index,
                                     num_to_find, n_real, z_pad,
                                     weights=weights, wtab=wtab, perm=perm,
-                                    inv_perm=inv_perm, pos=pos)
+                                    inv_perm=inv_perm, pos=pos, ghost=ghost)
     return _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
                                   num_to_find, n_real, z_pad, weights, wtab,
-                                  perm, inv_perm, pos)
+                                  perm, inv_perm, pos, ghost)
 
 
 # ---------------------------------------------------------------------------
@@ -1840,21 +1864,35 @@ def _pick_one_node_plain(feas0, agg, order_rank) -> int:
     victim count and -(earliest start among the highest-priority
     victims), each compared in float64 as JAX does; ties go to the lowest
     `order_rank`. -1 when no node is a candidate."""
-    inf = float("inf")
     rank = order_rank.to(I64)
 
     def argmin_rank(mask):
         return int(torch.argmin(torch.where(mask, rank, _BIGR)))
 
     zerov = feas0 & (agg["nv"] == 0)
-    m = feas0.clone()
-    for crit in (agg["viol_ct"].double(), agg["first_prio"].double(),
-                 agg["sum_prio"].double(), agg["nv"].double(),
-                 -agg["earliest_high"]):
-        c = torch.where(m, crit, inf)
-        m &= c == torch.min(c)
+    m = _staged_filter_plain(feas0, agg)
     winner = argmin_rank(zerov) if bool(zerov.any()) else argmin_rank(m)
     return winner if bool(feas0.any()) else -1
+
+
+def _pick_criteria(agg) -> list:
+    """The five criteria of the pick, as JAX converts them to float64:
+    PDB violations, first victim's priority, sum of (priority + 2**31),
+    victim count, -(earliest start among the highest-priority victims)."""
+    return [agg["viol_ct"].double(), agg["first_prio"].double(),
+            agg["sum_prio"].double(), agg["nv"].double(),
+            -agg["earliest_high"]]
+
+
+def _staged_filter_plain(feas0, agg) -> torch.Tensor:
+    """The rows of `feas0` tied at the staged minimum of the five
+    criteria (`_pick_one_node`'s loop): their lexicographic minimum."""
+    inf = float("inf")
+    m = feas0.clone()
+    for crit in _pick_criteria(agg):
+        c = torch.where(m, crit, inf)
+        m &= c == torch.min(c)
+    return m
 
 
 def _preempt_scan_core_plain(nodes, vic, pod, feas_static, order_rank,
@@ -1941,7 +1979,7 @@ def _preempt_launch(nodes, vic, pod, feas_static, order_rank, n_real,
 
 
 def preemption_scan(nodes, vic, pod, feas_static, order_rank, n_real,
-                    check_resources, has_request, max_prio):
+                    check_resources, has_request, max_prio, mesh=None):
     """K7: one preemptor's victim scan over every node at once. `vic` holds
     the [N, P] slot planes of the persistent victim table (every snapshot
     pod in reprieve order; slots of priority >= `max_prio` are masked out
@@ -1949,7 +1987,16 @@ def preemption_scan(nodes, vic, pod, feas_static, order_rank, n_real,
     pod's non-resource predicates; `order_rank` [N] the candidate order
     (ties of the pick go to the lowest). Returns the packed [3+P] int32
     block: winner row (-1 = no candidate), its victim count and
-    PDB-violation count, its per-slot victim flags."""
+    PDB-violation count, its per-slot victim flags. With a `mesh` the
+    node rows, victim planes, `feas_static` and `order_rank` split on the
+    node axis (`nodes` / `vic`: per-shard dicts, or whole ones): K14a on
+    every shard, an all-gather of the shards' candidate records and K14b
+    on every device (`parallel.sharding.sharded_preempt`)."""
+    if mesh is not None:
+        from kubernetes_tpu_torch.parallel import sharding as S
+        return S.sharded_preempt(mesh, nodes, vic, pod, feas_static,
+                                 order_rank, n_real, check_resources,
+                                 has_request, max_prio)
     if not nodes["alloc_cpu"].is_cuda:
         return preemption_scan_plain(nodes, vic, pod, feas_static,
                                      order_rank, n_real, check_resources,
@@ -2134,7 +2181,7 @@ def _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
 
 def pressure_batch(nodes, mut0, ghost0, pods, vic, last_index,
                    last_node_index, num_to_find, n_real, z_pad,
-                   weights=None, out=None):
+                   weights=None, out=None, mesh=None):
     """K8: schedule-else-preempt a failed burst tail in one launch. `nodes`
     is the resident matrix, `mut0` the carried mutable rows, `ghost0` the
     carried nominated load ({cpu, mem, eph, cnt} [n_pad]), `pods` a
@@ -2142,8 +2189,18 @@ def pressure_batch(nodes, mut0, ghost0, pods, vic, last_index,
     deltas), `vic` the victim planes. last_index / last_node_index may be
     ints or the previous chunk's device scalars, so chunks chain on the
     card without a host round trip. Returns (mut, ghost, li, lni, outs) as
-    the plain version; `out` receives the packed [B, 5+P] block."""
+    the plain version; `out` receives the packed [B, 5+P] block. With a
+    `mesh` the mutable rows, the ghost load and the victim planes split on
+    the node axis (per-shard lists, or whole dicts): one step per pod of
+    K13a on every shard, the all-gather and K13b on every device
+    (`parallel.sharding.sharded_pressure`); mut and ghost come back per
+    shard."""
     weights = weights or DEFAULT_WEIGHTS
+    if mesh is not None:
+        from kubernetes_tpu_torch.parallel import sharding as S
+        return S.sharded_pressure(mesh, nodes, mut0, ghost0, pods, vic,
+                                  last_index, last_node_index, num_to_find,
+                                  n_real, z_pad, weights=weights, out=out)
     dev = nodes["valid"].device
     stack = pods if isinstance(pods, PodStack) \
         else PodStack.from_dense(pods, dev)
@@ -2270,16 +2327,18 @@ def _on(device):
 
 # ---- K9a shard_cycle_local --------------------------------------------------
 def shard_cycle_local_plain(nodes, pod, offset, n_real, weights, planes,
-                            wrow=None):
+                            wrow=None, ghost=None):
     """K9a plain: the shard-local part of `sharded_cycle_fn` (sharding.py
-    :115) over one shard's rows — `_feasibility` (kernels.py:296) and the
+    :115) over one shard's rows — `_feasibility` (kernels.py:296), with
+    the shard's slice of the nominated `ghost` load when given, and the
     row-local `_fit_scores` families (:157). Returns (feasible,
     fail_first, general_bits) of the shard's rows and its record (uint8:
     the `planes` of `cycle_record_planes`, `record_layout`)."""
     dev = nodes["valid"].device
     rows = nodes["valid"].shape[0]
     pod = {k: _t(v, dev) for k, v in pod.items()}
-    feasible, fail_first, general_bits = _feasibility_plain(nodes, pod)
+    feasible, fail_first, general_bits = _feasibility_plain(
+        nodes, pod, ghost=_ghost_tensors(ghost, dev))
     in_range = torch.arange(rows, device=dev) + int(offset) < int(n_real)
     vals = {"local": _local_scores_plain(nodes, pod, weights, wrow=wrow),
             "zone": nodes["zone_id"], "feas": feasible & in_range}
@@ -2297,11 +2356,12 @@ _SCL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
              "nz_mem", "pod_count", "alloc_scalar", "req_scalar", "zone_id",
              "scal", "req_scalar_p") + _CYCLE_MASKS + ("interpod_code",) \
     + _CYCLE_COUNTS + ("interpod_tracked", "w", "feasible", "fail_first",
-                       "general_bits", "rec")
+                       "general_bits", "rec") + tuple(
+        "ghost_" + k for k in ("cpu", "mem", "eph", "cnt"))
 
 
 def _shard_cycle_local_launch(nodes, pod, offset, n_real, weights, planes,
-                              wrow):
+                              wrow, ghost):
     dev = nodes["valid"].device
     rows = int(nodes["valid"].shape[0])
     s_count = int(nodes["alloc_scalar"].shape[1])
@@ -2345,6 +2405,14 @@ def _shard_cycle_local_launch(nodes, pod, offset, n_real, weights, planes,
     general_bits = ptrs["general_bits"] = torch.empty(rows, dtype=I64,
                                                       device=dev)
     rec = ptrs["rec"] = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+    ghost = _ghost_tensors(ghost, dev)
+    if ghost is not None:
+        if any(g.shape != (rows,) for g in ghost.values()):
+            raise ValueError(f"shard_cycle_local: ghost is not the shard's "
+                             f"[{rows}] slice")
+        ptrs.update({"ghost_" + k: v for k, v in ghost.items()})
+    _require_cuda("shard_cycle_local",
+                  *[v for v in ptrs.values() if v is not None])
     _require_on("shard_cycle_local", dev, *ptrs.values())
     ints = {"rows": rows, "S": s_count, "offset": int(offset),
             "n_real": int(n_real), "gate": _gate(weights)}
@@ -2356,21 +2424,23 @@ def _shard_cycle_local_launch(nodes, pod, offset, n_real, weights, planes,
 
 
 def shard_cycle_local(nodes, pod, offset, n_real, weights, planes,
-                      wrow=None):
+                      wrow=None, ghost=None):
     """K9a on one shard (`nodes`: its node dict, `pod`: its slice of the
     pod's per-node fields plus the replicated scalars; `offset`: the
-    global index of its first row). CPU tensors -> the plain version;
-    CUDA tensors -> `csrc/shard_cycle_local.cu` on their device."""
+    global index of its first row; `ghost`: its slice of the nominated
+    load, or None). CPU tensors -> the plain version; CUDA tensors ->
+    `csrc/shard_cycle_local.cu` on their device."""
     dev = nodes["valid"].device
     _require_on("shard_cycle_local", dev, *nodes.values(),
                 *[v for v in pod.values() if isinstance(v, torch.Tensor)
-                  and v.dim() and v.shape[-1] > 1], wrow)
+                  and v.dim() and v.shape[-1] > 1], wrow,
+                *(ghost or {}).values())
     if not nodes["valid"].is_cuda:
         return shard_cycle_local_plain(nodes, pod, offset, n_real, weights,
-                                       planes, wrow=wrow)
+                                       planes, wrow=wrow, ghost=ghost)
     with _on(dev):
         return _shard_cycle_local_launch(nodes, pod, offset, n_real,
-                                         weights, planes, wrow)
+                                         weights, planes, wrow, ghost)
 
 
 # ---- K9b shard_cycle_select -------------------------------------------------
@@ -2850,8 +2920,8 @@ def shard_uniform_select(gathered, rows, hoff, state, out, lni_out, owner,
 # ---------------------------------------------------------------------------
 #: slots of a sharded scan's step state (csrc/shard_scan.cuh)
 (SS_STEP, SS_NEXT, SS_LI, SS_LNI, SS_LNI0, SS_FOLD_SEL, SS_FOLD_ROW,
- SS_REWIND, SS_T, SS_CHK_T, SS_CHK_LI, SS_CHK_LNI, SS_FAILED,
- SS_COUNT) = range(14)
+ SS_REWIND, SS_T, SS_CHK_T, SS_CHK_LI, SS_CHK_LNI, SS_FAILED, SS_GHOST_SEL,
+ SS_COUNT) = range(15)
 #: the skip flag's slot in a row of the [U, 13] scalar table
 _SC_SKIP = _SCAN_SCALARS.index("skip")
 
@@ -2876,7 +2946,8 @@ class ScanPlan:
     rows, whether the spread vector is carried, the gang score and the
     inter-pod family are on, the record planes (fixed per window from
     the whole table, `cycle_record_planes`), and the static weights (the
-    gate)."""
+    gate). A pressure wave (K13, `pressure`) carries P victim slots and
+    appends each shard's candidate record to its cycle record."""
     n_pad: int
     rows: int
     D: int
@@ -2896,6 +2967,19 @@ class ScanPlan:
     ipa_on: bool
     planes: tuple
     weights: dict
+    pressure: bool = False
+    vic_P: int = 0
+
+    @property
+    def cand_off(self) -> int:
+        """Byte offset of the candidate record in a shard's record: the
+        cycle record's size."""
+        return record_layout(self.planes, self.rows)[1]
+
+    @property
+    def record_bytes(self) -> int:
+        return self.cand_off + (cand_record_bytes(self.vic_P)
+                                if self.pressure else 0)
 
 
 class ScanShard:
@@ -2905,14 +2989,21 @@ class ScanShard:
     carried spread, its slices of the window's pod tables (`[U, rows]`
     when dense, `[U, 1]` inert fields and per-spec scalars replicated),
     the K11 checkpoint (copies of the live rows and spread slice, or
-    None), and its record."""
+    None), and its record. A pressure wave's shard (K13a) also holds its
+    slice of the nominated-ghost load (a fresh copy, folded in place), its
+    victim planes, and the scratch planes of its rows' victim aggregates
+    (i64 [4, rows], f64 [rows], u8 [3, rows])."""
 
-    def __init__(self, offset, nodes, spread, tab, chk, record_bytes):
+    def __init__(self, offset, nodes, spread, tab, chk, record_bytes,
+                 ghost=None, vic=None):
         dev = nodes["valid"].device
         self.offset, self.rows = int(offset), int(nodes["valid"].shape[0])
         self.nodes, self.spread, self.tab, self.chk = nodes, spread, tab, chk
         self.scal = scan_scalars(tab)
         self.rec = torch.zeros(record_bytes, dtype=torch.uint8, device=dev)
+        self.ghost, self.vic, self.agg = ghost, vic, None
+        if vic is not None:
+            self.agg = _agg_planes(self.rows, dev, 3)
         self._args: dict = {}    # launch arrays, built once per window
 
     @property
@@ -3026,7 +3117,8 @@ def shard_segments_local_plain(sh: ScanShard, side: ScanSide,
 
 
 _SSL_INTS = ("rows", "S", "offset", "n_real", "gate", "n_steps", "P",
-             "carry_spread") + tuple("off_" + n for n, _ in _REC_PLANES)
+             "carry_spread") + tuple("off_" + n for n, _ in _REC_PLANES) \
+    + ("vic_P", "cand_off")
 _SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
              "allowed_pods", "req_cpu", "req_mem", "req_eph", "nz_cpu",
              "nz_mem", "pod_count", "alloc_scalar", "req_scalar", "zone_id",
@@ -3034,7 +3126,11 @@ _SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
     + ("chk_spread", "scal", "req_scalar_p", "upd_scalar_p") + _CYCLE_MASKS \
     + ("interpod_code",) + _CYCLE_COUNTS + (
         "interpod_tracked", "row", "profile_id", "w", "wtab", "state",
-        "seg_start", "gang", "rec")
+        "seg_start", "gang", "rec") + tuple(
+    "ghost_" + k for k in ("cpu", "mem", "eph", "cnt")) + tuple(
+    "vic_" + k for k in ("cpu", "mem", "eph", "prio", "start", "valid",
+                         "violating")) + ("pprio", "agg_i64", "agg_f64",
+                                          "agg_u8")
 
 
 def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
@@ -3071,19 +3167,30 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
         ptrs.update({"chk_" + k: sh.chk[k] for k in _MUTABLE})
         ptrs.update({"chk_spread": sh.chk.get("spread"),
                      "seg_start": side.seg_start, "gang": side.gang})
+    if sh.vic is not None:
+        ptrs.update({"ghost_" + k: sh.ghost[k] for k in GHOST_FIELDS})
+        ptrs.update({"vic_" + k: sh.vic[k] for k in VICTIM_PLANES})
+        ptrs.update({"pprio": tab["pprio"].to(I64).reshape(U).contiguous(),
+                     "agg_i64": sh.agg[0], "agg_f64": sh.agg[1],
+                     "agg_u8": sh.agg[2]})
+        if any(sh.vic[k].shape[0] != rows for k in VICTIM_PLANES) \
+                or any(g.shape != (rows,) for g in sh.ghost.values()):
+            raise ValueError(f"{name}: victim planes or ghost are not the "
+                             f"shard's {rows} rows")
     for k, f in _REC_FIELD.items():
         if k in plan.planes and ptrs[f] is None and not (
                 k == "sc" and plan.carry_spread):
             raise ValueError(f"{name}: plane {k} of an inert field")
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
     _require_on(name, dev, *ptrs.values())
-    off, nbytes = record_layout(plan.planes, rows)
-    if nbytes != sh.rec.numel():
+    off, _nbytes = record_layout(plan.planes, rows)
+    if plan.record_bytes != sh.rec.numel():
         raise ValueError(f"{name}: record size != layout")
     ints = {"rows": rows, "S": plan.S, "offset": sh.offset,
             "n_real": plan.n_real, "gate": _gate(plan.weights),
             "n_steps": plan.n_steps, "P": plan.P,
-            "carry_spread": int(plan.carry_spread)}
+            "carry_spread": int(plan.carry_spread), "vic_P": plan.vic_P,
+            "cand_off": plan.cand_off if plan.pressure else 0}
     ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
     return (ptrs,) + _launch_arrays(ints, _SSL_INTS, ptrs, _SSL_PTRS, name)
 
@@ -3245,7 +3352,7 @@ def shard_segments_select_plain(side: ScanSide, plan: ScanPlan) -> None:
 _SSS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad", "B",
              "n_steps", "num_to_find", "mode", "L", "n_oid", "gate", "P",
              "ipa_on", "ic_inert", "tr_inert", "gang_score") + tuple(
-    "off_" + n for n, _ in _REC_PLANES)
+    "off_" + n for n, _ in _REC_PLANES) + ("vic_P", "cand_off")
 _SSS_PTRS = ("gathered", "w", "wtab", "profile_id", "row", "scal", "ic_b",
              "tr_b", "perms", "inv_perms", "oid_seq", "seg_start", "gang",
              "gz", "state", "p64", "zone", "tracked", "total", "kept",
@@ -3255,8 +3362,8 @@ _SSS_PTRS = ("gathered", "w", "wtab", "profile_id", "row", "scal", "ic_b",
 def _scan_select_args(name, side: ScanSide, plan: ScanPlan):
     dev = side.device
     D, chunk = (int(x) for x in side.gathered.shape)
-    off, nbytes = record_layout(plan.planes, plan.rows)
-    if nbytes != chunk or D * plan.rows != plan.n_pad:
+    off, _nbytes = record_layout(plan.planes, plan.rows)
+    if plan.record_bytes != chunk or D * plan.rows != plan.n_pad:
         raise ValueError(f"{name}: gathered records != layout")
     if plan.mode and side.perms.shape[1] != plan.n_pad:
         raise ValueError(f"{name}: rotation rows must be n_pad wide")
@@ -3277,7 +3384,8 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan):
             "ipa_on": int(plan.ipa_on),
             "ic_inert": int("ic" not in plan.planes),
             "tr_inert": int("tracked" not in plan.planes),
-            "gang_score": int(plan.gang_score)}
+            "gang_score": int(plan.gang_score), "vic_P": plan.vic_P,
+            "cand_off": plan.cand_off if plan.pressure else 0}
     ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
     return (ptrs,) + _launch_arrays(ints, _SSS_INTS, ptrs, _SSS_PTRS, name)
 
@@ -3298,4 +3406,343 @@ def shard_segments_select(side: ScanSide, plan: ScanPlan) -> None:
         return shard_segments_select_plain(side, plan)
     _scan_step_launch("shard_segments_select", side,
                       lambda: _scan_select_args("shard_segments_select",
+                                                side, plan))
+
+
+# ---------------------------------------------------------------------------
+# The sharded pick: K14a/K13a reduce a shard's rows to a candidate record,
+# K14b/K13b pick among the D gathered records (csrc/victim.cuh)
+# ---------------------------------------------------------------------------
+#: the int64 slots that open a shard's candidate record (`CR_*`); the five
+#: criteria (float64) and the best row's P slot flags (int32) follow
+CAND_SLOTS = ("any_feas", "any_zero", "zkey", "zidx", "bkey", "bidx", "nv",
+              "viol", "any_res")
+_CAND_CRIT = 8 * len(CAND_SLOTS)
+_CAND_FLAGS = _CAND_CRIT + 8 * 5
+
+
+def cand_record_bytes(P: int) -> int:
+    """Bytes of one shard's candidate record for P victim slots. The
+    kernels read the gathered records' int64 and float64 slots in place,
+    so P must be even (the victim table's width is a power of two >= 8)."""
+    if int(P) % 2:
+        raise ValueError(f"candidate records need an even slot count, "
+                         f"not P={P}")
+    return _CAND_FLAGS + 4 * int(P)
+
+
+def _agg_planes(rows: int, device, u8_planes: int) -> tuple:
+    """Scratch planes of a victim scan's per-row aggregates: i64 [4,
+    rows], f64 [rows], u8 [u8_planes, rows]."""
+    return (torch.empty((4, rows), dtype=I64, device=device),
+            torch.empty(rows, dtype=torch.float64, device=device),
+            torch.empty((u8_planes, rows), dtype=torch.uint8, device=device))
+
+
+def _shard_candidate_plain(feas0, victims, agg, key, offset,
+                           any_res=False) -> torch.Tensor:
+    """A shard's candidate record (uint8) from its rows' victim scan
+    (`shard_candidate`, csrc/victim.cuh): whether a row is a candidate,
+    the zero-victim row of lowest (key, row), the rows tied at the
+    lexicographic minimum of the five criteria and among them the one of
+    lowest (key, row), with its counts, criteria and slot flags. Rows are
+    global (`offset` + local row); `key` [rows] is the candidate order
+    (order_rank, or the global row for the pick by axis order)."""
+    dev = feas0.device
+    P = int(victims.shape[1])
+
+    def lowest(mask):
+        if not bool(mask.any()):
+            return None
+        k = int(torch.min(key[mask]))
+        return k, int(_first_true(mask & (key == k)))
+    zero = lowest(feas0 & (agg["nv"] == 0))
+    best = lowest(_staged_filter_plain(feas0, agg))
+    j = None if best is None else best[1]
+    head = [int(bool(feas0.any())), int(zero is not None),
+            I64_MAX if zero is None else zero[0],
+            -1 if zero is None else offset + zero[1],
+            I64_MAX if best is None else best[0],
+            -1 if best is None else offset + j,
+            0 if j is None else int(agg["nv"][j]),
+            0 if j is None else int(agg["viol_ct"][j]), int(any_res)]
+    crit = [0.0] * 5 if j is None else [float(c[j])
+                                        for c in _pick_criteria(agg)]
+    flags = torch.zeros(P, dtype=I32, device=dev) if j is None \
+        else victims[j].to(I32)
+    return torch.cat([torch.tensor(head, dtype=I64, device=dev).view(
+        torch.uint8), torch.tensor(crit, dtype=torch.float64,
+                                   device=dev).view(torch.uint8),
+        flags.contiguous().view(torch.uint8)])
+
+
+def _pick_records_plain(gathered, off: int, P: int):
+    """pickOneNodeForPreemption over the D candidate records of a
+    gathered [D, bytes] buffer, each at byte `off` (`pick_records`,
+    csrc/victim.cuh): (winner row or -1, its victim count, its
+    PDB-violation count, its [P] int32 flags, the OR of the shards'
+    resolvable flags)."""
+    g = gathered[:, off: off + cand_record_bytes(P)].cpu()
+    D = int(g.shape[0])
+    head = g[:, :_CAND_CRIT].contiguous().view(I64).reshape(D, -1)
+    crit = g[:, _CAND_CRIT:_CAND_FLAGS].contiguous().view(
+        torch.float64).reshape(D, 5)
+    flags = g[:, _CAND_FLAGS:].contiguous().view(I32).reshape(D, P)
+    h = {k: [int(x) for x in head[:, i].tolist()]
+         for i, k in enumerate(CAND_SLOTS)}
+    any_res = any(h["any_res"])
+    none = torch.zeros(P, dtype=I32)
+    if not any(h["any_feas"]):
+        return -1, 0, 0, none, any_res
+    if any(h["any_zero"]):
+        s = min((h["zkey"][s], h["zidx"][s], s) for s in range(D)
+                if h["any_zero"][s])[2]
+        return h["zidx"][s], 0, 0, none, any_res
+    best = None
+    for s in range(D):
+        if not h["any_feas"][s]:
+            continue
+        c = crit[s].tolist()
+        if best is None:
+            best = s
+            continue
+        b = crit[best].tolist()
+        # the lexicographic order with IEEE < and == (-0.0 == 0.0)
+        order = 0
+        for x, y in zip(c, b):
+            if x < y:
+                order = -1
+                break
+            if not x == y:
+                order = 1
+                break
+        if order < 0 or (order == 0 and (h["bkey"][s], h["bidx"][s])
+                         < (h["bkey"][best], h["bidx"][best])):
+            best = s
+    return (h["bidx"][best], h["nv"][best], h["viol"][best], flags[best],
+            any_res)
+
+
+# ---- K14a shard_preempt_local ------------------------------------------------
+def shard_preempt_local_plain(nodes, vic, pod, feas_static, order_rank,
+                              offset, n_real, check_resources, has_request,
+                              max_prio) -> torch.Tensor:
+    """K14a plain: the shard-local half of `sharded_preempt_fn`
+    (sharding.py:354) over one shard's rows — `_victim_select`
+    (kernels.py:1494) with this preemptor's slot mask (priority below
+    `max_prio`) and the reprieve walk, reduced to the shard's candidate
+    record (`_shard_candidate_plain`, keyed by `order_rank`)."""
+    dev = vic["prio"].device
+    rows = int(vic["prio"].shape[0])
+    in_range = torch.arange(rows, device=dev) + int(offset) < int(n_real)
+    valid_v = vic["valid"] & (vic["prio"] < int(max_prio))
+    feas0, victims, agg = _victim_select_plain(
+        nodes, vic, valid_v, pod["req_cpu"], pod["req_mem"],
+        pod["req_eph"], None, _t(feas_static, dev, torch.bool) & in_range,
+        check_resources, has_request)
+    return _shard_candidate_plain(feas0, victims, agg,
+                                  _t(order_rank, dev, I64), int(offset))
+
+
+_SPL_INTS = ("rows", "P", "offset", "n_real", "max_prio", "cr", "hr",
+             "req_cpu", "req_mem", "req_eph")
+_SPL_PTRS = _PREEMPT_PTRS[:8] + tuple("vic_" + k for k in VICTIM_PLANES) \
+    + ("feas", "rank", "agg_i64", "agg_f64", "agg_u8", "rec")
+
+
+def _shard_preempt_local_launch(nodes, vic, pod, feas_static, order_rank,
+                                offset, n_real, check_resources, has_request,
+                                max_prio):
+    dev = vic["prio"].device
+    rows, P = (int(x) for x in vic["prio"].shape)
+    ptrs = {k: nodes[k] for k in _PREEMPT_PTRS[:8]}
+    ptrs.update({"vic_" + k: vic[k] for k in VICTIM_PLANES})
+    ptrs["feas"] = _t(feas_static, dev, torch.bool).contiguous()
+    ptrs["rank"] = _t(order_rank, dev, I64).contiguous()
+    if any(v.shape[0] != rows for v in ptrs.values()):
+        raise ValueError("shard_preempt_local: node rows, victim planes, "
+                         "feas_static and order_rank differ in rows")
+    ptrs["agg_i64"], ptrs["agg_f64"], ptrs["agg_u8"] = _agg_planes(
+        rows, dev, 2)
+    rec = ptrs["rec"] = torch.empty(cand_record_bytes(P), dtype=torch.uint8,
+                                    device=dev)
+    _require_cuda("shard_preempt_local", *ptrs.values())
+    _require_on("shard_preempt_local", dev, *ptrs.values())
+    cr = bool(_host(check_resources))
+    ints = {"rows": rows, "P": P, "offset": int(offset),
+            "n_real": int(n_real), "max_prio": int(max_prio), "cr": int(cr),
+            "hr": int(bool(_host(has_request)) and cr)}
+    ints.update({k: int(np.asarray(_host(pod[k])))
+                 for k in ("req_cpu", "req_mem", "req_eph")})
+    _launch("shard_preempt_local",
+            *_launch_arrays(ints, _SPL_INTS, ptrs, _SPL_PTRS,
+                            "shard_preempt_local"))
+    return rec
+
+
+def shard_preempt_local(nodes, vic, pod, feas_static, order_rank, offset,
+                        n_real, check_resources, has_request, max_prio):
+    """K14a on one shard (`nodes` / `vic`: its node rows and victim
+    planes; `feas_static` / `order_rank`: its slices; `offset`: the global
+    row of its first row). Returns its candidate record (uint8, on its
+    device). CPU -> the plain version; CUDA ->
+    `csrc/shard_preempt_local.cu`."""
+    dev = vic["prio"].device
+    if not vic["prio"].is_cuda:
+        return shard_preempt_local_plain(
+            nodes, vic, pod, feas_static, order_rank, offset, n_real,
+            check_resources, has_request, max_prio)
+    with _on(dev):
+        return _shard_preempt_local_launch(
+            nodes, vic, pod, feas_static, order_rank, offset, n_real,
+            check_resources, has_request, max_prio)
+
+
+# ---- K14b shard_preempt_select -----------------------------------------------
+def shard_preempt_select_plain(gathered, P: int) -> torch.Tensor:
+    """K14b plain: the replicated pick of `sharded_preempt_fn`
+    (sharding.py:354) over the gathered [D, bytes] candidate records —
+    `_pick_one_node` (kernels.py:1570) and `_preempt_scan_core`'s packing
+    (:1598): [winner, its victim count, its PDB-violation count, its P
+    slot flags] int32."""
+    winner, nv, viol, flags, _res = _pick_records_plain(gathered, 0, P)
+    head = torch.tensor([winner, _wrap32(nv), _wrap32(viol)], dtype=I32)
+    return torch.cat([head, flags]).to(gathered.device)
+
+
+_SPS_INTS = ("D", "chunk", "P")
+_SPS_PTRS = ("gathered", "out")
+
+
+def shard_preempt_select(gathered, P: int) -> torch.Tensor:
+    """K14b on one device, over its [D, bytes] gathered records. CPU ->
+    the plain version; CUDA -> `csrc/shard_preempt_select.cu`."""
+    if not gathered.is_cuda:
+        return shard_preempt_select_plain(gathered, P)
+    dev = gathered.device
+    D, chunk = (int(x) for x in gathered.shape)
+    if chunk != cand_record_bytes(P) or gathered.dtype != torch.uint8:
+        raise ValueError("shard_preempt_select: records are not "
+                         f"[D, {cand_record_bytes(P)}] uint8")
+    with _on(dev):
+        out = torch.empty(3 + int(P), dtype=I32, device=dev)
+        ptrs = {"gathered": gathered.contiguous(), "out": out}
+        _launch("shard_preempt_select",
+                *_launch_arrays({"D": D, "chunk": chunk, "P": int(P)},
+                                _SPS_INTS, ptrs, _SPS_PTRS,
+                                "shard_preempt_select"))
+    return out
+
+
+# ---- K13a shard_pressure_local ----------------------------------------------
+def shard_pressure_local_plain(sh: ScanShard, side: ScanSide,
+                               plan: ScanPlan) -> None:
+    """K13a plain: the local step of `sharded_pressure_fn` (sharding.py
+    :330) on one shard. Folds the previous step's outcome the shard owns
+    (a bind into its rows, `_fold_state`, kernels.py:549; a nomination
+    into its ghost load); then, unless past the window, for pod row[t]:
+    the ghost-aware filter and row-local scores into K9a's record and
+    whether an in-range row's first failure is resolvable (not for a skip
+    pod), and on the same rows the victim walk with the pod's slot mask,
+    the ghost and its static masks (`_pressure_core`, :1690), reduced to
+    the candidate record (keyed by the global row)."""
+    nodes, st, tab = sh.nodes, side.st, sh.tab
+    dev, rows = sh.device, sh.rows
+    t = int(st[SS_NEXT])
+    fr = int(st[SS_FOLD_ROW])
+    delta = {k: tab[k][fr] for k in ("upd_cpu", "upd_mem", "upd_eph",
+                                     "upd_scalar", "nz_cpu", "nz_mem")}
+    fold = int(st[SS_FOLD_SEL]) - sh.offset
+    if 0 <= fold < rows:
+        _fold_state_plain(nodes, delta, fold)
+    g = int(st[SS_GHOST_SEL]) - sh.offset
+    if 0 <= g < rows:
+        for k in ("cpu", "mem", "eph"):
+            sh.ghost[k][g] += delta["upd_" + k]
+        sh.ghost["cnt"][g] += 1
+    if t >= plan.n_steps:
+        return
+    r = int(side.row[t])
+    pod = {k: v[r] for k, v in tab.items()}
+    idx = torch.arange(rows, dtype=I64, device=dev) + sh.offset
+    in_range = idx < plan.n_real
+    any_res = False
+    if not int(sh.scal[r, _SC_SKIP]):
+        feasible, ff, bits = _feasibility_plain(nodes, pod, ghost=sh.ghost)
+        vals = {"local": _local_scores_plain(nodes, pod, plan.weights),
+                "zone": nodes["zone_id"], "feas": feasible & in_range}
+        for k, f in _REC_FIELD.items():
+            if k in plan.planes:
+                vals[k] = pod[f]
+        sh.rec[: plan.cand_off].copy_(
+            _pack_record(vals, plan.planes, rows, dev))
+        any_res = bool((in_range & _resolvable_candidates_plain(
+            ff, bits)).any())
+    feas_stat = in_range & nodes["valid"]
+    for key in _PRESSURE_MASKS:
+        feas_stat = feas_stat & pod[key].to(torch.bool)
+    feas_stat = feas_stat & (pod["interpod_code"] == 0)
+    valid_k = sh.vic["valid"] & (sh.vic["prio"] < int(tab["pprio"][r]))
+    feas0, victims, agg = _victim_select_plain(
+        nodes, sh.vic, valid_k, pod["req_cpu"], pod["req_mem"],
+        pod["req_eph"], sh.ghost, feas_stat, pod["check_resources"],
+        pod["has_request"])
+    sh.rec[plan.cand_off:].copy_(_shard_candidate_plain(
+        feas0, victims, agg, idx, sh.offset, any_res))
+
+
+def shard_pressure_local(sh: ScanShard, side: ScanSide,
+                         plan: ScanPlan) -> None:
+    """K13a on one shard, `side` the wave's replicated half on the
+    shard's device. CPU tensors -> the plain version; CUDA tensors ->
+    `csrc/shard_pressure_local.cu` on that device."""
+    if not sh.nodes["valid"].is_cuda:
+        return shard_pressure_local_plain(sh, side, plan)
+    _scan_step_launch("shard_pressure_local", sh, lambda: _scan_local_args(
+        "shard_pressure_local", sh, side, plan))
+
+
+# ---- K13b shard_pressure_select ---------------------------------------------
+def shard_pressure_select_plain(side: ScanSide, plan: ScanPlan) -> None:
+    """K13b plain: one step of `_pressure_core` (kernels.py:1690) in the
+    replicated state of `sharded_pressure_fn` (sharding.py:330): K9b's
+    cycle of pod b over the gathered records (a skip pod takes
+    `_skip_cycle`), the pick over the D candidate records by axis order,
+    `any_cand`, the packed [5+P] row b, and the step state (li, lni, the
+    bind or ghost fold the shards owe)."""
+    st = side.st
+    b = int(st[SS_STEP])
+    if b >= plan.n_steps:
+        return
+    li, lni = int(st[SS_LI]), int(st[SS_LNI])
+    r = int(side.row[b])
+    skip = bool(int(side.scal[r, _SC_SKIP]))
+    if skip:
+        out = _skip_cycle(li, lni, plan.n_real)
+    else:
+        out = _select_cycle_plain(side, plan, b, r, li, lni, b)
+    winner, _nv, _viol, flags, any_res = _pick_records_plain(
+        side.gathered, plan.cand_off, plan.vic_P)
+    sel, hit = out["selected"], out["found"] > 0
+    preempted = not hit and not skip and winner >= 0
+    nli, nlni = out["next_last_index"], out["next_last_node_index"]
+    head = [sel if hit else -1, -2 if hit else (-1 if skip else winner),
+            int(any_res and not hit and not skip), _wrap32(nli),
+            _wrap32(nlni - lni)]
+    side.packed[b, :len(PRESSURE_HEAD)] = torch.tensor(head, dtype=I32)
+    side.packed[b, len(PRESSURE_HEAD):] = flags
+    vals = {SS_STEP: b + 1, SS_NEXT: b + 1, SS_LI: nli, SS_LNI: nlni,
+            SS_FOLD_SEL: sel if hit else -1, SS_FOLD_ROW: r,
+            SS_GHOST_SEL: winner if preempted else -1}
+    for k, v in vals.items():
+        st[k] = v
+
+
+def shard_pressure_select(side: ScanSide, plan: ScanPlan) -> None:
+    """K13b on one device over its gathered records. CPU -> the plain
+    version; CUDA -> `csrc/shard_pressure_select.cu`."""
+    if not side.gathered.is_cuda:
+        return shard_pressure_select_plain(side, plan)
+    _scan_step_launch("shard_pressure_select", side,
+                      lambda: _scan_select_args("shard_pressure_select",
                                                 side, plan))

@@ -1,8 +1,8 @@
 """Node-axis sharding of the port: a single-controller mesh over a list of
 torch devices, per-shard slices of the node matrix and the pod inputs,
 the all-gather, and the sharded programs the scheduler runs: the serial
-cycle, the uniform K-batch burst, the generic scan and the fused drain
-window.
+cycle, the uniform K-batch burst, the generic scan, the fused drain
+window, the victim scan of one preemptor and the pressure wave.
 
 Counterpart of `kubernetes_tpu/parallel/sharding.py`. There GSPMD splits
 one jitted program over a `jax.sharding.Mesh` and inserts the
@@ -13,18 +13,20 @@ device (the JAX mesh is single-controller too):
   matrix, on `mesh.devices[s]`; devices may repeat (`["cuda:0"] * 4` runs
   four shards on one card, `["cpu"] * 4` is what the CPU tests use);
 - a shard-local kernel (K9a for the cycle, K9c for a uniform pass, K10a
-  / K11a for a step of the scan / fused window) runs on each shard's own
-  device over its rows and writes a small per-row record;
+  / K11a / K13a for a step of the scan / fused window / pressure wave,
+  K14a for a victim scan) runs on each shard's own device over its rows
+  and writes a small per-row record (K13a and K14a also reduce their
+  rows' victim scan to one candidate record per shard);
 - `all_gather` copies every shard's record into a replicated [D, bytes]
   buffer on each distinct device (a peer copy between cards, an on-device
   copy on one card), each copy ordered after its producer by a CUDA
   event;
-- a replicated select (K9b, K9d, K10b, K11b) runs on every distinct
-  device over the gathered records, so every device reaches the same
-  decision. The scans keep their step state (step index, li / lni, the
-  fold the shards owe, the gang checkpoint) on each device, so the host
-  enqueues every step with the same arguments and reads nothing until
-  the window's one fetch.
+- a replicated select (K9b, K9d, K10b, K11b, K13b, K14b) runs on every
+  distinct device over the gathered records, so every device reaches the
+  same decision. The scans keep their step state (step index, li / lni,
+  the fold the shards owe, the gang checkpoint) on each device, so the
+  host enqueues every step with the same arguments and reads nothing
+  until the window's one fetch.
 
 A field whose node axis does not split (an inert `[1]` pod field, a
 scalar) is replicated, as JAX's `_put_by_keys` does. Decisions, packed
@@ -229,13 +231,15 @@ def _weight_rows(mesh: Mesh, weights, wtab, pid) -> dict:
 
 def sharded_cycle(mesh: Mesh, nodes, pod: dict, last_index, last_node_index,
                   num_to_find, n_real, z_pad, weights=None, wtab=None,
-                  perm=None, inv_perm=None, pos=None) -> dict:
+                  perm=None, inv_perm=None, pos=None, ghost=None) -> dict:
     """`sharded_cycle_fn` (sharding.py:115): one scheduling cycle with the
     node axis split over the mesh. K9a on every shard (filter, row-local
     scores, the record), the all-gather, K9b on every distinct device
-    (walk, kept-set normalizations, select). Returns the JAX output dict;
-    its per-node tensors are whole [n_pad] vectors on the first device.
-    Books `gather.cycle` (bytes)."""
+    (walk, kept-set normalizations, select). `ghost` ({cpu, mem, eph,
+    cnt} of whole [n_pad] vectors, one such dict per shard, or None) is
+    the nominated load each shard's filter adds to its rows. Returns the
+    JAX output dict; its per-node tensors are whole [n_pad] vectors on the
+    first device. Books `gather.cycle` (bytes)."""
     weights = weights or K.DEFAULT_WEIGHTS
     shards = _as_shards(mesh, nodes)
     n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
@@ -243,8 +247,10 @@ def sharded_cycle(mesh: Mesh, nodes, pod: dict, last_index, last_node_index,
     planes = K.cycle_record_planes(pod, weights)
     pods = shard_pod_arrays(mesh, pod)
     wrow = _weight_rows(mesh, weights, wtab, pod.get("profile_id", 0))
+    ghosts = [None] * mesh.size if ghost is None \
+        else _row_shards(mesh, ghost, rows, K.GHOST_FIELDS)
     local = [K.shard_cycle_local(sh, pd, s * rows, n_real, weights, planes,
-                                 wrow=wrow[dev])
+                                 wrow=wrow[dev], ghost=ghosts[s])
              for s, (sh, pd, dev) in enumerate(zip(shards, pods,
                                                    mesh.devices))]
     gathered, nbytes = all_gather(mesh, [r[3] for r in local])
@@ -405,12 +411,16 @@ def _per_shard(mesh: Mesh, v, rows: int) -> list:
 def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
                  num_to_find, n_real, z_pad, weights, rotation, rotation_pos,
                  spread0, carry_in, wtab, n_steps=None, segments=None,
-                 gang_score=False):
+                 gang_score=False, pressure=None):
     """The shards, the per-device replicated halves and the plan of one
     sharded scan (`segments` None) or segments window (`segments` =
-    (seg_start, gang), `n_steps` = n_pods): every tensor a step reads,
-    uploaded once. Returns (ScanShard list, {device: ScanSide}, ScanPlan,
-    the number of steps the host enqueues)."""
+    (seg_start, gang), `n_steps` = n_pods) or pressure wave (`pressure` =
+    {"ghost": per-shard ghost slices, "vic": per-shard victim planes, "P":
+    victim slots, "out": the packed [B, 5+P] block on the first device}):
+    every tensor a step reads, uploaded once. last_index / last_node_index
+    may be device scalars (a previous wave chunk's), copied into the step
+    state on the device. Returns (ScanShard list, {device: ScanSide},
+    ScanPlan, the number of steps the host enqueues)."""
     shards = _as_shards(mesh, nodes)
     D = mesh.size
     n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
@@ -449,7 +459,6 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
         if carry_spread else table, weights)
     if gang_score and "zone" not in planes:
         planes += ("zone",)     # a placed member's zone feeds gz
-    _off, nbytes = K.record_layout(planes, rows)
     if wtab is not None and stack.profile_id is None:
         stack = K.PodStack(table, stack.row, np.zeros(B, np.int64),
                            skip=stack.skip_flags())
@@ -461,7 +470,9 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
         P=0 if wtab is None else int(np.shape(wtab)[0]),
         carry_spread=carry_spread, gang_score=bool(gang_score),
         ipa_on=bool(weights["interpod"]) and K.cycle_ipa_on(table),
-        planes=planes, weights=weights)
+        planes=planes, weights=weights, pressure=pressure is not None,
+        vic_P=0 if pressure is None else int(pressure["P"]))
+    nbytes = plan.record_bytes
     tables, row, prof = shard_pod_stack(mesh, stack)
     scan = []
     for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
@@ -473,21 +484,30 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
             chk = {k: mine[k].clone() for k in K._MUTABLE}
             if carry_spread:
                 chk["spread"] = spreads[s].clone()
+        ghost = vic = None
+        if pressure is not None:
+            ghost = {k: v.to(dev, K.I64).clone().contiguous()
+                     for k, v in pressure["ghost"][s].items()}
+            vic = pressure["vic"][s]
         scan.append(K.ScanShard(s * rows, mine, spreads[s], tables[s], chk,
-                                nbytes))
+                                nbytes, ghost=ghost, vic=vic))
     # the step the first local launch computes: the first live pod of a
     # scan (the select decides the skip pods before it), step 0 of a
-    # segments window
+    # segments window or a pressure wave (every pod a step)
+    every_pod = segments is not None or pressure is not None
     live = ~stack.skip_flags()[stack.row]
     first = 0
-    if segments is None:
+    if not every_pod:
         first = int(np.argmax(live)) if live.any() else B
-    li = int(np.asarray(K._host(last_index)))
-    lni = int(np.asarray(K._host(last_node_index)))
     st0 = np.zeros(K.SS_COUNT, np.int64)
-    st0[[K.SS_LI, K.SS_CHK_LI]] = li
-    st0[[K.SS_LNI, K.SS_LNI0, K.SS_CHK_LNI]] = lni
-    st0[K.SS_FOLD_SEL] = -1
+    on_dev = {}
+    for slots, v in (((K.SS_LI, K.SS_CHK_LI), last_index),
+                     ((K.SS_LNI, K.SS_LNI0, K.SS_CHK_LNI), last_node_index)):
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            on_dev[slots] = v.to(K.I64).reshape(1)
+        else:
+            st0[list(slots)] = int(np.asarray(K._host(v)))
+    st0[[K.SS_FOLD_SEL, K.SS_GHOST_SEL]] = -1
     st0[K.SS_NEXT] = first
     wtabs = _replicas(mesh, wtab, K.I64)
     seg = gng = {d: None for d in mesh.distinct}
@@ -509,14 +529,22 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
             "kept": torch.empty(n_pad, dtype=torch.uint8, device=d),
             "flags": torch.empty(2 * n_pad, dtype=K.I32, device=d),
             "zs": torch.empty(2 * z_pad, dtype=K.I64, device=d)}
-        if segments is None:
+        stats = None
+        if pressure is not None:
+            packed = pressure["out"] if d == mesh.devices[0] else \
+                torch.empty_like(pressure["out"], device=d)
+        elif segments is None:
             packed = torch.empty(3 * B, dtype=K.I32, device=d)
             stats = torch.empty((5, B), dtype=K.I64, device=d)
         else:
             packed = torch.full((4 * B,), -1, dtype=K.I32, device=d)
-            stats = None
+        st = K._upload(st0, d)
+        with K._on(d):
+            for slots, v in on_dev.items():
+                for slot in slots:
+                    st[slot: slot + 1].copy_(v.to(d))
         sides[d] = K.ScanSide(
-            st=K._upload(st0, d), row=row[d], prof=prof[d] if wtab
+            st=st, row=row[d], prof=prof[d] if wtab
             is not None else None, wtab=wtabs[d],
             w=K._weight_row(weights, None, d), scal=K.scan_scalars(tab),
             ic_b=tab["interpod_counts"].to(K.I64)[:, :1].contiguous(),
@@ -526,7 +554,7 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
             if gang_score else None,
             gathered=torch.zeros((D, nbytes), dtype=torch.uint8, device=d),
             packed=packed, stats=stats, scratch=scratch)
-    if segments is not None:
+    if every_pod:
         steps = plan.n_steps
     else:
         steps = max(int(np.count_nonzero(live)), 1) if B else 0
@@ -641,3 +669,124 @@ def sharded_batch(mesh: Mesh, nodes, pods, last_index, last_node_index,
         mesh, nodes, pods, last_index, last_node_index, num_to_find, n_real,
         z_pad, weights=weights)
     return state, li, lni, outs
+
+
+def _vic_shards(mesh: Mesh, vic) -> list:
+    """Victim planes per shard: `vic` whole (split here) or one dict per
+    shard (each on its shard's device)."""
+    if isinstance(vic, dict):
+        return shard_victim_planes(mesh, vic)
+    shards = list(vic)
+    if len(shards) != mesh.size:
+        raise ValueError(f"{len(shards)} victim shards for a mesh of "
+                         f"{mesh.size}")
+    for sh, dev in zip(shards, mesh.devices):
+        K._require_on("victim planes", dev, *sh.values())
+    return shards
+
+
+def shard_victim_planes(mesh: Mesh, planes: dict) -> list:
+    """`shard_victim_planes` (sharding.py:374): the resident [N, P] victim
+    planes (numpy or tensors, the kernels' keys) with the node axis split
+    like the node matrix, one dict per shard on its device, in the
+    kernels' dtypes."""
+    n_pad = int(np.shape(planes["prio"])[0])
+    rows = mesh.rows(n_pad)
+    return [K._vic_tensors({k: v[s * rows: (s + 1) * rows]
+                            for k, v in planes.items()}, dev)
+            for s, dev in enumerate(mesh.devices)]
+
+
+def sharded_preempt(mesh: Mesh, nodes, vic, pod: dict, feas_static,
+                    order_rank, n_real, check_resources, has_request,
+                    max_prio) -> torch.Tensor:
+    """`sharded_preempt_fn` (sharding.py:354): one preemptor's victim scan
+    with the node rows, the victim planes, `feas_static` and `order_rank`
+    split over the mesh. K14a on every shard (the victim walk of its rows,
+    reduced to its candidate record), the all-gather of the D records, and
+    K14b on every distinct device (the pick among them). Returns the
+    packed [3+P] int32 block of `K.preemption_scan` on the first device.
+    Books `gather.preempt` (bytes)."""
+    shards = _as_shards(mesh, nodes)
+    vics = _vic_shards(mesh, vic)
+    n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
+    rows = mesh.rows(n_pad)
+    P = int(vics[0]["prio"].shape[1])
+    feas = _per_shard(mesh, np.asarray(K._host(feas_static)), rows)
+    rank = _per_shard(mesh, np.asarray(K._host(order_rank)), rows)
+    recs = [K.shard_preempt_local(sh, vc, pod, fs.to(torch.bool), rk,
+                                  s * rows, n_real, check_resources,
+                                  has_request, max_prio)
+            for s, (sh, vc, fs, rk) in enumerate(zip(shards, vics, feas,
+                                                     rank))]
+    gathered, nbytes = all_gather(mesh, recs)
+    obs.inc("gather.preempt", nbytes)
+    out = {d: K.shard_preempt_select(gathered[d], P) for d in mesh.distinct}
+    return out[mesh.devices[0]]
+
+
+def _row_shards(mesh: Mesh, rows_in, rows: int, keys) -> list:
+    """Per-shard dicts of `keys`: `rows_in` a whole dict of [n_pad, ...]
+    rows (split here) or one dict per shard."""
+    if isinstance(rows_in, dict):
+        return [{k: _to(rows_in[k][s * rows: (s + 1) * rows], dev)
+                 for k in keys} for s, dev in enumerate(mesh.devices)]
+    shards = list(rows_in)
+    if len(shards) != mesh.size:
+        raise ValueError(f"{len(shards)} row shards for a mesh of "
+                         f"{mesh.size}")
+    return shards
+
+
+def sharded_pressure(mesh: Mesh, nodes, mut0, ghost0, pods, vic, last_index,
+                     last_node_index, num_to_find, n_real, z_pad,
+                     weights=None, out=None):
+    """`sharded_pressure_fn` (sharding.py:330): the schedule-else-preempt
+    wave (K8) with the mutable rows, the nominated-ghost load and the
+    victim planes split over the mesh. One step per pod, skip pods
+    included: K13a on every shard (fold the previous outcome it owns,
+    the ghost-aware filter record, the victim walk reduced to a candidate
+    record), the all-gather, K13b on every distinct device (the cycle's
+    select, the pick over the D candidate records, the packed row, the
+    step state); then K13a once more for the last fold. The signature and
+    returns of `K.pressure_batch`: `mut0` / `ghost0` / `vic` whole dicts or
+    one dict per shard, last_index / last_node_index ints or the previous
+    chunk's device scalars; returns (one dict of folded rows per shard,
+    one ghost dict per shard, li, lni, outs) with li, lni and the packed
+    [B, 5+P] block (`out` when given) on the first device. No host read
+    until the caller fetches the block. Books `gather.pressure` (bytes)
+    and `steps.pressure`."""
+    weights = weights or K.DEFAULT_WEIGHTS
+    shards = _as_shards(mesh, nodes)
+    n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
+    rows = mesh.rows(n_pad)
+    d0 = mesh.devices[0]
+    stack = pods if isinstance(pods, K.PodStack) \
+        else K.PodStack.from_dense(pods, d0)
+    if "pprio" not in stack.table:
+        raise ValueError("sharded_pressure: the pods carry no pprio")
+    vics = _vic_shards(mesh, vic)
+    P = int(vics[0]["prio"].shape[1])
+    B = len(stack)
+    width = len(K.PRESSURE_HEAD) + P
+    if out is None:
+        out = torch.empty((B, width), dtype=K.I32, device=d0)
+    if tuple(out.shape) != (B, width) or out.dtype != K.I32 \
+            or not out.is_contiguous() or out.device != d0:
+        raise ValueError("sharded_pressure: out must be a contiguous "
+                         f"[{B}, {width}] int32 tensor on {d0}")
+    muts = _row_shards(mesh, mut0, rows, K._MUTABLE)
+    ghosts = _row_shards(mesh, ghost0, rows, K.GHOST_FIELDS)
+    scan, sides, plan, steps = _scan_window(
+        mesh, shards, stack, last_index, last_node_index, num_to_find,
+        n_real, z_pad, weights, None, None, None, (muts, None), None,
+        n_steps=B, pressure={"ghost": ghosts, "vic": vics, "P": P,
+                             "out": out})
+    nbytes = _run_steps(mesh, scan, sides, plan, steps,
+                        K.shard_pressure_local, K.shard_pressure_select)
+    obs.inc("gather.pressure", nbytes)
+    obs.inc("steps.pressure", steps)
+    side = sides[d0]
+    return (_scan_rows(scan), [sh.ghost for sh in scan],
+            side.st[K.SS_LI].clone(), side.st[K.SS_LNI].clone(),
+            K._pressure_outs(out))

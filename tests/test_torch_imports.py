@@ -30,6 +30,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kubernetes_tpu_torch.profiles" in mods
     assert "kubernetes_tpu_torch.oracle.preemption" in mods
     assert "kubernetes_tpu_torch.parallel.sharding" in mods
+    # the sharded preemption programs live in the walked modules
+    from kubernetes_tpu_torch.parallel import sharding
+    for fn in ("shard_victim_planes", "sharded_preempt",
+               "sharded_pressure"):
+        assert callable(getattr(sharding, fn)), fn
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -62,7 +67,9 @@ def test_kernel_sources_exist_for_every_kernel():
     assert set(_build.NAMES) >= {
         "shard_cycle_local", "shard_cycle_select", "shard_uniform_sweep",
         "shard_uniform_select", "shard_scan_local", "shard_scan_select",
-        "shard_segments_local", "shard_segments_select"}
+        "shard_segments_local", "shard_segments_select",
+        "shard_preempt_local", "shard_preempt_select",
+        "shard_pressure_local", "shard_pressure_select"}
     for name in _build.NAMES:
         assert (_build.CSRC / f"{name}.cu").exists(), name
         # every kernel source includes only the package's own headers
@@ -115,11 +122,23 @@ def test_launch_slot_tables_match_the_kernel_enums():
     preempt = (_build.CSRC / "preempt_scan.cu").read_text()
     assert len(_enum_slots(preempt, "PP_COUNT")) == len(PK._PREEMPT_PTRS)
     assert len(_enum_slots(preempt, "PI_COUNT")) == 9
+    # K9a's nominated-ghost slots (the serial cycle's two-pass fit): the
+    # last four of its pointer table and of its C enum
+    local = (_build.CSRC / "shard_cycle_local.cu").read_text()
+    assert PK._SCL_PTRS[-4:] == ("ghost_cpu", "ghost_mem", "ghost_eph",
+                                 "ghost_cnt")
+    assert _enum_slots(local, "LP_COUNT")[-4:] == [
+        "LP_GHOST_CPU", "LP_GHOST_MEM", "LP_GHOST_EPH", "LP_GHOST_CNT"]
+    # the candidate record of the sharded pick (victim.cuh `CR_*`)
+    victim = (_build.CSRC / "victim.cuh").read_text()
+    assert _enum_slots(victim, "CR_I64") == [
+        "CR_" + k.upper() for k in PK.CAND_SLOTS]
 
 
-# the mesh kernels K9a-d, K10a/b and K11a/b: (source holding the enums,
-# the C enum's last slot of the scalar table, of the pointer table, the
-# enum prefixes, host tables); K10 and K11 share `shard_scan.cuh`'s
+# the mesh kernels K9a-d, K10a/b, K11a/b, K13a/b and K14a/b: (source
+# holding the enums, the C enum's last slot of the scalar table, of the
+# pointer table, the enum prefixes, host tables); K10, K11 and K13 share
+# `shard_scan.cuh`'s
 _MESH_SLOTS = [
     ("shard_cycle_local.cu", "CL_COUNT", "LP_COUNT", "CL_", "LP_",
      "_SCL_INTS", "_SCL_PTRS"),
@@ -133,11 +152,16 @@ _MESH_SLOTS = [
      "_SSL_INTS", "_SSL_PTRS"),
     ("shard_scan.cuh", "SSI_COUNT", "SSP_COUNT", "SSI_", "SSP_",
      "_SSS_INTS", "_SSS_PTRS"),
+    ("shard_preempt_local.cu", "PLI_COUNT", "PLP_COUNT", "PLI_", "PLP_",
+     "_SPL_INTS", "_SPL_PTRS"),
+    ("shard_preempt_select.cu", "PSI_COUNT", "PSP_COUNT", "PSI_", "PSP_",
+     "_SPS_INTS", "_SPS_PTRS"),
 ]
 
 
 def test_mesh_launch_slot_tables_match_the_kernel_enums():
-    """K9a-d, K10a/b, K11a/b: the host's scalar and pointer slot tables
+    """K9a-d, K10a/b, K11a/b, K13a/b, K14a/b: the host's scalar and
+    pointer slot tables
     name the kernels' C enum slots one to one, in order (the enum spells
     the host name in capitals after its prefix, short forms aside)."""
     from kubernetes_tpu_torch.ops import _build
@@ -168,7 +192,8 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
     steps = _enum_slots(scan, "SS_COUNT")
     assert steps == ["SS_STEP", "SS_NEXT", "SS_LI", "SS_LNI", "SS_LNI0",
                      "SS_FOLD_SEL", "SS_FOLD_ROW", "SS_REWIND", "SS_T",
-                     "SS_CHK_T", "SS_CHK_LI", "SS_CHK_LNI", "SS_FAILED"]
+                     "SS_CHK_T", "SS_CHK_LI", "SS_CHK_LNI", "SS_FAILED",
+                     "SS_GHOST_SEL"]
     assert [getattr(PK, s) for s in steps] == list(range(len(steps)))
     assert PK.SS_COUNT == len(steps)
     # the local kernels' checkpoint slots follow `_MUTABLE`

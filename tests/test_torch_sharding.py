@@ -387,30 +387,51 @@ def test_mesh_carry_from_jax():
 
 @pytest.mark.parametrize("entry", ["preempt", "pressure", "prewarm"])
 def test_mesh_mode_refuses_unsharded_paths(entry):
-    """Device preemption is not sharded yet: in mesh mode its entry points
-    raise NotImplementedError naming ROADMAP B9, count no refusal and
-    launch nothing."""
+    """Device preemption is sharded (K13, K14): in mesh mode each entry
+    point runs its sharded program on a 2-shard mesh instead of raising
+    NotImplementedError, counts no refusal, and equals the single-device
+    port. (On the CPU the sharded programs run the kernels' plain
+    versions: their gather and step counters show they ran.)"""
+    from tests.test_torch_preempt import (
+        _norm, _pressure_world, _world_basic, port_infos)
     from kubernetes_tpu_torch.oracle.generic_scheduler import FitError
-    t = Trio(burst_nodes(8))
-    port = TorchScheduler(node_tree=t.w.p_tree, device="cpu",
+    mesh = TorchScheduler(percentage_of_nodes_to_score=100, device="cpu",
                           mesh=PS.Mesh(["cpu"] * 2))
-    names = t.w.names()
-    pods = [to_port(p) for p in uniform_pods(3) + uniform_pods(
-        3, cpu=200, prefix="b")]
-    refusals, launches = obs.family("refusal"), PK.launches()
-    calls = {
-        "preempt": lambda: port.preempt(pods[0], t.w.p_infos, names,
-                                        FitError(pods[0], 8, {}), []),
-        "pressure": lambda: port.preempt_pressure_burst(
-            pods, t.w.p_infos, names, []),
-        "prewarm": lambda: port.prewarm_preempt(t.w.p_infos, names, []),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP B9"):
-        calls[entry]()
-    assert obs.family("refusal") == refusals
-    launched = {k: v - launches[k] for k, v in PK.launches().items()}
-    assert not any(v for k, v in launched.items()
-                   if k not in ("local_total", "scatter_rows"))
+    single = TorchScheduler(percentage_of_nodes_to_score=100, device="cpu")
+    obs.reset()
+    if entry == "preempt":
+        infos, names, inc, pdbs = _world_basic()
+        got = [s.preempt(to_port(inc), port_infos(infos), names,
+                         FitError(to_port(inc), len(names), {
+                             n: ["InsufficientResource:cpu"]
+                             for n in names}), to_port(pdbs))
+               for s in (mesh, single)]
+        assert got[0].node is not None
+        assert got[0].node.name == got[1].node.name
+        assert sorted(v.name for v in got[0].victims) == \
+            sorted(v.name for v in got[1].victims)
+        assert obs.get("gather.preempt") > 0
+    elif entry == "pressure":
+        pods, infos, names, pdbs = _pressure_world("mixed bind and preempt")
+        got = [s.preempt_pressure_burst([to_port(p) for p in pods],
+                                        port_infos(infos), names,
+                                        to_port(pdbs))
+               for s in (mesh, single)]
+        assert _norm(got[0]) == _norm(got[1])
+        assert obs.get("steps.pressure") == 8     # one 8-pod bucket
+        assert isinstance(mesh._dev_nodes, list)
+        assert (mesh.last_index, mesh.last_node_index) == \
+            (single.last_index, single.last_node_index)
+    else:
+        infos, names, _inc, _pdbs = _world_basic()
+        mesh.prewarm_preempt(port_infos(infos), names, [])
+        assert obs.get("dispatch.vic_upload") == 1
+        vt = mesh.encoder._vt
+        assert len(mesh._dev_vic) == 2
+        for k, f in mesh._VIC_FIELDS:
+            whole = torch.cat([d[k] for d in mesh._dev_vic])
+            np.testing.assert_array_equal(whole.numpy(), getattr(vt, f))
+    assert obs.family("refusal") == {}
 
 
 def test_mesh_auto_without_cards_stays_single_device():
