@@ -11,16 +11,20 @@
    shard_cycle_local, K9b shard_cycle_select, K9c shard_uniform_sweep,
    K9d shard_uniform_select, K10a shard_scan_local, K10b
    shard_scan_select, K11a shard_segments_local, K11b
-   shard_segments_select) equal to its plain PyTorch version on the
-   card, at the main paths' shapes (n_pad 16,384; K5 and K6 on whole
-   10,000-pod windows, K8 on a 128-pod chunk of preempt-wave, K7 on a
-   preempt-single round, K9a-d on their first call of the mesh path,
-   K10a/b and K11a/b on the first step of mesh-scan-default and
-   mesh-fused), times both, and holds every kernel mode against the
-   plain version on random inputs (K7/K8 at P 16 and 128, K4 on the
-   victim planes, K9a-d on 1, 2 and 4 shards with every cycle mode and
-   every K3 case, K10a-K11b on 1, 2 and 4 shards in every scan and
-   segments mode).
+   shard_segments_select, K13a shard_pressure_local, K13b
+   shard_pressure_select, K14a shard_preempt_local, K14b
+   shard_preempt_select) equal to its plain PyTorch version on the
+   card, at the main paths' shapes (n_pad 16,384; K5 and K6 on a
+   window's first 1,024 pods, K8 on a 128-pod chunk of preempt-wave, K7
+   on a preempt-single round, K9a-d on their first call of the mesh
+   path, K10a/b, K11a/b and K13a/b on the first step of
+   mesh-scan-default, mesh-fused and mesh-preempt-wave, K14a/b on the
+   first mesh-preempt-single round), times both, and holds every kernel
+   mode against the plain version on random inputs (K7/K8 at P 16 and
+   128, K4 on the victim planes, K9a-d on 1, 2 and 4 shards with every
+   cycle mode and every K3 case, K10a-K11b on 1, 2 and 4 shards in every
+   scan and segments mode, K13a-K14b on 1, 2 and 4 shards at P 16 and
+   128, K2 and K9a/b with a nominated ghost).
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
@@ -56,7 +60,17 @@
      TorchScheduler(mesh=Mesh(["cuda"] * 4)), one step per pod, each
      whole window held against the single-device K5/K6 run of the same
      world in the same call: every decision, the serial tail, the walk
-     counters, the packed block, li, lni and the folded rows.
+     counters, the packed block, li, lni and the folded rows;
+   - mesh-preempt-wave (K13a/b): the preempt-wave world and queue on
+     four shards of the card, held against the single-device K8 wave of
+     the same call (outcomes, victims, counters, folded rows, and every
+     chunk's ghost, li, lni and packed block);
+   - mesh-preempt-single (K14a/b, with K9a/b and K4): 8 more rounds on
+     the world preempt-single leaves, each K14 block held against the
+     single-device K7 block of the same rows and planes;
+   - mesh-nominated-serial (C1: K9a/b with each shard's ghost slice): 8
+     serial cycles while 13,000 nominees hold nodes, held against the
+     single-device K2 run with the same ghost.
    Launch counts are zeroed just before each path and read just after;
    each path's kernels must have run and no window may be refused.
    Decisions, walk counters and folded rows must equal the plain path on
@@ -68,11 +82,12 @@
 
 With `--cards` (a host of several cards) it builds the kernels and runs
 only the mesh phase, one shard per card, so the all-gather's copies are
-peer copies between the cards: K9a-d and K10a-K11b against their plain
-versions on meshes of all the cards and of the first two, mesh-uniform
-at 15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
+peer copies between the cards: K13a-K14b, K9a-d and K10a-K11b against
+their plain versions on meshes of all the cards and of the first two,
+mesh-preempt-wave, four mesh-preempt-single rounds, mesh-uniform at
+15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
 mesh-fused, each held against the single-device run on the first card;
-its kernels line holds the mesh kernels K9a-K11b only.
+its kernels line holds the mesh kernels K9a-K14b only.
 
 Any mismatch or exception exits non-zero. Without a CUDA device it exits
 non-zero before printing any result. The last stdout line is

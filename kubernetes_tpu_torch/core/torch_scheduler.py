@@ -1736,7 +1736,7 @@ class TorchScheduler:
         """Mirror shape and epoch, walk counters, device, profiles, the
         victim table (slots, rows, generations, dirty rows, residency, and
         the encoder's rebuild and row re-sort counts), the mesh and its
-        device count, the launch count of every kernel (K1-K11) and the
+        device count, the launch count of every kernel (K1-K14b) and the
         refusals."""
         dev = self._dev_nodes
         mirror = None
