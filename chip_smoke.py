@@ -20,11 +20,18 @@
    path, K10a/b, K11a/b and K13a/b on the first step of
    mesh-scan-default, mesh-fused and mesh-preempt-wave, K14a/b on the
    first mesh-preempt-single round), times both, and holds every kernel
-   mode against the plain version on random inputs (K7/K8 at P 16 and
+   mode against the plain version on random inputs (K5 and K6, each one
+   thread-block cluster a window, in every mode on five cluster
+   geometries: blocks that own no node, a node axis that is not a
+   multiple of the cluster's span, li, winners and ties in different
+   blocks, S > 0, the rows in global memory; K7/K8 at P 16 and
    128, K4 on the victim planes, K9a-d on 1, 2 and 4 shards with every
    cycle mode and every K3 case, K10a-K11b on 1, 2 and 4 shards in every
    scan and segments mode, K13a-K14b on 1, 2 and 4 shards at P 16 and
-   128, K2 and K9a/b with a nominated ghost).
+   128, K2 and K9a/b with a nominated ghost). The K5 / K6 `[kernel]` and
+   `[variants]` lines print each launch's geometry: blocks of the
+   cluster, node slots a thread, rows resident in shared memory or not,
+   shared bytes a block, and how many such clusters the card holds.
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
@@ -679,31 +686,113 @@ def _spec(req_cpu, dense, rng, n_pad, s_count):
     return d
 
 
+#: the geometries K5 / K6 are held against their plain versions on, in
+#: every mode (name, n_pad, n_real, S, B, node set): the cluster's
+#: 16 x 1024 threads cover 16,384 slots, one a thread
+SCAN_GEOMETRIES = (
+    ("4,096 slots: blocks 4-15 own no node", 4096, 4000, 2, 256, None),
+    ("1,500 slots: less than one block's span", 1500, 1490, 2, 64, None),
+    ("20,000 slots: two a thread, not a multiple of the span", 20000,
+     19990, 3, 64, None),
+    ("3,000 slots: li, the winners and the ties in different blocks", 3000,
+     2990, 2, 48, "ties"),
+    ("40,000 slots: the rows in global memory", 40000, 39990, 2, 48, None),
+)
+
+
+def _tie_nodes(rng, n_pad, n_real, s_count, device):
+    """Full nodes (pod_count at allowed) but two identical groups: 6
+    in block 0 and 10 at the head of block 2, so that from li in block 1
+    the ties and the winners lie in other blocks than the walk start."""
+    import numpy as np
+    import torch
+    i64 = np.int64
+    pod_count = np.full(n_pad, 110, i64)
+    open_ = list(range(3, 9)) + list(range(2050, 2060))
+    pod_count[open_] = 0
+    host = {
+        "valid": np.arange(n_pad) < n_real,
+        "alloc_cpu": np.full(n_pad, 8000, i64),
+        "alloc_mem": np.full(n_pad, 32 * GI, i64),
+        "alloc_eph": np.full(n_pad, 50 * GI, i64),
+        "allowed_pods": np.full(n_pad, 110, i64),
+        "req_cpu": np.zeros(n_pad, i64), "req_mem": np.zeros(n_pad, i64),
+        "req_eph": np.zeros(n_pad, i64), "nz_cpu": np.zeros(n_pad, i64),
+        "nz_mem": np.zeros(n_pad, i64), "pod_count": pod_count,
+        "alloc_scalar": np.full((n_pad, s_count), 40, i64),
+        "req_scalar": rng.integers(0, 2, (n_pad, s_count)).astype(i64),
+        "zone_id": (np.arange(n_pad) % 3 + 1).astype(np.int32),
+    }
+    return {k: torch.as_tensor(v).to(device) for k, v in host.items()}
+
+
 def scan_variant_checks(device, sync):
     """K5 and K6 against their plain versions on random inputs, in every
-    mode: identity, perm and pos walks, the carried spread vector, a
-    weight table with per-pod profile ids, dense and inert fields mixed in
-    one window, skip padding, carry_in chaining; for K6 also gang rewinds,
-    a singleton failure, the rank-aware gang score and n_pods < B."""
+    mode, on every geometry of SCAN_GEOMETRIES (blocks that own no node, a
+    node axis that is not a multiple of the cluster's span, li, winners
+    and ties in different blocks, S > 0 scalar resources, the global-rows
+    variant): identity, perm and pos walks, the carried spread vector with
+    carry_in chaining, a weight table with per-pod profile ids, dense and
+    inert fields mixed in one window, skip padding; for K6 also gang
+    rewinds, a singleton failure, the rank-aware gang score and n_pods <
+    B."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import kernels as K
+    checked = 0
+    for gi, (label, n_pad, n_real, s_count, B, build) in enumerate(
+            SCAN_GEOMETRIES):
+        rng = np.random.default_rng(20261018 + gi)
+        K.last_geometry.clear()
+        checked += _scan_variants(device, rng, n_pad, n_real, s_count, B,
+                                  build, gi == 0)
+        geo = "; ".join(f"{k}: {describe_geometry(*v)}"
+                        for k, v in sorted(K.last_geometry.items()))
+        print(f"[variants] {label}: {geo}")
+    sync()
+    print(f"[variants] {checked} scan kernel calls equal to their plain "
+          f"versions over {len(SCAN_GEOMETRIES)} geometries (K5 identity, "
+          f"perm, pos, spread carry + carry_in, weight table; K6 axis, "
+          f"perm, pos, gang score + weight table, spread carry, n_pods < "
+          f"B; dense/inert mixes, skip padding, gang rewinds, a singleton "
+          f"failure)")
+
+
+def describe_geometry(plan, fit):
+    """A K5 / K6 launch's geometry as the [kernel] lines print it."""
+    rows = "resident in shared memory" if plan.resident \
+        else "in global memory"
+    from kubernetes_tpu_torch.ops import kernels as K
+    return (f"cluster of {plan.blocks} x {K.CLUSTER_THREADS} threads, "
+            f"{plan.nodes_per_thread} node slot(s) a thread, rows {rows}, "
+            f"{plan.smem_bytes} B of shared memory a block, {fit} such "
+            f"cluster(s) fit the card")
+
+
+def _scan_variants(device, rng, n_pad, n_real, s_count, B, build, first):
+    """One geometry's K5 / K6 cases; returns the calls checked."""
     import numpy as np
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
-    rng = np.random.default_rng(20261018)
-    n_pad, n_real, s_count, zones, B = 4096, 4000, 2, 6, 256
+    zones = 6
     checked = 0
 
     def same(name, got, want):
         nonlocal checked
         err = max_abs_err(got, want)
         if err != 0:
-            raise SystemExit(f"variant {name}: kernel disagrees with plain "
-                             f"(max_abs_err {err}; first difference "
-                             f"{first_diff(got, want)})")
+            raise SystemExit(f"variant {name} at n_pad {n_pad}: kernel "
+                             f"disagrees with plain (max_abs_err {err}; "
+                             f"first difference {first_diff(got, want)})")
         checked += 1
 
-    nodes = _rand_nodes(rng, n_pad, n_real, s_count, zones, device)
-    for k in ("req_cpu", "req_mem", "pod_count"):
-        nodes[k] = nodes[k] // 3        # room for the window's pods
+    if build == "ties":
+        nodes = _tie_nodes(rng, n_pad, n_real, s_count, device)
+        li, lni = 1600, 9        # li in block 1, the 10th of 16 ties
+    else:
+        nodes = _rand_nodes(rng, n_pad, n_real, s_count, zones, device)
+        for k in ("req_cpu", "req_mem", "pod_count"):
+            nodes[k] = nodes[k] // 3        # room for the window's pods
+        li, lni = 37, 11
     perms = np.stack([np.arange(n_pad)] + [
         np.concatenate([rng.permutation(n_real), np.arange(n_real, n_pad)])
         for _ in range(3)]).astype(np.int32)
@@ -722,7 +811,10 @@ def scan_variant_checks(device, sync):
              _spec(1000, True, rng, n_pad, s_count),
              _spec(2000, False, rng, n_pad, s_count),
              _spec(7000, False, rng, n_pad, s_count)]
-    n_pods = 200
+    if build == "ties":
+        # no dense mask or count: the open nodes' scores stay tied
+        specs[1] = _spec(1000, False, rng, n_pad, s_count)
+    n_pods = B * 25 // 32
     rows = np.concatenate([rng.integers(0, 3, n_pods),
                            np.full(B - n_pods, 4)])
     pad = dict(specs[0], skip=np.bool_(True))
@@ -736,16 +828,17 @@ def scan_variant_checks(device, sync):
         return K.PodStack.from_specs(sp, rows, prof if with_prof else None,
                                      device)
     spread0 = torch.as_tensor(rng.integers(0, 5, n_pad)).to(device)
+    ntf_part = max(1, n_real * 9 // 40)
     cases = [
-        ("identity", {}, 900),
-        ("perm", dict(rotation=(perms_t, inv_t, oid)), 700),
+        ("identity", {}, ntf_part),
+        ("perm", dict(rotation=(perms_t, inv_t, oid)), ntf_part * 7 // 9),
         ("pos", dict(rotation_pos=(inv_t, oid)), n_real),
-        ("spread", dict(spread0=spread0), 900),
+        ("spread", dict(spread0=spread0), ntf_part),
         ("weight table", dict(weights=union, wtab=wtab), n_real),
     ]
     for name, kw, ntf in cases:
         st = stack(spread=name == "spread", with_prof=name == "weight table")
-        args = (nodes, st, 37, 11, ntf, n_real, 8)
+        args = (nodes, st, li, lni, ntf, n_real, 8)
         got = K.schedule_batch(*args, **kw)
         want = K.schedule_batch_plain(*args, **kw)
         same(f"schedule_batch/{name}", got, want)
@@ -756,11 +849,13 @@ def scan_variant_checks(device, sync):
                  K.schedule_batch(*args2, carry_in=(got[0], got[3])),
                  K.schedule_batch_plain(*args2,
                                         carry_in=(want[0], want[3])))
-    # K6: singleton runs, gangs (spec 3 asks 7 CPU: its 60-member gang
-    # cannot all fit and rewinds), a failing 9-CPU singleton, padding
+    # K6: singleton runs, gangs (spec 3 asks 7 CPU: on the first geometry
+    # its gang cannot all fit and rewinds), a failing 9-CPU singleton,
+    # padding
     big = dict(specs[0], req_cpu=np.int64(9000), nz_cpu=np.int64(9000),
                upd_cpu=np.int64(9000))
     sp = [dict(d) for d in specs] + [dict(pad), big]
+    scale = B / 256
     layout = [(0, 20, False), (1, 30, True), (3, 60, True), (2, 15, False),
               (1, 40, True), (5, 1, False), (0, 10, False)]
     seg = np.zeros(B, bool)
@@ -768,42 +863,46 @@ def scan_variant_checks(device, sync):
     rws = np.full(B, 4)
     i = 0
     for spec, length, g in layout:
+        length = max(1, int(length * scale))
         seg[i] = True
         gang[i: i + length] = g
         rws[i: i + length] = spec
         i += length
     seg[i] = True
-    n_pods = i
+    n_seg = i
     seg_t = torch.as_tensor(seg).to(device)
     gang_t = torch.as_tensor(gang).to(device)
     for name, kw, ntf, np_ in [
-            ("axis", {}, 900, n_pods),
-            ("perm", dict(rotation=(perms_t, inv_t, oid)), 700, n_pods),
-            ("pos", dict(rotation_pos=(inv_t, oid)), n_real, n_pods),
+            ("axis", {}, ntf_part, n_seg),
+            ("perm", dict(rotation=(perms_t, inv_t, oid)), ntf_part * 7 // 9,
+             n_seg),
+            ("pos", dict(rotation_pos=(inv_t, oid)), n_real, n_seg),
             ("gang score + weight table",
-             dict(weights=union, wtab=wtab, gang_score=True), n_real,
-             n_pods),
-            ("spread carry", dict(spread0=spread0), 900, n_pods),
-            ("n_pods < B, stops mid-gang", {}, 900, 100)]:
+             dict(weights=union, wtab=wtab, gang_score=True), n_real, n_seg),
+            ("spread carry", dict(spread0=spread0), ntf_part, n_seg),
+            ("n_pods < B, stops mid-gang", {}, ntf_part, n_seg * 4 // 7)]:
         st = K.PodStack.from_specs(sp, rws, prof if "wtab" in kw else None,
                                    device)
-        args = (nodes, st, seg_t, gang_t, np_, 5, 9, ntf, n_real, 8)
+        args = (nodes, st, seg_t, gang_t, np_, 5 if build is None else li,
+                9, ntf, n_real, 8)
         got = K.schedule_batch_segments(*args, **kw)
         want = K.schedule_batch_segments_plain(*args, **kw)
         same(f"schedule_segments/{name}", got, want)
         sel = want[4][:B].cpu().numpy()
-        if name == "axis":
+        if name == "axis" and first:
             g = sel[50:110]
             if not ((g >= 0).any() and (g < 0).any()):
                 raise SystemExit("variant schedule_segments: the 7-CPU "
                                  "gang did not rewind part way")
-    sync()
-    print(f"[variants] {checked} scan kernel calls equal to their plain "
-          f"versions (K5 identity, perm, pos, spread carry + carry_in, "
-          f"weight table; K6 axis, perm, pos, gang score + weight table, "
-          f"spread carry, n_pods < B; dense/inert mixes, skip padding, gang "
-          f"rewinds, a "
-          f"singleton failure)")
+    if build == "ties":
+        # the walk starts in another block than both groups of winners
+        sel = K.schedule_batch_plain(nodes, stack(), li, lni, n_real,
+                                     n_real, 8)[4]["selected"].cpu().numpy()
+        span = K.cluster_plan(n_pad, s_count, 8, False).span
+        blocks = {int(j) // span for j in sel if j >= 0}
+        if li // span in blocks or blocks != {3 // span, 2050 // span}:
+            raise SystemExit(f"variant ties: the winners' blocks {blocks}")
+    return checked
 
 
 MESH_SHARDS = (1, 2, 4)        # shards of one card in the mesh checks
@@ -1224,7 +1323,9 @@ def scan_kernel_entry(report, name, fn, plain, call, n_cycles, n_pods,
                        out_bytes)
     ms = call_entry(report, name, fn, plain, call, bound, sync, 3,
                     f"the window's first {n_pods} pods")
-    print(f"[kernel] {name}: {ms / n_pods * 1e3:.2f} us/pod")
+    from kubernetes_tpu_torch.ops import kernels as K
+    print(f"[kernel] {name}: {ms / n_pods * 1e3:.2f} us/pod; "
+          f"{describe_geometry(*K.last_geometry[name])}")
 
 
 def path_report(name, n_nodes, n_pods, run, counts, extra=""):

@@ -50,8 +50,12 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "scatter_rows": [_I, _I, _L, _P, _P, _P],
     # the scan kernels take host arrays of scalars and of pointers
-    "schedule_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "schedule_segments": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    # the cluster kernels (K5, K6) also take their geometry
+    # (`kernels.cluster_plan`: blocks, node slots a thread, resident, bytes)
+    "schedule_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                       ctypes.POINTER(_L), _P],
+    "schedule_segments": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                          ctypes.POINTER(_L), _P],
     "preempt_scan": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "pressure_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_cycle_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
@@ -66,6 +70,15 @@ SIGNATURES = {
     "shard_preempt_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_pressure_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_pressure_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+}
+
+#: other C functions of a library: `<name>_clusters(geometry, *clusters)`
+#: asks the card how many clusters of a geometry it can hold at once
+QUERIES = {
+    "schedule_batch": {"schedule_batch_clusters": [
+        ctypes.POINTER(_L), ctypes.POINTER(_I)]},
+    "schedule_segments": {"schedule_segments_clusters": [
+        ctypes.POINTER(_L), ctypes.POINTER(_I)]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -146,5 +159,9 @@ def load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
+        for qname, argtypes in QUERIES.get(name, {}).items():
+            q = getattr(lib, qname)
+            q.argtypes = argtypes
+            q.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -17,13 +17,23 @@ typedef long long i64;
 #define NTHREADS 1024
 #define NWARPS (NTHREADS / 32)
 
+// Both take 32-bit unsigned division when 0 <= a < 2^32 and 0 < b < 2^32
+// (floor and C's truncation agree there), else one 64-bit division with
+// the remainder a - q * b.
+__device__ __forceinline__ bool both_u32(i64 a, i64 b) {
+  return (unsigned long long)a <= 0xffffffffull
+         && (unsigned long long)(b - 1) < 0xffffffffull;
+}
+
 __device__ __forceinline__ i64 floordiv(i64 a, i64 b) {
-  i64 q = a / b, r = a % b;
+  if (both_u32(a, b)) return (i64)((unsigned int)a / (unsigned int)b);
+  i64 q = a / b, r = a - q * b;
   return (r != 0 && ((r < 0) != (b < 0))) ? q - 1 : q;
 }
 
 __device__ __forceinline__ i64 floormod(i64 a, i64 b) {
-  i64 r = a % b;
+  if (both_u32(a, b)) return (i64)((unsigned int)a % (unsigned int)b);
+  i64 r = a - (a / b) * b;
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
 }
 

@@ -1,5 +1,7 @@
 // The scheduling cycle of one pod over every node, as a __device__
-// function of one block: K2 runs it once, K5 and K6 once per pod.
+// function of one block: K2 runs it once, K8 once per pod. K5 and K6 run
+// its per-node parts (`cycle_filter_row`, `cycle_score_one`) across a
+// thread-block cluster instead (`cluster_cycle.cuh`).
 //
 // Replaces `_feasibility` + `_fit_scores` + `_cycle_core`
 // (kubernetes_tpu/ops/kernels.py:296, :157, :359): per-node predicate bits
@@ -190,6 +192,86 @@ __device__ __forceinline__ i64 cycle_row_local(const CyclePod& pd, int gate,
   return t;
 }
 
+// The kept-set normalizers of one cycle's scores (`_fit_scores`,
+// kubernetes_tpu/ops/kernels.py:157): which families run, their maxima
+// over the kept set, the largest zone count and the constant families.
+struct CycleNorm {
+  bool do_na, do_tt, do_sc, do_ic, do_gang, have_zones;
+  i64 na_max, tt_max, mbn, ic_max, ic_min, mbz, cst;
+};
+
+// The families one pod's scores run (`gz` NULL = no gang score) and the
+// constant of the inert taint and spread families; the maxima are the
+// caller's.
+__device__ __forceinline__ CycleNorm cycle_norm_families(const CyclePod& pd,
+                                                         int gate,
+                                                         const i64* w,
+                                                         const i64* gz,
+                                                         bool gmember) {
+  CycleNorm nm;
+  nm.do_na = ON(gate, W_NODEAFF) && pd.na;
+  nm.do_tt = ON(gate, W_TAINT) && pd.tt;
+  nm.do_sc = ON(gate, W_SPREAD) && pd.sc;
+  nm.do_ic = ON(gate, W_INTERPOD) && pd.ipa_on;
+  nm.do_gang = ON(gate, W_GANG) && gz && gmember;
+  nm.cst = 0;
+  if (ON(gate, W_TAINT) && !pd.tt) nm.cst += w[W_TAINT] * MAX_PRIORITY;
+  if (ON(gate, W_SPREAD) && !pd.sc) nm.cst += w[W_SPREAD] * MAX_PRIORITY;
+  nm.na_max = nm.tt_max = nm.mbn = nm.ic_max = nm.ic_min = nm.mbz = 0;
+  nm.have_zones = false;
+  return nm;
+}
+
+// The largest count among the zones present in the table `zs` ([2, z_pad]:
+// spread counts, present flags).
+__device__ __forceinline__ i64 cycle_zone_max(const i64* zs, int z_pad) {
+  i64 mbz = 0;
+  for (int z = 0; z < z_pad; ++z) mbz = imax64(mbz, zs[z_pad + z] ? zs[z] : 0);
+  return mbz;
+}
+
+// The score of node j, the body of `_fit_scores`' weighted sum: `t` holds
+// its K1 totals (or, with pd.local_in_base, its whole row-local part),
+// `sc_j` its spread count, `z` its zone id (read by the caller only when
+// the gang or spread family runs), `zs` the kept set's zone table and `gz`
+// the current gang's per-zone member count.
+__device__ __forceinline__ i64 cycle_score_one(const CyclePod& pd, int gate,
+                                               const i64* w,
+                                               const CycleNorm& nm, int j,
+                                               i64 t, i64 sc_j, int z,
+                                               int z_pad, const i64* zs,
+                                               const i64* gz) {
+  if (nm.do_gang && z > 0)
+    // min(members of this gang already in the node's zone, 10) x weight
+    t += w[W_GANG] * imin64(z < z_pad ? gz[z] : 0, MAX_PRIORITY);
+  if (nm.do_na)
+    t += w[W_NODEAFF] * (nm.na_max == 0 ? pd.na[j]
+                         : floordiv(MAX_PRIORITY * pd.na[j],
+                                    imax64(nm.na_max, 1)));
+  if (nm.do_tt)
+    t += w[W_TAINT] * (nm.tt_max == 0 ? MAX_PRIORITY
+                       : MAX_PRIORITY - floordiv(MAX_PRIORITY * pd.tt[j],
+                                                 imax64(nm.tt_max, 1)));
+  if (nm.do_sc) {
+    double f = nm.mbn > 0 ? ratio10(nm.mbn - sc_j, nm.mbn) : 10.0;
+    i64 zc = (z >= 0 && z < z_pad) ? zs[z] : 0;
+    double zsc = nm.mbz > 0 ? ratio10(nm.mbz - zc, nm.mbz) : 10.0;
+    if (nm.have_zones && z > 0)
+      f = __dadd_rn(__dmul_rn(f, ONE_MINUS_ZW),
+                    __dmul_rn(ZONE_WEIGHTING, zsc));
+    t += w[W_SPREAD] * (i64)f;
+  }
+  if (nm.do_ic) {
+    bool tr = pd.tracked[pd.tr_inert ? 0 : j];
+    i64 icv = pd.ic[pd.ic_inert ? 0 : j];
+    i64 diff = nm.ic_max - nm.ic_min;
+    t += w[W_INTERPOD] * ((diff > 0 && tr)
+                          ? (i64)ratio10(icv - nm.ic_min, diff) : 0);
+  }
+  if (!pd.local_in_base) t += cycle_row_local(pd, gate, w, j);
+  return t + nm.cst;
+}
+
 // The walk, the scores and the select of one cycle over nodes whose
 // in-range feasible bit (FL_FEAS) is already in FL = cs.scratch + n_pad,
 // behind a barrier. `w` is the pod's weight row (static weights or its
@@ -263,11 +345,7 @@ __device__ __forceinline__ CycleResult cycle_select(
   }
 
   // ---- scores: reductions over the kept set ------------------------------
-  const bool do_na = ON(gate, W_NODEAFF) && pd.na;
-  const bool do_tt = ON(gate, W_TAINT) && pd.tt;
-  const bool do_sc = ON(gate, W_SPREAD) && pd.sc;
-  const bool do_ic = ON(gate, W_INTERPOD) && pd.ipa_on;
-  const bool do_gang = ON(gate, W_GANG) && gz && gmember;
+  CycleNorm nm = cycle_norm_families(pd, gate, w, gz, gmember);
   for (int z = tid; z < 2 * nd.z_pad; z += NTHREADS) cs.zs[z] = 0;
   __syncthreads();
   i64 l_na = LLONG_MIN, l_tt = LLONG_MIN, l_sc = LLONG_MIN;
@@ -275,9 +353,9 @@ __device__ __forceinline__ CycleResult cycle_select(
   int l_zone = 0;
   for (int j = lo; j < hi; ++j) {
     bool k = cs.kept[j];
-    if (do_na) l_na = imax64(l_na, k ? pd.na[j] : 0);
-    if (do_tt) l_tt = imax64(l_tt, k ? pd.tt[j] : 0);
-    if (do_sc) {
+    if (nm.do_na) l_na = imax64(l_na, k ? pd.na[j] : 0);
+    if (nm.do_tt) l_tt = imax64(l_tt, k ? pd.tt[j] : 0);
+    if (nm.do_sc) {
       l_sc = imax64(l_sc, k ? pd.sc[j] : 0);
       int z = nd.zone_id[j];
       if (k && z > 0) {
@@ -289,7 +367,7 @@ __device__ __forceinline__ CycleResult cycle_select(
         }
       }
     }
-    if (do_ic) {
+    if (nm.do_ic) {
       bool tr = pd.tracked[pd.tr_inert ? 0 : j];
       i64 icv = pd.ic[pd.ic_inert ? 0 : j];
       if (k && tr) {
@@ -298,18 +376,13 @@ __device__ __forceinline__ CycleResult cycle_select(
       }
     }
   }
-  const i64 na_max = block_max64(l_na, sh64);
-  const i64 tt_max = block_max64(l_tt, sh64);
-  const i64 mbn = block_max64(l_sc, sh64);
-  const i64 ic_max = imax64(block_max64(l_icmax, sh64), 0);
-  const i64 ic_min = imin64(block_min64(l_icmin, sh64), 0);
-  const bool have_zones = block_sum64(l_zone, sh64) > 0;
-  i64 mbz = 0;
-  for (int z = 0; z < nd.z_pad; ++z)
-    mbz = imax64(mbz, cs.zs[nd.z_pad + z] ? cs.zs[z] : 0);
-  i64 cst = 0;
-  if (ON(gate, W_TAINT) && !pd.tt) cst += w[W_TAINT] * MAX_PRIORITY;
-  if (ON(gate, W_SPREAD) && !pd.sc) cst += w[W_SPREAD] * MAX_PRIORITY;
+  nm.na_max = block_max64(l_na, sh64);
+  nm.tt_max = block_max64(l_tt, sh64);
+  nm.mbn = block_max64(l_sc, sh64);
+  nm.ic_max = imax64(block_max64(l_icmax, sh64), 0);
+  nm.ic_min = imin64(block_min64(l_icmin, sh64), 0);
+  nm.have_zones = block_sum64(l_zone, sh64) > 0;
+  nm.mbz = cycle_zone_max(cs.zs, nd.z_pad);
 
   i64 l_max = LLONG_MIN;
   for (int j = lo; j < hi; ++j) {
@@ -317,39 +390,9 @@ __device__ __forceinline__ CycleResult cycle_select(
                  : local_total_one(gate, w, p_nz_cpu + nd.nz_cpu[j],
                                    p_nz_mem + nd.nz_mem[j], nd.alloc_cpu[j],
                                    nd.alloc_mem[j]);
-    if (do_gang) {
-      // min(members of this gang already in the node's zone, 10) x weight
-      int z = nd.zone_id[j];
-      if (z > 0)
-        t += w[W_GANG] * imin64(z < nd.z_pad ? gz[z] : 0, MAX_PRIORITY);
-    }
-    if (do_na)
-      t += w[W_NODEAFF] * (na_max == 0 ? pd.na[j]
-                           : floordiv(MAX_PRIORITY * pd.na[j],
-                                      imax64(na_max, 1)));
-    if (do_tt)
-      t += w[W_TAINT] * (tt_max == 0 ? MAX_PRIORITY
-                         : MAX_PRIORITY - floordiv(MAX_PRIORITY * pd.tt[j],
-                                                   imax64(tt_max, 1)));
-    if (do_sc) {
-      double f = mbn > 0 ? ratio10(mbn - pd.sc[j], mbn) : 10.0;
-      int z = nd.zone_id[j];
-      i64 zc = (z >= 0 && z < nd.z_pad) ? cs.zs[z] : 0;
-      double zsc = mbz > 0 ? ratio10(mbz - zc, mbz) : 10.0;
-      if (have_zones && z > 0)
-        f = __dadd_rn(__dmul_rn(f, ONE_MINUS_ZW),
-                      __dmul_rn(ZONE_WEIGHTING, zsc));
-      t += w[W_SPREAD] * (i64)f;
-    }
-    if (do_ic) {
-      bool tr = pd.tracked[pd.tr_inert ? 0 : j];
-      i64 icv = pd.ic[pd.ic_inert ? 0 : j];
-      i64 diff = ic_max - ic_min;
-      t += w[W_INTERPOD] * ((diff > 0 && tr)
-                            ? (i64)ratio10(icv - ic_min, diff) : 0);
-    }
-    if (!pd.local_in_base) t += cycle_row_local(pd, gate, w, j);
-    t += cst;
+    t = cycle_score_one(pd, gate, w, nm, j, t, nm.do_sc ? pd.sc[j] : 0,
+                        nm.do_gang || nm.do_sc ? nd.zone_id[j] : 0,
+                        nd.z_pad, cs.zs, gz);
     cs.total[j] = t;
     if (cs.kept[j]) l_max = imax64(l_max, t);
   }

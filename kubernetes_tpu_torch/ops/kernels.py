@@ -191,10 +191,11 @@ def _launch_arrays(ints: dict, int_slots, ptrs: dict, ptr_slots, name):
     return iargs, parr
 
 
-def _launch(name: str, iargs, parr) -> None:
+def _launch(name: str, iargs, parr, *extra) -> None:
     lib = _build.load(name)
     obs.inc("launch." + name)
-    _check(getattr(lib, name + "_launch")(iargs, parr, _stream()), name)
+    _check(getattr(lib, name + "_launch")(iargs, parr, *extra, _stream()),
+           name)
 
 
 def _require_cuda(name: str, *tensors) -> None:
@@ -1560,6 +1561,110 @@ def schedule_batch_segments_plain(nodes, pods, seg_start, gang, n_pods,
         weights or DEFAULT_WEIGHTS, wtab, bool(gang_score))
 
 
+# ---------------------------------------------------------------------------
+# The cluster geometry of K5 / K6 (csrc/cluster_cycle.cuh)
+# ---------------------------------------------------------------------------
+#: blocks of a cluster (H100's non-portable maximum), threads of a block,
+#: and the dynamic shared memory a block may take after the opt-in
+CLUSTER_BLOCKS = 16
+CLUSTER_THREADS = 1024
+SMEM_CAP = 232448
+#: the kernels that run as one cluster a window
+CLUSTER_KERNELS = ("schedule_batch", "schedule_segments")
+_NWARPS = CLUSTER_THREADS // 32
+_PR_N = 8              # fields of a round's partial record (`PR_*`)
+_ROWS_I64 = 10         # resident int64 rows besides the carried spread
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """The geometry of one K5 / K6 launch: `blocks` blocks of
+    CLUSTER_THREADS threads, each thread `nodes_per_thread` consecutive
+    node slots (block q owns [q * span, (q + 1) * span)), the node rows
+    `resident` in shared memory for the whole window or left in global
+    memory, and `smem_bytes` of dynamic shared memory a block."""
+    blocks: int
+    nodes_per_thread: int
+    resident: bool
+    smem_bytes: int
+
+    @property
+    def span(self) -> int:
+        return self.nodes_per_thread * CLUSTER_THREADS
+
+    def geometry(self):
+        """The launch's `ClusterGeom` array (csrc/cluster_cycle.cuh)."""
+        return (ctypes.c_longlong * 4)(self.blocks, self.nodes_per_thread,
+                                       int(self.resident), self.smem_bytes)
+
+
+def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
+                       resident: bool) -> int:
+    """A block's dynamic shared memory, as `cluster_layout`
+    (csrc/cluster_cycle.cuh) lays it out: a fixed part (the weight row,
+    the warp slots of the block scans and of the rounds, two partial
+    records with their zone table, a round's results, the cluster's zone
+    table, the gang's, the per-block counts and offsets) and per node slot
+    the score, the prefix, the flags and the tie slot, plus, with the rows
+    resident, ten int64 rows, the carried spread, two int64 planes of S
+    scalars, the zone and the valid byte."""
+    fixed = (16 * 8 + _NWARPS * (4 + 8) + _PR_N * _NWARPS * 8
+             + 2 * (_PR_N + 2 * z_pad) * 8 + 16 * 8 + 3 * z_pad * 8
+             + 16 * (4 + 8 + 8) + 8 * 4)
+    per_node = 8 + 3 * 4
+    if resident:
+        per_node += 8 * (_ROWS_I64 + int(bool(carry_spread))) + 16 * S + 5
+    return fixed + span * per_node
+
+
+def cluster_plan(n_pad: int, S: int, z_pad: int, carry_spread: bool,
+                 blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
+    """The geometry of K5 / K6 over `n_pad` node slots: `blocks` blocks,
+    the fewest slots a thread that cover the axis, the rows resident in
+    shared memory when they fit in SMEM_CAP beside the scratch, else in
+    global memory. Raises when not even the scratch fits."""
+    if not 1 <= blocks <= CLUSTER_BLOCKS:
+        raise ValueError(f"a cluster holds 1 to {CLUSTER_BLOCKS} blocks")
+    npt = max(1, -(-int(n_pad) // (blocks * CLUSTER_THREADS)))
+    span = npt * CLUSTER_THREADS
+    for resident in (True, False):
+        nbytes = cluster_smem_bytes(span, S, z_pad, carry_spread, resident)
+        if nbytes <= SMEM_CAP:
+            return ClusterPlan(blocks, npt, resident, nbytes)
+    raise ValueError(f"cluster scan: n_pad {n_pad} (z_pad {z_pad}) needs "
+                     f"{nbytes} B of shared memory a block, over {SMEM_CAP}")
+
+
+#: clusters the card holds at once, by (kernel, plan); and each cluster
+#: kernel's last geometry with that count (what chip_smoke.py prints)
+_CLUSTER_FIT: dict = {}
+last_geometry: dict = {}
+
+
+def _cluster_geometry(name: str, n_pad: int, S: int, z_pad: int,
+                      carry_spread: bool) -> ClusterPlan:
+    """The plan a launch takes: CLUSTER_BLOCKS blocks, or half as many
+    when the card cannot place a cluster of that many at that shared
+    memory (`cudaOccupancyMaxActiveClusters` gives 0). Raises with the
+    counts when it can place neither."""
+    query = getattr(_build.load(name), name + "_clusters")
+    tried = []
+    for blocks in (CLUSTER_BLOCKS, CLUSTER_BLOCKS // 2):
+        plan = cluster_plan(n_pad, S, z_pad, carry_spread, blocks)
+        fit = _CLUSTER_FIT.get((name, plan))
+        if fit is None:
+            out = ctypes.c_int(0)
+            _check(query(plan.geometry(), ctypes.byref(out)),
+                   name + "_clusters")
+            fit = _CLUSTER_FIT[(name, plan)] = out.value
+        tried.append((plan, fit))
+        if fit > 0:
+            last_geometry[name] = (plan, fit)
+            return plan
+    raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters places no "
+                       f"cluster of these geometries: {tried}")
+
+
 # scalar and pointer slots of the scan kernels' launch (csrc/cycle.cuh
 # `ScanArgs`): both lists are copied into the kernel's argument struct.
 # The slots after `log_row` serve the pressure scan (K8) only; K5 and K6
@@ -1639,10 +1744,14 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
     w = _weight_row(weights, None, dev)
     oid = None if oid_seq is None \
         else _upload(oid_seq.astype(np.int32), dev)
-    total = torch.empty(n_pad, dtype=I64, device=dev)
-    kept = torch.empty(n_pad, dtype=torch.uint8, device=dev)
-    flags = torch.empty(2 * n_pad, dtype=I32, device=dev)
-    zs = torch.empty(2 * int(z_pad), dtype=I64, device=dev)
+    scratch = {}
+    if name not in CLUSTER_KERNELS:
+        # the one-block cycle's per-node scratch (K5 / K6 keep theirs in
+        # shared memory)
+        scratch = {"total": torch.empty(n_pad, dtype=I64, device=dev),
+                   "kept": torch.empty(n_pad, dtype=torch.uint8, device=dev),
+                   "flags": torch.empty(2 * n_pad, dtype=I32, device=dev),
+                   "zs": torch.empty(2 * int(z_pad), dtype=I64, device=dev)}
     stats = torch.empty((5, B), dtype=I64, device=dev)
     if pressure is not None:
         packed = pressure["packed"]
@@ -1650,13 +1759,21 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
         packed = torch.empty((4 if segments else 3) * B, dtype=I32,
                              device=dev)
     carry_out = torch.empty(2, dtype=I64, device=dev)
+    extra = ()
+    if name in CLUSTER_KERNELS:
+        plan = _cluster_geometry(name, n_pad, s_count, int(z_pad),
+                                 carry_spread)
+        extra = (plan.geometry(),)
     seg = {}
     if segments is not None:
+        # one undo log of B entries for every block of the cluster (the
+        # gang zone counts live in each block's shared memory)
         seg = {"seg_start": _t(segments[0], dev, torch.bool).contiguous(),
                "gang": _t(segments[1], dev, torch.bool).contiguous(),
-               "gz": torch.empty(int(z_pad), dtype=I64, device=dev),
-               "log_node": torch.empty(B, dtype=I32, device=dev),
-               "log_row": torch.empty(B, dtype=I32, device=dev)}
+               "log_node": torch.empty(plan.blocks * B, dtype=I32,
+                                       device=dev),
+               "log_row": torch.empty(plan.blocks * B, dtype=I32,
+                                      device=dev)}
         if seg["seg_start"].shape[0] != B or seg["gang"].shape[0] != B:
             raise ValueError(f"{name}: seg_start/gang are not [B]")
     ptrs = dict(zip(_NODE_STATIC, static))
@@ -1666,8 +1783,8 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
                  "interpod_tracked": tracked, "row": row,
                  "profile_id": prof, "w": w, "wtab": wtab, "perms": perms,
                  "inv_perms": inv_perms, "oid_seq": oid, "spread": spread,
-                 "total": total, "kept": kept, "flags": flags, "zs": zs,
                  "stats": stats, "packed": packed, "carry_out": carry_out})
+    ptrs.update(scratch)
     ptrs.update(zip(_CYCLE_MASKS, masks))
     ptrs.update(zip(_CYCLE_COUNTS, counts))
     ptrs.update(seg)
@@ -1688,7 +1805,8 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
             "vic_P": 0 if pressure is None else int(pressure["vic_P"])}
     if perms is not None and perms.shape[1] != n_pad:
         raise ValueError(f"{name}: rotation rows must be n_pad wide")
-    _launch(name, *_launch_arrays(ints, _SCAN_INTS, ptrs, _SCAN_PTRS, name))
+    _launch(name, *_launch_arrays(ints, _SCAN_INTS, ptrs, _SCAN_PTRS, name),
+            *extra)
     spread_out = spread if carry_spread \
         else torch.zeros((), dtype=I64, device=dev)
     return state, carry_out[0], carry_out[1], spread_out, stats, packed
