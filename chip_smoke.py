@@ -27,11 +27,19 @@
    blocks, S > 0, the rows in global memory; K7/K8 at P 16 and
    128, K4 on the victim planes, K9a-d on 1, 2 and 4 shards with every
    cycle mode and every K3 case, K10a-K11b on 1, 2 and 4 shards in every
-   scan and segments mode, K13a-K14b on 1, 2 and 4 shards at P 16 and
-   128, K2 and K9a/b with a nominated ghost). The K5 / K6 `[kernel]` and
-   `[variants]` lines print each launch's geometry: blocks of the
-   cluster, node slots a thread, rows resident in shared memory or not,
-   shared bytes a block, and how many such clusters the card holds.
+   scan and segments mode on seven geometries of the cluster selects
+   K10b / K11b (one thread-block cluster a step: select blocks that own
+   no node, an 8-block cluster, 20,000 slots at two a thread, li, winners
+   and ties in different blocks; on 4 shards, the records staged in
+   global memory at 32,768 slots on 8 blocks and 50,000 on 16, and the
+   20,000-slot plan launched again after smaller plans), K13a-K14b on 1,
+   2 and 4 shards at P 16 and 128, K2 and K9a/b with a nominated ghost).
+   The K5 / K6 / K10b / K11b `[kernel]` and `[variants]` lines print each
+   launch's geometry: blocks of the cluster, node slots a thread, rows
+   (a select: its step's records) in shared memory or not, shared bytes a
+   block, and how many such clusters the card holds. K10a/b and K11a/b
+   also get `device_ms` on the kernels line: the kernel's own device time
+   a launch (torch.profiler) beside `ms`, the wrapper call's.
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
@@ -269,6 +277,28 @@ def cuda_time(fn, sync, reps):
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def device_time(fn, sync, reps, kernel):
+    """(mean device ms a launch, launches seen) of the CUDA kernels whose
+    name holds `kernel`, over `reps` runs of `fn` after a warm-up, from
+    torch.profiler's kernel events; (None, 0) when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            # the attribute's name differs between torch versions
+            total += max(getattr(ev, k, 0) or 0 for k in (
+                "device_time_total", "self_device_time_total",
+                "cuda_time_total", "self_cuda_time_total"))
+            count += ev.count
+    return (total / count / 1e3, count) if count else (None, 0)
 
 
 def max_abs_err(a, b):
@@ -757,13 +787,17 @@ def scan_variant_checks(device, sync):
           f"failure)")
 
 
-def describe_geometry(plan, fit):
-    """A K5 / K6 launch's geometry as the [kernel] lines print it."""
-    rows = "resident in shared memory" if plan.resident \
-        else "in global memory"
+def describe_geometry(plan, fit, select=False):
+    """A cluster launch's geometry as the [kernel] and [variants] lines
+    print it (K5 / K6; `select`: K10b / K11b, which stage the gathered
+    records instead of keeping rows)."""
+    what = "the step's records staged" if select else "rows"
+    rows = f"{what} in {'shared' if plan.resident else 'global'} memory"
+    if not select and plan.resident:
+        rows = "rows resident in shared memory"
     from kubernetes_tpu_torch.ops import kernels as K
     return (f"cluster of {plan.blocks} x {K.CLUSTER_THREADS} threads, "
-            f"{plan.nodes_per_thread} node slot(s) a thread, rows {rows}, "
+            f"{plan.nodes_per_thread} node slot(s) a thread, {rows}, "
             f"{plan.smem_bytes} B of shared memory a block, {fit} such "
             f"cluster(s) fit the card")
 
@@ -1602,14 +1636,17 @@ def nbytes(*xs):
 
 
 def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
-                      reps, label, note="", ops=0):
+                      reps, label, note="", ops=0, on_device=False):
     """Hold mesh kernel `name` against its plain version on one captured
     call of the mesh path (each run on its own copy of the arguments,
     `reset(copy, base)` restoring what a call changes before each timed
     run), time both, file its report entry. `outputs(copy, result)` is
     what the two must agree on; the bound is the larger of `io_bytes`
     (each input read once, each output written once) over the memory rate
-    and `ops` integer operations over the non-tensor peak."""
+    and `ops` integer operations over the non-tensor peak. `on_device`:
+    the entry also gets `device_ms`, the kernel's own device time a launch
+    over the same `reps` calls (torch.profiler), beside `ms`, the CUDA-event
+    time of the whole wrapper call (host enqueue and resets included)."""
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     args, kw = _full(call)
@@ -1632,6 +1669,13 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
         return one
     ms = cuda_time(timed(fn), sync, reps)
     plain_ms = cuda_time(timed(plain), sync, 2)
+    dev_ms = None
+    if on_device:
+        dev_ms, seen = device_time(timed(fn), sync, reps, name + "_kernel")
+        note += (f"; device_ms {dev_ms:.4f} over {seen} launches "
+                 f"(torch.profiler)" if dev_ms is not None else
+                 "; device_ms not measured (torch.profiler recorded no "
+                 "kernel event)")
     bound, by = io_bytes / H100_BYTES_PER_S * 1e3, "bytes"
     if ops / H100_OPS_PER_S * 1e3 > bound:
         bound, by = ops / H100_OPS_PER_S * 1e3, "operations"
@@ -1640,6 +1684,8 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
                     "launches": 0, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": by, "library_ms": None}
+    if on_device:
+        report[name]["device_ms"] = dev_ms
     print(f"[kernel] {name}: equal to plain on {label} (max_abs_err 0), "
           f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bound:.6f} ({by}){note}")
@@ -1781,48 +1827,140 @@ def whole_window(r, d0):
     return (state, li.reshape(()), lni.reshape(()), spread, out)
 
 
+#: the geometries K10b / K11b (and the sharded scan and fused window
+#: around them) are held on (name, n_pad, n_real, node set, the largest
+#: cluster the planner tries, the shard counts of one card, None:
+#: MESH_SHARDS): the select's blocks own 1,024 slots each at one slot a
+#: thread. The last three run on 4 shards and are held against the
+#: single-device plain K5 / K6 only: two stage the records in global
+#: memory; the very last takes the 20,000-slot plan again after smaller
+#: ones were queried (a cached plan must still launch), with one scan and
+#: one segments case ("again")
+MESH_SCAN_GEOMETRIES = (
+    ("4,096 slots: blocks 4-15 own no node", 4096, 3999, None, 16, None),
+    ("4,096 slots on an 8-block cluster", 4096, 3999, None, 8, None),
+    ("20,000 slots: two a thread, not a multiple of the span", 20000,
+     19990, None, 16, None),
+    ("4,096 slots: li, the winners and the ties in different blocks", 4096,
+     4090, "ties", 16, None),
+    ("32,768 slots on an 8-block cluster: the records in global memory",
+     32768, 32700, None, 8, (4,)),
+    ("50,000 slots: past what shared memory stages, the records in global "
+     "memory", 50000, 49990, None, 16, (4,)),
+    ("20,000 slots again, after smaller plans", 20000, 19990, "again", 16,
+     (4,)),
+)
+
+
+@contextlib.contextmanager
+def cluster_blocks(n):
+    """Plan every cluster launch at `n` blocks at most (the planner tries
+    n, then n // 2)."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    saved = K.CLUSTER_BLOCKS
+    K.CLUSTER_BLOCKS = n
+    try:
+        yield
+    finally:
+        K.CLUSTER_BLOCKS = saved
+
+
 def mesh_scan_variant_checks(device, sync, meshes=None):
     """K10a/b and K11a/b against their plain versions on random inputs,
     and the sharded scan / segments programs against the single-device
-    plain K5 / K6, on one card split into 1, 2 and 4 shards: identity,
-    partial, perm and pos walks, the carried spread and carry_in, a
-    weight table with per-pod profile ids, skip pods mid-window; for K11
-    also a gang whose placed members lie on every shard when it fails
-    (each shard rewinds on the same step), the gang score, a singleton
-    failure and n_pods < B. n_real (3,999) is a multiple of no shard
+    plain K5 / K6, on one card split into 1, 2 and 4 shards, on every
+    geometry of MESH_SCAN_GEOMETRIES (select blocks that own no node, an
+    8-block cluster, a node axis that is not a multiple of the span, li,
+    winners and ties in different blocks, the records staged in global
+    memory on 8 and 16 blocks, a cached plan launched again after smaller
+    plans set the kernels' attributes; the sharded plain versions run
+    on every mesh of the first geometry and on the 4-shard mesh of the
+    next three, the single-device plain K5 / K6 on all): identity, partial,
+    perm and pos walks, the carried spread and carry_in, a weight table
+    with per-pod profile ids, skip pods mid-window; for K11 also a gang
+    whose placed members lie on every shard and in several select blocks
+    when it fails (each shard rewinds on the same step), the gang score,
+    a singleton failure and n_pods < B. n_real is a multiple of no shard
     count. Every comparison is exact: packed block, stats, folded rows,
     spread, li, lni. `meshes` (lists of devices) replaces the shards of
-    one card."""
+    one card. Prints each geometry's K10b / K11b launch geometry."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import kernels as K
+    checked = 0
+    for gi, (label, n_pad, n_real, build, blocks, shards) in enumerate(
+            MESH_SCAN_GEOMETRIES):
+        rng = np.random.default_rng(20261021 + gi)
+        K.last_geometry.clear()
+        with cluster_blocks(blocks):
+            checked += _mesh_scan_variants(
+                device, rng, n_pad, n_real, build, blocks,
+                meshes or [[device] * D for D in shards or MESH_SHARDS],
+                "all" if gi == 0 else "last" if shards is None else "none")
+        geo = "; ".join(
+            f"{k}: {describe_geometry(*K.last_geometry[k], select=True)}"
+            for k in K.SELECT_CLUSTER_KERNELS)
+        print(f"[variants] mesh {label}: {geo}")
+    sync()
+    print(f"[variants] {checked} mesh scan comparisons equal over "
+          f"{len(MESH_SCAN_GEOMETRIES)} geometries (K10a/b and K11a/b "
+          f"against their plain versions and the sharded scan / segments "
+          f"against the single-device plain K5 / K6: identity, partial, "
+          f"perm and pos walks, spread carry + carry_in, weight table, "
+          f"skip pods mid-window; the rack gang rewound across every shard "
+          f"and several select blocks, gang score, a singleton failure, "
+          f"n_pods < B; on meshes of "
+          f"{[len(m) for m in meshes] if meshes else list(MESH_SHARDS)} "
+          f"shards, the geometries past 20,000 slots on "
+          f"{[len(m) for m in meshes] if meshes else [4]})")
+
+
+def _mesh_scan_variants(device, rng, n_pad, n_real, build, blocks, meshes,
+                        sharded):
+    """One geometry's mesh scan and segments cases (`blocks`: the cluster
+    planned; `build` "again": the first case of each only) on the meshes
+    `meshes`; returns the comparisons made. Every mesh's window is held
+    against the single-device plain K5 / K6; against the sharded plain
+    versions (a Python loop of steps, the slow part) on "all" meshes, the
+    "last" one or "none"."""
     import numpy as np
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.parallel import sharding as S
-    rng = np.random.default_rng(20261021)
-    n_pad, n_real, s_count, zones = 4096, 3999, 2, 6
+    s_count, zones = 2, 6
     B, n_live = 64, 48
+    span = K.select_plan(n_pad, 8, blocks).span
     checked = 0
 
     def same(name, got, want):
         nonlocal checked
         err = max_abs_err(got, want)
         if err != 0:
-            raise SystemExit(f"mesh scan variant {name}: disagrees "
-                             f"(max_abs_err {err}; first difference "
-                             f"{first_diff(got, want)})")
+            raise SystemExit(f"mesh scan variant {name} at n_pad {n_pad}: "
+                             f"disagrees (max_abs_err {err}; first "
+                             f"difference {first_diff(got, want)})")
         checked += 1
 
-    nodes = _rand_nodes(rng, n_pad, n_real, s_count, zones, device)
-    for k in ("req_cpu", "req_mem", "pod_count"):
-        nodes[k] = nodes[k] // 3        # room for the window's pods
-    # 20 rack nodes spread over every shard: 8 CPU, empty, so each takes
-    # one member of the 5-CPU rack gang, whose 21st member then fails
-    rack = np.sort(rng.choice(n_real, 20, replace=False))
-    rk = torch.as_tensor(rack).to(device)
-    for k, v in (("alloc_cpu", 8000), ("alloc_mem", 32 * GI),
-                 ("alloc_eph", 50 * GI), ("allowed_pods", 110),
-                 ("alloc_scalar", 40), ("req_cpu", 0), ("req_mem", 0),
-                 ("req_eph", 0), ("req_scalar", 0), ("pod_count", 0)):
-        nodes[k][rk] = v
+    if build == "ties":
+        # full nodes but 6 in select block 0 and 10 in block 2, identical:
+        # from li in block 1 the ties and the winners lie in other blocks
+        nodes = _tie_nodes(rng, n_pad, n_real, s_count, device)
+        li, li_seg = 1600, 1600
+        rack = np.arange(0)
+    else:
+        nodes = _rand_nodes(rng, n_pad, n_real, s_count, zones, device)
+        for k in ("req_cpu", "req_mem", "pod_count"):
+            nodes[k] = nodes[k] // 3        # room for the window's pods
+        li, li_seg = 37, 5
+        # 20 rack nodes spread over every shard and several select blocks:
+        # 8 CPU, empty, so each takes one member of the 5-CPU rack gang,
+        # whose 21st member then fails
+        rack = np.sort(rng.choice(n_real, 20, replace=False))
+        rk = torch.as_tensor(rack).to(device)
+        for k, v in (("alloc_cpu", 8000), ("alloc_mem", 32 * GI),
+                     ("alloc_eph", 50 * GI), ("allowed_pods", 110),
+                     ("alloc_scalar", 40), ("req_cpu", 0), ("req_mem", 0),
+                     ("req_eph", 0), ("req_scalar", 0), ("pod_count", 0)):
+            nodes[k][rk] = v
     perms = np.stack([np.arange(n_pad)] + [
         np.concatenate([rng.permutation(n_real), np.arange(n_real, n_pad)])
         for _ in range(3)]).astype(np.int32)
@@ -1836,8 +1974,9 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
     wtab[:, K.PRIORITY_AXIS.index("gang_locality")] = torch.tensor(
         [0, 3, 5], device=device)
     union = {k: int(wtab[:, i].max()) for i, k in enumerate(K.PRIORITY_AXIS)}
+    # with ties, no dense count: the open nodes' scores stay tied
     specs = [_spec(500, False, rng, n_pad, s_count),
-             _spec(1000, True, rng, n_pad, s_count),
+             _spec(1000, build != "ties", rng, n_pad, s_count),
              _spec(2000, False, rng, n_pad, s_count)]
     pad = dict(specs[0], skip=np.bool_(True))
     racked = dict(_spec(5000, False, rng, n_pad, s_count),
@@ -1852,6 +1991,7 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
     # padding to B
     rows = np.concatenate([rng.integers(0, 3, n_live), np.full(B - n_live, 3)])
     rows[[4, 5, 17]] = 3
+    part = n_real * 9 // 40
 
     def stack(rws, spread=False, with_prof=False):
         sp = [dict(d) for d in table]
@@ -1861,10 +2001,11 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
         return K.PodStack.from_specs(sp, rws, prof[:len(rws)] if with_prof
                                      else None, device)
     scan_cases = [
-        ("partial walk", {}, 900),
-        ("perm", dict(rotation=(perms_t, inv_t, oid[:B])), 700),
+        ("identity", {}, n_real),
+        ("partial walk", {}, part),
+        ("perm", dict(rotation=(perms_t, inv_t, oid[:B])), part * 7 // 9),
         ("pos", dict(rotation_pos=(inv_t, oid[:B])), n_real),
-        ("spread", dict(spread0=spread0), 900),
+        ("spread", dict(spread0=spread0), part),
         ("weight table", dict(weights=union, wtab=wtab), n_real),
     ]
     # the segments window: a singleton run, the rack gang (20 placed on
@@ -1887,20 +2028,22 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
     seg_t = torch.as_tensor(seg).to(device)
     gang_t = torch.as_tensor(gang).to(device)
     seg_cases = [
-        ("axis", {}, 900, n_seg),
-        ("perm", dict(rotation=(perms_t, inv_t, oid)), 700, n_seg),
+        ("axis", {}, part, n_seg),
+        ("perm", dict(rotation=(perms_t, inv_t, oid)), part * 7 // 9, n_seg),
         ("pos", dict(rotation_pos=(inv_t, oid)), n_real, n_seg),
         ("gang score + weight table",
          dict(weights=union, wtab=wtab, gang_score=True), n_real, n_seg),
-        ("spread carry", dict(spread0=spread0), 900, n_seg),
-        ("n_pods < B, stops mid-gang", {}, 900, 25),
+        ("spread carry", dict(spread0=spread0), part, n_seg),
+        ("n_pods < B, stops mid-gang", {}, part, 25),
     ]
+    if build == "again":
+        scan_cases, seg_cases = scan_cases[:1], seg_cases[:1]
     # the single-device plain K5 / K6 of every case, once
     want_scan, want_seg = {}, {}
     for name, kw, ntf in scan_cases:
         st = stack(rows, spread=name == "spread",
                    with_prof=name == "weight table")
-        w1 = K.schedule_batch_plain(nodes, st, 37, 11, ntf, n_real, 8, **kw)
+        w1 = K.schedule_batch_plain(nodes, st, li, 11, ntf, n_real, 8, **kw)
         w2 = None
         if name == "spread":
             w2 = K.schedule_batch_plain(nodes, st, w1[1], w1[2], ntf,
@@ -1909,28 +2052,39 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
     for name, kw, ntf, np_ in seg_cases:
         st = stack(srows, with_prof="wtab" in kw)
         want = K.schedule_batch_segments_plain(
-            nodes, st, seg_t, gang_t, np_, 5, 9, ntf, n_real, 8, **kw)
+            nodes, st, seg_t, gang_t, np_, li_seg, 9, ntf, n_real, 8, **kw)
         sel = want[4][:Bs].cpu().numpy()
-        if np_ == n_seg:
+        if np_ == n_seg and build != "ties":
             g = sel[12: 33]
-            if not ((g >= 0).sum() == 20 and g[20] < 0):
+            if not ((g >= 0).sum() == 20 and g[20] < 0
+                    and len({int(j) // span for j in g[:20]}) > 1):
                 raise SystemExit(f"mesh scan variant segments/{name}: the "
-                                 f"rack gang did not place 20 and fail")
+                                 f"rack gang did not place 20 across "
+                                 f"select blocks and fail")
         want_seg[name] = (st, want)
-    d0 = torch.device(device)
-    for devs in meshes or [[device] * D for D in MESH_SHARDS]:
+    if build == "ties":
+        sel = want_scan["identity"][1][4]["selected"].cpu().numpy()
+        blocks = {int(j) // span for j in sel if j >= 0}
+        if li // span in blocks or blocks != {3 // span, 2050 // span}:
+            raise SystemExit(f"mesh scan variant ties: the winners' select "
+                             f"blocks {blocks}")
+    mesh_list = meshes
+    for mi, devs in enumerate(mesh_list):
         mesh = S.Mesh(devs)
         D = mesh.size
         d0 = mesh.devices[0]
         shards = S.shard_node_arrays(mesh, nodes)
+        sharded_plain = sharded == "all" or (
+            sharded == "last" and mi == len(mesh_list) - 1)
         for name, kw, ntf in scan_cases:
             st, w1, w2 = want_scan[name]
-            args = (st, 37, 11, ntf, n_real, 8)
+            args = (st, li, 11, ntf, n_real, 8)
             got = K.schedule_batch(shards, *args, mesh=mesh, **kw)
-            with plain_versions(MESH_ENTRIES):
-                ref = K.schedule_batch(shards, *args, mesh=mesh, **kw)
-            same(f"{D} shards/scan/{name} vs plain", whole_window(got, d0),
-                 whole_window(ref, d0))
+            if sharded_plain:
+                with plain_versions(MESH_ENTRIES):
+                    ref = K.schedule_batch(shards, *args, mesh=mesh, **kw)
+                same(f"{D} shards/scan/{name} vs plain",
+                     whole_window(got, d0), whole_window(ref, d0))
             same(f"{D} shards/scan/{name} vs K5 plain",
                  whole_window(got, d0), whole_window(w1, d0))
             if w2 is not None:
@@ -1941,24 +2095,17 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
                      whole_window(got2, d0), whole_window(w2, d0))
         for name, kw, ntf, np_ in seg_cases:
             st, want = want_seg[name]
-            args = (st, seg_t, gang_t, np_, 5, 9, ntf, n_real, 8)
+            args = (st, seg_t, gang_t, np_, li_seg, 9, ntf, n_real, 8)
             got = K.schedule_batch_segments(shards, *args, mesh=mesh, **kw)
-            with plain_versions(MESH_ENTRIES):
-                ref = K.schedule_batch_segments(shards, *args, mesh=mesh,
-                                                **kw)
-            same(f"{D} shards/segments/{name} vs plain",
-                 whole_window(got, d0), whole_window(ref, d0))
+            if sharded_plain:
+                with plain_versions(MESH_ENTRIES):
+                    ref = K.schedule_batch_segments(shards, *args, mesh=mesh,
+                                                    **kw)
+                same(f"{D} shards/segments/{name} vs plain",
+                     whole_window(got, d0), whole_window(ref, d0))
             same(f"{D} shards/segments/{name} vs K6 plain",
                  whole_window(got, d0), whole_window(want, d0))
-    sync()
-    print(f"[variants] {checked} mesh scan comparisons equal (K10a/b and "
-          f"K11a/b against their plain versions and the sharded scan / "
-          f"segments against the single-device plain K5 / K6: partial, "
-          f"perm and pos walks, spread carry + carry_in, weight table, "
-          f"skip pods mid-window; the rack gang rewound across every "
-          f"shard, gang score, a singleton failure, n_pods < B; on meshes "
-          f"of {[len(m) for m in meshes] if meshes else list(MESH_SHARDS)} "
-          f"shards, n_real {n_real})")
+    return checked
 
 
 def scan_local_bytes(sh, side, plan):
@@ -2016,7 +2163,8 @@ def scan_kernel_checks(calls, report, sync, seg):
                       lambda a, r: (a[0].rec, {k: a[0].nodes[k]
                                                for k in K._MUTABLE}),
                       scan_local_bytes(*args), sync, 50,
-                      "shard 0's rows of the window's first step")
+                      "shard 0's rows of the window's first step",
+                      on_device=True)
     args, _kw = _full(calls[select])
     mesh_kernel_entry(report, select, calls[select], reset_side,
                       lambda a, r: (a[0].st, a[0].packed,
@@ -2024,8 +2172,10 @@ def scan_kernel_checks(calls, report, sync, seg):
                                     else a[0].gz),
                       scan_select_bytes(*args), sync, 50,
                       "the gathered records of the window's first step",
-                      "; both times include the copy that restores the "
-                      "step state before each call")
+                      "; kernel_ms and plain_ms include the copy that "
+                      "restores the step state before each call; "
+                      f"{describe_geometry(*K.last_geometry[select], True)}",
+                      on_device=True)
 
 
 def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
@@ -3259,22 +3409,28 @@ def main() -> int:
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in MESH_KERNELS]}))
     else:
-        report = kernel_checks(device, sync)
-        variant_checks(device, sync)
-        scan_variant_checks(device, sync)
-        preempt_variant_checks(device, sync)
-        small_world_check(device, sync)
-        main_path("even zones", N_NODES, device, sync, report)
-        main_path("uneven zones (rotate)", N_NODES + 1, device, sync,
-                  report)
-        mesh_variant_checks(device, sync)
-        mesh_path("even zones", N_NODES, device, sync, report, True)
-        mesh_path("uneven zones (rotate)", N_NODES + 1, device, sync,
-                  report, False)
-        refs = scan_paths(device, sync, report)
-        mesh_scan_variant_checks(device, sync)
-        mesh_scan_paths(device, sync, report, refs)
-        preempt_paths(device, sync, report)
+        def timed(fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            print(f"[elapsed] {fn.__name__}: "
+                  f"{time.perf_counter() - t:.1f} s")
+            return out
+        report = timed(kernel_checks, device, sync)
+        timed(variant_checks, device, sync)
+        timed(scan_variant_checks, device, sync)
+        timed(preempt_variant_checks, device, sync)
+        timed(small_world_check, device, sync)
+        timed(main_path, "even zones", N_NODES, device, sync, report)
+        timed(main_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
+              report)
+        timed(mesh_variant_checks, device, sync)
+        timed(mesh_path, "even zones", N_NODES, device, sync, report, True)
+        timed(mesh_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
+              report, False)
+        refs = timed(scan_paths, device, sync, report)
+        timed(mesh_scan_variant_checks, device, sync)
+        timed(mesh_scan_paths, device, sync, report, refs)
+        timed(preempt_paths, device, sync, report)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")

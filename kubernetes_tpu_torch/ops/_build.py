@@ -63,9 +63,13 @@ SIGNATURES = {
     "shard_uniform_sweep": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_scan_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "shard_scan_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    # the cluster selects (K10b, K11b) also take their geometry
+    # (`kernels.select_plan`)
+    "shard_scan_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                          ctypes.POINTER(_L), _P],
     "shard_segments_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "shard_segments_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_segments_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                              ctypes.POINTER(_L), _P],
     "shard_preempt_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_preempt_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_pressure_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
@@ -73,13 +77,12 @@ SIGNATURES = {
 }
 
 #: other C functions of a library: `<name>_clusters(geometry, *clusters)`
-#: asks the card how many clusters of a geometry it can hold at once
-QUERIES = {
-    "schedule_batch": {"schedule_batch_clusters": [
-        ctypes.POINTER(_L), ctypes.POINTER(_I)]},
-    "schedule_segments": {"schedule_segments_clusters": [
-        ctypes.POINTER(_L), ctypes.POINTER(_I)]},
-}
+#: asks the card how many clusters of a geometry it can hold at once (and
+#: sets the geometry's launch attributes on the current device)
+QUERIES = {name: {name + "_clusters": [ctypes.POINTER(_L),
+                                       ctypes.POINTER(_I)]}
+           for name in ("schedule_batch", "schedule_segments",
+                        "shard_scan_select", "shard_segments_select")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,7 @@
 // One pod's scheduling cycle across a thread-block cluster: the cycle of
-// K5 (`schedule_batch.cu`) and K6 (`schedule_segments.cu`).
+// K5 (`schedule_batch.cu`) and K6 (`schedule_segments.cu`), and, fed by
+// the gathered shard records instead of the node rows (REC), of the mesh
+// selects K10b and K11b (`cluster_select.cuh`).
 //
 // Replaces, for the scans, the one-block `cycle_run` of `cycle.cuh`
 // (`_feasibility` + `_fit_scores` + `_cycle_core`,
@@ -51,7 +53,8 @@ constexpr int CLUSTER_MAX = 16;  // H100's non-portable cluster size limit
 
 // The cluster's geometry, chosen on the host (`cluster_plan`,
 // kubernetes_tpu_torch/ops/kernels.py): blocks, node slots a thread, rows
-// resident in shared memory or not, dynamic shared memory of a block.
+// (a select: the step's records) resident in shared memory or not, dynamic
+// shared memory of a block.
 struct ClusterGeom {
   int blocks, npt, resident;
   i64 smem;
@@ -76,17 +79,27 @@ enum { RW_REQ_CPU, RW_REQ_MEM, RW_REQ_EPH, RW_NZ_CPU, RW_NZ_MEM,
 // (`cluster_smem_bytes`) mirrors `bytes`; the launch refuses a plan whose
 // byte count differs.
 struct ClusterLayout {
-  size_t ws, sh32, sh64, warp, slot, res, zsum, gz, hist, boff, bmax, misc, tot,
-      rows, scal_req, scal_alloc, a, fl, ja, zone, valid, bytes;
+  size_t ws, sh32, sh64, warp, slot, res, zsum, gz, hist, boff, bmax, misc, sv,
+      tot, rows, scal_req, scal_alloc, a, fl, ja, zone, valid, rec, bytes;
   int slot_len;  // i64 per partial record
 };
 
+// the i64 planes of a gathered record a select stages (`rec`), in order;
+// the tracked byte and the feasible bit follow them
+enum { RP_LOCAL, RP_NA, RP_TT, RP_SC, RP_IC, RP_N };
+
+// `rec`: a select's layout (K10b, K11b): the step state, and, with
+// `resident` (the records staged in shared memory), per slot the record's
+// zone, RP_N int64 planes, tracked byte and feasible bit; no rows. A select
+// whose records do not fit stages them in global memory (`select_setup`).
 __host__ __device__ inline ClusterLayout cluster_layout(int span, int S,
                                                         int z_pad,
                                                         bool spread,
-                                                        bool resident) {
+                                                        bool resident,
+                                                        bool rec = false) {
   ClusterLayout L;
   const size_t sp = (size_t)span;
+  const bool rows = resident && !rec;  // K5 / K6's node rows
   size_t o = 0;
   L.slot_len = PR_N + 2 * z_pad;
   L.ws = o;    o += 16 * 8;
@@ -101,20 +114,24 @@ __host__ __device__ inline ClusterLayout cluster_layout(int span, int S,
   L.boff = o;  o += CLUSTER_MAX * 8;
   L.bmax = o;  o += CLUSTER_MAX * 8;
   L.misc = o;  o += 8 * 4;
+  L.sv = o;
+  if (rec) o += 16 * 8;
   L.tot = o;   o += sp * 8;
   L.rows = o;
-  if (resident) o += sp * 8 * (RW_SPREAD + (spread ? 1 : 0));
+  if (rows) o += sp * 8 * (RW_SPREAD + (spread ? 1 : 0));
   L.scal_req = o;
-  if (resident) o += sp * 8 * (size_t)S;
+  if (rows) o += sp * 8 * (size_t)S;
   L.scal_alloc = o;
-  if (resident) o += sp * 8 * (size_t)S;
+  if (rows) o += sp * 8 * (size_t)S;
   L.a = o;     o += sp * 4;
   L.fl = o;    o += sp * 4;
   L.ja = o;    o += sp * 4;
   L.zone = o;
   if (resident) o += sp * 4;
   L.valid = o;
-  if (resident) o += sp;
+  if (rows) o += sp;
+  L.rec = o;
+  if (rec && resident) o += sp * (RP_N * 8 + 2);
   L.bytes = o;
   return L;
 }
@@ -131,6 +148,11 @@ struct ClusterCtx {
   int *hist, *misc;
   i64* TOT;      // kept ? score : LLONG_MIN, by local slot
   int *A, *FL, *JA;
+  i64* sv;       // a select's copy of the step state
+  // a select's staged records, indexed by global node: the local totals
+  // (K1 and the row-local families) and the in-range feasible bits
+  const i64* rloc;
+  const unsigned char* rfeas;
   // the rows the cycle reads, indexed by global node: shared memory shifted
   // by -lo (resident) or the window's global rows; spread NULL without
   CycleNodes nd;
@@ -318,8 +340,11 @@ __device__ __forceinline__ i64 cluster_max_ties_round(ClusterCtx& cx,
 // The walk, the scores and the select of one pod's cycle (`cycle_run` +
 // `cycle_select` with skip false, no base, no ghost). `w` is the pod's
 // weight row, `gz` (NULL = off) the gang's zone counts and `gmember`
-// whether the pod is a gang member. Every thread of every block returns
-// the same result.
+// whether the pod is a gang member. REC (the mesh selects): the staged
+// records' feasible bits replace the filter and their local totals K1 and
+// the row-local families (`pd.local_in_base`). Every thread of every
+// block returns the same result.
+template <bool REC = false>
 __device__ __forceinline__ CycleResult cluster_cycle(
     ClusterCtx& cx, cg::cluster_group& cl, const CyclePod& pd,
     const CycleWalk& wk, int gate, const i64* w, const i64* gz,
@@ -343,10 +368,15 @@ __device__ __forceinline__ CycleResult cluster_cycle(
   }
   int lF = 0;
   for (int j = cx.tlo; j < cx.thi; ++j) {
-    i64 bits;
-    int ff;
-    const bool feas = cycle_filter_row(nd, pd, false, j, nullptr, &bits,
-                                       &ff) && (i64)j < nr;
+    bool feas;
+    if constexpr (REC) {
+      feas = cx.rfeas[j] != 0;
+    } else {
+      i64 bits;
+      int ff;
+      feas = cycle_filter_row(nd, pd, false, j, nullptr, &bits, &ff)
+             && (i64)j < nr;
+    }
     // with positions every feasible node is kept
     FL[j - lo] = feas ? (mode == 2 ? CF_FEAS | CF_KEPT : CF_FEAS) : 0;
     lF += feas;
@@ -483,12 +513,15 @@ __device__ __forceinline__ CycleResult cluster_cycle(
     __syncthreads();
     nm.mbz = cycle_zone_max(cx.zsum, z_pad);
   }
-  const i64 p_nz_cpu = pd.scal[3], p_nz_mem = pd.scal[4];
   i64 l_max = LLONG_MIN;
   for (int j = cx.tlo; j < cx.thi; ++j) {
-    i64 t = local_total_one(gate, w, p_nz_cpu + nd.nz_cpu[j],
-                            p_nz_mem + nd.nz_mem[j], nd.alloc_cpu[j],
-                            nd.alloc_mem[j]);
+    i64 t;
+    if constexpr (REC)
+      t = cx.rloc[j];
+    else
+      t = local_total_one(gate, w, pd.scal[3] + nd.nz_cpu[j],
+                          pd.scal[4] + nd.nz_mem[j], nd.alloc_cpu[j],
+                          nd.alloc_mem[j]);
     t = cycle_score_one(pd, gate, w, nm, j, t, nm.do_sc ? pd.sc[j] : 0,
                         nm.do_gang || nm.do_sc ? nd.zone_id[j] : 0, z_pad,
                         cx.zsum, gz);
@@ -639,29 +672,25 @@ __device__ __forceinline__ CycleResult cluster_cycle(
 }
 
 // ---- the window around the cycles -----------------------------------------
-// Set up this thread's view of the cluster and, with resident rows, copy
-// this block's slice of the rows into shared memory. Ends with a cluster
-// barrier: no block touches another's shared memory before all have
-// started.
-template <bool RES>
-__device__ __forceinline__ ClusterCtx cluster_setup(const ScanArgs& a,
-                                                    const ClusterGeom& g,
-                                                    unsigned char* sm,
-                                                    cg::cluster_group& cl) {
+// This thread's view of the cluster over `n` node slots: its block's slice
+// and slots, and the block's tables in the shared memory `sm` laid out as
+// `L`. The caller fills `nd` (and, a select, the staged records).
+__device__ __forceinline__ ClusterCtx cluster_view(const ClusterGeom& g, int n,
+                                                   int z_pad,
+                                                   const ClusterLayout& L,
+                                                   unsigned char* sm,
+                                                   cg::cluster_group& cl) {
   ClusterCtx cx;
-  const int n = (int)a.v[I_N_PAD], S = (int)a.v[I_S];
-  const bool spread = a.v[I_CARRY_SPREAD] != 0;
   cx.rank = (int)cl.block_rank();
   cx.C = (int)cl.num_blocks();
   cx.npt = g.npt;
   cx.span = g.npt * NTHREADS;
-  cx.z_pad = (int)a.v[I_Z_PAD];
+  cx.z_pad = z_pad;
   cx.round = 0;
   cx.lo = min(cx.rank * cx.span, n);
   cx.hi = min(cx.lo + cx.span, n);
   cx.tlo = min(cx.lo + (int)threadIdx.x * g.npt, cx.hi);
   cx.thi = min(cx.tlo + g.npt, cx.hi);
-  const ClusterLayout L = cluster_layout(cx.span, S, cx.z_pad, spread, RES);
   cx.ws = (i64*)(sm + L.ws);
   cx.sh32 = (int*)(sm + L.sh32);
   cx.sh64 = (i64*)(sm + L.sh64);
@@ -678,6 +707,27 @@ __device__ __forceinline__ ClusterCtx cluster_setup(const ScanArgs& a,
   cx.A = (int*)(sm + L.a);
   cx.FL = (int*)(sm + L.fl);
   cx.JA = (int*)(sm + L.ja);
+  cx.sv = (i64*)(sm + L.sv);
+  cx.rloc = nullptr;
+  cx.rfeas = nullptr;
+  cx.spread = nullptr;
+  return cx;
+}
+
+// Set up this thread's view of the cluster and, with resident rows, copy
+// this block's slice of the rows into shared memory. Ends with a cluster
+// barrier: no block touches another's shared memory before all have
+// started.
+template <bool RES>
+__device__ __forceinline__ ClusterCtx cluster_setup(const ScanArgs& a,
+                                                    const ClusterGeom& g,
+                                                    unsigned char* sm,
+                                                    cg::cluster_group& cl) {
+  const int n = (int)a.v[I_N_PAD], S = (int)a.v[I_S];
+  const bool spread = a.v[I_CARRY_SPREAD] != 0;
+  const ClusterLayout L = cluster_layout(g.npt * NTHREADS, S,
+                                         (int)a.v[I_Z_PAD], spread, RES);
+  ClusterCtx cx = cluster_view(g, n, (int)a.v[I_Z_PAD], L, sm, cl);
   cx.nd = scan_nodes(a);
   cx.spread = spread ? mptr<i64>(a, P_SPREAD) : nullptr;
   if (RES) {
@@ -798,17 +848,35 @@ inline ClusterGeom cluster_geom(const i64* geom) {
                      (int)geom[CG_RESIDENT], geom[CG_SMEM]};
 }
 
+// The launch attributes of a cluster kernel on the current device: the
+// most dynamic shared memory the device lets it take (the opt-in limit less
+// its static shared memory), so that any geometry's launch fits whichever
+// geometry set them, and the non-portable cluster size. The occupancy query
+// (`cluster_occupancy`) sets them; the host runs it on a device before the
+// kernel's first launch there.
 template <typename Kernel>
-inline cudaError_t cluster_config(Kernel kernel, const ClusterGeom& g,
-                                  cudaStream_t stream,
-                                  cudaLaunchConfig_t* cfg,
-                                  cudaLaunchAttribute* attr) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
+inline cudaError_t cluster_attrs(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - (int)fa.sharedSizeBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  return e;
+}
+
+inline void cluster_config(const ClusterGeom& g, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(g.blocks, 1, 1);
   cfg->blockDim = dim3(NTHREADS, 1, 1);
@@ -820,31 +888,30 @@ inline cudaError_t cluster_config(Kernel kernel, const ClusterGeom& g,
   attr->val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaSuccess;
 }
 
-// One cluster of g.blocks blocks for the whole window.
-template <typename Kernel>
-inline int cluster_launch(Kernel kernel, const ScanArgs& a,
-                          const ClusterGeom& g, cudaStream_t stream) {
-  const int bad = cluster_check(a, g);
-  if (bad) return bad;
+// One cluster of g.blocks blocks running `kernel(a, g)` (K5 / K6 a window,
+// K10b / K11b a step), its launch attributes set by the occupancy query.
+template <typename Kernel, typename Args>
+inline int cluster_launch(Kernel kernel, const Args& a, const ClusterGeom& g,
+                          cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = cluster_config(kernel, g, stream, &cfg, &attr);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, kernel, a, g);
+  cluster_config(g, stream, &cfg, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, g);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // How many clusters of this geometry the card can hold at once (0: none).
+// Sets the kernel's launch attributes on the current device.
 template <typename Kernel>
 inline int cluster_occupancy(Kernel kernel, const ClusterGeom& g,
                              int* clusters) {
+  const cudaError_t e = cluster_attrs(kernel);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = cluster_config(kernel, g, 0, &cfg, &attr);
-  if (e != cudaSuccess) return (int)e;
+  cluster_config(g, 0, &cfg, &attr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, &cfg);
 }

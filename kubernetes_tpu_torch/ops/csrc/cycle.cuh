@@ -507,17 +507,17 @@ __device__ __forceinline__ CycleResult cycle_run(
   return r;
 }
 
-// ---- the gathered records of the sharded cycle (K9b, K10b, K11b) ----------
+// ---- the gathered records of the sharded cycle (K9b, K10b, K11b, K13b) -----
 // Byte offsets of the planes in one shard's record (-1 = absent), in the
 // order of `_REC_PLANES` (kubernetes_tpu_torch/ops/kernels.py).
 struct RecLayout {
   i64 local, na, tt, sc, ic, zone, feas, tracked;
 };
 
-// Unpack the D shard records of `g` ([D, chunk] bytes, `rows` rows each)
-// into flat [n] planes: p64 [5, n] (local, na, tt, sc, ic), zone, the
-// tracked bytes, and the in-range feasible bit into FL = flags + n. Ends
-// with a barrier.
+// Unpack the D shard records of `g` ([D, chunk] bytes, `rows` rows each;
+// the one-block selects K9b and K13b) into flat [n] planes: p64 [5, n]
+// (local, na, tt, sc, ic), zone, the tracked bytes, and the in-range
+// feasible bit into FL = flags + n. Ends with a barrier.
 __device__ __forceinline__ void unpack_records(const unsigned char* g,
                                                size_t chunk, int n, int rows,
                                                const RecLayout& o, i64* p64,

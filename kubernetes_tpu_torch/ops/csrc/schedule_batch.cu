@@ -92,6 +92,8 @@ extern "C" int schedule_batch_launch(const i64* iargs, void** ptrs,
                                      const i64* geom, void* stream) {
   const ScanArgs a = scan_args(iargs, ptrs);
   const ClusterGeom g = cluster_geom(geom);
+  const int bad = cluster_check(a, g);
+  if (bad) return bad;
   return g.resident
              ? cluster_launch(schedule_batch_kernel<true>, a, g,
                               (cudaStream_t)stream)

@@ -19,11 +19,13 @@
 // at the selected node or the nomination's ghost at the winner. Every
 // distinct device runs it on the same bytes and advances its own state.
 //
-// Shared with K10b/K11b: `select_cycle` (shard_scan.cuh); with K14b:
-// `pick_records`, `pick_flags` (victim.cuh).
+// Shared with K10b/K11b: the argument tables, `select_walk` and
+// `select_weights` (shard_scan.cuh); with K9b: `unpack_records`,
+// `cycle_select` (cycle.cuh); with K14b: `pick_records`, `pick_flags`
+// (victim.cuh).
 //
-// Bound on the H100: latency, as K10b (a chain of block-wide reductions
-// and scans over n_pad rows). Design: ONE block of 1024 threads.
+// Bound on the H100: latency (a chain of block-wide reductions and scans
+// over n_pad rows). Design: ONE block of 1024 threads.
 #include "shard_scan.cuh"
 #include "victim.cuh"
 
@@ -46,7 +48,7 @@ __global__ void __launch_bounds__(NTHREADS)
   CycleResult res{-1, 0, 0, 0, floormod(li, imax64(a.v[SSI_N_REAL], 1)),
                   lni, false};
   if (!skip)
-    res = select_cycle(a, b, r, li, lni, b, nullptr, false, ws, no_scal);
+    res = select_cycle(a, b, r, li, lni, ws, no_scal);
   const unsigned char* g = ssp<const unsigned char>(a, SSP_GATHERED);
   const size_t chunk = (size_t)a.v[SSI_CHUNK];
   const size_t off = (size_t)a.v[SSI_CAND_OFF];

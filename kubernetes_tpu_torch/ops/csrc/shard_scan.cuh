@@ -20,12 +20,13 @@
 //      at a segment start; then K9a's filter and row-local scores of the
 //      step's pod over the shard's rows, into K9a's record;
 //   2. the all-gather of the records (host side, parallel/sharding.py);
-//   3. the select on every distinct device: K9b's walk, kept-set scores
-//      and pick for the step (`cycle_select`), the skip pods' known result
-//      (`_skip_cycle`), li / lni, and for K11b the segment state (gang
-//      checkpoint, effective skip, rewind, gang zone counts); it writes
-//      the decision into the packed block and the step state the locals
-//      read next.
+//   3. the select on every distinct device: the walk, kept-set scores and
+//      pick of the step's cycle (K10b / K11b: `cluster_cycle` across a
+//      thread-block cluster, `cluster_select.cuh`; K13b: `cycle_select` in
+//      one block), the skip pods' known result (`_skip_cycle`), li / lni,
+//      and for K11b the segment state (gang checkpoint, effective skip,
+//      rewind, gang zone counts); it writes the decision into the packed
+//      block and the step state the locals read next.
 // After the last step the host launches the local kernel once more: it
 // only folds the last winner (and, K11a, takes back a last rewind).
 //
@@ -275,7 +276,9 @@ inline int scan_local_blocks(const ScanLocalArgs& a) {
   return blocks < 1 ? 1 : blocks;
 }
 
-// ---- the select kernels (K10b, K11b) ---------------------------------------
+// ---- the select kernels (K10b, K11b, K13b) ---------------------------------
+// K10b and K11b run as thread-block clusters (`cluster_select.cuh`); K13b
+// runs `select_cycle` below in one block.
 // scalar slots, in the order of `_SSS_INTS`
 enum {
   SSI_N_PAD, SSI_ROWS, SSI_D, SSI_CHUNK, SSI_N_REAL, SSI_Z_PAD, SSI_B,
@@ -289,7 +292,7 @@ enum {
   SSP_GATHERED, SSP_W, SSP_WTAB, SSP_PROFILE_ID, SSP_ROW, SSP_SCAL,
   SSP_IC_B, SSP_TR_B, SSP_PERMS, SSP_INV_PERMS, SSP_OID_SEQ, SSP_SEG_START,
   SSP_GANG, SSP_GZ, SSP_STATE, SSP_P64, SSP_ZONE, SSP_TRACKED, SSP_TOTAL,
-  SSP_KEPT, SSP_FLAGS, SSP_ZS, SSP_PACKED, SSP_STATS, SSP_COUNT
+  SSP_KEPT, SSP_FLAGS, SSP_ZS, SSP_PACKED, SSP_STATS, SSP_RECS, SSP_COUNT
 };
 
 struct ScanSelectArgs {
@@ -302,41 +305,9 @@ __device__ __forceinline__ T* ssp(const ScanSelectArgs& a, int slot) {
   return (T*)a.p[slot];
 }
 
-// K10b: write step i's decision into the packed [3B] block (selected, li
-// after, lni - lni0) and the stats [5, B] (selected, found, evaluated,
-// max_score, lni after). One thread.
-__device__ __forceinline__ void scan_write(const ScanSelectArgs& a, i64 i,
-                                           const CycleResult& r, i64 lni0) {
-  const i64 B = a.v[SSI_B];
-  int* packed = ssp<int>(a, SSP_PACKED);
-  i64* stats = ssp<i64>(a, SSP_STATS);
-  packed[i] = wrap32(r.sel);
-  packed[B + i] = wrap32(r.next_li);
-  packed[2 * B + i] = wrap32(r.next_lni - lni0);
-  stats[i] = r.sel;
-  stats[B + i] = r.found;
-  stats[2 * B + i] = r.evaluated;
-  stats[3 * B + i] = r.max_score;
-  stats[4 * B + i] = r.next_lni;
-}
-
 __device__ __forceinline__ bool scan_skip(const ScanSelectArgs& a, i64 i) {
   const int r = ssp<const int>(a, SSP_ROW)[i];
   return ssp<const i64>(a, SSP_SCAL)[(size_t)r * NSCAL + SC_SKIP] != 0;
-}
-
-// K10b: decide the skip pods from step i on with their known result
-// (`_skip_cycle`: sel -1, li reduced mod n, lni unchanged) up to the next
-// live step, which it returns (n_steps when none is left). One thread.
-__device__ __forceinline__ i64 scan_skip_run(const ScanSelectArgs& a, i64 i,
-                                             i64* li, i64 lni, i64 lni0) {
-  const i64 n_steps = a.v[SSI_N_STEPS];
-  const i64 n_safe = imax64(a.v[SSI_N_REAL], 1);
-  for (; i < n_steps && scan_skip(a, i); ++i) {
-    *li = floormod(*li, n_safe);
-    scan_write(a, i, CycleResult{-1, 0, 0, 0, *li, lni, false}, lni0);
-  }
-  return i;
 }
 
 // The walk of the cycle that consumes enumeration k: rotation order
@@ -364,21 +335,29 @@ __device__ __forceinline__ CycleWalk select_walk(const ScanSelectArgs& a,
   return wk;
 }
 
-// One cycle of live step i (pod-table row r, enumeration k) over the
-// gathered records: stage the pod's weight row, unpack, `cycle_select`.
-__device__ __forceinline__ CycleResult select_cycle(
-    const ScanSelectArgs& a, i64 i, int r, i64 li, i64 lni, i64 k,
-    const i64* gz, bool gmember, i64* ws, const i64* no_scal) {
-  const int tid = threadIdx.x;
-  const int n = (int)a.v[SSI_N_PAD];
-  if (tid < W_K) {
+// Stage step i's weight row into `ws`: its wtab row in tensor mode, else
+// the static weights. No barrier.
+__device__ __forceinline__ void select_weights(const ScanSelectArgs& a, i64 i,
+                                               i64* ws) {
+  if (threadIdx.x < W_K) {
     const i64* w = ssp<const i64>(a, SSP_W);
     if (a.p[SSP_WTAB])
       w = ssp<const i64>(a, SSP_WTAB)
           + clamp_index(ssp<const i64>(a, SSP_PROFILE_ID)[i], a.v[SSI_P])
                 * W_K;
-    ws[tid] = w[tid];
+    ws[threadIdx.x] = w[threadIdx.x];
   }
+}
+
+// The cycle of live step i (pod-table row r, its own enumeration) over the
+// gathered records in ONE block (K13b): stage the pod's weight row,
+// unpack, `cycle_select`.
+__device__ __forceinline__ CycleResult select_cycle(const ScanSelectArgs& a,
+                                                    i64 i, int r, i64 li,
+                                                    i64 lni, i64* ws,
+                                                    const i64* no_scal) {
+  const int n = (int)a.v[SSI_N_PAD];
+  select_weights(a, i, ws);
   const RecLayout lay{a.v[SSI_OFF_LOCAL], a.v[SSI_OFF_NA], a.v[SSI_OFF_TT],
                       a.v[SSI_OFF_SC],    a.v[SSI_OFF_IC], a.v[SSI_OFF_ZONE],
                       a.v[SSI_OFF_FEAS],  a.v[SSI_OFF_TRACKED]};
@@ -414,139 +393,14 @@ __device__ __forceinline__ CycleResult select_cycle(
   const CycleScratch cs{ssp<i64>(a, SSP_TOTAL), ssp<unsigned char>(a, SSP_KEPT),
                         nullptr, nullptr, nullptr, ssp<int>(a, SSP_FLAGS),
                         ssp<i64>(a, SSP_ZS)};
-  const CycleResult res = cycle_select(nd, pd, false, select_walk(a, li, lni, k),
-                                       (int)a.v[SSI_GATE], ws, p64, gz,
-                                       gmember, cs);
-  __syncthreads();  // every read of gz and of the scratch is done
+  const CycleResult res = cycle_select(nd, pd, false, select_walk(a, li, lni, i),
+                                       (int)a.v[SSI_GATE], ws, p64, nullptr,
+                                       false, cs);
+  __syncthreads();  // every read of the scratch is done
   return res;
 }
 
-// K10b: one launch decides the skip pods up to the next live step, that
-// step, and the skip pods after it, so the host launches one step per live
-// pod and the window's padding costs no launch.
-__device__ __forceinline__ void scan_select_step(const ScanSelectArgs& a) {
-  __shared__ i64 ws[W_K];
-  __shared__ i64 no_scal[16];  // the pod scalars the select never reads
-  __shared__ i64 sv[SS_COUNT];
-  const int tid = threadIdx.x;
-  i64* st = ssp<i64>(a, SSP_STATE);
-  if (tid < 16) no_scal[tid] = 0;
-  if (tid < SS_COUNT) sv[tid] = st[tid];
-  __syncthreads();
-  const i64 lni0 = sv[SS_LNI0];
-  if (tid == 0)
-    sv[SS_STEP] = scan_skip_run(a, sv[SS_STEP], &sv[SS_LI], sv[SS_LNI], lni0);
-  __syncthreads();
-  i64 i = sv[SS_STEP], li = sv[SS_LI], lni = sv[SS_LNI];
-  i64 fold = -1;
-  int r = 0;
-  if (i < a.v[SSI_N_STEPS]) {
-    r = ssp<const int>(a, SSP_ROW)[i];
-    const CycleResult res = select_cycle(a, i, r, li, lni, i, nullptr, false,
-                                         ws, no_scal);
-    fold = res.found > 0 ? res.sel : -1;
-    li = res.next_li;
-    lni = res.next_lni;
-    if (tid == 0) {
-      scan_write(a, i, res, lni0);
-      i = scan_skip_run(a, i + 1, &li, lni, lni0);
-    }
-  }
-  if (tid == 0) {
-    st[SS_STEP] = i;
-    st[SS_NEXT] = i;
-    st[SS_LI] = li;
-    st[SS_LNI] = lni;
-    st[SS_FOLD_SEL] = fold;
-    st[SS_FOLD_ROW] = r;
-  }
-}
-
-// K11b: one step of `_segments_core` (one pod, in order): the segment
-// checkpoint at a segment start (gz reset BEFORE it, so a rewind restores
-// zeros), the effective skip `skip | (gang & failed)`, the cycle at
-// enumeration t, the gang zone count of a placed member, and the rewind
-// of li / lni / t / gz when a gang member finds no node; the packed [4B]
-// block gets selected (or -1), li after, lni - lni0 and t.
-__device__ __forceinline__ void segments_select_step(
-    const ScanSelectArgs& a) {
-  __shared__ i64 ws[W_K];
-  __shared__ i64 no_scal[16];
-  __shared__ i64 sv[SS_COUNT];
-  const int tid = threadIdx.x;
-  i64* st = ssp<i64>(a, SSP_STATE);
-  if (tid < 16) no_scal[tid] = 0;
-  if (tid < SS_COUNT) sv[tid] = st[tid];
-  __syncthreads();
-  const i64 i = sv[SS_STEP];
-  if (i >= a.v[SSI_N_STEPS]) return;
-  const i64 B = a.v[SSI_B];
-  const int z_pad = (int)a.v[SSI_Z_PAD];
-  const bool gang_score = a.v[SSI_GANG_SCORE] != 0;
-  const i64 n_safe = imax64(a.v[SSI_N_REAL], 1);
-  const i64 lni0 = sv[SS_LNI0];
-  i64 li = sv[SS_LI], lni = sv[SS_LNI], t = sv[SS_T];
-  i64 chk_li = sv[SS_CHK_LI], chk_lni = sv[SS_CHK_LNI], chk_t = sv[SS_CHK_T];
-  bool failed = sv[SS_FAILED] != 0;
-  i64* gz = ssp<i64>(a, SSP_GZ);
-  const int r = ssp<const int>(a, SSP_ROW)[i];
-  const bool sflag = ssp<const unsigned char>(a, SSP_SEG_START)[i] != 0;
-  const bool gflag = ssp<const unsigned char>(a, SSP_GANG)[i] != 0;
-  if (sflag) {
-    if (gang_score)
-      for (int z = tid; z < z_pad; z += NTHREADS) gz[z] = 0;
-    chk_li = li;
-    chk_lni = lni;
-    chk_t = t;
-    failed = false;
-  }
-  __syncthreads();  // the gz reset lands before the cycle reads it
-  const bool eskip = scan_skip(a, i) || (gflag && failed);
-  CycleResult res{-1, 0, 0, 0, floormod(li, n_safe), lni, false};
-  if (!eskip)
-    res = select_cycle(a, i, r, li, lni, t, gang_score ? gz : nullptr, gflag,
-                       ws, no_scal);
-  const bool hit = res.found > 0;
-  const bool fail_now = gflag && !hit && !eskip;
-  if (fail_now) {
-    li = chk_li;
-    lni = chk_lni;
-    t = chk_t;
-  } else {
-    li = res.next_li;
-    lni = res.next_lni;
-    t += eskip ? 0 : 1;
-  }
-  failed = failed || fail_now;
-  if (tid == 0) {
-    if (gang_score && hit && gflag) {
-      const int z = ssp<const int>(a, SSP_ZONE)[res.sel];
-      if (z > 0 && z < z_pad) gz[z] += 1;
-    }
-    if (gang_score && fail_now)
-      for (int z = 0; z < z_pad; ++z) gz[z] = 0;
-    int* packed = ssp<int>(a, SSP_PACKED);
-    packed[i] = hit ? wrap32(res.sel) : -1;
-    packed[B + i] = wrap32(li);
-    packed[2 * B + i] = wrap32(lni - lni0);
-    packed[3 * B + i] = wrap32(t);
-    st[SS_STEP] = i + 1;
-    st[SS_NEXT] = i + 1;
-    st[SS_LI] = li;
-    st[SS_LNI] = lni;
-    st[SS_FOLD_SEL] = hit ? res.sel : -1;
-    st[SS_FOLD_ROW] = r;
-    st[SS_REWIND] = fail_now;
-    st[SS_T] = t;
-    st[SS_CHK_T] = chk_t;
-    st[SS_CHK_LI] = chk_li;
-    st[SS_CHK_LNI] = chk_lni;
-    st[SS_FAILED] = failed;
-  }
-}
-
-// The host's argument arrays as the struct the select kernels take (ONE
-// block of NTHREADS threads).
+// The host's argument arrays as the struct the select kernels take.
 inline ScanSelectArgs scan_select_args(const i64* iargs, void* const* ptrs) {
   ScanSelectArgs a;
   for (int i = 0; i < SSI_COUNT; ++i) a.v[i] = iargs[i];

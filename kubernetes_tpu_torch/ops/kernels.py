@@ -1562,7 +1562,8 @@ def schedule_batch_segments_plain(nodes, pods, seg_start, gang, n_pods,
 
 
 # ---------------------------------------------------------------------------
-# The cluster geometry of K5 / K6 (csrc/cluster_cycle.cuh)
+# The cluster geometry of K5 / K6 (csrc/cluster_cycle.cuh) and of the mesh
+# selects K10b / K11b (csrc/cluster_select.cuh)
 # ---------------------------------------------------------------------------
 #: blocks of a cluster (H100's non-portable maximum), threads of a block,
 #: and the dynamic shared memory a block may take after the opt-in
@@ -1571,18 +1572,27 @@ CLUSTER_THREADS = 1024
 SMEM_CAP = 232448
 #: the kernels that run as one cluster a window
 CLUSTER_KERNELS = ("schedule_batch", "schedule_segments")
+#: the mesh selects that run as one cluster a step
+SELECT_CLUSTER_KERNELS = ("shard_scan_select", "shard_segments_select")
+#: slots of a launch's geometry array (`CG_*`, csrc/cluster_cycle.cuh)
+CLUSTER_GEOM = ("blocks", "npt", "resident", "smem")
 _NWARPS = CLUSTER_THREADS // 32
 _PR_N = 8              # fields of a round's partial record (`PR_*`)
 _ROWS_I64 = 10         # resident int64 rows besides the carried spread
+_RP_N = 5              # a select's staged int64 record planes (`RP_*`)
+#: bytes a node slot of a select's records staged in global memory: the
+#: int64 planes, the zone, the tracked byte and the feasible bit
+_REC_SLOT_BYTES = 8 * _RP_N + 4 + 2
 
 
 @dataclasses.dataclass(frozen=True)
 class ClusterPlan:
-    """The geometry of one K5 / K6 launch: `blocks` blocks of
-    CLUSTER_THREADS threads, each thread `nodes_per_thread` consecutive
-    node slots (block q owns [q * span, (q + 1) * span)), the node rows
-    `resident` in shared memory for the whole window or left in global
-    memory, and `smem_bytes` of dynamic shared memory a block."""
+    """The geometry of one cluster launch (K5 / K6, or a K10b / K11b
+    step): `blocks` blocks of CLUSTER_THREADS threads, each thread
+    `nodes_per_thread` consecutive node slots (block q owns [q * span,
+    (q + 1) * span)), the node rows (a select: the step's gathered
+    records) `resident` in shared memory or left in global memory, and
+    `smem_bytes` of dynamic shared memory a block."""
     blocks: int
     nodes_per_thread: int
     resident: bool
@@ -1593,13 +1603,15 @@ class ClusterPlan:
         return self.nodes_per_thread * CLUSTER_THREADS
 
     def geometry(self):
-        """The launch's `ClusterGeom` array (csrc/cluster_cycle.cuh)."""
-        return (ctypes.c_longlong * 4)(self.blocks, self.nodes_per_thread,
-                                       int(self.resident), self.smem_bytes)
+        """The launch's `ClusterGeom` array (csrc/cluster_cycle.cuh), in
+        CLUSTER_GEOM order."""
+        return (ctypes.c_longlong * len(CLUSTER_GEOM))(
+            self.blocks, self.nodes_per_thread, int(self.resident),
+            self.smem_bytes)
 
 
 def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
-                       resident: bool) -> int:
+                       resident: bool, records: bool = False) -> int:
     """A block's dynamic shared memory, as `cluster_layout`
     (csrc/cluster_cycle.cuh) lays it out: a fixed part (the weight row,
     the warp slots of the block scans and of the rounds, two partial
@@ -1607,56 +1619,80 @@ def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
     table, the gang's, the per-block counts and offsets) and per node slot
     the score, the prefix, the flags and the tie slot, plus, with the rows
     resident, ten int64 rows, the carried spread, two int64 planes of S
-    scalars, the zone and the valid byte."""
+    scalars, the zone and the valid byte. `records` (a select): no rows,
+    the step state, and, resident, per slot the staged record's zone, five
+    int64 planes (local, na, tt, sc, ic), tracked byte and feasible
+    bit."""
     fixed = (16 * 8 + _NWARPS * (4 + 8) + _PR_N * _NWARPS * 8
              + 2 * (_PR_N + 2 * z_pad) * 8 + 16 * 8 + 3 * z_pad * 8
              + 16 * (4 + 8 + 8) + 8 * 4)
     per_node = 8 + 3 * 4
-    if resident:
+    if records:
+        fixed += 16 * 8
+        if resident:
+            per_node += _REC_SLOT_BYTES
+    elif resident:
         per_node += 8 * (_ROWS_I64 + int(bool(carry_spread))) + 16 * S + 5
     return fixed + span * per_node
 
 
 def cluster_plan(n_pad: int, S: int, z_pad: int, carry_spread: bool,
-                 blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
-    """The geometry of K5 / K6 over `n_pad` node slots: `blocks` blocks,
-    the fewest slots a thread that cover the axis, the rows resident in
-    shared memory when they fit in SMEM_CAP beside the scratch, else in
-    global memory. Raises when not even the scratch fits."""
+                 blocks: int = CLUSTER_BLOCKS,
+                 records: bool = False) -> ClusterPlan:
+    """The geometry of K5 / K6 over `n_pad` node slots (`records`: of a
+    K10b / K11b step): `blocks` blocks, the fewest slots a thread that
+    cover the axis, the rows (the step's records) resident in shared
+    memory when they fit in SMEM_CAP beside the scratch, else in global
+    memory. Raises when not even the scratch fits."""
     if not 1 <= blocks <= CLUSTER_BLOCKS:
         raise ValueError(f"a cluster holds 1 to {CLUSTER_BLOCKS} blocks")
     npt = max(1, -(-int(n_pad) // (blocks * CLUSTER_THREADS)))
     span = npt * CLUSTER_THREADS
     for resident in (True, False):
-        nbytes = cluster_smem_bytes(span, S, z_pad, carry_spread, resident)
+        nbytes = cluster_smem_bytes(span, S, z_pad, carry_spread, resident,
+                                    records)
         if nbytes <= SMEM_CAP:
             return ClusterPlan(blocks, npt, resident, nbytes)
-    raise ValueError(f"cluster scan: n_pad {n_pad} (z_pad {z_pad}) needs "
-                     f"{nbytes} B of shared memory a block, over {SMEM_CAP}")
+    raise ValueError(f"cluster {'select' if records else 'scan'}: n_pad "
+                     f"{n_pad} (z_pad {z_pad}) needs {nbytes} B of shared "
+                     f"memory a block, over {SMEM_CAP}")
 
 
-#: clusters the card holds at once, by (kernel, plan); and each cluster
-#: kernel's last geometry with that count (what chip_smoke.py prints)
+def select_plan(n_pad: int, z_pad: int,
+                blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
+    """The geometry of a K10b / K11b step over `n_pad` node slots (no
+    rows; the step's gathered records staged in shared memory when they
+    fit, else in global memory)."""
+    return cluster_plan(n_pad, 0, z_pad, False, blocks, records=True)
+
+
+#: clusters the card holds at once, by (kernel, plan, device); and each
+#: cluster kernel's last geometry with that count (what chip_smoke.py
+#: prints)
 _CLUSTER_FIT: dict = {}
 last_geometry: dict = {}
 
 
-def _cluster_geometry(name: str, n_pad: int, S: int, z_pad: int,
-                      carry_spread: bool) -> ClusterPlan:
-    """The plan a launch takes: CLUSTER_BLOCKS blocks, or half as many
-    when the card cannot place a cluster of that many at that shared
-    memory (`cudaOccupancyMaxActiveClusters` gives 0). Raises with the
+def _cluster_geometry(name: str, plan_for) -> ClusterPlan:
+    """The plan a launch takes on the current device: `plan_for(blocks)`
+    at CLUSTER_BLOCKS blocks, or half as many when the card cannot place
+    a cluster of that many at that shared memory
+    (`cudaOccupancyMaxActiveClusters` gives 0). The query, once per
+    kernel, plan and device, also sets the kernel's launch attributes on
+    the device, the same for every plan (the most shared memory the device
+    allows), so a launch of any plan queried there fits. Raises with the
     counts when it can place neither."""
     query = getattr(_build.load(name), name + "_clusters")
+    dev = torch.cuda.current_device()
     tried = []
     for blocks in (CLUSTER_BLOCKS, CLUSTER_BLOCKS // 2):
-        plan = cluster_plan(n_pad, S, z_pad, carry_spread, blocks)
-        fit = _CLUSTER_FIT.get((name, plan))
+        plan = plan_for(blocks)
+        fit = _CLUSTER_FIT.get((name, plan, dev))
         if fit is None:
             out = ctypes.c_int(0)
             _check(query(plan.geometry(), ctypes.byref(out)),
                    name + "_clusters")
-            fit = _CLUSTER_FIT[(name, plan)] = out.value
+            fit = _CLUSTER_FIT[(name, plan, dev)] = out.value
         tried.append((plan, fit))
         if fit > 0:
             last_geometry[name] = (plan, fit)
@@ -1761,8 +1797,8 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
     carry_out = torch.empty(2, dtype=I64, device=dev)
     extra = ()
     if name in CLUSTER_KERNELS:
-        plan = _cluster_geometry(name, n_pad, s_count, int(z_pad),
-                                 carry_spread)
+        plan = _cluster_geometry(name, lambda blocks: cluster_plan(
+            n_pad, s_count, int(z_pad), carry_spread, blocks))
         extra = (plan.geometry(),)
     seg = {}
     if segments is not None:
@@ -3139,7 +3175,8 @@ class ScanSide:
     1] (what an inert field broadcasts), the rotation tables and order
     ids (or None), `seg_start` / `gang` [B] and the gang zone counts `gz`
     [z_pad] (K11), the gathered records [D, bytes], the packed block and
-    (K10) the stats [5, B], and the select's scratch."""
+    (K10) the stats [5, B], and the one-block select's scratch (K13b;
+    empty for the cluster selects K10b / K11b)."""
     st: torch.Tensor
     row: torch.Tensor
     prof: Optional[torch.Tensor]
@@ -3315,12 +3352,14 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
 
 def _scan_step_launch(name, obj, build) -> None:
     """Launch kernel `name` with the argument arrays cached on `obj` (a
-    ScanShard or ScanSide), built by `build()` at its first launch."""
+    ScanShard or ScanSide), built by `build()` at its first launch: (the
+    pointer tensors, the scalar array, the pointer array, and a cluster
+    select's geometry)."""
     args = obj._args.get(name)
     if args is None:
         args = obj._args[name] = build()
     with _on(obj.device):
-        _launch(name, args[1], args[2])
+        _launch(name, *args[1:])
 
 
 def shard_scan_local(sh: ScanShard, side: ScanSide, plan: ScanPlan) -> None:
@@ -3474,10 +3513,10 @@ _SSS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad", "B",
 _SSS_PTRS = ("gathered", "w", "wtab", "profile_id", "row", "scal", "ic_b",
              "tr_b", "perms", "inv_perms", "oid_seq", "seg_start", "gang",
              "gz", "state", "p64", "zone", "tracked", "total", "kept",
-             "flags", "zs", "packed", "stats")
+             "flags", "zs", "packed", "stats", "recs")
 
 
-def _scan_select_args(name, side: ScanSide, plan: ScanPlan):
+def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None):
     dev = side.device
     D, chunk = (int(x) for x in side.gathered.shape)
     off, _nbytes = record_layout(plan.planes, plan.rows)
@@ -3490,7 +3529,8 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan):
             "ic_b": side.ic_b, "tr_b": side.tr_b, "perms": side.perms,
             "inv_perms": side.inv_perms, "oid_seq": side.oid,
             "seg_start": side.seg_start, "gang": side.gang, "gz": side.gz,
-            "state": side.st, "packed": side.packed, "stats": side.stats}
+            "state": side.st, "packed": side.packed, "stats": side.stats,
+            "recs": recs}
     ptrs.update(side.scratch)
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
     _require_on(name, dev, *ptrs.values())
@@ -3508,23 +3548,39 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan):
     return (ptrs,) + _launch_arrays(ints, _SSS_INTS, ptrs, _SSS_PTRS, name)
 
 
+def _select_cluster_launch(name, side: ScanSide, plan: ScanPlan) -> None:
+    """One step of cluster select `name` (K10b / K11b) on `side`'s device.
+    At the window's first step the argument arrays and the geometry are
+    built and cached on `side`: `select_plan` at 16 blocks, or 8 when the
+    card cannot place 16, and, for records staged in global memory, the
+    staging area."""
+    def build():
+        with _on(side.device):
+            geo = _cluster_geometry(name, lambda blocks: select_plan(
+                plan.n_pad, plan.z_pad, blocks))
+        recs = None if geo.resident else torch.empty(
+            plan.n_pad * _REC_SLOT_BYTES, dtype=torch.uint8,
+            device=side.device)
+        return _scan_select_args(name, side, plan, recs) + (geo.geometry(),)
+    _scan_step_launch(name, side, build)
+
+
 def shard_scan_select(side: ScanSide, plan: ScanPlan) -> None:
     """K10b on one device over its gathered records. CPU -> the plain
-    version; CUDA -> `csrc/shard_scan_select.cu`."""
+    version; CUDA -> `csrc/shard_scan_select.cu`, one thread-block
+    cluster a step."""
     if not side.gathered.is_cuda:
         return shard_scan_select_plain(side, plan)
-    _scan_step_launch("shard_scan_select", side, lambda: _scan_select_args(
-        "shard_scan_select", side, plan))
+    _select_cluster_launch("shard_scan_select", side, plan)
 
 
 def shard_segments_select(side: ScanSide, plan: ScanPlan) -> None:
     """K11b on one device over its gathered records. CPU -> the plain
-    version; CUDA -> `csrc/shard_segments_select.cu`."""
+    version; CUDA -> `csrc/shard_segments_select.cu`, one thread-block
+    cluster a step."""
     if not side.gathered.is_cuda:
         return shard_segments_select_plain(side, plan)
-    _scan_step_launch("shard_segments_select", side,
-                      lambda: _scan_select_args("shard_segments_select",
-                                                side, plan))
+    _select_cluster_launch("shard_segments_select", side, plan)
 
 
 # ---------------------------------------------------------------------------

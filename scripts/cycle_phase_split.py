@@ -28,6 +28,13 @@ one cluster round.
    resident geometry) that run 20,000 `cluster_round`s of 8 values and of
    1 value, 20,000 bare cluster barriers, and one block's 20,000
    `__syncthreads`; prints microseconds a round.
+4. Times the host's side of one launch (host clock around 20,000
+   enqueues of an empty kernel that takes a mesh select's arguments, the
+   stream drained every 256 launches outside the clock): a plain
+   <<<1, 1024>>> block (the one-block select's launch), one block through
+   `cudaLaunchKernelEx`, and one cluster of 16 x 1024 threads at the
+   select's shared memory at n_pad 16,384 (K10b's / K11b's launch);
+   prints microseconds a launch.
 
 Needs a card and nvcc, as chip_smoke.py does; writes nothing outside
 build/. The probes cost a few cycles each; the numbers are a split, not a
@@ -100,7 +107,9 @@ extern "C" int phase_reset() {
 """
 
 ROUNDS = r"""
-#include "cluster_cycle.cuh"
+#include <chrono>
+
+#include "cluster_select.cuh"
 
 template <int NV>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -160,16 +169,56 @@ extern "C" int rounds_launch(int which, int blocks, int R, long long* out,
     block_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(R, out);
     return (int)cudaGetLastError();
   }
+  cluster_config(g, (cudaStream_t)stream, &cfg, &attr);
   if (which == 0) {
-    e = cluster_config(rounds_kernel<8>, g, (cudaStream_t)stream, &cfg, &attr);
+    e = cluster_attrs(rounds_kernel<8>);
     if (!e) e = cudaLaunchKernelEx(&cfg, rounds_kernel<8>, R, out);
   } else if (which == 1) {
-    e = cluster_config(rounds_kernel<1>, g, (cudaStream_t)stream, &cfg, &attr);
+    e = cluster_attrs(rounds_kernel<1>);
     if (!e) e = cudaLaunchKernelEx(&cfg, rounds_kernel<1>, R, out);
   } else {
-    e = cluster_config(barrier_kernel, g, (cudaStream_t)stream, &cfg, &attr);
+    e = cluster_attrs(barrier_kernel);
     if (!e) e = cudaLaunchKernelEx(&cfg, barrier_kernel, R, out);
   }
+  return e ? (int)e : (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    empty_kernel(ScanSelectArgs a, ClusterGeom g) {}
+
+// Host microseconds a launch of `empty_kernel` over n enqueues: which 0 a
+// <<<1, NTHREADS>>> block, 1 one block through cudaLaunchKernelEx, 2 one
+// cluster of `blocks` blocks at `smem` bytes a block. The stream is
+// drained every 256 launches, outside the clock.
+extern "C" int launch_cost(int which, int blocks, long long smem, int n,
+                           double* us, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const ScanSelectArgs a{};
+  const ClusterGeom one{1, 1, 1, 0}, g{blocks, 1, 1, smem};
+  cudaError_t e = cluster_attrs(empty_kernel);
+  cudaLaunchConfig_t cfg1 = {}, cfg;
+  cudaLaunchAttribute attr;
+  cfg1.gridDim = dim3(1, 1, 1);
+  cfg1.blockDim = dim3(NTHREADS, 1, 1);
+  cfg1.stream = s;
+  cluster_config(g, s, &cfg, &attr);
+  double total = 0;
+  for (int done = 0; done < n && !e;) {
+    const int k = n - done < 256 ? n - done : 256;
+    const auto t0 = std::chrono::steady_clock::now();
+    for (int i = 0; i < k && !e; ++i) {
+      if (which == 0)
+        empty_kernel<<<1, NTHREADS, 0, s>>>(a, one);
+      else
+        e = cudaLaunchKernelEx(which == 1 ? &cfg1 : &cfg, empty_kernel, a,
+                               which == 1 ? one : g);
+    }
+    total += std::chrono::duration<double, std::micro>(
+                 std::chrono::steady_clock::now() - t0).count();
+    if (!e) e = cudaStreamSynchronize(s);
+    done += k;
+  }
+  *us = total / n;
   return e ? (int)e : (int)cudaGetLastError();
 }
 """
@@ -289,8 +338,18 @@ def run_split(label, lib_path, takes_geom, call, ref, sync,
     lib.phase_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
 
     keep = []
+    if takes_geom:
+        # the copy's kernel takes its launch attributes from its own
+        # occupancy query, as the production kernel does from its own
+        lib.schedule_batch_clusters.argtypes = [ctypes.POINTER(L),
+                                                ctypes.POINTER(ctypes.c_int)]
+        lib.schedule_batch_clusters.restype = ctypes.c_int
 
     def launch(name, iargs, parr, *extra):
+        if takes_geom:
+            fit = ctypes.c_int(0)
+            K._check(lib.schedule_batch_clusters(extra[0], ctypes.byref(fit)),
+                     f"{name} ({label}, instrumented) occupancy query")
         if not takes_geom:
             # the one-block K5 keeps its per-node scratch in global memory
             n_pad = iargs[K._SCAN_INTS.index("n_pad")]
@@ -376,6 +435,21 @@ def run_rounds(sync):
         sync()
         print(f"[round] {name} ({blocks} x 1024 threads): "
               f"{start.elapsed_time(end) / R * 1e3:.3f} us")
+    lib.launch_cost.argtypes = [ctypes.c_int, ctypes.c_int,
+                                ctypes.c_longlong, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_double),
+                                ctypes.c_void_p]
+    lib.launch_cost.restype = ctypes.c_int
+    smem = K.select_plan(16384, 8).smem_bytes
+    names = ("<<<1, 1024>>> block", "one block, cudaLaunchKernelEx",
+             f"cluster of {K.CLUSTER_BLOCKS} x 1024, {smem} B a block")
+    us = ctypes.c_double(0)
+    for rep in range(2):
+        for which, name in enumerate(names):
+            K._check(lib.launch_cost(which, K.CLUSTER_BLOCKS, smem, 20000,
+                                     ctypes.byref(us), K._stream()), name)
+            print(f"[launch] host cost of one launch, {name} (pass "
+                  f"{rep + 1}): {us.value:.3f} us")
 
 
 def main() -> int:

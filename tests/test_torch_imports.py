@@ -199,3 +199,32 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
     # the local kernels' checkpoint slots follow `_MUTABLE`
     assert [s for s in PK._SSL_PTRS if s.startswith("chk_")] == [
         "chk_" + k for k in PK._MUTABLE] + ["chk_spread"]
+
+
+def test_cluster_geometry_slots_match_the_kernel_enum():
+    """The geometry array every cluster launch takes (K5 / K6 a window,
+    K10b / K11b a step) names `ClusterGeom`'s C enum slots in order, the
+    select's staged record planes follow `RP_*`, and each cluster kernel's
+    launch takes the geometry and has its occupancy query."""
+    import ctypes
+    from kubernetes_tpu_torch.ops import _build
+    cycle = (_build.CSRC / "cluster_cycle.cuh").read_text()
+    assert _enum_slots(cycle, "CG_COUNT") == [
+        "CG_" + k.upper() for k in PK.CLUSTER_GEOM]
+    assert _enum_slots(cycle, "RP_N") == [
+        "RP_LOCAL", "RP_NA", "RP_TT", "RP_SC", "RP_IC"]
+    assert len(_enum_slots(cycle, "RP_N")) == PK._RP_N
+    plan = PK.select_plan(16384, 4)
+    assert len(plan.geometry()) == len(PK.CLUSTER_GEOM)
+    for name in PK.CLUSTER_KERNELS + PK.SELECT_CLUSTER_KERNELS:
+        sig = _build.SIGNATURES[name]
+        assert sig[2] is ctypes.POINTER(ctypes.c_longlong), name
+        assert list(_build.QUERIES[name]) == [name + "_clusters"]
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_clusters(' in src, name
+    # the selects launch one cluster through `cudaLaunchKernelEx` (the
+    # helpers of cluster_cycle.cuh), never a plain <<<...>>> block
+    assert "cudaLaunchKernelEx(&cfg, kernel" in cycle
+    for name in PK.SELECT_CLUSTER_KERNELS:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert "<<<" not in src and "select_launch(" in src, name
