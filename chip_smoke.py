@@ -39,7 +39,16 @@
    (a select: its step's records) in shared memory or not, shared bytes a
    block, and how many such clusters the card holds. K10a/b and K11a/b
    also get `device_ms` on the kernels line: the kernel's own device time
-   a launch (torch.profiler) beside `ms`, the wrapper call's.
+   a launch (torch.profiler) beside `ms`, the wrapper call's. K10a and
+   K11a run one launch a device over every shard it holds, each record
+   written into the device's gathered buffer: their check captures that
+   launch over the card's four shards (bound, `ms` and `device_ms` for
+   the four together; `shards` on the kernels line), and `[variants]
+   grouped locals` holds both against their plain versions on 4, 2 and 1
+   shards of the card in the step states of a window (folds on a shard's
+   first and last row, a skip pod, the fold past the window, a segment
+   checkpoint, a gang rewound across every shard, a member behind its
+   gang's failure).
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
@@ -75,7 +84,13 @@
      TorchScheduler(mesh=Mesh(["cuda"] * 4)), one step per pod, each
      whole window held against the single-device K5/K6 run of the same
      world in the same call: every decision, the serial tail, the walk
-     counters, the packed block, li, lni and the folded rows;
+     counters, the packed block, li, lni and the folded rows; each prints
+     a `[mesh-step]` line (host calls a step: local launches, selects and
+     record copies enqueued over the steps, as the launch functions and
+     the all-gather counted them; on one card two, the grouped local and
+     the select, with no copy) and fails unless the local ran
+     once a device and step (plus the last fold), the select once a
+     device and step, and only other devices' records were copied;
    - mesh-preempt-wave (K13a/b): the preempt-wave world and queue on
      four shards of the card, held against the single-device K8 wave of
      the same call (outcomes, victims, counters, folded rows, and every
@@ -98,7 +113,8 @@
 With `--cards` (a host of several cards) it builds the kernels and runs
 only the mesh phase, one shard per card, so the all-gather's copies are
 peer copies between the cards: K13a-K14b, K9a-d and K10a-K11b against
-their plain versions on meshes of all the cards and of the first two,
+their plain versions on meshes of all the cards and of the first two
+(the grouped locals in every step state too),
 mesh-preempt-wave, four mesh-preempt-single rounds, mesh-uniform at
 15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
 mesh-fused, each held against the single-device run on the first card;
@@ -282,7 +298,8 @@ def cuda_time(fn, sync, reps):
 def device_time(fn, sync, reps, kernel):
     """(mean device ms a launch, launches seen) of the CUDA kernels whose
     name holds `kernel`, over `reps` runs of `fn` after a warm-up, from
-    torch.profiler's kernel events; (None, 0) when it records none."""
+    torch.profiler's kernel events; (None, 0) when it records none. With a
+    tuple of names, a list of one such pair a name, from the one run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
@@ -290,15 +307,19 @@ def device_time(fn, sync, reps, kernel):
         for _ in range(reps):
             fn()
         sync()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            # the attribute's name differs between torch versions
-            total += max(getattr(ev, k, 0) or 0 for k in (
-                "device_time_total", "self_device_time_total",
-                "cuda_time_total", "self_cuda_time_total"))
-            count += ev.count
-    return (total / count / 1e3, count) if count else (None, 0)
+    events = prof.key_averages()
+    out = []
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        total, count = 0.0, 0
+        for ev in events:
+            if name in ev.key:
+                # the attribute's name differs between torch versions
+                total += max(getattr(ev, k, 0) or 0 for k in (
+                    "device_time_total", "self_device_time_total",
+                    "cuda_time_total", "self_cuda_time_total"))
+                count += ev.count
+        out.append((total / count / 1e3, count) if count else (None, 0))
+    return out[0] if isinstance(kernel, str) else out
 
 
 def max_abs_err(a, b):
@@ -2108,25 +2129,146 @@ def _mesh_scan_variants(device, rng, n_pad, n_real, build, blocks, meshes,
     return checked
 
 
-def scan_local_bytes(sh, side, plan):
-    """Bytes one local step moves: the shard's node fields and the pod's
-    row of each dense table read, the record written; K11a also writes
-    its checkpoint at a segment start, and on a rewind reads it and
+#: the step states the grouped locals K10a / K11a are held in (name, K11,
+#: {step-state slot: value}); "first" / "last" stand for the last shard's
+#: first row and the first shard's last row; a fold names a row of the
+#: three specs' table. Pod 5 is a skip pod; the
+#: segments run (3 singletons, gangs of 6 and 5, 4 singletons) starts
+#: segments at pods 0, 3, 9 and 14.
+LOCAL_STATES = (
+    ("a fold on a shard's first row", False,
+     {"SS_NEXT": 2, "SS_FOLD_SEL": "first", "SS_FOLD_ROW": 1}),
+    ("a fold on a shard's last row", False,
+     {"SS_NEXT": 7, "SS_FOLD_SEL": "last", "SS_FOLD_ROW": 0}),
+    ("a skip pod after a fold", False,
+     {"SS_NEXT": 5, "SS_FOLD_SEL": "last", "SS_FOLD_ROW": 2}),
+    ("the fold past the window", False,
+     {"SS_NEXT": 32, "SS_FOLD_SEL": "first", "SS_FOLD_ROW": 0}),
+    ("a checkpoint at a segment start after a fold", True,
+     {"SS_NEXT": 3, "SS_FOLD_SEL": "first", "SS_FOLD_ROW": 2}),
+    ("a gang rewound across every shard", True,
+     {"SS_NEXT": 6, "SS_REWIND": 1, "SS_FAILED": 1}),
+    ("a rewind onto a segment start", True,
+     {"SS_NEXT": 9, "SS_REWIND": 1, "SS_FAILED": 1}),
+    ("a member behind its gang's failure", True,
+     {"SS_NEXT": 11, "SS_FAILED": 1, "SS_FOLD_SEL": "last",
+      "SS_FOLD_ROW": 0}),
+    ("a gang member with a fold", True,
+     {"SS_NEXT": 12, "SS_FOLD_SEL": "last", "SS_FOLD_ROW": 1}),
+)
+
+
+def mesh_local_checks(device, sync, meshes=None):
+    """K10a and K11a, one launch over every shard of a device with each
+    record written into the device's gathered buffer, against their plain
+    versions on random inputs at the main path's n_pad (16,384; n_real
+    15,001, a multiple of no shard count), on 8, 4, 2 and 1 shards of the
+    card (8: two launches of LOCAL_GROUP_SHARDS shards a call; `meshes`:
+    lists of devices instead), in every state of
+    LOCAL_STATES, the carried spread on: the gathered buffer, every
+    shard's live rows, spread slice and checkpoint must be equal."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    rng = np.random.default_rng(20261017)
+    n_pad, n_real, s_count, B = 16384, 15001, 2, 32
+    nodes = _rand_nodes(rng, n_pad, n_real, s_count, 6, device)
+    specs = [_spec(500, True, rng, n_pad, s_count),
+             _spec(1000, False, rng, n_pad, s_count)]
+    specs.append(dict(specs[1], skip=np.bool_(True)))
+    rows = rng.integers(0, 2, B)
+    rows[[5] + list(range(18, B))] = 2
+    stack = K.PodStack.from_specs(specs, rows, None, device)
+    seg = np.zeros(B, bool)
+    seg[[0, 3, 9, 14, 18]] = True
+    gang = np.zeros(B, bool)
+    gang[3:14] = True
+    seg_t, gang_t = (torch.as_tensor(x).to(device) for x in (seg, gang))
+    spread0 = torch.as_tensor(rng.integers(0, 5, n_pad)).to(device)
+    checked = 0
+    for devs in meshes or [[device] * d for d in (8, 4, 2, 1)]:
+        mesh = S.Mesh(devs)
+        shards = S.shard_node_arrays(mesh, nodes)
+        for segments in (False, True):
+            kw = dict(n_steps=18, segments=(seg_t, gang_t)) if segments \
+                else {}
+            scan, sides, plan, _steps = S._scan_window(
+                mesh, shards, stack, 3, 5, n_real, n_real, 8,
+                K.DEFAULT_WEIGHTS, None, None, spread0, None, None, **kw)
+            for sh in scan:
+                for v in (sh.chk or {}).values():
+                    v += 1      # a restore shows
+            name = "shard_segments_local" if segments \
+                else "shard_scan_local"
+            for label, seg_state, state in LOCAL_STATES:
+                if seg_state != segments:
+                    continue
+                runs = []
+                for fn in (getattr(K, name), getattr(K, name + "_plain")):
+                    sc, sd = _clone(scan), _clone(sides)
+                    where = {"first": (mesh.size - 1) * plan.rows,
+                             "last": plan.rows - 1}
+                    for side in sd.values():
+                        for slot, v in state.items():
+                            side.st[getattr(K, slot)] = where.get(v, v)
+                    for d, group in S.device_groups(mesh, sc):
+                        fn(group, sd[d], plan)
+                    runs.append([local_outputs((g, sd[d], plan), None)
+                                 for d, g in S.device_groups(mesh, sc)])
+                err = max_abs_err(*runs)
+                if err != 0:
+                    raise SystemExit(
+                        f"{name} on {mesh.size} shards, {label}: kernel "
+                        f"disagrees with plain (max_abs_err {err}; first "
+                        f"difference {first_diff(*runs)})")
+                checked += 1
+    sync()
+    print(f"[variants] grouped locals: {checked} comparisons equal (K10a / "
+          f"K11a, one launch over every shard of a device, against their "
+          f"plain versions on "
+          f"{[len(m) for m in meshes] if meshes else [8, 4, 2, 1]} shards, "
+          f"n_pad 16,384, n_real 15,001: "
+          f"{'; '.join(lbl for lbl, _s, _st in LOCAL_STATES)})")
+
+
+def scan_local_bytes(shards, side, plan):
+    """Bytes one grouped local launch moves over every shard of its
+    device: each shard's node fields and the pod's row of each dense table
+    read, its record written into the gathered buffer; K11a also writes
+    each checkpoint at a segment start, and on a rewind reads it and
     writes the live rows back (the live rows' reads are the node fields
     already counted)."""
     from kubernetes_tpu_torch.ops import kernels as K
-    rows = sh.rows
-    tab = sum(v[0].numel() * v.element_size() for v in sh.tab.values()
-              if v.dim() == 2 and v.shape[1] == rows)
-    total = nbytes(sh.nodes) + tab + sh.rec.numel() + (
-        nbytes(sh.spread) if plan.carry_spread else 0)
-    if sh.chk is not None:
-        t = int(side.st[K.SS_NEXT])
-        if int(side.st[K.SS_REWIND]):
-            total += 2 * nbytes(sh.chk)
-        if t < plan.n_steps and bool(side.seg_start[t]):
-            total += nbytes(sh.chk)
+    t = int(side.st[K.SS_NEXT])
+    total = 0
+    for sh in shards:
+        tab = sum(v[0].numel() * v.element_size() for v in sh.tab.values()
+                  if v.dim() == 2 and v.shape[1] == sh.rows)
+        total += nbytes(sh.nodes) + tab + plan.record_bytes + (
+            nbytes(sh.spread) if plan.carry_spread else 0)
+        if sh.chk is not None:
+            if int(side.st[K.SS_REWIND]):
+                total += 2 * nbytes(sh.chk)
+            if t < plan.n_steps and bool(side.seg_start[t]):
+                total += nbytes(sh.chk)
     return total
+
+
+def local_outputs(a, _result):
+    """What a grouped local launch writes (`a` its arguments: the
+    device's shards, its replicated half, the plan): the device's gathered
+    buffer, and each shard's live rows, spread slice and checkpoint."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    shards, side = a[0], a[1]
+    out = {"gathered": side.gathered}
+    for sh in shards:
+        out.update({f"{sh.index}/{k}": sh.nodes[k] for k in K._MUTABLE})
+        if sh.spread is not None:
+            out[f"{sh.index}/spread"] = sh.spread
+        for k, v in (sh.chk or {}).items():
+            out[f"{sh.index}/chk/{k}"] = v
+    return out
 
 
 def scan_select_bytes(side, plan):
@@ -2144,7 +2286,8 @@ def scan_select_bytes(side, plan):
 
 
 def scan_kernel_checks(calls, report, sync, seg):
-    """K10a/b (or K11a/b), each on its first call of the mesh path."""
+    """K10a/b (or K11a/b), each on its first call of the mesh path: the
+    local on every shard of the first device, in one launch."""
     from kubernetes_tpu_torch.ops import kernels as K
     local, select = SEG_MESH_KERNELS if seg else SCAN_MESH_KERNELS
 
@@ -2159,12 +2302,13 @@ def scan_kernel_checks(calls, report, sync, seg):
             a[0].gz.copy_(base[0].gz)
 
     args, _kw = _full(calls[local])
-    mesh_kernel_entry(report, local, calls[local], no_reset,
-                      lambda a, r: (a[0].rec, {k: a[0].nodes[k]
-                                               for k in K._MUTABLE}),
+    n = len(args[0])
+    mesh_kernel_entry(report, local, calls[local], no_reset, local_outputs,
                       scan_local_bytes(*args), sync, 50,
-                      "shard 0's rows of the window's first step",
-                      on_device=True)
+                      f"the window's first step, one launch over the "
+                      f"{n} shard(s) of the first device (bound and "
+                      f"device_ms for them together)", on_device=True)
+    report[local]["shards"] = n
     args, _kw = _full(calls[select])
     mesh_kernel_entry(report, select, calls[select], reset_side,
                       lambda a, r: (a[0].st, a[0].packed,
@@ -2176,6 +2320,38 @@ def scan_kernel_checks(calls, report, sync, seg):
                       "restores the step state before each call; "
                       f"{describe_geometry(*K.last_geometry[select], True)}",
                       on_device=True)
+
+
+def mesh_step_line(name, mesh, ph, counts, kernels):
+    """The `[mesh-step]` line of a mesh scan or fused window: its host
+    calls a step (local launches, selects and record copies enqueued, over
+    the steps), the copies and the local kernel's launches. The launches
+    are those the kernels' C launch functions counted as they launched,
+    the copies those `gather_in_place` enqueued. Fails unless the local
+    ran once a device (per LOCAL_GROUP_SHARDS of its shards) and step,
+    plus the last fold, the select once a device and step, and the copies
+    were only those of other devices' records."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    local, select = kernels
+    steps, copies = ph["steps"], ph["copies"]
+    n_dev = len(mesh.distinct)
+    groups = sum(-(-sum(d == x for x in mesh.devices) //
+                   K.LOCAL_GROUP_SHARDS) for d in mesh.distinct)
+    want = (groups * (steps + 1), n_dev * steps,
+            steps * len(S.gather_plan(mesh.devices, in_place=True)))
+    got = (counts[local], counts[select], copies)
+    if got != want:
+        raise SystemExit(f"{name}: {got} launches of {local}, of {select} "
+                         f"and record copies for {steps} steps on {n_dev} "
+                         f"devices, not {want}")
+    calls = counts[local] + counts[select] + copies
+    print(f"[mesh-step] {name}: {steps} steps on {mesh.size} shards "
+          f"({n_dev} distinct devices); host calls a step "
+          f"{calls / steps:.4f} ({counts[local]} launches of {local}, "
+          f"{counts[select]} of {select}, {copies} record copies "
+          f"enqueued); gather_bytes {ph['gather_bytes']}; dispatch "
+          f"{ph['dispatch'] * 1e3 / steps:.4f} ms a step")
 
 
 def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
@@ -2219,6 +2395,7 @@ def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
     same_rows(f"{name} packed block, stats, li, lni",
               (got[1], got[2], got[4]), (want[1], want[2], want[4]))
     ph = run["phases"]
+    mesh_step_line(name, mesh, ph, counts, SCAN_MESH_KERNELS)
     print(f"[path] {name}: {n_nodes} nodes on {mesh.size} shards "
           f"({len(mesh.distinct)} distinct devices), {N_PODS} pods, "
           f"{N_PODS / run['t_burst']:.1f} pods/s "
@@ -2276,6 +2453,7 @@ def mesh_fused_path(device, sync, report, ref, check_kernels, mesh=None):
     same_rows(f"{name} packed block, li, lni", (got[1], got[2], got[4]),
               (want[1], want[2], want[4]))
     ph = run["phases"]
+    mesh_step_line(name, mesh, ph, counts, SEG_MESH_KERNELS)
     print(f"[path] {name}: {N_NODES} nodes on {mesh.size} shards "
           f"({len(mesh.distinct)} distinct devices), {n_pods} pods in "
           f"{len(segs)} segments, {n_pods / run['t_burst']:.1f} pods/s "
@@ -2996,7 +3174,7 @@ def pressure_kernel_checks(calls, report, sync):
     mesh_kernel_entry(
         report, "shard_pressure_local", calls["shard_pressure_local"],
         no_reset, lambda a, r: (a[0].rec, a[0].ghost),
-        scan_local_bytes(sh, side, plan) + nbytes(sh.vic, sh.ghost), sync,
+        scan_local_bytes([sh], side, plan) + nbytes(sh.vic, sh.ghost), sync,
         50, "shard 0's rows of the wave's first step",
         ops=rows * (plan.vic_P * OPS_PER_SLOT + OPS_PER_NODE_CYCLE))
     args, _kw = _full(calls["shard_pressure_select"])
@@ -3354,6 +3532,7 @@ def cards_phase(report):
         mesh_path(f"{name}, {n} cards", nn, device, sync, report,
                   nn == N_NODES, mesh=mesh)
     mesh_scan_variant_checks(device, sync, meshes=meshes)
+    mesh_local_checks(device, sync, meshes=meshes)
     refs = {}
     cfg, n_nodes, window_fn = scan_cells()[0]
     with capture("schedule_batch") as one:
@@ -3429,6 +3608,7 @@ def main() -> int:
               report, False)
         refs = timed(scan_paths, device, sync, report)
         timed(mesh_scan_variant_checks, device, sync)
+        timed(mesh_local_checks, device, sync)
         timed(mesh_scan_paths, device, sync, report, refs)
         timed(preempt_paths, device, sync, report)
         print(card)     # again beside the numbers, at the end of the log

@@ -800,12 +800,13 @@ class TorchScheduler:
                                for d, r in zip(self._dev_nodes, rows)]
 
     def _mesh_phases(self, op: str, phases: dict, before: dict) -> None:
-        """Mesh mode: the bytes the all-gather copied and the steps (or
-        passes) of the last window, from the counters its sharded
-        program books."""
+        """Mesh mode: the bytes of the all-gather, the record copies it
+        enqueued (scan and fused windows) and the steps (or passes) of
+        the last window, from the counters its sharded program books."""
         if self.mesh is None:
             return
-        for k, name in (("gather", "gather_bytes"), ("steps", "steps"),
+        for k, name in (("gather", "gather_bytes"), ("copies", "copies"),
+                        ("steps", "steps"),
                         ("passes", "passes"), ("syncs", "syncs")):
             key = f"{k}.{op}"
             if key in before:
@@ -981,7 +982,8 @@ class TorchScheduler:
             rotp = (rotation_pos[0],
                     np.asarray(rotation_pos[1][:B], dtype=np.int32))
         tensor = self._ptab is not None
-        before = self._mesh_counts("burst_scan", "gather", "steps")
+        before = self._mesh_counts("burst_scan", "gather", "copies",
+                                   "steps")
         state, _li, _lni, _spread, outs = K.schedule_batch(
             self._dev_nodes, stack, self.last_index, self.last_node_index,
             num_to_find, n, z_pad,
@@ -1176,7 +1178,8 @@ class TorchScheduler:
         z_pad = _pad_pow2(len(b.zone_names), 4)
         t1 = time.perf_counter()
         tensor = self._ptab is not None
-        before = self._mesh_counts("burst_segments", "gather", "steps")
+        before = self._mesh_counts("burst_segments", "gather",
+                                   "copies", "steps")
         state, _li, _lni, _spread, packed = K.schedule_batch_segments(
             self._dev_nodes, stack, seg_start, gang, n_total,
             self.last_index, self.last_node_index, num_to_find, n, z_pad,

@@ -62,14 +62,20 @@ SIGNATURES = {
     "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_uniform_sweep": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "shard_scan_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    # the grouped locals (K10a, K11a) take every shard of one device: the
+    # shards' argument words, their count, the device index, the stream,
+    # and the count each launch made adds one to
+    "shard_scan_local": [ctypes.POINTER(_L), _I, _I, _P,
+                         ctypes.POINTER(_I)],
     # the cluster selects (K10b, K11b) also take their geometry
-    # (`kernels.select_plan`)
+    # (`kernels.select_plan`) and the device index, and count as the locals
     "shard_scan_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
-                          ctypes.POINTER(_L), _P],
-    "shard_segments_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+                          ctypes.POINTER(_L), _I, _P, ctypes.POINTER(_I)],
+    "shard_segments_local": [ctypes.POINTER(_L), _I, _I, _P,
+                             ctypes.POINTER(_I)],
     "shard_segments_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
-                              ctypes.POINTER(_L), _P],
+                              ctypes.POINTER(_L), _I, _P,
+                              ctypes.POINTER(_I)],
     "shard_preempt_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_preempt_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_pressure_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],

@@ -203,13 +203,19 @@ inline int select_check(const ScanSelectArgs& a, const ClusterGeom& g) {
   return 0;
 }
 
-// One select step: one cluster of g.blocks blocks.
+// One select step: one cluster of g.blocks blocks, on `stream` of
+// `device`. Adds one to `*launched` if it launched.
 template <typename Kernel>
 inline int select_launch(Kernel kernel, const i64* iargs, void* const* ptrs,
-                         const i64* geom, void* stream) {
+                         const i64* geom, int device, void* stream,
+                         int* launched) {
   const ScanSelectArgs a = scan_select_args(iargs, ptrs);
   const ClusterGeom g = cluster_geom(geom);
   const int bad = select_check(a, g);
   if (bad) return bad;
-  return cluster_launch(kernel, a, g, (cudaStream_t)stream);
+  const DeviceScope on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
+  const int e = cluster_launch(kernel, a, g, (cudaStream_t)stream);
+  if (e == 0) ++*launched;
+  return e;
 }

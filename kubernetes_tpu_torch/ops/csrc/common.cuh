@@ -17,6 +17,26 @@ typedef long long i64;
 #define NTHREADS 1024
 #define NWARPS (NTHREADS / 32)
 
+// `device` made the current device for the launches of a scope, and the
+// previous one put back after them: one host thread enqueues the steps of
+// a mesh on every card, through launches bound once a window (K10a/b,
+// K11a/b).
+struct DeviceScope {
+  int prev;
+  cudaError_t err;
+  explicit DeviceScope(int device) : prev(-1) {
+    int cur = -1;
+    err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != device) {
+      err = cudaSetDevice(device);
+      if (err == cudaSuccess) prev = cur;
+    }
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 // Both take 32-bit unsigned division when 0 <= a < 2^32 and 0 < b < 2^32
 // (floor and C's truncation agree there), else one 64-bit division with
 // the remainder a - q * b.

@@ -97,31 +97,31 @@ __device__ __forceinline__ double ratio10(i64 num, i64 den) {
   return __dmul_rn(10.0, __ddiv_rn((double)num, (double)imax64(den, 1)));
 }
 
-// The filter of node j (`_feasibility`, kernels.py:296): its general
-// predicate bits, its first failing predicate in PREDICATE_ORDERING, and
-// whether it is feasible. `ghost` (NULL = off) adds K8's carried
-// nominated load to the rows the filter reads.
-__device__ __forceinline__ bool cycle_filter_row(
+// The resource fields of node j the filter compares (the ghost load
+// already added): loaded by `cycle_filter_row`, or held in registers by a
+// caller that loaded them earlier (K10a / K11a).
+struct CycleRowRes {
+  i64 req_cpu, req_mem, req_eph, pod_count, allowed, alloc_cpu, alloc_mem,
+      alloc_eph;
+  bool valid;
+};
+
+// The filter of node j (`_feasibility`, kernels.py:296) on its resource
+// fields `rr`: its general predicate bits, its first failing predicate in
+// PREDICATE_ORDERING, and whether it is feasible.
+__device__ __forceinline__ bool cycle_filter_res(
     const CycleNodes& nd, const CyclePod& pd, bool skip, int j,
-    const CycleGhost* ghost, i64* bits_out, int* ff_out) {
+    const CycleRowRes& rr, i64* bits_out, int* ff_out) {
   const i64 p_req_cpu = pd.scal[0], p_req_mem = pd.scal[1],
             p_req_eph = pd.scal[2];
   const bool check_res = pd.scal[6] != 0;
   const bool has_req = pd.scal[5] != 0 && check_res;
   const bool unknown = pd.scal[7] != 0;
   i64 bits = 0;
-  i64 rcpu = nd.req_cpu[j], rmem = nd.req_mem[j], reph = nd.req_eph[j];
-  i64 pcnt = nd.pod_count[j];
-  if (ghost) {
-    rcpu += ghost->cpu[j];
-    rmem += ghost->mem[j];
-    reph += ghost->eph[j];
-    pcnt += ghost->cnt[j];
-  }
-  if (check_res && pcnt + 1 > nd.allowed[j]) bits |= 1LL << 0;
-  if (has_req && nd.alloc_cpu[j] < p_req_cpu + rcpu) bits |= 1LL << 1;
-  if (has_req && nd.alloc_mem[j] < p_req_mem + rmem) bits |= 1LL << 2;
-  if (has_req && nd.alloc_eph[j] < p_req_eph + reph) bits |= 1LL << 3;
+  if (check_res && rr.pod_count + 1 > rr.allowed) bits |= 1LL << 0;
+  if (has_req && rr.alloc_cpu < p_req_cpu + rr.req_cpu) bits |= 1LL << 1;
+  if (has_req && rr.alloc_mem < p_req_mem + rr.req_mem) bits |= 1LL << 2;
+  if (has_req && rr.alloc_eph < p_req_eph + rr.req_eph) bits |= 1LL << 3;
   i64 sbits = 0;
   for (int s = 0; s < nd.S; ++s) {
     i64 want = pd.req_scalar_p[s];
@@ -148,7 +148,24 @@ __device__ __forceinline__ bool cycle_filter_row(
   if (pd.unsched_ok && !pd.unsched_ok[j]) ff = 1;
   *bits_out = bits;
   *ff_out = ff;
-  return nd.valid[j] && ff == 0 && !skip;
+  return rr.valid && ff == 0 && !skip;
+}
+
+// The filter of node j read from the rows `nd`; `ghost` (NULL = off)
+// adds K8's carried nominated load to the rows the filter reads.
+__device__ __forceinline__ bool cycle_filter_row(
+    const CycleNodes& nd, const CyclePod& pd, bool skip, int j,
+    const CycleGhost* ghost, i64* bits_out, int* ff_out) {
+  CycleRowRes rr{nd.req_cpu[j],   nd.req_mem[j],   nd.req_eph[j],
+                 nd.pod_count[j], nd.allowed[j],   nd.alloc_cpu[j],
+                 nd.alloc_mem[j], nd.alloc_eph[j], nd.valid[j] != 0};
+  if (ghost) {
+    rr.req_cpu += ghost->cpu[j];
+    rr.req_mem += ghost->mem[j];
+    rr.req_eph += ghost->eph[j];
+    rr.pod_count += ghost->cnt[j];
+  }
+  return cycle_filter_res(nd, pd, skip, j, rr, bits_out, ff_out);
 }
 
 // The static masks a preemption winner must pass, for node j (K8, K13a):

@@ -27,8 +27,9 @@
 // step one more launch only folds.
 //
 // Shared with K10a/K11a: `local_nodes`, `local_pod`, `local_weights`,
-// `local_record`, `local_fold` (shard_scan.cuh); with K8: `victim_node`,
-// `pressure_static`, `cycle_unresolvable`; with K14a: `shard_candidate`.
+// `local_row`, `local_record`, `local_fold` (shard_scan.cuh); with K8:
+// `victim_node`, `pressure_static`, `cycle_unresolvable`; with K14a:
+// `shard_candidate`.
 //
 // Bound on the H100: bytes, as K10a plus the shard's victim planes (the
 // seven [rows, P] planes read once a step). Design: two launches on the
@@ -137,7 +138,7 @@ __global__ void rows_kernel(ScanLocalArgs a) {
       int ff;
       const bool feasible = cycle_filter_row(nd, pd, false, j, &gh, &bits,
                                              &ff);
-      local_record(a, nd, pd, ws, j, feasible);
+      local_record(a, pd, ws, j, local_row(a, j), feasible);
       res = (i64)j < nd.n_real && !cycle_unresolvable(ff, bits);
     }
     g.u[2 * (size_t)rows + j] = res;

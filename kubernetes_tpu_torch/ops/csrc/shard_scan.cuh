@@ -13,13 +13,16 @@
 // node sharding and the select epilogue replicated. Here one step of the
 // scan is three things the host enqueues, with the same arguments every
 // step (no host read between steps):
-//   1. the local kernel on every shard (its own device): fold the previous
-//      step's winner into the shard's rows when the shard owns it
-//      (`_fold_state`, :549, and +1 on the carried spread); K11a then
-//      restores the segment checkpoint after a gang failure and takes one
-//      at a segment start; then K9a's filter and row-local scores of the
-//      step's pod over the shard's rows, into K9a's record;
-//   2. the all-gather of the records (host side, parallel/sharding.py);
+//   1. the local kernel: fold the previous step's winner into the shard's
+//      rows when the shard owns it (`_fold_state`, :549, and +1 on the
+//      carried spread); K11a then restores the segment checkpoint after a
+//      gang failure and takes one at a segment start; then K9a's filter
+//      and row-local scores of the step's pod over the shard's rows, into
+//      K9a's record. K10a and K11a run ONE launch a device over every
+//      shard it holds, each shard's record written straight into row s of
+//      the device's gathered buffer; K13a runs one launch a shard;
+//   2. the all-gather of the records (host side, parallel/sharding.py):
+//      after K10a / K11a only the rows of shards on other devices;
 //   3. the select on every distinct device: the walk, kept-set scores and
 //      pick of the step's cycle (K10b / K11b: `cluster_cycle` across a
 //      thread-block cluster, `cluster_select.cuh`; K13b: `cycle_select` in
@@ -91,51 +94,6 @@ __device__ __forceinline__ T* slp(const ScanLocalArgs& a, int slot) {
   return (T*)a.p[slot];
 }
 
-// Row j of the shard takes pod-table row r's fold (`_fold_state`), and +1
-// on the carried spread.
-__device__ __forceinline__ void local_fold(const ScanLocalArgs& a, int r,
-                                           int j) {
-  const i64* sc = slp<const i64>(a, SLP_SCAL) + (size_t)r * NSCAL;
-  const int S = (int)a.v[SLI_S];
-  slp<i64>(a, SLP_REQ_CPU)[j] += sc[SC_UPD_CPU];
-  slp<i64>(a, SLP_REQ_MEM)[j] += sc[SC_UPD_MEM];
-  slp<i64>(a, SLP_REQ_EPH)[j] += sc[SC_UPD_EPH];
-  const i64* upd = slp<const i64>(a, SLP_UPD_SCALAR_P) + (size_t)r * S;
-  i64* req = slp<i64>(a, SLP_REQ_SCALAR) + (size_t)j * S;
-  for (int s = 0; s < S; ++s) req[s] += upd[s];
-  slp<i64>(a, SLP_NZ_CPU)[j] += sc[3];
-  slp<i64>(a, SLP_NZ_MEM)[j] += sc[4];
-  slp<i64>(a, SLP_POD_COUNT)[j] += 1;
-  if (a.v[SLI_CARRY_SPREAD]) slp<i64>(a, SLP_SPREAD)[j] += 1;
-}
-
-// Copy row j's live fields into the checkpoint (save) or back (restore).
-__device__ __forceinline__ void local_checkpoint(const ScanLocalArgs& a,
-                                                 int j, bool save) {
-  const int live_slots[7] = {SLP_REQ_CPU, SLP_REQ_MEM, SLP_REQ_EPH,
-                             SLP_NZ_CPU,  SLP_NZ_MEM,  SLP_POD_COUNT,
-                             SLP_SPREAD};
-  const int chk_slots[7] = {SLP_CHK_REQ_CPU, SLP_CHK_REQ_MEM,
-                            SLP_CHK_REQ_EPH, SLP_CHK_NZ_CPU,
-                            SLP_CHK_NZ_MEM,  SLP_CHK_POD_COUNT,
-                            SLP_CHK_SPREAD};
-#pragma unroll
-  for (int q = 0; q < 7; ++q) {
-    i64* live = slp<i64>(a, live_slots[q]);
-    i64* chk = slp<i64>(a, chk_slots[q]);
-    if (!live) continue;  // no carried spread
-    if (save) chk[j] = live[j];
-    else live[j] = chk[j];
-  }
-  const int S = (int)a.v[SLI_S];
-  i64* live = slp<i64>(a, SLP_REQ_SCALAR) + (size_t)j * S;
-  i64* chk = slp<i64>(a, SLP_CHK_REQ_SCALAR) + (size_t)j * S;
-  for (int s = 0; s < S; ++s) {
-    if (save) chk[s] = live[s];
-    else live[s] = chk[s];
-  }
-}
-
 // The shard's node rows as the cycle reads them, n_real counted from the
 // shard's first row.
 __device__ __forceinline__ CycleNodes local_nodes(const ScanLocalArgs& a) {
@@ -190,78 +148,196 @@ __device__ __forceinline__ void local_weights(const ScanLocalArgs& a, i64 t,
   __syncthreads();
 }
 
+// The node fields of row j that a local step reads, and the seven that the
+// fold and the checkpoint change (`spread` 0 when the scan carries none).
+// K10a / K11a hold them in registers: they do not depend on the step, so
+// the launch loads them before the chain of dependent loads that finds the
+// step's pod (step state -> pod row -> its scalars and weight row).
+struct LocalRow {
+  i64 req_cpu, req_mem, req_eph, nz_cpu, nz_mem, pod_count, spread;
+  i64 alloc_cpu, alloc_mem, alloc_eph, allowed;
+  int zone;
+  bool valid;
+};
+
+__device__ __forceinline__ LocalRow local_row(const ScanLocalArgs& a, int j) {
+  LocalRow v;
+  v.req_cpu = slp<const i64>(a, SLP_REQ_CPU)[j];
+  v.req_mem = slp<const i64>(a, SLP_REQ_MEM)[j];
+  v.req_eph = slp<const i64>(a, SLP_REQ_EPH)[j];
+  v.nz_cpu = slp<const i64>(a, SLP_NZ_CPU)[j];
+  v.nz_mem = slp<const i64>(a, SLP_NZ_MEM)[j];
+  v.pod_count = slp<const i64>(a, SLP_POD_COUNT)[j];
+  v.spread = a.p[SLP_SPREAD] ? slp<const i64>(a, SLP_SPREAD)[j] : 0;
+  v.alloc_cpu = slp<const i64>(a, SLP_ALLOC_CPU)[j];
+  v.alloc_mem = slp<const i64>(a, SLP_ALLOC_MEM)[j];
+  v.alloc_eph = slp<const i64>(a, SLP_ALLOC_EPH)[j];
+  v.allowed = slp<const i64>(a, SLP_ALLOWED)[j];
+  v.zone = slp<const int>(a, SLP_ZONE_ID)[j];
+  v.valid = slp<const unsigned char>(a, SLP_VALID)[j] != 0;
+  return v;
+}
+
+// Row j's seven live fields from `v` into the rows (`chk` false) or into
+// the checkpoint (`chk` true); the spread only when the scan carries it.
+__device__ __forceinline__ void local_row_put(const ScanLocalArgs& a, int j,
+                                              const LocalRow& v, bool chk) {
+  const i64 vals[7] = {v.req_cpu, v.req_mem,   v.req_eph, v.nz_cpu,
+                       v.nz_mem,  v.pod_count, v.spread};
+  const int live_slots[7] = {SLP_REQ_CPU, SLP_REQ_MEM, SLP_REQ_EPH,
+                             SLP_NZ_CPU,  SLP_NZ_MEM,  SLP_POD_COUNT,
+                             SLP_SPREAD};
+  const int chk_slots[7] = {SLP_CHK_REQ_CPU, SLP_CHK_REQ_MEM,
+                            SLP_CHK_REQ_EPH, SLP_CHK_NZ_CPU,
+                            SLP_CHK_NZ_MEM,  SLP_CHK_POD_COUNT,
+                            SLP_CHK_SPREAD};
+#pragma unroll
+  for (int q = 0; q < 7; ++q) {
+    if (!a.p[live_slots[q]]) continue;  // no carried spread
+    slp<i64>(a, chk ? chk_slots[q] : live_slots[q])[j] = vals[q];
+  }
+}
+
+// Row j's S scalar requests copied into the checkpoint (save) or back.
+__device__ __forceinline__ void local_scalar_copy(const ScanLocalArgs& a,
+                                                  int j, bool save) {
+  const int S = (int)a.v[SLI_S];
+  i64* live = slp<i64>(a, SLP_REQ_SCALAR) + (size_t)j * S;
+  i64* chk = slp<i64>(a, SLP_CHK_REQ_SCALAR) + (size_t)j * S;
+  for (int s = 0; s < S; ++s) {
+    if (save) chk[s] = live[s];
+    else live[s] = chk[s];
+  }
+}
+
+// Pod-table row r's fold into row j (`_fold_state`), +1 on the carried
+// spread: the live fields in `v`, the scalar requests in memory.
+__device__ __forceinline__ void local_fold_row(const ScanLocalArgs& a, int r,
+                                               int j, LocalRow& v) {
+  const i64* sc = slp<const i64>(a, SLP_SCAL) + (size_t)r * NSCAL;
+  const int S = (int)a.v[SLI_S];
+  v.req_cpu += sc[SC_UPD_CPU];
+  v.req_mem += sc[SC_UPD_MEM];
+  v.req_eph += sc[SC_UPD_EPH];
+  v.nz_cpu += sc[3];
+  v.nz_mem += sc[4];
+  v.pod_count += 1;
+  if (a.v[SLI_CARRY_SPREAD]) v.spread += 1;
+  const i64* upd = slp<const i64>(a, SLP_UPD_SCALAR_P) + (size_t)r * S;
+  i64* req = slp<i64>(a, SLP_REQ_SCALAR) + (size_t)j * S;
+  for (int s = 0; s < S; ++s) req[s] += upd[s];
+}
+
+// The same fold read from the rows and written back to them (K13a).
+__device__ __forceinline__ void local_fold(const ScanLocalArgs& a, int r,
+                                           int j) {
+  LocalRow v = local_row(a, j);
+  local_fold_row(a, r, j, v);
+  local_row_put(a, j, v, false);
+}
+
+// Row j's live fields taken back from the checkpoint (a gang rewind).
+__device__ __forceinline__ void local_row_restore(const ScanLocalArgs& a,
+                                                  int j, LocalRow& v) {
+  v.req_cpu = slp<const i64>(a, SLP_CHK_REQ_CPU)[j];
+  v.req_mem = slp<const i64>(a, SLP_CHK_REQ_MEM)[j];
+  v.req_eph = slp<const i64>(a, SLP_CHK_REQ_EPH)[j];
+  v.nz_cpu = slp<const i64>(a, SLP_CHK_NZ_CPU)[j];
+  v.nz_mem = slp<const i64>(a, SLP_CHK_NZ_MEM)[j];
+  v.pod_count = slp<const i64>(a, SLP_CHK_POD_COUNT)[j];
+  if (a.p[SLP_SPREAD]) v.spread = slp<const i64>(a, SLP_CHK_SPREAD)[j];
+  local_scalar_copy(a, j, false);
+}
+
 // Row j's part of K9a's record: the row-local total and the raw planes
 // the select normalizes (the `sc` plane is the carried spread when the
-// scan carries one), and the in-range feasible bit.
+// scan carries one), and the in-range feasible bit; the node fields from
+// `v`.
 __device__ __forceinline__ void local_record(const ScanLocalArgs& a,
-                                             const CycleNodes& nd,
                                              const CyclePod& pd,
                                              const i64* ws, int j,
+                                             const LocalRow& v,
                                              bool feasible) {
   const int gate = (int)a.v[SLI_GATE];
   unsigned char* rec = slp<unsigned char>(a, SLP_REC);
-  const i64* sc_plane = a.v[SLI_CARRY_SPREAD] ? slp<const i64>(a, SLP_SPREAD)
-                                              : pd.sc;
   const i64 o_na = a.v[SLI_OFF_NA], o_tt = a.v[SLI_OFF_TT],
             o_sc = a.v[SLI_OFF_SC], o_ic = a.v[SLI_OFF_IC],
             o_zone = a.v[SLI_OFF_ZONE], o_tr = a.v[SLI_OFF_TRACKED];
-  const i64 local = local_total_one(gate, ws, pd.scal[3] + nd.nz_cpu[j],
-                                    pd.scal[4] + nd.nz_mem[j],
-                                    nd.alloc_cpu[j], nd.alloc_mem[j])
+  const i64 local = local_total_one(gate, ws, pd.scal[3] + v.nz_cpu,
+                                    pd.scal[4] + v.nz_mem, v.alloc_cpu,
+                                    v.alloc_mem)
                     + cycle_row_local(pd, gate, ws, j);
   ((i64*)(rec + a.v[SLI_OFF_LOCAL]))[j] = local;
   if (o_na >= 0) ((i64*)(rec + o_na))[j] = pd.na[j];
   if (o_tt >= 0) ((i64*)(rec + o_tt))[j] = pd.tt[j];
-  if (o_sc >= 0) ((i64*)(rec + o_sc))[j] = sc_plane[j];
+  if (o_sc >= 0)
+    ((i64*)(rec + o_sc))[j] = a.v[SLI_CARRY_SPREAD] ? v.spread : pd.sc[j];
   if (o_ic >= 0) ((i64*)(rec + o_ic))[j] = pd.ic[j];
-  if (o_zone >= 0) ((int*)(rec + o_zone))[j] = nd.zone_id[j];
-  rec[a.v[SLI_OFF_FEAS] + j] = feasible && (i64)j < nd.n_real;
+  if (o_zone >= 0) ((int*)(rec + o_zone))[j] = v.zone;
+  rec[a.v[SLI_OFF_FEAS] + j] =
+      feasible && (i64)j < a.v[SLI_N_REAL] - a.v[SLI_OFFSET];
   if (o_tr >= 0) rec[o_tr + j] = pd.tracked[j];
 }
 
-// The local step. One thread per row; no row reads another, and the fold,
-// the restore and the checkpoint of row j happen in the thread that then
-// filters row j, so the launch needs no barrier past the weight row.
+// The local step of K10a (SEG false) and K11a (SEG true) on row j of one
+// shard, one thread a row. Row j's node fields are loaded first; the fold,
+// the restore and the checkpoint of row j happen in registers, in the
+// thread that then filters row j, so the step needs no barrier past the
+// weight row. Every thread of the block calls it (the weight row's
+// barrier); a thread past the shard's rows only takes part in that.
 template <bool SEG>
-__device__ __forceinline__ void scan_local_step(const ScanLocalArgs& a) {
+__device__ __forceinline__ void scan_local_row(const ScanLocalArgs& a,
+                                               int j) {
   __shared__ i64 ws[W_K];
+  const bool mine = j < (int)a.v[SLI_ROWS];
+  LocalRow v{};
+  if (mine) v = local_row(a, j);
   const i64* st = slp<const i64>(a, SLP_STATE);
-  const int rows = (int)a.v[SLI_ROWS];
-  const i64 n_steps = a.v[SLI_N_STEPS];
   const i64 t = st[SS_NEXT];
   const i64 fold = st[SS_FOLD_SEL] - a.v[SLI_OFFSET];
   const int frow = (int)st[SS_FOLD_ROW];
-  const bool live = t < n_steps;
+  const bool live = t < a.v[SLI_N_STEPS];
   const bool rewind = SEG && st[SS_REWIND] != 0;
   const bool save = SEG && live && slp<const unsigned char>(
                                        a, SLP_SEG_START)[t] != 0;
   const int r = live ? slp<const int>(a, SLP_ROW)[t] : 0;
-  const i64* scal = slp<const i64>(a, SLP_SCAL) + (size_t)r * NSCAL;
-  bool run = live && scal[SC_SKIP] == 0;
+  bool run = live
+      && slp<const i64>(a, SLP_SCAL)[(size_t)r * NSCAL + SC_SKIP] == 0;
   // a member behind its gang's failure (the failure flag resets at a
   // segment start): its record is not read
   if (SEG && run && slp<const unsigned char>(a, SLP_GANG)[t] != 0 && !save
       && st[SS_FAILED] != 0)
     run = false;
   local_weights(a, t, run, ws);
+  if (!mine) return;
+  bool moved = false;
+  if (j == fold) {
+    local_fold_row(a, frow, j, v);
+    moved = true;
+  }
+  if (rewind) {
+    local_row_restore(a, j, v);
+    moved = true;
+  }
+  if (moved) local_row_put(a, j, v, false);
+  if (save) {
+    local_row_put(a, j, v, true);
+    local_scalar_copy(a, j, true);
+  }
+  if (!run) return;
   const CycleNodes nd = local_nodes(a);
   const CyclePod pd = local_pod(a, r);
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < rows;
-       j += gridDim.x * blockDim.x) {
-    if (j == fold) local_fold(a, frow, j);
-    if (rewind) local_checkpoint(a, j, false);
-    if (save) local_checkpoint(a, j, true);
-    if (!run) continue;
-    i64 bits;
-    int ff;
-    const bool feasible = cycle_filter_row(nd, pd, false, j, nullptr, &bits,
-                                           &ff);
-    local_record(a, nd, pd, ws, j, feasible);
-  }
+  const CycleRowRes rr{v.req_cpu,   v.req_mem,   v.req_eph,
+                       v.pod_count, v.allowed,   v.alloc_cpu,
+                       v.alloc_mem, v.alloc_eph, v.valid};
+  i64 bits;
+  int ff;
+  const bool feasible = cycle_filter_res(nd, pd, false, j, rr, &bits, &ff);
+  local_record(a, pd, ws, j, v, feasible);
 }
 
 // The host's argument arrays as the struct the local kernels take, and
-// their grid: 256-thread blocks over the shard's rows.
+// K13a's grid: 256-thread blocks over the shard's rows.
 inline ScanLocalArgs scan_local_args(const i64* iargs, void* const* ptrs) {
   ScanLocalArgs a;
   for (int i = 0; i < SLI_COUNT; ++i) a.v[i] = iargs[i];
@@ -274,6 +350,53 @@ constexpr int LOCAL_THREADS = 256;
 inline int scan_local_blocks(const ScanLocalArgs& a) {
   const int blocks = ((int)a.v[SLI_ROWS] + LOCAL_THREADS - 1) / LOCAL_THREADS;
   return blocks < 1 ? 1 : blocks;
+}
+
+// ---- one launch a device over its shards (K10a, K11a) ---------------------
+// The launch takes every shard's argument struct in one kernel parameter
+// (`__grid_constant__`: read in place from the parameter bank, never
+// copied to local memory), so a block finds its shard's pointers with no
+// load from global memory and nothing is uploaded. Four shards (2,688
+// bytes) fit the classic 4 KB parameter limit; a device holding more
+// shards takes one launch per four.
+constexpr int LOCAL_GROUP_SHARDS = 4;
+// 128-thread blocks: a card's 4 x 4,096 rows are 128 blocks on 132 SMs
+constexpr int LOCAL_GROUP_THREADS = 128;
+// host words of one shard's struct: its scalars, then its pointers
+constexpr int SL_WORDS = SLI_COUNT + SLP_COUNT;
+static_assert(sizeof(ScanLocalArgs) == 8 * SL_WORDS, "ScanLocalArgs layout");
+
+struct ScanLocalGroup {
+  ScanLocalArgs s[LOCAL_GROUP_SHARDS];
+};
+
+// Launch `kernel` over the `n` shards whose structs lie in `words` (n x
+// SL_WORDS), a grid of (row blocks, shards) a launch, on `stream` of
+// `device`. Adds one to `*launched` for every launch it makes.
+template <typename Kernel>
+inline int scan_local_group_launch(Kernel kernel, const i64* words, int n,
+                                   int device, void* stream,
+                                   int* launched) {
+  const DeviceScope on(device);
+  cudaError_t e = on.err;
+  for (int k0 = 0; e == cudaSuccess && k0 < n; k0 += LOCAL_GROUP_SHARDS) {
+    ScanLocalGroup g;
+    const int m = n - k0 < LOCAL_GROUP_SHARDS ? n - k0 : LOCAL_GROUP_SHARDS;
+    int rows = 1;
+    for (int k = 0; k < LOCAL_GROUP_SHARDS; ++k) {
+      // slots past the m shards repeat the first; no block reads them
+      const i64* w = words + (size_t)(k0 + (k < m ? k : 0)) * SL_WORDS;
+      g.s[k] = scan_local_args(w, (void* const*)(w + SLI_COUNT));
+      if (k < m && (int)g.s[k].v[SLI_ROWS] > rows)
+        rows = (int)g.s[k].v[SLI_ROWS];
+    }
+    const dim3 grid((rows + LOCAL_GROUP_THREADS - 1) / LOCAL_GROUP_THREADS,
+                    m);
+    kernel<<<grid, LOCAL_GROUP_THREADS, 0, (cudaStream_t)stream>>>(g);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) ++*launched;
+  }
+  return (int)e;
 }
 
 // ---- the select kernels (K10b, K11b, K13b) ---------------------------------

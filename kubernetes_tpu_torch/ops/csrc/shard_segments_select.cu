@@ -112,9 +112,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 }
 
 extern "C" int shard_segments_select_launch(const i64* iargs, void** ptrs,
-                                            const i64* geom, void* stream) {
+                                            const i64* geom, int device,
+                                            void* stream, int* launched) {
   return select_launch(shard_segments_select_kernel, iargs, ptrs, geom,
-                       stream);
+                       device, stream, launched);
 }
 
 extern "C" int shard_segments_select_clusters(const i64* geom,

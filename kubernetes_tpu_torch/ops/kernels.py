@@ -12,7 +12,10 @@ paths run has three things here:
   tensor either goes through the kernel or the wrapper raises.
 
 Each wrapper books `launch.<kernel>` in `obs` where it launches its kernel,
-and nowhere else.
+and nowhere else; the mesh steps' wrappers (K10a/b, K11a/b) also return
+the launch bound as a `Relaunch`, whose C launch function adds one to the
+Relaunch's count at every launch it makes; the window's later steps
+re-enqueue it, and the count is booked once after the window.
 
 | kernel         | replaces (kubernetes_tpu/ops/kernels.py)           |
 | local_total    | `_local_total` :110                                |
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -3137,24 +3141,27 @@ class ScanPlan:
 
 
 class ScanShard:
-    """One shard of a sharded scan or segments window (K10a / K11a): its
-    node fields (the static ones shared with the resident matrix, the
+    """Shard `index` of a sharded scan or segments window (K10a / K11a):
+    its node fields (the static ones shared with the resident matrix, the
     seven mutable rows a fresh copy folded in place), its slice of the
     carried spread, its slices of the window's pod tables (`[U, rows]`
     when dense, `[U, 1]` inert fields and per-spec scalars replicated),
     the K11 checkpoint (copies of the live rows and spread slice, or
-    None), and its record. A pressure wave's shard (K13a) also holds its
-    slice of the nominated-ghost load (a fresh copy, folded in place), its
-    victim planes, and the scratch planes of its rows' victim aggregates
-    (i64 [4, rows], f64 [rows], u8 [3, rows])."""
+    None), and its record `rec`: for K10a / K11a row `index` of its
+    device's gathered buffer (a view), where the local step writes it;
+    for K13a a buffer of its own. A pressure wave's shard (K13a) also
+    holds its slice of the nominated-ghost load (a fresh copy, folded in
+    place), its victim planes, and the scratch planes of its rows' victim
+    aggregates (i64 [4, rows], f64 [rows], u8 [3, rows])."""
 
-    def __init__(self, offset, nodes, spread, tab, chk, record_bytes,
+    def __init__(self, index, offset, nodes, spread, tab, chk, rec,
                  ghost=None, vic=None):
         dev = nodes["valid"].device
+        self.index = int(index)
         self.offset, self.rows = int(offset), int(nodes["valid"].shape[0])
         self.nodes, self.spread, self.tab, self.chk = nodes, spread, tab, chk
         self.scal = scan_scalars(tab)
-        self.rec = torch.zeros(record_bytes, dtype=torch.uint8, device=dev)
+        self.rec = rec
         self.ghost, self.vic, self.agg = ghost, vic, None
         if vic is not None:
             self.agg = _agg_planes(self.rows, dev, 3)
@@ -3204,7 +3211,8 @@ class ScanSide:
 
 # ---- K10a / K11a: the local step ---------------------------------------------
 def _scan_local_plain(sh: ScanShard, side: ScanSide, plan: ScanPlan,
-                      segments: bool) -> None:
+                      segments: bool, rec: torch.Tensor) -> None:
+    """One shard's local step, its record written into `rec`."""
     nodes, st, tab = sh.nodes, side.st, sh.tab
     dev, rows = sh.device, sh.rows
     t = int(st[SS_NEXT])
@@ -3247,28 +3255,31 @@ def _scan_local_plain(sh: ScanShard, side: ScanSide, plan: ScanPlan,
     for k, f in _REC_FIELD.items():
         if k in plan.planes:
             vals[k] = pod[f]
-    sh.rec.copy_(_pack_record(vals, plan.planes, rows, dev))
+    rec.copy_(_pack_record(vals, plan.planes, rows, dev))
 
 
-def shard_scan_local_plain(sh: ScanShard, side: ScanSide,
+def shard_scan_local_plain(shards: list, side: ScanSide,
                            plan: ScanPlan) -> None:
     """K10a plain: the local step of `sharded_scan_fn` (sharding.py:233)
-    on one shard. Folds the winner the step state names into the row the
-    shard owns (`_fold_state`, kernels.py:549, +1 on the carried spread),
-    then, unless the step is past the window or a skip pod, writes K9a's
-    record for pod row[t] over the shard's rows (`_feasibility` :296 and
-    the row-local `_fit_scores` :157, with its wtab row)."""
-    _scan_local_plain(sh, side, plan, False)
+    on every shard of `shards` (the shards of `side`'s device). Each folds
+    the winner the step state names into the row it owns (`_fold_state`,
+    kernels.py:549, +1 on the carried spread), then, unless the step is
+    past the window or a skip pod, writes K9a's record for pod row[t]
+    over its rows (`_feasibility` :296 and the row-local `_fit_scores`
+    :157, with its wtab row) into row `index` of `side.gathered`."""
+    for sh in shards:
+        _scan_local_plain(sh, side, plan, False, side.gathered[sh.index])
 
 
-def shard_segments_local_plain(sh: ScanShard, side: ScanSide,
+def shard_segments_local_plain(shards: list, side: ScanSide,
                                plan: ScanPlan) -> None:
-    """K11a plain: K10a plus the shard's slice of `_segments_core`'s gang
+    """K11a plain: K10a plus each shard's slice of `_segments_core`'s gang
     checkpoint (kernels.py:785): after the fold, the live rows and spread
     slice are restored from the checkpoint when the step state says
     rewind, and copied into it at a segment start; a member behind its
     gang's failure writes no record."""
-    _scan_local_plain(sh, side, plan, True)
+    for sh in shards:
+        _scan_local_plain(sh, side, plan, True, side.gathered[sh.index])
 
 
 _SSL_INTS = ("rows", "S", "offset", "n_real", "gate", "n_steps", "P",
@@ -3288,9 +3299,11 @@ _SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
                                           "agg_u8")
 
 
-def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
+def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
+                     rec: torch.Tensor):
     """(pointer tensors, scalar array, pointer array) of one shard's local
-    launches: the same for every step of the window."""
+    launches, its record written into `rec`: the same for every step of
+    the window."""
     dev, tab, U, rows = sh.device, sh.tab, plan.U, sh.rows
     nodes = sh.nodes
     if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype != torch.bool:
@@ -3313,7 +3326,7 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
                  "interpod_code": dense("interpod_code", torch.int8),
                  "interpod_tracked": dense("interpod_tracked", torch.bool),
                  "row": side.row, "profile_id": side.prof, "w": side.w,
-                 "wtab": side.wtab, "state": side.st, "rec": sh.rec})
+                 "wtab": side.wtab, "state": side.st, "rec": rec})
     ptrs.update({k: dense(k, torch.bool) for k in _CYCLE_MASKS})
     ptrs.update({k: dense(k, I64) for k in _CYCLE_COUNTS})
     if plan.carry_spread:
@@ -3339,7 +3352,7 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
     _require_on(name, dev, *ptrs.values())
     off, _nbytes = record_layout(plan.planes, rows)
-    if plan.record_bytes != sh.rec.numel():
+    if plan.record_bytes != rec.numel():
         raise ValueError(f"{name}: record size != layout")
     ints = {"rows": rows, "S": plan.S, "offset": sh.offset,
             "n_real": plan.n_real, "gate": _gate(plan.weights),
@@ -3351,10 +3364,9 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan):
 
 
 def _scan_step_launch(name, obj, build) -> None:
-    """Launch kernel `name` with the argument arrays cached on `obj` (a
-    ScanShard or ScanSide), built by `build()` at its first launch: (the
-    pointer tensors, the scalar array, the pointer array, and a cluster
-    select's geometry)."""
+    """Launch kernel `name` (K13a, K13b) with the argument arrays cached on
+    `obj` (a ScanShard or ScanSide), built by `build()` at its first
+    launch: (the pointer tensors, the scalar array, the pointer array)."""
     args = obj._args.get(name)
     if args is None:
         args = obj._args[name] = build()
@@ -3362,24 +3374,80 @@ def _scan_step_launch(name, obj, build) -> None:
         _launch(name, *args[1:])
 
 
-def shard_scan_local(sh: ScanShard, side: ScanSide, plan: ScanPlan) -> None:
-    """K10a on one shard, `side` the window's replicated half on the
-    shard's device. CPU tensors -> the plain version; CUDA tensors ->
-    `csrc/shard_scan_local.cu` on that device."""
-    if not sh.nodes["valid"].is_cuda:
-        return shard_scan_local_plain(sh, side, plan)
-    _scan_step_launch("shard_scan_local", sh, lambda: _scan_local_args(
-        "shard_scan_local", sh, side, plan))
+#: shards a grouped local launch covers (csrc/shard_scan.cuh
+#: `LOCAL_GROUP_SHARDS`); a device holding more takes one launch per as many
+LOCAL_GROUP_SHARDS = 4
 
 
-def shard_segments_local(sh: ScanShard, side: ScanSide,
-                         plan: ScanPlan) -> None:
-    """K11a on one shard. CPU -> the plain version; CUDA ->
-    `csrc/shard_segments_local.cu`."""
-    if not sh.nodes["valid"].is_cuda:
-        return shard_segments_local_plain(sh, side, plan)
-    _scan_step_launch("shard_segments_local", sh, lambda: _scan_local_args(
-        "shard_segments_local", sh, side, plan))
+class Relaunch:
+    """The launch a mesh step's wrapper (K10a / K11a over a device's
+    shards, K10b / K11b) just enqueued, bound for the window's next steps:
+    `fn()` enqueues the same launch again with nothing else on the host
+    (the ctypes function `cfn` on `args`, its argument arrays, device and
+    stream, all fixed at the window's first step) and returns its CUDA
+    error code. The C function adds one to `count` at every kernel launch
+    it makes; `book()` moves that count to `launch.<name>` and returns it.
+    `keep` holds the tensors the arrays point at."""
+
+    def __init__(self, name: str, cfn, args: tuple, keep):
+        self.name, self.keep = name, keep
+        self.count = ctypes.c_int(0)
+        self.fn = functools.partial(cfn, *args, ctypes.byref(self.count))
+
+    def book(self) -> int:
+        n, self.count.value = self.count.value, 0
+        obs.inc("launch." + self.name, n)
+        return n
+
+
+def _local_group_launch(name, shards: list, side: ScanSide,
+                        plan: ScanPlan) -> Relaunch:
+    """Launch grouped local kernel `name` over `shards`, all on `side`'s
+    device (one launch per LOCAL_GROUP_SHARDS of them), each record into
+    row `index` of `side.gathered`, and book the launches the C function
+    counted. The argument words, stream and bound function are built at
+    the window's first launch and cached on `side`."""
+    key = (name,) + tuple(sh.index for sh in shards)
+    rel = side._args.get(key)
+    if rel is None:
+        dev = side.device
+        if any(sh.device != dev for sh in shards):
+            raise ValueError(f"{name}: a shard not on {dev}")
+        words, keep = [], []
+        for sh in shards:
+            ptrs, iargs, parr = _scan_local_args(
+                name, sh, side, plan, side.gathered[sh.index])
+            keep.append(ptrs)
+            words += list(iargs) + [p or 0 for p in parr]
+        table = (ctypes.c_longlong * len(words))(*words)
+        fn = getattr(_build.load(name), name + "_launch")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rel = side._args[key] = Relaunch(
+            name, fn, (table, len(shards), dev.index, stream), (keep, table))
+    _check(rel.fn(), name)
+    rel.book()
+    return rel
+
+
+def shard_scan_local(shards: list, side: ScanSide,
+                     plan: ScanPlan) -> Optional[Relaunch]:
+    """K10a over every shard of `shards`, all on `side`'s device (the
+    window's replicated half there), each record into row `index` of
+    `side.gathered`. CPU tensors -> the plain version (returns None);
+    CUDA tensors -> ONE launch of `csrc/shard_scan_local.cu` over them,
+    returning its `Relaunch` for the window's next steps."""
+    if not side.st.is_cuda:
+        return shard_scan_local_plain(shards, side, plan)
+    return _local_group_launch("shard_scan_local", shards, side, plan)
+
+
+def shard_segments_local(shards: list, side: ScanSide,
+                         plan: ScanPlan) -> Optional[Relaunch]:
+    """K11a over every shard of `shards`, as K10a. CPU -> the plain
+    version; CUDA -> one launch of `csrc/shard_segments_local.cu`."""
+    if not side.st.is_cuda:
+        return shard_segments_local_plain(shards, side, plan)
+    return _local_group_launch("shard_segments_local", shards, side, plan)
 
 
 # ---- K10b / K11b: the select step ---------------------------------------------
@@ -3548,39 +3616,50 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None):
     return (ptrs,) + _launch_arrays(ints, _SSS_INTS, ptrs, _SSS_PTRS, name)
 
 
-def _select_cluster_launch(name, side: ScanSide, plan: ScanPlan) -> None:
+def _select_cluster_launch(name, side: ScanSide,
+                           plan: ScanPlan) -> Relaunch:
     """One step of cluster select `name` (K10b / K11b) on `side`'s device.
     At the window's first step the argument arrays and the geometry are
-    built and cached on `side`: `select_plan` at 16 blocks, or 8 when the
-    card cannot place 16, and, for records staged in global memory, the
+    built and bound, with the device and its stream, into the `Relaunch`
+    cached on `side`: `select_plan` at 16 blocks, or 8 when the card
+    cannot place 16, and, for records staged in global memory, the
     staging area."""
-    def build():
-        with _on(side.device):
+    rel = side._args.get(name)
+    if rel is None:
+        dev = side.device
+        with _on(dev):
             geo = _cluster_geometry(name, lambda blocks: select_plan(
                 plan.n_pad, plan.z_pad, blocks))
         recs = None if geo.resident else torch.empty(
-            plan.n_pad * _REC_SLOT_BYTES, dtype=torch.uint8,
-            device=side.device)
-        return _scan_select_args(name, side, plan, recs) + (geo.geometry(),)
-    _scan_step_launch(name, side, build)
+            plan.n_pad * _REC_SLOT_BYTES, dtype=torch.uint8, device=dev)
+        ptrs, iargs, parr = _scan_select_args(name, side, plan, recs)
+        fn = getattr(_build.load(name), name + "_launch")
+        rel = side._args[name] = Relaunch(name, fn, (
+            iargs, parr, geo.geometry(), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream), (ptrs, recs))
+    _check(rel.fn(), name)
+    rel.book()
+    return rel
 
 
-def shard_scan_select(side: ScanSide, plan: ScanPlan) -> None:
+def shard_scan_select(side: ScanSide, plan: ScanPlan) -> Optional[Relaunch]:
     """K10b on one device over its gathered records. CPU -> the plain
-    version; CUDA -> `csrc/shard_scan_select.cu`, one thread-block
-    cluster a step."""
+    version (returns None); CUDA -> `csrc/shard_scan_select.cu`, one
+    thread-block cluster a step, returning its `Relaunch` for the
+    window's next steps."""
     if not side.gathered.is_cuda:
         return shard_scan_select_plain(side, plan)
-    _select_cluster_launch("shard_scan_select", side, plan)
+    return _select_cluster_launch("shard_scan_select", side, plan)
 
 
-def shard_segments_select(side: ScanSide, plan: ScanPlan) -> None:
+def shard_segments_select(side: ScanSide,
+                          plan: ScanPlan) -> Optional[Relaunch]:
     """K11b on one device over its gathered records. CPU -> the plain
     version; CUDA -> `csrc/shard_segments_select.cu`, one thread-block
-    cluster a step."""
+    cluster a step, returning its `Relaunch`."""
     if not side.gathered.is_cuda:
         return shard_segments_select_plain(side, plan)
-    _select_cluster_launch("shard_segments_select", side, plan)
+    return _select_cluster_launch("shard_segments_select", side, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -3873,7 +3952,7 @@ def shard_pressure_local(sh: ScanShard, side: ScanSide,
     if not sh.nodes["valid"].is_cuda:
         return shard_pressure_local_plain(sh, side, plan)
     _scan_step_launch("shard_pressure_local", sh, lambda: _scan_local_args(
-        "shard_pressure_local", sh, side, plan))
+        "shard_pressure_local", sh, side, plan, sh.rec))
 
 
 # ---- K13b shard_pressure_select ---------------------------------------------

@@ -12,15 +12,18 @@ device (the JAX mesh is single-controller too):
 - shard s owns rows [s * n_pad / D, (s + 1) * n_pad / D) of the node
   matrix, on `mesh.devices[s]`; devices may repeat (`["cuda:0"] * 4` runs
   four shards on one card, `["cpu"] * 4` is what the CPU tests use);
-- a shard-local kernel (K9a for the cycle, K9c for a uniform pass, K10a
-  / K11a / K13a for a step of the scan / fused window / pressure wave,
-  K14a for a victim scan) runs on each shard's own device over its rows
-  and writes a small per-row record (K13a and K14a also reduce their
-  rows' victim scan to one candidate record per shard);
+- a shard-local kernel (K9a for the cycle, K9c for a uniform pass, K13a
+  for a step of the pressure wave, K14a for a victim scan) runs on each
+  shard's own device over its rows and writes a small per-row record
+  (K13a and K14a also reduce their rows' victim scan to one candidate
+  record per shard); K10a / K11a, a step of the scan / fused window, run
+  ONE launch a device over every shard it holds, each shard's record
+  written straight into row s of that device's gathered buffer;
 - `all_gather` copies every shard's record into a replicated [D, bytes]
   buffer on each distinct device (a peer copy between cards, an on-device
   copy on one card), each copy ordered after its producer by a CUDA
-  event;
+  event; after K10a / K11a, `gather_in_place` copies only the rows whose
+  shard lives on another device (`gather_plan`), none on one card;
 - a replicated select (K9b, K9d, K10b, K11b, K13b, K14b) runs on every
   distinct device over the gathered records, so every device reaches the
   same decision. The scans keep their step state (step index, li / lni,
@@ -34,6 +37,8 @@ blocks and folded rows equal the single-device kernels bit for bit
 (tests/test_torch_sharding.py; chip_smoke.py on the card).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -181,35 +186,72 @@ def _as_shards(mesh: Mesh, nodes) -> list:
     return shards
 
 
-def all_gather(mesh: Mesh, parts: list, out: dict | None = None):
-    """Copy shard s's 1-D uint8 record `parts[s]` (on `mesh.devices[s]`)
-    into row s of a [D, bytes] buffer on every distinct device. On CUDA
-    a copy to another card waits on an event recorded after the record's
+def gather_plan(devices, in_place: bool = False) -> list:
+    """The copies of one all-gather of shard records, shard s's on
+    `devices[s]`: (s, destination device) for every shard and every
+    distinct device (in first-shard order), except, `in_place`, each
+    shard's own device, where its local step wrote the record straight
+    into row s. No CUDA needed: the devices are labels."""
+    devs = [torch.device(d) for d in devices]
+    return [(s, d) for d in dict.fromkeys(devs)
+            for s, src in enumerate(devs) if not (in_place and src == d)]
+
+
+def _copy_records(mesh: Mesh, parts: list, bufs: dict, copies) -> int:
+    """Enqueue `copies` ((s, destination device) pairs) of shard s's 1-D
+    uint8 record `parts[s]` into row s of `bufs[destination]`. On CUDA a
+    copy to another card waits on an event recorded after the record's
     producer on its device's current stream (no device-wide sync); a copy
     on the record's own card follows its producer on the same stream.
-    `out` reuses buffers by device. Returns ({device: buffer}, bytes
-    copied)."""
-    many = len(mesh.distinct) > 1
+    Returns the copies enqueued."""
     events = []
     for p in parts:
         ev = None
-        if p.is_cuda and many:
+        if p.is_cuda and len(mesh.distinct) > 1:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(p.device))
         events.append(ev)
-    bufs, nbytes = {}, 0
-    width = int(parts[0].numel())
-    for d in mesh.distinct:
-        buf = out[d] if out is not None else torch.empty(
-            (mesh.size, width), dtype=torch.uint8, device=d)
+    n = 0
+    for s, d in copies:
+        p = parts[s]
         with K._on(d):
-            for s, p in enumerate(parts):
-                if events[s] is not None and p.device != d:
-                    torch.cuda.current_stream(d).wait_event(events[s])
-                buf[s].copy_(p, non_blocking=True)
-                nbytes += p.numel()
-        bufs[d] = buf
-    return bufs, nbytes
+            if events[s] is not None and p.device != d:
+                torch.cuda.current_stream(d).wait_event(events[s])
+            bufs[d][s].copy_(p, non_blocking=True)
+        n += 1
+    return n
+
+
+def all_gather(mesh: Mesh, parts: list, out: dict | None = None):
+    """Copy shard s's 1-D uint8 record `parts[s]` (on `mesh.devices[s]`)
+    into row s of a [D, bytes] buffer on every distinct device, each copy
+    ordered after its producer (`_copy_records`). `out` reuses buffers by
+    device. Returns ({device: buffer}, bytes copied)."""
+    width = int(parts[0].numel())
+    bufs = {d: out[d] if out is not None else torch.empty(
+        (mesh.size, width), dtype=torch.uint8, device=d)
+        for d in mesh.distinct}
+    n = _copy_records(mesh, parts, bufs, gather_plan(mesh.devices))
+    return bufs, n * width
+
+
+def gather_in_place(mesh: Mesh, parts: list, bufs: dict) -> int:
+    """The all-gather after K10a / K11a, whose `parts[s]` already is row s
+    of its own device's buffer in `bufs`: only the other devices' copies
+    are made (`gather_plan(in_place=True)`, none on one card). After them
+    each destination records an event that the sources' streams wait on,
+    so a source's next local step rewrites row s only after every peer
+    copy of it. Returns the copies enqueued."""
+    copies = gather_plan(mesh.devices, in_place=True)
+    n = _copy_records(mesh, parts, bufs, copies)
+    if n and parts[0].is_cuda:
+        for d in dict.fromkeys(d for _s, d in copies):
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(d))
+            for src in dict.fromkeys(mesh.devices[s] for s, dd in copies
+                                     if dd == d):
+                torch.cuda.current_stream(src).wait_event(done)
+    return n
 
 
 def _replicas(mesh: Mesh, v, dtype=None) -> dict:
@@ -474,23 +516,6 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
         vic_P=0 if pressure is None else int(pressure["P"]))
     nbytes = plan.record_bytes
     tables, row, prof = shard_pod_stack(mesh, stack)
-    scan = []
-    for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
-        mine = {k: v for k, v in nd.items() if k not in K._MUTABLE}
-        mine.update({k: mut0[s][k].to(dev, K.I64).clone().contiguous()
-                     for k in K._MUTABLE})
-        chk = None
-        if segments is not None:
-            chk = {k: mine[k].clone() for k in K._MUTABLE}
-            if carry_spread:
-                chk["spread"] = spreads[s].clone()
-        ghost = vic = None
-        if pressure is not None:
-            ghost = {k: v.to(dev, K.I64).clone().contiguous()
-                     for k, v in pressure["ghost"][s].items()}
-            vic = pressure["vic"][s]
-        scan.append(K.ScanShard(s * rows, mine, spreads[s], tables[s], chk,
-                                nbytes, ghost=ghost, vic=vic))
     # the step the first local launch computes: the first live pod of a
     # scan (the select decides the skip pods before it), step 0 of a
     # segments window or a pressure wave (every pod a step)
@@ -559,6 +584,26 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
             if gang_score else None,
             gathered=torch.zeros((D, nbytes), dtype=torch.uint8, device=d),
             packed=packed, stats=stats, scratch=scratch)
+    scan = []
+    for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
+        mine = {k: v for k, v in nd.items() if k not in K._MUTABLE}
+        mine.update({k: mut0[s][k].to(dev, K.I64).clone().contiguous()
+                     for k in K._MUTABLE})
+        chk = None
+        if segments is not None:
+            chk = {k: mine[k].clone() for k in K._MUTABLE}
+            if carry_spread:
+                chk["spread"] = spreads[s].clone()
+        ghost = vic = None
+        # K10a / K11a write the record in place, K13a into its own buffer
+        rec = sides[dev].gathered[s]
+        if pressure is not None:
+            ghost = {k: v.to(dev, K.I64).clone().contiguous()
+                     for k, v in pressure["ghost"][s].items()}
+            vic = pressure["vic"][s]
+            rec = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+        scan.append(K.ScanShard(s, s * rows, mine, spreads[s], tables[s],
+                                chk, rec, ghost=ghost, vic=vic))
     if every_pod:
         steps = plan.n_steps
     else:
@@ -566,34 +611,88 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
     return scan, sides, plan, steps
 
 
+def device_groups(mesh: Mesh, scan: list) -> list:
+    """[(device, [its shards])] over the distinct devices in first-shard
+    order: what one grouped local launch covers."""
+    return [(d, [sh for sh, dev in zip(scan, mesh.devices) if dev == d])
+            for d in mesh.distinct]
+
+
 def _run_steps(mesh: Mesh, scan: list, sides: dict, plan, steps: int,
-               local, select) -> int:
-    """Enqueue `steps` steps (the local kernel on every shard, the
-    all-gather, the select on every distinct device), then the local
-    kernel once more for the last step's fold. No host read. Returns the
-    bytes gathered."""
+               local, select, grouped: bool = False) -> tuple:
+    """Enqueue `steps` steps (the local kernel, the all-gather, the select
+    on every distinct device), then the local kernel once more for the
+    last step's fold. No host read. `grouped` (K10, K11): `local` takes
+    every shard of one device (`device_groups`, formed once here) and
+    writes the records in place, so the all-gather copies only other
+    devices' rows (`gather_in_place`); on a card the first call of each
+    device's local and select returns its bound `Relaunch`, and the later
+    steps enqueue those with nothing else; their C launch functions count
+    every launch, booked after the window (one card: two host calls a
+    step). Otherwise (K13) `local` runs on one shard and every record is
+    copied. Returns (bytes in every device's buffer, copies enqueued)."""
     recs = [sh.rec for sh in scan]
     bufs = {d: sides[d].gathered for d in mesh.distinct}
-    shard_sides = [sides[dev] for dev in mesh.devices]
-    nbytes = 0
-    for _ in range(steps):
+    nbytes = steps * len(mesh.distinct) * mesh.size * plan.record_bytes
+    n_copies = 0
+    if not grouped:
+        shard_sides = [sides[dev] for dev in mesh.devices]
+        copies = gather_plan(mesh.devices)
+        for _ in range(steps):
+            for sh, side in zip(scan, shard_sides):
+                local(sh, side, plan)
+            n_copies += _copy_records(mesh, recs, bufs, copies)
+            for d in mesh.distinct:
+                select(sides[d], plan)
         for sh, side in zip(scan, shard_sides):
             local(sh, side, plan)
-        nbytes += all_gather(mesh, recs, bufs)[1]
-        for d in mesh.distinct:
-            select(sides[d], plan)
-    for sh, side in zip(scan, shard_sides):
-        local(sh, side, plan)
-    return nbytes
+        return nbytes, n_copies
+    groups = [(sides[d], shards) for d, shards in device_groups(mesh, scan)]
+    foreign = bool(gather_plan(mesh.devices, in_place=True))
+
+    def bound(handles, calls):
+        # (enqueue, kernel name) of each first call's bound launch; on the
+        # CPU, the call again
+        return [(c, "") if h is None else (h.fn, h.name)
+                for h, c in zip(handles, calls)]
+
+    def again(fns):
+        for fn, name in fns:
+            rc = fn()
+            if rc:
+                K._check(rc, name)
+    firsts = [local(shards, side, plan) for side, shards in groups]
+    locals_ = bound(firsts, [functools.partial(local, shards, side, plan)
+                             for side, shards in groups])
+    selects, sel_firsts = None, []
+    for i in range(steps):
+        if i:
+            again(locals_)
+        if foreign:
+            n_copies += gather_in_place(mesh, recs, bufs)
+        if selects is None:
+            sel_firsts = [select(sides[d], plan) for d in mesh.distinct]
+            selects = bound(sel_firsts, [functools.partial(
+                select, sides[d], plan) for d in mesh.distinct])
+        else:
+            again(selects)
+    if steps:
+        again(locals_)      # the last step's fold
+    for rel in firsts + sel_firsts:
+        if rel is not None:
+            rel.book()      # the launches `again` made
+    return nbytes, n_copies
 
 
 def sharded_scan(mesh: Mesh, nodes, pods, last_index, last_node_index,
                  num_to_find, n_real, z_pad, weights=None, rotation=None,
                  spread0=None, rotation_pos=None, carry_in=None, wtab=None):
     """`sharded_scan_fn` (sharding.py:233): the generic scan (K5) with the
-    node axis split over the mesh. Per live pod: K10a on every shard
-    (fold the previous winner it owns, filter and row-local scores of the
-    pod), the all-gather, K10b on every distinct device (walk, kept-set
+    node axis split over the mesh. Per live pod: K10a, one launch a
+    device over its shards (fold the previous winner a shard owns, filter
+    and row-local scores of the pod, each record in place), the
+    all-gather of other devices' records, K10b on every distinct device
+    (walk, kept-set
     scores, pick; the skip pods around it); then K10a once more for the
     last fold. The signature and returns of `K.schedule_batch`: `pods` a
     `PodStack` or the [B, ...] dict; `carry_in` = (per-shard rows, spread
@@ -601,14 +700,17 @@ def sharded_scan(mesh: Mesh, nodes, pods, last_index, last_node_index,
     shard, li, lni, per-shard spread slices (a zero scalar when not
     carried), outs) with outs["packed"] the [3B] int32 block, all on the
     first device; the host reads nothing until it fetches that block.
-    Books `gather.burst_scan` (bytes) and `steps.burst_scan`."""
+    Books `gather.burst_scan` (bytes in every device's buffer),
+    `copies.burst_scan` (record copies enqueued) and `steps.burst_scan`."""
     weights = weights or K.DEFAULT_WEIGHTS
     local, select = K.shard_scan_local, K.shard_scan_select
     scan, sides, plan, steps = _scan_window(
         mesh, nodes, pods, last_index, last_node_index, num_to_find, n_real,
         z_pad, weights, rotation, rotation_pos, spread0, carry_in, wtab)
-    nbytes = _run_steps(mesh, scan, sides, plan, steps, local, select)
+    nbytes, copies = _run_steps(mesh, scan, sides, plan, steps, local,
+                                select, grouped=True)
     obs.inc("gather.burst_scan", nbytes)
+    obs.inc("copies.burst_scan", copies)
     obs.inc("steps.burst_scan", steps)
     d0 = mesh.devices[0]
     side, B = sides[d0], plan.B
@@ -636,13 +738,14 @@ def sharded_segments(mesh: Mesh, nodes, pods, seg_start, gang, n_pods,
                      spread0=None, wtab=None, gang_score=False):
     """`sharded_segments_fn` (sharding.py:279): the fused drain window
     (K6) with the node axis split over the mesh, the gang checkpoint per
-    shard. Exactly `n_pods` steps of K11a on every shard, the all-gather
-    and K11b on every distinct device, then K11a once more (the last fold
-    or rewind). The signature and returns of
+    shard. Exactly `n_pods` steps of K11a (one launch a device over its
+    shards), the all-gather of other devices' records and K11b on every
+    distinct device, then K11a once more (the last fold or rewind). The
+    signature and returns of
     `K.schedule_batch_segments`: (one dict of folded rows per shard, li,
     lni, per-shard spread slices or a zero scalar, packed[4B]), on the
-    first device. Books `gather.burst_segments` (bytes) and
-    `steps.burst_segments`."""
+    first device. Books `gather.burst_segments` (bytes),
+    `copies.burst_segments` and `steps.burst_segments`."""
     weights = weights or K.DEFAULT_WEIGHTS
     local, select = K.shard_segments_local, K.shard_segments_select
     stack = pods if isinstance(pods, K.PodStack) \
@@ -654,8 +757,10 @@ def sharded_segments(mesh: Mesh, nodes, pods, seg_start, gang, n_pods,
         n_real, z_pad, weights, rotation, rotation_pos, spread0, None, wtab,
         n_steps=int(n_pods), segments=(seg_start, gang),
         gang_score=gang_score)
-    nbytes = _run_steps(mesh, scan, sides, plan, steps, local, select)
+    nbytes, copies = _run_steps(mesh, scan, sides, plan, steps, local,
+                                select, grouped=True)
     obs.inc("gather.burst_segments", nbytes)
+    obs.inc("copies.burst_segments", copies)
     obs.inc("steps.burst_segments", steps)
     d0 = mesh.devices[0]
     side = sides[d0]
@@ -787,8 +892,9 @@ def sharded_pressure(mesh: Mesh, nodes, mut0, ghost0, pods, vic, last_index,
         n_real, z_pad, weights, None, None, None, (muts, None), None,
         n_steps=B, pressure={"ghost": ghosts, "vic": vics, "P": P,
                              "out": out})
-    nbytes = _run_steps(mesh, scan, sides, plan, steps,
-                        K.shard_pressure_local, K.shard_pressure_select)
+    nbytes, _copies = _run_steps(mesh, scan, sides, plan, steps,
+                                 K.shard_pressure_local,
+                                 K.shard_pressure_select)
     obs.inc("gather.pressure", nbytes)
     obs.inc("steps.pressure", steps)
     side = sides[d0]

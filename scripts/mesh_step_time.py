@@ -2,6 +2,7 @@
 on a host's cards.
 
     python3 scripts/mesh_step_time.py [--tree DIR] [--reps 50] [--cards]
+                                      [--wave]
 
 Runs, with the `kubernetes_tpu_torch` package and `chip_smoke.py` of
 `DIR` (default: this checkout; an older checkout unpacked with `git
@@ -10,10 +11,14 @@ window (10,000 pods, 15,000 nodes, 50 % of the nodes to find) and the
 mesh-fused window (10,064 pods in 201 segments) through
 `TorchScheduler(mesh=Mesh(["cuda:0"] * 4))`, four shards of the card
 (`--cards`: one shard per card of the host, `make_mesh()`), and prints
-for each its dispatch (the host's enqueue of every step, host clock) and
-steps. Then it times the window's four step kernels on their first
-captured call: K10a / K11a on shard 0, K10b / K11b on the gathered
-records, each `--reps` times, as
+for each its dispatch (the host's enqueue of every step, host clock),
+steps and host calls a step (local launches, selects and record copies
+enqueued, over the steps; an older tree that books no `copies.<op>`
+copied every record). Then it times the window's four step kernels on
+their first captured call: K10a / K11a over what that call covers (one
+shard in an older tree, every shard of the card in a tree with the
+grouped locals), K10b / K11b on the gathered records, each `--reps`
+times, as
 
   - `ms`: CUDA events around the loop of wrapper calls (the host's
     enqueue through ctypes included; a select's call also restores its
@@ -21,21 +26,73 @@ records, each `--reps` times, as
   - `host_ms`: the host's clock around the same loop, before the sync:
     what a call costs the host that enqueues it;
   - `device_ms`: the kernel's own device time a launch, from
-    torch.profiler's kernel events over the same calls (chip_smoke.py's
-    `device_time`, of DIR's chip_smoke.py or, where that has none, of this
-    checkout's).
+    torch.profiler's kernel events over the same calls (the `device_time`
+    of this checkout's chip_smoke.py, whatever DIR is). For K10a / K11a
+    the same profiler run also times two empty kernels built here from
+    this script: at the grid and parameter size of the grouped local over
+    four shards (32 x 4 blocks of 128 threads, 2,688 bytes) and of one
+    shard's launch before the grouping (16 blocks of 256, 672 bytes): the
+    floor of a launch's device time.
+
+`--wave` first times the mesh-preempt-wave cell on the same mesh: the
+preempt-wave world (15,000 nodes, 149,700 victims) and its 1,024
+preemptors in 8 chunks, one K13a launch a shard and step (the control the
+grouped locals of K10a / K11a leave alone): its scan (enqueue, device
+time and the one fetch) a step.
 
 The last line is one JSON object with every number and the card's name
 and power limit. Needs one CUDA card (`--cards`: several); exits non-zero
 without one.
 """
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+EMPTY_SRC = r"""
+// empty kernels whose parameter is a launch's table of shard arguments
+// (84 words a shard): four shards (the grouped local) or one
+struct Table4 { long long w[4 * 84]; };
+struct Table1 { long long w[84]; };
+__global__ void empty_grouped_kernel(const __grid_constant__ Table4 t) {}
+__global__ void empty_shard_kernel(const __grid_constant__ Table1 t) {}
+extern "C" int empty_step_launch(int which, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (which == 0) {
+    Table4 t = {};
+    empty_grouped_kernel<<<dim3(32, 4), 128, 0, s>>>(t);
+  } else {
+    Table1 t = {};
+    empty_shard_kernel<<<16, 256, 0, s>>>(t);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+#: the empty kernels: (kernel name, its launch)
+EMPTY_KERNELS = (
+    ("empty_grouped_kernel", "32 x 4 blocks of 128 threads, 2,688 B"),
+    ("empty_shard_kernel", "16 blocks of 256 threads, 672 B"))
+
+
+def build_empty(nvcc: str):
+    """The empty kernel's library, built into build/mesh_step_time/."""
+    out = HERE / "build" / "mesh_step_time"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_SRC)
+    lib_path = out / "empty.so"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(lib_path), str(out / "empty.cu")], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.empty_step_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.empty_step_launch.restype = ctypes.c_int
+    return lib
 
 
 def main() -> int:
@@ -44,6 +101,7 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--cards", action="store_true")
+    ap.add_argument("--wave", action="store_true")
     opt = ap.parse_args()
     tree = os.path.abspath(opt.tree)
     sys.path.insert(0, tree)
@@ -64,7 +122,9 @@ def main() -> int:
             else "nvidia-smi: no answer")
     t = time.perf_counter()
     _build.build_all()
+    empty = build_empty(_build.nvcc())
     print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
+    from kubernetes_tpu_torch import obs
     dev = torch.device("cuda")
     mesh = S.make_mesh() if opt.cards else S.Mesh([dev] * 4)
 
@@ -75,15 +135,12 @@ def main() -> int:
                                                    mesh.devices],
            "windows": {}, "kernels": {}}
 
-    device_time = getattr(cs, "device_time", None)
-    if device_time is None:
-        here = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "chip_smoke.py")
-        spec = importlib.util.spec_from_file_location("chip_smoke_here",
-                                                      here)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        device_time = mod.device_time
+    # the profiler helper of this checkout's chip_smoke.py, whatever DIR is
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    device_time = mod.device_time
 
     def time_step(name, call, select):
         args, kw = cs._full(call)
@@ -103,40 +160,87 @@ def main() -> int:
             one()
         host_ms = (time.perf_counter() - t0) * 1e3 / opt.reps
         sync()
-        dev_ms, seen = device_time(one, sync, opt.reps, name + "_kernel")
-        out["kernels"][name] = {"ms": ms, "host_ms": host_ms,
-                                "device_ms": dev_ms, "launches_timed": seen}
+        entry = {"ms": ms, "host_ms": host_ms}
+        if select:
+            dev_ms, seen = device_time(one, sync, opt.reps, name + "_kernel")
+        else:
+            # the local and the empty kernel in one profiler run
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def both():
+                one()
+                for which in range(len(EMPTY_KERNELS)):
+                    K._check(empty.empty_step_launch(which, stream),
+                             "empty")
+            names = (name + "_kernel",) + tuple(k for k, _g in EMPTY_KERNELS)
+            (dev_ms, seen), *empties = device_time(both, sync, opt.reps,
+                                                   names)
+            entry["shards"] = len(args[0]) if isinstance(args[0], list) \
+                else 1
+            entry["empty_device_ms"] = {
+                k: ms for (k, _g), (ms, _n) in zip(EMPTY_KERNELS, empties)}
+        entry.update(device_ms=dev_ms, launches_timed=seen)
+        out["kernels"][name] = entry
         print(f"[kernel] {name}: ms {ms:.4f} host_ms {host_ms:.4f} "
               f"device_ms "
               f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
-              f"over {seen} launches", flush=True)
+              f"over {seen} launches"
+              + ("" if select else
+                 f" over {entry['shards']} shard(s) a launch; empty kernels "
+                 f"in the same profiler run: " + "; ".join(
+                     f"{g}: " + ("not measured" if entry["empty_device_ms"][k]
+                                 is None else
+                                 f"{entry['empty_device_ms'][k]:.4f}")
+                     for k, g in EMPTY_KERNELS)), flush=True)
 
-    def window(label, names, run):
+    def window(label, op, names, run):
         caps = [cs.capture(k) for k in names]
         for c in caps:
             c.__enter__()
+        obs.reset()
         try:
             r = run()
         finally:
             for c in reversed(caps):
                 c.__exit__(None, None, None)
         ph = r["phases"]
+        steps = ph["steps"]
+        launches = {k: obs.get("launch." + k) for k in names}
+        copies = obs.get(f"copies.{op}") if hasattr(S, "gather_plan") \
+            else steps * mesh.size * len(mesh.distinct)
         out["windows"][label] = {"wall_ms": r["t_burst"] * 1e3,
                                  "dispatch_ms": ph["dispatch"] * 1e3,
                                  "fetch_ms": ph["fetch"] * 1e3,
-                                 "steps": ph["steps"],
+                                 "steps": steps,
                                  "dispatch_ms_a_step":
-                                     ph["dispatch"] * 1e3 / ph["steps"]}
+                                     ph["dispatch"] * 1e3 / steps,
+                                 "launches": launches, "copies": copies,
+                                 "host_calls_a_step":
+                                     (sum(launches.values()) + copies)
+                                     / steps}
         print(f"[window] {label}: {json.dumps(out['windows'][label])}",
               flush=True)
         for c, select in zip(caps, (False, True)):
             time_step(c.fn_name, c.call, select)
 
+    if opt.wave:
+        infos, tree_, pdbs = cs.preempt_world(cs.N_NODES)
+        r = cs.run_wave(infos, tree_, pdbs, cs.wave_pods(), dev, sync,
+                        mesh=mesh)
+        ph = r["phases"]
+        out["windows"]["mesh-preempt-wave"] = {
+            "wave_ms": r["t_wave"] * 1e3, "scan_ms": ph["scan"] * 1e3,
+            "fetch_ms": ph["fetch"] * 1e3, "steps": ph["steps"],
+            "scan_ms_a_step": ph["scan"] * 1e3 / ph["steps"]}
+        print(f"[window] mesh-preempt-wave: "
+              f"{json.dumps(out['windows']['mesh-preempt-wave'])}",
+              flush=True)
+        del infos, tree_, pdbs, r
     cfg, n_nodes, window_fn = cs.scan_cells()[0]
-    window("mesh-scan-default", cs.SCAN_MESH_KERNELS,
+    window("mesh-scan-default", "burst_scan", cs.SCAN_MESH_KERNELS,
            lambda: cs.run_scan(cfg, n_nodes, window_fn(cs.N_PODS), 0, dev,
                                sync, mesh=mesh))
-    window("mesh-fused", cs.SEG_MESH_KERNELS,
+    window("mesh-fused", "burst_segments", cs.SEG_MESH_KERNELS,
            lambda: cs.run_fused(cs.FUSED_CELL, cs.N_NODES,
                                 cs.fused_window(), dev, sync, mesh=mesh))
     print(card)

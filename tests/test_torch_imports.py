@@ -228,3 +228,42 @@ def test_cluster_geometry_slots_match_the_kernel_enum():
     for name in PK.SELECT_CLUSTER_KERNELS:
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "<<<" not in src and "select_launch(" in src, name
+
+
+def test_grouped_local_launch_matches_the_kernel_table():
+    """K10a / K11a take every shard of a device in one launch: the host
+    packs each shard's `_SSL_INTS` then `_SSL_PTRS` as one run of words
+    (the C struct `ScanLocalArgs`, `SL_WORDS` = SLI_COUNT + SLP_COUNT), as
+    many shards a launch as `LOCAL_GROUP_SHARDS` on both sides, and the
+    launch takes (words, shard count, device index, stream, launch
+    count). The locals and the cluster selects of a mesh step count each
+    launch they make into the count the host gives them (`Relaunch`)."""
+    import ctypes
+    import re
+    from kubernetes_tpu_torch.ops import _build
+    scan = (_build.CSRC / "shard_scan.cuh").read_text()
+    assert "constexpr int SL_WORDS = SLI_COUNT + SLP_COUNT;" in scan
+    assert "static_assert(sizeof(ScanLocalArgs) == 8 * SL_WORDS" in scan
+    assert re.search(r"struct ScanLocalArgs \{\s*i64 v\[SLI_COUNT\];\s*"
+                     r"void\* p\[SLP_COUNT\];\s*\};", scan)
+    shards = re.search(r"constexpr int LOCAL_GROUP_SHARDS = (\d+);", scan)
+    assert int(shards.group(1)) == PK.LOCAL_GROUP_SHARDS
+    # the classic 4 KB kernel-parameter limit holds a launch's table
+    assert PK.LOCAL_GROUP_SHARDS * 8 * (len(PK._SSL_INTS)
+                                        + len(PK._SSL_PTRS)) <= 4096
+    for name in ("shard_scan_local", "shard_segments_local"):
+        assert _build.SIGNATURES[name] == [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch(const i64* words, int n,' \
+            in src, name
+        assert "__grid_constant__ ScanLocalGroup" in src, name
+        assert re.search(r"void\* stream,\s*int\* launched\)", src), name
+    assert "if (e == cudaSuccess) ++*launched;" in scan
+    select = (_build.CSRC / "cluster_select.cuh").read_text()
+    assert "if (e == 0) ++*launched;" in select
+    for name in PK.SELECT_CLUSTER_KERNELS:
+        assert _build.SIGNATURES[name][-1] is ctypes.POINTER(ctypes.c_int)
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert re.search(r"void\* stream, int\* launched\)", src), name
