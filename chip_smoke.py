@@ -32,18 +32,26 @@
    no node, an 8-block cluster, 20,000 slots at two a thread, li, winners
    and ties in different blocks; on 4 shards, the records staged in
    global memory at 32,768 slots on 8 blocks and 50,000 on 16, and the
-   20,000-slot plan launched again after smaller plans), K13a-K14b on 1,
-   2 and 4 shards at P 16 and 128, K2 and K9a/b with a nominated ghost).
-   The K5 / K6 / K10b / K11b `[kernel]` and `[variants]` lines print each
-   launch's geometry: blocks of the cluster, node slots a thread, rows
+   20,000-slot plan launched again after smaller plans), K8 (one
+   thread-block cluster a chunk) on three geometries (16 blocks with the
+   rows, ghost load and victim aggregates resident in shared memory, 8
+   blocks with them in global memory, n_pad 1,024 on one block), each at
+   P 16 and 128, ghost off and carried in, on one spec run (the victim
+   scan reused pod after pod) and on alternating specs, K13a-K14b on 1,
+   2 and 4 shards at P 16 and 128, the grouped K13a on 8, 4, 2 and 1
+   shards of the card in every step state of a wave, K2 and K9a/b with a
+   nominated ghost). The K5 / K6 / K8 / K10b / K11b `[kernel]` and
+   `[variants]` lines print each launch's geometry: blocks of the
+   cluster, node slots a thread, rows
    (a select: its step's records) in shared memory or not, shared bytes a
-   block, and how many such clusters the card holds. K10a/b and K11a/b
-   also get `device_ms` on the kernels line: the kernel's own device time
-   a launch (torch.profiler) beside `ms`, the wrapper call's. K10a and
-   K11a run one launch a device over every shard it holds, each record
-   written into the device's gathered buffer: their check captures that
-   launch over the card's four shards (bound, `ms` and `device_ms` for
-   the four together; `shards` on the kernels line), and `[variants]
+   block, and how many such clusters the card holds. K8, K10a/b, K11a/b
+   and K13a/b also get `device_ms` on the kernels line: the kernel's own
+   device time a launch (torch.profiler) beside `ms`, the wrapper call's.
+   K10a, K11a and K13a run one launch a device over every shard it holds,
+   each record written into the device's gathered buffer: their check
+   captures that launch over the card's four shards (bound, `ms` and
+   `device_ms` for the four together; `shards` on the kernels line), and
+   `[variants]
    grouped locals` holds both against their plain versions on 4, 2 and 1
    shards of the card in the step states of a window (folds on a shard's
    first and last row, a skip pod, the fold past the window, a segment
@@ -94,7 +102,9 @@
    - mesh-preempt-wave (K13a/b): the preempt-wave world and queue on
      four shards of the card, held against the single-device K8 wave of
      the same call (outcomes, victims, counters, folded rows, and every
-     chunk's ghost, li, lni and packed block);
+     chunk's ghost, li, lni and packed block), with a `[mesh-step]` line
+     (K13a launches, K13b launches and record copies, checked: one K13a
+     launch a device and step plus one a chunk for its last fold);
    - mesh-preempt-single (K14a/b, with K9a/b and K4): 8 more rounds on
      the world preempt-single leaves, each K14 block held against the
      single-device K7 block of the same rows and planes;
@@ -114,7 +124,7 @@ With `--cards` (a host of several cards) it builds the kernels and runs
 only the mesh phase, one shard per card, so the all-gather's copies are
 peer copies between the cards: K13a-K14b, K9a-d and K10a-K11b against
 their plain versions on meshes of all the cards and of the first two
-(the grouped locals in every step state too),
+(the grouped locals, K13a's too, in every step state),
 mesh-preempt-wave, four mesh-preempt-single rounds, mesh-uniform at
 15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
 mesh-fused, each held against the single-device run on the first card;
@@ -229,6 +239,17 @@ MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS \
 MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
 
 
+#: entry points whose plain version is not `<name>_plain`: K13a's wrapper
+#: takes a device's shards, its per-shard plain version one shard
+PLAIN_NAMES = {"shard_pressure_local": "shard_pressure_group_plain"}
+
+
+def plain_of(name):
+    """The plain version of kernel entry point `name`."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    return getattr(K, PLAIN_NAMES.get(name, name + "_plain"))
+
+
 @contextlib.contextmanager
 def plain_versions(names=KERNEL_ENTRIES):
     """Route the port's kernel entry points `names` to their plain
@@ -236,7 +257,7 @@ def plain_versions(names=KERNEL_ENTRIES):
     from kubernetes_tpu_torch.ops import kernels as K
     saved = {k: getattr(K, k) for k in names}
     for k in names:
-        setattr(K, k, getattr(K, k + "_plain"))
+        setattr(K, k, plain_of(k))
     try:
         yield
     finally:
@@ -1671,7 +1692,7 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     args, kw = _full(call)
-    fn, plain = getattr(K, name), getattr(K, name + "_plain")
+    fn, plain = getattr(K, name), plain_of(name)
     a_k, a_p = _clone(args), _clone(args)
     got = outputs(a_k, fn(*a_k, **kw))
     want = outputs(a_p, plain(*a_p, **kw))
@@ -2322,14 +2343,16 @@ def scan_kernel_checks(calls, report, sync, seg):
                       on_device=True)
 
 
-def mesh_step_line(name, mesh, ph, counts, kernels):
-    """The `[mesh-step]` line of a mesh scan or fused window: its host
-    calls a step (local launches, selects and record copies enqueued, over
-    the steps), the copies and the local kernel's launches. The launches
-    are those the kernels' C launch functions counted as they launched,
-    the copies those `gather_in_place` enqueued. Fails unless the local
-    ran once a device (per LOCAL_GROUP_SHARDS of its shards) and step,
-    plus the last fold, the select once a device and step, and the copies
+def mesh_step_line(name, mesh, ph, counts, kernels, dispatch=None, runs=1):
+    """The `[mesh-step]` line of a mesh scan or fused window or pressure
+    wave (`dispatch`: its seconds, when its phases book none; `runs`: the
+    step loops it took, a wave's chunks): its host calls a step (local
+    launches, selects and record copies enqueued, over the steps), the
+    copies and the local kernel's launches. The launches are those the
+    kernels' C launch functions counted as they launched, the copies
+    those `gather_in_place` enqueued. Fails unless the local ran once a
+    device (per LOCAL_GROUP_SHARDS of its shards) and step, plus the last
+    fold of each run, the select once a device and step, and the copies
     were only those of other devices' records."""
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.parallel import sharding as S
@@ -2338,7 +2361,7 @@ def mesh_step_line(name, mesh, ph, counts, kernels):
     n_dev = len(mesh.distinct)
     groups = sum(-(-sum(d == x for x in mesh.devices) //
                    K.LOCAL_GROUP_SHARDS) for d in mesh.distinct)
-    want = (groups * (steps + 1), n_dev * steps,
+    want = (groups * (steps + runs), n_dev * steps,
             steps * len(S.gather_plan(mesh.devices, in_place=True)))
     got = (counts[local], counts[select], copies)
     if got != want:
@@ -2346,12 +2369,13 @@ def mesh_step_line(name, mesh, ph, counts, kernels):
                          f"and record copies for {steps} steps on {n_dev} "
                          f"devices, not {want}")
     calls = counts[local] + counts[select] + copies
+    dispatch = ph["dispatch"] if dispatch is None else dispatch
     print(f"[mesh-step] {name}: {steps} steps on {mesh.size} shards "
           f"({n_dev} distinct devices); host calls a step "
           f"{calls / steps:.4f} ({counts[local]} launches of {local}, "
           f"{counts[select]} of {select}, {copies} record copies "
           f"enqueued); gather_bytes {ph['gather_bytes']}; dispatch "
-          f"{ph['dispatch'] * 1e3 / steps:.4f} ms a step")
+          f"{dispatch * 1e3 / steps:.4f} ms a step")
 
 
 def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
@@ -2720,6 +2744,126 @@ def preempt_variant_checks(device, sync, n_pad=16384, n_real=16000):
           f"the seven victim planes)")
 
 
+#: the geometries K8 is held against its plain version on (name, n_pad,
+#: n_real, the most blocks its planner may take, the plan it must choose:
+#: blocks, node slots a thread, rows resident)
+PRESSURE_GEOMETRIES = (
+    ("16,384 slots, 16 blocks: rows resident", 16384, 16000, 16,
+     (16, 1, True)),
+    ("16,384 slots, 8 blocks: rows in global memory", 16384, 16000, 8,
+     (8, 2, False)),
+    ("1,024 slots (preempt-baseline's n_pad): one block", 1024, 1000, 16,
+     (1, 1, True)),
+)
+#: pod-spec rows of a K8 chunk (spec 4 is the skip padding): one spec
+#: throughout, and four specs alternating, each pod a new spec
+PRESSURE_ORDERS = (("one spec run", [1] * 28 + [4] * 4),
+                   ("alternating specs", [0, 1, 2, 3] * 7 + [4] * 4))
+
+
+@contextlib.contextmanager
+def pressure_blocks(blocks):
+    """K8's planner held to at most `blocks` blocks."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    real = K.pressure_plan
+
+    def plan(n_pad, S, z_pad, b=K.CLUSTER_BLOCKS):
+        return real(n_pad, S, z_pad, min(b, blocks))
+    K.pressure_plan = plan
+    try:
+        yield
+    finally:
+        K.pressure_plan = real
+
+
+def pressure_variant_checks(device, sync):
+    """K8 against its plain version on random inputs, on every geometry of
+    PRESSURE_GEOMETRIES (16 blocks with the rows, ghost and aggregates
+    resident; 8 blocks with them in global memory; n_pad 1,024 on one
+    block), at P 16 and 128, ghost off and carried in, on a chunk of one
+    spec (the scan reused pod after pod: each block rescans only the node
+    the pod before folded or nominated) and on alternating specs (every
+    pod rescans every node): 32 pods that bind, then nominate, then fail,
+    and skip padding. Prints each launch's geometry and, on each geometry
+    at P 16 with the ghost carried in, the kernel's time a pod (CUDA
+    events, 3 calls) on the one-spec chunk (the scan reused) and on the
+    alternating one (a full scan every pod)."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(20261017)
+    checked = 0
+    for label, n_pad, n_real, blocks, want_plan in PRESSURE_GEOMETRIES:
+        seen, times = set(), []
+        for P in (16, 128):
+            vic = _rand_victims(rng, n_pad, P, device)
+            nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
+            room = torch.zeros(n_pad, dtype=torch.bool)
+            room[rng.choice(n_real, 6, replace=False)] = True
+            full = {**nodes, "req_cpu": torch.where(
+                room.to(device), nodes["req_cpu"], nodes["alloc_cpu"])}
+            specs = []
+            for j, (cpu, upd, prio) in enumerate(
+                    [(400, 400, 9), (1200, 800, 7), (2000, 2000, 5),
+                     (9000, 9000, 3)]):
+                d = _spec(cpu, j == 1, rng, n_pad, 1)
+                d.update(req_mem=np.int64(GI), req_eph=np.int64(0),
+                         upd_cpu=np.int64(upd), upd_mem=np.int64(GI),
+                         upd_scalar=np.zeros(1, np.int64),
+                         req_scalar=np.zeros(1, np.int64),
+                         check_resources=np.bool_(j != 2),
+                         has_request=np.bool_(True), pprio=np.int64(prio))
+                specs.append(d)
+            specs.append(dict(specs[3], skip=np.bool_(True)))
+            mut0 = {k: full[k] for k in K._MUTABLE}
+            ghosts = (("ghost off", {k: torch.zeros(
+                n_pad, dtype=torch.int64, device=device)
+                for k in K.GHOST_FIELDS}),
+                ("ghost on", _random_ghost(rng, n_pad, device)))
+            for oname, rows in PRESSURE_ORDERS:
+                stack = K.PodStack.from_specs(specs, np.asarray(rows), None,
+                                              device)
+                for gname, g0 in ghosts:
+                    args = (full, mut0, g0, stack, vic, 37, 5, n_real,
+                            n_real, 4)
+                    with pressure_blocks(blocks):
+                        got = K.pressure_batch(*args)
+                    want = K.pressure_batch_plain(*args)
+                    name = f"{label}/P{P}/{oname}/{gname}"
+                    err = max_abs_err(got, want)
+                    if err != 0:
+                        raise SystemExit(
+                            f"variant pressure_batch {name}: kernel "
+                            f"disagrees with plain (max_abs_err {err}; "
+                            f"first difference {first_diff(got, want)})")
+                    kinds = set(want[4]["winner"].cpu().tolist())
+                    if oname == "alternating specs" and not (
+                            {-2, -1} <= kinds and max(kinds) >= 0):
+                        raise SystemExit(f"variant pressure_batch {name}: "
+                                         f"the chunk lacks bound, failed or "
+                                         f"nominated pods ({sorted(kinds)})")
+                    plan, fit = K.last_geometry["pressure_batch"]
+                    if (plan.blocks, plan.nodes_per_thread,
+                            plan.resident) != want_plan:
+                        raise SystemExit(f"variant pressure_batch {name}: "
+                                         f"planned {plan}, not {want_plan}")
+                    seen.add(describe_geometry(plan, fit))
+                    checked += 1
+                    if P == 16 and gname == "ghost on":
+                        with pressure_blocks(blocks):
+                            ms = cuda_time(lambda: K.pressure_batch(*args),
+                                           sync, 3)
+                        times.append(f"{oname} {ms / len(rows) * 1e3:.2f} "
+                                     f"us/pod")
+        print(f"[variants] pressure_batch, {label}: {'; '.join(seen)}; "
+              f"P 16, ghost on: {', '.join(times)}")
+    sync()
+    print(f"[variants] {checked} K8 chunks equal to the plain version over "
+          f"{len(PRESSURE_GEOMETRIES)} geometries (P 16 and 128, ghost off "
+          f"and carried in, one spec run and alternating specs; 32 pods: "
+          f"binds, nominations, failures, skip padding)")
+
+
 def run_wave(infos, tree, pdbs, wave, device, sync, pct=None, mesh=None):
     """prewarm_preempt, then one pressure wave (the node axis split over
     `mesh` when given); returns its outcomes, scheduler, prewarm and wave
@@ -2796,7 +2940,20 @@ def wave_path(name, infos, tree, pdbs, wave, device, sync, report,
         ms = call_entry(report, "pressure_batch", K.pressure_batch,
                         K.pressure_batch_plain, call, bound, sync, 3,
                         f"the first {n_pods}-pod chunk of {name}")
-        print(f"[kernel] pressure_batch: {ms / n_pods * 1e3:.2f} us/pod")
+        dev_ms, seen = device_time(
+            lambda: K.pressure_batch(call[0], *call[1], **call[2]), sync, 3,
+            "pressure_batch_kernel")
+        report["pressure_batch"]["device_ms"] = dev_ms
+        skips = int(args[2].skip_flags()[args[2].row].sum())
+        rounds = 4 * (n_pods - skips) + skips
+        print(f"[kernel] pressure_batch: {ms / n_pods * 1e3:.2f} us/pod "
+              f"(wrapper); device_ms "
+              + ("not measured" if dev_ms is None else
+                 f"{dev_ms:.4f} over {seen} launches, "
+                 f"{dev_ms / n_pods * 1e3:.2f} us/pod")
+              + f"; {rounds} cluster rounds in the chunk ({n_pods - skips} "
+              f"cycles of 4, {skips} skip pods of 1); "
+              f"{describe_geometry(*K.last_geometry['pressure_batch'])}")
     add_launches(report, counts)
     ph = run["phases"]
     print(f"[path] {name}: {len(infos)} nodes, "
@@ -2936,6 +3093,7 @@ def preempt_paths(device, sync, report):
     on four shards) and mesh-nominated-serial; the mesh kernels K13a-K14b
     on random inputs first."""
     mesh_preempt_variant_checks(device, sync)
+    mesh_pressure_local_checks(device, sync)
     t = time.perf_counter()
     infos, tree, pdbs = preempt_world(N_NODES)
     print(f"[world] preempt: {N_NODES} nodes, "
@@ -3152,14 +3310,119 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
           f"{n_real})")
 
 
+#: the step states the grouped K13a is held in (name, {step-state slot:
+#: value}); "first" / "last" stand for the first row of the last shard and
+#: the last row of the first shard
+PRESSURE_LOCAL_STATES = (
+    ("a bind folded on a shard's first row",
+     {"SS_NEXT": 2, "SS_FOLD_SEL": "first", "SS_FOLD_ROW": 1}),
+    ("a bind folded on a shard's last row",
+     {"SS_NEXT": 5, "SS_FOLD_SEL": "last", "SS_FOLD_ROW": 0}),
+    ("a nomination's ghost fold",
+     {"SS_NEXT": 9, "SS_GHOST_SEL": "last", "SS_FOLD_ROW": 2}),
+    ("a skip pod after a ghost fold",
+     {"SS_NEXT": 30, "SS_GHOST_SEL": "first", "SS_FOLD_ROW": 1}),
+    ("the fold past the wave",
+     {"SS_NEXT": 32, "SS_FOLD_SEL": "first", "SS_FOLD_ROW": 0}),
+)
+
+
+def mesh_pressure_local_checks(device, sync, meshes=None):
+    """K13a, one launch over every shard of a device with each record
+    written into the device's gathered buffer, against its plain version
+    on random inputs at the main path's n_pad (16,384; n_real 15,001, a
+    multiple of no shard count; P 16; a ghost load carried in), on 8, 4,
+    2 and 1 shards of the card (8: two launches of LOCAL_GROUP_SHARDS
+    shards a call; `meshes`: lists of devices instead), in every state of
+    PRESSURE_LOCAL_STATES: the gathered buffer (cycle and candidate
+    records), every shard's live rows and ghost load must be equal."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    rng = np.random.default_rng(20261024)
+    n_pad, n_real, P, B = 16384, 15001, 16, 32
+    vic = _rand_victims(rng, n_pad, P, device)
+    nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
+    specs = []
+    for j, (cpu, prio) in enumerate([(400, 9), (1200, 7), (2000, 5)]):
+        d = _spec(cpu, j == 1, rng, n_pad, 1)
+        d.update(req_mem=np.int64(GI), req_eph=np.int64(0),
+                 upd_mem=np.int64(GI), upd_scalar=np.zeros(1, np.int64),
+                 req_scalar=np.zeros(1, np.int64),
+                 check_resources=np.bool_(True),
+                 has_request=np.bool_(True), pprio=np.int64(prio))
+        specs.append(d)
+    specs.append(dict(specs[2], skip=np.bool_(True)))
+    rows = np.concatenate([rng.integers(0, 3, B - 4), [3] * 4])
+    stack = K.PodStack.from_specs(specs, rows, None, device)
+    ghost = _random_ghost(rng, n_pad, device)
+    checked = 0
+    for devs in meshes or [[device] * d for d in (8, 4, 2, 1)]:
+        mesh = S.Mesh(devs)
+        srows = mesh.rows(n_pad)
+        out = torch.empty((B, len(K.PRESSURE_HEAD) + P), dtype=torch.int32,
+                          device=mesh.devices[0])
+        scan, sides, plan, _steps = S._scan_window(
+            mesh, S.shard_node_arrays(mesh, nodes), stack, 37, 5, n_real,
+            n_real, 4, K.DEFAULT_WEIGHTS, None, None, None,
+            (S._row_shards(mesh, {k: nodes[k] for k in K._MUTABLE}, srows,
+                           K._MUTABLE), None), None, n_steps=B,
+            pressure={"ghost": S._row_shards(mesh, ghost, srows,
+                                             K.GHOST_FIELDS),
+                      "vic": S.shard_victim_planes(mesh, vic), "P": P,
+                      "out": out})
+        for label, state in PRESSURE_LOCAL_STATES:
+            runs = []
+            for fn in (K.shard_pressure_local, K.shard_pressure_group_plain):
+                sc, sd = _clone(scan), _clone(sides)
+                where = {"first": (mesh.size - 1) * srows,
+                         "last": srows - 1}
+                for side in sd.values():
+                    for slot, v in state.items():
+                        side.st[getattr(K, slot)] = where.get(v, v)
+                for d, group in S.device_groups(mesh, sc):
+                    fn(group, sd[d], plan)
+                runs.append([pressure_local_outputs((g, sd[d], plan), None)
+                             for d, g in S.device_groups(mesh, sc)])
+            err = max_abs_err(*runs)
+            if err != 0:
+                raise SystemExit(
+                    f"shard_pressure_local on {mesh.size} shards, {label}: "
+                    f"kernel disagrees with plain (max_abs_err {err}; first "
+                    f"difference {first_diff(*runs)})")
+            checked += 1
+    sync()
+    print(f"[variants] grouped K13a: {checked} comparisons equal (one "
+          f"launch over every shard of a device, against the plain version "
+          f"on {[len(m) for m in meshes] if meshes else [8, 4, 2, 1]} "
+          f"shards, n_pad 16,384, n_real 15,001, P 16, ghost carried in: "
+          f"{'; '.join(lbl for lbl, _st in PRESSURE_LOCAL_STATES)})")
+
+
 N_MESH_SINGLE = 8               # mesh-preempt-single rounds
 N_NOMINATED = 8                 # mesh-nominated-serial cycles
+
+
+def pressure_local_outputs(a, _result):
+    """What a grouped K13a launch writes (`a` its arguments: the device's
+    shards, its replicated half, the plan): the device's gathered buffer
+    (each shard's cycle and candidate records), each shard's live rows and
+    ghost load."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    shards, side = a[0], a[1]
+    out = {"gathered": side.gathered}
+    for sh in shards:
+        out.update({f"{sh.index}/{k}": sh.nodes[k] for k in K._MUTABLE})
+        out.update({f"{sh.index}/ghost/{k}": v for k, v in sh.ghost.items()})
+    return out
 
 
 def pressure_kernel_checks(calls, report, sync):
     """K13a/b, each on its first call of mesh-preempt-wave (step 0 of the
     first chunk: no fold owed, so repeated calls are idempotent apart from
-    K13b's step state)."""
+    K13b's step state). K13a: its one launch over every shard of the first
+    device (bound, `ms` and `device_ms` for them together)."""
     from kubernetes_tpu_torch.ops import kernels as K
 
     def no_reset(a, base):
@@ -3169,14 +3432,19 @@ def pressure_kernel_checks(calls, report, sync):
         a[0].st.copy_(base[0].st)
 
     args, _kw = _full(calls["shard_pressure_local"])
-    sh, side, plan = args
-    rows = sh.rows
+    shards, side, plan = args
+    rows = sum(sh.rows for sh in shards)
     mesh_kernel_entry(
         report, "shard_pressure_local", calls["shard_pressure_local"],
-        no_reset, lambda a, r: (a[0].rec, a[0].ghost),
-        scan_local_bytes([sh], side, plan) + nbytes(sh.vic, sh.ghost), sync,
-        50, "shard 0's rows of the wave's first step",
-        ops=rows * (plan.vic_P * OPS_PER_SLOT + OPS_PER_NODE_CYCLE))
+        no_reset, pressure_local_outputs,
+        scan_local_bytes(shards, side, plan)
+        + nbytes([sh.vic for sh in shards], [sh.ghost for sh in shards]),
+        sync, 50, f"the wave's first step, one launch over the "
+        f"{len(shards)} shard(s) of the first device (bound and device_ms "
+        f"for them together)",
+        ops=rows * (plan.vic_P * OPS_PER_SLOT + OPS_PER_NODE_CYCLE),
+        on_device=True)
+    report["shard_pressure_local"]["shards"] = len(shards)
     args, _kw = _full(calls["shard_pressure_select"])
     side, plan = args
     mesh_kernel_entry(
@@ -3185,7 +3453,8 @@ def pressure_kernel_checks(calls, report, sync):
         scan_select_bytes(side, plan), sync, 50,
         "the gathered records of the wave's first step",
         "; both times include the copy that restores the step state "
-        "before each call", ops=plan.n_real * OPS_PER_NODE_CYCLE)
+        "before each call", ops=plan.n_real * OPS_PER_NODE_CYCLE,
+        on_device=True)
 
 
 def mesh_wave_path(infos, tree, pdbs, device, sync, report, ref,
@@ -3241,6 +3510,9 @@ def mesh_wave_path(infos, tree, pdbs, device, sync, report, ref,
         if not kinds.get(want):
             raise SystemExit(f"{name}: no {want} outcome ({kinds})")
     ph = run["phases"]
+    mesh_step_line(name, mesh, ph, counts, PRESSURE_MESH_KERNELS,
+                   dispatch=ph["scan"] - ph["fetch"],
+                   runs=-(-len(wave) // 128))
     print(f"[path] {name}: {len(infos)} nodes on {mesh.size} shards "
           f"({len(mesh.distinct)} distinct devices), {len(wave)} "
           f"preemptors in {-(-len(wave) // 128)} chunks and 1 fetch, "
@@ -3518,6 +3790,7 @@ def cards_phase(report):
     meshes = [list(mesh.devices), list(mesh.devices[:2])]
     # the preemption paths first: their world is built once
     mesh_preempt_variant_checks(device, sync, meshes=meshes)
+    mesh_pressure_local_checks(device, sync, meshes=meshes)
     infos, tree, pdbs = preempt_world(N_NODES)
     with capture("pressure_batch", keep_all=True) as one:
         single = run_wave(infos, tree, pdbs, wave_pods(), device, sync)
@@ -3598,6 +3871,7 @@ def main() -> int:
         timed(variant_checks, device, sync)
         timed(scan_variant_checks, device, sync)
         timed(preempt_variant_checks, device, sync)
+        timed(pressure_variant_checks, device, sync)
         timed(small_world_check, device, sync)
         timed(main_path, "even zones", N_NODES, device, sync, report)
         timed(main_path, "uneven zones (rotate)", N_NODES + 1, device, sync,

@@ -32,9 +32,9 @@ one step of K10a/K10b per live pod and the fused window one step of
 K11a/K11b per pod, each window with one fetch; preempt() the sharded
 victim scan (K14a on every shard, reduced to a candidate record per
 shard, K14b's pick over them) and preempt_pressure_burst() one step of
-K13a/K13b per pod of each 128-pod chunk, the rows, ghost load and victim
-planes split per shard, li / lni chained on the device and one fetch a
-wave. On several cards a scan, fused or pressure step is bound by the
+K13a (one launch a device over its shards) and K13b per pod of each
+128-pod chunk, the rows, ghost load and victim planes split per shard,
+li / lni chained on the device and one fetch a wave. On several cards a scan, fused or pressure step is bound by the
 host's enqueue (0.76-0.87 ms a scan step on 4 x NVIDIA H100 80GB HBM3 at
 700 W, 3.0-3.2x the single-card window; PERF.md section 7) until the step
 is graph-captured, so mesh="auto" costs these windows throughput for
@@ -801,8 +801,9 @@ class TorchScheduler:
 
     def _mesh_phases(self, op: str, phases: dict, before: dict) -> None:
         """Mesh mode: the bytes of the all-gather, the record copies it
-        enqueued (scan and fused windows) and the steps (or passes) of
-        the last window, from the counters its sharded program books."""
+        enqueued (scan and fused windows, pressure waves) and the steps
+        (or passes) of the last window, from the counters its sharded
+        program books."""
         if self.mesh is None:
             return
         for k, name in (("gather", "gather_bytes"), ("copies", "copies"),
@@ -1573,7 +1574,8 @@ class TorchScheduler:
             mut = [{k: d[k] for k in K._MUTABLE} for d in self._dev_nodes]
             ghost = [{k: torch.zeros(per, dtype=torch.int64, device=dev)
                       for k in K.GHOST_FIELDS} for dev in self.mesh.devices]
-        before = self._mesh_counts("pressure", "gather", "steps")
+        before = self._mesh_counts("pressure", "gather", "copies",
+                                   "steps")
         t_enc = time.perf_counter()
         off = 0
         for lo, k, bucket in chunks:

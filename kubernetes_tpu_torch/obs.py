@@ -9,19 +9,21 @@ One flat table of named counts. Names are dotted by family:
                   the launch and nowhere else
   refusal.<reason> whole-burst refusals (the shell runs those pods serially)
   gather.<op>     mesh mode: bytes of the all-gather (cycle,
-                  burst_uniform, burst_scan, burst_segments), every
+                  burst_uniform, burst_scan, burst_segments, pressure,
+                  preempt), every
                   shard's record in every distinct device's buffer
                   (written in place or copied); the counterpart of the
                   JAX package's tpu_ici_allgather_bytes_total, which
                   books a model
   copies.<op>     mesh mode: the record copies the all-gather of a scan
-                  or fused window enqueued (burst_scan, burst_segments):
-                  only the rows of shards on other devices
+                  or fused window or pressure wave enqueued (burst_scan,
+                  burst_segments, pressure): only the rows of shards on
+                  other devices
   passes.burst_uniform, syncs.burst_uniform  mesh mode: the sharded
                   burst's passes and its host reads of the pass counter
-  steps.burst_scan, steps.burst_segments  mesh mode: the steps the
-                  sharded scan and fused window enqueued (one per live
-                  pod, one per pod)
+  steps.burst_scan, steps.burst_segments, steps.pressure  mesh mode:
+                  the steps the sharded scan, fused window and pressure
+                  wave enqueued (one per live pod, one per pod)
   encoder.*, pod_rows.*  host mirror, victim table and row-cache
                   maintenance
 """

@@ -50,21 +50,23 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "scatter_rows": [_I, _I, _L, _P, _P, _P],
     # the scan kernels take host arrays of scalars and of pointers
-    # the cluster kernels (K5, K6) also take their geometry
-    # (`kernels.cluster_plan`: blocks, node slots a thread, resident, bytes)
+    # the cluster kernels (K5, K6, K8) also take their geometry
+    # (`kernels.cluster_plan` / `pressure_plan`: blocks, node slots a
+    # thread, resident, bytes)
     "schedule_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                        ctypes.POINTER(_L), _P],
     "schedule_segments": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                           ctypes.POINTER(_L), _P],
     "preempt_scan": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "pressure_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "pressure_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                       ctypes.POINTER(_L), _P],
     "shard_cycle_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_uniform_sweep": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    # the grouped locals (K10a, K11a) take every shard of one device: the
-    # shards' argument words, their count, the device index, the stream,
-    # and the count each launch made adds one to
+    # the grouped locals (K10a, K11a, K13a) take every shard of one
+    # device: the shards' argument words, their count, the device index,
+    # the stream, and the count each launch made adds one to
     "shard_scan_local": [ctypes.POINTER(_L), _I, _I, _P,
                          ctypes.POINTER(_I)],
     # the cluster selects (K10b, K11b) also take their geometry
@@ -78,8 +80,11 @@ SIGNATURES = {
                               ctypes.POINTER(_I)],
     "shard_preempt_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_preempt_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "shard_pressure_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "shard_pressure_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_pressure_local": [ctypes.POINTER(_L), _I, _I, _P,
+                             ctypes.POINTER(_I)],
+    # K13b: its arrays, the device index, the stream and the launch count
+    "shard_pressure_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _I, _P,
+                              ctypes.POINTER(_I)],
 }
 
 #: other C functions of a library: `<name>_clusters(geometry, *clusters)`
@@ -88,7 +93,8 @@ SIGNATURES = {
 QUERIES = {name: {name + "_clusters": [ctypes.POINTER(_L),
                                        ctypes.POINTER(_I)]}
            for name in ("schedule_batch", "schedule_segments",
-                        "shard_scan_select", "shard_segments_select")}
+                        "pressure_batch", "shard_scan_select",
+                        "shard_segments_select")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,9 @@
 // One pod's scheduling cycle across a thread-block cluster: the cycle of
-// K5 (`schedule_batch.cu`) and K6 (`schedule_segments.cu`), and, fed by
-// the gathered shard records instead of the node rows (REC), of the mesh
-// selects K10b and K11b (`cluster_select.cuh`).
+// K5 (`schedule_batch.cu`) and K6 (`schedule_segments.cu`); with the
+// nominated-ghost load in the filter and the preemption pick carried by its
+// select round, of K8 (`pressure_batch.cu`); and, fed by the gathered shard
+// records instead of the node rows (REC), of the mesh selects K10b and K11b
+// (`cluster_select.cuh`).
 //
 // Replaces, for the scans, the one-block `cycle_run` of `cycle.cuh`
 // (`_feasibility` + `_fit_scores` + `_cycle_core`,
@@ -44,6 +46,7 @@
 #pragma once
 
 #include "cycle.cuh"
+#include "victim.cuh"
 
 #include <cooperative_groups.h>
 
@@ -66,6 +69,10 @@ enum { CF_FEAS = 1, CF_KEPT = 2 };
 // fields of a block's partial record; the zone table follows them
 enum { PR_NA, PR_TT, PR_SC, PR_ICMAX, PR_ICMIN, PR_ZONES, PR_PSTAR, PR_F,
        PR_N };
+// K8's count of in-range nodes whose first failure preemption can resolve
+// rides in the feasible count's slot: K8 walks in axis order, where the
+// feasible count takes no part in the round
+enum { PR_RES = PR_F };
 enum { OP_SUM, OP_MAX, OP_MIN };
 // the slot of a round's results that holds its fetched remote word
 enum { RES_WORD = PR_N };
@@ -80,7 +87,8 @@ enum { RW_REQ_CPU, RW_REQ_MEM, RW_REQ_EPH, RW_NZ_CPU, RW_NZ_MEM,
 // byte count differs.
 struct ClusterLayout {
   size_t ws, sh32, sh64, warp, slot, res, zsum, gz, hist, boff, bmax, misc, sv,
-      tot, rows, scal_req, scal_alloc, a, fl, ja, zone, valid, rec, bytes;
+      tot, rows, scal_req, scal_alloc, a, fl, ja, zone, valid, rec, ghost, agg,
+      bytes;
   int slot_len;  // i64 per partial record
 };
 
@@ -92,11 +100,12 @@ enum { RP_LOCAL, RP_NA, RP_TT, RP_SC, RP_IC, RP_N };
 // `resident` (the records staged in shared memory), per slot the record's
 // zone, RP_N int64 planes, tracked byte and feasible bit; no rows. A select
 // whose records do not fit stages them in global memory (`select_setup`).
-__host__ __device__ inline ClusterLayout cluster_layout(int span, int S,
-                                                        int z_pad,
-                                                        bool spread,
-                                                        bool resident,
-                                                        bool rec = false) {
+// `pressure` (K8): with resident rows also, per slot, the nominated-ghost
+// load (four int64) and the victim scan's aggregates (four int64, one
+// float64, the candidate byte); without, both stay in global memory.
+__host__ __device__ inline ClusterLayout cluster_layout(
+    int span, int S, int z_pad, bool spread, bool resident, bool rec = false,
+    bool pressure = false) {
   ClusterLayout L;
   const size_t sp = (size_t)span;
   const bool rows = resident && !rec;  // K5 / K6's node rows
@@ -132,6 +141,10 @@ __host__ __device__ inline ClusterLayout cluster_layout(int span, int S,
   if (rows) o += sp;
   L.rec = o;
   if (rec && resident) o += sp * (RP_N * 8 + 2);
+  L.ghost = o;
+  if (pressure && rows) o += sp * 8 * 4;
+  L.agg = o;
+  if (pressure && rows) o += sp * (8 * 5 + 1);
   L.bytes = o;
   return L;
 }
@@ -337,18 +350,79 @@ __device__ __forceinline__ i64 cluster_max_ties_round(ClusterCtx& cx,
   return cx.res[0];
 }
 
+// The select round of a K8 pod, carrying the preemption pick: each thread
+// reduces its own nodes' aggregates in `ps` to its victim candidate, read
+// here so that no candidate stays live through the cycle; the threads'
+// `l_sel` (min) and candidates combine over the block (warp shuffles, then
+// warp 0 over the warps' partials) into this block's partial record;
+// after the one cluster barrier warp 0 takes the minimum of the C blocks'
+// l_sel and warp 1 combines their C candidates, read through distributed
+// shared memory. Every thread returns the cluster's l_sel, and the
+// cluster's candidate in `ps.best`. A skip pod runs this round alone (its
+// l_sel unused).
+__device__ __forceinline__ void pick_round(ClusterCtx& cx,
+                                           cg::cluster_group& cl, i64& l_sel,
+                                           PickScan& ps) {
+  static_assert(1 + VB_WORDS <= PR_N, "a partial record holds the pick");
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  i64* slot = cur_slot(cx);
+  i64 s = l_sel;
+  for (int o = 16; o > 0; o >>= 1)
+    s = imin64(s, __shfl_down_sync(0xffffffffu, s, o));
+  VicBest vb = vic_none();
+  for (int j = cx.tlo; j < cx.thi; ++j)
+    vic_add(vb, load_agg(ps.g, ps.n, j), j);
+  const VicBest w = warp_vic(vb);
+  if (lane == 0) {
+    cx.warp[wid] = s;
+    vic_store(cx.warp + NWARPS + wid, w, NWARPS);
+  }
+  __syncthreads();
+  if (wid == 0) {
+    const i64 x = warp_allreduce(
+        OP_MIN, lane < NWARPS ? cx.warp[lane] : LLONG_MAX);
+    const VicBest b = warp_vic(lane < NWARPS
+                                   ? vic_load(cx.warp + NWARPS + lane, NWARPS)
+                                   : vic_none());
+    if (lane == 0) {
+      slot[0] = x;
+      vic_store(slot + 1, b, 1);
+    }
+  }
+  cl.sync();
+  ++cx.round;
+  if (wid == 0) {
+    const i64 x = warp_allreduce(
+        OP_MIN, lane < cx.C ? at_rank(cl, slot, lane)[0] : LLONG_MAX);
+    if (lane == 0) cx.res[0] = x;
+  } else if (wid == 1) {
+    const VicBest b = warp_vic(
+        lane < cx.C ? vic_load(at_rank(cl, slot, lane) + 1, 1) : vic_none());
+    if (lane == 0) vic_store(cx.res + 1, b, 1);
+  }
+  __syncthreads();
+  l_sel = cx.res[0];
+  ps.best = vic_load(cx.res + 1, 1);
+}
+
 // The walk, the scores and the select of one pod's cycle (`cycle_run` +
-// `cycle_select` with skip false, no base, no ghost). `w` is the pod's
-// weight row, `gz` (NULL = off) the gang's zone counts and `gmember`
-// whether the pod is a gang member. REC (the mesh selects): the staged
-// records' feasible bits replace the filter and their local totals K1 and
-// the row-local families (`pd.local_in_base`). Every thread of every
+// `cycle_select` with skip false, no base). `w` is the pod's weight row,
+// `gz` (NULL = off) the gang's zone counts and `gmember` whether the pod is
+// a gang member. REC (the mesh selects): the staged records' feasible bits
+// replace the filter and their local totals K1 and the row-local families
+// (`pd.local_in_base`). K8: `ghost` (NULL = off) adds the carried
+// nominated load to the rows the filter reads, and the result says
+// whether some in-range node's first failure preemption can resolve (the
+// maxima round carries it; the walk must be axis order); `pick` (NULL =
+// none) is the pod's victim scan, whose pick the select round makes over
+// the cluster (`pick_round`) into `pick->best`. Every thread of every
 // block returns the same result.
 template <bool REC = false>
 __device__ __forceinline__ CycleResult cluster_cycle(
     ClusterCtx& cx, cg::cluster_group& cl, const CyclePod& pd,
     const CycleWalk& wk, int gate, const i64* w, const i64* gz,
-    bool gmember) {
+    bool gmember, const CycleGhost* ghost = nullptr,
+    PickScan* pick = nullptr) {
   const CycleNodes& nd = cx.nd;
   const int n = nd.n_pad, tid = threadIdx.x, lo = cx.lo, span = cx.span;
   const int mode = wk.mode;
@@ -366,7 +440,7 @@ __device__ __forceinline__ CycleResult cluster_cycle(
     if (tid < CLUSTER_MAX) cx.hist[tid] = 0;
     if (tid == 0) cx.misc[0] = 0;
   }
-  int lF = 0;
+  int lF = 0, lres = 0;
   for (int j = cx.tlo; j < cx.thi; ++j) {
     bool feas;
     if constexpr (REC) {
@@ -374,8 +448,9 @@ __device__ __forceinline__ CycleResult cluster_cycle(
     } else {
       i64 bits;
       int ff;
-      feas = cycle_filter_row(nd, pd, false, j, nullptr, &bits, &ff)
+      feas = cycle_filter_row(nd, pd, false, j, ghost, &bits, &ff)
              && (i64)j < nr;
+      if (ghost && (i64)j < nr && !cycle_unresolvable(ff, bits)) lres = 1;
     }
     // with positions every feasible node is kept
     FL[j - lo] = feas ? (mode == 2 ? CF_FEAS | CF_KEPT : CF_FEAS) : 0;
@@ -441,7 +516,7 @@ __device__ __forceinline__ CycleResult cluster_cycle(
     __syncthreads();
   }
   i64 v[PR_N] = {LLONG_MIN, LLONG_MIN, LLONG_MIN, LLONG_MIN, LLONG_MAX, 0,
-                 lstar, lF};
+                 lstar, mode == 2 ? lF : lres};
   for (int j = cx.tlo; j < cx.thi; ++j) {
     const bool k = (FL[j - lo] & CF_KEPT) != 0;
     if (nm.do_na) v[PR_NA] = imax64(v[PR_NA], k ? pd.na[j] : 0);
@@ -477,9 +552,11 @@ __device__ __forceinline__ CycleResult cluster_cycle(
         (nm.do_na ? 1u << PR_NA : 0) | (nm.do_tt ? 1u << PR_TT : 0)
         | (nm.do_sc ? (1u << PR_SC) | (1u << PR_ZONES) : 0)
         | (nm.do_ic ? (1u << PR_ICMAX) | (1u << PR_ICMIN) : 0)
-        | (mode == 2 ? 1u << PR_F : 1u << PR_PSTAR);
+        | (mode == 2 ? 1u << PR_F : 1u << PR_PSTAR)
+        | (ghost ? 1u << PR_RES : 0);
     cluster_round(cx, cl, v, ops, live);
   }
+  const bool any_res = ghost && v[PR_RES] > 0;
   nm.na_max = v[PR_NA];
   nm.tt_max = v[PR_TT];
   nm.mbn = v[PR_SC];
@@ -655,7 +732,10 @@ __device__ __forceinline__ CycleResult cluster_cycle(
   {
     i64 s[1] = {l_sel};
     const int ops[1] = {OP_MIN};
-    cluster_round(cx, cl, s, ops);
+    if (pick)
+      pick_round(cx, cl, s[0], *pick);
+    else
+      cluster_round(cx, cl, s, ops);
     l_sel = s[0];
   }
   i64 sel = l_sel == n ? 0 : l_sel;  // argmax of an all-false mask
@@ -667,7 +747,7 @@ __device__ __forceinline__ CycleResult cluster_cycle(
   r.max_score = found > 0 ? max_score : 0;
   r.next_li = floormod(wk.last_index + evaluated, n_safe);
   r.next_lni = wk.lni + (found > 1 ? 1 : 0);
-  r.any_resolvable = false;
+  r.any_resolvable = any_res;
   return r;
 }
 
@@ -830,12 +910,13 @@ __device__ __forceinline__ void cluster_fold(const ClusterCtx& cx,
 
 
 // ---- host side --------------------------------------------------------------
-// -1: the plan's shared memory is not this layout's; -2: the plan does not
-// cover the node axis or exceeds the cluster limit.
-inline int cluster_check(const ScanArgs& a, const ClusterGeom& g) {
+// -1: the plan's shared memory is not this layout's (`pressure`: K8's);
+// -2: the plan does not cover the node axis or exceeds the cluster limit.
+inline int cluster_check(const ScanArgs& a, const ClusterGeom& g,
+                         bool pressure = false) {
   const ClusterLayout L = cluster_layout(
       g.npt * NTHREADS, (int)a.v[I_S], (int)a.v[I_Z_PAD],
-      a.v[I_CARRY_SPREAD] != 0, g.resident != 0);
+      a.v[I_CARRY_SPREAD] != 0, g.resident != 0, false, pressure);
   if ((i64)L.bytes != g.smem) return -1;
   if (g.blocks < 1 || g.blocks > CLUSTER_MAX || g.npt < 1
       || (i64)g.blocks * g.npt * NTHREADS < a.v[I_N_PAD])

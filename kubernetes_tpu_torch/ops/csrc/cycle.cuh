@@ -1,7 +1,7 @@
 // The scheduling cycle of one pod over every node, as a __device__
-// function of one block: K2 runs it once, K8 once per pod. K5 and K6 run
-// its per-node parts (`cycle_filter_row`, `cycle_score_one`) across a
-// thread-block cluster instead (`cluster_cycle.cuh`).
+// function of one block: K2 runs it once. K5, K6 and K8 run its per-node
+// parts (`cycle_filter_row`, `cycle_score_one`) across a thread-block
+// cluster instead (`cluster_cycle.cuh`).
 //
 // Replaces `_feasibility` + `_fit_scores` + `_cycle_core`
 // (kubernetes_tpu/ops/kernels.py:296, :157, :359): per-node predicate bits
@@ -10,10 +10,11 @@
 // `pos` modes); every weighted priority normalised over the kept set (node
 // affinity, taint toleration, one-hot zone selector spread, inter-pod
 // min-max, image locality, prefer-avoid, the K1 resource families and the
-// rank-aware gang locality); and the round-robin k-th tie select. The
-// pressure scan (K8) adds its carried nominated-ghost load to the rows the
-// filter reads (`_cycle_core`'s `ghost`, kernels.py:402-413) and asks
-// whether any in-range node is a preemption candidate. The sharded cycle
+// rank-aware gang locality); and the round-robin k-th tie select. A
+// nominated-ghost load (K2's nominees, K8's nominations) adds to the rows
+// the filter reads (`_cycle_core`'s `ghost`, kernels.py:402-413), and the
+// cycle then asks whether any in-range node is a preemption candidate. The
+// sharded cycle
 // splits it in two: K9a runs `cycle_filter_row` and `cycle_row_local` on
 // each shard's rows, K9b `cycle_select` on the gathered records.
 //
@@ -492,8 +493,8 @@ __device__ __forceinline__ CycleResult cycle_select(
 }
 
 // One whole cycle: the filter of every node, then `cycle_select`. `ghost`
-// (NULL = off: K2, K5, K6) is K8's carried nominated load; with it the
-// result also says whether some in-range node is a preemption candidate.
+// (NULL = off) is the nominated pods' load; with it the result also says
+// whether some in-range node is a preemption candidate.
 __device__ __forceinline__ CycleResult cycle_run(
     const CycleNodes& nd, const CyclePod& pd, bool skip, const CycleWalk& wk,
     int gate, const i64* w, const i64* base, const i64* gz, bool gmember,
@@ -555,7 +556,7 @@ __device__ __forceinline__ void unpack_records(const unsigned char* g,
   __syncthreads();
 }
 
-// ---- the scan kernels' (K5, K6) launch arguments ---------------------------
+// ---- the scan kernels' (K5, K6, K8) launch arguments -----------------------
 // Scalars and pointers in the order of `_SCAN_INTS` / `_SCAN_PTRS`
 // (kubernetes_tpu_torch/ops/kernels.py). Pod fields are per-spec tables:
 // row r of a [U, n_pad] field is pod spec r; NULL = inert in this window.
@@ -571,7 +572,7 @@ enum {
   P_TAINTS_OK, P_UNSCHED_OK, P_PORTS_OK, P_HOST_OK, P_DISK_OK, P_MAXVOL_OK,
   P_VOLBIND_OK, P_VOLZONE_OK, P_IPA_CODE, P_NA, P_TT, P_SC, P_IC, P_IMG,
   P_PA, P_TRACKED, P_ROW, P_PROFILE_ID, P_W, P_WTAB, P_PERMS, P_INV_PERMS,
-  P_OID_SEQ, P_SPREAD, P_TOTAL, P_KEPT, P_FLAGS, P_ZS, P_STATS, P_PACKED,
+  P_OID_SEQ, P_SPREAD, P_STATS, P_PACKED,
   P_CARRY_OUT, P_SEG_START, P_GANG, P_GZ, P_LOG_NODE, P_LOG_ROW,
   // the pressure scan (K8) only; NULL for K5 and K6
   P_GHOST_CPU, P_GHOST_MEM, P_GHOST_EPH, P_GHOST_CNT, P_VIC_CPU, P_VIC_MEM,
@@ -683,18 +684,6 @@ __device__ __forceinline__ CycleWalk scan_walk(const ScanArgs& a, i64 li,
     }
   }
   return wk;
-}
-
-__device__ __forceinline__ CycleScratch scan_scratch(const ScanArgs& a) {
-  CycleScratch cs;
-  cs.total = mptr<i64>(a, P_TOTAL);
-  cs.kept = mptr<unsigned char>(a, P_KEPT);
-  cs.feasible = 0;
-  cs.fail_first = 0;
-  cs.general_bits = 0;
-  cs.scratch = mptr<int>(a, P_FLAGS);
-  cs.zs = mptr<i64>(a, P_ZS);
-  return cs;
 }
 
 // Stage pod b's weight row into `ws` (shared): its wtab row in tensor

@@ -19,13 +19,17 @@
 // at the selected node or the nomination's ghost at the winner. Every
 // distinct device runs it on the same bytes and advances its own state.
 //
+// It reads the records K13a wrote in place into the device's gathered
+// buffer (and the copies of other devices' rows).
+//
 // Shared with K10b/K11b: the argument tables, `select_walk` and
 // `select_weights` (shard_scan.cuh); with K9b: `unpack_records`,
 // `cycle_select` (cycle.cuh); with K14b: `pick_records`, `pick_flags`
 // (victim.cuh).
 //
 // Bound on the H100: latency (a chain of block-wide reductions and scans
-// over n_pad rows). Design: ONE block of 1024 threads.
+// over n_pad rows). Design: ONE block of 1024 threads, its launch bound
+// once a wave (`kernels.Relaunch`).
 #include "shard_scan.cuh"
 #include "victim.cuh"
 
@@ -75,9 +79,16 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// The step's launch on `stream` of `device`; adds one to `*launched` when
+// it launched.
 extern "C" int shard_pressure_select_launch(const i64* iargs, void** ptrs,
-                                            void* stream) {
+                                            int device, void* stream,
+                                            int* launched) {
+  const DeviceScope on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   const ScanSelectArgs a = scan_select_args(iargs, ptrs);
   shard_pressure_select_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const int e = (int)cudaGetLastError();
+  if (e == 0) ++*launched;
+  return e;
 }

@@ -4,7 +4,8 @@
 //   K10b shard_scan_select, K11b shard_segments_select: the replicated half.
 // The sharded pressure wave (K13a shard_pressure_local, K13b
 // shard_pressure_select) takes the same argument tables (its extra slots
-// NULL / 0 for K10 and K11), the local helpers and `select_cycle`.
+// NULL / 0 for K10 and K11), the grouped launch, the local helpers and
+// `select_cycle`.
 //
 // Replaces `sharded_scan_fn` (:233) and `sharded_segments_fn` (:279) of
 // kubernetes_tpu/parallel/sharding.py, where GSPMD runs `_batch_core`
@@ -18,11 +19,12 @@
 //      carried spread); K11a then restores the segment checkpoint after a
 //      gang failure and takes one at a segment start; then K9a's filter
 //      and row-local scores of the step's pod over the shard's rows, into
-//      K9a's record. K10a and K11a run ONE launch a device over every
-//      shard it holds, each shard's record written straight into row s of
-//      the device's gathered buffer; K13a runs one launch a shard;
+//      K9a's record (K13a: the shard's candidate record too). K10a, K11a
+//      and K13a run ONE launch a device over every shard it holds, each
+//      shard's record written straight into row s of the device's
+//      gathered buffer;
 //   2. the all-gather of the records (host side, parallel/sharding.py):
-//      after K10a / K11a only the rows of shards on other devices;
+//      only the rows of shards on other devices;
 //   3. the select on every distinct device: the walk, kept-set scores and
 //      pick of the step's cycle (K10b / K11b: `cluster_cycle` across a
 //      thread-block cluster, `cluster_select.cuh`; K13b: `cycle_select` in
@@ -57,7 +59,7 @@ enum {
   SS_COUNT
 };
 
-// ---- the local kernels (K10a, K11a) ---------------------------------------
+// ---- the local kernels (K10a, K11a, K13a) ---------------------------------
 // scalar slots, in the order of `_SSL_INTS`
 enum {
   SLI_ROWS, SLI_S, SLI_OFFSET, SLI_N_REAL, SLI_GATE, SLI_N_STEPS, SLI_P,
@@ -80,7 +82,7 @@ enum {
   // the pressure wave (K13a) only; NULL for K10a and K11a
   SLP_GHOST_CPU, SLP_GHOST_MEM, SLP_GHOST_EPH, SLP_GHOST_CNT, SLP_VIC_CPU,
   SLP_VIC_MEM, SLP_VIC_EPH, SLP_VIC_PRIO, SLP_VIC_START, SLP_VIC_VALID,
-  SLP_VIC_VIOLATING, SLP_PPRIO, SLP_AGG_I64, SLP_AGG_F64, SLP_AGG_U8,
+  SLP_VIC_VIOLATING, SLP_PPRIO, SLP_PARTIALS,
   SLP_COUNT
 };
 
@@ -336,8 +338,7 @@ __device__ __forceinline__ void scan_local_row(const ScanLocalArgs& a,
   local_record(a, pd, ws, j, v, feasible);
 }
 
-// The host's argument arrays as the struct the local kernels take, and
-// K13a's grid: 256-thread blocks over the shard's rows.
+// The host's argument arrays as the struct the local kernels take.
 inline ScanLocalArgs scan_local_args(const i64* iargs, void* const* ptrs) {
   ScanLocalArgs a;
   for (int i = 0; i < SLI_COUNT; ++i) a.v[i] = iargs[i];
@@ -345,14 +346,7 @@ inline ScanLocalArgs scan_local_args(const i64* iargs, void* const* ptrs) {
   return a;
 }
 
-constexpr int LOCAL_THREADS = 256;
-
-inline int scan_local_blocks(const ScanLocalArgs& a) {
-  const int blocks = ((int)a.v[SLI_ROWS] + LOCAL_THREADS - 1) / LOCAL_THREADS;
-  return blocks < 1 ? 1 : blocks;
-}
-
-// ---- one launch a device over its shards (K10a, K11a) ---------------------
+// ---- one launch a device over its shards (K10a, K11a, K13a) ---------------
 // The launch takes every shard's argument struct in one kernel parameter
 // (`__grid_constant__`: read in place from the parameter bank, never
 // copied to local memory), so a block finds its shard's pointers with no

@@ -1,5 +1,6 @@
 // Victim selection of one node and the five-criteria node pick, shared by
-// K7 (preempt_scan.cu) and K8 (pressure_batch.cu).
+// K7 (preempt_scan.cu), K8 (pressure_batch.cu) and the mesh kernels K13a
+// and K14a (shard_pressure_local.cu, shard_preempt_local.cu).
 //
 // Replaces `_victim_select` and `_pick_one_node`
 // (kubernetes_tpu/ops/kernels.py:1494, :1570), the vmapped mirror of
@@ -14,14 +15,20 @@
 //     order because the sort key is monotone in priority, so the kernel
 //     never sorts. It returns the node's aggregates and, on request, its
 //     per-slot victim flags.
-//   - `pick_block`: one block reduces the aggregates of every node: the
-//     zero-victim instant win, else the staged minimum of PDB violations,
+//   - `pick_block` (K7): one block reduces the aggregates of every node:
+//     the zero-victim instant win, else the staged minimum of PDB violations,
 //     first victim's priority, sum of (priority + 2^31), victim count and
 //     -(earliest start of the highest-priority victims), each compared in
 //     float64 exactly as JAX converts and compares them (a sum of 128
 //     priorities + 2^31 would pass 2^53 only with priorities above 2^45;
 //     comparing the converted values keeps the pick equal regardless),
-//     then the lowest rank among what is left.
+//     then the lowest rank among what is left;
+//   - `shard_candidate` / `pick_records` (K14a / K14b; K13b picks over
+//     K13a's records too): the same pick over a shard's rows, as a
+//     record, then over the D records;
+//   - `VicBest` (K8, K13a): the same pick as one reduction whose partial
+//     results combine in any order, carried by warp shuffles and cluster
+//     rounds.
 //
 // Numeric contract: int64 sums as JAX (wrapping), first-index argmax for
 // the first victim (slot 0 when the node has none: its priority is read
@@ -140,6 +147,105 @@ __device__ __forceinline__ VictimAgg victim_node(int j, const VictimRows& r,
   return a;
 }
 
+__device__ __forceinline__ i64 warp_sum64(i64 x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// selectVictimsOnNode for node j by the 32 lanes of a warp, each calling it
+// with the same j and returning the same aggregates: lane l holds slots l,
+// l + 32, ..., so each plane's row is read once and coalesced where one
+// thread would wait on every slot in turn. Pass 1 is a warp sum; pass 2's
+// keep chain runs in every lane over the slots broadcast in order; the
+// aggregates are warp reductions (the victims' priorities and starts
+// combine chunk by chunk as the online loop of `victim_node` keeps them).
+// `flags` (NULL or [P]) gets each slot's victim bit from the lane that
+// holds it. Equal to `victim_node`.
+__device__ __forceinline__ VictimAgg victim_node_warp(int j,
+                                                      const VictimRows& r,
+                                                      const VictimPlanes& v,
+                                                      const VictimPod& p,
+                                                      bool feas_static,
+                                                      int* flags) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const size_t o = (size_t)j * v.P;
+  i64 scpu = 0, smem = 0, seph = 0, nvic = 0;
+  for (int s = lane; s < v.P; s += 32) {
+    if (v.valid[o + s] && v.prio[o + s] < p.max_prio) {
+      scpu += v.cpu[o + s];
+      smem += v.mem[o + s];
+      seph += v.eph[o + s];
+      ++nvic;
+    }
+  }
+  i64 rc = r.req_cpu[j] - warp_sum64(scpu),
+      rm = r.req_mem[j] - warp_sum64(smem),
+      re = r.req_eph[j] - warp_sum64(seph),
+      pc = r.pod_count[j] - warp_sum64(nvic);
+  if (r.g_cpu) {
+    rc += r.g_cpu[j];
+    rm += r.g_mem[j];
+    re += r.g_eph[j];
+    pc += r.g_cnt[j];
+  }
+  VictimAgg a;
+  a.feas0 = feas_static && victim_fits(r, j, p, rc, rm, re, pc);
+  a.nv = a.viol_ct = a.sum_prio = 0;
+  a.earliest_high = dinf();
+  i64 high = LLONG_MIN;
+  int first = -1;
+  for (int s0 = 0; s0 < v.P; s0 += 32) {
+    const int s = s0 + lane, n = v.P - s0 < 32 ? v.P - s0 : 32;
+    const bool in = lane < n;
+    const bool vval = in && v.valid[o + s] && v.prio[o + s] < p.max_prio;
+    const i64 c = in ? v.cpu[o + s] : 0, m = in ? v.mem[o + s] : 0,
+              e = in ? v.eph[o + s] : 0;
+    bool kept = false;
+    for (int k = 0; k < n; ++k) {
+      const bool vk = __shfl_sync(full, vval, k);
+      const i64 nrc = rc + __shfl_sync(full, c, k),
+                nrm = rm + __shfl_sync(full, m, k),
+                nre = re + __shfl_sync(full, e, k), npc = pc + (vk ? 1 : 0);
+      const bool keep =
+          vk && a.feas0 && victim_fits(r, j, p, nrc, nrm, nre, npc);
+      if (keep) {
+        rc = nrc;
+        rm = nrm;
+        re = nre;
+        pc = npc;
+      }
+      if (lane == k) kept = keep;
+    }
+    const bool victim = vval && !kept && a.feas0;
+    if (flags && in) flags[s] = victim ? 1 : 0;
+    const unsigned vb = __ballot_sync(full, victim);
+    a.nv += __popc(vb);
+    a.viol_ct += __popc(__ballot_sync(full, victim && v.viol[o + s]));
+    if (first < 0 && vb) first = s0 + __ffs(vb) - 1;
+    const i64 pr = in ? v.prio[o + s] : 0;
+    a.sum_prio += warp_sum64(victim ? pr + (1LL << 31) : 0);
+    i64 hk = victim ? pr : LLONG_MIN;
+    for (int q = 16; q > 0; q >>= 1)
+      hk = imax64(hk, __shfl_xor_sync(full, hk, q));
+    double ek = victim && pr == hk ? v.start[o + s] : dinf();
+    for (int q = 16; q > 0; q >>= 1) {
+      const double u = __shfl_xor_sync(full, ek, q);
+      ek = u < ek ? u : ek;
+    }
+    // the chunk's highest victim priority and its earliest start, merged
+    // as the online loop merges a victim
+    if (hk > high) {
+      high = hk;
+      a.earliest_high = ek;
+    } else if (hk == high && ek < a.earliest_high) {
+      a.earliest_high = ek;
+    }
+  }
+  a.first_prio = v.prio[o + (first < 0 ? 0 : first)];
+  return a;
+}
+
 // aggregate planes of a scan: i64 [4, n] (nv, viol_ct, first_prio,
 // sum_prio), f64 [n] earliest_high, u8 [2, n] (feas0, pick mask)
 struct VictimAggPlanes {
@@ -156,6 +262,18 @@ __device__ __forceinline__ void store_agg(const VictimAggPlanes& g, int n,
   g.i[3 * n + j] = a.sum_prio;
   g.f[j] = a.earliest_high;
   g.u[j] = a.feas0;
+}
+
+__device__ __forceinline__ VictimAgg load_agg(const VictimAggPlanes& g,
+                                              int n, int j) {
+  VictimAgg a;
+  a.nv = g.i[j];
+  a.viol_ct = g.i[n + j];
+  a.first_prio = g.i[2 * n + j];
+  a.sum_prio = g.i[3 * n + j];
+  a.earliest_high = g.f[j];
+  a.feas0 = g.u[j] != 0;
+  return a;
 }
 
 __device__ __forceinline__ double block_min_f64(double v, double* sh) {
@@ -415,4 +533,113 @@ __device__ __forceinline__ void pick_flags(const unsigned char* g,
   const int* f = p.src < 0 ? 0
       : (const int*)(cand_at(g, chunk, off, p.src) + CR_FLAG_BYTES);
   for (int s = threadIdx.x; s < P; s += blockDim.x) out[s] = f ? f[s] : 0;
+}
+
+// ---- the pick as one lexicographic reduction (K8, K13a) -------------------
+// pickOneNodeForPreemption by axis order as a reduction whose partial
+// results combine in any order over any split of the rows: the lowest key
+// among the zero-victim candidates, and the candidate at the lexicographic
+// minimum of (the five criteria, key). The staged filter of `pick_block` and
+// `shard_candidate` keeps exactly the rows at the lexicographic minimum of
+// the five criteria (IEEE `<` and `==`; no criterion is NaN: counts, sums
+// and starts are finite or +inf), and among them the lowest key wins, so
+// the two agree. Some row is a candidate exactly when a best one exists.
+// The key is the row's global index.
+struct VicBest {
+  i64 zkey;     // the lowest key among zero-victim candidates (I64 max: none)
+  i64 bkey;     // the best candidate's key (I64 max: no candidate)
+  double c[5];  // its five criteria, as JAX converts them
+};
+constexpr int VB_WORDS = 7;  // int64 words of a VicBest
+
+__device__ __forceinline__ VicBest vic_none() {
+  VicBest v;
+  v.zkey = v.bkey = LLONG_MAX;
+  for (int q = 0; q < 5; ++q) v.c[q] = 0.0;
+  return v;
+}
+
+// whether a's best candidate comes before b's
+__device__ __forceinline__ bool vic_before(const VicBest& a,
+                                           const VicBest& b) {
+  if (a.bkey == LLONG_MAX) return false;
+  if (b.bkey == LLONG_MAX) return true;
+  for (int q = 0; q < 5; ++q) {
+    if (a.c[q] < b.c[q]) return true;
+    if (!(a.c[q] == b.c[q])) return false;
+  }
+  return a.bkey < b.bkey;
+}
+
+__device__ __forceinline__ VicBest vic_comb(const VicBest& a,
+                                            const VicBest& b) {
+  VicBest r = vic_before(b, a) ? b : a;
+  r.zkey = imin64(a.zkey, b.zkey);
+  return r;
+}
+
+// row `key`, whose victim scan gave `a`, added to v
+__device__ __forceinline__ void vic_add(VicBest& v, const VictimAgg& a,
+                                        i64 key) {
+  if (!a.feas0) return;
+  if (a.nv == 0) v.zkey = imin64(v.zkey, key);
+  VicBest c;
+  c.zkey = LLONG_MAX;
+  c.bkey = key;
+  c.c[0] = (double)a.viol_ct;
+  c.c[1] = (double)a.first_prio;
+  c.c[2] = (double)a.sum_prio;
+  c.c[3] = (double)a.nv;
+  c.c[4] = -a.earliest_high;
+  if (vic_before(c, v)) {
+    v.bkey = key;
+    for (int q = 0; q < 5; ++q) v.c[q] = c.c[q];
+  }
+}
+
+// the pick: -1 when no row is a candidate, else the zero-victim key, else
+// the best candidate's
+__device__ __forceinline__ i64 vic_winner(const VicBest& v) {
+  return v.bkey == LLONG_MAX ? -1 : v.zkey != LLONG_MAX ? v.zkey : v.bkey;
+}
+
+// the lanes' candidates combined, in every lane (`vic_comb` is
+// commutative: no two candidates share a key)
+__device__ __forceinline__ VicBest warp_vic(VicBest v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    VicBest u;
+    u.zkey = __shfl_xor_sync(0xffffffffu, v.zkey, o);
+    u.bkey = __shfl_xor_sync(0xffffffffu, v.bkey, o);
+    for (int q = 0; q < 5; ++q)
+      u.c[q] = __shfl_xor_sync(0xffffffffu, v.c[q], o);
+    v = vic_comb(v, u);
+  }
+  return v;
+}
+
+// A K8 pod's victim scan as its cycle's select round reads it: the
+// aggregates of every node, indexed by global node (`store_agg` planes of
+// stride n), and the cluster's pick, which the round writes into `best`.
+struct PickScan {
+  VictimAggPlanes g;
+  int n;
+  VicBest best;
+};
+
+// a VicBest as VB_WORDS int64 words `stride` apart, and back
+__device__ __forceinline__ void vic_store(i64* w, const VicBest& v,
+                                          int stride) {
+  w[0] = v.zkey;
+  w[stride] = v.bkey;
+  for (int q = 0; q < 5; ++q)
+    w[(2 + q) * stride] = __double_as_longlong(v.c[q]);
+}
+
+__device__ __forceinline__ VicBest vic_load(const i64* w, int stride) {
+  VicBest v;
+  v.zkey = w[0];
+  v.bkey = w[stride];
+  for (int q = 0; q < 5; ++q)
+    v.c[q] = __longlong_as_double(w[(2 + q) * stride]);
+  return v;
 }

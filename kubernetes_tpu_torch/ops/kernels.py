@@ -1566,16 +1566,16 @@ def schedule_batch_segments_plain(nodes, pods, seg_start, gang, n_pods,
 
 
 # ---------------------------------------------------------------------------
-# The cluster geometry of K5 / K6 (csrc/cluster_cycle.cuh) and of the mesh
-# selects K10b / K11b (csrc/cluster_select.cuh)
+# The cluster geometry of K5 / K6 / K8 (csrc/cluster_cycle.cuh) and of the
+# mesh selects K10b / K11b (csrc/cluster_select.cuh)
 # ---------------------------------------------------------------------------
 #: blocks of a cluster (H100's non-portable maximum), threads of a block,
 #: and the dynamic shared memory a block may take after the opt-in
 CLUSTER_BLOCKS = 16
 CLUSTER_THREADS = 1024
 SMEM_CAP = 232448
-#: the kernels that run as one cluster a window
-CLUSTER_KERNELS = ("schedule_batch", "schedule_segments")
+#: the kernels that run as one cluster a window (K5, K6) or a chunk (K8)
+CLUSTER_KERNELS = ("schedule_batch", "schedule_segments", "pressure_batch")
 #: the mesh selects that run as one cluster a step
 SELECT_CLUSTER_KERNELS = ("shard_scan_select", "shard_segments_select")
 #: slots of a launch's geometry array (`CG_*`, csrc/cluster_cycle.cuh)
@@ -1587,16 +1587,20 @@ _RP_N = 5              # a select's staged int64 record planes (`RP_*`)
 #: bytes a node slot of a select's records staged in global memory: the
 #: int64 planes, the zone, the tracked byte and the feasible bit
 _REC_SLOT_BYTES = 8 * _RP_N + 4 + 2
+#: bytes K8 keeps a node slot beside K5's resident rows: the ghost load
+#: (four int64) and the victim scan's aggregates (four int64, one float64,
+#: the candidate byte)
+_PRESSURE_SLOT_BYTES = 8 * 4 + 8 * 5 + 1
 
 
 @dataclasses.dataclass(frozen=True)
 class ClusterPlan:
-    """The geometry of one cluster launch (K5 / K6, or a K10b / K11b
-    step): `blocks` blocks of CLUSTER_THREADS threads, each thread
-    `nodes_per_thread` consecutive node slots (block q owns [q * span,
-    (q + 1) * span)), the node rows (a select: the step's gathered
-    records) `resident` in shared memory or left in global memory, and
-    `smem_bytes` of dynamic shared memory a block."""
+    """The geometry of one cluster launch (K5 / K6, a K8 chunk, or a
+    K10b / K11b step): `blocks` blocks of CLUSTER_THREADS threads, each
+    thread `nodes_per_thread` consecutive node slots (block q owns
+    [q * span, (q + 1) * span)), the node rows (a select: the step's
+    gathered records) `resident` in shared memory or left in global
+    memory, and `smem_bytes` of dynamic shared memory a block."""
     blocks: int
     nodes_per_thread: int
     resident: bool
@@ -1615,7 +1619,8 @@ class ClusterPlan:
 
 
 def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
-                       resident: bool, records: bool = False) -> int:
+                       resident: bool, records: bool = False,
+                       pressure: bool = False) -> int:
     """A block's dynamic shared memory, as `cluster_layout`
     (csrc/cluster_cycle.cuh) lays it out: a fixed part (the weight row,
     the warp slots of the block scans and of the rounds, two partial
@@ -1626,7 +1631,8 @@ def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
     scalars, the zone and the valid byte. `records` (a select): no rows,
     the step state, and, resident, per slot the staged record's zone, five
     int64 planes (local, na, tt, sc, ic), tracked byte and feasible
-    bit."""
+    bit. `pressure` (K8): with the rows resident also the ghost load and
+    the victim scan's aggregates a slot."""
     fixed = (16 * 8 + _NWARPS * (4 + 8) + _PR_N * _NWARPS * 8
              + 2 * (_PR_N + 2 * z_pad) * 8 + 16 * 8 + 3 * z_pad * 8
              + 16 * (4 + 8 + 8) + 8 * 4)
@@ -1637,6 +1643,8 @@ def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
             per_node += _REC_SLOT_BYTES
     elif resident:
         per_node += 8 * (_ROWS_I64 + int(bool(carry_spread))) + 16 * S + 5
+        if pressure:
+            per_node += _PRESSURE_SLOT_BYTES
     return fixed + span * per_node
 
 
@@ -1660,6 +1668,30 @@ def cluster_plan(n_pad: int, S: int, z_pad: int, carry_spread: bool,
     raise ValueError(f"cluster {'select' if records else 'scan'}: n_pad "
                      f"{n_pad} (z_pad {z_pad}) needs {nbytes} B of shared "
                      f"memory a block, over {SMEM_CAP}")
+
+
+def pressure_plan(n_pad: int, S: int, z_pad: int,
+                  blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
+    """The geometry of a K8 chunk over `n_pad` node slots: the fewest
+    node slots a thread that cover the axis with `blocks` blocks, then
+    only the blocks that own a node at that span (a block that owns none
+    would only take part in the rounds), and the rows, the ghost load and
+    the victim scan's aggregates resident in shared memory when they fit
+    in SMEM_CAP, else in global memory. Raises when not even the scratch
+    fits."""
+    if not 1 <= blocks <= CLUSTER_BLOCKS:
+        raise ValueError(f"a cluster holds 1 to {CLUSTER_BLOCKS} blocks")
+    npt = max(1, -(-int(n_pad) // (blocks * CLUSTER_THREADS)))
+    span = npt * CLUSTER_THREADS
+    blocks = max(1, -(-int(n_pad) // span))
+    for resident in (True, False):
+        nbytes = cluster_smem_bytes(span, S, z_pad, False, resident,
+                                    pressure=True)
+        if nbytes <= SMEM_CAP:
+            return ClusterPlan(blocks, npt, resident, nbytes)
+    raise ValueError(f"cluster pressure scan: n_pad {n_pad} (z_pad {z_pad}) "
+                     f"needs {nbytes} B of shared memory a block, over "
+                     f"{SMEM_CAP}")
 
 
 def select_plan(n_pad: int, z_pad: int,
@@ -1717,8 +1749,7 @@ _SCAN_PTRS = (_NODE_STATIC + _MUTABLE
               + ("scal", "req_scalar_p", "upd_scalar_p") + _CYCLE_MASKS
               + ("interpod_code",) + _CYCLE_COUNTS
               + ("interpod_tracked", "row", "profile_id", "w", "wtab",
-                 "perms", "inv_perms", "oid_seq", "spread",
-                 "total", "kept", "flags", "zs", "stats", "packed",
+                 "perms", "inv_perms", "oid_seq", "spread", "stats", "packed",
                  "carry_out", "seg_start", "gang", "gz", "log_node",
                  "log_row", "ghost_cpu", "ghost_mem", "ghost_eph",
                  "ghost_cnt", "vic_cpu", "vic_mem", "vic_eph", "vic_prio",
@@ -1732,7 +1763,8 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
                  segments=None, gang_score=False, pressure=None):
     """Launch K5 (`schedule_batch`), K6 (`schedule_segments`) or K8
     (`pressure_batch`, whose extra pointers and packed output come in
-    `pressure`). Returns (state, li, lni, spread, stats[5, B] int64,
+    `pressure`), one thread-block cluster (`cluster_plan`, K8
+    `pressure_plan`). Returns (state, li, lni, spread, stats[5, B] int64,
     packed int32)."""
     dev = nodes["valid"].device
     n_pad = int(nodes["valid"].shape[0])
@@ -1784,14 +1816,6 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
     w = _weight_row(weights, None, dev)
     oid = None if oid_seq is None \
         else _upload(oid_seq.astype(np.int32), dev)
-    scratch = {}
-    if name not in CLUSTER_KERNELS:
-        # the one-block cycle's per-node scratch (K5 / K6 keep theirs in
-        # shared memory)
-        scratch = {"total": torch.empty(n_pad, dtype=I64, device=dev),
-                   "kept": torch.empty(n_pad, dtype=torch.uint8, device=dev),
-                   "flags": torch.empty(2 * n_pad, dtype=I32, device=dev),
-                   "zs": torch.empty(2 * int(z_pad), dtype=I64, device=dev)}
     stats = torch.empty((5, B), dtype=I64, device=dev)
     if pressure is not None:
         packed = pressure["packed"]
@@ -1799,11 +1823,12 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
         packed = torch.empty((4 if segments else 3) * B, dtype=I32,
                              device=dev)
     carry_out = torch.empty(2, dtype=I64, device=dev)
-    extra = ()
-    if name in CLUSTER_KERNELS:
+    if pressure is not None:
+        plan = _cluster_geometry(name, lambda blocks: pressure_plan(
+            n_pad, s_count, int(z_pad), blocks))
+    else:
         plan = _cluster_geometry(name, lambda blocks: cluster_plan(
             n_pad, s_count, int(z_pad), carry_spread, blocks))
-        extra = (plan.geometry(),)
     seg = {}
     if segments is not None:
         # one undo log of B entries for every block of the cluster (the
@@ -1824,7 +1849,6 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
                  "profile_id": prof, "w": w, "wtab": wtab, "perms": perms,
                  "inv_perms": inv_perms, "oid_seq": oid, "spread": spread,
                  "stats": stats, "packed": packed, "carry_out": carry_out})
-    ptrs.update(scratch)
     ptrs.update(zip(_CYCLE_MASKS, masks))
     ptrs.update(zip(_CYCLE_COUNTS, counts))
     ptrs.update(seg)
@@ -1846,7 +1870,7 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
     if perms is not None and perms.shape[1] != n_pad:
         raise ValueError(f"{name}: rotation rows must be n_pad wide")
     _launch(name, *_launch_arrays(ints, _SCAN_INTS, ptrs, _SCAN_PTRS, name),
-            *extra)
+            plan.geometry())
     spread_out = spread if carry_spread \
         else torch.zeros((), dtype=I64, device=dev)
     return state, carry_out[0], carry_out[1], spread_out, stats, packed
@@ -2326,10 +2350,11 @@ def _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
     extra.update({
         "pprio": stack.table["pprio"].to(I64).reshape(U).contiguous(),
         "carry_in": carry_in,
-        "agg_i64": torch.empty((4, n_pad), dtype=I64, device=dev),
-        "agg_f64": torch.empty(n_pad, dtype=torch.float64, device=dev),
-        "agg_u8": torch.empty((2, n_pad), dtype=torch.uint8, device=dev),
         "packed": out, "vic_P": P})
+    # the victim scan's aggregates, where the plan keeps them in global
+    # memory (i64 [4, n_pad], f64 [n_pad], the candidate byte [n_pad])
+    extra.update(zip(("agg_i64", "agg_f64", "agg_u8"),
+                     _agg_planes(n_pad, dev, 1)))
     state, li, lni, _spread, _stats, _packed = _scan_launch(
         "pressure_batch", nodes, stack, 0, 0, num_to_find, n_real, z_pad,
         weights, 0, None, None, None, False, mut0, None, None, B,
@@ -3147,12 +3172,12 @@ class ScanShard:
     carried spread, its slices of the window's pod tables (`[U, rows]`
     when dense, `[U, 1]` inert fields and per-spec scalars replicated),
     the K11 checkpoint (copies of the live rows and spread slice, or
-    None), and its record `rec`: for K10a / K11a row `index` of its
-    device's gathered buffer (a view), where the local step writes it;
-    for K13a a buffer of its own. A pressure wave's shard (K13a) also
-    holds its slice of the nominated-ghost load (a fresh copy, folded in
-    place), its victim planes, and the scratch planes of its rows' victim
-    aggregates (i64 [4, rows], f64 [rows], u8 [3, rows])."""
+    None), and its record `rec`: row `index` of its device's gathered
+    buffer (a view), where the local step writes it. A pressure wave's
+    shard (K13a) also holds its slice of the nominated-ghost load (a fresh
+    copy, folded in place), its victim planes, and `partials`, the
+    kernel's scratch: one partial candidate record a row block, then the
+    ticket counter that finds the last row block (zeros)."""
 
     def __init__(self, index, offset, nodes, spread, tab, chk, rec,
                  ghost=None, vic=None):
@@ -3162,9 +3187,11 @@ class ScanShard:
         self.nodes, self.spread, self.tab, self.chk = nodes, spread, tab, chk
         self.scal = scan_scalars(tab)
         self.rec = rec
-        self.ghost, self.vic, self.agg = ghost, vic, None
+        self.ghost, self.vic, self.partials = ghost, vic, None
         if vic is not None:
-            self.agg = _agg_planes(self.rows, dev, 3)
+            blocks = -(-self.rows // LOCAL_GROUP_THREADS)
+            self.partials = torch.zeros(blocks * PARTIAL_WORDS + 1,
+                                        dtype=I64, device=dev)
         self._args: dict = {}    # launch arrays, built once per window
 
     @property
@@ -3295,8 +3322,7 @@ _SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
         "seg_start", "gang", "rec") + tuple(
     "ghost_" + k for k in ("cpu", "mem", "eph", "cnt")) + tuple(
     "vic_" + k for k in ("cpu", "mem", "eph", "prio", "start", "valid",
-                         "violating")) + ("pprio", "agg_i64", "agg_f64",
-                                          "agg_u8")
+                         "violating")) + ("pprio", "partials")
 
 
 def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
@@ -3339,8 +3365,7 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
         ptrs.update({"ghost_" + k: sh.ghost[k] for k in GHOST_FIELDS})
         ptrs.update({"vic_" + k: sh.vic[k] for k in VICTIM_PLANES})
         ptrs.update({"pprio": tab["pprio"].to(I64).reshape(U).contiguous(),
-                     "agg_i64": sh.agg[0], "agg_f64": sh.agg[1],
-                     "agg_u8": sh.agg[2]})
+                     "partials": sh.partials})
         if any(sh.vic[k].shape[0] != rows for k in VICTIM_PLANES) \
                 or any(g.shape != (rows,) for g in sh.ghost.values()):
             raise ValueError(f"{name}: victim planes or ghost are not the "
@@ -3363,31 +3388,27 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
     return (ptrs,) + _launch_arrays(ints, _SSL_INTS, ptrs, _SSL_PTRS, name)
 
 
-def _scan_step_launch(name, obj, build) -> None:
-    """Launch kernel `name` (K13a, K13b) with the argument arrays cached on
-    `obj` (a ScanShard or ScanSide), built by `build()` at its first
-    launch: (the pointer tensors, the scalar array, the pointer array)."""
-    args = obj._args.get(name)
-    if args is None:
-        args = obj._args[name] = build()
-    with _on(obj.device):
-        _launch(name, *args[1:])
-
-
 #: shards a grouped local launch covers (csrc/shard_scan.cuh
 #: `LOCAL_GROUP_SHARDS`); a device holding more takes one launch per as many
 LOCAL_GROUP_SHARDS = 4
+#: threads of a grouped local launch's row block (`LOCAL_GROUP_THREADS`)
+LOCAL_GROUP_THREADS = 128
+#: int64 words of a K13a row block's partial candidate record
+#: (csrc/shard_pressure_local.cu `PARTIAL_WORDS`: the candidate's seven,
+#: then the OR of the resolvable flags)
+PARTIAL_WORDS = 8
 
 
 class Relaunch:
-    """The launch a mesh step's wrapper (K10a / K11a over a device's
-    shards, K10b / K11b) just enqueued, bound for the window's next steps:
-    `fn()` enqueues the same launch again with nothing else on the host
-    (the ctypes function `cfn` on `args`, its argument arrays, device and
-    stream, all fixed at the window's first step) and returns its CUDA
-    error code. The C function adds one to `count` at every kernel launch
-    it makes; `book()` moves that count to `launch.<name>` and returns it.
-    `keep` holds the tensors the arrays point at."""
+    """The launch a mesh step's wrapper (K10a / K11a / K13a over a
+    device's shards, K10b / K11b / K13b) just enqueued, bound for the
+    window's next steps: `fn()` enqueues the same launch again with
+    nothing else on the host (the ctypes function `cfn` on `args`, its
+    argument arrays, device and stream, all fixed at the window's first
+    step) and returns its CUDA error code. The C function adds one to
+    `count` at every kernel launch it makes; `book()` moves that count to
+    `launch.<name>` and returns it. `keep` holds the tensors the arrays
+    point at."""
 
     def __init__(self, name: str, cfn, args: tuple, keep):
         self.name, self.keep = name, keep
@@ -3944,15 +3965,27 @@ def shard_pressure_local_plain(sh: ScanShard, side: ScanSide,
         feas0, victims, agg, idx, sh.offset, any_res))
 
 
-def shard_pressure_local(sh: ScanShard, side: ScanSide,
-                         plan: ScanPlan) -> None:
-    """K13a on one shard, `side` the wave's replicated half on the
-    shard's device. CPU tensors -> the plain version; CUDA tensors ->
-    `csrc/shard_pressure_local.cu` on that device."""
-    if not sh.nodes["valid"].is_cuda:
-        return shard_pressure_local_plain(sh, side, plan)
-    _scan_step_launch("shard_pressure_local", sh, lambda: _scan_local_args(
-        "shard_pressure_local", sh, side, plan, sh.rec))
+def shard_pressure_group_plain(shards: list, side: ScanSide,
+                               plan: ScanPlan) -> None:
+    """K13a plain over every shard of `shards` (the shards of `side`'s
+    device): `shard_pressure_local_plain` on each, its record `rec` row
+    `index` of `side.gathered`."""
+    for sh in shards:
+        sh.rec = side.gathered[sh.index]
+        shard_pressure_local_plain(sh, side, plan)
+
+
+def shard_pressure_local(shards: list, side: ScanSide,
+                         plan: ScanPlan) -> Optional[Relaunch]:
+    """K13a over every shard of `shards`, all on `side`'s device (the
+    wave's replicated half there), each record into row `index` of
+    `side.gathered`. CPU tensors -> the plain version on each shard
+    (returns None); CUDA tensors -> ONE launch of
+    `csrc/shard_pressure_local.cu` over them, returning its `Relaunch`
+    for the wave's next steps."""
+    if not side.st.is_cuda:
+        return shard_pressure_group_plain(shards, side, plan)
+    return _local_group_launch("shard_pressure_local", shards, side, plan)
 
 
 # ---- K13b shard_pressure_select ---------------------------------------------
@@ -3991,11 +4024,24 @@ def shard_pressure_select_plain(side: ScanSide, plan: ScanPlan) -> None:
         st[k] = v
 
 
-def shard_pressure_select(side: ScanSide, plan: ScanPlan) -> None:
+def shard_pressure_select(side: ScanSide,
+                          plan: ScanPlan) -> Optional[Relaunch]:
     """K13b on one device over its gathered records. CPU -> the plain
-    version; CUDA -> `csrc/shard_pressure_select.cu`."""
+    version (returns None); CUDA -> `csrc/shard_pressure_select.cu`, one
+    block a step, returning its `Relaunch` for the wave's next steps (the
+    argument arrays, device and stream bound at the wave's first step and
+    cached on `side`)."""
+    name = "shard_pressure_select"
     if not side.gathered.is_cuda:
         return shard_pressure_select_plain(side, plan)
-    _scan_step_launch("shard_pressure_select", side,
-                      lambda: _scan_select_args("shard_pressure_select",
-                                                side, plan))
+    rel = side._args.get(name)
+    if rel is None:
+        dev = side.device
+        ptrs, iargs, parr = _scan_select_args(name, side, plan)
+        fn = getattr(_build.load(name), name + "_launch")
+        rel = side._args[name] = Relaunch(name, fn, (
+            iargs, parr, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream), ptrs)
+    _check(rel.fn(), name)
+    rel.book()
+    return rel

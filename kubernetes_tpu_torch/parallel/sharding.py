@@ -12,18 +12,18 @@ device (the JAX mesh is single-controller too):
 - shard s owns rows [s * n_pad / D, (s + 1) * n_pad / D) of the node
   matrix, on `mesh.devices[s]`; devices may repeat (`["cuda:0"] * 4` runs
   four shards on one card, `["cpu"] * 4` is what the CPU tests use);
-- a shard-local kernel (K9a for the cycle, K9c for a uniform pass, K13a
-  for a step of the pressure wave, K14a for a victim scan) runs on each
-  shard's own device over its rows and writes a small per-row record
-  (K13a and K14a also reduce their rows' victim scan to one candidate
-  record per shard); K10a / K11a, a step of the scan / fused window, run
-  ONE launch a device over every shard it holds, each shard's record
+- a shard-local kernel (K9a for the cycle, K9c for a uniform pass, K14a
+  for a victim scan) runs on each shard's own device over its rows and
+  writes a small per-row record (K14a reduces its rows' victim scan to
+  one candidate record per shard); K10a / K11a / K13a, a step of the
+  scan / fused window / pressure wave, run ONE launch a device over every
+  shard it holds, each shard's record (K13a: with its candidate record)
   written straight into row s of that device's gathered buffer;
 - `all_gather` copies every shard's record into a replicated [D, bytes]
   buffer on each distinct device (a peer copy between cards, an on-device
   copy on one card), each copy ordered after its producer by a CUDA
-  event; after K10a / K11a, `gather_in_place` copies only the rows whose
-  shard lives on another device (`gather_plan`), none on one card;
+  event; after K10a / K11a / K13a, `gather_in_place` copies only the rows
+  whose shard lives on another device (`gather_plan`), none on one card;
 - a replicated select (K9b, K9d, K10b, K11b, K13b, K14b) runs on every
   distinct device over the gathered records, so every device reaches the
   same decision. The scans keep their step state (step index, li / lni,
@@ -595,15 +595,14 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
             if carry_spread:
                 chk["spread"] = spreads[s].clone()
         ghost = vic = None
-        # K10a / K11a write the record in place, K13a into its own buffer
-        rec = sides[dev].gathered[s]
         if pressure is not None:
             ghost = {k: v.to(dev, K.I64).clone().contiguous()
                      for k, v in pressure["ghost"][s].items()}
             vic = pressure["vic"][s]
-            rec = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+        # the local step writes the record in place
         scan.append(K.ScanShard(s, s * rows, mine, spreads[s], tables[s],
-                                chk, rec, ghost=ghost, vic=vic))
+                                chk, sides[dev].gathered[s], ghost=ghost,
+                                vic=vic))
     if every_pod:
         steps = plan.n_steps
     else:
@@ -619,34 +618,21 @@ def device_groups(mesh: Mesh, scan: list) -> list:
 
 
 def _run_steps(mesh: Mesh, scan: list, sides: dict, plan, steps: int,
-               local, select, grouped: bool = False) -> tuple:
+               local, select) -> tuple:
     """Enqueue `steps` steps (the local kernel, the all-gather, the select
     on every distinct device), then the local kernel once more for the
-    last step's fold. No host read. `grouped` (K10, K11): `local` takes
-    every shard of one device (`device_groups`, formed once here) and
-    writes the records in place, so the all-gather copies only other
-    devices' rows (`gather_in_place`); on a card the first call of each
-    device's local and select returns its bound `Relaunch`, and the later
-    steps enqueue those with nothing else; their C launch functions count
-    every launch, booked after the window (one card: two host calls a
-    step). Otherwise (K13) `local` runs on one shard and every record is
-    copied. Returns (bytes in every device's buffer, copies enqueued)."""
+    last step's fold. No host read. `local` (K10a, K11a, K13a) takes every
+    shard of one device (`device_groups`, formed once here) and writes the
+    records in place, so the all-gather copies only other devices' rows
+    (`gather_in_place`); on a card the first call of each device's local
+    and select returns its bound `Relaunch`, and the later steps enqueue
+    those with nothing else; their C launch functions count every launch,
+    booked after the window (one card: two host calls a step). Returns
+    (bytes in every device's buffer, copies enqueued)."""
     recs = [sh.rec for sh in scan]
     bufs = {d: sides[d].gathered for d in mesh.distinct}
     nbytes = steps * len(mesh.distinct) * mesh.size * plan.record_bytes
     n_copies = 0
-    if not grouped:
-        shard_sides = [sides[dev] for dev in mesh.devices]
-        copies = gather_plan(mesh.devices)
-        for _ in range(steps):
-            for sh, side in zip(scan, shard_sides):
-                local(sh, side, plan)
-            n_copies += _copy_records(mesh, recs, bufs, copies)
-            for d in mesh.distinct:
-                select(sides[d], plan)
-        for sh, side in zip(scan, shard_sides):
-            local(sh, side, plan)
-        return nbytes, n_copies
     groups = [(sides[d], shards) for d, shards in device_groups(mesh, scan)]
     foreign = bool(gather_plan(mesh.devices, in_place=True))
 
@@ -708,7 +694,7 @@ def sharded_scan(mesh: Mesh, nodes, pods, last_index, last_node_index,
         mesh, nodes, pods, last_index, last_node_index, num_to_find, n_real,
         z_pad, weights, rotation, rotation_pos, spread0, carry_in, wtab)
     nbytes, copies = _run_steps(mesh, scan, sides, plan, steps, local,
-                                select, grouped=True)
+                                select)
     obs.inc("gather.burst_scan", nbytes)
     obs.inc("copies.burst_scan", copies)
     obs.inc("steps.burst_scan", steps)
@@ -758,7 +744,7 @@ def sharded_segments(mesh: Mesh, nodes, pods, seg_start, gang, n_pods,
         n_steps=int(n_pods), segments=(seg_start, gang),
         gang_score=gang_score)
     nbytes, copies = _run_steps(mesh, scan, sides, plan, steps, local,
-                                select, grouped=True)
+                                select)
     obs.inc("gather.burst_segments", nbytes)
     obs.inc("copies.burst_segments", copies)
     obs.inc("steps.burst_segments", steps)
@@ -854,18 +840,21 @@ def sharded_pressure(mesh: Mesh, nodes, mut0, ghost0, pods, vic, last_index,
     """`sharded_pressure_fn` (sharding.py:330): the schedule-else-preempt
     wave (K8) with the mutable rows, the nominated-ghost load and the
     victim planes split over the mesh. One step per pod, skip pods
-    included: K13a on every shard (fold the previous outcome it owns,
-    the ghost-aware filter record, the victim walk reduced to a candidate
-    record), the all-gather, K13b on every distinct device (the cycle's
-    select, the pick over the D candidate records, the packed row, the
-    step state); then K13a once more for the last fold. The signature and
+    included: K13a, one launch a device over its shards (fold the
+    previous outcome a shard owns, the ghost-aware filter record, the
+    victim walk reduced to a candidate record, each in place), the
+    all-gather of other devices' records, K13b on every distinct device
+    (the cycle's select, the pick over the D candidate records, the
+    packed row, the step state); then K13a once more for the last fold.
+    On a card the steps after the first re-enqueue the bound launches
+    (two host calls a step on one card). The signature and
     returns of `K.pressure_batch`: `mut0` / `ghost0` / `vic` whole dicts or
     one dict per shard, last_index / last_node_index ints or the previous
     chunk's device scalars; returns (one dict of folded rows per shard,
     one ghost dict per shard, li, lni, outs) with li, lni and the packed
     [B, 5+P] block (`out` when given) on the first device. No host read
-    until the caller fetches the block. Books `gather.pressure` (bytes)
-    and `steps.pressure`."""
+    until the caller fetches the block. Books `gather.pressure` (bytes),
+    `copies.pressure` (record copies enqueued) and `steps.pressure`."""
     weights = weights or K.DEFAULT_WEIGHTS
     shards = _as_shards(mesh, nodes)
     n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
@@ -892,10 +881,11 @@ def sharded_pressure(mesh: Mesh, nodes, mut0, ghost0, pods, vic, last_index,
         n_real, z_pad, weights, None, None, None, (muts, None), None,
         n_steps=B, pressure={"ghost": ghosts, "vic": vics, "P": P,
                              "out": out})
-    nbytes, _copies = _run_steps(mesh, scan, sides, plan, steps,
-                                 K.shard_pressure_local,
-                                 K.shard_pressure_select)
+    nbytes, copies = _run_steps(mesh, scan, sides, plan, steps,
+                                K.shard_pressure_local,
+                                K.shard_pressure_select)
     obs.inc("gather.pressure", nbytes)
+    obs.inc("copies.pressure", copies)
     obs.inc("steps.pressure", steps)
     side = sides[d0]
     return (_scan_rows(scan), [sh.ghost for sh in scan],

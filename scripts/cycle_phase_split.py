@@ -1,7 +1,10 @@
-"""Per-pod phase split of K5 (`schedule_batch`) on the card, and the cost of
-one cluster round.
+"""Per-pod phase split of K5 (`schedule_batch`) or of K8 (`pressure_batch`)
+on the card, and the cost of one cluster round.
 
-    python3 scripts/cycle_phase_split.py [--old TREE] [--fine] [--threads N]
+    python3 scripts/cycle_phase_split.py [--fine] [--threads N]
+    python3 scripts/cycle_phase_split.py --k8 [--tree DIR]
+
+With `--k8` it splits K8 instead (K8 below); else:
 
 1. Builds an instrumented copy of K5 from the port's CUDA sources into
    build/phase_split/new/: clock64() probes in thread 0 of block 0 add up
@@ -9,11 +12,7 @@ one cluster round.
    scores, select) and of the whole pod loop. The probes go in at the
    cycle's phase markers (`// ---- rotation walk`, `// ---- scores`,
    `// ---- select`, and the `CycleResult r;` that closes the cycle) of
-   `cluster_cycle.cuh` and, for an older tree, `cycle.cuh`. `--old TREE`
-   builds the same probes into the K5 of another checkout (TREE holds
-   kubernetes_tpu_torch/ops/csrc, e.g. an unpacked `git archive` of an
-   earlier commit, whose launch takes no geometry) in
-   build/phase_split/old/. `--fine` splits the cluster cycle further, at
+   `cluster_cycle.cuh`. `--fine` splits the cluster cycle further, at
    each of its rounds and per-node loops (FINE). `--threads N` also builds
    the cluster K5 with N threads a block (NTHREADS; the planner's
    CLUSTER_THREADS follows it for that run), more node slots a thread.
@@ -36,6 +35,26 @@ one cluster round.
    select's shared memory at n_pad 16,384 (K10b's / K11b's launch);
    prints microseconds a launch.
 
+K8 (`--k8`): with the `kubernetes_tpu_torch` package and `chip_smoke.py`
+of DIR (default: this checkout; an older checkout unpacked with `git
+archive` gives the before side of a comparison), drives preempt-wave
+(15,000 nodes, 149,700 victims, 1,024 preemptors, as chip_smoke.py does),
+captures its first 128-pod chunk's K8 call, times DIR's production K8 on
+that chunk (`[k8]`: CUDA events around 3 wrapper calls after a warm-up,
+and the kernel's device time over the same calls from torch.profiler, by
+this checkout's `chip_smoke.device_time`), builds DIR's K8 with the same
+probes into build/phase_split/k8/ and runs it on that chunk once to warm
+up and once measured, checks the chunk's outputs against DIR's production
+kernel, and prints each phase of a pod in microseconds (its share of the
+pod loop's cycles in thread 0 of block 0, times the launch's event time
+over 128). A pod's phases, in the order thread 0 of block 0 meets them:
+in a cluster K8 (this PR's) the victim scan of its own nodes, the cycle
+up to its select round, the select round that carries the pick, and the
+winner's flags and the folds; in the cooperative K8 before it the cycle
+(block 0 alone), the victim scan between the two grid barriers, the pick
+(`pick_block`, block 0 alone), and the flags and folds. A probe line that
+is not found in DIR's sources stops the script.
+
 Needs a card and nvcc, as chip_smoke.py does; writes nothing outside
 build/. The probes cost a few cycles each; the numbers are a split, not a
 timing of the production kernel (chip_smoke.py times that).
@@ -43,6 +62,7 @@ timing of the production kernel (chip_smoke.py times that).
 import argparse
 import contextlib
 import ctypes
+import importlib.util
 import re
 import shutil
 import subprocess
@@ -55,6 +75,35 @@ sys.path.insert(0, str(ROOT))
 
 OUT = ROOT / "build" / "phase_split"
 PHASES = ("filter", "walk", "scores", "select")
+#: K8's probes: (phases, the file, [(pattern, probe, after)]) for the
+#: cluster K8 and for the cooperative K8 it replaced
+K8_CLUSTER = (
+    ("victim scan", "cycle", "pick (the select round)", "flags and fold"),
+    [("pressure_batch.cu", r"^    CycleResult res\{-1, 0, 0, 0, "
+      r"floormod\(li, n_safe\), lni, false\};", "PHASE_MARK(0);", False),
+     ("cluster_cycle.cuh", r"^    if \(pick\)$", "PHASE_MARK(1);", False),
+     ("pressure_batch.cu",
+      r"^    const i64 winner_raw = vic_winner\(ps.best\);", "PHASE_MARK(2);",
+      True),
+     ("pressure_batch.cu", r"^    changed = hit \? res.sel", "PHASE_MARK(3);",
+      False),
+     ("pressure_batch.cu", r"^  cluster_store<RES>\(cx, a\);", "PHASE_END;",
+      False)])
+K8_GRID = (
+    ("cycle", "victim scan", "pick", "flags and fold"),
+    [("pressure_batch.cu",
+      r"^    // the previous pod's folds are visible to every block",
+      "PHASE_MARK(0);", False),
+     ("pressure_batch.cu",
+      r"^    // every node's aggregates are visible to block 0",
+      "PHASE_MARK(1);", False),
+     ("pressure_batch.cu",
+      r"^    const int winner_raw = pick_block\(g, n, 0\);",
+      "PHASE_MARK(2);", True),
+     ("pressure_batch.cu", r"^    li = res.next_li;$", "PHASE_MARK(3);",
+      False),
+     ("pressure_batch.cu", r"^  if \(lead && threadIdx.x == 0\) \{",
+      "PHASE_END;", False)])
 #: the finer split of the cluster cycle: (name, the line of
 #: cluster_cycle.cuh that closes the part, the probe going in before it)
 FINE = (
@@ -238,6 +287,129 @@ def _insert(text: str, pattern: str, probe: str, after: bool) -> str:
     return "".join(out)
 
 
+def instrument_k8(csrc: Path, dest: Path):
+    """An instrumented copy of `csrc` in `dest` with K8's probes (the
+    cluster K8's when its sources hold `pick_round`, else the cooperative
+    K8's); returns (its K8 library, the phases, whether the launch takes a
+    geometry)."""
+    from kubernetes_tpu_torch.ops import _build
+    if dest.exists():
+        shutil.rmtree(dest)
+    shutil.copytree(csrc, dest)
+    cluster = "pick_round" in (dest / "cluster_cycle.cuh").read_text()
+    phases, probes = K8_CLUSTER if cluster else K8_GRID
+    common = dest / "common.cuh"
+    common.write_text(common.read_text() + PRELUDE)
+    k8 = dest / "pressure_batch.cu"
+    loop = r"^  for \(int b = 0; b < B; \+\+b\) \{"
+    k8.write_text(_insert(_insert(k8.read_text(), loop, "PHASE_BEGIN;",
+                                  False), loop, "PHASE_MARK(-1);", True))
+    for name, pattern, probe, after in probes:
+        p = dest / name
+        t = p.read_text()
+        before = len(t)
+        t = _insert(t, pattern, probe, after)
+        if len(t) == before:
+            raise SystemExit(f"{p}: no line matches {pattern!r}")
+        p.write_text(t)
+    t = k8.read_text()
+    if t.count("PHASE_BEGIN") != 1 or t.count("PHASE_END") != 1:
+        raise SystemExit(f"{k8}: the pod loop's probe points were not found")
+    k8.write_text(t + READER)
+    lib = dest / "pressure_batch.so"
+    subprocess.run([_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", str(lib), str(k8)], check=True)
+    return lib, phases, cluster
+
+
+def run_k8(sync) -> None:
+    """The K8 split of preempt-wave's first chunk (the package imported
+    is DIR's: main puts it first on the path)."""
+    import chip_smoke as C
+    import torch
+    from kubernetes_tpu_torch.ops import _build, kernels as K
+    device = torch.device("cuda")
+    infos, tree, pdbs = C.preempt_world(C.N_NODES)
+    with C.capture("pressure_batch") as cap:
+        C.run_wave(infos, tree, pdbs, C.wave_pods(), device, sync)
+    del infos, tree, pdbs
+    nodes, args, kw = cap.call
+    kw = {k: v for k, v in kw.items() if k != "out"}
+    ref = K.pressure_batch(nodes, *args, **kw)
+    n = len(args[2])
+    here = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(here)
+    here.loader.exec_module(mod)
+
+    def chunk():
+        K.pressure_batch(nodes, *args, **kw)
+    ms = C.cuda_time(chunk, sync, 3)
+    dev_ms, seen = mod.device_time(chunk, sync, 3, "pressure_batch")
+    print(f"[k8] production K8 on the chunk: {ms:.4f} ms a chunk, "
+          f"{ms / n * 1e3:.2f} us/pod (wrapper, CUDA events); device_ms "
+          + ("not measured" if dev_ms is None else
+             f"{dev_ms:.4f} over {seen} launches, {dev_ms / n * 1e3:.2f} "
+             f"us/pod"), flush=True)
+    lib_path, phases, cluster = instrument_k8(_build.CSRC, OUT / "k8")
+    lib = ctypes.CDLL(str(lib_path))
+    L, P = ctypes.c_longlong, ctypes.c_void_p
+    fn = lib.pressure_batch_launch
+    fn.argtypes = [ctypes.POINTER(L), ctypes.POINTER(P)] + (
+        [ctypes.POINTER(L)] if cluster else []) + [P]
+    fn.restype = ctypes.c_int
+    lib.phase_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    if cluster:
+        lib.pressure_batch_clusters.argtypes = [ctypes.POINTER(L),
+                                                ctypes.POINTER(ctypes.c_int)]
+        lib.pressure_batch_clusters.restype = ctypes.c_int
+
+    def launch(name, iargs, parr, *extra):
+        if cluster:
+            # the copy's kernel takes its launch attributes from its own
+            # occupancy query, as the production kernel does from its own
+            fit = ctypes.c_int(0)
+            K._check(lib.pressure_batch_clusters(extra[0],
+                                                 ctypes.byref(fit)),
+                     "pressure_batch (instrumented) occupancy query")
+        K._check(fn(iargs, parr, *extra, K._stream()),
+                 "pressure_batch (instrumented)")
+    saved = K._launch
+    K._launch = launch
+    try:
+        K.pressure_batch(nodes, *args, **kw)        # warm-up
+        sync()
+        K._check(lib.phase_reset(), "phase_reset")
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        got = K.pressure_batch(nodes, *args, **kw)
+        end.record()
+        sync()
+    finally:
+        K._launch = saved
+    if C.max_abs_err(got, ref) != 0:
+        raise SystemExit(f"the instrumented K8 disagrees with the production "
+                         f"kernel ({C.first_diff(got, ref)})")
+    acc = (ctypes.c_ulonglong * NSLOT)()
+    K._check(lib.phase_read(acc), "phase_read")
+    ms = start.elapsed_time(end)
+    loop = acc[30]
+    us = [acc[k] / loop * ms * 1e3 / n for k in range(len(phases))]
+    rest = (loop - sum(acc[:len(phases)])) / loop * ms * 1e3 / n
+    split = ", ".join(f"{p} {u:.2f} us ({100 * acc[k] / loop:.1f} %)"
+                      for k, (p, u) in enumerate(zip(phases, us)))
+    kind = "cooperative K8"
+    if cluster:
+        plan = K.last_geometry["pressure_batch"][0]
+        kind = (f"cluster K8 ({plan.blocks} x {K.CLUSTER_THREADS} threads, "
+                f"rows {'resident' if plan.resident else 'in global memory'})")
+    print(f"[phase] {kind}: {ms / n * 1e3:.2f} us/pod over the {n} pods of "
+          f"preempt-wave's first chunk ({acc[31]} pods run; "
+          f"{loop / (ms * 1e3):.0f} SM cycles/us): {split}, the rest "
+          f"{rest:.2f} us")
+
+
 def instrument(csrc: Path, dest: Path, fine: bool = False,
                threads: int = 0) -> Path:
     """An instrumented copy of `csrc` in `dest`; returns its K5 library.
@@ -254,42 +426,30 @@ def instrument(csrc: Path, dest: Path, fine: bool = False,
             raise SystemExit(f"{common}: no NTHREADS to set")
         t = t.replace("#define NTHREADS 1024\n", f"#define NTHREADS {threads}\n")
     common.write_text(t + PRELUDE)
-    for name in ("cycle.cuh", "cluster_cycle.cuh"):
-        p = dest / name
-        if not p.exists():
-            continue
-        t = p.read_text()
-        # the filter starts where the cycle does
-        t = _insert(t, r"^  // ---- filter", "PHASE_MARK(-1);", True)
-        if fine and name == "cluster_cycle.cuh":
-            for k, (_part, pattern) in enumerate(FINE):
-                before = len(t)
-                t = _insert(t, pattern, f"PHASE_MARK({k});", False)
-                if len(t) == before:
-                    raise SystemExit(f"{p}: no line matches {pattern!r}")
-            p.write_text(t)
-            continue
-        t = _insert(t, r"const CycleGhost\* ghost = nullptr\) \{$",
-                    "PHASE_MARK(-1);", True)
+    p = dest / "cluster_cycle.cuh"
+    t = p.read_text()
+    # the filter starts where the cycle does
+    t = _insert(t, r"^  // ---- filter", "PHASE_MARK(-1);", True)
+    if fine:
+        for k, (_part, pattern) in enumerate(FINE):
+            before = len(t)
+            t = _insert(t, pattern, f"PHASE_MARK({k});", False)
+            if len(t) == before:
+                raise SystemExit(f"{p}: no line matches {pattern!r}")
+    else:
         t = _insert(t, r"^  // ---- rotation walk", "PHASE_MARK(0);", False)
         t = _insert(t, r"^  // ---- scores", "PHASE_MARK(1);", False)
         t = _insert(t, r"^  // ---- select", "PHASE_MARK(2);", False)
         t = t.replace("  CycleResult r;\n  r.sel = found > 0",
                       "PHASE_MARK(3);\n  CycleResult r;\n"
                       "  r.sel = found > 0")
-        p.write_text(t)
+    p.write_text(t)
     k5 = dest / "schedule_batch.cu"
     t = k5.read_text()
     t = _insert(t, r"^  for \(int b = 0; b < B; \+\+b\) \{", "PHASE_BEGIN;",
                 False)
-    if "cluster_store<RES>(cx, a);" in t:
-        t = t.replace("  cluster_store<RES>(cx, a);",
-                      "PHASE_END;\n  cluster_store<RES>(cx, a);")
-    else:
-        t = t.replace("  if (threadIdx.x == 0) {\n    mptr<i64>(a, "
-                      "P_CARRY_OUT)[0] = li;",
-                      "PHASE_END;\n  if (threadIdx.x == 0) {\n    mptr<i64>"
-                      "(a, P_CARRY_OUT)[0] = li;")
+    t = t.replace("  cluster_store<RES>(cx, a);",
+                  "PHASE_END;\n  cluster_store<RES>(cx, a);")
     if t.count("PHASE_BEGIN") != 1 or t.count("PHASE_END") != 1:
         raise SystemExit(f"{k5}: the pod loop's probe points were not found")
     k5.write_text(t + READER)
@@ -324,45 +484,28 @@ def block_size(threads):
         K.CLUSTER_THREADS, K._NWARPS = saved
 
 
-def run_split(label, lib_path, takes_geom, call, ref, sync,
-              parts=PHASES, threads=0):
+def run_split(label, lib_path, call, ref, sync, parts=PHASES, threads=0):
     import chip_smoke as C
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.schedule_batch_launch
     P, L = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [ctypes.POINTER(L), ctypes.POINTER(P)] + (
-        [ctypes.POINTER(L)] if takes_geom else []) + [P]
+    fn.argtypes = [ctypes.POINTER(L), ctypes.POINTER(P), ctypes.POINTER(L), P]
     fn.restype = ctypes.c_int
     lib.phase_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-
-    keep = []
-    if takes_geom:
-        # the copy's kernel takes its launch attributes from its own
-        # occupancy query, as the production kernel does from its own
-        lib.schedule_batch_clusters.argtypes = [ctypes.POINTER(L),
-                                                ctypes.POINTER(ctypes.c_int)]
-        lib.schedule_batch_clusters.restype = ctypes.c_int
+    # the copy's kernel takes its launch attributes from its own occupancy
+    # query, as the production kernel does from its own
+    lib.schedule_batch_clusters.argtypes = [ctypes.POINTER(L),
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.schedule_batch_clusters.restype = ctypes.c_int
 
     def launch(name, iargs, parr, *extra):
-        if takes_geom:
-            fit = ctypes.c_int(0)
-            K._check(lib.schedule_batch_clusters(extra[0], ctypes.byref(fit)),
-                     f"{name} ({label}, instrumented) occupancy query")
-        if not takes_geom:
-            # the one-block K5 keeps its per-node scratch in global memory
-            n_pad = iargs[K._SCAN_INTS.index("n_pad")]
-            z_pad = iargs[K._SCAN_INTS.index("z_pad")]
-            for key, numel, dtype in (("total", n_pad, torch.int64),
-                                      ("kept", n_pad, torch.uint8),
-                                      ("flags", 2 * n_pad, torch.int32),
-                                      ("zs", 2 * z_pad, torch.int64)):
-                t = torch.empty(numel, dtype=dtype, device="cuda")
-                keep.append(t)
-                parr[K._SCAN_PTRS.index(key)] = t.data_ptr()
-        args = (iargs, parr) + (extra if takes_geom else ()) + (K._stream(),)
-        K._check(fn(*args), f"{name} ({label}, instrumented)")
+        fit = ctypes.c_int(0)
+        K._check(lib.schedule_batch_clusters(extra[0], ctypes.byref(fit)),
+                 f"{name} ({label}, instrumented) occupancy query")
+        K._check(fn(iargs, parr, *extra, K._stream()),
+                 f"{name} ({label}, instrumented)")
     saved = K._launch
     K._launch = launch
     try:
@@ -392,9 +535,8 @@ def run_split(label, lib_path, takes_geom, call, ref, sync,
     rest = (loop - sum(acc[:m])) / loop * ms * 1e3 / n
     split = ", ".join(f"{p} {u:.2f} us ({100 * acc[k] / loop:.1f} %)"
                       for k, (p, u) in enumerate(zip(parts, us)))
-    if takes_geom:
-        label += (f" ({plan.blocks} x {threads or K.CLUSTER_THREADS} "
-                  f"threads, {plan.nodes_per_thread} slot(s) a thread)")
+    label += (f" ({plan.blocks} x {threads or K.CLUSTER_THREADS} "
+              f"threads, {plan.nodes_per_thread} slot(s) a thread)")
     print(f"[phase] {label}: {ms / n * 1e3:.2f} us/pod over {n} pods "
           f"({acc[31]} cycles run; {loop / (ms * 1e3):.0f} SM cycles/us): "
           f"{split}, fold and bookkeeping {rest:.2f} us")
@@ -453,15 +595,20 @@ def run_rounds(sync):
 
 
 def main() -> int:
-    import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--old", type=Path, default=None,
-                    help="a tree whose K5 (one block) to split as well")
     ap.add_argument("--fine", action="store_true",
                     help="also split the cluster cycle at each round")
     ap.add_argument("--threads", type=int, default=0,
                     help="also time the cluster K5 at this block size")
+    ap.add_argument("--k8", action="store_true",
+                    help="split K8 on preempt-wave's first chunk instead")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="with --k8: the checkout whose K8 to split")
     opts = ap.parse_args()
+    if opts.k8:
+        # DIR's package and chip_smoke.py before this checkout's
+        sys.path.insert(0, str(opts.tree.resolve()))
+    import torch
     if not torch.cuda.is_available():
         print("cycle_phase_split: no CUDA device", file=sys.stderr)
         return 2
@@ -473,29 +620,33 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: " + smi.stderr.strip())
+    if opts.k8:
+        if not K.__file__.startswith(str(opts.tree.resolve())):
+            raise SystemExit(f"imported {K.__file__}, not the package of "
+                             f"{opts.tree}")
+        _build.build_all()
+        run_k8(sync)
+        print(f"[time] cycle_phase_split.py --k8 "
+              f"{time.perf_counter() - t0:.1f} s")
+        return 0
     _build.build_all(("schedule_batch",))
-    libs = [("cluster K5", instrument(_build.CSRC, OUT / "new"), True,
-             PHASES, 0)]
+    libs = [("cluster K5", instrument(_build.CSRC, OUT / "new"), PHASES, 0)]
     if opts.fine:
         libs.append(("cluster K5, fine", instrument(
-            _build.CSRC, OUT / "fine", fine=True), True,
+            _build.CSRC, OUT / "fine", fine=True),
             tuple(p for p, _ in FINE), 0))
     if opts.threads:
         libs.append(("cluster K5", instrument(
             _build.CSRC, OUT / f"t{opts.threads}", threads=opts.threads),
-            True, PHASES, opts.threads))
-    if opts.old is not None:
-        csrc = opts.old / "kubernetes_tpu_torch" / "ops" / "csrc"
-        libs.append(("one-block K5", instrument(csrc, OUT / "old"), False,
-                     PHASES, 0))
+            PHASES, opts.threads))
     device = torch.device("cuda")
     call = scan_default_prefix(device, sync)
     nodes, args, kw = call
     ref = K.schedule_batch(nodes, *args, **kw)
     print(f"[phase] the production K5: "
           f"{K.last_geometry['schedule_batch']}")
-    for label, lib, geom, parts, threads in libs:
-        run_split(label, lib, geom, call, ref, sync, parts, threads)
+    for label, lib, parts, threads in libs:
+        run_split(label, lib, call, ref, sync, parts, threads)
     run_rounds(sync)
     print(f"[time] cycle_phase_split.py {time.perf_counter() - t0:.1f} s")
     return 0

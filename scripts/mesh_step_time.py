@@ -30,15 +30,21 @@ times, as
     of this checkout's chip_smoke.py, whatever DIR is). For K10a / K11a
     the same profiler run also times two empty kernels built here from
     this script: at the grid and parameter size of the grouped local over
-    four shards (32 x 4 blocks of 128 threads, 2,688 bytes) and of one
-    shard's launch before the grouping (16 blocks of 256, 672 bytes): the
+    four shards (32 x 4 blocks of 128 threads, four shards' argument
+    words) and of one shard's launch before the grouping (16 blocks of
+    256, one shard's words; the words a shard are DIR's): the
     floor of a launch's device time.
 
 `--wave` first times the mesh-preempt-wave cell on the same mesh: the
 preempt-wave world (15,000 nodes, 149,700 victims) and its 1,024
-preemptors in 8 chunks, one K13a launch a shard and step (the control the
-grouped locals of K10a / K11a leave alone): its scan (enqueue, device
-time and the one fetch) a step.
+preemptors in 8 chunks, one step of K13a and K13b a pod: its scan
+(enqueue, device time and the one fetch) and dispatch a step, the host
+calls a step (K13a launches, K13b launches and record copies, over the
+steps; an older tree that books no `copies.pressure` copied every
+record), and the two step kernels on their first captured call as
+above: K13a over what that call covers (one shard, two kernels, in an
+older tree; every shard of the card, one kernel, in a tree with the
+grouped K13a), K13b on the gathered records.
 
 The last line is one JSON object with every number and the card's name
 and power limit. Needs one CUDA card (`--cards`: several); exits non-zero
@@ -57,9 +63,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 EMPTY_SRC = r"""
 // empty kernels whose parameter is a launch's table of shard arguments
-// (84 words a shard): four shards (the grouped local) or one
-struct Table4 { long long w[4 * 84]; };
-struct Table1 { long long w[84]; };
+// (WORDS words a shard): four shards (the grouped local) or one
+struct Table4 { long long w[4 * WORDS]; };
+struct Table1 { long long w[WORDS]; };
 __global__ void empty_grouped_kernel(const __grid_constant__ Table4 t) {}
 __global__ void empty_shard_kernel(const __grid_constant__ Table1 t) {}
 extern "C" int empty_step_launch(int which, void* stream) {
@@ -74,17 +80,16 @@ extern "C" int empty_step_launch(int which, void* stream) {
   return (int)cudaGetLastError();
 }
 """
-#: the empty kernels: (kernel name, its launch)
-EMPTY_KERNELS = (
-    ("empty_grouped_kernel", "32 x 4 blocks of 128 threads, 2,688 B"),
-    ("empty_shard_kernel", "16 blocks of 256 threads, 672 B"))
+#: the empty kernels' names
+EMPTY_KERNELS = ("empty_grouped_kernel", "empty_shard_kernel")
 
 
-def build_empty(nvcc: str):
-    """The empty kernel's library, built into build/mesh_step_time/."""
+def build_empty(nvcc: str, words: int):
+    """The empty kernels' library for `words` words a shard, built into
+    build/mesh_step_time/; returns it and each kernel's launch."""
     out = HERE / "build" / "mesh_step_time"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "empty.cu").write_text(EMPTY_SRC)
+    (out / "empty.cu").write_text(EMPTY_SRC.replace("WORDS", str(words)))
     lib_path = out / "empty.so"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -92,7 +97,8 @@ def build_empty(nvcc: str):
     lib = ctypes.CDLL(str(lib_path))
     lib.empty_step_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.empty_step_launch.restype = ctypes.c_int
-    return lib
+    return lib, (f"32 x 4 blocks of 128 threads, {4 * 8 * words:,} B",
+                 f"16 blocks of 256 threads, {8 * words} B")
 
 
 def main() -> int:
@@ -122,7 +128,8 @@ def main() -> int:
             else "nvidia-smi: no answer")
     t = time.perf_counter()
     _build.build_all()
-    empty = build_empty(_build.nvcc())
+    empty, empty_launches = build_empty(
+        _build.nvcc(), len(K._SSL_INTS) + len(K._SSL_PTRS))
     print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
     from kubernetes_tpu_torch import obs
     dev = torch.device("cuda")
@@ -142,7 +149,9 @@ def main() -> int:
     spec.loader.exec_module(mod)
     device_time = mod.device_time
 
-    def time_step(name, call, select):
+    def time_step(name, call, select, kernels=None):
+        """`kernels`: the device kernels of one call (default: the
+        entry point's `<name>_kernel`), their device times summed."""
         args, kw = cs._full(call)
         base = cs._clone(args)
         a = cs._clone(base)
@@ -161,8 +170,12 @@ def main() -> int:
         host_ms = (time.perf_counter() - t0) * 1e3 / opt.reps
         sync()
         entry = {"ms": ms, "host_ms": host_ms}
+        names = kernels or (name + "_kernel",)
         if select:
-            dev_ms, seen = device_time(one, sync, opt.reps, name + "_kernel")
+            found = [r for r in device_time(one, sync, opt.reps, names)
+                     if r[0] is not None]
+            dev_ms = sum(r[0] for r in found) if found else None
+            seen = sum(r[1] for r in found)
         else:
             # the local and the empty kernel in one profiler run
             stream = torch.cuda.current_stream().cuda_stream
@@ -172,13 +185,15 @@ def main() -> int:
                 for which in range(len(EMPTY_KERNELS)):
                     K._check(empty.empty_step_launch(which, stream),
                              "empty")
-            names = (name + "_kernel",) + tuple(k for k, _g in EMPTY_KERNELS)
-            (dev_ms, seen), *empties = device_time(both, sync, opt.reps,
-                                                   names)
+            res = device_time(both, sync, opt.reps, names + EMPTY_KERNELS)
+            found = [r for r in res[:len(names)] if r[0] is not None]
+            dev_ms = sum(r[0] for r in found) if found else None
+            seen = sum(r[1] for r in found)
+            empties = res[len(names):]
             entry["shards"] = len(args[0]) if isinstance(args[0], list) \
                 else 1
             entry["empty_device_ms"] = {
-                k: ms for (k, _g), (ms, _n) in zip(EMPTY_KERNELS, empties)}
+                k: ms for k, (ms, _n) in zip(EMPTY_KERNELS, empties)}
         entry.update(device_ms=dev_ms, launches_timed=seen)
         out["kernels"][name] = entry
         print(f"[kernel] {name}: ms {ms:.4f} host_ms {host_ms:.4f} "
@@ -191,9 +206,10 @@ def main() -> int:
                      f"{g}: " + ("not measured" if entry["empty_device_ms"][k]
                                  is None else
                                  f"{entry['empty_device_ms'][k]:.4f}")
-                     for k, g in EMPTY_KERNELS)), flush=True)
+                     for k, g in zip(EMPTY_KERNELS, empty_launches))),
+              flush=True)
 
-    def window(label, op, names, run):
+    def window(label, op, names, run, local_kernels=None):
         caps = [cs.capture(k) for k in names]
         for c in caps:
             c.__enter__()
@@ -206,36 +222,36 @@ def main() -> int:
         ph = r["phases"]
         steps = ph["steps"]
         launches = {k: obs.get("launch." + k) for k in names}
-        copies = obs.get(f"copies.{op}") if hasattr(S, "gather_plan") \
+        copies = obs.get(f"copies.{op}") if op in obs.family("copies") \
             else steps * mesh.size * len(mesh.distinct)
-        out["windows"][label] = {"wall_ms": r["t_burst"] * 1e3,
-                                 "dispatch_ms": ph["dispatch"] * 1e3,
-                                 "fetch_ms": ph["fetch"] * 1e3,
-                                 "steps": steps,
-                                 "dispatch_ms_a_step":
-                                     ph["dispatch"] * 1e3 / steps,
-                                 "launches": launches, "copies": copies,
-                                 "host_calls_a_step":
-                                     (sum(launches.values()) + copies)
-                                     / steps}
-        print(f"[window] {label}: {json.dumps(out['windows'][label])}",
-              flush=True)
+        if "dispatch" in ph:
+            entry = {"wall_ms": r["t_burst"] * 1e3,
+                     "dispatch_ms": ph["dispatch"] * 1e3}
+            dispatch = ph["dispatch"]
+        else:
+            dispatch = ph["scan"] - ph["fetch"]
+            entry = {"wave_ms": r["t_wave"] * 1e3, "scan_ms": ph["scan"] * 1e3,
+                     "dispatch_ms": dispatch * 1e3}
+        entry.update({"fetch_ms": ph["fetch"] * 1e3, "steps": steps,
+                      "dispatch_ms_a_step": dispatch * 1e3 / steps,
+                      "launches": launches, "copies": copies,
+                      "host_calls_a_step":
+                          (sum(launches.values()) + copies) / steps})
+        out["windows"][label] = entry
+        print(f"[window] {label}: {json.dumps(entry)}", flush=True)
         for c, select in zip(caps, (False, True)):
-            time_step(c.fn_name, c.call, select)
+            time_step(c.fn_name, c.call, select,
+                      None if select else local_kernels)
 
     if opt.wave:
         infos, tree_, pdbs = cs.preempt_world(cs.N_NODES)
-        r = cs.run_wave(infos, tree_, pdbs, cs.wave_pods(), dev, sync,
-                        mesh=mesh)
-        ph = r["phases"]
-        out["windows"]["mesh-preempt-wave"] = {
-            "wave_ms": r["t_wave"] * 1e3, "scan_ms": ph["scan"] * 1e3,
-            "fetch_ms": ph["fetch"] * 1e3, "steps": ph["steps"],
-            "scan_ms_a_step": ph["scan"] * 1e3 / ph["steps"]}
-        print(f"[window] mesh-preempt-wave: "
-              f"{json.dumps(out['windows']['mesh-preempt-wave'])}",
-              flush=True)
-        del infos, tree_, pdbs, r
+        # an older tree's K13a ran two kernels a shard
+        window("mesh-preempt-wave", "pressure", cs.PRESSURE_MESH_KERNELS,
+               lambda: cs.run_wave(infos, tree_, pdbs, cs.wave_pods(), dev,
+                                   sync, mesh=mesh),
+               ("shard_pressure_local_kernel", "rows_kernel",
+                "reduce_kernel"))
+        del infos, tree_, pdbs
     cfg, n_nodes, window_fn = cs.scan_cells()[0]
     window("mesh-scan-default", "burst_scan", cs.SCAN_MESH_KERNELS,
            lambda: cs.run_scan(cfg, n_nodes, window_fn(cs.N_PODS), 0, dev,

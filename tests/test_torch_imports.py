@@ -267,3 +267,47 @@ def test_grouped_local_launch_matches_the_kernel_table():
         assert _build.SIGNATURES[name][-1] is ctypes.POINTER(ctypes.c_int)
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert re.search(r"void\* stream, int\* launched\)", src), name
+
+
+def test_pressure_launches_match_the_kernel_tables():
+    """K8 launches one thread-block cluster a chunk: its launch takes the
+    geometry (`pressure_plan`) and has its occupancy query, and no
+    cooperative launch or grid barrier is left; the layout's K8 part (the
+    ghost load and the victim aggregates a slot) is the planner's. K13a
+    takes a device's shards as K10a does, with its row blocks' partial
+    records (`PARTIAL_WORDS`, the pick's `VB_WORDS` plus the resolvable
+    flag) in its `partials` slot and no second kernel; K13b binds its
+    launch (device index, launch count)."""
+    import ctypes
+    import re
+    from kubernetes_tpu_torch.ops import _build
+    k8 = (_build.CSRC / "pressure_batch.cu").read_text()
+    for gone in ("cudaLaunchCooperativeKernel", "this_grid", "grid.sync"):
+        assert gone not in k8, gone
+    assert 'extern "C" int pressure_batch_clusters(' in k8
+    assert "pressure_batch" in PK.CLUSTER_KERNELS
+    assert _build.SIGNATURES["pressure_batch"][2] is ctypes.POINTER(
+        ctypes.c_longlong)
+    cycle = (_build.CSRC / "cluster_cycle.cuh").read_text()
+    assert "if (pressure && rows) o += sp * 8 * 4;" in cycle
+    assert "if (pressure && rows) o += sp * (8 * 5 + 1);" in cycle
+    assert PK._PRESSURE_SLOT_BYTES == 8 * 4 + 8 * 5 + 1
+    victim = (_build.CSRC / "victim.cuh").read_text()
+    vb_words = int(re.search(r"constexpr int VB_WORDS = (\d+);",
+                             victim).group(1))
+    k13a = (_build.CSRC / "shard_pressure_local.cu").read_text()
+    assert "constexpr int PARTIAL_WORDS = VB_WORDS + 1;" in k13a
+    assert PK.PARTIAL_WORDS == vb_words + 1
+    scan = (_build.CSRC / "shard_scan.cuh").read_text()
+    threads = re.search(r"constexpr int LOCAL_GROUP_THREADS = (\d+);", scan)
+    assert int(threads.group(1)) == PK.LOCAL_GROUP_THREADS
+    assert _enum_slots(scan, "SLP_COUNT")[-1] == "SLP_PARTIALS"
+    assert PK._SSL_PTRS[-1] == "partials"
+    assert _build.SIGNATURES["shard_pressure_local"] \
+        == _build.SIGNATURES["shard_scan_local"]
+    assert "__grid_constant__ ScanLocalGroup" in k13a
+    assert "reduce_kernel" not in k13a and "<<<" not in k13a
+    k13b = (_build.CSRC / "shard_pressure_select.cu").read_text()
+    assert _build.SIGNATURES["shard_pressure_select"][-1] is ctypes.POINTER(
+        ctypes.c_int)
+    assert re.search(r"int device, void\* stream,\s*int\* launched\)", k13b)

@@ -1,19 +1,20 @@
-"""The grouped shard-local steps of the mesh scan (K10a) and the mesh fused
-window (K11a), on the CPU.
+"""The grouped shard-local steps of the mesh scan (K10a), the mesh fused
+window (K11a) and the mesh pressure wave (K13a), on the CPU.
 
 A device runs one local step over every shard it holds, each shard's
 record written straight into row s of that device's gathered buffer; the
 all-gather then copies only the rows of shards on other devices. Checked
-here: how `_run_steps` groups the shards (the pressure wave's K13a keeps
-one call a shard), the all-gather's plan on device labels, and the grouped
-plain K10a / K11a against the per-shard plain step followed by a full
-`all_gather`, bit for bit, at D = 1, 2 and 4 on a ragged n_real, in the
-step states a window passes through. The windows of the JAX comparisons
-(tests/test_torch_sharding_scan.py, tests/test_torch_cluster_select.py)
-run through the same grouped path.
+here: how `_run_steps` groups the shards, the all-gather's plan on device
+labels, and the grouped plain K10a / K11a / K13a against the per-shard
+plain step followed by a full `all_gather`, bit for bit, at D = 1, 2 and
+4 on a ragged n_real, in the step states a window or a wave passes
+through. The windows and waves of the JAX comparisons
+(tests/test_torch_sharding_scan.py, tests/test_torch_cluster_select.py,
+tests/test_torch_sharding_preempt.py) run through the same grouped path.
 """
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -200,21 +201,24 @@ def test_run_steps_calls_the_grouped_local_once_a_step(monkeypatch,
 
 
 def test_sharded_pressure_keeps_one_local_a_shard(monkeypatch):
-    """The pressure wave's K13a stays one call a shard and step, and its
-    records are all copied."""
+    """The pressure wave's K13a runs one call a device and step over all
+    of the device's shards, in shard order, plus one for the last fold:
+    on `["cpu"] * 4` one call of the four shards a step, and no record is
+    copied (each shard writes its record in place)."""
     real = PK.shard_pressure_local
     calls = []
 
-    def spy(sh, side, plan):
-        calls.append(sh.index)
-        return real(sh, side, plan)
+    def spy(shards, side, plan):
+        calls.append([sh.index for sh in shards])
+        return real(shards, side, plan)
     monkeypatch.setattr(PK, "shard_pressure_local", spy)
     nodes, vic, stacked, ghost, n_real = _wave("plain")
-    steps = obs.get("steps.pressure")
+    before = {k: obs.get(f"{k}.pressure") for k in ("steps", "copies")}
     _port_wave(nodes, vic, stacked, ghost, n_real, 7, 3, n_real, 4)
-    steps = obs.get("steps.pressure") - steps
+    steps = obs.get("steps.pressure") - before["steps"]
     assert steps == len(stacked["skip"])
-    assert calls == [0, 1, 2, 3] * (steps + 1)
+    assert calls == [[0, 1, 2, 3]] * (steps + 1)
+    assert obs.get("copies.pressure") == before["copies"]
 
 
 def _cuda(*idx):
@@ -342,3 +346,124 @@ def test_device_groups_in_first_shard_order():
     assert tuple(side.gathered.shape) == (4, plan.record_bytes)
     for sh in scan:
         assert sh.rec.data_ptr() == side.gathered[sh.index].data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# K13a: the pressure wave's grouped local step
+# ---------------------------------------------------------------------------
+def _pressure_window(d, world):
+    """A fresh pressure wave's shards, per-device halves and plan on
+    `["cpu"] * d`, over the K8 test chunk of tests/test_torch_preempt.py
+    (64 nodes, 60 real, 16 pods, P 8; ghost load carried in). `world`:
+    "plain"; "skip" (pods 11-15 skip pods); "zero" (no node's cpu in use:
+    zero-victim candidates on every shard); "ties" (every node a copy of
+    row 7 and its victim slots: the five criteria tie across shards)."""
+    nodes, vic, stacked, ghost, n_real = _wave(
+        "skip padding" if world == "skip" else "ghost carried in")
+    if world == "skip":
+        ghost = _wave("ghost carried in")[3]
+    pn = {k: torch.as_tensor(v) for k, v in nodes.items()}
+    vic = {k: torch.as_tensor(v) for k, v in vic.items()}
+    if world == "zero":
+        pn = dict(pn, req_cpu=torch.zeros_like(pn["req_cpu"]))
+    if world == "ties":
+        pn = {k: v if k == "valid" else v[7:8].expand_as(v).contiguous()
+              for k, v in pn.items()}
+        vic = {k: v[7:8].expand_as(v).contiguous() for k, v in vic.items()}
+        ghost = {k: np.zeros_like(v) for k, v in ghost.items()}
+    mesh = PS.Mesh(["cpu"] * d)
+    rows = mesh.rows(pn["valid"].shape[0])
+    P = int(vic["prio"].shape[1])
+    B = len(stacked["skip"])
+    stack = PK.PodStack.from_dense(
+        {k: torch.as_tensor(v) for k, v in stacked.items()}, "cpu")
+    scan, sides, plan, _steps = PS._scan_window(
+        mesh, PS.shard_node_arrays(mesh, pn), stack, 7, 3, n_real, n_real,
+        4, PK.DEFAULT_WEIGHTS, None, None, None,
+        (PS._row_shards(mesh, {k: pn[k] for k in PK._MUTABLE}, rows,
+                        PK._MUTABLE), None), None, n_steps=B,
+        pressure={"ghost": PS._row_shards(
+            mesh, {k: torch.as_tensor(v) for k, v in ghost.items()}, rows,
+            PK.GHOST_FIELDS), "vic": PS.shard_victim_planes(mesh, vic),
+            "P": P, "out": torch.empty((B, len(PK.PRESSURE_HEAD) + P),
+                                       dtype=torch.int32)})
+    return mesh, scan, sides, plan
+
+
+# step states of a wave: (name, world, {slot: value}); "first" / "last"
+# stand for the first row of the last shard and the last row of the first
+PRESSURE_STATES = [
+    ("bind folded on a shard's first row", "plain",
+     {PK.SS_NEXT: 2, PK.SS_FOLD_SEL: "first", PK.SS_FOLD_ROW: 1}),
+    ("bind folded on a shard's last row", "plain",
+     {PK.SS_NEXT: 3, PK.SS_FOLD_SEL: "last", PK.SS_FOLD_ROW: 2}),
+    ("a nomination's ghost fold", "plain",
+     {PK.SS_NEXT: 9, PK.SS_GHOST_SEL: "last", PK.SS_FOLD_ROW: 8}),
+    ("skip pod after a ghost fold", "skip",
+     {PK.SS_NEXT: 12, PK.SS_GHOST_SEL: "first", PK.SS_FOLD_ROW: 11}),
+    ("the fold past the wave", "plain",
+     {PK.SS_NEXT: 16, PK.SS_FOLD_SEL: "first", PK.SS_FOLD_ROW: 4}),
+    ("zero-victim nodes on every shard", "zero", {PK.SS_NEXT: 10}),
+    ("ties across shards", "ties",
+     {PK.SS_NEXT: 9, PK.SS_FOLD_SEL: "last", PK.SS_FOLD_ROW: 3}),
+]
+
+
+def _pressure_snapshot(scan, sides):
+    out = {"gathered": [s.gathered.clone() for s in sides.values()]}
+    for sh in scan:
+        for k in PK._MUTABLE:
+            out[f"{sh.index}/{k}"] = sh.nodes[k].clone()
+        for k, v in sh.ghost.items():
+            out[f"{sh.index}/ghost/{k}"] = v.clone()
+    return out
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("name,world,state", PRESSURE_STATES,
+                         ids=[s[0] for s in PRESSURE_STATES])
+def test_grouped_pressure_local_equals_per_shard_step_and_gather(
+        d, name, world, state):
+    """One call of the grouped plain K13a over a device's shards, records
+    in place, against the per-shard K13a into each shard's own buffer
+    followed by a full all_gather: every cycle record, candidate record,
+    folded row and ghost load equal."""
+    results = []
+    for grouped in (True, False):
+        mesh, scan, sides, plan = _pressure_window(d, world)
+        rows = scan[0].rows
+        where = {"first": (mesh.size - 1) * rows, "last": rows - 1}
+        for side in sides.values():
+            for slot, v in state.items():
+                side.st[slot] = where.get(v, v)
+        if grouped:
+            for dev, shards in PS.device_groups(mesh, scan):
+                assert PK.shard_pressure_local(shards, sides[dev],
+                                               plan) is None
+        else:
+            own = [torch.zeros(plan.record_bytes, dtype=torch.uint8)
+                   for _ in scan]
+            for sh, rec in zip(scan, own):
+                sh.rec = rec
+                PK.shard_pressure_local_plain(sh, sides[sh.device], plan)
+            PS.all_gather(mesh, own, {dv: sides[dv].gathered
+                                      for dv in mesh.distinct})
+        results.append(_pressure_snapshot(scan, sides))
+        side0 = sides[mesh.devices[0]]
+        cand = PK._pick_records_plain(side0.gathered, plan.cand_off,
+                                      plan.vic_P)
+    got, want = results
+    assert got.keys() == want.keys()
+    for k in want:
+        if isinstance(want[k], list):
+            for a, b in zip(got[k], want[k]):
+                assert torch.equal(a, b), (name, d, k)
+        else:
+            assert torch.equal(got[k], want[k]), (name, d, k)
+    live = state[PK.SS_NEXT] < 16
+    assert bool(got["gathered"][0].any()) == live, name
+    if world == "ties":
+        # every node alike: the pick falls to the lowest row, shard 0's
+        assert cand[0] == 0, cand
+    if world == "zero":
+        assert cand[0] >= 0 and cand[1] == 0, cand
