@@ -21,31 +21,36 @@
    mesh-scan-default, mesh-fused and mesh-preempt-wave, K14a/b on the
    first mesh-preempt-single round), times both, and holds every kernel
    mode against the plain version on random inputs (K5 and K6, each one
-   thread-block cluster a window, in every mode on five cluster
+   thread-block cluster a window, in every mode on seven cluster
    geometries: blocks that own no node, a node axis that is not a
    multiple of the cluster's span, li, winners and ties in different
-   blocks, S > 0, the rows in global memory; K7/K8 at P 16 and
+   blocks, S > 0, the rows in global memory, and the rows and the
+   per-slot scratch in global memory at 262,144 slots on 16 blocks and
+   131,072 on 8; K7/K8 at P 16 and
    128, K4 on the victim planes, K9a-d on 1, 2 and 4 shards with every
    cycle mode and every K3 case, K10a-K11b on 1, 2 and 4 shards in every
-   scan and segments mode on seven geometries of the cluster selects
+   scan and segments mode on nine geometries of the cluster selects
    K10b / K11b (one thread-block cluster a step: select blocks that own
    no node, an 8-block cluster, 20,000 slots at two a thread, li, winners
    and ties in different blocks; on 4 shards, the records staged in
-   global memory at 32,768 slots on 8 blocks and 50,000 on 16, and the
-   20,000-slot plan launched again after smaller plans), K8 (one
-   thread-block cluster a chunk) on three geometries (16 blocks with the
-   rows, ghost load and victim aggregates resident in shared memory, 8
-   blocks with them in global memory, n_pad 1,024 on one block), each at
-   P 16 and 128, ghost off and carried in, on one spec run (the victim
+   global memory at 32,768 slots on 8 blocks and 50,000 on 16, the
+   20,000-slot plan launched again after smaller plans, and the records
+   and the scratch in global memory at 262,144 slots on 16 blocks and
+   131,072 on 8), K8 (one thread-block cluster a chunk) on five
+   geometries (16 blocks with the rows, ghost load and victim aggregates
+   resident in shared memory, 8 blocks with them in global memory, n_pad
+   1,024 on one block, each at P 16 and 128; the rows and the scratch in
+   global memory at 262,144 slots on 16 blocks and 131,072 on 8, at P
+   16), ghost off and carried in, on one spec run (the victim
    scan reused pod after pod) and on alternating specs, K13a-K14b on 1,
    2 and 4 shards at P 16 and 128, the grouped K13a on 8, 4, 2 and 1
    shards of the card in every step state of a wave, K2 and K9a/b with a
    nominated ghost). The K5 / K6 / K8 / K10b / K11b `[kernel]` and
    `[variants]` lines print each launch's geometry: blocks of the
-   cluster, node slots a thread, rows
-   (a select: its step's records) in shared memory or not, shared bytes a
-   block, and how many such clusters the card holds. K8, K10a/b, K11a/b
-   and K13a/b also get `device_ms` on the kernels line: the kernel's own
+   cluster, node slots a thread, rows (a select: its step's records) in
+   shared memory or not, the per-slot scratch in shared memory or in a
+   global workspace (with its bytes), shared bytes a block, and how many
+   such clusters the card holds. K8, K10a/b, K11a/b and K13a/b also get `device_ms` on the kernels line: the kernel's own
    device time a launch (torch.profiler) beside `ms`, the wrapper call's.
    K10a, K11a and K13a run one launch a device over every shard it holds,
    each record written into the device's gathered buffer: their check
@@ -110,9 +115,20 @@
      single-device K7 block of the same rows and planes;
    - mesh-nominated-serial (C1: K9a/b with each shard's ghost slice): 8
      serial cycles while 13,000 nominees hold nodes, held against the
-     single-device K2 run with the same ghost.
+     single-device K2 run with the same ghost;
+   - scan-200k (K5 with its rows and scratch in global memory): the
+     largest cell of the JAX harness's shard matrix, 200,000 nodes and a
+     1,000-pod window at the default 50 % on one card, its first 64 pods
+     held against the plain path;
+   - twin: the serial cycle's host twin on a CUDA TorchScheduler at
+     15,000 nodes: a nominee with a host port sends a cycle to the twin,
+     the next cycle (resource-only nominees) runs on K2 with the ghost,
+     both equal to a device="cpu" run of the same sequence; prints the
+     twin's count and host ms.
    Launch counts are zeroed just before each path and read just after;
-   each path's kernels must have run and no window may be refused.
+   each path's kernels must have run and no window may be refused; every
+   phase but the twin's must leave `twin.*` at zero (no path hides the
+   device behind the host twin).
    Decisions, walk counters and folded rows must equal the plain path on
    the card (whole window for the uniform burst, the first >= 1,024 pods
    of the scan and fused windows, whole waves with their ghost load for
@@ -759,16 +775,27 @@ def _spec(req_cpu, dense, rng, n_pad, s_count):
 
 
 #: the geometries K5 / K6 are held against their plain versions on, in
-#: every mode (name, n_pad, n_real, S, B, node set): the cluster's
-#: 16 x 1024 threads cover 16,384 slots, one a thread
+#: every mode (name, n_pad, n_real, S, B, node set, the most blocks the
+#: planner may take, the plan it must choose: blocks, node slots a thread,
+#: rows resident, scratch in global memory; None: not pinned): the
+#: cluster's 16 x 1024 threads cover 16,384 slots, one a thread; past
+#: 180,224 (90,112 on 8 blocks) the scratch moves to the global workspace
 SCAN_GEOMETRIES = (
-    ("4,096 slots: blocks 4-15 own no node", 4096, 4000, 2, 256, None),
-    ("1,500 slots: less than one block's span", 1500, 1490, 2, 64, None),
+    ("4,096 slots: blocks 4-15 own no node", 4096, 4000, 2, 256, None, 16,
+     None),
+    ("1,500 slots: less than one block's span", 1500, 1490, 2, 64, None, 16,
+     None),
     ("20,000 slots: two a thread, not a multiple of the span", 20000,
-     19990, 3, 64, None),
+     19990, 3, 64, None, 16, None),
     ("3,000 slots: li, the winners and the ties in different blocks", 3000,
-     2990, 2, 48, "ties"),
-    ("40,000 slots: the rows in global memory", 40000, 39990, 2, 48, None),
+     2990, 2, 48, "ties", 16, None),
+    ("40,000 slots: the rows in global memory", 40000, 39990, 2, 48, None,
+     16, None),
+    ("262,144 slots: 16 a thread, the rows and the scratch in global "
+     "memory", 262144, 262000, 2, 24, None, 16, (16, 16, False, True)),
+    ("131,072 slots on an 8-block cluster: 16 a thread, the rows and the "
+     "scratch in global memory", 131072, 131000, 2, 24, None, 8,
+     (8, 16, False, True)),
 )
 
 
@@ -807,16 +834,24 @@ def scan_variant_checks(device, sync):
     carry_in chaining, a weight table with per-pod profile ids, dense and
     inert fields mixed in one window, skip padding; for K6 also gang
     rewinds, a singleton failure, the rank-aware gang score and n_pods <
-    B."""
+    B; the scratch in the global workspace past 180,224 slots on 16
+    blocks and 90,112 on 8."""
     import numpy as np
     from kubernetes_tpu_torch.ops import kernels as K
     checked = 0
-    for gi, (label, n_pad, n_real, s_count, B, build) in enumerate(
-            SCAN_GEOMETRIES):
+    for gi, (label, n_pad, n_real, s_count, B, build, blocks,
+             want) in enumerate(SCAN_GEOMETRIES):
         rng = np.random.default_rng(20261018 + gi)
         K.last_geometry.clear()
-        checked += _scan_variants(device, rng, n_pad, n_real, s_count, B,
-                                  build, gi == 0)
+        with cluster_blocks(blocks):
+            checked += _scan_variants(device, rng, n_pad, n_real, s_count,
+                                      B, build, gi == 0)
+        for k, (plan, _fit) in K.last_geometry.items():
+            got = (plan.blocks, plan.nodes_per_thread, plan.resident,
+                   plan.global_scratch)
+            if want is not None and got != want:
+                raise SystemExit(f"variant {k}, {label}: planned {plan}, "
+                                 f"not {want}")
         geo = "; ".join(f"{k}: {describe_geometry(*v)}"
                         for k, v in sorted(K.last_geometry.items()))
         print(f"[variants] {label}: {geo}")
@@ -837,11 +872,14 @@ def describe_geometry(plan, fit, select=False):
     rows = f"{what} in {'shared' if plan.resident else 'global'} memory"
     if not select and plan.resident:
         rows = "rows resident in shared memory"
+    scratch = (f"the scratch in a global workspace of "
+               f"{plan.workspace_bytes} B" if plan.global_scratch
+               else "the scratch in shared memory")
     from kubernetes_tpu_torch.ops import kernels as K
     return (f"cluster of {plan.blocks} x {K.CLUSTER_THREADS} threads, "
             f"{plan.nodes_per_thread} node slot(s) a thread, {rows}, "
-            f"{plan.smem_bytes} B of shared memory a block, {fit} such "
-            f"cluster(s) fit the card")
+            f"{scratch}, {plan.smem_bytes} B of shared memory a block, "
+            f"{fit} such cluster(s) fit the card")
 
 
 def _scan_variants(device, rng, n_pad, n_real, s_count, B, build, first):
@@ -1414,16 +1452,17 @@ def path_report(name, n_nodes, n_pods, run, counts, extra=""):
           f"{ph['fetch'] * 1e3:.2f}); launches {counts}{extra}")
 
 
-def scan_path(cfg, n_nodes, window_fn, device, sync, report, check):
+def scan_path(cfg, n_nodes, window_fn, device, sync, report, check,
+              n_pods=N_PODS, prefix=PREFIX):
     """A scan path: the whole window on the kernels (launches counted),
-    then the first PREFIX pods on the kernels and on the plain versions,
+    then the first `prefix` pods on the kernels and on the plain versions,
     which must agree in decisions, walk counters, folded rows and serial
     cycles, and must be the whole run's first decisions. Returns the
     whole run and its K5 call's result (the mesh paths' reference)."""
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.ops import kernels as K
     name = cfg["name"]
-    window = window_fn(N_PODS)
+    window = window_fn(n_pods)
     obs.reset()
     with capture("schedule_batch") as cap:
         run = run_scan(cfg, n_nodes, window, cfg["serial"], device, sync)
@@ -1435,28 +1474,28 @@ def scan_path(cfg, n_nodes, window_fn, device, sync, report, check):
         if counts[k] == 0:
             raise SystemExit(f"{name}: {k} was not launched on the path")
     placed = sum(h is not None for h in run["hosts"])
-    if placed != N_PODS:
-        raise SystemExit(f"{name}: placed {placed} of {N_PODS}")
-    short = window_fn(PREFIX)
+    if placed != n_pods:
+        raise SystemExit(f"{name}: placed {placed} of {n_pods}")
+    short = window_fn(prefix)
     kern = run_scan(cfg, n_nodes, short, cfg["serial"], device, sync)
     with plain_versions():
         ref = run_scan(cfg, n_nodes, short, cfg["serial"], device, sync)
     if kern["hosts"] != ref["hosts"] or kern["serial"] != ref["serial"] \
             or kern["counters"] != ref["counters"]:
-        raise SystemExit(f"{name}: the first {PREFIX} pods differ from "
+        raise SystemExit(f"{name}: the first {prefix} pods differ from "
                          f"the plain path")
     same_rows(name, kern["rows"], ref["rows"])
-    if run["hosts"][:PREFIX] != kern["hosts"]:
-        raise SystemExit(f"{name}: the window's first {PREFIX} decisions "
-                         f"differ from the {PREFIX}-pod window's")
+    if run["hosts"][:prefix] != kern["hosts"]:
+        raise SystemExit(f"{name}: the window's first {prefix} decisions "
+                         f"differ from the {prefix}-pod window's")
     if check is not None:
         check(cap.call, run)
     add_launches(report, counts)
     rot = run["sched"]._tree_rotates()
-    path_report(name, n_nodes, N_PODS, run, counts,
+    path_report(name, n_nodes, n_pods, run, counts,
                 f"; rotating walk {rot}; assume loop "
                 f"{run['t_assume'] * 1e3:.1f} ms; {cfg['serial']} serial "
-                f"cycles {run['t_serial'] * 1e3:.1f} ms; first {PREFIX} "
+                f"cycles {run['t_serial'] * 1e3:.1f} ms; first {prefix} "
                 f"pods, counters, rows and serial cycles equal to the plain "
                 f"path")
     return run, cap.last
@@ -1583,6 +1622,51 @@ def scan_cells():
           "services": spread_services(), "kernels": ("schedule_batch",)},
          N_NODES, spread_window),
     ]
+
+
+#: the largest cell of the JAX harness's shard matrix
+#: (kubernetes_tpu/perf/harness.py:1190, `BENCHMARK_MATRIX["shard"]`):
+#: 200,000 of bench.py's nodes, a 1,000-pod window at the default 50 %, on
+#: one card (n_pad 262,144: K5 with its rows and scratch in global memory)
+SCALE_CELL = {"name": "scan-200k", "pct": 50, "serial": 0,
+              "kernels": ("schedule_batch",)}
+SCALE_NODES, SCALE_PODS, SCALE_PREFIX = 200000, 1000, 64
+#: one cluster round alone on an H100, us (scripts/cycle_phase_split.py;
+#: PERF.md): a cycle's chain floor is 4 of them
+ROUND_US = 1.279
+
+
+def scale_path(device, sync, report):
+    """The 200,000-node scan window (SCALE_CELL) through schedule_burst,
+    its first SCALE_PREFIX pods held against the plain path; prints its
+    [path] line, and K5's geometry there with its time a pod on the
+    window's first SCALE_PREFIX pods (CUDA events and device time over 3
+    calls) beside its bound and chain floor."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    K.last_geometry.clear()
+    calls = []
+    scan_path(SCALE_CELL, SCALE_NODES, pods, device, sync, report,
+              lambda call, run: calls.append(call), n_pods=SCALE_PODS,
+              prefix=SCALE_PREFIX)
+    plan, fit = K.last_geometry["schedule_batch"]
+    if not plan.global_scratch:
+        raise SystemExit(f"{SCALE_CELL['name']}: K5 planned {plan}, not the "
+                         f"scratch in global memory")
+    nodes, args, kw = prefix_call(calls[0], SCALE_PREFIX)
+
+    def k5():
+        return K.schedule_batch(nodes, *args, **kw)
+    ms = cuda_time(k5, sync, 3)
+    dev_ms, _n = device_time(k5, sync, 3, "schedule_batch_kernel")
+    bound = scan_bound(nodes, args[0], SCALE_PREFIX,
+                       int(nodes["valid"].sum()),
+                       SCALE_PREFIX * (3 * 4 + 5 * 8))
+    print(f"[kernel] schedule_batch on {SCALE_CELL['name']}: "
+          f"{ms / SCALE_PREFIX * 1e3:.2f} us/pod, device "
+          f"{dev_ms / SCALE_PREFIX * 1e3:.2f} us/pod (first {SCALE_PREFIX} "
+          f"pods; bound {bound[0] / SCALE_PREFIX * 1e3:.4f} us/pod "
+          f"({bound[1]}), chain floor {4 * ROUND_US:.2f} us/pod); "
+          f"{describe_geometry(plan, fit)}")
 
 
 #: the fused cell, likewise
@@ -1891,6 +1975,10 @@ MESH_SCAN_GEOMETRIES = (
      "memory", 50000, 49990, None, 16, (4,)),
     ("20,000 slots again, after smaller plans", 20000, 19990, "again", 16,
      (4,)),
+    ("262,144 slots: 16 a thread, the records and the scratch in global "
+     "memory", 262144, 262000, None, 16, (4,)),
+    ("131,072 slots on an 8-block cluster: 16 a thread, the records and "
+     "the scratch in global memory", 131072, 131000, None, 8, (4,)),
 )
 
 
@@ -1937,7 +2025,9 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
             checked += _mesh_scan_variants(
                 device, rng, n_pad, n_real, build, blocks,
                 meshes or [[device] * D for D in shards or MESH_SHARDS],
-                "all" if gi == 0 else "last" if shards is None else "none")
+                "all" if gi == 0 else "last" if shards is None else "none",
+                sync if K.select_plan(n_pad, 8, blocks).global_scratch
+                else None)
         geo = "; ".join(
             f"{k}: {describe_geometry(*K.last_geometry[k], select=True)}"
             for k in K.SELECT_CLUSTER_KERNELS)
@@ -1957,13 +2047,14 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
 
 
 def _mesh_scan_variants(device, rng, n_pad, n_real, build, blocks, meshes,
-                        sharded):
+                        sharded, timed=None):
     """One geometry's mesh scan and segments cases (`blocks`: the cluster
     planned; `build` "again": the first case of each only) on the meshes
     `meshes`; returns the comparisons made. Every mesh's window is held
     against the single-device plain K5 / K6; against the sharded plain
     versions (a Python loop of steps, the slow part) on "all" meshes, the
-    "last" one or "none"."""
+    "last" one or "none". `timed` (sync): also print K10b's and K11b's
+    device time a step on the last mesh's identity and axis windows."""
     import numpy as np
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
@@ -2147,6 +2238,18 @@ def _mesh_scan_variants(device, rng, n_pad, n_real, build, blocks, meshes,
                      whole_window(got, d0), whole_window(ref, d0))
             same(f"{D} shards/segments/{name} vs K6 plain",
                  whole_window(got, d0), whole_window(want, d0))
+        if timed is not None and mi == len(mesh_list) - 1:
+            st = want_scan["identity"][0]
+            k10b, n10 = device_time(lambda: K.schedule_batch(
+                shards, st, li, 11, n_real, n_real, 8, mesh=mesh), timed, 3,
+                "shard_scan_select")
+            st, _want = want_seg["axis"]
+            k11b, n11 = device_time(lambda: K.schedule_batch_segments(
+                shards, st, seg_t, gang_t, n_seg, li_seg, 9, part, n_real, 8,
+                mesh=mesh), timed, 3, "shard_segments_select")
+            print(f"[variants] mesh at n_pad {n_pad} on {D} shards: K10b "
+                  f"device {k10b:.4f} ms a step ({n10} steps), K11b device "
+                  f"{k11b:.4f} ms a step ({n11} steps)")
     return checked
 
 
@@ -2746,14 +2849,19 @@ def preempt_variant_checks(device, sync, n_pad=16384, n_real=16000):
 
 #: the geometries K8 is held against its plain version on (name, n_pad,
 #: n_real, the most blocks its planner may take, the plan it must choose:
-#: blocks, node slots a thread, rows resident)
+#: blocks, node slots a thread, rows resident, scratch in global memory;
+#: the victim slots P it runs at)
 PRESSURE_GEOMETRIES = (
     ("16,384 slots, 16 blocks: rows resident", 16384, 16000, 16,
-     (16, 1, True)),
+     (16, 1, True, False), (16, 128)),
     ("16,384 slots, 8 blocks: rows in global memory", 16384, 16000, 8,
-     (8, 2, False)),
+     (8, 2, False, False), (16, 128)),
     ("1,024 slots (preempt-baseline's n_pad): one block", 1024, 1000, 16,
-     (1, 1, True)),
+     (1, 1, True, False), (16, 128)),
+    ("262,144 slots, 16 blocks: rows and scratch in global memory", 262144,
+     262000, 16, (16, 16, False, True), (16,)),
+    ("131,072 slots, 8 blocks: rows and scratch in global memory", 131072,
+     131000, 8, (8, 16, False, True), (16,)),
 )
 #: pod-spec rows of a K8 chunk (spec 4 is the skip padding): one spec
 #: throughout, and four specs alternating, each pod a new spec
@@ -2780,7 +2888,9 @@ def pressure_variant_checks(device, sync):
     """K8 against its plain version on random inputs, on every geometry of
     PRESSURE_GEOMETRIES (16 blocks with the rows, ghost and aggregates
     resident; 8 blocks with them in global memory; n_pad 1,024 on one
-    block), at P 16 and 128, ghost off and carried in, on a chunk of one
+    block; 262,144 and 131,072 slots with the scratch in global memory
+    too), at P 16 and 128 (the two largest at P 16), ghost off and
+    carried in, on a chunk of one
     spec (the scan reused pod after pod: each block rescans only the node
     the pod before folded or nominated) and on alternating specs (every
     pod rescans every node): 32 pods that bind, then nominate, then fail,
@@ -2793,9 +2903,9 @@ def pressure_variant_checks(device, sync):
     from kubernetes_tpu_torch.ops import kernels as K
     rng = np.random.default_rng(20261017)
     checked = 0
-    for label, n_pad, n_real, blocks, want_plan in PRESSURE_GEOMETRIES:
+    for label, n_pad, n_real, blocks, want_plan, Ps in PRESSURE_GEOMETRIES:
         seen, times = set(), []
-        for P in (16, 128):
+        for P in Ps:
             vic = _rand_victims(rng, n_pad, P, device)
             nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
             room = torch.zeros(n_pad, dtype=torch.bool)
@@ -2843,8 +2953,8 @@ def pressure_variant_checks(device, sync):
                                          f"the chunk lacks bound, failed or "
                                          f"nominated pods ({sorted(kinds)})")
                     plan, fit = K.last_geometry["pressure_batch"]
-                    if (plan.blocks, plan.nodes_per_thread,
-                            plan.resident) != want_plan:
+                    if (plan.blocks, plan.nodes_per_thread, plan.resident,
+                            plan.global_scratch) != want_plan:
                         raise SystemExit(f"variant pressure_batch {name}: "
                                          f"planned {plan}, not {want_plan}")
                     seen.add(describe_geometry(plan, fit))
@@ -3765,6 +3875,80 @@ def mesh_nominated_path(device, sync, mesh=None):
           f"equal to plain (max_abs_err 0)")
 
 
+def twin_phase(device, sync):
+    """The serial cycle's host twin (C4) on a CUDA TorchScheduler: on
+    nominated_world's 15,000 nodes plus a nominee with a host port, a pod
+    of priority 50 counts it (the device ghost cannot express a host
+    port: the twin decides), then a pod of priority 70 counts only the
+    2-CPU nominees of priority 100 (resource-only: K2 with the ghost).
+    Both cycles, with their walk counters, equal a device="cpu" run of
+    the same sequence (the twin and the plain K2); prints the twin's
+    count and host ms beside the K2 cycle's."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.api.types import (
+        Container, ContainerPort, Pod)
+    from kubernetes_tpu_torch.ops import kernels as K
+    name = "twin"
+    runs = {}
+    for dev in (device, "cpu"):
+        infos, tree, nom = nominated_world(N_NODES)
+        nom.by_node.setdefault("node-7", []).append(Pod(
+            name="nominee-port", priority=60,
+            nominated_node_name="node-7",
+            containers=(Container.make(
+                name="c", requests={"cpu": 500},
+                ports=(ContainerPort(host_port=8080,
+                                     container_port=8080),)),)))
+        sched = make_sched(tree, dev, 50)
+        sched.nominated = nom
+        obs.reset()
+        out, ms = [], []
+        for r, prio in enumerate((50, 70)):
+            pod = Pod(name=f"twin-serial-{r}", priority=prio,
+                      containers=(Container.make(name="c", requests={
+                          "cpu": 2500}),))
+            t0 = time.perf_counter()
+            res = sched.schedule(pod, infos, tree.list_names())
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append((res.suggested_host, res.evaluated_nodes,
+                        res.feasible_nodes, tuple(res.host_priority),
+                        sched.last_index, sched.last_node_index))
+            assume(infos, pod, res.suggested_host)
+            if r == 0:
+                twins = obs.family("twin")
+        runs[str(dev)] = (out, ms, twins, K.launches(),
+                          obs.get("dispatch.cycle_ghost"))
+        obs.reset()
+    out, ms, twins, counts, ghosts = runs[str(device)]
+    cpu = runs["cpu"]
+    if twins != {"nominated-ghosts": 1} or cpu[2] != twins:
+        raise SystemExit(f"{name}: twin cycles {twins} (cpu run {cpu[2]}), "
+                         f"not one nominated-ghosts cycle")
+    if counts["schedule_cycle"] != 1 or ghosts != 1:
+        raise SystemExit(f"{name}: K2 launches {counts['schedule_cycle']}, "
+                         f"ghost cycles {ghosts}: the second cycle did not "
+                         f"run on K2 with the ghost")
+    if out != cpu[0]:
+        raise SystemExit(f"{name}: the cycles differ from the device=\"cpu\" "
+                         f"run: {out} vs {cpu[0]}")
+    print(f"[twin] {N_NODES} nodes: 1 twin cycle (nominated-ghosts, a "
+          f"nominee with a host port counted) in {ms[0]:.1f} ms of host "
+          f"time, then 1 K2 cycle with the ghost in {ms[1]:.1f} ms; both "
+          f"with their walk counters equal to the device=\"cpu\" run "
+          f"(twin {cpu[1][0]:.1f} ms, plain K2 {cpu[1][1]:.1f} ms)")
+
+
+def no_twin(phase):
+    """Fail when a phase other than twin_phase decided a cycle on the host
+    twin."""
+    from kubernetes_tpu_torch import obs
+    twins = obs.family("twin")
+    if twins:
+        raise SystemExit(f"{phase}: cycles decided on the host twin "
+                         f"{twins}")
+
+
 def cards_phase(report):
     """`--cards`: the mesh phase over every card of the host, one shard
     per card (the all-gather's copies are then peer copies between the
@@ -3858,6 +4042,7 @@ def main() -> int:
     if cards:
         report = {k: {"launches": 0} for k in K.KERNELS}
         cards_phase(report)
+        no_twin("cards_phase")
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in MESH_KERNELS]}))
     else:
@@ -3866,6 +4051,7 @@ def main() -> int:
             out = fn(*args)
             print(f"[elapsed] {fn.__name__}: "
                   f"{time.perf_counter() - t:.1f} s")
+            no_twin(fn.__name__)
             return out
         report = timed(kernel_checks, device, sync)
         timed(variant_checks, device, sync)
@@ -3881,10 +4067,12 @@ def main() -> int:
         timed(mesh_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
               report, False)
         refs = timed(scan_paths, device, sync, report)
+        timed(scale_path, device, sync, report)
         timed(mesh_scan_variant_checks, device, sync)
         timed(mesh_local_checks, device, sync)
         timed(mesh_scan_paths, device, sync, report, refs)
         timed(preempt_paths, device, sync, report)
+        timed(twin_phase, device, sync)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")

@@ -16,6 +16,9 @@ from kubernetes_tpu_torch.api.types import Node, get_zone_key
 class NodeTree:
     def __init__(self):
         self._tree: dict[str, list[str]] = {}   # zone -> node names
+        # zone -> the same names as a set: membership in O(1), so building
+        # a tree of N nodes is O(N), not O(N^2)
+        self._members: dict[str, set[str]] = {}
         self._zones: list[str] = []             # insertion-ordered zone keys
         self._zone_index = 0
         self._last_index: dict[str, int] = {}   # per-zone cursor
@@ -45,11 +48,13 @@ class NodeTree:
         if names is None:
             names = []
             self._tree[zone] = names
+            self._members[zone] = set()
             self._zones.append(zone)
             self._last_index[zone] = 0
-        if node.name in names:
+        if node.name in self._members[zone]:
             return
         names.append(node.name)
+        self._members[zone].add(node.name)
         self.num_nodes += 1
         self._rotation_cache = None
         self._order_cache = {}
@@ -59,9 +64,10 @@ class NodeTree:
     def remove_node(self, node: Node) -> None:
         zone = get_zone_key(node)
         names = self._tree.get(zone)
-        if names is None or node.name not in names:
+        if names is None or node.name not in self._members[zone]:
             return
         names.remove(node.name)
+        self._members[zone].discard(node.name)
         self.num_nodes -= 1
         self._rotation_cache = None
         self._order_cache = {}
@@ -69,6 +75,7 @@ class NodeTree:
         self.epoch += 1
         if not names:
             del self._tree[zone]
+            del self._members[zone]
             self._zones.remove(zone)
             del self._last_index[zone]
             self._exhausted.discard(zone)

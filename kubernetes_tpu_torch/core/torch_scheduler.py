@@ -8,9 +8,13 @@ carries:
   ScheduleResult/FitError, feasible sets, evaluated counts and scores;
   with nominated pods (the `nominated` handle), the load of the nominees
   of priority >= the pod's enters the filter as a ghost, the two-pass fit
-  of podFitsOnNode; a nominee or pod that is not resource-only (volumes,
-  pod-affinity terms, host ports, scalar requests) raises
-  NotImplementedError;
+  of podFitsOnNode. Where the reference decides on its host twin and the
+  device cannot express the cycle, schedule() decides on the port's copy
+  of that twin (`oracle.generic_scheduler.GenericScheduler`, counted
+  under `twin.<reason>`): a call with `extra_configs` (the gang serial
+  referee's trial-scoped priorities), and a nominated cycle where the pod
+  or a counted nominee is not resource-only (volumes, pod-affinity
+  terms, host ports, scalar requests);
 - schedule_burst(): spec-identical, single-profile windows in the
   full-scan regime through the uniform K-batch kernel (K3
   `uniform_burst`), one launch and one packed device-to-host copy per
@@ -34,19 +38,20 @@ victim scan (K14a on every shard, reduced to a candidate record per
 shard, K14b's pick over them) and preempt_pressure_burst() one step of
 K13a (one launch a device over its shards) and K13b per pod of each
 128-pod chunk, the rows, ghost load and victim planes split per shard,
-li / lni chained on the device and one fetch a wave. On several cards a scan, fused or pressure step is bound by the
-host's enqueue (0.76-0.87 ms a scan step on 4 x NVIDIA H100 80GB HBM3 at
-700 W, 3.0-3.2x the single-card window; PERF.md section 7) until the step
-is graph-captured, so mesh="auto" costs these windows throughput for
-now. The tests run every mesh path on `["cpu"] * D`
+li / lni chained on the device and one fetch a wave. On several cards a
+scan, fused or pressure step is bound by the host's enqueue (1.08-1.27 ms
+a step on 4 x NVIDIA H100 80GB HBM3 at 700.00 W, 17-20x the single-card
+step; PERF.md section 5) until the step is graph-captured, so
+mesh="auto" costs these windows throughput for now. The tests run every
+mesh path on `["cpu"] * D`
 (tests/test_torch_sharding*.py); `chip_smoke.py` drives them on four
 shards of one card, and with `--cards` on a host's cards.
 
 Folds stay on the device. The node matrix and the victim table's planes
 are uploaded whole once and then kept current by the dirty-row scatter
 (K4 `scatter_rows`). Every entry point runs on `cuda` unless
-`device="cpu"` is passed; a CUDA error propagates (no host twin, no
-silent degrade). A window the JAX package
+`device="cpu"` is passed; a CUDA error propagates (no cycle that failed
+on the device is decided on the host twin). A window the JAX package
 also refuses is refused whole (None), counted under `refusal.<reason>`.
 """
 from __future__ import annotations
@@ -61,10 +66,12 @@ from kubernetes_tpu_torch import obs
 from kubernetes_tpu_torch.api.types import (
     Pod, get_container_ports, has_pod_affinity_terms)
 from kubernetes_tpu_torch.cache.node_info import NodeInfo, calculate_resource
+from kubernetes_tpu_torch.factory import (
+    DEFAULT_PREDICATE_NAMES, build_predicate_set, build_priority_configs)
 from kubernetes_tpu_torch.oracle import predicates as P
 from kubernetes_tpu_torch.oracle.generic_scheduler import (
-    ScheduleResult, FitError, num_feasible_nodes_to_find,
-    DEFAULT_PERCENTAGE_OF_NODES_TO_SCORE,
+    ScheduleResult, FitError, GenericScheduler, default_priority_configs,
+    num_feasible_nodes_to_find, DEFAULT_PERCENTAGE_OF_NODES_TO_SCORE,
 )
 from kubernetes_tpu_torch.ops import PRIORITY_AXIS, resolve_device
 from kubernetes_tpu_torch.ops import kernels as K
@@ -135,6 +142,14 @@ class TorchScheduler:
         self.check_resources = True   # PodFitsResources enabled
         self.weights = None           # None -> kernels.DEFAULT_WEIGHTS
         self.enabled_predicates = None  # None -> all
+        # provider / policy priorities by name: the host twin's configs
+        # (None -> the DefaultProvider's)
+        self.priority_name_weights = None
+        # the host twin (built at its first cycle) and its priority
+        # configs: one list, or one per profile
+        self._oracle: Optional[GenericScheduler] = None
+        self._oracle_cfgs: Optional[list] = None
+        self._oracle_cfgs_prof: Optional[list] = None
         # scheduling profiles (set_profiles): in weight-table mode every
         # pod scores with the [profiles x priorities] row of its
         # schedulerName's profile, and the static weights become the
@@ -195,6 +210,7 @@ class TorchScheduler:
         A degenerate default set keeps the static-weight programs."""
         self.profiles = profiles
         self._gang_score = False
+        self._oracle_cfgs = self._oracle_cfgs_prof = None  # rebuilt lazily
         if profiles is not None and profiles.tensor_mode():
             self._set_weight_table(profiles.weight_table())
             self._gang_score = any(p.rank_aware for p in profiles)
@@ -400,13 +416,85 @@ class TorchScheduler:
 
     # -- single-pod cycle --------------------------------------------------------
     def schedule(self, pod: Pod, node_infos: dict[str, NodeInfo],
-                 all_node_names: list[str]) -> ScheduleResult:
+                 all_node_names: list[str],
+                 extra_configs=None) -> ScheduleResult:
+        """One pod's cycle. Routes as TPUScheduler.schedule does, in its
+        order, where the device cannot decide: `extra_configs`
+        (trial-scoped priorities, the gang serial referee's
+        GangLocalityPriority) and a nominated cycle the device ghost
+        cannot express go to the host twin (`twin.<reason>`); every other
+        cycle runs on K2 (K9a / K9b on a mesh)."""
         if not all_node_names:
             raise FitError(pod, 0, {})
-        return self._schedule_device(pod, node_infos, all_node_names)
+        if extra_configs:
+            return self._schedule_host_twin(
+                "gang-locality-serial", pod, node_infos, all_node_names,
+                extra_configs)
+        nominees = self._nominees(pod, all_node_names)
+        if nominees and any(self._ghost_gate(p) is not None
+                            for p in [pod] + [p for _, p in nominees]):
+            return self._schedule_host_twin(
+                "nominated-ghosts", pod, node_infos, all_node_names)
+        return self._schedule_device(pod, node_infos, all_node_names,
+                                     nominees)
+
+    def _oracle_fallback(self) -> GenericScheduler:
+        """The host twin and its priority configs, built at first use:
+        per profile (`ProfileSet.oracle_configs`) when profiles are set,
+        else from `priority_name_weights`, else the DefaultProvider's, as
+        TPUScheduler._oracle_fallback builds them."""
+        if self._oracle is None:
+            nom = self.nominated
+            self._oracle = GenericScheduler(
+                percentage_of_nodes_to_score=self.percentage_of_nodes_to_score,
+                hard_pod_affinity_weight=self.hard_pod_affinity_weight,
+                nominated_pods_fn=(nom.pods_for_node if nom is not None
+                                   else lambda name: []))
+        if self._oracle_cfgs is None:
+            kw = dict(services_fn=self.services_fn,
+                      replicasets_fn=self.replicasets_fn,
+                      hard_pod_affinity_weight=self.hard_pod_affinity_weight)
+            if self.profiles is not None:
+                self._oracle_cfgs_prof = [
+                    self.profiles.oracle_configs(i, **kw)
+                    for i in range(len(self.profiles))]
+                self._oracle_cfgs = self._oracle_cfgs_prof[0]
+            elif self.priority_name_weights is not None:
+                self._oracle_cfgs = build_priority_configs(
+                    self.priority_name_weights, **kw)
+            else:
+                self._oracle_cfgs = default_priority_configs(**kw)
+        return self._oracle
+
+    def _schedule_host_twin(self, reason: str, pod: Pod,
+                            node_infos: dict[str, NodeInfo],
+                            all_node_names: list[str],
+                            extra_configs=None) -> ScheduleResult:
+        """One cycle on the host twin (TPUScheduler._schedule_host_twin):
+        the walk counters go in and come back out, so the next device
+        cycle walks on from where the twin stopped. Counted under
+        `twin.<reason>` (the reference's ORACLE_FALLBACKS labels)."""
+        obs.inc("twin." + reason)
+        o = self._oracle_fallback()
+        o.last_index, o.last_node_index = self.last_index, self.last_node_index
+        funcs = build_predicate_set(
+            sorted(self.enabled_predicates) if self.enabled_predicates
+            else DEFAULT_PREDICATE_NAMES, node_infos)
+        cfgs = self._oracle_cfgs
+        if self._oracle_cfgs_prof is not None:
+            cfgs = self._oracle_cfgs_prof[self._profile_id(pod)]
+        if extra_configs:
+            cfgs = list(cfgs) + list(extra_configs)
+        try:
+            return o.schedule(pod, node_infos, all_node_names,
+                              predicate_funcs=funcs, priority_configs=cfgs)
+        finally:
+            self.last_index = o.last_index
+            self.last_node_index = o.last_node_index
 
     def _schedule_device(self, pod: Pod, node_infos: dict[str, NodeInfo],
-                         all_node_names: list[str]) -> ScheduleResult:
+                         all_node_names: list[str],
+                         nominees: list) -> ScheduleResult:
         b = self.encoder.encode(node_infos, all_node_names)
         nodes = self._node_arrays(b)
         feats = self._pod_encoder(node_infos, b).encode(pod)
@@ -424,7 +512,7 @@ class TorchScheduler:
         out = K.schedule_cycle(nodes, pod_in, self.last_index,
                                self.last_node_index, num_to_find, n, z_pad,
                                weights=weights, wtab=wtab,
-                               ghost=self._nominated_ghost(pod, b),
+                               ghost=self._nominated_ghost(nominees, b),
                                **self._mesh_kw())
         obs.inc("dispatch.cycle")
         keys = ["selected", "found", "evaluated", "next_last_index",
@@ -478,44 +566,40 @@ class TorchScheduler:
             return "scalar requests"
         return None
 
-    def _nominated_ghost(self, pod: Pod, b: NodeBatch) -> Optional[dict]:
-        """The serial cycle's nominated-ghost load ({cpu, mem, eph, cnt}
-        [n_pad] int64, or None when no nominee counts): on each node row,
-        the nominated pods of priority >= the pod's other than the pod
-        itself (`pod_fits_on_node_with_nominated`,
-        kubernetes_tpu/oracle/preemption.py:347-348), each adding the load
-        NodeInfo.add_pod adds
-        (calculate_resource) and one pod. Nominees on nodes outside the
-        snapshot are ignored. With resource-only nominees the filter with
-        the ghost is the two-pass fit (the pass without them is implied);
-        otherwise raises NotImplementedError naming the gate, as the port
-        has no host twin to hand the cycle to."""
+    def _nominees(self, pod: Pod, names: list[str]) -> list:
+        """The nominated pods a cycle of `pod` counts, as (node name, pod):
+        on each node of `names`, those of priority >= the pod's other than
+        the pod itself (`pod_fits_on_node_with_nominated`,
+        oracle/preemption.py). Empty without nominees."""
         nom = self.nominated
         if nom is None or not nom.has_any():
-            return None
+            return []
+        return [(name, p) for name in names for p in nom.pods_for_node(name)
+                if p.priority >= pod.priority and p.uid != pod.uid]
+
+    @staticmethod
+    def _nominated_ghost(nominees: list, b: NodeBatch) -> Optional[dict]:
+        """The serial cycle's nominated-ghost load ({cpu, mem, eph, cnt}
+        [n_pad] int64, or None when no nominee counts): on each node row,
+        each counted nominee (`_nominees`) adds the load NodeInfo.add_pod
+        adds (calculate_resource) and one pod. Nominees on nodes outside
+        the snapshot are ignored. With resource-only nominees (schedule()
+        sends any other cycle to the host twin) the filter with the ghost
+        is the two-pass fit (the pass without them is implied)."""
         ghost = {k: np.zeros(b.n_pad, np.int64) for k in K.GHOST_FIELDS}
-        counted = []
-        for i, name in enumerate(b.names):
-            for p in nom.pods_for_node(name):
-                if p.priority < pod.priority or p.uid == pod.uid:
-                    continue
-                r = calculate_resource(p)
-                ghost["cpu"][i] += r.milli_cpu
-                ghost["mem"][i] += r.memory
-                ghost["eph"][i] += r.ephemeral_storage
-                ghost["cnt"][i] += 1
-                counted.append(p)
+        counted = 0
+        for name, p in nominees:
+            i = b.index.get(name)
+            if i is None:
+                continue
+            r = calculate_resource(p)
+            ghost["cpu"][i] += r.milli_cpu
+            ghost["mem"][i] += r.memory
+            ghost["eph"][i] += r.ephemeral_storage
+            ghost["cnt"][i] += 1
+            counted += 1
         if not counted:
             return None
-        for p in [pod] + counted:
-            gate = self._ghost_gate(p)
-            if gate is not None:
-                who = "the pod" if p is pod else f"nominee {p.name}"
-                raise NotImplementedError(
-                    f"schedule with nominated pods: {who} has {gate}; the "
-                    f"device ghost fit covers resource-only pods (no "
-                    f"volumes, pod-affinity terms, host ports or scalar "
-                    f"requests)")
         obs.inc("dispatch.cycle_ghost")
         return ghost
 
@@ -1578,6 +1662,7 @@ class TorchScheduler:
                                    "steps")
         t_enc = time.perf_counter()
         off = 0
+        work = {}  # the chunk chain's cluster workspace, where one is needed
         for lo, k, bucket in chunks:
             row = np.full(bucket, len(specs) - 1, np.int64)
             row[:k] = rows_arr[lo: lo + k]
@@ -1585,7 +1670,7 @@ class TorchScheduler:
                 self._dev_nodes, mut, ghost,
                 K.PodStack(stack.table, row, skip=stack.skip_flags()), vic,
                 li, lni, num_to_find, n, z_pad, weights=weights,
-                out=packed[off: off + bucket], **self._mesh_kw())
+                out=packed[off: off + bucket], work=work, **self._mesh_kw())
             obs.inc("dispatch.pressure_batch")
             off += bucket
         t_fetch = time.perf_counter()

@@ -8,6 +8,9 @@ One flat table of named counts. Names are dotted by family:
   launch.<kernel> hand-kernel launches, booked by each kernel's wrapper at
                   the launch and nowhere else
   refusal.<reason> whole-burst refusals (the shell runs those pods serially)
+  twin.<reason>   serial cycles decided on the host twin
+                  (gang-locality-serial, nominated-ghosts: the reference's
+                  ORACLE_FALLBACKS labels)
   gather.<op>     mesh mode: bytes of the all-gather (cycle,
                   burst_uniform, burst_scan, burst_segments, pressure,
                   preempt), every

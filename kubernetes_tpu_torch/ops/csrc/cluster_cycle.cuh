@@ -24,6 +24,13 @@
 //   - the rows a pod's filter, scores and fold read stay resident in the
 //     blocks' shared memory for the whole window (`resident`), or in global
 //     memory when they do not fit (the same code, a template flag);
+//   - past that (n_pad above 131,072 on 16 blocks, 65,536 on 8) the
+//     per-slot scratch (TOT, A, FL, JA: 20 B a slot) moves to a global
+//     workspace of blocks x span slots too, block q's slice at q * span
+//     (`scratch`, the template flag GS): a peer's plane is then read at its
+//     slice through L2 (`__ldcg`) instead of through distributed shared
+//     memory, and the rounds, their records and the zone tables stay in
+//     shared memory, so any node count runs;
 //   - a reduction or scan across the node axis is a ROUND: warp shuffles, a
 //     block combine into this block's partial record, one cluster barrier,
 //     and one warp per value combining the blocks' records read through
@@ -57,12 +64,14 @@ constexpr int CLUSTER_MAX = 16;  // H100's non-portable cluster size limit
 // The cluster's geometry, chosen on the host (`cluster_plan`,
 // kubernetes_tpu_torch/ops/kernels.py): blocks, node slots a thread, rows
 // (a select: the step's records) resident in shared memory or not, dynamic
-// shared memory of a block.
+// shared memory of a block, and the per-slot scratch in shared memory (0) or
+// in the launch's global workspace (1).
 struct ClusterGeom {
   int blocks, npt, resident;
   i64 smem;
+  int scratch;
 };
-enum { CG_BLOCKS, CG_NPT, CG_RESIDENT, CG_SMEM, CG_COUNT };
+enum { CG_BLOCKS, CG_NPT, CG_RESIDENT, CG_SMEM, CG_SCRATCH, CG_COUNT };
 
 // node flags (node space)
 enum { CF_FEAS = 1, CF_KEPT = 2 };
@@ -103,11 +112,13 @@ enum { RP_LOCAL, RP_NA, RP_TT, RP_SC, RP_IC, RP_N };
 // `pressure` (K8): with resident rows also, per slot, the nominated-ghost
 // load (four int64) and the victim scan's aggregates (four int64, one
 // float64, the candidate byte); without, both stay in global memory.
+// `gscr`: the per-slot scratch (tot, a, fl, ja) lives in the launch's global
+// workspace (`scratch_bytes`) and takes no shared memory.
 __host__ __device__ inline ClusterLayout cluster_layout(
     int span, int S, int z_pad, bool spread, bool resident, bool rec = false,
-    bool pressure = false) {
+    bool pressure = false, bool gscr = false) {
   ClusterLayout L;
-  const size_t sp = (size_t)span;
+  const size_t sp = (size_t)span, ss = gscr ? 0 : sp;
   const bool rows = resident && !rec;  // K5 / K6's node rows
   size_t o = 0;
   L.slot_len = PR_N + 2 * z_pad;
@@ -125,16 +136,16 @@ __host__ __device__ inline ClusterLayout cluster_layout(
   L.misc = o;  o += 8 * 4;
   L.sv = o;
   if (rec) o += 16 * 8;
-  L.tot = o;   o += sp * 8;
+  L.tot = o;   o += ss * 8;
   L.rows = o;
   if (rows) o += sp * 8 * (RW_SPREAD + (spread ? 1 : 0));
   L.scal_req = o;
   if (rows) o += sp * 8 * (size_t)S;
   L.scal_alloc = o;
   if (rows) o += sp * 8 * (size_t)S;
-  L.a = o;     o += sp * 4;
-  L.fl = o;    o += sp * 4;
-  L.ja = o;    o += sp * 4;
+  L.a = o;     o += ss * 4;
+  L.fl = o;    o += ss * 4;
+  L.ja = o;    o += ss * 4;
   L.zone = o;
   if (resident) o += sp * 4;
   L.valid = o;
@@ -147,6 +158,13 @@ __host__ __device__ inline ClusterLayout cluster_layout(
   if (pressure && rows) o += sp * (8 * 5 + 1);
   L.bytes = o;
   return L;
+}
+
+// Bytes of a launch's global scratch workspace (`gscr`): per slot of the
+// cluster's blocks x span, TOT (int64) then A, FL and JA (int32), each plane
+// over the whole cluster so block q's slice starts at q * span.
+__host__ __device__ inline size_t scratch_bytes(int blocks, int span) {
+  return (size_t)blocks * (size_t)span * (8 + 3 * 4);
 }
 
 // What one thread of the cluster knows of it.
@@ -211,20 +229,46 @@ __device__ __forceinline__ int owner_of(const ClusterCtx& cx, i64 j) {
   return (int)(j / cx.span);
 }
 
+// Block q's copy of this block's scratch plane `p` (TOT, A, FL or JA):
+// through distributed shared memory, or, with the scratch in the global
+// workspace (GS), block q's slice of the plane.
+template <bool GS, typename T>
+__device__ __forceinline__ T* peer(cg::cluster_group& cl, const ClusterCtx& cx,
+                                   T* p, int q) {
+  if constexpr (GS)
+    return p + (i64)(q - cx.rank) * cx.span;
+  else
+    return at_rank(cl, p, q);
+}
+
+// A read of a scratch word another block may have written (a peer's plane,
+// or this block's after the peers' atomics): from L2, past this SM's L1,
+// when the scratch is global.
+template <bool GS, typename T>
+__device__ __forceinline__ T ld_scratch(const T* p) {
+  if constexpr (GS)
+    return __ldcg(p);
+  else
+    return *p;
+}
+
 // A word of block q's int array `arr` at global index j (the same j in
 // every thread), fetched by one thread beside a round's own reads, into
-// res[RES_WORD]; `arr` NULL: none.
+// res[RES_WORD]; `arr` NULL: none. GS: `arr` is this block's slice of a
+// global scratch plane.
 struct RemoteWord {
   int* arr;
   i64 j;
 };
 
+template <bool GS = false>
 __device__ __forceinline__ void fetch_word(cg::cluster_group& cl,
                                            const ClusterCtx& cx,
                                            const RemoteWord& rw, int wid) {
   if (rw.arr && threadIdx.x == 32 * wid) {
     const int q = owner_of(cx, rw.j);
-    cx.res[RES_WORD] = at_rank(cl, rw.arr, q)[rw.j - (i64)q * cx.span];
+    cx.res[RES_WORD] = ld_scratch<GS>(peer<GS>(cl, cx, rw.arr, q)
+                                      + (rw.j - (i64)q * cx.span));
   }
 }
 
@@ -280,7 +324,9 @@ __device__ __forceinline__ void cluster_round(ClusterCtx& cx,
 
 // A scan round: `total` (the block's count, the same in every thread) is
 // published; warp 0 reads the C totals and writes each block's exclusive
-// offset to boff; returns the cluster total.
+// offset to boff; returns the cluster total. GS: `rw` reads a global
+// scratch plane.
+template <bool GS = false>
 __device__ __forceinline__ i64 cluster_scan_round(ClusterCtx& cx,
                                                   cg::cluster_group& cl,
                                                   i64 total,
@@ -297,7 +343,7 @@ __device__ __forceinline__ i64 cluster_scan_round(ClusterCtx& cx,
     if (lane < cx.C) cx.boff[lane] = incl - x;
     if (lane == 31) cx.res[0] = incl;
   }
-  fetch_word(cl, cx, rw, 1);
+  fetch_word<GS>(cl, cx, rw, 1);
   __syncthreads();
   return cx.res[0];
 }
@@ -306,7 +352,9 @@ __device__ __forceinline__ i64 cluster_scan_round(ClusterCtx& cx,
 // highest kept score (the same in every thread) and `lt` the thread's
 // ties at it. A block's ties count when its maximum is the cluster's.
 // Returns the cluster's maximum; bmax[q] gets block q's maximum, boff[q]
-// the ties before block q, res[1] all the ties.
+// the ties before block q, res[1] all the ties. GS: `rw` reads a global
+// scratch plane.
+template <bool GS = false>
 __device__ __forceinline__ i64 cluster_max_ties_round(ClusterCtx& cx,
                                                       cg::cluster_group& cl,
                                                       i64 bm, int lt,
@@ -345,7 +393,7 @@ __device__ __forceinline__ i64 cluster_max_ties_round(ClusterCtx& cx,
       cx.res[1] = incl;
     }
   }
-  fetch_word(cl, cx, rw, 1);
+  fetch_word<GS>(cl, cx, rw, 1);
   __syncthreads();
   return cx.res[0];
 }
@@ -416,8 +464,9 @@ __device__ __forceinline__ void pick_round(ClusterCtx& cx,
 // maxima round carries it; the walk must be axis order); `pick` (NULL =
 // none) is the pod's victim scan, whose pick the select round makes over
 // the cluster (`pick_round`) into `pick->best`. Every thread of every
-// block returns the same result.
-template <bool REC = false>
+// block returns the same result. GS: the scratch planes are the global
+// workspace's (`cluster_view`).
+template <bool REC = false, bool GS = false>
 __device__ __forceinline__ CycleResult cluster_cycle(
     ClusterCtx& cx, cg::cluster_group& cl, const CyclePod& pd,
     const CycleWalk& wk, int gate, const i64* w, const i64* gz,
@@ -469,7 +518,8 @@ __device__ __forceinline__ CycleResult cluster_cycle(
       } else {
         const int q = min(max(wk.perm[p], 0), n - 1);
         const int o = owner_of(cx, q);
-        fp = at_rank(cl, FL, o)[q - o * span] & CF_FEAS;
+        fp = ld_scratch<GS>(peer<GS>(cl, cx, FL, o) + (q - o * span))
+             & CF_FEAS;
       }
       A[p - lo] = fp;
       lFp += fp;
@@ -482,8 +532,8 @@ __device__ __forceinline__ CycleResult cluster_cycle(
       A[p - lo] = (run << 1) | fp;  // block-inclusive cumsum, feasible bit
     }
     // the block totals, and the prefix before li where it lives
-    F = cluster_scan_round(cx, cl, bF,
-                           RemoteWord{li > 0 ? A : nullptr, li - 1});
+    F = cluster_scan_round<GS>(cx, cl, bF,
+                               RemoteWord{li > 0 ? A : nullptr, li - 1});
     const i64 off = cx.boff[cx.rank];
     const i64 pre = li > 0 ? (cx.res[RES_WORD] >> 1)
                                  + cx.boff[owner_of(cx, li - 1)]
@@ -501,7 +551,8 @@ __device__ __forceinline__ CycleResult cluster_cycle(
       for (int j = cx.tlo; j < cx.thi; ++j) {
         const int p = min(max(wk.inv_perm[j], 0), n - 1);
         const int o = owner_of(cx, p);
-        const int wd = at_rank(cl, A, o)[p - o * span];
+        const int wd =
+            ld_scratch<GS>(peer<GS>(cl, cx, A, o) + (p - o * span));
         const i64 Ap = (wd >> 1) + cx.boff[o];
         const i64 rank = p >= li ? Ap - pre : F - pre + Ap;
         if ((wd & 1) && rank <= ntf) FL[j - lo] |= CF_KEPT;
@@ -627,7 +678,7 @@ __device__ __forceinline__ CycleResult cluster_cycle(
   const bool tie_blocks = mode != 1;
   i64 max_score, Ttot, preT = 0;
   if (tie_blocks) {
-    max_score = cluster_max_ties_round(
+    max_score = cluster_max_ties_round<GS>(
         cx, cl, bm, lt, RemoteWord{mode == 0 && li > 0 ? A : nullptr,
                                    li - 1});
     Ttot = cx.res[1];
@@ -646,7 +697,8 @@ __device__ __forceinline__ CycleResult cluster_cycle(
       const int q = min(max(wk.perm[p], 0), n - 1);
       const int o = owner_of(cx, q);
       const int tie = max_score != LLONG_MIN
-                      && at_rank(cl, TOT, o)[q - o * span] == max_score;
+                      && ld_scratch<GS>(peer<GS>(cl, cx, TOT, o)
+                                        + (q - o * span)) == max_score;
       A[p - lo] = tie;
       ltp += tie;
     }
@@ -657,8 +709,8 @@ __device__ __forceinline__ CycleResult cluster_cycle(
       run += tie;
       A[p - lo] = (run << 1) | tie;
     }
-    Ttot = cluster_scan_round(cx, cl, bt,
-                              RemoteWord{li > 0 ? A : nullptr, li - 1});
+    Ttot = cluster_scan_round<GS>(cx, cl, bt,
+                                  RemoteWord{li > 0 ? A : nullptr, li - 1});
     if (li > 0)
       preT = (cx.res[RES_WORD] >> 1) + cx.boff[owner_of(cx, li - 1)];
   }
@@ -698,8 +750,8 @@ __device__ __forceinline__ CycleResult cluster_cycle(
         if (rel >= 0 && rel < n) {
           dest = owner_of(cx, rel);
           const int r = (int)(rel - (i64)dest * span);
-          atomicAdd(at_rank(cl, A, dest) + r, 1);
-          atomicMin(at_rank(cl, JA, dest) + r, j);
+          atomicAdd(peer<GS>(cl, cx, A, dest) + r, 1);
+          atomicMin(peer<GS>(cl, cx, JA, dest) + r, j);
         }
       }
       int mine = 0;
@@ -720,12 +772,13 @@ __device__ __forceinline__ CycleResult cluster_cycle(
     }
     __syncthreads();
     int lc = 0;
-    for (int r = cx.tlo; r < cx.thi; ++r) lc += A[r - lo];
+    for (int r = cx.tlo; r < cx.thi; ++r) lc += ld_scratch<GS>(A + (r - lo));
     int tot;
     i64 run = block_excl_scan(lc, cx.sh32, &tot) + cx.boff[cx.rank];
     for (int r = cx.tlo; r < cx.thi; ++r) {
-      const int c = A[r - lo];
-      if (run <= kk && kk < run + c && JA[r - lo] < l_sel) l_sel = JA[r - lo];
+      const int c = ld_scratch<GS>(A + (r - lo));
+      if (run <= kk && kk < run + c && ld_scratch<GS>(JA + (r - lo)) < l_sel)
+        l_sel = ld_scratch<GS>(JA + (r - lo));
       run += c;
     }
   }
@@ -754,12 +807,16 @@ __device__ __forceinline__ CycleResult cluster_cycle(
 // ---- the window around the cycles -----------------------------------------
 // This thread's view of the cluster over `n` node slots: its block's slice
 // and slots, and the block's tables in the shared memory `sm` laid out as
-// `L`. The caller fills `nd` (and, a select, the staged records).
+// `L`, its scratch planes there or, GS, its slices of the global workspace
+// `scratch` (`scratch_bytes`). The caller fills `nd` (and, a select, the
+// staged records).
+template <bool GS>
 __device__ __forceinline__ ClusterCtx cluster_view(const ClusterGeom& g, int n,
                                                    int z_pad,
                                                    const ClusterLayout& L,
                                                    unsigned char* sm,
-                                                   cg::cluster_group& cl) {
+                                                   cg::cluster_group& cl,
+                                                   void* scratch) {
   ClusterCtx cx;
   cx.rank = (int)cl.block_rank();
   cx.C = (int)cl.num_blocks();
@@ -783,10 +840,19 @@ __device__ __forceinline__ ClusterCtx cluster_view(const ClusterGeom& g, int n,
   cx.boff = (i64*)(sm + L.boff);
   cx.bmax = (i64*)(sm + L.bmax);
   cx.misc = (int*)(sm + L.misc);
-  cx.TOT = (i64*)(sm + L.tot);
-  cx.A = (int*)(sm + L.a);
-  cx.FL = (int*)(sm + L.fl);
-  cx.JA = (int*)(sm + L.ja);
+  if constexpr (GS) {
+    const size_t N = (size_t)cx.C * cx.span, mine = (size_t)cx.rank * cx.span;
+    int* planes = (int*)((i64*)scratch + N);
+    cx.TOT = (i64*)scratch + mine;
+    cx.A = planes + mine;
+    cx.FL = planes + N + mine;
+    cx.JA = planes + 2 * N + mine;
+  } else {
+    cx.TOT = (i64*)(sm + L.tot);
+    cx.A = (int*)(sm + L.a);
+    cx.FL = (int*)(sm + L.fl);
+    cx.JA = (int*)(sm + L.ja);
+  }
   cx.sv = (i64*)(sm + L.sv);
   cx.rloc = nullptr;
   cx.rfeas = nullptr;
@@ -795,10 +861,10 @@ __device__ __forceinline__ ClusterCtx cluster_view(const ClusterGeom& g, int n,
 }
 
 // Set up this thread's view of the cluster and, with resident rows, copy
-// this block's slice of the rows into shared memory. Ends with a cluster
-// barrier: no block touches another's shared memory before all have
-// started.
-template <bool RES>
+// this block's slice of the rows into shared memory (GS: the scratch in the
+// launch's global workspace, P_WORKSPACE). Ends with a cluster barrier: no
+// block touches another's shared memory before all have started.
+template <bool RES, bool GS>
 __device__ __forceinline__ ClusterCtx cluster_setup(const ScanArgs& a,
                                                     const ClusterGeom& g,
                                                     unsigned char* sm,
@@ -806,8 +872,10 @@ __device__ __forceinline__ ClusterCtx cluster_setup(const ScanArgs& a,
   const int n = (int)a.v[I_N_PAD], S = (int)a.v[I_S];
   const bool spread = a.v[I_CARRY_SPREAD] != 0;
   const ClusterLayout L = cluster_layout(g.npt * NTHREADS, S,
-                                         (int)a.v[I_Z_PAD], spread, RES);
-  ClusterCtx cx = cluster_view(g, n, (int)a.v[I_Z_PAD], L, sm, cl);
+                                         (int)a.v[I_Z_PAD], spread, RES,
+                                         false, false, GS);
+  ClusterCtx cx = cluster_view<GS>(g, n, (int)a.v[I_Z_PAD], L, sm, cl,
+                                   a.p[P_WORKSPACE]);
   cx.nd = scan_nodes(a);
   cx.spread = spread ? mptr<i64>(a, P_SPREAD) : nullptr;
   if (RES) {
@@ -911,22 +979,36 @@ __device__ __forceinline__ void cluster_fold(const ClusterCtx& cx,
 
 // ---- host side --------------------------------------------------------------
 // -1: the plan's shared memory is not this layout's (`pressure`: K8's);
-// -2: the plan does not cover the node axis or exceeds the cluster limit.
+// -2: the plan does not cover the node axis or exceeds the cluster limit;
+// -4: the scratch in global memory without its workspace, or beside
+// resident rows.
 inline int cluster_check(const ScanArgs& a, const ClusterGeom& g,
                          bool pressure = false) {
   const ClusterLayout L = cluster_layout(
       g.npt * NTHREADS, (int)a.v[I_S], (int)a.v[I_Z_PAD],
-      a.v[I_CARRY_SPREAD] != 0, g.resident != 0, false, pressure);
+      a.v[I_CARRY_SPREAD] != 0, g.resident != 0, false, pressure,
+      g.scratch != 0);
   if ((i64)L.bytes != g.smem) return -1;
   if (g.blocks < 1 || g.blocks > CLUSTER_MAX || g.npt < 1
       || (i64)g.blocks * g.npt * NTHREADS < a.v[I_N_PAD])
     return -2;
+  if (g.scratch && (g.resident || !a.p[P_WORKSPACE])) return -4;
   return 0;
 }
 
 inline ClusterGeom cluster_geom(const i64* geom) {
   return ClusterGeom{(int)geom[CG_BLOCKS], (int)geom[CG_NPT],
-                     (int)geom[CG_RESIDENT], geom[CG_SMEM]};
+                     (int)geom[CG_RESIDENT], geom[CG_SMEM],
+                     (int)geom[CG_SCRATCH]};
+}
+
+// The instantiation of a cluster kernel that geometry g runs: rows
+// resident (`res`), rows in global memory (`rows`), or rows and scratch in
+// global memory (`all`).
+template <typename Kernel>
+inline Kernel cluster_pick(const ClusterGeom& g, Kernel res, Kernel rows,
+                           Kernel all) {
+  return g.resident ? res : g.scratch ? all : rows;
 }
 
 // The launch attributes of a cluster kernel on the current device: the

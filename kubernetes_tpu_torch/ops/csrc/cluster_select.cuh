@@ -26,8 +26,11 @@
 //     holds (`resident` 0: n_pad above 49,152 at 16 blocks) the same copy
 //     goes to a global staging area of the same planes over the whole axis
 //     (`recs`), which the same cycle then reads; a block reads only its own
-//     slots there too. Nothing stays resident across launches: the locals
-//     fold the rows and rewrite the records;
+//     slots there too. Past 180,224 slots (16 blocks) the cycle's per-slot
+//     scratch moves to a global workspace as well (`cluster_cycle.cuh`,
+//     GS), bound with the step's arguments once a window. Nothing stays
+//     resident across launches: the locals fold the rows and rewrite the
+//     records;
 //   - the cycle is `cluster_cycle<true>`: the records' feasible bits and
 //     local totals replace the filter and the K1 / row-local scores; 4
 //     cluster rounds in axis order and with positions, 6 with perm;
@@ -50,12 +53,13 @@
 #include "shard_scan.cuh"
 
 // A select's shared-memory layout at geometry g, its records staged in
-// shared memory (g.resident) or not (`cluster_smem_bytes(..., records=True)`
-// in kernels.py mirrors it).
+// shared memory (g.resident) or not, its scratch in shared memory or in the
+// step's global workspace (`gscr`: g.scratch) (`cluster_smem_bytes(...,
+// records=True)` in kernels.py mirrors it).
 __host__ __device__ inline ClusterLayout select_layout(const ClusterGeom& g,
-                                                       int z_pad) {
+                                                       int z_pad, bool gscr) {
   return cluster_layout(g.npt * NTHREADS, 0, z_pad, false, g.resident != 0,
-                        true);
+                        true, false, gscr);
 }
 
 __device__ __forceinline__ RecLayout select_rec(const ScanSelectArgs& a) {
@@ -70,15 +74,18 @@ __device__ __forceinline__ RecLayout select_rec(const ScanSelectArgs& a) {
 // copied into the block's shared planes, or, not resident, into the global
 // staging area `recs` ([RP_N, n] int64, then zone [n] int32, tracked [n]
 // and feasible [n] bytes); `pd` gets the staged planes of the families that
-// run dense. Ends with a block barrier.
+// run dense. GS: the scratch planes in the global workspace (SSP_WORKSPACE).
+// Ends with a block barrier.
+template <bool GS>
 __device__ __forceinline__ ClusterCtx select_setup(const ScanSelectArgs& a,
                                                    const ClusterGeom& g,
                                                    unsigned char* sm,
                                                    cg::cluster_group& cl,
                                                    CyclePod* pd) {
   const int n = (int)a.v[SSI_N_PAD], z_pad = (int)a.v[SSI_Z_PAD];
-  const ClusterLayout L = select_layout(g, z_pad);
-  ClusterCtx cx = cluster_view(g, n, z_pad, L, sm, cl);
+  const ClusterLayout L = select_layout(g, z_pad, GS);
+  ClusterCtx cx = cluster_view<GS>(g, n, z_pad, L, sm, cl,
+                                   a.p[SSP_WORKSPACE]);
   const int tid = threadIdx.x;
   const i64* st = ssp<const i64>(a, SSP_STATE);
   if (tid < SS_COUNT) cx.sv[tid] = st[tid];
@@ -193,29 +200,35 @@ __device__ __forceinline__ i64 scan_skip_run(const ScanSelectArgs& a, i64 i,
 // ---- host side --------------------------------------------------------------
 // -1: the plan's shared memory is not the select's layout; -2: the plan
 // does not cover the node axis or exceeds the cluster limit; -3: records
-// staged in global memory without the staging area.
+// staged in global memory without the staging area; -4: the scratch in
+// global memory without its workspace, or beside staged records.
 inline int select_check(const ScanSelectArgs& a, const ClusterGeom& g) {
-  if ((i64)select_layout(g, (int)a.v[SSI_Z_PAD]).bytes != g.smem) return -1;
+  if ((i64)select_layout(g, (int)a.v[SSI_Z_PAD], g.scratch != 0).bytes
+      != g.smem)
+    return -1;
   if (g.blocks < 1 || g.blocks > CLUSTER_MAX || g.npt < 1
       || (i64)g.blocks * g.npt * NTHREADS < a.v[SSI_N_PAD])
     return -2;
   if (!g.resident && !a.p[SSP_RECS]) return -3;
+  if (g.scratch && (g.resident || !a.p[SSP_WORKSPACE])) return -4;
   return 0;
 }
 
 // One select step: one cluster of g.blocks blocks, on `stream` of
-// `device`. Adds one to `*launched` if it launched.
+// `device`, running `kernel` (its scratch in shared memory) or `kernel_gs`
+// (in the workspace). Adds one to `*launched` if it launched.
 template <typename Kernel>
-inline int select_launch(Kernel kernel, const i64* iargs, void* const* ptrs,
-                         const i64* geom, int device, void* stream,
-                         int* launched) {
+inline int select_launch(Kernel kernel, Kernel kernel_gs, const i64* iargs,
+                         void* const* ptrs, const i64* geom, int device,
+                         void* stream, int* launched) {
   const ScanSelectArgs a = scan_select_args(iargs, ptrs);
   const ClusterGeom g = cluster_geom(geom);
   const int bad = select_check(a, g);
   if (bad) return bad;
   const DeviceScope on(device);
   if (on.err != cudaSuccess) return (int)on.err;
-  const int e = cluster_launch(kernel, a, g, (cudaStream_t)stream);
+  const int e = cluster_launch(g.scratch ? kernel_gs : kernel, a, g,
+                               (cudaStream_t)stream);
   if (e == 0) ++*launched;
   return e;
 }

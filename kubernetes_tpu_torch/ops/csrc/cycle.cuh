@@ -578,6 +578,9 @@ enum {
   P_GHOST_CPU, P_GHOST_MEM, P_GHOST_EPH, P_GHOST_CNT, P_VIC_CPU, P_VIC_MEM,
   P_VIC_EPH, P_VIC_PRIO, P_VIC_START, P_VIC_VALID, P_VIC_VIOL, P_PPRIO,
   P_CARRY_IN, P_AGG_I64, P_AGG_F64, P_AGG_U8,
+  // the cluster's per-slot scratch in global memory (`ClusterGeom::scratch`);
+  // NULL while it fits in shared memory
+  P_WORKSPACE,
   P_COUNT
 };
 // slots of a pod-spec row of the [U, NSCAL] scalar table

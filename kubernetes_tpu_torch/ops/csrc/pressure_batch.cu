@@ -59,12 +59,12 @@
 // flags.
 #include "cluster_cycle.cuh"
 
-template <bool RES>
+template <bool RES, bool GS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     pressure_batch_kernel(ScanArgs a, ClusterGeom g) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
-  ClusterCtx cx = cluster_setup<RES>(a, g, smem, cl);
+  ClusterCtx cx = cluster_setup<RES, GS>(a, g, smem, cl);
   const CycleNodes& nd = cx.nd;
   const int n = nd.n_pad, B = (int)a.v[I_B], gate = (int)a.v[I_GATE];
   const int span = cx.span, lo = cx.lo, len = cx.hi - cx.lo;
@@ -147,8 +147,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       pick_round(cx, cl, unused, ps);
     } else {
       scan_weights(a, b, cx.ws);
-      res = cluster_cycle(cx, cl, pd, scan_walk(a, li, lni, b), gate, cx.ws,
-                          nullptr, false, &ghost, &ps);
+      res = cluster_cycle<false, GS>(cx, cl, pd, scan_walk(a, li, lni, b),
+                                     gate, cx.ws, nullptr, false, &ghost,
+                                     &ps);
     }
     const i64 winner_raw = vic_winner(ps.best);
     const bool hit = res.found > 0;
@@ -202,17 +203,18 @@ extern "C" int pressure_batch_launch(const i64* iargs, void** ptrs,
   const int bad = cluster_check(a, g, true);
   if (bad) return bad;
   if (a.v[I_MODE] != 0 || a.v[I_CARRY_SPREAD] != 0) return -3;
-  return g.resident
-             ? cluster_launch(pressure_batch_kernel<true>, a, g,
-                              (cudaStream_t)stream)
-             : cluster_launch(pressure_batch_kernel<false>, a, g,
-                              (cudaStream_t)stream);
+  return cluster_launch(
+      cluster_pick(g, pressure_batch_kernel<true, false>,
+                   pressure_batch_kernel<false, false>,
+                   pressure_batch_kernel<false, true>),
+      a, g, (cudaStream_t)stream);
 }
 
 extern "C" int pressure_batch_clusters(const i64* geom, int* clusters) {
   const ClusterGeom g = cluster_geom(geom);
-  return g.resident ? cluster_occupancy(pressure_batch_kernel<true>, g,
-                                        clusters)
-                    : cluster_occupancy(pressure_batch_kernel<false>, g,
-                                        clusters);
+  return cluster_occupancy(
+      cluster_pick(g, pressure_batch_kernel<true, false>,
+                   pressure_batch_kernel<false, false>,
+                   pressure_batch_kernel<false, true>),
+      g, clusters);
 }

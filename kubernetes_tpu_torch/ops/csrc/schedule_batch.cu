@@ -33,12 +33,12 @@
 //     [5, B] int64 (selected, found, evaluated, max_score, lni after).
 #include "cluster_cycle.cuh"
 
-template <bool RES>
+template <bool RES, bool GS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     schedule_batch_kernel(ScanArgs a, ClusterGeom g) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
-  ClusterCtx cx = cluster_setup<RES>(a, g, smem, cl);
+  ClusterCtx cx = cluster_setup<RES, GS>(a, g, smem, cl);
   const int B = (int)a.v[I_B];
   const int gate = (int)a.v[I_GATE];
   const i64 n_safe = imax64(a.v[I_N_REAL], 1);
@@ -62,8 +62,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       scan_weights(a, b, cx.ws);
       CyclePod pd = scan_pod(a, r);
       if (cx.spread) pd.sc = cx.spread;
-      res = cluster_cycle(cx, cl, pd, scan_walk(a, li, lni, b), gate, cx.ws,
-                          nullptr, false);
+      res = cluster_cycle<false, GS>(cx, cl, pd, scan_walk(a, li, lni, b),
+                                     gate, cx.ws, nullptr, false);
       if (res.found > 0 && cluster_owns(cx, res.sel))
         cluster_fold(cx, a, r, res.sel, 1);
     }
@@ -94,17 +94,18 @@ extern "C" int schedule_batch_launch(const i64* iargs, void** ptrs,
   const ClusterGeom g = cluster_geom(geom);
   const int bad = cluster_check(a, g);
   if (bad) return bad;
-  return g.resident
-             ? cluster_launch(schedule_batch_kernel<true>, a, g,
-                              (cudaStream_t)stream)
-             : cluster_launch(schedule_batch_kernel<false>, a, g,
-                              (cudaStream_t)stream);
+  return cluster_launch(
+      cluster_pick(g, schedule_batch_kernel<true, false>,
+                   schedule_batch_kernel<false, false>,
+                   schedule_batch_kernel<false, true>),
+      a, g, (cudaStream_t)stream);
 }
 
 extern "C" int schedule_batch_clusters(const i64* geom, int* clusters) {
   const ClusterGeom g = cluster_geom(geom);
-  return g.resident ? cluster_occupancy(schedule_batch_kernel<true>, g,
-                                        clusters)
-                    : cluster_occupancy(schedule_batch_kernel<false>, g,
-                                        clusters);
+  return cluster_occupancy(
+      cluster_pick(g, schedule_batch_kernel<true, false>,
+                   schedule_batch_kernel<false, false>,
+                   schedule_batch_kernel<false, true>),
+      g, clusters);
 }

@@ -33,12 +33,12 @@
 // gang.
 #include "cluster_cycle.cuh"
 
-template <bool RES>
+template <bool RES, bool GS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     schedule_segments_kernel(ScanArgs a, ClusterGeom g) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
-  ClusterCtx cx = cluster_setup<RES>(a, g, smem, cl);
+  ClusterCtx cx = cluster_setup<RES, GS>(a, g, smem, cl);
   const int B = (int)a.v[I_B];
   const int n_pods = (int)a.v[I_N_PODS];
   const int gate = (int)a.v[I_GATE];
@@ -92,8 +92,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       scan_weights(a, i, cx.ws);  // its barrier also publishes gz
       CyclePod pd = scan_pod(a, r);
       if (cx.spread) pd.sc = cx.spread;
-      res = cluster_cycle(cx, cl, pd, scan_walk(a, li, lni, t), gate, cx.ws,
-                          gang_score ? gz : nullptr, gflag);
+      res = cluster_cycle<false, GS>(cx, cl, pd, scan_walk(a, li, lni, t),
+                                     gate, cx.ws, gang_score ? gz : nullptr,
+                                     gflag);
     }
     const bool hit = res.found > 0;
     const bool fail_now = gflag && !hit && !eskip;
@@ -150,17 +151,18 @@ extern "C" int schedule_segments_launch(const i64* iargs, void** ptrs,
   const ClusterGeom g = cluster_geom(geom);
   const int bad = cluster_check(a, g);
   if (bad) return bad;
-  return g.resident
-             ? cluster_launch(schedule_segments_kernel<true>, a, g,
-                              (cudaStream_t)stream)
-             : cluster_launch(schedule_segments_kernel<false>, a, g,
-                              (cudaStream_t)stream);
+  return cluster_launch(
+      cluster_pick(g, schedule_segments_kernel<true, false>,
+                   schedule_segments_kernel<false, false>,
+                   schedule_segments_kernel<false, true>),
+      a, g, (cudaStream_t)stream);
 }
 
 extern "C" int schedule_segments_clusters(const i64* geom, int* clusters) {
   const ClusterGeom g = cluster_geom(geom);
-  return g.resident ? cluster_occupancy(schedule_segments_kernel<true>, g,
-                                        clusters)
-                    : cluster_occupancy(schedule_segments_kernel<false>, g,
-                                        clusters);
+  return cluster_occupancy(
+      cluster_pick(g, schedule_segments_kernel<true, false>,
+                   schedule_segments_kernel<false, false>,
+                   schedule_segments_kernel<false, true>),
+      g, clusters);
 }

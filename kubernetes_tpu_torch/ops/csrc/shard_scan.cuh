@@ -409,7 +409,8 @@ enum {
   SSP_GATHERED, SSP_W, SSP_WTAB, SSP_PROFILE_ID, SSP_ROW, SSP_SCAL,
   SSP_IC_B, SSP_TR_B, SSP_PERMS, SSP_INV_PERMS, SSP_OID_SEQ, SSP_SEG_START,
   SSP_GANG, SSP_GZ, SSP_STATE, SSP_P64, SSP_ZONE, SSP_TRACKED, SSP_TOTAL,
-  SSP_KEPT, SSP_FLAGS, SSP_ZS, SSP_PACKED, SSP_STATS, SSP_RECS, SSP_COUNT
+  SSP_KEPT, SSP_FLAGS, SSP_ZS, SSP_PACKED, SSP_STATS, SSP_RECS,
+  SSP_WORKSPACE, SSP_COUNT
 };
 
 struct ScanSelectArgs {

@@ -24,12 +24,13 @@
 // Shared with K11b: `cluster_select.cuh`; with K5 / K6: `cluster_cycle`.
 #include "cluster_select.cuh"
 
+template <bool GS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     shard_scan_select_kernel(ScanSelectArgs a, ClusterGeom g) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
   CyclePod pd;
-  ClusterCtx cx = select_setup(a, g, smem, cl, &pd);
+  ClusterCtx cx = select_setup<GS>(a, g, smem, cl, &pd);
   i64* sv = cx.sv;
   const int tid = threadIdx.x;
   const bool lead = cx.rank == 0 && tid == 0;
@@ -50,8 +51,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     select_pod_row(a, r, &pd);
     select_weights(a, i, cx.ws);
     __syncthreads();  // the weight row lands before the cycle reads it
-    res = cluster_cycle<true>(cx, cl, pd, select_walk(a, li, lni, i),
-                              (int)a.v[SSI_GATE], cx.ws, nullptr, false);
+    res = cluster_cycle<true, GS>(cx, cl, pd, select_walk(a, li, lni, i),
+                                  (int)a.v[SSI_GATE], cx.ws, nullptr, false);
   }
   // every block has read the step state, and no block reads another's
   // shared memory past this point
@@ -77,11 +78,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 extern "C" int shard_scan_select_launch(const i64* iargs, void** ptrs,
                                         const i64* geom, int device,
                                         void* stream, int* launched) {
-  return select_launch(shard_scan_select_kernel, iargs, ptrs, geom,
+  return select_launch(shard_scan_select_kernel<false>,
+                       shard_scan_select_kernel<true>, iargs, ptrs, geom,
                        device, stream, launched);
 }
 
 extern "C" int shard_scan_select_clusters(const i64* geom, int* clusters) {
-  return cluster_occupancy(shard_scan_select_kernel, cluster_geom(geom),
-                           clusters);
+  const ClusterGeom g = cluster_geom(geom);
+  return cluster_occupancy(g.scratch ? shard_scan_select_kernel<true>
+                                     : shard_scan_select_kernel<false>,
+                           g, clusters);
 }

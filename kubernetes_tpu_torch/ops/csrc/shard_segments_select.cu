@@ -25,12 +25,13 @@
 // Shared with K10b: `cluster_select.cuh`; with K5 / K6: `cluster_cycle`.
 #include "cluster_select.cuh"
 
+template <bool GS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     shard_segments_select_kernel(ScanSelectArgs a, ClusterGeom g) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
   CyclePod pd;
-  ClusterCtx cx = select_setup(a, g, smem, cl, &pd);
+  ClusterCtx cx = select_setup<GS>(a, g, smem, cl, &pd);
   const i64* sv = cx.sv;
   const int tid = threadIdx.x;
   const i64 i = sv[SS_STEP];
@@ -62,8 +63,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     select_pod_row(a, r, &pd);
     select_weights(a, i, cx.ws);
     __syncthreads();  // the weight row and the gz reset land first
-    res = cluster_cycle<true>(cx, cl, pd, select_walk(a, li, lni, t),
-                              (int)a.v[SSI_GATE], cx.ws, gz, gflag);
+    res = cluster_cycle<true, GS>(cx, cl, pd, select_walk(a, li, lni, t),
+                                  (int)a.v[SSI_GATE], cx.ws, gz, gflag);
   }
   const bool hit = res.found > 0;
   const bool fail_now = gflag && !hit && !eskip;
@@ -114,12 +115,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 extern "C" int shard_segments_select_launch(const i64* iargs, void** ptrs,
                                             const i64* geom, int device,
                                             void* stream, int* launched) {
-  return select_launch(shard_segments_select_kernel, iargs, ptrs, geom,
+  return select_launch(shard_segments_select_kernel<false>,
+                       shard_segments_select_kernel<true>, iargs, ptrs, geom,
                        device, stream, launched);
 }
 
 extern "C" int shard_segments_select_clusters(const i64* geom,
                                               int* clusters) {
-  return cluster_occupancy(shard_segments_select_kernel, cluster_geom(geom),
-                           clusters);
+  const ClusterGeom g = cluster_geom(geom);
+  return cluster_occupancy(g.scratch ? shard_segments_select_kernel<true>
+                                     : shard_segments_select_kernel<false>,
+                           g, clusters);
 }

@@ -1579,7 +1579,7 @@ CLUSTER_KERNELS = ("schedule_batch", "schedule_segments", "pressure_batch")
 #: the mesh selects that run as one cluster a step
 SELECT_CLUSTER_KERNELS = ("shard_scan_select", "shard_segments_select")
 #: slots of a launch's geometry array (`CG_*`, csrc/cluster_cycle.cuh)
-CLUSTER_GEOM = ("blocks", "npt", "resident", "smem")
+CLUSTER_GEOM = ("blocks", "npt", "resident", "smem", "scratch")
 _NWARPS = CLUSTER_THREADS // 32
 _PR_N = 8              # fields of a round's partial record (`PR_*`)
 _ROWS_I64 = 10         # resident int64 rows besides the carried spread
@@ -1591,6 +1591,11 @@ _REC_SLOT_BYTES = 8 * _RP_N + 4 + 2
 #: (four int64) and the victim scan's aggregates (four int64, one float64,
 #: the candidate byte)
 _PRESSURE_SLOT_BYTES = 8 * 4 + 8 * 5 + 1
+#: bytes of a node slot's cluster scratch: the score (TOT, int64), the
+#: prefix (A), the flags (FL) and the tie slot (JA), int32 each; in shared
+#: memory, or in a global workspace of blocks x span slots (`scratch_bytes`
+#: in csrc/cluster_cycle.cuh)
+SCRATCH_SLOT_BYTES = 8 + 3 * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1600,27 +1605,46 @@ class ClusterPlan:
     thread `nodes_per_thread` consecutive node slots (block q owns
     [q * span, (q + 1) * span)), the node rows (a select: the step's
     gathered records) `resident` in shared memory or left in global
-    memory, and `smem_bytes` of dynamic shared memory a block."""
+    memory, `smem_bytes` of dynamic shared memory a block, and the
+    per-slot scratch in shared memory or, `global_scratch`, in a global
+    workspace of `workspace_bytes` that the wrapper allocates."""
     blocks: int
     nodes_per_thread: int
     resident: bool
     smem_bytes: int
+    global_scratch: bool = False
 
     @property
     def span(self) -> int:
         return self.nodes_per_thread * CLUSTER_THREADS
+
+    @property
+    def workspace_bytes(self) -> int:
+        """Bytes of the launch's global scratch workspace (0: none)."""
+        if not self.global_scratch:
+            return 0
+        return self.blocks * self.span * SCRATCH_SLOT_BYTES
+
+    def workspace(self, device) -> Optional[torch.Tensor]:
+        """A fresh workspace for this plan's launches on `device`, or None
+        when the scratch lives in shared memory."""
+        if not self.global_scratch:
+            return None
+        return torch.empty(self.workspace_bytes, dtype=torch.uint8,
+                           device=device)
 
     def geometry(self):
         """The launch's `ClusterGeom` array (csrc/cluster_cycle.cuh), in
         CLUSTER_GEOM order."""
         return (ctypes.c_longlong * len(CLUSTER_GEOM))(
             self.blocks, self.nodes_per_thread, int(self.resident),
-            self.smem_bytes)
+            self.smem_bytes, int(self.global_scratch))
 
 
 def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
                        resident: bool, records: bool = False,
-                       pressure: bool = False) -> int:
+                       pressure: bool = False,
+                       global_scratch: bool = False) -> int:
     """A block's dynamic shared memory, as `cluster_layout`
     (csrc/cluster_cycle.cuh) lays it out: a fixed part (the weight row,
     the warp slots of the block scans and of the rounds, two partial
@@ -1632,11 +1656,12 @@ def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
     the step state, and, resident, per slot the staged record's zone, five
     int64 planes (local, na, tt, sc, ic), tracked byte and feasible
     bit. `pressure` (K8): with the rows resident also the ghost load and
-    the victim scan's aggregates a slot."""
+    the victim scan's aggregates a slot. `global_scratch`: the score, the
+    prefix, the flags and the tie slot live in the global workspace."""
     fixed = (16 * 8 + _NWARPS * (4 + 8) + _PR_N * _NWARPS * 8
              + 2 * (_PR_N + 2 * z_pad) * 8 + 16 * 8 + 3 * z_pad * 8
              + 16 * (4 + 8 + 8) + 8 * 4)
-    per_node = 8 + 3 * 4
+    per_node = 0 if global_scratch else SCRATCH_SLOT_BYTES
     if records:
         fixed += 16 * 8
         if resident:
@@ -1648,6 +1673,26 @@ def cluster_smem_bytes(span: int, S: int, z_pad: int, carry_spread: bool,
     return fixed + span * per_node
 
 
+#: where a cluster keeps its rows (a select: its staged records) and its
+#: per-slot scratch, (resident, global_scratch) in the order a planner
+#: tries them
+_PLACEMENTS = ((True, False), (False, False), (False, True))
+
+
+def _first_placement(blocks: int, npt: int, what: str, n_pad: int,
+                     z_pad: int, nbytes_at) -> ClusterPlan:
+    """The plan of the first placement whose shared memory
+    (`nbytes_at(resident, global_scratch)`) fits in SMEM_CAP; raises when
+    not even the fixed part fits (z_pad too large)."""
+    for resident, gscr in _PLACEMENTS:
+        nbytes = nbytes_at(resident, gscr)
+        if nbytes <= SMEM_CAP:
+            return ClusterPlan(blocks, npt, resident, nbytes, gscr)
+    raise ValueError(f"cluster {what}: n_pad {n_pad} (z_pad {z_pad}) needs "
+                     f"{nbytes} B of shared memory a block, over "
+                     f"{SMEM_CAP}")
+
+
 def cluster_plan(n_pad: int, S: int, z_pad: int, carry_spread: bool,
                  blocks: int = CLUSTER_BLOCKS,
                  records: bool = False) -> ClusterPlan:
@@ -1655,19 +1700,17 @@ def cluster_plan(n_pad: int, S: int, z_pad: int, carry_spread: bool,
     K10b / K11b step): `blocks` blocks, the fewest slots a thread that
     cover the axis, the rows (the step's records) resident in shared
     memory when they fit in SMEM_CAP beside the scratch, else in global
-    memory. Raises when not even the scratch fits."""
+    memory, and past that the scratch in a global workspace too. Raises
+    only when the fixed part alone passes the cap."""
     if not 1 <= blocks <= CLUSTER_BLOCKS:
         raise ValueError(f"a cluster holds 1 to {CLUSTER_BLOCKS} blocks")
     npt = max(1, -(-int(n_pad) // (blocks * CLUSTER_THREADS)))
     span = npt * CLUSTER_THREADS
-    for resident in (True, False):
-        nbytes = cluster_smem_bytes(span, S, z_pad, carry_spread, resident,
-                                    records)
-        if nbytes <= SMEM_CAP:
-            return ClusterPlan(blocks, npt, resident, nbytes)
-    raise ValueError(f"cluster {'select' if records else 'scan'}: n_pad "
-                     f"{n_pad} (z_pad {z_pad}) needs {nbytes} B of shared "
-                     f"memory a block, over {SMEM_CAP}")
+    return _first_placement(
+        blocks, npt, "select" if records else "scan", n_pad, z_pad,
+        lambda resident, gscr: cluster_smem_bytes(
+            span, S, z_pad, carry_spread, resident, records,
+            global_scratch=gscr))
 
 
 def pressure_plan(n_pad: int, S: int, z_pad: int,
@@ -1677,28 +1720,27 @@ def pressure_plan(n_pad: int, S: int, z_pad: int,
     only the blocks that own a node at that span (a block that owns none
     would only take part in the rounds), and the rows, the ghost load and
     the victim scan's aggregates resident in shared memory when they fit
-    in SMEM_CAP, else in global memory. Raises when not even the scratch
-    fits."""
+    in SMEM_CAP, else in global memory, and past that the scratch in a
+    global workspace too. Raises only when the fixed part alone passes
+    the cap."""
     if not 1 <= blocks <= CLUSTER_BLOCKS:
         raise ValueError(f"a cluster holds 1 to {CLUSTER_BLOCKS} blocks")
     npt = max(1, -(-int(n_pad) // (blocks * CLUSTER_THREADS)))
     span = npt * CLUSTER_THREADS
     blocks = max(1, -(-int(n_pad) // span))
-    for resident in (True, False):
-        nbytes = cluster_smem_bytes(span, S, z_pad, False, resident,
-                                    pressure=True)
-        if nbytes <= SMEM_CAP:
-            return ClusterPlan(blocks, npt, resident, nbytes)
-    raise ValueError(f"cluster pressure scan: n_pad {n_pad} (z_pad {z_pad}) "
-                     f"needs {nbytes} B of shared memory a block, over "
-                     f"{SMEM_CAP}")
+    return _first_placement(
+        blocks, npt, "pressure scan", n_pad, z_pad,
+        lambda resident, gscr: cluster_smem_bytes(
+            span, S, z_pad, False, resident, pressure=True,
+            global_scratch=gscr))
 
 
 def select_plan(n_pad: int, z_pad: int,
                 blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
     """The geometry of a K10b / K11b step over `n_pad` node slots (no
     rows; the step's gathered records staged in shared memory when they
-    fit, else in global memory)."""
+    fit, else in global memory, and past that the scratch in a global
+    workspace too)."""
     return cluster_plan(n_pad, 0, z_pad, False, blocks, records=True)
 
 
@@ -1754,18 +1796,20 @@ _SCAN_PTRS = (_NODE_STATIC + _MUTABLE
                  "log_row", "ghost_cpu", "ghost_mem", "ghost_eph",
                  "ghost_cnt", "vic_cpu", "vic_mem", "vic_eph", "vic_prio",
                  "vic_start", "vic_valid", "vic_violating", "pprio",
-                 "carry_in", "agg_i64", "agg_f64", "agg_u8"))
+                 "carry_in", "agg_i64", "agg_f64", "agg_u8", "workspace"))
 
 
 def _scan_launch(name, nodes, stack, last_index, last_node_index,
                  num_to_find, n_real, z_pad, weights, mode, perms, inv_perms,
                  oid_seq, carry_spread, mut0, s0, wtab, n_steps,
-                 segments=None, gang_score=False, pressure=None):
+                 segments=None, gang_score=False, pressure=None, work=None):
     """Launch K5 (`schedule_batch`), K6 (`schedule_segments`) or K8
     (`pressure_batch`, whose extra pointers and packed output come in
     `pressure`), one thread-block cluster (`cluster_plan`, K8
-    `pressure_plan`). Returns (state, li, lni, spread, stats[5, B] int64,
-    packed int32)."""
+    `pressure_plan`). A plan with its scratch in global memory takes the
+    workspace kept in `work` under the plan (K8: one for a wave's chain of
+    chunks), or a fresh one (K5 / K6: one a window). Returns (state, li,
+    lni, spread, stats[5, B] int64, packed int32)."""
     dev = nodes["valid"].device
     n_pad = int(nodes["valid"].shape[0])
     s_count = int(nodes["alloc_scalar"].shape[1])
@@ -1829,6 +1873,11 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
     else:
         plan = _cluster_geometry(name, lambda blocks: cluster_plan(
             n_pad, s_count, int(z_pad), carry_spread, blocks))
+    workspace = None if work is None else work.get(plan)
+    if workspace is None:
+        workspace = plan.workspace(dev)
+        if work is not None:
+            work[plan] = workspace
     seg = {}
     if segments is not None:
         # one undo log of B entries for every block of the cluster (the
@@ -1848,7 +1897,8 @@ def _scan_launch(name, nodes, stack, last_index, last_node_index,
                  "interpod_tracked": tracked, "row": row,
                  "profile_id": prof, "w": w, "wtab": wtab, "perms": perms,
                  "inv_perms": inv_perms, "oid_seq": oid, "spread": spread,
-                 "stats": stats, "packed": packed, "carry_out": carry_out})
+                 "stats": stats, "packed": packed, "carry_out": carry_out,
+                 "workspace": workspace})
     ptrs.update(zip(_CYCLE_MASKS, masks))
     ptrs.update(zip(_CYCLE_COUNTS, counts))
     ptrs.update(seg)
@@ -2294,7 +2344,7 @@ def _pressure_outs(packed: torch.Tensor) -> dict:
 
 def pressure_batch_plain(nodes, mut0, ghost0, pods, vic, last_index,
                          last_node_index, num_to_find, n_real, z_pad,
-                         weights=None, out=None):
+                         weights=None, out=None, work=None):
     """Plain version of K8, the JAX `pressure_batch` entry point
     (kernels.py:1768, `mesh=` left out): (mut, ghost, li, lni, outs) with
     outs per pod: selected (>= 0 bound row, -1 not bound), winner (-2
@@ -2302,7 +2352,8 @@ def pressure_batch_plain(nodes, mut0, ghost0, pods, vic, last_index,
     int8, and "packed", the [B, 5+P] int32 block of the same (see
     PRESSURE_HEAD). `pods` is a `PodStack` or the JAX [B, ...] dict, with
     `pprio` the preemptor priorities; `out`, a [B, 5+P] int32 tensor,
-    receives the packed block."""
+    receives the packed block. `work` (the kernel's workspace cache, as
+    `pressure_batch` takes it) is unused: the plain version needs none."""
     dev = nodes["valid"].device
     stack = pods if isinstance(pods, PodStack) \
         else PodStack.from_dense(pods, dev)
@@ -2319,7 +2370,7 @@ def pressure_batch_plain(nodes, mut0, ghost0, pods, vic, last_index,
 
 def _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
                      last_node_index, num_to_find, n_real, z_pad, weights,
-                     out):
+                     out, work):
     dev = nodes["valid"].device
     vic = _vic_tensors(vic, dev)
     n_pad, P = (int(x) for x in vic["prio"].shape)
@@ -2358,13 +2409,13 @@ def _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
     state, li, lni, _spread, _stats, _packed = _scan_launch(
         "pressure_batch", nodes, stack, 0, 0, num_to_find, n_real, z_pad,
         weights, 0, None, None, None, False, mut0, None, None, B,
-        pressure=extra)
+        pressure=extra, work=work)
     return state, ghost, li, lni, _pressure_outs(out)
 
 
 def pressure_batch(nodes, mut0, ghost0, pods, vic, last_index,
                    last_node_index, num_to_find, n_real, z_pad,
-                   weights=None, out=None, mesh=None):
+                   weights=None, out=None, mesh=None, work=None):
     """K8: schedule-else-preempt a failed burst tail in one launch. `nodes`
     is the resident matrix, `mut0` the carried mutable rows, `ghost0` the
     carried nominated load ({cpu, mem, eph, cnt} [n_pad]), `pods` a
@@ -2377,7 +2428,9 @@ def pressure_batch(nodes, mut0, ghost0, pods, vic, last_index,
     the node axis (per-shard lists, or whole dicts): one step per pod of
     K13a on every shard, the all-gather and K13b on every device
     (`parallel.sharding.sharded_pressure`); mut and ghost come back per
-    shard."""
+    shard. `work` (a dict the caller keeps for a wave's chunks) holds the
+    cluster's global scratch workspace across the chain, where the plan
+    needs one."""
     weights = weights or DEFAULT_WEIGHTS
     if mesh is not None:
         from kubernetes_tpu_torch.parallel import sharding as S
@@ -2394,7 +2447,7 @@ def pressure_batch(nodes, mut0, ghost0, pods, vic, last_index,
                                     weights=weights, out=out)
     return _pressure_launch(nodes, mut0, ghost0, stack, vic, last_index,
                             last_node_index, num_to_find, n_real, z_pad,
-                            weights, out)
+                            weights, out, work)
 
 
 # ---------------------------------------------------------------------------
@@ -3602,10 +3655,11 @@ _SSS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad", "B",
 _SSS_PTRS = ("gathered", "w", "wtab", "profile_id", "row", "scal", "ic_b",
              "tr_b", "perms", "inv_perms", "oid_seq", "seg_start", "gang",
              "gz", "state", "p64", "zone", "tracked", "total", "kept",
-             "flags", "zs", "packed", "stats", "recs")
+             "flags", "zs", "packed", "stats", "recs", "workspace")
 
 
-def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None):
+def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None,
+                      workspace=None):
     dev = side.device
     D, chunk = (int(x) for x in side.gathered.shape)
     off, _nbytes = record_layout(plan.planes, plan.rows)
@@ -3619,7 +3673,7 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None):
             "inv_perms": side.inv_perms, "oid_seq": side.oid,
             "seg_start": side.seg_start, "gang": side.gang, "gz": side.gz,
             "state": side.st, "packed": side.packed, "stats": side.stats,
-            "recs": recs}
+            "recs": recs, "workspace": workspace}
     ptrs.update(side.scratch)
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
     _require_on(name, dev, *ptrs.values())
@@ -3644,7 +3698,8 @@ def _select_cluster_launch(name, side: ScanSide,
     built and bound, with the device and its stream, into the `Relaunch`
     cached on `side`: `select_plan` at 16 blocks, or 8 when the card
     cannot place 16, and, for records staged in global memory, the
-    staging area."""
+    staging area, for scratch in global memory, the workspace: both
+    allocated once a window, here, and bound into the arguments."""
     rel = side._args.get(name)
     if rel is None:
         dev = side.device
@@ -3653,11 +3708,13 @@ def _select_cluster_launch(name, side: ScanSide,
                 plan.n_pad, plan.z_pad, blocks))
         recs = None if geo.resident else torch.empty(
             plan.n_pad * _REC_SLOT_BYTES, dtype=torch.uint8, device=dev)
-        ptrs, iargs, parr = _scan_select_args(name, side, plan, recs)
+        workspace = geo.workspace(dev)
+        ptrs, iargs, parr = _scan_select_args(name, side, plan, recs,
+                                              workspace)
         fn = getattr(_build.load(name), name + "_launch")
         rel = side._args[name] = Relaunch(name, fn, (
             iargs, parr, geo.geometry(), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream), (ptrs, recs))
+            torch.cuda.current_stream(dev).cuda_stream), ptrs)
     _check(rel.fn(), name)
     rel.book()
     return rel

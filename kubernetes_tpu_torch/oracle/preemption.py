@@ -7,15 +7,18 @@ oracle (reference: pkg/scheduler/core/generic_scheduler.go):
   before the victim scan;
 - the fast path when no candidate hosts a lower-priority pod;
 - the PDB-violation mask over the columnar pod table, which feeds the
-  reprieve order of the victim table.
+  reprieve order of the victim table;
+- podFitsOnNode's two-pass fit with nominated pods (:598), which the
+  serial cycle's host twin runs.
 
 The victim scan and the node pick themselves run on the device
 (`ops.kernels.preemption_scan`, `ops.kernels.pressure_batch`).
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -93,3 +96,57 @@ class PreemptionResult:
     node: Optional[Node]
     victims: list[Pod]
     nominated_to_clear: list[Pod]
+
+
+# ---------------------------------------------------------------------------
+# Nominated-pod-aware fitting (reference: podFitsOnNode :598 two-pass)
+# ---------------------------------------------------------------------------
+def pod_fits_on_node_with_nominated(
+        pod: Pod, node_info: NodeInfo,
+        predicate_funcs: dict[str, Callable],
+        nominated_pods_fn: Callable[[str], list[Pod]],
+        always_check_all: bool = False,
+        node_infos: Optional[dict[str, NodeInfo]] = None) -> tuple[bool, list[str]]:
+    """Two-pass check: pass 1 with higher/equal-priority nominated pods
+    added to the node, pass 2 without; the pod must fit both.
+
+    When `node_infos` is the snapshot the predicate set was built over, the
+    ghost-augmented clone is swapped into it for pass 1 so inter-pod
+    affinity sees the ghosts (the reference's meta.AddPod, :627)."""
+    node_name = node_info.node.name if node_info.node else ""
+    nominated = [p for p in nominated_pods_fn(node_name)
+                 if p.priority >= pod.priority and p.uid != pod.uid]
+    if not nominated:
+        return preds.pod_fits_on_node(pod, node_info, predicate_funcs,
+                                      always_check_all)
+    checker = predicate_funcs.get("_ipa_checker")
+    # pass 1: with nominated pods (the affinity metadata takes the ghosts
+    # as incremental AddPod deltas, removed again for pass 2 — meta.AddPod
+    # semantics, :627)
+    ni = node_info.clone()
+    ghosts = []
+    for p in nominated:
+        ghost = copy.copy(p)
+        ghost.node_name = node_name
+        ni.add_pod(ghost)
+        ghosts.append(ghost)
+        if checker is not None:
+            checker.add_pod(pod, ghost, ni.node)
+    swapped = node_infos is not None and node_name in node_infos
+    if swapped:
+        original = node_infos[node_name]
+        node_infos[node_name] = ni
+    try:
+        fit, reasons = preds.pod_fits_on_node(pod, ni, predicate_funcs,
+                                              always_check_all)
+    finally:
+        if swapped:
+            node_infos[node_name] = original
+        if checker is not None:
+            for ghost in ghosts:
+                checker.remove_pod(pod, ghost, ni.node)
+    if not fit:
+        return fit, reasons
+    # pass 2: without
+    return preds.pod_fits_on_node(pod, node_info, predicate_funcs,
+                                  always_check_all)

@@ -1,6 +1,7 @@
 """Scheduling profiles: the port's copy of the data part of
 `kubernetes_tpu/profiles/__init__.py` (with the helpers it needs from
-`factory.py` and `apis/policy.py`).
+`factory.py` and `apis/policy.py`), and the per-profile priority configs
+of the serial cycle's host twin (`oracle_configs`).
 
 A pod picks its profile by `spec.schedulerName`; each profile carries its
 own priority-weight vector. On the device the vectors stack into one
@@ -17,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 
+from kubernetes_tpu_torch.factory import DEFAULT_PRIORITY_WEIGHTS, \
+    build_priority_configs
 from kubernetes_tpu_torch.ops import DEFAULT_WEIGHTS, MAX_PRIORITY, \
     PRIORITY_AXIS
 
@@ -24,18 +27,6 @@ DEFAULT_PROFILE_NAME = "default-scheduler"
 
 #: weight * MaxPriority must fit int32 (api/validation)
 MAX_WEIGHT = (1 << 31) // MAX_PRIORITY
-
-#: the DefaultProvider's priority vector (factory.py)
-DEFAULT_PRIORITY_WEIGHTS = {
-    "SelectorSpreadPriority": 1,
-    "InterPodAffinityPriority": 1,
-    "LeastRequestedPriority": 1,
-    "BalancedResourceAllocation": 1,
-    "NodePreferAvoidPodsPriority": 10000,
-    "NodeAffinityPriority": 1,
-    "TaintTolerationPriority": 1,
-    "ImageLocalityPriority": 1,
-}
 
 #: priority name -> kernel weight key (factory.py TPU_WEIGHT_KEYS)
 KERNEL_WEIGHT_KEYS = {
@@ -205,3 +196,15 @@ class ProfileSet:
             for j, key in enumerate(PRIORITY_AXIS):
                 tab[i, j] = int(row.get(key, 0))
         return tab
+
+    def oracle_configs(self, i: int, services_fn=lambda: [],
+                       replicasets_fn=lambda: [],
+                       hard_pod_affinity_weight: int = 1) -> list:
+        """Profile i's PriorityConfig list for the serial cycle's host
+        twin: the SAME weight vector its weight-table row carries (the
+        gang-locality objective comes per call, in `extra_configs`: it
+        needs the trial's live zone counts)."""
+        return build_priority_configs(
+            self.profiles[i].name_weights(), services_fn=services_fn,
+            replicasets_fn=replicasets_fn,
+            hard_pod_affinity_weight=hard_pod_affinity_weight)

@@ -38,7 +38,8 @@ def test_plan_resident_one_slot_a_thread_at_16384():
     # fixed tables and 105 B a node slot (score 8, prefix / flags / tie
     # slot 12, ten int64 rows 80, zone 4, valid 1)
     assert plan.smem_bytes == 3392 + 1024 * 105
-    assert plan.geometry()[:] == [16, 1, 1, plan.smem_bytes]
+    assert plan.geometry()[:] == [16, 1, 1, plan.smem_bytes, 0]
+    assert not plan.global_scratch and plan.workspace_bytes == 0
 
 
 def test_plan_resident_with_the_carried_spread_and_scalars():
@@ -69,8 +70,148 @@ def test_plan_half_cluster_and_limits():
     assert small.nodes_per_thread == 1 and small.resident
     with pytest.raises(ValueError):
         PK.cluster_plan(16384, 0, 4, False, blocks=17)
+    # past what shared memory holds beside the rows in global memory, the
+    # scratch moves to the global workspace: a block keeps only the fixed
+    # part in shared memory
+    far = PK.cluster_plan(4_000_000, 0, 4, False)
+    assert far.global_scratch and not far.resident
+    assert far.smem_bytes == PK.cluster_smem_bytes(0, 0, 4, False, False)
+    assert far.smem_bytes == PK.cluster_smem_bytes(
+        far.span, 0, 4, False, False, global_scratch=True) == 3392
+    assert far.workspace_bytes == far.blocks * far.span * 20
+    # only a zone table too large for the fixed part still raises
+    with pytest.raises(ValueError, match="over 232448"):
+        PK.cluster_plan(16384, 0, 8192, False)
+
+
+# ---------------------------------------------------------------------------
+# the third placement: the per-slot scratch in a global workspace
+# ---------------------------------------------------------------------------
+#: (planner, n_pad, blocks, S, z_pad, carry_spread, (blocks, slots a
+#: thread, resident, shared bytes)) as the planners gave them before the
+#: third placement: every plan up to n_pad 131,072 on 16 blocks and 65,536
+#: on 8 stays as it was, field for field, with its scratch in shared memory
+PLANS_BEFORE = [
+    ("cluster", 1024, 16, 0, 4, False, (16, 1, True, 110912)),
+    ("cluster", 1024, 16, 2, 4, True, (16, 1, True, 151872)),
+    ("cluster", 1024, 16, 1, 8, False, (16, 1, True, 127520)),
+    ("pressure", 1024, 16, 1, 4, False, (1, 1, True, 202048)),
+    ("pressure", 1024, 16, 2, 8, False, (1, 1, True, 218656)),
+    ("select", 1024, 16, 0, 4, False, (16, 1, True, 71104)),
+    ("select", 1024, 16, 0, 8, False, (16, 1, True, 71328)),
+    ("cluster", 1024, 8, 0, 4, False, (8, 1, True, 110912)),
+    ("cluster", 1024, 8, 2, 4, True, (8, 1, True, 151872)),
+    ("cluster", 1024, 8, 1, 8, False, (8, 1, True, 127520)),
+    ("pressure", 1024, 8, 1, 4, False, (1, 1, True, 202048)),
+    ("pressure", 1024, 8, 2, 8, False, (1, 1, True, 218656)),
+    ("select", 1024, 8, 0, 4, False, (8, 1, True, 71104)),
+    ("select", 1024, 8, 0, 8, False, (8, 1, True, 71328)),
+    ("cluster", 16384, 16, 0, 4, False, (16, 1, True, 110912)),
+    ("cluster", 16384, 16, 2, 4, True, (16, 1, True, 151872)),
+    ("cluster", 16384, 16, 1, 8, False, (16, 1, True, 127520)),
+    ("pressure", 16384, 16, 1, 4, False, (16, 1, True, 202048)),
+    ("pressure", 16384, 16, 2, 8, False, (16, 1, True, 218656)),
+    ("select", 16384, 16, 0, 4, False, (16, 1, True, 71104)),
+    ("select", 16384, 16, 0, 8, False, (16, 1, True, 71328)),
+    ("cluster", 16384, 8, 0, 4, False, (8, 2, True, 218432)),
+    ("cluster", 16384, 8, 2, 4, True, (8, 2, False, 44352)),
+    ("cluster", 16384, 8, 1, 8, False, (8, 2, False, 44576)),
+    ("pressure", 16384, 8, 1, 4, False, (8, 2, False, 44352)),
+    ("pressure", 16384, 8, 2, 8, False, (8, 2, False, 44576)),
+    ("select", 16384, 8, 0, 4, False, (8, 2, True, 138688)),
+    ("select", 16384, 8, 0, 8, False, (8, 2, True, 138912)),
+    ("cluster", 2100, 16, 0, 4, False, (16, 1, True, 110912)),
+    ("cluster", 2100, 16, 2, 4, True, (16, 1, True, 151872)),
+    ("cluster", 2100, 16, 1, 8, False, (16, 1, True, 127520)),
+    ("pressure", 2100, 16, 1, 4, False, (3, 1, True, 202048)),
+    ("pressure", 2100, 16, 2, 8, False, (3, 1, True, 218656)),
+    ("select", 2100, 16, 0, 4, False, (16, 1, True, 71104)),
+    ("select", 2100, 16, 0, 8, False, (16, 1, True, 71328)),
+    ("cluster", 2100, 8, 0, 4, False, (8, 1, True, 110912)),
+    ("cluster", 2100, 8, 2, 4, True, (8, 1, True, 151872)),
+    ("cluster", 2100, 8, 1, 8, False, (8, 1, True, 127520)),
+    ("pressure", 2100, 8, 1, 4, False, (3, 1, True, 202048)),
+    ("pressure", 2100, 8, 2, 8, False, (3, 1, True, 218656)),
+    ("select", 2100, 8, 0, 4, False, (8, 1, True, 71104)),
+    ("select", 2100, 8, 0, 8, False, (8, 1, True, 71328)),
+    ("cluster", 65536, 16, 0, 4, False, (16, 4, False, 85312)),
+    ("cluster", 65536, 16, 2, 4, True, (16, 4, False, 85312)),
+    ("cluster", 65536, 16, 1, 8, False, (16, 4, False, 85536)),
+    ("pressure", 65536, 16, 1, 4, False, (16, 4, False, 85312)),
+    ("pressure", 65536, 16, 2, 8, False, (16, 4, False, 85536)),
+    ("select", 65536, 16, 0, 4, False, (16, 4, False, 85440)),
+    ("select", 65536, 16, 0, 8, False, (16, 4, False, 85664)),
+    ("cluster", 65536, 8, 0, 4, False, (8, 8, False, 167232)),
+    ("cluster", 65536, 8, 2, 4, True, (8, 8, False, 167232)),
+    ("cluster", 65536, 8, 1, 8, False, (8, 8, False, 167456)),
+    ("pressure", 65536, 8, 1, 4, False, (8, 8, False, 167232)),
+    ("pressure", 65536, 8, 2, 8, False, (8, 8, False, 167456)),
+    ("select", 65536, 8, 0, 4, False, (8, 8, False, 167360)),
+    ("select", 65536, 8, 0, 8, False, (8, 8, False, 167584)),
+    ("cluster", 131072, 16, 0, 4, False, (16, 8, False, 167232)),
+    ("cluster", 131072, 16, 2, 4, True, (16, 8, False, 167232)),
+    ("cluster", 131072, 16, 1, 8, False, (16, 8, False, 167456)),
+    ("pressure", 131072, 16, 1, 4, False, (16, 8, False, 167232)),
+    ("pressure", 131072, 16, 2, 8, False, (16, 8, False, 167456)),
+    ("select", 131072, 16, 0, 4, False, (16, 8, False, 167360)),
+    ("select", 131072, 16, 0, 8, False, (16, 8, False, 167584)),]
+
+
+def _plan(kind, n_pad, blocks, S, z_pad, spread):
+    if kind == "cluster":
+        return PK.cluster_plan(n_pad, S, z_pad, spread, blocks=blocks)
+    if kind == "pressure":
+        return PK.pressure_plan(n_pad, S, z_pad, blocks=blocks)
+    return PK.select_plan(n_pad, z_pad, blocks=blocks)
+
+
+@pytest.mark.parametrize("kind,n_pad,blocks,S,z_pad,spread,before",
+                         PLANS_BEFORE)
+def test_plans_up_to_the_old_ceiling_are_unchanged(kind, n_pad, blocks, S,
+                                                   z_pad, spread, before):
+    plan = _plan(kind, n_pad, blocks, S, z_pad, spread)
+    assert plan == PK.ClusterPlan(*before)
+    assert not plan.global_scratch and plan.workspace_bytes == 0
+    assert plan.geometry()[:] == [before[0], before[1], int(before[2]),
+                                  before[3], 0]
+
+
+@pytest.mark.parametrize("kind,S,z_pad,spread", [
+    ("cluster", 0, 4, False), ("cluster", 2, 8, True),
+    ("pressure", 1, 4, False), ("select", 0, 4, False)])
+@pytest.mark.parametrize("n_pad,blocks", [(262144, 16), (131072, 8)])
+def test_plans_past_the_old_ceiling_keep_the_scratch_in_global_memory(
+        kind, S, z_pad, spread, n_pad, blocks):
+    plan = _plan(kind, n_pad, blocks, S, z_pad, spread)
+    # 16 slots a thread, every block owning nodes; rows (records) and
+    # scratch both in global memory
+    assert (plan.blocks, plan.nodes_per_thread, plan.resident,
+            plan.global_scratch) == (blocks, 16, False, True)
+    assert plan.span * plan.blocks == n_pad
+    fixed = PK.cluster_smem_bytes(0, S, z_pad, spread, False,
+                                  records=kind == "select",
+                                  pressure=kind == "pressure")
+    assert plan.smem_bytes == fixed <= PK.SMEM_CAP
+    assert plan.workspace_bytes == blocks * plan.span * 20 == n_pad * 20
+    assert plan.geometry()[:] == [blocks, 16, 0, fixed, 1]
+    # the second placement would not have fitted
+    assert PK.cluster_smem_bytes(plan.span, S, z_pad, spread, False,
+                                 records=kind == "select",
+                                 pressure=kind == "pressure") > PK.SMEM_CAP
+
+
+@pytest.mark.parametrize("kind", ["cluster", "pressure", "select"])
+def test_every_n_pad_gets_a_plan(kind):
+    for n_pad in (1, 1023, 131073, 180224, 180225, 262145, 1_000_000,
+                  4_000_000):
+        plan = _plan(kind, n_pad, 16, 1, 4, False)
+        assert plan.span * plan.blocks >= n_pad
+        assert plan.smem_bytes <= PK.SMEM_CAP
+        # 11 slots a thread (20 B of scratch each) still fit beside the
+        # fixed part; the twelfth does not
+        assert plan.global_scratch == (n_pad > 11 * 16 * 1024)
     with pytest.raises(ValueError):
-        PK.cluster_plan(4_000_000, 0, 4, False)
+        _plan(kind, 16384, 17, 1, 4, False)
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,7 @@ def test_select_plan_one_slot_a_thread_at_16384():
     assert plan.smem_bytes == SELECT_FIXED + 1024 * SELECT_PER_SLOT
     assert plan.smem_bytes == PK.cluster_smem_bytes(1024, 0, 4, False, True,
                                                     records=True)
-    assert plan.geometry()[:] == [16, 1, 1, plan.smem_bytes]
+    assert plan.geometry()[:] == [16, 1, 1, plan.smem_bytes, 0]
 
 
 def test_select_plan_two_slots_a_thread_at_32768():
@@ -93,7 +93,7 @@ def test_select_plan_stages_records_in_global_memory_past_the_cap():
     assert (past.blocks, past.nodes_per_thread, past.resident) == (16, 4,
                                                                   False)
     assert past.smem_bytes == SELECT_FIXED + 4096 * GLOBAL_PER_SLOT
-    assert past.geometry()[:] == [16, 4, 0, past.smem_bytes]
+    assert past.geometry()[:] == [16, 4, 0, past.smem_bytes, 0]
     half = PK.select_plan(32768, 4, blocks=8)
     assert (half.blocks, half.nodes_per_thread, half.resident) == (8, 4,
                                                                   False)
@@ -105,8 +105,16 @@ def test_select_plan_raises_past_the_cap():
     assert PK.select_plan(180224, 4).nodes_per_thread == 11
     assert PK.select_plan(180224, 4).smem_bytes == (SELECT_FIXED + 11264
                                                     * GLOBAL_PER_SLOT)
+    assert not PK.select_plan(180224, 4).global_scratch
+    # one slot more: the scratch moves to the global workspace, and a
+    # block keeps only the fixed part
+    far = PK.select_plan(180225, 4)
+    assert (far.nodes_per_thread, far.resident, far.global_scratch) == (
+        12, False, True)
+    assert far.smem_bytes == SELECT_FIXED
+    assert far.workspace_bytes == 16 * 12 * 1024 * GLOBAL_PER_SLOT
     with pytest.raises(ValueError, match="over 232448"):
-        PK.select_plan(180225, 4)
+        PK.select_plan(16384, 8192)
     with pytest.raises(ValueError):
         PK.select_plan(16384, 4, blocks=17)
     with pytest.raises(ValueError):

@@ -30,6 +30,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kubernetes_tpu_torch.profiles" in mods
     assert "kubernetes_tpu_torch.oracle.preemption" in mods
     assert "kubernetes_tpu_torch.parallel.sharding" in mods
+    # the host twin's copies of the oracle and the factory registries
+    assert "kubernetes_tpu_torch.factory" in mods
+    assert "kubernetes_tpu_torch.oracle.volumes" in mods
+    from kubernetes_tpu_torch import factory
+    from kubernetes_tpu_torch.oracle import generic_scheduler, preemption
+    for mod, fn in ((factory, "build_predicate_set"),
+                    (factory, "build_priority_configs"),
+                    (generic_scheduler, "GenericScheduler"),
+                    (preemption, "pod_fits_on_node_with_nominated")):
+        assert callable(getattr(mod, fn)), fn
     # the sharded preemption programs live in the walked modules
     from kubernetes_tpu_torch.parallel import sharding
     for fn in ("shard_victim_planes", "sharded_preempt",

@@ -45,7 +45,7 @@ def test_pressure_plan_at_16384_is_resident_on_16_blocks():
     assert plan.smem_bytes == PK.cluster_smem_bytes(
         1024, 1, 4, False, True, pressure=True)
     assert plan.smem_bytes <= PK.SMEM_CAP
-    assert plan.geometry()[:] == [16, 1, 1, plan.smem_bytes]
+    assert plan.geometry()[:] == [16, 1, 1, plan.smem_bytes, 0]
 
 
 def test_pressure_plan_half_cluster_keeps_rows_in_global_memory():
@@ -80,8 +80,12 @@ def test_pressure_plan_resident_until_the_cap_then_global():
     assert not wide.resident and wide.smem_bytes <= PK.SMEM_CAP
     with pytest.raises(ValueError):
         PK.pressure_plan(16384, 1, 4, blocks=17)
-    with pytest.raises(ValueError):
-        PK.pressure_plan(4_000_000, 1, 4)
+    # past the rows' cap the scratch moves to the global workspace too
+    far = PK.pressure_plan(4_000_000, 1, 4)
+    assert far.global_scratch and not far.resident
+    assert far.smem_bytes == PK.cluster_smem_bytes(
+        0, 1, 4, False, False, pressure=True) == 3392
+    assert far.workspace_bytes == far.blocks * far.span * 20
 
 
 # ---------------------------------------------------------------------------
