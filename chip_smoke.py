@@ -45,13 +45,25 @@
    scan reused pod after pod) and on alternating specs, K13a-K14b on 1,
    2 and 4 shards at P 16 and 128, the grouped K13a on 8, 4, 2 and 1
    shards of the card in every step state of a wave, K2 and K9a/b with a
-   nominated ghost). The K5 / K6 / K8 / K10b / K11b `[kernel]` and
-   `[variants]` lines print each launch's geometry: blocks of the
-   cluster, node slots a thread, rows (a select: its step's records) in
-   shared memory or not, the per-slot scratch in shared memory or in a
-   global workspace (with its bytes), shared bytes a block, and how many
-   such clusters the card holds. K8, K10a/b, K11a/b and K13a/b also get `device_ms` on the kernels line: the kernel's own
-   device time a launch (torch.profiler) beside `ms`, the wrapper call's.
+   nominated ghost; K2, one thread-block cluster a cycle, on six
+   geometries of `cycle_plan`: n_pad 16,384 on 16 blocks and on the
+   8-block fallback, a ragged axis at two slots a thread, li, ties and
+   winners in different blocks, the scratch in a global workspace at
+   262,144 slots on 16 blocks and 131,072 on 8, each in the identity,
+   perm and pos walks with and without a nominated ghost, a skip pod and
+   a weight table; K13b, one thread-block cluster a step, at 262,144
+   slots on 16 blocks and 131,072 on 8: a sharded 16-pod chunk against
+   the sharded plain wave and the single-device plain K8). The K2 / K5 /
+   K6 / K8 / K10b / K11b / K13b `[kernel]` and `[variants]` lines print
+   each launch's geometry: blocks of the cluster, node slots a thread,
+   rows (a select: its step's records) in shared memory or not, the
+   per-slot scratch in shared memory or in a global workspace (with its
+   bytes), shared bytes a block, and how many such clusters the card
+   holds; K2's and K13b's plans are on the kernels line too (`plan`). K2,
+   K8, K9a, K10a/b, K11a/b and K13a/b also get `device_ms` on the kernels
+   line: the kernel's own device time a launch (torch.profiler) beside
+   `ms`, the wrapper call's (K9a also on mesh-scan-default's first serial
+   cycle, `device_ms_scan_default`).
    K10a, K11a and K13a run one launch a device over every shard it holds,
    each record written into the device's gathered buffer: their check
    captures that launch over the card's four shards (bound, `ms` and
@@ -140,7 +152,8 @@ With `--cards` (a host of several cards) it builds the kernels and runs
 only the mesh phase, one shard per card, so the all-gather's copies are
 peer copies between the cards: K13a-K14b, K9a-d and K10a-K11b against
 their plain versions on meshes of all the cards and of the first two
-(the grouped locals, K13a's too, in every step state),
+(the grouped locals, K13a's too, in every step state), K13b at its two
+C3 geometries over every card, K2's cluster geometries on the first card,
 mesh-preempt-wave, four mesh-preempt-single rounds, mesh-uniform at
 15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
 mesh-fused, each held against the single-device run on the first card;
@@ -470,6 +483,14 @@ def kernel_checks(device, sync):
           lambda: K.schedule_cycle(*cargs),
           lambda: K.schedule_cycle_plain(*cargs), 50, 5,
           node_bytes + n_pad * (8 + 1 + 1 + 1 + 8))
+    dev_ms, seen = device_time(lambda: K.schedule_cycle(*cargs), sync, 50,
+                               "schedule_cycle_kernel")
+    out["schedule_cycle"].update(device_ms=dev_ms,
+                                 plan=plan_entry("schedule_cycle"))
+    print(f"[kernel] schedule_cycle: device_ms "
+          f"{fmt_ms(dev_ms)} over {seen} launches (torch.profiler; "
+          f"kernel_ms is the wrapper call's); "
+          f"{describe_geometry(*K.last_geometry['schedule_cycle'])}")
 
     # K3 uniform_burst: the headline burst's one launch, on the main
     # path's own input (the empty cluster, lastNodeIndex 0) ...
@@ -737,6 +758,112 @@ def variant_checks(device, sync):
           f"table, saturated tail; K4 duplicate and out-of-range rows)")
 
 
+#: K2's cluster geometries (label, n_pad, n_real, blocks the planner may
+#: take, build, (blocks, slots a thread, scratch in global memory)): the
+#: cells' n_pad on 16 blocks and on the 8-block fallback, a ragged axis at
+#: two slots a thread, li, the ties and the winners in different blocks,
+#: and the scratch in the global workspace at 262,144 slots on 16 blocks
+#: and 131,072 on 8
+CYCLE_GEOMETRIES = (
+    ("16,384 slots on 16 blocks", 16384, 15001, 16, None, (16, 1, False)),
+    ("16,384 slots on an 8-block cluster", 16384, 15001, 8, None,
+     (8, 2, False)),
+    ("20,000 slots: two a thread, ten blocks", 20000, 19990, 16, None,
+     (10, 2, False)),
+    ("4,096 slots: li, the winners and the ties in different blocks",
+     4096, 4090, 16, "ties", (4, 1, False)),
+    ("262,144 slots: 16 a thread, the scratch in global memory", 262144,
+     262000, 16, None, (16, 16, True)),
+    ("131,072 slots on an 8-block cluster: 16 a thread, the scratch in "
+     "global memory", 131072, 131000, 8, None, (8, 16, True)),
+)
+
+
+def cycle_variant_checks(device, sync):
+    """K2 (one thread-block cluster a cycle, `cycle_plan`) against its
+    plain version on every geometry of CYCLE_GEOMETRIES: dense and inert
+    pods in the identity (a partial walk), perm and pos walks, each with
+    and without a nominated ghost, a skip pod, a weight table with
+    profile ids; every output compared (the six scalars and the five
+    per-node outputs). Prints each geometry's plan and K2's device time a
+    cycle there (the dense identity case)."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    checked = 0
+    for gi, (label, n_pad, n_real, blocks, build, want) in enumerate(
+            CYCLE_GEOMETRIES):
+        rng = np.random.default_rng(20261101 + gi)
+        if build == "ties":
+            nodes = _tie_nodes(rng, n_pad, n_real, 2, device)
+            li = 1600
+        else:
+            nodes = _rand_nodes(rng, n_pad, n_real, 2, 6, device)
+            li = n_real // 3 + 37
+        perm = np.concatenate([rng.permutation(n_real),
+                               np.arange(n_real, n_pad)]).astype(np.int32)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(n_pad, dtype=np.int32)
+        walks = {"identity": {},
+                 "perm": {"perm": torch.as_tensor(perm).to(device),
+                          "inv_perm": torch.as_tensor(inv).to(device)},
+                 "pos": {"pos": torch.as_tensor(inv).to(device)}}
+        wtab = torch.as_tensor(rng.integers(0, 4, (3, len(K.PRIORITY_AXIS)))
+                               ).to(device)
+        union = {k: int(wtab[:, i].max())
+                 for i, k in enumerate(K.PRIORITY_AXIS)}
+        ghost = _random_ghost(rng, n_pad, device)
+        K.last_geometry.clear()
+        with cluster_blocks(blocks):
+            def same(name, args, **kw):
+                nonlocal checked
+                got = K.schedule_cycle(*args, **kw)
+                ref = K.schedule_cycle_plain(*args, **kw)
+                err = max_abs_err({k: got[k] for k in CYCLE_KEYS},
+                                  {k: ref[k] for k in CYCLE_KEYS})
+                if err != 0:
+                    raise SystemExit(
+                        f"cycle variant {name} at {label}: disagrees "
+                        f"(max_abs_err {err}; first difference "
+                        f"{first_diff(got, ref)})")
+                checked += 1
+            timed = None
+            for dense in (True, False):
+                pod = _rand_pod(rng, n_pad, 2, dense)
+                for mode, kw in walks.items():
+                    ntf = n_real // 2 if mode == "perm" else (
+                        n_real if mode == "pos" else 50)
+                    args = (nodes, pod, li, 2 ** 33 + 7, ntf, n_real, 8)
+                    for g in (None, ghost):
+                        same(f"{mode}/dense {dense}/ghost {g is not None}",
+                             args, ghost=g, **kw)
+                    if dense and mode == "identity":
+                        timed = args
+            skip = dict(_rand_pod(rng, n_pad, 2, True), skip=np.bool_(True))
+            same("skip pod", (nodes, skip, li, 5, 50, n_real, 8))
+            for pid in (0, 2):
+                p = dict(_rand_pod(rng, n_pad, 2, True),
+                         profile_id=np.int64(pid))
+                same(f"wtab row {pid}", (nodes, p, li, 3, n_real, n_real, 8),
+                     weights=union, wtab=wtab)
+            ms = cuda_time(lambda: K.schedule_cycle(*timed), sync, 20)
+            dev_ms, _n = device_time(lambda: K.schedule_cycle(*timed), sync,
+                                     20, "schedule_cycle_kernel")
+        plan, fit = K.last_geometry["schedule_cycle"]
+        got = (plan.blocks, plan.nodes_per_thread, plan.global_scratch)
+        if got != want or plan.resident:
+            raise SystemExit(f"cycle variant {label}: planned {plan}, not "
+                             f"{want}")
+        print(f"[variants] schedule_cycle {label}: "
+              f"{describe_geometry(plan, fit)}; kernel_ms {ms:.4f} "
+              f"device_ms {fmt_ms(dev_ms)} a cycle")
+    sync()
+    print(f"[variants] {checked} K2 calls equal to their plain versions "
+          f"over {len(CYCLE_GEOMETRIES)} cluster geometries (dense and "
+          f"inert pods; identity, perm and pos walks with and without a "
+          f"nominated ghost; a skip pod; a weight table)")
+
+
 def small_world_check(device, sync):
     """A burst decides exactly what one serial cycle per pod decides."""
     from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
@@ -880,6 +1007,19 @@ def describe_geometry(plan, fit, select=False):
             f"{plan.nodes_per_thread} node slot(s) a thread, {rows}, "
             f"{scratch}, {plan.smem_bytes} B of shared memory a block, "
             f"{fit} such cluster(s) fit the card")
+
+
+def plan_entry(name):
+    """Kernel `name`'s last cluster plan as the kernels line gives it."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    plan, fit = K.last_geometry[name]
+    return {"blocks": plan.blocks, "npt": plan.nodes_per_thread,
+            "resident": plan.resident, "global_scratch": plan.global_scratch,
+            "smem_bytes": plan.smem_bytes, "clusters_fit": fit}
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def _scan_variants(device, rng, n_pad, n_real, s_count, B, build, first):
@@ -1609,8 +1749,8 @@ def scan_cells():
     """The scan cells (config, nodes, window), run on one device by
     scan_paths and over a mesh by mesh_scan_paths."""
     default = {"name": "scan-default", "pct": 50, "serial": N_SERIAL,
-               "kernels": ("schedule_batch", "local_total",
-                           "schedule_cycle", "scatter_rows")}
+               "kernels": ("schedule_batch", "schedule_cycle",
+                           "scatter_rows")}
     return [
         (default, N_NODES, pods),
         (dict(default, name="scan-default (uneven zones, perm walk)"),
@@ -1843,7 +1983,8 @@ def mesh_kernel_checks(calls, report, sync):
     out = K.shard_cycle_local_plain(*_clone(args), **kw)
     mesh_kernel_entry(report, "shard_cycle_local", calls["shard_cycle_local"],
                       no_reset, result, nbytes(args[0], args[1], out), sync,
-                      50, "shard 0's rows of the first serial cycle")
+                      50, "shard 0's rows of the first serial cycle",
+                      on_device=True)
     args, kw = _full(calls["shard_cycle_select"])
     n_pad = args[0].shape[0] * args[2]
     mesh_kernel_entry(report, "shard_cycle_select",
@@ -2030,7 +2171,7 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
                 else None)
         geo = "; ".join(
             f"{k}: {describe_geometry(*K.last_geometry[k], select=True)}"
-            for k in K.SELECT_CLUSTER_KERNELS)
+            for k in SCAN_MESH_KERNELS[1:] + SEG_MESH_KERNELS[1:])
         print(f"[variants] mesh {label}: {geo}")
     sync()
     print(f"[variants] {checked} mesh scan comparisons equal over "
@@ -2495,6 +2636,8 @@ def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
     name = "mesh-" + cfg["name"]
     single, single_out = ref
     caps = [capture(k) for k in SCAN_MESH_KERNELS] if check_kernels else []
+    if check_kernels and cfg["serial"]:
+        caps.append(capture("shard_cycle_local"))   # the serial tail's K9a
     obs.reset()
     with contextlib.ExitStack() as stack:
         for c in caps:
@@ -2535,9 +2678,37 @@ def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
           f"{single['t_burst'] * 1e3:.2f} ms; decisions, serial cycles, "
           f"counters, packed block, stats, li, lni and folded rows equal")
     if check_kernels:
-        scan_kernel_checks({c.fn_name: c.call for c in caps}, report, sync,
-                           False)
+        calls = {c.fn_name: c.call for c in caps}
+        scan_kernel_checks(calls, report, sync, False)
+        if "shard_cycle_local" in calls:
+            k9a_device_entry(calls["shard_cycle_local"], report, sync,
+                             f"{name}'s first serial cycle")
     add_launches(report, counts)
+
+
+def k9a_device_entry(call, report, sync, label):
+    """K9a on one captured call of a mesh scan path's serial tail: held
+    against its plain version, then its wrapper time (CUDA events) and
+    its device time a launch (torch.profiler), filed as
+    `device_ms_scan_default` beside the mesh-uniform call's `device_ms`."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    args, kw = _full(call)
+    got = K.shard_cycle_local(*_clone(args), **kw)
+    want = K.shard_cycle_local_plain(*_clone(args), **kw)
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise SystemExit(f"shard_cycle_local on {label}: kernel disagrees "
+                         f"with plain ({first_diff(got, want)})")
+    a = _clone(args)
+
+    def one():
+        K.shard_cycle_local(*a, **kw)
+    ms = cuda_time(one, sync, 50)
+    dev_ms, seen = device_time(one, sync, 50, "shard_cycle_local_kernel")
+    report["shard_cycle_local"]["device_ms_scan_default"] = dev_ms
+    print(f"[kernel] shard_cycle_local on {label}: equal to plain "
+          f"(max_abs_err 0), kernel_ms {ms:.4f} device_ms {fmt_ms(dev_ms)} "
+          f"over {seen} launches (torch.profiler)")
 
 
 def mesh_fused_path(device, sync, report, ref, check_kernels, mesh=None):
@@ -3204,6 +3375,7 @@ def preempt_paths(device, sync, report):
     on random inputs first."""
     mesh_preempt_variant_checks(device, sync)
     mesh_pressure_local_checks(device, sync)
+    pressure_select_geometry_checks(device, sync)
     t = time.perf_counter()
     infos, tree, pdbs = preempt_world(N_NODES)
     print(f"[world] preempt: {N_NODES} nodes, "
@@ -3258,6 +3430,98 @@ def _random_ghost(rng, n_pad, device):
     return {k: torch.as_tensor(rng.integers(0, hi, n_pad)).to(device)
             for k, hi in (("cpu", 600), ("mem", GI), ("eph", 2),
                           ("cnt", 3))}
+
+
+def _k13_chunk(rng, nodes, n_pad, n_real, B, device):
+    """A pressure chunk of B pods over `nodes` with room on six rows only:
+    binds, then nominations, then failures, then skip padding. Returns
+    (the full nodes, the pod stack, the mutable rows)."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    room = torch.zeros(n_pad, dtype=torch.bool)
+    room[rng.choice(n_real, 6, replace=False)] = True
+    full = {**nodes, "req_cpu": torch.where(
+        room.to(device), nodes["req_cpu"], nodes["alloc_cpu"])}
+    specs = []
+    for j, (cpu, upd, prio) in enumerate(
+            [(400, 400, 9), (1200, 800, 7), (2000, 2000, 5),
+             (9000, 9000, 3)]):
+        d = _spec(cpu, j == 1, rng, n_pad, 1)
+        d.update(req_mem=np.int64(GI), req_eph=np.int64(0),
+                 upd_cpu=np.int64(upd), upd_mem=np.int64(GI),
+                 upd_scalar=np.zeros(1, np.int64),
+                 req_scalar=np.zeros(1, np.int64),
+                 check_resources=np.bool_(j != 2),
+                 has_request=np.bool_(True), pprio=np.int64(prio))
+        specs.append(d)
+    specs.append(dict(specs[3], skip=np.bool_(True)))
+    q = (B - 4) // 4
+    row = np.concatenate([np.repeat([0, 1, 2, 3], q), [4] * (B - 4 * q)])
+    stack = K.PodStack.from_specs(specs, row, None, device)
+    return full, stack, {k: full[k] for k in K._MUTABLE}
+
+
+#: K13b's C3 geometries (label, n_pad, n_real, blocks the planner may
+#: take): the records and the scratch in global memory at 262,144 slots
+#: on 16 blocks and 131,072 on 8
+PRESSURE_SELECT_GEOMETRIES = (
+    ("262,144 slots: 16 a thread, the records and the scratch in global "
+     "memory", 262144, 262000, 16),
+    ("131,072 slots on an 8-block cluster: 16 a thread, the records and "
+     "the scratch in global memory", 131072, 131000, 8),
+)
+
+
+def pressure_select_geometry_checks(device, sync, devices=None):
+    """K13b (one thread-block cluster a step) at the C3 geometries of
+    PRESSURE_SELECT_GEOMETRIES: the sharded pressure wave on MESH_D
+    shards of the card, or one shard on each of `devices` (a chunk of
+    binds, nominations, failures and skip padding at P 16, the ghost
+    carried in) held against the plain version of the same sharded wave
+    and against the single-device plain K8; prints K13b's plan and its
+    device time a step there."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = S.Mesh(devices or [device] * MESH_D)
+    d0 = mesh.devices[0]
+    for gi, (label, n_pad, n_real, blocks) in enumerate(
+            PRESSURE_SELECT_GEOMETRIES):
+        rng = np.random.default_rng(20261103 + gi)
+        vic = _rand_victims(rng, n_pad, 16, device)
+        nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
+        full, stack, mut0 = _k13_chunk(rng, nodes, n_pad, n_real, 16, device)
+        g0 = _random_ghost(rng, n_pad, device)
+        sh = S.shard_node_arrays(mesh, full)
+        vics = S.shard_victim_planes(mesh, vic)
+        args = (sh, mut0, g0, stack, vics, 37, 5, 9000, n_real, 4)
+        K.last_geometry.clear()
+        with cluster_blocks(blocks):
+            got = whole_wave(K.pressure_batch(*args, mesh=mesh), d0)
+            dev_ms, seen = device_time(
+                lambda: K.pressure_batch(*args, mesh=mesh), sync, 2,
+                "shard_pressure_select_kernel")
+        with plain_versions(MESH_ENTRIES):
+            ref = whole_wave(K.pressure_batch(*args, mesh=mesh), d0)
+        want = whole_wave(K.pressure_batch_plain(
+            full, mut0, g0, stack, vic, 37, 5, 9000, n_real, 4), d0)
+        for what, other in (("the sharded plain wave", ref),
+                            ("the single-device plain K8", want)):
+            err = max_abs_err(got, other)
+            if err != 0:
+                raise SystemExit(f"K13b at {label}: disagrees with {what} "
+                                 f"({first_diff(got, other)})")
+        plan, fit = K.last_geometry["shard_pressure_select"]
+        if (plan.blocks, plan.resident, plan.global_scratch) != (
+                blocks, False, True):
+            raise SystemExit(f"K13b at {label}: planned {plan}")
+        print(f"[variants] shard_pressure_select {label}, {mesh.size} "
+              f"shards: "
+              f"a 16-pod chunk equal to the sharded plain wave and to the "
+              f"single-device plain K8; "
+              f"{describe_geometry(plan, fit, select=True)}; device_ms "
+              f"{fmt_ms(dev_ms)} a step over {seen} steps")
 
 
 def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
@@ -3320,27 +3584,7 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
                   for c in k14}
         # K13: a chunk over a cluster with room on six rows only: binds,
         # then nominations, then failures, then skip padding
-        room = torch.zeros(n_pad, dtype=torch.bool)
-        room[rng.choice(n_real, 6, replace=False)] = True
-        full = {**nodes, "req_cpu": torch.where(
-            room.to(device), nodes["req_cpu"], nodes["alloc_cpu"])}
-        specs = []
-        for j, (cpu, upd, prio) in enumerate(
-                [(400, 400, 9), (1200, 800, 7), (2000, 2000, 5),
-                 (9000, 9000, 3)]):
-            d = _spec(cpu, j == 1, rng, n_pad, 1)
-            d.update(req_mem=np.int64(GI), req_eph=np.int64(0),
-                     upd_cpu=np.int64(upd), upd_mem=np.int64(GI),
-                     upd_scalar=np.zeros(1, np.int64),
-                     req_scalar=np.zeros(1, np.int64),
-                     check_resources=np.bool_(j != 2),
-                     has_request=np.bool_(True), pprio=np.int64(prio))
-            specs.append(d)
-        specs.append(dict(specs[3], skip=np.bool_(True)))
-        q = (B - 4) // 4
-        row = np.concatenate([np.repeat([0, 1, 2, 3], q), [4] * (B - 4 * q)])
-        stack = K.PodStack.from_specs(specs, row, None, device)
-        mut0 = {k: full[k] for k in K._MUTABLE}
+        full, stack, mut0 = _k13_chunk(rng, nodes, n_pad, n_real, B, device)
         zero = {k: torch.zeros(n_pad, dtype=torch.int64, device=device)
                 for k in K.GHOST_FIELDS}
         ghosts = (("ghost off", zero),
@@ -3563,8 +3807,11 @@ def pressure_kernel_checks(calls, report, sync):
         scan_select_bytes(side, plan), sync, 50,
         "the gathered records of the wave's first step",
         "; both times include the copy that restores the step state "
-        "before each call", ops=plan.n_real * OPS_PER_NODE_CYCLE,
-        on_device=True)
+        "before each call; " + describe_geometry(
+            *K.last_geometry["shard_pressure_select"], select=True),
+        ops=plan.n_real * OPS_PER_NODE_CYCLE, on_device=True)
+    report["shard_pressure_select"]["plan"] = plan_entry(
+        "shard_pressure_select")
 
 
 def mesh_wave_path(infos, tree, pdbs, device, sync, report, ref,
@@ -3975,6 +4222,8 @@ def cards_phase(report):
     # the preemption paths first: their world is built once
     mesh_preempt_variant_checks(device, sync, meshes=meshes)
     mesh_pressure_local_checks(device, sync, meshes=meshes)
+    pressure_select_geometry_checks(device, sync, list(mesh.devices))
+    cycle_variant_checks(device, sync)
     infos, tree, pdbs = preempt_world(N_NODES)
     with capture("pressure_batch", keep_all=True) as one:
         single = run_wave(infos, tree, pdbs, wave_pods(), device, sync)
@@ -4055,6 +4304,7 @@ def main() -> int:
             return out
         report = timed(kernel_checks, device, sync)
         timed(variant_checks, device, sync)
+        timed(cycle_variant_checks, device, sync)
         timed(scan_variant_checks, device, sync)
         timed(preempt_variant_checks, device, sync)
         timed(pressure_variant_checks, device, sync)

@@ -42,17 +42,16 @@ _L = ctypes.c_longlong
 #: untyped python int as a 32-bit int, which would cut a pointer)
 SIGNATURES = {
     "local_total": [_I, _P, _P, _L, _L, _P, _P, _I, _P, _P, _P],
-    "schedule_cycle": [_I, _I, _L, _I, _L, _L, _L, _I, _I, _I, _I,
-                       ctypes.POINTER(_P), _P, _P, _I, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "uniform_burst": [_I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "scatter_rows": [_I, _I, _L, _P, _P, _P],
     # the scan kernels take host arrays of scalars and of pointers
-    # the cluster kernels (K5, K6, K8) also take their geometry
-    # (`kernels.cluster_plan` / `pressure_plan`: blocks, node slots a
-    # thread, resident, bytes)
+    # the cluster kernels (K2, K5, K6, K8) also take their geometry
+    # (`kernels.cycle_plan` / `cluster_plan` / `pressure_plan`: blocks,
+    # node slots a thread, resident, bytes, scratch)
+    "schedule_cycle": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                       ctypes.POINTER(_L), _P],
     "schedule_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                        ctypes.POINTER(_L), _P],
     "schedule_segments": [ctypes.POINTER(_L), ctypes.POINTER(_P),
@@ -69,7 +68,7 @@ SIGNATURES = {
     # the stream, and the count each launch made adds one to
     "shard_scan_local": [ctypes.POINTER(_L), _I, _I, _P,
                          ctypes.POINTER(_I)],
-    # the cluster selects (K10b, K11b) also take their geometry
+    # the cluster selects (K10b, K11b, K13b) also take their geometry
     # (`kernels.select_plan`) and the device index, and count as the locals
     "shard_scan_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                           ctypes.POINTER(_L), _I, _P, ctypes.POINTER(_I)],
@@ -82,8 +81,8 @@ SIGNATURES = {
     "shard_preempt_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_pressure_local": [ctypes.POINTER(_L), _I, _I, _P,
                              ctypes.POINTER(_I)],
-    # K13b: its arrays, the device index, the stream and the launch count
-    "shard_pressure_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _I, _P,
+    "shard_pressure_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                              ctypes.POINTER(_L), _I, _P,
                               ctypes.POINTER(_I)],
 }
 
@@ -92,9 +91,10 @@ SIGNATURES = {
 #: sets the geometry's launch attributes on the current device)
 QUERIES = {name: {name + "_clusters": [ctypes.POINTER(_L),
                                        ctypes.POINTER(_I)]}
-           for name in ("schedule_batch", "schedule_segments",
-                        "pressure_batch", "shard_scan_select",
-                        "shard_segments_select")}
+           for name in ("schedule_cycle", "schedule_batch",
+                        "schedule_segments", "pressure_batch",
+                        "shard_scan_select", "shard_segments_select",
+                        "shard_pressure_select")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,17 +1,19 @@
 // One pod's scheduling cycle across a thread-block cluster: the cycle of
-// K5 (`schedule_batch.cu`) and K6 (`schedule_segments.cu`); with the
-// nominated-ghost load in the filter and the preemption pick carried by its
-// select round, of K8 (`pressure_batch.cu`); and, fed by the gathered shard
-// records instead of the node rows (REC), of the mesh selects K10b and K11b
+// K5 (`schedule_batch.cu`) and K6 (`schedule_segments.cu`); of K2
+// (`schedule_cycle.cu`), one pod with every per-node output written and,
+// optionally, the nominated-ghost load in the filter; with the ghost in
+// the filter and the preemption pick carried by its select round, of K8
+// (`pressure_batch.cu`); and, fed by the gathered shard records instead of
+// the node rows (REC), of the mesh selects K10b, K11b and K13b
 // (`cluster_select.cuh`).
 //
-// Replaces, for the scans, the one-block `cycle_run` of `cycle.cuh`
-// (`_feasibility` + `_fit_scores` + `_cycle_core`,
-// kubernetes_tpu/ops/kernels.py:296, :157, :359). It reuses that header's
-// per-node parts (`cycle_filter_row`, `cycle_score_one` with
-// `cycle_row_local`, and K1's `local_total_one`) and keeps every index
-// rule of `cycle_select`: JAX's clamps, floordiv / floormod, first-index
-// argmax, `sel == n -> 0`.
+// Replaces `_feasibility` + `_fit_scores` + `_cycle_core`
+// (kubernetes_tpu/ops/kernels.py:296, :157, :359) for every kernel but
+// K9b, which runs the one-block `cycle_select` of `cycle.cuh`. It reuses
+// that header's per-node parts (`cycle_filter_row`, `cycle_score_one`
+// with `cycle_row_local`, and K1's `local_total_one`) and keeps every
+// index rule of `cycle_select`: JAX's clamps, floordiv / floormod,
+// first-index argmax, `sel == n -> 0`.
 //
 // Bound on the H100: the serial chain, not bytes or arithmetic. Each pod
 // reads the rows the one before it folded, and its cycle is a chain of
@@ -453,25 +455,30 @@ __device__ __forceinline__ void pick_round(ClusterCtx& cx,
   ps.best = vic_load(cx.res + 1, 1);
 }
 
-// The walk, the scores and the select of one pod's cycle (`cycle_run` +
-// `cycle_select` with skip false, no base). `w` is the pod's weight row,
-// `gz` (NULL = off) the gang's zone counts and `gmember` whether the pod is
-// a gang member. REC (the mesh selects): the staged records' feasible bits
-// replace the filter and their local totals K1 and the row-local families
-// (`pd.local_in_base`). K8: `ghost` (NULL = off) adds the carried
-// nominated load to the rows the filter reads, and the result says
-// whether some in-range node's first failure preemption can resolve (the
-// maxima round carries it; the walk must be axis order); `pick` (NULL =
-// none) is the pod's victim scan, whose pick the select round makes over
-// the cluster (`pick_round`) into `pick->best`. Every thread of every
-// block returns the same result. GS: the scratch planes are the global
-// workspace's (`cluster_view`).
+// The filter, the walk, the scores and the select of one pod's cycle
+// (`_cycle_core`). `w` is the pod's weight row, `gz` (NULL = off) the
+// gang's zone counts and `gmember` whether the pod is a gang member. REC
+// (the mesh selects): the staged records' feasible bits replace the filter
+// and their local totals K1 and the row-local families
+// (`pd.local_in_base`). `ghost` (NULL = off; K2, K8) adds the nominated
+// load to the rows the filter reads. K8: `pick` (NULL = none) is the pod's
+// victim scan, whose pick the select round makes over the cluster
+// (`pick_round`) into `pick->best`, and the result then also says whether
+// some in-range node's first failure preemption can resolve (the maxima
+// round carries it; the walk must be axis order). K2: `skip` (a skip pod:
+// no node feasible, none evaluated) and `out` (NULL = none), the per-node
+// outputs, each written by the thread that owns the node: the filter's
+// feasible bit (before the n_real mask), first failure and predicate
+// bits, the total and the kept bit. Every thread of every block returns
+// the same result. GS: the scratch planes are the global workspace's
+// (`cluster_view`).
 template <bool REC = false, bool GS = false>
 __device__ __forceinline__ CycleResult cluster_cycle(
     ClusterCtx& cx, cg::cluster_group& cl, const CyclePod& pd,
     const CycleWalk& wk, int gate, const i64* w, const i64* gz,
     bool gmember, const CycleGhost* ghost = nullptr,
-    PickScan* pick = nullptr) {
+    PickScan* pick = nullptr, bool skip = false,
+    const CycleScratch* out = nullptr) {
   const CycleNodes& nd = cx.nd;
   const int n = nd.n_pad, tid = threadIdx.x, lo = cx.lo, span = cx.span;
   const int mode = wk.mode;
@@ -497,9 +504,14 @@ __device__ __forceinline__ CycleResult cluster_cycle(
     } else {
       i64 bits;
       int ff;
-      feas = cycle_filter_row(nd, pd, false, j, ghost, &bits, &ff)
-             && (i64)j < nr;
-      if (ghost && (i64)j < nr && !cycle_unresolvable(ff, bits)) lres = 1;
+      feas = cycle_filter_row(nd, pd, skip, j, ghost, &bits, &ff);
+      if (out) {
+        out->general_bits[j] = bits;
+        out->fail_first[j] = (signed char)ff;
+        out->feasible[j] = feas;
+      }
+      feas = feas && (i64)j < nr;
+      if (pick && (i64)j < nr && !cycle_unresolvable(ff, bits)) lres = 1;
     }
     // with positions every feasible node is kept
     FL[j - lo] = feas ? (mode == 2 ? CF_FEAS | CF_KEPT : CF_FEAS) : 0;
@@ -604,10 +616,10 @@ __device__ __forceinline__ CycleResult cluster_cycle(
         | (nm.do_sc ? (1u << PR_SC) | (1u << PR_ZONES) : 0)
         | (nm.do_ic ? (1u << PR_ICMAX) | (1u << PR_ICMIN) : 0)
         | (mode == 2 ? 1u << PR_F : 1u << PR_PSTAR)
-        | (ghost ? 1u << PR_RES : 0);
+        | (pick ? 1u << PR_RES : 0);
     cluster_round(cx, cl, v, ops, live);
   }
-  const bool any_res = ghost && v[PR_RES] > 0;
+  const bool any_res = pick && v[PR_RES] > 0;
   nm.na_max = v[PR_NA];
   nm.tt_max = v[PR_TT];
   nm.mbn = v[PR_SC];
@@ -618,13 +630,13 @@ __device__ __forceinline__ CycleResult cluster_cycle(
   if (mode == 2) {
     F = v[PR_F];
     found = imin64(F, ntf);
-    evaluated = nr;
+    evaluated = skip ? 0 : nr;
   } else {
     i64 pstar = v[PR_PSTAR];
     if (pstar == n) pstar = 0;  // argmax of an all-false mask
     found = imin64(F, ntf);
     const i64 stop_pos = pstar >= li ? pstar - li : nr - li + pstar;
-    evaluated = F >= ntf ? stop_pos + 1 : nr;
+    evaluated = skip ? 0 : F >= ntf ? stop_pos + 1 : nr;
   }
   if (nm.do_sc) {
     // the cluster's zone table from the blocks' records
@@ -656,6 +668,10 @@ __device__ __forceinline__ CycleResult cluster_cycle(
     const bool k = (FL[j - lo] & CF_KEPT) != 0;
     TOT[j - lo] = k ? t : LLONG_MIN;
     if (k) l_max = imax64(l_max, t);
+    if (out) {
+      out->total[j] = t;
+      out->kept[j] = k;
+    }
   }
   // ---- select: round-robin k-th tie in rotation order ----------------------
   // the highest score, and (axis order, positions) each block's ties at its
@@ -1054,7 +1070,8 @@ inline void cluster_config(const ClusterGeom& g, cudaStream_t stream,
 }
 
 // One cluster of g.blocks blocks running `kernel(a, g)` (K5 / K6 a window,
-// K10b / K11b a step), its launch attributes set by the occupancy query.
+// K8 a chunk, K2 a cycle, K10b / K11b / K13b a step), its launch
+// attributes set by the occupancy query.
 template <typename Kernel, typename Args>
 inline int cluster_launch(Kernel kernel, const Args& a, const ClusterGeom& g,
                           cudaStream_t stream) {

@@ -1,7 +1,9 @@
-// The scheduling cycle of one pod over every node, as a __device__
-// function of one block: K2 runs it once. K5, K6 and K8 run its per-node
-// parts (`cycle_filter_row`, `cycle_score_one`) across a thread-block
-// cluster instead (`cluster_cycle.cuh`).
+// The per-node parts of one pod's scheduling cycle, and the cycle's
+// walk, scores and select over nodes already filtered, as a __device__
+// function of one block (`cycle_select`). K9b runs that select over the
+// gathered shard records; every other cycle (K2, K5, K6, K8, K10b, K11b,
+// K13b) runs the per-node parts (`cycle_filter_row`, `cycle_score_one`)
+// across a thread-block cluster instead (`cluster_cycle.cuh`).
 //
 // Replaces `_feasibility` + `_fit_scores` + `_cycle_core`
 // (kubernetes_tpu/ops/kernels.py:296, :157, :359): per-node predicate bits
@@ -12,16 +14,16 @@
 // min-max, image locality, prefer-avoid, the K1 resource families and the
 // rank-aware gang locality); and the round-robin k-th tie select. A
 // nominated-ghost load (K2's nominees, K8's nominations) adds to the rows
-// the filter reads (`_cycle_core`'s `ghost`, kernels.py:402-413), and the
-// cycle then asks whether any in-range node is a preemption candidate. The
-// sharded cycle
-// splits it in two: K9a runs `cycle_filter_row` and `cycle_row_local` on
-// each shard's rows, K9b `cycle_select` on the gathered records.
+// the filter reads (`_cycle_core`'s `ghost`, kernels.py:402-413). The
+// sharded cycle splits it in two: K9a runs `cycle_filter_row` and
+// `cycle_row_local` on each shard's rows, K9b `cycle_select` on the
+// gathered records.
 //
-// Layout: ONE block of NTHREADS threads, each owning a contiguous slice of
-// the node axis, so a reduction or scan is a block barrier; scratch and the
-// zone tables live in global memory (L2). Every thread returns the same
-// CycleResult (each field comes out of a block-wide reduction).
+// `cycle_select`'s layout: ONE block of NTHREADS threads, each owning a
+// contiguous slice of the node axis, so a reduction or scan is a block
+// barrier; scratch and the zone tables live in global memory (L2). Every
+// thread returns the same CycleResult (each field comes out of a
+// block-wide reduction).
 #pragma once
 
 #include "common.cuh"
@@ -61,8 +63,9 @@ struct CycleWalk {
   const int *perm, *inv_perm, *pos;
 };
 
-// Per-node outputs and scratch; feasible/fail_first/general_bits may be
-// NULL (the scans read only the decision).
+// Per-node outputs and scratch: K2's five per-node outputs
+// (`cluster_cycle`'s `out`; scratch and zs unused), or K9b's select
+// (total, kept, scratch and zs; the filter's three NULL).
 struct CycleScratch {
   i64* total;
   unsigned char *kept, *feasible;
@@ -294,14 +297,11 @@ __device__ __forceinline__ i64 cycle_score_one(const CyclePod& pd, int gate,
 // in-range feasible bit (FL_FEAS) is already in FL = cs.scratch + n_pad,
 // behind a barrier. `w` is the pod's weight row (static weights or its
 // wtab row), `gate` the families the static weights turn on. `base` holds
-// the K1 totals when the caller computed them (K2), or the whole row-local
-// part when `pd.local_in_base` (K9b); NULL computes K1 inline (K5/K6, where
-// the rows change between pods). `gz` (NULL = off) is the current gang's
-// per-zone member count and `gmember` whether this pod is a member.
+// each node's whole row-local part (`pd.local_in_base`: K9b's gathered
+// records, K1 and the row-local families summed by K9a).
 __device__ __forceinline__ CycleResult cycle_select(
     const CycleNodes& nd, const CyclePod& pd, bool skip, const CycleWalk& wk,
-    int gate, const i64* w, const i64* base, const i64* gz, bool gmember,
-    const CycleScratch& cs) {
+    int gate, const i64* w, const i64* base, const CycleScratch& cs) {
   __shared__ i64 sh64[NWARPS];
   __shared__ int sh32[NWARPS];
   const int n = nd.n_pad, tid = threadIdx.x;
@@ -313,7 +313,6 @@ __device__ __forceinline__ CycleResult cycle_select(
   const i64 n_safe = imax64(nr, 1);
   const i64 li = floormod(wk.last_index, n_safe);
   const i64 ntf = wk.num_to_find;
-  const i64 p_nz_cpu = pd.scal[3], p_nz_mem = pd.scal[4];
   // ---- rotation walk -----------------------------------------------------
   i64 found, evaluated;
   if (wk.mode == 2) {
@@ -363,7 +362,7 @@ __device__ __forceinline__ CycleResult cycle_select(
   }
 
   // ---- scores: reductions over the kept set ------------------------------
-  CycleNorm nm = cycle_norm_families(pd, gate, w, gz, gmember);
+  CycleNorm nm = cycle_norm_families(pd, gate, w, nullptr, false);
   for (int z = tid; z < 2 * nd.z_pad; z += NTHREADS) cs.zs[z] = 0;
   __syncthreads();
   i64 l_na = LLONG_MIN, l_tt = LLONG_MIN, l_sc = LLONG_MIN;
@@ -404,13 +403,10 @@ __device__ __forceinline__ CycleResult cycle_select(
 
   i64 l_max = LLONG_MIN;
   for (int j = lo; j < hi; ++j) {
-    i64 t = base ? base[j]
-                 : local_total_one(gate, w, p_nz_cpu + nd.nz_cpu[j],
-                                   p_nz_mem + nd.nz_mem[j], nd.alloc_cpu[j],
-                                   nd.alloc_mem[j]);
-    t = cycle_score_one(pd, gate, w, nm, j, t, nm.do_sc ? pd.sc[j] : 0,
-                        nm.do_gang || nm.do_sc ? nd.zone_id[j] : 0,
-                        nd.z_pad, cs.zs, gz);
+    const i64 t = cycle_score_one(pd, gate, w, nm, j, base[j],
+                                  nm.do_sc ? pd.sc[j] : 0,
+                                  nm.do_sc ? nd.zone_id[j] : 0, nd.z_pad,
+                                  cs.zs, nullptr);
     cs.total[j] = t;
     if (cs.kept[j]) l_max = imax64(l_max, t);
   }
@@ -492,39 +488,6 @@ __device__ __forceinline__ CycleResult cycle_select(
   return r;
 }
 
-// One whole cycle: the filter of every node, then `cycle_select`. `ghost`
-// (NULL = off) is the nominated pods' load; with it the result also says
-// whether some in-range node is a preemption candidate.
-__device__ __forceinline__ CycleResult cycle_run(
-    const CycleNodes& nd, const CyclePod& pd, bool skip, const CycleWalk& wk,
-    int gate, const i64* w, const i64* base, const i64* gz, bool gmember,
-    const CycleScratch& cs, const CycleGhost* ghost = nullptr) {
-  __shared__ i64 sh64[NWARPS];
-  const int n = nd.n_pad;
-  int lo, hi;
-  my_range(n, &lo, &hi);
-  int* FL = cs.scratch + n;
-  const i64 nr = nd.n_real;
-  int l_res = 0;
-  for (int j = lo; j < hi; ++j) {
-    i64 bits;
-    int ff;
-    const bool feasible = cycle_filter_row(nd, pd, skip, j, ghost, &bits,
-                                           &ff);
-    if (ghost && (i64)j < nr && !cycle_unresolvable(ff, bits)) l_res = 1;
-    if (cs.general_bits) cs.general_bits[j] = bits;
-    if (cs.fail_first) cs.fail_first[j] = (signed char)ff;
-    if (cs.feasible) cs.feasible[j] = feasible;
-    FL[j] = (feasible && (i64)j < nr) ? FL_FEAS : 0;
-  }
-  const bool any_res = ghost ? block_sum64(l_res, sh64) > 0 : false;
-  __syncthreads();
-  CycleResult r = cycle_select(nd, pd, skip, wk, gate, w, base, gz, gmember,
-                               cs);
-  r.any_resolvable = any_res;
-  return r;
-}
-
 // ---- the gathered records of the sharded cycle (K9b, K10b, K11b, K13b) -----
 // Byte offsets of the planes in one shard's record (-1 = absent), in the
 // order of `_REC_PLANES` (kubernetes_tpu_torch/ops/kernels.py).
@@ -533,7 +496,7 @@ struct RecLayout {
 };
 
 // Unpack the D shard records of `g` ([D, chunk] bytes, `rows` rows each;
-// the one-block selects K9b and K13b) into flat [n] planes: p64 [5, n]
+// the one-block select K9b) into flat [n] planes: p64 [5, n]
 // (local, na, tt, sc, ic), zone, the tracked bytes, and the in-range
 // feasible bit into FL = flags + n. Ends with a barrier.
 __device__ __forceinline__ void unpack_records(const unsigned char* g,

@@ -10,11 +10,11 @@
 // distinct device of the mesh runs it on the same gathered bytes, so all
 // of them decide alike.
 //
-// Shared with K2/K5/K6/K8: `cycle_select` (cycle.cuh) is the walk, the
-// scores and the select of their `cycle_run`; here its `base` is the
-// gathered row-local total (`local_in_base`).
+// `cycle_select` (cycle.cuh) is the walk, the scores and the select of
+// `_cycle_core`, over the per-node parts K2's cluster cycle shares; here
+// its `base` is the gathered row-local total (`local_in_base`).
 //
-// Bound on the H100: latency, as K2: a chain of block-wide reductions and
+// Bound on the H100: latency: a chain of block-wide reductions and
 // scans over n_pad rows (~9 B a row in, 9 B a row out on the default
 // families). Design: ONE block of 1024 threads; it first unpacks the D
 // shard records into flat [n_pad] planes (scratch in L2), then runs
@@ -85,8 +85,7 @@ __global__ void __launch_bounds__(NTHREADS)
                         nullptr, nullptr, nullptr, (int*)a.p[SP_FLAGS],
                         (i64*)a.p[SP_ZS]};
   const CycleResult r = cycle_select(nd, pd, a.v[CS_SKIP] != 0, wk,
-                                     (int)a.v[CS_GATE], ws, p64, nullptr,
-                                     false, cs);
+                                     (int)a.v[CS_GATE], ws, p64, cs);
   if (tid == 0) {
     i64* out = (i64*)a.p[SP_OUT];
     out[0] = r.sel;

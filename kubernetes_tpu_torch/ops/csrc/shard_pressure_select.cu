@@ -1,6 +1,6 @@
 // K13b shard_pressure_select: the replicated half of one step of the
 // sharded pressure wave, over the records every shard's K13a wrote,
-// gathered onto this device.
+// gathered onto this device, as one thread-block cluster.
 //
 // Replaces the replicated epilogue of `sharded_pressure_fn`
 // (kubernetes_tpu/parallel/sharding.py:330): per pod of `_pressure_core`
@@ -18,55 +18,74 @@
 // does) and the step state: li, lni, and the fold the shards owe, a bind
 // at the selected node or the nomination's ghost at the winner. Every
 // distinct device runs it on the same bytes and advances its own state.
+// One step a pod, skip pods included: K13a reads the step state that
+// step wrote.
 //
 // It reads the records K13a wrote in place into the device's gathered
 // buffer (and the copies of other devices' rows).
 //
-// Shared with K10b/K11b: the argument tables, `select_walk` and
-// `select_weights` (shard_scan.cuh); with K9b: `unpack_records`,
-// `cycle_select` (cycle.cuh); with K14b: `pick_records`, `pick_flags`
-// (victim.cuh).
+// Bound on the H100: latency, a chain of reductions over n_pad slots. The
+// one-block select this replaces unpacked every record into global planes
+// and ran `cycle_select` in ONE block of 1024 threads, 16 slots a thread at
+// n_pad 16,384 (0.119 ms of device time a step on an H100). Design: K10b's
+// cluster select (`cluster_select.cuh`): up to 16 blocks x 1024 threads,
+// each block staging its slice of the records in shared memory (past
+// what it holds, in the global staging area `recs`; past 180,224 slots the
+// scratch in the global workspace too) and running `cluster_cycle<true>`
+// in axis order (4 cluster rounds). After the cluster barrier that ends
+// every block's reads of the step state and of its peers' shared memory,
+// block 0 alone picks: one thread runs `pick_records`, a lexicographic
+// minimum over the D <= a few shard records (a dozen loads, no reduction
+// worth a warp), then block 0's threads copy the winner's P slot flags and
+// thread 0 writes the head of the packed row and the step state.
 //
-// Bound on the H100: latency (a chain of block-wide reductions and scans
-// over n_pad rows). Design: ONE block of 1024 threads, its launch bound
-// once a wave (`kernels.Relaunch`).
-#include "shard_scan.cuh"
-#include "victim.cuh"
+// Shared with K10b / K11b: `cluster_select.cuh` and the argument tables;
+// with K14b: `pick_records`, `pick_flags` (victim.cuh).
+#include "cluster_select.cuh"
 
-__global__ void __launch_bounds__(NTHREADS)
-    shard_pressure_select_kernel(ScanSelectArgs a) {
-  __shared__ i64 ws[W_K];
-  __shared__ i64 no_scal[16];  // the pod scalars the select never reads
-  __shared__ i64 sv[SS_COUNT];
-  __shared__ CandPick pk;
+template <bool GS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    shard_pressure_select_kernel(ScanSelectArgs a, ClusterGeom g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  CyclePod pd;
+  ClusterCtx cx = select_setup<GS>(a, g, smem, cl, &pd);
   const int tid = threadIdx.x;
-  i64* st = ssp<i64>(a, SSP_STATE);
-  if (tid < 16) no_scal[tid] = 0;
-  if (tid < SS_COUNT) sv[tid] = st[tid];
-  __syncthreads();
-  const i64 b = sv[SS_STEP];
+  const i64 b = cx.sv[SS_STEP];
+  // past the wave: every block returns before touching a peer
   if (b >= a.v[SSI_N_STEPS]) return;
   const int r = ssp<const int>(a, SSP_ROW)[b];
   const bool skip = scan_skip(a, b);
-  const i64 li = sv[SS_LI], lni = sv[SS_LNI];
+  const i64 li = cx.sv[SS_LI], lni = cx.sv[SS_LNI];
   CycleResult res{-1, 0, 0, 0, floormod(li, imax64(a.v[SSI_N_REAL], 1)),
                   lni, false};
-  if (!skip)
-    res = select_cycle(a, b, r, li, lni, ws, no_scal);
-  const unsigned char* g = ssp<const unsigned char>(a, SSP_GATHERED);
+  if (!skip) {
+    select_pod_row(a, r, &pd);
+    select_weights(a, b, cx.ws);
+    __syncthreads();  // the weight row lands before the cycle reads it
+    res = cluster_cycle<true, GS>(cx, cl, pd, select_walk(a, li, lni, b),
+                                  (int)a.v[SSI_GATE], cx.ws, nullptr, false);
+  }
+  // every block has read the step state, and no block reads another's
+  // shared memory past this point
+  cl.sync();
+  if (cx.rank != 0) return;
+  const unsigned char* gath = ssp<const unsigned char>(a, SSP_GATHERED);
   const size_t chunk = (size_t)a.v[SSI_CHUNK];
   const size_t off = (size_t)a.v[SSI_CAND_OFF];
   const int P = (int)a.v[SSI_VIC_P];
-  if (tid == 0) pk = pick_records(g, chunk, off, (int)a.v[SSI_D]);
+  CandPick* pk = (CandPick*)cx.res;  // the rounds' results are spent
+  if (tid == 0) *pk = pick_records(gath, chunk, off, (int)a.v[SSI_D]);
   __syncthreads();
   int* o = ssp<int>(a, SSP_PACKED) + (size_t)b * (5 + P);
-  pick_flags(g, chunk, off, pk, P, o + 5);
+  pick_flags(gath, chunk, off, *pk, P, o + 5);
   if (tid == 0) {
     const bool hit = res.found > 0;
-    const bool preempted = !hit && !skip && pk.winner >= 0;
+    const bool preempted = !hit && !skip && pk->winner >= 0;
+    i64* st = ssp<i64>(a, SSP_STATE);
     o[0] = hit ? wrap32(res.sel) : -1;
-    o[1] = hit ? -2 : (skip ? -1 : wrap32(pk.winner));
-    o[2] = (pk.any_res && !hit && !skip) ? 1 : 0;
+    o[1] = hit ? -2 : (skip ? -1 : wrap32(pk->winner));
+    o[2] = (pk->any_res && !hit && !skip) ? 1 : 0;
     o[3] = wrap32(res.next_li);
     o[4] = wrap32(res.next_lni - lni);
     st[SS_STEP] = b + 1;
@@ -75,20 +94,24 @@ __global__ void __launch_bounds__(NTHREADS)
     st[SS_LNI] = res.next_lni;
     st[SS_FOLD_SEL] = hit ? res.sel : -1;
     st[SS_FOLD_ROW] = r;
-    st[SS_GHOST_SEL] = preempted ? pk.winner : -1;
+    st[SS_GHOST_SEL] = preempted ? pk->winner : -1;
   }
 }
 
 // The step's launch on `stream` of `device`; adds one to `*launched` when
 // it launched.
-extern "C" int shard_pressure_select_launch(const i64* iargs, void** ptrs,
-                                            int device, void* stream,
-                                            int* launched) {
-  const DeviceScope on(device);
-  if (on.err != cudaSuccess) return (int)on.err;
-  const ScanSelectArgs a = scan_select_args(iargs, ptrs);
-  shard_pressure_select_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(a);
-  const int e = (int)cudaGetLastError();
-  if (e == 0) ++*launched;
-  return e;
+extern "C" int shard_pressure_select_launch(
+    const i64* iargs, void** ptrs, const i64* geom,
+    int device, void* stream, int* launched) {
+  return select_launch(shard_pressure_select_kernel<false>,
+                       shard_pressure_select_kernel<true>, iargs, ptrs, geom,
+                       device, stream, launched);
+}
+
+extern "C" int shard_pressure_select_clusters(const i64* geom,
+                                              int* clusters) {
+  const ClusterGeom g = cluster_geom(geom);
+  return cluster_occupancy(g.scratch ? shard_pressure_select_kernel<true>
+                                     : shard_pressure_select_kernel<false>,
+                           g, clusters);
 }

@@ -5,7 +5,7 @@
 // The sharded pressure wave (K13a shard_pressure_local, K13b
 // shard_pressure_select) takes the same argument tables (its extra slots
 // NULL / 0 for K10 and K11), the grouped launch, the local helpers and
-// `select_cycle`.
+// the cluster select.
 //
 // Replaces `sharded_scan_fn` (:233) and `sharded_segments_fn` (:279) of
 // kubernetes_tpu/parallel/sharding.py, where GSPMD runs `_batch_core`
@@ -26,9 +26,9 @@
 //   2. the all-gather of the records (host side, parallel/sharding.py):
 //      only the rows of shards on other devices;
 //   3. the select on every distinct device: the walk, kept-set scores and
-//      pick of the step's cycle (K10b / K11b: `cluster_cycle` across a
-//      thread-block cluster, `cluster_select.cuh`; K13b: `cycle_select` in
-//      one block), the skip pods' known result (`_skip_cycle`), li / lni,
+//      pick of the step's cycle (`cluster_cycle` across a thread-block
+//      cluster, `cluster_select.cuh`), the skip pods' known result
+//      (`_skip_cycle`), li / lni,
 //      and for K11b the segment state (gang checkpoint, effective skip,
 //      rewind, gang zone counts); it writes the decision into the packed
 //      block and the step state the locals read next.
@@ -394,8 +394,7 @@ inline int scan_local_group_launch(Kernel kernel, const i64* words, int n,
 }
 
 // ---- the select kernels (K10b, K11b, K13b) ---------------------------------
-// K10b and K11b run as thread-block clusters (`cluster_select.cuh`); K13b
-// runs `select_cycle` below in one block.
+// Each runs as one thread-block cluster a step (`cluster_select.cuh`).
 // scalar slots, in the order of `_SSS_INTS`
 enum {
   SSI_N_PAD, SSI_ROWS, SSI_D, SSI_CHUNK, SSI_N_REAL, SSI_Z_PAD, SSI_B,
@@ -408,8 +407,7 @@ enum {
 enum {
   SSP_GATHERED, SSP_W, SSP_WTAB, SSP_PROFILE_ID, SSP_ROW, SSP_SCAL,
   SSP_IC_B, SSP_TR_B, SSP_PERMS, SSP_INV_PERMS, SSP_OID_SEQ, SSP_SEG_START,
-  SSP_GANG, SSP_GZ, SSP_STATE, SSP_P64, SSP_ZONE, SSP_TRACKED, SSP_TOTAL,
-  SSP_KEPT, SSP_FLAGS, SSP_ZS, SSP_PACKED, SSP_STATS, SSP_RECS,
+  SSP_GANG, SSP_GZ, SSP_STATE, SSP_PACKED, SSP_STATS, SSP_RECS,
   SSP_WORKSPACE, SSP_COUNT
 };
 
@@ -465,57 +463,6 @@ __device__ __forceinline__ void select_weights(const ScanSelectArgs& a, i64 i,
                 * W_K;
     ws[threadIdx.x] = w[threadIdx.x];
   }
-}
-
-// The cycle of live step i (pod-table row r, its own enumeration) over the
-// gathered records in ONE block (K13b): stage the pod's weight row,
-// unpack, `cycle_select`.
-__device__ __forceinline__ CycleResult select_cycle(const ScanSelectArgs& a,
-                                                    i64 i, int r, i64 li,
-                                                    i64 lni, i64* ws,
-                                                    const i64* no_scal) {
-  const int n = (int)a.v[SSI_N_PAD];
-  select_weights(a, i, ws);
-  const RecLayout lay{a.v[SSI_OFF_LOCAL], a.v[SSI_OFF_NA], a.v[SSI_OFF_TT],
-                      a.v[SSI_OFF_SC],    a.v[SSI_OFF_IC], a.v[SSI_OFF_ZONE],
-                      a.v[SSI_OFF_FEAS],  a.v[SSI_OFF_TRACKED]};
-  i64* p64 = ssp<i64>(a, SSP_P64);  // [5, n]: local, na, tt, sc, ic
-  int* zone = ssp<int>(a, SSP_ZONE);
-  unsigned char* trk = ssp<unsigned char>(a, SSP_TRACKED);
-  // the barrier that ends the unpack also publishes the weight row
-  unpack_records(ssp<const unsigned char>(a, SSP_GATHERED),
-                 (size_t)a.v[SSI_CHUNK], n, (int)a.v[SSI_ROWS], lay, p64,
-                 zone, trk, ssp<int>(a, SSP_FLAGS) + n);
-  CycleNodes nd{};
-  nd.n_pad = n;
-  nd.n_real = a.v[SSI_N_REAL];
-  nd.z_pad = (int)a.v[SSI_Z_PAD];
-  nd.zone_id = lay.zone >= 0 ? zone : nullptr;
-  const bool ipa_on = a.v[SSI_IPA_ON] != 0;
-  CyclePod pd{};
-  pd.scal = no_scal;
-  pd.na = lay.na >= 0 ? p64 + (size_t)n : nullptr;
-  pd.tt = lay.tt >= 0 ? p64 + 2 * (size_t)n : nullptr;
-  pd.sc = lay.sc >= 0 ? p64 + 3 * (size_t)n : nullptr;
-  // an inert inter-pod field broadcasts its spec's one element ([U, 1])
-  pd.ic = lay.ic >= 0 ? p64 + 4 * (size_t)n
-                      : (ipa_on ? ssp<const i64>(a, SSP_IC_B) + r : nullptr);
-  pd.tracked = lay.tracked >= 0
-                   ? trk
-                   : (ipa_on ? ssp<const unsigned char>(a, SSP_TR_B) + r
-                             : nullptr);
-  pd.ipa_on = ipa_on;
-  pd.ic_inert = (int)a.v[SSI_IC_INERT];
-  pd.tr_inert = (int)a.v[SSI_TR_INERT];
-  pd.local_in_base = 1;
-  const CycleScratch cs{ssp<i64>(a, SSP_TOTAL), ssp<unsigned char>(a, SSP_KEPT),
-                        nullptr, nullptr, nullptr, ssp<int>(a, SSP_FLAGS),
-                        ssp<i64>(a, SSP_ZS)};
-  const CycleResult res = cycle_select(nd, pd, false, select_walk(a, li, lni, i),
-                                       (int)a.v[SSI_GATE], ws, p64, nullptr,
-                                       false, cs);
-  __syncthreads();  // every read of the scratch is done
-  return res;
 }
 
 // The host's argument arrays as the struct the select kernels take.

@@ -629,6 +629,25 @@ _CYCLE_MASKS = ("sel_ok", "taints_ok", "unsched_ok", "ports_ok", "host_ok",
                 "disk_ok", "maxvol_ok", "volbind_ok", "volzone_ok")
 _CYCLE_COUNTS = ("node_aff_counts", "taint_counts", "spread_counts",
                  "interpod_counts", "image_sums", "prefer_avoid")
+# the node rows K2 reads, and its per-node outputs
+_CYCLE_NODES = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
+                "allowed_pods", "req_cpu", "req_mem", "req_eph", "nz_cpu",
+                "nz_mem", "pod_count", "alloc_scalar", "req_scalar",
+                "zone_id")
+_CYCLE_OUTS = ("total", "kept", "feasible", "fail_first", "general_bits")
+#: scalar and pointer slots of K2's launch (csrc/schedule_cycle.cu
+#: `CycleArgs`, the `CYI_*` / `CYP_*` enums)
+_CYCLE_INTS = ("n_pad", "S", "n_real", "z_pad", "last_index", "lni",
+               "num_to_find", "mode", "gate", "ipa_on", "ic_inert",
+               "tr_inert")
+_CYCLE_PTRS = (_CYCLE_NODES + ("scal", "req_scalar_p") + _CYCLE_MASKS
+               + ("interpod_code",) + _CYCLE_COUNTS
+               + ("interpod_tracked", "w", "perm", "inv_perm", "pos",
+                  "ghost_cpu", "ghost_mem", "ghost_eph", "ghost_cnt")
+               + _CYCLE_OUTS + ("out", "workspace"))
+#: the six scalar outputs, in the kernel's `CO_*` order
+_CYCLE_RESULTS = ("selected", "found", "evaluated", "max_score",
+                  "next_last_index", "next_last_node_index")
 
 
 def _pack_scalars(vals: list, dev) -> torch.Tensor:
@@ -637,25 +656,49 @@ def _pack_scalars(vals: list, dev) -> torch.Tensor:
                         dtype=I64).to(dev)
 
 
+def _cycle_outputs(n_pad: int, dev) -> dict:
+    """K2's outputs, carved from one allocation: total and general_bits
+    [n_pad] int64, the six scalars, then kept, feasible [n_pad] bool and
+    fail_first [n_pad] int8."""
+    words = 2 * n_pad + len(_CYCLE_RESULTS)
+    buf = torch.empty(8 * words + 3 * n_pad, dtype=torch.uint8, device=dev)
+    i64s = buf[:8 * words].view(I64)
+    u8 = buf[8 * words:]
+    return {"total": i64s[:n_pad], "general_bits": i64s[n_pad:2 * n_pad],
+            "out": i64s[2 * n_pad:],
+            "kept": u8[:n_pad].view(torch.bool),
+            "feasible": u8[n_pad:2 * n_pad].view(torch.bool),
+            "fail_first": u8[2 * n_pad:].view(torch.int8)}
+
+
 def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
                            num_to_find, n_real, z_pad, weights, wtab,
                            perm, inv_perm, pos, ghost):
+    """Launch K2: one thread-block cluster (`cycle_plan`) over the node
+    rows in place. The pod's scalars, its scalar requests and (without a
+    weight table) the static weight row go up in one copy; the outputs
+    are views of one allocation."""
     dev = nodes["valid"].device
     n_pad = int(nodes["valid"].shape[0])
     s_count = int(nodes["alloc_scalar"].shape[1])
-    fields = [nodes[k] for k in ("valid", "alloc_cpu", "alloc_mem",
-                                 "alloc_eph", "allowed_pods", "req_cpu",
-                                 "req_mem", "req_eph", "nz_cpu", "nz_mem",
-                                 "pod_count", "alloc_scalar", "req_scalar",
-                                 "zone_id")]
-    _require_cuda("schedule_cycle", *fields)
+    fields = {k: nodes[k] for k in _CYCLE_NODES}
+    _require_cuda("schedule_cycle", *fields.values())
     if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype != torch.bool:
         raise ValueError("schedule_cycle: zone_id must be int32, valid bool")
-    pid = pod.get("profile_id", 0)
-    scal = _pack_scalars([pod[k] for k in _CYCLE_SCALARS[:-1]] + [pid], dev)
-    req_scalar = _t(pod["req_scalar"], dev, I64).contiguous()
-    if req_scalar.numel() != s_count:
+    pid = int(np.asarray(_host(pod.get("profile_id", 0))))
+    req_scalar = np.asarray(_host(pod["req_scalar"]), np.int64).reshape(-1)
+    if req_scalar.size != s_count:
         raise ValueError("schedule_cycle: req_scalar width != node scalars")
+    vals = [int(np.asarray(_host(pod[k]))) for k in _CYCLE_SCALARS[:-1]]
+    vals += [pid] + req_scalar.tolist()
+    if wtab is None:
+        vals += [int(weights.get(k, 0)) for k in PRIORITY_AXIS]
+    packed = _upload(np.asarray(vals, np.int64), dev)
+    nsc = len(_CYCLE_SCALARS)
+    if wtab is None:
+        w = packed[nsc + s_count:]
+    else:
+        w = _t(_row_at(_t(wtab, dev, I64), pid), dev, I64).contiguous()
 
     def dense(key, dtype):
         v = pod.get(key)
@@ -666,7 +709,6 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
             raise ValueError(f"schedule_cycle: {key} is not [n_pad]")
         return v
     masks = [dense(k, torch.bool) for k in _CYCLE_MASKS]
-    code = dense("interpod_code", torch.int8)
     counts = [dense(k, I64) for k in _CYCLE_COUNTS]
     tracked = dense("interpod_tracked", torch.bool)
     # interpod runs unless BOTH of its fields are inert; an inert side
@@ -674,21 +716,11 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
     ic_inert = counts[3] is None
     tr_inert = tracked is None
     ipa_on = not (ic_inert and tr_inert)
-    ic_b = _t(pod["interpod_counts"], dev, I64).reshape(-1)[:1] \
-        if ic_inert else None
-    tr_b = _t(pod["interpod_tracked"], dev, torch.bool).reshape(-1)[:1] \
-        if tr_inert else None
-    if ipa_on:
-        if ic_inert:
-            counts[3] = ic_b
-        if tr_inert:
-            tracked = tr_b
-    if wtab is not None:
-        wtab = _t(wtab, dev, I64)
-        wrow = _row_at(wtab, pid)
-    else:
-        wrow = None
-    w = _weight_row(weights, wrow, dev)
+    if ipa_on and ic_inert:
+        counts[3] = _t(pod["interpod_counts"], dev, I64).reshape(-1)[:1]
+    if ipa_on and tr_inert:
+        tracked = _t(pod["interpod_tracked"], dev,
+                     torch.bool).reshape(-1)[:1]
     mode = 0
     if pos is not None:
         mode = 2
@@ -697,44 +729,36 @@ def _schedule_cycle_launch(nodes, pod, last_index, last_node_index,
         mode = 1
         perm = _t(perm, dev, I32).contiguous()
         inv_perm = _t(inv_perm, dev, I32).contiguous()
-    # K1 first: the row-local resource families over every node
-    base = _local_total_launch(weights, nodes["nz_cpu"], nodes["nz_mem"],
-                               nodes["alloc_cpu"], nodes["alloc_mem"], wrow,
-                               add_cpu=int(np.asarray(_host(pod["nz_cpu"]))),
-                               add_mem=int(np.asarray(_host(pod["nz_mem"]))))
-    total = torch.empty(n_pad, dtype=I64, device=dev)
-    kept = torch.empty(n_pad, dtype=torch.bool, device=dev)
-    feasible = torch.empty(n_pad, dtype=torch.bool, device=dev)
-    fail_first = torch.empty(n_pad, dtype=torch.int8, device=dev)
-    general_bits = torch.empty(n_pad, dtype=I64, device=dev)
-    scratch = torch.empty(2 * n_pad, dtype=I32, device=dev)
-    zscratch = torch.empty(2 * int(z_pad), dtype=I64, device=dev)
-    out = torch.empty(6, dtype=I64, device=dev)
     ghost = _ghost_tensors(ghost, dev)
-    gptrs = [None] * 4 if ghost is None else [ghost[k] for k in GHOST_FIELDS]
-    _require_cuda("schedule_cycle", *gptrs)
-    if ghost is not None and any(g.shape != (n_pad,) for g in gptrs):
+    if ghost is not None and any(g.shape != (n_pad,)
+                                 for g in ghost.values()):
         raise ValueError("schedule_cycle: ghost fields are not [n_pad]")
-    lib = _build.load("schedule_cycle")
-    tensors = fields + masks + [code] + counts + [tracked]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[_ptr(t) for t in tensors])
-    obs.inc("launch.schedule_cycle")
-    _check(lib.schedule_cycle_launch(
-        n_pad, s_count, int(n_real), int(z_pad), int(last_index),
-        int(last_node_index), int(num_to_find), mode,
-        int(ipa_on), int(ic_inert), int(tr_inert), ptrs,
-        _ptr(scal), _ptr(req_scalar), _gate(weights), _ptr(w), _ptr(base),
-        _ptr(perm), _ptr(inv_perm), _ptr(pos),
-        _ptr(total), _ptr(kept), _ptr(feasible), _ptr(fail_first),
-        _ptr(general_bits), _ptr(scratch), _ptr(zscratch), _ptr(out),
-        *[_ptr(g) for g in gptrs], _stream()), "schedule_cycle")
-    return {
-        "selected": out[0], "found": out[1], "evaluated": out[2],
-        "max_score": out[3], "total": total, "kept": kept,
-        "feasible": feasible, "fail_first": fail_first,
-        "general_bits": general_bits, "next_last_index": out[4],
-        "next_last_node_index": out[5],
-    }
+    plan = _cluster_geometry("schedule_cycle", lambda blocks: cycle_plan(
+        n_pad, s_count, int(z_pad), blocks))
+    outs = _cycle_outputs(n_pad, dev)
+    ptrs = dict(fields)
+    ptrs.update(zip(_CYCLE_MASKS, masks))
+    ptrs.update(zip(_CYCLE_COUNTS, counts))
+    ptrs.update({"scal": packed[:nsc], "req_scalar_p": packed[nsc:],
+                 "interpod_code": dense("interpod_code", torch.int8),
+                 "interpod_tracked": tracked, "w": w, "perm": perm,
+                 "inv_perm": inv_perm, "pos": pos,
+                 "workspace": plan.workspace(dev), **outs})
+    if ghost is not None:
+        ptrs.update({"ghost_" + k: v for k, v in ghost.items()})
+    _require_cuda("schedule_cycle",
+                  *[v for v in ptrs.values() if v is not None])
+    ints = {"n_pad": n_pad, "S": s_count, "n_real": int(n_real),
+            "z_pad": int(z_pad), "last_index": int(last_index),
+            "lni": int(last_node_index), "num_to_find": int(num_to_find),
+            "mode": mode, "gate": _gate(weights), "ipa_on": int(ipa_on),
+            "ic_inert": int(ic_inert), "tr_inert": int(tr_inert)}
+    _launch("schedule_cycle", *_launch_arrays(
+        ints, _CYCLE_INTS, ptrs, _CYCLE_PTRS, "schedule_cycle"),
+        plan.geometry())
+    res = {k: outs[k] for k in _CYCLE_OUTS}
+    res.update({k: outs["out"][i] for i, k in enumerate(_CYCLE_RESULTS)})
+    return res
 
 
 def schedule_cycle(nodes, pod, last_index, last_node_index, num_to_find,
@@ -1574,10 +1598,13 @@ def schedule_batch_segments_plain(nodes, pods, seg_start, gang, n_pods,
 CLUSTER_BLOCKS = 16
 CLUSTER_THREADS = 1024
 SMEM_CAP = 232448
-#: the kernels that run as one cluster a window (K5, K6) or a chunk (K8)
-CLUSTER_KERNELS = ("schedule_batch", "schedule_segments", "pressure_batch")
+#: the kernels that run as one cluster a window (K5, K6), a chunk (K8) or
+#: a cycle (K2)
+CLUSTER_KERNELS = ("schedule_batch", "schedule_segments", "pressure_batch",
+                   "schedule_cycle")
 #: the mesh selects that run as one cluster a step
-SELECT_CLUSTER_KERNELS = ("shard_scan_select", "shard_segments_select")
+SELECT_CLUSTER_KERNELS = ("shard_scan_select", "shard_segments_select",
+                          "shard_pressure_select")
 #: slots of a launch's geometry array (`CG_*`, csrc/cluster_cycle.cuh)
 CLUSTER_GEOM = ("blocks", "npt", "resident", "smem", "scratch")
 _NWARPS = CLUSTER_THREADS // 32
@@ -1680,11 +1707,12 @@ _PLACEMENTS = ((True, False), (False, False), (False, True))
 
 
 def _first_placement(blocks: int, npt: int, what: str, n_pad: int,
-                     z_pad: int, nbytes_at) -> ClusterPlan:
-    """The plan of the first placement whose shared memory
+                     z_pad: int, nbytes_at,
+                     placements=_PLACEMENTS) -> ClusterPlan:
+    """The plan of the first of `placements` whose shared memory
     (`nbytes_at(resident, global_scratch)`) fits in SMEM_CAP; raises when
     not even the fixed part fits (z_pad too large)."""
-    for resident, gscr in _PLACEMENTS:
+    for resident, gscr in placements:
         nbytes = nbytes_at(resident, gscr)
         if nbytes <= SMEM_CAP:
             return ClusterPlan(blocks, npt, resident, nbytes, gscr)
@@ -1737,11 +1765,32 @@ def pressure_plan(n_pad: int, S: int, z_pad: int,
 
 def select_plan(n_pad: int, z_pad: int,
                 blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
-    """The geometry of a K10b / K11b step over `n_pad` node slots (no
-    rows; the step's gathered records staged in shared memory when they
-    fit, else in global memory, and past that the scratch in a global
-    workspace too)."""
+    """The geometry of a K10b / K11b / K13b step over `n_pad` node slots
+    (no rows; the step's gathered records staged in shared memory when
+    they fit, else in global memory, and past that the scratch in a
+    global workspace too)."""
     return cluster_plan(n_pad, 0, z_pad, False, blocks, records=True)
+
+
+def cycle_plan(n_pad: int, S: int, z_pad: int,
+               blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
+    """The geometry of a K2 cycle over `n_pad` node slots: the fewest
+    node slots a thread that cover the axis with `blocks` blocks, then
+    only the blocks that own a node at that span, as `pressure_plan`. One
+    pod reads each row once, so the rows stay in global memory; the
+    per-slot scratch lives in shared memory while it fits in SMEM_CAP
+    (180,224 slots on 16 blocks), past that in a global workspace. Raises
+    only when the fixed part alone passes the cap."""
+    if not 1 <= blocks <= CLUSTER_BLOCKS:
+        raise ValueError(f"a cluster holds 1 to {CLUSTER_BLOCKS} blocks")
+    npt = max(1, -(-int(n_pad) // (blocks * CLUSTER_THREADS)))
+    span = npt * CLUSTER_THREADS
+    blocks = max(1, -(-int(n_pad) // span))
+    return _first_placement(
+        blocks, npt, "cycle", n_pad, z_pad,
+        lambda resident, gscr: cluster_smem_bytes(
+            span, S, z_pad, False, resident, global_scratch=gscr),
+        placements=_PLACEMENTS[1:])
 
 
 #: clusters the card holds at once, by (kernel, plan, device); and each
@@ -3254,16 +3303,15 @@ class ScanShard:
 
 @dataclasses.dataclass
 class ScanSide:
-    """The replicated half of a sharded scan or segments window on one
-    device (K10b / K11b): the step state `st` [SS_COUNT], the pod rows
-    `row` [B] int32, the profile ids `prof` [B] and weight table `wtab`
-    (or None), the static weight row `w`, the [U, 13] scalar table
-    `scal`, the first column of the inter-pod tables `ic_b` / `tr_b` [U,
-    1] (what an inert field broadcasts), the rotation tables and order
-    ids (or None), `seg_start` / `gang` [B] and the gang zone counts `gz`
-    [z_pad] (K11), the gathered records [D, bytes], the packed block and
-    (K10) the stats [5, B], and the one-block select's scratch (K13b;
-    empty for the cluster selects K10b / K11b)."""
+    """The replicated half of a sharded scan, segments window or pressure
+    wave on one device (K10b / K11b / K13b): the step state `st`
+    [SS_COUNT], the pod rows `row` [B] int32, the profile ids `prof` [B]
+    and weight table `wtab` (or None), the static weight row `w`, the [U,
+    13] scalar table `scal`, the first column of the inter-pod tables
+    `ic_b` / `tr_b` [U, 1] (what an inert field broadcasts), the rotation
+    tables and order ids (or None), `seg_start` / `gang` [B] and the gang
+    zone counts `gz` [z_pad] (K11), the gathered records [D, bytes], the
+    packed block and (K10) the stats [5, B]."""
     st: torch.Tensor
     row: torch.Tensor
     prof: Optional[torch.Tensor]
@@ -3281,7 +3329,6 @@ class ScanSide:
     gathered: torch.Tensor
     packed: torch.Tensor
     stats: Optional[torch.Tensor]
-    scratch: dict
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -3654,8 +3701,7 @@ _SSS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad", "B",
     "off_" + n for n, _ in _REC_PLANES) + ("vic_P", "cand_off")
 _SSS_PTRS = ("gathered", "w", "wtab", "profile_id", "row", "scal", "ic_b",
              "tr_b", "perms", "inv_perms", "oid_seq", "seg_start", "gang",
-             "gz", "state", "p64", "zone", "tracked", "total", "kept",
-             "flags", "zs", "packed", "stats", "recs", "workspace")
+             "gz", "state", "packed", "stats", "recs", "workspace")
 
 
 def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None,
@@ -3674,7 +3720,6 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None,
             "seg_start": side.seg_start, "gang": side.gang, "gz": side.gz,
             "state": side.st, "packed": side.packed, "stats": side.stats,
             "recs": recs, "workspace": workspace}
-    ptrs.update(side.scratch)
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
     _require_on(name, dev, *ptrs.values())
     ints = {"n_pad": plan.n_pad, "rows": plan.rows, "D": D, "chunk": chunk,
@@ -3693,7 +3738,8 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None,
 
 def _select_cluster_launch(name, side: ScanSide,
                            plan: ScanPlan) -> Relaunch:
-    """One step of cluster select `name` (K10b / K11b) on `side`'s device.
+    """One step of cluster select `name` (K10b / K11b / K13b) on `side`'s
+    device.
     At the window's first step the argument arrays and the geometry are
     built and bound, with the device and its stream, into the `Relaunch`
     cached on `side`: `select_plan` at 16 blocks, or 8 when the card
@@ -4085,20 +4131,8 @@ def shard_pressure_select(side: ScanSide,
                           plan: ScanPlan) -> Optional[Relaunch]:
     """K13b on one device over its gathered records. CPU -> the plain
     version (returns None); CUDA -> `csrc/shard_pressure_select.cu`, one
-    block a step, returning its `Relaunch` for the wave's next steps (the
-    argument arrays, device and stream bound at the wave's first step and
-    cached on `side`)."""
-    name = "shard_pressure_select"
+    thread-block cluster a step (`select_plan`, as K10b), returning its
+    `Relaunch` for the wave's next steps."""
     if not side.gathered.is_cuda:
         return shard_pressure_select_plain(side, plan)
-    rel = side._args.get(name)
-    if rel is None:
-        dev = side.device
-        ptrs, iargs, parr = _scan_select_args(name, side, plan)
-        fn = getattr(_build.load(name), name + "_launch")
-        rel = side._args[name] = Relaunch(name, fn, (
-            iargs, parr, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream), ptrs)
-    _check(rel.fn(), name)
-    rel.book()
-    return rel
+    return _select_cluster_launch("shard_pressure_select", side, plan)

@@ -544,21 +544,6 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
     sides = {}
     for d in mesh.distinct:
         tab = tables[mesh.devices.index(d)]
-        scratch = {}
-        if pressure is not None:
-            # the one-block select's unpacked planes and scratch (K13b;
-            # the cluster selects K10b / K11b stage the records in shared
-            # memory, or in a staging area of their own past what it holds)
-            scratch = {
-                "p64": torch.empty((5, n_pad), dtype=K.I64, device=d),
-                "zone": torch.empty(n_pad, dtype=K.I32, device=d)
-                if "zone" in planes else None,
-                "tracked": torch.empty(n_pad, dtype=torch.uint8, device=d)
-                if "tracked" in planes else None,
-                "total": torch.empty(n_pad, dtype=K.I64, device=d),
-                "kept": torch.empty(n_pad, dtype=torch.uint8, device=d),
-                "flags": torch.empty(2 * n_pad, dtype=K.I32, device=d),
-                "zs": torch.empty(2 * z_pad, dtype=K.I64, device=d)}
         stats = None
         if pressure is not None:
             packed = pressure["out"] if d == mesh.devices[0] else \
@@ -583,7 +568,7 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
             gang=gng[d], gz=torch.zeros(z_pad, dtype=K.I64, device=d)
             if gang_score else None,
             gathered=torch.zeros((D, nbytes), dtype=torch.uint8, device=d),
-            packed=packed, stats=stats, scratch=scratch)
+            packed=packed, stats=stats)
     scan = []
     for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
         mine = {k: v for k, v in nd.items() if k not in K._MUTABLE}

@@ -13,8 +13,13 @@ resolvable first failures, a zero-victim instant win and five-criteria
 ties fall in different blocks of the plan; holds the blockwise pick (the
 plain `shard_candidate` record of each block slice, then the record pick)
 against `_pick_one_node` over the whole axis; and proves the reuse
-premise on waves with spec runs and with alternating specs. Tolerance:
-exact equality (every output is an integer or a converted count).
+premise on waves with spec runs and with alternating specs. K13b
+(`shard_pressure_select`) runs the same cycle per step as one cluster of
+K10b's `select_plan` over the gathered shard records: the sharded wave on
+2 and 4 CPU shards is held against JAX's `sharded_pressure_fn` on the
+same designed world, whose select blocks are the plan's blocks here.
+Tolerance: exact equality (every output is an integer or a converted
+count).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +27,13 @@ import pytest
 import torch
 
 from kubernetes_tpu.ops import kernels as JK
+from kubernetes_tpu.parallel import sharding as JS
 from tests.test_torch_preempt import (
     MASKS, _check_pressure, _pod_spec, _stack, both, rand_victims,
     victim_nodes)
 
 from kubernetes_tpu_torch.ops import kernels as PK
+from kubernetes_tpu_torch.parallel import sharding as PS
 
 torch.set_num_threads(1)
 
@@ -195,6 +202,49 @@ def test_plain_pressure_batch_matches_jax_across_blocks():
     assert not out["victims"][6:9].any()
     assert out["victims"][3].sum() > 0
     assert win[9:] == [-1, -1] and not any(cand[9:])
+
+
+def test_designed_world_spans_the_select_plans_blocks():
+    """K13b plans its step as K10b does; at N_PAD the select's blocks are
+    K8's, so the designed world's rows fall in the same blocks of it."""
+    plan = PK.select_plan(N_PAD, Z_PAD)
+    assert plan.span == PK.pressure_plan(N_PAD, 1, Z_PAD).span == 1024
+    assert [int(j) // plan.span for j in (HIT, LI, *TIES, ZERO, EVICT)] \
+        == [0, 1, 1, 2, 2, 0]
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_pressure_matches_jax_across_select_blocks(d):
+    """The designed wave on d shards (shard boundaries at multiples of
+    1,050 or 525, the select's blocks at 1,024): K13a on every shard and
+    K13b per step equal JAX's `sharded_pressure_fn` bit for bit. The
+    walk starts in select block 1, spec A binds in block 0, spec B fails
+    resolvably and nominates rows tied through all five criteria in
+    blocks 1 and 2 (the second pick reads the first nomination's ghost),
+    spec C nominates a zero-victim row in block 2 over one in block 0,
+    the ghost load is carried in, and two skip pods close the wave."""
+    nodes, vic, per_pod, ghost = _designed_world(11)
+    stacked = _stack(per_pod)
+    jn, pn = both(nodes)
+    jv, _pv = both(vic)
+    jg, pg = both(ghost)
+    want = JK.pressure_batch(
+        jn, {k: jn[k] for k in PK._MUTABLE}, jg,
+        {k: jnp.asarray(v) for k, v in stacked.items()}, jv, LI, LNI,
+        N_REAL, N_REAL, Z_PAD, mesh=JS.make_mesh(d))
+    mesh = PS.Mesh(["cpu"] * d)
+    got = PK.pressure_batch(
+        PS.shard_node_arrays(mesh, pn), {k: pn[k] for k in PK._MUTABLE}, pg,
+        {k: torch.as_tensor(v) for k, v in stacked.items()}, vic, LI, LNI,
+        N_REAL, N_REAL, Z_PAD, mesh=mesh)
+    mut, gh, li, lni, out = got
+    _check_pressure(({k: torch.cat([m[k] for m in mut]) for k in mut[0]},
+                     {k: torch.cat([g[k] for g in gh]) for k in gh[0]},
+                     li, lni, out), want)
+    win = out["winner"].tolist()
+    assert win[:3] == [-2] * 3 and win[3:6] == [TIES[0], TIES[1], TIES[0]]
+    assert win[6:9] == [ZERO] * 3 and win[9:] == [-1, -1]
+    assert all(out["any_cand"].tolist()[3:9])
 
 
 # ---------------------------------------------------------------------------
