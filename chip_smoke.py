@@ -60,14 +60,17 @@
    per-slot scratch in shared memory or in a global workspace (with its
    bytes), shared bytes a block, and how many such clusters the card
    holds; K2's and K13b's plans are on the kernels line too (`plan`). K2,
-   K8, K9a, K10a/b, K11a/b and K13a/b also get `device_ms` on the kernels
-   line: the kernel's own device time a launch (torch.profiler) beside
-   `ms`, the wrapper call's (K9a also on mesh-scan-default's first serial
+   K3, K4, K7, K8, K9a-d, K10a/b, K11a/b, K13a/b and K14a also get
+   `device_ms` on the kernels line: the kernel's own device time a launch
+   (torch.profiler; K7 and K14a: their two kernels a call) beside `ms`,
+   the wrapper call's (K9a also on mesh-scan-default's first serial
    cycle, `device_ms_scan_default`).
-   K10a, K11a and K13a run one launch a device over every shard it holds,
-   each record written into the device's gathered buffer: their check
-   captures that launch over the card's four shards (bound, `ms` and
-   `device_ms` for the four together; `shards` on the kernels line), and
+   K9c, K10a, K11a and K13a run one launch a device over every shard it
+   holds, each record written into the device's gathered buffer: their
+   check captures that launch over the card's four shards (bound, `ms`
+   and `device_ms` for the four together; `shards` on the kernels line;
+   K10a / K11a / K13a also write every other card's buffer and publish
+   the step's stamps), and
    `[variants]
    grouped locals` holds both against their plain versions on 4, 2 and 1
    shards of the card in the step states of a window (folds on a shard's
@@ -268,9 +271,11 @@ MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS \
 MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
 
 
-#: entry points whose plain version is not `<name>_plain`: K13a's wrapper
-#: takes a device's shards, its per-shard plain version one shard
-PLAIN_NAMES = {"shard_pressure_local": "shard_pressure_group_plain"}
+#: entry points whose plain version is not `<name>_plain`: K13a's and
+#: K9c's wrappers take a device's shards, their per-shard plain versions
+#: one shard
+PLAIN_NAMES = {"shard_pressure_local": "shard_pressure_group_plain",
+               "shard_uniform_sweep": "shard_uniform_sweep_group_plain"}
 
 
 def plain_of(name):
@@ -353,13 +358,22 @@ def device_time(fn, sync, reps, kernel):
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    events = prof.key_averages()
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    for _attempt in range(3):
+        # a run whose trace holds none of the kernels is taken again
+        # (seen once a few runs: a cold CUPTI buffer), twice at most
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        events = prof.key_averages()
+        if any(n in ev.key for ev in events for n in names):
+            break
+    else:
+        print(f"[profiler] no event of {names} in 3 runs; events seen: "
+              f"{sorted(ev.key for ev in events)[:12]}")
     out = []
-    for name in (kernel,) if isinstance(kernel, str) else kernel:
+    for name in names:
         total, count = 0.0, 0
         for ev in events:
             if name in ev.key:
@@ -370,6 +384,18 @@ def device_time(fn, sync, reps, kernel):
                 count += ev.count
         out.append((total / count / 1e3, count) if count else (None, 0))
     return out[0] if isinstance(kernel, str) else out
+
+
+def device_ms_a_call(fn, sync, reps, kernels):
+    """(device ms a call of `fn`, summed over the CUDA kernels named in
+    `kernels`, and the launches seen) from one profiler run of `reps`
+    calls (`device_time`); (None, 0) when it records none of them."""
+    found = [(ms * n, n) for ms, n in device_time(fn, sync, reps,
+                                                  tuple(kernels))
+             if ms is not None]
+    if not found:
+        return None, 0
+    return sum(t for t, _n in found) / reps, sum(n for _t, n in found)
 
 
 def max_abs_err(a, b):
@@ -435,7 +461,7 @@ def kernel_checks(device, sync):
     out = {}
 
     def entry(name, got, want, fn, plain, reps, plain_reps, nbytes,
-              library_ms=None, label=None):
+              library_ms=None, label=None, dev_kernels=None):
         err = max_abs_err(got, want)
         if err != 0:
             raise SystemExit(f"{name}: kernel disagrees with plain "
@@ -455,11 +481,17 @@ def kernel_checks(device, sync):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
                      "bound_by": "bytes", "library_ms": library_ms}
+        note = ""
+        if dev_kernels:
+            dev_ms, seen = device_ms_a_call(fn, sync, reps, dev_kernels)
+            out[name]["device_ms"] = dev_ms
+            note = (f" device_ms {fmt_ms(dev_ms)} a call over {seen} "
+                    f"launches (torch.profiler)")
         print(f"[kernel] {name}: equal to plain (max_abs_err 0), "
               f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {out[name]['bound_ms']:.6f}"
               + ("" if library_ms is None
-                 else f" library_ms {library_ms:.4f}"))
+                 else f" library_ms {library_ms:.4f}") + note)
 
     # K1 local_total over [n_pad]
     args = (w, nodes["nz_cpu"] + 100, nodes["nz_mem"] + 500 * MI,
@@ -511,7 +543,7 @@ def kernel_checks(device, sync):
           K.schedule_batch_uniform_plain(*uargs, **ukw),
           lambda: K.schedule_batch_uniform(*uargs, **ukw),
           lambda: K.schedule_batch_uniform_plain(*uargs, **ukw), 20, 2,
-          state_bytes + (cap + 1) * 4)
+          state_bytes + (cap + 1) * 4, dev_kernels=("uniform_burst_kernel",))
     # ... and on the filled cluster, where every 7th node leaves the tie
     # set after one more pod: STAY batches cut every ~7 pods
     sargs = (nodes, cls, N_PODS, 7, b.n_real, True)
@@ -547,7 +579,8 @@ def kernel_checks(device, sync):
     entry("scatter_rows", dev_a, dev_b,
           lambda: K.scatter_rows(dev_a, rows_t, upd_t),
           lambda: K.scatter_rows_plain(dev_b, rows_t, upd_t), 200, 50,
-          len(rows) * (2 * row_bytes + 4), library_ms=library_ms)
+          len(rows) * (2 * row_bytes + 4), library_ms=library_ms,
+          dev_kernels=("scatter_rows_kernel",))
     return out
 
 
@@ -1473,6 +1506,9 @@ class capture:
 
         def rec(nodes, *args, **kw):
             if self.call is None:
+                # on several cards, what other cards' streams still owe
+                # (a peer's records and stamps) lands before the copy
+                _sync_cards()
                 self.call = (_clone(nodes), _clone(args), _clone(kw))
             self.last = real(nodes, *args, **kw)
             if self.keep_all:
@@ -1484,6 +1520,14 @@ class capture:
     def __exit__(self, *exc):
         from kubernetes_tpu_torch.ops import kernels as K
         setattr(K, self.fn_name, self.real)
+
+
+def _sync_cards():
+    """Synchronize every card of the host, when it has several."""
+    import torch
+    if torch.cuda.device_count() > 1:
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def _clone(x):
@@ -1522,10 +1566,12 @@ def scan_bound(nodes, stack, n_cycles, n_real, out_bytes):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def call_entry(report, name, fn, plain, call, bound, sync, reps, label):
+def call_entry(report, name, fn, plain, call, bound, sync, reps, label,
+               dev_kernels=None):
     """Hold a kernel against its plain version on one captured call of its
     main path, time both (the plain version once), file its report entry;
-    returns the kernel's ms."""
+    returns the kernel's ms. `dev_kernels` (CUDA kernel names): the entry
+    also gets `device_ms`, their device time a call (torch.profiler)."""
     import torch
     nodes, args, kw = call
     got = fn(nodes, *args, **kw)
@@ -1545,9 +1591,16 @@ def call_entry(report, name, fn, plain, call, bound, sync, reps, label):
                     "launches": 0, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound[0],
                     "bound_by": bound[1], "library_ms": None}
+    note = ""
+    if dev_kernels:
+        dev_ms, seen = device_ms_a_call(lambda: fn(nodes, *args, **kw),
+                                        sync, reps, dev_kernels)
+        report[name]["device_ms"] = dev_ms
+        note = (f"; device_ms {fmt_ms(dev_ms)} a call over {seen} "
+                f"launches (torch.profiler)")
     print(f"[kernel] {name}: equal to plain on {label} (max_abs_err 0), "
           f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-          f"{bound[0]:.6f} ({bound[1]})")
+          f"{bound[0]:.6f} ({bound[1]}){note}")
     return ms
 
 
@@ -1798,12 +1851,15 @@ def scale_path(device, sync, report):
         return K.schedule_batch(nodes, *args, **kw)
     ms = cuda_time(k5, sync, 3)
     dev_ms, _n = device_time(k5, sync, 3, "schedule_batch_kernel")
+    device = ("not measured (torch.profiler recorded no kernel event)"
+              if dev_ms is None else
+              f"{dev_ms / SCALE_PREFIX * 1e3:.2f} us/pod")
     bound = scan_bound(nodes, args[0], SCALE_PREFIX,
                        int(nodes["valid"].sum()),
                        SCALE_PREFIX * (3 * 4 + 5 * 8))
     print(f"[kernel] schedule_batch on {SCALE_CELL['name']}: "
-          f"{ms / SCALE_PREFIX * 1e3:.2f} us/pod, device "
-          f"{dev_ms / SCALE_PREFIX * 1e3:.2f} us/pod (first {SCALE_PREFIX} "
+          f"{ms / SCALE_PREFIX * 1e3:.2f} us/pod, device {device} "
+          f"(first {SCALE_PREFIX} "
           f"pods; bound {bound[0] / SCALE_PREFIX * 1e3:.4f} us/pod "
           f"({bound[1]}), chain floor {4 * ROUND_US:.2f} us/pod); "
           f"{describe_geometry(plan, fit)}")
@@ -1912,7 +1968,9 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
     and `ops` integer operations over the non-tensor peak. `on_device`:
     the entry also gets `device_ms`, the kernel's own device time a launch
     over the same `reps` calls (torch.profiler), beside `ms`, the CUDA-event
-    time of the whole wrapper call (host enqueue and resets included)."""
+    time of the whole wrapper call (host enqueue and resets included); a
+    tuple of CUDA kernel names instead of True: their device time a call,
+    summed."""
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     args, kw = _full(call)
@@ -1936,8 +1994,11 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
     ms = cuda_time(timed(fn), sync, reps)
     plain_ms = cuda_time(timed(plain), sync, 2)
     dev_ms = None
-    if on_device:
+    if on_device is True:
         dev_ms, seen = device_time(timed(fn), sync, reps, name + "_kernel")
+    elif on_device:
+        dev_ms, seen = device_ms_a_call(timed(fn), sync, reps, on_device)
+    if on_device:
         note += (f"; device_ms {dev_ms:.4f} over {seen} launches "
                  f"(torch.profiler)" if dev_ms is not None else
                  "; device_ms not measured (torch.profiler recorded no "
@@ -1990,15 +2051,22 @@ def mesh_kernel_checks(calls, report, sync):
     mesh_kernel_entry(report, "shard_cycle_select",
                       calls["shard_cycle_select"], no_reset, result,
                       nbytes(args[0]) + n_pad * (8 + 1) + 6 * 8, sync, 50,
-                      "the gathered records of the first serial cycle")
+                      "the gathered records of the first serial cycle",
+                      on_device=True)
     args, kw = _full(calls["shard_uniform_sweep"])
-    sh = args[0]
+    shards = args[0]
     mesh_kernel_entry(report, "shard_uniform_sweep",
                       calls["shard_uniform_sweep"], no_reset,
-                      lambda a, r: (a[0].rec, a[0].tot, a[0].flags[:2]),
-                      nbytes(sh, args[1], args[2], sh.rec, sh.tot,
-                             sh.flags), sync, 50,
-                      "shard 0's first pass of the burst")
+                      lambda a, r: [(sh.rec, sh.tot, sh.flags[:2])
+                                    for sh in a[0]],
+                      nbytes(shards, args[1], args[2])
+                      + sum(nbytes(sh.rec, sh.tot, sh.flags)
+                            for sh in shards), sync, 50,
+                      f"the burst's first pass, one launch over the "
+                      f"{len(shards)} shard(s) of the first device "
+                      f"({K.SWEEP_BLOCKS}-block clusters; bound and "
+                      f"device_ms for them together)", on_device=True)
+    report["shard_uniform_sweep"]["shards"] = len(shards)
     args, kw = _full(calls["shard_uniform_select"])
     mesh_kernel_entry(report, "shard_uniform_select",
                       calls["shard_uniform_select"], reset_state,
@@ -2007,7 +2075,8 @@ def mesh_kernel_checks(calls, report, sync):
                              kw.get("oid_seq")) + 4 * K.K_BATCH, sync, 50,
                       "the first pass's gathered records",
                       "; both times include the copies that restore the "
-                      "pass state and the decisions before each call")
+                      "pass state and the decisions before each call",
+                      on_device=True)
 
 
 def mesh_path(name, n_nodes, device, sync, report, check_kernels,
@@ -2067,7 +2136,9 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
           f"({run['t_burst'] * 1e3:.2f} ms: encode {ph['encode'] * 1e3:.2f} "
           f"(node mirror {ph['mirror'] * 1e3:.2f}) dispatch "
           f"{ph['dispatch'] * 1e3:.2f} fetch {ph['fetch'] * 1e3:.2f}); "
-          f"gather_bytes {ph['gather_bytes']} passes {ph['passes']} host "
+          f"gather_bytes {ph['gather_bytes']} record copies "
+          f"{ph['copies']} ({ph['copies'] / max(ph['passes'], 1):.2f} a "
+          f"pass) passes {ph['passes']} host "
           f"reads of the pass counter {ph['syncs']}; {N_SERIAL} serial "
           f"cycles {run['t_serial'] * 1e3:.1f} ms (gather.cycle "
           f"{obs.get('gather.cycle')} bytes); launches {counts}; "
@@ -2590,14 +2661,16 @@ def scan_kernel_checks(calls, report, sync, seg):
 def mesh_step_line(name, mesh, ph, counts, kernels, dispatch=None, runs=1):
     """The `[mesh-step]` line of a mesh scan or fused window or pressure
     wave (`dispatch`: its seconds, when its phases book none; `runs`: the
-    step loops it took, a wave's chunks): its host calls a step (local
-    launches, selects and record copies enqueued, over the steps), the
-    copies and the local kernel's launches. The launches are those the
-    kernels' C launch functions counted as they launched, the copies
-    those `gather_in_place` enqueued. Fails unless the local ran once a
-    device (per LOCAL_GROUP_SHARDS of its shards) and step, plus the last
-    fold of each run, the select once a device and step, and the copies
-    were only those of other devices' records."""
+    step loops it took, a wave's chunks): the mesh's exchange, its host
+    calls a step (local launches, selects and record copies enqueued,
+    over the steps), the copies and the local kernel's launches. The
+    launches are those the kernels' C launch functions counted as they
+    launched, the copies those `gather_in_place` enqueued. Fails unless
+    the local ran once a device (per LOCAL_GROUP_SHARDS of its shards)
+    and step, plus the last fold of each run, the select once a device
+    and step, and the record copies were none under the "peer" exchange
+    (the locals write every card's records and stamps themselves) and
+    only those of other devices' records under "copy"."""
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.parallel import sharding as S
     local, select = kernels
@@ -2605,20 +2678,23 @@ def mesh_step_line(name, mesh, ph, counts, kernels, dispatch=None, runs=1):
     n_dev = len(mesh.distinct)
     groups = sum(-(-sum(d == x for x in mesh.devices) //
                    K.LOCAL_GROUP_SHARDS) for d in mesh.distinct)
-    want = (groups * (steps + runs), n_dev * steps,
-            steps * len(S.gather_plan(mesh.devices, in_place=True)))
+    foreign = 0 if mesh.exchange == "peer" \
+        else steps * len(S.gather_plan(mesh.devices, in_place=True))
+    want = (groups * (steps + runs), n_dev * steps, foreign)
     got = (counts[local], counts[select], copies)
     if got != want:
         raise SystemExit(f"{name}: {got} launches of {local}, of {select} "
                          f"and record copies for {steps} steps on {n_dev} "
-                         f"devices, not {want}")
+                         f"devices under the {mesh.exchange} exchange, not "
+                         f"{want}")
     calls = counts[local] + counts[select] + copies
     dispatch = ph["dispatch"] if dispatch is None else dispatch
-    print(f"[mesh-step] {name}: {steps} steps on {mesh.size} shards "
-          f"({n_dev} distinct devices); host calls a step "
-          f"{calls / steps:.4f} ({counts[local]} launches of {local}, "
+    print(f"[mesh-step] {name}: exchange {mesh.exchange}; {steps} steps on "
+          f"{mesh.size} shards ({n_dev} distinct devices); host calls a "
+          f"step {calls / steps:.4f} ({counts[local]} launches of {local}, "
           f"{counts[select]} of {select}, {copies} record copies "
-          f"enqueued); gather_bytes {ph['gather_bytes']}; dispatch "
+          f"enqueued); record copies {copies}; gather_bytes "
+          f"{ph['gather_bytes']}; dispatch "
           f"{dispatch * 1e3 / steps:.4f} ms a step")
 
 
@@ -3352,7 +3428,8 @@ def single_path(infos, tree, pdbs, device, sync, report):
     bound = victim_bound(nodes, args[0], b.n_real, b.n_pad * 9 + 4 * 19, 0)
     call_entry(report, "preempt_scan", K.preemption_scan,
                K.preemption_scan_plain, held[0], bound, sync, 20,
-               "the first preempt-single round")
+               "the first preempt-single round",
+               dev_kernels=("victim_kernel", "pick_kernel"))
     add_launches(report, counts)
     print(f"[path] preempt-single: {len(infos)} nodes, {N_SINGLE} rounds "
           f"of schedule (FitError) + preempt, {N_SINGLE / t_pre:.1f} "
@@ -3903,7 +3980,8 @@ def preempt_scan_kernel_checks(calls, report, sync):
         nbytes(rows_read, args[1], args[3], args[4])
         + K.cand_record_bytes(P), sync, 50,
         "shard 0's rows of the first mesh-preempt-single round",
-        ops=rows * P * OPS_PER_SLOT)
+        ops=rows * P * OPS_PER_SLOT, on_device=("rows_kernel",
+                                                "reduce_kernel"))
     args, _kw = _full(calls["shard_preempt_select"])
     mesh_kernel_entry(
         report, "shard_preempt_select", calls["shard_preempt_select"],
@@ -4198,15 +4276,18 @@ def no_twin(phase):
 
 def cards_phase(report):
     """`--cards`: the mesh phase over every card of the host, one shard
-    per card (the all-gather's copies are then peer copies between the
-    cards): K13a-K14b against their plain versions on meshes of all the
+    per card (the mesh steps' locals write their records into every
+    card's buffer over NVLink and publish stamps, the "peer" exchange;
+    the other all-gathers' copies are peer copies between the cards):
+    K13a-K14b against their plain versions on meshes of all the
     cards and of the first two, mesh-preempt-wave held against the
     single-device K8 wave on the first card and four mesh-preempt-single
     rounds held against K7; K9a-d and K10a-K11b against their plain
     versions, then mesh-uniform at 15,000 and 15,001 nodes held against
     the single-device K3/K2 run on the first card, and mesh-scan-default
     (15,000 nodes) and mesh-fused held against the single-device K5 / K6
-    run on the first card."""
+    run on the first card; last, mesh-scan-default once more on a mesh of
+    the same cards that takes the host's copies (`exchange="copy"`)."""
     import torch
     from kubernetes_tpu_torch.parallel import sharding as S
     n = torch.cuda.device_count()
@@ -4250,6 +4331,12 @@ def cards_phase(report):
     refs[FUSED_CELL["name"]] = (run, one.last)
     mesh_scan_paths(device, sync, report, refs, mesh=mesh,
                     cells=(cfg["name"],))
+    # the host's copies, as a host without peer access between its cards
+    # takes them: the same window, held against the same reference
+    copy_mesh = S.Mesh(mesh.devices, exchange="copy")
+    mesh_scan_path(cfg, n_nodes, window_fn, device, sync,
+                   {k: {"launches": 0} for k in report}, refs[cfg["name"]],
+                   False, mesh=copy_mesh)
 
 
 def main() -> int:

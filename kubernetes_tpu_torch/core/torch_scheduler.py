@@ -39,10 +39,13 @@ shard, K14b's pick over them) and preempt_pressure_burst() one step of
 K13a (one launch a device over its shards) and K13b per pod of each
 128-pod chunk, the rows, ghost load and victim planes split per shard,
 li / lni chained on the device and one fetch a wave. On several cards a
-scan, fused or pressure step is bound by the host's enqueue (1.08-1.27 ms
-a step on 4 x NVIDIA H100 80GB HBM3 at 700.00 W, 17-20x the single-card
-step; PERF.md section 5) until the step is graph-captured, so
-mesh="auto" costs these windows throughput for now. The tests run every
+scan, fused or pressure step's records cross the cards on the device
+(the locals write every card's buffer over NVLink and publish stamps the
+selects wait for): 2 host calls a card and step, no event, no copy. On 4
+x NVIDIA H100 80GB HBM3 at 700.00 W a scan or fused step takes
+0.062-0.086 ms (1.7-2.5x the single-card step, against 17-20x when the
+host copied the records), a pressure wave's 0.21-0.44 ms (4-9x; PERF.md
+sections 5 and 7). The tests run every
 mesh path on `["cpu"] * D`
 (tests/test_torch_sharding*.py); `chip_smoke.py` drives them on four
 shards of one card, and with `--cards` on a host's cards.
@@ -885,9 +888,9 @@ class TorchScheduler:
 
     def _mesh_phases(self, op: str, phases: dict, before: dict) -> None:
         """Mesh mode: the bytes of the all-gather, the record copies it
-        enqueued (scan and fused windows, pressure waves) and the steps
-        (or passes) of the last window, from the counters its sharded
-        program books."""
+        enqueued (uniform bursts, scan and fused windows, pressure waves)
+        and the steps (or passes) of the last window, from the counters
+        its sharded program books."""
         if self.mesh is None:
             return
         for k, name in (("gather", "gather_bytes"), ("copies", "copies"),
@@ -1125,8 +1128,8 @@ class TorchScheduler:
             else torch.as_tensor(rotation[0]).to(dev)
         sel: list[int] = []
         inflight: list[tuple] = []
-        before = self._mesh_counts("burst_uniform", "gather", "passes",
-                                   "syncs")
+        before = self._mesh_counts("burst_uniform", "gather", "copies",
+                                   "passes", "syncs")
 
         def dispatch(ci: int) -> None:
             nonlocal lni_dev

@@ -61,7 +61,9 @@ SIGNATURES = {
                        ctypes.POINTER(_L), _P],
     "shard_cycle_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "shard_uniform_sweep": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    # K9c takes every shard of one device, as the grouped locals below
+    "shard_uniform_sweep": [ctypes.POINTER(_L), _I, _I, _P,
+                            ctypes.POINTER(_I)],
     "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     # the grouped locals (K10a, K11a, K13a) take every shard of one
     # device: the shards' argument words, their count, the device index,
@@ -88,13 +90,17 @@ SIGNATURES = {
 
 #: other C functions of a library: `<name>_clusters(geometry, *clusters)`
 #: asks the card how many clusters of a geometry it can hold at once (and
-#: sets the geometry's launch attributes on the current device)
+#: sets the geometry's launch attributes on the current device);
+#: `mesh_enable_peers(devices, n)` (K10a's library) enables peer access
+#: for every ordered pair of a mesh's cards
 QUERIES = {name: {name + "_clusters": [ctypes.POINTER(_L),
                                        ctypes.POINTER(_I)]}
            for name in ("schedule_cycle", "schedule_batch",
                         "schedule_segments", "pressure_batch",
                         "shard_scan_select", "shard_segments_select",
                         "shard_pressure_select")}
+QUERIES["shard_scan_local"] = {"mesh_enable_peers": [ctypes.POINTER(_I),
+                                                     _I]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -136,7 +136,7 @@ __host__ __device__ inline ClusterLayout cluster_layout(
   L.boff = o;  o += CLUSTER_MAX * 8;
   L.bmax = o;  o += CLUSTER_MAX * 8;
   L.misc = o;  o += 8 * 4;
-  L.sv = o;
+  L.sv = o;   // a select's step state, SS_WORDS <= 16 (shard_scan.cuh)
   if (rec) o += 16 * 8;
   L.tot = o;   o += ss * 8;
   L.rows = o;

@@ -3,6 +3,11 @@
 // `shard_segments_select.cu`) across a thread-block cluster, over the
 // records every shard's local kernel wrote, gathered onto this device.
 //
+// The step's records are its round's half of the buffer (`SS_ROUND`); a
+// select first waits for the stamps every shard's local published with
+// them (`stamp_wait`, one thread of block 0), and a cluster barrier then
+// releases every block to read them.
+//
 // Replaces the replicated select of `sharded_scan_fn` (:233) and
 // `sharded_segments_fn` (:279) of kubernetes_tpu/parallel/sharding.py:
 // `_cycle_core`'s walk, kept-set normalizations, first-index argmax and
@@ -70,8 +75,9 @@ __device__ __forceinline__ RecLayout select_rec(const ScanSelectArgs& a) {
 
 // This thread's view of the cluster for one select step: the block's
 // tables, the step state copied into `sv`, the gang zone counts into `gz`
-// (with the gang score), and this thread's slots of the gathered records
-// copied into the block's shared planes, or, not resident, into the global
+// (with the gang score), and, once block 0 has seen the step's stamps,
+// this thread's slots of the step's half of the gathered records copied
+// into the block's shared planes, or, not resident, into the global
 // staging area `recs` ([RP_N, n] int64, then zone [n] int32, tracked [n]
 // and feasible [n] bytes); `pd` gets the staged planes of the families that
 // run dense. GS: the scratch planes in the global workspace (SSP_WORKSPACE).
@@ -88,7 +94,10 @@ __device__ __forceinline__ ClusterCtx select_setup(const ScanSelectArgs& a,
                                    a.p[SSP_WORKSPACE]);
   const int tid = threadIdx.x;
   const i64* st = ssp<const i64>(a, SSP_STATE);
-  if (tid < SS_COUNT) cx.sv[tid] = st[tid];
+  const i64 round = st[SS_ROUND];
+  if (cx.rank == 0 && tid == 0 && a.p[SSP_STAMPS]) stamp_wait(a, round);
+  cl.sync();  // every block reads the records after the stamps
+  if (tid < SS_WORDS) cx.sv[tid] = st[tid];
   const i64* gz = ssp<const i64>(a, SSP_GZ);
   if (gz && a.v[SSI_GANG_SCORE])
     for (int z = tid; z < z_pad; z += NTHREADS) cx.gz[z] = gz[z];
@@ -96,7 +105,7 @@ __device__ __forceinline__ ClusterCtx select_setup(const ScanSelectArgs& a,
   const i64 offs[RP_N] = {o.local, o.na, o.tt, o.sc, o.ic};
   const int rows = (int)a.v[SSI_ROWS];
   const size_t chunk = (size_t)a.v[SSI_CHUNK];
-  const unsigned char* gath = ssp<const unsigned char>(a, SSP_GATHERED);
+  const unsigned char* gath = select_records(a, round);
   // the staged planes: this block's slots in shared memory, or the whole
   // axis in global memory; slot j at [j - lo]
   const bool shared = g.resident != 0;
@@ -154,10 +163,11 @@ __device__ __forceinline__ void select_pod_row(const ScanSelectArgs& a,
     pd->tracked = ssp<const unsigned char>(a, SSP_TR_B) + r;
 }
 
-// The zone of node j, from its shard's gathered record.
-__device__ __forceinline__ int record_zone(const ScanSelectArgs& a, i64 j) {
+// The zone of node j, from its shard's record of round `round`.
+__device__ __forceinline__ int record_zone(const ScanSelectArgs& a, i64 round,
+                                           i64 j) {
   const i64 rows = a.v[SSI_ROWS], s = j / rows;
-  const unsigned char* c = ssp<const unsigned char>(a, SSP_GATHERED)
+  const unsigned char* c = select_records(a, round)
                            + (size_t)s * (size_t)a.v[SSI_CHUNK];
   return ((const int*)(c + a.v[SSI_OFF_ZONE]))[j - s * rows];
 }

@@ -21,8 +21,10 @@
 // The rows' walks reduce to the shard's candidate record (the fields of
 // `shard_candidate`, victim.cuh, keyed by the global row: the pick by
 // axis order) and the OR of the resolvable flags. Both records go
-// straight into row s of the device's gathered buffer, where K13b reads
-// them. The step index, the owed folds and li / lni live in the step state
+// straight into row s of this step's half of the device's gathered
+// buffer, where K13b reads them, and of every other card's buffer through
+// peer pointers; the shard's last row block publishes the step's stamp on
+// every card after both (shard_scan.cuh's exchange). The step index, the owed folds and li / lni live in the step state
 // K13b wrote on this device; the pod's fields come from the per-spec
 // tables (row[t]). After the last step one more launch only folds.
 //
@@ -39,9 +41,10 @@
 // walk of row j in the thread that owns it; each row block reduces its
 // rows to a partial record (warp shuffles, one barrier), and the last row
 // block of a shard to finish, found by a ticket counter after
-// `__threadfence()`, combines the partials into the shard's record and
-// its first warp walks the best row's slots once more for its flags
-// (`victim_node_warp`).
+// `__threadfence()` (system-wide when records go to peers), combines the
+// partials into the shard's record and its first warp walks the best
+// row's slots once more for its flags (`victim_node_warp`), copies the
+// candidate record to the peers and publishes the stamps.
 #include "shard_scan.cuh"
 #include "victim.cuh"
 
@@ -87,12 +90,13 @@ __device__ __forceinline__ VictimPod lp_pod(const ScanLocalArgs& a, int r) {
 
 // The shard's candidate record from the best candidate `b` of its rows and
 // the OR of their resolvable flags: the head (`CR_*`), the five criteria,
-// the best row's slot flags (its slots walked once more). One warp, every
-// lane with the same arguments.
+// the best row's slot flags (its slots walked once more), into this step's
+// half of the device's buffer. One warp, every lane with the same
+// arguments.
 __device__ __forceinline__ void write_candidate(const ScanLocalArgs& a,
                                                 const VicBest& b, i64 any_res,
                                                 int r) {
-  unsigned char* rec = slp<unsigned char>(a, SLP_REC) + a.v[SLI_CAND_OFF];
+  unsigned char* rec = local_dest(a, 0, local_half(a)) + a.v[SLI_CAND_OFF];
   i64* h = (i64*)rec;
   double* c = (double*)(rec + CR_CRIT_BYTES);
   int* flags = (int*)(rec + CR_FLAG_BYTES);
@@ -119,6 +123,25 @@ __device__ __forceinline__ void write_candidate(const ScanLocalArgs& a,
   h[CR_VIOL] = best ? ag.viol_ct : 0;
   h[CR_ANY_RES] = any_res;
   for (int q = 0; q < 5; ++q) c[q] = best ? b.c[q] : 0.0;
+}
+
+// The candidate record the warp just wrote, copied into every peer's
+// buffer (4-byte words, the lanes striding), then the shard's stamps. One
+// warp; a no-op under the host's copies.
+__device__ __forceinline__ void candidate_publish(const ScanLocalArgs& a) {
+  if (!a.p[SLP_STAMPS]) return;
+  const int lane = threadIdx.x & 31;
+  const size_t half = local_half(a), off = (size_t)a.v[SLI_CAND_OFF];
+  const int words = (CR_FLAG_BYTES + 4 * (int)a.v[SLI_VIC_P]) / 4;
+  __syncwarp();  // the lanes' candidate stores are visible to the warp
+  const int* src = (const int*)(local_dest(a, 0, half) + off);
+  for (int k = 1; k <= (int)a.v[SLI_N_PEERS]; ++k) {
+    int* dst = (int*)(local_dest(a, k, half) + off);
+    for (int w = lane; w < words; w += 32) dst[w] = src[w];
+  }
+  local_fence(a);
+  __syncwarp();
+  if (lane == 0) publish_stamps(a);
 }
 
 __global__ void __launch_bounds__(LOCAL_GROUP_THREADS)
@@ -166,6 +189,8 @@ __global__ void __launch_bounds__(LOCAL_GROUP_THREADS)
                                              &ff);
       local_record(a, pd, ws, j, local_row(a, j), feasible);
       res = (i64)j < nd.n_real && !cycle_unresolvable(ff, bits);
+      // the row's record lands before the ticket that leads to its stamp
+      local_fence(a);
     }
     vic_add(vb, victim_node(j, lp_rows(nd, gh), lp_planes(a), lp_pod(a, r),
                             pressure_static(nd, pd, j), nullptr),
@@ -185,7 +210,10 @@ __global__ void __launch_bounds__(LOCAL_GROUP_THREADS)
       i64* p = part + (size_t)blockIdx.x * PARTIAL_WORDS;
       vic_store(p, b, 1);
       p[VB_WORDS] = any_res;
-      __threadfence();  // the partial is visible before the ticket
+      // the partial (and, with peers, every card's copy of this block's
+      // records) is visible before the ticket
+      if (a.v[SLI_N_PEERS]) __threadfence_system();
+      else __threadfence();
       last = atomicAdd(ticket, 1ull) == (unsigned long long)(nblk - 1);
     }
   }
@@ -206,6 +234,7 @@ __global__ void __launch_bounds__(LOCAL_GROUP_THREADS)
   any = __any_sync(0xffffffffu, any);
   if (lane == 0) *ticket = 0;  // for the next step's launch
   write_candidate(a, b, any, r);
+  candidate_publish(a);
 }
 
 extern "C" int shard_pressure_local_launch(const i64* words, int n,

@@ -21,8 +21,9 @@
 // One step a pod, skip pods included: K13a reads the step state that
 // step wrote.
 //
-// It reads the records K13a wrote in place into the device's gathered
-// buffer (and the copies of other devices' rows).
+// It reads the records K13a wrote into its step's half of the device's
+// gathered buffer (this device's shards in place, the other cards' through
+// peer stores, or the host's copies), after their stamps.
 //
 // Bound on the H100: latency, a chain of reductions over n_pad slots. The
 // one-block select this replaces unpacked every record into global planes
@@ -52,8 +53,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   ClusterCtx cx = select_setup<GS>(a, g, smem, cl, &pd);
   const int tid = threadIdx.x;
   const i64 b = cx.sv[SS_STEP];
-  // past the wave: every block returns before touching a peer
-  if (b >= a.v[SSI_N_STEPS]) return;
+  // past the wave: every block returns before touching a peer; the round
+  // still advances, after every block's read of the step state
+  if (b >= a.v[SSI_N_STEPS]) {
+    cl.sync();
+    if (cx.rank == 0 && tid == 0)
+      ssp<i64>(a, SSP_STATE)[SS_ROUND] = cx.sv[SS_ROUND] + 1;
+    return;
+  }
   const int r = ssp<const int>(a, SSP_ROW)[b];
   const bool skip = scan_skip(a, b);
   const i64 li = cx.sv[SS_LI], lni = cx.sv[SS_LNI];
@@ -70,7 +77,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // shared memory past this point
   cl.sync();
   if (cx.rank != 0) return;
-  const unsigned char* gath = ssp<const unsigned char>(a, SSP_GATHERED);
+  const unsigned char* gath = select_records(a, cx.sv[SS_ROUND]);
   const size_t chunk = (size_t)a.v[SSI_CHUNK];
   const size_t off = (size_t)a.v[SSI_CAND_OFF];
   const int P = (int)a.v[SSI_VIC_P];
@@ -95,6 +102,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     st[SS_FOLD_SEL] = hit ? res.sel : -1;
     st[SS_FOLD_ROW] = r;
     st[SS_GHOST_SEL] = preempted ? pk->winner : -1;
+    st[SS_ROUND] = cx.sv[SS_ROUND] + 1;
   }
 }
 

@@ -23,8 +23,13 @@
 //      and K13a run ONE launch a device over every shard it holds, each
 //      shard's record written straight into row s of the device's
 //      gathered buffer;
-//   2. the all-gather of the records (host side, parallel/sharding.py):
-//      only the rows of shards on other devices;
+//   2. the exchange of the records. Each local writes its shard's record
+//      into row s of every distinct device's buffer, its own by a plain
+//      store and the other cards' through peer pointers over NVLink, then
+//      publishes a stamp (below); the select waits for the D stamps of
+//      its step on its own device. A host without peer access between
+//      its cards copies the rows of other devices' shards in instead
+//      (parallel/sharding.py `gather_in_place`), and no stamp is read;
 //   3. the select on every distinct device: the walk, kept-set scores and
 //      pick of the step's cycle (`cluster_cycle` across a thread-block
 //      cluster, `cluster_select.cuh`), the skip pods' known result
@@ -35,8 +40,22 @@
 // After the last step the host launches the local kernel once more: it
 // only folds the last winner (and, K11a, takes back a last rewind).
 //
-// The step state ([SS_COUNT] int64) lives on every distinct device and is
+// The step state ([SS_WORDS] int64) lives on every distinct device and is
 // written by that device's select only; the locals on that device read it.
+//
+// The exchange. The gathered buffer has two halves, [2, D, record bytes]:
+// step i writes and reads half i & 1 (i is the step state's `SS_ROUND`, the
+// steps the select has taken). So no local can overwrite a record a
+// select on another card still reads: local(i + 2) on card c runs after
+// select(i + 1) on c, which waited for local(i + 1) on every card c',
+// which ran after select(i) on c'. After its record a shard's last row
+// block publishes a stamp, stamp_base + i + 1, at [i & 1, s] of the [2, D]
+// int64 stamps of every distinct device, with a system-scope release after
+// every row block's records are fenced; the select's first thread spins
+// on its own device's D stamps with a system-scope acquire, bounded by the
+// global timer (`stamp_wait`: a lost stamp traps the launch, it never
+// hangs the stream). The stamps count up over the mesh's life (each window
+// reserves its values) and are never reset.
 // Pod fields come from device-resident per-spec tables (row[b] picks a
 // pod's spec, profile_id[b] its weight-table row): a step takes no host
 // argument.
@@ -58,6 +77,13 @@ enum {
   SS_GHOST_SEL,  // K13: the node whose ghost load takes the fold (-1: none)
   SS_COUNT
 };
+// the exchange round after the step state proper: the steps this window's
+// selects have taken on the device (written by the select only)
+constexpr int SS_ROUND = SS_COUNT;
+constexpr int SS_WORDS = SS_COUNT + 1;
+static_assert(SS_WORDS <= 16, "a select's shared copy holds 16 words");
+// the other cards a local writes its records to, at most (an 8-card host)
+constexpr int MAX_PEERS = 7;
 
 // ---- the local kernels (K10a, K11a, K13a) ---------------------------------
 // scalar slots, in the order of `_SSL_INTS`
@@ -65,7 +91,11 @@ enum {
   SLI_ROWS, SLI_S, SLI_OFFSET, SLI_N_REAL, SLI_GATE, SLI_N_STEPS, SLI_P,
   SLI_CARRY_SPREAD, SLI_OFF_LOCAL, SLI_OFF_NA, SLI_OFF_TT, SLI_OFF_SC,
   SLI_OFF_IC, SLI_OFF_ZONE, SLI_OFF_FEAS, SLI_OFF_TRACKED, SLI_VIC_P,
-  SLI_CAND_OFF, SLI_COUNT
+  SLI_CAND_OFF,
+  // the exchange: the shard's index, the mesh's shards, the bytes between
+  // the buffer's halves, the window's first stamp, the peers written to
+  SLI_INDEX, SLI_D, SLI_HALF, SLI_STAMP_BASE, SLI_N_PEERS,
+  SLI_COUNT
 };
 // pointer slots, in the order of `_SSL_PTRS`
 enum {
@@ -79,6 +109,13 @@ enum {
   SLP_VOLBIND_OK, SLP_VOLZONE_OK, SLP_IPA_CODE, SLP_NA, SLP_TT, SLP_SC,
   SLP_IC, SLP_IMG, SLP_PA, SLP_TRACKED, SLP_ROW, SLP_PROFILE_ID, SLP_W,
   SLP_WTAB, SLP_STATE, SLP_SEG_START, SLP_GANG, SLP_REC,
+  // the exchange (NULL under the host's copies): this device's stamps,
+  // the K10a / K11a launch's ticket, then row s of each peer's buffer
+  // (first half) and each peer's stamps
+  SLP_STAMPS, SLP_TICKET, SLP_PEER_REC0, SLP_PEER_REC1, SLP_PEER_REC2,
+  SLP_PEER_REC3, SLP_PEER_REC4, SLP_PEER_REC5, SLP_PEER_REC6,
+  SLP_PEER_STAMPS0, SLP_PEER_STAMPS1, SLP_PEER_STAMPS2, SLP_PEER_STAMPS3,
+  SLP_PEER_STAMPS4, SLP_PEER_STAMPS5, SLP_PEER_STAMPS6,
   // the pressure wave (K13a) only; NULL for K10a and K11a
   SLP_GHOST_CPU, SLP_GHOST_MEM, SLP_GHOST_EPH, SLP_GHOST_CNT, SLP_VIC_CPU,
   SLP_VIC_MEM, SLP_VIC_EPH, SLP_VIC_PRIO, SLP_VIC_START, SLP_VIC_VALID,
@@ -251,34 +288,126 @@ __device__ __forceinline__ void local_row_restore(const ScanLocalArgs& a,
   local_scalar_copy(a, j, false);
 }
 
+// ---- the exchange -----------------------------------------------------------
+__device__ __forceinline__ void st_release_sys(i64* p, i64 v) {
+  asm volatile("st.release.sys.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ i64 ld_acquire_sys(const i64* p) {
+  i64 v;
+  asm volatile("ld.acquire.sys.global.b64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The byte offset of this step's half of the gathered buffer.
+__device__ __forceinline__ size_t local_half(const ScanLocalArgs& a) {
+  return (size_t)(slp<const i64>(a, SLP_STATE)[SS_ROUND] & 1)
+         * (size_t)a.v[SLI_HALF];
+}
+
+// Row s of this step's half on destination k: 0 this device, then peers.
+__device__ __forceinline__ unsigned char* local_dest(const ScanLocalArgs& a,
+                                                     int k, size_t half) {
+  return (unsigned char*)a.p[k == 0 ? SLP_REC : SLP_PEER_REC0 + k - 1]
+         + half;
+}
+
+// Make this thread's record stores visible to every card before the
+// stamp, when the records go to peers. On one card the select that reads
+// them follows on the same stream, after this kernel: no fence is needed.
+__device__ __forceinline__ void local_fence(const ScanLocalArgs& a) {
+  if (a.v[SLI_N_PEERS]) __threadfence_system();
+}
+
+// The shard's stamp of this step, stamp_base + round + 1 at [round & 1, s]
+// of this device's stamps and every peer's: a system-scope release, after
+// the records it covers were fenced. One thread.
+__device__ __forceinline__ void publish_stamps(const ScanLocalArgs& a) {
+  const i64 round = slp<const i64>(a, SLP_STATE)[SS_ROUND];
+  const size_t slot = (size_t)(round & 1) * (size_t)a.v[SLI_D]
+                      + (size_t)a.v[SLI_INDEX];
+  const i64 v = a.v[SLI_STAMP_BASE] + round + 1;
+  local_fence(a);
+  st_release_sys(slp<i64>(a, SLP_STAMPS) + slot, v);
+  for (int k = 0; k < (int)a.v[SLI_N_PEERS]; ++k)
+    st_release_sys((i64*)a.p[SLP_PEER_STAMPS0 + k] + slot, v);
+}
+
+// K10a / K11a: every thread of a row block calls it after its record
+// stores. The last of the shard's `nblk` row blocks to get here (a ticket
+// counter, reset for the next step) publishes the shard's stamps. No-op
+// under the host's copies (no stamps).
+__device__ __forceinline__ void local_publish(const ScanLocalArgs& a,
+                                              int nblk) {
+  if (!a.p[SLP_STAMPS]) return;
+  local_fence(a);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long* ticket = slp<unsigned long long>(a, SLP_TICKET);
+  local_fence(a);
+  if (atomicAdd(ticket, 1ull) != (unsigned long long)(nblk - 1)) return;
+  *ticket = 0;  // for the next step's launch
+  publish_stamps(a);
+}
+
+// Row j's part of K9a's record, computed once.
+struct RecRow {
+  i64 local, na, tt, sc, ic;
+  int zone;
+  unsigned char feas, tracked;
+};
+
+// Row j's part of K9a's record into the record `rec`.
+__device__ __forceinline__ void record_put(const ScanLocalArgs& a,
+                                           unsigned char* rec, int j,
+                                           const RecRow& r) {
+  const i64 o_na = a.v[SLI_OFF_NA], o_tt = a.v[SLI_OFF_TT],
+            o_sc = a.v[SLI_OFF_SC], o_ic = a.v[SLI_OFF_IC],
+            o_zone = a.v[SLI_OFF_ZONE], o_tr = a.v[SLI_OFF_TRACKED];
+  ((i64*)(rec + a.v[SLI_OFF_LOCAL]))[j] = r.local;
+  if (o_na >= 0) ((i64*)(rec + o_na))[j] = r.na;
+  if (o_tt >= 0) ((i64*)(rec + o_tt))[j] = r.tt;
+  if (o_sc >= 0) ((i64*)(rec + o_sc))[j] = r.sc;
+  if (o_ic >= 0) ((i64*)(rec + o_ic))[j] = r.ic;
+  if (o_zone >= 0) ((int*)(rec + o_zone))[j] = r.zone;
+  rec[a.v[SLI_OFF_FEAS] + j] = r.feas;
+  if (o_tr >= 0) rec[o_tr + j] = r.tracked;
+}
+
 // Row j's part of K9a's record: the row-local total and the raw planes
 // the select normalizes (the `sc` plane is the carried spread when the
 // scan carries one), and the in-range feasible bit; the node fields from
-// `v`.
+// `v`. Written into this step's half of this device's buffer and of every
+// peer's.
 __device__ __forceinline__ void local_record(const ScanLocalArgs& a,
                                              const CyclePod& pd,
                                              const i64* ws, int j,
                                              const LocalRow& v,
                                              bool feasible) {
   const int gate = (int)a.v[SLI_GATE];
-  unsigned char* rec = slp<unsigned char>(a, SLP_REC);
-  const i64 o_na = a.v[SLI_OFF_NA], o_tt = a.v[SLI_OFF_TT],
-            o_sc = a.v[SLI_OFF_SC], o_ic = a.v[SLI_OFF_IC],
-            o_zone = a.v[SLI_OFF_ZONE], o_tr = a.v[SLI_OFF_TRACKED];
-  const i64 local = local_total_one(gate, ws, pd.scal[3] + v.nz_cpu,
-                                    pd.scal[4] + v.nz_mem, v.alloc_cpu,
-                                    v.alloc_mem)
-                    + cycle_row_local(pd, gate, ws, j);
-  ((i64*)(rec + a.v[SLI_OFF_LOCAL]))[j] = local;
-  if (o_na >= 0) ((i64*)(rec + o_na))[j] = pd.na[j];
-  if (o_tt >= 0) ((i64*)(rec + o_tt))[j] = pd.tt[j];
-  if (o_sc >= 0)
-    ((i64*)(rec + o_sc))[j] = a.v[SLI_CARRY_SPREAD] ? v.spread : pd.sc[j];
-  if (o_ic >= 0) ((i64*)(rec + o_ic))[j] = pd.ic[j];
-  if (o_zone >= 0) ((int*)(rec + o_zone))[j] = v.zone;
-  rec[a.v[SLI_OFF_FEAS] + j] =
-      feasible && (i64)j < a.v[SLI_N_REAL] - a.v[SLI_OFFSET];
-  if (o_tr >= 0) rec[o_tr + j] = pd.tracked[j];
+  RecRow r;
+  r.local = local_total_one(gate, ws, pd.scal[3] + v.nz_cpu,
+                            pd.scal[4] + v.nz_mem, v.alloc_cpu, v.alloc_mem)
+            + cycle_row_local(pd, gate, ws, j);
+  r.na = a.v[SLI_OFF_NA] >= 0 ? pd.na[j] : 0;
+  r.tt = a.v[SLI_OFF_TT] >= 0 ? pd.tt[j] : 0;
+  r.sc = a.v[SLI_OFF_SC] < 0 ? 0 : a.v[SLI_CARRY_SPREAD] ? v.spread
+                                                          : pd.sc[j];
+  r.ic = a.v[SLI_OFF_IC] >= 0 ? pd.ic[j] : 0;
+  r.zone = v.zone;
+  r.feas = feasible && (i64)j < a.v[SLI_N_REAL] - a.v[SLI_OFFSET];
+  r.tracked = a.v[SLI_OFF_TRACKED] >= 0 ? pd.tracked[j] : 0;
+  const size_t half = local_half(a);
+  for (int k = 0; k <= (int)a.v[SLI_N_PEERS]; ++k)
+    record_put(a, local_dest(a, k, half), j, r);
 }
 
 // The local step of K10a (SEG false) and K11a (SEG true) on row j of one
@@ -359,10 +488,20 @@ constexpr int LOCAL_GROUP_THREADS = 128;
 // host words of one shard's struct: its scalars, then its pointers
 constexpr int SL_WORDS = SLI_COUNT + SLP_COUNT;
 static_assert(sizeof(ScanLocalArgs) == 8 * SL_WORDS, "ScanLocalArgs layout");
+static_assert(SLP_PEER_STAMPS0 - SLP_PEER_REC0 == MAX_PEERS
+                  && SLP_GHOST_CPU - SLP_PEER_STAMPS0 == MAX_PEERS,
+              "a peer slot for every peer");
 
 struct ScanLocalGroup {
   ScanLocalArgs s[LOCAL_GROUP_SHARDS];
 };
+
+// The row blocks of shard `a`: a block of the grid past them returns at
+// once.
+__device__ __forceinline__ int local_blocks(const ScanLocalArgs& a) {
+  return ((int)a.v[SLI_ROWS] + LOCAL_GROUP_THREADS - 1)
+         / LOCAL_GROUP_THREADS;
+}
 
 // Launch `kernel` over the `n` shards whose structs lie in `words` (n x
 // SL_WORDS), a grid of (row blocks, shards) a launch, on `stream` of
@@ -401,14 +540,17 @@ enum {
   SSI_N_STEPS, SSI_NUM_TO_FIND, SSI_MODE, SSI_L, SSI_N_OID, SSI_GATE, SSI_P,
   SSI_IPA_ON, SSI_IC_INERT, SSI_TR_INERT, SSI_GANG_SCORE, SSI_OFF_LOCAL,
   SSI_OFF_NA, SSI_OFF_TT, SSI_OFF_SC, SSI_OFF_IC, SSI_OFF_ZONE,
-  SSI_OFF_FEAS, SSI_OFF_TRACKED, SSI_VIC_P, SSI_CAND_OFF, SSI_COUNT
+  SSI_OFF_FEAS, SSI_OFF_TRACKED, SSI_VIC_P, SSI_CAND_OFF, SSI_STAMP_BASE,
+  SSI_COUNT
 };
 // pointer slots, in the order of `_SSS_PTRS`
 enum {
   SSP_GATHERED, SSP_W, SSP_WTAB, SSP_PROFILE_ID, SSP_ROW, SSP_SCAL,
   SSP_IC_B, SSP_TR_B, SSP_PERMS, SSP_INV_PERMS, SSP_OID_SEQ, SSP_SEG_START,
   SSP_GANG, SSP_GZ, SSP_STATE, SSP_PACKED, SSP_STATS, SSP_RECS,
-  SSP_WORKSPACE, SSP_COUNT
+  SSP_WORKSPACE,
+  SSP_STAMPS,  // this device's [2, D] stamps (NULL: the host copied)
+  SSP_COUNT
 };
 
 struct ScanSelectArgs {
@@ -419,6 +561,34 @@ struct ScanSelectArgs {
 template <typename T>
 __device__ __forceinline__ T* ssp(const ScanSelectArgs& a, int slot) {
   return (T*)a.p[slot];
+}
+
+// How long a select waits for a step's stamps before it traps.
+constexpr unsigned long long STAMP_WAIT_NS = 5000000000ull;
+
+// One thread: spin until the D stamps of round `round`'s half read its
+// value (system-scope acquire loads of this device's memory). A stamp that
+// has not come after STAMP_WAIT_NS traps: the launch fails, the stream
+// never hangs.
+__device__ __forceinline__ void stamp_wait(const ScanSelectArgs& a,
+                                           i64 round) {
+  const i64 want = a.v[SSI_STAMP_BASE] + round + 1;
+  const int D = (int)a.v[SSI_D];
+  const i64* stamps = ssp<const i64>(a, SSP_STAMPS) + (size_t)(round & 1) * D;
+  const unsigned long long t0 = global_ns();
+  for (int s = 0; s < D; ++s) {
+    while (ld_acquire_sys(stamps + s) < want) {
+      if (global_ns() - t0 > STAMP_WAIT_NS) __trap();
+      __nanosleep(64);
+    }
+  }
+}
+
+// Round `round`'s half of the gathered records, [D, chunk].
+__device__ __forceinline__ const unsigned char* select_records(
+    const ScanSelectArgs& a, i64 round) {
+  return ssp<const unsigned char>(a, SSP_GATHERED)
+         + (size_t)(round & 1) * (size_t)a.v[SSI_D] * (size_t)a.v[SSI_CHUNK];
 }
 
 __device__ __forceinline__ bool scan_skip(const ScanSelectArgs& a, i64 i) {

@@ -11,7 +11,7 @@
 // known result (`_skip_cycle`). It writes column b of the packed [3B]
 // block (selected, li after, lni - lni0 wrapped to int32) and of the
 // stats, and the step state (li, lni, the fold for the shards, the next
-// step). One launch decides the skip pods before the step's live pod and
+// step, the exchange round). One launch decides the skip pods before the step's live pod and
 // those after it, so the window's padding costs no launch. Every distinct
 // device runs it on the same bytes and advances its own step state.
 //
@@ -73,6 +73,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   st[SS_LNI] = lni;
   st[SS_FOLD_SEL] = fold;
   st[SS_FOLD_ROW] = r;
+  st[SS_ROUND] = sv[SS_ROUND] + 1;
 }
 
 extern "C" int shard_scan_select_launch(const i64* iargs, void** ptrs,

@@ -26,8 +26,11 @@
 
 __global__ void __launch_bounds__(LOCAL_GROUP_THREADS)
     shard_segments_local_kernel(const __grid_constant__ ScanLocalGroup g) {
-  scan_local_row<true>(g.s[blockIdx.y],
-                       blockIdx.x * LOCAL_GROUP_THREADS + threadIdx.x);
+  const ScanLocalArgs& a = g.s[blockIdx.y];
+  const int nblk = local_blocks(a);
+  if ((int)blockIdx.x >= nblk) return;  // past this shard's rows
+  scan_local_row<true>(a, blockIdx.x * LOCAL_GROUP_THREADS + threadIdx.x);
+  local_publish(a, nblk);
 }
 
 extern "C" int shard_segments_local_launch(const i64* words, int n,

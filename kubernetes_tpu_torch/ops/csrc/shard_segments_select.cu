@@ -35,8 +35,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const i64* sv = cx.sv;
   const int tid = threadIdx.x;
   const i64 i = sv[SS_STEP];
-  // past the window: every block alike, before any remote access
-  if (i >= a.v[SSI_N_STEPS]) return;
+  // past the window: every block alike, before any remote access; the
+  // round still advances, after every block's read of the step state
+  if (i >= a.v[SSI_N_STEPS]) {
+    cl.sync();
+    if (cx.rank == 0 && tid == 0)
+      ssp<i64>(a, SSP_STATE)[SS_ROUND] = sv[SS_ROUND] + 1;
+    return;
+  }
   const i64 B = a.v[SSI_B];
   const int z_pad = (int)a.v[SSI_Z_PAD];
   const i64 n_safe = imax64(a.v[SSI_N_REAL], 1);
@@ -84,7 +90,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (cx.rank != 0) return;
   if (gz) {
     if (tid == 0 && hit && gflag) {
-      const int z = record_zone(a, res.sel);
+      const int z = record_zone(a, sv[SS_ROUND], res.sel);
       if (z > 0 && z < z_pad) gz[z] += 1;
     }
     __syncthreads();
@@ -110,6 +116,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   st[SS_CHK_LI] = chk_li;
   st[SS_CHK_LNI] = chk_lni;
   st[SS_FAILED] = failed;
+  st[SS_ROUND] = sv[SS_ROUND] + 1;
 }
 
 extern "C" int shard_segments_select_launch(const i64* iargs, void** ptrs,

@@ -1,10 +1,12 @@
 // K9c shard_uniform_sweep: one pass of the sharded uniform burst over the
-// rows one shard owns, on the shard's own device.
+// rows of every shard one device holds, in one launch.
 //
 // Replaces the per-pass O(N) sweep of `_uniform_core`
 // (kubernetes_tpu/ops/kernels.py:1097-1320) that `sharded_uniform_fn`
 // (kubernetes_tpu/parallel/sharding.py:151) keeps on each chip's rows
-// with `constrain`. A pass:
+// with `constrain`. A pass, per shard:
+//   0. init (the burst's first pass, read from the device's pass state:
+//      ST_PASS 0): the ok mask and the scores;
 //   1. fold: the lanes K9d accepted in the previous pass that name this
 //      shard's rows add the class delta to the carried rows, rescore and
 //      (with `ban`) ban their node; once per pass, by the pass counter;
@@ -16,21 +18,35 @@
 //      of the global max, and every tie of the global max is a tie of its
 //      shard's max, so the gathered bits are exact.
 // The record is `rows` bytes (bit 0 tie, bit 1 stay) and, at `hoff`, the
-// int32 shard max and feasible count.
+// int32 shard max and feasible count, written in place into row s of the
+// device's gathered buffer, where K9d reads it.
 //
 // Shared with K3: `Ctx` (uniform.cuh), K3's per-node fit and score.
 //
 // Bound on the H100: latency. A pass reads R x 8 + ~30 B a row (about
 // 0.3 MB for a 4,096-row shard, in L2) and writes 1 B a row. Design: ONE
-// block of 1024 threads per shard; each thread owns a contiguous slice of
-// the shard's rows, the max and the count are block reductions.
+// launch a device and pass over its shards (up to SWEEP_GROUP a launch,
+// their argument structs in one `__grid_constant__` parameter), each shard
+// a thread-block cluster of SWEEP_BLOCKS blocks (32 SMs busy for four
+// shards, where one block a shard kept four). Block b of a shard owns the
+// contiguous slice b of its rows: it folds the lanes that land there,
+// sweeps them, and keeps its max and feasible count in shared memory. The
+// tie bit needs the shard's max before any row's bit is final, so the
+// stay bit is computed for every feasible row against its own score
+// (equal to the shard max's test on a tie), one cluster barrier makes
+// every block's max and count readable, and each block then keeps the bits
+// of its ties. Block 0 writes the header and the pass it folded. No ticket
+// and no second launch: the barrier is the cluster's.
 #include "uniform.cuh"
 
 #include <climits>
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 enum {
   US_WIDTH, US_ROWS, US_OFFSET, US_N_REAL, US_R, US_NS, US_CHECK_RES,
-  US_HAS_REQ, US_BAN, US_GATE, US_INIT, US_B, US_K, US_HOFF, US_COUNT
+  US_HAS_REQ, US_BAN, US_GATE, US_B, US_K, US_HOFF, US_COUNT
 };
 // pointer slots, in the order of `_SUS_PTRS`
 enum {
@@ -44,12 +60,55 @@ struct SweepArgs {
   void* p[UP_COUNT];
 };
 
-__global__ void __launch_bounds__(NTHREADS)
-    shard_uniform_sweep_kernel(SweepArgs a) {
-  __shared__ i64 sh64[NWARPS];
+// blocks of a shard's cluster, threads a block (`SWEEP_BLOCKS`,
+// `SWEEP_THREADS` in kernels.py)
+constexpr int SWEEP_BLOCKS = 8;
+constexpr int SWEEP_THREADS = 512;
+constexpr int SWEEP_WARPS = SWEEP_THREADS / 32;
+// shards a launch covers; a device holding more takes one launch per as
+// many (`SWEEP_GROUP`)
+constexpr int SWEEP_GROUP = 4;
+// host words of one shard's struct: its scalars, then its pointers
+constexpr int SW_WORDS = US_COUNT + UP_COUNT;
+static_assert(sizeof(SweepArgs) == 8 * SW_WORDS, "SweepArgs layout");
+
+struct SweepGroup {
+  SweepArgs s[SWEEP_GROUP];
+};
+
+__device__ __forceinline__ void sweep_reduce(int* mx, int* cnt, int* smx,
+                                             int* scnt) {
+  int m = *mx, c = *cnt;
+  for (int o = 16; o > 0; o >>= 1) {
+    m = max(m, __shfl_down_sync(0xffffffffu, m, o));
+    c += __shfl_down_sync(0xffffffffu, c, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    smx[threadIdx.x >> 5] = m;
+    scnt[threadIdx.x >> 5] = c;
+  }
+  __syncthreads();
+  m = smx[0];
+  c = scnt[0];
+  for (int i = 1; i < SWEEP_WARPS; ++i) {
+    m = max(m, smx[i]);
+    c += scnt[i];
+  }
+  *mx = m;
+  *cnt = c;
+}
+
+__global__ void __cluster_dims__(SWEEP_BLOCKS, 1, 1)
+    __launch_bounds__(SWEEP_THREADS)
+    shard_uniform_sweep_kernel(const __grid_constant__ SweepGroup grp) {
   __shared__ i64 ws[W_K];
+  __shared__ int smx[SWEEP_WARPS], scnt[SWEEP_WARPS];
+  __shared__ int part[2];  // this block's max and feasible count
+  cg::cluster_group cl = cg::this_cluster();
+  const SweepArgs& a = grp.s[blockIdx.y];
+  const int rank = (int)cl.block_rank(), tid = threadIdx.x;
   const int wd = (int)a.v[US_WIDTH], rows = (int)a.v[US_ROWS];
-  const int R = (int)a.v[US_R], NS = (int)a.v[US_NS], tid = threadIdx.x;
+  const int R = (int)a.v[US_R], NS = (int)a.v[US_NS];
   const i64 off = a.v[US_OFFSET];
   const bool ban = a.v[US_BAN] != 0;
   const i64* clsv = (const i64*)a.p[UP_CLSV];
@@ -68,15 +127,19 @@ __global__ void __launch_bounds__(NTHREADS)
               (const i64*)a.p[UP_XALLOC], ws, clsv[0], clsv[1], clsv[2],
               clsv[3], clsv + 4, clsv + 4 + R};
   const i64* sreq = c.xreq + (R - 5);
-  int lo, hi;
-  if (a.v[US_INIT]) {
+  // this block's slice [lo, hi) of the shard's columns
+  const int chunk = (wd + SWEEP_BLOCKS - 1) / SWEEP_BLOCKS;
+  const int lo = min(rank * chunk, wd), hi = min(lo + chunk, wd);
+  const i64 pass = state[ST_PASS];
+  const i64 folded_before = folded[0];
+  if (pass == 0) {
+    // 0. the burst's first pass: the ok mask and the scores
     const unsigned char* valid = (const unsigned char*)a.p[UP_VALID];
     const unsigned char* extra = (const unsigned char*)a.p[UP_EXTRA];
     const i64* salloc = (const i64*)a.p[UP_SALLOC];
     const i64* sused = (const i64*)a.p[UP_SUSED];
     const i64* tot0 = (const i64*)a.p[UP_TOT0];
-    my_range(wd, &lo, &hi);
-    for (int j = lo; j < hi; ++j) {
+    for (int j = lo + tid; j < hi; j += SWEEP_THREADS) {
       bool o = false;
       int t = 0;
       if (j < rows) {
@@ -92,55 +155,87 @@ __global__ void __launch_bounds__(NTHREADS)
       tot[j] = t;
     }
   }
-  const i64 pass = state[ST_PASS];
-  const i64 folded_before = folded[0];
-  __syncthreads();   // the weights and the init are in; folded[0] was read
-  if (pass > folded_before) {
-    // 1. fold the previous pass's accepted lanes that name this shard
-    if (tid < (int)state[ST_VFOLD]) {
-      const i64 loc = state[ST_LANES + tid] - off;
-      if (loc >= 0 && loc < rows) {
-        const int j = (int)loc;
-        for (int r = 0; r < R; ++r) st[(size_t)r * wd + j] += c.delta[r];
-        tot[j] = c.score(j, 0);
-        if (ban) banned[j] = 1;
-      }
+  __syncthreads();   // the weights are in
+  if (pass > folded_before && tid < (int)state[ST_VFOLD]) {
+    // 1. fold the previous pass's accepted lanes that name this slice
+    const i64 loc = state[ST_LANES + tid] - off;
+    if (loc >= lo && loc < hi && loc < rows) {
+      const int j = (int)loc;
+      for (int r = 0; r < R; ++r) st[(size_t)r * wd + j] += c.delta[r];
+      tot[j] = c.score(j, 0);
+      if (ban) banned[j] = 1;
     }
-    if (tid == 0) folded[0] = pass;
-    __syncthreads();
   }
-  if (state[ST_DONE] >= a.v[US_B]) return;
-  // 2. sweep
-  my_range(rows, &lo, &hi);
+  // every block has read folded[0]
+  cl.sync();
+  if (rank == 0 && tid == 0 && pass > folded_before) folded[0] = pass;
+  if (state[ST_DONE] >= a.v[US_B]) return;  // alike in every block
+  // 2. sweep this slice: the feasible rows, their max and count, and per
+  // feasible row the stay bit against its own score
   int lmax = INT_MIN, lF = 0;
-  for (int j = lo; j < hi; ++j) {
+  const int shi = min(hi, rows);
+  for (int j = lo + tid; j < shi; j += SWEEP_THREADS) {
     const bool f = c.fit(j, 0) && !(ban && banned[j]);
     feas[j] = f;
+    bool stay = false;
     if (f) {
       ++lF;
       lmax = max(lmax, tot[j]);
+      stay = !ban && c.score(j, 1) == tot[j] && c.fit(j, 1);
     }
+    rec[j] = (unsigned char)(stay << 1);
   }
-  const int mx = (int)block_max64(lmax, sh64);
-  const int F = (int)block_sum64(lF, sh64);
-  for (int j = lo; j < hi; ++j) {
-    const bool tie = feas[j] && tot[j] == mx;
-    const bool stay = tie && !ban && c.score(j, 1) == mx && c.fit(j, 1);
-    rec[j] = (unsigned char)(tie | (stay << 1));
-  }
+  sweep_reduce(&lmax, &lF, smx, scnt);
   if (tid == 0) {
+    part[0] = lmax;
+    part[1] = lF;
+  }
+  // every block's max and count are in its shared memory
+  cl.sync();
+  int mx = INT_MIN, F = 0;
+  for (int b = 0; b < SWEEP_BLOCKS; ++b) {
+    const int* pb = cl.map_shared_rank(part, b);
+    mx = max(mx, pb[0]);
+    F += pb[1];
+  }
+  // the ties keep their stay bit; every other row's byte is 0
+  for (int j = lo + tid; j < shi; j += SWEEP_THREADS) {
+    const bool tie = feas[j] && tot[j] == mx;
+    rec[j] = tie ? (unsigned char)(1 | rec[j]) : (unsigned char)0;
+  }
+  if (rank == 0 && tid == 0) {
     int* h = (int*)(rec + a.v[US_HOFF]);
     h[0] = mx;
     h[1] = F;
   }
+  // no block leaves while a peer may still read its shared memory
+  cl.sync();
 }
 
-extern "C" int shard_uniform_sweep_launch(const i64* iargs, void** ptrs,
-                                          void* stream) {
-  SweepArgs a;
-  for (int i = 0; i < US_COUNT; ++i) a.v[i] = iargs[i];
-  for (int i = 0; i < UP_COUNT; ++i) a.p[i] = ptrs[i];
-  if (a.v[US_K] > NTHREADS) return (int)cudaErrorInvalidValue;
-  shard_uniform_sweep_kernel<<<1, NTHREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+// Launch K9c over the `n` shards whose structs lie in `words` (n x
+// SW_WORDS), a grid of (SWEEP_BLOCKS, shards) a launch, on `stream` of
+// `device`. Adds one to `*launched` for every launch it makes.
+extern "C" int shard_uniform_sweep_launch(const i64* words, int n,
+                                          int device, void* stream,
+                                          int* launched) {
+  const DeviceScope on(device);
+  cudaError_t e = on.err;
+  for (int k0 = 0; e == cudaSuccess && k0 < n; k0 += SWEEP_GROUP) {
+    SweepGroup g;
+    const int m = n - k0 < SWEEP_GROUP ? n - k0 : SWEEP_GROUP;
+    for (int k = 0; k < SWEEP_GROUP; ++k) {
+      // slots past the m shards repeat the first; no block reads them
+      const i64* w = words + (size_t)(k0 + (k < m ? k : 0)) * SW_WORDS;
+      for (int i = 0; i < US_COUNT; ++i) g.s[k].v[i] = w[i];
+      for (int i = 0; i < UP_COUNT; ++i)
+        g.s[k].p[i] = (void*)w[US_COUNT + i];
+      if (k < m && g.s[k].v[US_K] > SWEEP_THREADS)
+        return (int)cudaErrorInvalidValue;
+    }
+    shard_uniform_sweep_kernel<<<dim3(SWEEP_BLOCKS, m), SWEEP_THREADS, 0,
+                                 (cudaStream_t)stream>>>(g);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) ++*launched;
+  }
+  return (int)e;
 }

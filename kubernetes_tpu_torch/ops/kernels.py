@@ -2862,12 +2862,14 @@ class UniformShard:
     carried fold rows `st` [R, width] (a fresh copy, folded in place),
     int32 scores `tot`, the ok / banned / feasible bytes `flags` [3,
     width], the last pass it folded, and its record `rec` (`rows` tie /
-    stay bytes, then the int32 shard max and feasible count at `hoff`).
-    The last shard's width carries the n_pad scratch column, as the JAX
-    program pads it onto the last shard: nothing is ever folded there."""
+    stay bytes, then the int32 shard max and feasible count at `hoff`):
+    `rec` when given (row s of its device's gathered buffer, where K9c
+    writes it in place), else a buffer of its own. The last shard's width
+    carries the n_pad scratch column, as the JAX program pads it onto the
+    last shard: nothing is ever folded there."""
 
     def __init__(self, offset, rows, width, nodes, st, xa, sa, su, extra,
-                 tot0):
+                 tot0, rec=None):
         dev = nodes["valid"].device
         self.offset, self.rows, self.width = int(offset), int(rows), \
             int(width)
@@ -2879,7 +2881,18 @@ class UniformShard:
         self.flags = torch.zeros((3, width), dtype=torch.uint8, device=dev)
         self.folded = torch.zeros(1, dtype=I64, device=dev)
         self.hoff = _round8(rows)
-        self.rec = torch.zeros(self.hoff + 8, dtype=torch.uint8, device=dev)
+        if rec is None:
+            rec = torch.zeros(self.record_bytes(rows), dtype=torch.uint8,
+                              device=dev)
+        if rec.numel() != self.record_bytes(rows) or rec.device != dev:
+            raise ValueError("UniformShard: rec is not the shard's record")
+        self.rec = rec
+
+    @staticmethod
+    def record_bytes(rows: int) -> int:
+        """Bytes of a shard's record: the tie / stay bytes, then the max
+        and the feasible count (int32) at `hoff`."""
+        return _round8(rows) + 8
 
     @property
     def device(self):
@@ -2892,19 +2905,13 @@ class UniformShard:
                                     "allowed_pods")]
 
 
-def shard_uniform_sweep_plain(sh: UniformShard, state, clsv, R, NS,
-                              check_res, has_req, ban, weights, wrow,
-                              n_real, n_pods, init):
-    """K9c plain: one pass of `_uniform_core` (kernels.py:1097-1320) over
-    one shard's rows. First the accepted lanes of the previous pass that
-    land on this shard fold (rows, score, ban), once per pass; then, while
-    the burst is not done, the sweep: the feasible rows, the shard's max
-    score and feasible count, and per row a tie bit (feasible at the shard
-    max) and a stay bit (after one more fold it still fits and keeps that
-    score). A shard whose max is not the global one has no ties; every
-    tie of the global max is a tie of its own shard's max. `init` builds
-    the ok mask and the scores first (the burst's first pass). Updates
-    the shard state in place."""
+def _sweep_fold_plain(sh: UniformShard, state, clsv, R, NS, check_res,
+                      has_req, ban, weights, wrow, n_real, init):
+    """What both plain K9c versions do before the sweep: with `init`, the
+    ok mask and the scores of the burst's first pass; then, once per pass
+    (by the pass counter), the fold of the previous pass's accepted lanes
+    that land on the shard (rows, score, ban). Returns (fit(plus, cols),
+    score(plus, cols), the pass state's scalars)."""
     dev = sh.device
     rows, wd = sh.rows, sh.width
     cv = [int(x) for x in clsv.tolist()] if isinstance(clsv, torch.Tensor) \
@@ -2920,29 +2927,27 @@ def shard_uniform_sweep_plain(sh: UniformShard, state, clsv, R, NS,
                                          device=dev)])
     a_cpu, a_mem, allowed = pad(nd["alloc_cpu"]), pad(nd["alloc_mem"]), \
         pad(nd["allowed_pods"])
-    ok, banned, feas = sh.flags[0], sh.flags[1], sh.flags[2]
+    ok, banned = sh.flags[0], sh.flags[1]
     st = sh.st
 
-    def fit(plus, cols=None):
-        rv = st if cols is None else st[:, cols]
-        pick = (lambda v: v) if cols is None else (lambda v: v[cols])
-        f = pick(ok) != 0
+    def fit(plus, cols):
+        f = ok[cols] != 0
         if check_res:
-            f = f & (rv[4] + plus * delta[4] + 1 <= pick(allowed))
+            rv = st[:, cols]
+            f = f & (rv[4] + plus * delta[4] + 1 <= allowed[cols])
             if has_req:
-                f = f & (pick(a_cpu) >= req_cpu + rv[0] + plus * delta[0]) \
-                    & (pick(a_mem) >= req_mem + rv[1] + plus * delta[1])
+                f = f & (a_cpu[cols] >= req_cpu + rv[0] + plus * delta[0]) \
+                    & (a_mem[cols] >= req_mem + rv[1] + plus * delta[1])
                 for r in range(5, R):
-                    f = f & (pick(sh.xa[r - 5]) >= xreq[r - 5] + rv[r]
+                    f = f & (sh.xa[r - 5][cols] >= xreq[r - 5] + rv[r]
                              + plus * delta[r])
         return f
 
-    def score(plus, cols=None):
-        rv = st if cols is None else st[:, cols]
-        pick = (lambda v: v) if cols is None else (lambda v: v[cols])
+    def score(plus, cols):
+        rv = st[:, cols]
         return local_total_plain(weights, nz_cpu + rv[2] + plus * delta[2],
                                  nz_mem + rv[3] + plus * delta[3],
-                                 pick(a_cpu), pick(a_mem),
+                                 a_cpu[cols], a_mem[cols],
                                  wrow=wrow).to(I32)
 
     if init:
@@ -2964,70 +2969,164 @@ def shard_uniform_sweep_plain(sh: UniformShard, state, clsv, R, NS,
         if ban:
             banned[loc] = 1
         sh.folded[0] = st_h[ST_PASS]
+    return fit, score, st_h
+
+
+def shard_uniform_sweep_plain(sh: UniformShard, state, clsv, R, NS,
+                              check_res, has_req, ban, weights, wrow,
+                              n_real, n_pods, init):
+    """K9c plain: one pass of `_uniform_core` (kernels.py:1097-1320) over
+    one shard's rows. First the accepted lanes of the previous pass that
+    land on this shard fold (rows, score, ban), once per pass; then, while
+    the burst is not done, the sweep: the feasible rows, the shard's max
+    score and feasible count, and per row a tie bit (feasible at the shard
+    max) and a stay bit (after one more fold it still fits and keeps that
+    score). A shard whose max is not the global one has no ties; every
+    tie of the global max is a tie of its own shard's max. `init` builds
+    the ok mask and the scores first (the burst's first pass). Updates
+    the shard state in place."""
+    fit, score, st_h = _sweep_fold_plain(sh, state, clsv, R, NS, check_res,
+                                         has_req, ban, weights, wrow, n_real,
+                                         init)
     if st_h[ST_DONE] >= int(n_pods):
         return
-    f = fit(0)[:rows]
+    rows = sh.rows
+    cols = torch.arange(rows, device=sh.device)
+    f = fit(0, cols)
     if ban:
-        f = f & (banned[:rows] == 0)
-    feas[:rows] = f.to(torch.uint8)
+        f = f & (sh.flags[1, :rows] == 0)
+    sh.flags[2, :rows] = f.to(torch.uint8)
     tm = torch.where(f, sh.tot[:rows], I32_MIN)
     lmax = int(torch.max(tm))
     tie = f & (sh.tot[:rows] == lmax)
-    stay = tie & (fit(1)[:rows] & (score(1)[:rows] == lmax)) if not ban \
+    stay = tie & (fit(1, cols) & (score(1, cols) == lmax)) if not ban \
         else torch.zeros_like(tie)
     sh.rec[:rows] = (tie.to(torch.uint8) | (stay.to(torch.uint8) << 1))
     sh.rec[sh.hoff:] = torch.tensor([lmax, int(f.sum())], dtype=I32,
-                                    device=dev).view(torch.uint8)
+                                    device=sh.device).view(torch.uint8)
+
+
+#: blocks of a shard's K9c cluster, threads a block, shards a launch
+#: (csrc/shard_uniform_sweep.cu `SWEEP_BLOCKS`, `SWEEP_THREADS`,
+#: `SWEEP_GROUP`)
+SWEEP_BLOCKS = 8
+SWEEP_THREADS = 512
+SWEEP_GROUP = 4
+
+
+def sweep_chunk(width: int) -> int:
+    """Columns of one block's slice of a shard's K9c cluster: block b owns
+    [b * chunk, (b + 1) * chunk) of the shard's `width` columns, the last
+    slices short or empty."""
+    return -(-int(width) // SWEEP_BLOCKS)
+
+
+def shard_uniform_sweep_group_plain(shards: list, state, clsv, R, NS,
+                                    check_res, has_req, ban, weights, wrow,
+                                    n_real, n_pods) -> None:
+    """K9c plain over every shard of one device, as the kernel splits it:
+    the burst's first pass (init) read from the pass state (ST_PASS 0);
+    each shard's columns in SWEEP_BLOCKS slices (`sweep_chunk`; every
+    lane lands in one, so the fold is the per-shard one), each slice's
+    rows reduced to a max and a feasible count, the shard's max and count
+    the combination of its slices'; every feasible row's stay bit asked
+    against its own score (on a tie, the shard max's test), kept on the
+    ties. Each record is written into `rec` of its shard (row s of the
+    device's gathered buffer). Equal to `shard_uniform_sweep_plain` on
+    each shard."""
+    init = int(state[ST_PASS]) == 0
+    for sh in shards:
+        fit, score, st_h = _sweep_fold_plain(sh, state, clsv, R, NS,
+                                             check_res, has_req, ban,
+                                             weights, wrow, n_real, init)
+        if st_h[ST_DONE] >= int(n_pods):
+            continue
+        rows = sh.rows
+        cols = torch.arange(rows, device=sh.device)
+        f = fit(0, cols)
+        if ban:
+            f = f & (sh.flags[1, :rows] == 0)
+        sh.flags[2, :rows] = f.to(torch.uint8)
+        t = sh.tot[:rows]
+        stay = torch.zeros_like(f) if ban \
+            else f & (score(1, cols) == t) & fit(1, cols)
+        # each block's max and feasible count, then the shard's
+        block = cols // sweep_chunk(sh.width)
+        bmax = torch.full((SWEEP_BLOCKS,), I32_MIN, dtype=I32,
+                          device=sh.device)
+        bmax.scatter_reduce_(0, block, torch.where(f, t, I32_MIN), "amax")
+        bcnt = torch.zeros(SWEEP_BLOCKS, dtype=I64, device=sh.device)
+        bcnt.index_add_(0, block, f.to(I64))
+        mx, F = bmax.max(), bcnt.sum()
+        tie = f & (t == mx)
+        sh.rec[:rows] = (tie.to(torch.uint8)
+                         | ((tie & stay).to(torch.uint8) << 1))
+        sh.rec[sh.hoff:] = torch.stack([mx, F.to(I32)]).view(torch.uint8)
 
 
 _SUS_INTS = ("width", "rows", "offset", "n_real", "R", "NS", "check_res",
-             "has_req", "ban", "gate", "init", "B", "K", "hoff")
+             "has_req", "ban", "gate", "B", "K", "hoff")
 _SUS_PTRS = ("w", "valid", "extra", "alloc_cpu", "alloc_mem", "allowed",
              "xalloc", "salloc", "sused", "clsv", "st", "tot0", "tot",
              "flags", "state", "folded", "rec")
 
 
-def _shard_uniform_sweep_launch(sh, state, clsv, R, NS, check_res, has_req,
-                                ban, weights, wrow, n_real, n_pods, init):
-    dev = sh.device
+def _sweep_words(sh: UniformShard, state, clsv, R, NS, check_res, has_req,
+                 ban, w, gate, n_real, n_pods):
+    """(pointer tensors, words) of one shard's K9c struct: its
+    `_SUS_INTS`, then its `_SUS_PTRS`."""
     nd = sh.nodes
-    ptrs = {"w": _weight_row(weights, wrow, dev), "valid": nd["valid"],
-            "extra": sh.extra, "alloc_cpu": nd["alloc_cpu"],
-            "alloc_mem": nd["alloc_mem"], "allowed": nd["allowed_pods"],
-            "xalloc": sh.xa, "salloc": sh.sa, "sused": sh.su,
-            "clsv": clsv, "st": sh.st, "tot0": sh.tot0, "tot": sh.tot,
-            "flags": sh.flags, "state": state, "folded": sh.folded,
-            "rec": sh.rec}
+    ptrs = {"w": w, "valid": nd["valid"], "extra": sh.extra,
+            "alloc_cpu": nd["alloc_cpu"], "alloc_mem": nd["alloc_mem"],
+            "allowed": nd["allowed_pods"], "xalloc": sh.xa,
+            "salloc": sh.sa, "sused": sh.su, "clsv": clsv, "st": sh.st,
+            "tot0": sh.tot0, "tot": sh.tot, "flags": sh.flags,
+            "state": state, "folded": sh.folded, "rec": sh.rec}
     _require_cuda("shard_uniform_sweep", *ptrs.values())
-    _require_on("shard_uniform_sweep", dev, *ptrs.values())
+    _require_on("shard_uniform_sweep", sh.device, *ptrs.values())
     ints = {"width": sh.width, "rows": sh.rows, "offset": sh.offset,
             "n_real": int(n_real), "R": R, "NS": NS,
             "check_res": int(check_res), "has_req": int(has_req),
-            "ban": int(bool(ban)), "gate": _gate(weights),
-            "init": int(bool(init)), "B": int(n_pods), "K": K_BATCH,
-            "hoff": sh.hoff}
-    _launch("shard_uniform_sweep",
-            *_launch_arrays(ints, _SUS_INTS, ptrs, _SUS_PTRS,
-                            "shard_uniform_sweep"))
+            "ban": int(bool(ban)), "gate": gate, "B": int(n_pods),
+            "K": K_BATCH, "hoff": sh.hoff}
+    iargs, parr = _launch_arrays(ints, _SUS_INTS, ptrs, _SUS_PTRS,
+                                 "shard_uniform_sweep")
+    return ptrs, list(iargs) + [p or 0 for p in parr]
 
 
-def shard_uniform_sweep(sh: UniformShard, state, clsv, R, NS, check_res,
-                        has_req, ban, weights, wrow, n_real, n_pods, init):
-    """K9c: one uniform pass on one shard (`state`: the pass state on the
-    shard's device). CPU -> the plain version; CUDA ->
-    `csrc/shard_uniform_sweep.cu` on the shard's device."""
-    dev = sh.device
-    _require_on("shard_uniform_sweep", dev, *sh.tensors(), state, clsv,
-                wrow)
-    if not sh.st.is_cuda:
-        return shard_uniform_sweep_plain(sh, state, clsv, R, NS, check_res,
-                                         has_req, ban, weights, wrow,
-                                         n_real, n_pods, init)
-    with _on(dev):
-        return _shard_uniform_sweep_launch(sh, state, clsv, R, NS,
-                                           check_res, has_req, ban,
-                                           weights, wrow, n_real, n_pods,
-                                           init)
+def shard_uniform_sweep(shards: list, state, clsv, R, NS, check_res,
+                        has_req, ban, weights, wrow, n_real,
+                        n_pods) -> Optional[Relaunch]:
+    """K9c: one uniform pass over every shard of `shards`, all on one
+    device (`state`: the pass state there; the burst's first pass is the
+    one at ST_PASS 0), each record into its shard's `rec`. CPU -> the
+    plain version (returns None); CUDA -> ONE launch of
+    `csrc/shard_uniform_sweep.cu` over them (per SWEEP_GROUP shards),
+    returning its `Relaunch` for the burst's next passes: the arguments
+    are the same every pass."""
+    dev = state.device
+    for sh in shards:
+        _require_on("shard_uniform_sweep", dev, *sh.tensors(), clsv, wrow)
+    if not state.is_cuda:
+        return shard_uniform_sweep_group_plain(
+            shards, state, clsv, R, NS, check_res, has_req, ban, weights,
+            wrow, n_real, n_pods)
+    w = _weight_row(weights, wrow, dev)
+    words, keep = [], [w]
+    for sh in shards:
+        ptrs, wd = _sweep_words(sh, state, clsv, R, NS, check_res, has_req,
+                                ban, w, _gate(weights), n_real, n_pods)
+        keep.append(ptrs)
+        words += wd
+    table = (ctypes.c_longlong * len(words))(*words)
+    fn = getattr(_build.load("shard_uniform_sweep"),
+                 "shard_uniform_sweep_launch")
+    rel = Relaunch("shard_uniform_sweep", fn, (
+        table, len(shards), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream), (keep, table))
+    _check(rel.fn(), "shard_uniform_sweep")
+    rel.book()
+    return rel
 
 
 # ---- K9d shard_uniform_select -----------------------------------------------
@@ -3207,6 +3306,16 @@ def shard_uniform_select(gathered, rows, hoff, state, out, lni_out, owner,
 (SS_STEP, SS_NEXT, SS_LI, SS_LNI, SS_LNI0, SS_FOLD_SEL, SS_FOLD_ROW,
  SS_REWIND, SS_T, SS_CHK_T, SS_CHK_LI, SS_CHK_LNI, SS_FAILED, SS_GHOST_SEL,
  SS_COUNT) = range(15)
+#: the exchange round after the step state proper (csrc/shard_scan.cuh
+#: `SS_ROUND`): the steps this window's selects have taken on the device,
+#: advanced by the select only; step i writes and reads the record half
+#: i & 1 and waits for stamp `stamp_base + i + 1`
+SS_ROUND = SS_COUNT
+#: int64 words of a device's step state
+SS_WORDS = SS_COUNT + 1
+#: the other cards a local step writes its records to, at most (an
+#: 8-card host; `MAX_PEERS` in csrc/shard_scan.cuh)
+MAX_PEERS = 7
 #: the skip flag's slot in a row of the [U, 13] scalar table
 _SC_SKIP = _SCAN_SCALARS.index("skip")
 
@@ -3254,6 +3363,9 @@ class ScanPlan:
     weights: dict
     pressure: bool = False
     vic_P: int = 0
+    #: the stamps of this window are stamp_base + i + 1 for its step i
+    #: (and the last fold's): the mesh's stamps count up over its life
+    stamp_base: int = 0
 
     @property
     def cand_off(self) -> int:
@@ -3279,7 +3391,9 @@ class ScanShard:
     shard (K13a) also holds its slice of the nominated-ghost load (a fresh
     copy, folded in place), its victim planes, and `partials`, the
     kernel's scratch: one partial candidate record a row block, then the
-    ticket counter that finds the last row block (zeros)."""
+    ticket counter that finds the last row block (zeros). `ticket` is the
+    K10a / K11a launch's: its last row block publishes the shard's
+    stamps."""
 
     def __init__(self, index, offset, nodes, spread, tab, chk, rec,
                  ghost=None, vic=None):
@@ -3290,6 +3404,7 @@ class ScanShard:
         self.scal = scan_scalars(tab)
         self.rec = rec
         self.ghost, self.vic, self.partials = ghost, vic, None
+        self.ticket = torch.zeros(1, dtype=I64, device=dev)
         if vic is not None:
             blocks = -(-self.rows // LOCAL_GROUP_THREADS)
             self.partials = torch.zeros(blocks * PARTIAL_WORDS + 1,
@@ -3310,8 +3425,16 @@ class ScanSide:
     13] scalar table `scal`, the first column of the inter-pod tables
     `ic_b` / `tr_b` [U, 1] (what an inert field broadcasts), the rotation
     tables and order ids (or None), `seg_start` / `gang` [B] and the gang
-    zone counts `gz` [z_pad] (K11), the gathered records [D, bytes], the
-    packed block and (K10) the stats [5, B]."""
+    zone counts `gz` [z_pad] (K11), the gathered records in two halves
+    `halves` [2, D, bytes] (step i writes and reads half i & 1, so no
+    local step overwrites a record a select on another card still
+    reads), the packed block and (K10) the stats [5, B]. The exchange
+    (`Mesh.exchange` "peer"): `stamps` [2, D] int64, the mesh's stamps on
+    this device (a shard's local step publishes stamp[i & 1, s] after its
+    record, the select waits for all D of its half), and `peers`, the
+    (halves, stamps) of every other distinct device, which the local
+    steps here write into; "copy": no stamps and no peers, the records of
+    other devices copied in by the host."""
     st: torch.Tensor
     row: torch.Tensor
     prof: Optional[torch.Tensor]
@@ -3326,20 +3449,78 @@ class ScanSide:
     seg_start: Optional[torch.Tensor]
     gang: Optional[torch.Tensor]
     gz: Optional[torch.Tensor]
-    gathered: torch.Tensor
+    halves: torch.Tensor
     packed: torch.Tensor
     stats: Optional[torch.Tensor]
+    stamps: Optional[torch.Tensor] = None
+    peers: tuple = ()
     _args: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def device(self):
         return self.st.device
 
+    @property
+    def gathered(self) -> torch.Tensor:
+        """The records' first half [D, bytes]: the one a window's first
+        step writes and reads."""
+        return self.halves[0]
+
+    def records(self) -> torch.Tensor:
+        """The half [D, bytes] of the step the step state is at."""
+        return self.halves[int(self.st[SS_ROUND]) & 1]
+
+
+def stamp_value(base: int, step: int) -> int:
+    """The stamp a shard publishes at step `step` of a window whose stamps
+    start after `base` (`Mesh.reserve_stamps`), in half step & 1."""
+    return int(base) + int(step) + 1
+
+
+def _publish_plain(shards: list, side: ScanSide, plan: ScanPlan,
+                   wrote: list) -> None:
+    """The end of a plain local step on `side`'s device: each shard's
+    record (where the step `wrote` one) copied into the same row and half
+    of every peer's buffer, then the shards' stamps of this round
+    published here and on every peer (`plan.stamp_base` + round + 1), as
+    the kernels' last row block does."""
+    if side.stamps is None:
+        return
+    r = int(side.st[SS_ROUND])
+    h = r & 1
+    for sh, w in zip(shards, wrote):
+        if w:
+            for halves, _stamps in side.peers:
+                halves[h][sh.index].copy_(side.halves[h][sh.index])
+    for sh in shards:
+        for stamps in (side.stamps,) + tuple(p[1] for p in side.peers):
+            stamps[h, sh.index] = stamp_value(plan.stamp_base, r)
+
+
+def _await_stamps_plain(side: ScanSide, plan: ScanPlan) -> torch.Tensor:
+    """The start of a plain select step: the D stamps of this round's
+    half must read `plan.stamp_base` + round + 1 (a lost stamp raises, as
+    the kernel's bounded wait traps). Returns the half the step reads."""
+    if side.stamps is not None:
+        r = int(side.st[SS_ROUND])
+        want = stamp_value(plan.stamp_base, r)
+        got = side.stamps[r & 1]
+        if bool((got < want).any()):
+            raise RuntimeError(f"select at round {r}: stamps {got.tolist()}"
+                               f" of half {r & 1}, not {want}: a local step "
+                               f"did not publish its record")
+    return side.records()
+
+
+def _next_round(side: ScanSide) -> None:
+    side.st[SS_ROUND] += 1
+
 
 # ---- K10a / K11a: the local step ---------------------------------------------
 def _scan_local_plain(sh: ScanShard, side: ScanSide, plan: ScanPlan,
-                      segments: bool, rec: torch.Tensor) -> None:
-    """One shard's local step, its record written into `rec`."""
+                      segments: bool, rec: torch.Tensor) -> bool:
+    """One shard's local step, its record written into `rec`. Returns
+    whether it wrote one."""
     nodes, st, tab = sh.nodes, side.st, sh.tab
     dev, rows = sh.device, sh.rows
     t = int(st[SS_NEXT])
@@ -3363,13 +3544,13 @@ def _scan_local_plain(sh: ScanShard, side: ScanSide, plan: ScanPlan,
             for cur, chk in live_rows:
                 chk.copy_(cur)
     if not live:
-        return
+        return False
     r = int(side.row[t])
     if int(sh.scal[r, _SC_SKIP]):
-        return
+        return False
     if segments and bool(side.gang[t]) and not bool(side.seg_start[t]) \
             and int(st[SS_FAILED]):
-        return      # behind its gang's failure: the record is not read
+        return False    # behind its gang's failure: the record is not read
     pod = {k: v[r] for k, v in tab.items()}
     if sh.spread is not None:
         pod["spread_counts"] = sh.spread
@@ -3383,6 +3564,7 @@ def _scan_local_plain(sh: ScanShard, side: ScanSide, plan: ScanPlan,
         if k in plan.planes:
             vals[k] = pod[f]
     rec.copy_(_pack_record(vals, plan.planes, rows, dev))
+    return True
 
 
 def shard_scan_local_plain(shards: list, side: ScanSide,
@@ -3393,9 +3575,12 @@ def shard_scan_local_plain(shards: list, side: ScanSide,
     kernels.py:549, +1 on the carried spread), then, unless the step is
     past the window or a skip pod, writes K9a's record for pod row[t]
     over its rows (`_feasibility` :296 and the row-local `_fit_scores`
-    :157, with its wtab row) into row `index` of `side.gathered`."""
-    for sh in shards:
-        _scan_local_plain(sh, side, plan, False, side.gathered[sh.index])
+    :157, with its wtab row) into row `index` of the step's half of
+    `side.halves`, and of every peer's (`_publish_plain`), then the
+    shards' stamps."""
+    _publish_plain(shards, side, plan, [
+        _scan_local_plain(sh, side, plan, False, side.records()[sh.index])
+        for sh in shards])
 
 
 def shard_segments_local_plain(shards: list, side: ScanSide,
@@ -3404,14 +3589,15 @@ def shard_segments_local_plain(shards: list, side: ScanSide,
     checkpoint (kernels.py:785): after the fold, the live rows and spread
     slice are restored from the checkpoint when the step state says
     rewind, and copied into it at a segment start; a member behind its
-    gang's failure writes no record."""
-    for sh in shards:
-        _scan_local_plain(sh, side, plan, True, side.gathered[sh.index])
+    gang's failure writes no record. Records and stamps as K10a."""
+    _publish_plain(shards, side, plan, [
+        _scan_local_plain(sh, side, plan, True, side.records()[sh.index])
+        for sh in shards])
 
 
 _SSL_INTS = ("rows", "S", "offset", "n_real", "gate", "n_steps", "P",
              "carry_spread") + tuple("off_" + n for n, _ in _REC_PLANES) \
-    + ("vic_P", "cand_off")
+    + ("vic_P", "cand_off", "index", "D", "half", "stamp_base", "n_peers")
 _SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
              "allowed_pods", "req_cpu", "req_mem", "req_eph", "nz_cpu",
              "nz_mem", "pod_count", "alloc_scalar", "req_scalar", "zone_id",
@@ -3419,7 +3605,9 @@ _SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
     + ("chk_spread", "scal", "req_scalar_p", "upd_scalar_p") + _CYCLE_MASKS \
     + ("interpod_code",) + _CYCLE_COUNTS + (
         "interpod_tracked", "row", "profile_id", "w", "wtab", "state",
-        "seg_start", "gang", "rec") + tuple(
+        "seg_start", "gang", "rec", "stamps", "ticket") + tuple(
+    f"peer_rec{k}" for k in range(MAX_PEERS)) + tuple(
+    f"peer_stamps{k}" for k in range(MAX_PEERS)) + tuple(
     "ghost_" + k for k in ("cpu", "mem", "eph", "cnt")) + tuple(
     "vic_" + k for k in ("cpu", "mem", "eph", "prio", "start", "valid",
                          "violating")) + ("pprio", "partials")
@@ -3428,8 +3616,10 @@ _SSL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
 def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
                      rec: torch.Tensor):
     """(pointer tensors, scalar array, pointer array) of one shard's local
-    launches, its record written into `rec`: the same for every step of
-    the window."""
+    launches, its record written into `rec` (row s of the first half of
+    its device's buffer; the kernel adds the step's half) and into the
+    same row of every peer's buffer, its stamps published here and on
+    every peer: the same for every step of the window."""
     dev, tab, U, rows = sh.device, sh.tab, plan.U, sh.rows
     nodes = sh.nodes
     if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype != torch.bool:
@@ -3452,7 +3642,15 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
                  "interpod_code": dense("interpod_code", torch.int8),
                  "interpod_tracked": dense("interpod_tracked", torch.bool),
                  "row": side.row, "profile_id": side.prof, "w": side.w,
-                 "wtab": side.wtab, "state": side.st, "rec": rec})
+                 "wtab": side.wtab, "state": side.st, "rec": rec,
+                 "stamps": side.stamps,
+                 "ticket": sh.ticket if side.stamps is not None else None})
+    if len(side.peers) > MAX_PEERS:
+        raise ValueError(f"{name}: {len(side.peers)} peers, at most "
+                         f"{MAX_PEERS}")
+    for k, (halves, stamps) in enumerate(side.peers):
+        ptrs[f"peer_rec{k}"] = halves[0][sh.index]
+        ptrs[f"peer_stamps{k}"] = stamps
     ptrs.update({k: dense(k, torch.bool) for k in _CYCLE_MASKS})
     ptrs.update({k: dense(k, I64) for k in _CYCLE_COUNTS})
     if plan.carry_spread:
@@ -3475,7 +3673,8 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
                 k == "sc" and plan.carry_spread):
             raise ValueError(f"{name}: plane {k} of an inert field")
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
-    _require_on(name, dev, *ptrs.values())
+    _require_on(name, dev, *[v for k, v in ptrs.items()
+                             if not k.startswith("peer_")])
     off, _nbytes = record_layout(plan.planes, rows)
     if plan.record_bytes != rec.numel():
         raise ValueError(f"{name}: record size != layout")
@@ -3483,7 +3682,10 @@ def _scan_local_args(name, sh: ScanShard, side: ScanSide, plan: ScanPlan,
             "n_real": plan.n_real, "gate": _gate(plan.weights),
             "n_steps": plan.n_steps, "P": plan.P,
             "carry_spread": int(plan.carry_spread), "vic_P": plan.vic_P,
-            "cand_off": plan.cand_off if plan.pressure else 0}
+            "cand_off": plan.cand_off if plan.pressure else 0,
+            "index": sh.index, "D": plan.D,
+            "half": plan.D * plan.record_bytes,
+            "stamp_base": plan.stamp_base, "n_peers": len(side.peers)}
     ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
     return (ptrs,) + _launch_arrays(ints, _SSL_INTS, ptrs, _SSL_PTRS, name)
 
@@ -3519,6 +3721,16 @@ class Relaunch:
         n, self.count.value = self.count.value, 0
         obs.inc("launch." + self.name, n)
         return n
+
+
+def enable_peers(cards) -> None:
+    """Peer access for every ordered pair of the CUDA devices `cards`
+    (indices), once a mesh, by `mesh_enable_peers` of K10a's library
+    (`cudaDeviceEnablePeerAccess`; one already enabled is accepted). A
+    pair that cannot reach each other, or any other failure, raises."""
+    arr = (ctypes.c_int * len(cards))(*[int(c) for c in cards])
+    _check(_build.load("shard_scan_local").mesh_enable_peers(
+        arr, len(cards)), "mesh_enable_peers")
 
 
 def _local_group_launch(name, shards: list, side: ScanSide,
@@ -3588,7 +3800,7 @@ def _select_cycle_plain(side: ScanSide, plan: ScanPlan, i: int, r: int,
     pod = {"skip": np.bool_(False), "interpod_counts": side.ic_b[r],
            "interpod_tracked": side.tr_b[r]}
     out, _total, _kept = shard_cycle_select_plain(
-        side.gathered, plan.planes, plan.rows, plan.n_real, pod, li, lni,
+        side.records(), plan.planes, plan.rows, plan.n_real, pod, li, lni,
         plan.num_to_find, plan.weights, plan.z_pad, wrow=wrow, perm=perm,
         inv_perm=inv_perm, pos=pos, gang=gang)
     return dict(zip(("selected", "found", "evaluated", "max_score",
@@ -3602,7 +3814,9 @@ def shard_scan_select_plain(side: ScanSide, plan: ScanPlan) -> None:
     step take `_skip_cycle`'s result, the live step K9b's cycle (walk by
     its order id oid_seq[b], its wtab row), then the skip pods after it.
     Writes the packed [3B] block and stats [5, B] of each step it
-    decides, and the step state (li, lni, the fold, the next step)."""
+    decides, and the step state (li, lni, the fold, the next step, the
+    exchange round)."""
+    _await_stamps_plain(side, plan)
     st, B, n = side.st, plan.B, plan.n_real
     i, li, lni = int(st[SS_STEP]), int(st[SS_LI]), int(st[SS_LNI])
     lni0 = int(st[SS_LNI0])
@@ -3635,6 +3849,7 @@ def shard_scan_select_plain(side: ScanSide, plan: ScanPlan) -> None:
     st[SS_STEP] = st[SS_NEXT] = i
     st[SS_LI], st[SS_LNI] = li, lni
     st[SS_FOLD_SEL], st[SS_FOLD_ROW] = fold, r
+    _next_round(side)
 
 
 def shard_segments_select_plain(side: ScanSide, plan: ScanPlan) -> None:
@@ -3646,9 +3861,11 @@ def shard_segments_select_plain(side: ScanSide, plan: ScanPlan) -> None:
     member that finds no node rewinds li / lni / t / gz and sets the flag
     the shards restore their checkpoint by. Writes column i of the packed
     [4B] block and the step state."""
+    gathered = _await_stamps_plain(side, plan)
     st, B = side.st, plan.B
     i = int(st[SS_STEP])
     if i >= plan.n_steps:
+        _next_round(side)
         return
     li, lni, lni0, t = (int(st[k]) for k in (SS_LI, SS_LNI, SS_LNI0, SS_T))
     chk_li, chk_lni, chk_t = (int(st[k]) for k in (SS_CHK_LI, SS_CHK_LNI,
@@ -3670,7 +3887,7 @@ def shard_segments_select_plain(side: ScanSide, plan: ScanPlan) -> None:
         out = _select_cycle_plain(side, plan, i, r, li, lni, t, gang=gang)
     sel, hit = out["selected"], out["found"] > 0
     if plan.gang_score and hit and gflag:
-        zone = unpack_records(side.gathered, plan.planes, plan.rows)["zone"]
+        zone = unpack_records(gathered, plan.planes, plan.rows)["zone"]
         z = int(zone[sel])
         if 0 < z < plan.z_pad:
             side.gz[z] += 1
@@ -3693,15 +3910,17 @@ def shard_segments_select_plain(side: ScanSide, plan: ScanPlan) -> None:
             SS_CHK_LI: chk_li, SS_CHK_LNI: chk_lni, SS_FAILED: int(failed)}
     for k, v in vals.items():
         st[k] = v
+    _next_round(side)
 
 
 _SSS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad", "B",
              "n_steps", "num_to_find", "mode", "L", "n_oid", "gate", "P",
              "ipa_on", "ic_inert", "tr_inert", "gang_score") + tuple(
-    "off_" + n for n, _ in _REC_PLANES) + ("vic_P", "cand_off")
+    "off_" + n for n, _ in _REC_PLANES) + ("vic_P", "cand_off",
+                                          "stamp_base")
 _SSS_PTRS = ("gathered", "w", "wtab", "profile_id", "row", "scal", "ic_b",
              "tr_b", "perms", "inv_perms", "oid_seq", "seg_start", "gang",
-             "gz", "state", "packed", "stats", "recs", "workspace")
+             "gz", "state", "packed", "stats", "recs", "workspace", "stamps")
 
 
 def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None,
@@ -3713,13 +3932,14 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None,
         raise ValueError(f"{name}: gathered records != layout")
     if plan.mode and side.perms.shape[1] != plan.n_pad:
         raise ValueError(f"{name}: rotation rows must be n_pad wide")
-    ptrs = {"gathered": side.gathered, "w": side.w, "wtab": side.wtab,
+    # both halves: the kernel reads the one of the step's round
+    ptrs = {"gathered": side.halves, "w": side.w, "wtab": side.wtab,
             "profile_id": side.prof, "row": side.row, "scal": side.scal,
             "ic_b": side.ic_b, "tr_b": side.tr_b, "perms": side.perms,
             "inv_perms": side.inv_perms, "oid_seq": side.oid,
             "seg_start": side.seg_start, "gang": side.gang, "gz": side.gz,
             "state": side.st, "packed": side.packed, "stats": side.stats,
-            "recs": recs, "workspace": workspace}
+            "recs": recs, "workspace": workspace, "stamps": side.stamps}
     _require_cuda(name, *[v for v in ptrs.values() if v is not None])
     _require_on(name, dev, *ptrs.values())
     ints = {"n_pad": plan.n_pad, "rows": plan.rows, "D": D, "chunk": chunk,
@@ -3731,7 +3951,8 @@ def _scan_select_args(name, side: ScanSide, plan: ScanPlan, recs=None,
             "ic_inert": int("ic" not in plan.planes),
             "tr_inert": int("tracked" not in plan.planes),
             "gang_score": int(plan.gang_score), "vic_P": plan.vic_P,
-            "cand_off": plan.cand_off if plan.pressure else 0}
+            "cand_off": plan.cand_off if plan.pressure else 0,
+            "stamp_base": plan.stamp_base}
     ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
     return (ptrs,) + _launch_arrays(ints, _SSS_INTS, ptrs, _SSS_PTRS, name)
 
@@ -4072,10 +4293,16 @@ def shard_pressure_group_plain(shards: list, side: ScanSide,
                                plan: ScanPlan) -> None:
     """K13a plain over every shard of `shards` (the shards of `side`'s
     device): `shard_pressure_local_plain` on each, its record `rec` row
-    `index` of `side.gathered`."""
+    `index` of the step's half of `side.halves`, then into every peer's
+    and the stamps, as K10a (`_publish_plain`); the fold past the wave
+    writes no record and publishes nothing, as the kernel's blocks return
+    before their ticket."""
+    live = int(side.st[SS_NEXT]) < plan.n_steps
     for sh in shards:
-        sh.rec = side.gathered[sh.index]
+        sh.rec = side.records()[sh.index]
         shard_pressure_local_plain(sh, side, plan)
+    if live:
+        _publish_plain(shards, side, plan, [True] * len(shards))
 
 
 def shard_pressure_local(shards: list, side: ScanSide,
@@ -4099,9 +4326,11 @@ def shard_pressure_select_plain(side: ScanSide, plan: ScanPlan) -> None:
     `_skip_cycle`), the pick over the D candidate records by axis order,
     `any_cand`, the packed [5+P] row b, and the step state (li, lni, the
     bind or ghost fold the shards owe)."""
+    gathered = _await_stamps_plain(side, plan)
     st = side.st
     b = int(st[SS_STEP])
     if b >= plan.n_steps:
+        _next_round(side)
         return
     li, lni = int(st[SS_LI]), int(st[SS_LNI])
     r = int(side.row[b])
@@ -4111,7 +4340,7 @@ def shard_pressure_select_plain(side: ScanSide, plan: ScanPlan) -> None:
     else:
         out = _select_cycle_plain(side, plan, b, r, li, lni, b)
     winner, _nv, _viol, flags, any_res = _pick_records_plain(
-        side.gathered, plan.cand_off, plan.vic_P)
+        gathered, plan.cand_off, plan.vic_P)
     sel, hit = out["selected"], out["found"] > 0
     preempted = not hit and not skip and winner >= 0
     nli, nlni = out["next_last_index"], out["next_last_node_index"]
@@ -4125,6 +4354,7 @@ def shard_pressure_select_plain(side: ScanSide, plan: ScanPlan) -> None:
             SS_GHOST_SEL: winner if preempted else -1}
     for k, v in vals.items():
         st[k] = v
+    _next_round(side)
 
 
 def shard_pressure_select(side: ScanSide,

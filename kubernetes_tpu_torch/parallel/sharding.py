@@ -12,18 +12,25 @@ device (the JAX mesh is single-controller too):
 - shard s owns rows [s * n_pad / D, (s + 1) * n_pad / D) of the node
   matrix, on `mesh.devices[s]`; devices may repeat (`["cuda:0"] * 4` runs
   four shards on one card, `["cpu"] * 4` is what the CPU tests use);
-- a shard-local kernel (K9a for the cycle, K9c for a uniform pass, K14a
-  for a victim scan) runs on each shard's own device over its rows and
-  writes a small per-row record (K14a reduces its rows' victim scan to
-  one candidate record per shard); K10a / K11a / K13a, a step of the
+- a shard-local kernel (K9a for the cycle, K14a for a victim scan) runs
+  on each shard's own device over its rows and writes a small per-row
+  record (K14a reduces its rows' victim scan to one candidate record per
+  shard); K9c, a uniform pass, and K10a / K11a / K13a, a step of the
   scan / fused window / pressure wave, run ONE launch a device over every
   shard it holds, each shard's record (K13a: with its candidate record)
   written straight into row s of that device's gathered buffer;
 - `all_gather` copies every shard's record into a replicated [D, bytes]
   buffer on each distinct device (a peer copy between cards, an on-device
   copy on one card), each copy ordered after its producer by a CUDA
-  event; after K10a / K11a / K13a, `gather_in_place` copies only the rows
-  whose shard lives on another device (`gather_plan`), none on one card;
+  event; after K9c, `gather_in_place` copies only the rows whose shard
+  lives on another device (`gather_plan`), none on one card;
+- a step of K10a / K11a / K13a exchanges its records on the device
+  (`Mesh.exchange` "peer"): each local also writes its shards' records
+  into every other card's buffer over NVLink, in half i & 1 of a
+  two-half buffer at step i, then publishes a stamp the selects wait for
+  (`mesh_stamps`), so a step is one bound launch a card for the local
+  and one for the select, no event and no copy; a host whose cards lack
+  peer access takes "copy", the host's `gather_in_place` between them;
 - a replicated select (K9b, K9d, K10b, K11b, K13b, K14b) runs on every
   distinct device over the gathered records, so every device reaches the
   same decision. The scans keep their step state (step index, li / lni,
@@ -65,10 +72,48 @@ _POD_SHARDED = (
 PASS_GROUP = 4
 
 
-class Mesh:
-    """An ordered list of torch devices the node axis is split over."""
+def exchange_kind(devices, can_access=None) -> str:
+    """How a mesh step's records cross between the distinct devices of
+    `devices`: "peer" (each local step writes its records into every
+    device's buffer and publishes stamps the selects wait for) when every
+    ordered pair of distinct cards has peer access (`can_access(a, b)`,
+    default `torch.cuda.can_device_access_peer`), or when there is one
+    distinct device; else "copy" (the host copies the other devices'
+    records in after each local step). More distinct devices than a local
+    step's peer table holds (`K.MAX_PEERS` + 1) take "copy" too."""
+    devs = list(dict.fromkeys(torch.device(d) for d in devices))
+    if len(devs) == 1:
+        return "peer"
+    if len(devs) > K.MAX_PEERS + 1:
+        return "copy"
+    if can_access is None:
+        def can_access(a, b):
+            return torch.cuda.can_device_access_peer(a.index, b.index)
+    ok = all(can_access(a, b) for a in devs for b in devs if a != b)
+    return "peer" if ok else "copy"
 
-    def __init__(self, devices):
+
+def exchange_plan(devices) -> list:
+    """Where each shard's local step writes its record, shard s's on
+    `devices[s]`: (s, [its own device, then every other distinct device
+    in first-shard order]), the peers the order of the `peer_rec<k>` /
+    `peer_stamps<k>` slots of its launch. No CUDA needed: the devices are
+    labels."""
+    devs = [torch.device(d) for d in devices]
+    distinct = list(dict.fromkeys(devs))
+    return [(s, [d] + [x for x in distinct if x != d])
+            for s, d in enumerate(devs)]
+
+
+class Mesh:
+    """An ordered list of torch devices the node axis is split over.
+    `exchange` ("peer" or "copy", `exchange_kind`) is decided here, once,
+    from what the host's cards can do, before any launch; `exchange=`
+    names it instead (a host whose cards have peer access may still take
+    "copy"). The mesh's stamps (`mesh_stamps`) count up over its life:
+    each window reserves its own run of values."""
+
+    def __init__(self, devices, exchange=None):
         devs = []
         for d in devices:
             d = torch.device(d)
@@ -80,6 +125,17 @@ class Mesh:
         if len({d.type for d in devs}) != 1:
             raise ValueError(f"a mesh's devices are of one type: {devs}")
         self.devices = tuple(devs)
+        if exchange is None:
+            exchange = exchange_kind(devs)
+        if exchange not in ("peer", "copy"):
+            raise ValueError(f"exchange {exchange!r} is not peer or copy")
+        if exchange == "peer" and exchange_kind(devs, lambda a, b: True) \
+                != "peer":
+            raise ValueError(f"{len(self.distinct)} devices exceed a local "
+                             f"step's peer table")
+        self.exchange = exchange
+        self._stamps = None
+        self._stamp_next = 0
 
     @property
     def size(self) -> int:
@@ -101,8 +157,56 @@ class Mesh:
                              f"{self.size} shards of >= 2 rows")
         return n_pad // self.size
 
+    def reserve_stamps(self, n: int) -> int:
+        """The base of the next `n` stamp values (a window's steps and its
+        last fold): every later window's stamps lie above them."""
+        base = self._stamp_next
+        self._stamp_next += int(n)
+        return base
+
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]})"
+        return f"Mesh({[str(d) for d in self.devices]}, {self.exchange})"
+
+
+def mesh_stamps(mesh: Mesh) -> dict:
+    """{device: [2, D] int64 stamps} of a "peer" mesh, made at its first
+    window: zeroed on every distinct device, peer access enabled for
+    every ordered pair of its cards (`mesh_enable_peers`, built with
+    K10a's library), then every device synchronized, so no card's first
+    local step can write into a buffer another card has yet to zero. A
+    failed enable raises."""
+    if mesh._stamps is None:
+        stamps = {d: torch.zeros((2, mesh.size), dtype=K.I64, device=d)
+                  for d in mesh.distinct}
+        cards = [d.index for d in mesh.distinct if d.type == "cuda"]
+        if len(cards) > 1:
+            K.enable_peers(cards)
+        for d in mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        mesh._stamps = stamps
+    return mesh._stamps
+
+
+def _order_window_start(mesh: Mesh) -> None:
+    """On several cards, one event a card orders a window's start: every
+    card's stream waits until every other card has enqueued what came
+    before (its last window's selects, which still read records, and this
+    window's buffers, zeroed on its own stream) before any of this
+    window's local steps writes into it."""
+    cards = [d for d in mesh.distinct if d.type == "cuda"]
+    if len(cards) < 2:
+        return
+    events = {}
+    for d in cards:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        events[d] = ev
+    for d in cards:
+        stream = torch.cuda.current_stream(d)
+        for src, ev in events.items():
+            if src != d:
+                stream.wait_event(ev)
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -331,15 +435,20 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
                     check_resources, weights=None, rotation=None,
                     extra_ok=None, ban=False, cap=None, wtab=None, pid=0):
     """`sharded_uniform_fn` (sharding.py:151): the uniform K-batch burst
-    with its node-axis state split over the mesh. Each pass runs K9c on
-    every shard (fold the previous pass's accepted lanes it owns, sweep
-    its rows), the all-gather of the shards' tie / stay bytes and maxima,
-    and K9d on every distinct device (the tie walk and the lanes). The
-    pass loop runs on the host, PASS_GROUP passes between reads of the
-    pass counter; passes past the end are no-ops on the device. Returns
-    (one dict of folded rows per shard, packed[cap+1] int32 and the lni
-    tensor, both on the first device). Books `gather.burst_uniform`
-    (bytes), `passes.burst_uniform` and `syncs.burst_uniform`."""
+    with its node-axis state split over the mesh. Each pass runs K9c,
+    ONE launch a device over its shards (fold the previous pass's
+    accepted lanes each owns, sweep its rows, each record written in
+    place into row s of the device's gathered buffer), the all-gather of
+    the records of shards on other devices (`gather_in_place`: none on
+    one card), and K9d on every distinct device (the tie walk and the
+    lanes). The first pass binds each device's K9c launch (`Relaunch`),
+    the later passes re-enqueue it. The pass loop runs on the host,
+    PASS_GROUP passes between reads of the pass counter; passes past the
+    end are no-ops on the device. Returns (one dict of folded rows per
+    shard, packed[cap+1] int32 and the lni tensor, both on the first
+    device). Books `gather.burst_uniform` (bytes in every device's
+    buffer), `copies.burst_uniform` (record copies enqueued),
+    `passes.burst_uniform` and `syncs.burst_uniform`."""
     weights = weights or K.DEFAULT_WEIGHTS
     shards = _as_shards(mesh, nodes)
     D = mesh.size
@@ -370,6 +479,11 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
         lni_out[d] = st[K.ST_LNI: K.ST_LNI + 1].clone()
         owner[d] = torch.full((n_pad + 1,), K.K_BATCH, dtype=K.I32,
                               device=d)
+    # each shard's record is row s of its device's gathered buffer: K9c
+    # writes it in place, the all-gather copies only other devices' rows
+    gbuf = {d: torch.zeros((D, K.UniformShard.record_bytes(rows)),
+                           dtype=torch.uint8, device=d)
+            for d in mesh.distinct}
     ushards = []
     for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
         lo = s * rows
@@ -386,25 +500,32 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
         ushards.append(K.UniformShard(
             lo, rows, width, nd, _pad_cols(carried, width),
             _pad_cols(xalloc, width), _pad_cols(salloc, width),
-            _pad_cols(sused, width), extra, tot0))
-    gbuf = {d: torch.empty((D, ushards[0].rec.numel()), dtype=torch.uint8,
-                           device=d) for d in mesh.distinct}
+            _pad_cols(sused, width), extra, tot0, rec=gbuf[dev][s]))
     hoff = ushards[0].hoff
+    recs = [sh.rec for sh in ushards]
+    groups = device_groups(mesh, ushards)
+    sweeps = []     # each device's bound K9c launch (None on the CPU)
 
-    def sweep(init):
-        for sh, dev in zip(ushards, mesh.devices):
-            K.shard_uniform_sweep(sh, state[dev], clsv[dev], R, NS,
-                                  check_res, has_req, ban, weights,
-                                  wrow[dev], n_real, n_pods, init)
+    def sweep():
+        if not sweeps:
+            sweeps.extend(K.shard_uniform_sweep(
+                group, state[d], clsv[d], R, NS, check_res, has_req, ban,
+                weights, wrow[d], n_real, n_pods) for d, group in groups)
+            return
+        for rel, (d, group) in zip(sweeps, groups):
+            if rel is None:
+                K.shard_uniform_sweep(group, state[d], clsv[d], R, NS,
+                                      check_res, has_req, ban, weights,
+                                      wrow[d], n_real, n_pods)
+            else:
+                K._check(rel.fn(), rel.name)
 
-    nbytes = syncs = 0
-    first = True
+    nbytes = syncs = copies = 0
     while n_pods > 0:
         for _ in range(PASS_GROUP):
-            sweep(first)
-            first = False
-            _bufs, nb = all_gather(mesh, [sh.rec for sh in ushards], gbuf)
-            nbytes += nb
+            sweep()
+            copies += gather_in_place(mesh, recs, gbuf)
+            nbytes += len(mesh.distinct) * D * recs[0].numel()
             for d in mesh.distinct:
                 K.shard_uniform_select(gbuf[d], rows, hoff, state[d], out[d],
                                        lni_out[d], owner[d], n_pods, cap,
@@ -412,9 +533,13 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
         syncs += 1
         if int(state[mesh.devices[0]][K.ST_DONE]) >= n_pods:
             break
-    sweep(first)    # fold the last pass's lanes
+    sweep()     # fold the last pass's lanes
+    for rel in sweeps:
+        if rel is not None:
+            rel.book()      # the launches the bound sweeps made
     d0 = mesh.devices[0]
     obs.inc("gather.burst_uniform", nbytes)
+    obs.inc("copies.burst_uniform", copies)
     obs.inc("passes.burst_uniform", int(state[d0][K.ST_PASS]))
     obs.inc("syncs.burst_uniform", syncs)
     return ([K._uniform_out_rows(sh.st[:, :rows], nd, flags)
@@ -524,7 +649,7 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
     first = 0
     if not every_pod:
         first = int(np.argmax(live)) if live.any() else B
-    st0 = np.zeros(K.SS_COUNT, np.int64)
+    st0 = np.zeros(K.SS_WORDS, np.int64)
     on_dev = {}
     for slots, v in (((K.SS_LI, K.SS_CHK_LI), last_index),
                      ((K.SS_LNI, K.SS_LNI0, K.SS_CHK_LNI), last_node_index)):
@@ -541,6 +666,14 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
         gng = _replicas(mesh, segments[1], torch.bool)
         if any(int(v.shape[0]) != B for v in seg.values()):
             raise ValueError("seg_start/gang are not [B]")
+    # the records' two halves on every distinct device, and, exchanging
+    # on the device, the mesh's stamps and each device's peers
+    halves = {d: torch.zeros((2, D, nbytes), dtype=torch.uint8, device=d)
+              for d in mesh.distinct}
+    stamps = mesh_stamps(mesh) if mesh.exchange == "peer" \
+        else {d: None for d in mesh.distinct}
+    peers = {mesh.devices[s]: dests[1:] if mesh.exchange == "peer" else []
+             for s, dests in exchange_plan(mesh.devices)}
     sides = {}
     for d in mesh.distinct:
         tab = tables[mesh.devices.index(d)]
@@ -567,8 +700,8 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
             perms=perms[d], inv_perms=invs[d], oid=oid[d], seg_start=seg[d],
             gang=gng[d], gz=torch.zeros(z_pad, dtype=K.I64, device=d)
             if gang_score else None,
-            gathered=torch.zeros((D, nbytes), dtype=torch.uint8, device=d),
-            packed=packed, stats=stats)
+            halves=halves[d], packed=packed, stats=stats, stamps=stamps[d],
+            peers=tuple((halves[x], stamps[x]) for x in peers[d]))
     scan = []
     for s, (nd, dev) in enumerate(zip(shards, mesh.devices)):
         mine = {k: v for k, v in nd.items() if k not in K._MUTABLE}
@@ -592,6 +725,8 @@ def _scan_window(mesh: Mesh, nodes, pods, last_index, last_node_index,
         steps = plan.n_steps
     else:
         steps = max(int(np.count_nonzero(live)), 1) if B else 0
+    plan.stamp_base = mesh.reserve_stamps(steps + 1)
+    _order_window_start(mesh)
     return scan, sides, plan, steps
 
 
@@ -604,22 +739,31 @@ def device_groups(mesh: Mesh, scan: list) -> list:
 
 def _run_steps(mesh: Mesh, scan: list, sides: dict, plan, steps: int,
                local, select) -> tuple:
-    """Enqueue `steps` steps (the local kernel, the all-gather, the select
-    on every distinct device), then the local kernel once more for the
-    last step's fold. No host read. `local` (K10a, K11a, K13a) takes every
-    shard of one device (`device_groups`, formed once here) and writes the
-    records in place, so the all-gather copies only other devices' rows
-    (`gather_in_place`); on a card the first call of each device's local
-    and select returns its bound `Relaunch`, and the later steps enqueue
-    those with nothing else; their C launch functions count every launch,
-    booked after the window (one card: two host calls a step). Returns
-    (bytes in every device's buffer, copies enqueued)."""
-    recs = [sh.rec for sh in scan]
-    bufs = {d: sides[d].gathered for d in mesh.distinct}
+    """Enqueue `steps` steps, then the local kernel once more for the last
+    step's fold. No host read. A step is the local kernel on every
+    distinct device (K10a, K11a, K13a: `local` takes every shard of one
+    device, `device_groups`, formed once here), then the select on every
+    distinct device. Step i's records go into half i & 1 of the buffers.
+    Under `mesh.exchange` "peer" the locals write every record into every
+    device's buffer themselves and publish stamps that the selects wait
+    for on the device: a step is 2 host calls a card, no event, no copy.
+    On every card step i's locals are enqueued before any select of step
+    i, so no select can wait on a local stuck behind it. Under "copy" the
+    host copies other devices' records in (`gather_in_place`) between the
+    two. On a card the first call of each device's local and select
+    returns its bound `Relaunch`, and the later steps enqueue those with
+    nothing else; their C launch functions count every launch, booked
+    after the window. Returns (bytes in every device's buffer, copies
+    enqueued)."""
     nbytes = steps * len(mesh.distinct) * mesh.size * plan.record_bytes
     n_copies = 0
     groups = [(sides[d], shards) for d, shards in device_groups(mesh, scan)]
-    foreign = bool(gather_plan(mesh.devices, in_place=True))
+    foreign = mesh.exchange == "copy" \
+        and bool(gather_plan(mesh.devices, in_place=True))
+    # each half's own rows and buffers, for the host's copies
+    recs = [[sides[dev].halves[h][s] for s, dev in enumerate(mesh.devices)]
+            for h in (0, 1)]
+    bufs = [{d: sides[d].halves[h] for d in mesh.distinct} for h in (0, 1)]
 
     def bound(handles, calls):
         # (enqueue, kernel name) of each first call's bound launch; on the
@@ -640,7 +784,7 @@ def _run_steps(mesh: Mesh, scan: list, sides: dict, plan, steps: int,
         if i:
             again(locals_)
         if foreign:
-            n_copies += gather_in_place(mesh, recs, bufs)
+            n_copies += gather_in_place(mesh, recs[i & 1], bufs[i & 1])
         if selects is None:
             sel_firsts = [select(sides[d], plan) for d in mesh.distinct]
             selects = bound(sel_firsts, [functools.partial(

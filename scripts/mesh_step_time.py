@@ -11,10 +11,13 @@ window (10,000 pods, 15,000 nodes, 50 % of the nodes to find) and the
 mesh-fused window (10,064 pods in 201 segments) through
 `TorchScheduler(mesh=Mesh(["cuda:0"] * 4))`, four shards of the card
 (`--cards`: one shard per card of the host, `make_mesh()`), and prints
-for each its dispatch (the host's enqueue of every step, host clock),
-steps and host calls a step (local launches, selects and record copies
-enqueued, over the steps; an older tree that books no `copies.<op>`
-copied every record). Then it times the window's four step kernels on
+the mesh's exchange (`peer`: the locals write every card's records and
+stamps, the selects wait for the stamps on the device; `copy`: the host
+copies other cards' records between them, as every tree before the
+exchange did), then for each window its dispatch (the host's enqueue of
+every step, host clock), its wall time, steps and host calls a step
+(local launches, selects and record copies enqueued, over the steps; an
+older tree that books no `copies.<op>` copied every record). Then it times the window's four step kernels on
 their first captured call: K10a / K11a over what that call covers (one
 shard in an older tree, every shard of the card in a tree with the
 grouped locals), K10b / K11b on the gathered records, each `--reps`
@@ -49,6 +52,12 @@ grouped K13a), K13b on the gathered records.
 The last line is one JSON object with every number and the card's name
 and power limit. Needs one CUDA card (`--cards`: several); exits non-zero
 without one.
+
+To compare two trees on the same cards, run them in one call in turns,
+parent, change, change, parent, e.g.
+
+    for t in P C C P; do python3 scripts/mesh_step_time.py --cards --wave \
+        --tree $([ $t = P ] && echo build/parent || echo .); done
 """
 import argparse
 import ctypes
@@ -134,13 +143,16 @@ def main() -> int:
     from kubernetes_tpu_torch import obs
     dev = torch.device("cuda")
     mesh = S.make_mesh() if opt.cards else S.Mesh([dev] * 4)
+    exchange = getattr(mesh, "exchange", "copy")
+    print(f"[mesh] {mesh.size} shards on {len(mesh.distinct)} distinct "
+          f"devices; exchange {exchange}", flush=True)
 
     def sync():
         for d in mesh.distinct:
             torch.cuda.synchronize(d)
     out = {"tree": tree, "card": card, "shards": [str(d) for d in
                                                    mesh.devices],
-           "windows": {}, "kernels": {}}
+           "exchange": exchange, "windows": {}, "kernels": {}}
 
     # the profiler helper of this checkout's chip_smoke.py, whatever DIR is
     spec = importlib.util.spec_from_file_location("chip_smoke_here",
