@@ -59,12 +59,22 @@
    rows (a select: its step's records) in shared memory or not, the
    per-slot scratch in shared memory or in a global workspace (with its
    bytes), shared bytes a block, and how many such clusters the card
-   holds; K2's and K13b's plans are on the kernels line too (`plan`). K2,
-   K3, K4, K7, K8, K9a-d, K10a/b, K11a/b, K13a/b and K14a also get
-   `device_ms` on the kernels line: the kernel's own device time a launch
-   (torch.profiler; K7 and K14a: their two kernels a call) beside `ms`,
-   the wrapper call's (K9a also on mesh-scan-default's first serial
-   cycle, `device_ms_scan_default`).
+   holds; K2's, K3's and K13b's plans are on the kernels line too
+   (`plan`). K3, one thread-block cluster a burst, is held on the
+   headline burst (the empty 15,000-node cluster), the filled cluster
+   (STAY batches cut about every 7 pods), the rotated burst of the
+   15,001-node world, and on four `uniform_plan` geometries in every
+   case of its random inputs (the 8-block fallback, a ragged axis, and
+   the rows in global memory at 262,144 slots on 16 blocks and 131,072
+   on 8, with rotation the scratch too); K9b, one cluster a cycle, on its
+   mesh calls and at 262,144 slots on 16 blocks and 131,072 on 8 (the
+   records and the scratch in global memory). K1, K2, K3, K4, K7, K8,
+   K9a-d, K10a/b, K11a/b, K13a/b and K14a also get `device_ms` on the
+   kernels line: the kernel's own device time a launch (torch.profiler;
+   K7 and K14a: their two kernels a call) beside `ms`, the wrapper
+   call's (K9a also on mesh-scan-default's first serial cycle,
+   `device_ms_scan_default`; K3 also on the filled and rotated bursts,
+   `device_ms_filled`, `device_ms_rotated`).
    K9c, K10a, K11a and K13a run one launch a device over every shard it
    holds, each record written into the device's gathered buffer: their
    check captures that launch over the card's four shards (bound, `ms`
@@ -155,8 +165,8 @@ With `--cards` (a host of several cards) it builds the kernels and runs
 only the mesh phase, one shard per card, so the all-gather's copies are
 peer copies between the cards: K13a-K14b, K9a-d and K10a-K11b against
 their plain versions on meshes of all the cards and of the first two
-(the grouped locals, K13a's too, in every step state), K13b at its two
-C3 geometries over every card, K2's cluster geometries on the first card,
+(the grouped locals, K13a's too, in every step state), K13b and K9b at
+their two C3 geometries over every card, K2's cluster geometries on the first card,
 mesh-preempt-wave, four mesh-preempt-single rounds, mesh-uniform at
 15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
 mesh-fused, each held against the single-device run on the first card;
@@ -461,7 +471,7 @@ def kernel_checks(device, sync):
     out = {}
 
     def entry(name, got, want, fn, plain, reps, plain_reps, nbytes,
-              library_ms=None, label=None, dev_kernels=None):
+              library_ms=None, label=None, dev_kernels=None, key=None):
         err = max_abs_err(got, want)
         if err != 0:
             raise SystemExit(f"{name}: kernel disagrees with plain "
@@ -471,9 +481,17 @@ def kernel_checks(device, sync):
         ms = cuda_time(fn, sync, reps)
         plain_ms = cuda_time(plain, sync, plain_reps)
         if label is not None:
+            # another input of a kernel already on the line: its device
+            # time goes there as `device_ms_<key>`
+            note = ""
+            if dev_kernels:
+                dev_ms, seen = device_ms_a_call(fn, sync, reps, dev_kernels)
+                out[name][f"device_ms_{key}"] = dev_ms
+                note = (f" device_ms {fmt_ms(dev_ms)} a call over {seen} "
+                        f"launches (torch.profiler)")
             print(f"[kernel] {name} ({label}): equal to plain "
                   f"(max_abs_err 0), kernel_ms {ms:.4f} plain_ms "
-                  f"{plain_ms:.4f}")
+                  f"{plain_ms:.4f}" + note)
             return
         out[name] = {"name": name, "route": "cuda",
                      "source": SOURCES[name][0],
@@ -498,7 +516,7 @@ def kernel_checks(device, sync):
             nodes["alloc_cpu"], nodes["alloc_mem"])
     entry("local_total", K.local_total(*args), K.local_total_plain(*args),
           lambda: K.local_total(*args), lambda: K.local_total_plain(*args),
-          200, 20, n_pad * (4 * 8 + 8))
+          200, 20, n_pad * (4 * 8 + 8), dev_kernels=("local_total_kernel",))
 
     # K2 schedule_cycle: one density pod against the filled cluster
     from kubernetes_tpu_torch.ops.node_state import PodEncoder
@@ -544,15 +562,48 @@ def kernel_checks(device, sync):
           lambda: K.schedule_batch_uniform(*uargs, **ukw),
           lambda: K.schedule_batch_uniform_plain(*uargs, **ukw), 20, 2,
           state_bytes + (cap + 1) * 4, dev_kernels=("uniform_burst_kernel",))
-    # ... and on the filled cluster, where every 7th node leaves the tie
-    # set after one more pod: STAY batches cut every ~7 pods
+    out["uniform_burst"]["plan"] = plan_entry("uniform_burst")
+    print(f"[kernel] uniform_burst: "
+          f"{describe_geometry(*K.last_geometry['uniform_burst'])}")
+    # ... on the filled cluster, where every 7th node leaves the tie set
+    # after one more pod: STAY batches cut every ~7 pods ...
     sargs = (nodes, cls, N_PODS, 7, b.n_real, True)
     entry("uniform_burst", K.schedule_batch_uniform(*sargs, **ukw),
           K.schedule_batch_uniform_plain(*sargs, **ukw),
           lambda: K.schedule_batch_uniform(*sargs, **ukw),
           lambda: K.schedule_batch_uniform_plain(*sargs, **ukw), 5, 1,
           state_bytes + (cap + 1) * 4,
-          label="filled cluster: 3 pods on every 7th node, lni 7")
+          label="filled cluster: 3 pods on every 7th node, lni 7",
+          dev_kernels=("uniform_burst_kernel",), key="filled")
+    # ... and on the rotated burst of the 15,001-node world (uneven zones:
+    # each cycle's enumeration starts at another zone, `_burst_rotation`)
+    r_infos, r_tree = cluster(N_NODES + 1)
+    r_sched = TorchScheduler(percentage_of_nodes_to_score=100,
+                             node_tree=r_tree, device=device)
+    rb = r_sched.encoder.encode(r_infos, r_tree.list_names())
+    r_nodes = r_sched._node_arrays(rb)
+    fr = PodEncoder(r_infos, rb, state_encoder=r_sched.encoder).encode(probe)
+    r_cls, r_extra, r_ban = r_sched._uniform_class(probe, fr, rb, r_infos)
+    rot = r_sched._burst_rotation(rb, N_PODS)
+    if rot is None:
+        raise SystemExit("uniform_burst: the 15,001-node world does not "
+                         "rotate")
+    seq = np.full(cap + K.K_BATCH, rot[1][-1], np.int32)
+    seq[: min(len(rot[1]), len(seq))] = rot[1][: len(seq)]
+    rotation = (torch.as_tensor(rot[0]).to(device),
+                torch.as_tensor(seq).to(device))
+    rkw = dict(extra_ok=r_extra, ban=r_ban, cap=cap, rotation=rotation)
+    rargs = (r_nodes, r_cls, N_PODS, 0, rb.n_real, True)
+    entry("uniform_burst", K.schedule_batch_uniform(*rargs, **rkw),
+          K.schedule_batch_uniform_plain(*rargs, **rkw),
+          lambda: K.schedule_batch_uniform(*rargs, **rkw),
+          lambda: K.schedule_batch_uniform_plain(*rargs, **rkw), 10, 1,
+          state_bytes + (cap + 1) * 4,
+          label=f"rotated burst, {N_NODES + 1} nodes, "
+                f"{rot[0].shape[0]} orders",
+          dev_kernels=("uniform_burst_kernel",), key="rotated")
+    print(f"[kernel] uniform_burst (rotated): "
+          f"{describe_geometry(*K.last_geometry['uniform_burst'])}")
 
     # K4 scatter_rows: 16 dirty rows (the serial path's bucket) of every field
     rows = np.arange(0, 16 * 97, 97, dtype=np.int32)
@@ -895,6 +946,88 @@ def cycle_variant_checks(device, sync):
           f"over {len(CYCLE_GEOMETRIES)} cluster geometries (dense and "
           f"inert pods; identity, perm and pos walks with and without a "
           f"nominated ghost; a skip pod; a weight table)")
+
+
+#: K3's cluster geometries (label, n_pad, n_real, blocks the planner may
+#: take, the plan without rotation and with uniform_cases' four orders:
+#: (blocks, slots a thread, rows resident, scratch in global memory)): the
+#: cells' n_pad on the 8-block fallback, a ragged axis, and past what
+#: shared memory holds the rows in global memory at 262,144 slots on 16
+#: blocks, then the scores, bytes and tie lists too (four orders, or 131,072
+#: slots on 8 blocks)
+UNIFORM_GEOMETRIES = (
+    ("16,384 slots on an 8-block cluster", 16384, 15001, 8,
+     (8, 2, True, False), (8, 2, True, False)),
+    ("20,000 slots: two a thread, ten blocks", 20000, 19990, 16,
+     (10, 2, True, False), (10, 2, True, False)),
+    ("262,144 slots: 16 a thread, the rows in global memory (rotated: "
+     "the scratch too)", 262144, 262000, 16, (16, 16, False, False),
+     (16, 16, False, True)),
+    ("131,072 slots on an 8-block cluster: 16 a thread, the rows in "
+     "global memory (rotated: the scratch too)", 131072, 131000, 8,
+     (8, 16, False, False), (8, 16, False, True)),
+)
+
+
+def uniform_variant_checks(device, sync):
+    """K3 (one thread-block cluster a burst, `uniform_plan`) against its
+    plain version on every geometry of UNIFORM_GEOMETRIES, in every case
+    of `uniform_cases` (plain, lni, rotate, ban + extra_ok, carried rows,
+    weight table, saturated tail); every output compared (decisions, the
+    packed block, lni and the folded rows). Prints each geometry's plans
+    and K3's device time a burst there (the plain case)."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    checked = 0
+    for gi, (label, n_pad, n_real, blocks, flat, rot) in enumerate(
+            UNIFORM_GEOMETRIES):
+        rng = np.random.default_rng(20261104 + gi)
+        nodes = _rand_nodes(rng, n_pad, n_real, 2, 6, device)
+        wtab = torch.as_tensor(rng.integers(0, 4, (3, len(K.PRIORITY_AXIS)))
+                               ).to(device)
+        union = {k: int(wtab[:, i].max())
+                 for i, k in enumerate(K.PRIORITY_AXIS)}
+        fresh, cases, cap = uniform_cases(rng, nodes, n_pad, n_real, 2, wtab,
+                                          union, device)
+        plans = {}
+        timed = None
+        with cluster_blocks(blocks):
+            for name, cls, n_pods, lni, kw in cases:
+                args = (fresh, cls, n_pods, lni, n_real, True)
+                K.last_geometry.pop("uniform_burst", None)
+                got = K.schedule_batch_uniform(*args, cap=cap, **kw)
+                want = K.schedule_batch_uniform_plain(*args, cap=cap, **kw)
+                err = max_abs_err(got, want)
+                if err != 0:
+                    raise SystemExit(
+                        f"uniform variant {name} at {label}: disagrees "
+                        f"(max_abs_err {err}; first difference "
+                        f"{first_diff(got, want)})")
+                checked += 1
+                plans[name] = K.last_geometry["uniform_burst"]
+                if name == "plain":
+                    timed = (args, kw)
+            args, kw = timed
+            dev_ms, _n = device_time(
+                lambda: K.schedule_batch_uniform(*args, cap=cap, **kw), sync,
+                3, "uniform_burst_kernel")
+        for name, want in (("plain", flat), ("rotate", rot)):
+            plan = plans[name][0]
+            got = (plan.blocks, plan.nodes_per_thread, plan.resident,
+                   plan.global_scratch)
+            if got != want:
+                raise SystemExit(f"uniform variant {label} ({name}): "
+                                 f"planned {plan}, not {want}")
+        print(f"[variants] uniform_burst {label}: "
+              f"{describe_geometry(*plans['plain'])}; rotated: "
+              f"{describe_geometry(*plans['rotate'])}; device_ms "
+              f"{fmt_ms(dev_ms)} a burst ({cases[0][2]} pods)")
+    sync()
+    print(f"[variants] {checked} K3 calls equal to their plain versions "
+          f"over {len(UNIFORM_GEOMETRIES)} cluster geometries (plain, lni, "
+          f"rotate, ban + extra_ok, carried rows, weight table, saturated "
+          f"tail)")
 
 
 def small_world_check(device, sync):
@@ -3601,6 +3734,83 @@ def pressure_select_geometry_checks(device, sync, devices=None):
               f"{fmt_ms(dev_ms)} a step over {seen} steps")
 
 
+#: K9b's C3 geometries (label, n_pad, n_real, blocks the planner may
+#: take): the records and the scratch in global memory at 262,144 slots on
+#: 16 blocks and 131,072 on 8, as K13b's
+CYCLE_SELECT_GEOMETRIES = (
+    ("262,144 slots: 16 a thread, the records and the scratch in global "
+     "memory", 262144, 262000, 16),
+    ("131,072 slots on an 8-block cluster: 16 a thread, the records and "
+     "the scratch in global memory", 131072, 131000, 8),
+)
+
+
+def cycle_select_geometry_checks(device, sync, devices=None):
+    """K9b (one thread-block cluster a cycle, `select_plan`) at the C3
+    geometries of CYCLE_SELECT_GEOMETRIES: the sharded cycle on MESH_D
+    shards of the card, or one shard on each of `devices` (dense and inert
+    pods in the identity, perm and pos walks) held against the plain
+    version of the same sharded cycle and against the single-device plain
+    K2; prints K9b's plan and its device time a cycle there."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = S.Mesh(devices or [device] * MESH_D)
+    for gi, (label, n_pad, n_real, blocks) in enumerate(
+            CYCLE_SELECT_GEOMETRIES):
+        rng = np.random.default_rng(20261105 + gi)
+        nodes = _rand_nodes(rng, n_pad, n_real, 2, 6, device)
+        shards = S.shard_node_arrays(mesh, nodes)
+        perm = np.concatenate([rng.permutation(n_real),
+                               np.arange(n_real, n_pad)]).astype(np.int32)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(n_pad, dtype=np.int32)
+        walks = {"identity": {},
+                 "perm": {"perm": torch.as_tensor(perm).to(device),
+                          "inv_perm": torch.as_tensor(inv).to(device)},
+                 "pos": {"pos": torch.as_tensor(inv).to(device)}}
+        K.last_geometry.clear()
+        timed = None
+        with cluster_blocks(blocks):
+            for dense in (True, False):
+                pod = _rand_pod(rng, n_pad, 2, dense)
+                for mode, kw in walks.items():
+                    ntf = n_real if mode == "pos" else n_real // 2
+                    args = (pod, n_real // 3 + 37, 2 ** 33 + 7, ntf, n_real,
+                            8)
+                    got = K.schedule_cycle(shards, *args, mesh=mesh, **kw)
+                    with plain_versions(MESH_ENTRIES):
+                        ref = K.schedule_cycle(shards, *args, mesh=mesh,
+                                               **kw)
+                    want = K.schedule_cycle_plain(nodes, *args, **kw)
+                    for what, other in (("the sharded plain cycle", ref),
+                                        ("the single-device plain K2",
+                                         want)):
+                        err = max_abs_err({k: got[k] for k in CYCLE_KEYS},
+                                          {k: other[k] for k in CYCLE_KEYS})
+                        if err != 0:
+                            raise SystemExit(
+                                f"K9b at {label} ({mode}, dense {dense}): "
+                                f"disagrees with {what} "
+                                f"({first_diff(got, other)})")
+                    if dense and mode == "identity":
+                        timed = (args, kw)
+            args, kw = timed
+            dev_ms, seen = device_time(
+                lambda: K.schedule_cycle(shards, *args, mesh=mesh, **kw),
+                sync, 3, "shard_cycle_select_kernel")
+        plan, fit = K.last_geometry["shard_cycle_select"]
+        if (plan.blocks, plan.resident, plan.global_scratch) != (
+                blocks, False, True):
+            raise SystemExit(f"K9b at {label}: planned {plan}")
+        print(f"[variants] shard_cycle_select {label}, {mesh.size} shards: "
+              f"dense and inert pods in the identity, perm and pos walks "
+              f"equal to the sharded plain cycle and to the single-device "
+              f"plain K2; {describe_geometry(plan, fit, select=True)}; "
+              f"device_ms {fmt_ms(dev_ms)} a cycle over {seen} launches")
+
+
 def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
                                 n_real=3999):
     """K14a/b and K13a/b against their plain versions on random inputs,
@@ -4282,7 +4492,8 @@ def cards_phase(report):
     K13a-K14b against their plain versions on meshes of all the
     cards and of the first two, mesh-preempt-wave held against the
     single-device K8 wave on the first card and four mesh-preempt-single
-    rounds held against K7; K9a-d and K10a-K11b against their plain
+    rounds held against K7; K13b and K9b at their C3 geometries over
+    every card; K9a-d and K10a-K11b against their plain
     versions, then mesh-uniform at 15,000 and 15,001 nodes held against
     the single-device K3/K2 run on the first card, and mesh-scan-default
     (15,000 nodes) and mesh-fused held against the single-device K5 / K6
@@ -4304,6 +4515,7 @@ def cards_phase(report):
     mesh_preempt_variant_checks(device, sync, meshes=meshes)
     mesh_pressure_local_checks(device, sync, meshes=meshes)
     pressure_select_geometry_checks(device, sync, list(mesh.devices))
+    cycle_select_geometry_checks(device, sync, list(mesh.devices))
     cycle_variant_checks(device, sync)
     infos, tree, pdbs = preempt_world(N_NODES)
     with capture("pressure_batch", keep_all=True) as one:
@@ -4392,6 +4604,7 @@ def main() -> int:
         report = timed(kernel_checks, device, sync)
         timed(variant_checks, device, sync)
         timed(cycle_variant_checks, device, sync)
+        timed(uniform_variant_checks, device, sync)
         timed(scan_variant_checks, device, sync)
         timed(preempt_variant_checks, device, sync)
         timed(pressure_variant_checks, device, sync)
@@ -4400,6 +4613,7 @@ def main() -> int:
         timed(main_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
               report)
         timed(mesh_variant_checks, device, sync)
+        timed(cycle_select_geometry_checks, device, sync)
         timed(mesh_path, "even zones", N_NODES, device, sync, report, True)
         timed(mesh_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
               report, False)

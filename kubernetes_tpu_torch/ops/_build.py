@@ -42,14 +42,14 @@ _L = ctypes.c_longlong
 #: untyped python int as a 32-bit int, which would cut a pointer)
 SIGNATURES = {
     "local_total": [_I, _P, _P, _L, _L, _P, _P, _I, _P, _P, _P],
-    "uniform_burst": [_I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "scatter_rows": [_I, _I, _L, _P, _P, _P],
     # the scan kernels take host arrays of scalars and of pointers
-    # the cluster kernels (K2, K5, K6, K8) also take their geometry
-    # (`kernels.cycle_plan` / `cluster_plan` / `pressure_plan`: blocks,
-    # node slots a thread, resident, bytes, scratch)
+    # the cluster kernels (K2, K3, K5, K6, K8, K9b) also take their
+    # geometry (`kernels.cycle_plan` / `uniform_plan` / `cluster_plan` /
+    # `pressure_plan` / `select_plan`: blocks, node slots a thread,
+    # resident, bytes, scratch)
+    "uniform_burst": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                      ctypes.POINTER(_L), _P],
     "schedule_cycle": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                        ctypes.POINTER(_L), _P],
     "schedule_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P),
@@ -60,7 +60,8 @@ SIGNATURES = {
     "pressure_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                        ctypes.POINTER(_L), _P],
     "shard_cycle_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
-    "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                           ctypes.POINTER(_L), _P],
     # K9c takes every shard of one device, as the grouped locals below
     "shard_uniform_sweep": [ctypes.POINTER(_L), _I, _I, _P,
                             ctypes.POINTER(_I)],
@@ -95,10 +96,10 @@ SIGNATURES = {
 #: for every ordered pair of a mesh's cards
 QUERIES = {name: {name + "_clusters": [ctypes.POINTER(_L),
                                        ctypes.POINTER(_I)]}
-           for name in ("schedule_cycle", "schedule_batch",
+           for name in ("schedule_cycle", "uniform_burst", "schedule_batch",
                         "schedule_segments", "pressure_batch",
-                        "shard_scan_select", "shard_segments_select",
-                        "shard_pressure_select")}
+                        "shard_cycle_select", "shard_scan_select",
+                        "shard_segments_select", "shard_pressure_select")}
 QUERIES["shard_scan_local"] = {"mesh_enable_peers": [ctypes.POINTER(_I),
                                                      _I]}
 

@@ -4,16 +4,15 @@
 // optionally, the nominated-ghost load in the filter; with the ghost in
 // the filter and the preemption pick carried by its select round, of K8
 // (`pressure_batch.cu`); and, fed by the gathered shard records instead of
-// the node rows (REC), of the mesh selects K10b, K11b and K13b
+// the node rows (REC), of the mesh selects K9b, K10b, K11b and K13b
 // (`cluster_select.cuh`).
 //
 // Replaces `_feasibility` + `_fit_scores` + `_cycle_core`
-// (kubernetes_tpu/ops/kernels.py:296, :157, :359) for every kernel but
-// K9b, which runs the one-block `cycle_select` of `cycle.cuh`. It reuses
-// that header's per-node parts (`cycle_filter_row`, `cycle_score_one`
-// with `cycle_row_local`, and K1's `local_total_one`) and keeps every
-// index rule of `cycle_select`: JAX's clamps, floordiv / floormod,
-// first-index argmax, `sel == n -> 0`.
+// (kubernetes_tpu/ops/kernels.py:296, :157, :359) for every cycle kernel.
+// It reuses `cycle.cuh`'s per-node parts (`cycle_filter_row`,
+// `cycle_score_one` with `cycle_row_local`, and K1's `local_total_one`)
+// and keeps every index rule of `_cycle_core`: JAX's clamps, floordiv /
+// floormod, first-index argmax, `sel == n -> 0`.
 //
 // Bound on the H100: the serial chain, not bytes or arithmetic. Each pod
 // reads the rows the one before it folded, and its cycle is a chain of

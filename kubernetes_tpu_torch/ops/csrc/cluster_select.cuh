@@ -1,7 +1,10 @@
 // The replicated select of one step of the sharded generic scan (K10b,
 // `shard_scan_select.cu`) and of the sharded fused window (K11b,
 // `shard_segments_select.cu`) across a thread-block cluster, over the
-// records every shard's local kernel wrote, gathered onto this device.
+// records every shard's local kernel wrote, gathered onto this device. The
+// sharded cycle's select (K9b, `shard_cycle_select.cu`) stages its
+// all-gathered records with the same `select_stage` and runs the same
+// cycle, without a step state or stamps.
 //
 // The step's records are its round's half of the buffer (`SS_ROUND`); a
 // select first waits for the stamps every shard's local published with
@@ -73,15 +76,83 @@ __device__ __forceinline__ RecLayout select_rec(const ScanSelectArgs& a) {
                    a.v[SSI_OFF_FEAS],  a.v[SSI_OFF_TRACKED]};
 }
 
+// The gathered records a select reads ([D, chunk] bytes, `rows` rows a
+// shard, the planes at `o`) and the global staging area for when they are
+// not staged in shared memory.
+struct SelectRecs {
+  const unsigned char* gath;
+  size_t chunk;
+  int rows;
+  RecLayout o;
+  unsigned char* staging;
+};
+
+// Copy this thread's slots of the records `r` into its block's shared
+// planes (g.resident, laid out as `L`) or into the staging area ([RP_N, n]
+// int64, then zone [n] int32, tracked [n] and feasible [n] bytes): the
+// local total, the raw planes of the families that run dense, zone, tracked
+// and the feasible bit, read from row j - s * rows of shard s's record.
+// Points `cx` at the staged planes and sets `pd` to them (the inter-pod
+// switches are the caller's). No barrier.
+__device__ __forceinline__ void select_stage(ClusterCtx& cx,
+                                             const ClusterGeom& g,
+                                             const ClusterLayout& L,
+                                             unsigned char* sm, int n,
+                                             i64 n_real, const SelectRecs& r,
+                                             CyclePod* pd) {
+  const RecLayout& o = r.o;
+  const i64 offs[RP_N] = {o.local, o.na, o.tt, o.sc, o.ic};
+  // the staged planes: this block's slots in shared memory, or the whole
+  // axis in global memory; slot j at [j - lo]
+  const bool shared = g.resident != 0;
+  const size_t span = shared ? (size_t)cx.span : (size_t)n;
+  const int lo = shared ? cx.lo : 0;
+  unsigned char* base = shared ? sm + L.rec : r.staging;
+  i64* rp = (i64*)base;  // [RP_N, span]
+  int* zone = shared ? (int*)(sm + L.zone)
+                     : (int*)(base + (size_t)RP_N * 8 * span);
+  unsigned char* trk = shared ? base + (size_t)RP_N * 8 * span
+                              : (unsigned char*)(zone + span);
+  unsigned char* feas = trk + span;
+  for (int j = cx.tlo; j < cx.thi; ++j) {
+    const int s = j / r.rows, jj = j - s * r.rows, l = j - lo;
+    const unsigned char* c = r.gath + (size_t)s * r.chunk;
+#pragma unroll
+    for (int q = 0; q < RP_N; ++q)
+      if (offs[q] >= 0)
+        rp[(size_t)q * span + l] = ((const i64*)(c + offs[q]))[jj];
+    if (o.zone >= 0) zone[l] = ((const int*)(c + o.zone))[jj];
+    if (o.tracked >= 0) trk[l] = c[o.tracked + jj];
+    feas[l] = c[o.feas + jj];
+  }
+  // the staged planes, indexed by global node
+  cx.rloc = rp - lo;
+  cx.rfeas = feas - lo;
+  cx.nd = CycleNodes{};
+  cx.nd.n_pad = n;
+  cx.nd.n_real = n_real;
+  cx.nd.z_pad = cx.z_pad;
+  cx.nd.zone_id = o.zone >= 0 ? zone - lo : nullptr;
+  *pd = CyclePod{};
+#define PLANE(q) (offs[q] >= 0 ? rp + (size_t)(q) * span - lo : nullptr)
+  pd->na = PLANE(RP_NA);
+  pd->tt = PLANE(RP_TT);
+  pd->sc = PLANE(RP_SC);
+  pd->ic = PLANE(RP_IC);
+#undef PLANE
+  pd->tracked = o.tracked >= 0 ? trk - lo : nullptr;
+  pd->local_in_base = 1;
+}
+
 // This thread's view of the cluster for one select step: the block's
 // tables, the step state copied into `sv`, the gang zone counts into `gz`
 // (with the gang score), and, once block 0 has seen the step's stamps,
-// this thread's slots of the step's half of the gathered records copied
-// into the block's shared planes, or, not resident, into the global
-// staging area `recs` ([RP_N, n] int64, then zone [n] int32, tracked [n]
-// and feasible [n] bytes); `pd` gets the staged planes of the families that
-// run dense. GS: the scratch planes in the global workspace (SSP_WORKSPACE).
-// Ends with a block barrier.
+// this thread's slots of the step's half of the gathered records staged
+// (`select_stage`); `pd` gets the staged planes of the families that run
+// dense. GS: the scratch planes in the global workspace (SSP_WORKSPACE).
+// The stamp wait is this setup's alone: the sharded cycle's select (K9b)
+// stages its records with `select_stage` directly, since the all-gather
+// that brings them is ordered by the stream. Ends with a block barrier.
 template <bool GS>
 __device__ __forceinline__ ClusterCtx select_setup(const ScanSelectArgs& a,
                                                    const ClusterGeom& g,
@@ -101,54 +172,14 @@ __device__ __forceinline__ ClusterCtx select_setup(const ScanSelectArgs& a,
   const i64* gz = ssp<const i64>(a, SSP_GZ);
   if (gz && a.v[SSI_GANG_SCORE])
     for (int z = tid; z < z_pad; z += NTHREADS) cx.gz[z] = gz[z];
-  const RecLayout o = select_rec(a);
-  const i64 offs[RP_N] = {o.local, o.na, o.tt, o.sc, o.ic};
-  const int rows = (int)a.v[SSI_ROWS];
-  const size_t chunk = (size_t)a.v[SSI_CHUNK];
-  const unsigned char* gath = select_records(a, round);
-  // the staged planes: this block's slots in shared memory, or the whole
-  // axis in global memory; slot j at [j - lo]
-  const bool shared = g.resident != 0;
-  const size_t span = shared ? (size_t)cx.span : (size_t)n;
-  const int lo = shared ? cx.lo : 0;
-  unsigned char* base = shared ? sm + L.rec : ssp<unsigned char>(a, SSP_RECS);
-  i64* rp = (i64*)base;  // [RP_N, span]
-  int* zone = shared ? (int*)(sm + L.zone)
-                     : (int*)(base + (size_t)RP_N * 8 * span);
-  unsigned char* trk = shared ? base + (size_t)RP_N * 8 * span
-                              : (unsigned char*)(zone + span);
-  unsigned char* feas = trk + span;
-  for (int j = cx.tlo; j < cx.thi; ++j) {
-    const int s = j / rows, jj = j - s * rows, l = j - lo;
-    const unsigned char* c = gath + (size_t)s * chunk;
-#pragma unroll
-    for (int q = 0; q < RP_N; ++q)
-      if (offs[q] >= 0)
-        rp[(size_t)q * span + l] = ((const i64*)(c + offs[q]))[jj];
-    if (o.zone >= 0) zone[l] = ((const int*)(c + o.zone))[jj];
-    if (o.tracked >= 0) trk[l] = c[o.tracked + jj];
-    feas[l] = c[o.feas + jj];
-  }
-  // the staged planes, indexed by global node
-  cx.rloc = rp - lo;
-  cx.rfeas = feas - lo;
-  cx.nd = CycleNodes{};
-  cx.nd.n_pad = n;
-  cx.nd.n_real = a.v[SSI_N_REAL];
-  cx.nd.z_pad = z_pad;
-  cx.nd.zone_id = o.zone >= 0 ? zone - lo : nullptr;
-  *pd = CyclePod{};
-#define PLANE(q) (offs[q] >= 0 ? rp + (size_t)(q) * span - lo : nullptr)
-  pd->na = PLANE(RP_NA);
-  pd->tt = PLANE(RP_TT);
-  pd->sc = PLANE(RP_SC);
-  pd->ic = PLANE(RP_IC);
-#undef PLANE
-  pd->tracked = o.tracked >= 0 ? trk - lo : nullptr;
+  select_stage(cx, g, L, sm, n, a.v[SSI_N_REAL],
+               SelectRecs{select_records(a, round), (size_t)a.v[SSI_CHUNK],
+                          (int)a.v[SSI_ROWS], select_rec(a),
+                          ssp<unsigned char>(a, SSP_RECS)},
+               pd);
   pd->ipa_on = a.v[SSI_IPA_ON] != 0;
   pd->ic_inert = (int)a.v[SSI_IC_INERT];
   pd->tr_inert = (int)a.v[SSI_TR_INERT];
-  pd->local_in_base = 1;
   __syncthreads();
   return cx;
 }

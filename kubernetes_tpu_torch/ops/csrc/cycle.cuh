@@ -1,29 +1,20 @@
-// The per-node parts of one pod's scheduling cycle, and the cycle's
-// walk, scores and select over nodes already filtered, as a __device__
-// function of one block (`cycle_select`). K9b runs that select over the
-// gathered shard records; every other cycle (K2, K5, K6, K8, K10b, K11b,
-// K13b) runs the per-node parts (`cycle_filter_row`, `cycle_score_one`)
-// across a thread-block cluster instead (`cluster_cycle.cuh`).
+// The per-node parts of one pod's scheduling cycle: the filter
+// (`cycle_filter_row`), the row-local and kept-set scores
+// (`cycle_row_local`, `cycle_score_one`), and the records and launch
+// arguments the cycles share. Every cycle (K2, K5, K6, K8, and over the
+// gathered shard records K9b, K10b, K11b, K13b) runs them across a
+// thread-block cluster (`cluster_cycle.cuh`).
 //
 // Replaces `_feasibility` + `_fit_scores` + `_cycle_core`
 // (kubernetes_tpu/ops/kernels.py:296, :157, :359): per-node predicate bits
-// and the first failing predicate; the rotation walk from last_index as a
-// cumsum with the num_to_find cutoff (identity, `perm` and gather-free
-// `pos` modes); every weighted priority normalised over the kept set (node
-// affinity, taint toleration, one-hot zone selector spread, inter-pod
-// min-max, image locality, prefer-avoid, the K1 resource families and the
-// rank-aware gang locality); and the round-robin k-th tie select. A
-// nominated-ghost load (K2's nominees, K8's nominations) adds to the rows
-// the filter reads (`_cycle_core`'s `ghost`, kernels.py:402-413). The
-// sharded cycle splits it in two: K9a runs `cycle_filter_row` and
-// `cycle_row_local` on each shard's rows, K9b `cycle_select` on the
-// gathered records.
-//
-// `cycle_select`'s layout: ONE block of NTHREADS threads, each owning a
-// contiguous slice of the node axis, so a reduction or scan is a block
-// barrier; scratch and the zone tables live in global memory (L2). Every
-// thread returns the same CycleResult (each field comes out of a
-// block-wide reduction).
+// and the first failing predicate; every weighted priority normalised over
+// the kept set (node affinity, taint toleration, one-hot zone selector
+// spread, inter-pod min-max, image locality, prefer-avoid, the K1 resource
+// families and the rank-aware gang locality). A nominated-ghost load (K2's
+// nominees, K8's nominations) adds to the rows the filter reads
+// (`_cycle_core`'s `ghost`, kernels.py:402-413). The sharded cycle splits
+// the cycle in two: K9a runs `cycle_filter_row` and `cycle_row_local` on
+// each shard's rows, K9b the cluster cycle on the gathered records.
 #pragma once
 
 #include "common.cuh"
@@ -52,8 +43,9 @@ struct CyclePod {
   const i64 *na, *tt, *sc, *ic, *img, *pa;
   const unsigned char* tracked;
   int ipa_on, ic_inert, tr_inert;
-  // 1 when `base` already holds the row-local families (K1, image
-  // locality, prefer-avoid): K9b's gathered records; 0 everywhere else
+  // 1 when the record's local total already holds the row-local families
+  // (K1, image locality, prefer-avoid): the mesh selects' gathered
+  // records; 0 everywhere else
   int local_in_base;
 };
 
@@ -63,16 +55,13 @@ struct CycleWalk {
   const int *perm, *inv_perm, *pos;
 };
 
-// Per-node outputs and scratch: K2's five per-node outputs
-// (`cluster_cycle`'s `out`; scratch and zs unused), or K9b's select
-// (total, kept, scratch and zs; the filter's three NULL).
+// The per-node outputs of a cycle (`cluster_cycle`'s `out`): K2's five,
+// or K9b's total and kept bit (the filter's three NULL).
 struct CycleScratch {
   i64* total;
   unsigned char *kept, *feasible;
   signed char* fail_first;
   i64* general_bits;
-  int* scratch;  // [2, n_pad]: prefix sums / tie-rank marks, node flags
-  i64* zs;       // [2, z_pad]: zone counts, zone present
 };
 
 struct CycleResult {
@@ -88,8 +77,6 @@ struct CycleResult {
 struct CycleGhost {
   const i64 *cpu, *mem, *eph, *cnt;
 };
-
-enum { FL_FEAS = 1, FL_KEPTP = 2, FL_TIE = 4 };
 
 constexpr double ZONE_WEIGHTING = 2.0 / 3.0;
 constexpr double ONE_MINUS_ZW = 1.0 - ZONE_WEIGHTING;
@@ -293,231 +280,12 @@ __device__ __forceinline__ i64 cycle_score_one(const CyclePod& pd, int gate,
   return t + nm.cst;
 }
 
-// The walk, the scores and the select of one cycle over nodes whose
-// in-range feasible bit (FL_FEAS) is already in FL = cs.scratch + n_pad,
-// behind a barrier. `w` is the pod's weight row (static weights or its
-// wtab row), `gate` the families the static weights turn on. `base` holds
-// each node's whole row-local part (`pd.local_in_base`: K9b's gathered
-// records, K1 and the row-local families summed by K9a).
-__device__ __forceinline__ CycleResult cycle_select(
-    const CycleNodes& nd, const CyclePod& pd, bool skip, const CycleWalk& wk,
-    int gate, const i64* w, const i64* base, const CycleScratch& cs) {
-  __shared__ i64 sh64[NWARPS];
-  __shared__ int sh32[NWARPS];
-  const int n = nd.n_pad, tid = threadIdx.x;
-  int lo, hi;
-  my_range(n, &lo, &hi);
-  int* A = cs.scratch;
-  int* FL = cs.scratch + n;
-  const i64 nr = nd.n_real;
-  const i64 n_safe = imax64(nr, 1);
-  const i64 li = floormod(wk.last_index, n_safe);
-  const i64 ntf = wk.num_to_find;
-  // ---- rotation walk -----------------------------------------------------
-  i64 found, evaluated;
-  if (wk.mode == 2) {
-    int lF = 0;
-    for (int j = lo; j < hi; ++j) lF += FL[j] & FL_FEAS;
-    i64 F = block_sum64(lF, sh64);
-    for (int j = lo; j < hi; ++j) cs.kept[j] = (FL[j] & FL_FEAS) != 0;
-    found = imin64(F, ntf);
-    evaluated = skip ? 0 : nr;
-  } else {
-    // position space: feas_p[p] = feas[perm[p]] (identity when mode 0)
-    int lF = 0;
-    for (int p = lo; p < hi; ++p) {
-      int q = wk.mode == 1 ? min(max(wk.perm[p], 0), n - 1) : p;
-      lF += (FL[q] & FL_FEAS) != 0;
-    }
-    int Fi;
-    int run = block_excl_scan(lF, sh32, &Fi);
-    for (int p = lo; p < hi; ++p) {
-      int q = wk.mode == 1 ? min(max(wk.perm[p], 0), n - 1) : p;
-      run += (FL[q] & FL_FEAS) != 0;
-      A[p] = run;  // inclusive cumsum S
-    }
-    __syncthreads();
-    const i64 F = Fi;
-    const i64 pre = li > 0 ? A[li - 1] : 0;
-    i64 lstar = n;  // first p with kept_p & rank == ntf
-    for (int p = lo; p < hi; ++p) {
-      int q = wk.mode == 1 ? min(max(wk.perm[p], 0), n - 1) : p;
-      bool fp = (FL[q] & FL_FEAS) != 0;
-      i64 rank = p >= li ? A[p] - pre : F - pre + A[p];
-      bool kp = fp && rank <= ntf;
-      if (kp) FL[p] |= FL_KEPTP;
-      if (kp && rank == ntf && p < lstar) lstar = p;
-    }
-    i64 pstar = block_min64(lstar, sh64);
-    if (pstar == n) pstar = 0;  // argmax of an all-false mask
-    found = imin64(F, ntf);
-    bool reached = F >= ntf;
-    i64 stop_pos = pstar >= li ? pstar - li : nr - li + pstar;
-    evaluated = skip ? 0 : (reached ? stop_pos + 1 : nr);
-    for (int j = lo; j < hi; ++j) {
-      int p = wk.mode == 1 ? min(max(wk.inv_perm[j], 0), n - 1) : j;
-      cs.kept[j] = (FL[p] & FL_KEPTP) != 0;
-    }
-    __syncthreads();
-  }
-
-  // ---- scores: reductions over the kept set ------------------------------
-  CycleNorm nm = cycle_norm_families(pd, gate, w, nullptr, false);
-  for (int z = tid; z < 2 * nd.z_pad; z += NTHREADS) cs.zs[z] = 0;
-  __syncthreads();
-  i64 l_na = LLONG_MIN, l_tt = LLONG_MIN, l_sc = LLONG_MIN;
-  i64 l_icmax = LLONG_MIN, l_icmin = LLONG_MAX;
-  int l_zone = 0;
-  for (int j = lo; j < hi; ++j) {
-    bool k = cs.kept[j];
-    if (nm.do_na) l_na = imax64(l_na, k ? pd.na[j] : 0);
-    if (nm.do_tt) l_tt = imax64(l_tt, k ? pd.tt[j] : 0);
-    if (nm.do_sc) {
-      l_sc = imax64(l_sc, k ? pd.sc[j] : 0);
-      int z = nd.zone_id[j];
-      if (k && z > 0) {
-        l_zone = 1;
-        if (z < nd.z_pad) {
-          atomicAdd((unsigned long long*)&cs.zs[z],
-                    (unsigned long long)pd.sc[j]);
-          cs.zs[nd.z_pad + z] = 1;
-        }
-      }
-    }
-    if (nm.do_ic) {
-      bool tr = pd.tracked[pd.tr_inert ? 0 : j];
-      i64 icv = pd.ic[pd.ic_inert ? 0 : j];
-      if (k && tr) {
-        l_icmax = imax64(l_icmax, icv);
-        l_icmin = imin64(l_icmin, icv);
-      }
-    }
-  }
-  nm.na_max = block_max64(l_na, sh64);
-  nm.tt_max = block_max64(l_tt, sh64);
-  nm.mbn = block_max64(l_sc, sh64);
-  nm.ic_max = imax64(block_max64(l_icmax, sh64), 0);
-  nm.ic_min = imin64(block_min64(l_icmin, sh64), 0);
-  nm.have_zones = block_sum64(l_zone, sh64) > 0;
-  nm.mbz = cycle_zone_max(cs.zs, nd.z_pad);
-
-  i64 l_max = LLONG_MIN;
-  for (int j = lo; j < hi; ++j) {
-    const i64 t = cycle_score_one(pd, gate, w, nm, j, base[j],
-                                  nm.do_sc ? pd.sc[j] : 0,
-                                  nm.do_sc ? nd.zone_id[j] : 0, nd.z_pad,
-                                  cs.zs, nullptr);
-    cs.total[j] = t;
-    if (cs.kept[j]) l_max = imax64(l_max, t);
-  }
-
-  // ---- select: round-robin k-th tie in rotation order --------------------
-  const i64 max_score = block_max64(l_max, sh64);
-  int l_ties = 0;
-  for (int j = lo; j < hi; ++j) {
-    bool tie = cs.kept[j] && cs.total[j] == max_score;
-    if (tie) {
-      FL[j] |= FL_TIE;
-      ++l_ties;
-    }
-  }
-  const i64 num_ties = imax64(block_sum64(l_ties, sh64), 1);
-  const i64 k = floormod(wk.lni, num_ties);
-  i64 l_sel = n;
-  if (wk.mode == 2) {
-    // k-th smallest walk-relative position among the ties: count ties per
-    // relative position, prefix-sum, find where the count passes k
-    for (int j = lo; j < hi; ++j) A[j] = 0;
-    __syncthreads();
-    for (int j = lo; j < hi; ++j) {
-      if (!(FL[j] & FL_TIE)) continue;
-      i64 pj = wk.pos[j];
-      i64 rel = pj >= li ? pj - li : nr - li + pj;
-      if (rel >= 0 && rel < n) atomicAdd(&A[rel], 1);
-    }
-    __syncthreads();
-    int lc = 0;
-    for (int r = lo; r < hi; ++r) lc += A[r];
-    int tot;
-    int run = block_excl_scan(lc, sh32, &tot);
-    i64 l_kth = LLONG_MAX;
-    for (int r = lo; r < hi; ++r) {
-      if (run <= k && k < run + A[r] && r < l_kth) l_kth = r;
-      run += A[r];
-    }
-    const i64 kth = block_min64(l_kth, sh64);
-    for (int j = lo; j < hi; ++j) {
-      if (!(FL[j] & FL_TIE)) continue;
-      i64 pj = wk.pos[j];
-      i64 rel = pj >= li ? pj - li : nr - li + pj;
-      if (rel == kth && j < l_sel) l_sel = j;
-    }
-  } else {
-    int lt = 0;
-    for (int p = lo; p < hi; ++p) {
-      int q = wk.mode == 1 ? min(max(wk.perm[p], 0), n - 1) : p;
-      lt += (FL[q] & FL_TIE) != 0;
-    }
-    int Ttot;
-    int run = block_excl_scan(lt, sh32, &Ttot);
-    for (int p = lo; p < hi; ++p) {
-      int q = wk.mode == 1 ? min(max(wk.perm[p], 0), n - 1) : p;
-      run += (FL[q] & FL_TIE) != 0;
-      A[p] = run;
-    }
-    __syncthreads();
-    const i64 preT = li > 0 ? A[li - 1] : 0;
-    for (int p = lo; p < hi; ++p) {
-      int q = wk.mode == 1 ? min(max(wk.perm[p], 0), n - 1) : p;
-      if (!(FL[q] & FL_TIE)) continue;
-      i64 trank = p >= li ? A[p] - preT : Ttot - preT + A[p];
-      if (trank == k + 1 && p < l_sel) l_sel = p;
-    }
-  }
-  i64 sel = block_min64(l_sel, sh64);
-  if (sel == n) sel = 0;  // argmax of an all-false mask
-  if (wk.mode == 1) sel = wk.perm[sel];
-  CycleResult r;
-  r.sel = found > 0 ? sel : -1;
-  r.found = found;
-  r.evaluated = evaluated;
-  r.max_score = found > 0 ? max_score : 0;
-  r.next_li = floormod(wk.last_index + evaluated, n_safe);
-  r.next_lni = wk.lni + (found > 1 ? 1 : 0);
-  r.any_resolvable = false;
-  return r;
-}
-
 // ---- the gathered records of the sharded cycle (K9b, K10b, K11b, K13b) -----
 // Byte offsets of the planes in one shard's record (-1 = absent), in the
 // order of `_REC_PLANES` (kubernetes_tpu_torch/ops/kernels.py).
 struct RecLayout {
   i64 local, na, tt, sc, ic, zone, feas, tracked;
 };
-
-// Unpack the D shard records of `g` ([D, chunk] bytes, `rows` rows each;
-// the one-block select K9b) into flat [n] planes: p64 [5, n]
-// (local, na, tt, sc, ic), zone, the tracked bytes, and the in-range
-// feasible bit into FL = flags + n. Ends with a barrier.
-__device__ __forceinline__ void unpack_records(const unsigned char* g,
-                                               size_t chunk, int n, int rows,
-                                               const RecLayout& o, i64* p64,
-                                               int* zone, unsigned char* trk,
-                                               int* FL) {
-  const i64 offs[5] = {o.local, o.na, o.tt, o.sc, o.ic};
-  // row j of the mesh is row j - s * rows of shard s's record
-  for (int j = threadIdx.x; j < n; j += NTHREADS) {
-    const int s = j / rows, jj = j - s * rows;
-    const unsigned char* c = g + (size_t)s * chunk;
-    for (int q = 0; q < 5; ++q)
-      if (offs[q] >= 0)
-        p64[(size_t)q * n + j] = ((const i64*)(c + offs[q]))[jj];
-    if (o.zone >= 0) zone[j] = ((const int*)(c + o.zone))[jj];
-    if (o.tracked >= 0) trk[j] = c[o.tracked + jj];
-    FL[j] = c[o.feas + jj] ? FL_FEAS : 0;
-  }
-  __syncthreads();
-}
 
 // ---- the scan kernels' (K5, K6, K8) launch arguments -----------------------
 // Scalars and pointers in the order of `_SCAN_INTS` / `_SCAN_PTRS`

@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                          cyp<unsigned char>(a, CYP_KEPT),
                          cyp<unsigned char>(a, CYP_FEASIBLE),
                          cyp<signed char>(a, CYP_FAIL_FIRST),
-                         cyp<i64>(a, CYP_GENERAL_BITS), nullptr, nullptr};
+                         cyp<i64>(a, CYP_GENERAL_BITS)};
   if (threadIdx.x < W_K) cx.ws[threadIdx.x] = ((L)a.p[CYP_W])[threadIdx.x];
   __syncthreads();  // the weight row lands before the cycle reads it
   const CycleResult r = cluster_cycle<false, GS>(

@@ -125,7 +125,7 @@ __global__ void __cluster_dims__(SWEEP_BLOCKS, 1, 1)
               (int)a.v[US_GATE], ok, st, (const i64*)a.p[UP_ALLOWED],
               (const i64*)a.p[UP_ALLOC_CPU], (const i64*)a.p[UP_ALLOC_MEM],
               (const i64*)a.p[UP_XALLOC], ws, clsv[0], clsv[1], clsv[2],
-              clsv[3], clsv + 4, clsv + 4 + R};
+              clsv[3], clsv + 4, clsv + 4 + R, wd};
   const i64* sreq = c.xreq + (R - 5);
   // this block's slice [lo, hi) of the shard's columns
   const int chunk = (wd + SWEEP_BLOCKS - 1) / SWEEP_BLOCKS;

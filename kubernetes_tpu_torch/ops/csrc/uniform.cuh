@@ -1,6 +1,7 @@
 // The uniform burst's per-node fit and score (`_uniform_core`'s
 // `resource_fit` / `lane_fit`, kubernetes_tpu/ops/kernels.py:1097): K3
-// runs them over the whole node axis, K9c over one shard's rows.
+// runs them over each cluster block's slice of the node axis and on its
+// lanes' nodes, K9c over one shard's rows.
 #pragma once
 
 #include "common.cuh"
@@ -13,8 +14,12 @@ struct Ctx {
   const i64 *st, *allowed, *alloc_cpu, *alloc_mem, *xalloc, *ws;
   i64 req_cpu, req_mem, nz_cpu, nz_mem;
   const i64 *delta, *xreq;
+  // elements between two carried rows of `st` (n for rows over the whole
+  // axis; K3: a block's span for its rows in shared memory, 1 for the
+  // rows of one node a lane holds in registers)
+  int sn;
 
-  __device__ i64 row(int r, int j) const { return st[(size_t)r * n + j]; }
+  __device__ i64 row(int r, int j) const { return st[(size_t)r * sn + j]; }
   // PodFitsResources of the incoming pod on node j (plus=1: after one
   // more fold of the class delta), including the static mask
   __device__ bool fit(int j, int plus) const {

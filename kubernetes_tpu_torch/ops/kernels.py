@@ -1123,9 +1123,21 @@ def _uniform_cls_vec(cls, flags) -> list:
             int(cls["nz_mem"])] + delta + xreq + sreq
 
 
+#: scalar and pointer slots of K3's launch (csrc/uniform_burst.cu `UArgs`,
+#: the `UBI_*` / `UBP_*` enums)
+_UNIFORM_INTS = ("n_pad", "n_real", "n_pods", "cap", "K", "R", "NS",
+                 "check_res", "has_req", "L", "n_oid", "ban", "gate")
+_UNIFORM_PTRS = ("w", "valid", "extra", "alloc_cpu", "alloc_mem", "allowed",
+                 "xalloc", "salloc", "sused", "clsv", "st", "tot0", "perm",
+                 "oid_seq", "lni_in", "out", "lni_out", "owner", "workspace")
+
+
 def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
                     check_resources, weights, rotation, extra_ok, ban, cap,
                     wtab, pid):
+    """Launch K3: one thread-block cluster (`uniform_plan`) runs the whole
+    burst. A plan with its scratch in global memory takes a fresh
+    workspace."""
     cap, flags, wrow, perm, oid_seq, extra = _uniform_args(
         nodes, cls, n_pods, cap, rotation, extra_ok, wtab, pid,
         check_resources)
@@ -1143,6 +1155,9 @@ def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
     rows, xalloc, salloc, sused = _uniform_rows(nodes, flags)
     st = torch.stack(rows).contiguous()
     R = st.shape[0]
+    if R > UNIFORM_ROWS_MAX:
+        raise ValueError(f"uniform_burst: {R} carried rows, over "
+                         f"{UNIFORM_ROWS_MAX}")
     xa = torch.stack(xalloc).contiguous() if xalloc else None
     sa = torch.stack(salloc).contiguous() if salloc else None
     su = torch.stack(sused).contiguous() if sused else None
@@ -1158,27 +1173,28 @@ def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
                                nodes["alloc_cpu"], nodes["alloc_mem"], wrow,
                                add_cpu=int(cls["nz_cpu"]),
                                add_mem=int(cls["nz_mem"]))
-    w = _weight_row(weights, wrow, dev)
-    lni_in = _t(last_node_index, dev, I64).reshape(1).contiguous()
+    plan = _cluster_geometry("uniform_burst", lambda blocks: uniform_plan(
+        n_pad, R, len(salloc), L, blocks))
     out = torch.empty(cap + K_BATCH, dtype=I32, device=dev)
     lni_out = torch.empty(1, dtype=I64, device=dev)
-    # scratch: tot[n], ok/banned/feasible[n] bytes, tie lists [max(L,1), n_pad],
-    # owner[n_pad+1]
-    tot = torch.empty(n_pad, dtype=I32, device=dev)
-    flags_b = torch.empty(3 * n_pad, dtype=torch.uint8, device=dev)
-    ties = torch.empty(max(L, 1) * n_pad, dtype=I32, device=dev)
-    owner = torch.empty(n_pad + 1, dtype=I32, device=dev)
-    lib = _build.load("uniform_burst")
-    obs.inc("launch.uniform_burst")
-    _check(lib.uniform_burst_launch(
-        n_pad, int(n_real), int(n_pods), cap, K_BATCH, R,
-        len(salloc), int(check_res), int(has_req), L, n_oid, int(bool(ban)),
-        _gate(weights), _ptr(w),
-        _ptr(nodes["valid"]), _ptr(extra), _ptr(nodes["alloc_cpu"]),
-        _ptr(nodes["alloc_mem"]), _ptr(nodes["allowed_pods"]), _ptr(xa),
-        _ptr(sa), _ptr(su), _ptr(clsv), _ptr(st), _ptr(tot0), _ptr(perm),
-        _ptr(oid_seq), _ptr(lni_in), _ptr(out), _ptr(lni_out), _ptr(tot),
-        _ptr(flags_b), _ptr(ties), _ptr(owner), _stream()), "uniform_burst")
+    ptrs = {"w": _weight_row(weights, wrow, dev), "valid": nodes["valid"],
+            "extra": extra, "alloc_cpu": nodes["alloc_cpu"],
+            "alloc_mem": nodes["alloc_mem"],
+            "allowed": nodes["allowed_pods"], "xalloc": xa, "salloc": sa,
+            "sused": su, "clsv": clsv, "st": st, "tot0": tot0, "perm": perm,
+            "oid_seq": oid_seq,
+            "lni_in": _t(last_node_index, dev, I64).reshape(1).contiguous(),
+            "out": out, "lni_out": lni_out,
+            # the lanes' scatter-min on the node axis and its scratch column
+            "owner": torch.empty(n_pad + 1, dtype=I32, device=dev),
+            "workspace": plan.workspace(dev)}
+    ints = {"n_pad": n_pad, "n_real": int(n_real), "n_pods": int(n_pods),
+            "cap": cap, "K": K_BATCH, "R": R, "NS": len(salloc),
+            "check_res": int(check_res), "has_req": int(has_req), "L": L,
+            "n_oid": n_oid, "ban": int(bool(ban)), "gate": _gate(weights)}
+    _launch("uniform_burst", *_launch_arrays(
+        ints, _UNIFORM_INTS, ptrs, _UNIFORM_PTRS, "uniform_burst"),
+        plan.geometry())
     return _uniform_out_rows(st, nodes, flags), out[: cap + 1], lni_out[0]
 
 
@@ -1598,10 +1614,10 @@ def schedule_batch_segments_plain(nodes, pods, seg_start, gang, n_pods,
 CLUSTER_BLOCKS = 16
 CLUSTER_THREADS = 1024
 SMEM_CAP = 232448
-#: the kernels that run as one cluster a window (K5, K6), a chunk (K8) or
-#: a cycle (K2)
+#: the kernels that run as one cluster a window (K5, K6), a chunk (K8), a
+#: cycle (K2, and the sharded cycle's select K9b) or a burst (K3)
 CLUSTER_KERNELS = ("schedule_batch", "schedule_segments", "pressure_batch",
-                   "schedule_cycle")
+                   "schedule_cycle", "uniform_burst", "shard_cycle_select")
 #: the mesh selects that run as one cluster a step
 SELECT_CLUSTER_KERNELS = ("shard_scan_select", "shard_segments_select",
                           "shard_pressure_select")
@@ -1627,19 +1643,23 @@ SCRATCH_SLOT_BYTES = 8 + 3 * 4
 
 @dataclasses.dataclass(frozen=True)
 class ClusterPlan:
-    """The geometry of one cluster launch (K5 / K6, a K8 chunk, or a
-    K10b / K11b step): `blocks` blocks of CLUSTER_THREADS threads, each
-    thread `nodes_per_thread` consecutive node slots (block q owns
-    [q * span, (q + 1) * span)), the node rows (a select: the step's
-    gathered records) `resident` in shared memory or left in global
-    memory, `smem_bytes` of dynamic shared memory a block, and the
-    per-slot scratch in shared memory or, `global_scratch`, in a global
-    workspace of `workspace_bytes` that the wrapper allocates."""
+    """The geometry of one cluster launch (K5 / K6, a K8 chunk, a K2 or
+    K9b cycle, a K3 burst, or a K10b / K11b / K13b step): `blocks` blocks
+    of CLUSTER_THREADS threads, each thread `nodes_per_thread` consecutive
+    node slots (block q owns [q * span, (q + 1) * span)), the node rows
+    (a select: the step's gathered records) `resident` in shared memory
+    or left in global memory, `smem_bytes` of dynamic shared memory a
+    block, and the per-slot scratch in shared memory or,
+    `global_scratch`, in a global workspace of `workspace_bytes` that the
+    wrapper allocates."""
     blocks: int
     nodes_per_thread: int
     resident: bool
     smem_bytes: int
     global_scratch: bool = False
+    #: bytes a node slot takes in the global workspace (K3's: its scores,
+    #: bytes and tie lists, `uniform_plan`)
+    scratch_slot_bytes: int = SCRATCH_SLOT_BYTES
 
     @property
     def span(self) -> int:
@@ -1650,7 +1670,7 @@ class ClusterPlan:
         """Bytes of the launch's global scratch workspace (0: none)."""
         if not self.global_scratch:
             return 0
-        return self.blocks * self.span * SCRATCH_SLOT_BYTES
+        return self.blocks * self.span * self.scratch_slot_bytes
 
     def workspace(self, device) -> Optional[torch.Tensor]:
         """A fresh workspace for this plan's launches on `device`, or None
@@ -1791,6 +1811,70 @@ def cycle_plan(n_pad: int, S: int, z_pad: int,
         lambda resident, gscr: cluster_smem_bytes(
             span, S, z_pad, False, resident, global_scratch=gscr),
         placements=_PLACEMENTS[1:])
+
+
+#: carried rows a K3 lane holds in registers (`UR_MAX`,
+#: csrc/uniform_burst.cu): the five fixed rows, ephemeral storage and the
+#: carried scalar resources
+UNIFORM_ROWS_MAX = 16
+#: the blocks a cluster holds at most (`CLUSTER_MAX`, csrc/cluster_cycle.cuh;
+#: CLUSTER_BLOCKS may plan fewer)
+_CLUSTER_MAX = 16
+#: lanes of a K3 pass at most, one a thread of block 0 (`UK_MAX`)
+_UNIFORM_LANES_MAX = CLUSTER_THREADS
+#: int64 words of a K3 block's control block (`UC_N`)
+_UNIFORM_CTL = 8
+
+
+def uniform_smem_bytes(span: int, R: int, L: int, resident: bool,
+                       global_scratch: bool = False) -> int:
+    """A K3 block's dynamic shared memory, as `uniform_layout`
+    (csrc/uniform_burst.cu) lays it out: a fixed part (the weight row,
+    the warp slots of the block reductions and scans, the block's record
+    of the pass, its control block, block 0's tie offsets of every order
+    and accepted lanes, the block's list length an order) and per node
+    slot the R carried int64 rows when `resident`, and, unless
+    `global_scratch`, the int32 score, the ok / banned / feasible bytes
+    and one int32 tie-list slot an order (one without rotation)."""
+    lm = max(int(L), 1)
+    fixed = (16 * 8 + _NWARPS * 8 + 4 * 8 + _UNIFORM_CTL * 8 + _NWARPS * 4
+             + _CLUSTER_MAX * 4 * lm + 4 * lm + _UNIFORM_LANES_MAX * 4)
+    per_node = 8 * int(R) if resident else 0
+    if not global_scratch:
+        per_node += _uniform_slot_bytes(L)
+    return fixed + span * per_node
+
+
+def _uniform_slot_bytes(L: int) -> int:
+    """Bytes of a node slot's K3 scratch: its score, three bytes and one
+    tie-list slot an order (`uniform_scratch_bytes`)."""
+    return 4 + 3 + 4 * max(int(L), 1)
+
+
+def uniform_plan(n_pad: int, R: int, NS: int, L: int,
+                 blocks: int = CLUSTER_BLOCKS) -> ClusterPlan:
+    """The geometry of a K3 burst over `n_pad` node slots with R carried
+    rows, NS static resource rows and L rotation orders: the fewest node
+    slots a thread that cover the axis with `blocks` blocks, then only the
+    blocks that own a node at that span, as `cycle_plan`; the carried rows
+    resident in shared memory for the whole burst when they fit in
+    SMEM_CAP beside the scratch, else in global memory, and past that the
+    scores, bytes and tie lists in a global workspace too. The static rows
+    (NS, and the allocatable rows) stay in global memory and take no
+    shared memory. Raises only when the fixed part alone passes the
+    cap."""
+    del NS
+    if not 1 <= blocks <= CLUSTER_BLOCKS:
+        raise ValueError(f"a cluster holds 1 to {CLUSTER_BLOCKS} blocks")
+    npt = max(1, -(-int(n_pad) // (blocks * CLUSTER_THREADS)))
+    span = npt * CLUSTER_THREADS
+    blocks = max(1, -(-int(n_pad) // span))
+    plan = _first_placement(
+        blocks, npt, "uniform burst", n_pad, 0,
+        lambda resident, gscr: uniform_smem_bytes(span, R, L, resident,
+                                                  gscr))
+    return dataclasses.replace(plan,
+                               scratch_slot_bytes=_uniform_slot_bytes(L))
 
 
 #: clusters the card holds at once, by (kernel, plan, device); and each
@@ -2783,12 +2867,15 @@ _SCS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad",
              "ipa_on", "ic_inert", "tr_inert") + tuple(
     "off_" + n for n, _ in _REC_PLANES)
 _SCS_PTRS = ("gathered", "w", "ic_b", "tr_b", "perm", "inv_perm", "pos",
-             "p64", "zone", "tracked", "total", "kept", "flags", "zs", "out")
+             "total", "kept", "out", "recs", "workspace")
 
 
 def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
                                last_index, last_node_index, num_to_find,
                                weights, z_pad, wrow, perm, inv_perm, pos):
+    """Launch K9b: one thread-block cluster (`select_plan`, as K10b) over
+    the gathered records; records staged in global memory take a fresh
+    staging area, scratch in global memory a fresh workspace."""
     dev = gathered.device
     D, chunk = (int(x) for x in gathered.shape)
     n_pad = D * int(rows)
@@ -2810,16 +2897,14 @@ def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
         ptrs["ic_b"] = sp["interpod_counts"].reshape(-1)[:1].contiguous()
     if ipa_on and "tracked" not in planes:
         ptrs["tr_b"] = sp["interpod_tracked"].reshape(-1)[:1].contiguous()
-    ptrs["p64"] = torch.empty((5, n_pad), dtype=I64, device=dev)
-    ptrs["zone"] = torch.empty(n_pad, dtype=I32, device=dev) \
-        if "zone" in planes else None
-    ptrs["tracked"] = torch.empty(n_pad, dtype=torch.uint8, device=dev) \
-        if "tracked" in planes else None
+    plan = _cluster_geometry("shard_cycle_select", lambda blocks: select_plan(
+        n_pad, int(z_pad), blocks))
     total = ptrs["total"] = torch.empty(n_pad, dtype=I64, device=dev)
     kept = ptrs["kept"] = torch.empty(n_pad, dtype=torch.bool, device=dev)
-    ptrs["flags"] = torch.empty(2 * n_pad, dtype=I32, device=dev)
-    ptrs["zs"] = torch.empty(2 * int(z_pad), dtype=I64, device=dev)
     out = ptrs["out"] = torch.empty(6, dtype=I64, device=dev)
+    ptrs["recs"] = None if plan.resident else torch.empty(
+        n_pad * _REC_SLOT_BYTES, dtype=torch.uint8, device=dev)
+    ptrs["workspace"] = plan.workspace(dev)
     _require_cuda("shard_cycle_select", gathered)
     _require_on("shard_cycle_select", dev, *ptrs.values())
     ints = {"n_pad": n_pad, "rows": int(rows), "D": D, "chunk": chunk,
@@ -2833,7 +2918,7 @@ def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
     ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
     _launch("shard_cycle_select",
             *_launch_arrays(ints, _SCS_INTS, ptrs, _SCS_PTRS,
-                            "shard_cycle_select"))
+                            "shard_cycle_select"), plan.geometry())
     return out, total, kept
 
 
@@ -2841,7 +2926,8 @@ def shard_cycle_select(gathered, planes, rows, n_real, pod, last_index,
                        last_node_index, num_to_find, weights, z_pad,
                        wrow=None, perm=None, inv_perm=None, pos=None):
     """K9b on one device, over the [D, record bytes] gathered records.
-    CPU -> the plain version; CUDA -> `csrc/shard_cycle_select.cu`."""
+    CPU -> the plain version; CUDA -> `csrc/shard_cycle_select.cu`, one
+    thread-block cluster a cycle."""
     dev = gathered.device
     _require_on("shard_cycle_select", dev, wrow, perm, inv_perm, pos)
     if not gathered.is_cuda:

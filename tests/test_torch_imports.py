@@ -188,6 +188,11 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
             assert len(slots) == len(host), (name, table)
             for h, c in zip(host, slots):
                 assert c == pre + short.get(h, h.upper()), (name, h, c)
+    # K9b's pointer table: its cluster select's staging area and workspace
+    # in place of the one-block select's flat planes and scratch
+    assert PK._SCS_PTRS == ("gathered", "w", "ic_b", "tr_b", "perm",
+                            "inv_perm", "pos", "total", "kept", "out",
+                            "recs", "workspace")
     # the pass-state slots K9c and K9d share (uniform.cuh's last enum)
     uniform = (_build.CSRC / "uniform.cuh").read_text()
     state = [x.strip() for x in uniform.split("enum {")[-1].split("}")[0]
