@@ -26,9 +26,13 @@
    multiple of the cluster's span, li, winners and ties in different
    blocks, S > 0, the rows in global memory, and the rows and the
    per-slot scratch in global memory at 262,144 slots on 16 blocks and
-   131,072 on 8; K7/K8 at P 16 and
+   131,072 on 8; K7 (one launch over the whole card) at P 16 and 128 in
+   every case, duplicate ranks and a ragged n_real among them, and at
+   262,144 slots, K8 at P 16 and
    128, K4 on the victim planes, K9a-d on 1, 2 and 4 shards with every
-   cycle mode and every K3 case, K10a-K11b on 1, 2 and 4 shards in every
+   cycle mode and every K3 case, K9d (one thread-block cluster a pass)
+   at 262,144 slots on 16 blocks and 131,072 on 8 (rotated: the lists
+   and bits in a global workspace), K10a-K11b on 1, 2 and 4 shards in every
    scan and segments mode on nine geometries of the cluster selects
    K10b / K11b (one thread-block cluster a step: select blocks that own
    no node, an 8-block cluster, 20,000 slots at two a thread, li, winners
@@ -69,12 +73,15 @@
    on 8, with rotation the scratch too); K9b, one cluster a cycle, on its
    mesh calls and at 262,144 slots on 16 blocks and 131,072 on 8 (the
    records and the scratch in global memory). K1, K2, K3, K4, K7, K8,
-   K9a-d, K10a/b, K11a/b, K13a/b and K14a also get `device_ms` on the
-   kernels line: the kernel's own device time a launch (torch.profiler;
-   K7 and K14a: their two kernels a call) beside `ms`, the wrapper
-   call's (K9a also on mesh-scan-default's first serial cycle,
-   `device_ms_scan_default`; K3 also on the filled and rotated bursts,
-   `device_ms_filled`, `device_ms_rotated`).
+   K9a-d, K10a/b, K11a/b, K13a/b, K14a and K14b also get `device_ms` on
+   the kernels line: the kernel's own device time a launch
+   (torch.profiler; K14a: its two kernels a call; K9d: with the
+   copies that restore its pass state, its own time `device_ms_kernel`
+   beside it, and `relaunch_ms`, the bound launch's re-enqueue) beside
+   `ms`, the wrapper call's (K9a also on mesh-scan-default's first
+   serial cycle, `device_ms_scan_default`; K3 also on the filled and
+   rotated bursts, `device_ms_filled`, `device_ms_rotated`; K7's `grid`,
+   its blocks and the blocks the card holds at once).
    K9c, K10a, K11a and K13a run one launch a device over every shard it
    holds, each record written into the device's gathered buffer: their
    check captures that launch over the card's four shards (bound, `ms`
@@ -165,12 +172,12 @@ With `--cards` (a host of several cards) it builds the kernels and runs
 only the mesh phase, one shard per card, so the all-gather's copies are
 peer copies between the cards: K13a-K14b, K9a-d and K10a-K11b against
 their plain versions on meshes of all the cards and of the first two
-(the grouped locals, K13a's too, in every step state), K13b and K9b at
-their two C3 geometries over every card, K2's cluster geometries on the first card,
-mesh-preempt-wave, four mesh-preempt-single rounds, mesh-uniform at
-15,000 and 15,001 nodes, mesh-scan-default at 15,000 nodes and
-mesh-fused, each held against the single-device run on the first card;
-its kernels line holds the mesh kernels K9a-K14b only.
+(the grouped locals, K13a's too, in every step state), K13b, K9b and
+K9d at their two C3 geometries over every card, K2's cluster geometries
+on the first card, mesh-preempt-wave, four mesh-preempt-single rounds,
+mesh-uniform at 15,000 and 15,001 nodes, mesh-scan-default at 15,000
+nodes and mesh-fused, each held against the single-device run on the
+first card; its kernels line holds the mesh kernels K9a-K14b only.
 
 Any mismatch or exception exits non-zero. Without a CUDA device it exits
 non-zero before printing any result. The last stdout line is
@@ -396,16 +403,20 @@ def device_time(fn, sync, reps, kernel):
     return out[0] if isinstance(kernel, str) else out
 
 
-def device_ms_a_call(fn, sync, reps, kernels):
-    """(device ms a call of `fn`, summed over the CUDA kernels named in
-    `kernels`, and the launches seen) from one profiler run of `reps`
-    calls (`device_time`); (None, 0) when it records none of them."""
-    found = [(ms * n, n) for ms, n in device_time(fn, sync, reps,
-                                                  tuple(kernels))
-             if ms is not None]
+def device_ms_a_call(fn, sync, reps, kernels, per_call=None):
+    """(device ms a call of `fn`, and the launches seen) from one profiler
+    run of `reps` calls (`device_time`): for each CUDA kernel (or copy)
+    named in `kernels`, its mean device time a launch times its launches
+    a call (`per_call`, one each by default), summed; (None, 0) when it
+    records none of them. The profiler can miss some of a run's events:
+    a mean a launch does not depend on how many it saw, a sum would."""
+    per_call = per_call or (1,) * len(kernels)
+    found = [(ms * k, n) for (ms, n), k in zip(
+        device_time(fn, sync, reps, tuple(kernels)), per_call)
+        if ms is not None]
     if not found:
         return None, 0
-    return sum(t for t, _n in found) / reps, sum(n for _t, n in found)
+    return sum(t for t, _n in found), sum(n for _t, n in found)
 
 
 def max_abs_err(a, b):
@@ -1173,6 +1184,18 @@ def describe_geometry(plan, fit, select=False):
             f"{plan.nodes_per_thread} node slot(s) a thread, {rows}, "
             f"{scratch}, {plan.smem_bytes} B of shared memory a block, "
             f"{fit} such cluster(s) fit the card")
+
+
+def describe_pass_plan(plan, fit):
+    """K9d's cluster plan (K3's at R = 0: no rows) as its lines print
+    it."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    where = (f"a global workspace of {plan.workspace_bytes} B"
+             if plan.global_scratch else "shared memory")
+    return (f"cluster of {plan.blocks} x {K.CLUSTER_THREADS} threads, "
+            f"{plan.nodes_per_thread} node slot(s) a thread, the tie / "
+            f"stay bits and tie lists in {where}, {plan.smem_bytes} B of "
+            f"shared memory a block, {fit} such cluster(s) fit the card")
 
 
 def plan_entry(name):
@@ -2091,7 +2114,8 @@ def nbytes(*xs):
 
 
 def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
-                      reps, label, note="", ops=0, on_device=False):
+                      reps, label, note="", ops=0, on_device=False,
+                      with_copies=0):
     """Hold mesh kernel `name` against its plain version on one captured
     call of the mesh path (each run on its own copy of the arguments,
     `reset(copy, base)` restoring what a call changes before each timed
@@ -2103,7 +2127,9 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
     over the same `reps` calls (torch.profiler), beside `ms`, the CUDA-event
     time of the whole wrapper call (host enqueue and resets included); a
     tuple of CUDA kernel names instead of True: their device time a call,
-    summed."""
+    summed. `with_copies` (with `on_device` True): the device copies a
+    reset makes; `device_ms` is then the kernel's device time a call
+    together with theirs, and `device_ms_kernel` the kernel's own."""
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     args, kw = _full(call)
@@ -2126,9 +2152,16 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
         return one
     ms = cuda_time(timed(fn), sync, reps)
     plain_ms = cuda_time(timed(plain), sync, 2)
-    dev_ms = None
+    dev_ms = own_ms = None
     if on_device is True:
         dev_ms, seen = device_time(timed(fn), sync, reps, name + "_kernel")
+        if with_copies:
+            own_ms = dev_ms
+            dev_ms, seen = device_ms_a_call(
+                timed(fn), sync, reps, (name + "_kernel", "Memcpy DtoD"),
+                (1, with_copies))
+            note += (f"; device_ms_kernel {fmt_ms(own_ms)} (the kernel "
+                     f"alone)")
     elif on_device:
         dev_ms, seen = device_ms_a_call(timed(fn), sync, reps, on_device)
     if on_device:
@@ -2146,6 +2179,8 @@ def mesh_kernel_entry(report, name, call, reset, outputs, io_bytes, sync,
                     "bound_by": by, "library_ms": None}
     if on_device:
         report[name]["device_ms"] = dev_ms
+    if with_copies:
+        report[name]["device_ms_kernel"] = own_ms
     print(f"[kernel] {name}: equal to plain on {label} (max_abs_err 0), "
           f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
           f"{bound:.6f} ({by}){note}")
@@ -2207,9 +2242,26 @@ def mesh_kernel_checks(calls, report, sync):
                       nbytes(args[0], args[3], args[3], kw.get("perm"),
                              kw.get("oid_seq")) + 4 * K.K_BATCH, sync, 50,
                       "the first pass's gathered records",
-                      "; both times include the copies that restore the "
-                      "pass state and the decisions before each call",
-                      on_device=True)
+                      "; ms and device_ms include the copies that restore "
+                      "the pass state and the decisions before each call",
+                      on_device=True, with_copies=3)
+    # the burst's later passes re-enqueue the launch the first one bound
+    a = _clone(args)
+    base = _clone(args)
+    rel = K.shard_uniform_select(*a, **kw)
+
+    def relaunch():
+        reset_state(a, base)
+        K._check(rel.fn(), rel.name)
+    ms = cuda_time(relaunch, sync, 50)
+    rel.book()
+    report["shard_uniform_select"]["relaunch_ms"] = ms
+    plan, fit = K.last_geometry["shard_uniform_select"]
+    report["shard_uniform_select"]["plan"] = plan_entry(
+        "shard_uniform_select")
+    print(f"[kernel] shard_uniform_select bound: relaunch_ms {ms:.4f} a "
+          f"pass (the restore copies and the bound launch's re-enqueue); "
+          f"{describe_pass_plan(plan, fit)}")
 
 
 def mesh_path(name, n_nodes, device, sync, report, check_kernels,
@@ -3110,18 +3162,85 @@ def _victim_nodes(rng, vic, n_pad, n_real, device):
     return {k: torch.as_tensor(v).to(device) for k, v in host.items()}
 
 
+def k7_cases(rng, nodes, vic, pod, feas, rank, n_real):
+    """K7's random-input cases over one world: (name, argument tuple) for
+    the default, check_resources and has_request false, no candidate, a
+    zero-victim win, ties to order_rank (every node a copy of the default
+    winner's row and slots: the pick ties through all five criteria),
+    duplicate ranks (with and without those ties: the lowest row among
+    the candidates of the lowest rank, spread over the grid's blocks), a
+    ragged n_real and no lower priority."""
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    n_pad = int(feas.shape[0])
+    default = (nodes, vic, pod, feas, rank, n_real, True, True, 6)
+    w = max(int(K.preemption_scan_plain(*default)[0]), 0)
+    tie_vic = {k: v[w:w + 1].expand_as(v).contiguous()
+               for k, v in vic.items()}
+    tie_nodes = {k: (v[w:w + 1].expand_as(v).contiguous()
+                     if k != "valid" else v) for k, v in nodes.items()}
+    roomy = {**nodes, "req_cpu": nodes["req_cpu"] // 4}
+    dup = torch.as_tensor(rng.integers(0, max(n_pad // 512, 2), n_pad)
+                          ).to(feas.device)
+    ragged = n_real - 1 - int(rng.integers(1, 97))
+    return [
+        ("default", default),
+        ("check_resources false", (nodes, vic, pod, feas, rank, n_real,
+                                   False, False, 6)),
+        ("has_request false", (nodes, vic, pod, feas, rank, n_real, True,
+                               False, 6)),
+        ("no candidate", (nodes, vic, pod, torch.zeros_like(feas), rank,
+                          n_real, True, True, 6)),
+        ("zero-victim win", (roomy, vic, pod, feas, rank, n_real, True,
+                             True, 6)),
+        ("ties to order_rank", (tie_nodes, tie_vic, pod, feas, rank, n_real,
+                                True, True, 6)),
+        ("duplicate ranks", (nodes, vic, pod, feas, dup, n_real, True, True,
+                             6)),
+        ("ties to duplicate ranks", (tie_nodes, tie_vic, pod, feas, dup,
+                                     n_real, True, True, 6)),
+        (f"ragged n_real {ragged}", (nodes, vic, pod, feas, rank, ragged,
+                                     True, True, 6)),
+        ("no lower priority", (nodes, vic, pod, feas, rank, n_real, True,
+                               True, 0)),
+    ]
+
+
+def describe_grid(grid):
+    """K7's launch geometry as the [kernel] and [variants] lines print
+    it."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    return (f"{grid.blocks} blocks x {K.PREEMPT_THREADS} threads (a thread "
+            f"a node, 32 nodes a warp; the card holds {grid.fit}: "
+            f"{grid.sms} SMs x {grid.per_sm})")
+
+
+#: K7's further sizes (n_pad, n_real, victim slots, the cases of
+#: `k7_cases` it runs, None: every one): 24 slots (a chunk of 16 and one
+#: of 8: the kernel's general slot loops), and the largest node axis
+K7_MORE = ((4096, 4000, 24, None),
+           (262144, 262000, 16, ("default", "no candidate",
+                                 "zero-victim win",
+                                 "ties to duplicate ranks")),
+           (262144, 262000, 128, ("default", "no candidate",
+                                  "zero-victim win",
+                                  "ties to duplicate ranks")))
+
+
 def preempt_variant_checks(device, sync, n_pad=16384, n_real=16000):
     """K7 and K8 against their plain versions on random inputs at n_pad
-    16,384 with P 16 and 128: ghosts on and off, check_resources /
-    has_request false, no candidate, a zero-victim win, ties down to
-    order_rank, +inf starts, PDB-violating slots, skip padding and an
+    16,384 with P 16 and 128: K7 in every case of `k7_cases`, at P 24
+    and at 262,144 slots (`K7_MORE`); K8 with ghosts on and off,
+    check_resources / has_request false, skip padding and an
     init-container request (the filter's request above the fold's); K4
-    on the seven victim planes; K2/K5/K6 ran above with no ghost."""
+    on the seven victim planes; K2/K5/K6 ran above with no ghost. Prints
+    K7's grid and its device time a call at each size."""
     import numpy as np
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
     rng = np.random.default_rng(20261019)
     checked = 0
+    k7_ms = {}
 
     def same(name, got, want):
         nonlocal checked
@@ -3132,39 +3251,30 @@ def preempt_variant_checks(device, sync, n_pad=16384, n_real=16000):
                              f"{first_diff(got, want)})")
         checked += 1
 
-    for P in (16, 128):
+    def k7_world(n_pad, n_real, P):
         vic = _rand_victims(rng, n_pad, P, device)
         nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
         feas = torch.as_tensor(rng.random(n_pad) < 0.9).to(device)
         rank = torch.as_tensor(rng.permutation(n_pad)).to(device)
         pod = {"req_cpu": np.int64(1500), "req_mem": np.int64(2 * GI),
                "req_eph": np.int64(GI)}
-        args = (nodes, vic, pod, feas, rank, n_real, True, True, 6)
-        want = K.preemption_scan_plain(*args)
-        same(f"preempt_scan/P{P}/default", K.preemption_scan(*args), want)
-        # every node a copy of the default winner's row and slots: the
-        # pick ties through all five criteria and falls to order_rank
-        w = max(int(want[0]), 0)
-        tie_vic = {k: v[w:w + 1].expand_as(v).contiguous()
-                   for k, v in vic.items()}
-        tie_nodes = {k: (v[w:w + 1].expand_as(v).contiguous()
-                         if k != "valid" else v) for k, v in nodes.items()}
-        roomy = {**nodes, "req_cpu": nodes["req_cpu"] // 4}
-        cases = [
-            ("check_resources false", nodes, vic, pod, feas, False, False,
-             6),
-            ("has_request false", nodes, vic, pod, feas, True, False, 6),
-            ("no candidate", nodes, vic, pod,
-             torch.zeros_like(feas), True, True, 6),
-            ("zero-victim win", roomy, vic, pod, feas, True, True, 6),
-            ("ties to order_rank", tie_nodes, tie_vic, pod, feas, True,
-             True, 6),
-            ("no lower priority", nodes, vic, pod, feas, True, True, 0),
-        ]
-        for name, nd, vc, pd, fs, cr, hr, mp in cases:
-            args = (nd, vc, pd, fs, rank, n_real, cr, hr, mp)
-            same(f"preempt_scan/P{P}/{name}", K.preemption_scan(*args),
-                 K.preemption_scan_plain(*args))
+        return vic, nodes, feas, rank, pod
+
+    def k7_all(n_pad, n_real, P, vic, nodes, feas, rank, pod, only=None):
+        cases = k7_cases(rng, nodes, vic, pod, feas, rank, n_real)
+        for name, args in cases:
+            if only is None or name in only:
+                same(f"preempt_scan/n_pad {n_pad}/P{P}/{name}",
+                     K.preemption_scan(*args), K.preemption_scan_plain(*args))
+        args = cases[0][1]
+        dev_ms, _n = device_ms_a_call(lambda: K.preemption_scan(*args), sync,
+                                      10, ("preempt_scan_kernel",))
+        k7_ms[f"n_pad {n_pad} P {P}"] = (dev_ms, K.last_geometry[
+            "preempt_scan"][0])
+
+    for P in (16, 128):
+        vic, nodes, feas, rank, pod = k7_world(n_pad, n_real, P)
+        k7_all(n_pad, n_real, P, vic, nodes, feas, rank, pod)
         # K8: a chunk of 32 pods over the same planes, on a cluster with
         # room on six nodes only: pods bind, then preempt, then fail
         room = torch.zeros(n_pad, dtype=torch.bool)
@@ -3218,13 +3328,24 @@ def preempt_variant_checks(device, sync, n_pad=16384, n_real=16000):
         same(f"scatter_rows/victim planes P{P}",
              K.scatter_rows(dev_a, rws, upd),
              K.scatter_rows_plain(dev_b, rws, upd))
+    for more, more_real, P, only in K7_MORE:
+        vic, nodes, feas, rank, pod = k7_world(more, more_real, P)
+        k7_all(more, more_real, P, vic, nodes, feas, rank, pod, only=only)
+        del vic, nodes
     sync()
     print(f"[variants] {checked} preemption kernel calls equal to their "
-          f"plain versions (K7 at P 16 and 128: default, check_resources "
-          f"and has_request false, no candidate, zero-victim win, ties to "
-          f"order_rank, no lower priority; K8 32-pod chunks with ghosts "
-          f"off and on, skip padding, an init-container request; K4 on "
-          f"the seven victim planes)")
+          f"plain versions (K7 at n_pad {n_pad}, P 16 and 128: default, "
+          f"check_resources and has_request false, no candidate, "
+          f"zero-victim win, ties to order_rank, duplicate ranks with and "
+          f"without those ties, a ragged n_real, no lower priority; the "
+          f"same at n_pad 4096, P 24; at n_pad 262144, P 16 and 128: "
+          f"default, no candidate, zero-victim win, ties to duplicate "
+          f"ranks; K8 32-pod chunks "
+          f"with ghosts off and on, skip padding, an init-container "
+          f"request; K4 on the seven victim planes)")
+    for label, (dev_ms, grid) in k7_ms.items():
+        print(f"[variants] preempt_scan {label}: {describe_grid(grid)}; "
+              f"device_ms {fmt_ms(dev_ms)} a call")
 
 
 #: the geometries K8 is held against its plain version on (name, n_pad,
@@ -3562,7 +3683,12 @@ def single_path(infos, tree, pdbs, device, sync, report):
     call_entry(report, "preempt_scan", K.preemption_scan,
                K.preemption_scan_plain, held[0], bound, sync, 20,
                "the first preempt-single round",
-               dev_kernels=("victim_kernel", "pick_kernel"))
+               dev_kernels=("preempt_scan_kernel",))
+    grid = K.last_geometry["preempt_scan"][0]
+    report["preempt_scan"]["grid"] = {"blocks": grid.blocks,
+                                      "threads": K.PREEMPT_THREADS,
+                                      "fit": grid.fit}
+    print(f"[kernel] preempt_scan grid: {describe_grid(grid)}")
     add_launches(report, counts)
     print(f"[path] preempt-single: {len(infos)} nodes, {N_SINGLE} rounds "
           f"of schedule (FitError) + preempt, {N_SINGLE / t_pre:.1f} "
@@ -3809,6 +3935,89 @@ def cycle_select_geometry_checks(device, sync, devices=None):
               f"equal to the sharded plain cycle and to the single-device "
               f"plain K2; {describe_geometry(plan, fit, select=True)}; "
               f"device_ms {fmt_ms(dev_ms)} a cycle over {seen} launches")
+
+
+#: the geometries K9d is held on (name, n_pad, n_real, the most blocks its
+#: planner may take, the plan it must choose without rotation and with
+#: four orders: blocks, node slots a thread, resident, lists and bits in
+#: the global workspace)
+UNIFORM_SELECT_GEOMETRIES = (
+    ("262,144 slots: 16 a thread (rotated: the tie / stay bits and lists "
+     "in a global workspace)", 262144, 262000, 16, (16, 16, True, False),
+     (16, 16, False, True)),
+    ("131,072 slots on an 8-block cluster: 16 a thread (rotated: the "
+     "bits and lists in a global workspace)", 131072, 131000, 8,
+     (8, 16, True, False), (8, 16, False, True)),
+)
+
+
+def uniform_select_geometry_checks(device, sync, devices=None):
+    """K9d (one thread-block cluster a pass, K3's `uniform_plan` at R = 0)
+    at the geometries of UNIFORM_SELECT_GEOMETRIES: the sharded uniform
+    burst on MESH_D shards of the card, or one shard on each of
+    `devices`, in the plain, rotate and ban + extra_ok cases of
+    `uniform_cases`, held against the sharded plain burst and the
+    single-device plain K3 (decisions, the packed block, lni, the folded
+    rows); prints K9d's plans and its device time a pass."""
+    import numpy as np
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mesh = S.Mesh(devices or [device] * MESH_D)
+    for gi, (label, n_pad, n_real, blocks, flat, rot) in enumerate(
+            UNIFORM_SELECT_GEOMETRIES):
+        rng = np.random.default_rng(20261107 + gi)
+        nodes = _rand_nodes(rng, n_pad, n_real, 2, 6, device)
+        wtab = torch.as_tensor(rng.integers(0, 4, (3, len(K.PRIORITY_AXIS)))
+                               ).to(device)
+        union = {k: int(wtab[:, i].max())
+                 for i, k in enumerate(K.PRIORITY_AXIS)}
+        fresh, cases, cap = uniform_cases(rng, nodes, n_pad, n_real, 2, wtab,
+                                          union, device)
+        fshards = S.shard_node_arrays(mesh, fresh)
+        plans, dev_ms = {}, {}
+        with cluster_blocks(blocks):
+            for name, cls, n_pods, lni, kw in cases:
+                if name not in ("plain", "rotate", "ban+extra_ok"):
+                    continue
+                args = (cls, n_pods, lni, n_real, True)
+                K.last_geometry.pop("shard_uniform_select", None)
+                got = K.schedule_batch_uniform(fshards, *args, cap=cap,
+                                               mesh=mesh, **kw)
+                plans[name] = K.last_geometry["shard_uniform_select"]
+                with plain_versions(MESH_ENTRIES):
+                    ref = K.schedule_batch_uniform(fshards, *args, cap=cap,
+                                                   mesh=mesh, **kw)
+                want = K.schedule_batch_uniform_plain(fresh, *args, cap=cap,
+                                                      **kw)
+                for what, other in (("the sharded plain burst", ref),
+                                    ("the single-device plain K3", want)):
+                    err = max_abs_err(
+                        (cat_rows(got[0]), got[1], got[2]),
+                        (cat_rows(other[0]) if isinstance(other[0], list)
+                         else other[0], other[1], other[2]))
+                    if err != 0:
+                        raise SystemExit(
+                            f"K9d at {label} ({name}): disagrees with "
+                            f"{what} ({first_diff(got[1], other[1])})")
+                if name in ("plain", "rotate"):
+                    dev_ms[name], _n = device_time(
+                        lambda: K.schedule_batch_uniform(
+                            fshards, *args, cap=cap, mesh=mesh, **kw),
+                        sync, 1, "shard_uniform_select_kernel")
+        for name, want in (("plain", flat), ("rotate", rot)):
+            plan = plans[name][0]
+            if (plan.blocks, plan.nodes_per_thread, plan.resident,
+                    plan.global_scratch) != want:
+                raise SystemExit(f"K9d at {label} ({name}): planned {plan}, "
+                                 f"not {want}")
+        print(f"[variants] shard_uniform_select {label}, {mesh.size} "
+              f"shards: the plain, rotate and ban + extra_ok bursts equal "
+              f"to the sharded plain burst and the single-device plain K3; "
+              f"{describe_pass_plan(*plans['plain'])}, device_ms "
+              f"{fmt_ms(dev_ms['plain'])} a pass; rotated: "
+              f"{describe_pass_plan(*plans['rotate'])}, device_ms "
+              f"{fmt_ms(dev_ms['rotate'])} a pass")
 
 
 def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
@@ -4196,7 +4405,8 @@ def preempt_scan_kernel_checks(calls, report, sync):
     mesh_kernel_entry(
         report, "shard_preempt_select", calls["shard_preempt_select"],
         no_reset, lambda a, r: r, nbytes(args[0]) + 4 * (3 + P), sync, 50,
-        "the gathered records of the first mesh-preempt-single round")
+        "the gathered records of the first mesh-preempt-single round",
+        on_device=("select_kernel",))
 
 
 def mesh_single_path(infos, tree, pdbs, device, sync, report,
@@ -4492,8 +4702,8 @@ def cards_phase(report):
     K13a-K14b against their plain versions on meshes of all the
     cards and of the first two, mesh-preempt-wave held against the
     single-device K8 wave on the first card and four mesh-preempt-single
-    rounds held against K7; K13b and K9b at their C3 geometries over
-    every card; K9a-d and K10a-K11b against their plain
+    rounds held against K7; K13b, K9b and K9d at their C3 geometries
+    over every card; K9a-d and K10a-K11b against their plain
     versions, then mesh-uniform at 15,000 and 15,001 nodes held against
     the single-device K3/K2 run on the first card, and mesh-scan-default
     (15,000 nodes) and mesh-fused held against the single-device K5 / K6
@@ -4516,6 +4726,7 @@ def cards_phase(report):
     mesh_pressure_local_checks(device, sync, meshes=meshes)
     pressure_select_geometry_checks(device, sync, list(mesh.devices))
     cycle_select_geometry_checks(device, sync, list(mesh.devices))
+    uniform_select_geometry_checks(device, sync, list(mesh.devices))
     cycle_variant_checks(device, sync)
     infos, tree, pdbs = preempt_world(N_NODES)
     with capture("pressure_batch", keep_all=True) as one:
@@ -4614,6 +4825,7 @@ def main() -> int:
               report)
         timed(mesh_variant_checks, device, sync)
         timed(cycle_select_geometry_checks, device, sync)
+        timed(uniform_select_geometry_checks, device, sync)
         timed(mesh_path, "even zones", N_NODES, device, sync, report, True)
         timed(mesh_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
               report, False)

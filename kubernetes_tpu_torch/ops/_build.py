@@ -65,7 +65,10 @@ SIGNATURES = {
     # K9c takes every shard of one device, as the grouped locals below
     "shard_uniform_sweep": [ctypes.POINTER(_L), _I, _I, _P,
                             ctypes.POINTER(_I)],
-    "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    # K9d, one cluster a pass, is bound once a burst as the selects below
+    "shard_uniform_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
+                             ctypes.POINTER(_L), _I, _P,
+                             ctypes.POINTER(_I)],
     # the grouped locals (K10a, K11a, K13a) take every shard of one
     # device: the shards' argument words, their count, the device index,
     # the stream, and the count each launch made adds one to
@@ -93,15 +96,19 @@ SIGNATURES = {
 #: asks the card how many clusters of a geometry it can hold at once (and
 #: sets the geometry's launch attributes on the current device);
 #: `mesh_enable_peers(devices, n)` (K10a's library) enables peer access
-#: for every ordered pair of a mesh's cards
+#: for every ordered pair of a mesh's cards; `preempt_scan_occupancy(sms,
+#: per_sm)` (K7's) gives the card's SM count and the K7 blocks an SM holds
 QUERIES = {name: {name + "_clusters": [ctypes.POINTER(_L),
                                        ctypes.POINTER(_I)]}
            for name in ("schedule_cycle", "uniform_burst", "schedule_batch",
                         "schedule_segments", "pressure_batch",
-                        "shard_cycle_select", "shard_scan_select",
+                        "shard_cycle_select", "shard_uniform_select",
+                        "shard_scan_select",
                         "shard_segments_select", "shard_pressure_select")}
 QUERIES["shard_scan_local"] = {"mesh_enable_peers": [ctypes.POINTER(_I),
                                                      _I]}
+QUERIES["preempt_scan"] = {"preempt_scan_occupancy": [ctypes.POINTER(_I),
+                                                      ctypes.POINTER(_I)]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

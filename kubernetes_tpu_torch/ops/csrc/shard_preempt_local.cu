@@ -15,12 +15,12 @@
 // shard's lexicographic minimum of the five criteria, with that row's
 // criteria, counts and slot flags. K14b picks among the D records.
 //
-// Shared with K7/K8: `victim_node`, `store_agg`, `staged_filter`
-// (victim.cuh); with K13a: `shard_candidate`.
+// Shared with K8: `victim_node`, `store_agg` (victim.cuh); with K13a:
+// `shard_candidate`.
 //
 // Bound on the H100: bytes, as K7 (the seven [rows, P] victim planes and
-// eight node rows read once). Design: two launches on the stream, as K7:
-// `rows_kernel` one thread per row (256-thread blocks over the shard)
+// eight node rows read once). Design: two launches on the stream (K7's
+// before its one-launch redesign): `rows_kernel` one thread per row (256-thread blocks over the shard)
 // walks the row's slots in registers and writes its aggregates; then
 // `reduce_kernel`, one 1024-thread block, reduces them into the record
 // and walks the best row's slots once more for its flags.

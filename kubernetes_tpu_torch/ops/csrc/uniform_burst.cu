@@ -24,7 +24,8 @@
 // its shared memory for the whole burst (`resident`; else in global
 // memory), and so do its int32 scores, its ok / banned / feasible bytes and
 // its tie lists (past what shared memory holds, in a global workspace:
-// `scratch`), so every n_pad has a plan. A pass is
+// `scratch`), so every n_pad has a plan. A pass is (steps 1b-3 are the
+// pass epilogue of `uniform_pass.cuh`, shared with K9d)
 //   1. sweep: each block fits its slice, and takes its max, its feasible
 //      count and (axis order) its ties at its own max, which it lists in
 //      node order; ONE cluster barrier makes every block's (max, F, ties)
@@ -55,8 +56,8 @@
 // column n_pad+1, clamped to the scratch column; the probe only decides
 // the mode when T >= 2, so here it runs only then and never reads past the
 // tie list.
-#include "cluster_cycle.cuh"
 #include "uniform.cuh"
+#include "uniform_pass.cuh"
 
 // scalar slots, in the order of `_UNIFORM_INTS` (kernels.py)
 enum {
@@ -82,67 +83,6 @@ struct UArgs {
 
 // carried rows a lane holds in registers (`UNIFORM_ROWS_MAX` in kernels.py)
 constexpr int UR_MAX = 16;
-// lanes of a pass, at most: one a thread of block 0
-constexpr int UK_MAX = NTHREADS;
-// words of a block's control block: block 0's done and folds of the pass,
-// then this block's copy of the cluster's max, F and T, the probe's mode
-enum { UC_DONE, UC_FOLDS, UC_MAX, UC_F, UC_T, UC_ELIM, UC_N = 8 };
-
-// Byte offsets of a block's dynamic shared memory at `span` node slots, R
-// carried rows and L rotation orders, the rows resident or not, the
-// per-node scratch (scores, ok / banned / feasible bytes, tie lists) in
-// shared memory or in the workspace (`gscr`). `uniform_smem_bytes` in
-// kernels.py mirrors `bytes`; the launch refuses a plan whose byte count
-// differs.
-struct UniformLayout {
-  size_t ws, sh64, rec, ctl, rows, sh32, incl, cnt, lanes, tot, ties, flags,
-      bytes;
-};
-
-__host__ __device__ inline UniformLayout uniform_layout(int span, int R,
-                                                        int L, bool resident,
-                                                        bool gscr) {
-  UniformLayout U;
-  const size_t sp = (size_t)span, lm = L > 0 ? (size_t)L : 1;
-  size_t o = 0;
-  U.ws = o;     o += 16 * 8;
-  U.sh64 = o;   o += NWARPS * 8;
-  U.rec = o;    o += 4 * 8;        // this block's max, F, ties at its max
-  U.ctl = o;    o += UC_N * 8;
-  U.rows = o;   if (resident) o += sp * 8 * (size_t)R;
-  U.sh32 = o;   o += NWARPS * 4;
-  U.incl = o;   o += (size_t)CLUSTER_MAX * 4 * lm;  // block 0: offsets
-  U.cnt = o;    o += 4 * lm;       // this block's list length an order
-  U.lanes = o;  o += UK_MAX * 4;   // block 0: the pass's accepted nodes
-  U.tot = o;    if (!gscr) o += sp * 4;
-  U.ties = o;   if (!gscr) o += sp * 4 * lm;
-  U.flags = o;  if (!gscr) o += sp * 3;
-  U.bytes = o;
-  return U;
-}
-
-// Bytes of the global workspace (`gscr`): the tie lists [max(L, 1)] x
-// [blocks x span] int32 (block q's at q * span), the scores [blocks x
-// span] int32, then the ok, banned and feasible bytes [blocks x span] each
-// (`uniform_plan`'s `scratch_slot_bytes` in kernels.py).
-__host__ __device__ inline size_t uniform_scratch_bytes(int blocks, int span,
-                                                        int L) {
-  return (size_t)blocks * (size_t)span * (4 * (L > 0 ? L : 1) + 4 + 3);
-}
-
-// Node q's word of a per-node plane, from the block that owns it: through
-// distributed shared memory (`base`: this block's slice in shared memory),
-// or, GS, from the global plane `base` (indexed by node) past this SM's L1.
-template <bool GS, typename T>
-__device__ __forceinline__ T owner_word(cg::cluster_group& cl, T* base,
-                                        int span, int q) {
-  if constexpr (GS) {
-    return __ldcg(base + q);
-  } else {
-    const int o = q / span;
-    return at_rank(cl, base, o)[q - o * span];
-  }
-}
 
 template <bool RES, bool GS>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -153,37 +93,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int R = (int)a.v[UBI_R], NS = (int)a.v[UBI_NS];
   const int L = (int)a.v[UBI_L], B = (int)a.v[UBI_N_PODS];
   const bool rotate = L > 0, ban = a.v[UBI_BAN] != 0;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int tid = threadIdx.x;
   const int rank = (int)cl.block_rank(), C = (int)cl.num_blocks();
   const int span = g.npt * NTHREADS;
   const int lo = min(rank * span, n), hi = min(lo + span, n);
   const int tlo = min(lo + tid * g.npt, hi), thi = min(tlo + g.npt, hi);
   const UniformLayout U = uniform_layout(span, R, L, RES, GS);
+  const UniformPass P = uniform_pass<GS>(
+      smem, U, (unsigned char*)a.p[UBP_WORKSPACE], n, K, L, ban, span, C,
+      rank);
   i64* ws = (i64*)(smem + U.ws);
-  i64* sh64 = (i64*)(smem + U.sh64);
-  i64* rec = (i64*)(smem + U.rec);
-  i64* ctl = (i64*)(smem + U.ctl);
-  int* sh32 = (int*)(smem + U.sh32);
-  int* incl = (int*)(smem + U.incl);  // [order][block]: ties to block's end
-  int* cnt = (int*)(smem + U.cnt);
+  i64* ctl = P.ctl;
   int* lanes = (int*)(smem + U.lanes);
-  // the per-node planes: this block's slice in shared memory, or the
-  // workspace's planes over the whole cluster (block q's slice at q * span)
-  const size_t N = (size_t)C * span;
-  const size_t lm = L > 0 ? (size_t)L : 1;
-  unsigned char* wsp = (unsigned char*)a.p[UBP_WORKSPACE];
-  int* ties = GS ? (int*)wsp : (int*)(smem + U.ties);
-  int* tot_b = GS ? (int*)wsp + lm * N : (int*)(smem + U.tot);
-  unsigned char* fl_b = GS ? wsp + (lm + 1) * N * 4 : smem + U.flags;
-  const size_t fs = GS ? N : (size_t)span;   // between two byte planes
-  unsigned char *ok_b = fl_b, *feas_b = fl_b + 2 * fs;
-  const size_t ts = GS ? N : (size_t)span;   // between two orders' lists
-  int* my_ties = GS ? ties + (size_t)rank * span : ties;
+  // the per-node planes: the scores and the ok / banned / feasible bytes
+  unsigned char *ok_b = P.fl_b, *feas_b = P.fl_b + 2 * P.fs;
   // this block's own slots, indexed by global node
   const int shift = GS ? 0 : lo;
-  int* tot = tot_b - shift;
+  int* tot = P.tot_b - shift;
   unsigned char* ok = ok_b - shift;
-  unsigned char* banned = fl_b + fs - shift;
+  unsigned char* banned = P.fl_b + P.fs - shift;
   unsigned char* feas = feas_b - shift;
   i64* st = (i64*)a.p[UBP_ST];
   i64* rows_sm = (i64*)(smem + U.rows);
@@ -236,21 +164,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // every block has started and set its slice up
   cl.sync();
 
-  // The node that tie rank p of order l names (block 0, after the pass's
-  // offsets): the first block whose ties reach past p lists it. A rank
-  // past the order's list (a perm that is not a permutation of the nodes)
-  // names the scratch column n.
-  auto tie_at = [&](int l, int p) -> int {
-    const int* in = incl + l * CLUSTER_MAX;
-    if (p >= in[C - 1]) return n;
-    int b = 0;
-    for (int q = 0; q < C - 1; ++q) b += in[q] <= p;
-    const int i = p - (b > 0 ? in[b - 1] : 0);
-    if constexpr (GS)
-      return __ldcg(ties + (size_t)l * ts + (size_t)b * span + i);
-    else
-      return at_rank(cl, ties, b)[(size_t)l * span + i];
-  };
   // Node q after one more fold (`lane_fit`): its score and whether it still
   // fits, from its rows read from the block that owns it into registers.
   // The scratch column never fits.
@@ -277,10 +190,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     *score = v.score(0, 1);
     return v.fit(0, 1);
   };
-  auto is_tie = [&](int q, int mx) -> bool {
-    return q >= 0 && q < n && owner_word<GS>(cl, feas_b, span, q)
-           && owner_word<GS>(cl, tot_b, span, q) == mx;
-  };
 
   int done = 0;
   while (done < B) {
@@ -294,140 +203,49 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         lmax = max(lmax, tot[j]);
       }
     }
-    const int bm = (int)block_max64(lmax, sh64);
-    const int bF = (int)block_sum64(lF, sh64);
+    const int bm = (int)block_max64(lmax, P.sh64);
+    const int bF = (int)block_sum64(lF, P.sh64);
     // the block's ties at its own max; in axis order its part of the tie
     // list, in node order
     int lt = 0;
     for (int j = tlo; j < thi; ++j) lt += feas[j] && tot[j] == bm;
     int bT;
-    int at = block_excl_scan(lt, sh32, &bT);
+    int at = block_excl_scan(lt, P.sh32, &bT);
     if (!rotate)
       for (int j = tlo; j < thi; ++j)
-        if (feas[j] && tot[j] == bm) my_ties[at++] = j;
+        if (feas[j] && tot[j] == bm) P.my_ties[at++] = j;
     if (tid == 0) {
-      rec[0] = bm;
-      rec[1] = bF;
-      rec[2] = bT;
+      P.rec[0] = bm;
+      P.rec[1] = bF;
+      P.rec[2] = bT;
     }
     cl.sync();  // every block's max, F and ties (and its list) are in
-    // the cluster's max, F and T; the ties before each block's end (a block
-    // below the max holds none of them)
-    if (wid == 0) {
-      i64 m = LLONG_MIN, f = 0, t = 0;
-      if (lane < C) {
-        const i64* r = at_rank(cl, rec, lane);
-        m = r[0];
-        f = r[1];
-        t = r[2];
-      }
-      const i64 mxw = warp_allreduce(OP_MAX, m);
-      const i64 Fw = warp_allreduce(OP_SUM, f);
-      const i64 in = warp_incl_sum(lane < C && m == mxw ? t : 0);
-      if (lane < C) incl[lane] = (int)in;
-      if (lane == 31) {
-        ctl[UC_MAX] = mxw;
-        ctl[UC_F] = Fw;
-        ctl[UC_T] = in;
-      }
-    }
-    __syncthreads();
-    const int mx = (int)ctl[UC_MAX], F = (int)ctl[UC_F], T = (int)ctl[UC_T];
+    pass_offsets(cl, P);
+    const int mx = (int)ctl[UC_MAX], F = (int)ctl[UC_F];
 
     // ---- 2. rotation: each order's ties among this block's positions -------
-    if (rotate) {
-      for (int l = 0; l < L; ++l) {
-        const int* pr = perm + (size_t)l * (n + 1);
-        int lc = 0;
-        for (int p = tlo; p < thi; ++p) lc += is_tie(pr[p], mx);
-        int tl;
-        int o = block_excl_scan(lc, sh32, &tl);
-        for (int p = tlo; p < thi; ++p) {
-          const int q = pr[p];
-          if (is_tie(q, mx)) my_ties[(size_t)l * ts + o++] = q;
-        }
-        if (tid == 0) cnt[l] = tl;
-      }
-      cl.sync();  // every order's list and its length are in
-      if (rank == 0) {
-        for (int l = wid; l < L; l += NWARPS) {
-          const i64 x = lane < C ? at_rank(cl, cnt, lane)[l] : 0;
-          const i64 in = warp_incl_sum(x);
-          if (lane < C) incl[l * CLUSTER_MAX + lane] = (int)in;
-        }
-        __syncthreads();
-      }
-    }
+    if (rotate)
+      pass_orders(cl, P, perm, tlo, thi, [&](int q) -> bool {
+        return q >= 0 && q < n && owner_word<GS>(cl, feas_b, span, q)
+               && owner_word<GS>(cl, P.tot_b, span, q) == mx;
+      });
 
     // ---- 3. lanes (block 0) ------------------------------------------------
     if (rank == 0) {
-      const int remaining = B - done;
-      const bool kbig = T >= 2 && F > 1;
-      // this pass's rotation orders (dynamic_slice start clamps like JAX)
-      int oid_j = 0, oid0 = 0;
-      if (rotate) {
-        const int start = min(max(done, 0), max(n_oid - K, 0));
-        oid0 = min(max(oid_seq[start], 0), L - 1);
-        if (tid < K) oid_j = min(max(oid_seq[start + tid], 0), L - 1);
-      }
-      // lane-0 probe: STAY vs ELIM
-      bool elim;
-      if (ban) {
-        elim = kbig;
-      } else if (!kbig) {
-        elim = false;
-      } else {
-        if (tid == 0) {
-          const int pos0 = (int)floormod(lni, (i64)max(T, 1));
-          int s0;
-          const bool fit0 = lane_fit(tie_at(rotate ? oid0 : 0, pos0), &s0);
-          ctl[UC_ELIM] = (s0 != mx) || !fit0;
-        }
-        __syncthreads();
-        elim = ctl[UC_ELIM] != 0;
-      }
-      const int lim = min(remaining, K);
-      const int m_stay = min(lim, T);
-      const int max_elim = max((int)floordiv((i64)T - lni + 1, 2), 1);
-      int m_elim = min(lim, min(max_elim, max(F - 1, 1)));
-      if (rotate) {
-        const int diff = (tid < K && oid_j != oid0) ? tid : K;
-        const int same = (int)block_min64(diff, sh64);
-        m_elim = min(m_elim, max(same, 1));
-      }
-      const int m = F == 0 ? lim : (elim ? m_elim : (kbig ? m_stay : 1));
-      const bool active = tid < m && F > 0;
-      int sel = n;
-      bool fail = false;
-      if (active) {
-        const i64 p = (elim && m > 1)
-                          ? imin64(lni + 2 * (i64)tid, (i64)max(T - 1, 0))
-                          : floormod(lni + tid, (i64)max(T, 1));
-        sel = tie_at(rotate ? oid_j : 0, (int)p);
-        int new_tot;
-        const bool fit1 = lane_fit(sel, &new_tot);
-        const bool leaves = ban ? true : (new_tot != mx || !fit1);
-        fail = elim ? !leaves : leaves;
-      }
-      const int first_bad = (int)block_min64(fail ? tid : K, sh64);
-      int v = F == 0 ? m : min(first_bad + 1, m);
-      if (rotate) {
-        if (active) atomicMin(&owner[sel], tid);
-        __syncthreads();
-        const bool dup = active && __ldcg(&owner[sel]) != tid;
-        const int first_dup = (int)block_min64(dup ? tid : K, sh64);
-        if (active) owner[sel] = K;
-        v = min(v, first_dup);
-        v = F == 0 ? m : max(v, 1);
-      }
+      const PassLanes r = pass_lanes<GS>(
+          cl, P, done, B, lni, oid_seq, n_oid, owner, [&](int q) -> bool {
+            int s;
+            const bool f = lane_fit(q, &s);
+            return s != mx || !f;
+          });
       // the pass's decisions, and the nodes the owners fold
-      if (tid < K) out[done + tid] = (tid < v && F > 0) ? sel : -1;
-      if (active && tid < v) lanes[tid] = sel;
-      lni += F > 1 ? v : 0;
-      done += v;
+      if (tid < K) out[done + tid] = (tid < r.v && F > 0) ? r.sel : -1;
+      if (r.active && tid < r.v) lanes[tid] = r.sel;
+      lni += F > 1 ? r.v : 0;
+      done += r.v;
       if (tid == 0) {
         ctl[UC_DONE] = done;
-        ctl[UC_FOLDS] = F > 0 ? v : 0;
+        ctl[UC_FOLDS] = F > 0 ? r.v : 0;
       }
     }
     // the pass's lanes have read every list and row they need, and block

@@ -15,20 +15,21 @@
 //     order because the sort key is monotone in priority, so the kernel
 //     never sorts. It returns the node's aggregates and, on request, its
 //     per-slot victim flags.
-//   - `pick_block` (K7): one block reduces the aggregates of every node:
-//     the zero-victim instant win, else the staged minimum of PDB violations,
-//     first victim's priority, sum of (priority + 2^31), victim count and
-//     -(earliest start of the highest-priority victims), each compared in
-//     float64 exactly as JAX converts and compares them (a sum of 128
-//     priorities + 2^31 would pass 2^53 only with priorities above 2^45;
-//     comparing the converted values keeps the pick equal regardless),
-//     then the lowest rank among what is left;
+//   - the pick: the zero-victim instant win, else the staged minimum of
+//     PDB violations, first victim's priority, sum of (priority + 2^31),
+//     victim count and -(earliest start of the highest-priority victims),
+//     each compared in float64 exactly as JAX converts and compares them (a
+//     sum of 128 priorities + 2^31 would pass 2^53 only with priorities
+//     above 2^45; comparing the converted values keeps the pick equal
+//     regardless), then the lowest rank among what is left. Three forms:
 //   - `shard_candidate` / `pick_records` (K14a / K14b; K13b picks over
-//     K13a's records too): the same pick over a shard's rows, as a
-//     record, then over the D records;
-//   - `VicBest` (K8, K13a): the same pick as one reduction whose partial
-//     results combine in any order, carried by warp shuffles and cluster
-//     rounds.
+//     K13a's records too): the pick over a shard's rows, as a record, then
+//     over the D records;
+//   - `VicBest` (K8, K13a): the pick by axis order as one reduction whose
+//     partial results combine in any order, carried by warp shuffles and
+//     cluster rounds;
+//   - `PickRec` (K7): the same reduction keyed by (order_rank, row), over
+//     the warps and blocks of one grid-wide launch.
 //
 // Numeric contract: int64 sums as JAX (wrapping), first-index argmax for
 // the first victim (slot 0 when the node has none: its priority is read
@@ -319,48 +320,6 @@ __device__ __forceinline__ void staged_filter(const VictimAggPlanes& g,
   }
 }
 
-// pickOneNodeForPreemption over the n nodes whose aggregates `g` holds,
-// by the whole block (blockDim.x == NTHREADS, every thread gets the
-// result). `rank` (NULL = the axis index) breaks the last tie. Returns
-// -1 when no node is a candidate.
-__device__ __forceinline__ int pick_block(const VictimAggPlanes& g, int n,
-                                          const i64* rank) {
-  __shared__ i64 sh64[NWARPS];
-  __shared__ double shd[NWARPS];
-  const i64 BIGR = 1LL << 60;
-  int lo, hi;
-  my_range(n, &lo, &hi);
-  unsigned char* m = g.u + n;
-  int l_any = 0, l_zero = 0;
-  for (int j = lo; j < hi; ++j) {
-    const bool f = g.u[j] != 0;
-    l_any |= f;
-    l_zero |= f && g.i[j] == 0;
-    m[j] = f;
-  }
-  const bool any_cand = block_sum64(l_any, sh64) > 0;
-  const bool any_zero = block_sum64(l_zero, sh64) > 0;
-  if (any_zero) {
-    for (int j = lo; j < hi; ++j) m[j] = g.u[j] && g.i[j] == 0;
-  } else {
-    staged_filter(g, n, m, lo, hi, shd);
-  }
-  // argmin of where(mask, rank, 2^60), first index on ties
-  i64 lk = LLONG_MAX;
-  for (int j = lo; j < hi; ++j) {
-    const i64 key = m[j] ? (rank ? rank[j] : (i64)j) : BIGR;
-    lk = imin64(lk, key);
-  }
-  const i64 kmin = block_min64(lk, sh64);
-  i64 li = LLONG_MAX;
-  for (int j = lo; j < hi; ++j) {
-    const i64 key = m[j] ? (rank ? rank[j] : (i64)j) : BIGR;
-    if (key == kmin && j < li) li = j;
-  }
-  const i64 w = block_min64(li, sh64);
-  return any_cand ? (int)w : -1;
-}
-
 // ---- the sharded pick (K13a/K14a reduce, K13b/K14b select) ---------------
 // A shard's candidate record: the i64 slots below, the five criteria of
 // its best row as float64, then that row's P slot flags as int32. Every
@@ -539,7 +498,7 @@ __device__ __forceinline__ void pick_flags(const unsigned char* g,
 // pickOneNodeForPreemption by axis order as a reduction whose partial
 // results combine in any order over any split of the rows: the lowest key
 // among the zero-victim candidates, and the candidate at the lexicographic
-// minimum of (the five criteria, key). The staged filter of `pick_block` and
+// minimum of (the five criteria, key). The staged filter of
 // `shard_candidate` keeps exactly the rows at the lexicographic minimum of
 // the five criteria (IEEE `<` and `==`; no criterion is NaN: counts, sums
 // and starts are finite or +inf), and among them the lowest key wins, so
@@ -642,4 +601,86 @@ __device__ __forceinline__ VicBest vic_load(const i64* w, int stride) {
   for (int q = 0; q < 5; ++q)
     v.c[q] = __longlong_as_double(w[(2 + q) * stride]);
   return v;
+}
+
+// ---- the pick as one reduction keyed by (rank, row) (K7) ------------------
+// pickOneNodeForPreemption as `VicBest`'s reduction, with the key the
+// caller's `order_rank`, which any int64 may be: ties of the key go to the
+// lower row, as JAX's argmin takes the first index, so a record carries
+// (key, row) and never packs them into one word. The lowest (key, row)
+// among the zero-victim candidates, and the candidate at the lexicographic
+// minimum of (the five criteria, key, row); a row of -1 marks none.
+// Equals `_pick_one_node` provided every candidate's key is below 2^60
+// (its mask fill). Held as PK_WORDS int64 words (the criteria by their
+// bits), so that a shuffle or a record moves it word by word.
+enum { PK_ZKEY, PK_ZROW, PK_BKEY, PK_BROW, PK_CRIT, PK_WORDS = PK_CRIT + 5 };
+
+struct PickRec {
+  i64 w[PK_WORDS];
+  __device__ double crit(int q) const {
+    return __longlong_as_double(w[PK_CRIT + q]);
+  }
+};
+
+__device__ __forceinline__ PickRec pick_none() {
+  PickRec v;
+  v.w[PK_ZKEY] = v.w[PK_BKEY] = LLONG_MAX;
+  v.w[PK_ZROW] = v.w[PK_BROW] = -1;
+#pragma unroll
+  for (int q = 0; q < 5; ++q) v.w[PK_CRIT + q] = 0;
+  return v;
+}
+
+// whether a's best candidate comes before b's
+__device__ __forceinline__ bool pick_before(const PickRec& a,
+                                            const PickRec& b) {
+  if (a.w[PK_BROW] < 0) return false;
+  if (b.w[PK_BROW] < 0) return true;
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    if (a.crit(q) < b.crit(q)) return true;
+    if (!(a.crit(q) == b.crit(q))) return false;
+  }
+  return a.w[PK_BKEY] < b.w[PK_BKEY]
+         || (a.w[PK_BKEY] == b.w[PK_BKEY] && a.w[PK_BROW] < b.w[PK_BROW]);
+}
+
+__device__ __forceinline__ PickRec pick_comb(const PickRec& a,
+                                             const PickRec& b) {
+  PickRec r = pick_before(b, a) ? b : a;
+  const bool bz = b.w[PK_ZROW] >= 0
+      && (a.w[PK_ZROW] < 0 || b.w[PK_ZKEY] < a.w[PK_ZKEY]
+          || (b.w[PK_ZKEY] == a.w[PK_ZKEY] && b.w[PK_ZROW] < a.w[PK_ZROW]));
+  r.w[PK_ZKEY] = bz ? b.w[PK_ZKEY] : a.w[PK_ZKEY];
+  r.w[PK_ZROW] = bz ? b.w[PK_ZROW] : a.w[PK_ZROW];
+  return r;
+}
+
+// row `row` of key `key`, whose victim scan gave `a`, added to v;
+// whether the row is now v's best candidate
+__device__ __forceinline__ bool pick_add(PickRec& v, const VictimAgg& a,
+                                         i64 key, i64 row) {
+  if (!a.feas0) return false;
+  PickRec c = pick_none();
+  if (a.nv == 0) {
+    c.w[PK_ZKEY] = key;
+    c.w[PK_ZROW] = row;
+  }
+  c.w[PK_BKEY] = key;
+  c.w[PK_BROW] = row;
+  c.w[PK_CRIT] = __double_as_longlong((double)a.viol_ct);
+  c.w[PK_CRIT + 1] = __double_as_longlong((double)a.first_prio);
+  c.w[PK_CRIT + 2] = __double_as_longlong((double)a.sum_prio);
+  c.w[PK_CRIT + 3] = __double_as_longlong((double)a.nv);
+  c.w[PK_CRIT + 4] = __double_as_longlong(-a.earliest_high);
+  const bool best = pick_before(c, v);
+  v = pick_comb(v, c);
+  return best;
+}
+
+// the pick: -1 when no row is a candidate, else the zero-victim row, else
+// the best candidate's
+__device__ __forceinline__ i64 pick_winner(const PickRec& v) {
+  return v.w[PK_BROW] < 0 ? -1
+         : v.w[PK_ZROW] >= 0 ? v.w[PK_ZROW] : v.w[PK_BROW];
 }

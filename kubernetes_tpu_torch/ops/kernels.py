@@ -12,10 +12,11 @@ paths run has three things here:
   tensor either goes through the kernel or the wrapper raises.
 
 Each wrapper books `launch.<kernel>` in `obs` where it launches its kernel,
-and nowhere else; the mesh steps' wrappers (K10a/b, K11a/b) also return
-the launch bound as a `Relaunch`, whose C launch function adds one to the
-Relaunch's count at every launch it makes; the window's later steps
-re-enqueue it, and the count is booked once after the window.
+and nowhere else; the mesh steps' and passes' wrappers (K9c/d, K10a/b,
+K11a/b, K13a/b) also return the launch bound as a `Relaunch`, whose C
+launch function adds one to the Relaunch's count at every launch it
+makes; the window's (burst's) later steps re-enqueue it, and the count is
+booked once after the window.
 
 | kernel         | replaces (kubernetes_tpu/ops/kernels.py)           |
 | local_total    | `_local_total` :110                                |
@@ -1615,9 +1616,11 @@ CLUSTER_BLOCKS = 16
 CLUSTER_THREADS = 1024
 SMEM_CAP = 232448
 #: the kernels that run as one cluster a window (K5, K6), a chunk (K8), a
-#: cycle (K2, and the sharded cycle's select K9b) or a burst (K3)
+#: cycle (K2, and the sharded cycle's select K9b), a burst (K3) or a
+#: sharded uniform pass (K9d)
 CLUSTER_KERNELS = ("schedule_batch", "schedule_segments", "pressure_batch",
-                   "schedule_cycle", "uniform_burst", "shard_cycle_select")
+                   "schedule_cycle", "uniform_burst", "shard_cycle_select",
+                   "shard_uniform_select")
 #: the mesh selects that run as one cluster a step
 SELECT_CLUSTER_KERNELS = ("shard_scan_select", "shard_segments_select",
                           "shard_pressure_select")
@@ -2302,44 +2305,125 @@ def preemption_scan_plain(nodes, vic, pod, feas_static, order_rank, n_real,
         has_request)
 
 
-# pointer slots of K7's launch (csrc/preempt_scan.cu `PreemptArgs`)
+# scalar and pointer slots of K7's launch (csrc/preempt_scan.cu
+# `PreemptArgs`)
+_PREEMPT_INTS = ("n_pad", "P", "n_real", "max_prio", "cr", "hr", "req_cpu",
+                 "req_mem", "req_eph", "blocks")
 _PREEMPT_PTRS = ("alloc_cpu", "alloc_mem", "alloc_eph", "allowed_pods",
                  "req_cpu", "req_mem", "req_eph", "pod_count") + tuple(
-    "vic_" + k for k in VICTIM_PLANES) + (
-    "feas", "rank", "agg_i64", "agg_f64", "agg_u8", "out")
+    "vic_" + k for k in VICTIM_PLANES) + ("feas", "rank", "records",
+                                         "ticket", "out")
+#: threads of a K7 block (`K7_THREADS`, csrc/preempt_scan.cu): two warps,
+#: a thread a node, 32 consecutive nodes a warp at a time
+PREEMPT_THREADS = 64
+#: int64 words of a K7 block's record (`K7_WORDS`, csrc/preempt_scan.cu):
+#: the pick (`PK_WORDS`, csrc/victim.cuh: 9), then its best node's slot
+#: flags, PREEMPT_P bits
+PREEMPT_RECORD_WORDS = 9 + PREEMPT_P // 64
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptGrid:
+    """The geometry of one K7 launch: `blocks` blocks of PREEMPT_THREADS
+    threads on a card of `sms` SMs that holds `per_sm` K7 blocks on each
+    at once. The record array holds one record for each block the card
+    holds at once (`fit`), so it serves every grid of the card."""
+    blocks: int
+    sms: int
+    per_sm: int
+
+    @property
+    def fit(self) -> int:
+        return self.sms * self.per_sm
+
+    @property
+    def records_bytes(self) -> int:
+        """Bytes of the card's record array: PREEMPT_RECORD_WORDS int64
+        words for each block it holds at once."""
+        return 8 * PREEMPT_RECORD_WORDS * self.fit
+
+
+def preempt_grid(n_pad: int, sms: int, per_sm: int) -> PreemptGrid:
+    """K7's grid over `n_pad` node slots: every block the card holds at
+    once (its SM count times the blocks an SM holds, from the occupancy
+    query), fewer only when the nodes run out first (a warp takes 32
+    consecutive nodes); the warps take such groups with a grid stride, so
+    the grid never grows with n_pad. Raises when the card holds no K7
+    block."""
+    if int(sms) * int(per_sm) < 1:
+        raise RuntimeError(f"preempt_scan: the card holds no block of "
+                           f"{PREEMPT_THREADS} threads ({sms} SMs, "
+                           f"{per_sm} blocks an SM)")
+    warps = PREEMPT_THREADS // 32
+    need = max(1, -(-int(n_pad) // (32 * warps)))
+    return PreemptGrid(min(int(sms) * int(per_sm), need), int(sms),
+                       int(per_sm))
+
+
+#: K7's occupancy and scratch on each device: (SMs, blocks an SM holds,
+#: the record array, the ticket)
+_PREEMPT_CARD: dict = {}
+
+
+def _preempt_occupancy() -> tuple:
+    """(SMs, K7 blocks an SM holds at once) of the current device."""
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    _check(_build.load("preempt_scan").preempt_scan_occupancy(
+        ctypes.byref(sms), ctypes.byref(per_sm)), "preempt_scan_occupancy")
+    return sms.value, per_sm.value
+
+
+def _preempt_card(dev) -> tuple:
+    """(SMs, blocks an SM holds, record array, ticket) of K7 on `dev`,
+    made once a device: the occupancy query, the records of every block
+    the card holds at once, and the ticket the blocks draw, zeroed here
+    only (each launch's last block puts it back to 0; launches on one
+    stream run one after another)."""
+    key = str(dev)
+    card = _PREEMPT_CARD.get(key)
+    if card is None:
+        with _on(dev):
+            sms, per_sm = _preempt_occupancy()
+        grid = preempt_grid(1, sms, per_sm)
+        card = _PREEMPT_CARD[key] = (
+            sms, per_sm,
+            torch.empty(grid.records_bytes // 8, dtype=I64, device=dev),
+            torch.zeros(1, dtype=I32, device=dev))
+    return card
 
 
 def _preempt_launch(nodes, vic, pod, feas_static, order_rank, n_real,
                     check_resources, has_request, max_prio):
+    """Launch K7: one grid-wide launch (`preempt_grid`), its record array
+    and ticket the device's (`_preempt_card`)."""
     dev = nodes["alloc_cpu"].device
     vic = _vic_tensors(vic, dev)
     n_pad, P = (int(x) for x in vic["prio"].shape)
-    rows = {k: nodes[k] for k in _PREEMPT_PTRS[:8]}
-    _require_cuda("preempt_scan", *rows.values(), *vic.values())
-    if any(v.shape[0] != n_pad for v in rows.values()):
-        raise ValueError("preempt_scan: node rows and victim planes differ "
-                         "in n_pad")
-    ptrs = dict(rows)
+    if not 1 <= P <= PREEMPT_P:
+        raise ValueError(f"preempt_scan: {P} victim slots, a record's "
+                         f"flags hold 1 to {PREEMPT_P}")
+    ptrs = {k: nodes[k] for k in _PREEMPT_PTRS[:8]}
     ptrs.update({"vic_" + k: v for k, v in vic.items()})
     ptrs["feas"] = _t(feas_static, dev, torch.bool).contiguous()
     ptrs["rank"] = _t(order_rank, dev, I64).contiguous()
-    ptrs["agg_i64"] = torch.empty((4, n_pad), dtype=I64, device=dev)
-    ptrs["agg_f64"] = torch.empty(n_pad, dtype=torch.float64, device=dev)
-    ptrs["agg_u8"] = torch.empty((2, n_pad), dtype=torch.uint8, device=dev)
+    if any(v.shape[0] != n_pad for v in ptrs.values()):
+        raise ValueError("preempt_scan: node rows, victim planes, "
+                         "feas_static and order_rank differ in n_pad")
+    _require_cuda("preempt_scan", *ptrs.values())
+    sms, per_sm, ptrs["records"], ptrs["ticket"] = _preempt_card(dev)
+    grid = preempt_grid(n_pad, sms, per_sm)
+    last_geometry["preempt_scan"] = (grid, grid.fit)
     out = ptrs["out"] = torch.empty(3 + P, dtype=I32, device=dev)
-    if ptrs["feas"].shape[0] != n_pad or ptrs["rank"].shape[0] != n_pad:
-        raise ValueError("preempt_scan: feas_static/order_rank not [n_pad]")
-    ints = [n_pad, P, int(n_real), int(max_prio),
-            int(bool(_host(check_resources))),
-            int(bool(_host(has_request)))] + [
-        int(np.asarray(_host(pod[k])))
-        for k in ("req_cpu", "req_mem", "req_eph")]
-    iargs = (ctypes.c_longlong * len(ints))(*ints)
-    parr = (ctypes.c_void_p * len(_PREEMPT_PTRS))(
-        *[_ptr(ptrs[k]) for k in _PREEMPT_PTRS])
-    lib = _build.load("preempt_scan")
-    obs.inc("launch.preempt_scan")
-    _check(lib.preempt_scan_launch(iargs, parr, _stream()), "preempt_scan")
+    cr = bool(_host(check_resources))
+    ints = {"n_pad": n_pad, "P": P, "n_real": int(n_real),
+            "max_prio": int(max_prio), "cr": int(cr),
+            "hr": int(bool(_host(has_request)) and cr),
+            "blocks": grid.blocks}
+    ints.update({k: int(np.asarray(_host(pod[k])))
+                 for k in ("req_cpu", "req_mem", "req_eph")})
+    with _on(dev):
+        _launch("preempt_scan", *_launch_arrays(
+            ints, _PREEMPT_INTS, ptrs, _PREEMPT_PTRS, "preempt_scan"))
     return out
 
 
@@ -3330,11 +3414,17 @@ def shard_uniform_select_plain(gathered, rows, hoff, state, out, lni_out,
 _SUD_INTS = ("n_pad", "rows", "D", "stride", "hoff", "B", "K", "cap", "L",
              "n_oid", "ban")
 _SUD_PTRS = ("gathered", "perm", "oid_seq", "state", "out", "lni_out",
-             "flat", "ties", "owner")
+             "owner", "workspace")
 
 
-def _shard_uniform_select_launch(gathered, rows, hoff, state, out, lni_out,
-                                 owner, n_pods, cap, ban, perm, oid_seq):
+def _shard_uniform_select_bind(gathered, rows, hoff, state, out, lni_out,
+                               owner, n_pods, cap, ban, perm,
+                               oid_seq) -> Relaunch:
+    """K9d's launch for a burst on `gathered`'s device, bound once: K3's
+    `uniform_plan` at R = 0 over the node axis and the rotation orders
+    (16 blocks, or 8 when the card cannot place 16) and, for lists and
+    bits past what shared memory holds, the workspace, allocated here
+    once a burst. The burst's passes re-enqueue it (`Relaunch.fn`)."""
     dev = gathered.device
     D, stride = (int(x) for x in gathered.shape)
     n_pad = D * int(rows)
@@ -3346,26 +3436,34 @@ def _shard_uniform_select_launch(gathered, rows, hoff, state, out, lni_out,
     if oid_seq is not None and n_oid < K_BATCH:
         raise ValueError("shard_uniform_select: oid_seq shorter than "
                          "K_BATCH")
+    plan = _cluster_geometry("shard_uniform_select",
+                             lambda blocks: uniform_plan(n_pad, 0, 0, L,
+                                                         blocks))
     ptrs = {"gathered": gathered, "perm": perm, "oid_seq": oid_seq,
             "state": state, "out": out, "lni_out": lni_out,
-            "flat": torch.empty((2, n_pad), dtype=torch.uint8, device=dev),
-            "ties": torch.empty(max(L, 1) * n_pad, dtype=I32, device=dev),
-            "owner": owner}
+            "owner": owner, "workspace": plan.workspace(dev)}
     _require_cuda("shard_uniform_select", *ptrs.values())
     _require_on("shard_uniform_select", dev, *ptrs.values())
     ints = {"n_pad": n_pad, "rows": int(rows), "D": D, "stride": stride,
             "hoff": int(hoff), "B": int(n_pods), "K": K_BATCH,
             "cap": int(cap), "L": L, "n_oid": n_oid, "ban": int(bool(ban))}
-    _launch("shard_uniform_select",
-            *_launch_arrays(ints, _SUD_INTS, ptrs, _SUD_PTRS,
-                            "shard_uniform_select"))
+    iargs, parr = _launch_arrays(ints, _SUD_INTS, ptrs, _SUD_PTRS,
+                                 "shard_uniform_select")
+    fn = getattr(_build.load("shard_uniform_select"),
+                 "shard_uniform_select_launch")
+    return Relaunch("shard_uniform_select", fn, (
+        iargs, parr, plan.geometry(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream), ptrs)
 
 
 def shard_uniform_select(gathered, rows, hoff, state, out, lni_out, owner,
-                         n_pods, cap, ban, perm=None, oid_seq=None):
+                         n_pods, cap, ban, perm=None,
+                         oid_seq=None) -> Optional[Relaunch]:
     """K9d on one device over the [D, record bytes] gathered shard
-    records. CPU -> the plain version; CUDA ->
-    `csrc/shard_uniform_select.cu`."""
+    records: one pass. CPU -> the plain version (returns None); CUDA ->
+    `csrc/shard_uniform_select.cu`, one thread-block cluster a pass,
+    returning its `Relaunch` for the burst's next passes: the arguments
+    are the same every pass (the pass lives in `state`)."""
     dev = gathered.device
     _require_on("shard_uniform_select", dev, state, out, lni_out, owner,
                 perm, oid_seq)
@@ -3374,9 +3472,12 @@ def shard_uniform_select(gathered, rows, hoff, state, out, lni_out, owner,
                                           lni_out, owner, n_pods, cap, ban,
                                           perm=perm, oid_seq=oid_seq)
     with _on(dev):
-        return _shard_uniform_select_launch(gathered, rows, hoff, state,
-                                            out, lni_out, owner, n_pods,
-                                            cap, ban, perm, oid_seq)
+        rel = _shard_uniform_select_bind(gathered, rows, hoff, state, out,
+                                         lni_out, owner, n_pods, cap, ban,
+                                         perm, oid_seq)
+    _check(rel.fn(), "shard_uniform_select")
+    rel.book()
+    return rel
 
 
 # ---------------------------------------------------------------------------

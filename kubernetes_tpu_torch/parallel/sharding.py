@@ -441,8 +441,9 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
     place into row s of the device's gathered buffer), the all-gather of
     the records of shards on other devices (`gather_in_place`: none on
     one card), and K9d on every distinct device (the tie walk and the
-    lanes). The first pass binds each device's K9c launch (`Relaunch`),
-    the later passes re-enqueue it. The pass loop runs on the host,
+    lanes, one thread-block cluster). The first pass binds each device's
+    K9c and K9d launches (`Relaunch`), the later passes re-enqueue them.
+    The pass loop runs on the host,
     PASS_GROUP passes between reads of the pass counter; passes past the
     end are no-ops on the device. Returns (one dict of folded rows per
     shard, packed[cap+1] int32 and the lni tensor, both on the first
@@ -520,23 +521,32 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
             else:
                 K._check(rel.fn(), rel.name)
 
+    selects = {}    # each device's bound K9d launch (None on the CPU)
+
+    def select():
+        for d in mesh.distinct:
+            rel = selects.get(d)
+            if rel is None:
+                selects[d] = K.shard_uniform_select(
+                    gbuf[d], rows, hoff, state[d], out[d], lni_out[d],
+                    owner[d], n_pods, cap, ban, perm=perm[d], oid_seq=oid[d])
+            else:
+                K._check(rel.fn(), rel.name)
+
     nbytes = syncs = copies = 0
     while n_pods > 0:
         for _ in range(PASS_GROUP):
             sweep()
             copies += gather_in_place(mesh, recs, gbuf)
             nbytes += len(mesh.distinct) * D * recs[0].numel()
-            for d in mesh.distinct:
-                K.shard_uniform_select(gbuf[d], rows, hoff, state[d], out[d],
-                                       lni_out[d], owner[d], n_pods, cap,
-                                       ban, perm=perm[d], oid_seq=oid[d])
+            select()
         syncs += 1
         if int(state[mesh.devices[0]][K.ST_DONE]) >= n_pods:
             break
     sweep()     # fold the last pass's lanes
-    for rel in sweeps:
+    for rel in sweeps + list(selects.values()):
         if rel is not None:
-            rel.book()      # the launches the bound sweeps made
+            rel.book()      # the launches the bound sweeps and selects made
     d0 = mesh.devices[0]
     obs.inc("gather.burst_uniform", nbytes)
     obs.inc("copies.burst_uniform", copies)

@@ -1,4 +1,5 @@
-"""Time K3 (`uniform_burst`) and K9b (`shard_cycle_select`) on one card.
+"""Time K3 (`uniform_burst`), K9b (`shard_cycle_select`) and K9d
+(`shard_uniform_select`) on one card.
 
     python3 scripts/uniform_time.py [--tree DIR] [--reps 20]
 
@@ -14,10 +15,19 @@ gives the before side of a comparison), on bench.py's cluster:
   - K9b `shard_cycle_select` on the mesh-uniform cell's serial cycle: a
     100m pod on the filled 15,000-node cluster split over 4 shards of the
     card (`Mesh(["cuda"] * 4)`), the select's own call captured from
-    `schedule_cycle(mesh=)`.
+    `schedule_cycle(mesh=)`;
+  - K9d `shard_uniform_select` on the mesh-uniform cell's burst: the
+    empty and the rotated burst split over 4 shards of the card, the
+    first pass's call captured from `schedule_batch_uniform(mesh=)`, each
+    timed call after the copies that restore its pass state and
+    decisions, as chip_smoke.py times it.
 
 For each: `ms`, the wrapper call's mean over `--reps` calls by CUDA events,
-and `device_ms`, the kernel's own device time a call (torch.profiler).
+and `device_ms`, the kernel's own device time a call (torch.profiler);
+for K9d also `device_ms_copies`, the kernel and the restore copies
+together, and, where the wrapper returns the bound launch (a `Relaunch`),
+`relaunch_ms`: the restore copies and the bound launch's re-enqueue, as
+the burst's later passes take it.
 The last line is one JSON object with every time and the card's name and
 power limit. Needs one CUDA card; exits non-zero without one.
 """
@@ -81,6 +91,40 @@ def main() -> int:
         print(f"[time] {label}: ms {ms:.4f} device_ms "
               f"{C.fmt_ms(dev_ms)} over {seen} launches")
 
+    def k9d(label, call):
+        """K9d's first pass of a mesh burst, restored before every call."""
+        g, a, k = call
+        base = C._clone((g,) + tuple(a))
+        cur = C._clone(base)
+
+        def restored(fn):
+            def one():
+                for i in (3, 4, 5):
+                    cur[i].copy_(base[i])
+                return fn()
+            return one
+        select = restored(lambda: K.shard_uniform_select(*cur, **k))
+        ms = C.cuda_time(select, sync, args.reps)
+        dev_ms, seen = C.device_time(select, sync, args.reps,
+                                     "shard_uniform_select_kernel")
+        # the kernel and the three restore copies a call, each from its
+        # mean a launch (the profiler can miss events)
+        (k_ms, _k), (c_ms, _c) = C.device_time(
+            select, sync, args.reps,
+            ("shard_uniform_select_kernel", "Memcpy DtoD"))
+        both = None if k_ms is None or c_ms is None else k_ms + 3 * c_ms
+        entry = {"ms": round(ms, 4),
+                 "device_ms": None if dev_ms is None else round(dev_ms, 4),
+                 "device_ms_copies": None if both is None
+                 else round(both, 4)}
+        rel = K.shard_uniform_select(*cur, **k)
+        if rel is not None:
+            entry["relaunch_ms"] = round(C.cuda_time(
+                restored(lambda: K._check(rel.fn(), rel.name)), sync,
+                args.reps), 4)
+        out[label] = entry
+        print(f"[time] {label}: {entry} ({seen} launches seen)")
+
     for label, n_nodes, filled, lni in (("empty", C.N_NODES, False, 0),
                                         ("filled", C.N_NODES, True, 7),
                                         ("rotated", C.N_NODES + 1, False,
@@ -96,6 +140,12 @@ def main() -> int:
         call = (nodes, cls, C.N_PODS, lni, b.n_real, True)
         timed(f"K3 {label}", lambda: K.schedule_batch_uniform(*call, **kw),
               "uniform_burst_kernel")
+        if label != "filled":
+            mesh = S.Mesh([device] * 4)
+            with C.capture("shard_uniform_select") as cap_k9d:
+                K.schedule_batch_uniform(S.shard_node_arrays(mesh, nodes),
+                                         *call[1:], mesh=mesh, **kw)
+            k9d(f"K9d mesh-uniform {label} first pass", cap_k9d.call)
         if label == "filled":
             mesh = S.Mesh([device] * 4)
             shards = S.shard_node_arrays(mesh, nodes)

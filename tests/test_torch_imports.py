@@ -129,9 +129,18 @@ def test_launch_slot_tables_match_the_kernel_enums():
                  "prefer_avoid": "PA", "interpod_tracked": "TRACKED",
                  "vic_violating": "VIC_VIOL", "req_scalar": "REQ_SCALAR"}
         assert slot == "P_" + short.get(name, name.upper()), (name, slot)
+    # K7's one grid-wide launch: its grid in the scalars, the device's
+    # record array and ticket in place of the aggregate planes
     preempt = (_build.CSRC / "preempt_scan.cu").read_text()
-    assert len(_enum_slots(preempt, "PP_COUNT")) == len(PK._PREEMPT_PTRS)
-    assert len(_enum_slots(preempt, "PI_COUNT")) == 9
+    vic = {"vic_violating": "VVIOL", "allowed_pods": "ALLOWED"}
+    assert _enum_slots(preempt, "PP_COUNT") == [
+        "PP_" + vic.get(k, k.upper().replace("VIC_", "V"))
+        for k in PK._PREEMPT_PTRS]
+    assert PK._PREEMPT_PTRS[-5:] == ("feas", "rank", "records", "ticket",
+                                     "out")
+    assert _enum_slots(preempt, "PI_COUNT") == [
+        "PI_" + k.upper() for k in PK._PREEMPT_INTS]
+    assert PK._PREEMPT_INTS[-1] == "blocks"
     # K9a's nominated-ghost slots (the serial cycle's two-pass fit): the
     # last four of its pointer table and of its C enum
     local = (_build.CSRC / "shard_cycle_local.cu").read_text()
@@ -193,6 +202,12 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
     assert PK._SCS_PTRS == ("gathered", "w", "ic_b", "tr_b", "perm",
                             "inv_perm", "pos", "total", "kept", "out",
                             "recs", "workspace")
+    # K9d's: its cluster's workspace in place of the one-block select's
+    # flat tie / stay planes and tie lists
+    assert PK._SUD_PTRS == ("gathered", "perm", "oid_seq", "state", "out",
+                            "lni_out", "owner", "workspace")
+    assert PK._SUD_INTS == ("n_pad", "rows", "D", "stride", "hoff", "B",
+                            "K", "cap", "L", "n_oid", "ban")
     # the pass-state slots K9c and K9d share (uniform.cuh's last enum)
     uniform = (_build.CSRC / "uniform.cuh").read_text()
     state = [x.strip() for x in uniform.split("enum {")[-1].split("}")[0]

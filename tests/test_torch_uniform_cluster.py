@@ -137,9 +137,10 @@ def test_uniform_plan_every_n_pad_and_its_limits():
 
 def test_uniform_layout_and_slots_match_the_kernel():
     """K3's launch tables name `UArgs`' C enums one to one, the constants
-    of its layout are the planner's, and it launches one cluster through
-    the shared helpers with an occupancy query; the one-block loop and
-    its global tie lists are gone."""
+    of its layout (in `uniform_pass.cuh`, shared with K9d) are the
+    planner's, and it launches one cluster through the shared helpers
+    with an occupancy query; the one-block loop and its global tie lists
+    are gone."""
     from tests.test_torch_imports import _enum_slots
     src = (_build.CSRC / "uniform_burst.cu").read_text()
     for end, pre, host in (("UBI_COUNT", "UBI_", PK._UNIFORM_INTS),
@@ -147,11 +148,18 @@ def test_uniform_layout_and_slots_match_the_kernel():
         assert _enum_slots(src, end) == [pre + h.upper() for h in host]
     assert int(re.search(r"constexpr int UR_MAX = (\d+);", src).group(1)) \
         == PK.UNIFORM_ROWS_MAX
-    assert "constexpr int UK_MAX = NTHREADS;" in src
+    assert '#include "uniform_pass.cuh"' in src
+    pass_src = (_build.CSRC / "uniform_pass.cuh").read_text()
+    assert "constexpr int UK_MAX = NTHREADS;" in pass_src
     assert PK._UNIFORM_LANES_MAX == PK.CLUSTER_THREADS
     ctl = re.search(r"enum \{ UC_DONE, UC_FOLDS, UC_MAX, UC_F, UC_T, "
-                    r"UC_ELIM, UC_N = (\d+) \};", src)
+                    r"UC_ELIM, UC_N = (\d+) \};", pass_src)
     assert int(ctl.group(1)) == PK._UNIFORM_CTL
+    # the pass epilogue is the shared header's, not a copy in the kernel
+    for step in ("pass_offsets(cl, P);", "pass_orders(cl, P, perm",
+                 "pass_lanes<GS>("):
+        assert step in src, step
+    assert "auto tie_at" not in src and "first_dup" not in src
     # the layout, line by line (the fixed part, then per slot)
     for line in ("U.ws = o;     o += 16 * 8;",
                  "U.sh64 = o;   o += NWARPS * 8;",
@@ -165,9 +173,9 @@ def test_uniform_layout_and_slots_match_the_kernel():
                  "U.tot = o;    if (!gscr) o += sp * 4;",
                  "U.ties = o;   if (!gscr) o += sp * 4 * lm;",
                  "U.flags = o;  if (!gscr) o += sp * 3;"):
-        assert line in src, line
+        assert line in pass_src, line
     assert "return (size_t)blocks * (size_t)span * (4 * (L > 0 ? L : 1) " \
-           "+ 4 + 3);" in src
+           "+ 4 + 3);" in pass_src
     cycle = (_build.CSRC / "cluster_cycle.cuh").read_text()
     assert int(re.search(r"constexpr int CLUSTER_MAX = (\d+);",
                          cycle).group(1)) == PK._CLUSTER_MAX
@@ -513,3 +521,198 @@ def test_plain_k9b_matches_jax_across_blocks(walk, d):
         winners.add(int(got["selected"]) // span)
         kept |= {j // span for j in np.flatnonzero(got["kept"].numpy())}
     assert len(winners) >= 2 and len(kept) >= 2
+
+
+# ---------------------------------------------------------------------------
+# K9d: K3's cluster pass over the stay bits, planned as K3 at R = 0
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n_pad,L,blocks,want", [
+    # (n_pad, orders, blocks the planner may take, (blocks, slots a
+    # thread, resident, lists and bits in the global workspace))
+    (16384, 0, 16, (16, 1, True, False)),
+    (16384, 0, 8, (8, 2, True, False)),
+    (15001, 0, 16, (15, 1, True, False)),
+    (15001, 3, 8, (8, 2, True, False)),
+    (16384, 3, 16, (16, 1, True, False)),
+    # 262,144 slots: the bits and one list in shared memory; three
+    # orders' lists do not fit, and go to the workspace with the bits
+    (262144, 0, 16, (16, 16, True, False)),
+    (262144, 3, 16, (16, 16, False, True)),
+    (131072, 4, 8, (8, 16, False, True)),
+    # the switch without rotation: 20 slots a thread fit, 21 do not
+    (327680, 0, 16, (16, 20, True, False)),
+    (327681, 0, 16, (16, 21, False, True)),
+])
+def test_k9d_plan_pins(n_pad, L, blocks, want):
+    """K9d takes K3's planner with no carried rows: per node slot its
+    byte planes and a tie-list slot an order, K3's fixed tables."""
+    plan = PK.uniform_plan(n_pad, 0, 0, L, blocks)
+    assert (plan.blocks, plan.nodes_per_thread, plan.resident,
+            plan.global_scratch) == want
+    assert (plan.blocks - 1) * plan.span < n_pad <= plan.blocks * plan.span
+    assert plan.smem_bytes == _fixed(L) + plan.span * _slot(
+        0, L, plan.resident, plan.global_scratch) <= PK.SMEM_CAP
+    if plan.global_scratch:
+        assert PK.uniform_smem_bytes(plan.span, 0, L, True) > PK.SMEM_CAP
+        assert plan.workspace_bytes == plan.blocks * plan.span * (
+            7 + 4 * max(L, 1))
+    else:
+        assert plan.workspace_bytes == 0
+
+
+def test_k9d_layout_and_one_block_select_gone():
+    """K9d lays out K3's shared memory at R = 0 (`uniform_pass.cuh`),
+    checks a plan against it, runs the pass epilogue of the shared header
+    on one cluster and leaves alike in every block once the burst is
+    done; the one-block kernel and its flat planes and tie lists are
+    gone."""
+    from tests.test_torch_imports import _enum_slots
+    src = (_build.CSRC / "shard_uniform_select.cu").read_text()
+    assert '#include "uniform_pass.cuh"' in src
+    assert "uniform_layout(span, 0, L, g.resident != 0, GS)" in src
+    assert "uniform_layout(g.npt * NTHREADS, 0, (int)a.v[UD_L]," in src
+    for step in ("pass_offsets(cl, P);", "pass_orders(cl, P,",
+                 "pass_lanes<GS>("):
+        assert step in src, step
+    # the early return comes before the first cluster barrier
+    body = src[src.index("shard_uniform_select_kernel(PassArgs a"):]
+    assert body.index("if (done >= a.v[UD_B]) return;") \
+        < body.index("cl.sync()")
+    # block 0 writes the pass state after the last barrier
+    assert body.rindex("cl.sync()") < body.index("state[ST_DONE] = ")
+    assert "<<<" not in src and "cluster_launch(pass_kernel(g)" in src
+    assert 'extern "C" int shard_uniform_select_clusters(' in src
+    for gone in ("DP_FLAT", "DP_TIES", "my_range(", "block_min64("):
+        assert gone not in src, gone
+    assert _enum_slots(src, "DP_COUNT") == [
+        "DP_" + k.upper() for k in PK._SUD_PTRS]
+    assert "shard_uniform_select" in PK.CLUSTER_KERNELS
+    # K3 and K9d check a plan against the one layout
+    k3 = (_build.CSRC / "uniform_burst.cu").read_text()
+    assert "uniform_layout(g.npt * NTHREADS, R, L, g.resident != 0," in k3
+
+
+def _k9d_gathered(n_pad, d=4):
+    rows = n_pad // d
+    hoff = PK._round8(rows)
+    return (torch.zeros((d, PK.UniformShard.record_bytes(rows)),
+                        dtype=torch.uint8), rows, hoff)
+
+
+@pytest.mark.parametrize("n_pad,L", [(2100, 0), (2100, 3), (16384, 0),
+                                     (262144, 3)])
+def test_k9d_wrapper_plans_with_uniform_plan(monkeypatch, n_pad, L):
+    """The K9d wrapper asks `_cluster_geometry` for K3's plan at R = 0 of
+    the gathered records' node axis and the rotation's orders (caught
+    before a launch)."""
+    gathered, rows, hoff = _k9d_gathered(n_pad)
+    perm = oid = None
+    if L:
+        perm = torch.zeros((L, n_pad + 1), dtype=torch.int32)
+        oid = torch.zeros(256 + PK.K_BATCH, dtype=torch.int32)
+    state = torch.zeros(PK.ST_LANES + PK.K_BATCH, dtype=torch.int64)
+    seen = _planned(monkeypatch, lambda: PK._shard_uniform_select_bind(
+        gathered, rows, hoff, state,
+        torch.zeros(256 + PK.K_BATCH, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int64),
+        torch.zeros(n_pad + 1, dtype=torch.int32), 200, 256, False, perm,
+        oid))
+    assert seen["name"] == "shard_uniform_select"
+    assert seen["plans"] == tuple(PK.uniform_plan(n_pad, 0, 0, L, b)
+                                  for b in (16, 8))
+
+
+class _BoundSelect:
+    """A stand-in for K9d's `Relaunch` on the CPU: `fn()` runs the plain
+    version on the bound arguments, `book()` counts."""
+
+    def __init__(self, args, kw, log):
+        self.name = "shard_uniform_select"
+        self.args, self.kw, self.log = args, kw, log
+
+    def fn(self):
+        self.log["relaunched"] += 1
+        PK.shard_uniform_select_plain(*self.args, **self.kw)
+        return 0
+
+    def book(self):
+        self.log["booked"] += 1
+        return 0
+
+
+def _rotate_dup_case():
+    """The STAY world with three orders where order 1 is order 0 moved by
+    one position and the cycles alternate orders 0 and 1: lane j + 1
+    names lane j's node, so the duplicate cut takes each batch at the
+    second lane."""
+    jn, pn, cls, _n, lni, _kw, cap = _case("stay")
+    rng = np.random.default_rng(21)
+    pad = np.full(N_PAD + 1 - N_REAL, N_PAD)
+    base = np.arange(N_REAL)
+    rows = [np.concatenate([base, pad]),
+            np.concatenate([np.roll(base, 1), pad]),
+            np.concatenate([rng.permutation(N_REAL), pad])]
+    seq = np.zeros(cap + JK.K_BATCH, np.int32)
+    seq[: 600] = np.arange(600) % 2
+    seq[600:] = rng.integers(0, 3, len(seq) - 600)
+    kw = dict(rotation=(np.stack(rows).astype(np.int32), seq))
+    return jn, pn, cls, 700, lni, kw, cap
+
+
+K9D_CASES = ["elim", "stay", "cut", "ban+extra_ok", "rotate",
+             "rotate+duplicate lane", "F == 0"]
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("name", K9D_CASES)
+def test_plain_k9d_matches_jax_across_blocks(monkeypatch, name, d):
+    """The sharded burst on `["cpu"] * d` through the plain K9c and K9d
+    equals JAX's `schedule_batch_uniform` (decisions, the packed block,
+    lni, every folded row), at an n_pad (2,100) that is no multiple of
+    K9d's span (1,024: three blocks), so that tie runs and shard edges
+    (every 525 or 1,050 rows) cross the plan's block edges; K9d is bound
+    once a burst on each device and re-enqueued on the later passes."""
+    jn, pn, cls, n_pods, lni, kw, cap = (
+        _rotate_dup_case() if name == "rotate+duplicate lane"
+        else _case(name))
+    log = {"bound": 0, "relaunched": 0, "booked": 0, "dup": 0}
+    real = PK.shard_uniform_select_plain
+
+    def spy(gathered, rows, hoff, state, *args, **kwargs):
+        real(gathered, rows, hoff, state, *args, **kwargs)
+        v = int(state[PK.ST_VFOLD])
+        lanes = state[PK.ST_LANES: PK.ST_LANES + PK.K_BATCH].tolist()
+        if 0 < v < PK.K_BATCH and lanes[v] in lanes[:v]:
+            log["dup"] += 1
+
+    def bind(gathered, rows, hoff, state, *args, **kwargs):
+        log["bound"] += 1
+        rel = _BoundSelect((gathered, rows, hoff, state) + args, kwargs,
+                           log)
+        spy(gathered, rows, hoff, state, *args, **kwargs)
+        return rel
+    monkeypatch.setattr(PK, "shard_uniform_select_plain", spy)
+    monkeypatch.setattr(PK, "shard_uniform_select", bind)
+    mesh = PS.Mesh(["cpu"] * d)
+    assert N_PAD % PK.uniform_plan(N_PAD, 0, 0, 0).span
+    jrows, jpacked, jlni = JK.schedule_batch_uniform(
+        jn, dict(cls), n_pods, lni, N_REAL, True, cap=cap, **kw)
+    rows, packed, plni = PK.schedule_batch_uniform(
+        PS.shard_node_arrays(mesh, pn), dict(cls), n_pods, lni, N_REAL,
+        True, cap=cap, mesh=mesh, **_port_kw(kw))
+    np.testing.assert_array_equal(np.asarray(packed), np.asarray(jpacked))
+    assert int(plni) == int(jlni)
+    for k in jrows:
+        got = torch.cat([r[k] for r in rows])
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(jrows[k]),
+                                      err_msg=k)
+    # bound once on the one device, re-enqueued every later pass, booked
+    assert log["bound"] == 1 and log["booked"] == 1
+    assert log["relaunched"] >= (1 if name != "F == 0" else 0)
+    sel = np.asarray(packed)[:n_pods]
+    if name == "F == 0":
+        assert (sel == -1).all()
+        return
+    assert len(_blocks(sel)) == 3
+    if name == "rotate+duplicate lane":
+        assert log["dup"] > 0
