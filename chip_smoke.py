@@ -47,7 +47,8 @@
    global memory at 262,144 slots on 16 blocks and 131,072 on 8, at P
    16), ghost off and carried in, on one spec run (the victim
    scan reused pod after pod) and on alternating specs, K13a-K14b on 1,
-   2 and 4 shards at P 16 and 128, the grouped K13a on 8, 4, 2 and 1
+   2 and 4 shards at P 16 and 128 (K14 also at 24, each K14a record in
+   place on every device), the grouped K13a on 8, 4, 2 and 1
    shards of the card in every step state of a wave, K2 and K9a/b with a
    nominated ghost; K2, one thread-block cluster a cycle, on six
    geometries of `cycle_plan`: n_pad 16,384 on 16 blocks and on the
@@ -75,19 +76,21 @@
    records and the scratch in global memory). K1, K2, K3, K4, K7, K8,
    K9a-d, K10a/b, K11a/b, K13a/b, K14a and K14b also get `device_ms` on
    the kernels line: the kernel's own device time a launch
-   (torch.profiler; K14a: its two kernels a call; K9d: with the
+   (torch.profiler; K9d: with the
    copies that restore its pass state, its own time `device_ms_kernel`
    beside it, and `relaunch_ms`, the bound launch's re-enqueue) beside
    `ms`, the wrapper call's (K9a also on mesh-scan-default's first
    serial cycle, `device_ms_scan_default`; K3 also on the filled and
    rotated bursts, `device_ms_filled`, `device_ms_rotated`; K7's `grid`,
    its blocks and the blocks the card holds at once).
-   K9c, K10a, K11a and K13a run one launch a device over every shard it
-   holds, each record written into the device's gathered buffer: their
+   K9c, K10a, K11a, K13a and K14a run one launch a device over every
+   shard it holds, each record written into the device's gathered buffer:
+   their
    check captures that launch over the card's four shards (bound, `ms`
    and `device_ms` for the four together; `shards` on the kernels line;
-   K10a / K11a / K13a also write every other card's buffer and publish
-   the step's stamps), and
+   K10a / K11a / K13a / K14a also write every other card's buffer and
+   publish the step's stamps; K14b reads the records in place after
+   them), and
    `[variants]
    grouped locals` holds both against their plain versions on 4, 2 and 1
    shards of the card in the step states of a window (folds on a shard's
@@ -144,7 +147,9 @@
      launch a device and step plus one a chunk for its last fold);
    - mesh-preempt-single (K14a/b, with K9a/b and K4): 8 more rounds on
      the world preempt-single leaves, each K14 block held against the
-     single-device K7 block of the same rows and planes;
+     single-device K7 block of the same rows and planes; it fails unless
+     K14a (one launch over the card's shards) and K14b ran once a device
+     and round with no record copy, over the "peer" exchange;
    - mesh-nominated-serial (C1: K9a/b with each shard's ghost slice): 8
      serial cycles while 13,000 nominees hold nodes, held against the
      single-device K2 run with the same ghost;
@@ -288,11 +293,12 @@ MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS \
 MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
 
 
-#: entry points whose plain version is not `<name>_plain`: K13a's and
-#: K9c's wrappers take a device's shards, their per-shard plain versions
-#: one shard
+#: entry points whose plain version is not `<name>_plain`: K13a's, K9c's
+#: and K14a's wrappers take a device's shards, their per-shard plain
+#: versions one shard
 PLAIN_NAMES = {"shard_pressure_local": "shard_pressure_group_plain",
-               "shard_uniform_sweep": "shard_uniform_sweep_group_plain"}
+               "shard_uniform_sweep": "shard_uniform_sweep_group_plain",
+               "shard_preempt_local": "shard_preempt_group_plain"}
 
 
 def plain_of(name):
@@ -1699,7 +1705,8 @@ def _clone(x):
         return {k: _clone(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return type(x)(_clone(v) for v in x)
-    if isinstance(x, (K.UniformShard, K.ScanShard, K.ScanSide)):
+    if isinstance(x, (K.UniformShard, K.ScanShard, K.ScanSide,
+                      K.PreemptShard, K.PreemptSide)):
         y = copy.copy(x)
         y.__dict__ = _clone(x.__dict__)
         if hasattr(y, "_args"):
@@ -4025,11 +4032,13 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
     """K14a/b and K13a/b against their plain versions on random inputs,
     and the sharded victim scan / pressure wave against the single-device
     plain K7 / K8, on one card split into 1, 2 and 4 shards, at P 16 and
-    128 (n_real 3,999: a multiple of no shard count): K14 with the K7
-    cases (check_resources / has_request false, no candidate, a
-    zero-victim win, ties through all five criteria across every shard
-    with a candidate order that is not the row order, no lower priority)
-    and each shard's record against the plain record; K13 on a chunk of
+    128, K14 also at 24 (n_real 3,999: a multiple of no shard count): K14
+    with the K7 cases (check_resources / has_request false, no candidate,
+    a zero-victim win, a zero-victim node in the last shard only, ties
+    through all five criteria across every shard with a candidate order
+    that is not the row order, the same ties to duplicate ranks, no lower
+    priority) and each shard's record, in place in every device's buffer,
+    against the per-shard plain record; K13 on a chunk of
     binds, nominations, failures and skip padding, ghosts off and carried
     in, an init-container request. Then K2 and the sharded cycle (K9a/b)
     with a nominated ghost against their plain versions. `meshes` (lists
@@ -4052,11 +4061,14 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
 
     mesh_list = [S.Mesh(devs) for devs in
                  (meshes or [[device] * D for D in MESH_SHARDS])]
-    for P, B in ((16, 32), (128, 16)):
+    # K14 at P 16, 24 (the general slot loops) and 128; K13 (B pods a
+    # chunk) at P 16 and 128
+    for P, B in ((16, 32), (24, 0), (128, 16)):
         vic = _rand_victims(rng, n_pad, P, device)
         nodes = _victim_nodes(rng, vic, n_pad, n_real, device)
         feas = torch.as_tensor(rng.random(n_pad) < 0.9).to(device)
         rank = torch.as_tensor(rng.permutation(n_pad)).to(device)
+        dup = torch.as_tensor(rng.integers(0, 9, n_pad)).to(device)
         pod = {"req_cpu": np.int64(1500), "req_mem": np.int64(2 * GI),
                "req_eph": np.int64(GI)}
         w = max(int(K.preemption_scan_plain(
@@ -4066,59 +4078,93 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
         tie_nodes = {k: (v[w:w + 1].expand_as(v).contiguous()
                          if k != "valid" else v) for k, v in nodes.items()}
         roomy = {**nodes, "req_cpu": nodes["req_cpu"] // 4}
-        k14 = [("default", nodes, vic, feas, True, True, 6),
-               ("check_resources false", nodes, vic, feas, False, False, 6),
-               ("has_request false", nodes, vic, feas, True, False, 6),
-               ("no candidate", nodes, vic, torch.zeros_like(feas), True,
-                True, 6),
-               ("zero-victim win", roomy, vic, feas, True, True, 6),
-               ("ties across shards", tie_nodes, tie_vic, feas, True, True,
+        # every node full on cpu but one roomy node in the last shard
+        last = {k: v.clone() for k, v in nodes.items()}
+        last["req_cpu"] = torch.maximum(last["req_cpu"], last["alloc_cpu"])
+        j = n_real - 1
+        for k, v in (("req_cpu", 0), ("alloc_cpu", 64000), ("req_mem", 0),
+                     ("req_eph", 0), ("pod_count", 0),
+                     ("allowed_pods", 110)):
+            last[k][j] = v
+        feas_j = feas.clone()
+        feas_j[j] = True
+        vic_j = {k: v.clone() for k, v in vic.items()}
+        vic_j["valid"][j] = False   # no potential victim there
+        k14 = [("default", nodes, vic, feas, rank, True, True, 6),
+               ("check_resources false", nodes, vic, feas, rank, False,
+                False, 6),
+               ("has_request false", nodes, vic, feas, rank, True, False,
                 6),
-               ("no lower priority", nodes, vic, feas, True, True, 0)]
-        want14 = {c[0]: K.preemption_scan_plain(c[1], c[2], pod, c[3], rank,
-                                                n_real, c[4], c[5], c[6])
+               ("no candidate", nodes, vic, torch.zeros_like(feas), rank,
+                True, True, 6),
+               ("zero-victim win", roomy, vic, feas, rank, True, True, 6),
+               ("zero victim, last shard only", last, vic_j, feas_j, rank,
+                True, True, 6),
+               ("ties across shards", tie_nodes, tie_vic, feas, rank, True,
+                True, 6),
+               ("ties to duplicate ranks", tie_nodes, tie_vic, feas, dup,
+                True, True, 6),
+               ("no lower priority", nodes, vic, feas, rank, True, True, 0)]
+        want14 = {c[0]: K.preemption_scan_plain(c[1], c[2], pod, c[3], c[4],
+                                                n_real, c[5], c[6], c[7])
                   for c in k14}
-        # K13: a chunk over a cluster with room on six rows only: binds,
-        # then nominations, then failures, then skip padding
-        full, stack, mut0 = _k13_chunk(rng, nodes, n_pad, n_real, B, device)
-        zero = {k: torch.zeros(n_pad, dtype=torch.int64, device=device)
-                for k in K.GHOST_FIELDS}
-        ghosts = (("ghost off", zero),
-                  ("ghost on", _random_ghost(rng, n_pad, device)))
-        want13 = {}
-        for gname, g0 in ghosts:
-            want13[gname] = whole_wave(K.pressure_batch_plain(
-                full, mut0, g0, stack, vic, 37, 5, 9000, n_real, 4),
-                torch.device(device))
-            kinds = set(want13[gname][4][:, 1].cpu().tolist())
-            if P == 16 and gname == "ghost off" and not (
-                    {-2, -1} <= kinds and max(kinds) >= 0):
-                raise SystemExit(f"mesh preempt variant K13/P{P}: the "
-                                 f"chunk lacks bound, failed or nominated "
-                                 f"pods ({sorted(kinds)})")
+        if int(want14["zero victim, last shard only"][0]) != j:
+            raise SystemExit(f"mesh preempt variant K14/P{P}: the roomy "
+                             f"node {j} does not win")
+        if B:
+            # K13: a chunk over a cluster with room on six rows only:
+            # binds, then nominations, then failures, then skip padding
+            full, stack, mut0 = _k13_chunk(rng, nodes, n_pad, n_real, B,
+                                           device)
+            zero = {k: torch.zeros(n_pad, dtype=torch.int64, device=device)
+                    for k in K.GHOST_FIELDS}
+            ghosts = (("ghost off", zero),
+                      ("ghost on", _random_ghost(rng, n_pad, device)))
+            want13 = {}
+            for gname, g0 in ghosts:
+                want13[gname] = whole_wave(K.pressure_batch_plain(
+                    full, mut0, g0, stack, vic, 37, 5, 9000, n_real, 4),
+                    torch.device(device))
+                kinds = set(want13[gname][4][:, 1].cpu().tolist())
+                if P == 16 and gname == "ghost off" and not (
+                        {-2, -1} <= kinds and max(kinds) >= 0):
+                    raise SystemExit(f"mesh preempt variant K13/P{P}: the "
+                                     f"chunk lacks bound, failed or "
+                                     f"nominated pods ({sorted(kinds)})")
         for mesh in mesh_list:
             D, d0 = mesh.size, mesh.devices[0]
-            rows = mesh.rows(n_pad)
-            for name, nd, vc, fs, cr, hr, mp in k14:
+            for name, nd, vc, fs, rk, cr, hr, mp in k14:
                 shards = S.shard_node_arrays(mesh, nd)
                 vics = S.shard_victim_planes(mesh, vc)
-                args = (shards, vics, pod, fs, rank, n_real, cr, hr, mp)
+                args = (shards, vics, pod, fs, rk, n_real, cr, hr, mp)
                 got = K.preemption_scan(*args, mesh=mesh)
                 with plain_versions(MESH_ENTRIES):
                     ref = K.preemption_scan(*args, mesh=mesh)
                 same(f"{D} shards/K14/P{P}/{name} vs plain", got, ref)
                 same(f"{D} shards/K14/P{P}/{name} vs K7 plain", got.to(d0),
                      want14[name].to(d0))
-                if name in ("default", "ties across shards"):
-                    for s_ in range(D):
-                        sl = slice(s_ * rows, (s_ + 1) * rows)
-                        a = (shards[s_], vics[s_], pod,
-                             fs[sl].to(mesh.devices[s_]),
-                             rank[sl].to(mesh.devices[s_]), s_ * rows,
-                             n_real, cr, hr, mp)
-                        same(f"{D} shards/K14a record {s_}/P{P}/{name}",
-                             K.shard_preempt_local(*a),
-                             K.shard_preempt_local_plain(*a))
+                if name in ("check_resources false", "has_request false",
+                            "no lower priority"):
+                    continue
+                # K14a's records in place: every device's half holds each
+                # shard's record (its own, and under "peer" the others'
+                # through their stores), equal to the per-shard plain one
+                groups, sides, call = S.preempt_call(mesh, *args)
+                for d, shs in groups.items():
+                    K.shard_preempt_local(shs, sides[d], call)
+                sync()
+                for d, shs in groups.items():
+                    for sh in shs:
+                        rec = K.shard_preempt_local_plain(
+                            sh.nodes, sh.vic, pod, sh.feas, sh.rank,
+                            sh.offset, n_real, cr, hr, mp)
+                        for dd in mesh.distinct:
+                            same(f"{D} shards/K14a record {sh.index} on "
+                                 f"{dd}/P{P}/{name}",
+                                 sides[dd].records(call)[sh.index],
+                                 rec.to(dd))
+            if not B:
+                continue
             shards = S.shard_node_arrays(mesh, full)
             vics = S.shard_victim_planes(mesh, vic)
             for gname, g0 in ghosts:
@@ -4148,16 +4194,20 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
              {k: got[k].to(d0) for k in CYCLE_KEYS},
              {k: want[k].to(d0) for k in CYCLE_KEYS})
     sync()
+    grid = K.last_geometry.get("shard_preempt_local")
+    geometry = describe_grid(grid[0]) if grid else "not launched"
     print(f"[variants] {checked} mesh preemption comparisons equal (K14a/b "
           f"and K13a/b against their plain versions, the sharded victim "
           f"scan / pressure wave against the single-device plain K7 / K8, "
-          f"K14a records per shard: default, check_resources and "
-          f"has_request false, no candidate, zero-victim win, ties across "
-          f"every shard, no lower priority; K13 chunks of binds, "
+          f"K14a records per shard in place on every device: default, "
+          f"check_resources and has_request false, no candidate, "
+          f"zero-victim win, a zero-victim node in the last shard only, "
+          f"ties across every shard, ties to duplicate ranks, no lower "
+          f"priority, at P 16, 24 and 128; K13 chunks of binds, "
           f"nominations, failures and skip padding, ghosts off and "
-          f"carried in; K2 and K9a/b with a nominated ghost; P 16 and 128 "
-          f"on meshes of {[m.size for m in mesh_list]} shards, n_real "
-          f"{n_real})")
+          f"carried in at P 16 and 128; K2 and K9a/b with a nominated "
+          f"ghost; on meshes of {[m.size for m in mesh_list]} shards, "
+          f"n_real {n_real}; K14a {geometry} a shard)")
 
 
 #: the step states the grouped K13a is held in (name, {step-state slot:
@@ -4385,28 +4435,45 @@ def mesh_wave_path(infos, tree, pdbs, device, sync, report, ref,
 
 
 def preempt_scan_kernel_checks(calls, report, sync):
-    """K14a/b, each on its first call of mesh-preempt-single."""
+    """K14a/b, each on its first call of mesh-preempt-single. K14a: its
+    one launch over every shard of the first device (bound, `ms` and
+    `device_ms` for them together), held on the records it writes in
+    place; K14b on that device's records, after their stamps."""
+    import torch
+    from kubernetes_tpu_torch.ops import kernels as K
+
     def no_reset(a, base):
         pass
 
-    from kubernetes_tpu_torch.ops import kernels as K
+    def records(a, _result):
+        # the rows of the launch's shards in the call's half, in place
+        return torch.stack([a[1].records(a[2])[sh.index] for sh in a[0]])
     args, _kw = _full(calls["shard_preempt_local"])
-    rows, P = (int(x) for x in args[1]["prio"].shape)
-    rows_read = {k: args[0][k] for k in K._PREEMPT_PTRS[:8]}
+    shards, side, call = args
+    chunk = K.cand_record_bytes(call.P)
+    rows_read = [{k: sh.nodes[k] for k in K._PREEMPT_PTRS[:8]}
+                 for sh in shards]
     mesh_kernel_entry(
         report, "shard_preempt_local", calls["shard_preempt_local"],
-        no_reset, lambda a, r: r,
-        nbytes(rows_read, args[1], args[3], args[4])
-        + K.cand_record_bytes(P), sync, 50,
-        "shard 0's rows of the first mesh-preempt-single round",
-        ops=rows * P * OPS_PER_SLOT, on_device=("rows_kernel",
-                                                "reduce_kernel"))
+        no_reset, records,
+        nbytes(rows_read, [sh.vic for sh in shards],
+               [sh.feas for sh in shards], [sh.rank for sh in shards])
+        + len(shards) * chunk, sync, 50,
+        f"the first mesh-preempt-single round, one launch over the "
+        f"{len(shards)} shard(s) of the first device (bound and device_ms "
+        f"for them together)",
+        "; " + describe_grid(K.last_geometry["shard_preempt_local"][0])
+        + " a shard",
+        ops=sum(sh.rows for sh in shards) * call.P * OPS_PER_SLOT,
+        on_device=True)
+    report["shard_preempt_local"]["shards"] = len(shards)
     args, _kw = _full(calls["shard_preempt_select"])
+    side, call = args
     mesh_kernel_entry(
         report, "shard_preempt_select", calls["shard_preempt_select"],
-        no_reset, lambda a, r: r, nbytes(args[0]) + 4 * (3 + P), sync, 50,
-        "the gathered records of the first mesh-preempt-single round",
-        on_device=("select_kernel",))
+        no_reset, lambda a, r: r, call.D * chunk + 4 * (3 + call.P), sync,
+        50, "the records of the first mesh-preempt-single round, in place",
+        on_device=True)
 
 
 def mesh_single_path(infos, tree, pdbs, device, sync, report,
@@ -4414,10 +4481,15 @@ def mesh_single_path(infos, tree, pdbs, device, sync, report,
     """mesh-preempt-single: `rounds` more rounds on the world preempt-single
     left, through TorchScheduler(mesh=Mesh([device] * MESH_D)): schedule
     raises FitError through K9a/K9b (its reasons held against a
-    single-device schedule of the same state), preempt runs K14a on every
-    shard and K14b; each round's K14 block is held against the
-    single-device K7 block of the same rows and planes (the shards
-    gathered back), then the shell evicts the victims and binds the pod."""
+    single-device schedule of the same state), preempt runs K14a once a
+    device over its shards and K14b once a device, the records in place
+    (no record copy under the "peer" exchange); each round's K14 block is
+    held against the single-device K7 block of the same rows and planes
+    (the shards gathered back), then the shell evicts the victims and
+    binds the pod. The [path] line splits preempt's time into encode,
+    dispatch (the scan less its fetch) and fetch, and fails unless K14a
+    and K14b ran once a device and round with no record copy (and, on
+    several cards, over the "peer" exchange)."""
     import torch
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.api.types import Pod, Container
@@ -4450,6 +4522,7 @@ def mesh_single_path(infos, tree, pdbs, device, sync, report,
     t_prewarm = time.perf_counter() - t
     obs.reset()
     t_pre = t_sched = 0.0
+    phases = {"encode": 0.0, "scan": 0.0, "fetch": 0.0}
     evicted = 0
     K.preemption_scan = checked
     try:
@@ -4478,6 +4551,8 @@ def mesh_single_path(infos, tree, pdbs, device, sync, report,
                 res = sched.preempt(pod, infos, names, errs[0], pdbs)
                 sync()
                 t_pre += time.perf_counter() - t1
+                for k in phases:
+                    phases[k] += sched.last_preempt_phases[k]
                 if res is None or res.node is None or not res.victims:
                     raise SystemExit(f"{name} round {r}: {res}")
                 for v in res.victims:
@@ -4495,11 +4570,27 @@ def mesh_single_path(infos, tree, pdbs, device, sync, report,
     if missing:
         raise SystemExit(f"{name}: kernels not launched on the path: "
                          f"{missing}")
+    # one K14a launch (its shards together) and one K14b a device and
+    # round, the records in place
+    want = rounds * len(mesh.distinct)
+    copies = obs.get("copies.preempt")
+    if [counts[k] for k in PREEMPT_MESH_KERNELS] != [want, want] \
+            or mesh.exchange != "peer" or copies != 0:
+        raise SystemExit(f"{name}: K14a / K14b launched "
+                         f"{[counts[k] for k in PREEMPT_MESH_KERNELS]} "
+                         f"times, {want} each wanted; {copies} record "
+                         f"copies under the {mesh.exchange!r} exchange")
+    dispatch = phases["scan"] - phases["fetch"]
     print(f"[path] {name}: {len(infos)} nodes on {mesh.size} shards "
-          f"({len(mesh.distinct)} distinct devices), {rounds} rounds of "
+          f"({len(mesh.distinct)} distinct devices, exchange "
+          f"{mesh.exchange}), {rounds} rounds of "
           f"schedule (FitError through K9a/b) + preempt (K14a/b), "
           f"{rounds / t_pre:.1f} preemptions/s (preempt {t_pre * 1e3:.1f} "
-          f"ms in all; schedule {t_sched * 1e3:.1f} ms in all); prewarm "
+          f"ms in all: encode {phases['encode'] * 1e3:.2f} dispatch "
+          f"{dispatch * 1e3:.2f} fetch {phases['fetch'] * 1e3:.2f}; "
+          f"schedule {t_sched * 1e3:.1f} ms in all); K14a launches "
+          f"{counts['shard_preempt_local']} ({want // rounds} a round), "
+          f"record copies {copies}; prewarm "
           f"{t_prewarm * 1e3:.1f} ms; gather.preempt "
           f"{obs.get('gather.preempt')} bytes; {evicted} victims evicted; "
           f"victim planes uploaded {obs.get('dispatch.vic_upload')} and "

@@ -83,7 +83,9 @@ SIGNATURES = {
     "shard_segments_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                               ctypes.POINTER(_L), _I, _P,
                               ctypes.POINTER(_I)],
-    "shard_preempt_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    # K14a takes every shard of one device, as the grouped locals
+    "shard_preempt_local": [ctypes.POINTER(_L), _I, _I, _P,
+                            ctypes.POINTER(_I)],
     "shard_preempt_select": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "shard_pressure_local": [ctypes.POINTER(_L), _I, _I, _P,
                              ctypes.POINTER(_I)],
@@ -97,7 +99,8 @@ SIGNATURES = {
 #: sets the geometry's launch attributes on the current device);
 #: `mesh_enable_peers(devices, n)` (K10a's library) enables peer access
 #: for every ordered pair of a mesh's cards; `preempt_scan_occupancy(sms,
-#: per_sm)` (K7's) gives the card's SM count and the K7 blocks an SM holds
+#: per_sm)` (K7's) gives the card's SM count and the K7 blocks an SM holds,
+#: `shard_preempt_local_occupancy(sms, per_sm)` (K14a's) the K14a blocks
 QUERIES = {name: {name + "_clusters": [ctypes.POINTER(_L),
                                        ctypes.POINTER(_I)]}
            for name in ("schedule_cycle", "uniform_burst", "schedule_batch",
@@ -109,6 +112,9 @@ QUERIES["shard_scan_local"] = {"mesh_enable_peers": [ctypes.POINTER(_I),
                                                      _I]}
 QUERIES["preempt_scan"] = {"preempt_scan_occupancy": [ctypes.POINTER(_I),
                                                       ctypes.POINTER(_I)]}
+QUERIES["shard_preempt_local"] = {
+    "shard_preempt_local_occupancy": [ctypes.POINTER(_I),
+                                      ctypes.POINTER(_I)]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

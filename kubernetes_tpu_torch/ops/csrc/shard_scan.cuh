@@ -327,6 +327,19 @@ __device__ __forceinline__ void local_fence(const ScanLocalArgs& a) {
   if (a.v[SLI_N_PEERS]) __threadfence_system();
 }
 
+// Stamp value v at `slot` of this device's stamps `own` and of the
+// n_peers peers' (`peer_stamps[k]`): system-scope releases, after a
+// system-wide fence when records went to peers. One thread.
+__device__ __forceinline__ void stamps_publish(i64* own,
+                                               void* const* peer_stamps,
+                                               int n_peers, size_t slot,
+                                               i64 v) {
+  if (n_peers) __threadfence_system();
+  st_release_sys(own + slot, v);
+  for (int k = 0; k < n_peers; ++k)
+    st_release_sys((i64*)peer_stamps[k] + slot, v);
+}
+
 // The shard's stamp of this step, stamp_base + round + 1 at [round & 1, s]
 // of this device's stamps and every peer's: a system-scope release, after
 // the records it covers were fenced. One thread.
@@ -334,11 +347,9 @@ __device__ __forceinline__ void publish_stamps(const ScanLocalArgs& a) {
   const i64 round = slp<const i64>(a, SLP_STATE)[SS_ROUND];
   const size_t slot = (size_t)(round & 1) * (size_t)a.v[SLI_D]
                       + (size_t)a.v[SLI_INDEX];
-  const i64 v = a.v[SLI_STAMP_BASE] + round + 1;
-  local_fence(a);
-  st_release_sys(slp<i64>(a, SLP_STAMPS) + slot, v);
-  for (int k = 0; k < (int)a.v[SLI_N_PEERS]; ++k)
-    st_release_sys((i64*)a.p[SLP_PEER_STAMPS0 + k] + slot, v);
+  stamps_publish(slp<i64>(a, SLP_STAMPS), a.p + SLP_PEER_STAMPS0,
+                 (int)a.v[SLI_N_PEERS], slot,
+                 a.v[SLI_STAMP_BASE] + round + 1);
 }
 
 // K10a / K11a: every thread of a row block calls it after its record
@@ -566,15 +577,12 @@ __device__ __forceinline__ T* ssp(const ScanSelectArgs& a, int slot) {
 // How long a select waits for a step's stamps before it traps.
 constexpr unsigned long long STAMP_WAIT_NS = 5000000000ull;
 
-// One thread: spin until the D stamps of round `round`'s half read its
-// value (system-scope acquire loads of this device's memory). A stamp that
-// has not come after STAMP_WAIT_NS traps: the launch fails, the stream
-// never hangs.
-__device__ __forceinline__ void stamp_wait(const ScanSelectArgs& a,
-                                           i64 round) {
-  const i64 want = a.v[SSI_STAMP_BASE] + round + 1;
-  const int D = (int)a.v[SSI_D];
-  const i64* stamps = ssp<const i64>(a, SSP_STAMPS) + (size_t)(round & 1) * D;
+// One thread: spin until each of the D stamps at `stamps` reads `want`
+// or more (system-scope acquire loads of this device's memory). A stamp
+// that has not come after STAMP_WAIT_NS traps: the launch fails, the
+// stream never hangs.
+__device__ __forceinline__ void stamps_wait(const i64* stamps, int D,
+                                            i64 want) {
   const unsigned long long t0 = global_ns();
   for (int s = 0; s < D; ++s) {
     while (ld_acquire_sys(stamps + s) < want) {
@@ -582,6 +590,14 @@ __device__ __forceinline__ void stamp_wait(const ScanSelectArgs& a,
       __nanosleep(64);
     }
   }
+}
+
+// One thread: wait for the D stamps of round `round`'s half.
+__device__ __forceinline__ void stamp_wait(const ScanSelectArgs& a,
+                                           i64 round) {
+  const int D = (int)a.v[SSI_D];
+  stamps_wait(ssp<const i64>(a, SSP_STAMPS) + (size_t)(round & 1) * D, D,
+              a.v[SSI_STAMP_BASE] + round + 1);
 }
 
 // Round `round`'s half of the gathered records, [D, chunk].

@@ -1,6 +1,7 @@
 // Victim selection of one node and the five-criteria node pick, shared by
-// K7 (preempt_scan.cu), K8 (pressure_batch.cu) and the mesh kernels K13a
-// and K14a (shard_pressure_local.cu, shard_preempt_local.cu).
+// K7 (preempt_scan.cu, through preempt_grid.cuh), K8 (pressure_batch.cu)
+// and the mesh kernels K13a/b and K14a/b (shard_pressure_*.cu,
+// shard_preempt_*.cu).
 //
 // Replaces `_victim_select` and `_pick_one_node`
 // (kubernetes_tpu/ops/kernels.py:1494, :1570), the vmapped mirror of
@@ -22,14 +23,15 @@
 //     sum of 128 priorities + 2^31 would pass 2^53 only with priorities
 //     above 2^45; comparing the converted values keeps the pick equal
 //     regardless), then the lowest rank among what is left. Three forms:
-//   - `shard_candidate` / `pick_records` (K14a / K14b; K13b picks over
-//     K13a's records too): the pick over a shard's rows, as a record, then
-//     over the D records;
+//   - the candidate record (`CR_*`) and `pick_records` (K13a / K13b,
+//     K14a / K14b): a shard's pick as a record, then the pick over the D
+//     records (`pick_records_warp`: K14b's, by one warp);
 //   - `VicBest` (K8, K13a): the pick by axis order as one reduction whose
 //     partial results combine in any order, carried by warp shuffles and
 //     cluster rounds;
-//   - `PickRec` (K7): the same reduction keyed by (order_rank, row), over
-//     the warps and blocks of one grid-wide launch.
+//   - `PickRec` (K7, K14a): the same reduction keyed by (order_rank, row),
+//     over the warps and blocks of one grid-wide launch
+//     (preempt_grid.cuh).
 //
 // Numeric contract: int64 sums as JAX (wrapping), first-index argmax for
 // the first victim (slot 0 when the node has none: its priority is read
@@ -277,53 +279,14 @@ __device__ __forceinline__ VictimAgg load_agg(const VictimAggPlanes& g,
   return a;
 }
 
-__device__ __forceinline__ double block_min_f64(double v, double* sh) {
-  for (int o = 16; o > 0; o >>= 1) {
-    double u = __shfl_down_sync(0xffffffffu, v, o);
-    v = u < v ? u : v;
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double r = sh[0];
-  for (int i = 1; i < NWARPS; ++i) r = sh[i] < r ? sh[i] : r;
-  return r;
-}
-
-// criterion c of node j, as JAX converts it to float64
-__device__ __forceinline__ double pick_crit(const VictimAggPlanes& g, int n,
-                                            int c, int j) {
-  if (c == 0) return (double)g.i[n + j];       // PDB violations
-  if (c == 1) return (double)g.i[2 * n + j];   // first victim's priority
-  if (c == 2) return (double)g.i[3 * n + j];   // sum of priority + 2^31
-  if (c == 3) return (double)g.i[j];           // victim count
-  return -g.f[j];                              // latest earliest start
-}
-
-// The staged five-criteria filter (`_pick_one_node`'s loop): narrow the
-// mask m[lo, hi) of this thread, criterion by criterion, to the rows tied
-// at the block-wide minimum. Equals the lexicographic minimum of the five
-// criteria over the rows m started with (IEEE `<` and `==`).
-__device__ __forceinline__ void staged_filter(const VictimAggPlanes& g,
-                                              int n, unsigned char* m,
-                                              int lo, int hi, double* shd) {
-  for (int c = 0; c < 5; ++c) {
-    double lmin = dinf();
-    for (int j = lo; j < hi; ++j) {
-      if (!m[j]) continue;
-      const double x = pick_crit(g, n, c, j);
-      lmin = x < lmin ? x : lmin;
-    }
-    const double best = block_min_f64(lmin, shd);
-    for (int j = lo; j < hi; ++j)
-      if (m[j] && !(pick_crit(g, n, c, j) == best)) m[j] = 0;
-  }
-}
-
 // ---- the sharded pick (K13a/K14a reduce, K13b/K14b select) ---------------
 // A shard's candidate record: the i64 slots below, the five criteria of
 // its best row as float64, then that row's P slot flags as int32. Every
-// slot is written on every reduction.
+// slot is written on every reduction. The best row is the one of lowest
+// (key, row) among the rows at the lexicographic minimum of the five
+// criteria; a lexicographic minimum decomposes over shards, so the D
+// records decide the pick of `_pick_one_node` exactly, provided every
+// candidate's key is below 2^60.
 enum {
   CR_ANY_FEAS,  // some row of the shard is a candidate (feas0)
   CR_ANY_ZERO,  // some candidate row has no victim
@@ -341,68 +304,6 @@ constexpr int CR_FLAG_BYTES = CR_CRIT_BYTES + 40;  // P x i32 from here
 // A record is CR_FLAG_BYTES + 4 P bytes (`cand_record_bytes`,
 // kubernetes_tpu_torch/ops/kernels.py); P is even, so every shard's
 // record in a gathered buffer starts 8-byte aligned.
-
-// Reduce the aggregates `g` of one shard's `rows` rows into the head of
-// its candidate record `rec` (slots CR_ANY_FEAS..CR_VIOL and the five
-// criteria; the caller writes CR_ANY_RES and the flags). A row's key is
-// rank[j], or its global row offset + j when `rank` is NULL (the pressure
-// wave's axis order). A lexicographic minimum decomposes over shards, so
-// the D records decide the pick of `_pick_one_node` exactly, provided
-// every candidate's key is below 2^60. By the whole block; returns (to
-// every thread) the local row of the best candidate, -1 when none.
-__device__ __forceinline__ int shard_candidate(const VictimAggPlanes& g,
-                                               int rows, const i64* rank,
-                                               i64 offset,
-                                               unsigned char* rec) {
-  __shared__ i64 sh64[NWARPS];
-  __shared__ double shd[NWARPS];
-  int lo, hi;
-  my_range(rows, &lo, &hi);
-  unsigned char* m = g.u + rows;
-  int l_any = 0, l_zero = 0;
-  i64 lz = LLONG_MAX;
-  for (int j = lo; j < hi; ++j) {
-    const bool f = g.u[j] != 0;
-    const bool z = f && g.i[j] == 0;
-    l_any |= f;
-    l_zero |= z;
-    m[j] = f;
-    if (z) lz = imin64(lz, rank ? rank[j] : offset + j);
-  }
-  const bool any = block_sum64(l_any, sh64) > 0;
-  const bool any_zero = block_sum64(l_zero, sh64) > 0;
-  const i64 zkey = block_min64(lz, sh64);
-  i64 lzi = LLONG_MAX;
-  for (int j = lo; j < hi; ++j)
-    if (g.u[j] && g.i[j] == 0 && (rank ? rank[j] : offset + j) == zkey)
-      lzi = imin64(lzi, j);
-  const i64 zj = block_min64(lzi, sh64);
-  staged_filter(g, rows, m, lo, hi, shd);
-  i64 lb = LLONG_MAX;
-  for (int j = lo; j < hi; ++j)
-    if (m[j]) lb = imin64(lb, rank ? rank[j] : offset + j);
-  const i64 bkey = block_min64(lb, sh64);
-  i64 lbi = LLONG_MAX;
-  for (int j = lo; j < hi; ++j)
-    if (m[j] && (rank ? rank[j] : offset + j) == bkey) lbi = imin64(lbi, j);
-  const i64 bj = block_min64(lbi, sh64);
-  const int best = (any && bj < rows) ? (int)bj : -1;
-  if (threadIdx.x == 0) {
-    i64* h = (i64*)rec;
-    double* c = (double*)(rec + CR_CRIT_BYTES);
-    h[CR_ANY_FEAS] = any;
-    h[CR_ANY_ZERO] = any_zero;
-    h[CR_ZKEY] = any_zero ? zkey : LLONG_MAX;
-    h[CR_ZIDX] = any_zero ? offset + zj : -1;
-    h[CR_BKEY] = best >= 0 ? bkey : LLONG_MAX;
-    h[CR_BIDX] = best >= 0 ? offset + best : -1;
-    h[CR_NV] = best >= 0 ? g.i[best] : 0;
-    h[CR_VIOL] = best >= 0 ? g.i[rows + best] : 0;
-    for (int q = 0; q < 5; ++q)
-      c[q] = best >= 0 ? pick_crit(g, rows, q, best) : 0.0;
-  }
-  return best;
-}
 
 // The candidate record at byte `off` of shard s's gathered record
 __device__ __forceinline__ const unsigned char* cand_at(
@@ -498,11 +399,11 @@ __device__ __forceinline__ void pick_flags(const unsigned char* g,
 // pickOneNodeForPreemption by axis order as a reduction whose partial
 // results combine in any order over any split of the rows: the lowest key
 // among the zero-victim candidates, and the candidate at the lexicographic
-// minimum of (the five criteria, key). The staged filter of
-// `shard_candidate` keeps exactly the rows at the lexicographic minimum of
-// the five criteria (IEEE `<` and `==`; no criterion is NaN: counts, sums
-// and starts are finite or +inf), and among them the lowest key wins, so
-// the two agree. Some row is a candidate exactly when a best one exists.
+// minimum of (the five criteria, key). `_pick_one_node`'s staged filter
+// keeps exactly the rows at the lexicographic minimum of the five
+// criteria (IEEE `<` and `==`; no criterion is NaN: counts, sums and
+// starts are finite or +inf), and among them the lowest key wins, so the
+// two agree. Some row is a candidate exactly when a best one exists.
 // The key is the row's global index.
 struct VicBest {
   i64 zkey;     // the lowest key among zero-victim candidates (I64 max: none)
@@ -683,4 +584,67 @@ __device__ __forceinline__ bool pick_add(PickRec& v, const VictimAgg& a,
 __device__ __forceinline__ i64 pick_winner(const PickRec& v) {
   return v.w[PK_BROW] < 0 ? -1
          : v.w[PK_ZROW] >= 0 ? v.w[PK_ZROW] : v.w[PK_BROW];
+}
+
+// the lanes' records combined, in every lane (`pick_comb` is commutative:
+// no two candidates share a row)
+__device__ __forceinline__ PickRec warp_pick(PickRec v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    PickRec u;
+#pragma unroll
+    for (int w = 0; w < PK_WORDS; ++w)
+      u.w[w] = __shfl_xor_sync(0xffffffffu, v.w[w], o);
+    v = pick_comb(v, u);
+  }
+  return v;
+}
+
+// `pick_records` by the 32 lanes of one warp, every lane returning the
+// same pick: lane l takes the records l, l + 32, ... as `PickRec`s (a
+// record's zero-victim key and row, its best's key, row and criteria, each
+// read past L1), and the lanes combine them by shuffles. `PickRec`'s
+// order is `pick_records`'s: a zero-victim row anywhere wins at the lowest
+// (key, row), else the lowest (criteria, key, row); the winner's record
+// is the one whose best row it is (rows are global: no two shards share
+// one).
+__device__ __forceinline__ CandPick pick_records_warp(
+    const unsigned char* g, size_t chunk, size_t off, int D) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  PickRec r = pick_none();
+  int mine = -1;  // the record of this lane's best candidate
+  bool any_res = false;
+  for (int s = lane; s < D; s += 32) {
+    const unsigned char* rec = cand_at(g, chunk, off, s);
+    const i64* h = (const i64*)rec;
+    const i64* c = (const i64*)(rec + CR_CRIT_BYTES);
+    PickRec u = pick_none();
+    if (__ldcg(h + CR_ANY_ZERO)) {
+      u.w[PK_ZKEY] = __ldcg(h + CR_ZKEY);
+      u.w[PK_ZROW] = __ldcg(h + CR_ZIDX);
+    }
+    if (__ldcg(h + CR_ANY_FEAS)) {
+      u.w[PK_BKEY] = __ldcg(h + CR_BKEY);
+      u.w[PK_BROW] = __ldcg(h + CR_BIDX);
+#pragma unroll
+      for (int q = 0; q < 5; ++q) u.w[PK_CRIT + q] = __ldcg(c + q);
+    }
+    any_res |= __ldcg(h + CR_ANY_RES) != 0;
+    if (pick_before(u, r)) mine = s;
+    r = pick_comb(r, u);
+  }
+  const i64 brow = r.w[PK_BROW];
+  r = warp_pick(r);
+  const unsigned who = __ballot_sync(full, r.w[PK_BROW] >= 0
+                                                && brow == r.w[PK_BROW]);
+  const int best = __shfl_sync(full, mine, who ? __ffs(who) - 1 : 0);
+  CandPick p{pick_winner(r), -1, 0, 0, __any_sync(full, any_res) != 0};
+  if (p.winner >= 0 && r.w[PK_ZROW] < 0) {
+    // the best candidate wins: its record's counts and flags
+    const i64* h = (const i64*)cand_at(g, chunk, off, best);
+    p.src = best;
+    p.nv = __ldcg(h + CR_NV);
+    p.viol = __ldcg(h + CR_VIOL);
+  }
+  return p;
 }

@@ -3664,38 +3664,53 @@ def stamp_value(base: int, step: int) -> int:
     return int(base) + int(step) + 1
 
 
-def _publish_plain(shards: list, side: ScanSide, plan: ScanPlan,
-                   wrote: list) -> None:
-    """The end of a plain local step on `side`'s device: each shard's
-    record (where the step `wrote` one) copied into the same row and half
-    of every peer's buffer, then the shards' stamps of this round
-    published here and on every peer (`plan.stamp_base` + round + 1), as
-    the kernels' last row block does."""
+def _publish_round(side, r: int, value: int, copied, stamped) -> None:
+    """The end of a plain local step on `side`'s device (a mesh step's or
+    a sharded victim scan's), round `r`: the records of the shards
+    `copied` (row s of half r & 1) copied into the same row and half of
+    every peer's buffer, then the stamps of the shards `stamped` set to
+    `value` here and on every peer, as the kernels' last blocks do. No-op
+    without stamps (the host's copies)."""
     if side.stamps is None:
         return
-    r = int(side.st[SS_ROUND])
     h = r & 1
-    for sh, w in zip(shards, wrote):
-        if w:
-            for halves, _stamps in side.peers:
-                halves[h][sh.index].copy_(side.halves[h][sh.index])
-    for sh in shards:
+    for s in copied:
+        for halves, _stamps in side.peers:
+            halves[h][s].copy_(side.halves[h][s])
+    for s in stamped:
         for stamps in (side.stamps,) + tuple(p[1] for p in side.peers):
-            stamps[h, sh.index] = stamp_value(plan.stamp_base, r)
+            stamps[h, s] = value
+
+
+def _await_round(stamps, r: int, want: int, what: str) -> None:
+    """The start of a plain select step, round `r`: the D stamps of half
+    r & 1 must read `want` (a lost stamp raises, as the kernel's bounded
+    wait traps). No-op without stamps."""
+    if stamps is None:
+        return
+    got = stamps[r & 1]
+    if bool((got < want).any()):
+        raise RuntimeError(f"{what} at round {r}: stamps {got.tolist()} of "
+                           f"half {r & 1}, not {want}: a local step did not "
+                           f"publish its record")
+
+
+def _publish_plain(shards: list, side: ScanSide, plan: ScanPlan,
+                   wrote: list) -> None:
+    """The end of a plain local step of a window: each shard's record
+    (where the step `wrote` one) into every peer's buffer, then the
+    shards' stamps of this round (`plan.stamp_base` + round + 1)."""
+    r = int(side.st[SS_ROUND])
+    _publish_round(side, r, stamp_value(plan.stamp_base, r),
+                   [sh.index for sh, w in zip(shards, wrote) if w],
+                   [sh.index for sh in shards])
 
 
 def _await_stamps_plain(side: ScanSide, plan: ScanPlan) -> torch.Tensor:
-    """The start of a plain select step: the D stamps of this round's
-    half must read `plan.stamp_base` + round + 1 (a lost stamp raises, as
-    the kernel's bounded wait traps). Returns the half the step reads."""
-    if side.stamps is not None:
-        r = int(side.st[SS_ROUND])
-        want = stamp_value(plan.stamp_base, r)
-        got = side.stamps[r & 1]
-        if bool((got < want).any()):
-            raise RuntimeError(f"select at round {r}: stamps {got.tolist()}"
-                               f" of half {r & 1}, not {want}: a local step "
-                               f"did not publish its record")
+    """The start of a plain select step of a window: this round's stamps
+    (`_await_round`). Returns the half the step reads."""
+    r = int(side.st[SS_ROUND])
+    _await_round(side.stamps, r, stamp_value(plan.stamp_base, r), "select")
     return side.records()
 
 
@@ -4312,11 +4327,12 @@ def _pick_records_plain(gathered, off: int, P: int):
 def shard_preempt_local_plain(nodes, vic, pod, feas_static, order_rank,
                               offset, n_real, check_resources, has_request,
                               max_prio) -> torch.Tensor:
-    """K14a plain: the shard-local half of `sharded_preempt_fn`
-    (sharding.py:354) over one shard's rows — `_victim_select`
-    (kernels.py:1494) with this preemptor's slot mask (priority below
-    `max_prio`) and the reprieve walk, reduced to the shard's candidate
-    record (`_shard_candidate_plain`, keyed by `order_rank`)."""
+    """K14a plain on one shard: the shard-local half of
+    `sharded_preempt_fn` (sharding.py:354) over the shard's rows —
+    `_victim_select` (kernels.py:1494) with this preemptor's slot mask
+    (priority below `max_prio`) and the reprieve walk, reduced to the
+    shard's candidate record (`_shard_candidate_plain`, keyed by
+    `order_rank`)."""
     dev = vic["prio"].device
     rows = int(vic["prio"].shape[0])
     in_range = torch.arange(rows, device=dev) + int(offset) < int(n_real)
@@ -4329,93 +4345,276 @@ def shard_preempt_local_plain(nodes, vic, pod, feas_static, order_rank,
                                   _t(order_rank, dev, I64), int(offset))
 
 
-_SPL_INTS = ("rows", "P", "offset", "n_real", "max_prio", "cr", "hr",
-             "req_cpu", "req_mem", "req_eph")
+@dataclasses.dataclass
+class PreemptShard:
+    """Shard `index` of a sharded victim scan (K14a): its node rows and
+    victim planes, its slices of `feas_static` (bool) and `order_rank`
+    (int64), all on its device, and `offset`, the global row of its first
+    row."""
+    index: int
+    offset: int
+    nodes: dict
+    vic: dict
+    feas: torch.Tensor
+    rank: torch.Tensor
+
+    @property
+    def device(self):
+        return self.vic["prio"].device
+
+    @property
+    def rows(self) -> int:
+        return int(self.vic["prio"].shape[0])
+
+
+@dataclasses.dataclass
+class PreemptSide:
+    """The sharded victim scan on one device, made once a mesh, device
+    and slot count: the candidate records in two halves `halves` [2, D,
+    cand_record_bytes(P)] (call r's K14a writes row s of half r & 1, so no
+    call overwrites a record a select on another card still reads, as a
+    mesh step's halves), the mesh's [2, D] stamps on this device (`Mesh.
+    exchange` "peer"; None under "copy"), and `peers`, the (halves,
+    stamps) of every other distinct device, which K14a writes into."""
+    halves: torch.Tensor
+    stamps: Optional[torch.Tensor] = None
+    peers: tuple = ()
+
+    @property
+    def device(self):
+        return self.halves.device
+
+    def records(self, call) -> torch.Tensor:
+        """The half [D, bytes] of call `call` (its round)."""
+        return self.halves[int(call.round) & 1]
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptCall:
+    """What every launch of one preemptor's sharded victim scan shares: the
+    pod (its requests, its priority `max_prio`, `cr` check_resources and
+    `hr` has_request and check_resources), n_real, the P victim slots,
+    the mesh's D shards, the call's `round` (its records in half round &
+    1) and `stamp`, the value its shards publish (`Mesh.reserve_stamps`;
+    0 when there are no stamps)."""
+    req_cpu: int
+    req_mem: int
+    req_eph: int
+    max_prio: int
+    cr: bool
+    hr: bool
+    n_real: int
+    P: int
+    D: int
+    round: int
+    stamp: int
+
+
+def shard_preempt_group_plain(shards: list, side: PreemptSide,
+                              call: PreemptCall) -> None:
+    """K14a plain over every shard of `shards` (the shards of `side`'s
+    device): `shard_preempt_local_plain` on each, its record written into
+    row `index` of the call's half of `side.halves`, then into every
+    peer's and the stamps (`_publish_round`), as the kernel's last blocks
+    do."""
+    for sh in shards:
+        side.records(call)[sh.index].copy_(shard_preempt_local_plain(
+            sh.nodes, sh.vic, {"req_cpu": call.req_cpu,
+                               "req_mem": call.req_mem,
+                               "req_eph": call.req_eph},
+            sh.feas, sh.rank, sh.offset, call.n_real, call.cr, call.hr,
+            call.max_prio))
+    idx = [sh.index for sh in shards]
+    _publish_round(side, call.round, call.stamp, idx, idx)
+
+
+# scalar and pointer slots of one shard's K14a struct
+# (csrc/shard_preempt_local.cu `PreemptLocalArgs`)
+_SPL_INTS = ("rows", "offset", "index", "n_peers", "P", "n_real",
+             "max_prio", "cr", "hr", "req_cpu", "req_mem", "req_eph", "D",
+             "half", "round", "stamp", "blocks")
 _SPL_PTRS = _PREEMPT_PTRS[:8] + tuple("vic_" + k for k in VICTIM_PLANES) \
-    + ("feas", "rank", "agg_i64", "agg_f64", "agg_u8", "rec")
+    + ("feas", "rank", "rec", "stamps", "records", "tickets") + tuple(
+        f"peer_rec{k}" for k in range(MAX_PEERS)) + tuple(
+        f"peer_stamps{k}" for k in range(MAX_PEERS))
 
 
-def _shard_preempt_local_launch(nodes, vic, pod, feas_static, order_rank,
-                                offset, n_real, check_resources, has_request,
-                                max_prio):
-    dev = vic["prio"].device
-    rows, P = (int(x) for x in vic["prio"].shape)
-    ptrs = {k: nodes[k] for k in _PREEMPT_PTRS[:8]}
-    ptrs.update({"vic_" + k: vic[k] for k in VICTIM_PLANES})
-    ptrs["feas"] = _t(feas_static, dev, torch.bool).contiguous()
-    ptrs["rank"] = _t(order_rank, dev, I64).contiguous()
-    if any(v.shape[0] != rows for v in ptrs.values()):
-        raise ValueError("shard_preempt_local: node rows, victim planes, "
-                         "feas_static and order_rank differ in rows")
-    ptrs["agg_i64"], ptrs["agg_f64"], ptrs["agg_u8"] = _agg_planes(
-        rows, dev, 2)
-    rec = ptrs["rec"] = torch.empty(cand_record_bytes(P), dtype=torch.uint8,
-                                    device=dev)
-    _require_cuda("shard_preempt_local", *ptrs.values())
-    _require_on("shard_preempt_local", dev, *ptrs.values())
-    cr = bool(_host(check_resources))
-    ints = {"rows": rows, "P": P, "offset": int(offset),
-            "n_real": int(n_real), "max_prio": int(max_prio), "cr": int(cr),
-            "hr": int(bool(_host(has_request)) and cr)}
-    ints.update({k: int(np.asarray(_host(pod[k])))
-                 for k in ("req_cpu", "req_mem", "req_eph")})
-    _launch("shard_preempt_local",
-            *_launch_arrays(ints, _SPL_INTS, ptrs, _SPL_PTRS,
-                            "shard_preempt_local"))
-    return rec
+def preempt_group_grid(rows: int, shards: int, sms: int,
+                       per_sm: int) -> PreemptGrid:
+    """The blocks of each shard in one K14a launch over `shards` shards of
+    `rows` rows: K7's grid (`preempt_grid`) of one shard on the card's
+    share of a shard, every block the card holds at once split evenly
+    over the launch's shards, fewer only when a shard's 32-node groups run
+    out first. The block records of the launch then fit the card's
+    array."""
+    whole = preempt_grid(rows, sms, per_sm)
+    share = max(1, whole.fit // max(1, int(shards)))
+    return PreemptGrid(min(whole.blocks, share), whole.sms, whole.per_sm)
 
 
-def shard_preempt_local(nodes, vic, pod, feas_static, order_rank, offset,
-                        n_real, check_resources, has_request, max_prio):
-    """K14a on one shard (`nodes` / `vic`: its node rows and victim
-    planes; `feas_static` / `order_rank`: its slices; `offset`: the global
-    row of its first row). Returns its candidate record (uint8, on its
-    device). CPU -> the plain version; CUDA ->
-    `csrc/shard_preempt_local.cu`."""
-    dev = vic["prio"].device
-    if not vic["prio"].is_cuda:
-        return shard_preempt_local_plain(
-            nodes, vic, pod, feas_static, order_rank, offset, n_real,
-            check_resources, has_request, max_prio)
+#: K14a's occupancy and scratch on each device: (SMs, blocks an SM holds,
+#: the block records, the tickets of a launch's shards)
+_PREEMPT_GROUP_CARD: dict = {}
+
+
+def _preempt_group_occupancy() -> tuple:
+    """(SMs, K14a blocks an SM holds at once) of the current device."""
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    _check(_build.load("shard_preempt_local").shard_preempt_local_occupancy(
+        ctypes.byref(sms), ctypes.byref(per_sm)),
+        "shard_preempt_local_occupancy")
+    return sms.value, per_sm.value
+
+
+def _preempt_group_card(dev) -> tuple:
+    """(SMs, blocks an SM holds, block records, tickets) of K14a on `dev`,
+    made once a device: the occupancy query, the records of every block
+    the card holds at once (split over a launch's shards by
+    `preempt_group_grid`), and one ticket for each shard a launch covers,
+    zeroed here only (each shard's last block puts its ticket back to 0;
+    launches on one stream run one after another)."""
+    key = str(dev)
+    card = _PREEMPT_GROUP_CARD.get(key)
+    if card is None:
+        with _on(dev):
+            sms, per_sm = _preempt_group_occupancy()
+        grid = preempt_grid(1, sms, per_sm)
+        card = _PREEMPT_GROUP_CARD[key] = (
+            sms, per_sm,
+            torch.empty(grid.records_bytes // 8, dtype=I64, device=dev),
+            torch.zeros(LOCAL_GROUP_SHARDS, dtype=I32, device=dev))
+    return card
+
+
+def _shard_preempt_words(shards: list, side: PreemptSide,
+                         call: PreemptCall) -> list:
+    """The argument words of one K14a call over `shards`, all on `side`'s
+    device: each shard's `_SPL_INTS` then `_SPL_PTRS`, its blocks from
+    `preempt_group_grid` of the launch (LOCAL_GROUP_SHARDS shards a
+    launch) it falls in. The shards and the side hold the tensors."""
+    dev = side.device
+    if not 1 <= call.P <= PREEMPT_P:
+        raise ValueError(f"shard_preempt_local: {call.P} victim slots, a "
+                         f"record's flags hold 1 to {PREEMPT_P}")
+    if len(side.peers) > MAX_PEERS:
+        raise ValueError(f"shard_preempt_local: {len(side.peers)} peers, "
+                         f"at most {MAX_PEERS}")
+    sms, per_sm, records, tickets = _preempt_group_card(dev)
+    chunk = cand_record_bytes(call.P)
+    rows_keys = _SPL_PTRS[:_SPL_PTRS.index("rec")]
+    words = []
+    for k, sh in enumerate(shards):
+        m = min(LOCAL_GROUP_SHARDS, len(shards) - k // LOCAL_GROUP_SHARDS
+                * LOCAL_GROUP_SHARDS)
+        grid = preempt_group_grid(sh.rows, m, sms, per_sm)
+        ptrs = {key: sh.nodes[key] for key in _PREEMPT_PTRS[:8]}
+        ptrs.update({"vic_" + key: sh.vic[key] for key in VICTIM_PLANES})
+        ptrs.update({"feas": sh.feas, "rank": sh.rank,
+                     "rec": side.halves[0][sh.index], "stamps": side.stamps,
+                     "records": records, "tickets": tickets})
+        for q, (halves, stamps) in enumerate(side.peers):
+            ptrs[f"peer_rec{q}"] = halves[0][sh.index]
+            ptrs[f"peer_stamps{q}"] = stamps
+        if any(ptrs[key].shape[0] != sh.rows for key in rows_keys):
+            raise ValueError("shard_preempt_local: node rows, victim "
+                             "planes, feas_static and order_rank differ "
+                             "in rows")
+        if sh.feas.dtype != torch.bool or sh.rank.dtype != I64 \
+                or int(sh.vic["prio"].shape[1]) != call.P:
+            raise ValueError("shard_preempt_local: feas must be bool, rank "
+                             f"int64, the victim planes {call.P} slots")
+        _require_cuda("shard_preempt_local",
+                      *[v for v in ptrs.values() if v is not None])
+        _require_on("shard_preempt_local", dev,
+                    *[v for k_, v in ptrs.items()
+                      if not k_.startswith("peer_")])
+        ints = {"rows": sh.rows, "offset": sh.offset, "index": sh.index,
+                "n_peers": len(side.peers), "P": call.P,
+                "n_real": call.n_real, "max_prio": call.max_prio,
+                "cr": int(call.cr), "hr": int(call.hr),
+                "req_cpu": call.req_cpu, "req_mem": call.req_mem,
+                "req_eph": call.req_eph, "D": call.D,
+                "half": call.D * chunk, "round": call.round,
+                "stamp": call.stamp, "blocks": grid.blocks}
+        iargs, parr = _launch_arrays(ints, _SPL_INTS, ptrs, _SPL_PTRS,
+                                     "shard_preempt_local")
+        words += list(iargs) + [p or 0 for p in parr]
+        last_geometry["shard_preempt_local"] = (grid, grid.fit)
+    return words
+
+
+def shard_preempt_local(shards: list, side: PreemptSide,
+                        call: PreemptCall) -> None:
+    """K14a over every shard of `shards`, all on `side`'s device, each
+    shard's candidate record into row `index` of the call's half of
+    `side.halves` (and, under the "peer" exchange, of every peer's, then
+    its stamps). CPU tensors -> the plain version on each shard; CUDA
+    tensors -> ONE launch of `csrc/shard_preempt_local.cu` over them
+    (LOCAL_GROUP_SHARDS shards a launch), its launches counted by the C
+    function and booked under `launch.shard_preempt_local`."""
+    if not side.halves.is_cuda:
+        return shard_preempt_group_plain(shards, side, call)
+    dev = side.device
+    words = _shard_preempt_words(shards, side, call)
+    table = (ctypes.c_longlong * len(words))(*words)
+    count = ctypes.c_int(0)
     with _on(dev):
-        return _shard_preempt_local_launch(
-            nodes, vic, pod, feas_static, order_rank, offset, n_real,
-            check_resources, has_request, max_prio)
+        lib = _build.load("shard_preempt_local")
+        rc = lib.shard_preempt_local_launch(
+            table, len(shards), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(count))
+    obs.inc("launch.shard_preempt_local", count.value)
+    _check(rc, "shard_preempt_local")
 
 
 # ---- K14b shard_preempt_select -----------------------------------------------
-def shard_preempt_select_plain(gathered, P: int) -> torch.Tensor:
-    """K14b plain: the replicated pick of `sharded_preempt_fn`
-    (sharding.py:354) over the gathered [D, bytes] candidate records —
+def preempt_pick_plain(gathered, P: int) -> torch.Tensor:
+    """The pick of K14b over a [D, bytes] buffer of candidate records —
     `_pick_one_node` (kernels.py:1570) and `_preempt_scan_core`'s packing
     (:1598): [winner, its victim count, its PDB-violation count, its P
-    slot flags] int32."""
+    slot flags] int32, on the buffer's device."""
     winner, nv, viol, flags, _res = _pick_records_plain(gathered, 0, P)
     head = torch.tensor([winner, _wrap32(nv), _wrap32(viol)], dtype=I32)
     return torch.cat([head, flags]).to(gathered.device)
 
 
-_SPS_INTS = ("D", "chunk", "P")
-_SPS_PTRS = ("gathered", "out")
+def shard_preempt_select_plain(side: PreemptSide,
+                               call: PreemptCall) -> torch.Tensor:
+    """K14b plain: the replicated pick of `sharded_preempt_fn`
+    (sharding.py:354) over the D records of the call's half of `side`,
+    after their stamps (`_await_round`: a lost one raises)."""
+    _await_round(side.stamps, call.round, call.stamp,
+                 "shard_preempt_select")
+    return preempt_pick_plain(side.records(call), call.P)
 
 
-def shard_preempt_select(gathered, P: int) -> torch.Tensor:
-    """K14b on one device, over its [D, bytes] gathered records. CPU ->
-    the plain version; CUDA -> `csrc/shard_preempt_select.cu`."""
-    if not gathered.is_cuda:
-        return shard_preempt_select_plain(gathered, P)
-    dev = gathered.device
-    D, chunk = (int(x) for x in gathered.shape)
-    if chunk != cand_record_bytes(P) or gathered.dtype != torch.uint8:
+_SPS_INTS = ("D", "chunk", "P", "round", "stamp")
+_SPS_PTRS = ("gathered", "stamps", "out")
+
+
+def shard_preempt_select(side: PreemptSide,
+                         call: PreemptCall) -> torch.Tensor:
+    """K14b on `side`'s device over the D records of the call's half, in
+    place. CPU -> the plain version; CUDA -> `csrc/shard_preempt_select.cu`,
+    one launch (after the stamps under the "peer" exchange, waited for on
+    the device). Returns the packed [3+P] int32 block."""
+    if not side.halves.is_cuda:
+        return shard_preempt_select_plain(side, call)
+    dev = side.device
+    _two, D, chunk = (int(x) for x in side.halves.shape)
+    if chunk != cand_record_bytes(call.P) or D != call.D \
+            or side.halves.dtype != torch.uint8:
         raise ValueError("shard_preempt_select: records are not "
-                         f"[D, {cand_record_bytes(P)}] uint8")
+                         f"[2, {call.D}, {cand_record_bytes(call.P)}] uint8")
     with _on(dev):
-        out = torch.empty(3 + int(P), dtype=I32, device=dev)
-        ptrs = {"gathered": gathered.contiguous(), "out": out}
-        _launch("shard_preempt_select",
-                *_launch_arrays({"D": D, "chunk": chunk, "P": int(P)},
-                                _SPS_INTS, ptrs, _SPS_PTRS,
-                                "shard_preempt_select"))
+        out = torch.empty(3 + call.P, dtype=I32, device=dev)
+        ptrs = {"gathered": side.halves, "stamps": side.stamps, "out": out}
+        _require_cuda("shard_preempt_select",
+                      *[v for v in ptrs.values() if v is not None])
+        _launch("shard_preempt_select", *_launch_arrays(
+            {"D": D, "chunk": chunk, "P": call.P, "round": call.round,
+             "stamp": call.stamp}, _SPS_INTS, ptrs, _SPS_PTRS,
+            "shard_preempt_select"))
     return out
 
 

@@ -136,6 +136,9 @@ class Mesh:
         self.exchange = exchange
         self._stamps = None
         self._stamp_next = 0
+        # the sharded victim scan's buffers by slot count, and its calls
+        self._preempt: dict = {}
+        self._preempt_round = 0
 
     @property
     def size(self) -> int:
@@ -932,31 +935,100 @@ def shard_victim_planes(mesh: Mesh, planes: dict) -> list:
             for s, dev in enumerate(mesh.devices)]
 
 
-def sharded_preempt(mesh: Mesh, nodes, vic, pod: dict, feas_static,
-                    order_rank, n_real, check_resources, has_request,
-                    max_prio) -> torch.Tensor:
-    """`sharded_preempt_fn` (sharding.py:354): one preemptor's victim scan
-    with the node rows, the victim planes, `feas_static` and `order_rank`
-    split over the mesh. K14a on every shard (the victim walk of its rows,
-    reduced to its candidate record), the all-gather of the D records, and
-    K14b on every distinct device (the pick among them). Returns the
-    packed [3+P] int32 block of `K.preemption_scan` on the first device.
-    Books `gather.preempt` (bytes)."""
+def preempt_sides(mesh: Mesh, P: int) -> dict:
+    """{device: K.PreemptSide} of the mesh's sharded victim scan at P
+    victim slots, made at its first call: on every distinct device the
+    records' two halves [2, D, cand_record_bytes(P)], zeroed, and under
+    "peer" the mesh's stamps (`mesh_stamps`, with peer access enabled) and
+    the other devices' (halves, stamps) by `exchange_plan`. The cards are
+    synchronized once after the zeroing, so no card's first K14a can
+    write into a buffer another card has yet to zero."""
+    sides = mesh._preempt.get(int(P))
+    if sides is None:
+        chunk = K.cand_record_bytes(P)
+        halves = {d: torch.zeros((2, mesh.size, chunk), dtype=torch.uint8,
+                                 device=d) for d in mesh.distinct}
+        stamps = mesh_stamps(mesh) if mesh.exchange == "peer" \
+            else {d: None for d in mesh.distinct}
+        for d in mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        peers = {mesh.devices[s]: dests[1:]
+                 for s, dests in exchange_plan(mesh.devices)}
+        sides = mesh._preempt[int(P)] = {
+            d: K.PreemptSide(halves[d], stamps[d], tuple(
+                (halves[x], stamps[x]) for x in peers[d])
+                if mesh.exchange == "peer" else ())
+            for d in mesh.distinct}
+    return sides
+
+
+def preempt_call(mesh: Mesh, nodes, vic, pod: dict, feas_static,
+                 order_rank, n_real, check_resources, has_request,
+                 max_prio) -> tuple:
+    """One preemptor's sharded victim scan, ready to launch: ({device:
+    its K.PreemptShard list}, {device: K.PreemptSide}, K.PreemptCall).
+    `feas_static` and `order_rank` go to each distinct device once (a
+    tensor already there stays), and each shard takes its slice there.
+    The call takes the mesh's next round and, under "peer", one stamp
+    value (`Mesh.reserve_stamps`)."""
     shards = _as_shards(mesh, nodes)
     vics = _vic_shards(mesh, vic)
     n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
     rows = mesh.rows(n_pad)
     P = int(vics[0]["prio"].shape[1])
-    feas = _per_shard(mesh, np.asarray(K._host(feas_static)), rows)
-    rank = _per_shard(mesh, np.asarray(K._host(order_rank)), rows)
-    recs = [K.shard_preempt_local(sh, vc, pod, fs.to(torch.bool), rk,
-                                  s * rows, n_real, check_resources,
-                                  has_request, max_prio)
-            for s, (sh, vc, fs, rk) in enumerate(zip(shards, vics, feas,
-                                                     rank))]
-    gathered, nbytes = all_gather(mesh, recs)
-    obs.inc("gather.preempt", nbytes)
-    out = {d: K.shard_preempt_select(gathered[d], P) for d in mesh.distinct}
+    sides = preempt_sides(mesh, P)
+    feas = _replicas(mesh, feas_static, torch.bool)
+    rank = _replicas(mesh, order_rank, K.I64)
+    groups = {d: [] for d in mesh.distinct}
+    for s, (sh, vc, dev) in enumerate(zip(shards, vics, mesh.devices)):
+        lo = s * rows
+        groups[dev].append(K.PreemptShard(
+            s, lo, sh, vc, feas[dev][lo: lo + rows],
+            rank[dev][lo: lo + rows]))
+    cr = bool(K._host(check_resources))
+    stamp = K.stamp_value(mesh.reserve_stamps(1), 0) \
+        if mesh.exchange == "peer" else 0
+    call = K.PreemptCall(
+        *(int(np.asarray(K._host(pod[k])))
+          for k in ("req_cpu", "req_mem", "req_eph")),
+        max_prio=int(max_prio), cr=cr,
+        hr=bool(K._host(has_request)) and cr, n_real=int(n_real), P=P,
+        D=mesh.size, round=mesh._preempt_round, stamp=stamp)
+    mesh._preempt_round += 1
+    return groups, sides, call
+
+
+def sharded_preempt(mesh: Mesh, nodes, vic, pod: dict, feas_static,
+                    order_rank, n_real, check_resources, has_request,
+                    max_prio) -> torch.Tensor:
+    """`sharded_preempt_fn` (sharding.py:354): one preemptor's victim scan
+    with the node rows, the victim planes, `feas_static` and `order_rank`
+    split over the mesh (`preempt_call`). K14a once a distinct device over
+    every shard it holds (the victim walk of their rows, each reduced to
+    its candidate record, written in place into the device's buffer and,
+    under "peer", into every other card's, then its stamp); under "copy"
+    the host copies the other devices' records in (`gather_in_place`);
+    then K14b on every distinct device (the pick among the D records, in
+    place, after their stamps). No host read. Returns the packed [3+P]
+    int32 block of `K.preemption_scan` on the first device. Books
+    `gather.preempt` (bytes in every device's buffer) and
+    `copies.preempt` (record copies enqueued: none under "peer")."""
+    groups, sides, call = preempt_call(
+        mesh, nodes, vic, pod, feas_static, order_rank, n_real,
+        check_resources, has_request, max_prio)
+    for d, shards in groups.items():
+        K.shard_preempt_local(shards, sides[d], call)
+    copies = 0
+    if mesh.exchange == "copy":
+        copies = gather_in_place(
+            mesh, [sides[dev].records(call)[s]
+                   for s, dev in enumerate(mesh.devices)],
+            {d: sides[d].records(call) for d in mesh.distinct})
+    obs.inc("gather.preempt", len(mesh.distinct) * mesh.size
+            * K.cand_record_bytes(call.P))
+    obs.inc("copies.preempt", copies)
+    out = {d: K.shard_preempt_select(sides[d], call) for d in mesh.distinct}
     return out[mesh.devices[0]]
 
 

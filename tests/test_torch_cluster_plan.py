@@ -18,8 +18,8 @@ import torch
 
 from kubernetes_tpu.ops import kernels as JK
 from kubernetes_tpu_torch.ops import kernels as PK
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 GI, MI = 1024 ** 3, 1024 ** 2
 

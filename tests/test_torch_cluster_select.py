@@ -30,8 +30,7 @@ from tests.test_torch_cluster_plan import (
 from kubernetes_tpu_torch import obs
 from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.parallel import sharding as PS
-
-torch.set_num_threads(1)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,8 @@ from tests.test_torch_cluster_plan import (
 
 from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import kernels as PK
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 #: the fixed tables of a block at z_pad 4 (K5's, counted by hand from
 #: csrc/cluster_cycle.cuh) and the scratch a node slot (score 8, prefix,

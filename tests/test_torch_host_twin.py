@@ -44,8 +44,8 @@ from kubernetes_tpu_torch.oracle.generic_scheduler import (
     PriorityConfig as PPriorityConfig)
 from kubernetes_tpu_torch.parallel import sharding as PS
 from kubernetes_tpu_torch.profiles import ProfileSet as PProfileSet
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 #: 200 nodes: the default 50 % looks for 100 feasible ones, so a walk
 #: covers part of the axis and last_index moves

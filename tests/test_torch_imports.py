@@ -16,6 +16,9 @@ from kubernetes_tpu_torch import ops as P
 from kubernetes_tpu_torch.ops import kernels as PK
 
 ROOT = Path(__file__).resolve().parents[1]
+#: seconds the child interpreter of the import check may take: it imports
+#: torch and every module of the port, a few seconds on a loaded host
+CHILD_TIMEOUT_S = 240
 
 
 def _port_modules():
@@ -52,8 +55,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " or m.startswith('jax.') or m.startswith('jaxlib')"
         " or m == 'kubernetes_tpu' or m.startswith('kubernetes_tpu.'))\n"
         "print(json.dumps(bad))\n")
+    # a child that does not end fails the test (TimeoutExpired) instead of
+    # holding its worker until the run's own limit
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, check=True)
+                         capture_output=True, text=True, check=True,
+                         timeout=CHILD_TIMEOUT_S)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -208,6 +214,33 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
                             "lni_out", "owner", "workspace")
     assert PK._SUD_INTS == ("n_pad", "rows", "D", "stride", "hoff", "B",
                             "K", "cap", "L", "n_oid", "ban")
+    # K14a's one launch a device over its shards: after the shard's rows,
+    # planes and slices, its record row in place, the device's stamps,
+    # block records and tickets, then the peers' rows and stamps; the
+    # call's exchange and the blocks a shard takes last. K14b reads the
+    # records in place after their stamps
+    preempt = (_build.CSRC / "shard_preempt_local.cu").read_text()
+    tail = ("feas", "rank", "rec", "stamps", "records", "tickets") + tuple(
+        f"peer_rec{k}" for k in range(PK.MAX_PEERS)) + tuple(
+        f"peer_stamps{k}" for k in range(PK.MAX_PEERS))
+    assert PK._SPL_PTRS[-len(tail):] == tail
+    assert _enum_slots(preempt, "PLP_COUNT")[-len(tail):] == [
+        "PLP_" + k.upper() for k in tail]
+    assert PK._SPL_INTS[-5:] == ("D", "half", "round", "stamp", "blocks")
+    assert _enum_slots(preempt, "PLI_COUNT")[-5:] == [
+        "PLI_D", "PLI_HALF", "PLI_ROUND", "PLI_STAMP", "PLI_BLOCKS"]
+    assert PK.LOCAL_GROUP_SHARDS * 8 * (len(PK._SPL_INTS)
+                                        + len(PK._SPL_PTRS)) <= 4096
+    assert _build.SIGNATURES["shard_preempt_local"] \
+        == _build.SIGNATURES["shard_scan_local"]
+    assert list(_build.QUERIES["shard_preempt_local"]) == [
+        "shard_preempt_local_occupancy"]
+    select = (_build.CSRC / "shard_preempt_select.cu").read_text()
+    assert PK._SPS_INTS == ("D", "chunk", "P", "round", "stamp")
+    assert PK._SPS_PTRS == ("gathered", "stamps", "out")
+    assert _enum_slots(select, "PSP_COUNT") == [
+        "PSP_GATHERED", "PSP_STAMPS", "PSP_OUT"]
+    assert "stamps_wait(" in select and "pick_records_warp(" in select
     # the pass-state slots K9c and K9d share (uniform.cuh's last enum)
     uniform = (_build.CSRC / "uniform.cuh").read_text()
     state = [x.strip() for x in uniform.split("enum {")[-1].split("}")[0]

@@ -23,10 +23,8 @@ from tests.test_torch_encoders import make_world, to_port, uniform_pods
 
 from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-# tiny tensors: one intra-op thread, so parallel test workers do not
-# oversubscribe the host
-torch.set_num_threads(1)
 
 NODE_FIELDS = TorchScheduler._NODE_FIELDS
 

@@ -40,8 +40,8 @@ from kubernetes_tpu_torch import obs
 from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.parallel import sharding as PS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 CPU = torch.device("cpu")
 
 

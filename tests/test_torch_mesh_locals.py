@@ -24,8 +24,8 @@ from tests.test_torch_sharding_preempt import _port_wave, _wave
 from kubernetes_tpu_torch import obs
 from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.parallel import sharding as PS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 # the segments window: a singleton run, two gangs, a singleton run
 SEG_LAYOUT = [(3, False), (6, True), (5, True), (4, False)]

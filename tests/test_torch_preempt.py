@@ -42,10 +42,8 @@ from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.ops.node_state import NodeStateEncoder as PEncoder
 from kubernetes_tpu_torch.oracle.generic_scheduler import (
     FitError as PFitError)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-# tiny tensors: one intra-op thread, so parallel test workers do not
-# oversubscribe the host
-torch.set_num_threads(1)
 
 GI = 1024 ** 3
 NODE_FIELDS = TorchScheduler._NODE_FIELDS
@@ -342,7 +340,6 @@ def _pressure_inputs(case):
                  "cnt": rng.integers(0, 2, n_pad)}
         ghost = {k: v.astype(np.int64) for k, v in ghost.items()}
     return nodes, vic, _stack(per_pod), ghost, n_real
-
 
 
 def _run_pressure(nodes, vic, stacked, ghost, n_real, li, lni, ntf,

@@ -32,8 +32,8 @@ from tests.test_torch_preempt import (assert_same, both, rand_victims,
 
 from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import kernels as PK
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 GI = 1024 ** 3
 WARPS = PK.PREEMPT_THREADS // 32
@@ -149,8 +149,11 @@ def test_k7_wrapper_refuses_more_slots_than_a_record_holds(monkeypatch):
 
 def test_k7_source_is_one_launch_without_aggregate_planes():
     """One kernel a call, its record and ticket in place of the aggregate
-    planes; the one-block pick and the two kernels are gone."""
-    src = (_build.CSRC / "preempt_scan.cu").read_text()
+    planes; the one-block pick and the two kernels are gone. The scan and
+    pick are `preempt_grid.cuh`'s device code, which K14a shares."""
+    src = (_build.CSRC / "preempt_grid.cuh").read_text() \
+        + (_build.CSRC / "preempt_scan.cu").read_text()
+    assert '#include "preempt_grid.cuh"' in src
     assert src.count("<<<") == 2   # one kernel, two instantiations
     assert "k7_stage(" in src and "__ldcg(records" in src
     assert "__pipeline_memcpy_async(" in src

@@ -36,10 +36,8 @@ from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
 from kubernetes_tpu_torch.oracle.generic_scheduler import (
     FitError as PFitError)
 from kubernetes_tpu_torch.profiles import ProfileSet as PProfileSet
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-# tiny tensors: one intra-op thread, so parallel test workers do not
-# oversubscribe the host
-torch.set_num_threads(1)
 
 GI = 1024 ** 3
 

@@ -31,8 +31,8 @@ from kubernetes_tpu_torch.carry import state_from_jax
 from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
 from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.parallel import sharding as PS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 NODE_FIELDS = TorchScheduler._NODE_FIELDS
 

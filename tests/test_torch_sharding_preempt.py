@@ -47,8 +47,8 @@ from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.oracle.generic_scheduler import (
     FitError as PFitError)
 from kubernetes_tpu_torch.parallel import sharding as PS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 GI = 1024 ** 3
 
@@ -302,12 +302,12 @@ def test_shard_candidate_records_decide_like_every_row():
     mesh = PS.Mesh(["cpu"] * 4)
     shards = PS.shard_node_arrays(mesh, pn)
     vics = PS.shard_victim_planes(mesh, vic)
-    recs = [PK.shard_preempt_local(sh, vc, pod, torch.as_tensor(
+    recs = [PK.shard_preempt_local_plain(sh, vc, pod, torch.as_tensor(
         feas[16 * s: 16 * s + 16]), torch.as_tensor(rank[16 * s: 16 * s + 16]),
         16 * s, n_real, True, True, 6)
         for s, (sh, vc) in enumerate(zip(shards, vics))]
     assert all(r.numel() == PK.cand_record_bytes(8) for r in recs)
-    out = PK.shard_preempt_select(torch.stack(recs), 8)
+    out = PK.preempt_pick_plain(torch.stack(recs), 8)
     want = PK._preempt_scan_core_plain(
         pn, pv, pod, torch.as_tensor(feas), torch.as_tensor(rank), n_real,
         6, True, True)

@@ -40,8 +40,7 @@ from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
 from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.parallel import sharding as PS
 from kubernetes_tpu_torch.profiles import ProfileSet as PProfileSet
-
-torch.set_num_threads(1)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jnodes(jmesh, jn):

@@ -34,8 +34,8 @@ from tests.test_torch_cycle_cluster import _planned
 from kubernetes_tpu_torch.ops import _build
 from kubernetes_tpu_torch.ops import kernels as PK
 from kubernetes_tpu_torch.parallel import sharding as PS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
-torch.set_num_threads(1)
 
 GI, MI = 1024 ** 3, 1024 ** 2
 #: a block's fixed tables (csrc/uniform_burst.cu `uniform_layout`, counted
