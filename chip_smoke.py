@@ -83,14 +83,18 @@
    serial cycle, `device_ms_scan_default`; K3 also on the filled and
    rotated bursts, `device_ms_filled`, `device_ms_rotated`; K7's `grid`,
    its blocks and the blocks the card holds at once).
-   K9c, K10a, K11a, K13a and K14a run one launch a device over every
+   K9a, K9c, K10a, K11a, K13a and K14a run one launch a device over every
    shard it holds, each record written into the device's gathered buffer:
    their
    check captures that launch over the card's four shards (bound, `ms`
    and `device_ms` for the four together; `shards` on the kernels line;
-   K10a / K11a / K13a / K14a also write every other card's buffer and
-   publish the step's stamps; K14b reads the records in place after
-   them), and
+   K9a / K10a / K11a / K13a / K14a also write every other card's buffer
+   and publish the call's or step's stamps; K9b and K14b read the records
+   in place after them; K9a's `htod_a_call` and `record_copies_a_call`,
+   a serial cycle's pod uploads and record copies, must be 1 a card and
+   0), K4 runs one staged copy and one launch a device (`htod_a_call` on
+   the kernels line; held on the serial bucket, the victim planes and a
+   4-shard mesh scatter), and
    `[variants]
    grouped locals` holds both against their plain versions on 4, 2 and 1
    shards of the card in the step states of a window (folds on a shard's
@@ -274,7 +278,7 @@ CYCLE_KEYS = ("selected", "found", "evaluated", "max_score", "total",
               "next_last_index", "next_last_node_index")
 #: the kernel entry points `plain_versions` swaps by default
 KERNEL_ENTRIES = ("local_total", "schedule_cycle", "schedule_batch_uniform",
-                  "scatter_rows", "schedule_batch", "schedule_batch_segments",
+                  "scatter_staged", "schedule_batch", "schedule_batch_segments",
                   "preemption_scan", "pressure_batch")
 #: the mesh kernels K9a-d, and the single-device kernels a mesh path also
 #: launches per shard (K1, K4)
@@ -290,15 +294,16 @@ PREEMPT_MESH_KERNELS = ("shard_preempt_local", "shard_preempt_select")
 PRESSURE_MESH_KERNELS = ("shard_pressure_local", "shard_pressure_select")
 MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS \
     + PREEMPT_MESH_KERNELS + PRESSURE_MESH_KERNELS
-MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_rows")
+MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_staged")
 
 
-#: entry points whose plain version is not `<name>_plain`: K13a's, K9c's
-#: and K14a's wrappers take a device's shards, their per-shard plain
+#: entry points whose plain version is not `<name>_plain`: K13a's, K9c's,
+#: K14a's and K9a's wrappers take a device's shards, their per-shard plain
 #: versions one shard
 PLAIN_NAMES = {"shard_pressure_local": "shard_pressure_group_plain",
                "shard_uniform_sweep": "shard_uniform_sweep_group_plain",
-               "shard_preempt_local": "shard_preempt_group_plain"}
+               "shard_preempt_local": "shard_preempt_group_plain",
+               "shard_cycle_local": "shard_cycle_group_plain"}
 
 
 def plain_of(name):
@@ -622,21 +627,28 @@ def kernel_checks(device, sync):
     print(f"[kernel] uniform_burst (rotated): "
           f"{describe_geometry(*K.last_geometry['uniform_burst'])}")
 
-    # K4 scatter_rows: 16 dirty rows (the serial path's bucket) of every field
-    rows = np.arange(0, 16 * 97, 97, dtype=np.int32)
-    upd = {k: np.asarray(getattr(b, k))[rows] for k in nodes}
+    # K4 scatter_rows: 16 dirty rows (the serial path's bucket) of every
+    # field, from the host table as `_scatter_dirty` sends them: the rows
+    # packed into one staged buffer, one copy, one launch (the wrapper's
+    # ms is the whole call)
+    rows = np.arange(0, 16 * 97, 97, dtype=np.int64)
+    keys = tuple(nodes)
+    host = {k: np.asarray(getattr(b, k)).copy() for k in keys}
+    for k, v in host.items():
+        if v.dtype == np.int64:
+            v += 1
+    upd = {k: host[k][rows] for k in keys}
     dev_a = {k: v.clone() for k, v in nodes.items()}
     dev_b = {k: v.clone() for k, v in nodes.items()}
-    for k in upd:
-        if upd[k].dtype == np.int64:
-            upd[k] = upd[k] + 1
-    # updates already on the card for all three timings, so each times
-    # the scatter itself and not the uploads
-    rows_t = torch.as_tensor(rows).to(device)
-    rows_l = rows_t.long()
+    table = K.scatter_table([dev_a], keys)
+    sources = [host[k] for k in keys]
+
+    def k4():
+        K.scatter_dirty(table, [(0, rows, 0)], sources)
+    k4()
+    K.scatter_rows_plain(dev_b, rows, upd)
+    rows_l = torch.as_tensor(rows).to(device)
     upd_t = {k: torch.as_tensor(v).to(device) for k, v in upd.items()}
-    K.scatter_rows(dev_a, rows_t, upd_t)
-    K.scatter_rows_plain(dev_b, rows_t, upd_t)
 
     def library():
         for k, v in upd_t.items():
@@ -644,11 +656,28 @@ def kernel_checks(device, sync):
     library_ms = cuda_time(library, sync, 200)
     row_bytes = sum(v.element_size() * (v.numel() // v.shape[0])
                     for v in nodes.values())
-    entry("scatter_rows", dev_a, dev_b,
-          lambda: K.scatter_rows(dev_a, rows_t, upd_t),
-          lambda: K.scatter_rows_plain(dev_b, rows_t, upd_t), 200, 50,
+    entry("scatter_rows", dev_a, dev_b, k4,
+          lambda: K.scatter_rows_plain(dev_b, rows, upd), 200, 50,
           len(rows) * (2 * row_bytes + 4), library_ms=library_ms,
           dev_kernels=("scatter_rows_kernel",))
+    from kubernetes_tpu_torch import obs
+    before = obs.get("htod.scatter"), obs.get("launch.scatter_rows")
+    t = time.perf_counter()
+    for _ in range(200):
+        K.scatter_prepare(table, [(0, rows, 0)], sources)
+    pack_ms = (time.perf_counter() - t) * 1e3 / 200
+    for _ in range(10):
+        k4()
+    sync()
+    htod = (obs.get("htod.scatter") - before[0]) / 10
+    launches = (obs.get("launch.scatter_rows") - before[1]) / 10
+    out["scatter_rows"].update(htod_a_call=htod, pack_ms=pack_ms)
+    if (htod, launches) != (1, 1):
+        raise SystemExit(f"scatter_rows: {htod} HtoD copies and {launches} "
+                         f"launches a call, one each wanted")
+    print(f"[kernel] scatter_rows: {htod:.0f} HtoD copy and {launches:.0f} "
+          f"launch a call (obs; 16 copies before the staged path); the "
+          f"packing alone {pack_ms:.4f} ms of the call (`pack_ms`)")
     return out
 
 
@@ -1376,6 +1405,7 @@ def mesh_variant_checks(device, sync, meshes=None):
     replaces the shards of one card, e.g. by the cards of a host."""
     import numpy as np
     import torch
+    from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.parallel import sharding as S
     rng = np.random.default_rng(20261019)
@@ -1457,10 +1487,42 @@ def mesh_variant_checks(device, sync, meshes=None):
                      (cat_rows(got[0]), got[1], got[2]),
                      (cat_rows(other[0]) if isinstance(other[0], list)
                       else other[0], other[1], other[2]))
+        # K4 over the mesh: 24 dirty rows spread over the shards, one
+        # staged copy and one launch a device, against the plain scatter
+        # of each shard's rows
+        k4_shards = S.shard_node_arrays(mesh, nodes)
+        k4_ref = _clone(k4_shards)
+        host = {k: v.cpu().numpy().copy() for k, v in nodes.items()}
+        for v in host.values():
+            if v.dtype == np.int64:
+                v += rng.integers(1, 9, v.shape)
+        dirty = np.sort(rng.choice(n_pad, 24, replace=False))
+        per, k4_keys = n_pad // D, tuple(nodes)
+        before = obs.get("launch.scatter_rows")
+        for d in mesh.distinct:
+            idx = [s for s, x in enumerate(mesh.devices) if x == d]
+            parts = [(k, dirty[(dirty >= s * per) & (dirty < (s + 1) * per)],
+                      s * per) for k, s in enumerate(idx)]
+            parts = [p for p in parts if len(p[1])]
+            K.scatter_dirty(K.scatter_table([k4_shards[s] for s in idx],
+                                            k4_keys), parts,
+                            [host[k] for k in k4_keys])
+        for s, sh in enumerate(k4_ref):
+            mine = dirty[(dirty >= s * per) & (dirty < (s + 1) * per)]
+            K.scatter_rows_plain(sh, mine - s * per,
+                                 {k: host[k][mine] for k in k4_keys})
+        launched = obs.get("launch.scatter_rows") - before
+        if launched != len(mesh.distinct):
+            raise SystemExit(f"mesh variant {D} shards/scatter_rows: "
+                             f"{launched} launches for "
+                             f"{len(mesh.distinct)} devices")
+        same(f"{D} shards/scatter_rows vs plain", cat_rows(k4_shards),
+             cat_rows(k4_ref))
     sync()
     print(f"[variants] {checked} mesh comparisons equal (K9a-d against "
           f"their plain versions and the sharded programs against the "
-          f"single-device plain K2/K3, on meshes of "
+          f"single-device plain K2/K3, K4 over the mesh's shards against "
+          f"the plain scatter, on meshes of "
           f"{[len(m) for m in meshes] if meshes else list(MESH_SHARDS)} "
           f"shards, n_real {n_real})")
 
@@ -1706,11 +1768,14 @@ def _clone(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_clone(v) for v in x)
     if isinstance(x, (K.UniformShard, K.ScanShard, K.ScanSide,
-                      K.PreemptShard, K.PreemptSide)):
+                      K.PreemptShard, K.PreemptSide, K.CycleShard,
+                      K.CycleSide, K.CycleCall)):
         y = copy.copy(x)
         y.__dict__ = _clone(x.__dict__)
-        if hasattr(y, "_args"):
-            y._args = {}     # launch arrays point at the original tensors
+        for cache in ("_args", "_nodes"):
+            if hasattr(y, cache):
+                # launch words point at the original tensors
+                setattr(y, cache, {})
         return y
     return x
 
@@ -2216,17 +2281,21 @@ def mesh_kernel_checks(calls, report, sync):
         return r
 
     args, kw = _full(calls["shard_cycle_local"])
-    out = K.shard_cycle_local_plain(*_clone(args), **kw)
+    shards = args[0]
     mesh_kernel_entry(report, "shard_cycle_local", calls["shard_cycle_local"],
-                      no_reset, result, nbytes(args[0], args[1], out), sync,
-                      50, "shard 0's rows of the first serial cycle",
+                      no_reset, cycle_local_outputs, cycle_local_bytes(*args),
+                      sync, 50, f"the first serial cycle, one launch over "
+                      f"the {len(shards)} shard(s) of the first device "
+                      f"(bound and device_ms for them together)",
                       on_device=True)
+    report["shard_cycle_local"]["shards"] = len(shards)
     args, kw = _full(calls["shard_cycle_select"])
-    n_pad = args[0].shape[0] * args[2]
+    D, rows = int(args[0].shape[0]), int(args[2])
     mesh_kernel_entry(report, "shard_cycle_select",
                       calls["shard_cycle_select"], no_reset, result,
-                      nbytes(args[0]) + n_pad * (8 + 1) + 6 * 8, sync, 50,
-                      "the gathered records of the first serial cycle",
+                      D * K.record_layout(args[1], rows)[1]
+                      + D * rows * (8 + 1) + 6 * 8, sync, 50,
+                      "the first serial cycle's records, in place",
                       on_device=True)
     args, kw = _full(calls["shard_uniform_sweep"])
     shards = args[0]
@@ -2271,6 +2340,26 @@ def mesh_kernel_checks(calls, report, sync):
           f"{describe_pass_plan(plan, fit)}")
 
 
+def cycle_mesh_check(name, mesh, counts):
+    """The sharded cycles of a mesh path since the last `obs.reset()`: one
+    K9a launch a distinct device and cycle (its shards together), one
+    staged upload of the pod (`htod.cycle`) and one K9b, so the three
+    counts are equal; under the "peer" exchange (one card, or cards with
+    peer access) no record copy (`copies.cycle`). Returns the record
+    copies."""
+    from kubernetes_tpu_torch import obs
+    copies, htod = obs.get("copies.cycle"), obs.get("htod.cycle")
+    k9a, k9b = counts["shard_cycle_local"], counts["shard_cycle_select"]
+    if k9a != k9b or htod != k9b \
+            or (mesh.exchange == "peer" and copies != 0):
+        raise SystemExit(f"{name}: K9a launched {k9a} times and uploaded "
+                         f"the pod {htod} times for {k9b} K9b launches "
+                         f"(one each a device and cycle wanted), {copies} "
+                         f"cycle record copies under the "
+                         f"{mesh.exchange!r} exchange")
+    return copies
+
+
 def mesh_path(name, n_nodes, device, sync, report, check_kernels,
               mesh=None):
     """The uniform burst and the serial cycles through
@@ -2304,6 +2393,7 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
     if missing:
         raise SystemExit(f"{name}: kernels not launched on the path: "
                          f"{missing}")
+    cycle_copies = cycle_mesh_check(name, mesh, counts)
     if run["hosts"] != single["hosts"] or run["serial"] != single["serial"]:
         raise SystemExit(f"{name}: decisions differ from the single-device "
                          f"path")
@@ -2333,11 +2423,18 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
           f"pass) passes {ph['passes']} host "
           f"reads of the pass counter {ph['syncs']}; {N_SERIAL} serial "
           f"cycles {run['t_serial'] * 1e3:.1f} ms (gather.cycle "
-          f"{obs.get('gather.cycle')} bytes); launches {counts}; "
-          f"single-device burst {single['t_burst'] * 1e3:.2f} ms; "
-          f"decisions, packed block, lni, folded rows and matrix equal")
+          f"{obs.get('gather.cycle')} bytes, {cycle_copies} cycle record "
+          f"copies, {obs.get('htod.cycle')} pod uploads); launches "
+          f"{counts}; single-device burst {single['t_burst'] * 1e3:.2f} "
+          f"ms; decisions, packed block, lni, folded rows and matrix equal")
     if check_kernels:
+        # copies a cycle of K9a's serial cycles: the pod's one staged
+        # upload a card, and the records' copies (none under "peer")
+        cycles = max(counts["shard_cycle_select"], 1)
+        htod = obs.get("htod.cycle") / cycles
         mesh_kernel_checks({c.fn_name: c.call for c in caps}, report, sync)
+        report["shard_cycle_local"].update(
+            htod_a_call=htod, record_copies_a_call=cycle_copies / cycles)
     add_launches(report, counts)
 
 
@@ -2923,6 +3020,7 @@ def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
     if missing:
         raise SystemExit(f"{name}: kernels not launched on the path: "
                          f"{missing}")
+    cycle_mesh_check(name, mesh, counts)
     if run["hosts"] != single["hosts"] or run["serial"] != single["serial"] \
             or run["counters"] != single["counters"]:
         raise SystemExit(f"{name}: decisions or walk counters differ from "
@@ -2954,15 +3052,44 @@ def mesh_scan_path(cfg, n_nodes, window_fn, device, sync, report, ref,
     add_launches(report, counts)
 
 
+def cycle_local_outputs(a, r):
+    """What K9a and its plain version must agree on, for call `a` =
+    (shards, side, call) and result `r`: the launch's shards' rows of the
+    three per-row outputs, and their records in the call's half."""
+    import torch
+    shards, side, call = a
+    spans = [(sh.offset, sh.offset + sh.rows) for sh in shards]
+    return ([torch.cat([o[lo: hi] for lo, hi in spans]) for o in r],
+            torch.stack([side.records(call)[sh.index][: call.record_bytes]
+                         for sh in shards]))
+
+
+def cycle_local_bytes(shards, side, call):
+    """The bytes one K9a launch must move: its shards' node rows and the
+    pod's dense per-node fields of those rows read once, the three
+    per-row outputs and the records written once."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import kernels as K
+    rows = sum(sh.rows for sh in shards)
+    dense = sum(K._POD_FIELD_BYTES[k] for k in K.POD_NODE_FIELDS
+                if call.pod.get(k) is not None
+                and np.shape(call.pod[k])[-1:] == (call.n_pad,))
+    return (nbytes([{k: sh.nodes[k] for k in K._SCL_NODES} for sh in shards])
+            + rows * (dense + 1 + 1 + 8)
+            + len(shards) * call.record_bytes)
+
+
 def k9a_device_entry(call, report, sync, label):
-    """K9a on one captured call of a mesh scan path's serial tail: held
-    against its plain version, then its wrapper time (CUDA events) and
-    its device time a launch (torch.profiler), filed as
-    `device_ms_scan_default` beside the mesh-uniform call's `device_ms`."""
+    """K9a on one captured call of a mesh scan path's serial tail (its
+    launch over the first device's shards): held against its plain
+    version, then its wrapper time (CUDA events) and its device time a
+    launch (torch.profiler), filed as `device_ms_scan_default` beside the
+    mesh-uniform call's `device_ms`."""
     from kubernetes_tpu_torch.ops import kernels as K
     args, kw = _full(call)
-    got = K.shard_cycle_local(*_clone(args), **kw)
-    want = K.shard_cycle_local_plain(*_clone(args), **kw)
+    a_k, a_p = _clone(args), _clone(args)
+    got = cycle_local_outputs(a_k, K.shard_cycle_local(*a_k, **kw))
+    want = cycle_local_outputs(a_p, K.shard_cycle_group_plain(*a_p, **kw))
     err = max_abs_err(got, want)
     if err != 0:
         raise SystemExit(f"shard_cycle_local on {label}: kernel disagrees "
@@ -4570,6 +4697,7 @@ def mesh_single_path(infos, tree, pdbs, device, sync, report,
     if missing:
         raise SystemExit(f"{name}: kernels not launched on the path: "
                          f"{missing}")
+    cycle_mesh_check(name, mesh, counts)
     # one K14a launch (its shards together) and one K14b a device and
     # round, the records in place
     want = rounds * len(mesh.distinct)
@@ -4692,6 +4820,7 @@ def mesh_nominated_path(device, sync, mesh=None):
             or counts["schedule_cycle"] == 0:
         raise SystemExit(f"{name}: {ghosts} ghost cycles, launches "
                          f"{counts}")
+    cycle_mesh_check(name, mesh, counts)
     nodes, args, kw = one.call
     gk = K.schedule_cycle(nodes, *args, **kw)
     gp = K.schedule_cycle_plain(nodes, *args, **kw)

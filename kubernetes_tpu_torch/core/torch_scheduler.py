@@ -177,6 +177,8 @@ class TorchScheduler:
         self._dev_nodes = None
         self._dev_key = None
         self._dev_epoch = 0
+        # K4's field tables of the resident tables, by (fields, device)
+        self._k4_tables: dict = {}
         # inert per-pod fields are shape [1]; the kernels skip or
         # broadcast them
         self._defaults = {
@@ -287,28 +289,37 @@ class TorchScheduler:
 
     def _scatter_dirty(self, dev, dirty, n_rows: int, src, fields) -> None:
         """K4 writes of the rows `dirty` of host table `src` (`fields`:
-        (device key, host attribute) pairs) into the resident `dev`: one
-        launch, or in mesh mode one on each shard that owns a dirty row,
-        with its rows only. The deduped row list pads to a power-of-two
-        bucket by repeating its first row (duplicate writes carry
-        identical values)."""
-        rows = np.asarray(sorted(set(dirty)), dtype=np.int32)
-
-        def scatter(d: dict, mine: np.ndarray, offset: int) -> None:
-            bucket = _pad_pow2(len(mine), 16)
-            mine = np.concatenate([mine, np.full(bucket - len(mine), mine[0],
-                                                 dtype=np.int32)])
-            K.scatter_rows(d, mine - offset,
-                           {k: getattr(src, f)[mine] for k, f in fields})
+        (device key, host attribute) pairs) into the resident `dev`: on
+        each device, one staged buffer (each shard's deduped rows, padded
+        to a power-of-two bucket by repeating its first row, and every
+        field's rows, taken from the host table straight into it), one
+        copy to the device and ONE launch over every shard there that owns
+        a dirty row (`K.scatter_dirty`). The device's field table is made
+        once per resident table (`K.scatter_table`, kept in `_k4_tables`
+        by field set and device)."""
+        rows = np.asarray(sorted(set(dirty)), dtype=np.int64)
+        keys = tuple(k for k, _f in fields)
+        sources = [np.asarray(getattr(src, f)) for _k, f in fields]
         if self.mesh is None:
-            scatter(dev, rows, 0)
-            return
-        per = self.mesh.rows(n_rows)
-        for s, shard in enumerate(dev):
-            mine = rows[(rows >= s * per) & (rows < (s + 1) * per)]
-            if len(mine):
-                with K._on(self.mesh.devices[s]):
-                    scatter(shard, mine, s * per)
+            groups = [(self.device, [dev], [(0, rows, 0)])]
+        else:
+            per = self.mesh.rows(n_rows)
+            groups = []
+            for d in self.mesh.distinct:
+                idx = [s for s, x in enumerate(self.mesh.devices) if x == d]
+                parts = []
+                for k, s in enumerate(idx):
+                    mine = rows[(rows >= s * per) & (rows < (s + 1) * per)]
+                    if len(mine):
+                        parts.append((k, mine, s * per))
+                if parts:
+                    groups.append((d, [dev[s] for s in idx], parts))
+        for d, shards, parts in groups:
+            key = (keys, str(d))
+            table = self._k4_tables[key] = K.scatter_table(
+                shards, keys, self._k4_tables.get(key))
+            with K._on(d):
+                K.scatter_dirty(table, parts, sources)
 
     def _pod_arrays(self, f: PodFeatures, upd_fields: bool = False,
                     pod: Optional[Pod] = None) -> dict:

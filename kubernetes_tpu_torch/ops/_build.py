@@ -42,7 +42,9 @@ _L = ctypes.c_longlong
 #: untyped python int as a 32-bit int, which would cut a pointer)
 SIGNATURES = {
     "local_total": [_I, _P, _P, _L, _L, _P, _P, _I, _P, _P, _P],
-    "scatter_rows": [_I, _I, _L, _P, _P, _P],
+    # K4: the call's host words, the device's field table, the staged
+    # buffer on the device, the stream
+    "scatter_rows": [ctypes.POINTER(_L), _P, _P, _P],
     # the scan kernels take host arrays of scalars and of pointers
     # the cluster kernels (K2, K3, K5, K6, K8, K9b) also take their
     # geometry (`kernels.cycle_plan` / `uniform_plan` / `cluster_plan` /
@@ -59,7 +61,9 @@ SIGNATURES = {
     "preempt_scan": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
     "pressure_batch": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                        ctypes.POINTER(_L), _P],
-    "shard_cycle_local": [ctypes.POINTER(_L), ctypes.POINTER(_P), _P],
+    # K9a takes every shard of one device, as the grouped locals below
+    "shard_cycle_local": [ctypes.POINTER(_L), _I, _I, _P,
+                          ctypes.POINTER(_I)],
     "shard_cycle_select": [ctypes.POINTER(_L), ctypes.POINTER(_P),
                            ctypes.POINTER(_L), _P],
     # K9c takes every shard of one device, as the grouped locals below

@@ -2,9 +2,9 @@
 // `shard_scan_select.cu`) and of the sharded fused window (K11b,
 // `shard_segments_select.cu`) across a thread-block cluster, over the
 // records every shard's local kernel wrote, gathered onto this device. The
-// sharded cycle's select (K9b, `shard_cycle_select.cu`) stages its
-// all-gathered records with the same `select_stage` and runs the same
-// cycle, without a step state or stamps.
+// sharded cycle's select (K9b, `shard_cycle_select.cu`) stages the
+// records K9a wrote in place with the same `select_stage` and runs the
+// same cycle, without a step state, after its cycle's stamps.
 //
 // The step's records are its round's half of the buffer (`SS_ROUND`); a
 // select first waits for the stamps every shard's local published with
@@ -150,9 +150,9 @@ __device__ __forceinline__ void select_stage(ClusterCtx& cx,
 // this thread's slots of the step's half of the gathered records staged
 // (`select_stage`); `pd` gets the staged planes of the families that run
 // dense. GS: the scratch planes in the global workspace (SSP_WORKSPACE).
-// The stamp wait is this setup's alone: the sharded cycle's select (K9b)
-// stages its records with `select_stage` directly, since the all-gather
-// that brings them is ordered by the stream. Ends with a block barrier.
+// The sharded cycle's select (K9b) has no step state: it waits for its
+// cycle's stamps itself, then stages with `select_stage` directly. Ends
+// with a block barrier.
 template <bool GS>
 __device__ __forceinline__ ClusterCtx select_setup(const ScanSelectArgs& a,
                                                    const ClusterGeom& g,

@@ -31,9 +31,13 @@
 //     owns a node writes its total and kept bit, and block 0 the six
 //     scalars after the cluster barrier that ends every block's reads of
 //     its peers' shared memory.
-// No stamp wait: the records come from the all-gather
-// (parallel/sharding.py), which the stream orders, not the mesh step's
-// peer exchange.
+// The records are K9a's, written in place into row s of the cycle's half
+// of this device's buffer (and, under the "peer" exchange, of every other
+// card's): block 0's first thread waits for the cycle's D stamps at
+// [round & 1] of this device's stamps (`stamps_wait`, a lost stamp traps),
+// then a cluster barrier lets every block stage them, as K10b's
+// `select_setup` does. Under the host's copies there are no stamps: the
+// stream orders the copies before the select.
 #include "cluster_select.cuh"
 
 // scalar slots, in the order of `_SCS_INTS` (kernels.py)
@@ -41,15 +45,16 @@ enum {
   CS_N_PAD, CS_ROWS, CS_D, CS_CHUNK, CS_N_REAL, CS_Z_PAD, CS_LAST_INDEX,
   CS_LNI, CS_NUM_TO_FIND, CS_MODE, CS_GATE, CS_SKIP, CS_IPA_ON, CS_IC_INERT,
   CS_TR_INERT, CS_OFF_LOCAL, CS_OFF_NA, CS_OFF_TT, CS_OFF_SC, CS_OFF_IC,
-  CS_OFF_ZONE, CS_OFF_FEAS, CS_OFF_TRACKED, CS_COUNT
+  CS_OFF_ZONE, CS_OFF_FEAS, CS_OFF_TRACKED, CS_ROUND, CS_STAMP, CS_COUNT
 };
 // pointer slots, in the order of `_SCS_PTRS`: the records, the weight row,
 // the inter-pod fields an inert plane broadcasts, the walk, the outputs,
-// the staging area (NULL while the records fit in shared memory) and the
-// workspace (NULL while the scratch does)
+// the staging area (NULL while the records fit in shared memory), the
+// workspace (NULL while the scratch does) and this device's [2, D] stamps
+// (NULL under the host's copies)
 enum {
   SP_GATHERED, SP_W, SP_IC_B, SP_TR_B, SP_PERM, SP_INV_PERM, SP_POS,
-  SP_TOTAL, SP_KEPT, SP_OUT, SP_RECS, SP_WORKSPACE, SP_COUNT
+  SP_TOTAL, SP_KEPT, SP_OUT, SP_RECS, SP_WORKSPACE, SP_STAMPS, SP_COUNT
 };
 
 struct SelectArgs {
@@ -70,6 +75,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const RecLayout o{a.v[CS_OFF_LOCAL], a.v[CS_OFF_NA], a.v[CS_OFF_TT],
                     a.v[CS_OFF_SC],    a.v[CS_OFF_IC], a.v[CS_OFF_ZONE],
                     a.v[CS_OFF_FEAS],  a.v[CS_OFF_TRACKED]};
+  if (cx.rank == 0 && tid == 0 && a.p[SP_STAMPS]) {
+    const int D = (int)a.v[CS_D];
+    stamps_wait((const i64*)a.p[SP_STAMPS]
+                    + (size_t)(a.v[CS_ROUND] & 1) * D,
+                D, a.v[CS_STAMP]);
+  }
+  cl.sync();  // every block reads the records after the stamps
   CyclePod pd;
   select_stage(cx, g, L, smem, n, a.v[CS_N_REAL],
                SelectRecs{(const unsigned char*)a.p[SP_GATHERED],

@@ -58,6 +58,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import operator
 from typing import Optional
 
 import numpy as np
@@ -1252,37 +1253,310 @@ def scatter_rows_plain(dev: dict, rows, upd: dict) -> dict:
     return dev
 
 
-def _scatter_launch(dev: dict, rows, upd: dict) -> dict:
-    keys = list(upd)
-    dsts = [dev[k] for k in keys]
-    device = dsts[0].device
-    rows_t = _t(rows, device, I32).contiguous()
-    srcs = [_t(upd[k], device, dev[k].dtype).contiguous() for k in keys]
-    _require_cuda("scatter_rows", *dsts)
-    n_rows = int(rows_t.shape[0])
-    meta = []
-    for d, s in zip(dsts, srcs):
-        width = 1 if d.dim() == 1 else int(d.shape[1])
-        if s.shape[0] != n_rows or s.numel() != n_rows * width:
-            raise ValueError("scatter_rows: update shape mismatch")
-        meta += [d.data_ptr(), s.data_ptr(), int(d.shape[0]), width,
-                 d.element_size()]
-    meta_t = torch.tensor(meta, dtype=I64).to(device)
-    total = sum(n_rows * m for m in meta[3::5])
-    lib = _build.load("scatter_rows")
-    obs.inc("launch.scatter_rows")
-    _check(lib.scatter_rows_launch(
-        len(keys), n_rows, total, _ptr(rows_t), _ptr(meta_t), _stream()),
-        "scatter_rows")
+#: every segment of a staged buffer starts on this many bytes
+STAGE_ALIGN = 16
+#: int64 words of a row of K4's device field table (csrc/scatter_rows.cu
+#: `FT_*`): destination, rows, row bytes, copy unit
+_FT_WORDS = 4
+#: shards one K4 launch covers (`SCATTER_MAX_SHARDS`)
+SCATTER_MAX_SHARDS = 16
+#: threads of a K4 block, and the most row-chunk blocks a launch takes
+_SCATTER_THREADS = 256
+_SCATTER_CHUNKS = 1024
+
+
+def _align(n: int) -> int:
+    return -(-int(n) // STAGE_ALIGN) * STAGE_ALIGN
+
+
+def _bucket(n: int, minimum: int = 16) -> int:
+    """The padded row count of a dirty-row list: a power of two."""
+    c = minimum
+    while c < n:
+        c *= 2
+    return c
+
+
+class HostStage:
+    """The staged uploads of one use on one device: a ring of two host
+    buffers (pinned on a card), each reused only after the event recorded
+    behind its last copy has passed, so the host never rewrites a buffer a
+    pending copy still reads, and one device buffer that only grows. Each
+    copy books `htod.<use>`. On the CPU the host buffer is the data (no
+    copy)."""
+
+    def __init__(self, device, use: str):
+        self.device = torch.device(device)
+        self.use = use
+        self.cuda = self.device.type == "cuda"
+        # each slot: its pinned buffer, a numpy view of it, and the event
+        # recorded behind its last copy (made once, recorded again)
+        self.slots = [None, None]
+        self.turn = 0
+        self.dev = None
+
+    def take(self, nbytes: int) -> np.ndarray:
+        """A host buffer of `nbytes` bytes (not zeroed) for the next
+        upload: a view of this turn's slot, once its last copy is done."""
+        nbytes = max(int(nbytes), STAGE_ALIGN)
+        if not self.cuda:
+            return np.empty(nbytes, np.uint8)
+        slot = self.slots[self.turn]
+        if slot is not None:
+            slot[2].synchronize()
+        if slot is None or slot[0].numel() < nbytes:
+            buf = torch.empty(_bucket(nbytes, 4096), dtype=torch.uint8,
+                              pin_memory=True)
+            slot = self.slots[self.turn] = (buf, buf.numpy(),
+                                            torch.cuda.Event())
+        return slot[1][:nbytes]
+
+    def send(self, host: np.ndarray) -> torch.Tensor:
+        """`host` (the buffer `take` gave) on the device: one non-blocking
+        copy into the device buffer; returns its [nbytes] view."""
+        n = int(host.shape[0])
+        if not self.cuda:
+            return torch.from_numpy(host)
+        if self.dev is None or self.dev.numel() < n:
+            self.dev = torch.empty(_bucket(n, 4096), dtype=torch.uint8,
+                                   device=self.device)
+        buf, _view, ev = self.slots[self.turn]
+        if host.ctypes.data != buf.data_ptr():
+            raise ValueError("HostStage.send: not this turn's buffer")
+        dst = self.dev[:n]
+        dst.copy_(buf[:n], non_blocking=True)
+        obs.inc("htod." + self.use)
+        ev.record(torch.cuda.current_stream(self.device))
+        self.turn ^= 1
+        return dst
+
+
+class ScatterTable:
+    """K4's field table on one device, made once per resident table: the
+    device's resident dicts `shards` (one a shard; one dict on a single
+    device), the fields `keys`, each field's dtype, row shape and row
+    bytes, and on a card `words`, the [shards x fields, 4] int64 table on
+    the device (`_FT_WORDS`: destination pointer, rows, row bytes, the
+    widest copy unit of 16 / 8 / 4 / 2 / 1 bytes that divides the row
+    bytes and the destination's address), and `stage`, the staged
+    uploads of its calls (`HostStage`). `matches` says whether the
+    table still describes `shards`: every field the same tensor object
+    (only a whole upload, or a window's folded rows taking the place of
+    the resident ones, replaces one)."""
+
+    def __init__(self, shards: list, keys, stage: "HostStage" = None):
+        self.shards = list(shards)
+        self.keys = tuple(keys)
+        first = self.shards[0]
+        self.device = first[self.keys[0]].device
+        self.dtypes = tuple(first[k].dtype for k in self.keys)
+        self.np_dtypes = tuple(torch.empty((), dtype=dt).numpy().dtype
+                               for dt in self.dtypes)
+        self.row_shapes = tuple(tuple(first[k].shape[1:]) for k in self.keys)
+        self.row_bytes = tuple(
+            int(np.prod(s, dtype=np.int64)) * first[k].element_size()
+            for k, s in zip(self.keys, self.row_shapes))
+        self._held = [tuple(sh[k] for k in self.keys) for sh in self.shards]
+        if len(self.shards) > SCATTER_MAX_SHARDS:
+            raise ValueError(f"scatter_rows: {len(self.shards)} shards on "
+                             f"one device, at most {SCATTER_MAX_SHARDS}")
+        words, self.units = [], []
+        for sh in self._held:
+            for t, dt, rs in zip(sh, self.dtypes, self.row_shapes):
+                if t.device != self.device or t.dtype != dt \
+                        or tuple(t.shape[1:]) != rs or not t.is_contiguous():
+                    raise ValueError("scatter_rows: a field differs in "
+                                     "device, dtype, row shape or layout "
+                                     "across the device's shards")
+            units = []
+            for t, rb in zip(sh, self.row_bytes):
+                unit = 16
+                while rb % unit or (t.data_ptr() % unit if t.is_cuda
+                                    else 0):
+                    unit //= 2
+                units.append(unit)
+                words += [t.data_ptr(), int(t.shape[0]), rb, unit]
+            self.units.append(tuple(units))
+        self.words = None
+        if self.device.type == "cuda":
+            self.words = _upload(np.asarray(words, np.int64), self.device)
+        self.stage = stage if stage is not None and stage.device \
+            == self.device else HostStage(self.device, "scatter")
+        self._layouts: dict = {}
+
+    def layout(self, buckets) -> "ScatterLayout":
+        """The layout of parts [(k, bucket)], made once for each set of
+        parts and kept (a path's calls repeat a few bucket sets)."""
+        key = tuple((int(k), int(b)) for k, b in buckets)
+        got = self._layouts.get(key)
+        if got is None:
+            if len(self._layouts) >= 64:
+                self._layouts.clear()
+            got = self._layouts[key] = ScatterLayout.of(self, key)
+        return got
+
+    def matches(self, shards: list, keys) -> bool:
+        return tuple(keys) == self.keys and len(shards) == len(self._held) \
+            and all(sh[k] is t for sh, held in zip(shards, self._held)
+                    for k, t in zip(self.keys, held))
+
+
+def scatter_table(shards: list, keys, old: Optional[ScatterTable] = None
+                  ) -> ScatterTable:
+    """`old` while it still describes `shards`, else a new ScatterTable
+    (with `old`'s staged uploads: its pinned buffers stay)."""
+    if old is not None and old.matches(shards, keys):
+        return old
+    return ScatterTable(shards, keys, None if old is None else old.stage)
+
+
+@dataclasses.dataclass
+class ScatterLayout:
+    """One K4 call's staged buffer: for each part (k, bucket, base) —
+    shard k of the table, its padded row count, the byte offset of its
+    segment — the row list (int32 [bucket]) at base, then each field's
+    [bucket] rows in field order, every segment 16-B aligned; `nbytes` in
+    all, and `offsets`, each part's fields' byte offsets (the sums the
+    kernel makes)."""
+    table: ScatterTable
+    parts: tuple
+    nbytes: int
+    offsets: tuple
+    #: the views of a card's staged buffers, by buffer address and part:
+    #: the ring's two pinned buffers stay, so a repeated layout finds them
+    _views: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
+
+    @classmethod
+    def of(cls, table: ScatterTable, buckets) -> "ScatterLayout":
+        """The layout of parts [(k, bucket)]."""
+        parts, offsets, base = [], [], 0
+        for k, bucket in buckets:
+            parts.append((int(k), int(bucket), base))
+            o, offs = base + _align(4 * bucket), []
+            for rb in table.row_bytes:
+                offs.append(o)
+                o += _align(bucket * rb)
+            offsets.append(tuple(offs))
+            base = o
+        return cls(table, tuple(parts), base, tuple(offsets))
+
+    def views(self, staged: np.ndarray, i: int):
+        """(row list [bucket] int32, [field views [bucket, *row shape]])
+        of part i in the host buffer `staged`."""
+        key = (staged.ctypes.data, staged.shape[0], i)
+        got = self._views.get(key)
+        if got is not None:
+            return got
+        _k, bucket, base = self.parts[i]
+        rows = staged[base: base + 4 * bucket].view(np.int32)
+        t = self.table
+        got = rows, [staged[o: o + bucket * rb].view(dt).reshape(
+            (bucket,) + rs) for o, dt, rs, rb in zip(
+                self.offsets[i], t.np_dtypes, t.row_shapes, t.row_bytes)]
+        if t.stage.cuda:
+            if len(self._views) >= 8:
+                self._views.clear()
+            self._views[key] = got
+        return got
+
+
+def scatter_staged_plain(dev: list, staged: np.ndarray,
+                         layout: ScatterLayout) -> list:
+    """K4 plain: decode the staged host buffer the way the kernel indexes
+    it (each part's row list at its base, each field's rows after it) and
+    write each part's rows into its shard of `dev` (the device's resident
+    dicts) by `scatter_rows_plain`'s rules. Returns `dev`."""
+    for i, (k, _bucket, _base) in enumerate(layout.parts):
+        rows, fields = layout.views(staged, i)
+        shard = dev[k]
+        scatter_rows_plain(
+            shard, torch.from_numpy(rows.copy()),
+            {key: torch.from_numpy(v.copy())
+             for key, v in zip(layout.table.keys, fields)})
     return dev
 
 
+def scatter_staged(dev: list, staged: np.ndarray,
+                   layout: ScatterLayout) -> list:
+    """K4 over one device's shards `dev` (the table's): CPU -> the plain
+    version; CUDA -> the staged buffer (a host buffer of the table's
+    `stage`) in one copy to the device and ONE launch of
+    `csrc/scatter_rows.cu` over every part. Returns `dev`."""
+    table = layout.table
+    if table.words is None:
+        return scatter_staged_plain(dev, staged, layout)
+    if len(dev) != len(table.shards) or any(
+            a is not b for a, b in zip(dev, table.shards)):
+        raise ValueError("scatter_rows: the layout's table is not these "
+                         "shards'")
+    if not layout.parts:
+        return dev
+    units = max(b * rb // u for k, b, _base in layout.parts
+                for rb, u in zip(table.row_bytes, table.units[k]))
+    words = [len(table.keys), len(layout.parts),
+             min(_SCATTER_CHUNKS, max(1, -(-units // _SCATTER_THREADS)))]
+    for k, bucket, base in layout.parts:
+        words += [k * len(table.keys), bucket, base]
+    with _on(table.device):
+        dst = table.stage.send(staged)
+        lib = _build.load("scatter_rows")
+        obs.inc("launch.scatter_rows")
+        _check(lib.scatter_rows_launch(
+            (ctypes.c_longlong * len(words))(*words), _ptr(table.words),
+            _ptr(dst), _stream()), "scatter_rows")
+    return dev
+
+
+def scatter_prepare(table: ScatterTable, parts, sources):
+    """Stage one K4 call on `table`'s device: `parts` [(k, rows, offset)]
+    — shard k, its deduplicated dirty rows (global) and the global row of
+    its first row — and `sources`, one whole host array a field, each
+    part's rows taken from it straight into the staged buffer
+    (`np.take(..., out=)`). A part's rows pad to a power-of-two bucket (at
+    least 16) by repeating its first row. Returns (the host buffer, its
+    layout)."""
+    layout = table.layout([(k, _bucket(len(rows))) for k, rows, _o in parts])
+    staged = table.stage.take(layout.nbytes)
+    for i, (_k, rows, offset) in enumerate(parts):
+        rws, views = layout.views(staged, i)
+        glob = np.full(len(rws), rows[0], np.int64)
+        glob[: len(rows)] = rows
+        rws[:] = glob - offset
+        for src, out in zip(sources, views):
+            if src.dtype == out.dtype:
+                np.take(src, glob, axis=0, out=out)
+            else:
+                out[...] = src[glob]
+    return staged, layout
+
+
+def scatter_dirty(table: ScatterTable, parts, sources) -> None:
+    """K4 on one device: `scatter_prepare`, then `scatter_staged`."""
+    staged, layout = scatter_prepare(table, parts, sources)
+    scatter_staged(table.shards, staged, layout)
+
+
 def scatter_rows(dev: dict, rows, upd: dict) -> dict:
-    """K4: write the dirty rows of every field in one launch (in place;
-    returns `dev`)."""
-    if not next(iter(dev.values())).is_cuda:
-        return scatter_rows_plain(dev, rows, upd)
-    return _scatter_launch(dev, rows, upd)
+    """K4 of one resident dict: rows `rows` (as given: duplicates carry
+    identical values, a negative row wraps once, a row still out of range
+    is dropped) of every field in `upd` (already gathered, [len(rows),
+    ...]) written in place through the staged path: one staged copy, one
+    launch. Returns `dev`."""
+    keys = list(upd)
+    table = ScatterTable([{k: dev[k] for k in keys}], keys)
+    rows = np.asarray(_host(rows), np.int64).reshape(-1)
+    layout = ScatterLayout.of(table, [(0, len(rows))])
+    staged = table.stage.take(layout.nbytes)
+    rws, views = layout.views(staged, 0)
+    rws[:] = rows
+    for k, out in zip(keys, views):
+        v = np.asarray(_host(upd[k]))
+        if v.shape[0] != len(rows) or v.size != out.size:
+            raise ValueError("scatter_rows: update shape mismatch")
+        out[...] = v.reshape(out.shape)
+    scatter_staged(table.shards, staged, layout)
+    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -2802,98 +3076,362 @@ def shard_cycle_local_plain(nodes, pod, offset, n_real, weights, planes,
         vals, planes, rows, dev)
 
 
+#: the other cards a local step writes its records to, at most (an
+#: 8-card host; `MAX_PEERS` in csrc/shard_scan.cuh)
+MAX_PEERS = 7
+#: the per-node pod fields K9a reads: a mesh splits them along the node
+#: axis (an inert [1] field replicates)
+POD_NODE_FIELDS = _CYCLE_MASKS + ("interpod_code",) + _CYCLE_COUNTS \
+    + ("interpod_tracked",)
+#: the dtype each per-node pod field takes on the device
+_POD_FIELD_DTYPES = {**{k: torch.bool for k in _CYCLE_MASKS},
+                     "interpod_code": torch.int8, "interpod_tracked":
+                     torch.bool, **{k: I64 for k in _CYCLE_COUNTS}}
+#: the numpy dtype of each torch dtype a staged field takes
+_NP_DTYPES = {dt: torch.empty((), dtype=dt).numpy().dtype
+              for dt in (torch.bool, torch.int8, I64)}
+#: bytes a row of each per-node pod field and of the ghost
+_POD_FIELD_BYTES = {**{k: torch.empty((), dtype=dt).element_size()
+                       for k, dt in _POD_FIELD_DTYPES.items()},
+                    **{"ghost_" + k: 8 for k in ("cpu", "mem", "eph",
+                                                 "cnt")}}
+
+
+def full_record_bytes(rows: int) -> int:
+    """Bytes of a shard's cycle record holding every plane of
+    `_REC_PLANES`: the stride of the sharded cycle's buffers, so they
+    never regrow whatever a pod's planes (46 B a row)."""
+    return record_layout(tuple(n for n, _ in _REC_PLANES), rows)[1]
+
+
+@dataclasses.dataclass
+class CycleShard:
+    """Shard `index` of a sharded cycle (K9a): its resident node rows on
+    its device and `offset`, the global row of its first row."""
+    index: int
+    offset: int
+    nodes: dict
+
+    @property
+    def device(self):
+        return self.nodes["valid"].device
+
+    @property
+    def rows(self) -> int:
+        return int(self.nodes["valid"].shape[0])
+
+
+@dataclasses.dataclass
+class CycleSide:
+    """The sharded cycle on one device, made once a mesh and n_pad: the
+    records in two halves `halves` [2, D, full_record_bytes(rows)] (cycle
+    r's K9a writes row s of half r & 1, so no cycle overwrites a record a
+    select on another card still reads), the mesh's [2, D] stamps here
+    (`Mesh.exchange` "peer"; None under "copy"), `peers`, the (halves,
+    stamps) of every other distinct device, which K9a writes into, and
+    `tickets`, one int64 a shard of the mesh (shard s's last row block
+    draws tickets[s] and puts it back to 0). `_nodes` keeps the node
+    pointer words of the last launch, reused while the same node tensors
+    are resident; `stage`, the staged uploads of the pod's inputs
+    (`HostStage`)."""
+    halves: torch.Tensor
+    stamps: Optional[torch.Tensor] = None
+    peers: tuple = ()
+    tickets: Optional[torch.Tensor] = None
+    _nodes: dict = dataclasses.field(default_factory=dict, repr=False)
+    stage: Optional[HostStage] = None
+
+    def __post_init__(self):
+        if self.stage is None:
+            self.stage = HostStage(self.halves.device, "cycle")
+
+    @property
+    def device(self):
+        return self.halves.device
+
+    def records(self, call) -> torch.Tensor:
+        """The half [D, stride] of call `call` (its round)."""
+        return self.halves[int(call.round) & 1]
+
+
+@dataclasses.dataclass
+class CycleCall:
+    """What every shard of one sharded cycle shares: the whole pod dict
+    (host values or tensors, its per-node fields [n_pad] or inert [1]),
+    the record planes (`cycle_record_planes` of the whole pod), the static
+    weights, the weight row of each device (`wrows`, {device: [K] int64}),
+    the nominated-ghost load ({cpu, mem, eph, cnt} whole [n_pad], or
+    None), the shapes (n_pad, rows a shard, D shards), n_real, the
+    cycle's `round` (its records in half round & 1) and `stamp`, the value
+    its shards publish (`Mesh.reserve_stamps`; 0 without stamps). Made
+    from them: `offsets`, each plane's byte offset in a shard's record
+    (`record_layout`), `record_bytes`, the bytes of the record this cycle
+    writes, and `gate`, the families the static weights run."""
+    pod: dict
+    planes: tuple
+    weights: dict
+    wrows: dict
+    ghost: Optional[dict]
+    n_pad: int
+    rows: int
+    D: int
+    n_real: int
+    round: int
+    stamp: int
+
+    def __post_init__(self):
+        self.offsets, self.record_bytes = record_layout(self.planes,
+                                                        self.rows)
+        self.gate = _gate(self.weights)
+
+
+def _node_slice(call: CycleCall, v, lo: int):
+    """A pod value for the rows [lo, lo + rows): a per-node [n_pad] field
+    sliced, anything else as it is."""
+    if np.ndim(v) >= 1 and np.shape(v)[-1] == call.n_pad:
+        return v[..., lo: lo + call.rows]
+    return v
+
+
+def shard_cycle_group_plain(shards: list, side: CycleSide,
+                            call: CycleCall) -> tuple:
+    """K9a plain over every shard of `shards` (the shards of `side`'s
+    device): `shard_cycle_local_plain` on each shard's rows (its slices of
+    the pod's per-node fields and of the ghost), its outputs into the
+    device's whole [n_pad] vectors at its offset and its record into row
+    `index` of the call's half of `side.halves`, then into every peer's
+    and the stamps (`_publish_round`), as the kernel's last row blocks do.
+    Returns (feasible, fail_first, general_bits), whole [n_pad] on the
+    device (rows of other devices' shards zero)."""
+    dev = side.device
+    feasible = torch.zeros(call.n_pad, dtype=torch.bool, device=dev)
+    fail_first = torch.zeros(call.n_pad, dtype=torch.int8, device=dev)
+    general_bits = torch.zeros(call.n_pad, dtype=I64, device=dev)
+    for sh in shards:
+        lo, hi = sh.offset, sh.offset + sh.rows
+        pod = {k: _node_slice(call, v, lo) if k in POD_NODE_FIELDS else v
+               for k, v in call.pod.items()}
+        ghost = None if call.ghost is None else {
+            k: _t(call.ghost[k], dev, I64)[lo: hi] for k in GHOST_FIELDS}
+        f, ff, bits, rec = shard_cycle_local_plain(
+            sh.nodes, pod, lo, call.n_real, call.weights, call.planes,
+            wrow=call.wrows.get(dev), ghost=ghost)
+        feasible[lo: hi], fail_first[lo: hi] = f, ff
+        general_bits[lo: hi] = bits
+        side.records(call)[sh.index][: rec.numel()].copy_(rec)
+    idx = [sh.index for sh in shards]
+    _publish_round(side, call.round, call.stamp, idx, idx)
+    return feasible, fail_first, general_bits
+
+
+# scalar and pointer slots of one shard's K9a struct
+# (csrc/shard_cycle_local.cu `CycleLocalArgs`)
 _SCL_INTS = ("rows", "S", "offset", "n_real", "gate") + tuple(
-    "off_" + n for n, _ in _REC_PLANES)
+    "off_" + n for n, _ in _REC_PLANES) + (
+    "index", "D", "half", "round", "stamp", "n_peers")
 _SCL_PTRS = ("valid", "alloc_cpu", "alloc_mem", "alloc_eph",
              "allowed_pods", "req_cpu", "req_mem", "req_eph", "nz_cpu",
              "nz_mem", "pod_count", "alloc_scalar", "req_scalar", "zone_id",
              "scal", "req_scalar_p") + _CYCLE_MASKS + ("interpod_code",) \
     + _CYCLE_COUNTS + ("interpod_tracked", "w", "feasible", "fail_first",
-                       "general_bits", "rec") + tuple(
+                       "general_bits", "rec", "stamps", "ticket") + tuple(
+        f"peer_rec{k}" for k in range(MAX_PEERS)) + tuple(
+        f"peer_stamps{k}" for k in range(MAX_PEERS)) + tuple(
         "ghost_" + k for k in ("cpu", "mem", "eph", "cnt"))
+#: the node rows among K9a's pointer slots
+_SCL_NODES = _SCL_PTRS[:14]
 
 
-def _shard_cycle_local_launch(nodes, pod, offset, n_real, weights, planes,
-                              wrow, ghost):
-    dev = nodes["valid"].device
-    rows = int(nodes["valid"].shape[0])
-    s_count = int(nodes["alloc_scalar"].shape[1])
-    fields = {k: nodes[k] for k in _SCL_PTRS[:14]}
-    _require_cuda("shard_cycle_local", *fields.values())
-    if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype != torch.bool:
-        raise ValueError("shard_cycle_local: zone_id must be int32, "
-                         "valid bool")
+#: each slot's place in a shard's K9a words, and their count
+_SCL_AT = {**{k: i for i, k in enumerate(_SCL_INTS)},
+           **{k: len(_SCL_INTS) + i for i, k in enumerate(_SCL_PTRS)}}
+_SCL_WORDS = len(_SCL_INTS) + len(_SCL_PTRS)
+#: the slots a K9a call fills: the pod's (0 for an inert field) and the
+#: outputs, beside the call's scalars
+_SCL_POD = ("scal", "req_scalar_p") + POD_NODE_FIELDS + tuple(
+    "ghost_" + k for k in ("cpu", "mem", "eph", "cnt"))
+
+
+def _cycle_template(shards: list, side: CycleSide) -> np.ndarray:
+    """The [shards, words] int64 K9a words with what stays from call to
+    call filled (each shard's rows, S, offset, index, D, the halves'
+    distance, the peers; its node rows, record row, stamps, ticket and
+    the peers' rows and stamps), kept on `side` and made again only when
+    a node tensor of a shard is not the one they were made from (a whole
+    upload, or a window's folded rows adopted)."""
+    held = [sh.nodes[k] for sh in shards for k in _SCL_NODES]
+    key = tuple(sh.index for sh in shards)
+    got = side._nodes.get(key)
+    if got is not None and len(got[0]) == len(held) \
+            and all(map(operator.is_, got[0], held)):
+        return got[1]
+    dev = side.device
+    if len(side.peers) > MAX_PEERS:
+        raise ValueError(f"shard_cycle_local: {len(side.peers)} peers, at "
+                         f"most {MAX_PEERS}")
+    _two, D, stride = (int(x) for x in side.halves.shape)
+    S = int(shards[0].nodes["alloc_scalar"].shape[1])
+    stamped = side.stamps is not None
+    template = []
+    for sh in shards:
+        nodes = sh.nodes
+        tensors = [nodes[k] for k in _SCL_NODES]
+        _require_cuda("shard_cycle_local", *tensors)
+        _require_on("shard_cycle_local", dev, *tensors)
+        if nodes["zone_id"].dtype != I32 or nodes["valid"].dtype \
+                != torch.bool:
+            raise ValueError("shard_cycle_local: zone_id must be int32, "
+                             "valid bool")
+        if any(int(t.shape[0]) != sh.rows for t in tensors) \
+                or int(nodes["alloc_scalar"].shape[1]) != S:
+            raise ValueError("shard_cycle_local: a node field is not the "
+                             f"shard's {sh.rows} rows of {S} scalars")
+        w = [0] * _SCL_WORDS
+        for k, v in (("rows", sh.rows), ("S", S), ("offset", sh.offset),
+                     ("index", sh.index), ("D", D), ("half", D * stride),
+                     ("n_peers", len(side.peers)),
+                     ("rec", side.halves[0][sh.index].data_ptr()),
+                     ("stamps", side.stamps.data_ptr() if stamped else 0),
+                     ("ticket", side.tickets[sh.index].data_ptr()
+                      if stamped else 0)):
+            w[_SCL_AT[k]] = v
+        for k, t in zip(_SCL_NODES, tensors):
+            w[_SCL_AT[k]] = t.data_ptr()
+        for q, (halves, stamps) in enumerate(side.peers):
+            w[_SCL_AT[f"peer_rec{q}"]] = halves[0][sh.index].data_ptr()
+            w[_SCL_AT[f"peer_stamps{q}"]] = stamps.data_ptr()
+        template.append(w)
+    template = np.asarray(template, dtype=np.int64)
+    side._nodes[key] = (held, template)
+    return template
+
+
+def _cycle_pod_words(call: CycleCall, side: CycleSide, S: int) -> tuple:
+    """({slot: device address}, tensors to hold until the launch) of the
+    pod's inputs of one cycle on `dev` (its scalars, its scalar requests,
+    its dense per-node fields and the ghost, each whole), no slot for an
+    inert field: the host values staged into one buffer (16-B segments)
+    and sent in ONE copy (`side.stage`); a tensor on a card is read on the
+    side's device in place (copied there from another card)."""
+    dev = side.device
+    pod = call.pod
     pid = pod.get("profile_id", 0)
-    scal = _pack_scalars([pod[k] for k in _CYCLE_SCALARS[:-1]] + [pid], dev)
-    req_scalar = _t(pod["req_scalar"], dev, I64).contiguous()
-    if req_scalar.numel() != s_count:
+    vals = [("scal", np.asarray(
+        [_host(pod[k]) for k in _CYCLE_SCALARS[:-1]] + [_host(pid)],
+        np.int64).reshape(-1))]
+    rs = np.asarray(_host(pod["req_scalar"]), np.int64).reshape(-1)
+    if rs.size != S:
         raise ValueError("shard_cycle_local: req_scalar width != node "
                          "scalars")
+    vals.append(("req_scalar_p", rs))
+    fields = [(k, pod.get(k), _POD_FIELD_DTYPES[k]) for k in POD_NODE_FIELDS]
+    if call.ghost is not None:
+        fields += [("ghost_" + k, call.ghost[k], I64) for k in GHOST_FIELDS]
+    out, keep = {}, []
+    for k, v, dt in fields:
+        if v is None or (not k.startswith("ghost_") and _inert(v)):
+            continue
+        if tuple(np.shape(v)) != (call.n_pad,):
+            raise ValueError(f"shard_cycle_local: {k} is not a whole "
+                             f"[{call.n_pad}] vector")
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            t = v.to(dev, dt).contiguous()
+            keep.append(t)
+            out[k] = t.data_ptr()
+        else:
+            vals.append((k, np.asarray(_host(v)).astype(
+                _NP_DTYPES[dt], copy=False)))
+    offs, n = {}, 0
+    for k, a in vals:
+        offs[k] = n
+        n += _align(a.nbytes)
+    stage = side.stage
+    host = stage.take(n)
+    for k, a in vals:
+        host[offs[k]: offs[k] + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dbuf = stage.send(host)
+    keep.append(dbuf)
+    out.update({k: dbuf.data_ptr() + o for k, o in offs.items()})
+    return out, keep
 
-    def dense(key, dtype):
-        v = pod.get(key)
-        if v is None or _inert(v):
-            return None
-        v = _t(v, dev, dtype).contiguous()
-        if v.shape[-1] != rows:
-            raise ValueError(f"shard_cycle_local: {key} is not the "
-                             f"shard's [{rows}] slice")
-        return v
-    ptrs = dict(fields)
-    ptrs.update({"scal": scal, "req_scalar_p": req_scalar,
-                 "interpod_code": dense("interpod_code", torch.int8),
-                 "interpod_tracked": dense("interpod_tracked", torch.bool),
-                 "w": _weight_row(weights, wrow, dev)})
-    ptrs.update({k: dense(k, torch.bool) for k in _CYCLE_MASKS})
-    ptrs.update({k: dense(k, I64) for k in _CYCLE_COUNTS})
+
+def _shard_cycle_words(shards: list, side: CycleSide,
+                       call: CycleCall) -> tuple:
+    """(the argument words, a flat int64 array, the tensors they point
+    at, the outputs) of one K9a call over `shards`, all on `side`'s
+    device: each shard's
+    `_SCL_INTS` then `_SCL_PTRS`, its template (`_cycle_template`: its
+    rows, node words, record row s of the buffer's first half (the kernel
+    adds the call's half), ticket and peers) with the call's own filled
+    in: n_real, the gate, the planes' offsets, the round and stamp, the
+    weight row, the pod's words from one staged copy (`_cycle_pod_words`)
+    and the outputs, its per-node fields, ghost and outputs at its
+    offset."""
+    dev = side.device
+    _two, D, stride = (int(x) for x in side.halves.shape)
+    if D != call.D or stride < call.record_bytes \
+            or side.halves.dtype != torch.uint8:
+        raise ValueError("shard_cycle_local: records are not [2, "
+                         f"{call.D}, >= {call.record_bytes}] uint8")
+    wrow = call.wrows[dev]
+    _require_on("shard_cycle_local", dev, wrow)
+    template = _cycle_template(shards, side)
+    S = template[0][_SCL_AT["S"]]
+    pod, keep = _cycle_pod_words(call, side, S)
     for k, f in _REC_FIELD.items():
-        if k in planes and ptrs[f] is None:
+        if k in call.planes and f not in pod:
             raise ValueError(f"shard_cycle_local: plane {k} of an inert "
                              f"field")
-    off, nbytes = record_layout(planes, rows)
-    feasible = ptrs["feasible"] = torch.empty(rows, dtype=torch.bool,
-                                              device=dev)
-    fail_first = ptrs["fail_first"] = torch.empty(rows, dtype=torch.int8,
-                                                  device=dev)
-    general_bits = ptrs["general_bits"] = torch.empty(rows, dtype=I64,
-                                                      device=dev)
-    rec = ptrs["rec"] = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
-    ghost = _ghost_tensors(ghost, dev)
-    if ghost is not None:
-        if any(g.shape != (rows,) for g in ghost.values()):
-            raise ValueError(f"shard_cycle_local: ghost is not the shard's "
-                             f"[{rows}] slice")
-        ptrs.update({"ghost_" + k: v for k, v in ghost.items()})
-    _require_cuda("shard_cycle_local",
-                  *[v for v in ptrs.values() if v is not None])
-    _require_on("shard_cycle_local", dev, *ptrs.values())
-    ints = {"rows": rows, "S": s_count, "offset": int(offset),
-            "n_real": int(n_real), "gate": _gate(weights)}
-    ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
-    _launch("shard_cycle_local",
-            *_launch_arrays(ints, _SCL_INTS, ptrs, _SCL_PTRS,
-                            "shard_cycle_local"))
-    return feasible, fail_first, general_bits, rec
+    outs = (torch.empty(call.n_pad, dtype=torch.bool, device=dev),
+            torch.empty(call.n_pad, dtype=torch.int8, device=dev),
+            torch.empty(call.n_pad, dtype=I64, device=dev))
+    fixed = [(_SCL_AT["n_real"], call.n_real), (_SCL_AT["gate"], call.gate),
+             (_SCL_AT["round"], call.round), (_SCL_AT["stamp"], call.stamp),
+             (_SCL_AT["w"], wrow.data_ptr())] + [
+        (_SCL_AT["off_" + n], call.offsets.get(n, -1))
+        for n, _dt in _REC_PLANES]
+    # the pod's scalars whole; its per-node fields and the ghost at the
+    # shard's first row; an inert field's slot 0; the outputs at it too
+    moving = [(_SCL_AT[k], pod.get(k, 0), 0 if k in ("scal", "req_scalar_p")
+               else _POD_FIELD_BYTES[k]) for k in _SCL_POD]
+    moving += [(_SCL_AT[k], o.data_ptr(), o.element_size())
+               for k, o in zip(("feasible", "fail_first", "general_bits"),
+                               outs)]
+    words = template.copy()
+    at, v = zip(*fixed)
+    words[:, list(at)] = v
+    at, base, size = (np.asarray(x, np.int64) for x in zip(*moving))
+    offset = np.asarray([sh.offset for sh in shards], np.int64)
+    words[:, at] = np.where(base == 0, 0, base + offset[:, None] * size)
+    return words.reshape(-1), keep, outs
 
 
-def shard_cycle_local(nodes, pod, offset, n_real, weights, planes,
-                      wrow=None, ghost=None):
-    """K9a on one shard (`nodes`: its node dict, `pod`: its slice of the
-    pod's per-node fields plus the replicated scalars; `offset`: the
-    global index of its first row; `ghost`: its slice of the nominated
-    load, or None). CPU tensors -> the plain version; CUDA tensors ->
-    `csrc/shard_cycle_local.cu` on their device."""
-    dev = nodes["valid"].device
-    _require_on("shard_cycle_local", dev, *nodes.values(),
-                *[v for v in pod.values() if isinstance(v, torch.Tensor)
-                  and v.dim() and v.shape[-1] > 1], wrow,
-                *(ghost or {}).values())
-    if not nodes["valid"].is_cuda:
-        return shard_cycle_local_plain(nodes, pod, offset, n_real, weights,
-                                       planes, wrow=wrow, ghost=ghost)
+def shard_cycle_local(shards: list, side: CycleSide,
+                      call: CycleCall) -> tuple:
+    """K9a over every shard of `shards`, all on `side`'s device, each
+    shard's record into row `index` of the call's half of `side.halves`
+    (and, under the "peer" exchange, of every peer's, then its stamp).
+    CPU tensors -> the plain version; CUDA tensors -> ONE launch of
+    `csrc/shard_cycle_local.cu` over them (LOCAL_GROUP_SHARDS shards a
+    launch), its words from `_shard_cycle_words`, its launches counted by
+    the C function and booked under `launch.shard_cycle_local`. Returns
+    (feasible, fail_first, general_bits), whole [n_pad] vectors on the
+    device, the rows of its shards written."""
+    if not side.halves.is_cuda:
+        return shard_cycle_group_plain(shards, side, call)
+    dev = side.device
     with _on(dev):
-        return _shard_cycle_local_launch(nodes, pod, offset, n_real,
-                                         weights, planes, wrow, ghost)
+        words, _keep, outs = _shard_cycle_words(shards, side, call)
+        count = ctypes.c_int(0)
+        lib = _build.load("shard_cycle_local")
+        # the C function copies the words into the launch's parameter
+        rc = lib.shard_cycle_local_launch(
+            words.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+            len(shards), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(count))
+    obs.inc("launch.shard_cycle_local", count.value)
+    _check(rc, "shard_cycle_local")
+    return outs
 
 
 # ---- K9b shard_cycle_select -------------------------------------------------
@@ -2911,15 +3449,20 @@ def _select_pod(pod, dev) -> dict:
 def shard_cycle_select_plain(gathered, planes, rows, n_real, pod,
                              last_index, last_node_index, num_to_find,
                              weights, z_pad, wrow=None, perm=None,
-                             inv_perm=None, pos=None, gang=None):
+                             inv_perm=None, pos=None, gang=None,
+                             stamps=None, round=0, stamp=0):
     """K9b plain: the replicated epilogue of `_cycle_core` (kernels.py
-    :359) over the gathered records of every shard — the rotation walk,
+    :359) over the records of every shard, `gathered` [D, stride] (each
+    row's planes at `record_layout(planes, rows)`) — the rotation walk,
     the normalizations over the evaluated (kept) set, the first-index
-    argmax and the round-robin tie pick. `gang` = (gz, member) adds the
+    argmax and the round-robin tie pick, after the cycle's stamps
+    (`stamps` [2, D] of the device, `round`, `stamp`: `_await_round`, a
+    lost one raises; None: no wait). `gang` = (gz, member) adds the
     rank-aware gang scores (the sharded fused window; the zone plane must
     be gathered). Returns (out[6] int64: selected, found, evaluated,
     max_score, next_last_index, next_last_node_index; total[n_pad];
     kept[n_pad])."""
+    _await_round(stamps, round, stamp, "shard_cycle_select")
     dev = gathered.device
     sp = _select_pod(pod, dev)
     vals = unpack_records(gathered, planes, rows)
@@ -2949,24 +3492,27 @@ def shard_cycle_select_plain(gathered, planes, rows, n_real, pod,
 _SCS_INTS = ("n_pad", "rows", "D", "chunk", "n_real", "z_pad",
              "last_index", "lni", "num_to_find", "mode", "gate", "skip",
              "ipa_on", "ic_inert", "tr_inert") + tuple(
-    "off_" + n for n, _ in _REC_PLANES)
+    "off_" + n for n, _ in _REC_PLANES) + ("round", "stamp")
 _SCS_PTRS = ("gathered", "w", "ic_b", "tr_b", "perm", "inv_perm", "pos",
-             "total", "kept", "out", "recs", "workspace")
+             "total", "kept", "out", "recs", "workspace", "stamps")
 
 
 def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
                                last_index, last_node_index, num_to_find,
-                               weights, z_pad, wrow, perm, inv_perm, pos):
+                               weights, z_pad, wrow, perm, inv_perm, pos,
+                               stamps=None, round=0, stamp=0):
     """Launch K9b: one thread-block cluster (`select_plan`, as K10b) over
-    the gathered records; records staged in global memory take a fresh
-    staging area, scratch in global memory a fresh workspace."""
+    the records in place, after the cycle's stamps when there are
+    `stamps`; records staged in global memory take a fresh staging area,
+    scratch in global memory a fresh workspace."""
     dev = gathered.device
     D, chunk = (int(x) for x in gathered.shape)
     n_pad = D * int(rows)
     off, nbytes = record_layout(planes, rows)
-    if nbytes != chunk:
-        raise ValueError("shard_cycle_select: record size != layout")
-    sp = _select_pod(pod, dev)
+    if nbytes > chunk or not gathered.is_contiguous():
+        raise ValueError("shard_cycle_select: records are not contiguous "
+                         f"rows of >= {nbytes} bytes")
+    skip = bool(np.asarray(_host(pod["skip"])))
     ipa_on = bool(weights["interpod"]) and cycle_ipa_on(pod)
     mode = 0
     ptrs = {"gathered": gathered, "w": _weight_row(weights, wrow, dev)}
@@ -2977,10 +3523,14 @@ def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
         mode = 1
         ptrs["perm"] = _t(perm, dev, I32).contiguous()
         ptrs["inv_perm"] = _t(inv_perm, dev, I32).contiguous()
-    if ipa_on and "ic" not in planes:
-        ptrs["ic_b"] = sp["interpod_counts"].reshape(-1)[:1].contiguous()
-    if ipa_on and "tracked" not in planes:
-        ptrs["tr_b"] = sp["interpod_tracked"].reshape(-1)[:1].contiguous()
+    if ipa_on and ("ic" not in planes or "tracked" not in planes):
+        # what an inert inter-pod field broadcasts: its first element
+        sp = _select_pod(pod, dev)
+        if "ic" not in planes:
+            ptrs["ic_b"] = sp["interpod_counts"].reshape(-1)[:1].contiguous()
+        if "tracked" not in planes:
+            ptrs["tr_b"] = sp["interpod_tracked"].reshape(
+                -1)[:1].contiguous()
     plan = _cluster_geometry("shard_cycle_select", lambda blocks: select_plan(
         n_pad, int(z_pad), blocks))
     total = ptrs["total"] = torch.empty(n_pad, dtype=I64, device=dev)
@@ -2989,14 +3539,16 @@ def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
     ptrs["recs"] = None if plan.resident else torch.empty(
         n_pad * _REC_SLOT_BYTES, dtype=torch.uint8, device=dev)
     ptrs["workspace"] = plan.workspace(dev)
+    ptrs["stamps"] = stamps
     _require_cuda("shard_cycle_select", gathered)
     _require_on("shard_cycle_select", dev, *ptrs.values())
-    ints = {"n_pad": n_pad, "rows": int(rows), "D": D, "chunk": chunk,
+    ints = {"round": int(round), "stamp": int(stamp),
+            "n_pad": n_pad, "rows": int(rows), "D": D, "chunk": chunk,
             "n_real": int(n_real), "z_pad": int(z_pad),
             "last_index": int(np.asarray(_host(last_index))),
             "lni": int(np.asarray(_host(last_node_index))),
             "num_to_find": int(num_to_find), "mode": mode,
-            "gate": _gate(weights), "skip": int(sp["skip"]),
+            "gate": _gate(weights), "skip": int(skip),
             "ipa_on": int(ipa_on), "ic_inert": int("ic" not in planes),
             "tr_inert": int("tracked" not in planes)}
     ints.update({"off_" + n: off.get(n, -1) for n, _ in _REC_PLANES})
@@ -3008,22 +3560,27 @@ def _shard_cycle_select_launch(gathered, planes, rows, n_real, pod,
 
 def shard_cycle_select(gathered, planes, rows, n_real, pod, last_index,
                        last_node_index, num_to_find, weights, z_pad,
-                       wrow=None, perm=None, inv_perm=None, pos=None):
-    """K9b on one device, over the [D, record bytes] gathered records.
-    CPU -> the plain version; CUDA -> `csrc/shard_cycle_select.cu`, one
-    thread-block cluster a cycle."""
+                       wrow=None, perm=None, inv_perm=None, pos=None,
+                       stamps=None, round=0, stamp=0):
+    """K9b on one device, over the [D, stride] records of one cycle (the
+    cycle's half of the device's buffer), after its stamps (`stamps` [2,
+    D] of the device, None under the host's copies). CPU -> the plain
+    version; CUDA -> `csrc/shard_cycle_select.cu`, one thread-block
+    cluster a cycle, its first thread waiting for the stamps."""
     dev = gathered.device
-    _require_on("shard_cycle_select", dev, wrow, perm, inv_perm, pos)
+    _require_on("shard_cycle_select", dev, wrow, perm, inv_perm, pos,
+                stamps)
     if not gathered.is_cuda:
         return shard_cycle_select_plain(
             gathered, planes, rows, n_real, pod, last_index,
             last_node_index, num_to_find, weights, z_pad, wrow=wrow,
-            perm=perm, inv_perm=inv_perm, pos=pos)
+            perm=perm, inv_perm=inv_perm, pos=pos, stamps=stamps,
+            round=round, stamp=stamp)
     with _on(dev):
         return _shard_cycle_select_launch(
             gathered, planes, rows, n_real, pod, last_index,
             last_node_index, num_to_find, weights, z_pad, wrow, perm,
-            inv_perm, pos)
+            inv_perm, pos, stamps, round, stamp)
 
 
 # ---- K9c shard_uniform_sweep ------------------------------------------------
@@ -3500,9 +4057,6 @@ def shard_uniform_select(gathered, rows, hoff, state, out, lni_out, owner,
 SS_ROUND = SS_COUNT
 #: int64 words of a device's step state
 SS_WORDS = SS_COUNT + 1
-#: the other cards a local step writes its records to, at most (an
-#: 8-card host; `MAX_PEERS` in csrc/shard_scan.cuh)
-MAX_PEERS = 7
 #: the skip flag's slot in a row of the [U, 13] scalar table
 _SC_SKIP = _SCAN_SCALARS.index("skip")
 

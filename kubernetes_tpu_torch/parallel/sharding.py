@@ -12,25 +12,26 @@ device (the JAX mesh is single-controller too):
 - shard s owns rows [s * n_pad / D, (s + 1) * n_pad / D) of the node
   matrix, on `mesh.devices[s]`; devices may repeat (`["cuda:0"] * 4` runs
   four shards on one card, `["cpu"] * 4` is what the CPU tests use);
-- a shard-local kernel (K9a for the cycle, K14a for a victim scan) runs
-  on each shard's own device over its rows and writes a small per-row
-  record (K14a reduces its rows' victim scan to one candidate record per
-  shard); K9c, a uniform pass, and K10a / K11a / K13a, a step of the
-  scan / fused window / pressure wave, run ONE launch a device over every
-  shard it holds, each shard's record (K13a: with its candidate record)
-  written straight into row s of that device's gathered buffer;
-- `all_gather` copies every shard's record into a replicated [D, bytes]
-  buffer on each distinct device (a peer copy between cards, an on-device
-  copy on one card), each copy ordered after its producer by a CUDA
-  event; after K9c, `gather_in_place` copies only the rows whose shard
-  lives on another device (`gather_plan`), none on one card;
-- a step of K10a / K11a / K13a exchanges its records on the device
-  (`Mesh.exchange` "peer"): each local also writes its shards' records
-  into every other card's buffer over NVLink, in half i & 1 of a
-  two-half buffer at step i, then publishes a stamp the selects wait for
-  (`mesh_stamps`), so a step is one bound launch a card for the local
-  and one for the select, no event and no copy; a host whose cards lack
-  peer access takes "copy", the host's `gather_in_place` between them;
+- every shard-local kernel runs ONE launch a device over every shard it
+  holds: K9a for the cycle and K14a for a victim scan (one call each,
+  outside a window: call r writes half r & 1 of its buffers, r from the
+  mesh's one round counter, `Mesh.next_round`), K9c for a uniform pass,
+  K10a / K11a / K13a for a step of the scan / fused window / pressure
+  wave. Each shard's record (K14a reduces its rows' victim scan to one
+  candidate record; K13a appends it) is written straight into row s of
+  that device's gathered buffer;
+- `gather_in_place` copies only the rows whose shard lives on another
+  device (`gather_plan`), none on one card, each copy ordered after its
+  producer by a CUDA event (`all_gather`, every row to every device, is
+  the reference the tests hold the in-place records against);
+- K9a, K10a / K11a / K13a and K14a exchange their records on the device
+  (`Mesh.exchange` "peer"): each also writes its shards' records into
+  every other card's buffer over NVLink, in half i & 1 of a two-half
+  buffer at step (or call) i, then publishes a stamp the selects wait
+  for (`mesh_stamps`), so a step is one bound launch a card for the
+  local and one for the select, no event and no copy; a host whose cards
+  lack peer access takes "copy", the host's `gather_in_place` between
+  them;
 - a replicated select (K9b, K9d, K10b, K11b, K13b, K14b) runs on every
   distinct device over the gathered records, so every device reaches the
   same decision. The scans keep their step state (step index, li / lni,
@@ -136,9 +137,13 @@ class Mesh:
         self.exchange = exchange
         self._stamps = None
         self._stamp_next = 0
-        # the sharded victim scan's buffers by slot count, and its calls
+        # the sharded victim scan's buffers by slot count, the sharded
+        # cycle's by n_pad, and the round both take their halves from
         self._preempt: dict = {}
-        self._preempt_round = 0
+        self._cycle: dict = {}
+        self._round = 0
+        # the static weight rows on every distinct device, by weights
+        self._wrows: dict = {}
 
     @property
     def size(self) -> int:
@@ -166,6 +171,15 @@ class Mesh:
         base = self._stamp_next
         self._stamp_next += int(n)
         return base
+
+    def next_round(self) -> int:
+        """The round of the next call outside a window (a sharded cycle,
+        K9a / K9b, or a sharded victim scan, K14a / K14b): one counter
+        for both, so consecutive calls of either kind on the mesh write
+        and read alternate halves of their buffers."""
+        r = self._round
+        self._round += 1
+        return r
 
     def __repr__(self):
         return f"Mesh({[str(d) for d in self.devices]}, {self.exchange})"
@@ -369,57 +383,121 @@ def _replicas(mesh: Mesh, v, dtype=None) -> dict:
 
 
 def _weight_rows(mesh: Mesh, weights, wtab, pid) -> dict:
-    """The [K] weight row on every distinct device, made once per call:
-    the `wtab` row of profile `pid`, else the static weights in axis
-    order (the kernels and plain versions read either alike)."""
+    """The [K] weight row on every distinct device: the `wtab` row of
+    profile `pid` (made once per call), else the static weights in axis
+    order, uploaded once a mesh and weights (the kernels only read it;
+    the kernels and plain versions read either alike)."""
+    if wtab is None:
+        key = tuple(int(weights.get(n, 0)) for n in K.PRIORITY_AXIS)
+        rows = mesh._wrows.get(key)
+        if rows is None:
+            rows = mesh._wrows[key] = {d: K._weight_row(weights, None, d)
+                                       for d in mesh.distinct}
+        return rows
     wtabs = _replicas(mesh, wtab, K.I64)
-    return {d: K._weight_row(weights, None if wtabs[d] is None
-                             else K._row_at(wtabs[d], pid), d)
+    return {d: K._weight_row(weights, K._row_at(wtabs[d], pid), d)
             for d in mesh.distinct}
+
+
+def cycle_sides(mesh: Mesh, n_pad: int) -> dict:
+    """{device: K.CycleSide} of the mesh's sharded cycle at `n_pad` slots,
+    made at its first cycle: on every distinct device the records' two
+    halves [2, D, K.full_record_bytes(rows)] (every plane's room, so the
+    buffer never regrows and its peers' pointers never change), zeroed,
+    one ticket a shard, and under "peer" the mesh's stamps (`mesh_stamps`,
+    with peer access enabled) and the other devices' (halves, stamps) by
+    `exchange_plan`. The cards are synchronized once after the zeroing,
+    so no card's first K9a can write into a buffer another card has yet
+    to zero."""
+    sides = mesh._cycle.get(int(n_pad))
+    if sides is None:
+        stride = K.full_record_bytes(mesh.rows(n_pad))
+        halves = {d: torch.zeros((2, mesh.size, stride), dtype=torch.uint8,
+                                 device=d) for d in mesh.distinct}
+        stamps = mesh_stamps(mesh) if mesh.exchange == "peer" \
+            else {d: None for d in mesh.distinct}
+        for d in mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        peers = {mesh.devices[s]: dests[1:]
+                 for s, dests in exchange_plan(mesh.devices)}
+        sides = mesh._cycle[int(n_pad)] = {
+            d: K.CycleSide(halves[d], stamps[d], tuple(
+                (halves[x], stamps[x]) for x in peers[d])
+                if mesh.exchange == "peer" else (),
+                torch.zeros(mesh.size, dtype=K.I64, device=d))
+            for d in mesh.distinct}
+    return sides
 
 
 def sharded_cycle(mesh: Mesh, nodes, pod: dict, last_index, last_node_index,
                   num_to_find, n_real, z_pad, weights=None, wtab=None,
                   perm=None, inv_perm=None, pos=None, ghost=None) -> dict:
     """`sharded_cycle_fn` (sharding.py:115): one scheduling cycle with the
-    node axis split over the mesh. K9a on every shard (filter, row-local
-    scores, the record), the all-gather, K9b on every distinct device
-    (walk, kept-set normalizations, select). `ghost` ({cpu, mem, eph,
-    cnt} of whole [n_pad] vectors, one such dict per shard, or None) is
-    the nominated load each shard's filter adds to its rows. Returns the
-    JAX output dict; its per-node tensors are whole [n_pad] vectors on the
-    first device. Books `gather.cycle` (bytes)."""
+    node axis split over the mesh. K9a, ONE launch a distinct device over
+    every shard it holds (filter, row-local scores, each shard's record
+    written in place into row s of the cycle's half of the device's
+    buffer and, under "peer", of every other card's, then its stamp);
+    under "copy" the host copies other devices' rows in
+    (`gather_in_place`); then K9b on every distinct device (walk,
+    kept-set normalizations, select) from the records in place, after
+    their stamps. The pod's per-node fields and `ghost` ({cpu, mem, eph,
+    cnt} whole [n_pad] vectors, or None: the nominated load each shard's
+    filter adds to its rows) go to each device once, whole. The cycle takes the mesh's next round
+    (`Mesh.next_round`, shared with the sharded victim scan) and, under
+    "peer", one stamp value. Returns the JAX output dict; its per-node
+    tensors are whole [n_pad] vectors on the first device (on one card,
+    the ones K9a wrote). Books `gather.cycle` (bytes in every device's
+    buffer) and `copies.cycle` (record copies enqueued: none under
+    "peer")."""
     weights = weights or K.DEFAULT_WEIGHTS
     shards = _as_shards(mesh, nodes)
     n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
     rows = mesh.rows(n_pad)
-    planes = K.cycle_record_planes(pod, weights)
-    pods = shard_pod_arrays(mesh, pod)
+    sides = cycle_sides(mesh, n_pad)
     wrow = _weight_rows(mesh, weights, wtab, pod.get("profile_id", 0))
-    ghosts = [None] * mesh.size if ghost is None \
-        else _row_shards(mesh, ghost, rows, K.GHOST_FIELDS)
-    local = [K.shard_cycle_local(sh, pd, s * rows, n_real, weights, planes,
-                                 wrow=wrow[dev], ghost=ghosts[s])
-             for s, (sh, pd, dev) in enumerate(zip(shards, pods,
-                                                   mesh.devices))]
-    gathered, nbytes = all_gather(mesh, [r[3] for r in local])
-    obs.inc("gather.cycle", nbytes)
+    stamp = K.stamp_value(mesh.reserve_stamps(1), 0) \
+        if mesh.exchange == "peer" else 0
+    call = K.CycleCall(pod=pod, planes=K.cycle_record_planes(pod, weights),
+                       weights=weights, wrows=wrow,
+                       ghost=ghost, n_pad=n_pad,
+                       rows=rows, D=mesh.size, n_real=int(n_real),
+                       round=mesh.next_round(), stamp=stamp)
+    groups = device_groups(mesh, [K.CycleShard(s, s * rows, sh)
+                                  for s, sh in enumerate(shards)])
+    outs = {d: K.shard_cycle_local(group, sides[d], call)
+            for d, group in groups}
+    copies = 0
+    if mesh.exchange == "copy":
+        copies = gather_in_place(
+            mesh, [sides[dev].records(call)[s]
+                   for s, dev in enumerate(mesh.devices)],
+            {d: sides[d].records(call) for d in mesh.distinct})
+    obs.inc("gather.cycle", len(mesh.distinct) * mesh.size
+            * call.record_bytes)
+    obs.inc("copies.cycle", copies)
     perms, invs, poss = (_replicas(mesh, perm, K.I32),
                          _replicas(mesh, inv_perm, K.I32),
                          _replicas(mesh, pos, K.I32))
     sel = {d: K.shard_cycle_select(
-        gathered[d], planes, rows, n_real, pod, last_index, last_node_index,
-        num_to_find, weights, z_pad, wrow=wrow[d], perm=perms[d],
-        inv_perm=invs[d], pos=poss[d]) for d in mesh.distinct}
+        sides[d].records(call), call.planes, rows, n_real, pod, last_index,
+        last_node_index, num_to_find, weights, z_pad, wrow=wrow[d],
+        perm=perms[d], inv_perm=invs[d], pos=poss[d],
+        stamps=sides[d].stamps, round=call.round, stamp=call.stamp)
+        for d in mesh.distinct}
     d0 = mesh.devices[0]
     out, total, kept = sel[d0]
-
-    def cat(i):
-        return torch.cat([r[i].to(d0) for r in local])
+    per_row = list(outs[d0])
+    for s, dev in enumerate(mesh.devices):
+        if dev != d0:
+            # another card's shard: its rows into the first device's
+            for mine, theirs in zip(per_row, outs[dev]):
+                mine[s * rows: (s + 1) * rows].copy_(
+                    theirs[s * rows: (s + 1) * rows])
     return {"selected": out[0], "found": out[1], "evaluated": out[2],
             "max_score": out[3], "total": total, "kept": kept,
-            "feasible": cat(0), "fail_first": cat(1),
-            "general_bits": cat(2), "next_last_index": out[4],
+            "feasible": per_row[0], "fail_first": per_row[1],
+            "general_bits": per_row[2], "next_last_index": out[4],
             "next_last_node_index": out[5]}
 
 
@@ -970,8 +1048,9 @@ def preempt_call(mesh: Mesh, nodes, vic, pod: dict, feas_static,
     its K.PreemptShard list}, {device: K.PreemptSide}, K.PreemptCall).
     `feas_static` and `order_rank` go to each distinct device once (a
     tensor already there stays), and each shard takes its slice there.
-    The call takes the mesh's next round and, under "peer", one stamp
-    value (`Mesh.reserve_stamps`)."""
+    The call takes the mesh's next round (`Mesh.next_round`, shared with
+    the sharded cycle) and, under "peer", one stamp value
+    (`Mesh.reserve_stamps`)."""
     shards = _as_shards(mesh, nodes)
     vics = _vic_shards(mesh, vic)
     n_pad = sum(int(sh["valid"].shape[0]) for sh in shards)
@@ -994,8 +1073,7 @@ def preempt_call(mesh: Mesh, nodes, vic, pod: dict, feas_static,
           for k in ("req_cpu", "req_mem", "req_eph")),
         max_prio=int(max_prio), cr=cr,
         hr=bool(K._host(has_request)) and cr, n_real=int(n_real), P=P,
-        D=mesh.size, round=mesh._preempt_round, stamp=stamp)
-    mesh._preempt_round += 1
+        D=mesh.size, round=mesh.next_round(), stamp=stamp)
     return groups, sides, call
 
 

@@ -204,10 +204,11 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
             for h, c in zip(host, slots):
                 assert c == pre + short.get(h, h.upper()), (name, h, c)
     # K9b's pointer table: its cluster select's staging area and workspace
-    # in place of the one-block select's flat planes and scratch
+    # in place of the one-block select's flat planes and scratch, then the
+    # stamps of the records K9a wrote in place
     assert PK._SCS_PTRS == ("gathered", "w", "ic_b", "tr_b", "perm",
                             "inv_perm", "pos", "total", "kept", "out",
-                            "recs", "workspace")
+                            "recs", "workspace", "stamps")
     # K9d's: its cluster's workspace in place of the one-block select's
     # flat tie / stay planes and tie lists
     assert PK._SUD_PTRS == ("gathered", "perm", "oid_seq", "state", "out",

@@ -195,7 +195,7 @@ def test_calls_back_to_back_alternate_halves(exchange):
         assert_same(got, PK.preemption_scan(pn, vic, pod, feas, rank,
                                             N_REAL, True, True, 6), case)
         side = PS.preempt_sides(mesh, 16)[CPU]
-        assert mesh._preempt_round == r + 1
+        assert mesh._round == r + 1
         if exchange == "peer":
             assert (side.stamps[r & 1] == PK.stamp_value(r, 0)).all()
         else:

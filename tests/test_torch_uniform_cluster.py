@@ -398,15 +398,17 @@ def test_k9b_plans_as_k10b(monkeypatch, n_pad, z_pad):
 
 
 def test_k9b_layout_and_one_block_select_gone():
-    """K9b launches one cluster through the shared helpers, stages its
-    records with `select_stage` and waits on no stamp; the one-block
+    """K9b launches one cluster through the shared helpers, waits for its
+    cycle's stamps itself (`stamps_wait`, no step state) and stages the
+    records K9a wrote in place with `select_stage`; the one-block
     `cycle_select`, `unpack_records` and the scratch planes K9b's wrapper
     allocated for them are gone, `RecLayout` stays."""
     src = (_build.CSRC / "shard_cycle_select.cu").read_text()
     assert "<<<" not in src and "cluster_launch(" in src
     assert 'extern "C" int shard_cycle_select_clusters(' in src
     assert "select_stage(" in src and "cluster_cycle<true, GS>(" in src
-    assert "stamp_wait" not in src and "SS_ROUND" not in src
+    assert "stamps_wait(" in src
+    assert "stamp_wait(" not in src and "SS_ROUND" not in src
     cycle = (_build.CSRC / "cycle.cuh").read_text()
     for gone in ("cycle_select(", "unpack_records(", "FL_KEPTP"):
         assert gone not in cycle, gone
@@ -415,7 +417,8 @@ def test_k9b_layout_and_one_block_select_gone():
     assert "stamp_wait(a, round)" in select
     for gone in ("p64", "flags", "zs", "zone", "tracked"):
         assert gone not in PK._SCS_PTRS, gone
-    assert PK._SCS_PTRS[-2:] == ("recs", "workspace")
+    assert PK._SCS_PTRS[-3:] == ("recs", "workspace", "stamps")
+    assert PK._SCS_INTS[-2:] == ("round", "stamp")
 
 
 #: the only feasible nodes of the K9b world: around the select plan's span
