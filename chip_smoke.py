@@ -104,7 +104,8 @@
 3. Drives the paths through TorchScheduler, each on 15,000 or 15,001 nodes
    (bench.py's node shape: 4 CPU, 32 Gi, 110 pods, zone i % 3):
    - the uniform burst (K3): 10,000 identical pods (100m / 500 Mi), the
-     assume loop, then serial cycles; on 15,000 and 15,001 nodes;
+     assume loop, then serial cycles; on 15,000 and 15,001 nodes; K1 is
+     inline in K3 (and K9c): the path fails if K1 launches;
    - scan-default (K5): the same pods at the default
      percentageOfNodesToScore (50: 7,500 nodes to find), identity and
      perm walks, then four serial cycles at the carried last_index;
@@ -124,7 +125,7 @@
    - preempt-single (K7, with K2 and K4): 32 rounds of schedule ->
      FitError -> preempt on the preempt-wave world, the shell's evictions
      in between; rounds 2-32 scatter the victim planes' dirty rows;
-   - mesh-uniform (K9a-d, with K1 and K4 per shard): the uniform burst
+   - mesh-uniform (K9a-d, with K4 a card; no K1 launch): the uniform burst
      and four serial cycles through TorchScheduler(mesh=Mesh(["cuda"] *
      4)), four shards on the one card, on 15,000 and 15,001 nodes, held
      against the single-device K3/K2 run of the same world: decisions,
@@ -161,6 +162,15 @@
      largest cell of the JAX harness's shard matrix, 200,000 nodes and a
      1,000-pod window at the default 50 % on one card, its first 64 pods
      held against the plain path;
+   - commit: the shell's wave commit on the uniform and scan-default
+     bursts (15,000 nodes, wave_size 1,024): with a commit callback the
+     windows tile the decisions and decisions, walk counters and folded
+     rows equal the bursts without one; a commit that answers False at
+     the third window leaves the first three windows, the walk counters
+     at that prefix (the uniform one also against the plain path) and no
+     resident folds; a stale_scan drill raises StaleNodeRefusal before
+     any window commits; a `[commit]` line gives the windows and the host
+     ms a commit;
    - twin: the serial cycle's host twin on a CUDA TorchScheduler at
      15,000 nodes: a nominee with a host port sends a cycle to the twin,
      the next cycle (resource-only nominees) runs on K2 with the ghost,
@@ -201,8 +211,7 @@ import time
 
 N_NODES, N_PODS, N_SERIAL = 15000, 10000, 4
 PREFIX = 1024                   # pods of a window held against the plain path
-UNIFORM_KERNELS = ("local_total", "schedule_cycle", "uniform_burst",
-                   "scatter_rows")
+UNIFORM_KERNELS = ("schedule_cycle", "uniform_burst", "scatter_rows")
 # the fused window: gangs of GANG_SIZE interleaved with singleton runs of
 # RUN_SIZE, plus one gang on the RACK_NODES nodes labelled rack=r0
 N_GANGS, GANG_SIZE, RUN_SIZE, RACK_NODES = 100, 64, 36, 40
@@ -277,11 +286,9 @@ CYCLE_KEYS = ("selected", "found", "evaluated", "max_score", "total",
               "kept", "feasible", "fail_first", "general_bits",
               "next_last_index", "next_last_node_index")
 #: the kernel entry points `plain_versions` swaps by default
-KERNEL_ENTRIES = ("local_total", "schedule_cycle", "schedule_batch_uniform",
+KERNEL_ENTRIES = ("schedule_cycle", "schedule_batch_uniform",
                   "scatter_staged", "schedule_batch", "schedule_batch_segments",
                   "preemption_scan", "pressure_batch")
-#: the mesh kernels K9a-d, and the single-device kernels a mesh path also
-#: launches per shard (K1, K4)
 #: the kernels of the mesh-uniform path (K9a-d)
 UNIFORM_MESH_KERNELS = ("shard_cycle_local", "shard_cycle_select",
                         "shard_uniform_sweep", "shard_uniform_select")
@@ -294,7 +301,8 @@ PREEMPT_MESH_KERNELS = ("shard_preempt_local", "shard_preempt_select")
 PRESSURE_MESH_KERNELS = ("shard_pressure_local", "shard_pressure_select")
 MESH_KERNELS = UNIFORM_MESH_KERNELS + SCAN_MESH_KERNELS + SEG_MESH_KERNELS \
     + PREEMPT_MESH_KERNELS + PRESSURE_MESH_KERNELS
-MESH_ENTRIES = MESH_KERNELS + ("local_total", "scatter_staged")
+#: the mesh kernels, and K4, which a mesh path also launches a card
+MESH_ENTRIES = MESH_KERNELS + ("scatter_staged",)
 
 
 #: entry points whose plain version is not `<name>_plain`: K13a's, K9c's,
@@ -2098,6 +2106,14 @@ FUSED_CELL = {"name": "fused-gang", "pct": 50, "labels": rack_labels,
               "profiles": FUSED_PROFILES}
 
 
+def no_k1_launch(name, counts):
+    """K1 is inline in K3 and K9c (their pass-start scores): a uniform or
+    mesh-uniform path launches it no time."""
+    if counts["local_total"]:
+        raise SystemExit(f"{name}: K1 local_total launched "
+                         f"{counts['local_total']} times on the path")
+
+
 def main_path(name, n_nodes, device, sync, report):
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.ops import kernels as K
@@ -2115,6 +2131,7 @@ def main_path(name, n_nodes, device, sync, report):
     if missing:
         raise SystemExit(f"{name}: kernels not launched on the path: "
                          f"{missing}")
+    no_k1_launch(name, counts)
     if run["hosts"] != ref["hosts"] or run["serial"] != ref["serial"]:
         raise SystemExit(f"{name}: decisions differ from the plain path")
     placed = sum(h is not None for h in run["hosts"])
@@ -2388,11 +2405,12 @@ def mesh_path(name, n_nodes, device, sync, report, check_kernels,
     refusals = obs.family("refusal")
     if refusals:
         raise SystemExit(f"{name}: refusals {refusals}")
-    missing = [k for k in UNIFORM_MESH_KERNELS
-               + ("local_total", "scatter_rows") if counts[k] == 0]
+    missing = [k for k in UNIFORM_MESH_KERNELS + ("scatter_rows",)
+               if counts[k] == 0]
     if missing:
         raise SystemExit(f"{name}: kernels not launched on the path: "
                          f"{missing}")
+    no_k1_launch(name, counts)
     cycle_copies = cycle_mesh_check(name, mesh, counts)
     if run["hosts"] != single["hosts"] or run["serial"] != single["serial"]:
         raise SystemExit(f"{name}: decisions differ from the single-device "
@@ -4904,6 +4922,150 @@ def twin_phase(device, sync):
           f"(twin {cpu[1][0]:.1f} ms, plain K2 {cpu[1][1]:.1f} ms)")
 
 
+#: the shell's commit window in the [commit] phase, and the window (0-based)
+#: whose commit answers False in its abort run
+COMMIT_WAVE, COMMIT_ABORT_AT = 1024, 2
+
+
+def commit_run(cfg, n_nodes, device, sync, fail_at=None, stale=None):
+    """One burst of the uniform (pct 100) or scan-default (pct 50) cell
+    through schedule_burst(commit=), wave_size COMMIT_WAVE: the callback
+    assumes each window's pods, as the shell's commit binds them, and
+    answers False at window `fail_at`; `stale(call, decided)` is the
+    shell's node-death scan when given. Returns the returned hosts, the
+    windows (lo, hosts), each commit's host ms, the walk counters, the
+    resident rows, and the StaleNodeRefusal if one was raised."""
+    from kubernetes_tpu_torch.core import StaleNodeRefusal
+    infos, tree = cluster(n_nodes)
+    window = pods(N_PODS)
+    sched = make_sched(tree, device, cfg["pct"])
+    sched.wave_size = COMMIT_WAVE
+    windows, ms, scans = [], [], []
+
+    def commit(lo, hosts):
+        t = time.perf_counter()
+        part = window[lo: lo + len(hosts)]
+        gens = [assume(infos, p, h) for p, h in zip(part, hosts)]
+        sched.note_burst_assumed_many(part, hosts, gens)
+        ms.append((time.perf_counter() - t) * 1e3)
+        windows.append((lo, list(hosts)))
+        return len(windows) - 1 != fail_at
+    if stale is not None:
+        def scan(decided, _names):
+            scans.append(len(decided))
+            return stale(len(scans), decided)
+        sched.stale_scan = scan
+    refusal = None
+    try:
+        hosts = sched.schedule_burst(window, infos, tree.list_names(),
+                                     commit=commit)
+    except StaleNodeRefusal as e:
+        hosts, refusal = None, e
+    sync()
+    return {"hosts": hosts, "windows": windows, "ms": ms, "scans": scans,
+            "counters": (sched.last_index, sched.last_node_index),
+            "rows": mutable_rows(sched), "refusal": refusal}
+
+
+def commit_phase(device, sync):
+    """The shell's wave commit on the card: the 15,000-node uniform burst
+    (K3) and the scan-default burst (K5, pct 50), each
+    - without a commit callback (the reference; the scan's K5 block
+      captured for its per-pod walk counters);
+    - with one at wave_size 1,024: the windows must tile the reference's
+      decisions in order, and the decisions, walk counters and resident
+      rows must equal the reference's;
+    - with one that answers False at the third window: the returned list
+      is the reference's first three windows and a None tail, the
+      resident folds are dropped, and the walk counters are the
+      reference's at that prefix (the uniform burst's are also held
+      against the same abort on the plain path);
+    - with a stale_scan that reports a decided node: StaleNodeRefusal
+      with that node and the count of decisions naming it, before any
+      window commits, the folds dropped and the counters untouched.
+    Prints the windows and the host ms a commit (the callback's assume
+    loop) on a `[commit]` line."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    cells = (({"name": "uniform", "pct": 100}, "uniform_burst",
+              "schedule_batch_uniform"),
+             ({"name": "scan-default", "pct": 50}, "schedule_batch",
+              "schedule_batch"))
+    for cfg, kernel, entry in cells:
+        name = f"commit {cfg['name']}"
+        obs.reset()
+        with capture(entry) as cap:
+            ref = commit_run(cfg, N_NODES, device, sync)
+        ref_hosts = ref["hosts"]
+        obs.reset()
+        run = commit_run(cfg, N_NODES, device, sync)
+        counts = K.launches()
+        if counts[kernel] == 0:
+            raise SystemExit(f"{name}: {kernel} was not launched")
+        no_k1_launch(name, counts)
+        if None in ref_hosts or run["hosts"] != ref_hosts:
+            raise SystemExit(f"{name}: decisions differ from the burst "
+                             f"without commit")
+        los = [lo for lo, _h in run["windows"]]
+        if los != list(range(0, N_PODS, COMMIT_WAVE)) or [
+                h for _lo, w in run["windows"] for h in w] != ref_hosts:
+            raise SystemExit(f"{name}: the windows {los} do not tile the "
+                             f"decisions")
+        if run["counters"] != ref["counters"]:
+            raise SystemExit(f"{name}: walk counters {run['counters']} vs "
+                             f"{ref['counters']}")
+        same_rows(name, run["rows"], ref["rows"])
+        # the abort at the third window
+        cut = COMMIT_WAVE * (COMMIT_ABORT_AT + 1)
+        ab = commit_run(cfg, N_NODES, device, sync, fail_at=COMMIT_ABORT_AT)
+        if ab["hosts"] != ref_hosts[:cut] + [None] * (N_PODS - cut) \
+                or len(ab["windows"]) != COMMIT_ABORT_AT + 1 \
+                or ab["rows"] is not None:
+            raise SystemExit(f"{name}: the aborted burst's prefix, windows "
+                             f"or folds differ")
+        if kernel == "uniform_burst":
+            # the uniform kernel never moves last_index, and its one
+            # launch's lni advance stands
+            want = ref["counters"]
+            with plain_versions():
+                plain = commit_run(cfg, N_NODES, device, sync,
+                                   fail_at=COMMIT_ABORT_AT)
+            if (plain["hosts"], plain["counters"]) != (ab["hosts"],
+                                                       ab["counters"]):
+                raise SystemExit(f"{name}: the abort differs from the "
+                                 f"plain path's")
+        else:
+            packed = cap.last[4]["packed"].cpu().numpy()
+            B = (len(packed)) // 3
+            want = (int(packed[B + cut - 1]), int(packed[2 * B + cut - 1]))
+        if ab["counters"] != want:
+            raise SystemExit(f"{name}: counters after the abort "
+                             f"{ab['counters']}, want {want}")
+        # the node-death drill: a decided node vanishes
+        dead = ref_hosts[5]
+        st = commit_run(cfg, N_NODES, device, sync,
+                        stale=lambda call, decided: {dead} & set(decided))
+        e = st["refusal"]
+        n_dead = ref_hosts[:st["scans"][0]].count(dead) if st["scans"] \
+            else 0
+        if e is None or e.dead != {dead} or e.n_stale != n_dead \
+                or st["windows"] or st["rows"] is not None \
+                or st["counters"] != (0, 0):
+            raise SystemExit(f"{name}: the stale drill gave {e!r}, "
+                             f"windows {len(st['windows'])}, counters "
+                             f"{st['counters']}")
+        ms = run["ms"]
+        print(f"[commit] {cfg['name']}: {N_NODES} nodes, {N_PODS} pods in "
+              f"{len(run['windows'])} windows of {COMMIT_WAVE} (last "
+              f"{len(run['windows'][-1][1])}), host ms a commit (the "
+              f"window's assume loop) mean {sum(ms) / len(ms):.3f} max "
+              f"{max(ms):.3f}; decisions, counters and rows equal to the "
+              f"burst without commit; abort at window "
+              f"{COMMIT_ABORT_AT + 1}: {cut} delivered, counters "
+              f"{ab['counters']}, folds dropped; stale drill: "
+              f"StaleNodeRefusal of {e.n_stale} decisions on {dead}")
+
+
 def no_twin(phase):
     """Fail when a phase other than twin_phase decided a cycle on the host
     twin."""
@@ -5055,6 +5217,7 @@ def main() -> int:
         timed(mesh_local_checks, device, sync)
         timed(mesh_scan_paths, device, sync, report, refs)
         timed(preempt_paths, device, sync, report)
+        timed(commit_phase, device, sync)
         timed(twin_phase, device, sync)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))

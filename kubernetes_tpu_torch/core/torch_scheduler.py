@@ -29,6 +29,16 @@ carries:
   in one K8 `pressure_batch` launch per 128-pod chunk and ONE fetch for
   the wave, with the serial loop's outcomes.
 
+What the scheduler shell reads from its algorithm is TPUScheduler's too:
+`supports_fused_segments`, `supports_wave_commit` with
+`schedule_burst(commit=)` (`wave_size` windows of the fetched block,
+`commit_marker`, `launch_cap`), `stale_scan` and StaleNodeRefusal,
+`recover_device`, `metrics.observe_phase`, `serial_path` ("device",
+"host", "adaptive"), `volume_listers` / `volume_binder` (the encoder's
+volume masks and the host twin's volume predicates) and the class
+signatures. The device-fault breaker, `launch_depth`'s fetch pool and the
+flight recorder are not ported yet.
+
 `mesh=` (a `parallel.sharding.Mesh`, or "auto") splits the resident node
 matrix over several devices: schedule() runs the sharded cycle (K9a/K9b),
 the uniform burst the sharded K-batch passes (K9c/K9d), the generic scan
@@ -69,6 +79,7 @@ from kubernetes_tpu_torch import obs
 from kubernetes_tpu_torch.api.types import (
     Pod, get_container_ports, has_pod_affinity_terms)
 from kubernetes_tpu_torch.cache.node_info import NodeInfo, calculate_resource
+from kubernetes_tpu_torch.core import StaleNodeRefusal
 from kubernetes_tpu_torch.factory import (
     DEFAULT_PREDICATE_NAMES, build_predicate_set, build_priority_configs)
 from kubernetes_tpu_torch.oracle import predicates as P
@@ -114,6 +125,20 @@ class TorchScheduler:
     # encode-at-admission pod-row cache (ops.pod_rows.PodRowCache); None =
     # per-window signatures (identical decisions either way)
     pod_rows = None
+    # what the scheduler shell reads from its algorithm: it hands fused
+    # drain windows to schedule_burst_fused, and a commit callback to
+    # schedule_burst, which calls it on consecutive `wave_size` windows of
+    # the one fetched block; `launch_cap` (None = B_CAP) caps a uniform
+    # launch's chunk, so a serving window is one launch
+    supports_fused_segments = True
+    supports_wave_commit = True
+    wave_size = 4096
+    launch_cap: Optional[int] = None
+    # serial_path "adaptive": the device is probed once a host-twin cycle
+    # takes this long, and the slower path is probed again every this
+    # many cycles (TPUScheduler's constants)
+    _DEVICE_PROBE_MS = 30.0
+    _REPROBE_EVERY = 1024
 
     def __init__(self,
                  percentage_of_nodes_to_score: int = DEFAULT_PERCENTAGE_OF_NODES_TO_SCORE,
@@ -122,7 +147,9 @@ class TorchScheduler:
                  replicasets_fn=lambda: [],
                  collect_host_priority: bool = True,
                  nominated=None,
+                 volume_listers=None, volume_binder=None,
                  node_tree=None,
+                 serial_path: str = "device",
                  device=None,
                  mesh=None):
         # multi-device mode: the node axis split over a Mesh of torch
@@ -166,6 +193,31 @@ class TorchScheduler:
         # preemption has nominated pods, the device paths that do not model
         # them refuse (preempt, the pressure wave, the fused window)
         self.nominated = nominated
+        # the volume predicates' listers and binder: the encoder's volume
+        # masks and the host twin's volume predicates (None: no volumes)
+        self.volume_listers = volume_listers
+        self.volume_binder = volume_binder
+        # the serial cycle's path: "device" (K2 always, the parity
+        # configuration), "host" (the host twin always), "adaptive" (both
+        # timed, the faster used: the production shell's choice)
+        if serial_path not in ("device", "host", "adaptive"):
+            raise ValueError(f"serial_path {serial_path!r}: not device, "
+                             f"host or adaptive")
+        self.serial_path = serial_path
+        self._lat_ora: Optional[float] = None
+        self._lat_dev: Optional[float] = None
+        self._serial_cycles = 0
+        # the shell's SchedulerMetrics handle: burst calls observe their
+        # encode / kernel / fetch phase seconds (`observe_phase`)
+        self.metrics = None
+        # the shell's mid-burst node-death scan, `(decided_hosts,
+        # all_names) -> dead set`: with a commit callback, a launch whose
+        # decisions name a vanished node raises StaleNodeRefusal before
+        # any of them commits
+        self.stale_scan = None
+        # walk counters at the last window handed to the commit callback
+        # (the shell's crash-restart checkpoint; None: no window yet)
+        self.commit_marker: Optional[dict] = None
         # NodeTree handle: burst decisions replay the per-cycle
         # zone-interleaved enumeration rotation; None = fixed name order
         self.node_tree = node_tree
@@ -426,6 +478,8 @@ class TorchScheduler:
                           self.replicasets_fn(),
                           hard_pod_affinity_weight=self.hard_pod_affinity_weight,
                           enabled=self.enabled_predicates,
+                          volume_listers=self.volume_listers,
+                          volume_binder=self.volume_binder,
                           state_encoder=self.encoder)
 
     # -- single-pod cycle --------------------------------------------------------
@@ -436,21 +490,59 @@ class TorchScheduler:
         order, where the device cannot decide: `extra_configs`
         (trial-scoped priorities, the gang serial referee's
         GangLocalityPriority) and a nominated cycle the device ghost
-        cannot express go to the host twin (`twin.<reason>`); every other
-        cycle runs on K2 (K9a / K9b on a mesh)."""
+        cannot express go to the host twin (`twin.<reason>`); then
+        `serial_path` chooses: "host" the twin (`twin.serial-path-host`),
+        "adaptive" the faster of the two by their running latencies
+        (`twin.adaptive-twin-faster`), "device" K2 (K9a / K9b on a
+        mesh)."""
         if not all_node_names:
             raise FitError(pod, 0, {})
+        self._serial_cycles += 1
+        nominees = []
         if extra_configs:
-            return self._schedule_host_twin(
-                "gang-locality-serial", pod, node_infos, all_node_names,
-                extra_configs)
-        nominees = self._nominees(pod, all_node_names)
-        if nominees and any(self._ghost_gate(p) is not None
-                            for p in [pod] + [p for _, p in nominees]):
-            return self._schedule_host_twin(
-                "nominated-ghosts", pod, node_infos, all_node_names)
-        return self._schedule_device(pod, node_infos, all_node_names,
-                                     nominees)
+            reason = "gang-locality-serial"
+        else:
+            reason = None
+            nominees = self._nominees(pod, all_node_names)
+            if nominees and any(self._ghost_gate(p) is not None
+                                for p in [pod] + [p for _, p in nominees]):
+                reason = "nominated-ghosts"
+            elif self.serial_path == "adaptive":
+                if self._serial_pick_host_twin():
+                    reason = "adaptive-twin-faster"
+            elif self.serial_path == "host":
+                reason = "serial-path-host"
+        t0 = time.perf_counter()
+        try:
+            if reason is not None:
+                return self._schedule_host_twin(
+                    reason, pod, node_infos, all_node_names, extra_configs)
+            return self._schedule_device(pod, node_infos, all_node_names,
+                                         nominees)
+        finally:
+            dt = time.perf_counter() - t0
+            if reason is not None:
+                self._lat_ora = dt if self._lat_ora is None \
+                    else 0.7 * self._lat_ora + 0.3 * dt
+            else:
+                self._lat_dev = dt if self._lat_dev is None \
+                    else 0.7 * self._lat_dev + 0.3 * dt
+
+    def _serial_pick_host_twin(self) -> bool:
+        """serial_path "adaptive": the host twin first; the device probed
+        once a twin cycle takes `_DEVICE_PROBE_MS`; then the faster by the
+        running latencies, the slower probed again every
+        `_REPROBE_EVERY` cycles (TPUScheduler._serial_pick_host_twin)."""
+        ora, dev = self._lat_ora, self._lat_dev
+        if ora is None:
+            return True
+        if ora < self._DEVICE_PROBE_MS / 1e3:
+            return True
+        if dev is None:
+            return False
+        if self._serial_cycles % self._REPROBE_EVERY == 0:
+            return ora >= dev
+        return ora < dev
 
     def _oracle_fallback(self) -> GenericScheduler:
         """The host twin and its priority configs, built at first use:
@@ -493,7 +585,9 @@ class TorchScheduler:
         o.last_index, o.last_node_index = self.last_index, self.last_node_index
         funcs = build_predicate_set(
             sorted(self.enabled_predicates) if self.enabled_predicates
-            else DEFAULT_PREDICATE_NAMES, node_infos)
+            else DEFAULT_PREDICATE_NAMES, node_infos,
+            volume_listers=self.volume_listers,
+            volume_binder=self.volume_binder)
         cfgs = self._oracle_cfgs
         if self._oracle_cfgs_prof is not None:
             cfgs = self._oracle_cfgs_prof[self._profile_id(pod)]
@@ -618,11 +712,27 @@ class TorchScheduler:
         return ghost
 
     # -- burst path --------------------------------------------------------------
+    @staticmethod
+    def _class_signature(pod: Pod) -> tuple:
+        """Spec fields that determine a pod's device features against a
+        fixed snapshot: equal signatures imply identical encoder output
+        (`ops.pod_rows.pod_class_signature`, the canonical definition).
+        The shell classifies its burst windows by it."""
+        return pod_class_signature(pod)
+
+    @staticmethod
+    def class_signatures(pods: list) -> list:
+        """`_class_signature` of every pod of a window."""
+        return [pod_class_signature(p) for p in pods]
+
     def _signatures(self, pods: list) -> list:
+        """A window's signatures: from the pod-row cache when the shell
+        attached one (interned: equal signatures are one tuple), else
+        `class_signatures`."""
         rc = self.pod_rows
         if rc is not None:
             return rc.signatures(pods)
-        return [pod_class_signature(p) for p in pods]
+        return self.class_signatures(pods)
 
     def _uniform_class(self, p0: Pod, f0, b: NodeBatch,
                        node_infos: dict[str, NodeInfo]) -> Optional[tuple]:
@@ -914,10 +1024,17 @@ class TorchScheduler:
     def _mesh_counts(self, op: str, *kinds) -> dict:
         return {f"{k}.{op}": obs.get(f"{k}.{op}") for k in kinds}
 
+    def _observe(self, phase: str, seconds: float) -> None:
+        """One burst phase's host seconds to the shell's metrics:
+        "encode", "kernel" (a launch's dispatch) or "fetch", where
+        TPUScheduler observes the same names."""
+        if self.metrics is not None:
+            self.metrics.observe_phase(phase, seconds)
+
     def schedule_burst(self, pods: list[Pod], node_infos: dict[str, NodeInfo],
                        all_node_names: list[str],
-                       bucket: Optional[int] = None
-                       ) -> Optional[list[Optional[str]]]:
+                       bucket: Optional[int] = None,
+                       commit=None) -> Optional[list[Optional[str]]]:
         """Schedule `pods` against one snapshot; returns per-pod host (or
         None when unschedulable), serially equivalent to schedule() per pod
         with cache assumes in between. Spec-identical, single-profile
@@ -931,9 +1048,20 @@ class TorchScheduler:
 
         The folds stay on the device: the caller MUST apply the returned
         placements to its cache (assume + note_burst_assumed_many) before
-        the next cycle."""
+        the next cycle.
+
+        `commit(lo, hosts) -> bool` (optional) is the shell's wave sink:
+        it is called with consecutive windows of at most `wave_size`
+        decided hosts, read out of the launch's one fetched block, each
+        after `commit_marker` holds the walk counters at the window's
+        edges. False stops the consumption: the rest of the block and the
+        resident folds are discarded, and the delivered prefix returns
+        with a None tail. With `stale_scan` set, a launch whose decisions
+        name a node the shell no longer has raises StaleNodeRefusal
+        before any of its windows commits."""
         if not all_node_names or not pods:
             return [None] * len(pods)
+        self.commit_marker = None
         t0 = time.perf_counter()
         axis_order, start0 = self._axis_order(all_node_names)
         b = self.encoder.encode(node_infos, axis_order)
@@ -965,9 +1093,10 @@ class TorchScheduler:
             cls, extra_ok, ban = uniform
             rotation = self._burst_rotation(b, len(pods), start0)
             phases["encode"] = time.perf_counter() - t0
+            self._observe("encode", phases["encode"])
             self.last_burst_phases = phases
-            sel = self._uniform_waves(pods, cls, extra_ok, ban, rotation, n,
-                                      bucket, phases, pid0)
+            sel = self._uniform_waves(pods, b, cls, extra_ok, ban, rotation,
+                                      n, bucket, phases, pid0, commit)
             return [b.names[s] for s in sel] \
                 + [None] * (len(pods) - len(sel))
         if any(has_pod_affinity_terms(p) or get_container_ports(p)
@@ -1011,10 +1140,11 @@ class TorchScheduler:
                 rotation = rot
         z_pad = _pad_pow2(len(b.zone_names), 4)
         phases["encode"] = time.perf_counter() - t0
+        self._observe("encode", phases["encode"])
         self.last_burst_phases = phases
         return self._scan_waves(pods, b, specs, rows, pids, spread0,
                                 rotation, rotation_pos, num_to_find, n,
-                                z_pad, bucket, phases)
+                                z_pad, bucket, phases, commit)
 
     def _window_stack(self, specs: list, rows: list, pids, bucket: int,
                       last_pid: int) -> K.PodStack:
@@ -1053,23 +1183,37 @@ class TorchScheduler:
             torch.cuda.current_stream().synchronize()
         return host.numpy()
 
+    def _stale_refusal(self, decided: list, n: int, b: NodeBatch) -> None:
+        """The shell's node-death scan over a fetched launch's decided
+        hosts, before any of them commits: a vanished node drops the
+        resident folds and raises StaleNodeRefusal (the dead set, and how
+        many decisions name it)."""
+        dead = self.stale_scan(decided, b.names[:n])
+        if dead:
+            self.discard_burst_folds()
+            raise StaleNodeRefusal(
+                dead, max(1, sum(1 for h in decided if h in dead)))
+
     def _scan_waves(self, pods: list[Pod], b: NodeBatch, specs: list,
                     rows: list, pids, spread0, rotation, rotation_pos,
                     num_to_find: int, n: int, z_pad: int, bucket: int,
-                    phases: dict) -> list:
+                    phases: dict, commit=None) -> list:
         """The generic scan's launch and fetch: the whole window is
         ONE K5 launch (scan length = the bucket), or in mesh mode one
         K10a/K10b step per live pod with no host read between them, and
         ONE fetch of the packed [3B] block of selections and per-pod walk
-        counters.
+        counters, which `commit` then consumes in `wave_size` windows.
 
         Rewind contract, from slices of that one block: the scan keeps
         deciding after a failed pod, so everything from the first failure
         on is undecided; the walk counters are read at the last decided
-        pod, and the folds are dropped (the host mirror is authoritative
-        again). A window that decides every pod persists its folds."""
+        pod (with `commit`: at the last window handed to it), and the
+        folds are dropped after a failure or an aborted commit (the host
+        mirror is authoritative again). A window that decides and commits
+        every pod persists its folds."""
         B = bucket
         n_pods = len(pods)
+        W = max(1, min(int(self.wave_size), B))
         t = time.perf_counter()
         stack = self._window_stack(specs, rows, pids, B,
                                    0 if pids is None else int(pids[-1]))
@@ -1092,44 +1236,80 @@ class TorchScheduler:
         obs.inc("dispatch.burst_scan")
         t2 = time.perf_counter()
         phases["dispatch"] += t2 - t
+        self._observe("kernel", t2 - t)
         h = self._fetch(outs["packed"], "scan")
         obs.inc("fetch.burst_scan")
-        phases["fetch"] += time.perf_counter() - t2
+        dt = time.perf_counter() - t2
+        phases["fetch"] += dt
+        self._observe("fetch", dt)
         self._mesh_phases("burst_scan", phases, before)
         sel_arr = h[:n_pods]
         li_after = h[B:2 * B]
         lni_delta = h[2 * B:3 * B]
         neg = sel_arr < 0
         bad = int(np.argmax(neg)) if neg.any() else n_pods
-        if bad > 0:
-            self.last_index = int(li_after[bad - 1])
-            self.last_node_index += int(lni_delta[bad - 1])
-        if bad < n_pods:
-            # post-failure folds never became decisions
+        li0, lni0 = self.last_index, self.last_node_index
+        committed, aborted = bad, False
+        if commit is not None:
+            if self.stale_scan is not None:
+                self._stale_refusal(
+                    [b.names[s] for s in sel_arr[:bad].tolist()], n, b)
+            committed = 0
+            for wlo in range(0, bad, W):
+                hi = min(wlo + W, bad)
+                # the block carries every pod's walk counters: both edges
+                # of every window are exact
+                self.commit_marker = {
+                    "li0": li0 if wlo == 0 else int(li_after[wlo - 1]),
+                    "lni0": (lni0 if wlo == 0
+                             else lni0 + int(lni_delta[wlo - 1])),
+                    "li1": int(li_after[hi - 1]),
+                    "lni1": lni0 + int(lni_delta[hi - 1]),
+                    "committed0": wlo, "committed1": hi}
+                ok = commit(wlo,
+                            [b.names[s] for s in sel_arr[wlo:hi].tolist()])
+                committed = hi
+                if not ok:
+                    aborted = True
+                    break
+        if committed > 0:
+            self.last_index = int(li_after[committed - 1])
+            self.last_node_index = lni0 + int(lni_delta[committed - 1])
+        if bad < n_pods or aborted:
+            # post-failure folds, or folds of decisions an aborted commit
+            # discarded, never became decisions
             self.discard_burst_folds()
         else:
             self._adopt_folds(state)
-        return [b.names[s] for s in sel_arr[:bad].tolist()] \
-            + [None] * (n_pods - bad)
+        return [b.names[s] for s in sel_arr[:committed].tolist()] \
+            + [None] * (n_pods - committed)
 
-    def _uniform_waves(self, pods: list[Pod], cls, extra_ok, ban: bool,
-                       rotation, n: int, bucket: int, phases: dict,
-                       pid: int = 0) -> list:
+    def _uniform_waves(self, pods: list[Pod], b: NodeBatch, cls, extra_ok,
+                       ban: bool, rotation, n: int, bucket: int,
+                       phases: dict, pid: int = 0, commit=None) -> list:
         """Launch driver of the uniform kernel: each chunk (up to B_CAP
-        pods) is ONE K3 launch plus ONE packed [cap+1] device-to-host copy,
-        started at dispatch; up to `launch_depth` chunks are in flight
-        while the oldest is fetched. Returns the decided prefix (axis
-        indices); the caller pads the undecided tail with None. The
-        kernel's failures are a frozen-state suffix (F == 0 persists for
-        identical pods), so the decided prefix is the block's leading
-        non-negative run."""
+        pods, or `launch_cap`) is ONE K3 launch plus ONE packed [cap+1]
+        device-to-host copy, started at dispatch; up to `launch_depth`
+        chunks are in flight while the oldest is fetched, and `commit`
+        consumes each fetched block in `wave_size` windows. Returns the
+        decided prefix (axis indices); the caller pads the undecided tail
+        with None. The kernel's failures are a frozen-state suffix (F ==
+        0 persists for identical pods), so the decided prefix is the
+        block's leading non-negative run. An aborted commit stops at its
+        window: the later chunks are dropped unfetched and the resident
+        folds discarded; the walk counters stay at the aborted chunk's
+        end, as TPUScheduler leaves them."""
         dev = self.device
-        cap = _pad_pow2(max(1, min(bucket, K.B_CAP)), 16)
+        hard = K.B_CAP if not self.launch_cap \
+            else min(K.B_CAP, int(self.launch_cap))
+        cap = _pad_pow2(max(1, min(bucket, hard)), 16)
+        W = max(1, min(int(self.wave_size), cap))
         n_pods = len(pods)
         chunks = [(lo, min(cap, n_pods - lo))
                   for lo in range(0, n_pods, cap)]
         depth = max(1, int(self.launch_depth))
         lni_dev = self.last_node_index   # a device scalar after chunk 0
+        li_entry = self.last_index
         tensor = self._ptab is not None
         weights = self._union_weights if tensor else self.weights
         wtab = self._wtab() if tensor else None
@@ -1167,8 +1347,10 @@ class TorchScheduler:
             if dev.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(dev))
-            inflight.append((chunk, host, event))
-            phases["dispatch"] += time.perf_counter() - t
+            inflight.append((lo, chunk, host, event))
+            dt = time.perf_counter() - t
+            phases["dispatch"] += dt
+            self._observe("kernel", dt)
 
         next_ci = 1
         dispatch(0)
@@ -1176,21 +1358,50 @@ class TorchScheduler:
             while len(inflight) < depth and next_ci < len(chunks):
                 dispatch(next_ci)
                 next_ci += 1
-            chunk, host, event = inflight.pop(0)
+            lo, chunk, host, event = inflight.pop(0)
             t = time.perf_counter()
             if event is not None:
                 event.synchronize()
             h = host.numpy()
             obs.inc("fetch.burst_uniform")
-            phases["fetch"] += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            phases["fetch"] += dt
+            self._observe("fetch", dt)
             chunk_sel = h[:chunk].tolist()
             bad = next((i for i, s in enumerate(chunk_sel) if s < 0), chunk)
+            if commit is not None and self.stale_scan is not None:
+                # earlier chunks stand; this one refuses whole, before its
+                # lni advance (the chunks in flight are dropped unfetched)
+                self._stale_refusal([b.names[s] for s in chunk_sel[:bad]],
+                                    n, b)
+            lni_start = self.last_node_index
             self.last_node_index += int(h[cap])
-            sel.extend(chunk_sel[:bad])
-            if bad < chunk:
+            aborted = False
+            for wlo in range(0, bad, W):
+                hi = min(wlo + W, bad)
+                sel.extend(chunk_sel[wlo:hi])
+                if commit is None:
+                    continue
+                # the uniform kernel never moves last_index, and the block
+                # holds only the chunk's lni advance: a window edge inside
+                # the chunk has no exact lni (None)
+                self.commit_marker = {
+                    "li0": li_entry,
+                    "lni0": lni_start if wlo == 0 else None,
+                    "li1": li_entry,
+                    "lni1": self.last_node_index if hi == chunk else None,
+                    "committed0": lo + wlo, "committed1": lo + hi}
+                if not commit(lo + wlo,
+                              [b.names[s] for s in chunk_sel[wlo:hi]]):
+                    aborted = True
+                    break
+            if bad < chunk or aborted:
                 # later chunks decided nothing more (the state is frozen
-                # once no node fits): drop them unfetched
+                # once no node fits), or their decisions are discarded:
+                # drop them unfetched
                 inflight.clear()
+                if aborted:
+                    self.discard_burst_folds()
                 break
         self._mesh_phases("burst_uniform", phases, before)
         return sel
@@ -1293,6 +1504,9 @@ class TorchScheduler:
         self.last_burst_phases = {"encode": t1 - t0, "mirror": t_mirror,
                                   "dispatch": t2 - t1,
                                   "fetch": time.perf_counter() - t2}
+        for phase, key in (("encode", "encode"), ("kernel", "dispatch"),
+                           ("fetch", "fetch")):
+            self._observe(phase, self.last_burst_phases[key])
         self._mesh_phases("burst_segments", self.last_burst_phases, before)
         sel = h[:B]
         li_after = h[B:2 * B]
@@ -1763,6 +1977,22 @@ class TorchScheduler:
             obs.inc("discarded_folds")
         self._dev_nodes = None
 
+    def recover_device(self, li: Optional[int] = None,
+                       lni: Optional[int] = None) -> None:
+        """Crash-restart reset (the shell's recover): drop the resident
+        node matrix (folds of decisions that never committed must not
+        survive) and victim planes, and rewind the walk counters to the
+        recovered commit boundary. The next encode re-uploads from the
+        host mirror, which the shell's reconcile made authoritative."""
+        self.discard_burst_folds()
+        self._dev_vic = None
+        self._dev_vic_key = None
+        if li is not None:
+            self.last_index = int(li)
+        if lni is not None:
+            self.last_node_index = int(lni)
+        self.commit_marker = None
+
     def invalidate_node(self, host: str) -> None:
         """A node died mid-burst: drop the resident matrix and victim
         planes, and the encoder's generation entries for `host`."""
@@ -1840,8 +2070,8 @@ class TorchScheduler:
         """Mirror shape and epoch, walk counters, device, profiles, the
         victim table (slots, rows, generations, dirty rows, residency, and
         the encoder's rebuild and row re-sort counts), the mesh and its
-        device count, the launch count of every kernel (K1-K14b) and the
-        refusals."""
+        device count, the serial path and its running latencies, the
+        launch count of every kernel (K1-K14b) and the refusals."""
         dev = self._dev_nodes
         mirror = None
         if isinstance(dev, dict):
@@ -1874,6 +2104,12 @@ class TorchScheduler:
             else [p.name for p in self.profiles],
             "weight_table": self._ptab is not None,
             "gang_score": self._gang_score,
+            "serial_path": self.serial_path,
+            "serial_lat_ms": {
+                "host_twin": (None if self._lat_ora is None
+                              else round(self._lat_ora * 1e3, 3)),
+                "device": (None if self._lat_dev is None
+                           else round(self._lat_dev * 1e3, 3))},
             "launches": K.launches(),
             "refusals": obs.family("refusal"),
         }

@@ -1,10 +1,11 @@
 """Predicate and priority registries of the reference's factory
 (`kubernetes_tpu/factory.py`), copied with the port's imports and cut to
-what `TorchScheduler`'s host twin reaches: the DefaultProvider's predicate
-names and priority weights, the predicate-set assembly and the priority
-config registry. The policy and config surface (providers, custom
-predicates and priorities registered by a Policy, `create_scheduler`) has
-no copy in the port.
+what `TorchScheduler`'s host twin and the scheduler shell reach: the
+DefaultProvider's predicate names and priority weights, the predicate-set
+assembly, the priority config registry and the kernel weight dict of a
+priority selection (`tpu_kernel_weights`). The policy and config surface
+(providers, custom predicates and priorities registered by a Policy,
+`create_scheduler`) has no copy in the port.
 
 Mirrors pkg/scheduler/factory/ (CreateFromKeys :417) and
 pkg/scheduler/algorithmprovider/defaults (defaultPredicates :40,
@@ -12,8 +13,9 @@ defaultPriorities :108).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+from kubernetes_tpu_torch.ops import DEFAULT_WEIGHTS
 from kubernetes_tpu_torch.oracle import predicates as preds
 from kubernetes_tpu_torch.oracle import priorities as prios
 from kubernetes_tpu_torch.oracle.generic_scheduler import PriorityConfig
@@ -126,3 +128,31 @@ def build_priority_configs(name_weights: dict[str, int],
         else:
             raise KeyError(f"unknown priority {name!r}")
     return out
+
+
+# -- kernel support matrix ----------------------------------------------------
+# priority name -> kernel weight key (ops.kernels.DEFAULT_WEIGHTS)
+TPU_WEIGHT_KEYS = {
+    "SelectorSpreadPriority": "selector_spread",
+    "InterPodAffinityPriority": "interpod",
+    "LeastRequestedPriority": "least_requested",
+    "MostRequestedPriority": "most_requested",
+    "RequestedToCapacityRatioPriority": "rtcr",
+    "BalancedResourceAllocation": "balanced",
+    "NodePreferAvoidPodsPriority": "prefer_avoid",
+    "NodeAffinityPriority": "node_affinity",
+    "TaintTolerationPriority": "taint_toleration",
+    "ImageLocalityPriority": "image_locality",
+}
+
+
+def tpu_kernel_weights(name_weights: dict[str, int]) -> Optional[dict]:
+    """Kernel weight dict for a priority selection, or None when a priority
+    has no device implementation (callers fall back to the host twin)."""
+    weights = {k: 0 for k in DEFAULT_WEIGHTS}
+    for name, w in name_weights.items():
+        key = TPU_WEIGHT_KEYS.get(name)
+        if key is None:
+            return None
+        weights[key] = w
+    return weights

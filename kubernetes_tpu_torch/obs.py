@@ -29,6 +29,9 @@ One flat table of named counts. Names are dotted by family:
                   wave enqueued (one per live pod, one per pod)
   encoder.*, pod_rows.*  host mirror, victim table and row-cache
                   maintenance
+  profile.unknown, profile.scheduled.<profile>  pods no scheduling
+                  profile claims (once per uid), pods each profile
+                  scheduled
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 //
 // Replaces `_local_total` (kubernetes_tpu/ops/kernels.py:110), which XLA
 // inlined into every cycle and burst program. Here the same formulas are a
-// __device__ function (common.cuh) that K2 and K3 call per node, and this
-// standalone kernel computes them over a whole [N] node axis: K2 and K3
-// launch it first for their pass-start scores.
+// __device__ function (common.cuh, `local_total_one`) that every cycle and
+// burst kernel calls inline per node (K2, K3, K5-K11, K13a; K3 and K9c for
+// their pass-start scores too), so no path launches this kernel. It stays
+// as K1's public entry over a whole [N] node axis (`kernels.local_total`)
+// and as the check of `local_total_one` against `local_total_plain`.
 //
 // Bound on the H100: bytes. Per node it reads four int64 (the two request
 // vectors and the two allocatable vectors) and writes one int64: 40 B/node,

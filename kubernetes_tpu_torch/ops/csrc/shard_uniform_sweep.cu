@@ -51,8 +51,8 @@ enum {
 // pointer slots, in the order of `_SUS_PTRS`
 enum {
   UP_W, UP_VALID, UP_EXTRA, UP_ALLOC_CPU, UP_ALLOC_MEM, UP_ALLOWED,
-  UP_XALLOC, UP_SALLOC, UP_SUSED, UP_CLSV, UP_ST, UP_TOT0, UP_TOT, UP_FLAGS,
-  UP_STATE, UP_FOLDED, UP_REC, UP_COUNT
+  UP_XALLOC, UP_SALLOC, UP_SUSED, UP_CLSV, UP_ST, UP_TOT, UP_FLAGS, UP_STATE,
+  UP_FOLDED, UP_REC, UP_COUNT
 };
 
 struct SweepArgs {
@@ -132,13 +132,14 @@ __global__ void __cluster_dims__(SWEEP_BLOCKS, 1, 1)
   const int lo = min(rank * chunk, wd), hi = min(lo + chunk, wd);
   const i64 pass = state[ST_PASS];
   const i64 folded_before = folded[0];
+  __syncthreads();   // the weights are in
   if (pass == 0) {
-    // 0. the burst's first pass: the ok mask and the scores
+    // 0. the burst's first pass: the ok mask and the scores (K1's
+    // `_local_total` of the shard's carried rows, inline)
     const unsigned char* valid = (const unsigned char*)a.p[UP_VALID];
     const unsigned char* extra = (const unsigned char*)a.p[UP_EXTRA];
     const i64* salloc = (const i64*)a.p[UP_SALLOC];
     const i64* sused = (const i64*)a.p[UP_SUSED];
-    const i64* tot0 = (const i64*)a.p[UP_TOT0];
     for (int j = lo + tid; j < hi; j += SWEEP_THREADS) {
       bool o = false;
       int t = 0;
@@ -148,14 +149,13 @@ __global__ void __cluster_dims__(SWEEP_BLOCKS, 1, 1)
         for (int s = 0; s < NS; ++s)
           o = o && !(salloc[(size_t)s * wd + j]
                      < sreq[s] + sused[(size_t)s * wd + j]);
-        t = (int)tot0[j];
+        t = c.score(j, 0);
       }
       ok[j] = o;
       banned[j] = 0;
       tot[j] = t;
     }
   }
-  __syncthreads();   // the weights are in
   if (pass > folded_before && tid < (int)state[ST_VFOLD]) {
     // 1. fold the previous pass's accepted lanes that name this slice
     const i64 loc = state[ST_LANES + tid] - off;

@@ -67,12 +67,12 @@ enum {
 };
 // pointer slots, in the order of `_UNIFORM_PTRS`: the weight row, the node
 // rows the burst only reads, the class vector, the carried rows (folded in
-// place), K1's scores, the rotation, the outputs, the scatter-min scratch
-// and the workspace (NULL while the scratch fits in shared memory)
+// place), the rotation, the outputs, the scatter-min scratch and the
+// workspace (NULL while the scratch fits in shared memory)
 enum {
   UBP_W, UBP_VALID, UBP_EXTRA, UBP_ALLOC_CPU, UBP_ALLOC_MEM, UBP_ALLOWED,
-  UBP_XALLOC, UBP_SALLOC, UBP_SUSED, UBP_CLSV, UBP_ST, UBP_TOT0, UBP_PERM,
-  UBP_OID_SEQ, UBP_LNI_IN, UBP_OUT, UBP_LNI_OUT, UBP_OWNER, UBP_WORKSPACE,
+  UBP_XALLOC, UBP_SALLOC, UBP_SUSED, UBP_CLSV, UBP_ST, UBP_PERM, UBP_OID_SEQ,
+  UBP_LNI_IN, UBP_OUT, UBP_LNI_OUT, UBP_OWNER, UBP_WORKSPACE,
   UBP_COUNT
 };
 
@@ -132,18 +132,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   int* out = (int*)a.p[UBP_OUT];
   const int cap = (int)a.v[UBI_CAP], n_oid = (int)a.v[UBI_N_OID];
 
-  // ---- set-up: the ok mask, the scores, the rows in shared memory --------
+  // ---- set-up: the rows in shared memory, the ok mask, the scores --------
   if (tid < W_K) ws[tid] = ((const i64*)a.p[UBP_W])[tid];
   if (RES)
     for (int r = 0; r < R; ++r)
       for (int l = tid; l < hi - lo; l += NTHREADS)
         rows_sm[(size_t)r * span + l] = st[(size_t)r * n + lo + l];
+  // the weights and the rows are in: each thread scores its own nodes
+  // (K1's `_local_total` of the carried rows, inline as in every cycle)
+  __syncthreads();
   {
     const unsigned char* valid = (const unsigned char*)a.p[UBP_VALID];
     const unsigned char* extra = (const unsigned char*)a.p[UBP_EXTRA];
     const i64* salloc = (const i64*)a.p[UBP_SALLOC];
     const i64* sused = (const i64*)a.p[UBP_SUSED];
-    const i64* tot0 = (const i64*)a.p[UBP_TOT0];
     for (int j = tlo; j < thi; ++j) {
       bool o = valid[j] && (i64)j < a.v[UBI_N_REAL];
       if (extra) o = o && extra[j];
@@ -152,7 +154,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                    < sreq[s] + sused[(size_t)s * n + j]);
       ok[j] = o;
       banned[j] = 0;
-      tot[j] = (int)tot0[j];
+      tot[j] = c.score(j, 0);
     }
   }
   if (rank == 0) {

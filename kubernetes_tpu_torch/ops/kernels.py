@@ -19,7 +19,8 @@ makes; the window's (burst's) later steps re-enqueue it, and the count is
 booked once after the window.
 
 | kernel         | replaces (kubernetes_tpu/ops/kernels.py)           |
-| local_total    | `_local_total` :110                                |
+| local_total    | `_local_total` :110 (every other kernel computes   |
+|                | it inline; the launch is K1's public entry)        |
 | schedule_cycle | `_feasibility` :296, `_fit_scores` :157,           |
 |                | `_cycle_core` :359 -> `schedule_cycle` :509        |
 | uniform_burst  | `_uniform_core` :1097 -> `schedule_batch_uniform`  |
@@ -1130,8 +1131,8 @@ def _uniform_cls_vec(cls, flags) -> list:
 _UNIFORM_INTS = ("n_pad", "n_real", "n_pods", "cap", "K", "R", "NS",
                  "check_res", "has_req", "L", "n_oid", "ban", "gate")
 _UNIFORM_PTRS = ("w", "valid", "extra", "alloc_cpu", "alloc_mem", "allowed",
-                 "xalloc", "salloc", "sused", "clsv", "st", "tot0", "perm",
-                 "oid_seq", "lni_in", "out", "lni_out", "owner", "workspace")
+                 "xalloc", "salloc", "sused", "clsv", "st", "perm", "oid_seq",
+                 "lni_in", "out", "lni_out", "owner", "workspace")
 
 
 def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
@@ -1170,11 +1171,6 @@ def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
     n_oid = 0 if oid_seq is None else int(oid_seq.shape[0])
     if oid_seq is not None and n_oid < K_BATCH:
         raise ValueError("uniform_burst: oid_seq shorter than K_BATCH")
-    # K1 first: the pass-start scores of every node
-    tot0 = _local_total_launch(weights, nodes["nz_cpu"], nodes["nz_mem"],
-                               nodes["alloc_cpu"], nodes["alloc_mem"], wrow,
-                               add_cpu=int(cls["nz_cpu"]),
-                               add_mem=int(cls["nz_mem"]))
     plan = _cluster_geometry("uniform_burst", lambda blocks: uniform_plan(
         n_pad, R, len(salloc), L, blocks))
     out = torch.empty(cap + K_BATCH, dtype=I32, device=dev)
@@ -1183,7 +1179,7 @@ def _uniform_launch(nodes, cls, n_pods, last_node_index, n_real,
             "extra": extra, "alloc_cpu": nodes["alloc_cpu"],
             "alloc_mem": nodes["alloc_mem"],
             "allowed": nodes["allowed_pods"], "xalloc": xa, "salloc": sa,
-            "sused": su, "clsv": clsv, "st": st, "tot0": tot0, "perm": perm,
+            "sused": su, "clsv": clsv, "st": st, "perm": perm,
             "oid_seq": oid_seq,
             "lni_in": _t(last_node_index, dev, I64).reshape(1).contiguous(),
             "out": out, "lni_out": lni_out,
@@ -3596,14 +3592,13 @@ class UniformShard:
     last shard: nothing is ever folded there."""
 
     def __init__(self, offset, rows, width, nodes, st, xa, sa, su, extra,
-                 tot0, rec=None):
+                 rec=None):
         dev = nodes["valid"].device
         self.offset, self.rows, self.width = int(offset), int(rows), \
             int(width)
         self.nodes = nodes
         self.st, self.xa, self.sa, self.su, self.extra = st, xa, sa, su, \
             extra
-        self.tot0 = tot0
         self.tot = torch.zeros(width, dtype=I32, device=dev)
         self.flags = torch.zeros((3, width), dtype=torch.uint8, device=dev)
         self.folded = torch.zeros(1, dtype=I64, device=dev)
@@ -3626,8 +3621,8 @@ class UniformShard:
         return self.st.device
 
     def tensors(self) -> list:
-        return [self.st, self.xa, self.sa, self.su, self.extra, self.tot0,
-                self.tot, self.flags, self.folded, self.rec] + [
+        return [self.st, self.xa, self.sa, self.su, self.extra, self.tot,
+                self.flags, self.folded, self.rec] + [
             self.nodes[k] for k in ("valid", "alloc_cpu", "alloc_mem",
                                     "allowed_pods")]
 
@@ -3686,7 +3681,7 @@ def _sweep_fold_plain(sh: UniformShard, state, clsv, R, NS, check_res,
             o = o & ~(sh.sa[s, :rows] < sreq[s] + sh.su[s, :rows])
         ok.copy_(pad(o).to(torch.uint8))
         banned.zero_()
-        sh.tot.copy_(pad(sh.tot0).to(I32))
+        sh.tot.copy_(pad(score(0, torch.arange(rows, device=dev))))
     st_h = [int(x) for x in state[:ST_LANES].tolist()]
     if st_h[ST_PASS] > int(sh.folded[0]):
         lanes = state[ST_LANES: ST_LANES + st_h[ST_VFOLD]] - sh.offset
@@ -3794,8 +3789,8 @@ def shard_uniform_sweep_group_plain(shards: list, state, clsv, R, NS,
 _SUS_INTS = ("width", "rows", "offset", "n_real", "R", "NS", "check_res",
              "has_req", "ban", "gate", "B", "K", "hoff")
 _SUS_PTRS = ("w", "valid", "extra", "alloc_cpu", "alloc_mem", "allowed",
-             "xalloc", "salloc", "sused", "clsv", "st", "tot0", "tot",
-             "flags", "state", "folded", "rec")
+             "xalloc", "salloc", "sused", "clsv", "st", "tot", "flags",
+             "state", "folded", "rec")
 
 
 def _sweep_words(sh: UniformShard, state, clsv, R, NS, check_res, has_req,
@@ -3807,7 +3802,7 @@ def _sweep_words(sh: UniformShard, state, clsv, R, NS, check_res, has_req,
             "alloc_cpu": nd["alloc_cpu"], "alloc_mem": nd["alloc_mem"],
             "allowed": nd["allowed_pods"], "xalloc": sh.xa,
             "salloc": sh.sa, "sused": sh.su, "clsv": clsv, "st": sh.st,
-            "tot0": sh.tot0, "tot": sh.tot, "flags": sh.flags,
+            "tot": sh.tot, "flags": sh.flags,
             "state": state, "folded": sh.folded, "rec": sh.rec}
     _require_cuda("shard_uniform_sweep", *ptrs.values())
     _require_on("shard_uniform_sweep", sh.device, *ptrs.values())

@@ -860,11 +860,16 @@ class PodEncoder:
                  services=None, replicasets=None, total_num_nodes: Optional[int] = None,
                  hard_pod_affinity_weight: int = 1,
                  enabled: Optional[set] = None,
+                 volume_listers=None, volume_binder=None,
                  state_encoder: Optional[NodeStateEncoder] = None):
         self.node_infos = node_infos
         self.batch = batch
         # predicate names enabled by the provider/policy; None = all
         self.enabled = enabled
+        # the volume predicates' listers and binder
+        # (`oracle.volumes.make_volume_predicates`); None = no volume masks
+        self.volume_listers = volume_listers
+        self.volume_binder = volume_binder
         self.services = services or []
         self.replicasets = replicasets or []
         self.total_num_nodes = total_num_nodes or max(1, batch.n_real)
@@ -988,6 +993,8 @@ class PodEncoder:
             if idx is not None:
                 m[idx] = True
             f.host_ok = m
+        if pod.volumes and self.volume_listers is not None:
+            self._encode_volumes(pod, f)
         has_own_terms = pod.affinity is not None and (
             pod.affinity.pod_affinity is not None
             or pod.affinity.pod_anti_affinity is not None)
@@ -1037,6 +1044,42 @@ class PodEncoder:
                      np.where(fail_anti, IPA_OWN_ANTI, 0))).astype(np.int8)
         codes[b.n_real:] = 0   # padding rows carry no verdict
         return codes
+
+    def _encode_volumes(self, pod: Pod, f: PodFeatures) -> None:
+        """Volume predicate masks, via the oracle implementations per node
+        (volumes are rare per pod; this path only runs when present). Each
+        node's failure reasons, in predicate order, go to
+        `volbind_reasons` for the FitError decode."""
+        from kubernetes_tpu_torch.oracle import volumes as V
+        b = self.batch
+        vol_preds = V.make_volume_predicates(self.volume_listers,
+                                             self.volume_binder)
+        reason_map: dict = {}
+
+        def mask(names: tuple) -> np.ndarray:
+            m = np.ones(b.n_pad, dtype=bool)
+            for i, ni in self._nodes():
+                ok_all = True
+                for name in names:
+                    if not self._on(name):
+                        continue
+                    ok, reasons = vol_preds[name](pod, ni)
+                    if not ok:
+                        ok_all = False
+                        reason_map.setdefault(i, []).extend(reasons)
+                        break
+                m[i] = ok_all
+            return m
+
+        if self._on("NoDiskConflict"):
+            f.disk_ok = mask(("NoDiskConflict",))
+        f.maxvol_ok = mask(("MaxEBSVolumeCount", "MaxGCEPDVolumeCount",
+                            "MaxAzureDiskVolumeCount", "MaxCSIVolumeCountPred"))
+        if self._on("CheckVolumeBinding"):
+            f.volbind_ok = mask(("CheckVolumeBinding",))
+        if self._on("NoVolumeZoneConflict"):
+            f.volzone_ok = mask(("NoVolumeZoneConflict",))
+        f.volbind_reasons = reason_map
 
     # -- score inputs -------------------------------------------------------
     def _encode_scores(self, pod: Pod, f: PodFeatures) -> None:

@@ -574,15 +574,10 @@ def sharded_uniform(mesh: Mesh, nodes, cls, n_pods, last_node_index, n_real,
         R, NS = len(carried), len(salloc)
         extra = None if extra_ok is None \
             else K._t(extra_ok, dev, torch.bool)[lo: lo + rows].contiguous()
-        with K._on(dev):
-            tot0 = K.local_total(weights, nd["nz_cpu"], nd["nz_mem"],
-                                 nd["alloc_cpu"], nd["alloc_mem"],
-                                 wrow=wrow[dev], add_cpu=int(cls["nz_cpu"]),
-                                 add_mem=int(cls["nz_mem"]))
         ushards.append(K.UniformShard(
             lo, rows, width, nd, _pad_cols(carried, width),
             _pad_cols(xalloc, width), _pad_cols(salloc, width),
-            _pad_cols(sused, width), extra, tot0, rec=gbuf[dev][s]))
+            _pad_cols(sused, width), extra, rec=gbuf[dev][s]))
     hoff = ushards[0].hoff
     recs = [sh.rec for sh in ushards]
     groups = device_groups(mesh, ushards)

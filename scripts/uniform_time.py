@@ -1,5 +1,5 @@
-"""Time K3 (`uniform_burst`), K9b (`shard_cycle_select`) and K9d
-(`shard_uniform_select`) on one card.
+"""Time K3 (`uniform_burst`), K9b (`shard_cycle_select`), K9c
+(`shard_uniform_sweep`) and K9d (`shard_uniform_select`) on one card.
 
     python3 scripts/uniform_time.py [--tree DIR] [--reps 20]
 
@@ -20,7 +20,12 @@ gives the before side of a comparison), on bench.py's cluster:
     empty and the rotated burst split over 4 shards of the card, the
     first pass's call captured from `schedule_batch_uniform(mesh=)`, each
     timed call after the copies that restore its pass state and
-    decisions, as chip_smoke.py times it.
+    decisions, as chip_smoke.py times it;
+  - K9c `shard_uniform_sweep` on the same bursts: its first pass (the
+    burst's set-up: the ok mask and the pass-start scores, then the
+    sweep) over the card's 4 shards in one launch, captured from the same
+    call; the pass reads and writes only the shard state it sets up, so
+    every timed call repeats it.
 
 For each: `ms`, the wrapper call's mean over `--reps` calls by CUDA events,
 and `device_ms`, the kernel's own device time a call (torch.profiler);
@@ -142,10 +147,15 @@ def main() -> int:
               "uniform_burst_kernel")
         if label != "filled":
             mesh = S.Mesh([device] * 4)
-            with C.capture("shard_uniform_select") as cap_k9d:
+            with C.capture("shard_uniform_select") as cap_k9d, \
+                    C.capture("shard_uniform_sweep") as cap_k9c:
                 K.schedule_batch_uniform(S.shard_node_arrays(mesh, nodes),
                                          *call[1:], mesh=mesh, **kw)
             k9d(f"K9d mesh-uniform {label} first pass", cap_k9d.call)
+            g, a, k = cap_k9c.call
+            timed(f"K9c mesh-uniform {label} first pass",
+                  lambda: K.shard_uniform_sweep(g, *a, **k),
+                  "shard_uniform_sweep_kernel")
         if label == "filled":
             mesh = S.Mesh([device] * 4)
             shards = S.shard_node_arrays(mesh, nodes)

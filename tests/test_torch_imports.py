@@ -160,11 +160,13 @@ def test_launch_slot_tables_match_the_kernel_enums():
         "CR_" + k.upper() for k in PK.CAND_SLOTS]
 
 
-# the mesh kernels K9a-d, K10a/b, K11a/b, K13a/b and K14a/b: (source
-# holding the enums, the C enum's last slot of the scalar table, of the
-# pointer table, the enum prefixes, host tables); K10, K11 and K13 share
-# `shard_scan.cuh`'s
+# the mesh kernels K9a-d, K10a/b, K11a/b, K13a/b and K14a/b, and K3, whose
+# pass K9d shares: (source holding the enums, the C enum's last slot of the
+# scalar table, of the pointer table, the enum prefixes, host tables); K10,
+# K11 and K13 share `shard_scan.cuh`'s
 _MESH_SLOTS = [
+    ("uniform_burst.cu", "UBI_COUNT", "UBP_COUNT", "UBI_", "UBP_",
+     "_UNIFORM_INTS", "_UNIFORM_PTRS"),
     ("shard_cycle_local.cu", "CL_COUNT", "LP_COUNT", "CL_", "LP_",
      "_SCL_INTS", "_SCL_PTRS"),
     ("shard_cycle_select.cu", "CS_COUNT", "SP_COUNT", "CS_", "SP_",
@@ -215,6 +217,12 @@ def test_mesh_launch_slot_tables_match_the_kernel_enums():
                             "lni_out", "owner", "workspace")
     assert PK._SUD_INTS == ("n_pad", "rows", "D", "stride", "hoff", "B",
                             "K", "cap", "L", "n_oid", "ban")
+    # K9c's and K3's: the pass-start scores computed in the kernel (K1
+    # inline), so no K1 output slot
+    assert PK._SUS_PTRS == ("w", "valid", "extra", "alloc_cpu", "alloc_mem",
+                            "allowed", "xalloc", "salloc", "sused", "clsv",
+                            "st", "tot", "flags", "state", "folded", "rec")
+    assert "tot0" not in PK._UNIFORM_PTRS
     # K14a's one launch a device over its shards: after the shard's rows,
     # planes and slices, its record row in place, the device's stamps,
     # block records and tickets, then the peers' rows and stamps; the

@@ -331,8 +331,7 @@ def test_grouped_sweep_matches_per_shard_and_jax(monkeypatch, d, case):
         ref = []
         for sh in shards:
             c = PK.UniformShard(sh.offset, sh.rows, sh.width, sh.nodes,
-                                sh.st.clone(), sh.xa, sh.sa, sh.su, sh.extra,
-                                sh.tot0)
+                                sh.st.clone(), sh.xa, sh.sa, sh.su, sh.extra)
             c.tot, c.flags, c.folded = (sh.tot.clone(), sh.flags.clone(),
                                         sh.folded.clone())
             c.rec.copy_(sh.rec)
@@ -409,5 +408,5 @@ def test_grouped_sweep_writes_each_record_in_place():
     sh = shards[0]
     with pytest.raises(ValueError, match="record"):
         PK.UniformShard(sh.offset, sh.rows, sh.width, sh.nodes, sh.st,
-                        sh.xa, sh.sa, sh.su, sh.extra, sh.tot0,
+                        sh.xa, sh.sa, sh.su, sh.extra,
                         rec=torch.zeros(3, dtype=torch.uint8))

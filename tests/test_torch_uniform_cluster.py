@@ -185,17 +185,17 @@ def test_uniform_layout_and_slots_match_the_kernel():
     assert "a.ties[" not in src and "my_range(" not in src
 
 
+def _no_k1(*args, **kwargs):
+    raise AssertionError("K1 launched on a uniform burst's route")
+
+
 def test_k3_wrapper_plans_with_uniform_plan(monkeypatch):
     """The K3 wrapper takes `uniform_plan` of its node axis, its carried
-    and static rows and its rotation orders (K1's launch replaced by its
-    plain version, the device checks waived: the plan is asked before
-    anything reaches a card)."""
+    and static rows and its rotation orders (the device checks waived:
+    the plan is asked before anything reaches a card), and launches no K1
+    first: the kernel scores its nodes itself."""
     monkeypatch.setattr(PK, "_require_cuda", lambda *a: None)
-    monkeypatch.setattr(
-        PK, "_local_total_launch",
-        lambda w, rc, rm, ac, am, wrow, add_cpu=0, add_mem=0:
-        PK.local_total_plain(w, rc, rm, ac, am, wrow=wrow, add_cpu=add_cpu,
-                             add_mem=add_mem))
+    monkeypatch.setattr(PK, "_local_total_launch", _no_k1)
     _jn, pn = _world(np.full(N_PAD, 110, np.int64))
     perm, seq = _rotation(3, 256)
     cls = _cls(eph=True, scalar=(1, 2))
@@ -719,3 +719,91 @@ def test_plain_k9d_matches_jax_across_blocks(monkeypatch, name, d):
     assert len(_blocks(sel)) == 3
     if name == "rotate+duplicate lane":
         assert log["dup"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K9c's pass-start scores: inline (K1 folded in), not a K1 launch a shard
+# ---------------------------------------------------------------------------
+def _loaded(seed):
+    """`_world` with a different load on every node (0-11 pods of 100m,
+    250m or 400m each), so the pass-start scores differ node by node."""
+    rng = np.random.default_rng(seed)
+    pods = rng.integers(0, 12, N_PAD).astype(np.int64)
+    req = pods * rng.choice([100, 250, 400], N_PAD).astype(np.int64)
+    return _world(np.full(N_PAD, 110, np.int64), (req, pods))
+
+
+K9C_WEIGHTS = {
+    "default": None,
+    "most": {**JK.DEFAULT_WEIGHTS, "least_requested": 0,
+             "most_requested": 2},
+    "rtcr+balanced": {**JK.DEFAULT_WEIGHTS, "least_requested": 0,
+                      "rtcr": 5, "balanced": 7},
+}
+
+
+@pytest.mark.parametrize("d,wname", [(2, "default"), (4, "default"),
+                                     (4, "most"), (2, "rtcr+balanced")])
+def test_plain_k9c_scores_inline_and_matches_jax(monkeypatch, d, wname):
+    """The sharded burst on `["cpu"] * d` at n_pad 2,100 (shards of 1,050
+    or 525 rows, the last one ragged: one column wider, the scratch
+    column) on a cluster whose nodes all carry a different load: K9c
+    computes its pass-start scores from each shard's own carried rows
+    (equal to JAX's `_local_total` of the same rows), no K1 runs and no
+    shard holds a `tot0`; the burst equals JAX's `sharded_uniform_fn`
+    (through `schedule_batch_uniform(mesh=)`) and the single-device plain
+    K3: decisions, the packed block, lni and every folded row."""
+    weights = K9C_WEIGHTS[wname]
+    wd = weights or dict(JK.DEFAULT_WEIGHTS)
+    monkeypatch.setattr(PK, "local_total", _no_k1)
+    monkeypatch.setattr(PK, "_local_total_launch", _no_k1)
+    assert "tot0" not in PK._SUS_PTRS and "tot0" not in PK._UNIFORM_PTRS
+    jn, pn = _loaded(d)
+    cls = _cls()
+    checked = []
+    real = PK.shard_uniform_sweep
+
+    def spy(shards, state, clsv, *args):
+        init = int(state[PK.ST_PASS]) == 0
+        out = real(shards, state, clsv, *args)
+        if init:
+            for sh in shards:
+                assert not hasattr(sh, "tot0")
+                lo, rows = sh.offset, sh.rows
+                want = JK._local_total(
+                    wd, jnp.asarray(np.asarray(jn["nz_cpu"])[lo: lo + rows]
+                                    + int(cls["nz_cpu"])),
+                    jnp.asarray(np.asarray(jn["nz_mem"])[lo: lo + rows]
+                                + int(cls["nz_mem"])),
+                    jn["alloc_cpu"][lo: lo + rows],
+                    jn["alloc_mem"][lo: lo + rows])
+                np.testing.assert_array_equal(sh.tot[:rows].numpy(),
+                                              np.asarray(want))
+                assert (sh.tot[rows:] == 0).all()
+                checked.append(sh.width - rows)
+        return out
+    monkeypatch.setattr(PK, "shard_uniform_sweep", spy)
+    mesh = PS.Mesh(["cpu"] * d)
+    kw = {} if weights is None else {"weights": weights}
+    jrows, jpacked, jlni = JK.schedule_batch_uniform(
+        JS.shard_node_arrays(JS.make_mesh(d), {k: np.asarray(v)
+                                                for k, v in jn.items()}),
+        dict(cls), 1500, 300, N_REAL, True, cap=2048, mesh=JS.make_mesh(d),
+        **kw)
+    rows, packed, plni = PK.schedule_batch_uniform(
+        PS.shard_node_arrays(mesh, pn), dict(cls), 1500, 300, N_REAL, True,
+        cap=2048, mesh=mesh, **kw)
+    srows, spacked, slni = PK.schedule_batch_uniform_plain(
+        pn, dict(cls), 1500, 300, N_REAL, True, cap=2048, **kw)
+    np.testing.assert_array_equal(np.asarray(packed), np.asarray(jpacked))
+    np.testing.assert_array_equal(np.asarray(packed), np.asarray(spacked))
+    assert int(plni) == int(jlni) == int(slni)
+    for k in jrows:
+        got = torch.cat([r[k] for r in rows])
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(jrows[k]),
+                                      err_msg=k)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(srows[k]),
+                                      err_msg=k)
+    # every shard scored once, the last one ragged
+    assert checked == [0] * (d - 1) + [1]
+    assert (np.asarray(packed)[:1500] >= 0).all()
