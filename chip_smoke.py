@@ -175,11 +175,40 @@
      15,000 nodes: a nominee with a host port sends a cycle to the twin,
      the next cycle (resource-only nominees) runs on K2 with the ghost,
      both equal to a device="cpu" run of the same sequence; prints the
-     twin's count and host ms.
+     twin's count and host ms;
+   - shell uniform: bench.py's default cell through the port's scheduler
+     shell (`kubernetes_tpu_torch.scheduler.Scheduler(store)`, its defaults),
+     from the store to the bind: a Store of 15,000 nodes, sync, a 64-pod
+     warm-up burst, then 10,000 pods of 100m / 500 Mi created in the
+     store and `schedule_burst(max_pods=10000)` until it returns 0, then
+     a pump. Every pod must be bound in the store, on the host a direct
+     TorchScheduler.schedule_burst gives for the same two bursts on a
+     fresh snapshot (run_path's helpers), K3 must have launched, and no
+     twin, refusal or breaker fault may be counted; a `[shell]` line
+     gives the wall time, pods/s, the burst's phases (encode, of which
+     the node mirror; dispatch; fetch) and the shell's commit ms;
+   - shell preempt-baseline: BASELINE.json configs[3]'s world (1,000
+     nodes x 10 bound victims of 400m, 128 preemptors of 400m at priority
+     10) through the shell, serial cycles on K2: the burst fails, the
+     pressure tail runs K8, victims are evicted and the preemptors bind
+     over rounds of a fake clock; bindings, nominations and evictions
+     must equal the same shell on device="cpu" (the plain versions);
+   - degrade drill: on the 15,000-node world, a DeviceFault at the
+     `device.fetch` point of a uniform burst with a commit callback (the
+     undecided tail then decided by serial cycles, as the shell does) and
+     one at `device.dispatch` of a serial cycle, through the port's chaos
+     plan, then three faults in a row that open the circuit breaker until
+     a probe closes it; every decision must equal the undisturbed run,
+     and `twin.device-fault`, `twin.circuit-open` and the breaker's
+     faults, trips and promotions must show the injections; the drill
+     resets its counts afterwards.
    Launch counts are zeroed just before each path and read just after;
    each path's kernels must have run and no window may be refused; every
    phase but the twin's must leave `twin.*` at zero (no path hides the
-   device behind the host twin).
+   device behind the host twin), and every phase but the drill must
+   count no device fault: no `twin.device-fault`, `twin.circuit-open`,
+   `refusal.device-fault` or `refusal.circuit-open`, and no fault booked
+   by a breaker.
    Decisions, walk counters and folded rows must equal the plain path on
    the card (whole window for the uniform burst, the first >= 1,024 pods
    of the scan and fused windows, whole waves with their ghost load for
@@ -5066,6 +5095,401 @@ def commit_phase(device, sync):
               f"StaleNodeRefusal of {e.n_stale} decisions on {dead}")
 
 
+# ---------------------------------------------------------------------------
+# The scheduler shell: bench.py's default cell from the store to the bind,
+# the preempt-baseline world through the shell, and the device-fault drill
+# ---------------------------------------------------------------------------
+SHELL_WARMUP = 64       # bench.py's warm-up burst
+SHELL_MAX_PODS = 10000  # bench.py's schedule_burst(max_pods=10000)
+#: breaker faults the degrade drill injected (every other phase: none)
+DRILL_FAULTS = {"n": 0}
+
+
+def bench_store(n_nodes, n_extra=0):
+    """bench.py's run_bench store and build_cluster as the port's objects:
+    nodes of 4 CPU, 32 Gi, 110 pods, zone i % 3."""
+    from kubernetes_tpu_torch.api.types import Node
+    from kubernetes_tpu_torch.store.store import Store, NODES
+    store = Store(watch_log_size=max(65536, 2 * (n_nodes + n_extra)))
+    for i in range(n_nodes):
+        store.create(NODES, Node(
+            name=f"node-{i}",
+            labels={"failure-domain.beta.kubernetes.io/zone": f"zone-{i % 3}",
+                    "failure-domain.beta.kubernetes.io/region": "r1",
+                    "kubernetes.io/hostname": f"node-{i}"},
+            allocatable={"cpu": 4000, "memory": 32 * GI, "pods": 110}))
+    return store
+
+
+def bench_pods(store, n_pods, start=0):
+    """bench.py's make_pods: density pods of 100m / 500 Mi, named
+    pod-<start + j>."""
+    from kubernetes_tpu_torch.api.types import Container, Pod
+    from kubernetes_tpu_torch.store.store import PODS
+    for j in range(start, start + n_pods):
+        store.create(PODS, Pod(
+            name=f"pod-{j}", labels={"app": "density"},
+            containers=(Container.make(
+                name="c", requests={"cpu": 100, "memory": 500 * MI}),)))
+
+
+def breaker_faults():
+    """Faults every breaker of the process booked (the breaker module's
+    `tpu_device_faults_total`)."""
+    from kubernetes_tpu_torch.core import breaker
+    return int(sum(c.value for c in breaker.DEVICE_FAULTS._children.values()))
+
+
+def no_degrade(phase):
+    """Fail when a phase other than the degrade drill absorbed a device
+    fault or ran with the circuit open."""
+    from kubernetes_tpu_torch import obs
+    got = {k: obs.get(k) for k in (
+        "twin.device-fault", "twin.circuit-open", "refusal.device-fault",
+        "refusal.circuit-open") if obs.get(k)}
+    faults = breaker_faults() - DRILL_FAULTS["n"]
+    if got or faults:
+        raise SystemExit(f"{phase}: device faults degraded the path "
+                         f"({got}, breaker faults {faults})")
+
+
+def direct_bursts(n_nodes, bursts, device, sync):
+    """The bursts straight through TorchScheduler.schedule_burst on a fresh
+    snapshot (run_path's helpers: `cluster`, `assume`), each burst's
+    placements assumed before the next; returns the hosts in order."""
+    from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+    infos, tree = cluster(n_nodes)
+    sched = TorchScheduler(percentage_of_nodes_to_score=100,
+                           node_tree=tree, device=device)
+    out = []
+    for burst in bursts:
+        hosts = sched.schedule_burst(burst, infos, tree.list_names())
+        if hosts is None or None in hosts:
+            raise SystemExit("shell uniform: the direct burst left pods "
+                             "unplaced")
+        gens = [assume(infos, p, h) for p, h in zip(burst, hosts)]
+        sched.note_burst_assumed_many(burst, hosts, gens)
+        tree.advance_enumerations(len(burst) - 1)
+        out.extend(hosts)
+    sync()
+    return out
+
+
+def shell_uniform(device, sync, report, n_nodes=N_NODES, n_pods=N_PODS):
+    """bench.py's default cell through the port's shell (see the module
+    docstring); the measured loop is bench.py's: schedule_burst(max_pods=
+    10000) until 0, then a pump."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.store.store import PODS
+    name = "shell uniform"
+    t0 = time.perf_counter()
+    store = bench_store(n_nodes, n_pods)
+    sched = Scheduler(store, percentage_of_nodes_to_score=100,
+                      device=device)
+    sched.sync()
+    bench_pods(store, SHELL_WARMUP, start=10_000_000)
+    sched.pump()
+    while sched.schedule_burst(max_pods=SHELL_MAX_PODS):
+        pass
+    sched.pump()
+    bench_pods(store, n_pods)
+    sched.pump()
+    sync()
+    t_setup = time.perf_counter() - t0
+    sched.metrics.reset()
+    obs.reset()
+    bound = 0
+    t0 = time.perf_counter()
+    while True:
+        n = sched.schedule_burst(max_pods=SHELL_MAX_PODS)
+        if n == 0:
+            break
+        bound += n
+    sync()
+    wall = time.perf_counter() - t0
+    sched.pump()
+    counts = K.launches()
+    twins, refusals = obs.family("twin"), obs.family("refusal")
+    ph = dict(sched.algorithm.last_burst_phases or {})
+    commit_ms = sched.metrics.phase_duration["binding"].sum * 1e3
+    if counts["uniform_burst"] == 0:
+        raise SystemExit(f"{name}: K3 uniform_burst was not launched")
+    if twins or refusals:
+        raise SystemExit(f"{name}: twin cycles {twins}, refusals "
+                         f"{refusals}")
+    no_degrade(name)
+    if sched.algorithm.breaker.faults_total:
+        raise SystemExit(f"{name}: breaker faults "
+                         f"{sched.algorithm.breaker.debug_state()}")
+    by_name = {p.name: p.node_name for p in store.list(PODS)[0]}
+    got = [by_name[f"pod-{10_000_000 + j}"] for j in range(SHELL_WARMUP)] \
+        + [by_name[f"pod-{j}"] for j in range(n_pods)]
+    if bound != n_pods or not all(got):
+        raise SystemExit(f"{name}: {bound} of {n_pods} bound, "
+                         f"{sum(1 for h in got if not h)} pods without a "
+                         f"node in the store")
+    t1 = time.perf_counter()
+    want = direct_bursts(n_nodes, [pods(SHELL_WARMUP), pods(n_pods)],
+                         device, sync)
+    t_direct = time.perf_counter() - t1
+    if got != want:
+        diff = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise SystemExit(f"{name}: pod {diff} bound on {got[diff]}, the "
+                         f"direct burst places it on {want[diff]}")
+    add_launches(report, counts)
+    alg = {k: v.sum * 1e3 for k, v in sched.metrics.phase_duration.items()}
+    print(f"[shell] uniform: {n_nodes} nodes, {n_pods} pods bound through "
+          f"the store in {wall * 1e3:.1f} ms ({n_pods / wall:.1f} pods/s; "
+          f"store, informers, queue, cache, TorchScheduler, commit_wave); "
+          f"last burst: encode {ph['encode'] * 1e3:.2f} (node mirror "
+          f"{ph['mirror'] * 1e3:.2f}) dispatch {ph['dispatch'] * 1e3:.2f} "
+          f"fetch {ph['fetch'] * 1e3:.2f} ms; shell commit "
+          f"{commit_ms:.1f} ms; phase sums ms "
+          f"{ {k: round(v, 2) for k, v in sorted(alg.items())} }; "
+          f"launches {dict(counts)}; set-up (store, {SHELL_WARMUP}-pod warm-up, "
+          f"pods created and pumped) {t_setup:.1f} s; hosts equal to the "
+          f"direct TorchScheduler bursts ({t_direct * 1e3:.1f} ms)")
+
+
+def shell_baseline_run(device, sync, n_nodes, n_preemptors):
+    """The preempt-baseline world through the shell on `device`: rounds of
+    pump, schedule_burst(max_pods=128), pump and 2 s of a fake clock until
+    three rounds in a row bind nothing. Returns the outcome, the wall
+    seconds of the rounds and the scheduler."""
+    from kubernetes_tpu_torch.api.types import Container, Node, Pod
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.store.store import NODES, PODS, Store
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+    store = Store(watch_log_size=65536)
+    created = []
+    for i in range(n_nodes):
+        store.create(NODES, Node(name=f"node-{i}", allocatable={
+            "cpu": 4000, "memory": 32 * GI, "pods": 110}))
+        for k in range(10):
+            store.create(PODS, Pod(
+                name=f"victim-{i * 10 + k}", priority=1,
+                node_name=f"node-{i}", containers=(Container.make(
+                    name="c", requests={"cpu": 400}),)))
+            created.append(f"default/victim-{i * 10 + k}")
+    clock = FakeClock(100.0)
+    sched = Scheduler(store, clock=clock, percentage_of_nodes_to_score=100,
+                      device=device)
+    # the shell's metrics run on the fake clock: its commits (the burst
+    # waves' and the serial binds') are timed here on the host's
+    commit_s = [0.0]
+
+    def timed_commit(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                commit_s[0] += time.perf_counter() - t
+        return call
+    sched._commit_burst = timed_commit(sched._commit_burst)
+    sched._bind = timed_commit(sched._bind)
+    sched.sync()
+    for k in range(n_preemptors):
+        store.create(PODS, Pod(name=f"hi-{k}", priority=10, containers=(
+            Container.make(name="c", requests={"cpu": 400}),)))
+        created.append(f"default/hi-{k}")
+    t0 = time.perf_counter()
+    idle = 0
+    for _ in range(40):
+        sched.pump()
+        before = sched.metrics.schedule_attempts["scheduled"]
+        while sched.schedule_burst(max_pods=128):
+            pass
+        sched.pump()
+        idle = 0 if sched.metrics.schedule_attempts["scheduled"] > before \
+            else idle + 1
+        if idle >= 3:
+            break
+        clock.step(2.0)
+    sync()
+    wall = time.perf_counter() - t0
+    listed = store.list(PODS)[0]
+    present = {p.key for p in listed}
+    out = {"bindings": sorted((p.key, p.node_name) for p in listed),
+           "nominations": sorted((p.key, p.nominated_node_name)
+                                 for p in listed if p.nominated_node_name),
+           "evictions": sorted(k for k in created if k not in present)}
+    return out, wall, sched, commit_s[0]
+
+
+def shell_preempt_baseline(device, sync, report, n_nodes=1000,
+                           n_preemptors=128):
+    """BASELINE.json configs[3] through the port's shell (see the module
+    docstring), held against the same shell on device="cpu"."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    name = "shell preempt-baseline"
+    obs.reset()
+    run, wall, sched, commit_s = shell_baseline_run(device, sync, n_nodes,
+                                                    n_preemptors)
+    counts = K.launches()
+    twins = obs.family("twin")
+    refusals = obs.family("refusal")
+    no_degrade(name)
+    pre = dict(sched.algorithm.last_preempt_phases or {})
+    sums = {k: round(sched.metrics.phase_duration[k].sum * 1e3, 2)
+            for k in ("encode", "kernel", "fetch")
+            if k in sched.metrics.phase_duration}
+    if counts["pressure_batch"] == 0:
+        raise SystemExit(f"{name}: K8 pressure_batch was not launched "
+                         f"({counts}, refusals {refusals})")
+    if counts["schedule_cycle"] == 0:
+        raise SystemExit(f"{name}: the shell's serial cycles did not run "
+                         f"on K2 ({counts})")
+    obs.reset()
+    ref, wall_cpu, _, _ = shell_baseline_run("cpu", sync, n_nodes,
+                                             n_preemptors)
+    ref_twins = obs.family("twin")
+    obs.reset()
+    if twins or ref_twins:
+        raise SystemExit(f"{name}: twin cycles {twins} (cpu run "
+                         f"{ref_twins})")
+    for key in ("bindings", "nominations", "evictions"):
+        if run[key] != ref[key]:
+            diff = [a for a in run[key] if a not in ref[key]][:4]
+            raise SystemExit(f"{name}: {key} differ from the device=\"cpu\" "
+                             f"shell: {diff}")
+    bound_hi = sum(1 for k, h in run["bindings"] if h and "/hi-" in k)
+    if bound_hi != n_preemptors or len(run["evictions"]) != n_preemptors:
+        raise SystemExit(f"{name}: {bound_hi} preemptors bound, "
+                         f"{len(run['evictions'])} victims evicted")
+    add_launches(report, counts)
+    print(f"[shell] preempt-baseline: {n_nodes} nodes x 10 victims, "
+          f"{n_preemptors} preemptors bound after {len(run['evictions'])} "
+          f"evictions in {wall * 1e3:.1f} ms of rounds "
+          f"({n_preemptors / wall:.1f} preemptors/s; the pressure wave: "
+          f"encode {pre.get('encode', 0) * 1e3:.2f} scan "
+          f"{pre.get('scan', 0) * 1e3:.2f} of which fetch "
+          f"{pre.get('fetch', 0) * 1e3:.2f} ms); bursts' phase sums ms "
+          f"{sums}; shell commit {commit_s * 1e3:.1f} ms (the burst "
+          f"waves' and the serial binds'); launches {dict(counts)}; "
+          f"refusals {refusals}; "
+          f"bindings, nominations and evictions equal to the device=\"cpu\" "
+          f"shell ({wall_cpu * 1e3:.1f} ms)")
+
+
+def degrade_drill(device, sync, n_nodes=N_NODES, n_burst=128, n_serial=12):
+    """The device-fault degrade on the card (see the module docstring):
+    decisions equal to the undisturbed run, every fault counted."""
+    from kubernetes_tpu_torch import chaos, obs
+    from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+    name = "degrade"
+    f0 = breaker_faults()
+
+    def world():
+        infos, tree = cluster(n_nodes)
+        return infos, tree, TorchScheduler(
+            percentage_of_nodes_to_score=100, node_tree=tree, device=device)
+
+    def serial(sched, infos, tree, plan_at=None, plan=None, until=None):
+        """Serial cycles; the chaos plan `plan()` installed before cycle
+        `plan_at` and removed after cycle `until` (default: the same)."""
+        out = []
+        for j, p in enumerate(pods(n_serial, prefix="drill-serial",
+                                   cpu=300)):
+            if j == plan_at:
+                plan()
+            r = sched.schedule(p, infos, tree.list_names())
+            if j == (plan_at if until is None else until):
+                chaos.disable()
+            out.append((r.suggested_host, sched.last_index,
+                        sched.last_node_index))
+            assume(infos, p, r.suggested_host)
+        return out
+
+    def burst(sched, infos, tree, fault):
+        """The burst with a commit callback; a faulted burst's undecided
+        tail decided by serial cycles, as the shell's fallback does."""
+        batch = pods(n_burst, prefix="drill")
+        done = []
+        if fault:
+            chaos.plan(seed=0, rates={"device.fetch": 1.0}, limit=1)
+        hosts = sched.schedule_burst(
+            batch, infos, tree.list_names(),
+            commit=lambda lo, hs: done.append((lo, hs)) or True)
+        chaos.disable()
+        k = len(hosts) - hosts.count(None) if hosts is not None else 0
+        gens = [assume(infos, p, h) for p, h in zip(batch[:k], hosts[:k])]
+        sched.note_burst_assumed_many(batch[:k], hosts[:k], gens)
+        if k:
+            tree.advance_enumerations(k - 1)
+        out = list(hosts[:k])
+        for p in batch[k:]:
+            r = sched.schedule(p, infos, tree.list_names())
+            assume(infos, p, r.suggested_host)
+            out.append(r.suggested_host)
+        return out, k
+
+    obs.reset()
+    infos, tree, ref = world()
+    want_burst, k_ref = burst(ref, infos, tree, False)
+    want_serial = serial(ref, infos, tree)
+    if k_ref != n_burst or obs.family("twin"):
+        raise SystemExit(f"{name}: the undisturbed run decided {k_ref} of "
+                         f"{n_burst} on the device ({obs.family('twin')})")
+    # one fault at the burst's fetch, one at a serial cycle's dispatch
+    obs.reset()
+    infos, tree, sched = world()
+    t0 = time.perf_counter()
+    got_burst, k = burst(sched, infos, tree, True)
+    t_burst = time.perf_counter() - t0
+    got_serial = serial(sched, infos, tree, plan_at=3, plan=lambda:
+                        chaos.plan(seed=0, rates={"device.dispatch": 1.0},
+                                   limit=1))
+    st = sched.breaker.debug_state()
+    twins = obs.family("twin")
+    if (got_burst, got_serial) != (want_burst, want_serial):
+        raise SystemExit(f"{name}: decisions under the two faults differ "
+                         f"from the undisturbed run")
+    if k != 0 or twins.get("device-fault") != 2 or st["faults_total"] != 2 \
+            or st["state"] != "closed" or st["trips_total"]:
+        raise SystemExit(f"{name}: {k} burst decisions kept, twin {twins}, "
+                         f"breaker {st}")
+    # three faults in a row open the circuit; a probe closes it
+    obs.reset()
+    infos, tree, sched = world()
+    sched.breaker.probe_after = 4
+    burst(sched, infos, tree, False)
+    got_trip = serial(sched, infos, tree, plan_at=0, until=2, plan=lambda:
+                      chaos.plan(seed=0, rates={"device.dispatch": 1.0},
+                                 limit=3))
+    tr = sched.breaker.debug_state()
+    trip_twins = obs.family("twin")
+    if got_trip != want_serial:
+        raise SystemExit(f"{name}: decisions with the circuit open differ "
+                         f"from the undisturbed run")
+    if tr["faults_total"] != 3 or tr["trips_total"] != 1 \
+            or tr["promotions_total"] != 1 or tr["state"] != "closed" \
+            or trip_twins.get("device-fault") != 3 \
+            or trip_twins.get("circuit-open") != 3:
+        raise SystemExit(f"{name}: trip and probe gave breaker {tr}, twin "
+                         f"{trip_twins}")
+    faults = breaker_faults() - f0
+    if faults != 5:
+        raise SystemExit(f"{name}: the breakers booked {faults} faults, "
+                         f"not 5")
+    DRILL_FAULTS["n"] += faults
+    obs.reset()
+    print(f"[degrade] {n_nodes} nodes: a DeviceFault at device.fetch of a "
+          f"{n_burst}-pod uniform burst ({k} decisions kept, the tail "
+          f"decided by {n_burst} serial cycles in {t_burst * 1e3:.1f} ms) "
+          f"and one at device.dispatch of serial cycle 4 of {n_serial}: "
+          f"twin.device-fault {twins['device-fault']}, breaker faults "
+          f"{st['faults_total']}, state {st['state']}; three faults in a "
+          f"row: {trip_twins['circuit-open']} cycles on the host twin with "
+          f"the circuit open, trips {tr['trips_total']}, probe after "
+          f"{sched.breaker.probe_after} refused gates, promotions "
+          f"{tr['promotions_total']}; every decision equal to the "
+          f"undisturbed run; counts reset")
+
+
 def no_twin(phase):
     """Fail when a phase other than twin_phase decided a cycle on the host
     twin."""
@@ -5184,6 +5608,7 @@ def main() -> int:
         report = {k: {"launches": 0} for k in K.KERNELS}
         cards_phase(report)
         no_twin("cards_phase")
+        no_degrade("cards_phase")
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in MESH_KERNELS]}))
     else:
@@ -5193,6 +5618,7 @@ def main() -> int:
             print(f"[elapsed] {fn.__name__}: "
                   f"{time.perf_counter() - t:.1f} s")
             no_twin(fn.__name__)
+            no_degrade(fn.__name__)
             return out
         report = timed(kernel_checks, device, sync)
         timed(variant_checks, device, sync)
@@ -5219,6 +5645,9 @@ def main() -> int:
         timed(preempt_paths, device, sync, report)
         timed(commit_phase, device, sync)
         timed(twin_phase, device, sync)
+        timed(shell_uniform, device, sync, report)
+        timed(shell_preempt_baseline, device, sync, report)
+        timed(degrade_drill, device, sync)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")

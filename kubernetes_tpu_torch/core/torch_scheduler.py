@@ -36,8 +36,24 @@ What the scheduler shell reads from its algorithm is TPUScheduler's too:
 `recover_device`, `metrics.observe_phase`, `serial_path` ("device",
 "host", "adaptive"), `volume_listers` / `volume_binder` (the encoder's
 volume masks and the host twin's volume predicates) and the class
-signatures. The device-fault breaker, `launch_depth`'s fetch pool and the
-flight recorder are not ported yet.
+signatures. `launch_depth`'s fetch pool and the flight recorder are not
+ported yet.
+
+Device faults degrade as TPUScheduler's do (`breaker`, a copy of
+core/breaker.py's DeviceCircuitBreaker). At each seam (`schedule`, the
+uniform and scan bursts, the fused window, `preempt`, the pressure wave)
+the chaos plane's `device.dispatch` / `device.fetch` points sit before the
+launch and before the fetch. A DeviceFault injected there is absorbed:
+the fault is booked with the breaker and under
+`twin.device-fault` (a pressure wave's under `refusal.device-fault`), the
+cycle is decided on the host twin, a burst drops its folds and hands its
+undecided tail back to the shell (a trial burst without a commit callback
+rewinds its walk counters and returns None), and the scans refuse so the
+shell's oracle path decides. Consecutive faults open the circuit: every
+device gate then refuses (`twin.circuit-open`, `refusal.circuit-open`)
+until a half-open probe succeeds. Any other error — a CUDA error of a
+launch or a copy, a kernel that does not build, a planner's refusal, a
+wrong stamp — propagates.
 
 `mesh=` (a `parallel.sharding.Mesh`, or "auto") splits the resident node
 matrix over several devices: schedule() runs the sharded cycle (K9a/K9b),
@@ -63,9 +79,8 @@ shards of one card, and with `--cards` on a host's cards.
 Folds stay on the device. The node matrix and the victim table's planes
 are uploaded whole once and then kept current by the dirty-row scatter
 (K4 `scatter_rows`). Every entry point runs on `cuda` unless
-`device="cpu"` is passed; a CUDA error propagates (no cycle that failed
-on the device is decided on the host twin). A window the JAX package
-also refuses is refused whole (None), counted under `refusal.<reason>`.
+`device="cpu"` is passed. A window the JAX package also refuses is
+refused whole (None), counted under `refusal.<reason>`.
 """
 from __future__ import annotations
 
@@ -75,11 +90,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch import obs
+from kubernetes_tpu_torch import chaos, obs
 from kubernetes_tpu_torch.api.types import (
     Pod, get_container_ports, has_pod_affinity_terms)
 from kubernetes_tpu_torch.cache.node_info import NodeInfo, calculate_resource
 from kubernetes_tpu_torch.core import StaleNodeRefusal
+from kubernetes_tpu_torch.core.breaker import DeviceCircuitBreaker
 from kubernetes_tpu_torch.factory import (
     DEFAULT_PREDICATE_NAMES, build_predicate_set, build_priority_configs)
 from kubernetes_tpu_torch.oracle import predicates as P
@@ -94,6 +110,13 @@ from kubernetes_tpu_torch.ops.node_state import (
     IPA_EXISTING_ANTI, IPA_OWN_AFFINITY,
 )
 from kubernetes_tpu_torch.ops.pod_rows import pod_class_signature
+
+#: the exceptions the circuit breaker absorbs at the device seams: the
+#: chaos plane's injected DeviceFault only. A CUDA error (a launch's return
+#: code, or one a device-to-host copy reports), a build failure, a
+#: planner's refusal or a wrong stamp stops the run: a card that faulted
+#: does not hand its decisions to the host unseen.
+_DEVICE_FAULTS = chaos.device_fault_types()
 
 #: rotation-row cache miss sentinel (None is a legal cached value:
 #: "this order IS the identity")
@@ -257,6 +280,11 @@ class TorchScheduler:
         # a pressure wave): encode, scan (dispatch and fetch) and the
         # fetch part of the scan
         self.last_preempt_phases: Optional[dict] = None
+        # device circuit breaker: a failed launch or fetch decides that
+        # cycle or burst on the host (same decisions); consecutive faults
+        # open the circuit, and a half-open probe closes it again
+        # (core/breaker.py)
+        self.breaker = DeviceCircuitBreaker()
 
     # -- scheduling profiles -----------------------------------------------------
     def set_profiles(self, profiles) -> None:
@@ -483,6 +511,14 @@ class TorchScheduler:
                           state_encoder=self.encoder)
 
     # -- single-pod cycle --------------------------------------------------------
+    def _device_fault(self, exc: BaseException) -> str:
+        """Book one absorbed device fault with the circuit breaker; returns
+        the seam (an injected fault carries its own; a CUDA error books
+        as device.runtime)."""
+        seam = getattr(exc, "seam", "device.runtime")
+        self.breaker.record_fault(seam)
+        return seam
+
     def schedule(self, pod: Pod, node_infos: dict[str, NodeInfo],
                  all_node_names: list[str],
                  extra_configs=None) -> ScheduleResult:
@@ -507,6 +543,9 @@ class TorchScheduler:
             if nominees and any(self._ghost_gate(p) is not None
                                 for p in [pod] + [p for _, p in nominees]):
                 reason = "nominated-ghosts"
+            elif not self.breaker.allow_device():
+                # circuit open: host only until a probe succeeds
+                reason = "circuit-open"
             elif self.serial_path == "adaptive":
                 if self._serial_pick_host_twin():
                     reason = "adaptive-twin-faster"
@@ -517,8 +556,16 @@ class TorchScheduler:
             if reason is not None:
                 return self._schedule_host_twin(
                     reason, pod, node_infos, all_node_names, extra_configs)
-            return self._schedule_device(pod, node_infos, all_node_names,
-                                         nominees)
+            try:
+                return self._schedule_device(pod, node_infos,
+                                             all_node_names, nominees)
+            except _DEVICE_FAULTS as e:
+                # a failed launch or fetch decides THIS cycle on the host
+                # twin: the same decision, only slower
+                self._device_fault(e)
+                reason = "device-fault"
+                return self._schedule_host_twin(
+                    reason, pod, node_infos, all_node_names)
         finally:
             dt = time.perf_counter() - t0
             if reason is not None:
@@ -617,6 +664,7 @@ class TorchScheduler:
         num_to_find = num_feasible_nodes_to_find(
             n, self.percentage_of_nodes_to_score)
         z_pad = _pad_pow2(len(b.zone_names), 4)
+        chaos.check("device.dispatch")
         out = K.schedule_cycle(nodes, pod_in, self.last_index,
                                self.last_node_index, num_to_find, n, z_pad,
                                weights=weights, wtab=wtab,
@@ -626,7 +674,9 @@ class TorchScheduler:
         keys = ["selected", "found", "evaluated", "next_last_index",
                 "next_last_node_index", "kept", "total", "fail_first",
                 "general_bits"]
+        chaos.check("device.fetch")
         h = {k: out[k].cpu().numpy() for k in keys}
+        self.breaker.record_success()
         obs.inc("fetch.cycle")
         found = int(h["found"])
         evaluated = int(h["evaluated"])
@@ -1062,6 +1112,12 @@ class TorchScheduler:
         if not all_node_names or not pods:
             return [None] * len(pods)
         self.commit_marker = None
+        if not self.breaker.allow_device():
+            # circuit open: refuse the whole burst before any launch; the
+            # shell runs the pods serially, where schedule() picks the
+            # host twin under the same open circuit
+            obs.inc("twin.circuit-open")
+            return None
         t0 = time.perf_counter()
         axis_order, start0 = self._axis_order(all_node_names)
         b = self.encoder.encode(node_infos, axis_order)
@@ -1097,6 +1153,8 @@ class TorchScheduler:
             self.last_burst_phases = phases
             sel = self._uniform_waves(pods, b, cls, extra_ok, ban, rotation,
                                       n, bucket, phases, pid0, commit)
+            if sel is None:
+                return None
             return [b.names[s] for s in sel] \
                 + [None] * (len(pods) - len(sel))
         if any(has_pod_affinity_terms(p) or get_container_ports(p)
@@ -1227,17 +1285,29 @@ class TorchScheduler:
         tensor = self._ptab is not None
         before = self._mesh_counts("burst_scan", "gather", "copies",
                                    "steps")
-        state, _li, _lni, _spread, outs = K.schedule_batch(
-            self._dev_nodes, stack, self.last_index, self.last_node_index,
-            num_to_find, n, z_pad,
-            weights=self._union_weights if tensor else self.weights,
-            rotation=rot, spread0=spread0, rotation_pos=rotp,
-            wtab=self._wtab() if tensor else None, **self._mesh_kw())
-        obs.inc("dispatch.burst_scan")
-        t2 = time.perf_counter()
-        phases["dispatch"] += t2 - t
-        self._observe("kernel", t2 - t)
-        h = self._fetch(outs["packed"], "scan")
+        try:
+            chaos.check("device.dispatch")
+            state, _li, _lni, _spread, outs = K.schedule_batch(
+                self._dev_nodes, stack, self.last_index,
+                self.last_node_index, num_to_find, n, z_pad,
+                weights=self._union_weights if tensor else self.weights,
+                rotation=rot, spread0=spread0, rotation_pos=rotp,
+                wtab=self._wtab() if tensor else None, **self._mesh_kw())
+            obs.inc("dispatch.burst_scan")
+            t2 = time.perf_counter()
+            phases["dispatch"] += t2 - t
+            self._observe("kernel", t2 - t)
+            chaos.check("device.fetch")
+            h = self._fetch(outs["packed"], "scan")
+        except _DEVICE_FAULTS as e:
+            # the one launch and fetch come before any commit or counter
+            # update: refuse the whole burst, and the shell reruns the
+            # pods serially against the host mirror
+            self._device_fault(e)
+            self.discard_burst_folds()
+            obs.inc("twin.device-fault")
+            return None
+        self.breaker.record_success()
         obs.inc("fetch.burst_scan")
         dt = time.perf_counter() - t2
         phases["fetch"] += dt
@@ -1309,7 +1379,7 @@ class TorchScheduler:
                   for lo in range(0, n_pods, cap)]
         depth = max(1, int(self.launch_depth))
         lni_dev = self.last_node_index   # a device scalar after chunk 0
-        li_entry = self.last_index
+        li_entry, lni_entry = self.last_index, self.last_node_index
         tensor = self._ptab is not None
         weights = self._union_weights if tensor else self.weights
         wtab = self._wtab() if tensor else None
@@ -1326,6 +1396,7 @@ class TorchScheduler:
             nonlocal lni_dev
             t = time.perf_counter()
             lo, chunk = chunks[ci]
+            chaos.check("device.dispatch")
             rot = None
             if rotation is not None:
                 win = np.empty(cap + K.K_BATCH, dtype=np.int32)
@@ -1353,56 +1424,80 @@ class TorchScheduler:
             self._observe("kernel", dt)
 
         next_ci = 1
-        dispatch(0)
-        while inflight:
-            while len(inflight) < depth and next_ci < len(chunks):
-                dispatch(next_ci)
-                next_ci += 1
-            lo, chunk, host, event = inflight.pop(0)
-            t = time.perf_counter()
-            if event is not None:
-                event.synchronize()
-            h = host.numpy()
-            obs.inc("fetch.burst_uniform")
-            dt = time.perf_counter() - t
-            phases["fetch"] += dt
-            self._observe("fetch", dt)
-            chunk_sel = h[:chunk].tolist()
-            bad = next((i for i, s in enumerate(chunk_sel) if s < 0), chunk)
-            if commit is not None and self.stale_scan is not None:
-                # earlier chunks stand; this one refuses whole, before its
-                # lni advance (the chunks in flight are dropped unfetched)
-                self._stale_refusal([b.names[s] for s in chunk_sel[:bad]],
-                                    n, b)
-            lni_start = self.last_node_index
-            self.last_node_index += int(h[cap])
-            aborted = False
-            for wlo in range(0, bad, W):
-                hi = min(wlo + W, bad)
-                sel.extend(chunk_sel[wlo:hi])
-                if commit is None:
-                    continue
-                # the uniform kernel never moves last_index, and the block
-                # holds only the chunk's lni advance: a window edge inside
-                # the chunk has no exact lni (None)
-                self.commit_marker = {
-                    "li0": li_entry,
-                    "lni0": lni_start if wlo == 0 else None,
-                    "li1": li_entry,
-                    "lni1": self.last_node_index if hi == chunk else None,
-                    "committed0": lo + wlo, "committed1": lo + hi}
-                if not commit(lo + wlo,
-                              [b.names[s] for s in chunk_sel[wlo:hi]]):
-                    aborted = True
+        failed = aborted = False
+        try:
+            dispatch(0)
+            while inflight:
+                while len(inflight) < depth and next_ci < len(chunks):
+                    dispatch(next_ci)
+                    next_ci += 1
+                lo, chunk, host, event = inflight.pop(0)
+                t = time.perf_counter()
+                chaos.check("device.fetch")
+                if event is not None:
+                    event.synchronize()
+                h = host.numpy()
+                obs.inc("fetch.burst_uniform")
+                dt = time.perf_counter() - t
+                phases["fetch"] += dt
+                self._observe("fetch", dt)
+                chunk_sel = h[:chunk].tolist()
+                bad = next((i for i, s in enumerate(chunk_sel) if s < 0),
+                           chunk)
+                if commit is not None and self.stale_scan is not None:
+                    # earlier chunks stand; this one refuses whole, before
+                    # its lni advance (the chunks in flight are dropped
+                    # unfetched)
+                    self._stale_refusal(
+                        [b.names[s] for s in chunk_sel[:bad]], n, b)
+                lni_start = self.last_node_index
+                self.last_node_index += int(h[cap])
+                for wlo in range(0, bad, W):
+                    hi = min(wlo + W, bad)
+                    sel.extend(chunk_sel[wlo:hi])
+                    if commit is None:
+                        continue
+                    # the uniform kernel never moves last_index, and the
+                    # block holds only the chunk's lni advance: a window
+                    # edge inside the chunk has no exact lni (None)
+                    self.commit_marker = {
+                        "li0": li_entry,
+                        "lni0": lni_start if wlo == 0 else None,
+                        "li1": li_entry,
+                        "lni1": self.last_node_index if hi == chunk
+                        else None,
+                        "committed0": lo + wlo, "committed1": lo + hi}
+                    if not commit(lo + wlo,
+                                  [b.names[s] for s in chunk_sel[wlo:hi]]):
+                        aborted = True
+                        break
+                if bad < chunk or aborted:
+                    # later chunks decided nothing more (the state is
+                    # frozen once no node fits), or their decisions are
+                    # discarded: drop them unfetched
+                    inflight.clear()
+                    if aborted:
+                        self.discard_burst_folds()
+                    failed = bad < chunk
                     break
-            if bad < chunk or aborted:
-                # later chunks decided nothing more (the state is frozen
-                # once no node fits), or their decisions are discarded:
-                # drop them unfetched
-                inflight.clear()
-                if aborted:
-                    self.discard_burst_folds()
-                break
+        except _DEVICE_FAULTS as e:
+            # a failed launch or fetch: what was committed stands, with
+            # its counters; the faulted chunk decided nothing, so the rest
+            # of the burst goes back to the shell as the undecided tail
+            self._device_fault(e)
+            obs.inc("twin.device-fault")
+            inflight.clear()
+            self.discard_burst_folds()
+            if commit is None:
+                # a trial (gang) burst committed nothing: rewind the walk
+                # counters of the chunks already fetched and refuse, so
+                # the caller reruns the whole trial serially
+                self.last_index, self.last_node_index = li_entry, lni_entry
+                return None
+            self._mesh_phases("burst_uniform", phases, before)
+            return sel
+        if not (failed or aborted):
+            self.breaker.record_success()
         self._mesh_phases("burst_uniform", phases, before)
         return sel
 
@@ -1430,6 +1525,12 @@ class TorchScheduler:
         failure polluted them."""
         n_total = sum(len(p) for p, _g in segments)
         if not all_node_names or n_total == 0:
+            return None
+        if not self.breaker.allow_device():
+            # circuit open: refuse the window before any launch; the
+            # shell's per-segment fallback runs the serial loop, where
+            # schedule() picks the host twin
+            obs.inc("twin.circuit-open")
             return None
         if self.nominated is not None and self.nominated.has_any():
             # the segment kernel has no nominated-ghost input
@@ -1490,16 +1591,29 @@ class TorchScheduler:
         tensor = self._ptab is not None
         before = self._mesh_counts("burst_segments", "gather",
                                    "copies", "steps")
-        state, _li, _lni, _spread, packed = K.schedule_batch_segments(
-            self._dev_nodes, stack, seg_start, gang, n_total,
-            self.last_index, self.last_node_index, num_to_find, n, z_pad,
-            weights=self._union_weights if tensor else self.weights,
-            rotation=rotation, rotation_pos=rotation_pos,
-            wtab=self._wtab() if tensor else None,
-            gang_score=self._gang_score, **self._mesh_kw())
-        obs.inc("dispatch.burst_fused")
-        t2 = time.perf_counter()
-        h = self._fetch(packed, "fused")
+        try:
+            chaos.check("device.dispatch")
+            state, _li, _lni, _spread, packed = K.schedule_batch_segments(
+                self._dev_nodes, stack, seg_start, gang, n_total,
+                self.last_index, self.last_node_index, num_to_find, n,
+                z_pad,
+                weights=self._union_weights if tensor else self.weights,
+                rotation=rotation, rotation_pos=rotation_pos,
+                wtab=self._wtab() if tensor else None,
+                gang_score=self._gang_score, **self._mesh_kw())
+            obs.inc("dispatch.burst_fused")
+            t2 = time.perf_counter()
+            chaos.check("device.fetch")
+            h = self._fetch(packed, "fused")
+        except _DEVICE_FAULTS as e:
+            # the one launch and fetch come before any counter update or
+            # commit: refuse the window, and the shell reruns every entry
+            # through its per-segment path against the host mirror
+            self._device_fault(e)
+            self.discard_burst_folds()
+            obs.inc("twin.device-fault")
+            return None
+        self.breaker.record_success()
         obs.inc("fetch.burst_fused")
         self.last_burst_phases = {"encode": t1 - t0, "mirror": t_mirror,
                                   "dispatch": t2 - t1,
@@ -1612,6 +1726,10 @@ class TorchScheduler:
         if not all_node_names:
             return None
         t0 = time.perf_counter()
+        if not self.breaker.allow_device():
+            # circuit open: the shell's oracle Preemptor runs this scan
+            obs.inc("twin.circuit-open")
+            return None
         if self.nominated is not None and self.nominated.has_any():
             return self._refuse("preempt-nominated-ghosts")
         if pod.volumes:
@@ -1663,13 +1781,24 @@ class TorchScheduler:
                   "req_mem": np.int64(req.memory),
                   "req_eph": np.int64(req.ephemeral_storage)}
         t_enc = time.perf_counter()
-        out = K.preemption_scan(nodes, vic, pod_in, feas, order_rank,
-                                b.n_real, self.check_resources,
-                                f.has_request, pod.priority,
-                                **self._mesh_kw())
-        obs.inc("dispatch.preempt_scan")
-        t_fetch = time.perf_counter()
-        out = self._fetch(out, "preempt")
+        try:
+            chaos.check("device.dispatch")
+            out = K.preemption_scan(nodes, vic, pod_in, feas, order_rank,
+                                    b.n_real, self.check_resources,
+                                    f.has_request, pod.priority,
+                                    **self._mesh_kw())
+            obs.inc("dispatch.preempt_scan")
+            t_fetch = time.perf_counter()
+            chaos.check("device.fetch")
+            out = self._fetch(out, "preempt")
+        except _DEVICE_FAULTS as e:
+            # the scan reads resident state and changes nothing: refuse,
+            # and the shell falls back to the oracle Preemptor, whose
+            # decisions are the same
+            self._device_fault(e)
+            obs.inc("twin.device-fault")
+            return None
+        self.breaker.record_success()
         obs.inc("fetch.preempt_scan")
         t_end = time.perf_counter()
         self.last_preempt_phases = {"encode": t_enc - t0,
@@ -1805,6 +1934,10 @@ class TorchScheduler:
         if not pods or not all_node_names:
             return None
         t0 = time.perf_counter()
+        if not self.breaker.allow_device():
+            # circuit open: the shell's serial loop (host twin and oracle
+            # Preemptor) runs the tail instead
+            return self._refuse("circuit-open")
         if self.nominated is not None and self.nominated.has_any():
             return self._refuse("nominated-ghosts")
         if self._tree_rotates():
@@ -1891,19 +2024,32 @@ class TorchScheduler:
         t_enc = time.perf_counter()
         off = 0
         work = {}  # the chunk chain's cluster workspace, where one is needed
-        for lo, k, bucket in chunks:
-            row = np.full(bucket, len(specs) - 1, np.int64)
-            row[:k] = rows_arr[lo: lo + k]
-            mut, ghost, li, lni, _outs = K.pressure_batch(
-                self._dev_nodes, mut, ghost,
-                K.PodStack(stack.table, row, skip=stack.skip_flags()), vic,
-                li, lni, num_to_find, n, z_pad, weights=weights,
-                out=packed[off: off + bucket], work=work, **self._mesh_kw())
-            obs.inc("dispatch.pressure_batch")
-            off += bucket
-        t_fetch = time.perf_counter()
-        # ONE device-to-host copy for every chunk of the wave
-        h = self._fetch(packed.reshape(-1), "pressure").reshape(total, width)
+        try:
+            for lo, k, bucket in chunks:
+                chaos.check("device.dispatch")
+                row = np.full(bucket, len(specs) - 1, np.int64)
+                row[:k] = rows_arr[lo: lo + k]
+                mut, ghost, li, lni, _outs = K.pressure_batch(
+                    self._dev_nodes, mut, ghost,
+                    K.PodStack(stack.table, row, skip=stack.skip_flags()),
+                    vic, li, lni, num_to_find, n, z_pad, weights=weights,
+                    out=packed[off: off + bucket], work=work,
+                    **self._mesh_kw())
+                obs.inc("dispatch.pressure_batch")
+                off += bucket
+            t_fetch = time.perf_counter()
+            # ONE device-to-host copy for every chunk of the wave
+            chaos.check("device.fetch")
+            h = self._fetch(packed.reshape(-1),
+                            "pressure").reshape(total, width)
+        except _DEVICE_FAULTS as e:
+            # no counter or host mirror has moved yet: refuse the wave
+            # (the shell's serial loop decides the same outcomes) and drop
+            # the resident rows the launched chunks folded
+            self._device_fault(e)
+            self.discard_burst_folds()
+            return self._refuse("device-fault")
+        self.breaker.record_success()
         obs.inc("fetch.pressure_batch")
         t_end = time.perf_counter()
         self.last_preempt_phases = {"encode": t_enc - t0,
@@ -2069,8 +2215,8 @@ class TorchScheduler:
     def debug_state(self) -> dict:
         """Mirror shape and epoch, walk counters, device, profiles, the
         victim table (slots, rows, generations, dirty rows, residency, and
-        the encoder's rebuild and row re-sort counts), the mesh and its
-        device count, the serial path and its running latencies, the
+        the encoder's rebuild and row re-sort counts), the circuit
+        breaker, the mesh and its device count, the serial path and its running latencies, the
         launch count of every kernel (K1-K14b) and the refusals."""
         dev = self._dev_nodes
         mirror = None
@@ -2094,6 +2240,7 @@ class TorchScheduler:
         return {
             "mirror": mirror,
             "dev_epoch": self._dev_epoch,
+            "breaker": self.breaker.debug_state(),
             "last_index": self.last_index,
             "last_node_index": self.last_node_index,
             "victim_table": vic,

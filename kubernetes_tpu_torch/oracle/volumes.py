@@ -14,9 +14,9 @@ scheduling:
 - VolumeBindingChecker (predicates.go:1581 via CheckVolumeBinding): bound
   PVCs' PVs must fit the node; unbound PVCs need a matching available PV.
 - VolumeBinder (pkg/scheduler/volumebinder bridging
-  controller/volume/scheduling): CheckVolumeBinding's find step. The
-  assume / bind half the shell runs around a binding is left out, and so
-  is the BalanceAttachedNodeVolumes gate (off by default; only the
+  controller/volume/scheduling): CheckVolumeBinding's find step, and the
+  assume / bind half the scheduler shell runs around a binding. The
+  BalanceAttachedNodeVolumes gate is left out (off by default; only the
   reference's config surface turns it on).
 
 Failure reason strings follow predicates/error.go: NoDiskConflict,
@@ -175,12 +175,18 @@ def make_volume_zone_predicate(listers: VolumeListers):
 
 
 class VolumeBinder:
-    """pkg/scheduler/volumebinder analog, its find step
-    (find_pod_volumes: CheckVolumeBinding's work — bound PVCs' PVs must be
-    node-compatible; unbound PVCs need a matching unclaimed PV)."""
+    """pkg/scheduler/volumebinder analog: find/assume/bind PVC→PV.
 
-    def __init__(self, listers: VolumeListers):
+    - find_pod_volumes: CheckVolumeBinding's work — bound PVCs' PVs must be
+      node-compatible; unbound PVCs need a matching unclaimed PV.
+    - assume: reserve the chosen PVs in memory (cleared by forget).
+    - bind: write claim_ref / volume_name through the store.
+    """
+
+    def __init__(self, listers: VolumeListers, store=None):
         self.listers = listers
+        self.store = store
+        self._assumed: dict[str, str] = {}   # pv name -> pvc key
 
     def _pv_fits_node(self, pv: PersistentVolume, node: Node) -> bool:
         for label in (LABEL_ZONE_FAILURE_DOMAIN, LABEL_ZONE_REGION):
@@ -193,7 +199,7 @@ class VolumeBinder:
                     ) -> Optional[PersistentVolume]:
         best = None
         for pv in self.listers.pvs_fn():
-            if pv.claim_ref:
+            if pv.claim_ref or pv.name in self._assumed:
                 continue
             if pv.storage_class != pvc.storage_class:
                 continue
@@ -241,6 +247,43 @@ class VolumeBinder:
                 return True, []
             return False, reasons
         return check_volume_binding
+
+    # -- assume / bind -------------------------------------------------------
+    def assume_pod_volumes(self, pod: Pod, node: Node) -> list[tuple[str, str]]:
+        """Reserve matches for the pod's unbound PVCs; returns
+        [(pvc_key, pv_name)] reservations."""
+        reservations = []
+        for v in pod.volumes:
+            if not v.pvc:
+                continue
+            pvc = self.listers.pvc(pod.namespace, v.pvc)
+            if pvc is None or pvc.volume_name:
+                continue
+            pv = self._find_match(pvc, node)
+            if pv is not None:
+                self._assumed[pv.name] = pvc.key
+                reservations.append((pvc.key, pv.name))
+        return reservations
+
+    def forget_pod_volumes(self, reservations: list[tuple[str, str]]) -> None:
+        for _pvc_key, pv_name in reservations:
+            self._assumed.pop(pv_name, None)
+
+    def bind_pod_volumes(self, reservations: list[tuple[str, str]]) -> None:
+        """Write the bindings through the store, then drop reservations."""
+        from kubernetes_tpu_torch.store.store import PVS, PVCS
+        for pvc_key, pv_name in reservations:
+            if self.store is not None:
+                def set_claim(pv, _pvc_key=pvc_key):
+                    pv.claim_ref = _pvc_key
+                    return pv
+
+                def set_volume(pvc, _pv_name=pv_name):
+                    pvc.volume_name = _pv_name
+                    return pvc
+                self.store.guaranteed_update(PVS, pv_name, set_claim)
+                self.store.guaranteed_update(PVCS, pvc_key, set_volume)
+            self._assumed.pop(pv_name, None)
 
 
 def make_volume_predicates(listers: VolumeListers,

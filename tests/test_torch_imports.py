@@ -21,6 +21,27 @@ ROOT = Path(__file__).resolve().parents[1]
 CHILD_TIMEOUT_S = 240
 
 
+#: the scheduler shell and the host modules it reads, each a copy of the
+#: JAX package's module of the same relative path
+SHELL_MODULES = (
+    "kubernetes_tpu_torch.scheduler",
+    "kubernetes_tpu_torch.utils.clock", "kubernetes_tpu_torch.utils.heap",
+    "kubernetes_tpu_torch.utils.tracing",
+    "kubernetes_tpu_torch.coscheduling.types",
+    "kubernetes_tpu_torch.framework.v1alpha1",
+    "kubernetes_tpu_torch.obs", "kubernetes_tpu_torch.obs.registry",
+    "kubernetes_tpu_torch.obs.ledger", "kubernetes_tpu_torch.obs.trace",
+    "kubernetes_tpu_torch.chaos",
+    "kubernetes_tpu_torch.store.store",
+    "kubernetes_tpu_torch.store.commit_core",
+    "kubernetes_tpu_torch.store.record", "kubernetes_tpu_torch.store.remote",
+    "kubernetes_tpu_torch.store.informer",
+    "kubernetes_tpu_torch.cache.cache",
+    "kubernetes_tpu_torch.queue.scheduling_queue",
+    "kubernetes_tpu_torch.core.breaker", "kubernetes_tpu_torch.oracle.gang",
+)
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         kubernetes_tpu_torch.__path__, "kubernetes_tpu_torch."))
@@ -36,6 +57,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the host twin's copies of the oracle and the factory registries
     assert "kubernetes_tpu_torch.factory" in mods
     assert "kubernetes_tpu_torch.oracle.volumes" in mods
+    for m in SHELL_MODULES:
+        assert m in mods, m
     from kubernetes_tpu_torch import factory
     from kubernetes_tpu_torch.oracle import generic_scheduler, preemption
     for mod, fn in ((factory, "build_predicate_set"),
@@ -53,7 +76,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith('jax.') or m.startswith('jaxlib')"
-        " or m == 'kubernetes_tpu' or m.startswith('kubernetes_tpu.'))\n"
+        " or m == 'kubernetes_tpu' or m.startswith('kubernetes_tpu.')"
+        " or m.endswith('.native') or '.native.' in m)\n"
         "print(json.dumps(bad))\n")
     # a child that does not end fails the test (TimeoutExpired) instead of
     # holding its worker until the run's own limit
@@ -61,6 +85,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, check=True,
                          timeout=CHILD_TIMEOUT_S)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_port_module_reaches_a_native_core(monkeypatch):
+    """The port keeps the pure-Python heap and commit cores: no module
+    imports a `native` package (the JAX package's C++ cores), and the
+    commit core refuses to be forced native."""
+    import re
+    pat = re.compile(r"^\s*(from\s+\S*native\S*\s+import|import\s+\S*native"
+                     r"|from\s+\S+\s+import\s+native\b)")
+    for path in sorted(Path(kubernetes_tpu_torch.__path__[0]).rglob("*.py")):
+        for line in path.read_text().splitlines():
+            assert not pat.match(line), (path, line)
+    import pytest
+    from kubernetes_tpu_torch.store import commit_core
+    from kubernetes_tpu_torch.store.store import Store
+    from kubernetes_tpu_torch.utils.heap import NumericKeyedHeap, _PyHeapCore
+    assert Store().core_impl == "twin"
+    monkeypatch.setenv("KTPU_COMMITCORE", "native")
+    with pytest.raises(RuntimeError):
+        commit_core.make_commit_core(16, 16, object, KeyError, KeyError)
+    h = NumericKeyedHeap(lambda x: x[0], lambda x: x[1])
+    assert isinstance(h._core, _PyHeapCore)
 
 
 def test_constants_equal_the_jax_module():
