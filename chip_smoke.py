@@ -193,6 +193,30 @@
      pressure tail runs K8, victims are evicted and the preemptors bind
      over rounds of a fake clock; bindings, nominations and evictions
      must equal the same shell on device="cpu" (the plain versions);
+   - serve: the serve cell (`kubernetes_tpu/perf/harness.py`
+     run_serve_cell) through the port's ServeLoop over the shell on the
+     card: 1,000 nodes, a 64-pod warm-up, then the BackpressureGate at
+     max(4 x window, 2 x rate) (Retry-After base 0.25 s) and 2,000
+     arrivals/s for 10 s (the cell's 30 s cut), window 2,048, depth 3,
+     the completion reaper past half the cell's capacity, the cyclic GC
+     frozen over the timed window; then the drain, the
+     all-admitted-or-429'd audit and 3 windows of 256 fresh arrivals
+     recorded by the flight recorder in replay mode and replayed through
+     the oracle with no violation; a `[serve]` line gives the sustained
+     pods/s, startup p50 / p99 (the LEDGER), windows cut, idle ticks,
+     the most launches in flight, sheds and the launches of the timed
+     window (K3 must have run);
+   - fleet: the fleet cell (run_fleet_cell): 2 FleetInstances, each on a
+     thread of its own with its own TorchScheduler on the card, over one
+     store of 1,000 nodes in 8 shards and one fleet gate,
+     namespace-spread arrivals at 4,000/s for 10 s (the cell's 20 s
+     cut; its windows mix namespaces, so they run on K5): no double bind
+     (BindAuditor), all admitted or 429'd, claims disjoint at every
+     probe, K5 launched; an error on a drive thread stops the run;
+     then a FleetManager(record=True) run on a fake clock, 3 instances
+     with mixed pods (scan windows), one killed mid-run, each survivor
+     replayed on the card (replay_instance) bit for bit; two `[fleet]`
+     lines;
    - degrade drill: on the 15,000-node world, a DeviceFault at the
      `device.fetch` point of a uniform burst with a commit callback (the
      undecided tail then decided by serial cycles, as the shell does) and
@@ -5105,12 +5129,14 @@ SHELL_MAX_PODS = 10000  # bench.py's schedule_burst(max_pods=10000)
 DRILL_FAULTS = {"n": 0}
 
 
-def bench_store(n_nodes, n_extra=0):
+def bench_store(n_nodes, n_extra=0, watch_log_size=None):
     """bench.py's run_bench store and build_cluster as the port's objects:
-    nodes of 4 CPU, 32 Gi, 110 pods, zone i % 3."""
+    nodes of 4 CPU, 32 Gi, 110 pods, zone i % 3; the watch log holds
+    `watch_log_size` events, by default room for twice the objects."""
     from kubernetes_tpu_torch.api.types import Node
     from kubernetes_tpu_torch.store.store import Store, NODES
-    store = Store(watch_log_size=max(65536, 2 * (n_nodes + n_extra)))
+    store = Store(watch_log_size=watch_log_size
+                  or max(65536, 2 * (n_nodes + n_extra)))
     for i in range(n_nodes):
         store.create(NODES, Node(
             name=f"node-{i}",
@@ -5373,6 +5399,522 @@ def shell_preempt_baseline(device, sync, report, n_nodes=1000,
           f"refusals {refusals}; "
           f"bindings, nominations and evictions equal to the device=\"cpu\" "
           f"shell ({wall_cpu * 1e3:.1f} ms)")
+
+
+# ---------------------------------------------------------------------------
+# serving: the continuously-fed scheduler and the active-active fleet
+# ---------------------------------------------------------------------------
+#: the serve cell (`kubernetes_tpu/perf/harness.py` run_serve_cell) at the
+#: repo's serve acceptance width; its 30 s of arrivals cut to 10
+SERVE_CELL = {"nodes": 1000, "rate": 2000.0, "seconds": 10.0,
+              "window": 2048, "depth": 3, "parity_windows": 3,
+              "parity_pods": 256}
+#: the fleet cell (run_fleet_cell): 2 instances on threads of their own,
+#: 8 shards; its 20 s of arrivals cut to 10
+FLEET_CELL = {"nodes": 1000, "instances": 2, "shards": 8, "rate": 4000.0,
+              "seconds": 10.0, "window": 2048, "depth": 3}
+#: the recorded fleet run: 3 instances on a fake clock, one killed
+FLEET_RECORDED = {"nodes": 64, "instances": 3, "rounds": 8, "kill_round": 3,
+                  "window": 32, "seed": 5}
+
+
+class Reaper:
+    """The cells' completion reaper: a watch collects binds of the pods
+    named `prefix*` in commit order, and past `target` resident the
+    oldest are deleted in one batch (the workload finishing)."""
+
+    def __init__(self, store, prefix, target):
+        from kubernetes_tpu_torch.store.store import PODS
+        self.store, self.prefix, self.target = store, prefix, target
+        self.watch = store.watch(PODS)
+        self.fifo, self.seen, self.reaped = [], set(), 0
+
+    def __call__(self):
+        from kubernetes_tpu_torch.store.store import (MODIFIED, PODS,
+                                                      ExpiredError)
+        try:
+            events = self.watch.drain()
+        except ExpiredError:
+            events = []
+            self.fifo.clear()
+            self.seen.clear()
+            for p in self.store.list(PODS)[0]:
+                if p.node_name and p.name.startswith(self.prefix):
+                    self.fifo.append(p.key)
+                    self.seen.add(p.key)
+        for ev in events:
+            if ev.type == MODIFIED and ev.obj.node_name \
+                    and ev.obj.name.startswith(self.prefix) \
+                    and ev.obj.key not in self.seen:
+                self.fifo.append(ev.obj.key)
+                self.seen.add(ev.obj.key)
+        if len(self.fifo) > self.target:
+            cut = len(self.fifo) - self.target
+            batch, self.fifo = self.fifo[:cut], self.fifo[cut:]
+            self.reaped += len(self.store.delete_many(PODS, batch))
+
+    def stop(self):
+        self.watch.stop()
+
+
+def audit_arrivals(name, store, gen, reaped):
+    """All admitted or 429'd: every created arrival is in the store bound
+    or was reaped, and every attempt was created, given up or is still
+    waiting for its retry."""
+    from kubernetes_tpu_torch.store.store import PODS
+    g = gen.stats()
+    measured = [p for p in store.list(PODS)[0]
+                if p.name.startswith(gen.name_prefix)]
+    unbound = sum(1 for p in measured if not p.node_name)
+    if len(measured) + reaped != g["created"] or unbound \
+            or g["attempted"] != g["created"] + g["gave_up"] \
+            + g["pending_retry"]:
+        raise SystemExit(f"{name}: arrival audit failed: {len(measured)} "
+                         f"in the store ({unbound} unbound) + {reaped} "
+                         f"reaped against {g}")
+    return g
+
+
+def serve_cell(device, sync, nodes, rate, seconds, window, depth,
+               parity_windows, parity_pods, seed=0):
+    """run_serve_cell on the port: an ArrivalGenerator feeds pods at
+    `rate`/s for `seconds` while a ServeLoop (`window`, launch queue
+    `depth`) cuts windows from the live activeQ of the port's shell on
+    `device`, a BackpressureGate sheds past max(4 x window, 2 x rate)
+    with Retry-After 0.25 s, a reaper deletes the oldest bound arrivals
+    past half the cell's pod capacity, and the cyclic GC is frozen over
+    the timed window. Then the drain, the all-admitted-or-429'd audit,
+    and `parity_windows` windows of fresh arrivals recorded in replay
+    mode, each replayed through the port's oracle."""
+    import gc
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.obs import flight
+    from kubernetes_tpu_torch.obs.ledger import LEDGER
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.serve import ArrivalGenerator, ServeLoop
+    name = "serve"
+    t_setup = time.perf_counter()
+    store = bench_store(nodes)
+    sched = Scheduler(store, percentage_of_nodes_to_score=100,
+                      device=device)
+    sched.sync()
+    loop = ServeLoop(sched, window_size=window, depth=depth)
+    warm = ArrivalGenerator(store, rate=10 ** 9, total=64,
+                            name_prefix="warm-", seed=seed)
+    warm.tick()
+    warm.tick()
+    loop.drain(timeout=30.0)
+    gate = loop.attach_gate(max_depth=max(4 * window, int(2 * rate)),
+                            retry_after_base=0.25)
+    LEDGER.reset()
+    gen = ArrivalGenerator(store, rate=rate, seed=seed)
+    reap = Reaper(store, gen.name_prefix,
+                  max(4 * window, nodes * min(110, 4000 // 100) // 2))
+    sync()
+    t_setup = time.perf_counter() - t_setup
+    gc.collect()
+    gc.freeze()
+    thresholds = gc.get_threshold()
+    gc.set_threshold(thresholds[0], thresholds[1], 1 << 16)
+    obs.reset()
+    sched.algorithm.inflight_peak = 0
+    bound0, windows0, idle0 = loop.pods_bound, loop.windows_cut, \
+        loop.idle_ticks
+    t0 = time.perf_counter()
+    t_end = t0 + seconds
+    while time.perf_counter() < t_end:
+        reap()
+        gen.tick()
+        if loop.step() == 0:
+            time.sleep(min(loop.tick_interval, 0.001))
+    sync()
+    elapsed = time.perf_counter() - t0
+    counts = K.launches()
+    peak = sched.algorithm.inflight_peak
+    twins, refusals = obs.family("twin"), obs.family("refusal")
+    sustained = (loop.pods_bound - bound0) / elapsed
+    windows = loop.windows_cut - windows0
+    idle = loop.idle_ticks - idle0
+    t_drain = time.perf_counter()
+    deadline = t_drain + 30.0
+    while time.perf_counter() < deadline:
+        gen.flush_retries(timeout=0.5)
+        reap()
+        if loop.step() == 0 and gen.stats()["pending_retry"] == 0 \
+                and sched.queue.num_pending() == 0:
+            break
+    t_drain = time.perf_counter() - t_drain
+    reap.stop()
+    gc.set_threshold(*thresholds)
+    gc.unfreeze()
+    gc.collect()
+    g = audit_arrivals(name, store, gen, reap.reaped)
+    led = LEDGER.snapshot()
+    t_par = time.perf_counter()
+    flight.RECORDER.configure(mode="replay", capacity=parity_windows)
+    flight.RECORDER.clear()
+    par = ArrivalGenerator(store, rate=10 ** 9, total=parity_pods,
+                           name_prefix="par-", seed=seed + 1)
+    try:
+        while not par.finished():
+            par.tick()
+            loop.step()
+        loop.drain(timeout=30.0)
+        records = flight.RECORDER.records()
+        violations = flight.RECORDER.replay_all()
+    finally:
+        flight.RECORDER.configure(mode="digest")
+        flight.RECORDER.clear()
+    t_par = time.perf_counter() - t_par
+    if not records or any(r.capture is None for r in records):
+        raise SystemExit(f"{name}: the parity windows left no replay "
+                         f"record")
+    if violations:
+        raise SystemExit(f"{name}: replay violations {violations[:3]}")
+    return {"store": store, "sched": sched, "loop": loop, "gate": gate,
+            "arrivals": g, "elapsed": elapsed, "sustained": sustained,
+            "windows": windows, "idle": idle, "peak": peak,
+            "counts": counts, "twins": twins, "refusals": refusals,
+            "ledger": led, "reaped": reap.reaped, "records": len(records),
+            "setup_s": t_setup, "drain_s": t_drain, "parity_s": t_par}
+
+
+def serve_phase(device, sync, report):
+    """`[serve]`: the serve cell at 1,000 nodes x 2,000 arrivals/s for
+    10 s on the card; fails on an audit miss, a replay violation, a twin
+    or refusal count, a breaker fault, or no K3 launch."""
+    c = SERVE_CELL
+    r = serve_cell(device, sync, c["nodes"], c["rate"], c["seconds"],
+                   c["window"], c["depth"], c["parity_windows"],
+                   c["parity_pods"])
+    name = "serve"
+    if r["counts"]["uniform_burst"] == 0:
+        raise SystemExit(f"{name}: K3 uniform_burst was not launched "
+                         f"({r['counts']})")
+    if r["twins"] or r["refusals"]:
+        raise SystemExit(f"{name}: twin cycles {r['twins']}, refusals "
+                         f"{r['refusals']}")
+    no_degrade(name)
+    if r["sched"].algorithm.breaker.faults_total:
+        raise SystemExit(f"{name}: breaker faults "
+                         f"{r['sched'].algorithm.breaker.debug_state()}")
+    add_launches(report, r["counts"])
+    led, g = r["ledger"], r["arrivals"]
+    print(f"[serve] {c['nodes']} nodes, {c['rate']:.0f} arrivals/s for "
+          f"{r['elapsed']:.2f} s (window {c['window']}, depth "
+          f"{c['depth']}): sustained {r['sustained']:.1f} pods/s; startup "
+          f"p50 {led['startup_p50'] * 1e3:.2f} ms, p99 "
+          f"{led['startup_p99'] * 1e3:.2f} ms (SLO 5 s: "
+          f"{'ok' if led['startup_slo_ok'] else 'missed'}; "
+          f"{led['pods_completed']} pods); windows cut {r['windows']}, "
+          f"idle ticks {r['idle']}, most launches in flight {r['peak']}; "
+          f"sheds {r['gate'].rejected} (arrivals {g}); reaped "
+          f"{r['reaped']}; launches in the timed window "
+          f"{ {k: v for k, v in r['counts'].items() if v} }; every "
+          f"admitted arrival bound; {r['records']} parity windows replayed "
+          f"through the oracle with 0 violations; set-up "
+          f"{r['setup_s']:.1f} s, drain {r['drain_s']:.2f} s, parity "
+          f"{r['parity_s']:.1f} s")
+
+
+def fleet_cell(device, sync, nodes, instances, shards, rate, seconds,
+               window, depth, seed=0):
+    """run_fleet_cell on the port: `instances` FleetInstances of the
+    port's shell on `device`, each on a thread of its own, over one store
+    (8 shards, one fleet gate), namespace-spread arrivals at `rate`/s for
+    `seconds`, the reaper; audits: no double bind (BindAuditor), every
+    arrival admitted and bound or 429'd, claims disjoint at every probe.
+    An error on a drive thread stops the run."""
+    import threading
+    import zlib
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.api.types import Container, Pod
+    from kubernetes_tpu_torch.fleet import (BIND_CONFLICTS, BindAuditor,
+                                            FleetInstance)
+    from kubernetes_tpu_torch.obs.ledger import LEDGER
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.serve import ArrivalGenerator, fleet_gate
+    from kubernetes_tpu_torch.store.store import PODS
+    name = "fleet cell"
+    t_setup = time.perf_counter()
+    store = bench_store(nodes, watch_log_size=1 << 17)
+    idents = [f"sched-{i}" for i in range(instances)]
+    fleet = [FleetInstance(store, ident, idents, device=device,
+                           window=window, depth=depth, n_shards=shards,
+                           lease_duration=5.0, renew_deadline=3.0,
+                           percentage_of_nodes_to_score=100)
+             for ident in idents]
+    for inst in fleet:
+        inst.sync()
+
+    def mkpod(pod_name):
+        ns = f"ns-{zlib.crc32(pod_name.encode()) % (4 * shards)}"
+        return Pod(name=pod_name, namespace=ns, labels={"app": "fleet"},
+                   containers=(Container.make(
+                       name="c", requests={"cpu": 100, "memory": 500 * MI}),))
+
+    def idle():
+        return all(inst.sched.queue.num_pending() == 0
+                   and inst.sched.informers.informer(PODS).backlog() == 0
+                   for inst in fleet)
+
+    warm = ArrivalGenerator(store, rate=10 ** 9, total=32 * instances,
+                            pod_fn=mkpod, name_prefix="flwarm-", seed=seed)
+    for _ in range(3):
+        warm.tick()
+        for inst in fleet:
+            inst.step()
+    deadline = time.perf_counter() + 60.0
+    while time.perf_counter() < deadline:
+        if sum(inst.step() for inst in fleet) == 0 and idle():
+            break
+    auditor = BindAuditor(store)
+    store.admission_gate = fleet_gate([inst.loop for inst in fleet],
+                                      max_depth=max(4 * window,
+                                                    int(2 * rate)))
+    LEDGER.reset()
+    gen = ArrivalGenerator(store, rate=rate, pod_fn=mkpod,
+                           name_prefix="fl-", seed=seed)
+    reap = Reaper(store, "fl-",
+                  max(4 * window, nodes * min(110, 4000 // 100) // 2))
+    stop = threading.Event()
+    errors = []
+
+    def drive(inst):
+        try:
+            while not stop.is_set():
+                if inst.step() == 0:
+                    time.sleep(0.001)
+        except BaseException as e:    # re-raised on the main thread below
+            errors.append((inst.identity, e))
+            stop.set()
+
+    threads = [threading.Thread(target=drive, args=(inst,), daemon=True,
+                                name=f"fleet-{inst.identity}")
+               for inst in fleet]
+    sync()
+    t_setup = time.perf_counter() - t_setup
+    obs.reset()
+    conflicts0 = {k: BIND_CONFLICTS.labels(k).value
+                  for k in ("requeued", "fenced")}
+    bound0 = sum(inst.loop.pods_bound for inst in fleet)
+    overlap = False
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    t_end = t0 + seconds
+    while time.perf_counter() < t_end and not stop.is_set():
+        reap()
+        gen.tick()
+        auditor.scan()
+        seen: set = set()
+        for inst in fleet:
+            owned = inst.claims.owned()
+            overlap |= bool(owned & seen)
+            seen |= owned
+        time.sleep(0.002)
+    elapsed = time.perf_counter() - t0
+    aggregate = (sum(inst.loop.pods_bound for inst in fleet) - bound0) \
+        / elapsed
+    t_settle = time.perf_counter()
+    polls = 0
+    while time.perf_counter() < t_settle + 30.0 and not stop.is_set():
+        gen.flush_retries(timeout=0.2)
+        reap()
+        auditor.scan()
+        if gen.stats()["pending_retry"] == 0 and idle():
+            polls += 1
+            if polls >= 3:
+                break
+        else:
+            polls = 0
+        time.sleep(0.05)
+    stop.set()
+    for th in threads:
+        th.join(timeout=30.0)
+    if errors:
+        ident, err = errors[0]
+        raise RuntimeError(f"{name}: instance {ident} failed") from err
+    if any(th.is_alive() for th in threads):
+        raise SystemExit(f"{name}: a drive thread did not stop")
+    deadline = time.perf_counter() + 30.0
+    while not idle() and time.perf_counter() < deadline:
+        reap()
+        for inst in fleet:
+            inst.step()
+    sync()
+    t_settle = time.perf_counter() - t_settle
+    counts = K.launches()
+    auditor.scan()
+    reap.stop()
+    auditor.stop()
+    g = audit_arrivals(name, store, gen, reap.reaped)
+    if auditor.violations:
+        raise SystemExit(f"{name}: double binds {auditor.violations[:5]}")
+    if overlap:
+        raise SystemExit(f"{name}: live shard claims overlapped")
+    return {"fleet": fleet, "arrivals": g, "elapsed": elapsed,
+            "aggregate": aggregate, "counts": counts,
+            "twins": obs.family("twin"), "refusals": obs.family("refusal"),
+            "ledger": LEDGER.snapshot(), "reaped": reap.reaped,
+            "conflicts": {k: BIND_CONFLICTS.labels(k).value - v
+                          for k, v in conflicts0.items()},
+            "setup_s": t_setup, "settle_s": t_settle}
+
+
+def fleet_recorded(device, sync, nodes, instances, rounds, kill_round,
+                   window, seed):
+    """A FleetManager(record=True) run on a fake clock: `instances`
+    FleetInstances on `device` round-robin over one store, seeded mixed
+    arrivals (run_fleet_trial's classes: plain, a hostname selector, a
+    toleration, a priority) over namespaces, one instance killed at
+    `kill_round`, then rounds until every pod is bound; no double bind,
+    claims disjoint after every round; then `replay_instance` of every
+    survivor on `device` must give its recorded bind stream bit for bit.
+    Returns (manager, replay reports by instance)."""
+    import random
+    from kubernetes_tpu_torch.api.types import Container, Pod, Toleration
+    from kubernetes_tpu_torch.fleet import (DEFAULT_SHARDS, FleetInstance,
+                                            FleetManager, ScriptedClaims,
+                                            replay_instance)
+    from kubernetes_tpu_torch.store.store import PODS
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+    name = "fleet recorded"
+    rng = random.Random(seed)
+    clock = FakeClock(100.0)
+    store = bench_store(nodes, watch_log_size=1 << 17)
+    idents = [f"i{k}" for k in range(instances)]
+    kw = dict(window=window, depth=2, percentage_of_nodes_to_score=100,
+              disable_preemption=True, device=device)
+
+    def mk(ident):
+        return FleetInstance(store, ident, idents, clock=clock, **kw)
+
+    mgr = FleetManager(store, idents, mk, clock=clock, record=True)
+    victim = idents[rng.randrange(instances)]
+    j = 0
+    for r in range(rounds):
+        pods = []
+        for _ in range(rng.randint(24, 48)):
+            cls = rng.choice(["plain", "plain", "selector", "tolerate",
+                              "prio"])
+            extra = {"labels": {"app": cls}}
+            if cls == "selector":
+                extra["node_selector"] = {
+                    "kubernetes.io/hostname": f"node-{rng.randrange(nodes)}"}
+            elif cls == "tolerate":
+                extra["tolerations"] = (Toleration(key="k", op="Exists"),)
+            elif cls == "prio":
+                extra["priority"] = rng.randint(1, 3)
+            pods.append(Pod(
+                name=f"p{j}", namespace=f"ns-{j % (3 * instances)}",
+                uid=f"p{j}-uid", creation_timestamp=clock.now(),
+                containers=(Container.make(name="c", requests={
+                    "cpu": rng.choice([100, 300])}),), **extra))
+            j += 1
+        mgr.create_pods(pods)
+        if r == kill_round:
+            mgr.kill(victim)
+        mgr.step_all()
+        if not mgr.owned_disjoint():
+            raise SystemExit(f"{name}: claims overlap after round {r}")
+        mgr.advance_clock(rng.choice([1.0, 1.5, 2.0]))
+    for _ in range(24):
+        mgr.step_all()
+        mgr.advance_clock(1.5)
+        if all(p.node_name for p in store.list(PODS)[0]):
+            break
+    mgr.auditor.scan()
+    unbound = [p.key for p in store.list(PODS)[0] if not p.node_name]
+    if unbound or mgr.auditor.violations or not mgr.owned_disjoint():
+        raise SystemExit(f"{name}: {len(unbound)} unbound, double binds "
+                         f"{mgr.auditor.violations[:3]}")
+    reports = {}
+    for ident in idents:
+        if ident == victim:
+            continue
+
+        def mk_solo(st, ck, _ident=ident):
+            return FleetInstance(
+                st, _ident, idents, clock=ck,
+                claims=ScriptedClaims("default-scheduler", DEFAULT_SHARDS),
+                **kw)
+        rep = replay_instance(mgr.timeline, ident, mk_solo)
+        if rep["mismatches"] or rep["replay_double_binds"] \
+                or rep["compared"] == 0:
+            raise SystemExit(f"{name}: {ident} replays with "
+                             f"{rep['mismatches'][:2]} (double binds "
+                             f"{rep['replay_double_binds'][:2]}, "
+                             f"{rep['compared']} steps compared)")
+        reports[ident] = rep
+    sync()
+    return mgr, victim, reports
+
+
+def fleet_phase(device, sync, report):
+    """`[fleet]`: (a) the fleet cell, 2 threaded instances on the card;
+    (b) the recorded 3-instance run with a kill, each survivor replayed
+    on the card bit for bit. The cell's windows are scan windows (its
+    pods' namespaces differ, and a namespace is part of a pod's class
+    signature, as in the JAX package). Fails on an audit miss, a double
+    bind, a replay mismatch, a twin or refusal count, a breaker fault, or
+    no K5 launch in (a)."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    c = FLEET_CELL
+    r = fleet_cell(device, sync, c["nodes"], c["instances"], c["shards"],
+                   c["rate"], c["seconds"], c["window"], c["depth"])
+    name = "fleet"
+    if r["counts"]["schedule_batch"] == 0:
+        raise SystemExit(f"{name}: K5 schedule_batch was not launched "
+                         f"({r['counts']})")
+    if r["twins"] or r["refusals"]:
+        raise SystemExit(f"{name}: twin cycles {r['twins']}, refusals "
+                         f"{r['refusals']}")
+    no_degrade(name)
+    for inst in r["fleet"]:
+        if inst.sched.algorithm.breaker.faults_total:
+            raise SystemExit(f"{name}: breaker faults on {inst.identity}")
+    add_launches(report, r["counts"])
+    led, g = r["ledger"], r["arrivals"]
+    print(f"[fleet] cell: {c['instances']} instances on threads of their "
+          f"own on one card, {c['nodes']} nodes, {c['shards']} shards, "
+          f"{c['rate']:.0f} arrivals/s for {r['elapsed']:.2f} s: aggregate "
+          f"{r['aggregate']:.1f} pods/s (bound "
+          f"{ {i.identity: i.loop.pods_bound for i in r['fleet']} }); "
+          f"startup p50 {led['startup_p50'] * 1e3:.2f} ms, p99 "
+          f"{led['startup_p99'] * 1e3:.2f} ms; double binds 0, claims "
+          f"disjoint at every probe, fenced waves "
+          f"{sum(i.sched.fenced_waves for i in r['fleet'])}, bind "
+          f"conflicts {r['conflicts']}; arrivals {g}, reaped {r['reaped']}; "
+          f"launches {({k: v for k, v in r['counts'].items() if v})}; "
+          f"set-up {r['setup_s']:.1f} s, settle {r['settle_s']:.2f} s")
+    obs.reset()
+    t0 = time.perf_counter()
+    d = FLEET_RECORDED
+    mgr, victim, reps = fleet_recorded(device, sync, d["nodes"],
+                                       d["instances"], d["rounds"],
+                                       d["kill_round"], d["window"],
+                                       d["seed"])
+    wall = time.perf_counter() - t0
+    counts = K.launches()
+    twins, refusals = obs.family("twin"), obs.family("refusal")
+    if twins or refusals:
+        raise SystemExit(f"{name} recorded: twin cycles {twins}, refusals "
+                         f"{refusals}")
+    no_degrade(name)
+    if not any(counts.values()):
+        raise SystemExit(f"{name} recorded: no kernel launched")
+    add_launches(report, counts)
+    steps = sum(1 for e in mgr.timeline if e["op"] == "step")
+    print(f"[fleet] recorded: {d['instances']} instances on a fake clock, "
+          f"{d['nodes']} nodes, {steps} steps, {victim} killed at round "
+          f"{d['kill_round']}; every pod bound, double binds 0; survivors "
+          f"replayed on the card bit for bit "
+          f"{ {i: rep['compared'] for i, rep in reps.items()} } steps "
+          f"compared; launches {({k: v for k, v in counts.items() if v})}; "
+          f"{wall:.1f} s")
 
 
 def degrade_drill(device, sync, n_nodes=N_NODES, n_burst=128, n_serial=12):
@@ -5647,6 +6189,8 @@ def main() -> int:
         timed(twin_phase, device, sync)
         timed(shell_uniform, device, sync, report)
         timed(shell_preempt_baseline, device, sync, report)
+        timed(serve_phase, device, sync, report)
+        timed(fleet_phase, device, sync, report)
         timed(degrade_drill, device, sync)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))

@@ -1,12 +1,11 @@
 """kubernetes_tpu_torch.chaos — seeded, deterministic fault-injection plane.
 
 Copied from the reference (`kubernetes_tpu.chaos`), cut to the seams the
-port's store and shell reach. What differs: the device circuit breaker
-absorbs the injected DeviceFault only (`device_fault_types`; a real CUDA
-error stops the run), an injection is not noted on a flight recorder (the
-port has none yet), and the seams of modules the port does not have yet
-(the native cores, the remote store, the serving gate, the fleet's
-leases) and the jumping clock are left out.
+port's store, shell, serving gate and fleet reach. What differs: the
+device circuit breaker absorbs the injected DeviceFault only
+(`device_fault_types`; a real CUDA error stops the run), and the seams of
+modules the port does not have yet (the native cores, the remote store)
+and the jumping clock are left out.
 
 The paper's claim is 50x throughput WITH identical binding decisions, and
 that contract is only worth anything if it survives the failure modes a
@@ -47,6 +46,21 @@ at the exact point the real failure would surface):
   (it needs a hook and — unlike every other seam — legitimately changes
   the post-churn world, so the churn parity harnesses drive the SAME
   kill schedule through their serial-oracle referee).
+- ``serve.shed`` — the serving admission gate sheds a pod create it
+  would otherwise have admitted (429 + Retry-After with the gate's
+  normal suggested backoff): deterministic backpressure injection for
+  the serve parity/chaos harnesses. Opt-in: it only fires where a
+  BackpressureGate is attached, and — like node.dead — it legitimately
+  changes which pods enter the cluster, so a blanket ``all=`` rate must
+  not seed it (the serve referee drives the SAME shed schedule through
+  both worlds).
+- ``fleet.lease-loss`` — a fleet scheduler instance PAUSES its partition
+  claim maintenance for a few steps (the GC-pause / network-partition
+  stand-in) while still scheduling: its shard leases expire, a peer
+  claims them and advances the fence, and the zombie's next wave must be
+  rejected WHOLE by the store's fencing-token check (zero double-binds).
+  Opt-in: it needs the fleet claim plumbing, and it legitimately moves
+  partition ownership, so a blanket ``all=`` rate must not seed it.
 
 Configuration:
 - programmatic: ``chaos.plan(seed=42, rates={"device.fetch": 0.1})`` or
@@ -55,8 +69,9 @@ Configuration:
   (comma/space-separated key=value; ``all`` sets every seam, named seams
   override, ``limit`` caps injections per seam).
 
-Every injection is recorded on ``chaos_injections_total{seam}``, and the
-active plan publishes a ``/debug/sched`` section — a chaos run's artifact trail
+Every injection is recorded on ``chaos_injections_total{seam}`` and
+annotated onto the flight recorder's live burst record, and the active
+plan publishes a ``/debug/sched`` section — a chaos run's artifact trail
 names exactly which faults fired where.
 """
 from __future__ import annotations
@@ -81,11 +96,15 @@ SEAMS = (
     "watch.drop",
     "sched.crash",
     "node.dead",
+    "serve.shed",
+    "fleet.lease-loss",
 )
 
 #: seams a blanket `all=<rate>` never seeds: they need explicit opt-in
-#: plumbing (a crash-driving harness, a node-kill hook)
-OPT_IN_SEAMS = ("sched.crash", "node.dead",
+#: plumbing (a crash-driving harness, a node-kill hook, an attached
+#: serving backpressure gate, the fleet's claim maintenance)
+OPT_IN_SEAMS = ("sched.crash", "node.dead", "serve.shed",
+                "fleet.lease-loss",
                 # batched-mutation seams (round 23): pre-land StoreFaults
                 # at update_many / evict_many. Opt-in because the batched
                 # verbs' callers (churn actors, the zone evictor) surface
@@ -141,6 +160,8 @@ _FAULT_FOR = {
     "watch.drop": InjectedFault,
     "sched.crash": SchedulerCrash,
     "node.dead": InjectedFault,
+    "serve.shed": InjectedFault,
+    "fleet.lease-loss": InjectedFault,
 }
 
 
@@ -191,6 +212,8 @@ class ChaosPlan:
                 return False
             self._fired[seam] = self._fired.get(seam, 0) + 1
         INJECTIONS.labels(seam).inc()
+        from kubernetes_tpu_torch.obs import flight
+        flight.RECORDER.note_crash(f"chaos:{seam}")
         return True
 
     def counts(self) -> dict[str, int]:

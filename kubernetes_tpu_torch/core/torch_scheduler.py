@@ -36,8 +36,14 @@ What the scheduler shell reads from its algorithm is TPUScheduler's too:
 `recover_device`, `metrics.observe_phase`, `serial_path` ("device",
 "host", "adaptive"), `volume_listers` / `volume_binder` (the encoder's
 volume masks and the host twin's volume predicates) and the class
-signatures. `launch_depth`'s fetch pool and the flight recorder are not
-ported yet.
+signatures. The serving loop reads `inflight_launches`, the uniform
+driver's launch queue occupancy (up to `launch_depth` chunks dispatched
+and not yet consumed, 0 between bursts; `inflight_peak` keeps its most).
+Every uniform, scan, fused and pressure launch opens a record on the
+flight recorder (`obs.flight.RECORDER`) with the fetched blocks (copied
+out of the pinned ring once their copy completed) and the outcome, and
+every launch driver passes the chaos plane's node-death points
+`dispatch-fetch` and `fetch-commit` around its fetch.
 
 Device faults degrade as TPUScheduler's do (`breaker`, a copy of
 core/breaker.py's DeviceCircuitBreaker). At each seam (`schedule`, the
@@ -98,6 +104,7 @@ from kubernetes_tpu_torch.core import StaleNodeRefusal
 from kubernetes_tpu_torch.core.breaker import DeviceCircuitBreaker
 from kubernetes_tpu_torch.factory import (
     DEFAULT_PREDICATE_NAMES, build_predicate_set, build_priority_configs)
+from kubernetes_tpu_torch.obs import flight as obs_flight
 from kubernetes_tpu_torch.oracle import predicates as P
 from kubernetes_tpu_torch.oracle.generic_scheduler import (
     ScheduleResult, FitError, GenericScheduler, default_priority_configs,
@@ -145,6 +152,11 @@ class TorchScheduler:
                        "image_sums", "prefer_avoid")
     # launches in flight ahead of the one being fetched
     launch_depth = 2
+    # live launch queue occupancy (chunks dispatched, not yet consumed):
+    # the serving backpressure gate reads it without a lock; and the most
+    # it has been since a caller last set `inflight_peak` to 0
+    inflight_launches = 0
+    inflight_peak = 0
     # encode-at-admission pod-row cache (ops.pod_rows.PodRowCache); None =
     # per-window signatures (identical decisions either way)
     pod_rows = None
@@ -674,8 +686,10 @@ class TorchScheduler:
         keys = ["selected", "found", "evaluated", "next_last_index",
                 "next_last_node_index", "kept", "total", "fail_first",
                 "general_bits"]
+        chaos.node_dead_point("dispatch-fetch")
         chaos.check("device.fetch")
         h = {k: out[k].cpu().numpy() for k in keys}
+        chaos.node_dead_point("fetch-commit")
         self.breaker.record_success()
         obs.inc("fetch.cycle")
         found = int(h["found"])
@@ -1148,11 +1162,15 @@ class TorchScheduler:
         if uniform is not None:
             cls, extra_ok, ban = uniform
             rotation = self._burst_rotation(b, len(pods), start0)
+            # the record opens before any window commits (a replay-mode
+            # record clones the world as the launch sees it)
+            fl = obs_flight.RECORDER.begin("uniform", self, [(pods, False)],
+                                           all_node_names, node_infos)
             phases["encode"] = time.perf_counter() - t0
             self._observe("encode", phases["encode"])
             self.last_burst_phases = phases
             sel = self._uniform_waves(pods, b, cls, extra_ok, ban, rotation,
-                                      n, bucket, phases, pid0, commit)
+                                      n, bucket, phases, pid0, commit, fl)
             if sel is None:
                 return None
             return [b.names[s] for s in sel] \
@@ -1197,12 +1215,14 @@ class TorchScheduler:
             else:
                 rotation = rot
         z_pad = _pad_pow2(len(b.zone_names), 4)
+        fl = obs_flight.RECORDER.begin("scan", self, [(pods, False)],
+                                       all_node_names, node_infos)
         phases["encode"] = time.perf_counter() - t0
         self._observe("encode", phases["encode"])
         self.last_burst_phases = phases
         return self._scan_waves(pods, b, specs, rows, pids, spread0,
                                 rotation, rotation_pos, num_to_find, n,
-                                z_pad, bucket, phases, commit)
+                                z_pad, bucket, phases, commit, fl)
 
     def _window_stack(self, specs: list, rows: list, pids, bucket: int,
                       last_pid: int) -> K.PodStack:
@@ -1241,21 +1261,25 @@ class TorchScheduler:
             torch.cuda.current_stream().synchronize()
         return host.numpy()
 
-    def _stale_refusal(self, decided: list, n: int, b: NodeBatch) -> None:
+    def _stale_refusal(self, decided: list, n: int, b: NodeBatch,
+                       fl=None, hosts: list = ()) -> None:
         """The shell's node-death scan over a fetched launch's decided
         hosts, before any of them commits: a vanished node drops the
-        resident folds and raises StaleNodeRefusal (the dead set, and how
-        many decisions name it)."""
+        resident folds, closes the flight record `fl` as aborted after
+        `hosts`, and raises StaleNodeRefusal (the dead set, and how many
+        decisions name it)."""
         dead = self.stale_scan(decided, b.names[:n])
         if dead:
             self.discard_burst_folds()
+            obs_flight.RECORDER.note_outcome(fl, {
+                "hosts": list(hosts), "failed": False, "aborted": True})
             raise StaleNodeRefusal(
                 dead, max(1, sum(1 for h in decided if h in dead)))
 
     def _scan_waves(self, pods: list[Pod], b: NodeBatch, specs: list,
                     rows: list, pids, spread0, rotation, rotation_pos,
                     num_to_find: int, n: int, z_pad: int, bucket: int,
-                    phases: dict, commit=None) -> list:
+                    phases: dict, commit=None, fl=None) -> list:
         """The generic scan's launch and fetch: the whole window is
         ONE K5 launch (scan length = the bucket), or in mesh mode one
         K10a/K10b step per live pod with no host read between them, and
@@ -1297,8 +1321,10 @@ class TorchScheduler:
             t2 = time.perf_counter()
             phases["dispatch"] += t2 - t
             self._observe("kernel", t2 - t)
+            chaos.node_dead_point("dispatch-fetch")
             chaos.check("device.fetch")
             h = self._fetch(outs["packed"], "scan")
+            chaos.node_dead_point("fetch-commit")
         except _DEVICE_FAULTS as e:
             # the one launch and fetch come before any commit or counter
             # update: refuse the whole burst, and the shell reruns the
@@ -1306,6 +1332,8 @@ class TorchScheduler:
             self._device_fault(e)
             self.discard_burst_folds()
             obs.inc("twin.device-fault")
+            obs_flight.RECORDER.note_outcome(fl, {
+                "hosts": [], "failed": False, "aborted": True})
             return None
         self.breaker.record_success()
         obs.inc("fetch.burst_scan")
@@ -1313,6 +1341,7 @@ class TorchScheduler:
         phases["fetch"] += dt
         self._observe("fetch", dt)
         self._mesh_phases("burst_scan", phases, before)
+        obs_flight.RECORDER.note_block(fl, h)
         sel_arr = h[:n_pods]
         li_after = h[B:2 * B]
         lni_delta = h[2 * B:3 * B]
@@ -1323,7 +1352,7 @@ class TorchScheduler:
         if commit is not None:
             if self.stale_scan is not None:
                 self._stale_refusal(
-                    [b.names[s] for s in sel_arr[:bad].tolist()], n, b)
+                    [b.names[s] for s in sel_arr[:bad].tolist()], n, b, fl)
             committed = 0
             for wlo in range(0, bad, W):
                 hi = min(wlo + W, bad)
@@ -1351,12 +1380,19 @@ class TorchScheduler:
             self.discard_burst_folds()
         else:
             self._adopt_folds(state)
+        obs_flight.RECORDER.note_outcome(fl, {
+            # the whole decided prefix: an aborted commit shortens what
+            # returns, not what the device decided
+            "hosts": [b.names[s] for s in sel_arr[:bad].tolist()],
+            "failed": bad < n_pods,
+            "aborted": aborted})
         return [b.names[s] for s in sel_arr[:committed].tolist()] \
             + [None] * (n_pods - committed)
 
     def _uniform_waves(self, pods: list[Pod], b: NodeBatch, cls, extra_ok,
                        ban: bool, rotation, n: int, bucket: int,
-                       phases: dict, pid: int = 0, commit=None) -> list:
+                       phases: dict, pid: int = 0, commit=None,
+                       fl=None) -> list:
         """Launch driver of the uniform kernel: each chunk (up to B_CAP
         pods, or `launch_cap`) is ONE K3 launch plus ONE packed [cap+1]
         device-to-host copy, started at dispatch; up to `launch_depth`
@@ -1368,7 +1404,12 @@ class TorchScheduler:
         block's leading non-negative run. An aborted commit stops at its
         window: the later chunks are dropped unfetched and the resident
         folds discarded; the walk counters stay at the aborted chunk's
-        end, as TPUScheduler leaves them."""
+        end, as TPUScheduler leaves them.
+
+        `inflight_launches` holds the chunks dispatched and not yet
+        consumed, and each fetched block goes to the flight record `fl`
+        as a copy taken after its chunk's event completed: the chunk
+        `depth` later reuses the pinned slot it sits in."""
         dev = self.device
         hard = K.B_CAP if not self.launch_cap \
             else min(K.B_CAP, int(self.launch_cap))
@@ -1419,12 +1460,14 @@ class TorchScheduler:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(dev))
             inflight.append((lo, chunk, host, event))
+            self.inflight_launches = len(inflight)
+            self.inflight_peak = max(self.inflight_peak, len(inflight))
             dt = time.perf_counter() - t
             phases["dispatch"] += dt
             self._observe("kernel", dt)
 
         next_ci = 1
-        failed = aborted = False
+        failed = aborted = faulted = False
         try:
             dispatch(0)
             while inflight:
@@ -1432,12 +1475,16 @@ class TorchScheduler:
                     dispatch(next_ci)
                     next_ci += 1
                 lo, chunk, host, event = inflight.pop(0)
+                self.inflight_launches = len(inflight)
                 t = time.perf_counter()
+                chaos.node_dead_point("dispatch-fetch")
                 chaos.check("device.fetch")
                 if event is not None:
                     event.synchronize()
                 h = host.numpy()
+                chaos.node_dead_point("fetch-commit")
                 obs.inc("fetch.burst_uniform")
+                obs_flight.RECORDER.note_block(fl, h)
                 dt = time.perf_counter() - t
                 phases["fetch"] += dt
                 self._observe("fetch", dt)
@@ -1449,7 +1496,8 @@ class TorchScheduler:
                     # its lni advance (the chunks in flight are dropped
                     # unfetched)
                     self._stale_refusal(
-                        [b.names[s] for s in chunk_sel[:bad]], n, b)
+                        [b.names[s] for s in chunk_sel[:bad]], n, b, fl,
+                        [b.names[s] for s in sel])
                 lni_start = self.last_node_index
                 self.last_node_index += int(h[cap])
                 for wlo in range(0, bad, W):
@@ -1493,12 +1541,21 @@ class TorchScheduler:
                 # counters of the chunks already fetched and refuse, so
                 # the caller reruns the whole trial serially
                 self.last_index, self.last_node_index = li_entry, lni_entry
+                obs_flight.RECORDER.note_outcome(fl, {
+                    "hosts": [], "failed": False, "aborted": True})
                 return None
-            self._mesh_phases("burst_uniform", phases, before)
-            return sel
-        if not (failed or aborted):
+            faulted = True
+        finally:
+            self.inflight_launches = 0
+        if not (failed or aborted or faulted):
             self.breaker.record_success()
         self._mesh_phases("burst_uniform", phases, before)
+        obs_flight.RECORDER.note_outcome(fl, {
+            # the decided hosts up to the last commit or abort; `failed`:
+            # the next pod found no node on the device
+            "hosts": [b.names[s] for s in sel],
+            "failed": failed,
+            "aborted": aborted})
         return sel
 
     # -- fused segmented burst: one launch per drain window --------------------
@@ -1587,6 +1644,10 @@ class TorchScheduler:
         stack = self._window_stack(specs, rows, pids, B,
                                    0 if pids is None else int(pids[-1]))
         z_pad = _pad_pow2(len(b.zone_names), 4)
+        # the fused window is the whole record: gang boundaries, rewinds
+        # and the rotation state ride one launch
+        fl = obs_flight.RECORDER.begin("fused", self, segments,
+                                       all_node_names, node_infos)
         t1 = time.perf_counter()
         tensor = self._ptab is not None
         before = self._mesh_counts("burst_segments", "gather",
@@ -1603,8 +1664,10 @@ class TorchScheduler:
                 gang_score=self._gang_score, **self._mesh_kw())
             obs.inc("dispatch.burst_fused")
             t2 = time.perf_counter()
+            chaos.node_dead_point("dispatch-fetch")
             chaos.check("device.fetch")
             h = self._fetch(packed, "fused")
+            chaos.node_dead_point("fetch-commit")
         except _DEVICE_FAULTS as e:
             # the one launch and fetch come before any counter update or
             # commit: refuse the window, and the shell reruns every entry
@@ -1612,9 +1675,12 @@ class TorchScheduler:
             self._device_fault(e)
             self.discard_burst_folds()
             obs.inc("twin.device-fault")
+            obs_flight.RECORDER.note_outcome(fl, {
+                "segments": [], "consumed": 0, "aborted": True})
             return None
         self.breaker.record_success()
         obs.inc("fetch.burst_fused")
+        obs_flight.RECORDER.note_block(fl, h)
         self.last_burst_phases = {"encode": t1 - t0, "mirror": t_mirror,
                                   "dispatch": t2 - t1,
                                   "fetch": time.perf_counter() - t2}
@@ -1690,6 +1756,10 @@ class TorchScheduler:
             li_f, lni_f, consumed = boundary(n_total - 1)
             self._adopt_folds(state)
         self.last_index, self.last_node_index = li_f, lni_f
+        obs_flight.RECORDER.note_outcome(fl, {
+            "segments": [{k: r[k] for k in ("status", "hosts", "placed")
+                          if k in r} for r in results],
+            "consumed": consumed})
         return {"segments": results, "consumed": consumed}
 
     def fused_rewind(self, li: int, lni: int) -> None:
@@ -2019,6 +2089,9 @@ class TorchScheduler:
             mut = [{k: d[k] for k in K._MUTABLE} for d in self._dev_nodes]
             ghost = [{k: torch.zeros(per, dtype=torch.int64, device=dev)
                       for k in K.GHOST_FIELDS} for dev in self.mesh.devices]
+        # pressure records are digests only (no replay referee)
+        fl = obs_flight.RECORDER.begin("pressure", self, [(pods, False)],
+                                       all_node_names, node_infos)
         before = self._mesh_counts("pressure", "gather", "copies",
                                    "steps")
         t_enc = time.perf_counter()
@@ -2048,6 +2121,8 @@ class TorchScheduler:
             # the resident rows the launched chunks folded
             self._device_fault(e)
             self.discard_burst_folds()
+            obs_flight.RECORDER.note_outcome(fl, {"outcomes": [],
+                                                  "aborted": True})
             return self._refuse("device-fault")
         self.breaker.record_success()
         obs.inc("fetch.pressure_batch")
@@ -2084,6 +2159,10 @@ class TorchScheduler:
         self._adopt_folds(mut)
         self.last_index = li_end
         self.last_node_index += lni_sum
+        obs_flight.RECORDER.note_outcome(fl, {"outcomes": [
+            oc if oc[0] != "nominated"
+            else ("nominated", oc[1], sorted(v.name for v in oc[2]))
+            for oc in outcomes]})
         return outcomes
 
     def gang_checkpoint(self) -> dict:

@@ -40,11 +40,12 @@ shell, the store, the informers, the queue and the breaker register
 (`kubernetes_tpu.obs`): one process-global `Registry` with get-or-create
 `counter()` / `gauge()` / `histogram()`, the `/debug/sched` section
 registry, the span ring (`obs.trace`) and the per-pod latency ledger
-(`obs.ledger`). The reference's flight recorder, process metrics and
-time-series scraper have no copy here.
+(`obs.ledger`), and the burst flight recorder (`obs.flight`). The
+reference's process metrics and time-series scraper have no copy here.
 """
 from __future__ import annotations
 
+import threading
 from collections import Counter as _Tally
 
 from kubernetes_tpu_torch.obs.registry import (   # noqa: F401
@@ -55,10 +56,14 @@ from kubernetes_tpu_torch.obs.registry import (   # noqa: F401
 from kubernetes_tpu_torch.obs import trace        # noqa: F401
 
 COUNTS: _Tally = _Tally()
+#: the counts are shared by every thread of the process (a fleet runs its
+#: instances on threads of their own): a read-modify-write holds the lock
+_COUNTS_LOCK = threading.Lock()
 
 
 def inc(name: str, n: int = 1) -> None:
-    COUNTS[name] += int(n)
+    with _COUNTS_LOCK:
+        COUNTS[name] += int(n)
 
 
 def get(name: str) -> int:
@@ -68,13 +73,16 @@ def get(name: str) -> int:
 def family(prefix: str) -> dict[str, int]:
     """Every count under `prefix.`, keyed by the rest of the name."""
     p = prefix + "."
-    return {k[len(p):]: v for k, v in COUNTS.items() if k.startswith(p)}
+    with _COUNTS_LOCK:
+        return {k[len(p):]: v for k, v in COUNTS.items()
+                if k.startswith(p)}
 
 
 def reset(prefix: str = "") -> None:
     """Zero every count whose name starts with `prefix` (all by default)."""
-    for k in [k for k in COUNTS if k.startswith(prefix)]:
-        del COUNTS[k]
+    with _COUNTS_LOCK:
+        for k in [k for k in COUNTS if k.startswith(prefix)]:
+            del COUNTS[k]
 
 
 #: the process-global registry every component wires into

@@ -14,6 +14,11 @@ given and returns `cudaGetLastError()`; the library is loaded with ctypes.
 
 `build_all()` starts one nvcc per source at once and waits for all of
 them: the whole build costs about one compile, not twenty.
+
+Threads of one process (the fleet's instances, each on its own thread
+over one card) may reach a kernel's first use together: one lock guards
+the build and the load, so a library is compiled once, into a temporary
+file of its own, and loaded once.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -121,6 +127,8 @@ QUERIES["shard_preempt_local"] = {
                                       ctypes.POINTER(_I)]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: guards `build_all` and `load` (re-entrant: `load` builds under it)
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -156,6 +164,11 @@ def _command(name: str, out: Path) -> list[str]:
 def build_all(names=NAMES, verbose: bool = False) -> dict[str, float]:
     """Compile every missing library, one nvcc per source, all started
     together. Returns {name: seconds} for the libraries it built."""
+    with _LOCK:
+        return _build_locked(names, verbose)
+
+
+def _build_locked(names, verbose: bool) -> dict[str, float]:
     import time
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -164,7 +177,8 @@ def build_all(names=NAMES, verbose: bool = False) -> dict[str, float]:
         out = lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp = out.with_name(
+            f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         procs[name] = (subprocess.Popen(
             _command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
@@ -189,6 +203,14 @@ def build_all(names=NAMES, verbose: bool = False) -> dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        return _load_locked(name)
+
+
+def _load_locked(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         path = lib_path(name)

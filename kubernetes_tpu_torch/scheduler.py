@@ -20,9 +20,7 @@ imports. What differs:
 - the pod-row cache is the port's `ops.pod_rows.PodRowCache`;
 - filter / prioritize / preempt extenders raise NotImplementedError: the
   port's generic scheduler has no extender passes (bind-only extenders
-  are served);
-- the fleet's bind-conflict counters and the flight recorder's crash note
-  are left out (the port has neither yet).
+  are served).
 """
 from __future__ import annotations
 
@@ -953,6 +951,8 @@ class Scheduler:
             # Forget silently and DROP the pod — it belongs to the
             # claim's new holder now; a zombie writing failure events
             # for it would be exactly the write fencing forbids.
+            from kubernetes_tpu_torch.fleet import BIND_CONFLICTS
+            BIND_CONFLICTS.labels("fenced").inc()
             self.fenced_waves += 1
             self.cache.forget_pod(assumed)
             if self.pod_rows is not None:
@@ -963,6 +963,8 @@ class Scheduler:
             # winner's binding stands; the loser re-queues with backoff —
             # _record_failure drops the requeue once the store shows the
             # pod bound, which is the usual case
+            from kubernetes_tpu_torch.fleet import BIND_CONFLICTS
+            BIND_CONFLICTS.labels("requeued").inc()
             fail(False, f"rv-CAS bind conflict: {err}")
             return False
         except Exception as err:
@@ -2108,6 +2110,8 @@ class Scheduler:
             # re-lists them from the store; a zombie must not keep
             # writing failure events/conditions for pods it lost.
             # (the finally below still runs the fan-out call)
+            from kubernetes_tpu_torch.fleet import BIND_CONFLICTS
+            BIND_CONFLICTS.labels("fenced").inc(len(assumed_list))
             self.fenced_waves += 1
             for assumed in assumed_list:
                 self.cache.forget_pod(assumed)
@@ -2120,6 +2124,8 @@ class Scheduler:
             # the rest forget + re-queue, exactly like the serial _bind's
             # per-pod failure handling (their audit records re-emit below;
             # fire-and-forget records tolerate the crash-path duplicate)
+            from kubernetes_tpu_torch.obs import flight as obs_flight
+            obs_flight.RECORDER.note_crash("commit-wave-crash")
             emit_batch = True
             missing = set()
             for assumed, host in zip(assumed_list, hosts):
@@ -2149,6 +2155,8 @@ class Scheduler:
                 # creation order — _record_failure reads the store and
                 # drops the requeue when the pod is (as usual) already
                 # bound by the winner.
+                from kubernetes_tpu_torch.fleet import BIND_CONFLICTS
+                BIND_CONFLICTS.labels("requeued").inc()
                 self.cache.forget_pod(assumed)
                 self.metrics.observe("error")
                 self._record_failure(

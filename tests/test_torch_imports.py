@@ -40,6 +40,17 @@ SHELL_MODULES = (
     "kubernetes_tpu_torch.queue.scheduling_queue",
     "kubernetes_tpu_torch.core.breaker", "kubernetes_tpu_torch.oracle.gang",
 )
+#: the serving path's copies: the serve loop, gate and arrivals, the
+#: fleet, the flight recorder and the leader election
+SERVING_MODULES = (
+    "kubernetes_tpu_torch.serve", "kubernetes_tpu_torch.serve.backpressure",
+    "kubernetes_tpu_torch.serve.arrivals", "kubernetes_tpu_torch.serve.loop",
+    "kubernetes_tpu_torch.fleet", "kubernetes_tpu_torch.fleet.partition",
+    "kubernetes_tpu_torch.fleet.instance",
+    "kubernetes_tpu_torch.fleet.manager",
+    "kubernetes_tpu_torch.obs.flight",
+    "kubernetes_tpu_torch.utils.leader_election",
+)
 
 
 def _port_modules():
@@ -57,7 +68,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the host twin's copies of the oracle and the factory registries
     assert "kubernetes_tpu_torch.factory" in mods
     assert "kubernetes_tpu_torch.oracle.volumes" in mods
-    for m in SHELL_MODULES:
+    for m in SHELL_MODULES + SERVING_MODULES:
         assert m in mods, m
     from kubernetes_tpu_torch import factory
     from kubernetes_tpu_torch.oracle import generic_scheduler, preemption
@@ -85,6 +96,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, check=True,
                          timeout=CHILD_TIMEOUT_S)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serving_modules_import_neither_jax_nor_the_jax_package():
+    """Every import line of the serving modules names neither jax nor the
+    JAX package, lazy imports inside functions included (the child
+    interpreter above sees only what importing the modules runs)."""
+    import re
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|kubernetes_tpu)\b"
+                     r"(?!_torch)")
+    root = Path(kubernetes_tpu_torch.__path__[0]).parent
+    for m in SERVING_MODULES:
+        path = root / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = root / m.replace(".", "/") / "__init__.py"
+        lines = path.read_text().splitlines()
+        assert any("kubernetes_tpu_torch" in ln for ln in lines), path
+        for ln in lines:
+            assert not pat.match(ln), (path, ln)
 
 
 def test_no_port_module_reaches_a_native_core(monkeypatch):
