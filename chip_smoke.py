@@ -217,6 +217,45 @@
      with mixed pods (scan windows), one killed mid-run, each survivor
      replayed on the card (replay_instance) bit for bit; two `[fleet]`
      lines;
+   - cmd: the port's kube-scheduler command (`kubernetes_tpu_torch.cmd.
+     scheduler.main`) from files written to a temporary directory, three
+     ways: (a) a SchedulerConfiguration (DefaultProvider, 100 %) and a
+     cluster spec of bench.py's cluster as hollow nodes (15,000 nodes of 4
+     CPU / 32 Gi / 110 pods in 3 zones, 10,000 pods of 100m / 500 Mi),
+     `--once --burst 10000`; (b) the same with `--algorithm-provider
+     ClusterAutoscalerProvider`; (c) a Policy file (the DefaultProvider's
+     predicates and priorities, LeastRequested 1, NodeAffinity 2) on
+     15,001 nodes, a third labelled disktype=ssd, and 2,048 pods of
+     scan-mixed's four shapes (the third with required node affinity
+     disktype in (ssd)), `--once --burst 2048`: one window of four specs
+     on K5. Each must print all pods scheduled, none unschedulable or in
+     error, on a TorchScheduler on cuda with its kernel launched; (a) and
+     (b) must bind every pod where a Scheduler built directly with the
+     arguments create_scheduler resolved binds it, (c) where the same
+     command with `--device cpu` (the plain versions) binds it. Then
+     serve_http over (c)'s scheduler on port 0 must answer /healthz,
+     /metrics (with scheduler_schedule_attempts_total and
+     process_resident_memory_bytes), /debug/timeseries and /configz;
+     `[cmd]` lines give each run's loop time, pods/s and route;
+   - scraper: the time-series scraper's overhead floor (the JAX package's
+     tests/test_timeseries.py:471-510, on the card): the shell uniform
+     cell with the process-global SCRAPER sampling the whole registry
+     every 0.05 s and without it, ABAB, best of 3 each, the cyclic GC
+     frozen over each timed loop; it holds when the best rate with the
+     scraper is >= 0.95 x the best without, or when the sampling duty
+     cycle (20 samples' wall over the interval) is under 1 %; at 5,000
+     nodes x 3,000 pods when the first pair promises more than 90 s for
+     the six runs;
+   - tuner: the tuner cell (`kubernetes_tpu_torch.tuner.cell.
+     run_tuner_cell`, the JAX harness's run_tuner_cell) at its defaults:
+     worlds recorded on the card, the seeded search run twice (the same
+     winner), two FleetInstance lanes at 250 arrivals/s for 12 s with
+     the searched row written into the shadow profile at 30 % of the run
+     (set_row + reload_profiles), every recorded burst replayed through
+     the oracle across the write with 0 violations, no double bind,
+     every arrival bound, K5 launched; a `[tuner]` line gives the search
+     seconds, the rewards, each lane's windowed p99, utilization and
+     pods/s, the gate's decision and the K5 / K3 launches;
    - degrade drill: on the 15,000-node world, a DeviceFault at the
      `device.fetch` point of a uniform burst with a commit callback (the
      undecided tail then decided by serial cycles, as the shell does) and
@@ -257,12 +296,15 @@ non-zero before printing any result. The last stdout line is
 """
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import subprocess
 import sys
 import time
 
 N_NODES, N_PODS, N_SERIAL = 15000, 10000, 4
+#: seconds after which a run still going dumps its threads' stacks
+RUN_LIMIT_S = 1140
 PREFIX = 1024                   # pods of a window held against the plain path
 UNIFORM_KERNELS = ("schedule_cycle", "uniform_burst", "scatter_rows")
 # the fused window: gangs of GANG_SIZE interleaved with singleton runs of
@@ -5201,15 +5243,19 @@ def direct_bursts(n_nodes, bursts, device, sync):
     return out
 
 
-def shell_uniform(device, sync, report, n_nodes=N_NODES, n_pods=N_PODS):
-    """bench.py's default cell through the port's shell (see the module
-    docstring); the measured loop is bench.py's: schedule_burst(max_pods=
-    10000) until 0, then a pump."""
+def shell_uniform_cell(device, sync, n_nodes, n_pods, freeze_gc=False):
+    """bench.py's default cell through the port's shell on `device`: the
+    store, a 64-pod warm-up burst, `n_pods` pods created and pumped, then
+    the measured loop, bench.py's schedule_burst(max_pods=10000) until 0,
+    and a pump. The counts are zeroed just before the loop; with
+    `freeze_gc` the cyclic GC is frozen over the loop, as in the serve
+    cell (the set-up's objects are not scanned inside it). Returns the
+    store, the scheduler, the pods bound, the loop's wall seconds, the
+    launches and the set-up seconds."""
+    import gc
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.ops import kernels as K
     from kubernetes_tpu_torch.scheduler import Scheduler
-    from kubernetes_tpu_torch.store.store import PODS
-    name = "shell uniform"
     t0 = time.perf_counter()
     store = bench_store(n_nodes, n_pods)
     sched = Scheduler(store, percentage_of_nodes_to_score=100,
@@ -5226,6 +5272,9 @@ def shell_uniform(device, sync, report, n_nodes=N_NODES, n_pods=N_PODS):
     t_setup = time.perf_counter() - t0
     sched.metrics.reset()
     obs.reset()
+    if freeze_gc:
+        gc.collect()
+        gc.freeze()
     bound = 0
     t0 = time.perf_counter()
     while True:
@@ -5235,8 +5284,24 @@ def shell_uniform(device, sync, report, n_nodes=N_NODES, n_pods=N_PODS):
         bound += n
     sync()
     wall = time.perf_counter() - t0
+    if freeze_gc:
+        gc.unfreeze()
+        gc.collect()
     sched.pump()
-    counts = K.launches()
+    return {"store": store, "sched": sched, "bound": bound, "wall": wall,
+            "counts": K.launches(), "setup_s": t_setup}
+
+
+def shell_uniform(device, sync, report, n_nodes=N_NODES, n_pods=N_PODS):
+    """bench.py's default cell through the port's shell (see the module
+    docstring); the measured loop is bench.py's: schedule_burst(max_pods=
+    10000) until 0, then a pump."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.store.store import PODS
+    name = "shell uniform"
+    r = shell_uniform_cell(device, sync, n_nodes, n_pods)
+    store, sched, bound, wall = r["store"], r["sched"], r["bound"], r["wall"]
+    counts, t_setup = r["counts"], r["setup_s"]
     twins, refusals = obs.family("twin"), obs.family("refusal")
     ph = dict(sched.algorithm.last_burst_phases or {})
     commit_ms = sched.metrics.phase_duration["binding"].sum * 1e3
@@ -5917,6 +5982,391 @@ def fleet_phase(device, sync, report):
           f"{wall:.1f} s")
 
 
+#: the `[cmd]` runs: bench.py's cluster and burst as a cluster spec of
+#: hollow nodes and pods (4 CPU / 32 Gi / 110 pods in 3 zones; 100m /
+#: 500 Mi), and the Policy run's 15,001 nodes (a third `disktype=ssd`)
+#: with scan-mixed's four pod shapes, 512 each
+CMD_SPEC = {"nodes": [{"count": N_NODES, "zones": 3}],
+            "pending_pods": [{"count": N_PODS}]}
+CMD_POLICY_SPEC = {
+    "nodes": [{"count": N_NODES + 1, "zones": 3,
+               "label_fracs": {"disktype": ["ssd", 1 / 3]}}],
+    "pending_pods": [
+        {"count": 512, "cpu": 100, "mem": 500 * MI, "name_prefix": "small"},
+        {"count": 512, "cpu": 250, "mem": GI, "name_prefix": "mid"},
+        {"count": 512, "cpu": 500, "mem": 2 * GI, "name_prefix": "ssd",
+         "node_affinity_key": "disktype", "node_affinity_values": ["ssd"]},
+        {"count": 512, "cpu": 1000, "mem": 4 * GI, "name_prefix": "big"}]}
+#: the `[scraper]` overhead floor: the scraper's cadence, the ABAB rounds
+#: and the wall past which the cell runs at its reduced size
+SCRAPER_INTERVAL, SCRAPER_ROUNDS, SCRAPER_BUDGET_S = 0.05, 3, 90.0
+SCRAPER_REDUCED = (5000, 3000)
+
+
+def cmd_run(argv):
+    """One run of the port's `cmd.scheduler.main`; its stdout (the `--once`
+    summary line) is caught, the scheduler it built kept. The counts are
+    zeroed just before. Returns the run's state, summary, launches,
+    `twin.*` / `refusal.*` counts and wall seconds."""
+    import io
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.ops import kernels as K
+    state = {}
+    out = io.StringIO()
+    obs.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cmd.main(argv, state=state)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"cmd: main {argv} returned {rc}")
+    return {"state": state, "wall": wall,
+            "summary": json.loads(out.getvalue().strip().splitlines()[-1]),
+            "counts": K.launches(), "twins": obs.family("twin"),
+            "refusals": obs.family("refusal")}
+
+
+def bindings(store):
+    """{pod key: node} of every pod in a port store."""
+    from kubernetes_tpu_torch.store.store import PODS
+    return {p.key: p.node_name for p in store.list(PODS)[0]}
+
+
+def cmd_route(sched):
+    """The route a command's scheduler took: the device (the class and
+    device of its TorchScheduler) or the host (the oracle)."""
+    algo = sched.algorithm
+    where = getattr(algo, "device", None)
+    return f"{type(algo).__name__} on {where}" if where is not None \
+        else f"{type(algo).__name__} on the host"
+
+
+def cmd_checks(name, r, n_pods, kernel):
+    """A `[cmd]` run must bind all its pods, none unschedulable or in
+    error, on a TorchScheduler on the card, with `kernel` launched and no
+    twin, refusal or breaker fault."""
+    from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+    sched = r["state"]["scheduler"]
+    algo = sched.algorithm
+    want = {"scheduled": n_pods, "unschedulable": 0, "errors": 0}
+    if r["summary"] != want:
+        raise SystemExit(f"{name}: main printed {r['summary']}, not {want}")
+    if not isinstance(algo, TorchScheduler) or algo.device.type != "cuda":
+        raise SystemExit(f"{name}: the scheduler is {cmd_route(sched)}, "
+                         f"not a TorchScheduler on cuda")
+    if r["counts"][kernel] == 0:
+        raise SystemExit(f"{name}: {kernel} was not launched "
+                         f"({r['counts']})")
+    if r["twins"] or r["refusals"]:
+        raise SystemExit(f"{name}: twin cycles {r['twins']}, refusals "
+                         f"{r['refusals']}")
+    no_degrade(name)
+    if algo.breaker.faults_total:
+        raise SystemExit(f"{name}: breaker faults "
+                         f"{algo.breaker.debug_state()}")
+
+
+def cmd_direct(spec, cfg, device, sync, burst):
+    """The scheduler `create_scheduler` would build for `cfg`, built
+    directly with the arguments it resolves, on a store loaded from the
+    same spec, driven by the command's `--once --burst` loop. Returns its
+    bindings and the loop's wall seconds."""
+    from kubernetes_tpu_torch import factory
+    from kubernetes_tpu_torch.cmd.scheduler import load_cluster_spec
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.store.store import Store
+    preds, weights, policy = factory.resolve_algorithm(cfg)
+    store = Store(watch_log_size=1 << 20)
+    load_cluster_spec(store, spec)
+    sched = Scheduler(
+        store, scheduler_name=cfg.scheduler_name, use_device=True,
+        device=device,
+        percentage_of_nodes_to_score=cfg.percentage_of_nodes_to_score,
+        hard_pod_affinity_weight=cfg.hard_pod_affinity_symmetric_weight,
+        disable_preemption=cfg.disable_preemption, predicate_names=preds,
+        priority_weights=weights, plugins_enabled=cfg.plugins_enabled,
+        mesh="auto")
+    sched.sync()
+    t0 = time.perf_counter()
+    sched.pump()
+    while sched.schedule_burst(max_pods=burst):
+        pass
+    sched.pump()
+    sync()
+    return bindings(store), time.perf_counter() - t0
+
+
+def same_bindings(name, got, want, other):
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want)
+                      if got.get(k) != want.get(k))
+        raise SystemExit(f"{name}: {len(diff)} pods bound apart from "
+                         f"{other}, e.g. {diff[:3]}: "
+                         f"{[(got.get(k), want.get(k)) for k in diff[:3]]}")
+
+
+def cmd_http(sched, cfg):
+    """serve_http over a create_scheduler scheduler on port 0: GET
+    /healthz, /metrics (the scheduler's and the process families),
+    /debug/timeseries and /configz. Returns the bytes of each answer."""
+    import urllib.request
+    from kubernetes_tpu_torch.cmd.scheduler import serve_http
+    from kubernetes_tpu_torch.obs.timeseries import SCRAPER
+    SCRAPER.reset(capacity=16)
+    SCRAPER.sample()
+    server = serve_http(sched, cfg, 0)
+    port = server.server_address[1]
+    got = {}
+    try:
+        for path in ("/healthz", "/metrics", "/debug/timeseries?window=1",
+                     "/configz"):
+            got[path] = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{path}", timeout=30).read()
+    finally:
+        server.shutdown()
+        server.server_close()
+        SCRAPER.reset()
+    metrics = got["/metrics"].decode()
+    if got["/healthz"] != b"ok":
+        raise SystemExit(f"cmd http: /healthz answered {got['/healthz']}")
+    for fam in ("scheduler_schedule_attempts_total",
+                "process_resident_memory_bytes"):
+        if fam not in metrics:
+            raise SystemExit(f"cmd http: /metrics has no {fam}")
+    doc = json.loads(got["/debug/timeseries?window=1"])
+    if doc["window"] != 1 or "process_resident_memory_bytes" not in \
+            doc["families"]:
+        raise SystemExit("cmd http: /debug/timeseries answered "
+                         f"{str(doc)[:200]}")
+    if json.loads(got["/configz"]) != cfg.to_dict():
+        raise SystemExit("cmd http: /configz is not the run's config")
+    return {k: len(v) for k, v in got.items()}
+
+
+def cmd_phase(device, sync, report):
+    """`[cmd]`: the port's kube-scheduler command on the card, three ways
+    (see the module docstring), then its HTTP routes. Fails on a summary
+    other than all bound, a scheduler that is not a TorchScheduler on
+    cuda, bindings apart from the directly built scheduler's (a, b) or
+    from the plain versions' (c), a kernel not launched, a twin or
+    refusal count, a breaker fault, or a route that does not answer."""
+    import shutil
+    import tempfile
+    from kubernetes_tpu_torch import factory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cmd_")
+    try:
+        def write(fname, doc):
+            path = f"{tmp}/{fname}"
+            with open(path, "w") as f:
+                json.dump(doc, f)
+            return path
+        spec = write("spec.json", CMD_SPEC)
+        cfg_path = write("config.json", {"percentage_of_nodes_to_score": 100})
+        policy = dict(factory.DEFAULT_PRIORITY_WEIGHTS,
+                      LeastRequestedPriority=1, NodeAffinityPriority=2)
+        policy_path = write("policy.json", {
+            "predicates": [{"name": n}
+                           for n in factory.DEFAULT_PREDICATE_NAMES],
+            "priorities": [{"name": n, "weight": w}
+                           for n, w in policy.items()]})
+        policy_spec = write("policy-spec.json", CMD_POLICY_SPEC)
+        once = ["--once", "--burst", str(N_PODS)]
+        for label, extra in (
+                ("default", []),
+                ("autoscaler",
+                 ["--algorithm-provider", "ClusterAutoscalerProvider"])):
+            name = f"cmd {label}"
+            argv = ["--config", cfg_path, "--cluster-spec", spec] + extra \
+                + once
+            r = cmd_run(argv)
+            cmd_checks(name, r, N_PODS, "uniform_burst")
+            add_launches(report, r["counts"])
+            st = r["state"]
+            got = bindings(st["store"])
+            want, direct_s = cmd_direct(spec, st["config"], device, sync,
+                                        N_PODS)
+            same_bindings(name, got, want, "the directly built scheduler")
+            per_node = {}
+            for h in got.values():
+                per_node[h] = per_node.get(h, 0) + 1
+            print(f"[cmd] {label}: main {' '.join(extra + once)} on "
+                  f"{N_NODES} hollow nodes, {N_PODS} pods: "
+                  f"{r['summary']}; route {cmd_route(st['scheduler'])}; "
+                  f"loop {st['loop_seconds'] * 1e3:.1f} ms "
+                  f"({N_PODS / st['loop_seconds']:.1f} pods/s), main's "
+                  f"wall {r['wall']:.2f} s (with the spec's store); most "
+                  f"pods on one node {max(per_node.values())} on "
+                  f"{len(per_node)} nodes; launches "
+                  f"{ {k: v for k, v in r['counts'].items() if v} }; "
+                  f"bindings equal to the directly built Scheduler's "
+                  f"(its loop {direct_s * 1e3:.1f} ms)")
+        name = "cmd policy-mixed"
+        n_pol = sum(p["count"] for p in CMD_POLICY_SPEC["pending_pods"])
+        argv = ["--policy-config-file", policy_path, "--cluster-spec",
+                policy_spec, "--once", "--burst", str(n_pol)]
+        r = cmd_run(argv)
+        cmd_checks(name, r, n_pol, "schedule_batch")
+        add_launches(report, r["counts"])
+        st = r["state"]
+        got = bindings(st["store"])
+        cpu = cmd_run(argv + ["--device", "cpu"])
+        if cpu["summary"] != r["summary"]:
+            raise SystemExit(f"{name}: the plain versions printed "
+                             f"{cpu['summary']}, the card {r['summary']}")
+        same_bindings(name, got, bindings(cpu["state"]["store"]),
+                      "the plain versions'")
+        print(f"[cmd] policy-mixed: main --policy-config-file (the "
+              f"DefaultProvider's predicates and priorities, LeastRequested "
+              f"1, NodeAffinity 2) --once --burst {n_pol} on "
+              f"{N_NODES + 1} nodes (a third disktype=ssd), {n_pol} pods "
+              f"of 4 specs: {r['summary']}; route "
+              f"{cmd_route(st['scheduler'])}; loop "
+              f"{st['loop_seconds'] * 1e3:.1f} ms "
+              f"({n_pol / st['loop_seconds']:.1f} pods/s), main's wall "
+              f"{r['wall']:.2f} s; launches "
+              f"{ {k: v for k, v in r['counts'].items() if v} }; bindings "
+              f"equal to --device cpu (the plain versions; its loop "
+              f"{cpu['state']['loop_seconds'] * 1e3:.1f} ms)")
+        sizes = cmd_http(st["scheduler"], st["config"])
+        print(f"[cmd] http: serve_http on port 0 over the policy run's "
+              f"scheduler answered {sizes} (bytes)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def scraper_phase(device, sync, report):
+    """`[scraper]`: the scraper's overhead floor on the card
+    (`tests/test_timeseries.py`'s, JAX package): `[shell] uniform`'s
+    cell with the process-global SCRAPER sampling the whole registry
+    every 0.05 s and without it, ABAB, best of 3 each. It passes when the
+    best rate with the scraper is >= 0.95 x the best without, or the
+    sampling duty cycle (seconds a sample over the interval, measured on
+    the same registry) is under 1 %. When the first two runs of the
+    15,000-node cell promise more than 90 s for the six, the cell runs
+    at 5,000 nodes x 3,000 pods."""
+    import gc
+    from kubernetes_tpu_torch.obs.timeseries import SCRAPER
+    name = "scraper"
+    n_nodes, n_pods = N_NODES, N_PODS
+    rates = {"off": [], "on": []}
+    samples = []
+    t_phase = time.perf_counter()
+
+    def run(on):
+        # the runs before leave stores of 25,000 objects behind, and a
+        # collection inside the timed loop moves its wall by up to a
+        # third: collect them now, and freeze the GC over the loop
+        gc.collect()
+        if on:
+            SCRAPER.reset(capacity=256)
+            SCRAPER.start(interval=SCRAPER_INTERVAL)
+        try:
+            r = shell_uniform_cell(device, sync, n_nodes, n_pods,
+                                   freeze_gc=True)
+        finally:
+            if on:
+                SCRAPER.stop()
+                samples.append(SCRAPER.series()["samples"])
+        if r["bound"] != n_pods or r["counts"]["uniform_burst"] == 0:
+            raise SystemExit(f"{name}: {r['bound']} of {n_pods} bound, "
+                             f"launches {r['counts']}")
+        if r["sched"].algorithm.breaker.faults_total:
+            raise SystemExit(f"{name}: breaker faults")
+        add_launches(report, r["counts"])
+        rates["on" if on else "off"].append(n_pods / r["wall"])
+
+    reduced = False
+    for k in range(SCRAPER_ROUNDS):
+        run(False)
+        run(True)
+        if k == 0 and (time.perf_counter() - t_phase) * SCRAPER_ROUNDS \
+                > SCRAPER_BUDGET_S:
+            # the six runs would take too long: start again smaller
+            reduced = True
+            n_nodes, n_pods = SCRAPER_REDUCED
+            rates = {"off": [], "on": []}
+            samples.clear()
+            run(False)
+            run(True)
+    if not all(samples):
+        raise SystemExit(f"{name}: the scraper took no sample ({samples})")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        SCRAPER.sample()
+    duty = ((time.perf_counter() - t0) / 20) / SCRAPER_INTERVAL
+    SCRAPER.reset()
+    best_on, best_off = max(rates["on"]), max(rates["off"])
+    ratio = best_on / best_off
+    verdict = "held" if ratio >= 0.95 or duty < 0.01 else "MISSED"
+    print(f"[scraper] {n_nodes} nodes x {n_pods} pods "
+          f"({'reduced: ' if reduced else ''}[shell] uniform's cell), "
+          f"ABAB x {len(rates['on'])}, interval {SCRAPER_INTERVAL} s: "
+          f"off {[round(x, 1) for x in rates['off']]} pods/s, on "
+          f"{[round(x, 1) for x in rates['on']]} pods/s; best on / off "
+          f"{best_on:.1f} / {best_off:.1f} = {ratio:.4f}; sampling duty "
+          f"cycle {duty * 100:.3f} % ({duty * SCRAPER_INTERVAL * 1e3:.3f} "
+          f"ms a sample); samples a run {samples}; floor (>= 0.95 or duty "
+          f"< 1 %) {verdict}; {time.perf_counter() - t_phase:.1f} s")
+    if verdict != "held":
+        raise SystemExit(f"{name}: scraper overhead {ratio:.3f}x with a "
+                         f"duty cycle of {duty:.2%}")
+
+
+def tuner_phase(device, sync, report):
+    """`[tuner]`: the tuner cell (`kubernetes_tpu_torch.tuner.cell`, the
+    JAX harness's run_tuner_cell) on the card at its defaults: phase A
+    records 4 worlds, phase B's seeded search runs twice (the same winner
+    is required), phase C runs the two-lane FleetInstance A/B with the
+    mid-run set_row + reload_profiles, the scraper and the gate. The cell
+    raises on a double bind, an unbound arrival, a replay violation
+    across the row write or a nondeterministic search; the phase also
+    fails on no K5 launch, a twin or refusal count or a breaker fault."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.tuner.cell import run_tuner_cell
+    name = "tuner"
+    obs.reset()
+    t0 = time.perf_counter()
+    r = run_tuner_cell(device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = K.launches()
+    twins, refusals = obs.family("twin"), obs.family("refusal")
+    if counts["schedule_batch"] == 0:
+        raise SystemExit(f"{name}: K5 schedule_batch was not launched "
+                         f"({counts})")
+    if twins or refusals:
+        raise SystemExit(f"{name}: twin cycles {twins}, refusals "
+                         f"{refusals}")
+    no_degrade(name)
+    if not (r["search_deterministic"] and r["parity_violations"] == 0
+            and r["double_binds"] == 0 and r["records_replayed"] > 0):
+        raise SystemExit(f"{name}: audits {r}")
+    add_launches(report, counts)
+    lanes = r["lanes"]
+    rate = {"incumbent": r["incumbent_bound"] / r["duration"],
+            "shadow": r["shadow_bound"] / r["duration"]}
+    print(f"[tuner] {r['nodes']} nodes, {r['arrival_rate']:.0f} arrivals/s "
+          f"for {r['duration']:.2f} s, window 512, depth 2: search "
+          f"{r['search_seconds']:.3f} s ({r['search']['strategy']}, "
+          f"{r['search']['evaluated']} rows, twice, the same winner "
+          f"{r['search']['best_weights']}); best reward "
+          f"{r['search']['best_reward']:.3f}, incumbent "
+          f"{r['incumbent_sim_reward']:.3f}; row installed at "
+          f"{r['installed_at_s']:.2f} s; lanes "
+          + "; ".join(f"{k} p99 {v['p99'] * 1e3:.2f} ms, utilization "
+                      f"{v['utilization']}, {rate[k]:.1f} pods/s "
+                      f"({v['committed']} committed)"
+                      for k, v in lanes.items())
+          + f"; gate {r['gate_decision']} ({r['gate_reason']}); replay "
+          f"{r['records_replayed']} records across the row write, 0 "
+          f"violations; double binds 0, all arrivals bound; K5 "
+          f"{counts['schedule_batch']}, K3 {counts['uniform_burst']}, "
+          f"launches {({k: v for k, v in counts.items() if v})}; "
+          f"{wall:.1f} s")
+
+
 def degrade_drill(device, sync, n_nodes=N_NODES, n_burst=128, n_serial=12):
     """The device-fault degrade on the card (see the module docstring):
     decisions equal to the undisturbed run, every fault counted."""
@@ -6124,6 +6574,9 @@ def main() -> int:
               f"--cards)", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # a run still going near its limit (1,200 s) dumps every thread's
+    # stack, so the log says where it stood if it hangs
+    faulthandler.dump_traceback_later(RUN_LIMIT_S)
     device = torch.device("cuda")
     sync = torch.cuda.synchronize
     smi = subprocess.run(
@@ -6191,6 +6644,9 @@ def main() -> int:
         timed(shell_preempt_baseline, device, sync, report)
         timed(serve_phase, device, sync, report)
         timed(fleet_phase, device, sync, report)
+        timed(cmd_phase, device, sync, report)
+        timed(scraper_phase, device, sync, report)
+        timed(tuner_phase, device, sync, report)
         timed(degrade_drill, device, sync)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))

@@ -50,9 +50,16 @@ class _PodState:
 
 @dataclass
 class Snapshot:
-    """NodeInfoSnapshot (reference: interface.go:125)."""
+    """NodeInfoSnapshot (reference: interface.go:125). `sums` holds the
+    cluster utilization's six sums over `node_infos` (requested cpu,
+    memory, ephemeral storage, then allocatable: node_info.
+    utilization_of), kept by update_snapshot as it swaps clones in and
+    out: the utilization gauge reads them instead of walking every node
+    (~14 ms at 15,000 nodes on one host core) each time a scraper samples
+    it. The reference's Snapshot has no such field."""
     node_infos: dict[str, NodeInfo] = field(default_factory=dict)
     generation: int = 0
+    sums: tuple = (0, 0, 0, 0, 0, 0)
 
 
 class SchedulerCache:
@@ -298,20 +305,49 @@ class SchedulerCache:
         generation is not newer than the snapshot's."""
         with self._lock:
             balanced_gen = self._head.info.generation if self._head else snapshot.generation
+            rc, rm, re, ac, am, ae = snapshot.sums
+            infos = snapshot.node_infos
             item = self._head
             while item is not None and item.info.generation > snapshot.generation:
                 info = item.info
                 if info.node is not None:
-                    snapshot.node_infos[info.node.name] = info.clone()
+                    name = info.node.name
+                    old = infos.get(name)
+                    if old is not None:
+                        q, a = old.requested, old.allocatable
+                        rc -= q.milli_cpu
+                        rm -= q.memory
+                        re -= q.ephemeral_storage
+                        ac -= a.milli_cpu
+                        am -= a.memory
+                        ae -= a.ephemeral_storage
+                    infos[name] = info.clone()
+                    q, a = info.requested, info.allocatable
+                    rc += q.milli_cpu
+                    rm += q.memory
+                    re += q.ephemeral_storage
+                    ac += a.milli_cpu
+                    am += a.memory
+                    ae += a.ephemeral_storage
                 item = item.next
             # drop nodes deleted from the cache; placeholders (node=None)
             # don't count as live, so compare against the node tree
             # (reference: cache.go:210 compares against nodeTree.numNodes)
-            if len(snapshot.node_infos) > self.node_tree.num_nodes:
+            if len(infos) > self.node_tree.num_nodes:
                 live = {n for n, it in self._nodes.items() if it.info.node is not None}
-                for name in list(snapshot.node_infos):
+                for name in list(infos):
                     if name not in live:
-                        del snapshot.node_infos[name]
+                        q, a = infos[name].requested, infos[name].allocatable
+                        rc -= q.milli_cpu
+                        rm -= q.memory
+                        re -= q.ephemeral_storage
+                        ac -= a.milli_cpu
+                        am -= a.memory
+                        ae -= a.ephemeral_storage
+                        del infos[name]
+            # one reference swap: a reader on another thread sees the sums
+            # before or after this update, never half of it
+            snapshot.sums = (rc, rm, re, ac, am, ae)
             snapshot.generation = balanced_gen
             return snapshot
 

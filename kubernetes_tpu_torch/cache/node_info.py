@@ -197,6 +197,18 @@ class NodeInfo:
         return out
 
 
+#: the resources of the utilization sums, in their order
+UTILIZATION_RESOURCES = ("cpu", "memory", "ephemeral_storage")
+
+
+def utilization_of(sums) -> dict:
+    """Fill fractions from six sums over the nodes: requested cpu,
+    memory and ephemeral storage, then allocatable, in that order (a
+    Snapshot keeps them as `sums`)."""
+    return {r: (sums[i] / sums[i + 3] if sums[i + 3] > 0 else 0.0)
+            for i, r in enumerate(UTILIZATION_RESOURCES)}
+
+
 def cluster_utilization(node_infos) -> dict:
     """Requested/allocatable fill fractions over a NodeInfo snapshot —
     the `cluster_resource_utilization{resource}` gauge family's source
@@ -204,17 +216,13 @@ def cluster_utilization(node_infos) -> dict:
     cluster allocatable read 0.0 (an empty snapshot is 0, not NaN: the
     scraper treats NaN as no-data and the gate must see "empty", not
     "absent")."""
-    req = {"cpu": 0, "memory": 0, "ephemeral_storage": 0}
-    alloc = {"cpu": 0, "memory": 0, "ephemeral_storage": 0}
+    sums = [0] * 6
     for ni in (node_infos.values() if hasattr(node_infos, "values")
                else node_infos):
         if ni.node is None:
             continue
-        req["cpu"] += ni.requested.milli_cpu
-        req["memory"] += ni.requested.memory
-        req["ephemeral_storage"] += ni.requested.ephemeral_storage
-        alloc["cpu"] += ni.allocatable.milli_cpu
-        alloc["memory"] += ni.allocatable.memory
-        alloc["ephemeral_storage"] += ni.allocatable.ephemeral_storage
-    return {r: (req[r] / alloc[r] if alloc[r] > 0 else 0.0)
-            for r in req}
+        q, a = ni.requested, ni.allocatable
+        for i, v in enumerate((q.milli_cpu, q.memory, q.ephemeral_storage,
+                               a.milli_cpu, a.memory, a.ephemeral_storage)):
+            sums[i] += v
+    return utilization_of(sums)

@@ -646,7 +646,8 @@ class TorchScheduler:
             sorted(self.enabled_predicates) if self.enabled_predicates
             else DEFAULT_PREDICATE_NAMES, node_infos,
             volume_listers=self.volume_listers,
-            volume_binder=self.volume_binder)
+            volume_binder=self.volume_binder,
+            services_fn=self.services_fn)
         cfgs = self._oracle_cfgs
         if self._oracle_cfgs_prof is not None:
             cfgs = self._oracle_cfgs_prof[self._profile_id(pod)]

@@ -1,20 +1,29 @@
-"""Predicate and priority registries of the reference's factory
-(`kubernetes_tpu/factory.py`), copied with the port's imports and cut to
-what `TorchScheduler`'s host twin and the scheduler shell reach: the
-DefaultProvider's predicate names and priority weights, the predicate-set
-assembly, the priority config registry and the kernel weight dict of a
-priority selection (`tpu_kernel_weights`). The policy and config surface
-(providers, custom predicates and priorities registered by a Policy,
-`create_scheduler`) has no copy in the port.
+"""Factory: predicate/priority registries, algorithm providers, config
+wiring — the port's copy of the reference's factory
+(`kubernetes_tpu/factory.py`) with the port's imports.
 
-Mirrors pkg/scheduler/factory/ (CreateFromKeys :417) and
+Mirrors pkg/scheduler/factory/ (RegisterFitPredicate plugins.go:106,
+CreateFromProvider :336, CreateFromConfig :346, CreateFromKeys :417) and
 pkg/scheduler/algorithmprovider/defaults (defaultPredicates :40,
-defaultPriorities :108).
+defaultPriorities :108, ClusterAutoscalerProvider swapping LeastRequested
+for MostRequested :99).
+
+`create_scheduler` takes the device route (the port's `Scheduler` with
+`use_device=True` on `device`, `cuda` by default: TorchScheduler and its
+CUDA kernels) exactly when the reference takes its TPU route: the
+`TPUScoring` gate is on, every priority has a kernel weight, every
+predicate is one the kernels evaluate, and the Policy names no extender.
+Otherwise it builds the shell over the port's copy of the oracle. A
+Policy that names an extender is refused (NotImplementedError): the port
+has no extender passes yet (ROADMAP A9).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Optional
 
+from kubernetes_tpu_torch.apis.config import SchedulerConfiguration, validate
+from kubernetes_tpu_torch.apis.policy import Policy, validate_policy
 from kubernetes_tpu_torch.ops import DEFAULT_WEIGHTS
 from kubernetes_tpu_torch.oracle import predicates as preds
 from kubernetes_tpu_torch.oracle import priorities as prios
@@ -31,11 +40,41 @@ DEFAULT_PREDICATE_NAMES = [
     "CheckNodeUnschedulable", "PodToleratesNodeTaints",
 ]
 
+_EXTRA_PREDICATES: dict[str, Callable] = {}
+
+
+def register_fit_predicate(name: str, factory: Callable) -> None:
+    """plugins.go:106 RegisterFitPredicate —
+    `factory(node_infos, services_fn) -> fn`."""
+    _EXTRA_PREDICATES[name] = factory
+
+
+def register_custom_fit_predicate(policy_pred) -> bool:
+    """plugins.go:204 RegisterCustomFitPredicate — map a Policy predicate
+    with an argument onto its checker. Returns True when registered."""
+    arg = policy_pred.argument or {}
+    if "labelsPresence" in arg:
+        spec = arg["labelsPresence"]
+        register_fit_predicate(
+            policy_pred.name,
+            lambda ni, sf, _s=spec: preds.make_node_label_presence(
+                _s.get("labels", []), bool(_s.get("presence", True))))
+        return True
+    if "serviceAffinity" in arg:
+        spec = arg["serviceAffinity"]
+        register_fit_predicate(
+            policy_pred.name,
+            lambda ni, sf, _s=spec: preds.make_service_affinity(
+                _s.get("labels", []), ni, sf))
+        return True
+    return False
+
 
 def build_predicate_set(names: list[str],
                         node_infos,
                         volume_listers=None,
-                        volume_binder=None) -> dict[str, Callable]:
+                        volume_binder=None,
+                        services_fn: Callable = lambda: []) -> dict[str, Callable]:
     """CreateFromKeys predicate assembly: the named subset, evaluated in
     predicates.PREDICATE_ORDERING."""
     base = preds.default_predicate_set(node_infos,
@@ -47,6 +86,8 @@ def build_predicate_set(names: list[str],
     for name in names:
         if name in base:
             out[name] = base[name]
+        elif name in _EXTRA_PREDICATES:
+            out[name] = _EXTRA_PREDICATES[name](node_infos, services_fn)
         elif name in ("PodFitsResources", "PodFitsHostPorts", "MatchNodeSelector",
                       "HostName"):
             out[name] = {
@@ -71,6 +112,15 @@ DEFAULT_PRIORITY_WEIGHTS = {
     "TaintTolerationPriority": 1,
     "ImageLocalityPriority": 1,
 }
+
+_EXTRA_PRIORITIES: dict[str, Callable] = {}
+
+
+def register_priority(name: str, config_factory: Callable) -> None:
+    """plugins.go RegisterPriorityConfigFactory analog:
+    `config_factory(weight, services_fn, replicasets_fn, hard_weight) ->
+    PriorityConfig`."""
+    _EXTRA_PRIORITIES[name] = config_factory
 
 
 def build_priority_configs(name_weights: dict[str, int],
@@ -125,6 +175,9 @@ def build_priority_configs(name_weights: dict[str, int],
     for name, weight in name_weights.items():
         if name in builders:
             out.append(builders[name](weight))
+        elif name in _EXTRA_PRIORITIES:
+            out.append(_EXTRA_PRIORITIES[name](
+                weight, services_fn, replicasets_fn, hard_pod_affinity_weight))
         else:
             raise KeyError(f"unknown priority {name!r}")
     return out
@@ -145,6 +198,16 @@ TPU_WEIGHT_KEYS = {
     "ImageLocalityPriority": "image_locality",
 }
 
+TPU_SUPPORTED_PREDICATES = {
+    "GeneralPredicates", "PodFitsResources", "PodFitsHostPorts",
+    "MatchNodeSelector", "HostName", "CheckNodeUnschedulable",
+    "PodToleratesNodeTaints", "MatchInterPodAffinity",
+    # volume predicates are always-fit in this version
+    "NoVolumeZoneConflict", "MaxEBSVolumeCount", "MaxGCEPDVolumeCount",
+    "MaxAzureDiskVolumeCount", "MaxCSIVolumeCountPred", "NoDiskConflict",
+    "CheckVolumeBinding",
+}
+
 
 def tpu_kernel_weights(name_weights: dict[str, int]) -> Optional[dict]:
     """Kernel weight dict for a priority selection, or None when a priority
@@ -156,3 +219,123 @@ def tpu_kernel_weights(name_weights: dict[str, int]) -> Optional[dict]:
             return None
         weights[key] = w
     return weights
+
+
+def tpu_supports_predicates(names: list[str]) -> bool:
+    return all(n in TPU_SUPPORTED_PREDICATES for n in names)
+
+
+# -- algorithm providers ------------------------------------------------------
+@dataclass(frozen=True)
+class AlgorithmProvider:
+    predicate_names: tuple
+    priority_weights: tuple  # of (name, weight)
+
+
+_PROVIDERS: dict[str, AlgorithmProvider] = {}
+
+
+def register_algorithm_provider(name: str, predicate_names: list[str],
+                                priority_weights: dict[str, int]) -> None:
+    _PROVIDERS[name] = AlgorithmProvider(
+        tuple(predicate_names), tuple(priority_weights.items()))
+
+
+def get_algorithm_provider(name: str) -> AlgorithmProvider:
+    if name not in _PROVIDERS:
+        raise KeyError(f"unknown algorithm provider {name!r}")
+    return _PROVIDERS[name]
+
+
+register_algorithm_provider("DefaultProvider", DEFAULT_PREDICATE_NAMES,
+                            DEFAULT_PRIORITY_WEIGHTS)
+# ClusterAutoscalerProvider: MostRequested replaces LeastRequested
+# (defaults.go:99 registerAlgorithmProvider)
+_ca = dict(DEFAULT_PRIORITY_WEIGHTS)
+del _ca["LeastRequestedPriority"]
+_ca["MostRequestedPriority"] = 1
+register_algorithm_provider("ClusterAutoscalerProvider",
+                            DEFAULT_PREDICATE_NAMES, _ca)
+
+
+# -- config -> Scheduler ------------------------------------------------------
+def resolve_algorithm(cfg: SchedulerConfiguration
+                      ) -> tuple[list[str], dict[str, int], Policy]:
+    """AlgorithmSource resolution (scheduler.go:162-192): provider name or
+    Policy. Returns (predicate_names, priority_weights, policy)."""
+    src = cfg.algorithm_source
+    if src.policy_file or src.policy_inline:
+        if src.policy_file:
+            policy = Policy.from_file(src.policy_file)
+        else:
+            policy = Policy.from_dict(src.policy_inline)
+        validate_policy(policy)
+        default = get_algorithm_provider("DefaultProvider")
+        pred_names = ([p.name for p in policy.predicates]
+                      if policy.predicates else list(default.predicate_names))
+        prio_weights = ({p.name: p.weight for p in policy.priorities}
+                        if policy.priorities else dict(default.priority_weights))
+        return pred_names, prio_weights, policy
+    provider = get_algorithm_provider(src.provider or "DefaultProvider")
+    return (list(provider.predicate_names), dict(provider.priority_weights),
+            Policy())
+
+
+def create_scheduler(store, cfg: Optional[SchedulerConfiguration] = None,
+                     device="cuda", **kw):
+    """cmd/kube-scheduler Run + scheduler.New analog: validated config in,
+    fully wired Scheduler out. On the device route the scheduler decides
+    on `device` (`cuda` unless the caller asks for the CPU's plain
+    versions); a device route that did not end up on a TorchScheduler on
+    that device raises instead of running on the host."""
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    cfg = cfg or SchedulerConfiguration()
+    validate(cfg)
+    from kubernetes_tpu_torch.utils import features
+    features.set_gates(cfg.feature_gates)
+    pred_names, prio_weights, policy = resolve_algorithm(cfg)
+    if policy.extenders:
+        raise NotImplementedError(
+            "Policy extenders: the port has no extender passes yet "
+            "(core/extender.py, ROADMAP A9)")
+    for pd in policy.predicates:
+        if pd.argument:
+            register_custom_fit_predicate(pd)
+    hard_weight = (policy.hard_pod_affinity_symmetric_weight
+                   if policy.hard_pod_affinity_symmetric_weight is not None
+                   else cfg.hard_pod_affinity_symmetric_weight)
+    # the reference's TPU-route rule (its factory.py:295-298)
+    use_device = bool(cfg.feature_gates.get("TPUScoring")) \
+        and tpu_kernel_weights(prio_weights) is not None \
+        and tpu_supports_predicates(pred_names) \
+        and not policy.extenders
+    # production wiring shards the node axis across every visible card;
+    # direct Scheduler construction stays single-card unless asked. The
+    # CPU's plain versions take no mesh.
+    if str(device) != "cpu":
+        kw.setdefault("mesh", "auto")
+    sched = Scheduler(
+        store,
+        scheduler_name=cfg.scheduler_name,
+        use_device=use_device,
+        device=device,
+        percentage_of_nodes_to_score=cfg.percentage_of_nodes_to_score,
+        hard_pod_affinity_weight=hard_weight,
+        disable_preemption=cfg.disable_preemption,
+        predicate_names=pred_names,
+        priority_weights=prio_weights,
+        plugins_enabled=cfg.plugins_enabled,
+        **kw)
+    if use_device:
+        import torch
+        from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+        algo = sched.algorithm
+        want = torch.device(device).type
+        if not isinstance(algo, TorchScheduler) \
+                or algo.device.type != want:
+            raise RuntimeError(
+                f"create_scheduler: the device route built "
+                f"{type(algo).__name__} on "
+                f"{getattr(algo, 'device', 'the host')}, not a "
+                f"TorchScheduler on {want}")
+    return sched

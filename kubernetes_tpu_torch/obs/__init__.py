@@ -40,8 +40,9 @@ shell, the store, the informers, the queue and the breaker register
 (`kubernetes_tpu.obs`): one process-global `Registry` with get-or-create
 `counter()` / `gauge()` / `histogram()`, the `/debug/sched` section
 registry, the span ring (`obs.trace`) and the per-pod latency ledger
-(`obs.ledger`), and the burst flight recorder (`obs.flight`). The
-reference's process metrics and time-series scraper have no copy here.
+(`obs.ledger`), the burst flight recorder (`obs.flight`), the process
+self-metrics (`obs.procmetrics`) and the time-series scraper with its
+verdict engine (`obs.timeseries`).
 """
 from __future__ import annotations
 
@@ -142,5 +143,10 @@ counter("obs_trace_dropped_total",
         "Spans dropped from the trace ring buffer on overflow (the "
         "ring keeps the newest spans).")
 
-# imported LAST: the ledger registers families against REGISTRY above
+# imported LAST: these modules register families against REGISTRY above.
+# procmetrics registers the process self-metrics (RSS/fds/threads/gc
+# pauses) EAGERLY so the time-series scraper sees them from sample 0;
+# timeseries hangs the scraper + verdict engine off the same registry.
 from kubernetes_tpu_torch.obs import ledger       # noqa: F401,E402
+from kubernetes_tpu_torch.obs import procmetrics  # noqa: F401,E402
+from kubernetes_tpu_torch.obs import timeseries   # noqa: F401,E402

@@ -40,14 +40,29 @@ Exposed families:
 - pod_startup_slo_ok — 1 when p99 <= slo_seconds (default 5s, density.go:56).
 
 Copied from the reference with the port's imports:
-`kubernetes_tpu.obs.ledger`.
+`kubernetes_tpu.obs.ledger`. One departure, in cost only: the startup
+reservoir is a numpy ring (the newest `reservoir` latencies), and the
+readouts keep its sorted copy and the sorted trailing window of their
+last call, keyed by a version that every commit and reset moves (the
+window also by its first entry, found by bisection while the commit
+stamps run in order: the window is then the ring's newest entries, since
+`_recent` takes the same latencies in the same order). A time-series
+scraper reads seven of these gauges every sample; the reference sorts a
+deque of up to 65,536 latencies in Python once a gauge (~20 ms on one
+host core), and the scheduler's commit thread waits for it. The values
+are the reference's; the per-lane readouts (`match=`) and out-of-order
+stamps take the reference's walk.
 """
 from __future__ import annotations
 
+import bisect
+import operator
 import threading
 import time
 from collections import deque
 from typing import Optional
+
+import numpy as np
 
 from kubernetes_tpu_torch import obs
 from kubernetes_tpu_torch.obs.registry import LATENCY_BUCKETS
@@ -107,7 +122,10 @@ class PodLifecycleLedger:
         self._capacity = capacity
         self._recs: dict[str, list] = {}      # key -> [t0..t6] (pre-commit)
         self._awaiting: dict[str, float] = {}  # key -> commit ts (fan-out)
-        self._e2e: deque = deque(maxlen=reservoir)   # admission->commit
+        # admission->commit latencies: a ring of the newest `reservoir`
+        self._e2e = np.zeros(reservoir, dtype=np.float64)
+        self._e2e_n = 0           # filled slots
+        self._e2e_at = 0          # the next slot written
         # (commit_ts, latency) pairs for the WINDOWED twins: the
         # cumulative reservoir above is since-reset and averages a
         # late-run stall away; this one is filtered by commit time
@@ -121,6 +139,13 @@ class PodLifecycleLedger:
         self._phase_sum = {p: 0.0 for p in PHASES}
         self._completed = 0
         self._trace: Optional[dict] = None    # key -> stamps (test mode)
+        # the readouts' memo (module docstring): moved by every commit
+        # and reset; `_ordered` while `_recent`'s commit stamps never
+        # step back (perf_counter stamps; a synthetic clock may)
+        self._version = 0
+        self._ordered = True
+        self._sorted_e2e: Optional[tuple] = None    # (version, sorted)
+        self._sorted_win: Optional[tuple] = None    # ((version, m), sorted)
 
     # -- configuration -------------------------------------------------------
     def set_trace(self, on: bool) -> None:
@@ -133,12 +158,14 @@ class PodLifecycleLedger:
         with self._lock:
             self._recs.clear()
             self._awaiting.clear()
-            self._e2e.clear()
+            self._e2e_n = self._e2e_at = 0
             self._recent.clear()
             self._phase_sum = {p: 0.0 for p in PHASES}
             self._completed = 0
             if self._trace is not None:
                 self._trace = {}
+            self._version += 1
+            self._ordered = True
 
     # -- stamping ------------------------------------------------------------
     def _open_rec(self, key: str, slot: int, t: Optional[float]) -> None:
@@ -291,12 +318,17 @@ class PodLifecycleLedger:
                     self._trace[k] = rec
             if not folds:
                 return
+            self._version += 1
+            if self._recent and tt < self._recent[-1][0]:
+                self._ordered = False
+            lats = []
             for k, rec in zip(fold_keys, folds):
                 lat = rec[COMMIT] - rec[ADMISSION]
-                self._e2e.append(lat)
+                lats.append(lat)
                 # the key rides along so windowed readouts can filter by
                 # lane (round 22: the tuner's shadow-vs-incumbent split)
                 self._recent.append((tt, lat, k))
+            self._e2e_extend(lats)
             # age-out at append time (round 23): entries older than every
             # readout window can never be walked again (_recent is
             # commit-time ordered), so a minutes-scale soak holds
@@ -340,15 +372,50 @@ class PodLifecycleLedger:
         with self._lock:
             return None if self._trace is None else self._trace.get(key)
 
+    def _e2e_extend(self, lats: list) -> None:
+        """Write a commit's latencies into the ring (under the lock)."""
+        buf = self._e2e
+        cap = len(buf)
+        if len(lats) >= cap:
+            buf[:] = lats[len(lats) - cap:]
+            self._e2e_at, self._e2e_n = 0, cap
+            return
+        at = self._e2e_at
+        head = min(len(lats), cap - at)
+        buf[at:at + head] = lats[:head]
+        buf[:len(lats) - head] = lats[head:]
+        self._e2e_at = (at + len(lats)) % cap
+        self._e2e_n = min(cap, self._e2e_n + len(lats))
+
+    def _e2e_newest(self, m: int) -> np.ndarray:
+        """The ring's newest `m` latencies, in no particular order (a
+        copy: the caller sorts it)."""
+        at = self._e2e_at
+        if m <= at:
+            return self._e2e[at - m:at].copy()
+        return np.concatenate((self._e2e[:at],
+                               self._e2e[len(self._e2e) - (m - at):]))
+
     def percentile(self, q: float) -> float:
         """Startup (admission->commit; enqueue->commit when no admission
         gate stamped the pod) latency percentile over the bounded
         reservoir; 0.0 with no data."""
         with self._lock:
-            vals = sorted(self._e2e)
-        if not vals:
+            memo = self._sorted_e2e
+            if memo is None or memo[0] != self._version:
+                memo = None
+                key, vals = self._version, self._e2e_newest(self._e2e_n)
+        if memo is None:
+            # the sort runs outside the lock, and numpy releases the GIL
+            # for it: a commit never waits for a reader's sort
+            vals.sort()
+            memo = (key, vals)
+            with self._lock:
+                self._sorted_e2e = memo
+        vals = memo[1]
+        if not len(vals):
             return 0.0
-        return vals[min(len(vals) - 1, int(q * len(vals)))]
+        return float(vals[min(len(vals) - 1, int(q * len(vals)))])
 
     def slo_ok(self, slo: float = STARTUP_SLO_SECONDS) -> float:
         p99 = self.percentile(0.99)
@@ -373,6 +440,38 @@ class PodLifecycleLedger:
                     out.append(lat)
         return out
 
+    def _window_sorted(self, window: Optional[float],
+                       now: Optional[float], match=None):
+        """`_window_vals` sorted (a list, or a numpy array). Unfiltered and
+        with the stamps in order, the window is `_recent`'s entries from
+        the first at or past the cutoff (bisection): the ring's newest
+        that many, whose sorted copy is kept for the next call with the
+        same version and size (sorted outside the lock, as in
+        `percentile`)."""
+        if match is not None or not self._ordered:
+            return sorted(self._window_vals(window, now, match))
+        w = STARTUP_WINDOW_SECONDS if window is None else window
+        tt = time.perf_counter() if now is None else now
+        cutoff = tt - w
+        with self._lock:
+            ordered = self._ordered
+            if ordered:
+                recent = self._recent
+                m = len(recent) - bisect.bisect_left(
+                    recent, cutoff, key=operator.itemgetter(0))
+                key = (self._version, m)
+                memo = self._sorted_win
+                if memo is None or memo[0] != key:
+                    memo, vals = None, self._e2e_newest(m)
+        if not ordered:
+            return sorted(self._window_vals(window, now, match))
+        if memo is None:
+            vals.sort()
+            memo = (key, vals)
+            with self._lock:
+                self._sorted_win = memo
+        return memo[1]
+
     def window_percentile(self, q: float, window: Optional[float] = None,
                           now: Optional[float] = None,
                           match=None) -> float:
@@ -381,26 +480,26 @@ class PodLifecycleLedger:
         and shows a late-run stall only after it has drowned the early
         samples). 0.0 with no pods in the window. `match` (key ->
         bool) restricts to one lane's pods."""
-        vals = sorted(self._window_vals(window, now, match))
-        if not vals:
+        vals = self._window_sorted(window, now, match)
+        if not len(vals):
             return 0.0
-        return vals[min(len(vals) - 1, int(q * len(vals)))]
+        return float(vals[min(len(vals) - 1, int(q * len(vals)))])
 
     def window_count(self, window: Optional[float] = None,
                      now: Optional[float] = None, match=None) -> int:
         """Pods committed in the trailing window (optionally one lane's)
         — the promotion gate's minimum-evidence denominator."""
-        return len(self._window_vals(window, now, match))
+        return len(self._window_sorted(window, now, match))
 
     def window_violation_fraction(self, slo: float = STARTUP_SLO_SECONDS,
                                   window: Optional[float] = None,
                                   now: Optional[float] = None) -> float:
         """Fraction of pods committed in the trailing window whose
         startup latency missed the SLO; 0.0 with no pods."""
-        vals = self._window_vals(window, now)
-        if not vals:
+        vals = self._window_sorted(window, now)
+        if not len(vals):
             return 0.0
-        return sum(1 for v in vals if v > slo) / len(vals)
+        return (len(vals) - bisect.bisect_right(vals, slo)) / len(vals)
 
     def window_slo_ok(self, slo: float = STARTUP_SLO_SECONDS,
                       window: Optional[float] = None,

@@ -1,10 +1,11 @@
 """Span tracing — spans in a bounded ring buffer, copied from the reference
 (`kubernetes_tpu.obs.trace`) as far as `utils.tracing.Trace.emit_spans`
-reaches: `add_span` records one complete ("X") event from explicit
-perf_counter timestamps. The buffer is a deque with a fixed capacity, so
-old spans fall off the back. The span context manager, its parent chain
-and the Chrome export wait for the port's tracing layer (torch.profiler
-and NVTX).
+and the scheduler command's `/debug/traces` reach: `add_span` records one
+complete ("X") event from explicit perf_counter timestamps, `events` /
+`to_chrome` read the ring back as Chrome trace-event JSON. The buffer is a
+deque with a fixed capacity, so old spans fall off the back. The span
+context manager, its parent chain and the file export wait for the port's
+tracing layer (torch.profiler and NVTX).
 """
 from __future__ import annotations
 
@@ -49,3 +50,24 @@ def add_span(name: str, t0: float, t1: float, cat: str = "host",
     if buf.maxlen is not None and len(buf) >= buf.maxlen:
         _note_dropped()
     buf.append(ev)
+
+
+def events(limit: Optional[int] = None,
+           cat: Optional[str] = None) -> list[dict]:
+    """Snapshot of the recorded spans, oldest first. `cat` filters by span
+    category (e.g. "device" vs "host"); `limit` keeps only the NEWEST N
+    spans after filtering — the /debug/traces query knobs."""
+    evs = list(_buf)
+    if cat is not None:
+        evs = [e for e in evs if e.get("cat") == cat]
+    if limit is not None and limit >= 0:
+        evs = evs[-limit:] if limit else []
+    return evs
+
+
+def to_chrome(limit: Optional[int] = None,
+              cat: Optional[str] = None) -> dict:
+    """Chrome trace-event JSON object — Perfetto and chrome://tracing both
+    load it directly."""
+    return {"traceEvents": events(limit=limit, cat=cat),
+            "displayTimeUnit": "ms"}

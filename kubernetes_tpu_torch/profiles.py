@@ -1,9 +1,10 @@
 """Scheduling profiles: the port's copy of
 `kubernetes_tpu/profiles/__init__.py` (with the helpers it needs from
-`factory.py` and `apis/policy.py`): the profile set, its row updates and
-snapshots, its lookups, the unknown-profile report and the per-profile
-scheduled counts, and the per-profile priority configs of the serial
-cycle's host twin (`oracle_configs`).
+`factory.py`; its weight bounds are the port's `apis/policy.py`): the
+profile set, its row updates and snapshots, its lookups, the
+unknown-profile report and the per-profile scheduled counts, and the
+per-profile priority configs of the serial cycle's host twin
+(`oracle_configs`).
 
 A pod picks its profile by `spec.schedulerName`; each profile carries its
 own priority-weight vector. A pod whose schedulerName no profile claims
@@ -24,30 +25,22 @@ from typing import Optional
 import numpy as np
 
 from kubernetes_tpu_torch import obs
+from kubernetes_tpu_torch.apis.policy import (   # noqa: F401 (MAX_WEIGHT)
+    MAX_WEIGHT, Policy, PolicyValidationError, PriorityPolicy,
+    validate_policy,
+)
 from kubernetes_tpu_torch.factory import DEFAULT_PRIORITY_WEIGHTS, \
     TPU_WEIGHT_KEYS, build_priority_configs, tpu_kernel_weights
-from kubernetes_tpu_torch.ops import MAX_PRIORITY, PRIORITY_AXIS
+from kubernetes_tpu_torch.ops import PRIORITY_AXIS
 
 DEFAULT_PROFILE_NAME = "default-scheduler"
 
 #: the event type of the unknown-profile report (store/record.py WARNING)
 WARNING = "Warning"
 
-#: weight * MaxPriority must fit int32 (api/validation)
-MAX_WEIGHT = (1 << 31) // MAX_PRIORITY
-
 
 class ProfileValidationError(ValueError):
     pass
-
-
-def _weight_errors(name: str, weight: int) -> list:
-    """apis/policy.py `validate_policy`'s bounds for one priority."""
-    if weight <= 0:
-        return [f"priority {name}: weight must be positive"]
-    if weight >= MAX_WEIGHT:
-        return [f"priority {name}: weight {weight} too large"]
-    return []
 
 
 @dataclass(frozen=True)
@@ -137,14 +130,19 @@ class ProfileSet:
                 if prio_name not in TPU_WEIGHT_KEYS:
                     errs.append(f"profile {p.name}: unknown priority "
                                 f"{prio_name!r}")
-            werrs = []
-            for n, w in sorted(nw.items()):
-                werrs += _weight_errors(n, w)
+            # the weights ride apis/policy's bounds (positive, under
+            # MAX_WEIGHT), the rank-aware gang weight too
+            pol = Policy(priorities=[
+                PriorityPolicy(name=n, weight=w) for n, w in
+                sorted(nw.items())])
             if p.rank_aware:
-                werrs += _weight_errors(f"{p.name}/GangLocalityPriority",
-                                        p.gang_weight)
-            if werrs:
-                errs.append(f"profile {p.name}: " + "; ".join(werrs))
+                pol.priorities.append(PriorityPolicy(
+                    name=f"{p.name}/GangLocalityPriority",
+                    weight=p.gang_weight))
+            try:
+                validate_policy(pol)
+            except PolicyValidationError as e:
+                errs.append(f"profile {p.name}: {e}")
         if errs:
             raise ProfileValidationError("; ".join(errs))
 

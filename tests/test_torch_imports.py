@@ -51,6 +51,22 @@ SERVING_MODULES = (
     "kubernetes_tpu_torch.obs.flight",
     "kubernetes_tpu_torch.utils.leader_election",
 )
+#: the scheduler command and what it reads: the config and Policy, the
+#: gates, the metrics exposition, the hollow generators, the process
+#: metrics, the time-series scraper and the tuner
+COMMAND_MODULES = (
+    "kubernetes_tpu_torch.apis", "kubernetes_tpu_torch.apis.config",
+    "kubernetes_tpu_torch.apis.policy", "kubernetes_tpu_torch.utils.features",
+    "kubernetes_tpu_torch.factory", "kubernetes_tpu_torch.metrics",
+    "kubernetes_tpu_torch.models", "kubernetes_tpu_torch.models.hollow",
+    "kubernetes_tpu_torch.cmd", "kubernetes_tpu_torch.cmd.scheduler",
+    "kubernetes_tpu_torch.obs.procmetrics",
+    "kubernetes_tpu_torch.obs.timeseries",
+    "kubernetes_tpu_torch.tuner", "kubernetes_tpu_torch.tuner.simulator",
+    "kubernetes_tpu_torch.tuner.search",
+    "kubernetes_tpu_torch.tuner.controller",
+    "kubernetes_tpu_torch.tuner.cell",
+)
 
 
 def _port_modules():
@@ -68,7 +84,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the host twin's copies of the oracle and the factory registries
     assert "kubernetes_tpu_torch.factory" in mods
     assert "kubernetes_tpu_torch.oracle.volumes" in mods
-    for m in SHELL_MODULES + SERVING_MODULES:
+    for m in SHELL_MODULES + SERVING_MODULES + COMMAND_MODULES:
         assert m in mods, m
     from kubernetes_tpu_torch import factory
     from kubernetes_tpu_torch.oracle import generic_scheduler, preemption
@@ -98,22 +114,52 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-def test_serving_modules_import_neither_jax_nor_the_jax_package():
-    """Every import line of the serving modules names neither jax nor the
-    JAX package, lazy imports inside functions included (the child
-    interpreter above sees only what importing the modules runs)."""
+def _import_lines_name_no_jax(modules, self_contained=()):
+    """Every import line of `modules` names neither jax nor the JAX
+    package, lazy imports inside functions included; each imports from
+    the port but those in `self_contained` (which import no package
+    module at all)."""
     import re
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|kubernetes_tpu)\b"
                      r"(?!_torch)")
     root = Path(kubernetes_tpu_torch.__path__[0]).parent
-    for m in SERVING_MODULES:
+    for m in modules:
         path = root / (m.replace(".", "/") + ".py")
         if not path.exists():
             path = root / m.replace(".", "/") / "__init__.py"
         lines = path.read_text().splitlines()
-        assert any("kubernetes_tpu_torch" in ln for ln in lines), path
+        assert m in self_contained or any(
+            "kubernetes_tpu_torch" in ln for ln in lines), path
         for ln in lines:
             assert not pat.match(ln), (path, ln)
+
+
+def test_serving_modules_import_neither_jax_nor_the_jax_package():
+    """The serving modules' import lines (the child interpreter above sees
+    only what importing the modules runs)."""
+    _import_lines_name_no_jax(SERVING_MODULES)
+
+
+def test_command_modules_import_neither_jax_nor_the_jax_package():
+    """`apis/`, `cmd/`, `models/`, `tuner/`, `metrics.py`, the gates and
+    the two process-level `obs/` modules, lazy imports included; and
+    importing the command alone in a fresh interpreter loads neither."""
+    _import_lines_name_no_jax(COMMAND_MODULES, self_contained=(
+        "kubernetes_tpu_torch.apis.policy",
+        "kubernetes_tpu_torch.utils.features"))
+    code = (
+        "import json, sys\n"
+        "import kubernetes_tpu_torch.cmd.scheduler\n"
+        "import kubernetes_tpu_torch.tuner.cell\n"
+        "from kubernetes_tpu_torch.tuner import simulator, search\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'kubernetes_tpu'"
+        " or m.startswith('kubernetes_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=CHILD_TIMEOUT_S)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_no_port_module_reaches_a_native_core(monkeypatch):
