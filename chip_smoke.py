@@ -122,9 +122,9 @@
      fetch: bound, nominated and failed outcomes;
    - preempt-baseline (K8): BASELINE.json configs[3], 1,000 nodes x
      10,000 victims and 128 preemptors, after prewarm_preempt;
-   - preempt-single (K7, with K2 and K4): 32 rounds of schedule ->
+   - preempt-single (K7, with K2 and K4): 12 rounds of schedule ->
      FitError -> preempt on the preempt-wave world, the shell's evictions
-     in between; rounds 2-32 scatter the victim planes' dirty rows;
+     in between; rounds 2-12 scatter the victim planes' dirty rows;
    - mesh-uniform (K9a-d, with K4 a card; no K1 launch): the uniform burst
      and four serial cycles through TorchScheduler(mesh=Mesh(["cuda"] *
      4)), four shards on the one card, on 15,000 and 15,001 nodes, held
@@ -150,7 +150,7 @@
      chunk's ghost, li, lni and packed block), with a `[mesh-step]` line
      (K13a launches, K13b launches and record copies, checked: one K13a
      launch a device and step plus one a chunk for its last fold);
-   - mesh-preempt-single (K14a/b, with K9a/b and K4): 8 more rounds on
+   - mesh-preempt-single (K14a/b, with K9a/b and K4): 4 more rounds on
      the world preempt-single leaves, each K14 block held against the
      single-device K7 block of the same rows and planes; it fails unless
      K14a (one launch over the card's shards) and K14b ran once a device
@@ -256,6 +256,34 @@
      every arrival bound, K5 launched; a `[tuner]` line gives the search
      seconds, the rewards, each lane's windowed p99, utilization and
      pods/s, the gate's decision and the K5 / K3 launches;
+   - extender: (a) bench.py's world (15,000 nodes, each with
+     example.com/gpu: 4) with a callable binder extender that manages
+     example.com/gpu, 9,000 plain pods then 1,000 that request one, each
+     block a K3 burst: all bound, the binder called exactly 1,000 times,
+     the bindings equal to the same world without the extender; (b) the
+     binder on preempt-baseline's world, the 128 preemptors arriving one
+     at a time: K7 and no K8, victims, bindings and nominations equal to
+     the run without it (one-pod K8 waves); then all 128 queued at once,
+     as preempt-baseline queues them: K7 for the first, and the device
+     victim scan refuses each later one while a nominee is pending
+     (`refusal.preempt-nominated-ghosts`, at most 127, printed; the host
+     preemptor decides those, as the reference's refusal sends them),
+     no K8, victims, bindings and nominations equal to the queued run
+     without the extender (one K8 wave); (c) a filter + prioritize +
+     preempt extender over real HTTP on 1,000 nodes x 200 pods: the
+     generic scheduler with the reference's warning, no kernel launched,
+     the verbs' choices obeyed; `[extender]` lines give the binder's cost
+     a pod, the route and the extender's calls;
+   - http: (a) `cmd.scheduler.main --server URL --token T --once --burst
+     10000` against an APIServer (bearer token for system:kube-scheduler,
+     RBAC) over bench.py's cell of hollow nodes and pods: a TorchScheduler
+     on cuda, K3, all bound in the server's store, equal to `[cmd]
+     default`; the wall, the initial lists, the wave commits over HTTP and
+     pods/s; (b) `main --api-port` on a free port: a list, a create and a
+     watch resumed from a resourceVersion that delivers the command's
+     bind; (c) arrivals POSTed through RemoteStore at 1,000/s for 5 s on
+     5,000 nodes behind a gate that sheds, the serve loop on the card:
+     429s, every created pod bound, no double bind; sheds and p99;
    - degrade drill: on the 15,000-node world, a DeviceFault at the
      `device.fetch` point of a uniform burst with a commit callback (the
      undecided tail then decided by serial cycles, as the shell does) and
@@ -1504,8 +1532,11 @@ def mesh_variant_checks(device, sync, meshes=None):
     every K2 family dense and inert, identity, perm and pos walks and a
     weight table for the cycle; K3's plain, lni, rotate, ban + extra_ok,
     carried rows, weight table and saturated cases for the burst; n_real
-    (3,999) a multiple of no shard count. `meshes` (lists of devices)
-    replaces the shards of one card, e.g. by the cards of a host."""
+    (3,999) a multiple of no shard count. Every mesh's results are held
+    against the single-device plain K2 / K3 (computed once a case); the
+    sharded plain K3 runs on the 4-shard mesh only. `meshes` (lists of
+    devices) replaces the shards of one card, e.g. by the cards of a
+    host, and runs the sharded plain versions on each of them."""
     import numpy as np
     import torch
     from kubernetes_tpu_torch import obs
@@ -1541,9 +1572,15 @@ def mesh_variant_checks(device, sync, meshes=None):
     fresh, ucases, cap = uniform_cases(rng, nodes, n_pad, n_real, s_count,
                                        wtab, union, device)
     pods = [_rand_pod(rng, n_pad, s_count, dense) for dense in (False, True)]
-    for devs in meshes or [[device] * D for D in MESH_SHARDS]:
+    # the single-device plain K2 / K3 of a case is the same on every mesh:
+    # computed once; the sharded plain K3 (the slow part) runs on the
+    # 4-shard mesh of the card (on every mesh of `meshes`)
+    want_cycle, want_uniform = {}, {}
+    mesh_devs = meshes or [[device] * D for D in MESH_SHARDS]
+    for mi, devs in enumerate(mesh_devs):
         mesh = S.Mesh(devs)
         D = mesh.size
+        sharded_plain = meshes is not None or mi == len(mesh_devs) - 1
         shards = S.shard_node_arrays(mesh, nodes)
         for pod in pods:
             for w in weight_cases:
@@ -1561,8 +1598,11 @@ def mesh_variant_checks(device, sync, meshes=None):
                     with plain_versions(MESH_ENTRIES):
                         ref = K.schedule_cycle(shards, *args, weights=w,
                                                mesh=mesh, **kw)
-                    want = K.schedule_cycle_plain(nodes, *args, weights=w,
-                                                  **kw)
+                    case = (id(pod), id(w), mode)
+                    if case not in want_cycle:
+                        want_cycle[case] = K.schedule_cycle_plain(
+                            nodes, *args, weights=w, **kw)
+                    want = want_cycle[case]
                     for name, other in (("plain", ref), ("K2 plain", want)):
                         same(f"{D} shards/cycle/{mode} vs {name}",
                              {k: got[k] for k in keys},
@@ -1580,12 +1620,15 @@ def mesh_variant_checks(device, sync, meshes=None):
             args = (cls, n_pods, lni, n_real, True)
             got = K.schedule_batch_uniform(fshards, *args, cap=cap,
                                            mesh=mesh, **kw)
-            with plain_versions(MESH_ENTRIES):
-                ref = K.schedule_batch_uniform(fshards, *args, cap=cap,
-                                               mesh=mesh, **kw)
-            want = K.schedule_batch_uniform_plain(fresh, *args, cap=cap,
-                                                  **kw)
-            for other, label in ((ref, "plain"), (want, "K3 plain")):
+            if name not in want_uniform:
+                want_uniform[name] = K.schedule_batch_uniform_plain(
+                    fresh, *args, cap=cap, **kw)
+            others = [(want_uniform[name], "K3 plain")]
+            if sharded_plain:
+                with plain_versions(MESH_ENTRIES):
+                    others.append((K.schedule_batch_uniform(
+                        fshards, *args, cap=cap, mesh=mesh, **kw), "plain"))
+            for other, label in others:
                 same(f"{D} shards/uniform/{name} vs {label}",
                      (cat_rows(got[0]), got[1], got[2]),
                      (cat_rows(other[0]) if isinstance(other[0], list)
@@ -2617,9 +2660,11 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
     8-block cluster, a node axis that is not a multiple of the span, li,
     winners and ties in different blocks, the records staged in global
     memory on 8 and 16 blocks, a cached plan launched again after smaller
-    plans set the kernels' attributes; the sharded plain versions run
-    on every mesh of the first geometry and on the 4-shard mesh of the
-    next three, the single-device plain K5 / K6 on all): identity, partial,
+    plans set the kernels' attributes; the sharded plain versions run on
+    the 4-shard mesh, every case of the first geometry and the first
+    scan and segments case of the next three (with `meshes`: every mesh
+    of the first geometry and the last mesh of the next three), the
+    single-device plain K5 / K6 on all): identity, partial,
     perm and pos walks, the carried spread and carry_in, a weight table
     with per-pod profile ids, skip pods mid-window; for K11 also a gang
     whose placed members lie on every shard and in several select blocks
@@ -2639,7 +2684,10 @@ def mesh_scan_variant_checks(device, sync, meshes=None):
             checked += _mesh_scan_variants(
                 device, rng, n_pad, n_real, build, blocks,
                 meshes or [[device] * D for D in shards or MESH_SHARDS],
-                "all" if gi == 0 else "last" if shards is None else "none",
+                ("all" if gi == 0 else "last" if shards is None else "none")
+                if meshes else
+                ("last" if gi == 0 else "first" if shards is None
+                 else "none"),
                 sync if K.select_plan(n_pad, 8, blocks).global_scratch
                 else None)
         geo = "; ".join(
@@ -2667,7 +2715,8 @@ def _mesh_scan_variants(device, rng, n_pad, n_real, build, blocks, meshes,
     `meshes`; returns the comparisons made. Every mesh's window is held
     against the single-device plain K5 / K6; against the sharded plain
     versions (a Python loop of steps, the slow part) on "all" meshes, the
-    "last" one or "none". `timed` (sync): also print K10b's and K11b's
+    "last" one, the "first" scan and segments case on the last one, or
+    "none". `timed` (sync): also print K10b's and K11b's
     device time a step on the last mesh's identity and axis windows."""
     import numpy as np
     import torch
@@ -2822,12 +2871,12 @@ def _mesh_scan_variants(device, rng, n_pad, n_real, build, blocks, meshes,
         d0 = mesh.devices[0]
         shards = S.shard_node_arrays(mesh, nodes)
         sharded_plain = sharded == "all" or (
-            sharded == "last" and mi == len(mesh_list) - 1)
-        for name, kw, ntf in scan_cases:
+            sharded in ("last", "first") and mi == len(mesh_list) - 1)
+        for si, (name, kw, ntf) in enumerate(scan_cases):
             st, w1, w2 = want_scan[name]
             args = (st, li, 11, ntf, n_real, 8)
             got = K.schedule_batch(shards, *args, mesh=mesh, **kw)
-            if sharded_plain:
+            if sharded_plain and (sharded != "first" or si == 0):
                 with plain_versions(MESH_ENTRIES):
                     ref = K.schedule_batch(shards, *args, mesh=mesh, **kw)
                 same(f"{D} shards/scan/{name} vs plain",
@@ -2840,11 +2889,11 @@ def _mesh_scan_variants(device, rng, n_pad, n_real, build, blocks, meshes,
                                         carry_in=(got[0], got[3]))
                 same(f"{D} shards/scan/carry_in vs K5 plain",
                      whole_window(got2, d0), whole_window(w2, d0))
-        for name, kw, ntf, np_ in seg_cases:
+        for si, (name, kw, ntf, np_) in enumerate(seg_cases):
             st, want = want_seg[name]
             args = (st, seg_t, gang_t, np_, li_seg, 9, ntf, n_real, 8)
             got = K.schedule_batch_segments(shards, *args, mesh=mesh, **kw)
-            if sharded_plain:
+            if sharded_plain and (sharded != "first" or si == 0):
                 with plain_versions(MESH_ENTRIES):
                     ref = K.schedule_batch_segments(shards, *args, mesh=mesh,
                                                     **kw)
@@ -3302,7 +3351,7 @@ OPS_PER_SLOT = 20
 # the preempt worlds: 10 victims of 400m per node (9 on every 50th node),
 # priorities 1-5 by slot and node, a quarter of them PDB-guarded
 VICTIMS_PER_NODE, VICTIM_CPU = 10, 400
-N_SINGLE = 32                    # preempt-single rounds
+N_SINGLE = 12                    # preempt-single rounds
 
 
 def preempt_world(n_nodes):
@@ -4281,8 +4330,11 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
     against the per-shard plain record; K13 on a chunk of
     binds, nominations, failures and skip padding, ghosts off and carried
     in, an init-container request. Then K2 and the sharded cycle (K9a/b)
-    with a nominated ghost against their plain versions. `meshes` (lists
-    of devices) replaces the shards of one card."""
+    with a nominated ghost against their plain versions. Every mesh is
+    held against the single-device plain K7 / K8; the sharded plain
+    versions run on the 4-shard mesh. `meshes` (lists of devices)
+    replaces the shards of one card and runs the sharded plain versions
+    on each of them."""
     import numpy as np
     import torch
     from kubernetes_tpu_torch.ops import kernels as K
@@ -4371,16 +4423,18 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
                     raise SystemExit(f"mesh preempt variant K13/P{P}: the "
                                      f"chunk lacks bound, failed or "
                                      f"nominated pods ({sorted(kinds)})")
-        for mesh in mesh_list:
+        for mi, mesh in enumerate(mesh_list):
             D, d0 = mesh.size, mesh.devices[0]
+            sharded_plain = meshes is not None or mi == len(mesh_list) - 1
             for name, nd, vc, fs, rk, cr, hr, mp in k14:
                 shards = S.shard_node_arrays(mesh, nd)
                 vics = S.shard_victim_planes(mesh, vc)
                 args = (shards, vics, pod, fs, rk, n_real, cr, hr, mp)
                 got = K.preemption_scan(*args, mesh=mesh)
-                with plain_versions(MESH_ENTRIES):
-                    ref = K.preemption_scan(*args, mesh=mesh)
-                same(f"{D} shards/K14/P{P}/{name} vs plain", got, ref)
+                if sharded_plain:
+                    with plain_versions(MESH_ENTRIES):
+                        ref = K.preemption_scan(*args, mesh=mesh)
+                    same(f"{D} shards/K14/P{P}/{name} vs plain", got, ref)
                 same(f"{D} shards/K14/P{P}/{name} vs K7 plain", got.to(d0),
                      want14[name].to(d0))
                 if name in ("check_resources false", "has_request false",
@@ -4411,9 +4465,11 @@ def mesh_preempt_variant_checks(device, sync, meshes=None, n_pad=4096,
                 args = (shards, mut0, g0, stack, vics, 37, 5, 9000, n_real,
                         4)
                 got = whole_wave(K.pressure_batch(*args, mesh=mesh), d0)
-                with plain_versions(MESH_ENTRIES):
-                    ref = whole_wave(K.pressure_batch(*args, mesh=mesh), d0)
-                same(f"{D} shards/K13/P{P}/{gname} vs plain", got, ref)
+                if sharded_plain:
+                    with plain_versions(MESH_ENTRIES):
+                        ref = whole_wave(K.pressure_batch(*args, mesh=mesh),
+                                         d0)
+                    same(f"{D} shards/K13/P{P}/{gname} vs plain", got, ref)
                 same(f"{D} shards/K13/P{P}/{gname} vs K8 plain", got,
                      tuple(x.to(d0) if hasattr(x, "to") else
                            {k: v.to(d0) for k, v in x.items()}
@@ -4540,7 +4596,7 @@ def mesh_pressure_local_checks(device, sync, meshes=None):
           f"{'; '.join(lbl for lbl, _st in PRESSURE_LOCAL_STATES)})")
 
 
-N_MESH_SINGLE = 8               # mesh-preempt-single rounds
+N_MESH_SINGLE = 4               # mesh-preempt-single rounds
 N_NOMINATED = 8                 # mesh-nominated-serial cycles
 
 
@@ -5171,9 +5227,10 @@ SHELL_MAX_PODS = 10000  # bench.py's schedule_burst(max_pods=10000)
 DRILL_FAULTS = {"n": 0}
 
 
-def bench_store(n_nodes, n_extra=0, watch_log_size=None):
+def bench_store(n_nodes, n_extra=0, watch_log_size=None, scalar=None):
     """bench.py's run_bench store and build_cluster as the port's objects:
-    nodes of 4 CPU, 32 Gi, 110 pods, zone i % 3; the watch log holds
+    nodes of 4 CPU, 32 Gi, 110 pods, zone i % 3, each also advertising
+    `scalar` ({resource: count}) when given; the watch log holds
     `watch_log_size` events, by default room for twice the objects."""
     from kubernetes_tpu_torch.api.types import Node
     from kubernetes_tpu_torch.store.store import Store, NODES
@@ -5185,7 +5242,8 @@ def bench_store(n_nodes, n_extra=0, watch_log_size=None):
             labels={"failure-domain.beta.kubernetes.io/zone": f"zone-{i % 3}",
                     "failure-domain.beta.kubernetes.io/region": "r1",
                     "kubernetes.io/hostname": f"node-{i}"},
-            allocatable={"cpu": 4000, "memory": 32 * GI, "pods": 110}))
+            allocatable={"cpu": 4000, "memory": 32 * GI, "pods": 110,
+                         **(scalar or {})}))
     return store
 
 
@@ -5344,11 +5402,14 @@ def shell_uniform(device, sync, report, n_nodes=N_NODES, n_pods=N_PODS):
           f"direct TorchScheduler bursts ({t_direct * 1e3:.1f} ms)")
 
 
-def shell_baseline_run(device, sync, n_nodes, n_preemptors):
+def shell_baseline_run(device, sync, n_nodes, n_preemptors,
+                       extender_fn=None, trickle=False):
     """The preempt-baseline world through the shell on `device`: rounds of
     pump, schedule_burst(max_pods=128), pump and 2 s of a fake clock until
-    three rounds in a row bind nothing. Returns the outcome, the wall
-    seconds of the rounds and the scheduler."""
+    three rounds in a row bind nothing; `extender_fn(store)`, when given,
+    returns the shell's extenders. With `trickle` the preemptors arrive
+    one at a time, each followed by its rounds. Returns the outcome, the
+    wall seconds of the rounds and the scheduler."""
     from kubernetes_tpu_torch.api.types import Container, Node, Pod
     from kubernetes_tpu_torch.scheduler import Scheduler
     from kubernetes_tpu_torch.store.store import NODES, PODS, Store
@@ -5366,7 +5427,8 @@ def shell_baseline_run(device, sync, n_nodes, n_preemptors):
             created.append(f"default/victim-{i * 10 + k}")
     clock = FakeClock(100.0)
     sched = Scheduler(store, clock=clock, percentage_of_nodes_to_score=100,
-                      device=device)
+                      device=device,
+                      extenders=extender_fn(store) if extender_fn else None)
     # the shell's metrics run on the fake clock: its commits (the burst
     # waves' and the serial binds') are timed here on the host's
     commit_s = [0.0]
@@ -5382,23 +5444,29 @@ def shell_baseline_run(device, sync, n_nodes, n_preemptors):
     sched._commit_burst = timed_commit(sched._commit_burst)
     sched._bind = timed_commit(sched._bind)
     sched.sync()
+
+    def rounds():
+        idle = 0
+        for _ in range(40):
+            sched.pump()
+            before = sched.metrics.schedule_attempts["scheduled"]
+            while sched.schedule_burst(max_pods=128):
+                pass
+            sched.pump()
+            idle = 0 if sched.metrics.schedule_attempts["scheduled"] \
+                > before else idle + 1
+            if idle >= 3:
+                break
+            clock.step(2.0)
+    t0 = time.perf_counter()
     for k in range(n_preemptors):
         store.create(PODS, Pod(name=f"hi-{k}", priority=10, containers=(
             Container.make(name="c", requests={"cpu": 400}),)))
         created.append(f"default/hi-{k}")
-    t0 = time.perf_counter()
-    idle = 0
-    for _ in range(40):
-        sched.pump()
-        before = sched.metrics.schedule_attempts["scheduled"]
-        while sched.schedule_burst(max_pods=128):
-            pass
-        sched.pump()
-        idle = 0 if sched.metrics.schedule_attempts["scheduled"] > before \
-            else idle + 1
-        if idle >= 3:
-            break
-        clock.step(2.0)
+        if trickle:
+            rounds()
+    if not trickle:
+        rounds()
     sync()
     wall = time.perf_counter() - t0
     listed = store.list(PODS)[0]
@@ -6003,16 +6071,16 @@ SCRAPER_INTERVAL, SCRAPER_ROUNDS, SCRAPER_BUDGET_S = 0.05, 3, 90.0
 SCRAPER_REDUCED = (5000, 3000)
 
 
-def cmd_run(argv):
+def cmd_run(argv, state=None):
     """One run of the port's `cmd.scheduler.main`; its stdout (the `--once`
-    summary line) is caught, the scheduler it built kept. The counts are
-    zeroed just before. Returns the run's state, summary, launches,
-    `twin.*` / `refusal.*` counts and wall seconds."""
+    summary line) is caught, the scheduler it built kept (in `state` when
+    given). The counts are zeroed just before. Returns the run's state,
+    summary, launches, `twin.*` / `refusal.*` counts and wall seconds."""
     import io
     from kubernetes_tpu_torch import obs
     from kubernetes_tpu_torch.cmd import scheduler as cmd
     from kubernetes_tpu_torch.ops import kernels as K
-    state = {}
+    state = {} if state is None else state
     out = io.StringIO()
     obs.reset()
     t0 = time.perf_counter()
@@ -6187,6 +6255,9 @@ def cmd_phase(device, sync, report):
             want, direct_s = cmd_direct(spec, st["config"], device, sync,
                                         N_PODS)
             same_bindings(name, got, want, "the directly built scheduler")
+            if label == "default":
+                CMD_DEFAULT.update(bindings=got,
+                                   loop_s=st["loop_seconds"])
             per_node = {}
             for h in got.values():
                 per_node[h] = per_node.get(h, 0) + 1
@@ -6365,6 +6436,733 @@ def tuner_phase(device, sync, report):
           f"{counts['schedule_batch']}, K3 {counts['uniform_burst']}, "
           f"launches {({k: v for k, v in counts.items() if v})}; "
           f"{wall:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the extender passes (core/extender.py) and the HTTP pair (apiserver/,
+# store/remote.py, the command's --server, --token and --api-port)
+# ---------------------------------------------------------------------------
+#: the managed resource of the `[extender]` binder, and the decision
+#: extender's world: nodes, plain pods, urgent pods that must preempt, and
+#: the nodes of the pool those urgent pods select
+EXT_RESOURCE = "example.com/gpu"
+EXT_DECISION = {"nodes": 1000, "plain": 192, "urgent": 8, "pool": 100}
+#: `[http]`: the remote-arrivals cell (JAX tests/test_serve.py
+#: TestRemoteServing's shape at the card's width) and the `--api-port`
+#: run's spec
+HTTP_ARRIVALS = {"nodes": 5000, "rate": 1000.0, "seconds": 5.0,
+                 "window": 512, "depth": 2, "max_depth": 256, "lag": 0.5}
+HTTP_API_SPEC = {"nodes": [{"count": 100, "zones": 3}],
+                 "pending_pods": [{"count": 50}]}
+#: bindings of `[cmd] default` ({pod key: node}), kept for `[http]`
+CMD_DEFAULT = {}
+
+
+def binder_extender(store, calls):
+    """A callable binder extender for EXT_RESOURCE: its endpoint binds
+    through `store` and books each call and its seconds in `calls`."""
+    from kubernetes_tpu_torch.apis.policy import ExtenderConfig
+    from kubernetes_tpu_torch.core.extender import SchedulerExtender
+
+    def bind_ep(payload):
+        t = time.perf_counter()
+        store.bind_pod(payload["pod"], payload["node"])
+        calls.append(time.perf_counter() - t)
+        return {}
+    return SchedulerExtender(
+        ExtenderConfig(url_prefix="inproc://binder", bind_verb="bind",
+                       managed_resources=(EXT_RESOURCE,)),
+        endpoints={"bind": bind_ep})
+
+
+def ext_bind_run(device, sync, n_nodes, n_plain, n_managed, with_binder):
+    """`[extender]` (a)'s world through the shell: nodes advertising 4 of
+    EXT_RESOURCE; two blocks of pods, each created and pumped, then
+    schedule_burst(max_pods=10000) until 0: `n_plain` of bench.py's pods,
+    then `n_managed` that also request 1 of it. Returns the bindings, the
+    extender's calls, the loops' seconds, the launches and the
+    scheduler."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.api.types import Container, Pod
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.store.store import PODS
+    store = bench_store(n_nodes, n_plain + n_managed,
+                        scalar={EXT_RESOURCE: 4})
+    calls = []
+    ext = [binder_extender(store, calls)] if with_binder else None
+    sched = Scheduler(store, percentage_of_nodes_to_score=100,
+                      device=device, extenders=ext)
+    sched.sync()
+    obs.reset()
+    wall = 0.0
+    for block in ("plain", "managed"):
+        if block == "plain":
+            bench_pods(store, n_plain)
+        else:
+            for j in range(n_plain, n_plain + n_managed):
+                store.create(PODS, Pod(
+                    name=f"pod-{j}", labels={"app": "density"},
+                    containers=(Container.make(
+                        name="c", requests={"cpu": 100, "memory": 500 * MI,
+                                            EXT_RESOURCE: 1}),)))
+        sched.pump()
+        sync()
+        t0 = time.perf_counter()
+        while sched.schedule_burst(max_pods=SHELL_MAX_PODS):
+            pass
+        sync()
+        wall += time.perf_counter() - t0
+        sched.pump()
+    counts = K.launches()
+    return {"bindings": bindings(store), "calls": calls, "wall": wall,
+            "counts": counts, "sched": sched,
+            "twins": obs.family("twin"), "refusals": obs.family("refusal")}
+
+
+def ext_decision_server(verbs):
+    """A ThreadingHTTPServer on 127.0.0.1 port 0 answering POST
+    /<verb> with verbs[verb](payload) as JSON, on a thread of its own.
+    Returns (server, thread, url)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            payload = json.loads(self.rfile.read(n) or b"{}")
+            body = json.dumps(verbs[self.path.rsplit("/", 1)[-1]](
+                payload)).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def ext_decision_run(device, sync, nodes, plain, urgent, pool):
+    """`[extender]` (c): a filter + prioritize (weight 3) + preempt
+    extender served over real HTTP (the urllib transport). `nodes` of 4
+    CPU; `pool` of them (`pool=small`, index i with i % 5 == 1) hold a
+    3.6-CPU filler of priority 0; `plain` pods of 100m, then `urgent`
+    2-CPU pods of priority 100 that select the pool and must preempt.
+    The filter verb drops every fifth node, the prioritize verb scores
+    (7 i) % 11, the preempt verb keeps the candidates of even index.
+    Rounds of pump, schedule_one until idle, pump, 2 s of a fake clock.
+    Returns the route, the warnings, the calls by verb, the launches, the
+    pods and the loop's seconds."""
+    import warnings
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.api.types import Container, Node, Pod
+    from kubernetes_tpu_torch.apis.policy import ExtenderConfig
+    from kubernetes_tpu_torch.core.extender import SchedulerExtender
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.store.store import NODES, PODS, Store
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+    calls = {"filter": 0, "prioritize": 0, "preempt": 0}
+
+    def idx(name):
+        return int(name.rsplit("-", 1)[1])
+
+    def filter_ep(p):
+        calls["filter"] += 1
+        keep = [n for n in p["nodes"] if idx(n) % 5]
+        return {"nodeNames": keep,
+                "failedNodes": {n: "ExtenderVetoed" for n in p["nodes"]
+                                if not idx(n) % 5}}
+
+    def prioritize_ep(p):
+        calls["prioritize"] += 1
+        return {"hostPriorityList": [{"host": n, "score": 7 * idx(n) % 11}
+                                     for n in p["nodes"]]}
+
+    def preempt_ep(p):
+        calls["preempt"] += 1
+        return {"nodeNameToVictims": {
+            n: v for n, v in p["nodeNameToVictims"].items()
+            if idx(n) % 2 == 0}}
+
+    server, thread, url = ext_decision_server(
+        {"filter": filter_ep, "prioritize": prioritize_ep,
+         "preempt": preempt_ep})
+    try:
+        ext = SchedulerExtender(ExtenderConfig(
+            url_prefix=url, filter_verb="filter",
+            prioritize_verb="prioritize", preempt_verb="preempt",
+            weight=3))
+        store = Store(watch_log_size=65536)
+        small = [i for i in range(nodes) if i % 5 == 1][:pool]
+        for i in range(nodes):
+            store.create(NODES, Node(
+                name=f"node-{i}",
+                labels={"pool": "small" if i in small else "big"},
+                allocatable={"cpu": 4000, "memory": 32 * GI, "pods": 110}))
+        for i in small:
+            store.create(PODS, Pod(
+                name=f"filler-{i}", node_name=f"node-{i}", priority=0,
+                containers=(Container.make(
+                    name="c", requests={"cpu": 3600}),)))
+        clock = FakeClock(100.0)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sched = Scheduler(store, clock=clock,
+                              percentage_of_nodes_to_score=100,
+                              device=device, extenders=[ext])
+        sched.sync()
+        for j in range(plain):
+            store.create(PODS, Pod(name=f"plain-{j}", containers=(
+                Container.make(name="c", requests={"cpu": 100,
+                                                   "memory": 500 * MI}),)))
+        for j in range(urgent):
+            store.create(PODS, Pod(
+                name=f"urgent-{j}", priority=100,
+                node_selector={"pool": "small"},
+                containers=(Container.make(name="c",
+                                           requests={"cpu": 2000}),)))
+        obs.reset()
+        t0 = time.perf_counter()
+        idle = 0
+        for _ in range(40):
+            sched.pump()
+            before = sched.metrics.schedule_attempts["scheduled"]
+            while sched.schedule_one(timeout=0.0):
+                pass
+            sched.pump()
+            idle = 0 if sched.metrics.schedule_attempts["scheduled"] \
+                > before else idle + 1
+            if idle >= 3:
+                break
+            clock.step(2.0)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = K.launches()
+        pods = {p.name: p.node_name for p in store.list(PODS)[0]}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    return {"route": cmd_route(sched), "algorithm": sched.algorithm,
+            "warnings": [str(w.message) for w in caught], "calls": calls,
+            "counts": counts, "pods": pods, "wall": wall, "small": small}
+
+
+def extender_phase(device, sync, report):
+    """`[extender]`: (a) a callable binder extender for EXT_RESOURCE on
+    bench.py's world (15,000 nodes, 9,000 plain pods then 1,000 managed):
+    all bound, the endpoint called once a managed pod, K3 launched, the
+    bindings equal to the same world with no extender; (b) the binder on
+    `[shell] preempt-baseline`'s world, the preemptors arriving one at a
+    time (each bound before the next: with a nominee pending, the device
+    victim scan refuses, as the reference's does): the shell skips the
+    pressure wave (K8) and preempts serially on K7, with victims,
+    bindings and nominations equal to the run without it (one-pod K8
+    waves); then the preemptors all queued at once: K7 for the first and
+    a `preempt-nominated-ghosts` refusal (host preemption) for at most
+    each later one, no K8, equal to the queued run without it (one K8
+    wave); (c) a decision extender over real HTTP: the
+    reference's route to the generic scheduler with its warning, no
+    kernel launched, the extender's verbs obeyed."""
+    from kubernetes_tpu_torch.oracle.generic_scheduler import (
+        GenericScheduler)
+    n_plain, n_managed = N_PODS - 1000, 1000
+    name = "extender bind-only"
+    r = ext_bind_run(device, sync, N_NODES, n_plain, n_managed, True)
+    ref = ext_bind_run(device, sync, N_NODES, n_plain, n_managed, False)
+    for run in (r, ref):
+        if run["counts"]["uniform_burst"] == 0:
+            raise SystemExit(f"{name}: K3 uniform_burst was not launched "
+                             f"({run['counts']})")
+        if run["twins"] or run["refusals"]:
+            raise SystemExit(f"{name}: twin cycles {run['twins']}, "
+                             f"refusals {run['refusals']}")
+        if run["sched"].algorithm.breaker.faults_total:
+            raise SystemExit(f"{name}: breaker faults")
+    no_degrade(name)
+    if sum(1 for h in r["bindings"].values() if h) != N_PODS:
+        raise SystemExit(f"{name}: {sum(1 for h in r['bindings'].values() if h)}"
+                         f" of {N_PODS} bound")
+    if len(r["calls"]) != n_managed:
+        raise SystemExit(f"{name}: the binder was called {len(r['calls'])} "
+                         f"times, not {n_managed}")
+    same_bindings(name, r["bindings"], ref["bindings"],
+                  "the run without the extender")
+    add_launches(report, r["counts"])
+    add_launches(report, ref["counts"])
+    ep_ms = sum(r["calls"]) * 1e3
+    print(f"[extender] bind-only: {N_NODES} nodes with {EXT_RESOURCE}: 4, "
+          f"{n_plain} plain + {n_managed} managed pods, a callable binder "
+          f"extender (managed_resources {EXT_RESOURCE}): all bound in "
+          f"{r['wall'] * 1e3:.1f} ms ({N_PODS / r['wall']:.1f} pods/s), "
+          f"without the extender {ref['wall'] * 1e3:.1f} ms "
+          f"({N_PODS / ref['wall']:.1f} pods/s); binder calls "
+          f"{len(r['calls'])}, its endpoint {ep_ms:.1f} ms "
+          f"({ep_ms / n_managed * 1e3:.1f} us a pod), the wall's "
+          f"difference {(r['wall'] - ref['wall']) / n_managed * 1e6:.1f} "
+          f"us a managed pod; K3 {r['counts']['uniform_burst']}, launches "
+          f"{ {k: v for k, v in r['counts'].items() if v} }; bindings equal "
+          f"to the run without the extender")
+    name = "extender preempt"
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    runs = {}
+    for label, binder in (("binder", True), ("none", False)):
+        obs.reset()
+        calls = []
+        run, wall, sched, _commit = shell_baseline_run(
+            device, sync, 1000, 128, trickle=True,
+            extender_fn=(lambda s: [binder_extender(s, calls)])
+            if binder else None)
+        runs[label] = (run, wall, K.launches(), obs.family("twin"),
+                       obs.family("refusal"), calls)
+    (run, wall, counts, twins, refusals, calls) = runs["binder"]
+    ref, ref_wall, ref_counts = runs["none"][:3]
+    no_degrade(name)
+    if counts["preempt_scan"] == 0 or counts["pressure_batch"] != 0:
+        raise SystemExit(f"{name}: K7 {counts['preempt_scan']}, K8 "
+                         f"{counts['pressure_batch']} launches with the "
+                         f"binder (K7 and no K8 expected)")
+    if ref_counts["pressure_batch"] == 0:
+        raise SystemExit(f"{name}: the run without the extender launched "
+                         f"no K8 ({ref_counts})")
+    if twins or refusals or calls:
+        raise SystemExit(f"{name}: twin cycles {twins}, refusals "
+                         f"{refusals}, binder calls {len(calls)}")
+    for key in ("bindings", "nominations", "evictions"):
+        if run[key] != ref[key]:
+            diff = [a for a in run[key] if a not in ref[key]][:4]
+            raise SystemExit(f"{name}: {key} differ from the run without "
+                             f"the extender: {diff}")
+    add_launches(report, counts)
+    add_launches(report, ref_counts)
+    print(f"[extender] preempt: preempt-baseline's world (1000 nodes x 10 "
+          f"victims), 128 preemptors arriving one at a time, with the "
+          f"binder: no pressure wave, serial preemption on K7 "
+          f"({counts['preempt_scan']} K7, {counts['schedule_cycle']} K2, "
+          f"0 K8) in {wall * 1e3:.1f} ms of rounds; without it one-pod "
+          f"waves, K8 {ref_counts['pressure_batch']}, K7 "
+          f"{ref_counts['preempt_scan']} in {ref_wall * 1e3:.1f} ms; "
+          f"{len(run['evictions'])} victims, bindings and nominations "
+          f"equal")
+    name = "extender preempt queued"
+    runs = {}
+    for label, binder in (("binder", True), ("none", False)):
+        obs.reset()
+        calls = []
+        run, wall, sched, _commit = shell_baseline_run(
+            device, sync, 1000, 128,
+            extender_fn=(lambda s: [binder_extender(s, calls)])
+            if binder else None)
+        runs[label] = (run, wall, K.launches(), obs.family("twin"),
+                       obs.family("refusal"), calls)
+        no_degrade(name)
+    (run, wall, counts, twins, refusals, calls) = runs["binder"]
+    ref, ref_wall, ref_counts, ref_twins, ref_refusals = runs["none"][:5]
+    n_refused = refusals.get("preempt-nominated-ghosts", 0)
+    if counts["preempt_scan"] == 0 or counts["pressure_batch"] != 0:
+        raise SystemExit(f"{name}: K7 {counts['preempt_scan']}, K8 "
+                         f"{counts['pressure_batch']} launches with the "
+                         f"binder (K7 and no K8 expected)")
+    if set(refusals) - {"preempt-nominated-ghosts"} or n_refused > 127 \
+            or twins or calls:
+        raise SystemExit(f"{name}: refusals {refusals} (at most 127 "
+                         f"preempt-nominated-ghosts expected), twin cycles "
+                         f"{twins}, binder calls {len(calls)}")
+    if ref_counts["pressure_batch"] == 0 or ref_twins or ref_refusals:
+        raise SystemExit(f"{name}: the run without the extender: launches "
+                         f"{ref_counts}, twin cycles {ref_twins}, refusals "
+                         f"{ref_refusals}")
+    for key in ("bindings", "nominations", "evictions"):
+        if run[key] != ref[key]:
+            diff = [a for a in run[key] if a not in ref[key]][:4]
+            raise SystemExit(f"{name}: {key} differ from the queued run "
+                             f"without the extender: {diff}")
+    bound_hi = sum(1 for k, h in run["bindings"] if h and "/hi-" in k)
+    if bound_hi != 128 or len(run["evictions"]) != 128:
+        raise SystemExit(f"{name}: {bound_hi} preemptors bound, "
+                         f"{len(run['evictions'])} victims evicted")
+    add_launches(report, counts)
+    add_launches(report, ref_counts)
+    print(f"[extender] preempt queued: preempt-baseline's world, the 128 "
+          f"preemptors queued at once, with the binder: no pressure wave, "
+          f"K7 {counts['preempt_scan']}, 0 K8, refusals "
+          f"preempt-nominated-ghosts {n_refused} of 128 (the host "
+          f"preemptor decided those, as the reference's refusal does) in "
+          f"{wall * 1e3:.1f} ms of rounds; without it K8 "
+          f"{ref_counts['pressure_batch']}, K7 {ref_counts['preempt_scan']} "
+          f"in {ref_wall * 1e3:.1f} ms; {len(run['evictions'])} victims, "
+          f"bindings and nominations equal")
+    name = "extender decision"
+    c = EXT_DECISION
+    d = ext_decision_run(device, sync, c["nodes"], c["plain"], c["urgent"],
+                         c["pool"])
+    no_degrade(name)
+    if not isinstance(d["algorithm"], GenericScheduler):
+        raise SystemExit(f"{name}: the route is {d['route']}, not the "
+                         f"generic scheduler")
+    if not any("extenders configured" in w for w in d["warnings"]):
+        raise SystemExit(f"{name}: no route warning ({d['warnings']})")
+    if any(d["counts"].values()):
+        raise SystemExit(f"{name}: kernels launched on the host route "
+                         f"({d['counts']})")
+    bound = {k: v for k, v in d["pods"].items() if not k.startswith("filler")}
+    idx = {k: int(v.rsplit("-", 1)[1]) for k, v in bound.items() if v}
+    if len(idx) != c["plain"] + c["urgent"]:
+        raise SystemExit(f"{name}: {len(idx)} of "
+                         f"{c['plain'] + c['urgent']} pods bound")
+    if any(i % 5 == 0 for i in idx.values()):
+        raise SystemExit(f"{name}: a pod bound on a node the filter verb "
+                         f"dropped")
+    urgent = [i for k, i in idx.items() if k.startswith("urgent")]
+    if any(i % 2 or i not in d["small"] for i in urgent):
+        raise SystemExit(f"{name}: an urgent pod bound off the preempt "
+                         f"verb's candidates ({sorted(urgent)})")
+    evicted = c["pool"] - sum(1 for k in d["pods"] if k.startswith("filler"))
+    if not (d["calls"]["filter"] and d["calls"]["prioritize"]
+            and d["calls"]["preempt"] >= c["urgent"]):
+        raise SystemExit(f"{name}: extender calls {d['calls']}")
+    print(f"[extender] decision: filter + prioritize (weight 3) + preempt "
+          f"over HTTP (urllib) on {c['nodes']} nodes, {c['plain']} plain + "
+          f"{c['urgent']} urgent pods preempting on the {c['pool']}-node "
+          f"pool: route {d['route']} with the warning \""
+          f"{d['warnings'][0]}\"; no kernel launched; calls {d['calls']}; "
+          f"all {len(idx)} bound on nodes the verbs kept, {evicted} of "
+          f"{c['pool']} fillers evicted; {d['wall'] * 1e3:.1f} ms of "
+          f"rounds")
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def timed_method(cls, name, book):
+    """Wrap `cls.name` to add each call's seconds to book[name]; returns
+    the original for the caller to restore. The wrapper keeps the
+    method's signature: the shell reads `commit_wave`'s parameters to
+    choose what it sends (the token and `event_spec`)."""
+    import functools
+    orig = getattr(cls, name)
+
+    @functools.wraps(orig)
+    def call(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return orig(self, *a, **kw)
+        finally:
+            book[name] = book.get(name, 0.0) + time.perf_counter() - t
+    setattr(cls, name, call)
+    return orig
+
+
+def http_server_run(device, sync, spec_path, cfg_path, n_pods):
+    """`[http]` (a): an APIServer on port 0 over a Store loaded from
+    `spec_path` (models/hollow.py's populate_store and make_pods, as the
+    command loads a spec), with bearer-token authentication for
+    system:kube-scheduler and the default RBAC roles; then `main --server
+    URL --token TOKEN --config cfg --once --burst n_pods`. Returns the
+    run (cmd_run's), the server store's bindings and the seconds of the
+    initial lists, the wave commits and the host probes over HTTP."""
+    from kubernetes_tpu_torch.apiserver.auth import (
+        RBACAuthorizer, TokenAuthenticator, UserInfo, default_roles)
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.cmd.scheduler import load_cluster_spec
+    from kubernetes_tpu_torch.store.remote import RemoteStore
+    from kubernetes_tpu_torch.store.store import Store
+    store = Store(watch_log_size=1 << 20)
+    t0 = time.perf_counter()
+    load_cluster_spec(store, spec_path)
+    t_load = time.perf_counter() - t0
+    token = "scheduler-token"
+    roles, role_bindings = default_roles()
+    book = {}
+    saved = {m: timed_method(RemoteStore, m, book)
+             for m in ("list", "commit_wave", "missing_keys")}
+    try:
+        with APIServer(store, authenticator=TokenAuthenticator(
+                {token: UserInfo("system:kube-scheduler")}),
+                authorizer=RBACAuthorizer(roles=roles,
+                                          bindings=role_bindings)) as srv:
+            state = {}
+            try:
+                r = cmd_run(["--server", srv.url, "--token", token,
+                             "--config", cfg_path, "--once", "--burst",
+                             str(n_pods), "--device", str(device)],
+                            state=state)
+            finally:
+                # the command's informers watch the server: end their
+                # streams before the server goes
+                if "scheduler" in state:
+                    state["scheduler"].stop()
+                    state["scheduler"].informers.stop_all()
+    finally:
+        for m, fn in saved.items():
+            setattr(RemoteStore, m, fn)
+    return r, bindings(store), book, t_load
+
+
+def http_api_port_run(device, spec_path):
+    """`[http]` (b): `main --api-port PORT --cluster-spec spec` (no
+    --once: the command serves until its scheduler stops) on a thread;
+    a GET of /api/v1/nodes, a pod created over the REST surface and a
+    watch resumed from the list's resourceVersion that must deliver its
+    ADDED and the command's bind (MODIFIED). Returns what was read."""
+    import threading
+    import urllib.request
+    from kubernetes_tpu_torch.api import serde
+    from kubernetes_tpu_torch.api.types import Container, Pod
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    state, err = {}, []
+
+    def run():
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                cmd.main(["--api-port", str(port), "--cluster-spec",
+                          spec_path, "--device", str(device)], state=state)
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            err.append(e)
+    t = threading.Thread(target=run, daemon=True, name="http-api-port")
+    t.start()
+    got = {}
+    try:
+        deadline = time.perf_counter() + 120
+        while "api_server" not in state and not err:
+            if time.perf_counter() > deadline:
+                raise SystemExit("http api-port: the command did not "
+                                 "serve within 120 s")
+            time.sleep(0.05)
+        if err:
+            raise err[0]
+        with urllib.request.urlopen(f"{url}/api/v1/nodes",
+                                    timeout=30) as resp:
+            doc = json.loads(resp.read())
+        got["nodes"], rv = len(doc["items"]), doc["resourceVersion"]
+        body = json.dumps(serde.to_dict(Pod(
+            name="api-port-pod", containers=(Container.make(
+                name="c", requests={"cpu": 100}),)))).encode()
+        urllib.request.urlopen(urllib.request.Request(
+            f"{url}/api/v1/pods", data=body, method="POST",
+            headers={"Content-Type": "application/json"}), timeout=30).read()
+        events = []
+        with urllib.request.urlopen(
+                f"{url}/api/v1/pods?watch=true&resourceVersion={rv}",
+                timeout=30) as resp:
+            for raw in resp:
+                line = raw.strip()
+                if not line:
+                    continue
+                ev = json.loads(line)
+                if ev["object"]["name"] != "api-port-pod":
+                    continue
+                events.append((ev["type"], ev["object"]["node_name"],
+                               ev["resourceVersion"]))
+                if ev["object"]["node_name"]:
+                    break
+        got["events"], got["rv"] = events, rv
+    finally:
+        sched = state.get("scheduler")
+        if sched is not None:
+            sched.stop()
+        t.join(timeout=60)
+    if t.is_alive():
+        raise SystemExit("http api-port: the command did not end after "
+                         "its scheduler stopped")
+    if err:
+        raise err[0]
+    got["route"] = cmd_route(state["scheduler"])
+    got["algorithm"] = state["scheduler"].algorithm
+    return got
+
+
+def http_arrivals_run(device, sync, nodes, rate, seconds, window, depth,
+                      max_depth, lag, seed=0):
+    """`[http]` (c): JAX's TestRemoteServing shape at `nodes` on the card:
+    an APIServer over the embedded store, a ServeLoop (`window`,
+    `depth`) on the port's shell behind a gate shedding past `max_depth`
+    (Retry-After base 0.25 s), and an ArrivalGenerator POSTing through a
+    RemoteStore at `rate`/s, `rate` x `seconds` arrivals in all; the
+    client starts `lag` s before the loop (a backlog the gate sheds).
+    Then the retries' flush,
+    the drain, and the BindAuditor's double-bind tripwire. Returns the
+    loop, the gate, the arrivals, the auditor and the numbers."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.apiserver.server import APIServer
+    from kubernetes_tpu_torch.fleet.manager import BindAuditor
+    from kubernetes_tpu_torch.obs.ledger import LEDGER
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.serve import ArrivalGenerator, ServeLoop
+    from kubernetes_tpu_torch.store.remote import RemoteStore
+    from kubernetes_tpu_torch.store.store import PODS
+    store = bench_store(nodes)
+    sched = Scheduler(store, percentage_of_nodes_to_score=100,
+                      device=device)
+    sched.sync()
+    loop = ServeLoop(sched, window_size=window, depth=depth)
+    gate = loop.attach_gate(max_depth=max_depth, retry_after_base=0.25)
+    audit = BindAuditor(store)
+    LEDGER.reset()
+    obs.reset()
+    with APIServer(store) as srv:
+        gen = ArrivalGenerator(RemoteStore(srv.url), rate=rate,
+                               total=int(rate * seconds), seed=seed)
+        gen.tick()
+        time.sleep(lag)
+        t0 = time.perf_counter()
+        t_end = t0 + seconds
+        bound0 = loop.pods_bound
+        while time.perf_counter() < t_end:
+            gen.tick()
+            if loop.step() == 0:
+                time.sleep(min(loop.tick_interval, 0.001))
+            audit.scan()
+        sync()
+        elapsed = time.perf_counter() - t0
+        sustained = (loop.pods_bound - bound0) / elapsed
+        # the retries' flush, as JAX's TestRemoteServing settles: a tick
+        # (the re-admissions due) and a loop step in turn, so the gate's
+        # depth falls between the retries it answers
+        deadline = time.perf_counter() + 30.0
+        while not gen.finished() and time.perf_counter() < deadline:
+            gen.tick()
+            if loop.step() == 0:
+                time.sleep(min(loop.tick_interval, 0.001))
+            audit.scan()
+        loop.drain(timeout=30.0)
+        audit.scan()
+    audit.stop()
+    counts = K.launches()
+    g = gen.stats()
+    pods = [p for p in store.list(PODS)[0]
+            if p.name.startswith(gen.name_prefix)]
+    return {"loop": loop, "gate": gate, "arrivals": g, "audit": audit,
+            "pods": pods, "elapsed": elapsed, "sustained": sustained,
+            "counts": counts, "ledger": LEDGER.snapshot(), "sched": sched,
+            "twins": obs.family("twin"), "refusals": obs.family("refusal")}
+
+
+def http_phase(device, sync, report):
+    """`[http]`: (a) the command over the wire: `main --server --token
+    --once --burst 10000` against an APIServer over bench.py's cell of
+    hollow nodes and pods; its scheduler a TorchScheduler on the card,
+    all bound in the server's store, the bindings equal to `[cmd]
+    default`'s embedded-store run on the same spec; (b) `--api-port`:
+    the REST surface served by the command (a list, a create, a watch
+    resumed from a resourceVersion delivering the command's bind); (c)
+    remote arrivals at 1,000 pods/s for 5 s on 5,000 nodes behind a gate
+    that sheds: 429s, every created pod bound, none twice."""
+    import shutil
+    import tempfile
+    from kubernetes_tpu_torch.core.torch_scheduler import TorchScheduler
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    try:
+        def write(fname, doc):
+            path = f"{tmp}/{fname}"
+            with open(path, "w") as f:
+                json.dump(doc, f)
+            return path
+        spec = write("spec.json", CMD_SPEC)
+        cfg_path = write("config.json", {"percentage_of_nodes_to_score": 100})
+        name = "http server"
+        if not CMD_DEFAULT:
+            st = cmd_run(["--config", cfg_path, "--cluster-spec", spec,
+                          "--once", "--burst", str(N_PODS)])
+            CMD_DEFAULT.update(bindings=bindings(st["state"]["store"]),
+                               loop_s=st["state"]["loop_seconds"])
+        r, got, book, t_load = http_server_run(device, sync, spec, cfg_path,
+                                               N_PODS)
+        cmd_checks(name, r, N_PODS, "uniform_burst")
+        add_launches(report, r["counts"])
+        same_bindings(name, got, CMD_DEFAULT["bindings"],
+                      "[cmd] default's embedded-store run")
+        loop_s = r["state"]["loop_seconds"]
+        print(f"[http] server: main --server --token (system:kube-scheduler, "
+              f"RBAC) --once --burst {N_PODS} against an APIServer over "
+              f"{N_NODES} hollow nodes and {N_PODS} pods (loaded in "
+              f"{t_load:.2f} s): {r['summary']}; route "
+              f"{cmd_route(r['state']['scheduler'])}; main's wall "
+              f"{r['wall']:.2f} s, initial lists over HTTP "
+              f"{book.get('list', 0) * 1e3:.1f} ms, loop "
+              f"{loop_s * 1e3:.1f} ms ({N_PODS / loop_s:.1f} pods/s; "
+              f"[cmd] default's {CMD_DEFAULT['loop_s'] * 1e3:.1f} ms, "
+              f"{N_PODS / CMD_DEFAULT['loop_s']:.1f} pods/s), of which "
+              f"the wave commits over HTTP "
+              f"{book.get('commit_wave', 0) * 1e3:.1f} ms and the host "
+              f"probes {book.get('missing_keys', 0) * 1e3:.1f} ms; launches "
+              f"{ {k: v for k, v in r['counts'].items() if v} }; all bound "
+              f"in the server's store, bindings equal to [cmd] default's")
+        name = "http api-port"
+        spec_small = write("spec-small.json", HTTP_API_SPEC)
+        a = http_api_port_run(device, spec_small)
+        if not isinstance(a["algorithm"], TorchScheduler) \
+                or a["algorithm"].device.type != "cuda":
+            raise SystemExit(f"{name}: the scheduler is {a['route']}")
+        n_spec = HTTP_API_SPEC["nodes"][0]["count"]
+        kinds = [e[0] for e in a["events"]]
+        if a["nodes"] != n_spec or kinds[:1] != ["ADDED"] \
+                or not a["events"][-1][1] \
+                or any(e[2] <= a["rv"] for e in a["events"]):
+            raise SystemExit(f"{name}: nodes {a['nodes']}, events "
+                             f"{a['events']} after rv {a['rv']}")
+        no_degrade(name)
+        print(f"[http] api-port: main --api-port (a free port) "
+              f"--cluster-spec ({n_spec} nodes, "
+              f"{HTTP_API_SPEC['pending_pods'][0]['count']} pods), route "
+              f"{a['route']}: GET /api/v1/nodes listed {a['nodes']} at rv "
+              f"{a['rv']}; a pod POSTed, and the watch resumed from rv "
+              f"{a['rv']} delivered {a['events']} (its ADDED, then the "
+              f"command's bind)")
+        name = "http arrivals"
+        c = HTTP_ARRIVALS
+        v = http_arrivals_run(device, sync, c["nodes"], c["rate"],
+                              c["seconds"], c["window"], c["depth"],
+                              c["max_depth"], c["lag"])
+        g = v["arrivals"]
+        if v["counts"]["uniform_burst"] == 0:
+            raise SystemExit(f"{name}: K3 uniform_burst was not launched "
+                             f"({v['counts']})")
+        if v["twins"] or v["refusals"]:
+            raise SystemExit(f"{name}: twin cycles {v['twins']}, refusals "
+                             f"{v['refusals']}")
+        no_degrade(name)
+        unbound = [p.name for p in v["pods"] if not p.node_name]
+        if not (g["rejected_429"] > 0 and v["gate"].rejected > 0):
+            raise SystemExit(f"{name}: no 429 crossed the wire ({g})")
+        if unbound or len(v["pods"]) != g["created"] or g["gave_up"] \
+                or g["pending_retry"]:
+            raise SystemExit(f"{name}: {len(v['pods'])} created pods in the "
+                             f"store, {len(unbound)} unbound, arrivals {g}")
+        if v["audit"].violations:
+            raise SystemExit(f"{name}: double binds "
+                             f"{v['audit'].violations[:3]}")
+        add_launches(report, v["counts"])
+        led = v["ledger"]
+        print(f"[http] arrivals: {c['nodes']} nodes, arrivals POSTed through "
+              f"RemoteStore at {c['rate']:.0f}/s for {v['elapsed']:.2f} s "
+              f"(started {c['lag']} s before the loop), window "
+              f"{c['window']}, depth {c['depth']}, the gate at "
+              f"{c['max_depth']}: sustained {v['sustained']:.1f} pods/s; "
+              f"sheds {v['gate'].rejected} (429s {g['rejected_429']}); "
+              f"startup p50 {led['startup_p50'] * 1e3:.2f} ms, p99 "
+              f"{led['startup_p99'] * 1e3:.2f} ms ({led['pods_completed']} "
+              f"pods); arrivals {g}; all {len(v['pods'])} created pods "
+              f"bound, double binds 0; launches "
+              f"{ {k: v2 for k, v2 in v['counts'].items() if v2} }")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def degrade_drill(device, sync, n_nodes=N_NODES, n_burst=128, n_serial=12):
@@ -6647,6 +7445,8 @@ def main() -> int:
         timed(cmd_phase, device, sync, report)
         timed(scraper_phase, device, sync, report)
         timed(tuner_phase, device, sync, report)
+        timed(extender_phase, device, sync, report)
+        timed(http_phase, device, sync, report)
         timed(degrade_drill, device, sync)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))

@@ -14,9 +14,11 @@ port's imports. What differs:
   priority and predicate on the kernels, no extender), else on the
   port's copy of the oracle. `--device cpu` runs the kernels' plain
   versions (the tests);
-- the embedded store only: `--server`, `--token` and `--api-port` (the
-  HTTP pair, ROADMAP A7.4) and `--profile-dir` (the profiler, ROADMAP
-  A8) are not flags of the port's command, and argparse refuses them;
+- `--server` / `--token` attach to a remote apiserver through the port's
+  `store/remote.RemoteStore`, and `--api-port` serves the port's
+  `apiserver/server.APIServer` over the embedded store, as the
+  reference's flags do; `--profile-dir` (the profiler, ROADMAP A8) is not
+  a flag of the port's command, and argparse refuses it;
 - an error of the scheduling loop (a CUDA error of a kernel, a failed
   launch) ends the command with that error, under leader election too:
   the loop's thread hands it back to `main`.
@@ -189,7 +191,9 @@ def main(argv: Optional[list[str]] = None,
     """The command. `state`, when given, is filled with the store, the
     config and the scheduler this run built, and the seconds of its
     scheduling loop (`loop_seconds`): for a caller that inspects the run,
-    its bindings, its algorithm and device."""
+    its bindings, its algorithm and device. With `--api-port` it also
+    holds the `api_server`; a caller that runs `main` without `--once` on
+    a thread ends it with `state["scheduler"].stop()`."""
     ap = argparse.ArgumentParser(prog="kube-scheduler-torch")
     ap.add_argument("--config", help="SchedulerConfiguration JSON file")
     ap.add_argument("--algorithm-provider")
@@ -209,17 +213,48 @@ def main(argv: Optional[list[str]] = None,
                     help="where the device route decides: cuda (the "
                          "kernels, the default) or cpu (their plain "
                          "versions)")
+    ap.add_argument("--api-port", type=int, default=0,
+                    help="also serve the REST apiserver surface over this "
+                         "process's store (the in-process master of "
+                         "test/integration/util/util.go:42)")
+    ap.add_argument("--server",
+                    help="attach to a REMOTE apiserver URL instead of an "
+                         "embedded store: list+watch over HTTP with "
+                         "resourceVersion resume and 410 re-list "
+                         "(reflector.go:159) — the out-of-process posture "
+                         "of every reference control-plane component")
+    ap.add_argument("--token",
+                    help="bearer token for --server (tokenfile authn; the "
+                         "bootstrapped scheduler identity is "
+                         "system:kube-scheduler)")
     args = ap.parse_args(argv)
 
     cfg = build_config(args)
-    store = Store(watch_log_size=1 << 20)
-    if args.cluster_spec:
-        load_cluster_spec(store, args.cluster_spec)
+    if args.server:
+        if args.api_port:
+            raise SystemExit("--server and --api-port are exclusive: a "
+                             "remote-attached scheduler has no store of its "
+                             "own to serve")
+        from kubernetes_tpu_torch.store.remote import RemoteStore
+        store = RemoteStore(args.server, token=args.token)
+        if args.cluster_spec:
+            raise SystemExit("--cluster-spec requires the embedded store; "
+                             "create objects through the apiserver instead")
+    else:
+        store = Store(watch_log_size=1 << 20)
+        if args.cluster_spec:
+            load_cluster_spec(store, args.cluster_spec)
     sched = create_scheduler(store, cfg, device=args.device)
     if state is not None:
         state.update(store=store, config=cfg, scheduler=sched)
     sched.sync()
     server = serve_http(sched, cfg, args.port) if args.port else None
+    api_server = None
+    if args.api_port:
+        from kubernetes_tpu_torch.apiserver.server import APIServer
+        api_server = APIServer(store, port=args.api_port).start()
+        if state is not None:
+            state["api_server"] = api_server
 
     def run_loop():
         sched.pump()
@@ -275,6 +310,8 @@ def main(argv: Optional[list[str]] = None,
         if server:
             server.shutdown()
             server.server_close()
+        if api_server is not None:
+            api_server.stop()
     if state is not None:
         state["loop_seconds"] = time.perf_counter() - t_loop
 

@@ -12,10 +12,10 @@ for MostRequested :99).
 `use_device=True` on `device`, `cuda` by default: TorchScheduler and its
 CUDA kernels) exactly when the reference takes its TPU route: the
 `TPUScoring` gate is on, every priority has a kernel weight, every
-predicate is one the kernels evaluate, and the Policy names no extender.
-Otherwise it builds the shell over the port's copy of the oracle. A
-Policy that names an extender is refused (NotImplementedError): the port
-has no extender passes yet (ROADMAP A9).
+predicate is one the kernels evaluate, and the Policy names no extender
+(a bind-only one included). Otherwise it builds the shell over the port's
+copy of the oracle, with the Policy's extenders (`core/extender.py`) in
+its filter, prioritize, preempt and bind passes.
 """
 from __future__ import annotations
 
@@ -282,33 +282,37 @@ def resolve_algorithm(cfg: SchedulerConfiguration
 
 
 def create_scheduler(store, cfg: Optional[SchedulerConfiguration] = None,
+                     extender_endpoints: Optional[dict] = None,
                      device="cuda", **kw):
     """cmd/kube-scheduler Run + scheduler.New analog: validated config in,
-    fully wired Scheduler out. On the device route the scheduler decides
-    on `device` (`cuda` unless the caller asks for the CPU's plain
-    versions); a device route that did not end up on a TorchScheduler on
-    that device raises instead of running on the host."""
+    fully wired Scheduler out. `extender_endpoints` maps extender url_prefix
+    to a callable-endpoint dict for in-process extenders. On the device
+    route the scheduler decides on `device` (`cuda` unless the caller asks
+    for the CPU's plain versions); a device route that did not end up on a
+    TorchScheduler on that device raises instead of running on the host."""
     from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.core.extender import SchedulerExtender
     cfg = cfg or SchedulerConfiguration()
     validate(cfg)
     from kubernetes_tpu_torch.utils import features
     features.set_gates(cfg.feature_gates)
     pred_names, prio_weights, policy = resolve_algorithm(cfg)
-    if policy.extenders:
-        raise NotImplementedError(
-            "Policy extenders: the port has no extender passes yet "
-            "(core/extender.py, ROADMAP A9)")
     for pd in policy.predicates:
         if pd.argument:
             register_custom_fit_predicate(pd)
     hard_weight = (policy.hard_pod_affinity_symmetric_weight
                    if policy.hard_pod_affinity_symmetric_weight is not None
                    else cfg.hard_pod_affinity_symmetric_weight)
+    extenders = [
+        SchedulerExtender(ec, endpoints=(extender_endpoints or {}).get(
+            ec.url_prefix))
+        for ec in policy.extenders]
     # the reference's TPU-route rule (its factory.py:295-298)
     use_device = bool(cfg.feature_gates.get("TPUScoring")) \
         and tpu_kernel_weights(prio_weights) is not None \
         and tpu_supports_predicates(pred_names) \
-        and not policy.extenders
+        and not extenders
+    kw.setdefault("extenders", extenders)
     # production wiring shards the node axis across every visible card;
     # direct Scheduler construction stays single-card unless asked. The
     # CPU's plain versions take no mesh.

@@ -1,7 +1,6 @@
 """The generic scheduling algorithm, deterministic-sequential, copied from
 the reference oracle (`kubernetes_tpu.oracle.generic_scheduler`) with the
-port's imports; the extender passes, which nothing in the port sets, are
-left out.
+port's imports, its extender filter and prioritize passes included.
 
 The device driver shares the adaptive partial-search quota, the decision
 record and the FitError it raises; `TorchScheduler`'s host twin runs
@@ -126,6 +125,7 @@ class GenericScheduler:
         self.always_check_all = always_check_all_predicates
         self.hard_pod_affinity_weight = hard_pod_affinity_weight
         self.nominated_pods_fn = nominated_pods_fn  # podFitsOnNode two-pass (:627)
+        self.extenders = []   # SchedulerExtender list (core/extender.go)
         self.last_index = 0         # findNodesThatFit resumable rotation (:486)
         self.last_node_index = 0    # selectHost round-robin counter (:292)
 
@@ -207,11 +207,31 @@ class GenericScheduler:
             raise FitError(pod, 0, {})
         filtered, failed, evaluated = self.find_nodes_that_fit(
             pod, node_infos, all_node_names, predicate_funcs)
+        # extender filter pass (generic_scheduler.go:532)
+        if filtered and self.extenders:
+            for ext in self.extenders:
+                filtered, ext_failed = ext.filter(pod, filtered)
+                for name, reasons in ext_failed.items():
+                    failed.setdefault(name, []).extend(reasons)
+                if not filtered:
+                    break
         if not filtered:
             raise FitError(pod, len(all_node_names), failed)
         if len(filtered) == 1:
             return ScheduleResult(filtered[0].name, evaluated, 1,
                                   [(filtered[0].name, 0)], failed)
         host_priority = self.prioritize_nodes(pod, node_infos, priority_configs, filtered)
+        # extender prioritize pass (generic_scheduler.go:774): extender scores
+        # are multiplied by the extender's own weight and added in
+        if self.extenders:
+            totals = dict(host_priority)
+            for ext in self.extenders:
+                scores, weight = ext.prioritize(pod, filtered)
+                if not weight:
+                    continue
+                for name, score in scores.items():
+                    if name in totals:
+                        totals[name] += score * weight
+            host_priority = [(name, totals[name]) for name, _ in host_priority]
         host = self.select_host(host_priority)
         return ScheduleResult(host, evaluated, len(filtered), host_priority, failed)

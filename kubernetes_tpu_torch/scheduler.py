@@ -18,9 +18,17 @@ imports. What differs:
   cycles stay on the device (`serial_path="device"`, not "adaptive"), and
   the burst classes take its class signature;
 - the pod-row cache is the port's `ops.pod_rows.PodRowCache`;
-- filter / prioritize / preempt extenders raise NotImplementedError: the
-  port's generic scheduler has no extender passes (bind-only extenders
-  are served).
+- a decision extender (a filter, prioritize or preempt verb) routes
+  scheduling to the port's `GenericScheduler` with its extender passes,
+  by the reference's rule and with its warning; a bind-only extender keeps
+  the device route and binds the pods it manages;
+- the stale-node checks of a burst ask the store's `missing_keys` once
+  for all of a launch's or a wave's hosts (one request on the remote
+  client), where the reference probes `contains` a host;
+- a wave's dedupe token carries a random per-instance id, where the
+  reference numbers instances within a process: the port's remote client
+  sends the token to the server, whose dedupe map outlives a scheduler
+  process.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import itertools
 import threading
 import time
 import urllib.error
+import uuid
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -61,12 +70,6 @@ from kubernetes_tpu_torch.utils.tracing import Trace, SLOW_CYCLE_THRESHOLD
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 
-#: per-process scheduler instance sequence: wave dedupe tokens must be
-#: unique PER INSTANCE, not per scheduler name — an active-active fleet
-#: runs several instances under one profile name against one store, and
-#: name-keyed tokens would alias their waves in the dedupe map (instance
-#: B's wave 1 answered with instance A's recorded result)
-_INSTANCE_SEQ = itertools.count(1)
 
 # gang (PodGroup) scheduling observability — the obs catalogue additions:
 # attempts by outcome, and how long a gang waited from group creation (or
@@ -253,11 +256,13 @@ class Scheduler:
         self._stop = threading.Event()
         self._bind_threads: list[threading.Thread] = []
         # idempotent commit retry: one fresh token per wave (REUSED across
-        # that wave's retries) keys the store's dedupe map; the prefix is
-        # instance-unique (see _INSTANCE_SEQ) so fleet peers sharing a
-        # profile name can never dedupe-alias each other's waves
+        # that wave's retries) keys the store's dedupe map. The prefix is
+        # unique per instance across processes (a random id, not a process
+        # counter): fleet peers sharing a profile name, and a scheduler
+        # restarted against a long-lived apiserver, must never have a wave
+        # answered from another instance's recorded result
         self._wave_seq = itertools.count(1)
-        self._token_prefix = f"{scheduler_name}#{next(_INSTANCE_SEQ)}"
+        self._token_prefix = f"{scheduler_name}#{uuid.uuid4().hex}"
         # fleet mode (round 18): when set, every wave/bind write carries
         # the instance's live partition-lease fencing tokens — a write
         # from a superseded claim is rejected whole by the store
@@ -301,13 +306,18 @@ class Scheduler:
             e for e in self.extenders
             if e.config.filter_verb or e.config.prioritize_verb
             or e.config.preempt_verb]
-        if decision_extenders:
-            # the reference runs decision extenders on its oracle path;
-            # the port's generic scheduler (and so its host twin) has no
-            # extender passes yet. Bind-only extenders are served.
-            raise NotImplementedError(
-                "filter / prioritize / preempt extenders: the port's "
-                "generic scheduler has no extender passes (ROADMAP A9)")
+        if use_device and decision_extenders and algorithm is None:
+            # decision-affecting extenders need per-node host_priority and
+            # HTTP round trips the device path doesn't model; silently
+            # ignoring them would change decisions, so route scheduling
+            # through the generic scheduler instead (bind-only extenders
+            # keep the device path: binding already goes through
+            # _extender_binder)
+            import warnings
+            warnings.warn("filter/prioritize extenders configured: scheduling "
+                          "runs on the oracle path, not the device kernel "
+                          "path")
+            use_device = False
         if algorithm is not None:
             self.algorithm = algorithm
         elif use_device:
@@ -363,6 +373,7 @@ class Scheduler:
                 percentage_of_nodes_to_score=percentage_of_nodes_to_score,
                 hard_pod_affinity_weight=hard_pod_affinity_weight,
                 nominated_pods_fn=self.queue.nominated.pods_for_node)
+            self.algorithm.extenders = self.extenders
         if profiles is not None:
             # per-profile PriorityConfig lists (the oracle/serial scoring
             # side of the tensor rows — same vectors, pinnable parity)
@@ -1916,15 +1927,20 @@ class Scheduler:
         tie-breaking, so a node-count shrink triggers the full-name probe.
         Stores without the O(1) count verb (remote) keep the decided-host
         probe only."""
-        contains = getattr(self.store, "contains", None)
-        if contains is None:
+        if getattr(self.store, "missing_keys", None) is None:
             return set()
-        dead = {h for h in set(decided) if not contains(NODES, h)}
+        dead = self._dead_hosts(decided)
         if not dead:
             count = getattr(self.store, "count", None)
             if count is not None and count(NODES) < len(names):
-                dead = {h for h in names if not contains(NODES, h)}
+                dead = self._dead_hosts(names)
         return dead
+
+    def _dead_hosts(self, hosts) -> set:
+        """The hosts among `hosts` the store no longer has: ONE
+        `missing_keys` call (one request for the whole set on the remote
+        client)."""
+        return set(self.store.missing_keys(NODES, sorted(set(hosts))))
 
     def _host_is_stale(self, host: str) -> bool:
         """True when the decision's target node no longer exists in the
@@ -2016,9 +2032,8 @@ class Scheduler:
         # successors reschedule against the post-churn world — the same
         # state a serial loop's failed bind leaves behind.
         chaos.node_dead_point("pre-bind")
-        contains = getattr(self.store, "contains", None)
-        if contains is not None:
-            stale_hosts = {h for h in set(hosts) if not contains(NODES, h)}
+        if getattr(self.store, "missing_keys", None) is not None:
+            stale_hosts = self._dead_hosts(hosts)
             if stale_hosts:
                 for h in stale_hosts:
                     self._invalidate_dead_node(h)

@@ -3,8 +3,8 @@
 Copied from the reference (`kubernetes_tpu.store.commit_core`): its
 pure-Python `PyCommitCore`, the twin of the reference's native C++ core,
 which has no copy here, without the reference's demotion hand-over and
-its class-per-watcher mode. `make_commit_core` always returns the twin. The
-core fixes the store's observable state: resourceVersion assignment order,
+with its class-per-watcher mode (`set_shared_classes`).
+`make_commit_core` always returns the twin. The core fixes the store's observable state: resourceVersion assignment order,
 missing-key detection, AlreadyExists raises, per-watcher event sequences,
 and overflow/resync decisions.
 
@@ -116,7 +116,7 @@ class _Watcher:
         self.cursor = cursor      # absolute seq of the next entry to read
         self.resync = False
         self.stopped = False
-        self.cls = cls            # shared subscription class
+        self.cls = cls            # shared subscription class (None = private)
 
 
 class PyCommitCore:
@@ -140,7 +140,10 @@ class PyCommitCore:
         self._fanout_sink = None
         # shared subscription classes (round 20): watchers with the same
         # (kind, selector) interest share one materialize-once Event cache
-        # and one serialize-once byte cache
+        # and one serialize-once byte cache. `set_shared_classes(False)`
+        # is the old-shape degenerate mode (every watcher private) used by
+        # the differential parity tests.
+        self._shared_classes = True
         self._classes: dict[tuple[str, str], _SubClass] = {}
         self._wire_encoder = None      # (etype, obj, rv) -> bytes
         self._stat_mat = 0             # Event materializations (cache miss)
@@ -168,6 +171,13 @@ class PyCommitCore:
         pays ONE serialization per event per class regardless of how many
         watchers stream it. Observability/delivery-plane only."""
         self._wire_encoder = encoder
+
+    def set_shared_classes(self, enabled: bool) -> None:
+        """Toggle class sharing for FUTURE attaches (old-shape degenerate
+        mode when False: every watcher materializes privately, exactly the
+        pre-round-20 copy-out path — the differential tests pin the two
+        modes bit-identical)."""
+        self._shared_classes = bool(enabled)
 
     # -- fencing tokens (round 18; caller holds the store lock) --------------
     # A scope names one partition lease (e.g. "fleet-default-scheduler-s3");
@@ -376,10 +386,12 @@ class PyCommitCore:
 
     # -- watch ---------------------------------------------------------------
     def _join_class(self, kind: str, selector: Optional[str],
-                    log: _KindLog) -> _SubClass:
+                    log: _KindLog) -> Optional[_SubClass]:
         """Resolve (kind, selector) to its shared class, creating it on
         first membership (attach/detach move a refcount, never a backlog).
-        Caller holds `_cond`."""
+        Returns None in degenerate mode. Caller holds `_cond`."""
+        if not self._shared_classes:
+            return None
         key = (kind, selector or "")
         cls = self._classes.get(key)
         if cls is None:
@@ -420,9 +432,10 @@ class PyCommitCore:
                 if wid in lst:
                     lst.remove(wid)
                 cls = w.cls
-                cls.members -= 1
-                if cls.members <= 0:
-                    self._classes.pop((cls.kind, cls.selector), None)
+                if cls is not None:
+                    cls.members -= 1
+                    if cls.members <= 0:
+                        self._classes.pop((cls.kind, cls.selector), None)
             self._cond.notify_all()
 
     def _poll_pick(self, wid: int, timeout: Optional[float], limit: int,
@@ -464,12 +477,17 @@ class PyCommitCore:
             picked = log.entries[lo: lo + n]
             w.cursor += n
             cls = w.cls
-            cls.align(log)
-            base = c0 - cls.cache_start
-            cached_evs = cls.evs[base: base + n]
-            cached_lines = cls.lines[base: base + n]
-            hits = cached_lines if bytes_mode else cached_evs
-            self._stat_shared += sum(1 for h in hits if h is not None)
+            cached_evs = cached_lines = None
+            if cls is None:
+                # old-shape private watcher: every pick materializes
+                self._stat_mat += n
+            else:
+                cls.align(log)
+                base = c0 - cls.cache_start
+                cached_evs = cls.evs[base: base + n]
+                cached_lines = cls.lines[base: base + n]
+                hits = cached_lines if bytes_mode else cached_evs
+                self._stat_shared += sum(1 for h in hits if h is not None)
         return w, picked, c0, cls, cached_evs, cached_lines
 
     def _install_shared(self, cls: _SubClass, made_ev: list,
@@ -515,13 +533,18 @@ class PyCommitCore:
         when the watcher was dropped (slow consumer / log window). With a
         shared subscription class, each entry is materialized into an Event
         ONCE per class (first classmate to copy it out) and every later
-        classmate is served the cached object."""
+        classmate is served the cached object — per-watcher event streams
+        stay value-identical to the private path."""
         res = self._poll_pick(wid, timeout, limit)
         if res is None:
             return []
         w, picked, c0, cls, cached_evs, _cached_lines = res
         ev = self._event_cls
         kind = w.kind
+        if cls is None:
+            events = [ev(t, kind, o, rv) for t, o, rv, _ts in picked]
+            self._sink_fire(kind, events, picked)
+            return events
         events = []
         made = []   # (abs seq, event, entry) materialized by this call
         for i, entry in enumerate(picked):
@@ -553,6 +576,14 @@ class PyCommitCore:
         w, picked, c0, cls, cached_evs, cached_lines = res
         ev = self._event_cls
         kind = w.kind
+        if cls is None:
+            events = [ev(t, kind, o, rv) for t, o, rv, _ts in picked]
+            lines = [enc(t, o, rv) for t, o, rv, _ts in picked]
+            self._sink_fire(kind, events, picked)
+            with self._cond:
+                self._stat_enc += len(lines)
+                self._stat_bytes += sum(len(b) for b in lines)
+            return lines
         lines = []
         made_ev = []   # events materialized here (sink + classmate reuse)
         made_ln = []
@@ -598,7 +629,8 @@ class PyCommitCore:
                      "window": [c.cache_start,
                                 c.cache_start + len(c.evs)]}
                     for c in classes]
-            return {"materializations": self._stat_mat,
+            return {"shared_classes": self._shared_classes,
+                    "materializations": self._stat_mat,
                     "shared_hits": self._stat_shared,
                     "line_encodes": self._stat_enc,
                     "bytes_served": self._stat_bytes,

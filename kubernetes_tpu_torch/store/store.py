@@ -386,7 +386,8 @@ class Store:
     def __init__(self, watch_log_size: int = DEFAULT_WATCH_LOG,
                  debug_integrity: Optional[bool] = None,
                  watch_queue_size: Optional[int] = None,
-                 events_cap: Optional[int] = DEFAULT_EVENTS_CAP):
+                 events_cap: Optional[int] = DEFAULT_EVENTS_CAP,
+                 shared_watch_classes: bool = True):
         from kubernetes_tpu_torch.store.commit_core import make_commit_core
         self._lock = threading.RLock()
         self._objs: dict[str, dict[str, Any]] = {}
@@ -396,6 +397,14 @@ class Store:
             watch_log_size, self._queue_size,
             Event, ExpiredError, AlreadyExistsError)
         self.core_impl = "twin"
+        # shared subscription classes (round 20): watchers with the same
+        # (kind, selector) interest share one materialize-once event cache
+        # and one serialize-once byte ring. False is the degenerate
+        # class-per-watcher mode — the EXACT pre-class fan-out path, kept
+        # as the differential referee's old shape.
+        self.shared_watch_classes = bool(shared_watch_classes)
+        if not self.shared_watch_classes:
+            self._core.set_shared_classes(False)
         # last cumulative core fan-out stats synced into the obs counters
         # (the core counts monotonically; obs counters get the deltas)
         self._fanout_obs_synced = {"materializations": 0, "shared_hits": 0}
@@ -613,6 +622,15 @@ class Store:
         wave."""
         with self._lock:
             return key in self._objs.get(kind, {})
+
+    def missing_keys(self, kind: str, keys: list) -> list:
+        """The keys of `keys` this store does not hold, in their order, under
+        one lock acquisition: the burst's stale-host checks ask it once for
+        a launch's or a wave's hosts (the port's; the reference probes
+        `contains` a host)."""
+        with self._lock:
+            bucket = self._objs.get(kind, {})
+            return [k for k in keys if k not in bucket]
 
     def count(self, kind: str) -> int:
         """O(1) object count — the burst launch's stale scan compares it

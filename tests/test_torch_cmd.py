@@ -7,7 +7,10 @@ summary line and the same pod on the same node, with and without
 `--burst`, under a config file, a Policy file and a leader-elected run.
 Also: the HTTP routes of `serve_http` (`tests/test_aux.py:238` and
 `tests/test_timeseries.py:414` on the port, and every other route), the
-flags the port leaves out (refused by argparse), an error of the loop
+flag the port leaves out (`--profile-dir`, refused by argparse),
+`--server` / `--token` against the JAX package's over each package's
+apiserver, `--api-port`'s REST surface, the reference's refusals of
+`--server` with `--api-port` or `--cluster-spec`, an error of the loop
 ending the command, and `models/hollow` building the reference's nodes and
 pods for the same seeds.
 """
@@ -205,13 +208,154 @@ def test_an_error_of_the_loop_ends_the_command(leader, tmp_path,
         pcmd.main(argv)
 
 
-@pytest.mark.parametrize("flag", [["--profile-dir", "d"], ["--server", "u"],
-                                  ["--api-port", "1"], ["--token", "t"]])
+@pytest.mark.parametrize("flag", [["--profile-dir", "d"]])
 def test_left_out_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as ei:
         pcmd.main(["--once", "--device", "cpu"] + flag)
     assert ei.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--server", "http://127.0.0.1:1", "--api-port", "8080"],
+    ["--server", "http://127.0.0.1:1", "--cluster-spec", "spec.json"],
+    ["--server", "http://127.0.0.1:1", "--token", "t", "--api-port", "1"],
+])
+def test_server_flag_refusals_equal_the_reference(argv):
+    """--server and --api-port exclude each other, and --cluster-spec
+    needs the embedded store: the reference's messages, before any
+    request is sent."""
+    with pytest.raises(SystemExit) as pe:
+        pcmd.main(argv + ["--once", "--device", "cpu"])
+    with pytest.raises(SystemExit) as je:
+        jcmd.main(argv + ["--once"])
+    assert str(pe.value) == str(je.value)
+    assert ("--cluster-spec" if "--cluster-spec" in argv
+            else "--api-port") in str(pe.value)
+
+
+@pytest.mark.parametrize("token", [None, "sched-token"])
+@pytest.mark.parametrize("spec", sorted(SPECS))
+def test_server_run_equals_the_reference(spec, token, tmp_path,
+                                         monkeypatch):
+    """`main --server URL [--token T] --once --burst 4`: the port's
+    command against the port's apiserver, the JAX package's against its
+    own, over stores loaded from the same spec: the same summary line and
+    the same pod on the same node, also equal to the port's embedded run;
+    with a token, the servers authenticate system:kube-scheduler and
+    authorize with the default RBAC roles."""
+    from kubernetes_tpu.apiserver import auth as jauth
+    from kubernetes_tpu.apiserver.server import APIServer as JAPIServer
+    from kubernetes_tpu_torch.apiserver import auth as pauth
+    from kubernetes_tpu_torch.apiserver.server import APIServer as PAPIServer
+    path = write(tmp_path, "spec.json", SPECS[spec])
+    once = ["--once", "--burst", "4", "--percentage-of-nodes-to-score",
+            "100"]
+
+    def strategy(**kw):
+        if isinstance(kw.get("node_affinity_values"), list):
+            kw["node_affinity_values"] = tuple(kw["node_affinity_values"])
+        return jhollow.PodStrategy(**kw)
+    out = {}
+    for pkg, auth, Server in (("port", pauth, PAPIServer),
+                              ("jax", jauth, JAPIServer)):
+        store = (PS if pkg == "port" else JS).Store(watch_log_size=65536)
+        if pkg == "port":
+            pcmd.load_cluster_spec(store, path)
+        else:
+            with monkeypatch.context() as mp:
+                mp.setattr(jcmd, "PodStrategy", strategy)
+                jcmd.load_cluster_spec(store, path)
+        kw = {}
+        if token:
+            roles, binds = auth.default_roles()
+            kw = {"authenticator": auth.TokenAuthenticator(
+                      {token: auth.UserInfo("system:kube-scheduler")}),
+                  "authorizer": auth.RBACAuthorizer(roles=roles,
+                                                    bindings=binds)}
+        argv = once + (["--token", token] if token else [])
+        with Server(store, **kw) as srv:
+            buf = io.StringIO()
+            if pkg == "port":
+                state = {}
+                try:
+                    with redirect_stdout(buf):
+                        rc = pcmd.main(["--server", srv.url] + argv
+                                       + ["--device", "cpu"], state=state)
+                finally:
+                    if "scheduler" in state:
+                        state["scheduler"].informers.stop_all()
+            else:
+                with redirect_stdout(buf):
+                    rc = jcmd.main(["--server", srv.url] + argv)
+        S = PS if pkg == "port" else JS
+        out[pkg] = (rc, json.loads(buf.getvalue().strip().splitlines()[-1]),
+                    {p.key: p.node_name for p in store.list(S.PODS)[0]})
+    assert out["port"] == out["jax"]
+    _rc, line, _state, embedded = run_port(
+        ["--cluster-spec", path] + once)
+    assert out["port"][1] == json.loads(line)
+    assert out["port"][2] == embedded
+
+
+def test_api_port_serves_the_rest_surface(tmp_path):
+    """`main --api-port P` (no --once) on a thread: the REST surface over
+    the command's store answers a list and a resumed watch, the command's
+    scheduler binds a pod created over HTTP, and the command ends when its
+    scheduler stops, its apiserver with it."""
+    import threading
+    from kubernetes_tpu_torch.api import serde
+    from kubernetes_tpu_torch.api.types import Container, Pod
+    path = write(tmp_path, "spec.json", SPECS["plain"])
+    port = free_port()
+    state, err = {}, []
+
+    def run():
+        try:
+            with redirect_stdout(io.StringIO()):
+                pcmd.main(["--api-port", str(port), "--cluster-spec", path,
+                           "--device", "cpu"], state=state)
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            err.append(e)
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        for _ in range(600):
+            if "api_server" in state or err:
+                break
+            t.join(0.05)
+        assert not err and "api_server" in state
+        doc = json.load(get(port, "/api/v1/nodes"))
+        assert len(doc["items"]) == 4
+        rv = doc["resourceVersion"]
+        body = json.dumps(serde.to_dict(Pod(name="late", containers=(
+            Container.make(name="c", requests={"cpu": 100}),)))).encode()
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/v1/pods", data=body,
+            method="POST", headers={"Content-Type": "application/json"}),
+            timeout=30).read()
+        seen = []
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/api/v1/pods?watch=true"
+                f"&resourceVersion={rv}", timeout=30) as resp:
+            for raw in resp:
+                if not raw.strip():
+                    continue
+                ev = json.loads(raw)
+                if ev["object"]["name"] == "late":
+                    seen.append((ev["type"], ev["object"]["node_name"]))
+                    if ev["object"]["node_name"]:
+                        break
+        assert seen[0] == ("ADDED", "") and seen[-1][0] == "MODIFIED"
+        assert seen[-1][1].startswith("hollow-node-")
+        assert isinstance(state["scheduler"].algorithm, TorchScheduler)
+    finally:
+        if "scheduler" in state:
+            state["scheduler"].stop()
+        t.join(timeout=30)
+    assert not t.is_alive() and not err
+    with pytest.raises(urllib.error.URLError):
+        get(port, "/healthz")
 
 
 def test_device_route_without_a_torch_scheduler_raises():

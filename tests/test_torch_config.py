@@ -14,7 +14,9 @@ each held against the JAX package on the same inputs:
   the same binding map and the same route (the device's algorithm, or the
   oracle's);
 - labelsPresence and serviceAffinity predicates; a priority with no kernel
-  weight (the host route in both); an extender (refused by the port);
+  weight (the host route in both); a Policy's extenders, bind-only and
+  decision ones, built from `extender_endpoints` (the host route in both,
+  the same bindings and extender calls);
 - `render_metrics` after the same burst: the same family names.
 
 `create_scheduler` sets process-global gates and registers predicates and
@@ -439,13 +441,79 @@ def test_priority_without_kernel_weight_routes_to_the_host():
     assert pfactory.tpu_kernel_weights({"CustomPriority": 1}) is None
 
 
-def test_policy_with_an_extender_is_refused():
-    cfg = pconfig.SchedulerConfiguration()
-    cfg.algorithm_source = pconfig.AlgorithmSource(
-        provider=None, policy_inline={"extenders": [
-            {"urlPrefix": "http://e", "bindVerb": "bind"}]})
-    with pytest.raises(NotImplementedError, match="A9"):
-        pfactory.create_scheduler(PS.Store(), cfg, device="cpu")
+EXTENDER_POLICIES = {
+    "bind-only": [{"urlPrefix": "inproc://b", "bindVerb": "bind"}],
+    "filter+prioritize": [{"urlPrefix": "inproc://d", "filterVerb": "filter",
+                           "prioritizeVerb": "prioritize", "weight": 2}],
+    "both": [{"urlPrefix": "inproc://d", "filterVerb": "filter",
+              "prioritizeVerb": "prioritize", "weight": 2},
+             {"urlPrefix": "inproc://b", "bindVerb": "bind"}],
+}
+
+
+@pytest.mark.parametrize("kind", sorted(EXTENDER_POLICIES))
+def test_policy_with_extenders_builds_them_equal_to_the_reference(kind):
+    """A Policy's extenders, built by `create_scheduler` from
+    `extender_endpoints` in both packages: any extender (a bind-only one
+    included) takes the host route in both, with the same bindings and
+    the same extender calls."""
+    nodes = [mknode(f"n{i}", cpu=2000 + 1000 * (i % 3)) for i in range(6)]
+    pods = [mkpod(f"p{j}", cpu=[200, 400, 800][j % 3]) for j in range(12)]
+    out = []
+    for port in (True, False):
+        from tests.test_torch_encoders import to_port
+        S = PS if port else JS
+        conv = to_port if port else (lambda o: o)
+        calls = []
+        store = S.Store()
+
+        def bind_ep(payload, store=store, calls=calls):
+            calls.append(("bind", payload["pod"], payload["node"]))
+            store.bind_pod(payload["pod"], payload["node"])
+            return {}
+
+        def filter_ep(payload, calls=calls):
+            calls.append(("filter", payload["pod"]))
+            return {"nodeNames": [n for n in payload["nodes"]
+                                  if n != "n1"]}
+
+        def prioritize_ep(payload, calls=calls):
+            calls.append(("prioritize", payload["pod"]))
+            return {"hostPriorityList": [
+                {"host": n, "score": int(n[1:]) % 2 * 10}
+                for n in payload["nodes"]]}
+        endpoints = {"inproc://b": {"bind": bind_ep},
+                     "inproc://d": {"filter": filter_ep,
+                                    "prioritize": prioritize_ep}}
+        m = pconfig if port else jconfig
+        cfg = m.SchedulerConfiguration(
+            percentage_of_nodes_to_score=100,
+            algorithm_source=m.AlgorithmSource(
+                provider=None,
+                policy_inline={"extenders": EXTENDER_POLICIES[kind]}))
+        for n in nodes:
+            store.create(S.NODES, conv(n))
+        sched = (pfactory.create_scheduler(store, cfg,
+                                           extender_endpoints=endpoints,
+                                           device="cpu") if port
+                 else jfactory.create_scheduler(
+                     store, cfg, extender_endpoints=endpoints))
+        assert len(sched.extenders) == len(EXTENDER_POLICIES[kind])
+        sched.sync()
+        for p in pods:
+            store.create(S.PODS, conv(p))
+        sched.pump()
+        while sched.schedule_one(timeout=0.0):
+            pass
+        sched.pump()
+        out.append((route(sched), {p.name: store.get(S.PODS, p.key).node_name
+                                   for p in pods}, calls))
+    (pr, ph, pc), (jr, jh, jc) = out
+    assert pr == jr == "oracle"
+    assert ph == jh and all(ph.values())
+    assert pc == jc and pc
+    if "filter" in kind or kind == "both":
+        assert "n1" not in ph.values()
 
 
 def test_render_metrics_family_names_equal_the_reference():

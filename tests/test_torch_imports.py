@@ -68,6 +68,19 @@ COMMAND_MODULES = (
     "kubernetes_tpu_torch.tuner.cell",
 )
 
+#: the extender passes and the HTTP pair: the extender, the serde codec,
+#: the apiserver (auth, admission, webhooks, the REST server) and the
+#: remote store client
+HTTP_MODULES = (
+    "kubernetes_tpu_torch.core.extender", "kubernetes_tpu_torch.api.serde",
+    "kubernetes_tpu_torch.apiserver",
+    "kubernetes_tpu_torch.apiserver.auth",
+    "kubernetes_tpu_torch.apiserver.admission",
+    "kubernetes_tpu_torch.apiserver.webhook",
+    "kubernetes_tpu_torch.apiserver.server",
+    "kubernetes_tpu_torch.store.remote",
+)
+
 
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
@@ -84,7 +97,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the host twin's copies of the oracle and the factory registries
     assert "kubernetes_tpu_torch.factory" in mods
     assert "kubernetes_tpu_torch.oracle.volumes" in mods
-    for m in SHELL_MODULES + SERVING_MODULES + COMMAND_MODULES:
+    for m in SHELL_MODULES + SERVING_MODULES + COMMAND_MODULES \
+            + HTTP_MODULES:
         assert m in mods, m
     from kubernetes_tpu_torch import factory
     from kubernetes_tpu_torch.oracle import generic_scheduler, preemption
@@ -160,6 +174,47 @@ def test_command_modules_import_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, check=True,
                          timeout=CHILD_TIMEOUT_S)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_http_modules_import_neither_jax_nor_the_jax_package():
+    """`core/extender.py`, `api/serde.py`, `apiserver/*` and
+    `store/remote.py`, lazy imports included (the reference's admission
+    imports its controllers lazily; the port's carries its own copies);
+    and importing them alone in a fresh interpreter loads neither."""
+    _import_lines_name_no_jax(HTTP_MODULES, self_contained=(
+        "kubernetes_tpu_torch.apiserver",))
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {HTTP_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'kubernetes_tpu'"
+        " or m.startswith('kubernetes_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=CHILD_TIMEOUT_S)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_admission_copies_equal_the_jax_controllers():
+    """The taint keys and `pod_usage` the port's admission carries equal
+    the reference controllers' (`controllers/nodelifecycle.py`,
+    `controllers/resourcequota.py`) on the same pods."""
+    from kubernetes_tpu.api import types as JT
+    from kubernetes_tpu.controllers import nodelifecycle, resourcequota
+    from kubernetes_tpu_torch.apiserver import admission
+    from tests.test_torch_encoders import to_port
+    assert admission.TAINT_NOT_READY == nodelifecycle.TAINT_NOT_READY
+    assert admission.TAINT_UNREACHABLE == nodelifecycle.TAINT_UNREACHABLE
+    for pod in (JT.Pod(name="a"),
+                JT.Pod(name="b", containers=(JT.Container.make(
+                    name="c", requests={"cpu": 250, "memory": 3 << 30}),),
+                    init_containers=(JT.Container.make(
+                        name="i", requests={"cpu": 900}),)),
+                JT.Pod(name="c", containers=(JT.Container.make(
+                    name="c", requests={"example.com/gpu": 2}),))):
+        assert admission.pod_usage(to_port(pod)) == \
+            resourcequota.pod_usage(pod)
 
 
 def test_no_port_module_reaches_a_native_core(monkeypatch):
