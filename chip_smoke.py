@@ -284,6 +284,21 @@
      bind; (c) arrivals POSTed through RemoteStore at 1,000/s for 5 s on
      5,000 nodes behind a gate that sheds, the serve loop on the card:
      429s, every created pod bound, no double bind; sheds and p99;
+   - cluster: the cluster-in-a-process (`cmd/cluster.py`): (a) the
+     components `Cluster` builds pumped by hand (`ClusterSteps`) on
+     15,000 hollow nodes: a Deployment of 10,000 replicas with a Service
+     and a PDB (K5: selector spread) and a 1,000-pod Job (K3), the
+     rollout to 250m / 1 Gi, then the kubelets of two nodes a zone stop
+     and a FakeClock runs until their pods are evicted, replaced and
+     bound; run on the card and on device="cpu", each in a spawned
+     process with one PYTHONHASHSEED (the two started after `[http]`,
+     with only the scan and mesh variant checks, which time nothing,
+     beside them), and equal in every pod's node and phase, the ReplicaSets, the
+     Endpoints and every proxier's table after each stage, with K3
+     launched, no twin or refusal count and no double bind; (b)
+     `Cluster(...).start()` at 5,000 nodes, the same Deployment created
+     by kubectl over HTTP: pods/s and startup p50 / p99 against the 5 s
+     SLO, then one `kubectl delete pods` and its replacement;
    - degrade drill: on the 15,000-node world, a DeviceFault at the
      `device.fetch` point of a uniform burst with a commit callback (the
      undecided tail then decided by serial cycles, as the shell does) and
@@ -7165,6 +7180,591 @@ def http_phase(device, sync, report):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: the [cluster] phase's world: bench.py's cluster as hollow nodes (4 CPU /
+#: 32 Gi / 110 pods, 3 zones), a Deployment of bench.py's pod count and a
+#: Job beside it; part (a) kills the kubelets of `dead_per_zone` nodes a
+#: zone
+CLUSTER_CELL = {"nodes": N_NODES, "zones": 3, "replicas": N_PODS,
+                "job_pods": 1000, "dead_per_zone": 2}
+#: seconds a stepped round advances the FakeClock, between the scheduler
+#: and the kubelets' tick (a live node's lease is never stale when the
+#: node-lifecycle monitor reads it): past the 40 s grace period in one
+#: round and past the 300 s default toleration in two
+CLUSTER_ROUND_S = 150.0
+CLUSTER_ROUNDS = 16             # the most rounds a stage may take
+#: part (b)'s cluster size: 5,000 nodes, the largest the v1.15
+#: scalability SLOs cover. At bench.py's 15,000 the four loops under one
+#: interpreter lock took 176.4 s from the create to the last pod Running
+#: and the phase 303.7 s (PERF.md §4, §6)
+CLUSTER_THREADED_NODES = 5000
+CLUSTER_WEB = {"cpu": 100, "memory": 500 * MI}     # bench.py's pod
+CLUSTER_ROLLED = {"cpu": 250, "memory": GI}
+STARTUP_SLO_S = 5.0             # density.go's pod startup SLO
+CLUSTER_CHILD_S = 900           # the most seconds a part (a) run may take
+
+
+def cluster_modules():
+    """The port's modules a stepped run reads, under the names
+    `ClusterSteps` takes them by (its caller passes them in, so the same
+    driver can pump another package's copies)."""
+    from types import SimpleNamespace
+    from kubernetes_tpu_torch.api import types
+    from kubernetes_tpu_torch.cmd import cluster
+    from kubernetes_tpu_torch.store import store
+    from kubernetes_tpu_torch.utils import clock
+    return SimpleNamespace(pkg="kubernetes_tpu_torch", cluster=cluster,
+                           T=types, S=store, clock=clock)
+
+
+def cluster_objects(m, replicas, req):
+    """(kind, object) of the web Service, its PDB (1 % of the replicas may
+    be disrupted) and the Deployment of `replicas` pods of `req`,
+    RollingUpdate at the reference's 25 % maxSurge / maxUnavailable."""
+    T, S = m.T, m.S
+    sel = T.LabelSelector.from_dict({"app": "web"})
+    return [
+        (S.SERVICES, T.Service(name="web", selector={"app": "web"})),
+        (S.PDBS, T.PodDisruptionBudget(
+            name="web", selector=sel,
+            min_available=replicas - max(1, replicas // 100))),
+        (S.DEPLOYMENTS, T.Deployment(
+            name="web", replicas=replicas, selector=sel,
+            max_surge=replicas // 4, max_unavailable=replicas // 4,
+            template=cluster_template(m, "web", req)))]
+
+
+def cluster_job(m, n_pods):
+    """A Job of `n_pods` of bench.py's pod, all at once: a burst of
+    identical pods no Service or ReplicaSet selects, so the scheduler
+    takes it as one uniform class (K3); the Deployment's pods carry
+    selector spread (its Service and ReplicaSet), so they take the scan
+    (K5), as in the reference."""
+    return m.T.Job(name="batch", completions=n_pods, parallelism=n_pods,
+                   template=cluster_template(m, "batch", CLUSTER_WEB))
+
+
+def cluster_template(m, app, req):
+    T = m.T
+    return T.PodTemplate(labels={"app": app}, containers=(
+        T.Container.make(name="c", requests=dict(req)),))
+
+
+class ClusterSteps:
+    """Part (a)'s driver: the components a `Cluster` of package `m`
+    (`cluster_modules()`) builds, pumped by hand in a fixed order with no
+    threads: `start()`'s syncs and first kubelet tick, then rounds of the
+    controllers, the scheduler's pump and `schedule_burst(max_pods=1024)`
+    until it returns 0, the FakeClock's step, the kubelets' tick, the
+    controllers and the proxiers. The kubelets and every controller read
+    the FakeClock; the scheduler keeps its own clock. `sched_kw` picks
+    the scheduler's route (`device=` here)."""
+
+    def __init__(self, m, nodes, zones, **sched_kw):
+        self.m = m
+        self.book = {}
+        t = time.perf_counter()
+        c = self.c = m.cluster.Cluster(n_nodes=nodes, zones=zones,
+                                       api_port=-1, **sched_kw)
+        self.clock = m.clock.FakeClock(1_000_000.0)
+        for k in c.kubelets:
+            k.clock = self.clock
+        for ctl in c.controllers.controllers.values():
+            if hasattr(ctl, "clock"):
+                ctl.clock = self.clock
+        c.scheduler.sync()
+        c.controllers.sync()
+        for p in c.proxies:
+            p.sync()
+        c.kubelet_tick()
+        self.book["set-up"] = time.perf_counter() - t
+        self.rounds = 0
+
+    def _timed(self, name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        self.book[name] = self.book.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    def _proxies(self):
+        for p in self.c.proxies:
+            p.pump()
+
+    def round(self):
+        c = self.c
+        self._timed("controllers", c.controllers.pump)
+        while True:
+            self._timed("scheduler", c.scheduler.pump)
+            if not self._timed("scheduler", c.scheduler.schedule_burst,
+                               1024):
+                break
+        self.clock.step(CLUSTER_ROUND_S)
+        self._timed("kubelets", c.kubelet_tick)
+        self._timed("controllers", c.controllers.pump)
+        self._timed("proxiers", self._proxies)
+        self.rounds += 1
+
+    def until(self, stage, done):
+        for _ in range(CLUSTER_ROUNDS):
+            self.round()
+            if done():
+                return
+        raise SystemExit(f"cluster stepped ({self.m.pkg}): {stage} not "
+                         f"done after {CLUSTER_ROUNDS} rounds")
+
+    def pods(self, app):
+        return [p for p in self.c.store.list(self.m.S.PODS)[0]
+                if p.labels.get("app") == app]
+
+    def web_ready(self, replicas, cpu, dead=()):
+        """All `replicas` web pods of one ReplicaSet bound and Running at
+        `cpu` millicores, none on a `dead` node, in the Endpoints and in
+        every proxier's table."""
+        T, S, store = self.m.T, self.m.S, self.c.store
+        pods = self.pods("web")
+        sets = [r for r in store.list(S.REPLICASETS)[0]
+                if r.owner_ref and r.owner_ref[1] == "web"]
+        eps = {e.key: e for e in store.list(S.ENDPOINTS)[0]}
+        ep = eps.get("default/web")
+        return (len(pods) == replicas and len(sets) == 1
+                and sets[0].ready_replicas == replicas
+                and all(p.node_name and p.phase == "Running"
+                        and p.node_name not in dead
+                        and T.get_resource_request(p).milli_cpu == cpu
+                        for p in pods)
+                and ep is not None and len(ep.addresses) == replicas
+                and all(len(p.backends("default/web")) == replicas
+                        for p in self.c.proxies))
+
+    def roll(self, req):
+        """The web Deployment's template becomes `req`'s."""
+        def mutate(dep):
+            dep.template = cluster_template(self.m, "web", req)
+            return dep
+        self.c.store.guaranteed_update(self.m.S.DEPLOYMENTS, "default/web",
+                                       mutate)
+
+    def kill(self, per_zone):
+        """Stop the kubelets of the first `per_zone` nodes of each zone (by
+        name) that hold a web pod; returns their names."""
+        holding = {p.node_name for p in self.pods("web")}
+        zone = {n.name: n.labels.get(self.m.T.LABEL_ZONE_FAILURE_DOMAIN, "")
+                for n in self.c.store.list(self.m.S.NODES)[0]}
+        dead, by_zone = [], {}
+        for name in sorted(holding):
+            if by_zone.get(zone[name], 0) < per_zone:
+                by_zone[zone[name]] = by_zone.get(zone[name], 0) + 1
+                dead.append(name)
+        for k in self.c.kubelets:
+            if k.node_name in dead:
+                k.stop()
+        return dead
+
+    def summary(self):
+        """What the CUDA and CPU runs must agree on: every pod's node and
+        phase, the ReplicaSets' names and statuses, the Endpoints, and
+        every proxier's table (an md5 of each backend tuple, computed
+        once a tuple object)."""
+        import hashlib
+        S, store = self.m.S, self.c.store
+        memo = {}
+
+        def digest(t):
+            d = memo.get(id(t))
+            if d is None:
+                d = memo[id(t)] = (t, hashlib.md5(
+                    repr(t).encode()).hexdigest())
+            return d[1]
+        out = {
+            "pods": sorted([p.key, p.node_name, p.phase]
+                           for p in store.list(S.PODS)[0]),
+            "replicasets": sorted(
+                [r.name, r.replicas, r.observed_replicas, r.ready_replicas]
+                for r in store.list(S.REPLICASETS)[0]),
+            "endpoints": {e.key: digest(tuple(e.addresses))
+                          for e in store.list(S.ENDPOINTS)[0]},
+            "tables": [[p.node_name, sorted(
+                [k, digest(v)] for k, v in p.rules().items())]
+                for p in self.c.proxies]}
+        return json.loads(json.dumps(out))
+
+    def scheduled_once(self):
+        """Every pod the scheduler bound has exactly one Scheduled event,
+        naming its node: no pod was bound twice. (A DaemonSet's pods are
+        bound by their controller, with no event.) Returns the keys with
+        more than one such event and the pods without the one."""
+        S, store = self.m.S, self.c.store
+        events = {}
+        for e in store.list(S.EVENTS)[0]:
+            if e.reason == "Scheduled":
+                events.setdefault(e.involved_key, []).append(e.message)
+        twice = [k for k, v in events.items() if len(v) != 1]
+        wrong = [p.key for p in store.list(S.PODS)[0]
+                 if not (p.owner_ref and p.owner_ref[0] == "DaemonSet")
+                 and (len(events.get(p.key, ())) != 1
+                      or not events[p.key][0].endswith(
+                          f" to {p.node_name}"))]
+        return twice, wrong
+
+
+def cluster_stepped(device, nodes, zones, replicas, per_zone, job_pods):
+    """Part (a) on `device`: the scale-up (the Deployment and the Job),
+    the rollout to the second template and the node death, a summary
+    after each stage; returns the summaries, rounds, dead nodes,
+    launches, counts and times. The pod names come from the process's
+    counters (`controllers/replicaset.py`, `controllers/job.py`): two
+    runs agree only if both start them at the same value."""
+    from kubernetes_tpu_torch import obs
+    from kubernetes_tpu_torch.ops import kernels as K
+    m = cluster_modules()
+    t0 = time.perf_counter()
+    s = ClusterSteps(m, nodes, zones, device=device)
+    store = s.c.store
+    obs.reset()
+    for kind, obj in cluster_objects(m, replicas, CLUSTER_WEB):
+        store.create(kind, obj)
+    store.create(m.S.JOBS, cluster_job(m, job_pods))
+    stages = []
+    s.until("scale-up", lambda: s.web_ready(replicas, CLUSTER_WEB["cpu"]))
+    stages.append(["scale-up", s.rounds, s.summary()])
+    s.roll(CLUSTER_ROLLED)
+    s.until("rollout", lambda: s.web_ready(replicas, CLUSTER_ROLLED["cpu"]))
+    stages.append(["rollout", s.rounds, s.summary()])
+    dead = s.kill(per_zone)
+    s.until("node death", lambda: s.web_ready(
+        replicas, CLUSTER_ROLLED["cpu"], dead))
+    stages.append(["node death", s.rounds, s.summary()])
+    counts = K.launches()
+    twins, refusals = obs.family("twin"), obs.family("refusal")
+    twice, wrong = s.scheduled_once()
+    alg = s.c.scheduler.algorithm
+    return {"stages": stages, "dead": dead, "counts": counts,
+            "twins": twins, "refusals": refusals, "twice": twice[:5],
+            "wrong": wrong[:5], "book": s.book,
+            "route": f"{type(alg).__name__} on "
+                     f"{getattr(alg, 'device', None)}",
+            "wall": time.perf_counter() - t0}
+
+
+def summary_diff(a, b, path=()):
+    """Where two nested dicts and lists first differ: (the path of keys
+    and indices, a's value, b's value), "length" ending the path where
+    one list is longer; None where they are equal."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b), key=repr):
+            if k not in a or k not in b:
+                return path + (k,), a.get(k), b.get(k)
+            d = summary_diff(a[k], b[k], path + (k,))
+            if d is not None:
+                return d
+        return None
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = summary_diff(x, y, path + (i,))
+            if d is not None:
+                return d
+        if len(a) != len(b):
+            return path + ("length",), len(a), len(b)
+        return None
+    return None if a == b else (path, a, b)
+
+
+CLUSTER_HASH_SEED = "23"       # PYTHONHASHSEED of both part (a) runs
+
+
+def cluster_run(path, c, device):
+    """Part (a) of cell `c` on `device`, in a child process of its own
+    with the pod-name counters from 1; writes its result to `path`. The
+    CPU run (the kernels' plain versions) takes one torch thread."""
+    import itertools
+    from kubernetes_tpu_torch.controllers import job, replicaset
+    replicaset._suffix = itertools.count(1)
+    job._suffix = itertools.count(1)
+    if device == "cpu":
+        import torch
+        torch.set_num_threads(1)
+    out = cluster_stepped(device, c["nodes"], c["zones"], c["replicas"],
+                          c["dead_per_zone"], c["job_pods"])
+    if device != "cpu":
+        no_degrade("cluster stepped")
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+class ClusterRun:
+    """Part (a) on one device in a spawned child process. The
+    controllers drain their dirty keys as JAX's do, by `set.pop()`, whose
+    order follows the strings' hashes: both runs get one PYTHONHASHSEED
+    (CLUSTER_HASH_SEED), so the card's run and the CPU's drain their sets
+    in one order, whatever this process's own seed."""
+
+    def __init__(self, device, cell=None):
+        import multiprocessing
+        import os
+        import tempfile
+        self.device = device
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+        self.path = f"{self.tmp}/{device}.json"
+        self.t0 = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cluster_run, args=(self.path, cell or CLUSTER_CELL,
+                                      device), daemon=True)
+        seed = os.environ.get("PYTHONHASHSEED")
+        os.environ["PYTHONHASHSEED"] = CLUSTER_HASH_SEED
+        try:
+            self.proc.start()
+        finally:
+            if seed is None:
+                os.environ.pop("PYTHONHASHSEED", None)
+            else:
+                os.environ["PYTHONHASHSEED"] = seed
+
+    def result(self, timeout):
+        """The run's result; fails if it did not end in `timeout` s or
+        failed."""
+        self.proc.join(timeout)
+        if self.proc.is_alive() or self.proc.exitcode != 0:
+            state = ("did not end" if self.proc.is_alive()
+                     else f"failed (exit code {self.proc.exitcode})")
+            raise SystemExit(f"cluster stepped: the run on {self.device} "
+                             f"{state}")
+        with open(self.path) as f:
+            out = json.load(f)
+        out["ended_s"] = time.perf_counter() - self.t0
+        return out
+
+    def stop(self):
+        import shutil
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+class PodTimes:
+    """A watch on the pods, drained on a thread of its own: when each pod
+    was first seen (created) and first seen Running, and the live set."""
+
+    def __init__(self, store):
+        import threading
+        from kubernetes_tpu_torch.store.store import PODS
+        self.created, self.running, self.live = {}, {}, set()
+        self.errors = []
+        self._watch = store.watch(PODS)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                ev = self._watch.next(timeout=0.05)
+                if ev is None:
+                    continue
+                now = time.perf_counter()
+                key = ev.obj.key
+                if ev.type == "DELETED":
+                    self.live.discard(key)
+                    continue
+                self.live.add(key)
+                self.created.setdefault(key, now)
+                if ev.obj.phase == "Running":
+                    self.running.setdefault(key, now)
+        except Exception as e:   # reported by the phase, never swallowed
+            self.errors.append(repr(e))
+
+    def running_live(self):
+        return sum(1 for k in list(self.live) if k in self.running)
+
+    def stop(self):
+        self._stop.set()
+        self._watch.stop()
+        self._thread.join(5.0)
+
+
+def cluster_threaded(device, nodes, replicas):
+    """Part (b): `Cluster(...).start()` with the REST apiserver on a free
+    port and its four loops on threads; kubectl creates the web Service,
+    PDB and Deployment over HTTP; pods/s from the create to the last pod
+    Running and each pod's startup (first seen -> first seen Running), as
+    the JAX harness's run_e2e_density measures them; then one `kubectl
+    delete pods` and its replacement Running."""
+    import io
+    import tempfile
+    from kubernetes_tpu_torch.api import serde
+    from kubernetes_tpu_torch.cmd import kubectl
+    from kubernetes_tpu_torch.cmd.cluster import Cluster
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch import obs
+    t0 = time.perf_counter()
+    # the kubelets tick every 0.02 s, as in run_e2e_density
+    c = Cluster(n_nodes=nodes, zones=3, api_port=0, device=device,
+                kubelet_interval=0.02)
+    times = PodTimes(c.store)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        c.start()
+        t_up = time.perf_counter() - t0
+        path = f"{tmp}/web.json"
+        with open(path, "w") as f:
+            json.dump({"items": [dict(serde.to_dict(o), kind=kind)
+                                 for kind, o in cluster_objects(
+                                     cluster_modules(), replicas,
+                                     CLUSTER_WEB)]}, f)
+        obs.reset()
+
+        def kc(*argv):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = kubectl.main(["--server", c.url, *argv])
+            if rc != 0:
+                raise SystemExit(f"cluster threaded: kubectl {argv} -> {rc}")
+            return out.getvalue()
+        t_create = time.perf_counter()
+        said = kc("create", "-f", path)
+        if not c.wait_for(lambda: times.running_live() >= replicas,
+                          timeout=240):
+            raise SystemExit(f"cluster threaded: {times.running_live()} of "
+                             f"{replicas} pods Running after 240 s")
+        web = [k for k in times.running if k.startswith("default/web-")]
+        t_last = max(times.running[k] for k in web)
+        lats = sorted(times.running[k] - times.created[k] for k in web)
+        victim = sorted(web)[0]
+        t_del = time.perf_counter()
+        kc("delete", "pods", victim)
+        if not c.wait_for(lambda: victim not in times.live
+                          and times.running_live() >= replicas,
+                          timeout=60):
+            raise SystemExit(f"cluster threaded: {victim}'s replacement "
+                             f"not Running after 60 s")
+        t_replaced = time.perf_counter() - t_del
+        counts = K.launches()
+        twins, refusals = obs.family("twin"), obs.family("refusal")
+        alg = c.scheduler.algorithm
+        route = f"{type(alg).__name__} on {getattr(alg, 'device', None)}"
+    finally:
+        times.stop()
+        c.stop()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    if times.errors:
+        raise SystemExit(f"cluster threaded: the pod watch failed "
+                         f"{times.errors}")
+
+    def pct(q):
+        return lats[min(len(lats) - 1, int(q * len(lats)))]
+    return {"up_s": t_up, "said": said.strip().splitlines(),
+            "pods_s": len(web) / (t_last - t_create), "n": len(web),
+            "create_to_running_s": t_last - t_create,
+            "p50": pct(0.50), "p99": pct(0.99), "replaced_s": t_replaced,
+            "counts": counts, "twins": twins, "refusals": refusals,
+            "route": route}
+
+
+def cluster_phase(device, sync, report, runs=None):
+    """`[cluster]`: the cluster-in-a-process (`cmd/cluster.py`) on the
+    card. (a) its components pumped by hand (`ClusterSteps`) at bench.py's
+    world, CLUSTER_CELL: the web Deployment's scale-up, the rollout to the
+    second template, then the kubelets of two nodes a zone stop and the
+    FakeClock runs past the grace period and the pods' 300 s tolerations
+    until their pods are evicted, replaced and bound again; held against
+    the same run on device="cpu" (a child process each, `runs`: started
+    by `cuda_phases` before the variant checks that run beside them, or
+    here): every pod's node and phase,
+    the ReplicaSets, the Endpoints and every proxier's table after each
+    stage, and the rounds; launches by kernel, K3 among them, no twin or
+    refusal count, no double bind. (b), once both have ended,
+    `Cluster(...).start()` with the apiserver on a free port, the same
+    Deployment created with kubectl over HTTP: pods/s and startup p50 /
+    p99 against the 5 s SLO, then one `kubectl delete pods` and its
+    replacement."""
+    cell = CLUSTER_CELL
+    ref_run, run = runs or (ClusterRun("cpu"), ClusterRun("cuda"))
+    try:
+        name = "cluster stepped"
+        a = run.result(CLUSTER_CHILD_S)
+        print(f"[cluster] stepped on cuda (a child process): "
+              f"{a['wall']:.1f} s "
+              f"{ {k: round(v, 1) for k, v in a['book'].items()} }, ended "
+              f"{a['ended_s']:.1f} s after its spawn, rounds "
+              f"{[st[:2] for st in a['stages']]}", flush=True)
+        counts = a["counts"]
+        if "TorchScheduler on cuda" not in a["route"]:
+            raise SystemExit(f"{name}: the scheduler is {a['route']}")
+        if counts["uniform_burst"] == 0:
+            raise SystemExit(f"{name}: K3 uniform_burst was not launched "
+                             f"({counts})")
+        if a["twins"] or a["refusals"]:
+            raise SystemExit(f"{name}: twin cycles {a['twins']}, refusals "
+                             f"{a['refusals']}")
+        if a["twice"] or a["wrong"]:
+            raise SystemExit(f"{name}: pods bound twice {a['twice']}, "
+                             f"without one Scheduled event on their node "
+                             f"{a['wrong']}")
+        t_wait = time.perf_counter()
+        ref = ref_run.result(CLUSTER_CHILD_S)
+        t_wait = time.perf_counter() - t_wait
+        if ref["dead"] != a["dead"]:
+            raise SystemExit(f"{name}: dead nodes {a['dead']} on cuda, "
+                             f"{ref['dead']} on cpu")
+        for (sn, sr, got), (rn, rr, want) in zip(a["stages"],
+                                                 ref["stages"]):
+            if (sn, sr) != (rn, rr):
+                raise SystemExit(f"{name}: {sn} took {sr} rounds on cuda, "
+                                 f"{rr} on cpu")
+            for part in ("pods", "replicasets", "endpoints", "tables"):
+                if got[part] != want[part]:
+                    diff = summary_diff(got[part], want[part])
+                    raise SystemExit(f"{name}: after the {sn}, {part} "
+                                     f"differ from the device=\"cpu\" run "
+                                     f"at {diff}")
+        add_launches(report, counts)
+        pods = a["stages"][-1][2]["pods"]
+        web = [p for p in pods if p[0].startswith("default/web-")]
+        bk = {k: round(v, 1) for k, v in a["book"].items()}
+        rbk = {k: round(v, 1) for k, v in ref["book"].items()}
+        print(f"[cluster] stepped: {cell['nodes']} hollow nodes in "
+              f"{cell['zones']} zones, a Deployment of {cell['replicas']} "
+              f"pods (100m / 500 Mi) with a Service and a PDB, a Job of "
+              f"{cell['job_pods']} such pods at once; rounds: "
+              f"scale-up {a['stages'][0][1]}, rollout to 250m / 1 Gi "
+              f"{a['stages'][1][1]}, the kubelets of {len(a['dead'])} nodes "
+              f"stopped {a['dead']} {a['stages'][2][1]}; {len(web)} web "
+              f"pods Running, none on a dead node, double binds 0; "
+              f"{len(pods)} pods, the ReplicaSets, the Endpoints and "
+              f"{len(a['stages'][2][2]['tables'])} proxier tables equal to "
+              f"the device=\"cpu\" run after each stage; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; route "
+              f"{a['route']}; cuda run {a['wall']:.1f} s {bk}; cpu run "
+              f"{ref['wall']:.1f} s {rbk}, waited {t_wait:.1f} s for it")
+        name = "cluster threaded"
+        b = cluster_threaded(device, CLUSTER_THREADED_NODES,
+                             cell["replicas"])
+        if "TorchScheduler on cuda" not in b["route"]:
+            raise SystemExit(f"{name}: the scheduler is {b['route']}")
+        if b["twins"] or b["refusals"]:
+            raise SystemExit(f"{name}: twin cycles {b['twins']}, refusals "
+                             f"{b['refusals']}")
+        no_degrade(name)
+        if b["n"] != cell["replicas"]:
+            raise SystemExit(f"{name}: {b['n']} web pods Running")
+        add_launches(report, b["counts"])
+        print(f"[cluster] threaded: Cluster(...).start() on "
+              f"{CLUSTER_THREADED_NODES} hollow nodes (up in "
+              f"{b['up_s']:.1f} s), kubectl create -f ({b['said']}): "
+              f"{b['n']} pods Running {b['create_to_running_s']:.2f} s "
+              f"after the create, {b['pods_s']:.1f} pods/s; startup p50 "
+              f"{b['p50']:.3f} s, p99 {b['p99']:.3f} s (density.go's SLO "
+              f"{STARTUP_SLO_S:.0f} s: "
+              f"{'met' if b['p99'] <= STARTUP_SLO_S else 'missed'}); "
+              f"kubectl delete pods: the replacement Running in "
+              f"{b['replaced_s']:.2f} s; launches "
+              f"{ {k: v for k, v in b['counts'].items() if v} }; route "
+              f"{b['route']}")
+    finally:
+        run.stop()
+        ref_run.stop()
+
+
 def degrade_drill(device, sync, n_nodes=N_NODES, n_burst=128, n_serial=12):
     """The device-fault degrade on the card (see the module docstring):
     decisions equal to the undisturbed run, every fault counted."""
@@ -7405,49 +8005,7 @@ def main() -> int:
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in MESH_KERNELS]}))
     else:
-        def timed(fn, *args):
-            t = time.perf_counter()
-            out = fn(*args)
-            print(f"[elapsed] {fn.__name__}: "
-                  f"{time.perf_counter() - t:.1f} s")
-            no_twin(fn.__name__)
-            no_degrade(fn.__name__)
-            return out
-        report = timed(kernel_checks, device, sync)
-        timed(variant_checks, device, sync)
-        timed(cycle_variant_checks, device, sync)
-        timed(uniform_variant_checks, device, sync)
-        timed(scan_variant_checks, device, sync)
-        timed(preempt_variant_checks, device, sync)
-        timed(pressure_variant_checks, device, sync)
-        timed(small_world_check, device, sync)
-        timed(main_path, "even zones", N_NODES, device, sync, report)
-        timed(main_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
-              report)
-        timed(mesh_variant_checks, device, sync)
-        timed(cycle_select_geometry_checks, device, sync)
-        timed(uniform_select_geometry_checks, device, sync)
-        timed(mesh_path, "even zones", N_NODES, device, sync, report, True)
-        timed(mesh_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
-              report, False)
-        refs = timed(scan_paths, device, sync, report)
-        timed(scale_path, device, sync, report)
-        timed(mesh_scan_variant_checks, device, sync)
-        timed(mesh_local_checks, device, sync)
-        timed(mesh_scan_paths, device, sync, report, refs)
-        timed(preempt_paths, device, sync, report)
-        timed(commit_phase, device, sync)
-        timed(twin_phase, device, sync)
-        timed(shell_uniform, device, sync, report)
-        timed(shell_preempt_baseline, device, sync, report)
-        timed(serve_phase, device, sync, report)
-        timed(fleet_phase, device, sync, report)
-        timed(cmd_phase, device, sync, report)
-        timed(scraper_phase, device, sync, report)
-        timed(tuner_phase, device, sync, report)
-        timed(extender_phase, device, sync, report)
-        timed(http_phase, device, sync, report)
-        timed(degrade_drill, device, sync)
+        report = cuda_phases(device, sync)
         print(card)     # again beside the numbers, at the end of the log
         print(json.dumps({"kernels": [report[k] for k in K.KERNELS]}))
     print(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")
@@ -7455,6 +8013,64 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def cuda_phases(device, sync):
+    """Every phase of the one-card run, in order; returns the kernels'
+    report."""
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[elapsed] {fn.__name__}: "
+              f"{time.perf_counter() - t:.1f} s")
+        no_twin(fn.__name__)
+        no_degrade(fn.__name__)
+        return out
+    report = timed(kernel_checks, device, sync)
+    timed(variant_checks, device, sync)
+    timed(cycle_variant_checks, device, sync)
+    timed(uniform_variant_checks, device, sync)
+    timed(preempt_variant_checks, device, sync)
+    timed(pressure_variant_checks, device, sync)
+    timed(small_world_check, device, sync)
+    timed(main_path, "even zones", N_NODES, device, sync, report)
+    timed(main_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
+          report)
+    timed(cycle_select_geometry_checks, device, sync)
+    timed(uniform_select_geometry_checks, device, sync)
+    timed(mesh_path, "even zones", N_NODES, device, sync, report, True)
+    timed(mesh_path, "uneven zones (rotate)", N_NODES + 1, device, sync,
+          report, False)
+    refs = timed(scan_paths, device, sync, report)
+    timed(scale_path, device, sync, report)
+    timed(mesh_scan_variant_checks, device, sync)
+    timed(mesh_local_checks, device, sync)
+    timed(mesh_scan_paths, device, sync, report, refs)
+    timed(preempt_paths, device, sync, report)
+    timed(commit_phase, device, sync)
+    timed(twin_phase, device, sync)
+    timed(shell_uniform, device, sync, report)
+    timed(shell_preempt_baseline, device, sync, report)
+    timed(serve_phase, device, sync, report)
+    timed(fleet_phase, device, sync, report)
+    timed(cmd_phase, device, sync, report)
+    timed(scraper_phase, device, sync, report)
+    timed(tuner_phase, device, sync, report)
+    timed(extender_phase, device, sync, report)
+    timed(http_phase, device, sync, report)
+    # [cluster] part (a) on the card and on device="cpu", each in a child
+    # process: beside them run only the two variant checks, which time
+    # nothing (the CPU run beside [http] cut its arrivals' rate tenfold)
+    runs = (ClusterRun("cpu"), ClusterRun("cuda"))
+    try:
+        timed(scan_variant_checks, device, sync)
+        timed(mesh_variant_checks, device, sync)
+        timed(cluster_phase, device, sync, report, runs)
+    finally:
+        for run in runs:
+            run.stop()
+    timed(degrade_drill, device, sync)
+    return report
 
 
 if __name__ == "__main__":

@@ -16,19 +16,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-from kubernetes_tpu_torch.api.types import Pod, get_resource_request
+from kubernetes_tpu_torch.controllers.nodelifecycle import (
+    TAINT_NOT_READY, TAINT_UNREACHABLE,
+)
+from kubernetes_tpu_torch.controllers.resourcequota import pod_usage
 from kubernetes_tpu_torch.store.store import Store, PODS, PRIORITYCLASSES
-
-# The node-lifecycle taint keys and the quota usage of a pod, copied from
-# the reference's controllers (`controllers/nodelifecycle.py`,
-# `controllers/resourcequota.py`), which the port does not carry yet.
-TAINT_NOT_READY = "node.kubernetes.io/not-ready"
-TAINT_UNREACHABLE = "node.kubernetes.io/unreachable"
-
-
-def pod_usage(pod: Pod) -> dict[str, int]:
-    req = get_resource_request(pod)
-    return {"cpu": req.milli_cpu, "memory": req.memory, "pods": 1}
 
 
 class AdmissionError(Exception):

@@ -1,11 +1,11 @@
 """kubernetes_tpu_torch.chaos — seeded, deterministic fault-injection plane.
 
 Copied from the reference (`kubernetes_tpu.chaos`), cut to the seams the
-port's store, shell, serving gate and fleet reach. What differs: the
-device circuit breaker absorbs the injected DeviceFault only
+port's store, shell, serving gate, fleet and lease clocks reach. What
+differs: the device circuit breaker absorbs the injected DeviceFault only
 (`device_fault_types`; a real CUDA error stops the run), and the seams of
 modules the port does not have yet (the native cores, the remote store)
-and the jumping clock are left out.
+are left out.
 
 The paper's claim is 50x throughput WITH identical binding decisions, and
 that contract is only worth anything if it survives the failure modes a
@@ -30,6 +30,8 @@ at the exact point the real failure would surface):
   next flush or the next consumer poll; events are never lost).
 - ``watch.drop`` — an embedded-store watch poll raises ExpiredError as if
   the consumer outran the log window (informer re-lists).
+- ``clock.jump`` — a ChaosClock-wrapped clock jumps forward (lease-expiry
+  / backoff-timer stress; opt-in via `wrap_clock`).
 - ``sched.crash`` — a scheduler-crash seam for crash-restart tests: the
   consumer (tests) raises SchedulerCrash at a commit boundary and then
   exercises Scheduler.recover().
@@ -94,6 +96,7 @@ SEAMS = (
     "store.evict_many",
     "store.fanout",
     "watch.drop",
+    "clock.jump",
     "sched.crash",
     "node.dead",
     "serve.shed",
@@ -101,9 +104,9 @@ SEAMS = (
 )
 
 #: seams a blanket `all=<rate>` never seeds: they need explicit opt-in
-#: plumbing (a crash-driving harness, a node-kill hook, an attached
-#: serving backpressure gate, the fleet's claim maintenance)
-OPT_IN_SEAMS = ("sched.crash", "node.dead", "serve.shed",
+#: plumbing (a wrapped clock, a crash-driving harness, a node-kill hook,
+#: an attached serving backpressure gate, the fleet's claim maintenance)
+OPT_IN_SEAMS = ("clock.jump", "sched.crash", "node.dead", "serve.shed",
                 "fleet.lease-loss",
                 # batched-mutation seams (round 23): pre-land StoreFaults
                 # at update_many / evict_many. Opt-in because the batched
@@ -158,6 +161,7 @@ _FAULT_FOR = {
     "store.evict_many": StoreFault,
     "store.fanout": FanoutFault,
     "watch.drop": InjectedFault,
+    "clock.jump": InjectedFault,
     "sched.crash": SchedulerCrash,
     "node.dead": InjectedFault,
     "serve.shed": InjectedFault,
@@ -186,7 +190,8 @@ class ChaosPlan:
     with backoff (correctness holds, bit-parity cannot)."""
 
     def __init__(self, seed: int = 0, rates: Optional[dict] = None,
-                 limit: int = 0, limits: Optional[dict] = None):
+                 limit: int = 0, jump_range: tuple = (0.5, 30.0),
+                 limits: Optional[dict] = None):
         self.seed = int(seed)
         self.rates = {s: float(r) for s, r in (rates or {}).items()}
         self.limits = {s: int(n) for s, n in (limits or {}).items()}
@@ -194,6 +199,7 @@ class ChaosPlan:
         if unknown:
             raise ValueError(f"unknown chaos seams: {sorted(unknown)}")
         self.limit = int(limit)
+        self.jump_range = jump_range
         self._rng = {s: random.Random(f"{self.seed}:{s}") for s in SEAMS}
         self._fired: dict[str, int] = {}
         self._lock = threading.Lock()
@@ -215,6 +221,12 @@ class ChaosPlan:
         from kubernetes_tpu_torch.obs import flight
         flight.RECORDER.note_crash(f"chaos:{seam}")
         return True
+
+    def jump(self, seam: str = "clock.jump") -> float:
+        """Deterministic jump magnitude for a firing clock seam."""
+        lo, hi = self.jump_range
+        with self._lock:
+            return lo + (hi - lo) * self._rng[seam].random()
 
     def counts(self) -> dict[str, int]:
         with self._lock:
@@ -286,6 +298,7 @@ def active() -> Optional[ChaosPlan]:
 
 def plan(seed: int = 0, rates: Optional[dict] = None, limit: int = 0,
          all_rate: Optional[float] = None,
+         jump_range: tuple = (0.5, 30.0),
          limits: Optional[dict] = None) -> ChaosPlan:
     """Install a deterministic injection plan (replaces any active one).
     `all_rate` seeds every seam except the opt-in ones;
@@ -299,7 +312,8 @@ def plan(seed: int = 0, rates: Optional[dict] = None, limit: int = 0,
                 continue
             merged.setdefault(s, all_rate)
     _ENV_LOADED = True          # programmatic plan overrides the env
-    _PLAN = ChaosPlan(seed=seed, rates=merged, limit=limit, limits=limits)
+    _PLAN = ChaosPlan(seed=seed, rates=merged, limit=limit,
+                      jump_range=jump_range, limits=limits)
     return _PLAN
 
 
@@ -359,6 +373,33 @@ def node_dead_point(point: str) -> None:
         return
     if p.should("node.dead"):
         hook(point)
+
+
+class ChaosClock:
+    """Clock wrapper whose now() occasionally jumps forward (the
+    fake-clock-jump seam): lease renewals, backoff expiries, and assume
+    TTLs all see sudden time loss, exactly like a GC pause or a suspended
+    VM. Wrap explicitly: `chaos.wrap_clock(clock)`."""
+
+    def __init__(self, base):
+        self._base = base
+        self._skew = 0.0
+
+    def now(self) -> float:
+        p = active()
+        if p is not None and p.should("clock.jump"):
+            self._skew += p.jump()
+        return self._base.now() + self._skew
+
+    def sleep(self, seconds: float) -> None:
+        self._base.sleep(seconds)
+
+    def step(self, seconds: float) -> None:   # FakeClock passthrough
+        self._base.step(seconds)
+
+
+def wrap_clock(clock) -> ChaosClock:
+    return ChaosClock(clock)
 
 
 def _debug_section():

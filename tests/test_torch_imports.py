@@ -81,6 +81,37 @@ HTTP_MODULES = (
     "kubernetes_tpu_torch.store.remote",
 )
 
+#: the cluster-in-a-process and what it runs: the controller manager and
+#: its controllers, the kube-proxy analog, the cluster command, kubectl,
+#: the cron parser and the hollow node agents
+CLUSTER_MODULES = (
+    "kubernetes_tpu_torch.controllers",
+    "kubernetes_tpu_torch.controllers.base",
+    "kubernetes_tpu_torch.controllers.clusterrole_aggregation",
+    "kubernetes_tpu_torch.controllers.cronjob",
+    "kubernetes_tpu_torch.controllers.daemonset",
+    "kubernetes_tpu_torch.controllers.deployment",
+    "kubernetes_tpu_torch.controllers.disruption",
+    "kubernetes_tpu_torch.controllers.endpoints",
+    "kubernetes_tpu_torch.controllers.garbagecollector",
+    "kubernetes_tpu_torch.controllers.hpa",
+    "kubernetes_tpu_torch.controllers.job",
+    "kubernetes_tpu_torch.controllers.manager",
+    "kubernetes_tpu_torch.controllers.namespace",
+    "kubernetes_tpu_torch.controllers.nodeipam",
+    "kubernetes_tpu_torch.controllers.nodelifecycle",
+    "kubernetes_tpu_torch.controllers.podgc",
+    "kubernetes_tpu_torch.controllers.podgroup",
+    "kubernetes_tpu_torch.controllers.pvbinder",
+    "kubernetes_tpu_torch.controllers.replicaset",
+    "kubernetes_tpu_torch.controllers.resourcequota",
+    "kubernetes_tpu_torch.controllers.statefulset",
+    "kubernetes_tpu_torch.controllers.ttl",
+    "kubernetes_tpu_torch.proxy", "kubernetes_tpu_torch.proxy.proxier",
+    "kubernetes_tpu_torch.cmd.cluster", "kubernetes_tpu_torch.cmd.kubectl",
+    "kubernetes_tpu_torch.utils.cron", "kubernetes_tpu_torch.models.hollow",
+)
+
 
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
@@ -98,7 +129,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "kubernetes_tpu_torch.factory" in mods
     assert "kubernetes_tpu_torch.oracle.volumes" in mods
     for m in SHELL_MODULES + SERVING_MODULES + COMMAND_MODULES \
-            + HTTP_MODULES:
+            + HTTP_MODULES + CLUSTER_MODULES:
         assert m in mods, m
     from kubernetes_tpu_torch import factory
     from kubernetes_tpu_torch.oracle import generic_scheduler, preemption
@@ -196,14 +227,41 @@ def test_http_modules_import_neither_jax_nor_the_jax_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_cluster_modules_import_neither_jax_nor_the_jax_package():
+    """`controllers/`, `proxy/`, `cmd/cluster.py`, `cmd/kubectl.py`,
+    `utils/cron.py` and `models/hollow.py`, lazy imports included; and
+    importing them alone in a fresh interpreter loads neither."""
+    _import_lines_name_no_jax(CLUSTER_MODULES, self_contained=(
+        "kubernetes_tpu_torch.controllers", "kubernetes_tpu_torch.proxy",
+        "kubernetes_tpu_torch.utils.cron"))
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {CLUSTER_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'kubernetes_tpu'"
+        " or m.startswith('kubernetes_tpu.'))\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         timeout=CHILD_TIMEOUT_S)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_admission_copies_equal_the_jax_controllers():
-    """The taint keys and `pod_usage` the port's admission carries equal
-    the reference controllers' (`controllers/nodelifecycle.py`,
-    `controllers/resourcequota.py`) on the same pods."""
+    """The port's admission takes the taint keys and `pod_usage` from the
+    port's controllers (`controllers/nodelifecycle.py`,
+    `controllers/resourcequota.py`), as the reference's admission takes
+    them from its own, and they equal the reference controllers' on the
+    same pods."""
     from kubernetes_tpu.api import types as JT
     from kubernetes_tpu.controllers import nodelifecycle, resourcequota
     from kubernetes_tpu_torch.apiserver import admission
+    from kubernetes_tpu_torch.controllers import (
+        nodelifecycle as p_nodelifecycle, resourcequota as p_resourcequota)
     from tests.test_torch_encoders import to_port
+    assert admission.TAINT_NOT_READY is p_nodelifecycle.TAINT_NOT_READY
+    assert admission.TAINT_UNREACHABLE is p_nodelifecycle.TAINT_UNREACHABLE
+    assert admission.pod_usage is p_resourcequota.pod_usage
     assert admission.TAINT_NOT_READY == nodelifecycle.TAINT_NOT_READY
     assert admission.TAINT_UNREACHABLE == nodelifecycle.TAINT_UNREACHABLE
     for pod in (JT.Pod(name="a"),
